@@ -1,30 +1,95 @@
-"""Eval step: uint8 clips -> normalized float -> model -> class scores.
+"""Train and eval steps.
 
-Counterpart of the eval half of `pmv_tpu/engine/steps.py`. PyTorch runs
-eagerly, so a step is a plain function over the model's own parameters; it
-runs under ``torch.inference_mode()``.
+Counterpart of `pmv_tpu/engine/steps.py`. PyTorch runs eagerly, so a step is
+a plain function over the model's own parameters; it sets the model's mode
+on every call (eval under ``torch.inference_mode()``, train with autograd),
+since one model may serve both.
+
+The train step runs the stages of the JAX step in its order: uint8 clip ->
+RandAugment -> normalize -> random erasing (float32) -> MixUp/CutMix ->
+train-mode forward with DropPath -> loss -> backward -> global grad norm ->
+clip and optimizer update -> top-1/top-5 with the mixup top-2 relabel and
+the NaN/inf flag. Its random draws come from generators the step owns
+(seeded by ``seed``), or from the caller: ``draws`` may carry any of
+"rand_augment", "erasing", "mixup", "drop_path" and "dropout" (the head's),
+in the forms the modules' ``sample`` functions return, so that a test can
+hand the port the draws of the JAX package.
 """
 
 import torch
 
+from pmv_tpu_torch.data.mixup import MixUp, mixup_target
+from pmv_tpu_torch.data.rand_augment import RandAugment, num_groups
+from pmv_tpu_torch.data.random_erasing import random_erasing, sample_random_erasing
+from pmv_tpu_torch.engine.train_state import TrainState
+from pmv_tpu_torch.models import optimizer as optim
+from pmv_tpu_torch.models.losses import get_loss_func
 from pmv_tpu_torch.utils.device import resolve_device
 
 
-def make_eval_preprocess_fn(cfg, device=None):
-    """uint8 frames [B, T, H, W, 3] -> normalized float32, in the channel
-    order of DATA.USE_BGR_ORDER (`kinetics.py:443-448` of the reference)."""
-    mean = torch.tensor(cfg.DATA.MEAN, dtype=torch.float32) * 255.0
-    inv_std = 1.0 / (torch.tensor(cfg.DATA.STD, dtype=torch.float32) * 255.0)
-    mean, inv_std = mean.to(device), inv_std.to(device)
-    use_bgr = cfg.DATA.USE_BGR_ORDER
+class Preprocess:
+    """On-device preprocessing (`make_preprocess_fn`, `:35-123`): uint8
+    [B, T, H, W, C] -> float32, in the channel order of DATA.USE_BGR_ORDER
+    (`kinetics.py:443-448` of the reference); in training RandAugment
+    (AUG.AA_TYPE), then normalize, then random erasing (AUG.RE_PROB).
+    ``sample`` draws the augmentation's parameters; ``__call__`` applies
+    them."""
 
-    def preprocess(frames):
+    def __init__(self, cfg, train, device):
+        if train and (
+            cfg.DETECTION.ENABLE and cfg.AVA.TRAIN_USE_COLOR_AUGMENTATION
+            or cfg.DATA.TIME_DIFF_PROB > 0
+            or cfg.DATA.SSL_COLOR_JITTER
+        ):
+            raise NotImplementedError(
+                "the AVA colour, time-difference and SSL colour augmentations "
+                "are not ported yet"
+            )
+        self.device = device
+        mean = torch.tensor(cfg.DATA.MEAN, dtype=torch.float32) * 255.0
+        inv_std = 1.0 / (torch.tensor(cfg.DATA.STD, dtype=torch.float32) * 255.0)
+        self.mean, self.inv_std = mean.to(device), inv_std.to(device)
+        self.use_bgr = cfg.DATA.USE_BGR_ORDER
+        use_ra = train and cfg.AUG.ENABLE and cfg.AUG.AA_TYPE
+        self.rand_augment = RandAugment(cfg.AUG.AA_TYPE) if use_ra else None
+        self.ra_groups = cfg.AUG.RA_GROUPS
+        self.re_prob = cfg.AUG.RE_PROB if train and cfg.AUG.ENABLE else 0.0
+        self.re_mode = cfg.AUG.RE_MODE
+
+    def sample(self, shape, generator, device_generator, needed=("rand_augment", "erasing")):
+        """The draws named in ``needed`` that this preprocessing uses."""
+        draws = {}
+        if self.rand_augment is not None and "rand_augment" in needed:
+            groups = num_groups(shape[0], self.ra_groups)
+            draws["rand_augment"] = self.rand_augment.sample(groups, generator)
+        if self.re_prob > 0 and "erasing" in needed:
+            draws["erasing"] = sample_random_erasing(
+                shape, generator, device_generator, self.device,
+                probability=self.re_prob, mode=self.re_mode,
+            )
+        return draws
+
+    def __call__(self, frames, draws=None):
         x = frames.float()
-        if use_bgr:
+        if self.use_bgr:
             x = x.flip(-1)
-        return (x - mean) * inv_std
+        if self.rand_augment is not None:
+            x = self.rand_augment.apply_batch(x, draws["rand_augment"])
+        x = (x - self.mean) * self.inv_std
+        if self.re_prob > 0:
+            x = random_erasing(x, draws["erasing"])
+        return x
 
-    return preprocess
+
+def make_preprocess_fn(cfg, train, device=None):
+    """``Preprocess`` on ``device`` (no augmentation when ``train`` is
+    False)."""
+    return Preprocess(cfg, train, resolve_device(device))
+
+
+def make_eval_preprocess_fn(cfg, device=None):
+    """uint8 frames -> normalized float32, the same for every split."""
+    return make_preprocess_fn(cfg, train=False, device=device)
 
 
 def pack_pathways(cfg, x):
@@ -32,6 +97,124 @@ def pack_pathways(cfg, x):
     if cfg.MODEL.ARCH in cfg.MODEL.SINGLE_PATHWAY_ARCH:
         return [x]
     raise NotImplementedError(f"arch {cfg.MODEL.ARCH} is not ported yet")
+
+
+def _top_k(scores, k):
+    """Indices of the k largest scores per row, the lower index first among
+    equal scores (as ``jax.lax.top_k``)."""
+    return torch.sort(scores, dim=-1, descending=True, stable=True).indices[:, :k]
+
+
+def make_train_step(cfg, device=None, seed=0, model_pm=None):
+    """Returns train_step(state, batch, lr, draws=None) -> metrics.
+
+    ``batch`` holds uint8 "frames" [B, T, H, W, 3] and int "labels" [B]
+    (arrays or tensors), moved to ``device`` (CUDA by default; raises
+    without a CUDA device unless ``device="cpu"``), the device of
+    ``state.model``. The step updates ``state`` in place and returns "loss",
+    "grad_norm" (before clipping), "top1_err", "top5_err" and "nan" as
+    tensors on the device, so that the host reads them only when it logs.
+    """
+    if model_pm is not None:
+        raise NotImplementedError("the portrait (pm) train step is not ported yet")
+    device = resolve_device(device)
+    loss_fun = get_loss_func(cfg.MODEL.LOSS_FUNC)
+    preprocess = make_preprocess_fn(cfg, train=True, device=device)
+    mixup_fn = (
+        MixUp(
+            mixup_alpha=cfg.MIXUP.ALPHA,
+            cutmix_alpha=cfg.MIXUP.CUTMIX_ALPHA,
+            mix_prob=cfg.MIXUP.PROB,
+            switch_prob=cfg.MIXUP.SWITCH_PROB,
+            label_smoothing=cfg.MIXUP.LABEL_SMOOTH_VALUE,
+            num_classes=cfg.MODEL.NUM_CLASSES,
+        )
+        if cfg.MIXUP.ENABLE
+        else None
+    )
+    generator = torch.Generator().manual_seed(seed)
+    device_generator = torch.Generator(device).manual_seed(seed)
+
+    def sample_draws(model, shape, given):
+        draws = dict(given)
+        missing = {"rand_augment", "erasing", "mixup", "drop_path", "dropout"} - set(given)
+        draws.update(preprocess.sample(shape, generator, device_generator, missing))
+        if mixup_fn is not None and "mixup" in missing:
+            draws["mixup"] = mixup_fn.sample(shape[2], shape[3], generator)
+        if "drop_path" in missing:
+            draws["drop_path"] = model.sample_drop_path_masks(
+                shape[0], device_generator, device
+            )
+        if "dropout" in missing:
+            draws["dropout"] = model.sample_head_dropout_mask(
+                shape[0], device_generator, device
+            )
+        return draws
+
+    def train_step(state: TrainState, batch, lr, draws=None):
+        model, optimizer = state.model, state.optimizer
+        model.train()
+        frames = torch.as_tensor(batch["frames"]).to(device, non_blocking=True)
+        labels = torch.as_tensor(batch["labels"]).to(device, non_blocking=True)
+        draws = sample_draws(model, tuple(frames.shape), draws or {})
+
+        x = preprocess(frames, draws)
+        if mixup_fn is not None:
+            x, targets = mixup_fn.apply(x, labels, draws["mixup"])
+        elif cfg.MODEL.LOSS_FUNC == "soft_cross_entropy":
+            targets = mixup_target(
+                labels, cfg.MODEL.NUM_CLASSES, 1.0, cfg.MIXUP.LABEL_SMOOTH_VALUE
+            )
+        else:
+            targets = labels
+        inputs = pack_pathways(cfg, x)
+
+        preds = model(
+            inputs[0], drop_path_masks=draws["drop_path"],
+            head_dropout_mask=draws["dropout"],
+        )
+        loss = loss_fun(preds.float(), targets)
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        grad_norm = optim.global_norm(
+            p.grad if p.grad is not None else torch.zeros_like(p)
+            for p in model.parameters()
+        )
+        optim.set_lr(optimizer, lr)
+        optimizer.step(grad_norm=grad_norm)
+        state.step += 1
+
+        with torch.no_grad():
+            # Top-k errors; multi-label batches skip them, as the reference.
+            # With mixup the top-2 of the mixed target relabel the batch
+            # (`train_net.py:210-219`): the second label's score merges
+            # into the first.
+            if labels.dim() > 1:
+                correct1 = correct5 = torch.ones(preds.shape[0], device=device)
+            else:
+                metric_preds = preds.detach().float()
+                metric_labels = labels
+                if mixup_fn is not None:
+                    rows = torch.arange(metric_preds.shape[0], device=device)
+                    top2i = _top_k(targets, 2)
+                    metric_preds = metric_preds.clone()
+                    metric_preds[rows, top2i[:, 0]] += metric_preds[rows, top2i[:, 1]]
+                    metric_preds[rows, top2i[:, 1]] = 0.0
+                    metric_labels = top2i[:, 0]
+                top = _top_k(metric_preds, min(5, preds.shape[-1]))
+                correct1 = (top[:, :1] == metric_labels[:, None]).any(dim=1)
+                correct5 = (top == metric_labels[:, None]).any(dim=1)
+            loss = loss.detach()
+            return {
+                "loss": loss,
+                "grad_norm": grad_norm,
+                "top1_err": (1.0 - correct1.float().mean()) * 100.0,
+                "top5_err": (1.0 - correct5.float().mean()) * 100.0,
+                "nan": ~(torch.isfinite(loss) & torch.isfinite(grad_norm)),
+            }
+
+    train_step.sample_draws = lambda model, shape: sample_draws(model, tuple(shape), {})
+    return train_step
 
 
 def make_eval_step(cfg, model, device=None):
@@ -42,12 +225,20 @@ def make_eval_step(cfg, model, device=None):
     ``device="cpu"``), which must be the model's device."""
     device = resolve_device(device)
     preprocess = make_eval_preprocess_fn(cfg, device)
-    model.eval()
 
     @torch.inference_mode()
     def eval_step(frames):
+        model.eval()
         frames = torch.as_tensor(frames).to(device, non_blocking=True)
         inputs = pack_pathways(cfg, preprocess(frames))
         return model(inputs[0])
 
     return eval_step
+
+
+def init_state(cfg, model, optimizer=None):
+    """TrainState at step 0 over ``model`` (`init_state`, `:406-445`); the
+    optimizer is built from the model's parameters when not given."""
+    if optimizer is None:
+        optimizer = optim.construct_optimizer(model, cfg)
+    return TrainState(step=0, model=model, optimizer=optimizer)

@@ -1,8 +1,9 @@
-"""The flagship configuration, MViTv2-S 16x4.
+"""The flagship configuration, MViTv2-S 16x4, and its training recipe.
 
-Counterpart of ``__graft_entry__._mvitv2_s_cfg`` at the repository's root:
-``mvitv2_s_cfg`` builds the same configuration
-(`MViT/configs/Kinetics/MVITv2_S_16x4.yaml`), or its tiny test variant.
+Counterparts of ``__graft_entry__`` at the repository's root:
+``mvitv2_s_cfg`` builds the same configuration as ``_mvitv2_s_cfg``
+(`MViT/configs/Kinetics/MVITv2_S_16x4.yaml`), or its tiny test variant;
+``apply_bench_recipe`` sets the augmentation of ``apply_bench_recipe``.
 """
 
 from pmv_tpu_torch.config import get_cfg
@@ -56,5 +57,16 @@ def mvitv2_s_cfg(tiny=False):
             [8, 1, 1, 1], [9, 1, 1, 1], [10, 1, 1, 1], [11, 1, 1, 1],
             [12, 1, 1, 1], [13, 1, 1, 1], [14, 1, 2, 2], [15, 1, 1, 1],
         ]
+    return cfg
+
+
+def apply_bench_recipe(cfg):
+    """The flagship training recipe of ``__graft_entry__.apply_bench_recipe``:
+    on-device RandAugment rand-m7-n4-mstd0.5-inc1 and random erasing with
+    p = 0.25. Its TPU.* keys and MVIT.FLAT_POOLS choose TPU layouts, which
+    the port does not have."""
+    cfg.AUG.ENABLE = True
+    cfg.AUG.AA_TYPE = "rand-m7-n4-mstd0.5-inc1"
+    cfg.AUG.RE_PROB = 0.25
     return cfg
 

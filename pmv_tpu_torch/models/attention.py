@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from pmv_tpu_torch.models.common import (
+    Dropout,
     DropPath,
     LayerNorm,
     Linear,
@@ -231,7 +232,7 @@ class MultiScaleAttention(nn.Module):
         else:
             self.qkv = Linear(dim, dim_out * 3, bias=qkv_bias)
         self.proj = Linear(dim_out, dim_out)
-        self.proj_drop = nn.Dropout(drop_rate) if drop_rate > 0 else nn.Identity()
+        self.proj_drop = Dropout(drop_rate)
 
         for name, kernel, stride in (
             ("q", kernel_q, stride_q),
@@ -353,7 +354,8 @@ class MultiScaleBlock(nn.Module):
             residual_pooling=residual_pooling, separate_qkv=separate_qkv,
             hw_switch=hw_switch,
         )
-        self.drop_path = DropPath(drop_path)
+        self.drop_path1 = DropPath(drop_path)
+        self.drop_path2 = DropPath(drop_path)
         self.norm2 = LayerNorm(att_dim)
         self.mlp = Mlp(att_dim, int(att_dim * mlp_ratio), dim_out, drop_rate)
         if dim != dim_out:
@@ -372,7 +374,18 @@ class MultiScaleBlock(nn.Module):
         self.pool_skip = len(stride_q) > 0 and np.prod(stride_q) > 1
         self.kernel_skip = tuple(s + 1 if s > 1 else s for s in stride_q)
 
-    def forward(self, x, thw_shape):
+    def sample_drop_path_masks(self, batch, generator, device=None):
+        """Keep masks (attention branch, MLP branch) for one train-mode
+        forward, or None when this block drops no path."""
+        if self.drop_path1.rate == 0.0:
+            return None
+        return (
+            self.drop_path1.sample(batch, generator, device),
+            self.drop_path2.sample(batch, generator, device),
+        )
+
+    def forward(self, x, thw_shape, drop_path_masks=None):
+        mask1, mask2 = drop_path_masks or (None, None)
         x_norm = self.norm1(x)
         x_block, thw_shape_new = self.attn(x_norm, thw_shape)
         if self.dim_mul_in_att and self.dim != self.dim_out:
@@ -387,12 +400,12 @@ class MultiScaleBlock(nn.Module):
             x = toks if cls_tok is None else torch.cat([cls_tok, toks], dim=1)
         if self.gamma_1 is not None:
             x_block = self.gamma_1.to(x_block.dtype) * x_block
-        x = x + self.drop_path(x_block)
+        x = x + self.drop_path1(x_block, mask1)
         x_norm = self.norm2(x)
         x_mlp = self.mlp(x_norm)
         if not self.dim_mul_in_att and self.dim != self.dim_out:
             x = self.proj(x_norm)
         if self.gamma_2 is not None:
             x_mlp = self.gamma_2.to(x_mlp.dtype) * x_mlp
-        x = x + self.drop_path(x_mlp)
+        x = x + self.drop_path2(x_mlp, mask2)
         return x, thw_shape_new

@@ -33,6 +33,40 @@ class LayerNorm(nn.LayerNorm):
         return y.to(x.dtype)
 
 
+class Dropout(nn.Module):
+    """Elementwise dropout, split into "sample" and "apply", so that the keep
+    mask comes from a generator the caller owns (the train step), or from
+    outside (a test hands the port the JAX package's masks). ``sample``
+    draws the keep mask; ``forward`` applies ``x / keep * mask`` in training
+    (flax ``nn.Dropout``'s ``select(mask, x / keep, 0)``) and is the
+    identity at eval."""
+
+    def __init__(self, rate=0.0):
+        super().__init__()
+        self.rate = rate
+
+    def sample(self, shape, generator, device=None):
+        """float32 keep mask of ``shape`` (1 keeps, 0 drops), or None when
+        the rate is 0."""
+        if self.rate == 0.0:
+            return None
+        u = torch.rand(shape, generator=generator, device=device)
+        return (u < 1.0 - self.rate).float()
+
+    def forward(self, x, mask=None):
+        if self.rate == 0.0 or not self.training:
+            return x
+        if mask is None:
+            raise ValueError(
+                f"{type(self).__name__} in training applies a keep mask drawn "
+                "with its sample()"
+            )
+        return x / (1.0 - self.rate) * self._broadcast(mask, x)
+
+    def _broadcast(self, mask, x):
+        return mask.to(device=x.device, dtype=x.dtype)
+
+
 class Mlp(nn.Module):
     """fc1 -> GELU -> drop -> fc2 -> drop.
 
@@ -45,27 +79,23 @@ class Mlp(nn.Module):
         super().__init__()
         self.fc1 = Linear(in_features, hidden_features)
         self.fc2 = Linear(hidden_features, out_features)
-        self.drop = nn.Dropout(drop_rate) if drop_rate > 0 else nn.Identity()
+        self.drop = Dropout(drop_rate)
 
     def forward(self, x):
         x = F.gelu(self.fc1(x), approximate="tanh")
         return self.drop(self.fc2(self.drop(x)))
 
 
-class DropPath(nn.Module):
-    """Stochastic depth: drops the residual branch per sample in training;
-    the identity at eval."""
+class DropPath(Dropout):
+    """Stochastic depth: drops the residual branch per sample in training
+    (a keep mask [B], as ``pmv_tpu/models/common.py::drop_path``); the
+    identity at eval."""
 
-    def __init__(self, rate=0.0):
-        super().__init__()
-        self.rate = rate
+    def sample(self, batch, generator, device=None):
+        return super().sample((batch,), generator, device)
 
-    def forward(self, x):
-        if self.rate == 0.0 or not self.training:
-            return x
-        keep = 1.0 - self.rate
-        mask = x.new_empty((x.shape[0],) + (1,) * (x.dim() - 1)).bernoulli_(keep)
-        return x / keep * mask
+    def _broadcast(self, mask, x):
+        return super()._broadcast(mask, x).reshape((-1,) + (1,) * (x.dim() - 1))
 
 
 def round_width(width, multiplier, min_width=1, divisor=1, verbose=False):

@@ -2,7 +2,7 @@
 
 from torch import nn
 
-from pmv_tpu_torch.models.common import Linear
+from pmv_tpu_torch.models.common import Dropout, Linear
 
 
 def head_act(x, act_func):
@@ -18,18 +18,21 @@ def head_act(x, act_func):
 
 class TransformerBasicHead(nn.Module):
     """Dropout + linear, then the activation at eval only
-    (`head_helper.py:502-577`, without the contrastive projection MLP)."""
+    (`head_helper.py:502-577`, without the contrastive projection MLP).
+    In training the dropout applies ``dropout_mask`` [B, dim_in], drawn
+    with ``self.dropout.sample``."""
 
     def __init__(self, dim_in, num_classes, dropout_rate=0.0,
                  act_func="softmax", detach_final_fc=False):
         super().__init__()
-        self.dropout = nn.Dropout(dropout_rate) if dropout_rate > 0 else nn.Identity()
+        self.dim_in = dim_in
+        self.dropout = Dropout(dropout_rate)
         self.projection = Linear(dim_in, num_classes)
         self.act_func = act_func
         self.detach_final_fc = detach_final_fc
 
-    def forward(self, x):
-        x = self.dropout(x)
+    def forward(self, x, dropout_mask=None):
+        x = self.dropout(x, dropout_mask)
         if self.detach_final_fc:
             x = x.detach()
         x = self.projection(x)

@@ -13,7 +13,7 @@ from torch import nn
 
 from pmv_tpu_torch.models.attention import MultiScaleBlock, resize_axis
 from pmv_tpu_torch.models.build import MODEL_REGISTRY
-from pmv_tpu_torch.models.common import LayerNorm, round_width
+from pmv_tpu_torch.models.common import Dropout, LayerNorm, round_width
 from pmv_tpu_torch.models.heads import TransformerBasicHead
 from pmv_tpu_torch.models.stem import PatchEmbed
 
@@ -152,7 +152,8 @@ def geometry(cfg):
 
 class MViT(nn.Module):
     """Config-driven MViT. forward(x [B, T, H, W, 3]) -> class scores
-    (softmax'd at eval), or (tokens, thw) with ``return_features``."""
+    (softmax'd at eval, logits in train mode), or (tokens, thw) with
+    ``return_features``."""
 
     def __init__(self, cfg, dtype=torch.float32):
         super().__init__()
@@ -199,10 +200,7 @@ class MViT(nn.Module):
                 self.pos_embed = nn.Parameter(
                     torch.zeros(1, num_patches + s, embed_dim)
                 )
-        self.pos_drop = (
-            nn.Dropout(cfg.MVIT.DROPOUT_RATE)
-            if cfg.MVIT.DROPOUT_RATE > 0 else nn.Identity()
-        )
+        self.pos_drop = Dropout(cfg.MVIT.DROPOUT_RATE)
         self.norm_stem = LayerNorm(embed_dim) if cfg.MVIT.NORM_STEM else None
 
         depth = cfg.MVIT.DEPTH
@@ -273,7 +271,27 @@ class MViT(nn.Module):
             pos = torch.cat([cls_pos, pos], dim=1)
         return pos
 
-    def forward(self, x, return_features=False):
+    def sample_drop_path_masks(self, batch, generator, device=None):
+        """Per block, the DropPath keep masks of one train-mode forward
+        (``MultiScaleBlock.sample_drop_path_masks``), drawn from
+        ``generator``."""
+        return [
+            block.sample_drop_path_masks(batch, generator, device)
+            for block in self.blocks
+        ]
+
+    def sample_head_dropout_mask(self, batch, generator, device=None):
+        """The head's dropout keep mask [batch, dim] for one train-mode
+        forward, or None when MODEL.DROPOUT_RATE is 0."""
+        return self.head.dropout.sample((batch, self.head.dim_in), generator, device)
+
+    def forward(self, x, return_features=False, drop_path_masks=None,
+                head_dropout_mask=None):
+        """In train mode, ``drop_path_masks`` (one entry per block, from
+        ``sample_drop_path_masks``) when MVIT.DROPPATH_RATE > 0, and
+        ``head_dropout_mask`` (``sample_head_dropout_mask``) when
+        MODEL.DROPOUT_RATE > 0. MVIT.DROPOUT_RATE > 0 is not ported for
+        training yet."""
         x, thw = self.patch_embed(x.to(self.compute_dtype))
         b, _, c = x.shape
         s = 1 if self.cls_on else 0
@@ -290,8 +308,9 @@ class MViT(nn.Module):
         if self.norm_stem is not None:
             x = self.norm_stem(x)
 
-        for block in self.blocks:
-            x, thw = block(x, thw)
+        masks = drop_path_masks or [None] * len(self.blocks)
+        for block, block_masks in zip(self.blocks, masks):
+            x, thw = block(x, thw, block_masks)
         if return_features:
             return x, thw
 
@@ -303,7 +322,7 @@ class MViT(nn.Module):
             x = self.norm(x)[:, 0]
         else:
             x = self.norm(x).mean(dim=1)
-        return self.head(x)
+        return self.head(x, head_dropout_mask)
 
 
 @MODEL_REGISTRY.register(name="MViT")

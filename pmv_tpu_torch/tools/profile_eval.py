@@ -1,15 +1,22 @@
-"""Time and profile the port's MViTv2-S 16x4 eval step on one CUDA card.
+"""Time and profile the port's MViTv2-S 16x4 eval or train step on one CUDA
+card.
 
-    python -m pmv_tpu_torch.tools.profile_eval [--batch 8] [--steps 10] [--top 20]
+    python -m pmv_tpu_torch.tools.profile_eval [--train] [--batch 8] [--steps 10] [--top 20]
 
-The step runs as it serves: bfloat16 activations (``compute_dtype``).
+The step runs as it serves, or with ``--train`` as it trains (the bench
+recipe of ``entry.apply_bench_recipe``: RandAugment, erasing, MixUp/CutMix,
+DropPath, AdamW at LR 1e-4): bfloat16 activations (``compute_dtype``).
 Prints JSON lines:
 - "step": steady-state ms per step and clips/s (host clock around steps
   that end in a synchronize), and peak device memory, beside the card's
   name and power limit;
 - "profile": from a torch.profiler window over 3 steps, the device's
-  busy share (kernel time over the window's wall time), device ms per step
-  by kind of kernel, and the top kernels by device time.
+  busy share (the time at least one kernel ran, over the window's wall
+  time), the summed kernel ms per step (larger than the busy time where
+  kernels overlap: cuDNN's grouped weight gradient runs its kernels side by
+  side) and by kind of kernel, the busy ms by kind (the time at least one
+  kernel of the kind ran), and the top kernels by device time. User
+  annotations (``Optimizer.step``) are left out.
 The frames are random uint8 clips made on the card, so no host copy is
 timed; weights are random from a seed.
 """
@@ -27,6 +34,7 @@ PROFILE_STEPS = 3
 
 # Kinds of kernel, matched on the kernel's name in this order.
 KINDS = [
+    ("depthwise wgrad", r"dw3x3x3_wgrad"),
     ("depthwise3x3x3 (K1)", r"dw3x3x3"),
     # cuDNN's convs (and its layout transposes) before matmul: their
     # names contain "gemm" too.
@@ -47,8 +55,24 @@ def kind_of(name):
     return "other"
 
 
+def _union_us(intervals):
+    """Length of the union of (start, end) intervals: the time at least one
+    kernel ran, which is less than their sum where kernels overlap."""
+    total, end_max = 0.0, None
+    for start, end in sorted(intervals):
+        if end_max is None or start > end_max:
+            total += end - start
+            end_max = end
+        elif end > end_max:
+            total += end - end_max
+            end_max = end
+    return total
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--train", action="store_true",
+                        help="profile the train step instead of the eval step")
     parser.add_argument("--batch", type=int, default=8)
     parser.add_argument("--steps", type=int, default=10)
     parser.add_argument("--top", type=int, default=20)
@@ -57,35 +81,48 @@ def main(argv=None):
         print("profile_eval: no CUDA device", file=sys.stderr)
         return 1
 
-    from pmv_tpu_torch.engine.steps import make_eval_step
-    from pmv_tpu_torch.entry import mvitv2_s_cfg
+    from pmv_tpu_torch.engine.steps import init_state, make_eval_step, make_train_step
+    from pmv_tpu_torch.entry import apply_bench_recipe, mvitv2_s_cfg
     from pmv_tpu_torch.models import build_model
     from pmv_tpu_torch.tools.timing import card_line
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     card = card_line()
-    cfg = mvitv2_s_cfg()
+    cfg = apply_bench_recipe(mvitv2_s_cfg()) if args.train else mvitv2_s_cfg()
     model = build_model(cfg, device="cuda", seed=0)
-    eval_step = make_eval_step(cfg, model, device="cuda")
     size = cfg.DATA.TEST_CROP_SIZE
     gen = torch.Generator(device="cuda").manual_seed(0)
     frames = torch.randint(
         0, 256, (args.batch, cfg.DATA.NUM_FRAMES, size, size, 3),
         dtype=torch.uint8, device="cuda", generator=gen,
     )
+    if args.train:
+        state = init_state(cfg, model)
+        train_step = make_train_step(cfg, device="cuda")
+        batch = {"frames": frames, "labels": torch.randint(
+            0, cfg.MODEL.NUM_CLASSES, (args.batch,), device="cuda", generator=gen)}
+
+        def step():
+            train_step(state, batch, 1e-4)
+    else:
+        eval_step = make_eval_step(cfg, model, device="cuda")
+
+        def step():
+            eval_step(frames)
+
     for _ in range(3):  # warm-up: cuDNN / cuBLAS plans, kernel build
-        eval_step(frames)
+        step()
     torch.cuda.synchronize()
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     for _ in range(args.steps):
-        eval_step(frames)
+        step()
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / args.steps * 1e3
     print(json.dumps({
-        "step": {"card": card, "batch": args.batch,
+        "step": {"card": card, "train": args.train, "batch": args.batch,
                  "steps": args.steps, "ms_per_step": step_ms,
                  "clips_per_s": args.batch / step_ms * 1e3,
                  "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()},
@@ -96,30 +133,41 @@ def main(argv=None):
     with torch.profiler.profile(activities=activities) as prof:
         t0 = time.perf_counter()
         for _ in range(PROFILE_STEPS):
-            eval_step(frames)
+            step()
         torch.cuda.synchronize()
         window_us = (time.perf_counter() - t0) * 1e6
 
     by_kernel = defaultdict(lambda: [0.0, 0])
+    intervals = defaultdict(list)  # kind -> (start, end) of its kernels
     for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
+        if (evt.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(evt, "is_user_annotation", False)):
             entry = by_kernel[evt.name]
             entry[0] += evt.time_range.elapsed_us()
             entry[1] += 1
+            intervals[kind_of(evt.name)].append(
+                (evt.time_range.start, evt.time_range.end))
     device_us = sum(t for t, _ in by_kernel.values())
+    busy_us = _union_us([iv for ivs in intervals.values() for iv in ivs])
     by_kind = defaultdict(float)
     for name, (t, _) in by_kernel.items():
         by_kind[kind_of(name)] += t
+    busy_by_kind = {k: _union_us(ivs) for k, ivs in intervals.items()}
     n = PROFILE_STEPS
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:args.top]
     print(json.dumps({
         "profile": {
-            "card": card, "batch": args.batch,
+            "card": card, "train": args.train, "batch": args.batch,
             "steps": n, "window_ms_per_step": window_us / n / 1e3,
             "device_ms_per_step": device_us / n / 1e3,
-            "device_busy_share": device_us / window_us,
+            "device_busy_ms_per_step": busy_us / n / 1e3,
+            "device_busy_share": busy_us / window_us,
             "ms_per_step_by_kind": {
                 k: v / n / 1e3 for k, v in sorted(by_kind.items(), key=lambda kv: -kv[1])
+            },
+            "busy_ms_per_step_by_kind": {
+                k: v / n / 1e3
+                for k, v in sorted(busy_by_kind.items(), key=lambda kv: -kv[1])
             },
             "top_kernels": [
                 {"name": name[:120], "ms_per_step": t / n / 1e3,

@@ -1,19 +1,164 @@
-"""Multi-view test meter (`MViT/slowfast/utils/meters.py:247-436`), in numpy.
+"""Training and multi-view test meters (`MViT/slowfast/utils/meters.py`),
+in numpy, with the JAX package's ``json_stats`` keys.
 
-TestMeter: clip i belongs to video i // num_clips; per-video sum or max
-ensemble of the clips' softmax scores; labels must agree across a video's
-views; finalize reports top-1/top-5 accuracy (or mAP when multi-label).
+- ScalarMeter: windowed median smoothing.
+- TrainMeter: eta, lr, loss, grad norm, top-1/5 errors and the iteration,
+  data and net timers, logged every LOG_PERIOD iterations and per epoch.
+- TestMeter: clip i belongs to video i // num_clips; per-video sum or max
+  ensemble of the clips' softmax scores; labels must agree across a
+  video's views; finalize reports top-1/top-5 accuracy (or mAP when
+  multi-label).
 """
 
 import datetime
+from collections import deque
 
 import numpy as np
+import torch
 
 from pmv_tpu_torch.utils import logging as pmv_logging
 from pmv_tpu_torch.utils import metrics
 from pmv_tpu_torch.utils.timer import Timer
 
 logger = pmv_logging.get_logger(__name__)
+
+
+def gpu_mem_usage():
+    """Peak device memory in GB (``torch.cuda.max_memory_allocated``), 0 on
+    a machine without CUDA."""
+    if not torch.cuda.is_available():
+        return 0.0
+    return torch.cuda.max_memory_allocated() / 1024 ** 3
+
+
+class ScalarMeter:
+    """Median over a sliding window of scalar values (`meters.py` ScalarMeter)."""
+
+    def __init__(self, window_size):
+        self.deque = deque(maxlen=window_size)
+        self.total = 0.0
+        self.count = 0
+
+    def reset(self):
+        self.deque.clear()
+        self.total = 0.0
+        self.count = 0
+
+    def add_value(self, value):
+        self.deque.append(value)
+        self.count += 1
+        self.total += value
+
+    def get_win_median(self):
+        return np.median(self.deque)
+
+    def get_win_avg(self):
+        return np.mean(self.deque)
+
+    def get_global_avg(self):
+        return self.total / max(self.count, 1)
+
+
+class TrainMeter:
+    """Per-iteration and per-epoch training stats (`meters.py` TrainMeter)."""
+
+    def __init__(self, epoch_iters, cfg):
+        self._cfg = cfg
+        self.epoch_iters = epoch_iters
+        self.MAX_EPOCH = cfg.SOLVER.MAX_EPOCH * epoch_iters
+        self.iter_timer = Timer()
+        self.data_timer = Timer()
+        self.net_timer = Timer()
+        self.loss = ScalarMeter(cfg.LOG_PERIOD)
+        self.loss_total = 0.0
+        self.lr = None
+        self.grad_norm = ScalarMeter(cfg.LOG_PERIOD)
+        self.mb_top1_err = ScalarMeter(cfg.LOG_PERIOD)
+        self.mb_top5_err = ScalarMeter(cfg.LOG_PERIOD)
+        self.num_top1_mis = 0
+        self.num_top5_mis = 0
+        self.num_samples = 0
+        self.output_dir = cfg.OUTPUT_DIR
+        self.multi_label = cfg.DATA.MULTI_LABEL
+
+    def reset(self):
+        self.loss.reset()
+        self.loss_total = 0.0
+        self.lr = None
+        self.grad_norm.reset()
+        self.mb_top1_err.reset()
+        self.mb_top5_err.reset()
+        self.num_top1_mis = 0
+        self.num_top5_mis = 0
+        self.num_samples = 0
+
+    def iter_tic(self):
+        self.iter_timer.reset()
+        self.data_timer.reset()
+
+    def iter_toc(self):
+        self.iter_timer.pause()
+        self.net_timer.pause()
+
+    def data_toc(self):
+        self.data_timer.pause()
+        self.net_timer.reset()
+
+    def update_stats(self, top1_err, top5_err, loss, lr, grad_norm, mb_size):
+        self.loss.add_value(loss)
+        self.lr = lr
+        self.grad_norm.add_value(grad_norm)
+        self.loss_total += loss * mb_size
+        self.num_samples += mb_size
+        if not self.multi_label:
+            self.mb_top1_err.add_value(top1_err)
+            self.mb_top5_err.add_value(top5_err)
+            self.num_top1_mis += top1_err * mb_size
+            self.num_top5_mis += top5_err * mb_size
+
+    def log_iter_stats(self, cur_epoch, cur_iter):
+        if (cur_iter + 1) % self._cfg.LOG_PERIOD != 0:
+            return
+        eta_sec = self.iter_timer.seconds() * (
+            self.MAX_EPOCH - (cur_epoch * self.epoch_iters + cur_iter + 1)
+        )
+        stats = {
+            "_type": "train_iter",
+            "epoch": f"{cur_epoch + 1}/{self._cfg.SOLVER.MAX_EPOCH}",
+            "iter": f"{cur_iter + 1}/{self.epoch_iters}",
+            "dt": self.iter_timer.seconds(),
+            "dt_data": self.data_timer.seconds(),
+            "dt_net": self.net_timer.seconds(),
+            "eta": str(datetime.timedelta(seconds=int(eta_sec))),
+            "loss": self.loss.get_win_median(),
+            "lr": self.lr,
+            "grad_norm": self.grad_norm.get_win_median(),
+            "gpu_mem": f"{gpu_mem_usage():.2f}G",
+        }
+        if not self.multi_label:
+            stats["top1_err"] = self.mb_top1_err.get_win_median()
+            stats["top5_err"] = self.mb_top5_err.get_win_median()
+        pmv_logging.log_json_stats(stats, logger)
+
+    def log_epoch_stats(self, cur_epoch):
+        eta_sec = self.iter_timer.seconds() * (
+            self.MAX_EPOCH - (cur_epoch + 1) * self.epoch_iters
+        )
+        stats = {
+            "_type": "train_epoch",
+            "epoch": f"{cur_epoch + 1}/{self._cfg.SOLVER.MAX_EPOCH}",
+            "dt": self.iter_timer.seconds(),
+            "dt_data": self.data_timer.seconds(),
+            "dt_net": self.net_timer.seconds(),
+            "eta": str(datetime.timedelta(seconds=int(eta_sec))),
+            "lr": self.lr,
+            "loss": self.loss_total / max(self.num_samples, 1),
+            "gpu_mem": f"{gpu_mem_usage():.2f}G",
+        }
+        if not self.multi_label:
+            stats["top1_err"] = self.num_top1_mis / max(self.num_samples, 1)
+            stats["top5_err"] = self.num_top5_mis / max(self.num_samples, 1)
+        pmv_logging.log_json_stats(stats, logger)
 
 
 class TestMeter:

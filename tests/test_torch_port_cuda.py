@@ -11,10 +11,15 @@ import numpy as np
 import pytest
 import torch
 
-from pmv_tpu_torch.engine.steps import make_eval_step
-from pmv_tpu_torch.entry import mvitv2_s_cfg
+from pmv_tpu_torch.engine.steps import init_state, make_eval_step, make_train_step
+from pmv_tpu_torch.entry import apply_bench_recipe, mvitv2_s_cfg
 from pmv_tpu_torch.models import build_model
-from pmv_tpu_torch.ops.depthwise import depthwise3x3x3, depthwise3x3x3_plain
+from pmv_tpu_torch.ops.depthwise import (
+    depthwise3x3x3,
+    depthwise3x3x3_plain,
+    depthwise3x3x3_wgrad,
+    depthwise3x3x3_wgrad_plain,
+)
 from torch_port_util import cuda_device  # noqa: F401  (fixture)
 
 pytestmark = pytest.mark.cuda
@@ -56,10 +61,23 @@ def test_kernel_matches_plain(cuda_device, shape, dtype):  # noqa: F811
 
 
 def test_kernel_refuses_what_it_does_not_take(cuda_device):  # noqa: F811
+    """What the kernels do not take raises; a gradient is computed, through
+    K1 (dx) and the wgrad kernel (dw), against the plain versions."""
     x, w = _inputs((1, 2, 4, 4, 16), cuda_device, torch.float32)
-    with pytest.raises(RuntimeError, match="forward-only"):
-        depthwise3x3x3(x.requires_grad_(), w)
-    x = x.detach()
+    g = torch.randn_like(x)
+    x.requires_grad_()
+    w.requires_grad_()
+    k1, wg = depthwise3x3x3.launches, depthwise3x3x3_wgrad.launches
+    depthwise3x3x3(x, w).backward(g)
+    torch.cuda.synchronize()
+    assert depthwise3x3x3.launches == k1 + 2  # forward and dx
+    assert depthwise3x3x3_wgrad.launches == wg + 1
+    dx, dw = x.grad, w.grad
+    x, w = x.detach(), w.detach()
+    torch.testing.assert_close(
+        dx, depthwise3x3x3_plain(g, w.flip(0, 1, 2)), atol=1e-5, rtol=1e-5
+    )
+    torch.testing.assert_close(dw, depthwise3x3x3_wgrad_plain(x, g), atol=1e-4, rtol=1e-5)
     with pytest.raises(TypeError):
         depthwise3x3x3(x, w.bfloat16())
     with pytest.raises(ValueError, match="multiple of 8"):
@@ -68,6 +86,51 @@ def test_kernel_refuses_what_it_does_not_take(cuda_device):  # noqa: F811
         depthwise3x3x3(x.transpose(2, 3), w)
     with pytest.raises(ValueError):
         depthwise3x3x3(x, w.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        depthwise3x3x3_wgrad(x, g.transpose(2, 3))
+    with pytest.raises(TypeError):
+        depthwise3x3x3_wgrad(x, g.bfloat16())
+
+
+# dw sums up to B*T*H*W = 200,704 products of N(0, 1) values, of order
+# sqrt(200,704) ~ 450, in another order than the plain version.
+WGRAD_TOLERANCE = {
+    torch.float32: dict(atol=2e-3, rtol=1e-5),
+    torch.bfloat16: dict(atol=1e-2, rtol=8e-3),  # one bf16 rounding of dw
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_wgrad_kernel_matches_plain(cuda_device, shape, dtype):  # noqa: F811
+    x, _ = _inputs(shape, cuda_device, dtype)
+    g, _ = _inputs(shape, cuda_device, dtype, seed=1)
+    before = depthwise3x3x3_wgrad.launches
+    dw = depthwise3x3x3_wgrad(x, g)
+    torch.cuda.synchronize()
+    assert depthwise3x3x3_wgrad.launches == before + 1
+    assert dw.dtype == dtype and dw.shape == (3, 3, 3, shape[-1])
+    ref = depthwise3x3x3_wgrad_plain(x.float(), g.float())
+    torch.testing.assert_close(dw.float(), ref, **WGRAD_TOLERANCE[dtype])
+    assert torch.equal(dw, depthwise3x3x3_wgrad(x, g))  # deterministic
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grads_on_card_match_cpu(cuda_device, dtype):  # noqa: F811
+    """The autograd Function's dx and dw, card against CPU, from the same
+    (rounded) inputs."""
+    x, w = _inputs((2, 4, 9, 7, 24), "cpu", dtype)
+    g = torch.from_numpy(np.random.default_rng(2).normal(size=x.shape)).to(dtype)
+    grads = []
+    for device in ("cpu", cuda_device):
+        xd = x.detach().to(device).requires_grad_()
+        wd = w.detach().to(device).requires_grad_()
+        depthwise3x3x3(xd, wd).backward(g.to(device))
+        grads.append((xd.grad.cpu().float(), wd.grad.cpu().float()))
+    (dx_cpu, dw_cpu), (dx_gpu, dw_gpu) = grads
+    tol = dict(atol=1e-5, rtol=1e-5) if dtype == torch.float32 else dict(atol=1e-2, rtol=8e-3)
+    torch.testing.assert_close(dx_gpu, dx_cpu, **tol)
+    torch.testing.assert_close(dw_gpu, dw_cpu, **tol)
 
 
 def test_tiny_model_on_card_matches_cpu(cuda_device):  # noqa: F811
@@ -86,3 +149,41 @@ def test_tiny_model_on_card_matches_cpu(cuda_device):  # noqa: F811
     assert depthwise3x3x3.launches - before == 3  # q-pool 0, K and V pools 1
     cpu = make_eval_step(cfg, cpu_model, device="cpu")(frames)
     torch.testing.assert_close(gpu, cpu, atol=2e-5, rtol=0)
+
+
+def test_tiny_train_step_on_card_matches_cpu(cuda_device):  # noqa: F811
+    """One train step of the bench recipe at tiny width with 3x3x3 pools,
+    float32, card against CPU from the same weights and draws: loss and
+    grad norm to rtol 1e-5, gradients to 1e-5 of their norm, and the
+    updated weights to 2 lr (a gradient element within float noise of 0,
+    as the K-norm bias's, may take AdamW's first step either way)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = apply_bench_recipe(mvitv2_s_cfg(tiny=True))
+    cfg.DATA.NUM_FRAMES = 4
+    cfg.MVIT.POOL_KVQ_KERNEL = [3, 3, 3]
+    lr = 1e-3
+    rng = np.random.default_rng(3)
+    batch = {"frames": rng.integers(0, 256, (2, 4, 16, 16, 3), np.uint8),
+             "labels": rng.integers(0, cfg.MODEL.NUM_CLASSES, 2)}
+    models, metrics = [], []
+    draws = None
+    for device in ("cpu", cuda_device):
+        model = build_model(cfg, device=device, dtype=torch.float32, seed=2)
+        step = make_train_step(cfg, device=device)
+        draws = draws or step.sample_draws(model, batch["frames"].shape)
+        k1, wg = depthwise3x3x3.launches, depthwise3x3x3_wgrad.launches
+        metrics.append({k: v.cpu() for k, v in step(init_state(cfg, model), batch, lr, draws).items()})
+        models.append(model)
+    assert depthwise3x3x3.launches - k1 == 6  # 3 pools, forward and dx
+    assert depthwise3x3x3_wgrad.launches - wg == 3
+    (cpu, gpu), (cpu_model, gpu_model) = metrics, models
+    for key in ("loss", "grad_norm"):
+        torch.testing.assert_close(gpu[key], cpu[key], atol=0, rtol=1e-5)
+    for key in ("top1_err", "top5_err", "nan"):
+        assert torch.equal(gpu[key], cpu[key])
+    grads = [(p.grad, q.grad.cpu()) for p, q in zip(cpu_model.parameters(), gpu_model.parameters())]
+    diff = sum(float((a - b).square().sum()) for a, b in grads) ** 0.5
+    assert diff <= 1e-5 * float(cpu["grad_norm"])
+    for (name, a), b in zip(cpu_model.state_dict().items(), gpu_model.state_dict().values()):
+        torch.testing.assert_close(b.cpu(), a, atol=2.0001 * lr, rtol=0, msg=name)
