@@ -9,12 +9,16 @@ Phases, in order; any failure raises and exits non-zero:
 
 1. Print the card (nvidia-smi name and power limit), the torch and CUDA
    versions, and build every CUDA kernel of the package from its sources.
+   nvcc's ptxas report must show no spills.
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes the MViTv2-S 16x4 path gives it (batch 8, bfloat16 and float32)
-   and at an odd portrait shape; time the kernel, the plain version and the
-   one-call library equivalent with CUDA events. The forward kernel K1
-   (``depthwise3x3x3``), then the backward through the autograd Function:
-   dx through K1 and dw through ``depthwise3x3x3_wgrad``.
+   and at odd shapes (C of 8, 24 and 40, H and W of 1, 2, 7 and 13, portrait
+   grids, T of 1 to 3, B of 1); time the kernel cold (L2 flushed) and warm,
+   the plain version and the one-call library equivalent with CUDA events.
+   The forward kernel K1 (``depthwise3x3x3``), then the backward through
+   the autograd Function: dx through K1 and dw through
+   ``depthwise3x3x3_wgrad``; two runs of the wgrad kernel give the same
+   bits.
 3. Build full-width MViTv2-S 16x4 from a seeded init and run its eval step
    at batch 1 in float32 on the card and on the CPU (the CPU copy takes the
    plain versions); the class scores must agree, and one forward must
@@ -42,6 +46,7 @@ and prints no result.
 import argparse
 import json
 import os
+import re
 import sys
 import time
 
@@ -53,16 +58,6 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 
-# (input shape at batch 8, launches per forward) of the stride-1 3x3x3
-# pools of MViTv2-S 16x4 (C = heads * head_dim).
-MVIT_POOL_SHAPES = [
-    ((8, 8, 56, 56, 96), 1),    # q-pool, block 0
-    ((8, 8, 28, 28, 192), 1),   # q-pool, block 2
-    ((8, 8, 14, 14, 384), 10),  # q-pools, blocks 4-13
-    ((8, 8, 14, 14, 768), 2),   # K and V pools, block 14
-    ((8, 8, 7, 7, 768), 3),     # q, K and V pools, block 15
-]
-PORTRAIT_SHAPE = (2, 3, 13, 7, 24)
 TOLERANCE = {  # (atol, rtol) against the plain version in float32
     torch.float32: (1e-5, 1e-5),
     torch.bfloat16: (1e-2, 8e-3),  # one bfloat16 rounding of the output
@@ -105,6 +100,14 @@ def wgrad_bound(shape, dtype):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def _kernel_cases():
+    """(shape, launches per forward): the MViTv2-S 16x4 pool shapes at batch
+    8, then the odd shapes (no launches on the main path)."""
+    from pmv_tpu_torch.ops.depthwise import MVIT_POOL_SHAPES, ODD_SHAPES
+
+    return list(MVIT_POOL_SHAPES) + [(s, 0) for s in ODD_SHAPES]
+
+
 def phase_kernels(flush):
     import torch.nn.functional as F
 
@@ -113,8 +116,7 @@ def phase_kernels(flush):
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     records = []
-    cases = [(s, n) for s, n in MVIT_POOL_SHAPES] + [(PORTRAIT_SHAPE, 0)]
-    for shape, per_forward in cases:
+    for shape, per_forward in _kernel_cases():
         for dtype in (torch.bfloat16, torch.float32):
             x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
             w = (0.1 * torch.randn((3, 3, 3, shape[-1]), generator=gen,
@@ -136,6 +138,7 @@ def phase_kernels(flush):
                 "launches_per_forward": per_forward,
                 "max_abs_err": err,
                 "kernel_ms": time_ms(lambda: depthwise3x3x3(x, w), flush=flush),
+                "kernel_warm_ms": time_ms(lambda: depthwise3x3x3(x, w)),
                 "plain_ms": time_ms(lambda: depthwise3x3x3_plain(x, w), flush=flush),
                 "library_ms": time_ms(
                     lambda: F.conv3d(x_ncdhw, w_conv, padding=1, groups=c),
@@ -162,8 +165,7 @@ def phase_backward(flush):
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     records = []
-    cases = [(s, n) for s, n in MVIT_POOL_SHAPES] + [(PORTRAIT_SHAPE, 0)]
-    for shape, per_forward in cases:
+    for shape, per_forward in _kernel_cases():
         for dtype in (torch.bfloat16, torch.float32):
             x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
             g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
@@ -194,6 +196,7 @@ def phase_backward(flush):
                 "max_abs_err": float((wg.grad.float() - dw_ref).abs().max()),
                 "dw_max_abs": float(dw_ref.abs().max()),
                 "kernel_ms": time_ms(lambda: depthwise3x3x3_wgrad(x, g), flush=flush),
+                "kernel_warm_ms": time_ms(lambda: depthwise3x3x3_wgrad(x, g)),
                 "plain_ms": time_ms(lambda: depthwise3x3x3_wgrad_plain(x, g), flush=flush),
                 "library_ms": time_ms(
                     lambda: torch.ops.aten.convolution_backward(
@@ -474,6 +477,7 @@ def kernels_line(records, launches):
             "max_abs_err": max(r["max_abs_err"] for r in recs),
             "ms": kernel_ms,
             "kernel_ms": kernel_ms,
+            "kernel_warm_ms": summed("kernel_warm_ms"),
             "plain_ms": summed("plain_ms"),
             "bound_ms": summed("bound_ms"),
             "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in main) else "operations",
@@ -518,6 +522,11 @@ def main():
     log(json.dumps({"phase": "build", "seconds": build_s}))
     for stem, output in kernel_build.build_log.items():
         log(f"nvcc {stem}.cu:\n{output.strip()}")
+    spills = [line.strip() for output in kernel_build.build_log.values()
+              for line in output.splitlines()
+              if any(int(n) for n in re.findall(r"(\d+) bytes spill", line))]
+    if spills:
+        raise AssertionError("ptxas reports spills:\n" + "\n".join(spills))
 
     # Phase 2: every kernel against its plain version.
     flush = torch.empty(96 * 2**20, dtype=torch.uint8, device="cuda")

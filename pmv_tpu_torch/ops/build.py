@@ -3,9 +3,10 @@
 Each source in ``ops/csrc/*.cu`` compiles with ``nvcc`` for Hopper
 (``sm_90a``) into its own shared library with a plain C interface, which the
 kernel's wrapper loads with ``ctypes``. A library is named after a hash of
-its source and the compiler flags, so an edited source never loads a stale
-build. Building happens at first use, never at import; ``build_kernels``
-starts one ``nvcc`` per source, all at once, and waits for them together.
+its source, the headers beside it and the compiler flags, so an edited
+source or header never loads a stale build. Building happens at first use,
+never at import; ``build_kernels`` starts one ``nvcc`` per source, all at
+once, and waits for them together.
 
 The libraries go to ``build/kernels`` at the root of the checkout (listed in
 ``.gitignore``), or to ``$PMV_TORCH_BUILD_DIR`` when that is set.
@@ -51,11 +52,14 @@ def nvcc_path():
 
 
 def library_path(stem):
-    src = CSRC / f"{stem}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return build_dir() / f"lib{stem}_{digest}.so"
+    """The library of ``csrc/<stem>.cu``, named after a hash of the source,
+    every header in ``csrc/`` (a source may include any of them) and the
+    flags."""
+    digest = hashlib.sha256((CSRC / f"{stem}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return build_dir() / f"lib{stem}_{digest.hexdigest()[:16]}.so"
 
 
 def build_kernels(stems=None):

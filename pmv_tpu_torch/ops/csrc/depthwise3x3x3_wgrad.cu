@@ -15,52 +15,45 @@
 // 4 bytes of x and of g, so the least time is (bytes of x + bytes of g) over
 // the memory rate; dw is 27 * C values.
 //
-// Design: a reduction over up to B*T*H*W = 200,704 positions per channel.
-// - Registers: 27 float32 accumulators per channel, so a thread takes 2
-//   channels (54 accumulators), not the forward kernel's 8.
-// - A thread walks one (b, t, h) row along W and keeps the 9 neighbouring
-//   rows' x at w-1, w and w+1 in registers (a 3-column window, rotated
-//   without copies by unrolling the walk by 3), so each position loads 9
-//   new x values and one g, not 27 and one. The halo is masked, never
-//   materialised: x is read from device memory once, and the reuse across
-//   the 9 rows is served by the L1 and L2 caches.
-// - A block is 32 x 4 threads: threadIdx.x picks a channel pair (a warp
-//   covers 64 neighbouring channels, so loads are coalesced), threadIdx.y
-//   one of 4 row lanes. blockIdx.y picks a 64-channel chunk and blockIdx.x
-//   a contiguous range of rows, so small grids with many channels still
-//   give enough blocks.
-// - Deterministic sum: each block reduces its row lanes through shared
-//   memory and writes one float32 partial per (tap, channel) into scratch
-//   [nblocks, 27, C]; a second kernel sums the partials in block order. No
-//   atomics, so two runs give the same bits.
+// What held the first version back: a thread held 27 accumulators for 2
+// channels, so in bfloat16 each of its 10 global loads per position moved 4
+// bytes (bound by load instructions: slower in bfloat16 than in float32), and
+// the 9 neighbouring (t, h) rows came from L2 up to 9 times.
+//
+// Design (staging in dw3x3x3_stage.cuh):
+// - A block stages its tile's x planes t-1, t, t+1 with their halo in a
+//   ring of 4 shared-memory slots and the matching g plane t in a ring of 2,
+//   thread 0 copying the next plane of each with one tensor copy (TMA)
+//   while the block works on t; the copy zero-fills the halo.
+// - The 27 taps are split across threads: a thread owns the 9 (dh, dw) taps
+//   of one dt for 4 channels (36 float32 accumulators), one row of the tile
+//   and a segment of W. Along W it keeps g at w-1, w, w+1 in registers and
+//   reads each staged x column once: per position 3 x reads and 1 g read
+//   from shared memory (8 bytes each in bfloat16, 16 in float32).
+// - Deterministic sum: after the walk over T the block sums its threads'
+//   accumulators through shared memory in a fixed order and writes one
+//   float32 partial per (tap, channel) of its chunk into scratch
+//   [B * T ranges * H tiles, 27, C]; a second kernel sums the partials in
+//   that order. No atomics, so two runs give the same bits.
+//
+// Where it stands (PERF.md, section 6): 3.2x faster than the first version
+// summed over one MViTv2-S train step, faster in bfloat16 than in float32
+// at the large shapes (no longer bound by load instructions), and about 5x
+// its bytes bound: its loop issues about 1.6 instructions per multiply-add
+// and each call is two launches.
 //
 // Plain C interface, loaded with ctypes: pmv_dw3x3x3_wgrad returns
 // cudaGetLastError() after the launches (0 when they were accepted).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "dw3x3x3_stage.cuh"
 
 namespace {
 
-constexpr int kLanes = 32;  // channel pairs per block
-constexpr int kRows = 4;    // row lanes per block
-constexpr int kTaps = 27;
+using dw3::Geometry;
+using dw3::Tile;
+
+constexpr int kMaxThreads = 512;
 constexpr int kReduceThreads = 256;
-
-__device__ __forceinline__ void load2(const float* p, float& a, float& b) {
-  const float2 v = __ldg(reinterpret_cast<const float2*>(p));
-  a = v.x;
-  b = v.y;
-}
-
-// A bfloat16 is the upper half of a float32, so widening is a shift.
-__device__ __forceinline__ void load2(const __nv_bfloat16* p, float& a,
-                                      float& b) {
-  const uint32_t word = __ldg(reinterpret_cast<const unsigned int*>(p));
-  a = __uint_as_float(word << 16);
-  b = __uint_as_float(word & 0xffff0000u);
-}
 
 __device__ __forceinline__ void store1(float* p, float v) { *p = v; }
 
@@ -68,139 +61,182 @@ __device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-// x of the 9 neighbouring (dt, dh) rows at one w, for 2 channels.
-struct Column {
-  float v[9][2];
-};
+// Staged x planes: t-1, t and t+1, worked on, and t+2, in flight; staged g
+// planes: t and t+1. Slots start on 128-byte lines; then one mbarrier a
+// slot.
+constexpr int kRing = 4;
+constexpr int kGRing = 2;
 
-// Column at w = iw: zero outside the grid.
-template <typename T>
-__device__ __forceinline__ void load_column(const T* const (&rows)[9],
-                                            unsigned inside, int iw, int nw,
-                                            int nc, Column& col) {
-  const bool in_w = iw >= 0 && iw < nw;
-#pragma unroll
-  for (int k = 0; k < 9; ++k) {
-    if (in_w && ((inside >> k) & 1u)) {
-      load2(rows[k] + static_cast<int64_t>(iw) * nc, col.v[k][0], col.v[k][1]);
-    } else {
-      col.v[k][0] = 0.f;
-      col.v[k][1] = 0.f;
-    }
-  }
+__host__ __device__ inline int x_slot_units(const Geometry& g) {
+  return dw3::lines((g.th + 2) * g.pitch);
 }
 
-// acc[(dt, dh, dw)] += x[w + dw - 1] * g[w] for the columns at w-1, w, w+1.
-__device__ __forceinline__ void accumulate(const Column& lo, const Column& mid,
-                                           const Column& hi, float g0,
-                                           float g1, float (&acc)[kTaps][2]) {
-#pragma unroll
-  for (int k = 0; k < 9; ++k) {
-    acc[k * 3][0] = fmaf(lo.v[k][0], g0, acc[k * 3][0]);
-    acc[k * 3][1] = fmaf(lo.v[k][1], g1, acc[k * 3][1]);
-    acc[k * 3 + 1][0] = fmaf(mid.v[k][0], g0, acc[k * 3 + 1][0]);
-    acc[k * 3 + 1][1] = fmaf(mid.v[k][1], g1, acc[k * 3 + 1][1]);
-    acc[k * 3 + 2][0] = fmaf(hi.v[k][0], g0, acc[k * 3 + 2][0]);
-    acc[k * 3 + 2][1] = fmaf(hi.v[k][1], g1, acc[k * 3 + 2][1]);
-  }
+__host__ __device__ inline int g_slot_units(const Geometry& g) {
+  return dw3::lines(g.th * g.gpitch);
+}
+
+// Shared units of the staging rings and their mbarriers; the block's final
+// sum reuses them.
+__host__ __device__ inline int ring_units(const Geometry& g) {
+  return kRing * x_slot_units(g) + kGRing * g_slot_units(g) +
+         dw3::kBarrierUnits;
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kLanes * kRows)
-    dw3x3x3_wgrad_partial_kernel(const T* __restrict__ x,
-                                 const T* __restrict__ g,
-                                 float* __restrict__ partial, int nb, int nt,
-                                 int nh, int nw, int nc, int rows_per_block) {
-  const int c = (blockIdx.y * kLanes + threadIdx.x) * 2;
-  const bool active = c < nc;
-  const int nrows = nb * nt * nh;  // (b, t, h) rows
-  const int begin = blockIdx.x * rows_per_block;
-  const int end = begin + rows_per_block < nrows ? begin + rows_per_block
-                                                 : nrows;
+__global__ void __launch_bounds__(kMaxThreads)
+    dw3x3x3_wgrad_partial_kernel(const __grid_constant__ CUtensorMap xmap,
+                                 const __grid_constant__ CUtensorMap gmap,
+                                 float* __restrict__ partial,
+                                 const Geometry g) {
+  extern __shared__ __align__(128) uint4 smem[];
+  constexpr int kPerUnit = 16 / static_cast<int>(sizeof(T));
+  const Tile tile = dw3::block_tile<T>(g);
+  const int plane_units = x_slot_units(g);
+  const int gplane_units = g_slot_units(g);
+  uint4* gring = smem + kRing * plane_units;
+  uint64_t* xbars = reinterpret_cast<uint64_t*>(gring + kGRing * gplane_units);
+  uint64_t* gbars = xbars + kRing;
 
-  float acc[kTaps][2];
+  // Thread coordinates: 4-channel group fastest, then row, then dt, then
+  // segment.
+  const int nq = (kPerUnit / 4) << g.nv_log2;
+  const int q = threadIdx.x % nq;
+  int rest = threadIdx.x / nq;
+  const int hr = rest % g.th;
+  rest /= g.th;
+  const int dt = rest % 3;
+  const int s = rest / 3;
+  const int ws = s * g.sw;
+  const int we = min(ws + g.sw, g.nw);
+  const bool active = tile.h0 + hr < g.nh && ws < we;
+
+  float acc[3][3][4];  // [dh][dw][channel]
 #pragma unroll
-  for (int k = 0; k < kTaps; ++k) {
-    acc[k][0] = 0.f;
-    acc[k][1] = 0.f;
+  for (int dh = 0; dh < 3; ++dh) {
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[dh][d][i] = 0.f;
+    }
   }
 
-  if (active) {
-    for (int r = begin + threadIdx.y; r < end; r += kRows) {
-      const int ih = r % nh;
-      const int it = (r / nh) % nt;
-      const int ib = r / (nh * nt);
-      const T* rows[9];
-      unsigned inside = 0;
-#pragma unroll
-      for (int dt = 0; dt < 3; ++dt) {
-#pragma unroll
-        for (int dh = 0; dh < 3; ++dh) {
-          const int tt = it + dt - 1;
-          const int hh = ih + dh - 1;
-          const int k = dt * 3 + dh;
-          const bool in = tt >= 0 && tt < nt && hh >= 0 && hh < nh;
-          inside |= static_cast<unsigned>(in) << k;
-          const int64_t row =
-              in ? ((static_cast<int64_t>(ib) * nt + tt) * nh + hh) * nw : 0;
-          rows[k] = x + row * nc + c;
-        }
-      }
-      const T* grow = g + static_cast<int64_t>(r) * nw * nc + c;
+  const int lane_off = q * 4 * static_cast<int>(sizeof(T));
+  const int unit_log2 = g.nv_log2 + 4;  // bytes per staged column, log2
+  const char* base = reinterpret_cast<const char*>(smem);
 
-      Column a, b, cc;
-      load_column(rows, inside, -1, nw, nc, a);
-      load_column(rows, inside, 0, nw, nc, b);
-      load_column(rows, inside, 1, nw, nc, cc);
-      int iw = 0;
-      float g0, g1;
-      for (; iw + 3 <= nw; iw += 3) {
-        load2(grow + static_cast<int64_t>(iw) * nc, g0, g1);
-        accumulate(a, b, cc, g0, g1, acc);
-        load_column(rows, inside, iw + 2, nw, nc, a);
-        load2(grow + static_cast<int64_t>(iw + 1) * nc, g0, g1);
-        accumulate(b, cc, a, g0, g1, acc);
-        load_column(rows, inside, iw + 3, nw, nc, b);
-        load2(grow + static_cast<int64_t>(iw + 2) * nc, g0, g1);
-        accumulate(cc, a, b, g0, g1, acc);
-        load_column(rows, inside, iw + 4, nw, nc, cc);
+  // x planes first .. last, the in-grid ones of t0-1 .. t1 (the taps on
+  // planes outside the grid are skipped), plane p into slot
+  // (p - first) % kRing; g planes t0 .. t1-1, plane t into slot
+  // (t - t0) % kGRing. Thread 0 issues each as one tensor copy: x planes up
+  // to t0+1 and g plane t0 now, x plane t+2 and g plane t+1 at step t. A
+  // slot's mbarrier completes once a use.
+  const int first = max(tile.t0 - 1, 0);
+  const int last = min(tile.t1, g.nt - 1);
+  const uint32_t x_bytes = (g.th + 2) * g.pitch * 16;
+  const uint32_t g_bytes = g.th * g.gpitch * 16;
+  auto load_x = [&](int p) {  // rows from h0-1, columns from w = -1
+    if (threadIdx.x == 0 && p <= last) {
+      const int slot = (p - first) % kRing;
+      dw3::load_box(smem + slot * plane_units, &xmap, xbars + slot, x_bytes,
+                    tile.c0, -1, tile.h0 - 1, p, tile.b);
+    }
+  };
+  auto load_g = [&](int t) {  // rows from h0, columns from w = 0
+    if (threadIdx.x == 0 && t < tile.t1) {
+      const int slot = (t - tile.t0) % kGRing;
+      dw3::load_box(gring + slot * gplane_units, &gmap, gbars + slot, g_bytes,
+                    tile.c0, 0, tile.h0, t, tile.b);
+    }
+  };
+  dw3::init_barriers(xbars, kRing + kGRing);
+  for (int p = first; p <= tile.t0 + 1; ++p) load_x(p);
+  load_g(tile.t0);
+
+  int landed = first;  // x planes before this one have landed
+  for (int t = tile.t0; t < tile.t1; ++t) {
+    for (; landed <= min(t + 1, last); ++landed) {
+      dw3::wait_phase(xbars + (landed - first) % kRing,
+                      (landed - first) / kRing & 1);
+    }
+    dw3::wait_phase(gbars + (t - tile.t0) % kGRing,
+                    (t - tile.t0) / kGRing & 1);
+    __syncthreads();  // the slots of x plane t-2 and g plane t-1 are free
+    load_x(t + 2);
+    load_g(t + 1);
+    const int p = t + dt - 1;  // the x plane this thread's taps read
+    if (!active || p < 0 || p >= g.nt) continue;
+
+    int row[3];  // byte offset of staged x row hr+dh of plane p
+#pragma unroll
+    for (int dh = 0; dh < 3; ++dh) {
+      row[dh] = ((p - first) % kRing * plane_units + (hr + dh) * g.pitch) *
+                    16 +
+                lane_off;
+    }
+    const int grow = (kRing * plane_units +
+                      ((t - tile.t0) % kGRing) * gplane_units +
+                      hr * g.gpitch) *
+                         16 +
+                     lane_off;
+
+    // g at w = k-2, k-1, k (zero outside the segment); staged x column k
+    // (w = k-1) meets them at dw = 2, 1, 0.
+    float gm[4] = {0.f, 0.f, 0.f, 0.f};
+    float g0[4] = {0.f, 0.f, 0.f, 0.f};
+    float gp[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 2
+    for (int k = ws; k < we + 2; ++k) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        gm[i] = g0[i];
+        g0[i] = gp[i];
+        gp[i] = 0.f;
       }
-      if (iw < nw) {
-        load2(grow + static_cast<int64_t>(iw) * nc, g0, g1);
-        accumulate(a, b, cc, g0, g1, acc);
-        if (iw + 1 < nw) {
-          load_column(rows, inside, iw + 2, nw, nc, a);
-          load2(grow + static_cast<int64_t>(iw + 1) * nc, g0, g1);
-          accumulate(b, cc, a, g0, g1, acc);
+      const int col = k << unit_log2;
+      if (k < we) dw3::widen(dw3::lds_raw<T, 4>(base + grow + col), gp);
+#pragma unroll
+      for (int dh = 0; dh < 3; ++dh) {
+        float xv[4];
+        dw3::widen(dw3::lds_raw<T, 4>(base + row[dh] + col), xv);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          acc[dh][0][i] = fmaf(xv[i], gp[i], acc[dh][0][i]);
+          acc[dh][1][i] = fmaf(xv[i], g0[i], acc[dh][1][i]);
+          acc[dh][2][i] = fmaf(xv[i], gm[i], acc[dh][2][i]);
         }
       }
     }
   }
 
-  // Sum the row lanes, one tap at a time, in lane order.
-  __shared__ float red[kRows][kLanes * 2];
-  float* out = partial + static_cast<int64_t>(blockIdx.x) * kTaps * nc;
+  // The block's sum: red[lane][tap][channel], lane = s * th + hr, summed
+  // over lanes in order. Every copy issued has landed.
+  dw3::drop_barriers(xbars, kRing + kGRing);
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(smem);
+  const int cc = nq * 4;  // channels of the chunk
+  const int lane = s * g.th + hr;
 #pragma unroll
-  for (int k = 0; k < kTaps; ++k) {
-    red[threadIdx.y][threadIdx.x * 2] = acc[k][0];
-    red[threadIdx.y][threadIdx.x * 2 + 1] = acc[k][1];
-    __syncthreads();
-    if (threadIdx.y == 0 && active) {
-      float s0 = 0.f, s1 = 0.f;
+  for (int dh = 0; dh < 3; ++dh) {
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        s0 += red[r][threadIdx.x * 2];
-        s1 += red[r][threadIdx.x * 2 + 1];
-      }
-      out[k * nc + c] = s0;
-      out[k * nc + c + 1] = s1;
+    for (int d = 0; d < 3; ++d) {
+      const int tap = dt * 9 + dh * 3 + d;
+      *reinterpret_cast<float4*>(red + (lane * 27 + tap) * cc + q * 4) =
+          make_float4(acc[dh][d][0], acc[dh][d][1], acc[dh][d][2],
+                      acc[dh][d][3]);
     }
-    __syncthreads();
+  }
+  __syncthreads();
+  const int lanes = g.th * g.nseg;
+  float* out = partial + static_cast<int64_t>(tile.row) * 27 * g.nc + tile.c0;
+  for (int o = threadIdx.x; o < 27 * cc; o += blockDim.x) {
+    float sum = 0.f;
+    for (int l = 0; l < lanes; ++l) sum += red[l * 27 * cc + o];
+    out[(o / cc) * g.nc + o % cc] = sum;
   }
 }
 
-// dw[i] = sum over blocks of partial[block, i], i = tap * C + c, in block
-// order.
+// dw[i] = sum over row blocks of partial[block, i], i = tap * C + c, in
+// block order.
 template <typename T>
 __global__ void __launch_bounds__(kReduceThreads)
     dw3x3x3_wgrad_reduce_kernel(const float* __restrict__ partial,
@@ -213,45 +249,72 @@ __global__ void __launch_bounds__(kReduceThreads)
 }
 
 template <typename T>
-void launch(const void* x, const void* g, float* partial, void* dw, int nb,
-            int nt, int nh, int nw, int nc, int nblocks, cudaStream_t stream) {
-  const int nrows = nb * nt * nh;
-  const int rows_per_block = nrows == 0 ? 1 : (nrows + nblocks - 1) / nblocks;
-  const dim3 block(kLanes, kRows);
-  const dim3 grid(static_cast<unsigned>(nblocks),
-                  static_cast<unsigned>((nc / 2 + kLanes - 1) / kLanes));
-  dw3x3x3_wgrad_partial_kernel<T><<<grid, block, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(g), partial, nb, nt, nh,
-      nw, nc, rows_per_block);
-  const int n = kTaps * nc;
+cudaError_t launch(const void* x, const void* g_in, float* partial, void* dw,
+                   Geometry g, int threads, int smem_bytes,
+                   cudaStream_t stream) {
+  constexpr int kSize = static_cast<int>(sizeof(T));
+  const int nq = (16 / kSize / 4) << g.nv_log2;
+  const int64_t rows = static_cast<int64_t>(g.nb) * g.nttiles * g.nhtiles;
+  const int64_t blocks = rows * g.nchunks;
+  const int red_bytes = g.th * g.nseg * 27 * nq * 4 * 4;
+  const int ring_bytes = ring_units(g) * 16;
+  const int box_w = g.pitch >> g.nv_log2, gbox_w = g.gpitch >> g.nv_log2;
+  if (threads != nq * g.th * 3 * g.nseg || threads > kMaxThreads ||
+      box_w << g.nv_log2 != g.pitch || gbox_w << g.nv_log2 != g.gpitch ||
+      gbox_w < g.nw || blocks >= (int64_t{1} << 31) ||
+      smem_bytes != (ring_bytes > red_bytes ? ring_bytes : red_bytes)) {
+    return cudaErrorInvalidValue;
+  }
+  const int n = 27 * g.nc;
+  if (blocks > 0 && g.nw > 0) {
+    CUtensorMap xmap, gmap;  // boxes of one staged x plane, one g plane
+    cudaError_t err = dw3::tensor_map(&xmap, x, g, kSize, box_w, g.th + 2);
+    if (err == cudaSuccess) {
+      err = dw3::tensor_map(&gmap, g_in, g, kSize, gbox_w, g.th);
+    }
+    if (err != cudaSuccess) return err;
+    const auto kernel = dw3x3x3_wgrad_partial_kernel<T>;
+    static unsigned long long allowed = 0;  // devices whose limit is raised
+    err = dw3::allow_smem(reinterpret_cast<const void*>(kernel), smem_bytes,
+                          allowed);
+    if (err != cudaSuccess) return err;
+    kernel<<<static_cast<unsigned>(blocks), threads, smem_bytes, stream>>>(
+        xmap, gmap, partial, g);
+  } else if (blocks > 0) {  // W = 0: no positions, every partial is zero
+    cudaError_t err = cudaMemsetAsync(
+        partial, 0, static_cast<size_t>(rows) * n * sizeof(float), stream);
+    if (err != cudaSuccess) return err;
+  }
+  // With no positions there are no partials: the sum over none is zero.
   dw3x3x3_wgrad_reduce_kernel<T>
       <<<(n + kReduceThreads - 1) / kReduceThreads, kReduceThreads, 0,
-         stream>>>(partial, static_cast<T*>(dw), nblocks, n);
+         stream>>>(partial, static_cast<T*>(dw), static_cast<int>(rows), n);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. x, g: [nb, nt, nh, nw, nc] contiguous,
-// same type, 4-byte aligned (8 for float32); nc % 8 == 0; nb * nt * nh
-// below 2^31. partial: float32 scratch of nblocks * 27 * nc values. dw:
-// [3, 3, 3, nc] in the inputs' type.
+// same type, 16-byte aligned; nc % 8 == 0. partial: float32 scratch of
+// nb * ceil(nt / tt) * ceil(nh / th) * 27 * nc values. dw: [3, 3, 3, nc] in
+// the inputs' type. th, nv_log2, nseg, sw, pitch, gpitch, tt, threads and
+// smem_bytes: the launch plan of pmv_tpu_torch/ops/depthwise.py::plan_wgrad.
 extern "C" int pmv_dw3x3x3_wgrad(const void* x, const void* g, void* partial,
                                  void* dw, int nb, int nt, int nh, int nw,
-                                 int nc, int nblocks, int dtype,
-                                 void* stream) {
-  if (nc <= 0 || nc % 8 != 0 || nb < 0 || nt < 0 || nh < 0 || nw < 0 ||
-      nblocks < 1 || nblocks > (1 << 30) ||
-      static_cast<int64_t>(nb) * nt * nh >= (int64_t{1} << 31)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+                                 int nc, int th, int nv_log2, int nseg, int sw,
+                                 int pitch, int gpitch, int tt, int threads,
+                                 int smem_bytes, int dtype, void* stream) {
+  Geometry geo{nb, nt,    nh,     nw, nc, th, nv_log2, nseg,
+               sw, pitch, gpitch, tt, 0,  0,  0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* part = static_cast<float*>(partial);
-  if (dtype == 0) {
-    launch<float>(x, g, part, dw, nb, nt, nh, nw, nc, nblocks, s);
-  } else if (dtype == 1) {
-    launch<__nv_bfloat16>(x, g, part, dw, nb, nt, nh, nw, nc, nblocks, s);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0 && dw3::complete(geo, 4)) {
+    return static_cast<int>(
+        launch<float>(x, g, part, dw, geo, threads, smem_bytes, s));
   }
-  return static_cast<int>(cudaGetLastError());
+  if (dtype == 1 && dw3::complete(geo, 2)) {
+    return static_cast<int>(
+        launch<__nv_bfloat16>(x, g, part, dw, geo, threads, smem_bytes, s));
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }

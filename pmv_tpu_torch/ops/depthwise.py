@@ -15,6 +15,12 @@ its stride-1 3x3x3 pooling convs here (``models/attention.py``).
 - ``depthwise3x3x3_plain`` and ``depthwise3x3x3_wgrad_plain``: pad, then 27
   shifted products in float32. The CPU path, and the references the
   kernels are held against.
+- ``plan_forward`` and ``plan_wgrad``: the kernels' launch plans (tiles,
+  threads, shared memory) by one rule, worked out here so that the CPU
+  tests can check them.
+- ``MVIT_POOL_SHAPES`` and ``ODD_SHAPES``: the shapes the main path gives
+  the kernels, and the odd ones their tiling must take besides; the tests,
+  ``chip_smoke.py`` and ``tools/plan_sweep.py`` take them from here.
 
 A CUDA tensor launches the kernels; a CPU tensor takes the plain versions.
 Nothing else falls back: a CUDA input the kernels do not take, a failed
@@ -25,6 +31,8 @@ Bound on the card: bytes, for both kernels; see the kernel sources.
 """
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -32,6 +40,185 @@ import torch.nn.functional as F
 from pmv_tpu_torch.ops.build import load_library
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+SMEM_PER_BLOCK = 232_448  # Hopper: the shared memory one block may take
+H100_SMS = 132
+# A plan takes the widest channel chunk, then the tallest tile (up to
+# MAX_TILE_ROWS rows, cut evenly), then (wgrad) the most W segments of up to
+# WGRAD_SEGMENT columns that fit a block, and cuts T into ranges until the
+# grid holds two blocks and 6 warps for each SM of an H100.
+MIN_BLOCKS = 2 * H100_SMS
+MIN_THREADS = H100_SMS * 192
+MAX_TILE_ROWS = 8
+FWD_MAX_THREADS = 128  # the kernels' __launch_bounds__
+WGRAD_MAX_THREADS = 512
+FWD_MAX_CHUNK_LOG2 = 1  # K1 takes chunks of 1 or 2 16-byte units
+WGRAD_MAX_CHUNK_LOG2 = 2
+FWD_CHANNELS = 2  # channels a thread owns: K1's channels<T>()
+WGRAD_CHANNELS = 4
+FWD_SEGMENT = 7  # W columns a K1 thread owns: its kSegment
+WGRAD_SEGMENT = 14  # the most W columns a wgrad thread walks
+
+# The inputs MViTv2-S 16x4 gives the kernels at batch 8, with the launches
+# of each in one forward: the stride-1 3x3x3 pools (C = heads * head_dim).
+MVIT_POOL_SHAPES = (
+    ((8, 8, 56, 56, 96), 1),    # q-pool, block 0
+    ((8, 8, 28, 28, 192), 1),   # q-pool, block 2
+    ((8, 8, 14, 14, 384), 10),  # q-pools, blocks 4-13
+    ((8, 8, 14, 14, 768), 2),   # K and V pools, block 14
+    ((8, 8, 7, 7, 768), 3),     # q, K and V pools, block 15
+)
+# Shapes the tiling must take besides: C of 8, 24 and 40 (not multiples of
+# a chunk), H and W of 1, 2, 7 and 13, portrait grids, T of 1 to 3, B of 1.
+ODD_SHAPES = (
+    (1, 1, 1, 1, 8),
+    (1, 2, 2, 13, 40),
+    (2, 3, 13, 7, 24),
+    (1, 3, 7, 2, 24),
+    (2, 2, 13, 1, 40),
+    (1, 1, 7, 13, 8),
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How a kernel cuts [B, T, H, W, C]: a block owns one batch entry, ``tt``
+    planes of T, ``th`` rows of H, all of W and ``2**nv_log2`` 16-byte units
+    of channels, and walks its planes, copying the next ones into shared
+    memory while it works on this one; a thread owns ``cpt`` channels, one
+    row (and in the wgrad kernel one dt), and a segment of ``sw`` columns of
+    W, one of ``nseg``. Staged rows are ``pitch`` (x, with its halo) and
+    ``gpitch`` (g, wgrad only) 16-byte units wide."""
+
+    shape: tuple
+    elem_size: int
+    wgrad: bool
+    th: int
+    nv_log2: int
+    nseg: int
+    sw: int
+    pitch: int
+    gpitch: int
+    tt: int
+    threads: int
+    smem_bytes: int
+
+    @property
+    def cpt(self):
+        """Channels a thread owns."""
+        return WGRAD_CHANNELS if self.wgrad else FWD_CHANNELS
+
+    @property
+    def chunk(self):
+        """Channels of a block."""
+        return (16 // self.elem_size) << self.nv_log2
+
+    @property
+    def nhtiles(self):
+        return -(-self.shape[2] // self.th)
+
+    @property
+    def nchunks(self):
+        return self.shape[4] // self.chunk
+
+    @property
+    def nttiles(self):
+        return -(-self.shape[1] // self.tt)
+
+    @property
+    def row_blocks(self):
+        """Blocks of one chunk: the wgrad kernel's partial sums."""
+        return self.shape[0] * self.nttiles * self.nhtiles
+
+    @property
+    def blocks(self):
+        return self.row_blocks * self.nchunks
+
+
+def _pitch(positions, nv):
+    """16-byte units of a staged row; where one position is narrower than
+    128 bytes, congruent to ``nv`` modulo 8, so that the rows one phase of a
+    warp reads fall on different shared-memory banks."""
+    units = positions * nv
+    return units if nv >= 8 else units + (nv - units) % 8
+
+
+def _lines(units):
+    """16-byte units rounded up to whole 128-byte lines."""
+    return -(-units // 8) * 8
+
+
+def make_plan(shape, elem_size, wgrad, th, nv_log2, tsplit, nseg=None):
+    """The plan of tiles of ``th`` rows, chunks of ``2**nv_log2`` units and
+    ``tsplit`` ranges of T; W in ``nseg`` segments (the wgrad kernel; K1's
+    segments are ``FWD_SEGMENT`` columns). None where a block would take
+    more threads or shared memory than the kernel may."""
+    _, t, _, w, _ = shape
+    tt = max(1, -(-t // tsplit))
+    nv = 1 << nv_log2
+    if wgrad:
+        sw = max(1, -(-w // nseg))
+        nseg = max(1, -(-w // sw))
+        nq = nv * (16 // elem_size) // WGRAD_CHANNELS  # threads across the chunk
+        threads = nq * th * 3 * nseg
+        pitch, gpitch = _pitch(w + 2, nv), _pitch(w, nv)
+        # x ring of 4 planes, g ring of 2, in slots of 128-byte lines, then
+        # 64 bytes of mbarriers; the block's final sum reuses them.
+        smem = max((4 * _lines((th + 2) * pitch) + 2 * _lines(th * gpitch) + 4) * 16,
+                   th * nseg * 27 * nq * WGRAD_CHANNELS * 4)
+        max_threads = WGRAD_MAX_THREADS
+    else:
+        sw, nseg = FWD_SEGMENT, max(1, -(-w // FWD_SEGMENT))
+        nq = nv * (16 // elem_size) // FWD_CHANNELS
+        threads = nq * th * nseg
+        pitch, gpitch = _pitch(nseg * sw + 2, nv), 0
+        # The plane worked on and two in flight, in slots of 128-byte lines,
+        # then 64 bytes of mbarriers.
+        smem = (3 * _lines((th + 2) * pitch) + 4) * 16
+        max_threads = FWD_MAX_THREADS
+    # A tensor copy's box is at most 256 positions wide.
+    if threads > max_threads or smem > SMEM_PER_BLOCK or pitch // nv > 256:
+        return None
+    return Plan(tuple(shape), elem_size, wgrad, th, nv_log2, nseg, sw, pitch,
+                gpitch, tt, threads, smem)
+
+
+def _plan(shape, elem_size, wgrad):
+    _, t, h, w, c = shape
+    if c <= 0 or c % 8:
+        raise ValueError(f"C must be a positive multiple of 8, got {c}")
+    nvec = c // (16 // elem_size)
+    fits = (
+        make_plan(shape, elem_size, wgrad, -(-h // -(-h // rows)) if h else 1,
+                  nv_log2, 1, nseg)
+        for nv_log2 in range(WGRAD_MAX_CHUNK_LOG2 if wgrad else FWD_MAX_CHUNK_LOG2, -1, -1)
+        if nvec % (1 << nv_log2) == 0
+        for rows in range(min(MAX_TILE_ROWS, max(h, 1)), 0, -1)  # even tiles
+        for nseg in range(-(-w // WGRAD_SEGMENT) if wgrad else 1, 0, -1)
+    )
+    plan = next((p for p in fits if p is not None), None)
+    if plan is None:
+        raise ValueError(f"no launch plan fits shape {tuple(shape)}")
+    for tsplit in range(2, max(t, 1) + 1):
+        if plan.blocks >= MIN_BLOCKS and plan.blocks * plan.threads >= MIN_THREADS:
+            break
+        plan = make_plan(shape, elem_size, wgrad, plan.th, plan.nv_log2, tsplit, plan.nseg)
+    return plan
+
+
+@functools.lru_cache(maxsize=None)
+def plan_forward(shape, elem_size):
+    """K1's plan for x of ``shape`` [B, T, H, W, C] with ``elem_size``-byte
+    elements, by the rule above. Cached: the main path asks for the same few
+    shapes at every step."""
+    return _plan(tuple(shape), elem_size, wgrad=False)
+
+
+@functools.lru_cache(maxsize=None)
+def plan_wgrad(shape, elem_size):
+    """The wgrad kernel's plan, by the rule above, with W in segments of at
+    most ``WGRAD_SEGMENT`` columns."""
+    return _plan(tuple(shape), elem_size, wgrad=True)
 
 
 def depthwise3x3x3_plain(x, w):
@@ -104,24 +291,22 @@ def _forward(x, w):
     if x.device.type == "cpu":
         return depthwise3x3x3_plain(x, w)
     _check("depthwise3x3x3", x, w, (3, 3, 3, x.shape[-1]))
-    fn = _function(load_library("depthwise3x3x3"), "pmv_dw3x3x3_fwd", 3, 6)
+    plan = plan_forward(tuple(x.shape), x.element_size())
+    return _run_forward(x, w, plan)
+
+
+def _run_forward(x, w, p):
+    """One launch of K1 on checked inputs with the plan ``p``."""
+    fn = _function(load_library("depthwise3x3x3"), "pmv_dw3x3x3_fwd", 3, 14)
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), *x.shape,
-                 _DTYPES[x.dtype], stream)
+                 p.th, p.nv_log2, p.nseg, p.sw, p.pitch, p.tt, p.threads,
+                 p.smem_bytes, _DTYPES[x.dtype], stream)
     _raise_on(err, "depthwise3x3x3")
     depthwise3x3x3.launches += 1
     return out
-
-
-def _wgrad_blocks(shape, num_sms):
-    """Row blocks (blockIdx.x) of the wgrad kernel: about four blocks of 128
-    threads per SM over all 64-channel chunks, and at least 4 (b, t, h)
-    rows, one per row lane, in each."""
-    b, t, h, _, c = shape
-    chunks = -(-(c // 2) // 32)
-    return max(1, min(-(-4 * num_sms // chunks), -(-(b * t * h) // 4)))
 
 
 def depthwise3x3x3_wgrad(x, g):
@@ -132,17 +317,22 @@ def depthwise3x3x3_wgrad(x, g):
     if x.device.type == "cpu":
         return depthwise3x3x3_wgrad_plain(x, g)
     _check("depthwise3x3x3_wgrad", x, g, x.shape)
-    fn = _function(load_library("depthwise3x3x3_wgrad"), "pmv_dw3x3x3_wgrad", 4, 7)
+    plan = plan_wgrad(tuple(x.shape), x.element_size())
+    return _run_wgrad(x, g, plan)
+
+
+def _run_wgrad(x, g, p):
+    """One call of the wgrad kernel on checked inputs with the plan ``p``."""
+    fn = _function(load_library("depthwise3x3x3_wgrad"), "pmv_dw3x3x3_wgrad", 4, 15)
     c = x.shape[-1]
-    nblocks = _wgrad_blocks(
-        x.shape, torch.cuda.get_device_properties(x.device).multi_processor_count
-    )
-    partial = torch.empty((nblocks, 27, c), dtype=torch.float32, device=x.device)
+    partial = torch.empty((p.row_blocks, 27, c), dtype=torch.float32,
+                          device=x.device)
     dw = torch.empty((3, 3, 3, c), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), g.data_ptr(), partial.data_ptr(), dw.data_ptr(),
-                 *x.shape, nblocks, _DTYPES[x.dtype], stream)
+                 *x.shape, p.th, p.nv_log2, p.nseg, p.sw, p.pitch, p.gpitch,
+                 p.tt, p.threads, p.smem_bytes, _DTYPES[x.dtype], stream)
     _raise_on(err, "depthwise3x3x3_wgrad")
     depthwise3x3x3_wgrad.launches += 1
     return dw

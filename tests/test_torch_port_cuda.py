@@ -15,6 +15,8 @@ from pmv_tpu_torch.engine.steps import init_state, make_eval_step, make_train_st
 from pmv_tpu_torch.entry import apply_bench_recipe, mvitv2_s_cfg
 from pmv_tpu_torch.models import build_model
 from pmv_tpu_torch.ops.depthwise import (
+    MVIT_POOL_SHAPES,
+    ODD_SHAPES,
     depthwise3x3x3,
     depthwise3x3x3_plain,
     depthwise3x3x3_wgrad,
@@ -24,16 +26,9 @@ from torch_port_util import cuda_device  # noqa: F401  (fixture)
 
 pytestmark = pytest.mark.cuda
 
-# MViTv2-S 16x4 pool shapes at batch 8 (C = heads * head_dim), and an odd
-# portrait grid.
-SHAPES = [
-    (8, 8, 56, 56, 96),
-    (8, 8, 28, 28, 192),
-    (8, 8, 14, 14, 384),
-    (8, 8, 14, 14, 768),
-    (8, 8, 7, 7, 768),
-    (2, 3, 13, 7, 24),
-]
+# MViTv2-S 16x4 pool shapes at batch 8, and odd shapes the kernels' tiling
+# must take (ops/depthwise.py).
+SHAPES = [s for s, _ in MVIT_POOL_SHAPES] + list(ODD_SHAPES)
 
 
 def _inputs(shape, device, dtype, seed=0):

@@ -4,7 +4,8 @@ The plain versions (the CPU path) are held against XLA's grouped conv and
 the Pallas kernel in interpret mode: the forward, and the autograd
 Function's dx and dw against ``jax.grad`` of the custom_vjp (float32, atol
 1e-4). The CUDA kernels are held against the plain versions in
-tests/test_torch_port_cuda.py.
+tests/test_torch_port_cuda.py; their launch plans, and the build's
+library names, are checked here.
 """
 
 import jax
@@ -15,10 +16,16 @@ import torch
 
 from pmv_tpu.ops import depthwise_pallas
 from pmv_tpu_torch.ops.depthwise import (
+    H100_SMS,
+    MVIT_POOL_SHAPES,
+    ODD_SHAPES,
+    SMEM_PER_BLOCK,
     depthwise3x3x3,
     depthwise3x3x3_plain,
     depthwise3x3x3_wgrad,
     depthwise3x3x3_wgrad_plain,
+    plan_forward,
+    plan_wgrad,
 )
 
 
@@ -156,3 +163,130 @@ def test_grad_wrappers_on_cpu_launch_nothing():
     assert torch.equal(
         dw, depthwise3x3x3_wgrad_plain(torch.from_numpy(x), torch.from_numpy(x))
     )
+
+
+# Launch plans of the CUDA kernels (they run only on the card; their tiling
+# is worked out in Python and checked here), at the MViTv2-S 16x4 pool
+# shapes and at odd shapes.
+MAIN_SHAPES = [s for s, _ in MVIT_POOL_SHAPES]
+
+
+def _once(index, size):
+    """Whether the values of ``index`` that fall in [0, size) take each of
+    them exactly once."""
+    index = np.asarray(index).ravel()
+    return np.array_equal(np.bincount(index[index < size], minlength=size),
+                          np.ones(size, int))
+
+
+def _check_tiling(plan):
+    """The block and thread coordinates of the kernels
+    (dw3x3x3_stage.cuh::block_tile, then each kernel's thread coordinates)
+    are independent digits of blockIdx.x and threadIdx.x, so the kernels
+    cover each (b, t, h, w, channel group[, dt]) once exactly when each
+    digit's range covers its axis once."""
+    b, t, h, w, c = plan.shape
+    assert plan.blocks == b * plan.nttiles * plan.nhtiles * plan.nchunks
+    nq = plan.chunk // plan.cpt
+    assert plan.threads == nq * plan.th * (3 if plan.wgrad else 1) * plan.nseg
+    tt = np.arange(plan.tt)
+    assert _once(np.arange(plan.nttiles)[:, None] * plan.tt + tt, t)
+    assert _once(np.arange(plan.nhtiles)[:, None] * plan.th + np.arange(plan.th), h)
+    sw = np.arange(plan.sw)
+    assert _once(np.arange(plan.nseg)[:, None] * plan.sw + sw, w)
+    assert _once(np.arange(plan.nchunks)[:, None] * nq + np.arange(nq), c // plan.cpt)
+    assert (plan.nseg - 1) * plan.sw < w  # no W segment is empty
+
+
+def _check_halo(plan):
+    """A thread's reads lie in its block's staged rows, which reach one
+    column beyond each output on both sides: K1 walks whole segments,
+    staged columns ws .. ws+sw+1 (w = ws-1 .. ws+sw), the wgrad kernel
+    ws .. we+1 of x and ws .. we-1 of g; every one within the row's pitch."""
+    _, _, _, w, _ = plan.shape
+    nv = 1 << plan.nv_log2
+    starts = np.arange(plan.nseg) * plan.sw
+    ends = np.minimum(starts + plan.sw, w)  # one past each segment's outputs
+    last_read = ends + 1 if plan.wgrad else starts + plan.sw + 1
+    assert (last_read.max() + 1) * nv <= plan.pitch
+    if plan.wgrad:
+        assert ends.max() * nv <= plan.gpitch
+
+
+@pytest.mark.parametrize("kernel", ["forward", "wgrad"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", MAIN_SHAPES + list(ODD_SHAPES))
+def test_launch_plan_covers_each_output_once(shape, dtype, kernel):
+    elem = torch.tensor([], dtype=dtype).element_size()
+    make = plan_forward if kernel == "forward" else plan_wgrad
+    plan = make(shape, elem)
+    _check_tiling(plan)
+    _check_halo(plan)
+    assert plan.smem_bytes <= SMEM_PER_BLOCK
+    # The shared bytes the C launchers demand for this plan.
+    # Slots of whole 128-byte lines, then 64 bytes of mbarriers.
+    lines = lambda units: -(-units // 8) * 8  # noqa: E731
+    if kernel == "forward":  # the plane worked on and two in flight
+        assert plan.threads <= 128 and plan.nv_log2 <= 1
+        assert plan.smem_bytes == (3 * lines((plan.th + 2) * plan.pitch) + 4) * 16
+    else:  # x ring of 4 planes, g ring of 2, reused by the block's final sum
+        ring = (4 * lines((plan.th + 2) * plan.pitch)
+                + 2 * lines(plan.th * plan.gpitch) + 4) * 16
+        red = plan.th * plan.nseg * 27 * plan.chunk * 4
+        assert plan.threads <= 512 and plan.smem_bytes == max(ring, red)
+    # A tensor copy's box is a staged row: whole positions, at most 256.
+    nv = 1 << plan.nv_log2
+    for pitch in (plan.pitch, plan.gpitch) if kernel == "wgrad" else (plan.pitch,):
+        assert pitch % nv == 0 and pitch // nv <= 256
+    # A chunk is whole 16-byte units, and the pitch keeps a warp's phase on
+    # distinct banks where a position is narrower than 128 bytes.
+    assert shape[-1] % plan.chunk == 0 and plan.chunk * elem % 16 == 0
+    if nv < 8:
+        assert plan.pitch % 8 == nv and (kernel == "forward" or plan.gpitch % 8 == nv)
+    if shape in MAIN_SHAPES:  # enough blocks to fill an H100
+        assert plan.blocks >= H100_SMS
+
+
+@pytest.mark.parametrize("shape, elem, kernel, tt", [
+    ((8, 8, 7, 7, 768), 2, "forward", 4),    # 384 blocks of 56 threads: cut
+    ((8, 8, 14, 14, 384), 2, "forward", 8),  # 384 blocks of 112: whole T
+    ((8, 8, 14, 14, 384), 2, "wgrad", 4),    # 192 blocks: cut
+    ((8, 8, 14, 14, 384), 4, "wgrad", 8),    # 384 blocks of 84: whole T
+])
+def test_launch_plan_cuts_t_only_for_small_grids(shape, elem, kernel, tt):
+    """T is cut into ranges (each copies 2 more planes) only where the grid
+    would hold fewer than two blocks or 6 warps for each SM of an H100."""
+    plan = (plan_forward if kernel == "forward" else plan_wgrad)(shape, elem)
+    assert plan.tt == tt
+
+
+def test_launch_plan_refuses_rows_wider_than_a_tensor_copy():
+    """A staged row is one tensor copy's box, at most 256 positions."""
+    with pytest.raises(ValueError, match="no launch plan fits"):
+        plan_forward((1, 1, 2, 400, 8), 2)
+
+
+def test_launch_plan_refuses_channels_off_the_vector():
+    with pytest.raises(ValueError, match="multiple of 8"):
+        plan_forward((1, 1, 4, 4, 12), 2)
+
+
+def test_library_path_hashes_headers(tmp_path, monkeypatch):
+    """An edit to a shared header gives the kernels a new library name, so
+    a stale build is never loaded."""
+    from pmv_tpu_torch.ops import build
+
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for src in build.CSRC.iterdir():
+        if src.suffix in (".cu", ".cuh"):
+            (csrc / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(build, "CSRC", csrc)
+    monkeypatch.setenv("PMV_TORCH_BUILD_DIR", str(tmp_path / "out"))
+    headers = sorted(csrc.glob("*.cuh"))
+    assert headers
+    before = {s: build.library_path(s) for s in ("depthwise3x3x3", "depthwise3x3x3_wgrad")}
+    headers[0].write_bytes(headers[0].read_bytes() + b"\n// edited\n")
+    after = {s: build.library_path(s) for s in before}
+    assert all(before[s] != after[s] for s in before)
+    assert all(p.parent == tmp_path / "out" for p in after.values())
