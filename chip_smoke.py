@@ -18,7 +18,9 @@ Phases, in order; any failure raises and exits non-zero:
    The forward kernel K1 (``depthwise3x3x3``), then the backward through
    the autograd Function: dx through K1 and dw through
    ``depthwise3x3x3_wgrad``; two runs of the wgrad kernel give the same
-   bits.
+   bits. The same at the grids of the PMV rect crop [256, 192] and at their
+   transposes (the portrait rows' grids), at batch 8 and at batch 16, the
+   clips of run_net's train step in phase 6 (checked against its cfg).
 3. Build full-width MViTv2-S 16x4 from a seeded init and run its eval step
    at batch 1 in float32 on the card and on the CPU (the CPU copy takes the
    plain versions); the class scores must agree, and one forward must
@@ -29,15 +31,35 @@ Phases, in order; any failure raises and exits non-zero:
    same weights and the same draws: loss, grad norm, top-1/top-5, the
    gradients and the updated parameters must agree, and the step must
    launch K1 34 times and the wgrad kernel 17 times.
+3c. The portrait (``pm``) steps at full width in float32 at batch 2 (one
+   portrait row, one landscape row) with TRAIN_CROP_SIZE_RECT [256, 192]
+   and SWITCH_AUTO, card against CPU from the same weights and draws: the
+   pm eval step (its landscape row equal to the plain eval step's), then
+   the pm train step under phase 3b's gates; one orientation group each,
+   so 2 x 17 K1 launches per forward, 2 x 17 wgrad per train step.
 4. Serve 4 synthetic videos x 2 temporal views x 3 spatial crops through
    the multi-view test loop in bfloat16 at batch 8 (a main path: launch
    counts are zeroed just before it and read just after).
 5. Train: ``train_epoch`` over 1 warm-up and then 5 timed synthetic batches
    of 8 clips [16, 224, 224, 3] uint8, bfloat16 activations, AdamW, LR 1e-4
-   (the slice's main path: counts zeroed just before the 5 batches and read
-   just after; 34 K1 and 17 wgrad launches per step).
-6. Print the kernels line, the card line, and last
+   (a main path: counts zeroed just before the 5 batches and read just
+   after; 34 K1 and 17 wgrad launches per step).
+6. ``run_net`` in this process on configs/Kinetics/MVITv2_S_16x4.yaml with
+   the PMV rect recipe (exps/PMV/run_MViT_PMV.sh), the Synthetic dataset,
+   batch 8 (16 clips a train step: AUG.NUM_SAMPLE 2), bfloat16, one epoch:
+   train through the loader and the device prefetcher, checkpoint,
+   evaluate, test 2 views (this slice's main path). Prints epoch, eval and
+   test clips/s, the checkpoint's seconds and bytes (all read from the
+   run's own log and files), peak memory and the final json_stats.
+7. The checkpoint restored as ``train()`` restores it, every weight and
+   AdamW tensor compared with the file's; then ``run_net`` again with
+   SOLVER.MAX_EPOCH 2: its log must show the resume from that checkpoint
+   at epoch 2, and its optimizer must count both epochs' steps.
+8. Print the kernels line, the card line, and last
    {"ok": true, "device": {...}}.
+
+FFmpeg's development files are not on the card's machine, so no phase
+decodes video there; ``run_net`` reads the Synthetic dataset.
 
 Without a CUDA device, or without the package beside it, it exits non-zero
 and prints no result.
@@ -47,6 +69,7 @@ import argparse
 import json
 import os
 import re
+import shutil
 import sys
 import time
 
@@ -62,14 +85,15 @@ TOLERANCE = {  # (atol, rtol) against the plain version in float32
     torch.float32: (1e-5, 1e-5),
     torch.bfloat16: (1e-2, 8e-3),  # one bfloat16 rounding of the output
 }
-# dw sums up to B*T*H*W = 200,704 products of N(0, 1) values (of order
-# sqrt(200,704) ~ 450) in another order than the plain version's float32
+# dw sums up to B*T*H*W = 393,216 products of N(0, 1) values (of order
+# sqrt(393,216) ~ 630) in another order than the plain version's float32
 # sums; in bfloat16, one rounding of the output besides.
 WGRAD_TOLERANCE = {
     torch.float32: (2e-3, 1e-5),
     torch.bfloat16: (1e-2, 8e-3),
 }
 TRAIN_LR = 1e-4  # bench.py's learning rate
+PMV_RECT = (256, 192)  # DATA.TRAIN_CROP_SIZE_RECT of exps/PMV/run_MViT_PMV.sh
 
 
 def log(msg):
@@ -101,11 +125,26 @@ def wgrad_bound(shape, dtype):
 
 
 def _kernel_cases():
-    """(shape, launches per forward): the MViTv2-S 16x4 pool shapes at batch
-    8, then the odd shapes (no launches on the main path)."""
-    from pmv_tpu_torch.ops.depthwise import MVIT_POOL_SHAPES, ODD_SHAPES
+    """(shape, launches per forward, grid set): the MViTv2-S 16x4 pool shapes
+    at batch 8 at the 224^2 crop ("square"), at the PMV rect crop ("rect")
+    and transposed ("portrait"), the last two at run_net's train batch of
+    16 ("rect_b16", "portrait_b16"), then the odd shapes."""
+    from pmv_tpu_torch.ops.depthwise import (
+        MVIT_POOL_SHAPES,
+        MVIT_PORTRAIT_POOL_SHAPES,
+        MVIT_RECT_POOL_SHAPES,
+        MVIT_RECT_TRAIN_POOL_SHAPES,
+        ODD_SHAPES,
+    )
 
-    return list(MVIT_POOL_SHAPES) + [(s, 0) for s in ODD_SHAPES]
+    return (
+        [(s, n, "square") for s, n in MVIT_POOL_SHAPES]
+        + [(s, n, "rect") for s, n in MVIT_RECT_POOL_SHAPES]
+        + [(s, n, "portrait") for s, n in MVIT_PORTRAIT_POOL_SHAPES]
+        + [(s, n, "rect_b16" if s[2] > s[3] else "portrait_b16")
+           for s, n in MVIT_RECT_TRAIN_POOL_SHAPES]
+        + [(s, 0, "odd") for s in ODD_SHAPES]
+    )
 
 
 def phase_kernels(flush):
@@ -116,7 +155,7 @@ def phase_kernels(flush):
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     records = []
-    for shape, per_forward in _kernel_cases():
+    for shape, per_forward, grid in _kernel_cases():
         for dtype in (torch.bfloat16, torch.float32):
             x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
             w = (0.1 * torch.randn((3, 3, 3, shape[-1]), generator=gen,
@@ -133,6 +172,7 @@ def phase_kernels(flush):
             bound_ms, bound_by = depthwise_bound(shape, dtype)
             rec = {
                 "kernel": "depthwise3x3x3",
+                "grid": grid,
                 "shape": list(shape),
                 "dtype": str(dtype).replace("torch.", ""),
                 "launches_per_forward": per_forward,
@@ -165,7 +205,7 @@ def phase_backward(flush):
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     records = []
-    for shape, per_forward in _kernel_cases():
+    for shape, per_forward, grid in _kernel_cases():
         for dtype in (torch.bfloat16, torch.float32):
             x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
             g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
@@ -189,6 +229,7 @@ def phase_backward(flush):
             bound_ms, bound_by = wgrad_bound(shape, dtype)
             rec = {
                 "kernel": "depthwise3x3x3_wgrad",
+                "grid": grid,
                 "shape": list(shape),
                 "dtype": str(dtype).replace("torch.", ""),
                 "launches_per_forward": per_forward,
@@ -254,41 +295,57 @@ def _train_cfg(tiny=False):
     return cfg
 
 
-def phase_train_step_vs_cpu():
-    """One full-width float32 train step at batch 2, card against CPU, from
-    the same weights and the same draws."""
-    from pmv_tpu_torch.engine.steps import init_state, make_train_step
-    from pmv_tpu_torch.models import build_model
+def _launch_counts():
     from pmv_tpu_torch.ops.depthwise import depthwise3x3x3, depthwise3x3x3_wgrad
 
-    cfg = _train_cfg()
+    return {"depthwise3x3x3": depthwise3x3x3.launches,
+            "depthwise3x3x3_wgrad": depthwise3x3x3_wgrad.launches}
+
+
+def _zero_launch_counts():
+    from pmv_tpu_torch.ops.depthwise import depthwise3x3x3, depthwise3x3x3_wgrad
+
+    depthwise3x3x3.launches = depthwise3x3x3_wgrad.launches = 0
+
+
+def _launches_since(before):
+    return {k: v - before[k] for k, v in _launch_counts().items()}
+
+
+def _models_card_and_cpu(cfg):
+    """float32 models from one seeded init, on the CPU and on the card."""
+    from pmv_tpu_torch.models import build_model
+
     cpu_model = build_model(cfg, device="cpu", dtype=torch.float32, seed=0)
     gpu_model = build_model(cfg, device="cuda", dtype=torch.float32, seed=0)
     gpu_model.load_state_dict(cpu_model.state_dict(), strict=True)
+    return cpu_model, gpu_model
+
+
+def _train_step_card_vs_cpu(phase, cfg, batch, expected, models=None):
+    """One float32 train step on the card and on the CPU from the same
+    weights and draws; raises unless they agree and the card's step launched
+    ``expected``."""
+    from pmv_tpu_torch.engine.steps import init_state, make_train_step
+
+    cpu_model, gpu_model = models or _models_card_and_cpu(cfg)
     before = {k: v.detach().clone() for k, v in cpu_model.state_dict().items()}
     cpu_state, gpu_state = init_state(cfg, cpu_model), init_state(cfg, gpu_model)
     cpu_step = make_train_step(cfg, device="cpu", seed=0)
     gpu_step = make_train_step(cfg, device="cuda", seed=0)
-    rng = np.random.default_rng(2)
-    size = cfg.DATA.TRAIN_CROP_SIZE
-    batch = {
-        "frames": rng.integers(0, 256, (2, cfg.DATA.NUM_FRAMES, size, size, 3), np.uint8),
-        "labels": rng.integers(0, cfg.MODEL.NUM_CLASSES, 2),
-    }
     draws = cpu_step.sample_draws(cpu_model, batch["frames"].shape)
 
-    k1, wg = depthwise3x3x3.launches, depthwise3x3x3_wgrad.launches
+    counts = _launch_counts()
     t0 = time.perf_counter()
     gpu = {k: v.cpu() for k, v in gpu_step(gpu_state, batch, TRAIN_LR, draws).items()}
     gpu_s = time.perf_counter() - t0
-    launches = {"depthwise3x3x3": depthwise3x3x3.launches - k1,
-                "depthwise3x3x3_wgrad": depthwise3x3x3_wgrad.launches - wg}
+    launches = _launches_since(counts)
     t0 = time.perf_counter()
     cpu = cpu_step(cpu_state, batch, TRAIN_LR, draws)
     cpu_s = time.perf_counter() - t0
 
     grad_diff = grad_ref = 0.0
-    for (name, p_cpu), p_gpu in zip(cpu_model.named_parameters(), gpu_model.parameters()):
+    for p_cpu, p_gpu in zip(cpu_model.parameters(), gpu_model.parameters()):
         grad_diff += float((p_gpu.grad.cpu() - p_cpu.grad).square().sum())
         grad_ref += float(p_cpu.grad.square().sum())
     grad_rel = (grad_diff / grad_ref) ** 0.5
@@ -300,7 +357,7 @@ def phase_train_step_vs_cpu():
                 for k, v in cpu_model.state_dict().items())
     moved = sum(int((cpu_model.state_dict()[k] != v).sum()) for k, v in before.items())
     log(json.dumps({
-        "phase": "train_step_f32_b2_card_vs_cpu", "depth": cfg.MVIT.DEPTH,
+        "phase": phase, "depth": cfg.MVIT.DEPTH, "frames": list(batch["frames"].shape),
         "launches": launches, "loss": [float(gpu["loss"]), float(cpu["loss"])],
         "grad_norm": [float(gpu["grad_norm"]), float(cpu["grad_norm"])],
         "top1_err": [float(gpu["top1_err"]), float(cpu["top1_err"])],
@@ -309,8 +366,8 @@ def phase_train_step_vs_cpu():
         "params_off_by_1e-6": n_off, "params": n_params, "params_moved": moved,
         "gpu_first_call_s": gpu_s, "cpu_s": cpu_s,
     }))
-    if launches != {"depthwise3x3x3": 34, "depthwise3x3x3_wgrad": 17}:
-        raise AssertionError(f"one train step launched {launches}, not 34 K1 and 17 wgrad")
+    if launches != expected:
+        raise AssertionError(f"{phase}: one train step launched {launches}, not {expected}")
     for key in ("loss", "grad_norm"):
         torch.testing.assert_close(gpu[key], cpu[key], atol=0, rtol=1e-4)
     for key in ("top1_err", "top5_err", "nan"):
@@ -329,12 +386,65 @@ def phase_train_step_vs_cpu():
         raise AssertionError(f"only {moved} of {n_params} weights moved")
 
 
+def phase_train_step_vs_cpu():
+    """One full-width float32 train step at batch 2, card against CPU, from
+    the same weights and the same draws."""
+    cfg = _train_cfg()
+    rng = np.random.default_rng(2)
+    size = cfg.DATA.TRAIN_CROP_SIZE
+    batch = {
+        "frames": rng.integers(0, 256, (2, cfg.DATA.NUM_FRAMES, size, size, 3), np.uint8),
+        "labels": rng.integers(0, cfg.MODEL.NUM_CLASSES, 2),
+    }
+    _train_step_card_vs_cpu("train_step_f32_b2_card_vs_cpu", cfg, batch,
+                            {"depthwise3x3x3": 34, "depthwise3x3x3_wgrad": 17})
+
+
+def phase_portrait_steps():
+    """The pm eval step, then the pm train step, at full width in float32
+    on one portrait and one landscape row, card against CPU."""
+    from pmv_tpu_torch.engine.steps import make_eval_step
+
+    cfg = _train_cfg()
+    cfg.DATA.TRAIN_CROP_SIZE_RECT = list(PMV_RECT)
+    cfg.DATA.TRAIN_CROP_SIZE_RECT_SWITCH_AUTO = True
+    rng = np.random.default_rng(4)
+    batch = {
+        "frames": rng.integers(0, 256, (2, cfg.DATA.NUM_FRAMES, *PMV_RECT, 3), np.uint8),
+        "labels": rng.integers(0, cfg.MODEL.NUM_CLASSES, 2),
+        "pm": np.array([True, False]),
+    }
+    models = _models_card_and_cpu(cfg)
+    cpu_eval, gpu_eval = (make_eval_step(cfg, m, device=m_dev)
+                          for m, m_dev in zip(models, ("cpu", "cuda")))
+    counts = _launch_counts()
+    gpu_pm = gpu_eval(batch["frames"], batch["pm"]).cpu()
+    launches = _launches_since(counts)
+    gpu_plain = gpu_eval(batch["frames"]).cpu()
+    cpu_pm = cpu_eval(batch["frames"], batch["pm"])
+    err = float((gpu_pm - cpu_pm).abs().max())
+    row_err = float((gpu_pm[1] - gpu_plain[1]).abs().max())
+    log(json.dumps({
+        "phase": "pm_eval_step_f32_b2_card_vs_cpu", "launches": launches,
+        "max_abs_err_vs_cpu": err, "landscape_row_vs_plain_step": row_err,
+        "portrait_row_vs_plain_step": float((gpu_pm[0] - gpu_plain[0]).abs().max()),
+    }))
+    if launches != {"depthwise3x3x3": 34, "depthwise3x3x3_wgrad": 0}:
+        raise AssertionError(f"the pm eval step launched {launches}, not 2 x 17 K1")
+    if not torch.isfinite(gpu_pm).all():
+        raise AssertionError("non-finite class scores on the card")
+    torch.testing.assert_close(gpu_pm, cpu_pm, atol=1e-4, rtol=0)
+    torch.testing.assert_close(gpu_pm[1], gpu_plain[1], atol=1e-5, rtol=0)
+    _train_step_card_vs_cpu("pm_train_step_f32_b2_card_vs_cpu", cfg, batch,
+                            {"depthwise3x3x3": 68, "depthwise3x3x3_wgrad": 34},
+                            models=models)
+
+
 def phase_serve(card):
     from pmv_tpu_torch.engine.steps import make_eval_step
     from pmv_tpu_torch.engine.test import perform_test
     from pmv_tpu_torch.entry import mvitv2_s_cfg
     from pmv_tpu_torch.models import build_model
-    from pmv_tpu_torch.ops.depthwise import depthwise3x3x3
     from pmv_tpu_torch.utils.meters import TestMeter
 
     cfg = mvitv2_s_cfg()
@@ -367,12 +477,12 @@ def phase_serve(card):
 
     meter = TestMeter(num_videos, num_clips, cfg.MODEL.NUM_CLASSES, len(loader))
     torch.cuda.reset_peak_memory_stats()
-    depthwise3x3x3.launches = 0  # the main path starts here
+    _zero_launch_counts()  # the main path starts here
     t0 = time.perf_counter()
     meter, stats = perform_test(loader, serving_step, meter)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"depthwise3x3x3": depthwise3x3x3.launches}  # ... and ends here
+    launches = _launch_counts()  # ... and ends here
     peak = torch.cuda.max_memory_allocated()
 
     preds = torch.cat(outputs).float().cpu()
@@ -381,7 +491,7 @@ def phase_serve(card):
     torch.testing.assert_close(preds.sum(dim=1), torch.ones(n), atol=1e-3, rtol=0)
     np.testing.assert_array_equal(meter.clip_count, [num_clips] * num_videos)
     np.testing.assert_allclose(meter.video_preds.sum(axis=1), num_clips, atol=1e-2)
-    if launches["depthwise3x3x3"] != 17 * len(loader):
+    if launches != {"depthwise3x3x3": 17 * len(loader), "depthwise3x3x3_wgrad": 0}:
         raise AssertionError(f"serving launched {launches} kernels, not 17 per batch")
     log(json.dumps({
         "phase": "serve_bf16_b8", "card": card, "videos": num_videos,
@@ -394,11 +504,10 @@ def phase_serve(card):
 
 
 def phase_train(card):
-    """The slice's main path: train_epoch over synthetic batch-8 clips."""
+    """A main path: train_epoch over synthetic batch-8 clips."""
     from pmv_tpu_torch.engine.steps import init_state, make_train_step
     from pmv_tpu_torch.engine.train import train_epoch
     from pmv_tpu_torch.models import build_model
-    from pmv_tpu_torch.ops.depthwise import depthwise3x3x3, depthwise3x3x3_wgrad
     from pmv_tpu_torch.utils.meters import TrainMeter
 
     cfg = _train_cfg()
@@ -428,14 +537,12 @@ def phase_train(card):
     warm_s = time.perf_counter() - t0
 
     torch.cuda.reset_peak_memory_stats()
-    depthwise3x3x3.launches = 0  # the main path starts here
-    depthwise3x3x3_wgrad.launches = 0
+    _zero_launch_counts()  # the main path starts here
     t0 = time.perf_counter()
     train_epoch(loader[1:], recording_step, state, TrainMeter(timed, cfg), 0, cfg)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"depthwise3x3x3": depthwise3x3x3.launches,  # ... and ends here
-                "depthwise3x3x3_wgrad": depthwise3x3x3_wgrad.launches}
+    launches = _launch_counts()  # ... and ends here
     peak = torch.cuda.max_memory_allocated()
 
     losses = [float(m["loss"]) for m in metrics]
@@ -455,17 +562,206 @@ def phase_train(card):
     return launches
 
 
+RUN_NET_CFG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "configs", "Kinetics", "MVITv2_S_16x4.yaml")
+
+
+def run_net_argv(out_dir, max_epoch):
+    """run_net's arguments: the PMV rect recipe (exps/PMV/run_MViT_PMV.sh,
+    run 3) on the Synthetic dataset, batch 8, bfloat16 (the config's
+    MIXED_PRECISION)."""
+    return [
+        "--cfg", RUN_NET_CFG, "--opts",
+        "DATA.TRAIN_JITTER_ASPECT_RELATIVE", "[]",
+        "DATA.TRAIN_JITTER_SCALES_RELATIVE", "[]",
+        "DATA.TRAIN_JITTER_SCALES_AUTO_ADJUST", "True",
+        "DATA.TRAIN_CROP_SIZE_RECT", f"[{PMV_RECT[0]},{PMV_RECT[1]}]",
+        "DATA.TEST_CROP_SIZE_RECT", f"[{PMV_RECT[0]},{PMV_RECT[1]}]",
+        "SOLVER.BASE_LR", "1e-4",
+        "MODEL.NUM_CLASSES", "400",
+        "TRAIN.DATASET", "synthetic",
+        "TEST.DATASET", "synthetic",
+        "TRAIN.BATCH_SIZE", "8",
+        "TEST.BATCH_SIZE", "8",
+        "TEST.NUM_ENSEMBLE_VIEWS", "2",
+        "TEST.NUM_SPATIAL_CROPS", "1",
+        "SOLVER.MAX_EPOCH", str(max_epoch),
+        "OUTPUT_DIR", out_dir,
+    ]
+
+
+def run_net_cfg(argv):
+    """The cfg that run_net builds from ``argv``."""
+    from pmv_tpu_torch.config.defaults import assert_and_infer_cfg
+    from pmv_tpu_torch.config.parser import load_config, parse_args
+
+    return assert_and_infer_cfg(load_config(parse_args(argv), RUN_NET_CFG))
+
+
+def run_net_train_batch(cfg):
+    """Clips in one train step of ``cfg``: TRAIN.BATCH_SIZE videos, each
+    AUG.NUM_SAMPLE clips (``multiple_samples_collate``)."""
+    return cfg.TRAIN.BATCH_SIZE * (cfg.AUG.NUM_SAMPLE if cfg.AUG.ENABLE else 1)
+
+
+def _compare_restored(state, ckpt, start):
+    """Every weight and every optimizer tensor of ``state`` against the
+    checkpoint's; raises on the first that differs."""
+    if start != ckpt["epoch"] + 1:
+        raise AssertionError(f"resumed at epoch {start}, not {ckpt['epoch'] + 1}")
+    n = 0
+    for name, value in state.model.state_dict().items():
+        if not torch.equal(value.cpu(), ckpt["model_state"][name]):
+            raise AssertionError(f"restored weight {name} differs from the checkpoint's")
+        n += 1
+    opt = state.optimizer.state_dict()
+    if opt["param_groups"] != ckpt["optimizer_state"]["param_groups"]:
+        raise AssertionError("restored optimizer groups (count, lr) differ")
+    for i, entries in ckpt["optimizer_state"]["state"].items():
+        for key, value in entries.items():
+            if not torch.equal(opt["state"][i][key].cpu(), value):
+                raise AssertionError(f"restored optimizer state {i}.{key} differs")
+            n += 1
+    return {"start_epoch": start, "tensors_equal": n, "step": state.step}
+
+
+def check_restore(cfg):
+    """Build the model and the optimizer as ``train()`` does and restore the
+    last checkpoint through ``load_train_checkpoint``, as it does; every
+    tensor must equal the file's."""
+    from pmv_tpu_torch.engine.steps import init_state
+    from pmv_tpu_torch.models import build_model
+    from pmv_tpu_torch.utils import checkpoint as cu
+
+    state = init_state(cfg, build_model(cfg, device="cuda", seed=cfg.RNG_SEED))
+    last = cu.get_last_checkpoint(cfg.OUTPUT_DIR, cfg.TASK)
+    start = cu.load_train_checkpoint(cfg, state)
+    ckpt = torch.load(last, map_location="cpu", weights_only=True)
+    return {"checkpoint": last, **_compare_restored(state, ckpt, start)}
+
+
+def _last_match(lines, pattern):
+    """The last match of ``pattern`` in ``lines``; raises if none."""
+    found = [m for m in map(re.compile(pattern).search, lines) if m]
+    if not found:
+        raise AssertionError(f"run_net logged no line like {pattern!r}")
+    return found[-1]
+
+
+def _run_net_call(out_dir, max_epoch):
+    """One ``run_net`` call (a main path: launch counts zeroed just before it
+    and read just after), measured from its own log: the epoch's seconds
+    (its EpochTimer line), the eval's, the checkpoint's write, and the
+    test's (the sum of its test_iter times)."""
+    from pmv_tpu_torch.data.loader import construct_loader
+    from pmv_tpu_torch.ops.depthwise import PMV_TRAIN_BATCH
+    from pmv_tpu_torch.tools import run_net
+
+    argv = run_net_argv(out_dir, max_epoch)
+    cfg = run_net_cfg(argv)
+    if run_net_train_batch(cfg) != PMV_TRAIN_BATCH:
+        raise AssertionError("phase 2 holds the kernels at a train batch of "
+                             f"{PMV_TRAIN_BATCH}, run_net takes {run_net_train_batch(cfg)}")
+    steps, evals, tests = (construct_loader(cfg, split) for split in ("train", "val", "test"))
+    log_path = os.path.join(out_dir, "stdout.log")
+    skip = 0
+    if os.path.exists(log_path):
+        with open(log_path) as f:
+            skip = len(f.read().splitlines())
+
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launch_counts()  # the main path starts here
+    t0 = time.perf_counter()
+    run_net.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launch_counts()  # ... and ends here
+    peak = torch.cuda.max_memory_allocated()
+
+    with open(log_path) as f:
+        lines = f.read().splitlines()[skip:]
+    stats = [json.loads(line.split("json_stats: ", 1)[1])
+             for line in lines if "json_stats: " in line]
+    final = stats[-1]
+    if final.get("split") != "test_final":
+        raise AssertionError(f"run_net ended without test_final stats: {final}")
+    train_stats = [s for s in stats if s.get("_type") == "train_epoch"][-1]
+    if not np.isfinite(train_stats["loss"]):
+        raise AssertionError(f"non-finite train loss {train_stats}")
+    expected = {
+        "depthwise3x3x3": 34 * len(steps) + 17 * (len(evals) + len(tests)),
+        "depthwise3x3x3_wgrad": 17 * len(steps),
+    }
+    if launches != expected:
+        raise AssertionError(f"run_net launched {launches}, not {expected}")
+    epoch = max_epoch - 1
+    epoch_s = float(_last_match(lines, rf"Epoch {epoch} takes ([\d.]+)s")[1])
+    eval_s = float(_last_match(lines, rf"Eval of epoch {epoch} takes ([\d.]+)s")[1])
+    saved = _last_match(lines, r"Saved checkpoint to (\S+) in ([\d.]+)s")
+    test_s = sum(s["time_diff"] for s in stats if s.get("split") == "test_iter")
+    train_clips = len(steps) * PMV_TRAIN_BATCH
+    return {
+        "phase": f"run_net_epoch_{max_epoch}", "wall_s": wall,
+        "epoch_s": epoch_s, "train_clips": train_clips, "train_steps": len(steps),
+        # Over the whole epoch: its first step and the loader's start included.
+        "train_clips_per_s": train_clips / epoch_s,
+        "eval_s": eval_s, "eval_clips_per_s": len(evals.dataset) / eval_s,
+        "test_s": test_s, "test_clips_per_s": len(tests.dataset) / test_s,
+        "checkpoint": saved[1], "checkpoint_s": float(saved[2]),
+        "checkpoint_bytes": os.path.getsize(saved[1]),
+        "optimizer_steps": torch.load(saved[1], map_location="cpu", weights_only=True)[
+            "optimizer_state"]["param_groups"][0]["count"],
+        "max_memory_allocated_bytes": peak, "launches": launches,
+        "train_epoch_stats": train_stats, "final_stats": final, "log": lines,
+    }
+
+
+def phase_run_net(card, out_dir):
+    """``run_net`` in this process at full width with the PMV rect crop, for
+    one epoch; the restore of its checkpoint, every tensor compared; then
+    ``run_net`` again with SOLVER.MAX_EPOCH 2, which must resume from that
+    checkpoint. Returns the launches of both calls."""
+    from contextlib import redirect_stdout
+
+    # The runs log to OUTPUT_DIR/stdout.log; keep them off ours.
+    with open(os.devnull, "w") as quiet, redirect_stdout(quiet):
+        first = _run_net_call(out_dir, 1)
+        restored = check_restore(run_net_cfg(run_net_argv(out_dir, 2)))
+        second = _run_net_call(out_dir, 2)
+    if restored["start_epoch"] != 1 or restored["checkpoint"] != first["checkpoint"]:
+        raise AssertionError(f"the restore did not start after epoch 1: {restored}")
+    resumed = f"Load from last checkpoint, {first['checkpoint']}."
+    if not (any(resumed in line for line in second["log"])
+            and any("Start epoch: 2" in line for line in second["log"])):
+        raise AssertionError("the second call did not resume from the first's checkpoint")
+    if second["optimizer_steps"] != first["optimizer_steps"] + second["train_steps"]:
+        raise AssertionError(
+            f"the optimizer took {second['optimizer_steps']} steps in all, not "
+            f"{first['optimizer_steps']} + {second['train_steps']}"
+        )
+    for rec in (first, second):
+        rec.pop("log")
+        log(json.dumps({**rec, "card": card}))
+    log(json.dumps({"phase": "run_net_restore", **restored}))
+    return [first["launches"], second["launches"]]
+
+
 def kernels_line(records, launches):
-    """One entry per kernel: times summed over the launches at the main
-    path's shapes in bfloat16 at batch 8; K1 over one forward (17 launches,
+    """One entry per kernel: times summed over the launches at the 224^2
+    crop's shapes in bfloat16 at batch 8; K1 over one forward (17 launches,
     as many again for dx in a train step), the wgrad kernel over one train
-    step (17 launches)."""
+    step (17 launches); "rect_ms" and "portrait_ms" the same at the PMV
+    rect crop's grids and at their transposes. ``launches`` sums every
+    path's."""
 
     def entry(name, source, replaces, recs, basis):
-        main = [r for r in recs if r["dtype"] == "bfloat16" and r["launches_per_forward"]]
+        def grid(name):
+            return [r for r in recs if r["dtype"] == "bfloat16" and r["grid"] == name]
 
-        def summed(key):
-            return sum(r[key] * r["launches_per_forward"] for r in main)
+        main = grid("square")
+
+        def summed(key, rows=main):
+            return sum(r[key] * r["launches_per_forward"] for r in rows)
 
         kernel_ms = summed("kernel_ms")
         return {
@@ -483,6 +779,14 @@ def kernels_line(records, launches):
             "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in main) else "operations",
             "library_ms": summed("library_ms"),
             "ms_basis": basis,
+            # The same sums at the PMV rect crop's grids and their transposes.
+            "rect_ms": summed("kernel_ms", grid("rect")),
+            "rect_bound_ms": summed("bound_ms", grid("rect")),
+            "portrait_ms": summed("kernel_ms", grid("portrait")),
+            "portrait_bound_ms": summed("bound_ms", grid("portrait")),
+            # The rect grids at run_net's train batch of 16.
+            "rect_b16_ms": summed("kernel_ms", grid("rect_b16")),
+            "rect_b16_bound_ms": summed("bound_ms", grid("rect_b16")),
         }
 
     fwd = [r for r in records if r["kernel"] == "depthwise3x3x3"]
@@ -533,18 +837,19 @@ def main():
     records = phase_kernels(flush) + phase_backward(flush)
     del flush
 
-    # Phase 3: the full model on the card and on the CPU, eval and train.
+    # Phase 3: the full model on the card and on the CPU, eval and train,
+    # landscape and portrait.
     frames = np.random.default_rng(1).integers(0, 256, (1, 16, 224, 224, 3), np.uint8)
     phase_full_model(frames)
     phase_train_step_vs_cpu()
+    phase_portrait_steps()
 
-    # Phases 4 and 5: the main paths, serving and training.
-    served = phase_serve(card)
-    trained = phase_train(card)
-    launches = {
-        "depthwise3x3x3": served["depthwise3x3x3"] + trained["depthwise3x3x3"],
-        "depthwise3x3x3_wgrad": trained["depthwise3x3x3_wgrad"],
-    }
+    # Phases 4 to 7: the main paths; serving, training, and run_net's train,
+    # checkpoint, eval and test, then its resume.
+    out_dir = os.path.join("build", "chip_smoke_run_net")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    paths = [phase_serve(card), phase_train(card), *phase_run_net(card, out_dir)]
+    launches = {k: sum(p[k] for p in paths) for k in paths[0]}
 
     line = kernels_line(records, launches)
     if args.out:

@@ -2,7 +2,7 @@
 
 Mirrors the reference's `--shard_id --num_shards --init_method --cfg --opts`
 surface (`MViT/slowfast/utils/parser.py:13-94`) so the `exps/PMV` launch
-scripts port with only a device flag.
+scripts port with only a device flag, ``--device``.
 """
 
 import argparse
@@ -29,9 +29,15 @@ def parse_args(argv=None):
     )
     parser.add_argument(
         "--init_method",
-        help="Coordinator rendezvous address, e.g. tcp://host:port "
-        "(maps to jax.distributed.initialize coordinator_address).",
+        help="Rendezvous address of a multi-process job, e.g. tcp://host:port "
+        "(multi-process runs are not ported yet).",
         default="tcp://localhost:9999",
+        type=str,
+    )
+    parser.add_argument(
+        "--device",
+        help="The torch device to run on: cuda (the default) or cpu.",
+        default="cuda",
         type=str,
     )
     parser.add_argument(

@@ -1,7 +1,13 @@
-"""On-device training augmentation: RandAugment, random erasing, MixUp/CutMix.
+"""Host data and on-device training augmentation.
 
-Each is split into "sample" (the random parameters, drawn from a
-``torch.Generator`` the train step owns) and "apply" (deterministic given
-those parameters), so that a test can hand the port the parameters the JAX
-package drew and compare the outputs.
+- Datasets (``DATASET_REGISTRY``): ``Kinetics`` (also registered as
+  ``Ptvkinetics``) and ``Synthetic``; the threaded ``loader``.
+- On-device augmentation: RandAugment, random erasing, MixUp/CutMix. Each is
+  split into "sample" (the random parameters, drawn from a
+  ``torch.Generator`` the train step owns) and "apply" (deterministic given
+  those parameters), so that a test can hand the port the parameters the
+  JAX package drew and compare the outputs.
 """
+
+from pmv_tpu_torch.data.build import DATASET_REGISTRY, build_dataset  # noqa: F401
+from pmv_tpu_torch.data import kinetics, synthetic  # noqa: F401  (registration)

@@ -9,13 +9,30 @@ The train step runs the stages of the JAX step in its order: uint8 clip ->
 RandAugment -> normalize -> random erasing (float32) -> MixUp/CutMix ->
 train-mode forward with DropPath -> loss -> backward -> global grad norm ->
 clip and optimizer update -> top-1/top-5 with the mixup top-2 relabel and
-the NaN/inf flag. Its random draws come from generators the step owns
-(seeded by ``seed``), or from the caller: ``draws`` may carry any of
-"rand_augment", "erasing", "mixup", "drop_path" and "dropout" (the head's),
-in the forms the modules' ``sample`` functions return, so that a test can
-hand the port the draws of the JAX package.
+the NaN/inf flag. Its random draws come from generators the step owns,
+seeded anew at every step from (``seed``, the state's step count), so that
+a run resumed from a checkpoint draws what the uninterrupted run drew, as
+the JAX step's ``fold_in(rng, state.step)`` does; or from the caller:
+``draws`` may carry any of "rand_augment", "erasing", "mixup", "drop_path"
+and "dropout" (the head's), in the forms the modules' ``sample`` functions
+return, so that a test can hand the port the draws of the JAX package.
+
+Portrait (``pm``) batches, whose "pm" flags mark rows: the JAX package runs a
+second module, the portrait specialization over the same parameters, on
+the whole batch transposed, and selects per row,
+``where(pm, preds_pm, preds)`` (`steps.py:244-252`). Here each row runs
+once, in its own orientation (the reference's per-sample split,
+`video_model_builder.py:2075-2096`): the landscape rows through the plain
+forward, the portrait rows transposed (``x.transpose(2, 3)``) through the
+same module with ``hw_switch=True``, and the two results go back into batch
+order. That is exact against the select: MViT has no op across rows, the
+loss is a mean over rows, the select gives the other branch a zero
+gradient, and the DropPath and head-dropout masks are per row, so each
+group takes its rows' masks. It does half the work of the select on a mixed
+batch.
 """
 
+import numpy as np
 import torch
 
 from pmv_tpu_torch.data.mixup import MixUp, mixup_target
@@ -99,24 +116,69 @@ def pack_pathways(cfg, x):
     raise NotImplementedError(f"arch {cfg.MODEL.ARCH} is not ported yet")
 
 
+def _rows(masks, index):
+    """The rows ``index`` of a per-row mask, or of each mask in a nested
+    list or tuple of them (DropPath's per-block pairs); None stays None."""
+    if masks is None:
+        return None
+    if isinstance(masks, (list, tuple)):
+        return type(masks)(_rows(m, index) for m in masks)
+    return masks.index_select(0, index.to(masks.device))
+
+
+def portrait_rows(pm, batch_size):
+    """``pm`` (host flags) as a bool array of ``batch_size`` rows, or None
+    when no row is portrait."""
+    if pm is None:
+        return None
+    pm = np.asarray(pm, bool).reshape(batch_size)
+    return pm if pm.any() else None
+
+
+def forward_by_orientation(model, x, pm, drop_path_masks=None, head_dropout_mask=None):
+    """``model`` on each row of ``x`` [B, T, H, W, C] in its orientation:
+    rows where ``pm`` (a host bool array, or None) is set run transposed
+    through the portrait specialization (``hw_switch=True``), the others
+    through the plain forward; the outputs come back in batch order."""
+    if pm is None:
+        return model(x, drop_path_masks=drop_path_masks,
+                     head_dropout_mask=head_dropout_mask)
+    groups = (np.flatnonzero(~pm), np.flatnonzero(pm))
+    outs = []
+    for rows, portrait in zip(groups, (False, True)):
+        if len(rows) == 0:
+            continue
+        index = torch.as_tensor(rows, device=x.device)
+        xg = x.index_select(0, index)
+        outs.append(model(
+            xg.transpose(2, 3) if portrait else xg,
+            drop_path_masks=_rows(drop_path_masks, index),
+            head_dropout_mask=_rows(head_dropout_mask, index),
+            hw_switch=portrait,
+        ))
+    inverse = torch.as_tensor(np.argsort(np.concatenate(groups)), device=x.device)
+    return torch.cat(outs).index_select(0, inverse)
+
+
 def _top_k(scores, k):
     """Indices of the k largest scores per row, the lower index first among
     equal scores (as ``jax.lax.top_k``)."""
     return torch.sort(scores, dim=-1, descending=True, stable=True).indices[:, :k]
 
 
-def make_train_step(cfg, device=None, seed=0, model_pm=None):
+def make_train_step(cfg, device=None, seed=0):
     """Returns train_step(state, batch, lr, draws=None) -> metrics.
 
     ``batch`` holds uint8 "frames" [B, T, H, W, 3] and int "labels" [B]
     (arrays or tensors), moved to ``device`` (CUDA by default; raises
     without a CUDA device unless ``device="cpu"``), the device of
-    ``state.model``. The step updates ``state`` in place and returns "loss",
-    "grad_norm" (before clipping), "top1_err", "top5_err" and "nan" as
-    tensors on the device, so that the host reads them only when it logs.
+    ``state.model``. The rows that the batch's optional "pm" flags mark run
+    through the portrait specialization (the module docstring); this is
+    also the JAX package's ``make_train_step(model_pm=...)``. The step
+    updates ``state`` in place and returns "loss", "grad_norm" (before
+    clipping), "top1_err", "top5_err" and "nan" as tensors on the device, so
+    that the host reads them only when it logs.
     """
-    if model_pm is not None:
-        raise NotImplementedError("the portrait (pm) train step is not ported yet")
     device = resolve_device(device)
     loss_fun = get_loss_func(cfg.MODEL.LOSS_FUNC)
     preprocess = make_preprocess_fn(cfg, train=True, device=device)
@@ -132,10 +194,13 @@ def make_train_step(cfg, device=None, seed=0, model_pm=None):
         if cfg.MIXUP.ENABLE
         else None
     )
-    generator = torch.Generator().manual_seed(seed)
-    device_generator = torch.Generator(device).manual_seed(seed)
+    generator = torch.Generator()
+    device_generator = torch.Generator(device)
 
-    def sample_draws(model, shape, given):
+    def sample_draws(model, shape, given, step):
+        step_seed = int(np.random.SeedSequence((seed, step)).generate_state(1)[0])
+        generator.manual_seed(step_seed)
+        device_generator.manual_seed(step_seed)
         draws = dict(given)
         missing = {"rand_augment", "erasing", "mixup", "drop_path", "dropout"} - set(given)
         draws.update(preprocess.sample(shape, generator, device_generator, missing))
@@ -156,7 +221,7 @@ def make_train_step(cfg, device=None, seed=0, model_pm=None):
         model.train()
         frames = torch.as_tensor(batch["frames"]).to(device, non_blocking=True)
         labels = torch.as_tensor(batch["labels"]).to(device, non_blocking=True)
-        draws = sample_draws(model, tuple(frames.shape), draws or {})
+        draws = sample_draws(model, tuple(frames.shape), draws or {}, state.step)
 
         x = preprocess(frames, draws)
         if mixup_fn is not None:
@@ -168,9 +233,9 @@ def make_train_step(cfg, device=None, seed=0, model_pm=None):
         else:
             targets = labels
         inputs = pack_pathways(cfg, x)
-
-        preds = model(
-            inputs[0], drop_path_masks=draws["drop_path"],
+        preds = forward_by_orientation(
+            model, inputs[0], portrait_rows(batch.get("pm"), frames.shape[0]),
+            drop_path_masks=draws["drop_path"],
             head_dropout_mask=draws["dropout"],
         )
         loss = loss_fun(preds.float(), targets)
@@ -213,27 +278,49 @@ def make_train_step(cfg, device=None, seed=0, model_pm=None):
                 "nan": ~(torch.isfinite(loss) & torch.isfinite(grad_norm)),
             }
 
-    train_step.sample_draws = lambda model, shape: sample_draws(model, tuple(shape), {})
+    train_step.sample_draws = (
+        lambda model, shape, step=0: sample_draws(model, tuple(shape), {}, step)
+    )
     return train_step
 
 
 def make_eval_step(cfg, model, device=None):
-    """eval_step(frames) -> scores [B, NUM_CLASSES] (softmax'd head).
+    """eval_step(frames, pm=None) -> scores [B, NUM_CLASSES] (softmax'd head).
 
     ``frames`` is a uint8 [B, T, H, W, 3] array or tensor; it is moved to
     ``device`` (CUDA by default; raises without a CUDA device unless
-    ``device="cpu"``), which must be the model's device."""
+    ``device="cpu"``), which must be the model's device. Rows that ``pm``
+    marks run through the portrait specialization: this is also the JAX
+    package's ``_make_pm_eval_step`` (`train.py:183-199`)."""
     device = resolve_device(device)
     preprocess = make_eval_preprocess_fn(cfg, device)
 
     @torch.inference_mode()
-    def eval_step(frames):
+    def eval_step(frames, pm=None):
         model.eval()
         frames = torch.as_tensor(frames).to(device, non_blocking=True)
         inputs = pack_pathways(cfg, preprocess(frames))
-        return model(inputs[0])
+        return forward_by_orientation(model, inputs[0], portrait_rows(pm, frames.shape[0]))
 
     return eval_step
+
+
+def make_feat_step(cfg, model, device=None):
+    """feat_step(frames) -> pooled backbone features [B, C]
+    (TEST.FEAT_EXTRACT, `steps.py:384-403`): the mean of the last block's
+    tokens, the cls token included, as the JAX package takes it."""
+    device = resolve_device(device)
+    preprocess = make_eval_preprocess_fn(cfg, device)
+
+    @torch.inference_mode()
+    def feat_step(frames):
+        model.eval()
+        frames = torch.as_tensor(frames).to(device, non_blocking=True)
+        inputs = pack_pathways(cfg, preprocess(frames))
+        feats, _ = model(inputs[0], return_features=True)
+        return feats.float().mean(dim=1)
+
+    return feat_step
 
 
 def init_state(cfg, model, optimizer=None):

@@ -1,25 +1,54 @@
-"""The per-epoch training loop (`MViT/tools/train_net.py:33-310`).
+"""Training (`MViT/tools/train_net.py:33-814`).
 
-Counterpart of `pmv_tpu/engine/train.py::train_epoch`. Each iteration takes
-its LR from ``lr_policy`` at the fractional epoch ``cur_epoch + iter / len``
-and runs the train step; the step's metrics stay on the device until a flush
-every LOG_PERIOD iterations (and at the end of the epoch), where the host
-reads them, runs the NaN guard and the loss-explosion guard, and feeds the
-TrainMeter. So up to LOG_PERIOD - 1 steps may run after a bad one before the
-guard raises, the price of not waiting for the device every step.
+Counterpart of `pmv_tpu/engine/train.py`.
 
-Not ported yet: the profiler window, the device prefetcher, the portrait
-(``pm``) step and the audio batches.
+- ``train_epoch``: each iteration takes its LR from ``lr_policy`` at the
+  fractional epoch ``cur_epoch + iter / len`` and runs the train step on a
+  batch read through ``DevicePrefetcher`` (TPU.DEVICE_PREFETCH batches
+  ahead on the card; none on the CPU). The step routes the batch's portrait
+  rows itself (the JAX package picks its pm step per batch, `train.py:130`;
+  on a batch without portrait rows the two are the same). The step's metrics stay on the device until a flush every
+  LOG_PERIOD iterations (and at the end of the epoch), where the host reads
+  them, runs the NaN guard and the loss-explosion guard, and feeds the
+  TrainMeter. So up to LOG_PERIOD - 1 steps may run after a bad one before
+  the guard raises, and the epoch-end flush raises before a checkpoint of
+  poisoned weights is written.
+- ``eval_epoch``: the validation loop into a ValMeter.
+- ``train``: seeds, model, optimizer, auto-resume, loaders, meters, then
+  per epoch {set_epoch, train_epoch, checkpoint, eval_epoch}, then the
+  result string.
+
+Not ported, each raising NotImplementedError where the config asks for it:
+multigrid, precise BN (MViT has no BN), TensorBoard, detection and AVA,
+audio, the Uniformer pretrain registry and the profiler window.
 """
 
-import numpy as np
+import math
+import pprint
+import time
 
+import numpy as np
+import torch
+
+from pmv_tpu_torch.data import loader as loader_mod
+from pmv_tpu_torch.engine import steps
+from pmv_tpu_torch.engine.prefetch import DevicePrefetcher
+from pmv_tpu_torch.models import build_model
+from pmv_tpu_torch.utils import checkpoint as cu
+from pmv_tpu_torch.utils import logging as pmv_logging
+from pmv_tpu_torch.utils import meters as meters_mod
+from pmv_tpu_torch.utils import metrics as metrics_mod
+from pmv_tpu_torch.utils import misc
+from pmv_tpu_torch.utils.device import resolve_device
 from pmv_tpu_torch.utils.lr_policy import get_lr_at_epoch
+
+logger = pmv_logging.get_logger(__name__)
 
 
 def train_epoch(train_loader, train_step, state, meter, cur_epoch, cfg):
     """One epoch over ``train_loader`` (any sized iterable of batches with
-    "frames" and "labels"). Returns ``state``, updated in place."""
+    "frames" and "labels", and "pm" where rows may be portrait). Returns
+    ``state``, updated in place."""
     data_size = len(train_loader)
     pending = []
     flush_every = max(1, cfg.LOG_PERIOD)
@@ -43,14 +72,14 @@ def train_epoch(train_loader, train_step, state, meter, cur_epoch, cfg):
             meter.log_iter_stats(cur_epoch, it)
         pending.clear()
 
+    device = next(state.model.parameters()).device
+    stream = DevicePrefetcher(train_loader, device, cfg.TPU.DEVICE_PREFETCH)
     meter.iter_tic()
-    for cur_iter, batch in enumerate(train_loader):
-        if "pm" in batch and np.any(batch["pm"]):
-            raise NotImplementedError("portrait (pm) batches are not ported yet")
+    for cur_iter, (batch, device_batch) in enumerate(stream):
         epoch_exact = cur_epoch + float(cur_iter) / data_size
         lr = get_lr_at_epoch(cfg, epoch_exact)
         meter.data_toc()
-        metrics = train_step(state, batch, lr)
+        metrics = train_step(state, device_batch, lr)
         pending.append((cur_iter, lr, batch["frames"].shape[0], metrics))
         meter.iter_toc()
         if (cur_iter + 1) % flush_every == 0:
@@ -60,3 +89,112 @@ def train_epoch(train_loader, train_step, state, meter, cur_epoch, cfg):
     meter.log_epoch_stats(cur_epoch)
     meter.reset()
     return state
+
+
+def eval_epoch(val_loader, eval_step, meter, cur_epoch, cfg):
+    """One pass of ``eval_step`` over ``val_loader`` into the ValMeter;
+    returns the epoch's stats."""
+    meter.iter_tic()
+    for cur_iter, batch in enumerate(val_loader):
+        meter.data_toc()
+        preds = eval_step(batch["frames"], batch.get("pm"))
+        preds = preds.float().cpu().numpy()  # waits for the device
+        labels = batch["labels"]
+        if np.asarray(labels).ndim > 1:  # multi-label: mAP at the epoch's end
+            top1_err = top5_err = 0.0
+        else:
+            top1_err, top5_err = (
+                (1.0 - float(n) / preds.shape[0]) * 100.0
+                for n in metrics_mod.topks_correct(
+                    torch.from_numpy(preds), torch.as_tensor(labels), (1, 5))
+            )
+        meter.iter_toc()
+        meter.update_stats(top1_err, top5_err, preds.shape[0] * max(cfg.NUM_SHARDS, 1))
+        meter.update_predictions(preds, labels)
+        meter.log_iter_stats(cur_epoch, cur_iter)
+        meter.iter_tic()
+    stats = meter.log_epoch_stats(cur_epoch)
+    meter.reset()
+    return stats
+
+
+def refuse_unported(cfg):
+    """Raise for what the config asks for and the port does not have."""
+    unported = {
+        "MULTIGRID.LONG_CYCLE / SHORT_CYCLE (multigrid)":
+            cfg.MULTIGRID.LONG_CYCLE or cfg.MULTIGRID.SHORT_CYCLE,
+        "BN.USE_PRECISE_STATS (precise BN)": cfg.BN.USE_PRECISE_STATS,
+        "TENSORBOARD.ENABLE": cfg.TENSORBOARD.ENABLE,
+        "DETECTION.ENABLE (detection and AVA)": cfg.DETECTION.ENABLE,
+        "audio (MODEL.ARCH avslowfast)": cfg.MODEL.ARCH == "avslowfast",
+        "UNIFORMER.PRETRAIN_NAME (the pretrain registry)":
+            cfg.MODEL.MODEL_NAME.startswith("Uniformer") and bool(cfg.UNIFORMER.PRETRAIN_NAME),
+        "TPU.PROFILE_DIR (the profiler window)": bool(cfg.TPU.PROFILE_DIR),
+    }
+    asked = [name for name, on in unported.items() if on]
+    if asked:
+        raise NotImplementedError(f"not ported: {', '.join(asked)}")
+
+
+def train(cfg, device=None):
+    """Train a model per ``cfg`` on ``device`` (CUDA by default; raises
+    without a CUDA device unless ``device="cpu"``). Returns the result
+    string of the reference's train()."""
+    device = resolve_device(device)
+    pmv_logging.setup_logging(cfg.OUTPUT_DIR)
+    refuse_unported(cfg)
+    np.random.seed(cfg.RNG_SEED)
+    torch.manual_seed(cfg.RNG_SEED)
+    logger.info("Train with config:")
+    logger.info(pprint.pformat(cfg))
+
+    model = build_model(cfg, device=device, seed=cfg.RNG_SEED)
+    if cfg.LOG_MODEL_INFO:
+        misc.log_model_info(model)
+    state = steps.init_state(cfg, model)
+    start_epoch = cu.load_train_checkpoint(cfg, state)
+    train_step = steps.make_train_step(cfg, device=device, seed=cfg.RNG_SEED)
+    eval_step = steps.make_eval_step(cfg, model, device=device)
+
+    train_loader = loader_mod.construct_loader(cfg, "train")
+    val_loader = loader_mod.construct_loader(cfg, "val")
+    train_meter = meters_mod.TrainMeter(len(train_loader), cfg)
+    val_meter = meters_mod.ValMeter(len(val_loader), cfg)
+    epoch_timer = meters_mod.EpochTimer()
+
+    logger.info("Start epoch: %d", start_epoch + 1)
+    for cur_epoch in range(start_epoch, cfg.SOLVER.MAX_EPOCH):
+        if cur_epoch > 0 and cfg.DATA.LOADER_CHUNK_SIZE > 0:
+            # Chunked-CSV epoch advance (`train_net.py:675-686`).
+            num_chunks = math.ceil(
+                cfg.DATA.LOADER_CHUNK_OVERALL_SIZE / cfg.DATA.LOADER_CHUNK_SIZE
+            )
+            cfg.DATA.SKIP_ROWS = cur_epoch % num_chunks * cfg.DATA.LOADER_CHUNK_SIZE
+            logger.info("chunked loader: skip_rows %d", cfg.DATA.SKIP_ROWS)
+            train_loader = loader_mod.construct_loader(cfg, "train")
+            train_meter = meters_mod.TrainMeter(len(train_loader), cfg)
+        train_loader.set_epoch(cur_epoch)
+        epoch_timer.epoch_tic()
+        train_epoch(train_loader, train_step, state, train_meter, cur_epoch, cfg)
+        epoch_timer.epoch_toc()
+        logger.info(
+            "Epoch %d takes %.2fs. Epochs from %d to %d take %.2fs in "
+            "average and %.2fs in median.",
+            cur_epoch, epoch_timer.last_epoch_time(), start_epoch, cur_epoch,
+            epoch_timer.avg_epoch_time(), epoch_timer.median_epoch_time(),
+        )
+        if cu.is_checkpoint_epoch(cfg, cur_epoch):
+            cu.save_checkpoint(cfg.OUTPUT_DIR, state, cur_epoch, cfg)
+        if misc.is_eval_epoch(cfg, cur_epoch):
+            eval_tic = time.perf_counter()
+            eval_epoch(val_loader, eval_step, val_meter, cur_epoch, cfg)
+            logger.info("Eval of epoch %d takes %.4fs.", cur_epoch,
+                        time.perf_counter() - eval_tic)
+
+    median = epoch_timer.median_epoch_time() if epoch_timer.epoch_times else 0.0
+    result_string = (
+        f"_p{misc.params_count(model) / 1e6:.2f}M _t{median / 60:.2f}m "
+        f"top1 {val_meter.min_top1_err:.2f} top5 {val_meter.min_top5_err:.2f}"
+    )
+    logger.info("training done: %s", result_string)
+    return result_string

@@ -260,7 +260,9 @@ class MultiScaleAttention(nn.Module):
                 torch.zeros(2 * input_size[0] - 1, head_dim)
             )
 
-    def forward(self, x, thw_shape):
+    def forward(self, x, thw_shape, hw_switch=False):
+        """``hw_switch`` sets the table swap for this call, on top of the
+        module's own (the portrait specialization shares the parameters)."""
         b, n, _ = x.shape
         heads = self.num_heads
         if self.separate_qkv:
@@ -284,7 +286,7 @@ class MultiScaleAttention(nn.Module):
             bias = attn[:, :, sp:, sp:].unflatten(-1, tuple(k_shape))
             if self.rel_pos_spatial:
                 rp_h, rp_w = self.rel_pos_h, self.rel_pos_w
-                if self.hw_switch and thw_shape[1] > thw_shape[2]:
+                if (self.hw_switch or hw_switch) and thw_shape[1] > thw_shape[2]:
                     rp_h, rp_w = rp_w, rp_h
                 rel_h, rel_w = rel_q_tables_spatial(
                     q, q_shape, k_shape, rp_h, rp_w, self.has_cls_embed
@@ -384,10 +386,10 @@ class MultiScaleBlock(nn.Module):
             self.drop_path2.sample(batch, generator, device),
         )
 
-    def forward(self, x, thw_shape, drop_path_masks=None):
+    def forward(self, x, thw_shape, drop_path_masks=None, hw_switch=False):
         mask1, mask2 = drop_path_masks or (None, None)
         x_norm = self.norm1(x)
-        x_block, thw_shape_new = self.attn(x_norm, thw_shape)
+        x_block, thw_shape_new = self.attn(x_norm, thw_shape, hw_switch)
         if self.dim_mul_in_att and self.dim != self.dim_out:
             x = self.proj(x_norm)
         if self.pool_skip:

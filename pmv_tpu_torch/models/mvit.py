@@ -1,10 +1,13 @@
 """MViT v1/v2 (`MViT/slowfast/models/video_model_builder.py:1726-2171`).
 
 Counterpart of `pmv_tpu/models/mvit.py`. Input is channels-last
-[B, T, H, W, C]. Parameter shapes are fixed at construction from the
-landscape crop geometry; a portrait input (H > W) runs the same parameters,
-with rel-pos tables resized to the runtime grid and, under
-DATA.TRAIN_CROP_SIZE_RECT_SWITCH_AUTO, the H and W tables swapped.
+[B, T, H, W, C]. Parameter shapes are fixed at construction from the crop
+geometry of ``geometry``; any other grid runs the same parameters, with
+rel-pos tables resized to the runtime grid. On a grid with H > W the H and
+W tables swap when the switch is on: DATA.TRAIN_CROP_SIZE_RECT_SWITCH_AUTO,
+or ``forward(..., hw_switch=True)``, which is how the portrait
+specialization of the JAX package (``build_model(cfg, hw_switch=True)``, a
+second module over the same parameters) is one module here.
 """
 
 import numpy as np
@@ -286,12 +289,13 @@ class MViT(nn.Module):
         return self.head.dropout.sample((batch, self.head.dim_in), generator, device)
 
     def forward(self, x, return_features=False, drop_path_masks=None,
-                head_dropout_mask=None):
+                head_dropout_mask=None, hw_switch=False):
         """In train mode, ``drop_path_masks`` (one entry per block, from
         ``sample_drop_path_masks``) when MVIT.DROPPATH_RATE > 0, and
         ``head_dropout_mask`` (``sample_head_dropout_mask``) when
         MODEL.DROPOUT_RATE > 0. MVIT.DROPOUT_RATE > 0 is not ported for
-        training yet."""
+        training yet. ``hw_switch`` runs the portrait specialization: the
+        rel-pos H and W tables swap on grids with H > W."""
         x, thw = self.patch_embed(x.to(self.compute_dtype))
         b, _, c = x.shape
         s = 1 if self.cls_on else 0
@@ -310,7 +314,7 @@ class MViT(nn.Module):
 
         masks = drop_path_masks or [None] * len(self.blocks)
         for block, block_masks in zip(self.blocks, masks):
-            x, thw = block(x, thw, block_masks)
+            x, thw = block(x, thw, block_masks, hw_switch)
         if return_features:
             return x, thw
 

@@ -18,8 +18,12 @@ its stride-1 3x3x3 pooling convs here (``models/attention.py``).
 - ``plan_forward`` and ``plan_wgrad``: the kernels' launch plans (tiles,
   threads, shared memory) by one rule, worked out here so that the CPU
   tests can check them.
-- ``MVIT_POOL_SHAPES`` and ``ODD_SHAPES``: the shapes the main path gives
-  the kernels, and the odd ones their tiling must take besides; the tests,
+- ``MVIT_POOL_SHAPES``, ``MVIT_RECT_POOL_SHAPES``,
+  ``MVIT_PORTRAIT_POOL_SHAPES``, ``MVIT_RECT_TRAIN_POOL_SHAPES`` and
+  ``ODD_SHAPES``: the shapes the main paths give the kernels (the 224^2
+  crop, the PMV rect crop and its transposes at batch 8, and both at the
+  PMV train step's batch of 16), and the odd ones their tiling must take
+  besides; the tests,
   ``chip_smoke.py`` and ``tools/plan_sweep.py`` take them from here.
 
 A CUDA tensor launches the kernels; a CPU tensor takes the plain versions.
@@ -67,6 +71,29 @@ MVIT_POOL_SHAPES = (
     ((8, 8, 14, 14, 384), 10),  # q-pools, blocks 4-13
     ((8, 8, 14, 14, 768), 2),   # K and V pools, block 14
     ((8, 8, 7, 7, 768), 3),     # q, K and V pools, block 15
+)
+# The same at the PMV rect crop (DATA.TRAIN_CROP_SIZE_RECT [256, 192],
+# exps/PMV/run_MViT_PMV.sh): H > W, so the rel-pos tables swap under
+# SWITCH_AUTO; then its transposes, the grids of the portrait rows, which
+# run transposed through the switched forward.
+MVIT_RECT_POOL_SHAPES = (
+    ((8, 8, 64, 48, 96), 1),
+    ((8, 8, 32, 24, 192), 1),
+    ((8, 8, 16, 12, 384), 10),
+    ((8, 8, 16, 12, 768), 2),
+    ((8, 8, 8, 6, 768), 3),
+)
+MVIT_PORTRAIT_POOL_SHAPES = tuple(
+    ((b, t, w, h, c), n) for (b, t, h, w, c), n in MVIT_RECT_POOL_SHAPES
+)
+# The PMV recipe's train step through run_net takes TRAIN.BATCH_SIZE 8 x
+# AUG.NUM_SAMPLE 2 = 16 clips (``multiple_samples_collate``): the rect grids,
+# and their transposes, at that batch, where the plans cut T and the wgrad
+# kernel's partial sums differ from batch 8's.
+PMV_TRAIN_BATCH = 16
+MVIT_RECT_TRAIN_POOL_SHAPES = tuple(
+    ((PMV_TRAIN_BATCH, *s[1:]), n)
+    for s, n in MVIT_RECT_POOL_SHAPES + MVIT_PORTRAIT_POOL_SHAPES
 )
 # Shapes the tiling must take besides: C of 8, 24 and 40 (not multiples of
 # a chunk), H and W of 1, 2, 7 and 13, portrait grids, T of 1 to 3, B of 1.

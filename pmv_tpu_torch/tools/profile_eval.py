@@ -1,11 +1,16 @@
 """Time and profile the port's MViTv2-S 16x4 eval or train step on one CUDA
 card.
 
-    python -m pmv_tpu_torch.tools.profile_eval [--train] [--batch 8] [--steps 10] [--top 20]
+    python -m pmv_tpu_torch.tools.profile_eval [--train] [--batch 8] [--steps 10] [--top 20] \\
+        [--cfg <yaml> [--opts KEY VALUE ...]]
 
 The step runs as it serves, or with ``--train`` as it trains (the bench
 recipe of ``entry.apply_bench_recipe``: RandAugment, erasing, MixUp/CutMix,
 DropPath, AdamW at LR 1e-4): bfloat16 activations (``compute_dtype``).
+With ``--cfg`` the model and the step come from that config and its
+``--opts``, as ``run_net`` builds them, at its crop (the RECT one where
+set); ``--batch`` counts clips, so a train step of TRAIN.BATCH_SIZE videos
+of AUG.NUM_SAMPLE clips each is ``--batch`` their product.
 Prints JSON lines:
 - "step": steady-state ms per step and clips/s (host clock around steps
   that end in a synchronize), and peak device memory, beside the card's
@@ -76,11 +81,16 @@ def main(argv=None):
     parser.add_argument("--batch", type=int, default=8)
     parser.add_argument("--steps", type=int, default=10)
     parser.add_argument("--top", type=int, default=20)
+    parser.add_argument("--cfg", help="config file to build the model and step from")
+    parser.add_argument("--opts", default=None, nargs=argparse.REMAINDER,
+                        help="KEY VALUE pairs over --cfg")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_eval: no CUDA device", file=sys.stderr)
         return 1
 
+    from pmv_tpu_torch.config.defaults import assert_and_infer_cfg
+    from pmv_tpu_torch.config.parser import load_config
     from pmv_tpu_torch.engine.steps import init_state, make_eval_step, make_train_step
     from pmv_tpu_torch.entry import apply_bench_recipe, mvitv2_s_cfg
     from pmv_tpu_torch.models import build_model
@@ -89,12 +99,19 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     card = card_line()
-    cfg = apply_bench_recipe(mvitv2_s_cfg()) if args.train else mvitv2_s_cfg()
+    if args.cfg:
+        cfg = assert_and_infer_cfg(load_config(args, args.cfg))
+    else:
+        cfg = apply_bench_recipe(mvitv2_s_cfg()) if args.train else mvitv2_s_cfg()
     model = build_model(cfg, device="cuda", seed=0)
-    size = cfg.DATA.TEST_CROP_SIZE
+    if args.train:
+        rect, size = cfg.DATA.TRAIN_CROP_SIZE_RECT, cfg.DATA.TRAIN_CROP_SIZE
+    else:
+        rect, size = cfg.DATA.TEST_CROP_SIZE_RECT, cfg.DATA.TEST_CROP_SIZE
+    height, width = rect if len(rect) else (size, size)
     gen = torch.Generator(device="cuda").manual_seed(0)
     frames = torch.randint(
-        0, 256, (args.batch, cfg.DATA.NUM_FRAMES, size, size, 3),
+        0, 256, (args.batch, cfg.DATA.NUM_FRAMES, height, width, 3),
         dtype=torch.uint8, device="cuda", generator=gen,
     )
     if args.train:
@@ -123,6 +140,7 @@ def main(argv=None):
     step_ms = (time.perf_counter() - t0) / args.steps * 1e3
     print(json.dumps({
         "step": {"card": card, "train": args.train, "batch": args.batch,
+                 "cfg": args.cfg, "frames": list(frames.shape),
                  "steps": args.steps, "ms_per_step": step_ms,
                  "clips_per_s": args.batch / step_ms * 1e3,
                  "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()},

@@ -1,0 +1,212 @@
+"""Checkpoints in the reference's ``.pyth`` layout
+(`MViT/slowfast/utils/checkpoint.py`; counterpart of
+`pmv_tpu/utils/checkpoint.py`, which writes orbax directories).
+
+- ``torch.save`` of {"epoch", "model_state", "optimizer_state", "cfg"} to
+  ``OUTPUT_DIR/checkpoints/checkpoint_epoch_{epoch:05d}.pyth`` (prefixed
+  with TASK when set), written by rank 0 only, through a temporary file and
+  a rename, so that a cut job never leaves half a checkpoint.
+- ``get_last_checkpoint``: the lexicographic maximum of the names.
+- ``load_train_checkpoint``: TRAIN.AUTO_RESUME resumes from the last
+  checkpoint at its epoch + 1 with the weights and the optimizer's state
+  (AdamW's moments and step count) exactly; else TRAIN.CHECKPOINT_FILE_PATH
+  loads with TRAIN.CHECKPOINT_CLEAR_NAME_PATTERN and
+  TRAIN.CHECKPOINT_EPOCH_RESET.
+- ``load_test_checkpoint``: TEST.CHECKPOINT_FILE_PATH, else the last
+  checkpoint, else TRAIN.CHECKPOINT_FILE_PATH, else the random init.
+
+Loading matches names: a reference PySlowFast ``.pyth`` of the same model
+loads directly. A weight whose shape differs from the model's raises, as in
+the JAX package (its torch importer, and its forward on a restored tree of
+other shapes), except the head's, which keeps the model's value (a
+checkpoint of another class count); names only one side has are logged.
+So a model built for another crop (a test geometry other than the train
+one: other rel-pos table sizes) refuses the checkpoint. Not ported, each
+raising NotImplementedError: the JAX package's orbax directories, caffe2
+checkpoints and 2D->3D inflation.
+"""
+
+import os
+import re
+import time
+
+import torch
+
+from pmv_tpu_torch.utils import logging as pmv_logging
+
+logger = pmv_logging.get_logger(__name__)
+
+_CHECKPOINT_DIR = "checkpoints"
+_NAME_RE = re.compile(r"checkpoint_epoch_(\d+)\.pyth$")
+
+
+def get_checkpoint_dir(path_to_job):
+    return os.path.join(path_to_job, _CHECKPOINT_DIR)
+
+
+def get_path_to_checkpoint(path_to_job, epoch, task=""):
+    name = f"checkpoint_epoch_{epoch:05d}.pyth"
+    if task:
+        name = f"{task}_{name}"
+    return os.path.join(get_checkpoint_dir(path_to_job), name)
+
+
+def get_last_checkpoint(path_to_job, task=""):
+    d = get_checkpoint_dir(path_to_job)
+    if not os.path.isdir(d):
+        return None
+    names = [
+        f for f in os.listdir(d)
+        if _NAME_RE.search(f) and (not task or f.startswith(task))
+    ]
+    if not names:
+        return None
+    return os.path.join(d, sorted(names)[-1])
+
+
+def has_checkpoint(path_to_job, task=""):
+    return get_last_checkpoint(path_to_job, task) is not None
+
+
+def is_checkpoint_epoch(cfg, cur_epoch):
+    return (
+        (cur_epoch + 1) % cfg.TRAIN.CHECKPOINT_PERIOD == 0
+        or cur_epoch + 1 == cfg.SOLVER.MAX_EPOCH
+    )
+
+
+def save_checkpoint(path_to_job, state, epoch, cfg):
+    """Write ``state`` after epoch ``epoch`` (0-based) as checkpoint
+    ``epoch + 1``; returns its path (None on ranks other than 0)."""
+    if not pmv_logging.is_master_process():
+        return None
+    os.makedirs(get_checkpoint_dir(path_to_job), exist_ok=True)
+    path = get_path_to_checkpoint(path_to_job, epoch + 1, cfg.TASK)
+    payload = {
+        "epoch": epoch,
+        "model_state": state.model.state_dict(),
+        "optimizer_state": state.optimizer.state_dict(),
+        "cfg": cfg.dump(),
+    }
+    tmp = f"{path}.{os.getpid()}.tmp"
+    tic = time.perf_counter()
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+    logger.info("Saved checkpoint to %s in %.4fs", path, time.perf_counter() - tic)
+    return path
+
+
+def _read(path, checkpoint_type="pytorch", inflate=False):
+    if os.path.isdir(path):
+        raise NotImplementedError(
+            f"{path} is a directory: the JAX package's orbax checkpoints are not "
+            "read by the port"
+        )
+    if checkpoint_type == "caffe2":
+        raise NotImplementedError("caffe2 checkpoints are not ported")
+    if inflate:
+        raise NotImplementedError("2D->3D checkpoint inflation is not ported")
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def _rename(state_dict, patterns):
+    """TRAIN.CHECKPOINT_CLEAR_NAME_PATTERN: drop the first occurrence of
+    each pattern from the names that hold it (`checkpoint.py:312-328`)."""
+    for item in patterns:
+        renamed = {}
+        for k, v in state_dict.items():
+            if item in k:
+                k_new = k.replace(item, "", 1)
+                logger.info("renaming: %s -> %s", k, k_new)
+                k = k_new
+            renamed[k] = v
+        state_dict = renamed
+    return state_dict
+
+
+def load_model_state(model, state_dict, clear_name_pattern=()):
+    """Load the weights of ``state_dict`` that ``model`` has, by name."""
+    loaded = _rename(dict(state_dict), clear_name_pattern)
+    merged = model.state_dict()
+    missing = []
+    for name, value in merged.items():
+        if name not in loaded:
+            missing.append(name)
+            continue
+        src = loaded[name]
+        if tuple(src.shape) != tuple(value.shape):
+            if "head" in name or "projection" in name:
+                logger.info("Dropping %s (shape mismatch)", name)
+                continue
+            raise ValueError(
+                f"checkpoint weight {name} has shape {tuple(src.shape)}, the "
+                f"model's is {tuple(value.shape)}"
+            )
+        merged[name] = src
+    unused = [k for k in loaded if k not in merged]
+    if missing:
+        logger.warning("Missing from the checkpoint: %s", missing[:10])
+    if unused:
+        logger.info("Unused checkpoint weights: %s", unused[:10])
+    model.load_state_dict(merged, strict=True)
+    return missing
+
+
+def load_checkpoint(path, state=None, model=None, epoch_reset=False,
+                    clear_name_pattern=(), checkpoint_type="pytorch",
+                    inflate=False):
+    """Load checkpoint ``path`` into ``state`` (model and optimizer) or into
+    ``model`` alone. The optimizer's state comes back when the checkpoint
+    holds one of this package's (its groups carry "count") and neither
+    ``epoch_reset`` nor a name pattern is given. Returns the checkpoint's
+    epoch, or -1 under ``epoch_reset``."""
+    ckpt = _read(path, checkpoint_type, inflate)
+    model = state.model if state is not None else model
+    load_model_state(model, ckpt["model_state"], clear_name_pattern)
+    opt_state = ckpt.get("optimizer_state")
+    if (
+        state is not None and opt_state is not None and not epoch_reset
+        and not clear_name_pattern
+        and all("count" in g for g in opt_state.get("param_groups", ()))
+    ):
+        state.optimizer.load_state_dict(opt_state)
+        state.step = int(state.optimizer.param_groups[0]["count"])
+    if epoch_reset or "epoch" not in ckpt:
+        return -1
+    return int(ckpt["epoch"])
+
+
+def load_train_checkpoint(cfg, state):
+    """Auto-resume, or the given checkpoint (`train_net.py:589-631`).
+    Returns the epoch to start from."""
+    if cfg.TRAIN.AUTO_RESUME and has_checkpoint(cfg.OUTPUT_DIR, cfg.TASK):
+        last = get_last_checkpoint(cfg.OUTPUT_DIR, cfg.TASK)
+        logger.info("Load from last checkpoint, %s.", last)
+        return load_checkpoint(last, state) + 1
+    if cfg.TRAIN.CHECKPOINT_FILE_PATH:
+        logger.info("Load from given checkpoint file %s.", cfg.TRAIN.CHECKPOINT_FILE_PATH)
+        return load_checkpoint(
+            cfg.TRAIN.CHECKPOINT_FILE_PATH, state,
+            epoch_reset=cfg.TRAIN.CHECKPOINT_EPOCH_RESET,
+            clear_name_pattern=list(cfg.TRAIN.CHECKPOINT_CLEAR_NAME_PATTERN),
+            checkpoint_type=cfg.TRAIN.CHECKPOINT_TYPE,
+            inflate=cfg.TRAIN.CHECKPOINT_INFLATE,
+        ) + 1
+    return 0
+
+
+def load_test_checkpoint(cfg, model):
+    """The test-time priority chain (`checkpoint.py:667-704`); returns the
+    path loaded, or None for the random init."""
+    if cfg.TEST.CHECKPOINT_FILE_PATH:
+        path, kind = cfg.TEST.CHECKPOINT_FILE_PATH, cfg.TEST.CHECKPOINT_TYPE
+    elif has_checkpoint(cfg.OUTPUT_DIR, cfg.TASK):
+        path, kind = get_last_checkpoint(cfg.OUTPUT_DIR, cfg.TASK), "pytorch"
+    elif cfg.TRAIN.CHECKPOINT_FILE_PATH:
+        path, kind = cfg.TRAIN.CHECKPOINT_FILE_PATH, cfg.TRAIN.CHECKPOINT_TYPE
+    else:
+        logger.info("Unknown way of loading checkpoint; using random initialization.")
+        return None
+    logger.info("Load test checkpoint %s.", path)
+    load_checkpoint(path, model=model, checkpoint_type=kind)
+    return path

@@ -1,6 +1,8 @@
-"""Device choice for the port's entry points: the card unless asked otherwise."""
+"""Device choice for the port's entry points (the card unless asked
+otherwise), and the process's place in a ``torch.distributed`` job."""
 
 import torch
+import torch.distributed as dist
 
 
 def resolve_device(device=None):
@@ -13,3 +15,11 @@ def resolve_device(device=None):
             "no CUDA device is available; pass device='cpu' to run on the CPU"
         )
     return device
+
+
+def rank_and_world_size():
+    """(rank, world size) of ``torch.distributed``, or (0, 1) when it is not
+    initialised."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1

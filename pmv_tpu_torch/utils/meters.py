@@ -4,10 +4,13 @@ in numpy, with the JAX package's ``json_stats`` keys.
 - ScalarMeter: windowed median smoothing.
 - TrainMeter: eta, lr, loss, grad norm, top-1/5 errors and the iteration,
   data and net timers, logged every LOG_PERIOD iterations and per epoch.
+- ValMeter: per-epoch top-1/5 errors and their minimum over epochs (mAP
+  when multi-label).
 - TestMeter: clip i belongs to video i // num_clips; per-video sum or max
   ensemble of the clips' softmax scores; labels must agree across a
   video's views; finalize reports top-1/top-5 accuracy (or mAP when
   multi-label).
+- EpochTimer: epoch durations.
 """
 
 import datetime
@@ -161,6 +164,100 @@ class TrainMeter:
         pmv_logging.log_json_stats(stats, logger)
 
 
+class ValMeter:
+    """Validation stats of an epoch and the best over epochs (`meters.py`
+    ValMeter)."""
+
+    def __init__(self, max_iter, cfg):
+        self._cfg = cfg
+        self.max_iter = max_iter
+        self.iter_timer = Timer()
+        self.data_timer = Timer()
+        self.net_timer = Timer()
+        self.mb_top1_err = ScalarMeter(cfg.LOG_PERIOD)
+        self.mb_top5_err = ScalarMeter(cfg.LOG_PERIOD)
+        self.min_top1_err = 100.0
+        self.min_top5_err = 100.0
+        self.num_top1_mis = 0
+        self.num_top5_mis = 0
+        self.num_samples = 0
+        self.all_preds = []
+        self.all_labels = []
+
+    def reset(self):
+        self.iter_timer.reset()
+        self.mb_top1_err.reset()
+        self.mb_top5_err.reset()
+        self.num_top1_mis = 0
+        self.num_top5_mis = 0
+        self.num_samples = 0
+        self.all_preds = []
+        self.all_labels = []
+
+    def iter_tic(self):
+        self.iter_timer.reset()
+        self.data_timer.reset()
+
+    def iter_toc(self):
+        self.iter_timer.pause()
+        self.net_timer.pause()
+
+    def data_toc(self):
+        self.data_timer.pause()
+        self.net_timer.reset()
+
+    def update_stats(self, top1_err, top5_err, mb_size):
+        self.mb_top1_err.add_value(top1_err)
+        self.mb_top5_err.add_value(top5_err)
+        self.num_top1_mis += top1_err * mb_size
+        self.num_top5_mis += top5_err * mb_size
+        self.num_samples += mb_size
+
+    def update_predictions(self, preds, labels):
+        self.all_preds.append(preds)
+        self.all_labels.append(labels)
+
+    def log_iter_stats(self, cur_epoch, cur_iter):
+        if (cur_iter + 1) % self._cfg.LOG_PERIOD != 0:
+            return
+        eta_sec = self.iter_timer.seconds() * (self.max_iter - cur_iter - 1)
+        stats = {
+            "_type": "val_iter",
+            "epoch": f"{cur_epoch + 1}/{self._cfg.SOLVER.MAX_EPOCH}",
+            "iter": f"{cur_iter + 1}/{self.max_iter}",
+            "time_diff": self.iter_timer.seconds(),
+            "eta": str(datetime.timedelta(seconds=int(eta_sec))),
+            "top1_err": self.mb_top1_err.get_win_median(),
+            "top5_err": self.mb_top5_err.get_win_median(),
+            "gpu_mem": f"{gpu_mem_usage():.2f}G",
+        }
+        pmv_logging.log_json_stats(stats, logger)
+
+    def log_epoch_stats(self, cur_epoch):
+        stats = {
+            "_type": "val_epoch",
+            "epoch": f"{cur_epoch + 1}/{self._cfg.SOLVER.MAX_EPOCH}",
+            "time_diff": self.iter_timer.seconds(),
+            "gpu_mem": f"{gpu_mem_usage():.2f}G",
+        }
+        if self.all_labels and np.asarray(self.all_labels[0]).ndim > 1:
+            stats["map"] = get_map(
+                np.concatenate(self.all_preds, axis=0),
+                np.concatenate(self.all_labels, axis=0),
+            )
+        else:
+            top1_err = self.num_top1_mis / max(self.num_samples, 1)
+            top5_err = self.num_top5_mis / max(self.num_samples, 1)
+            self.min_top1_err = min(self.min_top1_err, top1_err)
+            self.min_top5_err = min(self.min_top5_err, top5_err)
+            stats["top1_err"] = top1_err
+            stats["top5_err"] = top5_err
+            stats["min_top1_err"] = self.min_top1_err
+            stats["min_top5_err"] = self.min_top5_err
+        pmv_logging.log_json_stats(stats, logger)
+        return stats
+
+
 class TestMeter:
     """Multi-view ensemble over num_clips = ensemble views x spatial crops."""
 
@@ -284,3 +381,27 @@ def _average_precision(scores, targets):
     tp = np.cumsum(targets)
     precision = tp / (np.arange(len(targets)) + 1)
     return float((precision * targets).sum() / max(targets.sum(), 1))
+
+
+class EpochTimer:
+    """Per-epoch durations (`train_net.py:671,729-741`)."""
+
+    def __init__(self):
+        self.timer = Timer()
+        self.epoch_times = []
+
+    def epoch_tic(self):
+        self.timer.reset()
+
+    def epoch_toc(self):
+        self.timer.pause()
+        self.epoch_times.append(self.timer.seconds())
+
+    def last_epoch_time(self):
+        return self.epoch_times[-1]
+
+    def avg_epoch_time(self):
+        return float(np.mean(self.epoch_times))
+
+    def median_epoch_time(self):
+        return float(np.median(self.epoch_times))

@@ -14,8 +14,12 @@ import torch
 from pmv_tpu_torch.engine.steps import init_state, make_eval_step, make_train_step
 from pmv_tpu_torch.entry import apply_bench_recipe, mvitv2_s_cfg
 from pmv_tpu_torch.models import build_model
+from pmv_tpu_torch.engine.prefetch import DevicePrefetcher
 from pmv_tpu_torch.ops.depthwise import (
     MVIT_POOL_SHAPES,
+    MVIT_PORTRAIT_POOL_SHAPES,
+    MVIT_RECT_POOL_SHAPES,
+    MVIT_RECT_TRAIN_POOL_SHAPES,
     ODD_SHAPES,
     depthwise3x3x3,
     depthwise3x3x3_plain,
@@ -26,9 +30,13 @@ from torch_port_util import cuda_device  # noqa: F401  (fixture)
 
 pytestmark = pytest.mark.cuda
 
-# MViTv2-S 16x4 pool shapes at batch 8, and odd shapes the kernels' tiling
-# must take (ops/depthwise.py).
-SHAPES = [s for s, _ in MVIT_POOL_SHAPES] + list(ODD_SHAPES)
+# MViTv2-S 16x4 pool shapes at batch 8 (the 224^2 crop, the PMV rect crop
+# and its transposes), the PMV rect ones at the run_net train step's batch
+# of 16, and odd shapes the kernels' tiling must take (ops/depthwise.py).
+SHAPES = [
+    s for s, _ in MVIT_POOL_SHAPES + MVIT_RECT_POOL_SHAPES + MVIT_PORTRAIT_POOL_SHAPES
+    + MVIT_RECT_TRAIN_POOL_SHAPES
+] + list(ODD_SHAPES)
 
 
 def _inputs(shape, device, dtype, seed=0):
@@ -182,3 +190,19 @@ def test_tiny_train_step_on_card_matches_cpu(cuda_device):  # noqa: F811
     assert diff <= 1e-5 * float(cpu["grad_norm"])
     for (name, a), b in zip(cpu_model.state_dict().items(), gpu_model.state_dict().values()):
         torch.testing.assert_close(b.cpu(), a, atol=2.0001 * lr, rtol=0, msg=name)
+
+
+def test_prefetcher_copies_ahead_in_order(cuda_device):  # noqa: F811
+    """Batches come out on the card, in order, equal to the host's; the
+    host-side keys stay numpy."""
+    rng = np.random.default_rng(4)
+    loader = [{"frames": rng.integers(0, 256, (2, 3, 8, 8, 3), np.uint8),
+               "labels": rng.integers(0, 5, 2), "pm": np.array([True, False])}
+              for _ in range(5)]
+    seen = list(DevicePrefetcher(loader, cuda_device, depth=2))
+    assert len(seen) == len(loader)
+    for want, (host, dev) in zip(loader, seen):
+        assert host is want and dev["pm"] is want["pm"]
+        assert dev["frames"].device.type == "cuda"
+        np.testing.assert_array_equal(dev["frames"].cpu().numpy(), want["frames"])
+        np.testing.assert_array_equal(dev["labels"].cpu().numpy(), want["labels"])

@@ -18,6 +18,9 @@ from pmv_tpu.ops import depthwise_pallas
 from pmv_tpu_torch.ops.depthwise import (
     H100_SMS,
     MVIT_POOL_SHAPES,
+    MVIT_PORTRAIT_POOL_SHAPES,
+    MVIT_RECT_POOL_SHAPES,
+    MVIT_RECT_TRAIN_POOL_SHAPES,
     ODD_SHAPES,
     SMEM_PER_BLOCK,
     depthwise3x3x3,
@@ -167,8 +170,13 @@ def test_grad_wrappers_on_cpu_launch_nothing():
 
 # Launch plans of the CUDA kernels (they run only on the card; their tiling
 # is worked out in Python and checked here), at the MViTv2-S 16x4 pool
-# shapes and at odd shapes.
-MAIN_SHAPES = [s for s, _ in MVIT_POOL_SHAPES]
+# shapes of the 224^2 crop, of the PMV rect crop and of its transposes (at
+# batch 8, and the rect ones at the PMV train step's batch of 16), and at
+# odd shapes.
+MAIN_SHAPES = [
+    s for s, _ in MVIT_POOL_SHAPES + MVIT_RECT_POOL_SHAPES + MVIT_PORTRAIT_POOL_SHAPES
+    + MVIT_RECT_TRAIN_POOL_SHAPES
+]
 
 
 def _once(index, size):

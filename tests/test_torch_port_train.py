@@ -127,8 +127,9 @@ def test_train_step_modes_and_refusals():
     step = make_train_step(cfg, device="cpu", seed=5)
     m = step(state, _batch(cfg, 2, 0), 1e-3)  # draws its own masks
     assert model.training and np.isfinite(float(m["loss"]))
-    with pytest.raises(NotImplementedError, match="pm"):
-        make_train_step(cfg, device="cpu", model_pm=model)
+    # The same step takes a batch with a portrait (pm) row.
+    m = step(state, dict(_batch(cfg, 2, 1), pm=np.array([True, False])), 1e-3)
+    assert state.step == 2 and np.isfinite(float(m["loss"]))
 
 
 def _epoch_cfg():
