@@ -55,6 +55,27 @@ Phases, in order; any failure raises and exits non-zero:
    AdamW tensor compared with the file's; then ``run_net`` again with
    SOLVER.MAX_EPOCH 2: its log must show the resume from that checkpoint
    at epoch 2, and its optimizer must count both epochs' steps.
+UniFormer-S 16x4 (configs/Kinetics/UNIFORMER_S_16x4.yaml, full width and
+depth, 21.4M parameters, random weights from a seed), whose blocks each open
+with a DPE conv on K1, 18 a forward:
+2u. Phase 2 also holds both kernels at UniFormer's DPE shapes: the 224^2,
+   PMV rect and transposed grids, at batch 8 and 16.
+3u. Eval at batch 1 and one train step at batch 2 (the config's recipe:
+   RandAugment, erasing, MixUp/CutMix, DropPath, AdamW), float32, card
+   against CPU under phase 3b's gates, and the BatchNorm running statistics
+   to rtol 1e-4; 18 K1 launches a forward, 36 K1 and 18 wgrad a train step.
+   Then the pm steps (rect [256, 192], one portrait and one landscape row):
+   eval 2 x 18 K1; train 72 K1 and 36 wgrad (BatchNorm's batch statistics
+   cross rows, so the step runs the whole batch in both orientations).
+4u. Serve 4 videos x 4 temporal views x 1 crop at 224^2 (the recipe's
+   test protocol) in bfloat16 at batch 8 (a main path).
+5u. Train 5 timed batch-8 bfloat16 steps through ``train_epoch`` (a main
+   path).
+6u-7u. ``run_net`` on configs/Kinetics/UNIFORMER_S_16x4.yaml with the
+   rect 256x192 run of exps/PMV/run_Uniformer_PMV.sh, the Synthetic
+   dataset, batch 8 (16 clips a step), one epoch; the restore, every tensor
+   (the BatchNorm buffers included) compared; then the resume with
+   SOLVER.MAX_EPOCH 2 (main paths).
 8. Print the kernels line, the card line, and last
    {"ok": true, "device": {...}}.
 
@@ -93,7 +114,24 @@ WGRAD_TOLERANCE = {
     torch.bfloat16: (1e-2, 8e-3),
 }
 TRAIN_LR = 1e-4  # bench.py's learning rate
-PMV_RECT = (256, 192)  # DATA.TRAIN_CROP_SIZE_RECT of exps/PMV/run_MViT_PMV.sh
+# DATA.TRAIN_CROP_SIZE_RECT of exps/PMV/run_MViT_PMV.sh and of
+# exps/PMV/run_Uniformer_PMV.sh's rect_256_192 run.
+PMV_RECT = (256, 192)
+ROOT = os.path.dirname(os.path.abspath(__file__))
+MVIT_CFG = os.path.join(ROOT, "configs", "Kinetics", "MVITv2_S_16x4.yaml")
+UNIFORMER_CFG = os.path.join(ROOT, "configs", "Kinetics", "UNIFORMER_S_16x4.yaml")
+# K1 launches in one forward: MViTv2-S's stride-1 pools, UniFormer-S's DPEs.
+MVIT_K1 = 17
+UNIFORMER_K1 = 18
+
+
+def step_launches(per_forward):
+    """K1 and wgrad launches of one train step: forward, dx and dw."""
+    return {"depthwise3x3x3": 2 * per_forward, "depthwise3x3x3_wgrad": per_forward}
+
+
+def eval_launches(per_forward):
+    return {"depthwise3x3x3": per_forward, "depthwise3x3x3_wgrad": 0}
 
 
 def log(msg):
@@ -124,25 +162,39 @@ def wgrad_bound(shape, dtype):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def _orientation(shape):
+    return "square" if shape[2] == shape[3] else "rect" if shape[2] > shape[3] else "portrait"
+
+
 def _kernel_cases():
     """(shape, launches per forward, grid set): the MViTv2-S 16x4 pool shapes
     at batch 8 at the 224^2 crop ("square"), at the PMV rect crop ("rect")
     and transposed ("portrait"), the last two at run_net's train batch of
-    16 ("rect_b16", "portrait_b16"), then the odd shapes."""
+    16 ("rect_b16", "portrait_b16"); UniFormer-S 16x4's DPE shapes on the
+    same grids at batch 8 and 16 ("uni_square" ... "uni_portrait_b16");
+    then the odd shapes."""
     from pmv_tpu_torch.ops.depthwise import (
         MVIT_POOL_SHAPES,
         MVIT_PORTRAIT_POOL_SHAPES,
         MVIT_RECT_POOL_SHAPES,
         MVIT_RECT_TRAIN_POOL_SHAPES,
         ODD_SHAPES,
+        PMV_TRAIN_BATCH,
+        UNIFORMER_DPE_SHAPES,
+        UNIFORMER_PORTRAIT_DPE_SHAPES,
+        UNIFORMER_RECT_DPE_SHAPES,
+        UNIFORMER_TRAIN_DPE_SHAPES,
     )
 
+    uniformer = (UNIFORMER_DPE_SHAPES + UNIFORMER_RECT_DPE_SHAPES
+                 + UNIFORMER_PORTRAIT_DPE_SHAPES + UNIFORMER_TRAIN_DPE_SHAPES)
     return (
         [(s, n, "square") for s, n in MVIT_POOL_SHAPES]
         + [(s, n, "rect") for s, n in MVIT_RECT_POOL_SHAPES]
         + [(s, n, "portrait") for s, n in MVIT_PORTRAIT_POOL_SHAPES]
-        + [(s, n, "rect_b16" if s[2] > s[3] else "portrait_b16")
-           for s, n in MVIT_RECT_TRAIN_POOL_SHAPES]
+        + [(s, n, _orientation(s) + "_b16") for s, n in MVIT_RECT_TRAIN_POOL_SHAPES]
+        + [(s, n, "uni_" + _orientation(s) + ("_b16" if s[0] == PMV_TRAIN_BATCH else ""))
+           for s, n in uniformer]
         + [(s, 0, "odd") for s in ODD_SHAPES]
     )
 
@@ -254,34 +306,30 @@ def phase_backward(flush):
     return records
 
 
-def phase_full_model(frames):
+def phase_full_model(cfg, frames, per_forward, phase="full_model_f32_b1"):
+    """The eval step of the full model at batch 1 in float32, card against
+    CPU: scores to atol 1e-4, ``per_forward`` K1 launches."""
     from pmv_tpu_torch.engine.steps import make_eval_step
-    from pmv_tpu_torch.entry import mvitv2_s_cfg
-    from pmv_tpu_torch.models import build_model
-    from pmv_tpu_torch.ops.depthwise import depthwise3x3x3
 
-    cfg = mvitv2_s_cfg()
-    cpu_model = build_model(cfg, device="cpu", dtype=torch.float32, seed=0)
-    gpu_model = build_model(cfg, device="cuda", dtype=torch.float32, seed=0)
-    gpu_model.load_state_dict(cpu_model.state_dict(), strict=True)
+    cpu_model, gpu_model = _models_card_and_cpu(cfg)
     n_params = sum(p.numel() for p in gpu_model.parameters())
 
-    before = depthwise3x3x3.launches
+    before = _launch_counts()
     t0 = time.perf_counter()
     gpu = make_eval_step(cfg, gpu_model, device="cuda")(frames).cpu()
     gpu_s = time.perf_counter() - t0
-    launches = depthwise3x3x3.launches - before
+    launches = _launches_since(before)
     t0 = time.perf_counter()
     cpu = make_eval_step(cfg, cpu_model, device="cpu")(frames)
     cpu_s = time.perf_counter() - t0
     err = float((gpu - cpu).abs().max())
     log(json.dumps({
-        "phase": "full_model_f32_b1", "params": n_params,
-        "depthwise_launches": launches, "max_abs_err_vs_cpu": err,
+        "phase": phase, "model": cfg.MODEL.MODEL_NAME, "params": n_params,
+        "depthwise_launches": launches["depthwise3x3x3"], "max_abs_err_vs_cpu": err,
         "gpu_first_call_s": gpu_s, "cpu_s": cpu_s,
     }))
-    if launches != 17:
-        raise AssertionError(f"one forward launched the kernel {launches} times, not 17")
+    if launches != eval_launches(per_forward):
+        raise AssertionError(f"one forward launched {launches}, not {per_forward} K1")
     if not torch.isfinite(gpu).all():
         raise AssertionError("non-finite class scores on the card")
     torch.testing.assert_close(gpu, cpu, atol=1e-4, rtol=0)
@@ -292,6 +340,24 @@ def _train_cfg(tiny=False):
 
     cfg = apply_bench_recipe(mvitv2_s_cfg(tiny))
     cfg.SOLVER.BASE_LR = TRAIN_LR
+    return cfg
+
+
+def uniformer_cfg():
+    """UniFormer-S 16x4 with its config's recipe (RandAugment, erasing,
+    MixUp/CutMix, DropPath 0.1, AdamW) at LR 1e-4, and the PMV recipe's
+    test protocol (exps/PMV/run_Uniformer_PMV.sh: 4 views, 1 crop, 224^2);
+    no pretrained weights (UNIFORMER.PRETRAIN_NAME "")."""
+    from pmv_tpu_torch.config import get_cfg
+
+    cfg = get_cfg()
+    cfg.merge_from_file(UNIFORMER_CFG)
+    cfg.UNIFORMER.PRETRAIN_NAME = ""
+    cfg.TENSORBOARD.ENABLE = False
+    cfg.SOLVER.BASE_LR = TRAIN_LR
+    cfg.TEST.NUM_ENSEMBLE_VIEWS = 4
+    cfg.TEST.NUM_SPATIAL_CROPS = 1
+    cfg.DATA.TEST_CROP_SIZE = 224
     return cfg
 
 
@@ -349,21 +415,33 @@ def _train_step_card_vs_cpu(phase, cfg, batch, expected, models=None):
         grad_diff += float((p_gpu.grad.cpu() - p_cpu.grad).square().sum())
         grad_ref += float(p_cpu.grad.square().sum())
     grad_rel = (grad_diff / grad_ref) ** 0.5
-    params_gpu = {k: v.cpu() for k, v in gpu_model.state_dict().items()}
-    param_err = max(float((params_gpu[k] - v).abs().max())
-                    for k, v in cpu_model.state_dict().items())
-    n_params = sum(v.numel() for v in before.values())
-    n_off = sum(int(((params_gpu[k] - v).abs() > 1e-6).sum())
-                for k, v in cpu_model.state_dict().items())
-    moved = sum(int((cpu_model.state_dict()[k] != v).sum()) for k, v in before.items())
+    params_gpu = {k: v.detach().cpu() for k, v in gpu_model.named_parameters()}
+    params_cpu = {k: v.detach() for k, v in cpu_model.named_parameters()}
+    param_err = max(float((params_gpu[k] - v).abs().max()) for k, v in params_cpu.items())
+    n_params = sum(v.numel() for v in params_cpu.values())
+    n_off = sum(int(((params_gpu[k] - v).abs() > 1e-6).sum()) for k, v in params_cpu.items())
+    moved = sum(int((v != before[k]).sum()) for k, v in params_cpu.items())
+    # BatchNorm running statistics (none in MViT).
+    stats_gpu = {k: v.cpu() for k, v in gpu_model.named_buffers() if "running" in k}
+    stats_cpu = {k: v for k, v in cpu_model.named_buffers() if "running" in k}
+    # rtol 1e-4, with an atol of 1e-6 for entries near 0 (a running mean is
+    # 0.1 x a batch mean, which may be any small number).
+    stats_err = max((float(((stats_gpu[k] - v).abs() - 1e-4 * v.abs()).max())
+                     for k, v in stats_cpu.items()), default=0.0)
+    stats_abs = max((float((stats_gpu[k] - v).abs().max()) for k, v in stats_cpu.items()),
+                    default=0.0)
+    stats_moved = sum(int((v != before[k]).sum()) for k, v in stats_cpu.items())
+    n_stats = sum(v.numel() for v in stats_cpu.values())
     log(json.dumps({
-        "phase": phase, "depth": cfg.MVIT.DEPTH, "frames": list(batch["frames"].shape),
+        "phase": phase, "model": cfg.MODEL.MODEL_NAME, "frames": list(batch["frames"].shape),
         "launches": launches, "loss": [float(gpu["loss"]), float(cpu["loss"])],
         "grad_norm": [float(gpu["grad_norm"]), float(cpu["grad_norm"])],
         "top1_err": [float(gpu["top1_err"]), float(cpu["top1_err"])],
         "top5_err": [float(gpu["top5_err"]), float(cpu["top5_err"])],
         "grad_rel_err": grad_rel, "param_max_abs_err": param_err,
         "params_off_by_1e-6": n_off, "params": n_params, "params_moved": moved,
+        "bn_stats": n_stats, "bn_stats_moved": stats_moved,
+        "bn_stats_max_abs_err": stats_abs, "bn_stats_err_over_rtol": stats_err,
         "gpu_first_call_s": gpu_s, "cpu_s": cpu_s,
     }))
     if launches != expected:
@@ -384,30 +462,34 @@ def _train_step_card_vs_cpu(phase, cfg, batch, expected, models=None):
         )
     if moved < 0.5 * n_params:
         raise AssertionError(f"only {moved} of {n_params} weights moved")
+    if stats_err > 1e-6 or stats_moved < 0.5 * n_stats:
+        raise AssertionError(f"running statistics: {stats_err} over rtol 1e-4, "
+                             f"{stats_moved} of {n_stats} moved")
 
 
-def phase_train_step_vs_cpu():
+def phase_train_step_vs_cpu(cfg, per_forward, phase="train_step_f32_b2_card_vs_cpu"):
     """One full-width float32 train step at batch 2, card against CPU, from
     the same weights and the same draws."""
-    cfg = _train_cfg()
     rng = np.random.default_rng(2)
     size = cfg.DATA.TRAIN_CROP_SIZE
     batch = {
         "frames": rng.integers(0, 256, (2, cfg.DATA.NUM_FRAMES, size, size, 3), np.uint8),
         "labels": rng.integers(0, cfg.MODEL.NUM_CLASSES, 2),
     }
-    _train_step_card_vs_cpu("train_step_f32_b2_card_vs_cpu", cfg, batch,
-                            {"depthwise3x3x3": 34, "depthwise3x3x3_wgrad": 17})
+    _train_step_card_vs_cpu(phase, cfg, batch, step_launches(per_forward))
 
 
-def phase_portrait_steps():
+def phase_portrait_steps(cfg, per_forward, prefix=""):
     """The pm eval step, then the pm train step, at full width in float32
-    on one portrait and one landscape row, card against CPU."""
+    on one portrait and one landscape row of the PMV rect crop, card against
+    CPU. Eval runs each row once, in its orientation; so does MViT's train
+    step, but a model with BatchNorm trains on the whole batch in both
+    orientations (``steps.select_by_orientation``)."""
     from pmv_tpu_torch.engine.steps import make_eval_step
 
-    cfg = _train_cfg()
+    cfg = cfg.clone()
     cfg.DATA.TRAIN_CROP_SIZE_RECT = list(PMV_RECT)
-    cfg.DATA.TRAIN_CROP_SIZE_RECT_SWITCH_AUTO = True
+    cfg.DATA.TRAIN_CROP_SIZE_RECT_SWITCH_AUTO = True  # no rel-pos tables in UniFormer
     rng = np.random.default_rng(4)
     batch = {
         "frames": rng.integers(0, 256, (2, cfg.DATA.NUM_FRAMES, *PMV_RECT, 3), np.uint8),
@@ -425,31 +507,32 @@ def phase_portrait_steps():
     err = float((gpu_pm - cpu_pm).abs().max())
     row_err = float((gpu_pm[1] - gpu_plain[1]).abs().max())
     log(json.dumps({
-        "phase": "pm_eval_step_f32_b2_card_vs_cpu", "launches": launches,
+        "phase": f"{prefix}pm_eval_step_f32_b2_card_vs_cpu", "model": cfg.MODEL.MODEL_NAME,
+        "launches": launches,
         "max_abs_err_vs_cpu": err, "landscape_row_vs_plain_step": row_err,
         "portrait_row_vs_plain_step": float((gpu_pm[0] - gpu_plain[0]).abs().max()),
     }))
-    if launches != {"depthwise3x3x3": 34, "depthwise3x3x3_wgrad": 0}:
-        raise AssertionError(f"the pm eval step launched {launches}, not 2 x 17 K1")
+    if launches != eval_launches(2 * per_forward):
+        raise AssertionError(f"the pm eval step launched {launches}, not 2 x {per_forward} K1")
     if not torch.isfinite(gpu_pm).all():
         raise AssertionError("non-finite class scores on the card")
     torch.testing.assert_close(gpu_pm, cpu_pm, atol=1e-4, rtol=0)
     torch.testing.assert_close(gpu_pm[1], gpu_plain[1], atol=1e-5, rtol=0)
-    _train_step_card_vs_cpu("pm_train_step_f32_b2_card_vs_cpu", cfg, batch,
-                            {"depthwise3x3x3": 68, "depthwise3x3x3_wgrad": 34},
-                            models=models)
+    # Two forwards either way: one per orientation group (one row each), or
+    # with BatchNorm the whole batch in each orientation.
+    _train_step_card_vs_cpu(f"{prefix}pm_train_step_f32_b2_card_vs_cpu", cfg, batch,
+                            step_launches(2 * per_forward), models=models)
 
 
-def phase_serve(card):
+def phase_serve(card, cfg, per_forward, prefix=""):
+    """A main path: the multi-view test loop over synthetic clips of 4
+    videos (TEST.NUM_ENSEMBLE_VIEWS x NUM_SPATIAL_CROPS each) at batch 8,
+    bfloat16."""
     from pmv_tpu_torch.engine.steps import make_eval_step
     from pmv_tpu_torch.engine.test import perform_test
-    from pmv_tpu_torch.entry import mvitv2_s_cfg
     from pmv_tpu_torch.models import build_model
     from pmv_tpu_torch.utils.meters import TestMeter
 
-    cfg = mvitv2_s_cfg()
-    cfg.TEST.NUM_ENSEMBLE_VIEWS = 2
-    cfg.TEST.NUM_SPATIAL_CROPS = 3
     num_videos, batch = 4, 8
     num_clips = cfg.TEST.NUM_ENSEMBLE_VIEWS * cfg.TEST.NUM_SPATIAL_CROPS
     model = build_model(cfg, device="cuda", seed=0)  # bfloat16 activations
@@ -488,13 +571,15 @@ def phase_serve(card):
     preds = torch.cat(outputs).float().cpu()
     if preds.shape != (n, cfg.MODEL.NUM_CLASSES) or not torch.isfinite(preds).all():
         raise AssertionError(f"bad class scores: shape {tuple(preds.shape)}")
-    torch.testing.assert_close(preds.sum(dim=1), torch.ones(n), atol=1e-3, rtol=0)
     np.testing.assert_array_equal(meter.clip_count, [num_clips] * num_videos)
-    np.testing.assert_allclose(meter.video_preds.sum(axis=1), num_clips, atol=1e-2)
-    if launches != {"depthwise3x3x3": 17 * len(loader), "depthwise3x3x3_wgrad": 0}:
-        raise AssertionError(f"serving launched {launches} kernels, not 17 per batch")
+    if cfg.MODEL.MODEL_NAME == "MViT":  # softmax'd scores; UniFormer's are logits
+        torch.testing.assert_close(preds.sum(dim=1), torch.ones(n), atol=1e-3, rtol=0)
+        np.testing.assert_allclose(meter.video_preds.sum(axis=1), num_clips, atol=1e-2)
+    if launches != eval_launches(per_forward * len(loader)):
+        raise AssertionError(f"serving launched {launches} kernels, not {per_forward} per batch")
     log(json.dumps({
-        "phase": "serve_bf16_b8", "card": card, "videos": num_videos,
+        "phase": f"{prefix}serve_bf16_b8", "model": cfg.MODEL.MODEL_NAME, "card": card,
+        "views": num_clips, "videos": num_videos,
         "clips": n, "batches": len(loader), "wall_s": wall,
         "clips_per_s": n / wall, "ms_per_batch": wall / len(loader) * 1e3,
         "max_memory_allocated_bytes": peak, "launches": launches,
@@ -503,14 +588,14 @@ def phase_serve(card):
     return launches
 
 
-def phase_train(card):
+def phase_train(card, cfg, per_forward, prefix=""):
     """A main path: train_epoch over synthetic batch-8 clips."""
     from pmv_tpu_torch.engine.steps import init_state, make_train_step
     from pmv_tpu_torch.engine.train import train_epoch
     from pmv_tpu_torch.models import build_model
     from pmv_tpu_torch.utils.meters import TrainMeter
 
-    cfg = _train_cfg()
+    cfg = cfg.clone()
     timed, batch = 5, 8
     cfg.LOG_PERIOD = timed
     cfg.SOLVER.MAX_EPOCH = 1
@@ -549,11 +634,12 @@ def phase_train(card):
     grad_norms = [float(m["grad_norm"]) for m in metrics]
     if not np.all(np.isfinite(losses + grad_norms)):
         raise AssertionError(f"non-finite losses {losses} or grad norms {grad_norms}")
-    if launches != {"depthwise3x3x3": 34 * timed, "depthwise3x3x3_wgrad": 17 * timed}:
-        raise AssertionError(f"{timed} train steps launched {launches}, "
-                             "not 34 K1 and 17 wgrad per step")
+    if launches != {k: n * timed for k, n in step_launches(per_forward).items()}:
+        raise AssertionError(f"{timed} train steps launched {launches}, not "
+                             f"{step_launches(per_forward)} per step")
     log(json.dumps({
-        "phase": "train_bf16_b8", "card": card, "steps": timed, "batch": batch,
+        "phase": f"{prefix}train_bf16_b8", "model": cfg.MODEL.MODEL_NAME, "card": card,
+        "steps": timed, "batch": batch,
         "wall_s": wall, "ms_per_step": wall / timed * 1e3,
         "clips_per_s": timed * batch / wall, "warmup_step_s": warm_s,
         "max_memory_allocated_bytes": peak, "launches": launches,
@@ -562,28 +648,46 @@ def phase_train(card):
     return launches
 
 
-RUN_NET_CFG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                           "configs", "Kinetics", "MVITv2_S_16x4.yaml")
-
-
-def run_net_argv(out_dir, max_epoch):
-    """run_net's arguments: the PMV rect recipe (exps/PMV/run_MViT_PMV.sh,
-    run 3) on the Synthetic dataset, batch 8, bfloat16 (the config's
-    MIXED_PRECISION)."""
-    return [
-        "--cfg", RUN_NET_CFG, "--opts",
+def _run_net_opts(recipe):
+    """Per model: the PMV rect recipe's opts (exps/PMV/run_MViT_PMV.sh run 3,
+    exps/PMV/run_Uniformer_PMV.sh's rect_256_192) and the test protocol: for
+    MViT a test crop equal to the train rect (its rel-pos tables are sized
+    by the crop) and 2 views; for UniFormer the recipe's 4 views x 1 crop at
+    224^2, without pretrained weights and TensorBoard."""
+    rect = f"[{PMV_RECT[0]},{PMV_RECT[1]}]"
+    common = [
         "DATA.TRAIN_JITTER_ASPECT_RELATIVE", "[]",
         "DATA.TRAIN_JITTER_SCALES_RELATIVE", "[]",
         "DATA.TRAIN_JITTER_SCALES_AUTO_ADJUST", "True",
-        "DATA.TRAIN_CROP_SIZE_RECT", f"[{PMV_RECT[0]},{PMV_RECT[1]}]",
-        "DATA.TEST_CROP_SIZE_RECT", f"[{PMV_RECT[0]},{PMV_RECT[1]}]",
+        "DATA.TRAIN_CROP_SIZE_RECT", rect,
+    ]
+    if recipe == "mvit":
+        return common + ["DATA.TEST_CROP_SIZE_RECT", rect, "TEST.NUM_ENSEMBLE_VIEWS", "2"]
+    return common + [
+        "UNIFORMER.PRETRAIN_NAME", "",
+        "TENSORBOARD.ENABLE", "False",
+        "DATA.TEST_CROP_SIZE", "224",
+        "TEST.NUM_ENSEMBLE_VIEWS", "4",
+    ]
+
+
+RUN_NET = {  # recipe -> (config file, K1 launches per forward)
+    "mvit": (MVIT_CFG, MVIT_K1),
+    "uniformer": (UNIFORMER_CFG, UNIFORMER_K1),
+}
+
+
+def run_net_argv(recipe, out_dir, max_epoch):
+    """run_net's arguments: ``recipe``'s config with its PMV rect opts on the
+    Synthetic dataset, batch 8, bfloat16 (the config's MIXED_PRECISION)."""
+    return [
+        "--cfg", RUN_NET[recipe][0], "--opts", *_run_net_opts(recipe),
         "SOLVER.BASE_LR", "1e-4",
         "MODEL.NUM_CLASSES", "400",
         "TRAIN.DATASET", "synthetic",
         "TEST.DATASET", "synthetic",
         "TRAIN.BATCH_SIZE", "8",
         "TEST.BATCH_SIZE", "8",
-        "TEST.NUM_ENSEMBLE_VIEWS", "2",
         "TEST.NUM_SPATIAL_CROPS", "1",
         "SOLVER.MAX_EPOCH", str(max_epoch),
         "OUTPUT_DIR", out_dir,
@@ -595,7 +699,8 @@ def run_net_cfg(argv):
     from pmv_tpu_torch.config.defaults import assert_and_infer_cfg
     from pmv_tpu_torch.config.parser import load_config, parse_args
 
-    return assert_and_infer_cfg(load_config(parse_args(argv), RUN_NET_CFG))
+    args = parse_args(argv)
+    return assert_and_infer_cfg(load_config(args, args.cfg_files[0]))
 
 
 def run_net_train_batch(cfg):
@@ -609,11 +714,12 @@ def _compare_restored(state, ckpt, start):
     checkpoint's; raises on the first that differs."""
     if start != ckpt["epoch"] + 1:
         raise AssertionError(f"resumed at epoch {start}, not {ckpt['epoch'] + 1}")
-    n = 0
+    n = n_bn = 0
     for name, value in state.model.state_dict().items():
         if not torch.equal(value.cpu(), ckpt["model_state"][name]):
             raise AssertionError(f"restored weight {name} differs from the checkpoint's")
         n += 1
+        n_bn += "running" in name or "num_batches_tracked" in name
     opt = state.optimizer.state_dict()
     if opt["param_groups"] != ckpt["optimizer_state"]["param_groups"]:
         raise AssertionError("restored optimizer groups (count, lr) differ")
@@ -622,7 +728,8 @@ def _compare_restored(state, ckpt, start):
             if not torch.equal(opt["state"][i][key].cpu(), value):
                 raise AssertionError(f"restored optimizer state {i}.{key} differs")
             n += 1
-    return {"start_epoch": start, "tensors_equal": n, "step": state.step}
+    return {"start_epoch": start, "tensors_equal": n, "bn_buffers_equal": n_bn,
+            "step": state.step}
 
 
 def check_restore(cfg):
@@ -648,7 +755,7 @@ def _last_match(lines, pattern):
     return found[-1]
 
 
-def _run_net_call(out_dir, max_epoch):
+def _run_net_call(recipe, out_dir, max_epoch):
     """One ``run_net`` call (a main path: launch counts zeroed just before it
     and read just after), measured from its own log: the epoch's seconds
     (its EpochTimer line), the eval's, the checkpoint's write, and the
@@ -657,7 +764,7 @@ def _run_net_call(out_dir, max_epoch):
     from pmv_tpu_torch.ops.depthwise import PMV_TRAIN_BATCH
     from pmv_tpu_torch.tools import run_net
 
-    argv = run_net_argv(out_dir, max_epoch)
+    argv = run_net_argv(recipe, out_dir, max_epoch)
     cfg = run_net_cfg(argv)
     if run_net_train_batch(cfg) != PMV_TRAIN_BATCH:
         raise AssertionError("phase 2 holds the kernels at a train batch of "
@@ -688,9 +795,10 @@ def _run_net_call(out_dir, max_epoch):
     train_stats = [s for s in stats if s.get("_type") == "train_epoch"][-1]
     if not np.isfinite(train_stats["loss"]):
         raise AssertionError(f"non-finite train loss {train_stats}")
+    per_forward = RUN_NET[recipe][1]
     expected = {
-        "depthwise3x3x3": 34 * len(steps) + 17 * (len(evals) + len(tests)),
-        "depthwise3x3x3_wgrad": 17 * len(steps),
+        "depthwise3x3x3": 2 * per_forward * len(steps) + per_forward * (len(evals) + len(tests)),
+        "depthwise3x3x3_wgrad": per_forward * len(steps),
     }
     if launches != expected:
         raise AssertionError(f"run_net launched {launches}, not {expected}")
@@ -701,7 +809,7 @@ def _run_net_call(out_dir, max_epoch):
     test_s = sum(s["time_diff"] for s in stats if s.get("split") == "test_iter")
     train_clips = len(steps) * PMV_TRAIN_BATCH
     return {
-        "phase": f"run_net_epoch_{max_epoch}", "wall_s": wall,
+        "phase": f"run_net_epoch_{max_epoch}", "recipe": recipe, "wall_s": wall,
         "epoch_s": epoch_s, "train_clips": train_clips, "train_steps": len(steps),
         # Over the whole epoch: its first step and the loader's start included.
         "train_clips_per_s": train_clips / epoch_s,
@@ -716,7 +824,7 @@ def _run_net_call(out_dir, max_epoch):
     }
 
 
-def phase_run_net(card, out_dir):
+def phase_run_net(card, recipe, out_dir):
     """``run_net`` in this process at full width with the PMV rect crop, for
     one epoch; the restore of its checkpoint, every tensor compared; then
     ``run_net`` again with SOLVER.MAX_EPOCH 2, which must resume from that
@@ -725,9 +833,9 @@ def phase_run_net(card, out_dir):
 
     # The runs log to OUTPUT_DIR/stdout.log; keep them off ours.
     with open(os.devnull, "w") as quiet, redirect_stdout(quiet):
-        first = _run_net_call(out_dir, 1)
-        restored = check_restore(run_net_cfg(run_net_argv(out_dir, 2)))
-        second = _run_net_call(out_dir, 2)
+        first = _run_net_call(recipe, out_dir, 1)
+        restored = check_restore(run_net_cfg(run_net_argv(recipe, out_dir, 2)))
+        second = _run_net_call(recipe, out_dir, 2)
     if restored["start_epoch"] != 1 or restored["checkpoint"] != first["checkpoint"]:
         raise AssertionError(f"the restore did not start after epoch 1: {restored}")
     resumed = f"Load from last checkpoint, {first['checkpoint']}."
@@ -742,16 +850,17 @@ def phase_run_net(card, out_dir):
     for rec in (first, second):
         rec.pop("log")
         log(json.dumps({**rec, "card": card}))
-    log(json.dumps({"phase": "run_net_restore", **restored}))
+    log(json.dumps({"phase": "run_net_restore", "recipe": recipe, **restored}))
     return [first["launches"], second["launches"]]
 
 
 def kernels_line(records, launches):
     """One entry per kernel: times summed over the launches at the 224^2
-    crop's shapes in bfloat16 at batch 8; K1 over one forward (17 launches,
-    as many again for dx in a train step), the wgrad kernel over one train
-    step (17 launches); "rect_ms" and "portrait_ms" the same at the PMV
-    rect crop's grids and at their transposes. ``launches`` sums every
+    crop's shapes in bfloat16 at batch 8; K1 over one MViTv2-S forward (17
+    launches, as many again for dx in a train step), the wgrad kernel over
+    one train step (17 launches); "rect_ms" and "portrait_ms" the same at
+    the PMV rect crop's grids and at their transposes; "uniformer" the same
+    sums over UniFormer-S's 18 DPE launches. ``launches`` sums every
     path's."""
 
     def entry(name, source, replaces, recs, basis):
@@ -787,6 +896,13 @@ def kernels_line(records, launches):
             # The rect grids at run_net's train batch of 16.
             "rect_b16_ms": summed("kernel_ms", grid("rect_b16")),
             "rect_b16_bound_ms": summed("bound_ms", grid("rect_b16")),
+            # UniFormer-S's DPE shapes: per grid set, each key summed.
+            "uniformer": {
+                g: {key: summed(key, grid("uni_" + g)) for key in (
+                    "kernel_ms", "kernel_warm_ms", "plain_ms", "bound_ms", "library_ms")}
+                for g in ("square", "rect", "portrait", "square_b16", "rect_b16",
+                          "portrait_b16")
+            },
         }
 
     fwd = [r for r in records if r["kernel"] == "depthwise3x3x3"]
@@ -837,18 +953,33 @@ def main():
     records = phase_kernels(flush) + phase_backward(flush)
     del flush
 
-    # Phase 3: the full model on the card and on the CPU, eval and train,
+    # Phase 3: the full models on the card and on the CPU, eval and train,
     # landscape and portrait.
+    from pmv_tpu_torch.entry import mvitv2_s_cfg
+
     frames = np.random.default_rng(1).integers(0, 256, (1, 16, 224, 224, 3), np.uint8)
-    phase_full_model(frames)
-    phase_train_step_vs_cpu()
-    phase_portrait_steps()
+    phase_full_model(mvitv2_s_cfg(), frames, MVIT_K1)
+    phase_train_step_vs_cpu(_train_cfg(), MVIT_K1)
+    phase_portrait_steps(_train_cfg(), MVIT_K1)
+    uni = uniformer_cfg()
+    phase_full_model(uni, frames, UNIFORMER_K1, "uniformer_full_model_f32_b1")
+    phase_train_step_vs_cpu(uni, UNIFORMER_K1, "uniformer_train_step_f32_b2_card_vs_cpu")
+    phase_portrait_steps(uni, UNIFORMER_K1, "uniformer_")
 
     # Phases 4 to 7: the main paths; serving, training, and run_net's train,
-    # checkpoint, eval and test, then its resume.
+    # checkpoint, eval and test, then its resume; MViTv2-S, then UniFormer-S.
+    serve_mvit = mvitv2_s_cfg()
+    serve_mvit.TEST.NUM_ENSEMBLE_VIEWS = 2
+    serve_mvit.TEST.NUM_SPATIAL_CROPS = 3
+    paths = [phase_serve(card, serve_mvit, MVIT_K1), phase_train(card, _train_cfg(), MVIT_K1)]
     out_dir = os.path.join("build", "chip_smoke_run_net")
     shutil.rmtree(out_dir, ignore_errors=True)
-    paths = [phase_serve(card), phase_train(card), *phase_run_net(card, out_dir)]
+    paths += phase_run_net(card, "mvit", out_dir)
+    paths += [phase_serve(card, uni, UNIFORMER_K1, "uniformer_"),
+              phase_train(card, uni, UNIFORMER_K1, "uniformer_")]
+    out_dir = os.path.join("build", "chip_smoke_run_net_uniformer")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    paths += phase_run_net(card, "uniformer", out_dir)
     launches = {k: sum(p[k] for p in paths) for k in paths[0]}
 
     line = kernels_line(records, launches)

@@ -30,6 +30,15 @@ loss is a mean over rows, the select gives the other branch a zero
 gradient, and the DropPath and head-dropout masks are per row, so each
 group takes its rows' masks. It does half the work of the select on a mixed
 batch.
+
+A model with BatchNorm (UniFormer) does have an op across rows in train
+mode, so its train step takes the JAX package's select itself
+(``select_by_orientation``): the whole batch landscape, whose batch
+statistics cover every row and give the new running statistics; the whole
+batch transposed, whose statistics are thrown away; then ``where(pm, ...)``.
+At eval BatchNorm reads its running statistics, and the split stays exact.
+MODEL.FROZEN_BN holds the running statistics still in training
+(`steps.py:223-227`).
 """
 
 import numpy as np
@@ -40,6 +49,7 @@ from pmv_tpu_torch.data.rand_augment import RandAugment, num_groups
 from pmv_tpu_torch.data.random_erasing import random_erasing, sample_random_erasing
 from pmv_tpu_torch.engine.train_state import TrainState
 from pmv_tpu_torch.models import optimizer as optim
+from pmv_tpu_torch.models.batchnorm import frozen_stats, has_batchnorm
 from pmv_tpu_torch.models.losses import get_loss_func
 from pmv_tpu_torch.utils.device import resolve_device
 
@@ -160,6 +170,20 @@ def forward_by_orientation(model, x, pm, drop_path_masks=None, head_dropout_mask
     return torch.cat(outs).index_select(0, inverse)
 
 
+def select_by_orientation(model, x, pm, drop_path_masks=None, head_dropout_mask=None):
+    """The JAX package's portrait select (`steps.py:238-252`): ``model`` on
+    the whole batch, then on the whole batch transposed (``hw_switch=True``)
+    with its BatchNorm running statistics left as they are, and per row the
+    output of the row's orientation (``pm``, a host bool array, or None)."""
+    land = model(x, drop_path_masks=drop_path_masks, head_dropout_mask=head_dropout_mask)
+    if pm is None:
+        return land
+    with frozen_stats(model):
+        port = model(x.transpose(2, 3), drop_path_masks=drop_path_masks,
+                     head_dropout_mask=head_dropout_mask, hw_switch=True)
+    return torch.where(torch.as_tensor(pm, device=x.device)[:, None], port, land)
+
+
 def _top_k(scores, k):
     """Indices of the k largest scores per row, the lower index first among
     equal scores (as ``jax.lax.top_k``)."""
@@ -233,11 +257,13 @@ def make_train_step(cfg, device=None, seed=0):
         else:
             targets = labels
         inputs = pack_pathways(cfg, x)
-        preds = forward_by_orientation(
-            model, inputs[0], portrait_rows(batch.get("pm"), frames.shape[0]),
-            drop_path_masks=draws["drop_path"],
-            head_dropout_mask=draws["dropout"],
-        )
+        route = select_by_orientation if has_batchnorm(model) else forward_by_orientation
+        with frozen_stats(model, cfg.MODEL.FROZEN_BN):
+            preds = route(
+                model, inputs[0], portrait_rows(batch.get("pm"), frames.shape[0]),
+                drop_path_masks=draws["drop_path"],
+                head_dropout_mask=draws["dropout"],
+            )
         loss = loss_fun(preds.float(), targets)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
@@ -307,8 +333,9 @@ def make_eval_step(cfg, model, device=None):
 
 def make_feat_step(cfg, model, device=None):
     """feat_step(frames) -> pooled backbone features [B, C]
-    (TEST.FEAT_EXTRACT, `steps.py:384-403`): the mean of the last block's
-    tokens, the cls token included, as the JAX package takes it."""
+    (TEST.FEAT_EXTRACT, `steps.py:384-403`), as the JAX package pools them:
+    the mean of MViT's last tokens, the cls token included, or of
+    UniFormer's feature grid [B, T, H, W, C] over T, H and W."""
     device = resolve_device(device)
     preprocess = make_eval_preprocess_fn(cfg, device)
 
@@ -317,8 +344,10 @@ def make_feat_step(cfg, model, device=None):
         model.eval()
         frames = torch.as_tensor(frames).to(device, non_blocking=True)
         inputs = pack_pathways(cfg, preprocess(frames))
-        feats, _ = model(inputs[0], return_features=True)
-        return feats.float().mean(dim=1)
+        feats = model(inputs[0], return_features=True)
+        if isinstance(feats, tuple):  # MViT's (tokens, thw)
+            feats = feats[0]
+        return feats.float().mean(dim=tuple(range(1, feats.dim() - 1)))
 
     return feat_step
 

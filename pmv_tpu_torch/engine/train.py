@@ -18,9 +18,16 @@ Counterpart of `pmv_tpu/engine/train.py`.
   per epoch {set_epoch, train_epoch, checkpoint, eval_epoch}, then the
   result string.
 
+It trains MViT and UniFormer; the BatchNorm running statistics of a model
+that has them move in its train step and are saved with its checkpoints.
+MODEL.USE_CHECKPOINT and MODEL.CHECKPOINT_NUM (UniFormer's activation
+checkpointing) are read nowhere in the JAX package, and are ignored here.
+
 Not ported, each raising NotImplementedError where the config asks for it:
-multigrid, precise BN (MViT has no BN), TensorBoard, detection and AVA,
-audio, the Uniformer pretrain registry and the profiler window.
+multigrid, precise BN statistics (BN.USE_PRECISE_STATS), TensorBoard,
+detection and AVA, audio, the UniFormer pretrain registry
+(UNIFORMER.PRETRAIN_NAME: no pretrained weights are in the repository) and
+the profiler window.
 """
 
 import math

@@ -1,0 +1,72 @@
+"""BatchNorm on channels-last tensors, as flax ``nn.BatchNorm`` computes it.
+
+The counterpart of the JAX package's ``nn.BatchNorm(momentum=0.9,
+epsilon=1e-5)`` (`pmv_tpu/models/uniformer.py:22-26, 382-385`):
+
+- the channels are the last axis; the statistics run over every other axis,
+  in float32, and the output comes back in the input's dtype;
+- train mode normalizes with the batch's mean and **biased** variance, and
+  moves the running statistics by ``running = 0.9 * running + 0.1 * batch``
+  with that same biased variance; eval mode normalizes with the running
+  statistics.
+
+``nn.BatchNorm3d`` puts the channels at axis 1 and moves ``running_var``
+with the unbiased variance, so it is not used. The buffers keep
+PyTorch's names (``running_mean``, ``running_var``, ``num_batches_tracked``),
+so that the reference's checkpoints load by name.
+
+``frozen_stats(model)`` holds every BatchNorm's running statistics still in
+train mode (batch statistics still normalize): MODEL.FROZEN_BN, and the
+transposed pass of a portrait train step.
+"""
+
+import contextlib
+
+import torch
+from torch import nn
+
+
+class BatchNorm(nn.Module):
+    def __init__(self, dim, momentum=0.9, eps=1e-5):
+        super().__init__()
+        self.momentum = momentum
+        self.eps = eps
+        self.update_stats = True
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+        self.register_buffer("running_mean", torch.zeros(dim))
+        self.register_buffer("running_var", torch.ones(dim))
+        self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.long))
+
+    def forward(self, x):
+        xf = x.float()
+        if self.training:
+            var, mean = torch.var_mean(xf, dim=tuple(range(x.dim() - 1)), correction=0)
+            if self.update_stats:
+                with torch.no_grad():
+                    for running, batch in ((self.running_mean, mean), (self.running_var, var)):
+                        running.mul_(self.momentum).add_(batch, alpha=1.0 - self.momentum)
+                    self.num_batches_tracked += 1
+        else:
+            mean, var = self.running_mean, self.running_var
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        return ((xf - mean) * scale + self.bias).to(x.dtype)
+
+
+def has_batchnorm(model):
+    return any(isinstance(m, BatchNorm) for m in model.modules())
+
+
+@contextlib.contextmanager
+def frozen_stats(model, frozen=True):
+    """Within the block, the BatchNorms of ``model`` leave their running
+    statistics as they are (when ``frozen``)."""
+    norms = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    before = [m.update_stats for m in norms]
+    for m in norms:
+        m.update_stats = not frozen and m.update_stats
+    try:
+        yield
+    finally:
+        for m, update in zip(norms, before):
+            m.update_stats = update

@@ -10,6 +10,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from pmv_tpu_torch.models.batchnorm import BatchNorm
+
 
 class Linear(nn.Linear):
     """nn.Linear that computes in its input's dtype (weights cast per call)."""
@@ -133,13 +135,16 @@ def avg_pool_3d(x, kernel, stride, padding):
 def init_weights(model, generator):
     """The reference's init (`video_model_builder.py` _init_weights): weights
     of linears and convs, and the MViT tokens and tables, truncated normal
-    with std 0.02 at +-2 std; biases zero; norms one and zero. Draws on the
-    CPU from ``generator``, so a seed gives the same weights on any device."""
+    with std 0.02 at +-2 std; biases zero; norms one and zero; a module's
+    ``init_value``, where it has one, fills its weight. Draws on the CPU
+    from ``generator``, so a seed gives the same weights on any device."""
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         module = model.get_submodule(name.rsplit(".", 1)[0]) if "." in name else model
-        if isinstance(module, nn.LayerNorm):
+        if isinstance(module, (nn.LayerNorm, BatchNorm)):
             p.fill_(1.0 if leaf == "weight" else 0.0)
+        elif leaf == "weight" and hasattr(module, "init_value"):
+            p.fill_(module.init_value)
         elif leaf == "bias":
             p.zero_()
         elif leaf.startswith("gamma_"):

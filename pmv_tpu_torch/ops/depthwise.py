@@ -2,7 +2,8 @@
 gradient.
 
 The port's counterpart of ``pmv_tpu/ops/depthwise_pallas.py``. MViT sends
-its stride-1 3x3x3 pooling convs here (``models/attention.py``).
+its stride-1 3x3x3 pooling convs here (``models/attention.py``), UniFormer
+its DPE convs (``models/uniformer.py``).
 
 - ``depthwise3x3x3(x, w)``: differentiable, a ``torch.autograd.Function``
   as the JAX package's ``custom_vjp``. The forward is the kernel K1,
@@ -19,12 +20,13 @@ its stride-1 3x3x3 pooling convs here (``models/attention.py``).
   threads, shared memory) by one rule, worked out here so that the CPU
   tests can check them.
 - ``MVIT_POOL_SHAPES``, ``MVIT_RECT_POOL_SHAPES``,
-  ``MVIT_PORTRAIT_POOL_SHAPES``, ``MVIT_RECT_TRAIN_POOL_SHAPES`` and
-  ``ODD_SHAPES``: the shapes the main paths give the kernels (the 224^2
-  crop, the PMV rect crop and its transposes at batch 8, and both at the
-  PMV train step's batch of 16), and the odd ones their tiling must take
-  besides; the tests,
-  ``chip_smoke.py`` and ``tools/plan_sweep.py`` take them from here.
+  ``MVIT_PORTRAIT_POOL_SHAPES``, ``MVIT_RECT_TRAIN_POOL_SHAPES``, the
+  ``UNIFORMER_*_DPE_SHAPES`` and ``ODD_SHAPES``: the shapes the main paths
+  give the kernels (MViT's pools and UniFormer's DPE convs at the 224^2
+  crop, the PMV rect crop and its transposes at batch 8, and at the PMV
+  train step's batch of 16), and the odd ones their tiling must take
+  besides; the tests, ``chip_smoke.py`` and ``tools/plan_sweep.py`` take
+  them from here.
 
 A CUDA tensor launches the kernels; a CPU tensor takes the plain versions.
 Nothing else falls back: a CUDA input the kernels do not take, a failed
@@ -94,6 +96,30 @@ PMV_TRAIN_BATCH = 16
 MVIT_RECT_TRAIN_POOL_SHAPES = tuple(
     ((PMV_TRAIN_BATCH, *s[1:]), n)
     for s, n in MVIT_RECT_POOL_SHAPES + MVIT_PORTRAIT_POOL_SHAPES
+)
+# UniFormer-S 16x4's DPE convs, one at the start of every block (3, 4, 8 and
+# 3 per forward in its four stages), at batch 8: the 224^2 crop's grids, the
+# PMV rect crop's (exps/PMV/run_Uniformer_PMV.sh) and their transposes; then
+# all three at run_net's train batch of 16 clips. C = 64 is below MViT's
+# smallest C (96).
+UNIFORMER_DPE_SHAPES = (
+    ((8, 8, 56, 56, 64), 3),
+    ((8, 8, 28, 28, 128), 4),
+    ((8, 8, 14, 14, 320), 8),
+    ((8, 8, 7, 7, 512), 3),
+)
+UNIFORMER_RECT_DPE_SHAPES = (
+    ((8, 8, 64, 48, 64), 3),
+    ((8, 8, 32, 24, 128), 4),
+    ((8, 8, 16, 12, 320), 8),
+    ((8, 8, 8, 6, 512), 3),
+)
+UNIFORMER_PORTRAIT_DPE_SHAPES = tuple(
+    ((b, t, w, h, c), n) for (b, t, h, w, c), n in UNIFORMER_RECT_DPE_SHAPES
+)
+UNIFORMER_TRAIN_DPE_SHAPES = tuple(
+    ((PMV_TRAIN_BATCH, *s[1:]), n)
+    for s, n in UNIFORMER_DPE_SHAPES + UNIFORMER_RECT_DPE_SHAPES + UNIFORMER_PORTRAIT_DPE_SHAPES
 )
 # Shapes the tiling must take besides: C of 8, 24 and 40 (not multiples of
 # a chunk), H and W of 1, 2, 7 and 13, portrait grids, T of 1 to 3, B of 1.

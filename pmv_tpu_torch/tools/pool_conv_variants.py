@@ -1,7 +1,8 @@
 """Time the strided depthwise pool convs of MViTv2-S 16x4 through F.conv3d,
-in the layout the port passes today and in the alternatives, on one card.
+in the layout the port passes today and in the alternatives, on one card;
+with ``--uniformer``, UniFormer-S 16x4's 5x5x5 depthwise convs instead.
 
-    python -m pmv_tpu_torch.tools.pool_conv_variants
+    python -m pmv_tpu_torch.tools.pool_conv_variants [--uniformer]
 
 The port sends every strided conv pool to a grouped ``F.conv3d`` on a
 channels-last grid viewed as NCDHW (``models/attention.py``). For each
@@ -11,8 +12,16 @@ with the median device ms (CUDA events) of:
 - "ncdhw": the same conv on a contiguous NCDHW copy (the copy not timed);
 - "ncdhw_with_copies": the copy in, the conv, and the copy back to NDHWC;
 each with cudnn.benchmark off and on; then one line summed over a forward.
+
+``--uniformer``: the CBlock's stride-1 SAME 5x5x5 depthwise conv (with its
+bias) at its two grids, batch 8, bfloat16, each layout from channels-last
+[B, T, H, W, C] to channels-last: "view" (the grid viewed as NCDHW),
+"ncdhw_with_copies" (a contiguous NCDHW copy in, the output viewed back);
+forward alone, and forward and backward (dx and dw); the two layouts'
+outputs and gradients must agree.
 """
 
+import argparse
 import json
 import sys
 from collections import defaultdict
@@ -35,11 +44,69 @@ STRIDED_POOLS = [
 ]
 
 
-def main():
+# (grid [T, H, W, C], convs per forward) of UniFormer-S 16x4's CBlocks.
+UNIFORMER_CONVS = [
+    ((8, 56, 56, 64), 3),   # stage 1
+    ((8, 28, 28, 128), 4),  # stage 2
+]
+
+
+def uniformer_layouts(card):
+    """The 5x5x5 depthwise conv in both layouts, forward and forward +
+    backward; one JSON line per grid, then the sums over a forward."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    total = defaultdict(float)
+    for grid, count in UNIFORMER_CONVS:
+        c = grid[-1]
+        x = torch.randn((BATCH, *grid), generator=gen, device="cuda").bfloat16()
+        w = (0.05 * torch.randn((c, 1, 5, 5, 5), generator=gen, device="cuda")).bfloat16()
+        b = torch.randn((c,), generator=gen, device="cuda").bfloat16()
+        g = torch.randn_like(x)
+
+        def view(x, w):
+            return F.conv3d(x.permute(0, 4, 1, 2, 3), w, b, padding=2,
+                            groups=c).permute(0, 2, 3, 4, 1)
+
+        def ncdhw_with_copies(x, w):
+            return F.conv3d(x.permute(0, 4, 1, 2, 3).contiguous(), w, b, padding=2,
+                            groups=c).permute(0, 2, 3, 4, 1)
+
+        rec = {"grid": [BATCH, *grid], "count": count, "dtype": "bfloat16"}
+        results = []
+        for fn in (view, ncdhw_with_copies):
+            xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+            times = {
+                "fwd_ms": time_ms(lambda: fn(x, w), iters=10),
+                "fwd_bwd_ms": time_ms(lambda: fn(xg, wg).backward(g), iters=10),
+            }
+            for key, ms in times.items():
+                rec[f"{fn.__name__}_{key}"] = ms
+                total[f"{fn.__name__}_{key}"] += ms * count
+            xg.grad = wg.grad = None
+            fn(xg, wg).backward(g)
+            results.append((fn(x, w).float(), xg.grad.float(), wg.grad.float()))
+        # bfloat16 outputs and gradients; dw sums B*T*H*W products, so its
+        # rounding is relative to its largest entries.
+        for ours, theirs in zip(*results):
+            torch.testing.assert_close(ours, theirs, atol=1e-2 * float(theirs.abs().max()),
+                                       rtol=1e-2)
+        print(json.dumps(rec), flush=True)
+    print(json.dumps({"uniformer_per_forward_ms": dict(total), "batch": BATCH, "card": card}),
+          flush=True)
+    return 0
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--uniformer", action="store_true",
+                        help="time UniFormer's 5x5x5 depthwise convs instead")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("pool_conv_variants: no CUDA device", file=sys.stderr)
         return 1
     card = card_line()
+    if args.uniformer:
+        return uniformer_layouts(card)
     gen = torch.Generator(device="cuda").manual_seed(0)
     total = defaultdict(float)
     for grid, stride, count in STRIDED_POOLS:

@@ -1,5 +1,7 @@
-"""Time and profile the port's MViTv2-S 16x4 eval or train step on one CUDA
-card.
+"""Time and profile the port's eval or train step on one CUDA card:
+MViTv2-S 16x4's, or that of any config given with ``--cfg`` (UniFormer-S
+16x4's: ``--cfg configs/Kinetics/UNIFORMER_S_16x4.yaml --opts
+UNIFORMER.PRETRAIN_NAME "" TENSORBOARD.ENABLE False``).
 
     python -m pmv_tpu_torch.tools.profile_eval [--train] [--batch 8] [--steps 10] [--top 20] \\
         [--cfg <yaml> [--opts KEY VALUE ...]]
@@ -42,8 +44,9 @@ KINDS = [
     ("depthwise wgrad", r"dw3x3x3_wgrad"),
     ("depthwise3x3x3 (K1)", r"dw3x3x3"),
     # cuDNN's convs (and its layout transposes) before matmul: their
-    # names contain "gemm" too.
-    ("conv (cuDNN)", r"conv|cudnn|fprop|winograd|fft"),
+    # names contain "gemm" too. ATen's own depthwise 3-D conv kernels
+    # (conv_depthwise3d_cuda_*, UniFormer's 5x5x5 conv) fall here as well.
+    ("conv (cuDNN, ATen)", r"conv|cudnn|fprop|winograd|fft"),
     ("matmul", r"gemm|xmma|cutlass|cublas|nvjet"),
     ("softmax", r"softmax"),
     ("layer_norm", r"layer_norm|LayerNorm"),

@@ -2,7 +2,8 @@
 (`MViT/slowfast/utils/checkpoint.py`; counterpart of
 `pmv_tpu/utils/checkpoint.py`, which writes orbax directories).
 
-- ``torch.save`` of {"epoch", "model_state", "optimizer_state", "cfg"} to
+- ``torch.save`` of {"epoch", "model_state" (the weights and the buffers:
+  BatchNorm running statistics), "optimizer_state", "cfg"} to
   ``OUTPUT_DIR/checkpoints/checkpoint_epoch_{epoch:05d}.pyth`` (prefixed
   with TASK when set), written by rank 0 only, through a temporary file and
   a rename, so that a cut job never leaves half a checkpoint.

@@ -1,7 +1,8 @@
 """Carry weights over from the JAX package's parameter trees.
 
-``state_dict_from_jax(params)`` takes a flax param tree as nested dicts of
-numpy arrays and returns a ``state_dict`` under the reference's PySlowFast
+``state_dict_from_jax(variables)`` takes a flax param tree (or the
+{"params", "batch_stats"} variables) as nested dicts of numpy arrays and
+returns a ``state_dict`` under the reference's PySlowFast
 names (``blocks.3.attn.pool_q.weight``, ``blocks.3.attn.norm_q.weight``, ...),
 in PyTorch's layouts, ready for ``load_state_dict(strict=True)``. It is the
 inverse of the JAX package's torch importer (`utils/torch_import.py`), whose
@@ -13,6 +14,7 @@ Layouts (flax, channels-last -> torch):
   (depthwise pool kernels [t, h, w, 1, C] -> [C, 1, t, h, w])
 - Conv2d kernel [H, W, I, O]             -> Conv2d weight [O, I, H, W]
 - LayerNorm / BatchNorm scale, bias      -> weight, bias
+- BatchNorm mean, var (``batch_stats``)  -> running_mean, running_var
 """
 
 import re
@@ -87,20 +89,29 @@ def _leaves(tree, prefix=()):
             yield path, value
 
 
-def state_dict_from_jax(params):
-    """flax params (nested dicts of arrays, or {"params": ...}) -> state_dict."""
-    if "params" in params:
-        params = params["params"]
+def state_dict_from_jax(variables):
+    """flax variables -> state_dict: a param tree (nested dicts of arrays),
+    or {"params": ..., "batch_stats": ...}, whose BatchNorm statistics
+    become ``running_mean`` / ``running_var``; each BatchNorm also gets a
+    ``num_batches_tracked`` of 0, which the JAX package does not keep."""
+    if "params" in variables:
+        trees = (variables["params"], variables.get("batch_stats", {}))
+    else:
+        trees = (variables,)
     state = {}
-    for path, value in _leaves(params):
-        arr = _to_torch_layout(np.asarray(value, dtype=np.float32), path[-1])
-        state[flax_path_to_torch(path)] = torch.from_numpy(
-            np.array(arr, order="C")  # a writable copy
-        )
+    for tree in trees:
+        for path, value in _leaves(tree):
+            arr = _to_torch_layout(np.asarray(value, dtype=np.float32), path[-1])
+            state[flax_path_to_torch(path)] = torch.from_numpy(
+                np.array(arr, order="C")  # a writable copy
+            )
+    for name in [n for n in state if n.rsplit(".", 1)[-1] == "running_mean"]:
+        state[name.removesuffix("running_mean") + "num_batches_tracked"] = torch.tensor(0)
     return state
 
 
-def load_jax_params(model, params):
-    """Load a flax param tree into ``model`` with strict name/shape checks."""
-    model.load_state_dict(state_dict_from_jax(params), strict=True)
+def load_jax_params(model, variables):
+    """Load flax variables (``state_dict_from_jax``) into ``model`` with
+    strict name/shape checks."""
+    model.load_state_dict(state_dict_from_jax(variables), strict=True)
     return model

@@ -7,6 +7,8 @@ conftest (which imports JAX) is left out:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_port_cuda.py
 """
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -21,6 +23,10 @@ from pmv_tpu_torch.ops.depthwise import (
     MVIT_RECT_POOL_SHAPES,
     MVIT_RECT_TRAIN_POOL_SHAPES,
     ODD_SHAPES,
+    UNIFORMER_DPE_SHAPES,
+    UNIFORMER_PORTRAIT_DPE_SHAPES,
+    UNIFORMER_RECT_DPE_SHAPES,
+    UNIFORMER_TRAIN_DPE_SHAPES,
     depthwise3x3x3,
     depthwise3x3x3_plain,
     depthwise3x3x3_wgrad,
@@ -32,10 +38,12 @@ pytestmark = pytest.mark.cuda
 
 # MViTv2-S 16x4 pool shapes at batch 8 (the 224^2 crop, the PMV rect crop
 # and its transposes), the PMV rect ones at the run_net train step's batch
-# of 16, and odd shapes the kernels' tiling must take (ops/depthwise.py).
+# of 16, UniFormer-S 16x4's DPE shapes (the same grids, at batch 8 and 16),
+# and odd shapes the kernels' tiling must take (ops/depthwise.py).
 SHAPES = [
     s for s, _ in MVIT_POOL_SHAPES + MVIT_RECT_POOL_SHAPES + MVIT_PORTRAIT_POOL_SHAPES
-    + MVIT_RECT_TRAIN_POOL_SHAPES
+    + MVIT_RECT_TRAIN_POOL_SHAPES + UNIFORMER_DPE_SHAPES + UNIFORMER_RECT_DPE_SHAPES
+    + UNIFORMER_PORTRAIT_DPE_SHAPES + UNIFORMER_TRAIN_DPE_SHAPES
 ] + list(ODD_SHAPES)
 
 
@@ -190,6 +198,57 @@ def test_tiny_train_step_on_card_matches_cpu(cuda_device):  # noqa: F811
     assert diff <= 1e-5 * float(cpu["grad_norm"])
     for (name, a), b in zip(cpu_model.state_dict().items(), gpu_model.state_dict().values()):
         torch.testing.assert_close(b.cpu(), a, atol=2.0001 * lr, rtol=0, msg=name)
+
+
+def _tiny_uniformer_cfg():
+    from pmv_tpu_torch.config import get_cfg
+
+    cfg = get_cfg()
+    cfg.merge_from_file(str(Path(__file__).resolve().parents[1] / "configs" / "Kinetics"
+                            / "UNIFORMER_S_16x4.yaml"))
+    cfg.UNIFORMER.EMBED_DIM = [8, 16, 16, 32]
+    cfg.UNIFORMER.DEPTH = [1, 1, 1, 1]
+    cfg.UNIFORMER.HEAD_DIM = 8
+    cfg.DATA.NUM_FRAMES = 4
+    cfg.DATA.TRAIN_CROP_SIZE = cfg.DATA.TEST_CROP_SIZE = 64
+    return cfg
+
+
+def test_tiny_uniformer_on_card_matches_cpu(cuda_device):  # noqa: F811
+    """UniFormer at tiny width, float32, card against CPU: the eval step
+    (one DPE a block: 4 K1 launches), then one train step of its config's
+    recipe from the same weights and draws (8 K1 and 4 wgrad launches),
+    with the BatchNorm running statistics to rtol 1e-4."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _tiny_uniformer_cfg()
+    lr = 1e-3
+    rng = np.random.default_rng(5)
+    batch = {"frames": rng.integers(0, 256, (2, 4, 64, 64, 3), np.uint8),
+             "labels": rng.integers(0, cfg.MODEL.NUM_CLASSES, 2)}
+    models, metrics, scores = [], [], []
+    draws = None
+    for device in ("cpu", cuda_device):
+        model = build_model(cfg, device=device, dtype=torch.float32, seed=2)
+        k1 = depthwise3x3x3.launches
+        scores.append(make_eval_step(cfg, model, device=device)(batch["frames"]).cpu())
+        eval_k1 = depthwise3x3x3.launches - k1
+        step = make_train_step(cfg, device=device)
+        draws = draws or step.sample_draws(model, batch["frames"].shape)
+        k1, wg = depthwise3x3x3.launches, depthwise3x3x3_wgrad.launches
+        metrics.append({k: v.cpu() for k, v in step(init_state(cfg, model), batch, lr, draws).items()})
+        models.append(model)
+    assert eval_k1 == 4
+    assert (depthwise3x3x3.launches - k1, depthwise3x3x3_wgrad.launches - wg) == (8, 4)
+    torch.testing.assert_close(scores[1], scores[0], atol=2e-5, rtol=0)
+    (cpu, gpu), (cpu_model, gpu_model) = metrics, models
+    for key in ("loss", "grad_norm"):
+        torch.testing.assert_close(gpu[key], cpu[key], atol=0, rtol=1e-5)
+    for (name, a), b in zip(cpu_model.state_dict().items(), gpu_model.state_dict().values()):
+        if "running" in name:
+            torch.testing.assert_close(b.cpu(), a, atol=1e-6, rtol=1e-4, msg=name)
+        else:
+            torch.testing.assert_close(b.cpu(), a, atol=2.0001 * lr, rtol=0, msg=name)
 
 
 def test_prefetcher_copies_ahead_in_order(cuda_device):  # noqa: F811

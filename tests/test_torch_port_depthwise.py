@@ -22,6 +22,10 @@ from pmv_tpu_torch.ops.depthwise import (
     MVIT_RECT_POOL_SHAPES,
     MVIT_RECT_TRAIN_POOL_SHAPES,
     ODD_SHAPES,
+    UNIFORMER_DPE_SHAPES,
+    UNIFORMER_PORTRAIT_DPE_SHAPES,
+    UNIFORMER_RECT_DPE_SHAPES,
+    UNIFORMER_TRAIN_DPE_SHAPES,
     SMEM_PER_BLOCK,
     depthwise3x3x3,
     depthwise3x3x3_plain,
@@ -171,11 +175,13 @@ def test_grad_wrappers_on_cpu_launch_nothing():
 # Launch plans of the CUDA kernels (they run only on the card; their tiling
 # is worked out in Python and checked here), at the MViTv2-S 16x4 pool
 # shapes of the 224^2 crop, of the PMV rect crop and of its transposes (at
-# batch 8, and the rect ones at the PMV train step's batch of 16), and at
-# odd shapes.
+# batch 8, and the rect ones at the PMV train step's batch of 16), at
+# UniFormer-S 16x4's DPE shapes (the same three grids, at batch 8 and 16;
+# C from 64), and at odd shapes.
 MAIN_SHAPES = [
     s for s, _ in MVIT_POOL_SHAPES + MVIT_RECT_POOL_SHAPES + MVIT_PORTRAIT_POOL_SHAPES
-    + MVIT_RECT_TRAIN_POOL_SHAPES
+    + MVIT_RECT_TRAIN_POOL_SHAPES + UNIFORMER_DPE_SHAPES + UNIFORMER_RECT_DPE_SHAPES
+    + UNIFORMER_PORTRAIT_DPE_SHAPES + UNIFORMER_TRAIN_DPE_SHAPES
 ]
 
 

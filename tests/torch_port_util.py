@@ -40,6 +40,21 @@ def random_params(params, seed):
     return jax.tree_util.tree_map_with_path(draw, params)
 
 
+def random_batch_stats(batch_stats, seed):
+    """BatchNorm statistics redrawn with numpy: means near 0, variances in
+    [0.5, 1.5]."""
+    import jax
+
+    rng = np.random.default_rng(seed)
+
+    def draw(path, p):
+        if str(path[-1].key) == "var":
+            return rng.uniform(0.5, 1.5, size=tuple(p.shape)).astype(np.float32)
+        return (0.3 * rng.normal(size=tuple(p.shape))).astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(draw, batch_stats)
+
+
 def to_np(t):
     return t.detach().float().numpy()
 
@@ -57,7 +72,7 @@ def depthwise_calls(monkeypatch):
     """Counts the model's calls into ops.depthwise3x3x3. On the CPU the
     wrapper takes the plain version and launches nothing, so its launch
     count cannot show the path was taken; this spy can."""
-    from pmv_tpu_torch.models import attention
+    from pmv_tpu_torch.models import attention, uniformer
 
     calls = []
 
@@ -65,7 +80,8 @@ def depthwise_calls(monkeypatch):
         calls.append(tuple(x.shape))
         return port_depthwise.depthwise3x3x3(x, w)
 
-    monkeypatch.setattr(attention, "depthwise3x3x3", spy)
+    for module in (attention, uniformer):
+        monkeypatch.setattr(module, "depthwise3x3x3", spy)
     return calls
 
 
