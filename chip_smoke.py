@@ -76,6 +76,36 @@ with a DPE conv on K1, 18 a forward:
    dataset, batch 8 (16 clips a step), one epoch; the restore, every tensor
    (the BatchNorm buffers included) compared; then the resume with
    SOLVER.MAX_EPOCH 2 (main paths).
+X3D-M (configs/Kinetics/X3D_M.yaml, full width and depth: 26 blocks,
+random weights from a seed), whose 22 stride-1 channelwise convs a forward
+run on K1, C = 54 and 108 through the wrappers' channel pad:
+2x. Phase 2 also holds both kernels at X3D-M's shapes: the 224^2, PMV
+   rect, transposed and 256^2 (test crop) grids at batch 8, and odd shapes
+   at C = 12 and 54; where C is padded, the records give the pad's own ms
+   beside the wrapper's (pad included), and the pad copies of a layer's
+   forward and backward through the autograd Function (each tensor padded
+   once) beside the copies of padding each call's inputs apart.
+3x. Eval at batch 1 (22 K1 launches) and one train step at batch 2 (the
+   config's recipe: SGD with Nesterov momentum, head dropout 0.5; 44 K1 and
+   22 wgrad), float32, card against CPU under phase 3b's gates with the
+   BatchNorm running statistics, save the gradients and the grad norm: a
+   ReLU input within a rounding of 0 decides either way and moves X3D-M's
+   whole gradient, so these are held to the fixed limits of
+   ``tools/grad_witness.py`` (``RELU_LIMITS``), and then the card's step
+   again from the same weights, each ReLU deciding as on the CPU, to 1e-4;
+   the pm steps (rect [256, 192], one portrait and one landscape row: eval
+   2 x 22 K1, train 88 K1 and 44 wgrad), the same way; precise BN over 2
+   batches, card against CPU, its statistics under the same gate.
+4x. Serve 4 videos x 2 temporal views x the recipe's 3 spatial crops of
+   256^2 in bfloat16 at batch 8 (a main path; the views cut from 10 to 2,
+   as phase 4 cuts MViT's).
+5x. Train 5 timed batch-8 bfloat16 steps at 224^2 through ``train_epoch``
+   (a main path).
+6x-7x. ``run_net`` on configs/Kinetics/X3D_M.yaml with the rect_256_192
+   run of exps/PMV/run_X3D_PMV.sh, the Synthetic dataset, batch 8 (8 clips
+   a step), one epoch: train, precise BN (its log line checked), checkpoint,
+   eval, test 2 views of 256^2; the restore, every tensor compared; the
+   resume with SOLVER.MAX_EPOCH 2 (main paths).
 8. Print the kernels line, the card line, and last
    {"ok": true, "device": {...}}.
 
@@ -120,9 +150,13 @@ PMV_RECT = (256, 192)
 ROOT = os.path.dirname(os.path.abspath(__file__))
 MVIT_CFG = os.path.join(ROOT, "configs", "Kinetics", "MVITv2_S_16x4.yaml")
 UNIFORMER_CFG = os.path.join(ROOT, "configs", "Kinetics", "UNIFORMER_S_16x4.yaml")
-# K1 launches in one forward: MViTv2-S's stride-1 pools, UniFormer-S's DPEs.
+X3D_CFG = os.path.join(ROOT, "configs", "Kinetics", "X3D_M.yaml")
+# K1 launches in one forward: MViTv2-S's stride-1 pools, UniFormer-S's DPEs,
+# X3D-M's stride-1 channelwise convs.
 MVIT_K1 = 17
 UNIFORMER_K1 = 18
+X3D_K1 = 22
+X3D_LR = 0.05  # SOLVER.BASE_LR of exps/PMV/run_X3D_PMV.sh
 
 
 def step_launches(per_forward):
@@ -172,18 +206,25 @@ def _kernel_cases():
     and transposed ("portrait"), the last two at run_net's train batch of
     16 ("rect_b16", "portrait_b16"); UniFormer-S 16x4's DPE shapes on the
     same grids at batch 8 and 16 ("uni_square" ... "uni_portrait_b16");
-    then the odd shapes."""
+    X3D-M's channelwise-conv shapes at batch 8 ("x3d_square", "x3d_rect",
+    "x3d_portrait", "x3d_test" at 256^2); then the odd shapes, and those
+    whose C the wrappers pad ("padded_odd")."""
     from pmv_tpu_torch.ops.depthwise import (
         MVIT_POOL_SHAPES,
         MVIT_PORTRAIT_POOL_SHAPES,
         MVIT_RECT_POOL_SHAPES,
         MVIT_RECT_TRAIN_POOL_SHAPES,
         ODD_SHAPES,
+        PADDED_ODD_SHAPES,
         PMV_TRAIN_BATCH,
         UNIFORMER_DPE_SHAPES,
         UNIFORMER_PORTRAIT_DPE_SHAPES,
         UNIFORMER_RECT_DPE_SHAPES,
         UNIFORMER_TRAIN_DPE_SHAPES,
+        X3D_DW_SHAPES,
+        X3D_PORTRAIT_DW_SHAPES,
+        X3D_RECT_DW_SHAPES,
+        X3D_TEST_DW_SHAPES,
     )
 
     uniformer = (UNIFORMER_DPE_SHAPES + UNIFORMER_RECT_DPE_SHAPES
@@ -195,8 +236,33 @@ def _kernel_cases():
         + [(s, n, _orientation(s) + "_b16") for s, n in MVIT_RECT_TRAIN_POOL_SHAPES]
         + [(s, n, "uni_" + _orientation(s) + ("_b16" if s[0] == PMV_TRAIN_BATCH else ""))
            for s, n in uniformer]
+        + [(s, n, "x3d_" + g) for shapes, g in (
+            (X3D_DW_SHAPES, "square"), (X3D_RECT_DW_SHAPES, "rect"),
+            (X3D_PORTRAIT_DW_SHAPES, "portrait"), (X3D_TEST_DW_SHAPES, "test"))
+           for s, n in shapes]
         + [(s, 0, "odd") for s in ODD_SHAPES]
+        + [(s, 0, "padded_odd") for s in PADDED_ODD_SHAPES]
     )
+
+
+def pad_ms(shape, pads, slices, dtype, flush):
+    """Device ms of channel-pad copies at the C of ``shape`` (0 where C needs
+    none): a tensor of each shape in ``pads`` padded with zeros to the
+    kernels' channel multiple, and a padded one of each shape in ``slices``
+    sliced back to C."""
+    import torch.nn.functional as F
+
+    from pmv_tpu_torch.ops.depthwise import CHANNEL_MULTIPLE
+    from pmv_tpu_torch.tools.timing import time_ms
+
+    c = shape[-1]
+    pad = -c % CHANNEL_MULTIPLE
+    if pad == 0:
+        return 0.0
+    ins = [torch.zeros(s, dtype=dtype, device="cuda") for s in pads]
+    outs = [torch.zeros((*s[:-1], c + pad), dtype=dtype, device="cuda") for s in slices]
+    return time_ms(lambda: ([F.pad(t, (0, pad)) for t in ins],
+                            [t[..., :c].contiguous() for t in outs]), flush=flush)
 
 
 def phase_kernels(flush):
@@ -238,6 +304,7 @@ def phase_kernels(flush):
                 ),
                 "bound_ms": bound_ms,
                 "bound_by": bound_by,
+                "pad_ms": pad_ms(shape, (shape, w.shape), (shape,), dtype, flush),
             }
             log(json.dumps(rec))
             records.append(rec)
@@ -300,6 +367,17 @@ def phase_backward(flush):
                 ),
                 "bound_ms": bound_ms,
                 "bound_by": bound_by,
+                "pad_ms": pad_ms(shape, (shape, shape), (w.shape,), dtype, flush),
+                # The pad copies of a layer's forward and backward through
+                # the autograd Function: x, w and the cotangent padded once,
+                # the output, dx and dw sliced back; beside them the copies
+                # of padding each call's inputs apart (x and w, the
+                # cotangent and the flipped w, x and the cotangent).
+                "step_pad_ms": pad_ms(shape, (shape, w.shape, shape), (shape, shape, w.shape),
+                                      dtype, flush),
+                "step_pad_ms_padded_per_call": pad_ms(
+                    shape, (shape, w.shape, shape, w.shape, shape, shape),
+                    (shape, shape, w.shape), dtype, flush),
             }
             log(json.dumps(rec))
             records.append(rec)
@@ -361,6 +439,19 @@ def uniformer_cfg():
     return cfg
 
 
+def x3d_cfg():
+    """X3D-M with its config's recipe (SGD with Nesterov momentum, head
+    dropout 0.5) at the PMV recipe's LR (``X3D_LR``), and its test protocol
+    of 3 crops of 256^2 with the views cut from 10 to 2."""
+    from pmv_tpu_torch.config import get_cfg
+
+    cfg = get_cfg()
+    cfg.merge_from_file(X3D_CFG)
+    cfg.SOLVER.BASE_LR = X3D_LR
+    cfg.TEST.NUM_ENSEMBLE_VIEWS = 2
+    return cfg
+
+
 def _launch_counts():
     from pmv_tpu_torch.ops.depthwise import depthwise3x3x3, depthwise3x3x3_wgrad
 
@@ -388,33 +479,65 @@ def _models_card_and_cpu(cfg):
     return cpu_model, gpu_model
 
 
-def _train_step_card_vs_cpu(phase, cfg, batch, expected, models=None):
-    """One float32 train step on the card and on the CPU from the same
-    weights and draws; raises unless they agree and the card's step launched
-    ``expected``."""
-    from pmv_tpu_torch.engine.steps import init_state, make_train_step
+def _running_stats_err(gpu_model, cpu_model):
+    """BatchNorm running statistics, card against CPU: (the largest
+    difference beyond rtol 1e-4, the largest difference), 0 without
+    BatchNorm. An entry near 0 may differ by 1e-6 at most (a running mean
+    is 0.1 x a batch mean, which may be any small number)."""
+    stats_gpu = {k: v.cpu() for k, v in gpu_model.named_buffers() if "running" in k}
+    stats_cpu = {k: v for k, v in cpu_model.named_buffers() if "running" in k}
+    over = max((float(((stats_gpu[k] - v).abs() - 1e-4 * v.abs()).max())
+                for k, v in stats_cpu.items()), default=0.0)
+    diff = max((float((stats_gpu[k] - v).abs().max()) for k, v in stats_cpu.items()),
+               default=0.0)
+    return over, diff
 
+
+def _grads(model):
+    return {k: p.grad.detach().cpu() for k, p in model.named_parameters()}
+
+
+def _grad_rel_err(grads, ref):
+    """Relative L2 distance of all of ``grads`` from all of ``ref``."""
+    diff = sum(float((grads[k] - v).square().sum()) for k, v in ref.items())
+    return (diff / sum(float(v.square().sum()) for v in ref.values())) ** 0.5
+
+
+def _train_step_card_vs_cpu(phase, cfg, batch, expected, models=None):
+    """One float32 train step at cfg.SOLVER.BASE_LR on the card and on the
+    CPU from the same weights and draws; raises unless they agree and the
+    card's step launched ``expected``. The gradients (relative L2) and the
+    grad norm are held to 1e-4; for a model in ``grad_witness.RELU_LIMITS``
+    (X3D-M) to its limits, and then the card's step again, from the same
+    weights, with every ReLU taking the CPU step's decisions, to 1e-4."""
+    from pmv_tpu_torch.engine.steps import init_state, make_train_step
+    from pmv_tpu_torch.tools.grad_witness import RELU_LIMITS, relu_decisions
+
+    lr = cfg.SOLVER.BASE_LR
     cpu_model, gpu_model = models or _models_card_and_cpu(cfg)
     before = {k: v.detach().clone() for k, v in cpu_model.state_dict().items()}
     cpu_state, gpu_state = init_state(cfg, cpu_model), init_state(cfg, gpu_model)
     cpu_step = make_train_step(cfg, device="cpu", seed=0)
     gpu_step = make_train_step(cfg, device="cuda", seed=0)
     draws = cpu_step.sample_draws(cpu_model, batch["frames"].shape)
+    grad_limit, norm_limit = RELU_LIMITS.get(cfg.MODEL.MODEL_NAME, (1e-4, 1e-4))
 
     counts = _launch_counts()
     t0 = time.perf_counter()
-    gpu = {k: v.cpu() for k, v in gpu_step(gpu_state, batch, TRAIN_LR, draws).items()}
+    gpu = {k: v.cpu() for k, v in gpu_step(gpu_state, batch, lr, draws).items()}
     gpu_s = time.perf_counter() - t0
     launches = _launches_since(counts)
     t0 = time.perf_counter()
-    cpu = cpu_step(cpu_state, batch, TRAIN_LR, draws)
+    with relu_decisions() as cpu_decisions:
+        cpu = cpu_step(cpu_state, batch, lr, draws)
     cpu_s = time.perf_counter() - t0
 
-    grad_diff = grad_ref = 0.0
-    for p_cpu, p_gpu in zip(cpu_model.parameters(), gpu_model.parameters()):
-        grad_diff += float((p_gpu.grad.cpu() - p_cpu.grad).square().sum())
-        grad_ref += float(p_cpu.grad.square().sum())
-    grad_rel = (grad_diff / grad_ref) ** 0.5
+    cpu_grads, gpu_grads = _grads(cpu_model), _grads(gpu_model)
+    grad_rel = _grad_rel_err(gpu_grads, cpu_grads)
+    grad_max = max(float((gpu_grads[k] - v).abs().max()) for k, v in cpu_grads.items())
+    worst = sorted((float((gpu_grads[k] - v).norm()), k, float(v.norm()))
+                   for k, v in cpu_grads.items())[-3:]
+    worst = [{"param": n, "grad_l2_diff": d, "grad_l2": g} for d, n, g in worst]
     params_gpu = {k: v.detach().cpu() for k, v in gpu_model.named_parameters()}
     params_cpu = {k: v.detach() for k, v in cpu_model.named_parameters()}
     param_err = max(float((params_gpu[k] - v).abs().max()) for k, v in params_cpu.items())
@@ -422,41 +545,66 @@ def _train_step_card_vs_cpu(phase, cfg, batch, expected, models=None):
     n_off = sum(int(((params_gpu[k] - v).abs() > 1e-6).sum()) for k, v in params_cpu.items())
     moved = sum(int((v != before[k]).sum()) for k, v in params_cpu.items())
     # BatchNorm running statistics (none in MViT).
-    stats_gpu = {k: v.cpu() for k, v in gpu_model.named_buffers() if "running" in k}
+    stats_err, stats_abs = _running_stats_err(gpu_model, cpu_model)
     stats_cpu = {k: v for k, v in cpu_model.named_buffers() if "running" in k}
-    # rtol 1e-4, with an atol of 1e-6 for entries near 0 (a running mean is
-    # 0.1 x a batch mean, which may be any small number).
-    stats_err = max((float(((stats_gpu[k] - v).abs() - 1e-4 * v.abs()).max())
-                     for k, v in stats_cpu.items()), default=0.0)
-    stats_abs = max((float((stats_gpu[k] - v).abs().max()) for k, v in stats_cpu.items()),
-                    default=0.0)
     stats_moved = sum(int((v != before[k]).sum()) for k, v in stats_cpu.items())
     n_stats = sum(v.numel() for v in stats_cpu.values())
-    log(json.dumps({
+    rec = {
         "phase": phase, "model": cfg.MODEL.MODEL_NAME, "frames": list(batch["frames"].shape),
         "launches": launches, "loss": [float(gpu["loss"]), float(cpu["loss"])],
         "grad_norm": [float(gpu["grad_norm"]), float(cpu["grad_norm"])],
         "top1_err": [float(gpu["top1_err"]), float(cpu["top1_err"])],
         "top5_err": [float(gpu["top5_err"]), float(cpu["top5_err"])],
-        "grad_rel_err": grad_rel, "param_max_abs_err": param_err,
+        "grad_rel_err": grad_rel, "grad_limit": grad_limit, "grad_norm_limit": norm_limit,
+        "grads_furthest_apart": worst, "param_max_abs_err": param_err,
         "params_off_by_1e-6": n_off, "params": n_params, "params_moved": moved,
         "bn_stats": n_stats, "bn_stats_moved": stats_moved,
         "bn_stats_max_abs_err": stats_abs, "bn_stats_err_over_rtol": stats_err,
         "gpu_first_call_s": gpu_s, "cpu_s": cpu_s,
-    }))
+    }
+    held = None
+    if cfg.MODEL.MODEL_NAME in RELU_LIMITS:
+        # The card's step again from the same weights, deciding each ReLU as
+        # the CPU step did.
+        from pmv_tpu_torch.models import build_model
+
+        held_model = build_model(cfg, device="cuda", dtype=torch.float32, seed=0)
+        held_model.load_state_dict(before, strict=True)
+        with relu_decisions(cpu_decisions) as card_decisions:
+            held = gpu_step(init_state(cfg, held_model), batch, lr, draws)
+        rec["relu_decisions_held"] = {
+            "grad_rel_err": _grad_rel_err(_grads(held_model), cpu_grads),
+            "grad_norm": float(held["grad_norm"]),
+            "relu_elements": sum(int(m.numel()) for m in cpu_decisions.masks),
+            "card_decisions_otherwise": card_decisions.taken_otherwise,
+        }
+    log(json.dumps(rec))
     if launches != expected:
         raise AssertionError(f"{phase}: one train step launched {launches}, not {expected}")
-    for key in ("loss", "grad_norm"):
-        torch.testing.assert_close(gpu[key], cpu[key], atol=0, rtol=1e-4)
+    torch.testing.assert_close(gpu["loss"], cpu["loss"], atol=0, rtol=1e-4)
+    torch.testing.assert_close(gpu["grad_norm"], cpu["grad_norm"], atol=0, rtol=norm_limit)
     for key in ("top1_err", "top5_err", "nan"):
         if not torch.equal(gpu[key], cpu[key]):
             raise AssertionError(f"{key}: card {gpu[key]} against CPU {cpu[key]}")
-    if grad_rel > 1e-4:
-        raise AssertionError(f"gradients differ by {grad_rel} (relative L2)")
-    # AdamW's first step moves each weight by about lr * sign(g); a gradient
-    # element within float noise of 0 (the K-norm bias, which the loss does
-    # not depend on) may take the other sign on the two sides: 2 lr at most.
-    if param_err > 2.0001 * TRAIN_LR or n_off > 1e-4 * n_params:
+    if grad_rel > grad_limit:
+        raise AssertionError(f"gradients differ by {grad_rel} (relative L2), over {grad_limit}")
+    if held is not None:
+        torch.testing.assert_close(held["grad_norm"].cpu(), cpu["grad_norm"], atol=0, rtol=1e-4)
+        if rec["relu_decisions_held"]["grad_rel_err"] > 1e-4:
+            raise AssertionError(f"with the CPU's ReLU decisions the gradients differ by "
+                                 f"{rec['relu_decisions_held']['grad_rel_err']}, over 1e-4")
+    if cfg.SOLVER.OPTIMIZING_METHOD == "sgd":
+        # SGD's first step is linear in the gradient: lr (1 + momentum) g
+        # with Nesterov momentum, plus the weight decay, equal on both
+        # sides; and one rounding of the weight.
+        params_ok = param_err <= (1 + cfg.SOLVER.MOMENTUM) * lr * grad_max * 1.0001 + 1e-6
+    else:
+        # AdamW's first step moves each weight by about lr * sign(g); a
+        # gradient element within float noise of 0 (the K-norm bias, which
+        # the loss does not depend on) may take the other sign on the two
+        # sides: 2 lr at most, and few such elements.
+        params_ok = param_err <= 2.0001 * lr and n_off <= 1e-4 * n_params
+    if not params_ok:
         raise AssertionError(
             f"updated parameters differ: max {param_err}, {n_off} off by > 1e-6"
         )
@@ -489,7 +637,7 @@ def phase_portrait_steps(cfg, per_forward, prefix=""):
 
     cfg = cfg.clone()
     cfg.DATA.TRAIN_CROP_SIZE_RECT = list(PMV_RECT)
-    cfg.DATA.TRAIN_CROP_SIZE_RECT_SWITCH_AUTO = True  # no rel-pos tables in UniFormer
+    cfg.DATA.TRAIN_CROP_SIZE_RECT_SWITCH_AUTO = True  # no rel-pos tables in UniFormer, X3D
     rng = np.random.default_rng(4)
     batch = {
         "frames": rng.integers(0, 256, (2, cfg.DATA.NUM_FRAMES, *PMV_RECT, 3), np.uint8),
@@ -522,6 +670,51 @@ def phase_portrait_steps(cfg, per_forward, prefix=""):
     # with BatchNorm the whole batch in each orientation.
     _train_step_card_vs_cpu(f"{prefix}pm_train_step_f32_b2_card_vs_cpu", cfg, batch,
                             step_launches(2 * per_forward), models=models)
+
+
+def phase_precise_bn(cfg, per_forward, prefix=""):
+    """Precise BN over 2 batches of 2 clips at the train crop, float32, card
+    against CPU from the same weights (a loader of 3 batches, of which
+    BN.NUM_BATCHES_PRECISE 2 are read): the running statistics under phase
+    3b's BatchNorm gate, every tensor of them moved, ``num_batches_tracked``
+    and the weights left as they were, ``per_forward`` K1 launches a
+    batch."""
+    from pmv_tpu_torch.engine.precise_bn import calculate_and_update_precise_bn
+    from pmv_tpu_torch.engine.steps import init_state
+
+    cfg = cfg.clone()
+    cfg.BN.NUM_BATCHES_PRECISE = 2
+    rng = np.random.default_rng(6)
+    size = cfg.DATA.TRAIN_CROP_SIZE
+    loader = [{"frames": rng.integers(0, 256, (2, cfg.DATA.NUM_FRAMES, size, size, 3), np.uint8)}
+              for _ in range(3)]
+    cpu_model, gpu_model = _models_card_and_cpu(cfg)
+    before = {k: v.detach().clone() for k, v in cpu_model.state_dict().items()}
+    counts = _launch_counts()
+    t0 = time.perf_counter()
+    calculate_and_update_precise_bn(loader, init_state(cfg, gpu_model), cfg, "cuda")
+    torch.cuda.synchronize()
+    gpu_s = time.perf_counter() - t0
+    launches = _launches_since(counts)
+    calculate_and_update_precise_bn(loader, init_state(cfg, cpu_model), cfg, "cpu")
+    stats_err, stats_abs = _running_stats_err(gpu_model, cpu_model)
+    after = cpu_model.state_dict()
+    moved = sum(int((after[k] != v).any()) for k, v in before.items() if "running" in k)
+    n_stats = sum("running" in k for k in before)
+    kept = all(torch.equal(after[k], v) for k, v in before.items() if "running" not in k)
+    gpu_kept = all(torch.equal(gpu_model.state_dict()[k].cpu(), v)
+                   for k, v in before.items() if "running" not in k)
+    log(json.dumps({
+        "phase": f"{prefix}precise_bn_f32_card_vs_cpu", "model": cfg.MODEL.MODEL_NAME,
+        "batches": cfg.BN.NUM_BATCHES_PRECISE, "launches": launches, "bn_stats_tensors": n_stats,
+        "bn_stats_tensors_moved": moved, "bn_stats_max_abs_err": stats_abs,
+        "bn_stats_err_over_rtol": stats_err, "gpu_s": gpu_s,
+    }))
+    if launches != eval_launches(2 * per_forward):
+        raise AssertionError(f"precise BN launched {launches}, not 2 x {per_forward} K1")
+    if stats_err > 1e-6 or moved != n_stats or not (kept and gpu_kept):
+        raise AssertionError(f"precise BN: {stats_err} over rtol 1e-4, {moved} of {n_stats} "
+                             "statistics moved, or a weight or count moved")
 
 
 def phase_serve(card, cfg, per_forward, prefix=""):
@@ -572,7 +765,7 @@ def phase_serve(card, cfg, per_forward, prefix=""):
     if preds.shape != (n, cfg.MODEL.NUM_CLASSES) or not torch.isfinite(preds).all():
         raise AssertionError(f"bad class scores: shape {tuple(preds.shape)}")
     np.testing.assert_array_equal(meter.clip_count, [num_clips] * num_videos)
-    if cfg.MODEL.MODEL_NAME == "MViT":  # softmax'd scores; UniFormer's are logits
+    if cfg.MODEL.MODEL_NAME in ("MViT", "X3D"):  # softmax'd scores; UniFormer's are logits
         torch.testing.assert_close(preds.sum(dim=1), torch.ones(n), atol=1e-3, rtol=0)
         np.testing.assert_allclose(meter.video_preds.sum(axis=1), num_clips, atol=1e-2)
     if launches != eval_launches(per_forward * len(loader)):
@@ -650,10 +843,12 @@ def phase_train(card, cfg, per_forward, prefix=""):
 
 def _run_net_opts(recipe):
     """Per model: the PMV rect recipe's opts (exps/PMV/run_MViT_PMV.sh run 3,
-    exps/PMV/run_Uniformer_PMV.sh's rect_256_192) and the test protocol: for
-    MViT a test crop equal to the train rect (its rel-pos tables are sized
-    by the crop) and 2 views; for UniFormer the recipe's 4 views x 1 crop at
-    224^2, without pretrained weights and TensorBoard."""
+    the rect_256_192 runs of exps/PMV/run_Uniformer_PMV.sh and
+    exps/PMV/run_X3D_PMV.sh) and the test protocol: for MViT a test crop
+    equal to the train rect (its rel-pos tables are sized by the crop) and 2
+    views; for UniFormer the recipe's 4 views x 1 crop at 224^2, without
+    pretrained weights and TensorBoard; for X3D 2 of the recipe's 10 views
+    at its 256^2 test crop (1 spatial crop, as for the others)."""
     rect = f"[{PMV_RECT[0]},{PMV_RECT[1]}]"
     common = [
         "DATA.TRAIN_JITTER_ASPECT_RELATIVE", "[]",
@@ -663,6 +858,8 @@ def _run_net_opts(recipe):
     ]
     if recipe == "mvit":
         return common + ["DATA.TEST_CROP_SIZE_RECT", rect, "TEST.NUM_ENSEMBLE_VIEWS", "2"]
+    if recipe == "x3d":
+        return common + ["TEST.NUM_ENSEMBLE_VIEWS", "2"]
     return common + [
         "UNIFORMER.PRETRAIN_NAME", "",
         "TENSORBOARD.ENABLE", "False",
@@ -671,9 +868,10 @@ def _run_net_opts(recipe):
     ]
 
 
-RUN_NET = {  # recipe -> (config file, K1 launches per forward)
-    "mvit": (MVIT_CFG, MVIT_K1),
-    "uniformer": (UNIFORMER_CFG, UNIFORMER_K1),
+RUN_NET = {  # recipe -> (config file, K1 launches per forward, clips a train step)
+    "mvit": (MVIT_CFG, MVIT_K1, 16),
+    "uniformer": (UNIFORMER_CFG, UNIFORMER_K1, 16),
+    "x3d": (X3D_CFG, X3D_K1, 8),  # no repeated augmentation in X3D's recipe
 }
 
 
@@ -759,17 +957,19 @@ def _run_net_call(recipe, out_dir, max_epoch):
     """One ``run_net`` call (a main path: launch counts zeroed just before it
     and read just after), measured from its own log: the epoch's seconds
     (its EpochTimer line), the eval's, the checkpoint's write, and the
-    test's (the sum of its test_iter times)."""
+    test's (the sum of its test_iter times); with BN.USE_PRECISE_STATS, its
+    precise-BN line."""
     from pmv_tpu_torch.data.loader import construct_loader
-    from pmv_tpu_torch.ops.depthwise import PMV_TRAIN_BATCH
     from pmv_tpu_torch.tools import run_net
 
     argv = run_net_argv(recipe, out_dir, max_epoch)
     cfg = run_net_cfg(argv)
-    if run_net_train_batch(cfg) != PMV_TRAIN_BATCH:
+    _, per_forward, train_batch = RUN_NET[recipe]
+    if run_net_train_batch(cfg) != train_batch:
         raise AssertionError("phase 2 holds the kernels at a train batch of "
-                             f"{PMV_TRAIN_BATCH}, run_net takes {run_net_train_batch(cfg)}")
+                             f"{train_batch}, run_net takes {run_net_train_batch(cfg)}")
     steps, evals, tests = (construct_loader(cfg, split) for split in ("train", "val", "test"))
+    precise = min(cfg.BN.NUM_BATCHES_PRECISE, len(steps)) if cfg.BN.USE_PRECISE_STATS else 0
     log_path = os.path.join(out_dir, "stdout.log")
     skip = 0
     if os.path.exists(log_path):
@@ -795,24 +995,27 @@ def _run_net_call(recipe, out_dir, max_epoch):
     train_stats = [s for s in stats if s.get("_type") == "train_epoch"][-1]
     if not np.isfinite(train_stats["loss"]):
         raise AssertionError(f"non-finite train loss {train_stats}")
-    per_forward = RUN_NET[recipe][1]
     expected = {
-        "depthwise3x3x3": 2 * per_forward * len(steps) + per_forward * (len(evals) + len(tests)),
+        "depthwise3x3x3": 2 * per_forward * len(steps)
+        + per_forward * (len(evals) + len(tests) + precise),
         "depthwise3x3x3_wgrad": per_forward * len(steps),
     }
     if launches != expected:
         raise AssertionError(f"run_net launched {launches}, not {expected}")
+    if precise and int(_last_match(lines, r"Updated precise BN stats over (\d+) batches")[1]) \
+            != precise:
+        raise AssertionError(f"run_net's precise BN did not run over {precise} batches")
     epoch = max_epoch - 1
     epoch_s = float(_last_match(lines, rf"Epoch {epoch} takes ([\d.]+)s")[1])
     eval_s = float(_last_match(lines, rf"Eval of epoch {epoch} takes ([\d.]+)s")[1])
     saved = _last_match(lines, r"Saved checkpoint to (\S+) in ([\d.]+)s")
     test_s = sum(s["time_diff"] for s in stats if s.get("split") == "test_iter")
-    train_clips = len(steps) * PMV_TRAIN_BATCH
+    train_clips = len(steps) * train_batch
     return {
         "phase": f"run_net_epoch_{max_epoch}", "recipe": recipe, "wall_s": wall,
         "epoch_s": epoch_s, "train_clips": train_clips, "train_steps": len(steps),
         # Over the whole epoch: its first step and the loader's start included.
-        "train_clips_per_s": train_clips / epoch_s,
+        "train_clips_per_s": train_clips / epoch_s, "precise_bn_batches": precise,
         "eval_s": eval_s, "eval_clips_per_s": len(evals.dataset) / eval_s,
         "test_s": test_s, "test_clips_per_s": len(tests.dataset) / test_s,
         "checkpoint": saved[1], "checkpoint_s": float(saved[2]),
@@ -860,8 +1063,12 @@ def kernels_line(records, launches):
     launches, as many again for dx in a train step), the wgrad kernel over
     one train step (17 launches); "rect_ms" and "portrait_ms" the same at
     the PMV rect crop's grids and at their transposes; "uniformer" the same
-    sums over UniFormer-S's 18 DPE launches. ``launches`` sums every
-    path's."""
+    sums over UniFormer-S's 18 DPE launches, "x3d" over X3D-M's 22
+    channelwise convs (kernel_ms the wrapper's, the channel pad included,
+    and pad_ms the pad's alone; bound_ms on the unpadded shapes; for the
+    wgrad kernel also the pad copies of a train step's layers through the
+    autograd Function, step_pad_ms).
+    ``launches`` sums every path's."""
 
     def entry(name, source, replaces, recs, basis):
         def grid(name):
@@ -902,6 +1109,13 @@ def kernels_line(records, launches):
                     "kernel_ms", "kernel_warm_ms", "plain_ms", "bound_ms", "library_ms")}
                 for g in ("square", "rect", "portrait", "square_b16", "rect_b16",
                           "portrait_b16")
+            },
+            "x3d": {
+                g: {key: summed(key, grid("x3d_" + g)) for key in (
+                    "kernel_ms", "kernel_warm_ms", "pad_ms", "plain_ms", "bound_ms",
+                    "library_ms", "step_pad_ms", "step_pad_ms_padded_per_call",
+                ) if key in recs[0]}
+                for g in ("square", "rect", "portrait", "test")
             },
         }
 
@@ -965,9 +1179,15 @@ def main():
     phase_full_model(uni, frames, UNIFORMER_K1, "uniformer_full_model_f32_b1")
     phase_train_step_vs_cpu(uni, UNIFORMER_K1, "uniformer_train_step_f32_b2_card_vs_cpu")
     phase_portrait_steps(uni, UNIFORMER_K1, "uniformer_")
+    x3d = x3d_cfg()
+    phase_full_model(x3d, frames, X3D_K1, "x3d_full_model_f32_b1")
+    phase_train_step_vs_cpu(x3d, X3D_K1, "x3d_train_step_f32_b2_card_vs_cpu")
+    phase_portrait_steps(x3d, X3D_K1, "x3d_")
+    phase_precise_bn(x3d, X3D_K1, "x3d_")
 
     # Phases 4 to 7: the main paths; serving, training, and run_net's train,
-    # checkpoint, eval and test, then its resume; MViTv2-S, then UniFormer-S.
+    # checkpoint, eval and test, then its resume; MViTv2-S, UniFormer-S,
+    # then X3D-M.
     serve_mvit = mvitv2_s_cfg()
     serve_mvit.TEST.NUM_ENSEMBLE_VIEWS = 2
     serve_mvit.TEST.NUM_SPATIAL_CROPS = 3
@@ -980,6 +1200,10 @@ def main():
     out_dir = os.path.join("build", "chip_smoke_run_net_uniformer")
     shutil.rmtree(out_dir, ignore_errors=True)
     paths += phase_run_net(card, "uniformer", out_dir)
+    paths += [phase_serve(card, x3d, X3D_K1, "x3d_"), phase_train(card, x3d, X3D_K1, "x3d_")]
+    out_dir = os.path.join("build", "chip_smoke_run_net_x3d")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    paths += phase_run_net(card, "x3d", out_dir)
     launches = {k: sum(p[k] for p in paths) for k in paths[0]}
 
     line = kernels_line(records, launches)

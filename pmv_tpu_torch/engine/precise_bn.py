@@ -1,0 +1,70 @@
+"""Precise BN: recompute the BatchNorm running statistics over batches of the
+train loader (`MViT/tools/train_net.py:480-501`, fvcore's
+``update_bn_stats``).
+
+Counterpart of `pmv_tpu/engine/precise_bn.py`. The model runs in train mode
+over ``min(BN.NUM_BATCHES_PRECISE, len(loader))`` batches, each through the
+eval preprocessing, every row landscape (the ``pm`` flags are ignored, as
+in the JAX package), under ``torch.no_grad()`` and ``frozen_stats``, so that
+neither the running statistics nor ``num_batches_tracked`` move while it
+runs. Each BatchNorm's batch mean and biased variance (float32) are
+recorded and averaged over the batches with no momentum, and the averages
+become its ``running_mean`` and ``running_var``.
+
+The JAX package recovers each batch statistic from flax's momentum update,
+``(new - 0.9 old) / 0.1``, which equals it up to ten times its float32
+rounding; the port reads the batch statistics themselves.
+
+The head's dropout gets an all-ones keep mask (it follows every BatchNorm,
+so it cannot touch the statistics); drop-connect masks are drawn from a
+generator seeded with 0 (the JAX package's ``PRNGKey(0)``), as train mode
+drops paths there too.
+"""
+
+from itertools import islice
+
+import torch
+
+from pmv_tpu_torch.engine import steps
+from pmv_tpu_torch.models.batchnorm import frozen_stats, recorded_stats
+from pmv_tpu_torch.utils import logging as pmv_logging
+from pmv_tpu_torch.utils.device import resolve_device
+
+logger = pmv_logging.get_logger(__name__)
+
+
+@torch.no_grad()
+def calculate_and_update_precise_bn(loader, state, cfg, device=None):
+    """Replace the running statistics of ``state.model``'s BatchNorms by
+    their precise averages over ``loader``'s batches (any sized iterable of
+    batches with uint8 "frames"); returns ``state``, updated in place. Does
+    nothing when the model has no BatchNorm."""
+    model = state.model
+    device = resolve_device(device)
+    num_batches = min(cfg.BN.NUM_BATCHES_PRECISE, len(loader))
+    with recorded_stats(model) as norms:
+        if num_batches <= 0 or not norms:
+            return state
+        preprocess = steps.make_eval_preprocess_fn(cfg, device)
+        generator = torch.Generator(device).manual_seed(0)
+        was_training = model.training
+        model.train()
+        count = 0
+        with frozen_stats(model):
+            for batch in islice(loader, num_batches):
+                frames = torch.as_tensor(batch["frames"]).to(device, non_blocking=True)
+                x = steps.pack_pathways(cfg, preprocess(frames))[0]
+                b = x.shape[0]
+                keep = model.sample_head_dropout_mask(b, generator, device)
+                model(x, drop_path_masks=model.sample_drop_path_masks(b, generator, device),
+                      head_dropout_mask=None if keep is None else torch.ones_like(keep))
+                count += 1
+        model.train(was_training)
+        if count == 0:
+            return state
+        for m in (m for m in norms if m.recorded):
+            means, variances = zip(*m.recorded)
+            m.running_mean.copy_(torch.stack(means).mean(dim=0))
+            m.running_var.copy_(torch.stack(variances).mean(dim=0))
+    logger.info("Updated precise BN stats over %d batches", count)
+    return state

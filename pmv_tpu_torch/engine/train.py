@@ -15,16 +15,19 @@ Counterpart of `pmv_tpu/engine/train.py`.
   poisoned weights is written.
 - ``eval_epoch``: the validation loop into a ValMeter.
 - ``train``: seeds, model, optimizer, auto-resume, loaders, meters, then
-  per epoch {set_epoch, train_epoch, checkpoint, eval_epoch}, then the
-  result string.
+  per epoch {set_epoch, train_epoch, precise BN, checkpoint, eval_epoch},
+  then the result string.
 
-It trains MViT and UniFormer; the BatchNorm running statistics of a model
-that has them move in its train step and are saved with its checkpoints.
+It trains MViT, UniFormer and X3D; the BatchNorm running statistics of a
+model that has them move in its train step and are saved with its
+checkpoints. With BN.USE_PRECISE_STATS they are recomputed after every
+epoch's training, before the checkpoint and the eval, as the JAX package
+does (`train.py:352-366`; ``engine/precise_bn.py``).
 MODEL.USE_CHECKPOINT and MODEL.CHECKPOINT_NUM (UniFormer's activation
 checkpointing) are read nowhere in the JAX package, and are ignored here.
 
 Not ported, each raising NotImplementedError where the config asks for it:
-multigrid, precise BN statistics (BN.USE_PRECISE_STATS), TensorBoard,
+multigrid, TensorBoard,
 detection and AVA, audio, the UniFormer pretrain registry
 (UNIFORMER.PRETRAIN_NAME: no pretrained weights are in the repository) and
 the profiler window.
@@ -39,6 +42,7 @@ import torch
 
 from pmv_tpu_torch.data import loader as loader_mod
 from pmv_tpu_torch.engine import steps
+from pmv_tpu_torch.engine.precise_bn import calculate_and_update_precise_bn
 from pmv_tpu_torch.engine.prefetch import DevicePrefetcher
 from pmv_tpu_torch.models import build_model
 from pmv_tpu_torch.utils import checkpoint as cu
@@ -130,7 +134,6 @@ def refuse_unported(cfg):
     unported = {
         "MULTIGRID.LONG_CYCLE / SHORT_CYCLE (multigrid)":
             cfg.MULTIGRID.LONG_CYCLE or cfg.MULTIGRID.SHORT_CYCLE,
-        "BN.USE_PRECISE_STATS (precise BN)": cfg.BN.USE_PRECISE_STATS,
         "TENSORBOARD.ENABLE": cfg.TENSORBOARD.ENABLE,
         "DETECTION.ENABLE (detection and AVA)": cfg.DETECTION.ENABLE,
         "audio (MODEL.ARCH avslowfast)": cfg.MODEL.ARCH == "avslowfast",
@@ -190,6 +193,8 @@ def train(cfg, device=None):
             cur_epoch, epoch_timer.last_epoch_time(), start_epoch, cur_epoch,
             epoch_timer.avg_epoch_time(), epoch_timer.median_epoch_time(),
         )
+        if cfg.BN.USE_PRECISE_STATS:
+            calculate_and_update_precise_bn(train_loader, state, cfg, device)
         if cu.is_checkpoint_epoch(cfg, cur_epoch):
             cu.save_checkpoint(cfg.OUTPUT_DIR, state, cur_epoch, cfg)
         if misc.is_eval_epoch(cfg, cur_epoch):

@@ -6,8 +6,9 @@ the pools (the JAX package's transpose-free layout), so every grid fold is
 a reshape; the attention core is two ``torch.matmul``s around a broadcast add
 of the decomposed rel-pos bias and a softmax.
 
-Stride-1 3x3x3 conv pools go to ``ops.depthwise3x3x3`` (the hand-written
-CUDA kernel on the card); strided conv pools stay a grouped ``F.conv3d``, as
+Conv pools go through ``common.channels_last_conv3d``: the stride-1 3x3x3
+ones to ``ops.depthwise3x3x3`` (the hand-written CUDA kernel on the card),
+the strided ones to a grouped ``F.conv3d`` on a contiguous NCDHW copy, as
 the JAX package leaves them to XLA.
 
 Not ported, because they are exact TPU layout rewrites of the same math:
@@ -21,7 +22,6 @@ import functools
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from pmv_tpu_torch.models.common import (
@@ -31,9 +31,9 @@ from pmv_tpu_torch.models.common import (
     Linear,
     Mlp,
     avg_pool_3d,
+    channels_last_conv3d,
     max_pool_3d,
 )
-from pmv_tpu_torch.ops.depthwise import depthwise3x3x3
 
 
 @functools.lru_cache(maxsize=None)
@@ -158,18 +158,8 @@ class AttentionPool(nn.Module):
         grid = x.reshape(b, *thw_shape, heads * c)
         padding = [k // 2 for k in self.kernel]
         if self.mode == "conv":
-            w = self.weight.to(x.dtype)
-            if self.kernel == (3, 3, 3) and self.stride == (1, 1, 1):
-                w_cl = w.reshape(c, 27).t().reshape(3, 3, 3, c).repeat(1, 1, 1, heads)
-                grid = depthwise3x3x3(grid.contiguous(), w_cl.contiguous())
-            else:
-                # cuDNN runs this channels-last view as one kernel per
-                # channel (PERF.md, tools/pool_conv_variants.py); its layout
-                # is the port's first performance item (ROADMAP.md).
-                grid = F.conv3d(
-                    grid.permute(0, 4, 1, 2, 3), w.repeat(heads, 1, 1, 1, 1),
-                    stride=self.stride, padding=padding, groups=heads * c,
-                ).permute(0, 2, 3, 4, 1)
+            grid = channels_last_conv3d(grid, self.weight.repeat(heads, 1, 1, 1, 1), None,
+                                        self.stride, padding, groups=heads * c)
         elif self.mode == "max":
             grid = max_pool_3d(grid, self.kernel, self.stride, padding)
         else:

@@ -4,7 +4,8 @@ The counterpart of the JAX package's ``nn.BatchNorm(momentum=0.9,
 epsilon=1e-5)`` (`pmv_tpu/models/uniformer.py:22-26, 382-385`):
 
 - the channels are the last axis; the statistics run over every other axis,
-  in float32, and the output comes back in the input's dtype;
+  in float32 (float64 for a float64 input), and the output comes back in
+  the input's dtype;
 - train mode normalizes with the batch's mean and **biased** variance, and
   moves the running statistics by ``running = 0.9 * running + 0.1 * batch``
   with that same biased variance; eval mode normalizes with the running
@@ -17,7 +18,10 @@ so that the reference's checkpoints load by name.
 
 ``frozen_stats(model)`` holds every BatchNorm's running statistics still in
 train mode (batch statistics still normalize): MODEL.FROZEN_BN, and the
-transposed pass of a portrait train step.
+transposed pass of a portrait train step. ``recorded_stats(model)`` keeps
+every train-mode batch mean and variance each BatchNorm computes (precise
+BN, ``engine/precise_bn.py``). ``get_norm(cfg)`` picks the norm by
+BN.NORM_TYPE, as `pmv_tpu/models/batchnorm.py:102` does.
 """
 
 import contextlib
@@ -32,6 +36,7 @@ class BatchNorm(nn.Module):
         self.momentum = momentum
         self.eps = eps
         self.update_stats = True
+        self.recorded = None  # a list while recorded_stats() is on
         self.weight = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
         self.register_buffer("running_mean", torch.zeros(dim))
@@ -39,9 +44,11 @@ class BatchNorm(nn.Module):
         self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.long))
 
     def forward(self, x):
-        xf = x.float()
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
         if self.training:
             var, mean = torch.var_mean(xf, dim=tuple(range(x.dim() - 1)), correction=0)
+            if self.recorded is not None:
+                self.recorded.append((mean.detach(), var.detach()))
             if self.update_stats:
                 with torch.no_grad():
                     for running, batch in ((self.running_mean, mean), (self.running_var, var)):
@@ -70,3 +77,30 @@ def frozen_stats(model, frozen=True):
     finally:
         for m, update in zip(norms, before):
             m.update_stats = update
+
+
+@contextlib.contextmanager
+def recorded_stats(model):
+    """Within the block, each train-mode forward of a BatchNorm of ``model``
+    appends its batch (mean, biased variance), float32, to that module's
+    ``recorded`` list. Yields the BatchNorms, in module order."""
+    norms = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    for m in norms:
+        m.recorded = []
+    try:
+        yield norms
+    finally:
+        for m in norms:
+            m.recorded = None
+
+
+def get_norm(cfg):
+    """The norm constructor (``dim -> module``) of cfg.BN.NORM_TYPE.
+    "sync_batchnorm" is plain BatchNorm in one process, as in the JAX
+    package (`batchnorm.py:107-112`); "sub_batchnorm" is not ported."""
+    norm_type = cfg.BN.NORM_TYPE
+    if norm_type in ("batchnorm", "sync_batchnorm"):
+        return BatchNorm
+    if norm_type == "sub_batchnorm":
+        raise NotImplementedError("BN.NORM_TYPE sub_batchnorm is not ported")
+    raise NotImplementedError(f"Norm type {norm_type} is not supported")

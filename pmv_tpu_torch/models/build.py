@@ -25,10 +25,16 @@ def build_model(cfg, device=None, dtype=None, seed=0):
     """The model named by cfg.MODEL.MODEL_NAME, initialised from ``seed``
     and placed on ``device`` (CUDA by default; raises without a CUDA device
     unless ``device="cpu"``). ``dtype`` is the activation dtype, by default
-    ``compute_dtype(cfg)``; parameters are float32."""
+    ``compute_dtype(cfg)``; parameters are float32. The weights are drawn
+    by the model's own ``init_weights(generator)`` where it has one (X3D's
+    flax defaults), else by ``common.init_weights``."""
     device = resolve_device(device)
     if dtype is None:
         dtype = compute_dtype(cfg)
     model = MODEL_REGISTRY.get(cfg.MODEL.MODEL_NAME)(cfg, dtype=dtype)
-    init_weights(model, torch.Generator().manual_seed(seed))
+    generator = torch.Generator().manual_seed(seed)
+    if hasattr(model, "init_weights"):
+        model.init_weights(generator)
+    else:
+        init_weights(model, generator)
     return model.to(device)

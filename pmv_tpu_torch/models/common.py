@@ -11,6 +11,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from pmv_tpu_torch.models.batchnorm import BatchNorm
+from pmv_tpu_torch.ops.depthwise import depthwise3x3x3
 
 
 class Linear(nn.Linear):
@@ -19,6 +20,67 @@ class Linear(nn.Linear):
     def forward(self, x):
         bias = None if self.bias is None else self.bias.to(x.dtype)
         return F.linear(x, self.weight.to(x.dtype), bias)
+
+
+class PointwiseConv(nn.Conv3d):
+    """A 1x1x1 Conv3d computed as a linear over the last (channel) axis; at
+    a spatial stride s it takes every s-th row and column first (the
+    positions a 1x1x1 conv of stride (1, s, s) reads)."""
+
+    def __init__(self, dim_in, dim_out, bias=True, stride=1):
+        super().__init__(dim_in, dim_out, 1, stride=(1, stride, stride), bias=bias)
+
+    def forward(self, x):
+        s = self.stride[1]
+        if s > 1:
+            x = x[:, :, ::s, ::s]
+        w = self.weight.reshape(self.out_channels, self.in_channels)
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, w.to(x.dtype), bias)
+
+
+def on_k1(c, w, stride, padding, dilation=(1, 1, 1), groups=1):
+    """Whether a conv of weights ``w`` on ``c`` channels is the stride-1 SAME
+    3x3x3 depthwise conv that K1 computes."""
+    return (groups == c == w.shape[0] and tuple(w.shape[2:]) == (3, 3, 3)
+            and tuple(stride) == (1, 1, 1) and tuple(padding) == (1, 1, 1)
+            and tuple(dilation) == (1, 1, 1))
+
+
+def channels_last_conv3d(x, w, bias=None, stride=(1, 1, 1), padding=(0, 0, 0),
+                         dilation=(1, 1, 1), groups=1):
+    """A conv3d on [B, T, H, W, C] tensors, weights [O, I / groups, kt, kh,
+    kw] as the reference keeps them, computed in x.dtype. The stride-1 SAME
+    3x3x3 depthwise conv (``on_k1``) goes through ``ops.depthwise3x3x3``
+    (the kernel K1 on the card; its backward dx through K1, dw through the
+    wgrad kernel), then the bias; every other conv through ``F.conv3d``: a
+    grouped one on a contiguous NCDHW copy, a dense one on the channels-last
+    grid viewed as NCDHW, whichever layout the card ran faster (PERF.md,
+    ``tools/pool_conv_variants.py [--uniformer | --x3d]``: on the view cuDNN
+    runs a grouped conv one channel at a time)."""
+    w = w.to(x.dtype)
+    bias = None if bias is None else bias.to(x.dtype)
+    c = x.shape[-1]
+    if on_k1(c, w, stride, padding, dilation, groups):
+        y = depthwise3x3x3(x.contiguous(), w.reshape(c, 27).t().reshape(3, 3, 3, c).contiguous())
+        return y if bias is None else y + bias
+    x = x.permute(0, 4, 1, 2, 3)
+    if groups > 1:
+        x = x.contiguous()
+    return F.conv3d(x, w, bias, stride, padding, dilation, groups).permute(0, 2, 3, 4, 1)
+
+
+class ChannelsLastConv3d(nn.Conv3d):
+    """nn.Conv3d's parameters on [B, T, H, W, C] tensors, computed by
+    ``channels_last_conv3d``."""
+
+    def on_k1(self):
+        return on_k1(self.in_channels, self.weight, self.stride, self.padding, self.dilation,
+                     self.groups)
+
+    def forward(self, x):
+        return channels_last_conv3d(x, self.weight, self.bias, self.stride, self.padding,
+                                    self.dilation, self.groups)
 
 
 class LayerNorm(nn.LayerNorm):
@@ -155,4 +217,32 @@ def init_weights(model, generator):
             cpu = torch.empty(p.shape, dtype=torch.float32)
             nn.init.trunc_normal_(cpu, std=0.02, a=-0.04, b=0.04,
                                   generator=generator)
+            p.copy_(cpu)
+
+
+@torch.no_grad()
+def init_flax_defaults(model, generator, normal_std=None):
+    """flax's default initializers, for a model that the JAX package builds
+    with them (X3D): conv and linear weights lecun-normal (a normal of
+    variance 1 / fan_in truncated at +-2 std, std rescaled by 1 / 0.8796 as
+    flax's ``variance_scaling`` does; fan_in = weight[0].numel()); biases
+    zero; norms one and zero; the linear modules in ``normal_std`` (a
+    {module: std} map) from an untruncated normal of that std instead. Draws
+    on the CPU from ``generator``."""
+    normal_std = normal_std or {}
+    for name, p in model.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        module = model.get_submodule(name.rsplit(".", 1)[0]) if "." in name else model
+        if isinstance(module, (nn.LayerNorm, BatchNorm)):
+            p.fill_(1.0 if leaf == "weight" else 0.0)
+        elif leaf == "bias":
+            p.zero_()
+        else:
+            cpu = torch.empty(p.shape, dtype=torch.float32)
+            if module in normal_std:
+                nn.init.normal_(cpu, std=normal_std[module], generator=generator)
+            else:
+                std = (1.0 / p[0].numel()) ** 0.5 / 0.87962566103423978
+                nn.init.trunc_normal_(cpu, std=std, a=-2 * std, b=2 * std,
+                                      generator=generator)
             p.copy_(cpu)

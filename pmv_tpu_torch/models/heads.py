@@ -1,8 +1,10 @@
 """Classification heads (`MViT/slowfast/models/head_helper.py`)."""
 
+import torch.nn.functional as F
 from torch import nn
 
-from pmv_tpu_torch.models.common import Dropout, Linear
+from pmv_tpu_torch.models.batchnorm import BatchNorm
+from pmv_tpu_torch.models.common import Dropout, Linear, PointwiseConv
 
 
 def head_act(x, act_func):
@@ -36,6 +38,37 @@ class TransformerBasicHead(nn.Module):
         if self.detach_final_fc:
             x = x.detach()
         x = self.projection(x)
+        if not self.training:
+            x = head_act(x, self.act_func)
+        return x
+
+
+class X3DHead(nn.Module):
+    """X3D's head (`pmv_tpu/models/heads.py:136`): 1x1x1 ``conv_5`` to
+    ``dim_inner``, BatchNorm, ReLU, the mean over T, H and W, 1x1x1 ``lin_5``
+    to ``dim_out`` (then BatchNorm with ``bn_lin5_on``), ReLU, dropout, the
+    ``projection`` linear; the activation at eval only. In training the
+    dropout applies ``dropout_mask`` [B, dim_out], drawn with
+    ``self.dropout.sample``."""
+
+    def __init__(self, dim_in, dim_inner, dim_out, num_classes, dropout_rate=0.5,
+                 act_func="softmax", bn_lin5_on=False):
+        super().__init__()
+        self.dim_out = dim_out
+        self.conv_5 = PointwiseConv(dim_in, dim_inner, bias=False)
+        self.conv_5_bn = BatchNorm(dim_inner)
+        self.lin_5 = PointwiseConv(dim_inner, dim_out, bias=False)
+        self.lin_5_bn = BatchNorm(dim_out) if bn_lin5_on else None
+        self.dropout = Dropout(dropout_rate)
+        self.projection = Linear(dim_out, num_classes)
+        self.act_func = act_func
+
+    def forward(self, x, dropout_mask=None):
+        x = F.relu(self.conv_5_bn(self.conv_5(x)))
+        x = self.lin_5(x.mean(dim=(1, 2, 3)))
+        if self.lin_5_bn is not None:
+            x = self.lin_5_bn(x)
+        x = self.projection(self.dropout(F.relu(x), dropout_mask))
         if not self.training:
             x = head_act(x, self.act_func)
         return x

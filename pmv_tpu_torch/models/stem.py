@@ -1,11 +1,16 @@
-"""Patch-embed stem (`MViT/slowfast/models/stem_helper.py` PatchEmbed).
+"""Stems (`MViT/slowfast/models/stem_helper.py`): MViT's ``PatchEmbed``
+and X3D's ``X3DStem``.
 
-A plain strided conv. The JAX package's TPU.FOLD_STEM layout rewrite
-(`pmv_tpu/models/stem.py:165-181`) is not ported: it computes the same conv.
+Plain convs. The JAX package's TPU.FOLD_STEM layout rewrite
+(`pmv_tpu/models/stem.py:165-181`, ``use_fold`` of ``X3DStem``) is not
+ported: it computes the same conv.
 """
 
 import torch.nn.functional as F
 from torch import nn
+
+from pmv_tpu_torch.models.batchnorm import BatchNorm
+from pmv_tpu_torch.models.common import ChannelsLastConv3d
 
 
 class PatchEmbed(nn.Module):
@@ -13,7 +18,7 @@ class PatchEmbed(nn.Module):
 
     def __init__(self, dim_in, dim_out, kernel, stride, padding, conv_2d=False):
         super().__init__()
-        conv = nn.Conv2d if conv_2d else nn.Conv3d
+        conv = nn.Conv2d if conv_2d else ChannelsLastConv3d
         if conv_2d:
             kernel, stride, padding = kernel[-2:], stride[-2:], padding[-2:]
         self.conv_2d = conv_2d
@@ -21,16 +26,34 @@ class PatchEmbed(nn.Module):
                          tuple(padding))
 
     def forward(self, x):
-        w = self.proj.weight.to(x.dtype)
-        b = self.proj.bias.to(x.dtype)
         p = self.proj
         if self.conv_2d:
             # Per-frame 2-D conv: fold T into the batch.
             bsz, t = x.shape[:2]
-            y = F.conv2d(x.flatten(0, 1).permute(0, 3, 1, 2), w, b,
-                         p.stride, p.padding)
-            y = y.reshape(bsz, t, *y.shape[1:]).transpose(1, 2)
+            y = F.conv2d(x.flatten(0, 1).permute(0, 3, 1, 2), p.weight.to(x.dtype),
+                         p.bias.to(x.dtype), p.stride, p.padding)
+            y = y.reshape(bsz, t, *y.shape[1:]).permute(0, 1, 3, 4, 2)
         else:
-            y = F.conv3d(x.permute(0, 4, 1, 2, 3), w, b, p.stride, p.padding)
-        thw = tuple(y.shape[2:])
-        return y.flatten(2).transpose(1, 2), thw
+            y = p(x)
+        return y.flatten(1, 3), tuple(y.shape[1:4])
+
+
+class X3DStem(nn.Module):
+    """Channel-separated stem (`pmv_tpu/models/stem.py:361`): a 1 x kh x kw
+    spatial conv ``conv_xy``, then a kt x 1 x 1 depthwise temporal conv
+    ``conv``, BatchNorm ``bn`` and ReLU; on [B, T, H, W, C] tensors."""
+
+    def __init__(self, dim_in, dim_out, kernel, stride, padding):
+        super().__init__()
+        self.conv_xy = ChannelsLastConv3d(
+            dim_in, dim_out, (1, kernel[1], kernel[2]), (1, stride[1], stride[2]),
+            (0, padding[1], padding[2]), bias=False,
+        )
+        self.conv = ChannelsLastConv3d(
+            dim_out, dim_out, (kernel[0], 1, 1), (stride[0], 1, 1), (padding[0], 0, 0),
+            groups=dim_out, bias=False,
+        )
+        self.bn = BatchNorm(dim_out)
+
+    def forward(self, x):
+        return F.relu(self.bn(self.conv(self.conv_xy(x))))

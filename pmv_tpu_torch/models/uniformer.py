@@ -13,10 +13,12 @@ Counterpart of `pmv_tpu/models/uniformer.py`, on channels-last
   its bias: ``ops.depthwise3x3x3``, the hand-written kernel K1 on the card
   (its backward: dx through K1, dw through the wgrad kernel).
 - 1x1x1 convs keep Conv3d weights [O, I, 1, 1, 1] and compute as a linear
-  over the channel axis. The 5x5x5 depthwise conv has no kernel behind it in
-  the JAX package; it is a grouped ``F.conv3d`` on a contiguous NCDHW copy,
-  which cuDNN runs faster than the channels-last view (PERF.md,
-  ``tools/pool_conv_variants.py --uniformer``).
+  over the channel axis (``common.PointwiseConv``). The 5x5x5 depthwise conv
+  has no kernel behind it in the JAX package; it is a grouped ``F.conv3d``
+  on a contiguous NCDHW copy, which PyTorch runs with its own
+  ``conv_depthwise3d_cuda_*`` kernels (not cuDNN) 6.3x faster than on the
+  channels-last view (PERF.md, ``tools/pool_conv_variants.py
+  --uniformer``).
 - The attention is a plain qkv linear, matmul and softmax; the JAX package's
   ATTN_IMPL "per_head" is a TPU layout over the same parameters.
 - The model has no rel-pos tables, so the portrait specialization is the
@@ -36,45 +38,15 @@ from torch import nn
 
 from pmv_tpu_torch.models.batchnorm import BatchNorm
 from pmv_tpu_torch.models.build import MODEL_REGISTRY
-from pmv_tpu_torch.models.common import DropPath, LayerNorm, Linear, Mlp
+from pmv_tpu_torch.models.common import (
+    ChannelsLastConv3d,
+    DropPath,
+    LayerNorm,
+    Linear,
+    Mlp,
+    PointwiseConv,
+)
 from pmv_tpu_torch.models.mvit import geometry
-from pmv_tpu_torch.ops.depthwise import depthwise3x3x3
-
-
-class PointwiseConv(nn.Conv3d):
-    """A 1x1x1 Conv3d computed as a linear over the last (channel) axis."""
-
-    def __init__(self, dim_in, dim_out):
-        super().__init__(dim_in, dim_out, 1)
-
-    def forward(self, x):
-        w = self.weight.reshape(self.out_channels, self.in_channels)
-        return F.linear(x, w.to(x.dtype), self.bias.to(x.dtype))
-
-
-class DepthwiseConv3x3x3(nn.Conv3d):
-    """The DPE: a stride-1 SAME 3x3x3 depthwise Conv3d through
-    ``ops.depthwise3x3x3``, then the bias."""
-
-    def __init__(self, dim):
-        super().__init__(dim, dim, 3, padding=1, groups=dim)
-
-    def forward(self, x):
-        c = self.out_channels
-        w = self.weight.to(x.dtype).reshape(c, 27).t().reshape(3, 3, 3, c)
-        return depthwise3x3x3(x.contiguous(), w.contiguous()) + self.bias.to(x.dtype)
-
-
-class DepthwiseConv5x5x5(nn.Conv3d):
-    """The CBlock's 5x5x5 depthwise Conv3d, on a contiguous NCDHW copy."""
-
-    def __init__(self, dim):
-        super().__init__(dim, dim, 5, padding=2, groups=dim)
-
-    def forward(self, x):
-        y = F.conv3d(x.permute(0, 4, 1, 2, 3).contiguous(), self.weight.to(x.dtype),
-                     self.bias.to(x.dtype), padding=2, groups=self.groups)
-        return y.permute(0, 2, 3, 4, 1)
 
 
 class CMlp(nn.Module):
@@ -115,7 +87,7 @@ class _Block(nn.Module):
 
     def __init__(self, dim, drop_path, mask_rows):
         super().__init__()
-        self.pos_embed = DepthwiseConv3x3x3(dim)
+        self.pos_embed = ChannelsLastConv3d(dim, dim, 3, padding=1, groups=dim)
         self.drop_path_rate = drop_path
         self.mask_rows = mask_rows
 
@@ -135,7 +107,7 @@ class CBlock(_Block):
         super().__init__(dim, drop_path, (1, 1))
         self.norm1 = BatchNorm(dim)
         self.conv1 = PointwiseConv(dim, dim)
-        self.attn = DepthwiseConv5x5x5(dim)
+        self.attn = ChannelsLastConv3d(dim, dim, 5, padding=2, groups=dim)
         self.conv2 = PointwiseConv(dim, dim)
         self.drop_path1 = DropPath(drop_path)
         self.norm2 = BatchNorm(dim)
@@ -216,7 +188,7 @@ class UniPatchEmbed(nn.Module):
             kernel, stride, pad = (3, n, n), (1, n, n), (1, 0, 0)
         else:
             kernel, stride, pad = (1, n, n), (1, n, n), (0, 0, 0)
-        self.proj = nn.Conv3d(dim_in, dim_out, kernel, stride, pad)
+        self.proj = ChannelsLastConv3d(dim_in, dim_out, kernel, stride, pad)
         self.norm = LayerNorm(dim_out)
 
     def out_grid(self, thw):
@@ -225,10 +197,7 @@ class UniPatchEmbed(nn.Module):
                      for s, k, st, pd in zip(thw, p.kernel_size, p.stride, p.padding))
 
     def forward(self, x):
-        p = self.proj
-        y = F.conv3d(x.permute(0, 4, 1, 2, 3), p.weight.to(x.dtype), p.bias.to(x.dtype),
-                     p.stride, p.padding)
-        return self.norm(y.permute(0, 2, 3, 4, 1))
+        return self.norm(self.proj(x))
 
 
 class Uniformer(nn.Module):

@@ -3,7 +3,8 @@ gradient.
 
 The port's counterpart of ``pmv_tpu/ops/depthwise_pallas.py``. MViT sends
 its stride-1 3x3x3 pooling convs here (``models/attention.py``), UniFormer
-its DPE convs (``models/uniformer.py``).
+its DPE convs (``models/uniformer.py``), X3D its stride-1 channelwise
+convs (``models/resnet_helper.py``).
 
 - ``depthwise3x3x3(x, w)``: differentiable, a ``torch.autograd.Function``
   as the JAX package's ``custom_vjp``. The forward is the kernel K1,
@@ -13,6 +14,12 @@ its DPE convs (``models/uniformer.py``).
   dw with the kernel ``csrc/depthwise3x3x3_wgrad.cu`` (``_bwd``'s 27
   shifted reductions), accumulated in float32 and cast to ``w.dtype``.
 - ``depthwise3x3x3_wgrad(x, g)``: the weight-gradient kernel's wrapper.
+- Any C, as the TPU kernel takes any C (it pads the channels to a multiple
+  of 128, `depthwise_pallas.py:85-96`): the kernels stage 16-byte units of
+  channels, so on the card a C that is not a multiple of 8 is padded with
+  zeros to the next one, and the output (or dw) sliced back
+  (``channel_padded``; the autograd Function pads x, w and the cotangent
+  once a layer). X3D-M's C = 54 and 108 take this path.
 - ``depthwise3x3x3_plain`` and ``depthwise3x3x3_wgrad_plain``: pad, then 27
   shifted products in float32. The CPU path, and the references the
   kernels are held against.
@@ -21,12 +28,14 @@ its DPE convs (``models/uniformer.py``).
   tests can check them.
 - ``MVIT_POOL_SHAPES``, ``MVIT_RECT_POOL_SHAPES``,
   ``MVIT_PORTRAIT_POOL_SHAPES``, ``MVIT_RECT_TRAIN_POOL_SHAPES``, the
-  ``UNIFORMER_*_DPE_SHAPES`` and ``ODD_SHAPES``: the shapes the main paths
-  give the kernels (MViT's pools and UniFormer's DPE convs at the 224^2
-  crop, the PMV rect crop and its transposes at batch 8, and at the PMV
-  train step's batch of 16), and the odd ones their tiling must take
-  besides; the tests, ``chip_smoke.py`` and ``tools/plan_sweep.py`` take
-  them from here.
+  ``UNIFORMER_*_DPE_SHAPES``, the ``X3D_*_DW_SHAPES``, ``ODD_SHAPES`` and
+  ``PADDED_ODD_SHAPES``: the shapes the main paths give the kernels
+  (MViT's pools, UniFormer's DPE convs and X3D-M's stride-1 channelwise
+  convs at the 224^2 crop, the PMV rect crop and its transposes at batch 8,
+  at the PMV train step's batch of 16, and X3D-M's test crop of 256^2), and
+  the odd ones their tiling and the channel pad must take besides; the
+  tests, ``chip_smoke.py`` and ``tools/plan_sweep.py`` take them from
+  here.
 
 A CUDA tensor launches the kernels; a CPU tensor takes the plain versions.
 Nothing else falls back: a CUDA input the kernels do not take, a failed
@@ -121,6 +130,33 @@ UNIFORMER_TRAIN_DPE_SHAPES = tuple(
     ((PMV_TRAIN_BATCH, *s[1:]), n)
     for s, n in UNIFORMER_DPE_SHAPES + UNIFORMER_RECT_DPE_SHAPES + UNIFORMER_PORTRAIT_DPE_SHAPES
 )
+# X3D-M's stride-1 channelwise Tx3x3 convs (configs/Kinetics/X3D_M.yaml:
+# inner widths 54, 108, 216 and 432; blocks [3, 5, 11, 7], the first of each
+# stage strided), at batch 8: the 224^2 train crop's grids, the PMV rect
+# crop's (exps/PMV/run_X3D_PMV.sh, rect_256_192; run_net trains X3D at 8
+# clips a step) and their transposes, and the recipe's 256^2 test crop. C =
+# 54 and 108 are padded to 56 and 112 on the card.
+X3D_DW_SHAPES = (
+    ((8, 16, 56, 56, 54), 2),
+    ((8, 16, 28, 28, 108), 4),
+    ((8, 16, 14, 14, 216), 10),
+    ((8, 16, 7, 7, 432), 6),
+)
+X3D_RECT_DW_SHAPES = (
+    ((8, 16, 64, 48, 54), 2),
+    ((8, 16, 32, 24, 108), 4),
+    ((8, 16, 16, 12, 216), 10),
+    ((8, 16, 8, 6, 432), 6),
+)
+X3D_PORTRAIT_DW_SHAPES = tuple(
+    ((b, t, w, h, c), n) for (b, t, h, w, c), n in X3D_RECT_DW_SHAPES
+)
+X3D_TEST_DW_SHAPES = (
+    ((8, 16, 64, 64, 54), 2),
+    ((8, 16, 32, 32, 108), 4),
+    ((8, 16, 16, 16, 216), 10),
+    ((8, 16, 8, 8, 432), 6),
+)
 # Shapes the tiling must take besides: C of 8, 24 and 40 (not multiples of
 # a chunk), H and W of 1, 2, 7 and 13, portrait grids, T of 1 to 3, B of 1.
 ODD_SHAPES = (
@@ -131,6 +167,14 @@ ODD_SHAPES = (
     (2, 2, 13, 1, 40),
     (1, 1, 7, 13, 8),
 )
+# Shapes whose C the wrappers pad on the card (12 and 54: X3D's smallest
+# widths), off X3D's grids.
+PADDED_ODD_SHAPES = (
+    (1, 2, 5, 7, 12),
+    (2, 3, 13, 6, 54),
+    (1, 1, 2, 9, 54),
+)
+CHANNEL_MULTIPLE = 8  # the kernels' C: whole 16-byte units in both dtypes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -274,12 +318,18 @@ def plan_wgrad(shape, elem_size):
     return _plan(tuple(shape), elem_size, wgrad=True)
 
 
+def _accumulation_dtype(x):
+    """float32, or float64 for a float64 input."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
 def depthwise3x3x3_plain(x, w):
     """x [B, T, H, W, C], w [3, 3, 3, C] -> [B, T, H, W, C] in x.dtype."""
     _, t, h, wd, _ = x.shape
-    xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1, 1, 1))
-    wf = w.float()
-    acc = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    acc_dtype = _accumulation_dtype(x)
+    xp = F.pad(x.to(acc_dtype), (0, 0, 1, 1, 1, 1, 1, 1))
+    wf = w.to(acc_dtype)
+    acc = torch.zeros(x.shape, dtype=acc_dtype, device=x.device)
     for dt in range(3):
         for dh in range(3):
             for dw in range(3):
@@ -290,10 +340,11 @@ def depthwise3x3x3_plain(x, w):
 def depthwise3x3x3_wgrad_plain(x, g):
     """x, g [B, T, H, W, C] -> dw [3, 3, 3, C] in x.dtype:
     dw[dt, dh, dw, c] = sum over (b, t, h, w) of xpad[.., t+dt, h+dh, w+dw, c]
-    * g[b, t, h, w, c], in float32."""
+    * g[b, t, h, w, c], in float32 (float64 for float64 inputs)."""
     _, t, h, wd, c = x.shape
-    xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1, 1, 1))
-    gf = g.float()
+    acc_dtype = _accumulation_dtype(x)
+    xp = F.pad(x.to(acc_dtype), (0, 0, 1, 1, 1, 1, 1, 1))
+    gf = g.to(acc_dtype)
     taps = [
         (xp[:, dt:dt + t, dh:dh + h, dw:dw + wd] * gf).sum(dim=(0, 1, 2, 3))
         for dt in range(3) for dh in range(3) for dw in range(3)
@@ -325,8 +376,6 @@ def _check(op, x, other, other_shape):
             f"{op} takes float32 or bfloat16 inputs of one type, got "
             f"{x.dtype} and {other.dtype}"
         )
-    if x.shape[-1] % 8:
-        raise ValueError(f"C must be a multiple of 8, got {x.shape[-1]}")
     if other.device != x.device:
         raise ValueError(f"inputs on {x.device} and {other.device}")
     for t in (x, other):
@@ -339,13 +388,57 @@ def _raise_on(err, op):
         raise RuntimeError(f"{op} kernel launch failed: cudaError {err}")
 
 
-def _forward(x, w):
-    """K1: one launch on CUDA, the plain version on the CPU."""
+def pad_channels(t):
+    """``t`` with its last axis padded with zeros to the next multiple of
+    ``CHANNEL_MULTIPLE``; ``t`` itself where it is one already."""
+    pad = -t.shape[-1] % CHANNEL_MULTIPLE
+    return F.pad(t, (0, pad)) if pad else t
+
+
+def sliced_channels(t, c):
+    """The first ``c`` channels (last axis) of ``t``, contiguous; ``t``
+    itself where it has ``c``."""
+    return t if t.shape[-1] == c else t[..., :c].contiguous()
+
+
+def channel_padded(conv, x, other):
+    """``conv(x, other)`` on channels padded with zeros to the next multiple
+    of ``CHANNEL_MULTIPLE`` (the last axis of both: x and w, or x and g),
+    with the last axis of its result sliced back to C; ``conv`` itself
+    where C is such a multiple already. A zero channel of x meets a zero tap
+    of w (or a zero cotangent), so the padded channels compute zeros and
+    the others what they compute unpadded."""
+    c = x.shape[-1]
+    pad = -c % CHANNEL_MULTIPLE
+    if pad == 0:
+        return conv(x, other)
+    return sliced_channels(conv(F.pad(x, (0, pad)), F.pad(other, (0, pad))), c)
+
+
+def _pads(x):
+    """Whether the kernels' channel pad applies to ``x``: on the card."""
+    return x.device.type == "cuda"
+
+
+def _conv(x, w):
+    """K1 on CUDA (one launch; C a multiple of 8), the plain version on the
+    CPU."""
     if x.device.type == "cpu":
         return depthwise3x3x3_plain(x, w)
-    _check("depthwise3x3x3", x, w, (3, 3, 3, x.shape[-1]))
-    plan = plan_forward(tuple(x.shape), x.element_size())
-    return _run_forward(x, w, plan)
+    return _launch_forward(x, w)
+
+
+def _wgrad(x, g):
+    """The wgrad kernel on CUDA (C a multiple of 8), the plain version on the
+    CPU."""
+    if x.device.type == "cpu":
+        return depthwise3x3x3_wgrad_plain(x, g)
+    _check("depthwise3x3x3_wgrad", x, g, x.shape)
+    return _launch_wgrad(x, g)
+
+
+def _launch_forward(x, w):
+    return _run_forward(x, w, plan_forward(tuple(x.shape), x.element_size()))
 
 
 def _run_forward(x, w, p):
@@ -366,12 +459,16 @@ def depthwise3x3x3_wgrad(x, g):
     """x, g [B, T, H, W, C] -> dw [3, 3, 3, C] in x.dtype, the weight
     gradient of ``depthwise3x3x3`` (float32 accumulation). Two launches on
     CUDA (partial sums, then their fixed-order sum), counted as one in
-    ``depthwise3x3x3_wgrad.launches``; the plain version on the CPU."""
+    ``depthwise3x3x3_wgrad.launches``, C padded where it must be; the plain
+    version on the CPU."""
     if x.device.type == "cpu":
         return depthwise3x3x3_wgrad_plain(x, g)
     _check("depthwise3x3x3_wgrad", x, g, x.shape)
-    plan = plan_wgrad(tuple(x.shape), x.element_size())
-    return _run_wgrad(x, g, plan)
+    return channel_padded(_launch_wgrad, x, g)
+
+
+def _launch_wgrad(x, g):
+    return _run_wgrad(x, g, plan_wgrad(tuple(x.shape), x.element_size()))
 
 
 def _run_wgrad(x, g, p):
@@ -401,24 +498,38 @@ def _aligned(t):
 
 
 class Depthwise3x3x3(torch.autograd.Function):
-    """The JAX package's ``custom_vjp`` ``depthwise3x3x3`` (`:124-155`)."""
+    """The JAX package's ``custom_vjp`` ``depthwise3x3x3`` (`:124-155`).
+
+    On the card the channels are padded once a layer (``pad_channels``):
+    the forward pads x and w and keeps them padded for the backward, which
+    pads the cotangent once and runs dx and dw on the padded tensors; the
+    output, dx and dw are sliced back to C."""
 
     @staticmethod
     def forward(ctx, x, w):
+        c = x.shape[-1]
+        if x.device.type == "cuda":
+            _check("depthwise3x3x3", x, w, (3, 3, 3, c))
+        if _pads(x):
+            x, w = pad_channels(x), pad_channels(w)
+        ctx.c = c
         ctx.save_for_backward(x, w)
-        return _forward(x, w)
+        return sliced_channels(_conv(x, w), c)
 
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
+        c = ctx.c
         g = _aligned(g)
+        if _pads(x):
+            g = pad_channels(g)
         dx = dw = None
         if ctx.needs_input_grad[0]:
             # A stride-1 SAME conv is its own transpose up to a kernel flip.
             w_flip = w.flip(0, 1, 2).contiguous()
-            dx = _forward(g, w_flip).to(x.dtype)
+            dx = sliced_channels(_conv(g, w_flip), c).to(x.dtype)
         if ctx.needs_input_grad[1]:
-            dw = depthwise3x3x3_wgrad(x, g).to(w.dtype)
+            dw = sliced_channels(_wgrad(x, g), c).to(w.dtype)
         return dx, dw
 
 

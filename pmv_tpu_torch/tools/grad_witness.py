@@ -1,0 +1,201 @@
+"""How close two float32 runs of one train step's gradients can be, and why.
+
+One model (X3D-M by default) at its seeded random init, one batch, the
+head's dropout mask drawn once: the train-mode forward, the loss
+(MODEL.LOSS_FUNC, cross-entropy for X3D) and the backward, in float32 on
+the card, in float32 on the CPU, and in float64 on the CPU (activations,
+BatchNorm statistics, the plain depthwise convs and the loss in float64:
+the reference). On the card twice: with TF32 off, as chip_smoke.py runs
+its float32 gates, and with PyTorch's default, which lets cuDNN's convs
+round their inputs to TF32. For each float32 run it prints the relative
+L2 distance of every parameter's gradient from the float64 run's, and the
+grad norms: first as the run decides each ReLU itself, then with every
+ReLU taking the float64 run's decisions (``relu_decisions``), with the
+count of decisions the run's own inputs would have taken otherwise. A ReLU
+whose input lies within a rounding of 0 decides either way, and its one
+element's gradient moves the whole gradient; with the decisions held
+equal, what is left is the float32 rounding itself.
+
+    python -m pmv_tpu_torch.tools.grad_witness [--cfg configs/Kinetics/X3D_M.yaml]
+        [--batch 2] [--frames F] [--crop S] [--cpu-only] [--out FILE]
+
+Without ``--cpu-only`` it needs a CUDA device. The full-size X3D-M step in
+float64 on the CPU takes some GiB and a minute or so: run it on the GPU
+machine, or at a small ``--frames`` and ``--crop``.
+"""
+
+import argparse
+import contextlib
+import dataclasses
+import json
+import sys
+import time
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+X3D_M = "configs/Kinetics/X3D_M.yaml"
+# The float32 train step's limits, card against CPU, each deciding its own
+# ReLUs, of a model whose ReLUs make its gradients jump: (relative L2 of the
+# gradients, rtol of the grad norm). Set between the sound readings and the
+# faults' of tests/test_torch_port_x3d_gradients.py (PERF.md section 6): at
+# full width and depth on a small input, X3D-M's float32 gradients, the
+# port's and the JAX package's, lie up to 2.2e-2 from float64 ones and
+# their grad norms up to 9.6e-4; a fault in K1's taps, its channel pad's
+# slice, dx's weight flip or BatchNorm's eps moves the gradients by 0.91 or
+# more and the grad norm by 9.4e-3 or more. With the ReLU decisions held
+# equal, the gradients are held to 1e-4.
+RELU_LIMITS = {"X3D": (0.1, 3e-3)}
+
+
+@dataclasses.dataclass
+class Decisions:
+    """The decisions (input > 0) of each F.relu call, in call order, and the
+    count of elements whose input would have decided otherwise."""
+
+    masks: list
+    taken_otherwise: int = 0
+
+
+@contextlib.contextmanager
+def relu_decisions(decisions=None):
+    """Within the block, ``F.relu`` records each call's decisions into the
+    yielded ``Decisions``; or, given ``decisions`` (a record of a run of the
+    same model on the same batch), applies them in call order:
+    relu(v) = v * decision, whose gradient is that of a ReLU that decided
+    so, and counts the elements whose own sign differs."""
+    record = Decisions([])
+    relu = F.relu
+
+    def recorded_relu(v, inplace=False):
+        mine = v.detach() > 0
+        if decisions is None:
+            record.masks.append(mine)
+            return relu(v)
+        mask = decisions.masks[len(record.masks)].to(v.device)
+        record.masks.append(mask)
+        record.taken_otherwise += int((mask != mine).sum())
+        return v * mask
+
+    F.relu = recorded_relu
+    try:
+        yield record
+    finally:
+        F.relu = relu
+
+
+def load_cfg(path, opts=()):
+    from pmv_tpu_torch.config import get_cfg
+
+    cfg = get_cfg()
+    cfg.merge_from_file(path)
+    cfg.merge_from_list(list(opts))
+    return cfg
+
+
+def batch(cfg, size, seed=2):
+    """uint8 frames [size, T, S, S, 3] at the train crop, labels, and the
+    head's dropout keep mask (None without head dropout), from ``seed``."""
+    rng = np.random.default_rng(seed)
+    s = cfg.DATA.TRAIN_CROP_SIZE
+    frames = rng.integers(0, 256, (size, cfg.DATA.NUM_FRAMES, s, s, 3), np.uint8)
+    labels = rng.integers(0, cfg.MODEL.NUM_CLASSES, size)
+    keep = 1.0 - cfg.MODEL.DROPOUT_RATE
+    mask = None
+    if keep < 1.0:
+        mask = (rng.random((size, cfg.X3D.DIM_C5)) < keep).astype(np.float32)
+    return frames, labels, mask
+
+
+def gradients(cfg, data, device, dtype, decisions=None):
+    """One train-mode forward and backward of the seeded model in ``dtype``
+    on ``device``: ({name: gradient, float64 on the CPU}, loss, Decisions)."""
+    from pmv_tpu_torch.engine.steps import make_eval_preprocess_fn
+    from pmv_tpu_torch.models import build_model
+    from pmv_tpu_torch.models.losses import get_loss_func
+
+    frames, labels, mask = data
+    model = build_model(cfg, device=device, dtype=dtype, seed=0)
+    model.train()
+    x = make_eval_preprocess_fn(cfg, device=device)(torch.as_tensor(frames).to(device))
+    kwargs = {}
+    if mask is not None:
+        kwargs["head_dropout_mask"] = torch.as_tensor(mask).to(device)
+    with relu_decisions(decisions) as record:
+        preds = model(x, **kwargs)
+    loss = get_loss_func(cfg.MODEL.LOSS_FUNC)(preds.to(torch.promote_types(dtype, torch.float32)),
+                                              torch.as_tensor(labels).to(device))
+    loss.backward()
+    grads = {k: p.grad.detach().double().cpu() for k, p in model.named_parameters()}
+    return grads, float(loss.detach()), record
+
+
+def distance(grads, ref):
+    """Relative L2 distance of all of ``grads`` from all of ``ref``."""
+    diff = sum(float((grads[k] - v).square().sum()) for k, v in ref.items())
+    return (diff / sum(float(v.square().sum()) for v in ref.values())) ** 0.5
+
+
+def norm(grads):
+    return sum(float(v.square().sum()) for v in grads.values()) ** 0.5
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--cfg", default=X3D_M)
+    parser.add_argument("--batch", type=int, default=2)
+    parser.add_argument("--frames", type=int, help="DATA.NUM_FRAMES (the config's by default)")
+    parser.add_argument("--crop", type=int, help="DATA.TRAIN_CROP_SIZE (the config's by default)")
+    parser.add_argument("--cpu-only", action="store_true", help="leave the card out")
+    parser.add_argument("--out", help="also write the JSON line here")
+    args = parser.parse_args(argv)
+    if not args.cpu_only and not torch.cuda.is_available():
+        print("grad_witness: no CUDA device (or --cpu-only)", file=sys.stderr)
+        return 1
+    opts = []
+    if args.frames:
+        opts += ["DATA.NUM_FRAMES", str(args.frames)]
+    if args.crop:
+        opts += ["DATA.TRAIN_CROP_SIZE", str(args.crop)]
+    cfg = load_cfg(args.cfg, opts)
+    data = batch(cfg, args.batch)
+    t0 = time.perf_counter()
+    ref, ref_loss, ref_decisions = gradients(cfg, data, "cpu", torch.float64)
+    rec = {"model": cfg.MODEL.MODEL_NAME, "batch": args.batch,
+           "frames": cfg.DATA.NUM_FRAMES, "crop": cfg.DATA.TRAIN_CROP_SIZE,
+           "relu_elements": sum(int(m.numel()) for m in ref_decisions.masks),
+           "f64_loss": ref_loss, "f64_grad_norm": norm(ref), "f64_s": time.perf_counter() - t0}
+    if not args.cpu_only:
+        from pmv_tpu_torch.tools.timing import card_line
+
+        rec["card"] = card_line()
+    runs = [("cpu", "cpu", False)]
+    if not args.cpu_only:
+        runs += [("cuda", "cuda", False), ("cuda_tf32", "cuda", True)]
+    for name, device, tf32 in runs:
+        torch.backends.cudnn.allow_tf32 = tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        for held in (False, True):
+            grads, loss, record = gradients(cfg, data, device, torch.float32,
+                                            ref_decisions if held else None)
+            key = f"{name}_f32" + ("_f64_decisions" if held else "")
+            rec[key] = {"grad_rel_l2_vs_f64": distance(grads, ref),
+                        "grad_norm_rel_vs_f64": norm(grads) / rec["f64_grad_norm"] - 1,
+                        "loss_rel_vs_f64": loss / ref_loss - 1}
+            if held:
+                rec[key]["decisions_taken_otherwise"] = record.taken_otherwise
+            elif name == "cpu":
+                cpu_grads = grads
+            else:
+                rec[key]["grad_rel_l2_vs_cpu_f32"] = distance(grads, cpu_grads)
+    line = json.dumps(rec)
+    print(line, flush=True)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(line + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

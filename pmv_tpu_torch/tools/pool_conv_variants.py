@@ -1,20 +1,25 @@
 """Time the strided depthwise pool convs of MViTv2-S 16x4 through F.conv3d,
 in the layout the port passes today and in the alternatives, on one card;
-with ``--uniformer``, UniFormer-S 16x4's 5x5x5 depthwise convs instead.
+with ``--uniformer``, UniFormer-S 16x4's 5x5x5 depthwise convs instead; with
+``--x3d``, X3D-M's convs that K1 does not run.
 
-    python -m pmv_tpu_torch.tools.pool_conv_variants [--uniformer]
+    python -m pmv_tpu_torch.tools.pool_conv_variants [--uniformer | --x3d]
 
 The port sends every strided conv pool to a grouped ``F.conv3d`` on a
-channels-last grid viewed as NCDHW (``models/attention.py``). For each
-strided-pool shape of one batch-8 bfloat16 forward it prints one JSON line
-with the median device ms (CUDA events) of:
-- "view": that call, as the port makes it;
+contiguous NCDHW copy of the channels-last grid
+(``models/common.py::channels_last_conv3d``). For each strided-pool shape
+of one batch-8 bfloat16 forward it prints one JSON line with the median
+device ms (CUDA events) of:
+- "view": the conv on the channels-last grid viewed as NCDHW;
 - "ncdhw": the same conv on a contiguous NCDHW copy (the copy not timed);
 - "ncdhw_with_copies": the copy in, the conv, and the copy back to NDHWC;
 each with cudnn.benchmark off and on; then one line summed over a forward.
 
 ``--uniformer``: the CBlock's stride-1 SAME 5x5x5 depthwise conv (with its
-bias) at its two grids, batch 8, bfloat16, each layout from channels-last
+bias) at its two grids; ``--x3d``: the stem's 1x3x3 conv (3 -> 24 channels,
+stride (1, 2, 2)) and 5x1x1 depthwise conv, and the strided (1, 2, 2)
+channelwise 3x3x3 conv that opens each stage (C = 54, 108, 216, 432) at
+the 224^2 crop. Batch 8, bfloat16, each layout from channels-last
 [B, T, H, W, C] to channels-last: "view" (the grid viewed as NCDHW),
 "ncdhw_with_copies" (a contiguous NCDHW copy in, the output viewed back);
 forward alone, and forward and backward (dx and dw); the two layouts'
@@ -44,34 +49,47 @@ STRIDED_POOLS = [
 ]
 
 
-# (grid [T, H, W, C], convs per forward) of UniFormer-S 16x4's CBlocks.
+# (name, input grid [T, H, W, C], output channels, kernel, stride, padding,
+# groups, bias, convs per forward): UniFormer-S 16x4's CBlock 5x5x5 convs.
 UNIFORMER_CONVS = [
-    ((8, 56, 56, 64), 3),   # stage 1
-    ((8, 28, 28, 128), 4),  # stage 2
+    ("stage 1", (8, 56, 56, 64), 64, (5, 5, 5), (1, 1, 1), (2, 2, 2), 64, True, 3),
+    ("stage 2", (8, 28, 28, 128), 128, (5, 5, 5), (1, 1, 1), (2, 2, 2), 128, True, 4),
+]
+# X3D-M's convs that K1 does not run: the stem's (configs/Kinetics/X3D_M.yaml,
+# 224^2 crop) and the first, strided, channelwise conv of each stage.
+X3D_CONVS = [
+    ("stem conv_xy", (16, 224, 224, 3), 24, (1, 3, 3), (1, 2, 2), (0, 1, 1), 1, False, 1),
+    ("stem conv", (16, 112, 112, 24), 24, (5, 1, 1), (1, 1, 1), (2, 0, 0), 24, False, 1),
+    ("s2 branch2.b", (16, 112, 112, 54), 54, (3, 3, 3), (1, 2, 2), (1, 1, 1), 54, False, 1),
+    ("s3 branch2.b", (16, 56, 56, 108), 108, (3, 3, 3), (1, 2, 2), (1, 1, 1), 108, False, 1),
+    ("s4 branch2.b", (16, 28, 28, 216), 216, (3, 3, 3), (1, 2, 2), (1, 1, 1), 216, False, 1),
+    ("s5 branch2.b", (16, 14, 14, 432), 432, (3, 3, 3), (1, 2, 2), (1, 1, 1), 432, False, 1),
 ]
 
 
-def uniformer_layouts(card):
-    """The 5x5x5 depthwise conv in both layouts, forward and forward +
-    backward; one JSON line per grid, then the sums over a forward."""
+def layouts(card, convs, label):
+    """Each conv of ``convs`` in both layouts, forward and forward +
+    backward; one JSON line per conv, then the sums over a forward."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     total = defaultdict(float)
-    for grid, count in UNIFORMER_CONVS:
+    for name, grid, c_out, kernel, stride, padding, groups, has_bias, count in convs:
         c = grid[-1]
         x = torch.randn((BATCH, *grid), generator=gen, device="cuda").bfloat16()
-        w = (0.05 * torch.randn((c, 1, 5, 5, 5), generator=gen, device="cuda")).bfloat16()
-        b = torch.randn((c,), generator=gen, device="cuda").bfloat16()
-        g = torch.randn_like(x)
+        w = (0.05 * torch.randn((c_out, c // groups, *kernel), generator=gen,
+                                device="cuda")).bfloat16()
+        b = torch.randn((c_out,), generator=gen, device="cuda").bfloat16() if has_bias else None
 
         def view(x, w):
-            return F.conv3d(x.permute(0, 4, 1, 2, 3), w, b, padding=2,
-                            groups=c).permute(0, 2, 3, 4, 1)
+            return F.conv3d(x.permute(0, 4, 1, 2, 3), w, b, stride, padding,
+                            groups=groups).permute(0, 2, 3, 4, 1)
 
         def ncdhw_with_copies(x, w):
-            return F.conv3d(x.permute(0, 4, 1, 2, 3).contiguous(), w, b, padding=2,
-                            groups=c).permute(0, 2, 3, 4, 1)
+            return F.conv3d(x.permute(0, 4, 1, 2, 3).contiguous(), w, b, stride, padding,
+                            groups=groups).permute(0, 2, 3, 4, 1)
 
-        rec = {"grid": [BATCH, *grid], "count": count, "dtype": "bfloat16"}
+        g = torch.randn(view(x, w).shape, generator=gen, device="cuda").bfloat16()
+        rec = {"conv": name, "grid": [BATCH, *grid], "stride": list(stride),
+               "count": count, "dtype": "bfloat16"}
         results = []
         for fn in (view, ncdhw_with_copies):
             xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
@@ -91,7 +109,7 @@ def uniformer_layouts(card):
             torch.testing.assert_close(ours, theirs, atol=1e-2 * float(theirs.abs().max()),
                                        rtol=1e-2)
         print(json.dumps(rec), flush=True)
-    print(json.dumps({"uniformer_per_forward_ms": dict(total), "batch": BATCH, "card": card}),
+    print(json.dumps({f"{label}_per_forward_ms": dict(total), "batch": BATCH, "card": card}),
           flush=True)
     return 0
 
@@ -100,13 +118,17 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--uniformer", action="store_true",
                         help="time UniFormer's 5x5x5 depthwise convs instead")
+    parser.add_argument("--x3d", action="store_true",
+                        help="time X3D-M's stem and strided channelwise convs instead")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("pool_conv_variants: no CUDA device", file=sys.stderr)
         return 1
     card = card_line()
     if args.uniformer:
-        return uniformer_layouts(card)
+        return layouts(card, UNIFORMER_CONVS, "uniformer")
+    if args.x3d:
+        return layouts(card, X3D_CONVS, "x3d")
     gen = torch.Generator(device="cuda").manual_seed(0)
     total = defaultdict(float)
     for grid, stride, count in STRIDED_POOLS:

@@ -1,7 +1,8 @@
 """Time and profile the port's eval or train step on one CUDA card:
 MViTv2-S 16x4's, or that of any config given with ``--cfg`` (UniFormer-S
 16x4's: ``--cfg configs/Kinetics/UNIFORMER_S_16x4.yaml --opts
-UNIFORMER.PRETRAIN_NAME "" TENSORBOARD.ENABLE False``).
+UNIFORMER.PRETRAIN_NAME "" TENSORBOARD.ENABLE False``; X3D-M's: ``--cfg
+configs/Kinetics/X3D_M.yaml``, its eval at the 256^2 test crop).
 
     python -m pmv_tpu_torch.tools.profile_eval [--train] [--batch 8] [--steps 10] [--top 20] \\
         [--cfg <yaml> [--opts KEY VALUE ...]]

@@ -23,10 +23,15 @@ from pmv_tpu_torch.ops.depthwise import (
     MVIT_RECT_POOL_SHAPES,
     MVIT_RECT_TRAIN_POOL_SHAPES,
     ODD_SHAPES,
+    PADDED_ODD_SHAPES,
     UNIFORMER_DPE_SHAPES,
     UNIFORMER_PORTRAIT_DPE_SHAPES,
     UNIFORMER_RECT_DPE_SHAPES,
     UNIFORMER_TRAIN_DPE_SHAPES,
+    X3D_DW_SHAPES,
+    X3D_PORTRAIT_DW_SHAPES,
+    X3D_RECT_DW_SHAPES,
+    X3D_TEST_DW_SHAPES,
     depthwise3x3x3,
     depthwise3x3x3_plain,
     depthwise3x3x3_wgrad,
@@ -39,12 +44,15 @@ pytestmark = pytest.mark.cuda
 # MViTv2-S 16x4 pool shapes at batch 8 (the 224^2 crop, the PMV rect crop
 # and its transposes), the PMV rect ones at the run_net train step's batch
 # of 16, UniFormer-S 16x4's DPE shapes (the same grids, at batch 8 and 16),
-# and odd shapes the kernels' tiling must take (ops/depthwise.py).
+# X3D-M's stride-1 channelwise convs (224^2, rect, transposed and 256^2 at
+# batch 8; C = 54 and 108 through the channel pad), and odd shapes the
+# kernels' tiling and the pad must take (ops/depthwise.py).
 SHAPES = [
     s for s, _ in MVIT_POOL_SHAPES + MVIT_RECT_POOL_SHAPES + MVIT_PORTRAIT_POOL_SHAPES
     + MVIT_RECT_TRAIN_POOL_SHAPES + UNIFORMER_DPE_SHAPES + UNIFORMER_RECT_DPE_SHAPES
-    + UNIFORMER_PORTRAIT_DPE_SHAPES + UNIFORMER_TRAIN_DPE_SHAPES
-] + list(ODD_SHAPES)
+    + UNIFORMER_PORTRAIT_DPE_SHAPES + UNIFORMER_TRAIN_DPE_SHAPES + X3D_DW_SHAPES
+    + X3D_RECT_DW_SHAPES + X3D_PORTRAIT_DW_SHAPES + X3D_TEST_DW_SHAPES
+] + list(ODD_SHAPES) + list(PADDED_ODD_SHAPES)
 
 
 def _inputs(shape, device, dtype, seed=0):
@@ -73,7 +81,9 @@ def test_kernel_matches_plain(cuda_device, shape, dtype):  # noqa: F811
 
 def test_kernel_refuses_what_it_does_not_take(cuda_device):  # noqa: F811
     """What the kernels do not take raises; a gradient is computed, through
-    K1 (dx) and the wgrad kernel (dw), against the plain versions."""
+    K1 (dx) and the wgrad kernel (dw), against the plain versions; a C that
+    is not a multiple of 8 is padded, launches each kernel once and matches
+    the plain versions."""
     x, w = _inputs((1, 2, 4, 4, 16), cuda_device, torch.float32)
     g = torch.randn_like(x)
     x.requires_grad_()
@@ -91,8 +101,27 @@ def test_kernel_refuses_what_it_does_not_take(cuda_device):  # noqa: F811
     torch.testing.assert_close(dw, depthwise3x3x3_wgrad_plain(x, g), atol=1e-4, rtol=1e-5)
     with pytest.raises(TypeError):
         depthwise3x3x3(x, w.bfloat16())
-    with pytest.raises(ValueError, match="multiple of 8"):
-        depthwise3x3x3(x[..., :12].contiguous(), w[..., :12].contiguous())
+    x12, w12, g12 = (t[..., :12].contiguous() for t in (x, w, g))
+    k1, wg = depthwise3x3x3.launches, depthwise3x3x3_wgrad.launches
+    out, dw12 = depthwise3x3x3(x12, w12), depthwise3x3x3_wgrad(x12, g12)
+    torch.cuda.synchronize()
+    assert (depthwise3x3x3.launches, depthwise3x3x3_wgrad.launches) == (k1 + 1, wg + 1)
+    assert out.shape == x12.shape and dw12.shape == (3, 3, 3, 12)
+    torch.testing.assert_close(out, depthwise3x3x3_plain(x12, w12), atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(dw12, depthwise3x3x3_wgrad_plain(x12, g12), atol=1e-4, rtol=1e-5)
+    # Through the autograd Function: x, w and g padded once, 2 K1 launches
+    # and 1 wgrad, dx and dw sliced back.
+    x12.requires_grad_()
+    w12.requires_grad_()
+    k1, wg = depthwise3x3x3.launches, depthwise3x3x3_wgrad.launches
+    depthwise3x3x3(x12, w12).backward(g12)
+    torch.cuda.synchronize()
+    assert (depthwise3x3x3.launches, depthwise3x3x3_wgrad.launches) == (k1 + 2, wg + 1)
+    assert x12.grad.shape == x12.shape and w12.grad.shape == (3, 3, 3, 12)
+    torch.testing.assert_close(x12.grad, depthwise3x3x3_plain(g12, w12.detach().flip(0, 1, 2)),
+                               atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(w12.grad, depthwise3x3x3_wgrad_plain(x12.detach(), g12),
+                               atol=1e-4, rtol=1e-5)
     with pytest.raises(ValueError, match="contiguous"):
         depthwise3x3x3(x.transpose(2, 3), w)
     with pytest.raises(ValueError):
@@ -249,6 +278,52 @@ def test_tiny_uniformer_on_card_matches_cpu(cuda_device):  # noqa: F811
             torch.testing.assert_close(b.cpu(), a, atol=1e-6, rtol=1e-4, msg=name)
         else:
             torch.testing.assert_close(b.cpu(), a, atol=2.0001 * lr, rtol=0, msg=name)
+
+
+def test_tiny_x3d_on_card_matches_cpu(cuda_device):  # noqa: F811
+    """X3D on configs/tiny_x3d_synthetic.yaml at DEPTH_FACTOR 1.0 (7 stride-1
+    channelwise convs a forward, C = 24, 48 and 96), float32, card against
+    CPU: the eval step (7 K1 launches), one SGD train step with the head's
+    dropout from the same weights and draws (14 K1 and 7 wgrad launches),
+    and precise BN over 2 batches (14 K1), the BatchNorm running
+    statistics to rtol 1e-4."""
+    from pmv_tpu_torch.config import get_cfg
+    from pmv_tpu_torch.engine.precise_bn import calculate_and_update_precise_bn
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_cfg()
+    cfg.merge_from_file(str(Path(__file__).resolve().parents[1] / "configs"
+                            / "tiny_x3d_synthetic.yaml"))
+    cfg.merge_from_list(["X3D.DEPTH_FACTOR", "1.0", "TRAIN.MIXED_PRECISION", "False"])
+    lr = 0.05
+    rng = np.random.default_rng(6)
+    batch = {"frames": rng.integers(0, 256, (4, 4, 64, 64, 3), np.uint8),
+             "labels": rng.integers(0, cfg.MODEL.NUM_CLASSES, 4)}
+    loader = [{"frames": rng.integers(0, 256, (4, 4, 64, 64, 3), np.uint8)} for _ in range(2)]
+    models, metrics, scores, launches = [], [], [], []
+    draws = None
+    for device in ("cpu", cuda_device):
+        model = build_model(cfg, device=device, dtype=torch.float32, seed=2)
+        k1, wg = depthwise3x3x3.launches, depthwise3x3x3_wgrad.launches
+        scores.append(make_eval_step(cfg, model, device=device)(batch["frames"]).cpu())
+        step = make_train_step(cfg, device=device)
+        draws = draws or step.sample_draws(model, batch["frames"].shape)
+        state = init_state(cfg, model)
+        metrics.append({k: v.cpu() for k, v in step(state, batch, lr, draws).items()})
+        calculate_and_update_precise_bn(loader, state, cfg, device)
+        launches.append((depthwise3x3x3.launches - k1, depthwise3x3x3_wgrad.launches - wg))
+        models.append(model)
+    assert launches[1] == (7 + 14 + 14, 7)
+    torch.testing.assert_close(scores[1], scores[0], atol=2e-5, rtol=0)
+    (cpu, gpu), (cpu_model, gpu_model) = metrics, models
+    for key in ("loss", "grad_norm"):
+        torch.testing.assert_close(gpu[key], cpu[key], atol=0, rtol=1e-5)
+    for (name, a), b in zip(cpu_model.state_dict().items(), gpu_model.state_dict().values()):
+        if "running" in name:
+            torch.testing.assert_close(b.cpu(), a, atol=1e-6, rtol=1e-4, msg=name)
+        else:
+            torch.testing.assert_close(b.cpu(), a, atol=1e-5, rtol=0, msg=name)
 
 
 def test_prefetcher_copies_ahead_in_order(cuda_device):  # noqa: F811

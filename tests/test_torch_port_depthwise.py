@@ -4,8 +4,10 @@ The plain versions (the CPU path) are held against XLA's grouped conv and
 the Pallas kernel in interpret mode: the forward, and the autograd
 Function's dx and dw against ``jax.grad`` of the custom_vjp (float32, atol
 1e-4). The CUDA kernels are held against the plain versions in
-tests/test_torch_port_cuda.py; their launch plans, and the build's
-library names, are checked here.
+tests/test_torch_port_cuda.py; their launch plans (at the padded channel
+counts where C is not a multiple of 8), the channel pad the wrappers put
+around them on the card (``channel_padded``, driven here with the plain
+versions), and the build's library names, are checked here.
 """
 
 import jax
@@ -16,6 +18,7 @@ import torch
 
 from pmv_tpu.ops import depthwise_pallas
 from pmv_tpu_torch.ops.depthwise import (
+    CHANNEL_MULTIPLE,
     H100_SMS,
     MVIT_POOL_SHAPES,
     MVIT_PORTRAIT_POOL_SHAPES,
@@ -26,7 +29,12 @@ from pmv_tpu_torch.ops.depthwise import (
     UNIFORMER_PORTRAIT_DPE_SHAPES,
     UNIFORMER_RECT_DPE_SHAPES,
     UNIFORMER_TRAIN_DPE_SHAPES,
+    X3D_DW_SHAPES,
+    X3D_PORTRAIT_DW_SHAPES,
+    X3D_RECT_DW_SHAPES,
+    X3D_TEST_DW_SHAPES,
     SMEM_PER_BLOCK,
+    channel_padded,
     depthwise3x3x3,
     depthwise3x3x3_plain,
     depthwise3x3x3_wgrad,
@@ -172,17 +180,107 @@ def test_grad_wrappers_on_cpu_launch_nothing():
     )
 
 
+@pytest.mark.parametrize("c", [12, 54, 108])
+def test_channel_pad_with_the_plain_conv_equals_the_plain_conv(c):
+    """The wrappers' pad-run-slice around the plain versions: forward, dx
+    (the forward on the cotangent, weights flipped) and dw, exact, since a
+    padded channel touches no other."""
+    shape = (2, 3, 6, 5, c)
+    x, w = (torch.from_numpy(a) for a in _inputs(shape, 11))
+    g = torch.from_numpy(np.random.default_rng(12).normal(size=shape).astype(np.float32))
+    w_flip = w.flip(0, 1, 2)
+    for conv, a, b in ((depthwise3x3x3_plain, x, w), (depthwise3x3x3_plain, g, w_flip),
+                       (depthwise3x3x3_wgrad_plain, x, g)):
+        got = channel_padded(conv, a, b)
+        assert got.is_contiguous() and got.shape[-1] == c
+        assert torch.equal(got, conv(a, b))
+
+
+def test_channel_pad_pads_to_the_kernels_multiple():
+    """The conv sees C rounded up to a multiple of 8, zeros in the new
+    channels of both inputs; at a multiple of 8 it sees the inputs as they
+    are."""
+    seen = []
+
+    def conv(a, b):
+        seen.append((a, b))
+        return a
+
+    x, w = torch.ones(1, 1, 2, 2, 54), torch.ones(3, 3, 3, 54)
+    out = channel_padded(conv, x, w)
+    a, b = seen[-1]
+    assert a.shape[-1] == b.shape[-1] == 56 and out.shape[-1] == 54
+    assert not a[..., 54:].any() and not b[..., 54:].any()
+    x8 = torch.ones(1, 1, 2, 2, 16)
+    assert channel_padded(conv, x8, w) is x8 and seen[-1][1] is w
+
+
+@pytest.mark.parametrize("c", [12, 54])
+def test_autograd_pads_each_tensor_once_a_layer(c, monkeypatch):
+    """The autograd Function with the card's channel pad turned on, around
+    the plain versions: x, w and the cotangent are each padded once (the
+    forward keeps x and w padded for the backward), the convs see padded
+    channels only, and the output, dx and dw equal the unpadded ones."""
+    from pmv_tpu_torch.ops import depthwise as dw
+
+    shape = (2, 3, 6, 5, c)
+    x, w = _inputs(shape, 14)
+    g = np.random.default_rng(15).normal(size=shape).astype(np.float32)
+    want_out = depthwise3x3x3_plain(torch.from_numpy(x), torch.from_numpy(w))
+    want_dx, want_dw = _port_grads(x, w, g)
+
+    padded, seen = [], []
+    pad = dw.pad_channels
+    monkeypatch.setattr(dw, "_pads", lambda t: True)
+    monkeypatch.setattr(dw, "pad_channels", lambda t: padded.append(t.shape) or pad(t))
+    for name in ("depthwise3x3x3_plain", "depthwise3x3x3_wgrad_plain"):
+        fn = getattr(dw, name)
+        monkeypatch.setattr(dw, name, lambda a, b, fn=fn: seen.append(a.shape[-1]) or fn(a, b))
+    xt = torch.from_numpy(x).requires_grad_()
+    wt = torch.from_numpy(w).requires_grad_()
+    out = depthwise3x3x3(xt, wt)
+    out.backward(torch.from_numpy(g))
+    assert padded == [shape, (3, 3, 3, c), shape]  # x, w, then the cotangent
+    assert seen == [c + -c % CHANNEL_MULTIPLE] * 3  # forward, dx, dw
+    assert out.shape == shape and xt.grad.shape == shape and wt.grad.shape == (3, 3, 3, c)
+    assert torch.equal(out, want_out)
+    assert np.array_equal(xt.grad.numpy(), want_dx) and np.array_equal(wt.grad.numpy(), want_dw)
+
+
+def test_port_matches_pallas_at_x3d_channels():
+    """At C = 54 (X3D-M's first stage) the port's CPU path equals the TPU
+    kernel in interpret mode, which pads the channels to 128."""
+    x, w = _inputs((2, 3, 9, 7, 54), 13)
+    old = depthwise_pallas.INTERPRET_OVERRIDE
+    depthwise_pallas.INTERPRET_OVERRIDE = True
+    try:
+        ref = np.asarray(depthwise_pallas.depthwise3x3x3_fwd(jnp.asarray(x), jnp.asarray(w)))
+    finally:
+        depthwise_pallas.INTERPRET_OVERRIDE = old
+    out = depthwise3x3x3(torch.from_numpy(x), torch.from_numpy(w))
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-5, rtol=0)
+
+
 # Launch plans of the CUDA kernels (they run only on the card; their tiling
 # is worked out in Python and checked here), at the MViTv2-S 16x4 pool
 # shapes of the 224^2 crop, of the PMV rect crop and of its transposes (at
 # batch 8, and the rect ones at the PMV train step's batch of 16), at
 # UniFormer-S 16x4's DPE shapes (the same three grids, at batch 8 and 16;
-# C from 64), and at odd shapes.
+# C from 64), at X3D-M's channelwise-conv shapes (224^2, rect, transposed
+# and 256^2 at batch 8; C = 54 and 108 at the 56 and 112 channels the
+# wrappers pad them to), and at odd shapes.
+def _padded(shape):
+    return (*shape[:-1], shape[-1] + -shape[-1] % CHANNEL_MULTIPLE)
+
+
 MAIN_SHAPES = [
     s for s, _ in MVIT_POOL_SHAPES + MVIT_RECT_POOL_SHAPES + MVIT_PORTRAIT_POOL_SHAPES
     + MVIT_RECT_TRAIN_POOL_SHAPES + UNIFORMER_DPE_SHAPES + UNIFORMER_RECT_DPE_SHAPES
     + UNIFORMER_PORTRAIT_DPE_SHAPES + UNIFORMER_TRAIN_DPE_SHAPES
-]
+] + list(dict.fromkeys(
+    _padded(s) for s, _ in X3D_DW_SHAPES + X3D_RECT_DW_SHAPES + X3D_PORTRAIT_DW_SHAPES
+    + X3D_TEST_DW_SHAPES
+))
 
 
 def _once(index, size):

@@ -123,7 +123,6 @@ def test_run_net_refuses_without_cuda_unless_asked_for_the_cpu(tmp_path):
 
 UNPORTED = {
     "multigrid": ("MULTIGRID.LONG_CYCLE", True),
-    "precise_bn": ("BN.USE_PRECISE_STATS", True),
     "tensorboard": ("TENSORBOARD.ENABLE", True),
     "detection": ("DETECTION.ENABLE", True),
     "ssl": ("MODEL.MODEL_NAME", "ContrastiveModel"),

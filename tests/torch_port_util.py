@@ -72,7 +72,7 @@ def depthwise_calls(monkeypatch):
     """Counts the model's calls into ops.depthwise3x3x3. On the CPU the
     wrapper takes the plain version and launches nothing, so its launch
     count cannot show the path was taken; this spy can."""
-    from pmv_tpu_torch.models import attention, uniformer
+    from pmv_tpu_torch.models import common
 
     calls = []
 
@@ -80,8 +80,7 @@ def depthwise_calls(monkeypatch):
         calls.append(tuple(x.shape))
         return port_depthwise.depthwise3x3x3(x, w)
 
-    for module in (attention, uniformer):
-        monkeypatch.setattr(module, "depthwise3x3x3", spy)
+    monkeypatch.setattr(common, "depthwise3x3x3", spy)
     return calls
 
 
@@ -170,11 +169,37 @@ def jax_mixup_draws(mixup, key, height, width):
     return MixUpDraws(apply, use_cutmix, torch.tensor(lam_mix), torch.tensor(lam_cut), cy, cx)
 
 
+def jax_dropout_masks(jmodel, variables, x, key, **kwargs):
+    """The keep masks (bool, in call order) that the ``nn.Dropout`` modules of
+    ``jmodel`` draw in one train-mode apply on an input of ``x``'s shape
+    with ``rngs={"dropout": key}``, as the JAX train step applies it. A mask
+    depends on the key, the module's path and the shape, not on the values:
+    each Dropout is called once, on ones, and its output read."""
+    import flax.linen as fnn
+    import jax.numpy as jnp
+
+    masks = []
+
+    def interceptor(next_fun, args, call_kwargs, context):
+        if isinstance(context.module, fnn.Dropout) and context.method_name == "__call__":
+            kept = next_fun(jnp.ones_like(args[0]), *args[1:], **call_kwargs)
+            masks.append(np.asarray(kept != 0))
+            return args[0] * kept
+        return next_fun(*args, **call_kwargs)
+
+    with fnn.intercept_methods(interceptor):
+        jmodel.apply(variables, jnp.zeros(x.shape, jnp.float32), train=True,
+                     mutable=["batch_stats"], rngs={"dropout": key}, **kwargs)
+    return masks
+
+
 def jax_train_draws(cfg, rng, step, shape):
     """The draws of the JAX train step (`steps.py:197-199`) at ``step``
     for a batch of ``shape``: RandAugment and erasing from the preprocess
-    key, MixUp from the mixup key. DropPath's keys come from flax's module
-    RNG streams and are not repeated here (tests run with rate 0)."""
+    key, MixUp from the mixup key. DropPath's and the head dropout's keys
+    come from flax's module RNG streams and are not repeated here: tests
+    run DropPath at rate 0, and read the head's masks off the model with
+    ``jax_dropout_masks`` under ``jax_dropout_key``."""
     import jax
     from pmv_tpu.data.mixup import MixUp
     from pmv_tpu_torch.data.rand_augment import num_groups
@@ -198,3 +223,10 @@ def jax_train_draws(cfg, rng, step, shape):
         )
         draws["mixup"] = jax_mixup_draws(mixup, k_mix, shape[2], shape[3])
     return draws
+
+
+def jax_dropout_key(rng, step):
+    """The dropout key of the JAX train step at ``step`` (`steps.py:197`)."""
+    import jax
+
+    return jax.random.split(jax.random.fold_in(rng, step), 3)[2]
