@@ -90,9 +90,10 @@ run on K1, C = 54 and 108 through the wrappers' channel pad:
    22 wgrad), float32, card against CPU under phase 3b's gates with the
    BatchNorm running statistics, save the gradients and the grad norm: a
    ReLU input within a rounding of 0 decides either way and moves X3D-M's
-   whole gradient, so these are held to the fixed limits of
-   ``tools/grad_witness.py`` (``RELU_LIMITS``), and then the card's step
-   again from the same weights, each ReLU deciding as on the CPU, to 1e-4;
+   whole gradient, so the gradients are held to the fixed limit of
+   ``tools/grad_witness.py`` (``RELU_LIMITS``) and the grad norm is only
+   printed, and then the card's step again from the same weights, each
+   ReLU deciding as on the CPU, both to 1e-4;
    the pm steps (rect [256, 192], one portrait and one landscape row: eval
    2 x 22 K1, train 88 K1 and 44 wgrad), the same way; precise BN over 2
    batches, card against CPU, its statistics under the same gate.
@@ -106,7 +107,30 @@ run on K1, C = 54 and 108 through the wrappers' channel pad:
    a step), one epoch: train, precise BN (its log line checked), checkpoint,
    eval, test 2 views of 256^2; the restore, every tensor compared; the
    resume with SOLVER.MAX_EPOCH 2 (main paths).
-8. Print the kernels line, the card line, and last
+Distributed (``pmv_tpu_torch/parallel/distributed.py``):
+8. Print whether ``torch.utils.tensorboard`` imports. 8a: two ranks over
+   gloo sharing the one card (NCCL refuses two ranks on one device; the
+   kernels were built in phase 1, the ranks only load them): which
+   collectives gloo carries on CUDA tensors; UniFormer-S 16x4 at full width,
+   float32, the PMV rect crop, MixUp on, 2 rows a rank, one portrait row on
+   rank 0 and none on rank 1 (so every rank takes the select: 72 K1 and 36
+   wgrad launches a rank a step); each rank's ``dp`` step against the
+   one-process step on the global batch of 4 under phase 3b's gates; then
+   2 timed steps a rank (a main path): the 2-rank step's ms. 8c: ``run_net``
+   as a user launches it on 2 hosts, ``--num_shards 2 --shard_id 0|1
+   --init_method`` with NUM_GPUS 1 and gloo, both processes on the one card:
+   UniFormer-S's rect recipe in float32 for one epoch (``launch_job``,
+   ``train()`` with ``dp``, the gathered eval, the checkpoint written by rank
+   0, the gathered test), its test_final against one process's at twice a
+   process's batch, then a resume (main paths, counted in each rank's
+   process). 8b: a world of one over NCCL: MViTv2-S at batch 8, the ``dp``
+   and the ``fsdp`` step against the unwrapped step under phase 3b's gates
+   in float32, and in bfloat16 within BF16_WRAPPER_LIMIT beside a second
+   unwrapped run's reading (atomic sums make bfloat16 gradients differ from
+   run to run), then 5 timed steps of each (main paths): the wrappers'
+   overhead in ms. ``--plant-wrapper-faults`` logs 8b's readings with faults
+   planted in the wrappers instead of running the phases.
+9. Print the kernels line, the card line, and last
    {"ok": true, "device": {...}}.
 
 FFmpeg's development files are not on the card's machine, so no phase
@@ -117,6 +141,8 @@ and prints no result.
 """
 
 import argparse
+import contextlib
+import functools
 import json
 import os
 import re
@@ -170,6 +196,14 @@ def eval_launches(per_forward):
 
 def log(msg):
     print(msg, flush=True)
+
+
+def float32_without_tf32():
+    """float32 convs and matmuls in float32, not TF32 (cuDNN's convs take
+    TF32 by PyTorch's default): the card-against-CPU gates hold float32."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
 
 
 def depthwise_bound(shape, dtype):
@@ -508,8 +542,9 @@ def _train_step_card_vs_cpu(phase, cfg, batch, expected, models=None):
     CPU from the same weights and draws; raises unless they agree and the
     card's step launched ``expected``. The gradients (relative L2) and the
     grad norm are held to 1e-4; for a model in ``grad_witness.RELU_LIMITS``
-    (X3D-M) to its limits, and then the card's step again, from the same
-    weights, with every ReLU taking the CPU step's decisions, to 1e-4."""
+    (X3D-M) the gradients to its limit and the grad norm not at all, and then
+    the card's step again, from the same weights, with every ReLU taking the
+    CPU step's decisions, both to 1e-4."""
     from pmv_tpu_torch.engine.steps import init_state, make_train_step
     from pmv_tpu_torch.tools.grad_witness import RELU_LIMITS, relu_decisions
 
@@ -520,7 +555,10 @@ def _train_step_card_vs_cpu(phase, cfg, batch, expected, models=None):
     cpu_step = make_train_step(cfg, device="cpu", seed=0)
     gpu_step = make_train_step(cfg, device="cuda", seed=0)
     draws = cpu_step.sample_draws(cpu_model, batch["frames"].shape)
-    grad_limit, norm_limit = RELU_LIMITS.get(cfg.MODEL.MODEL_NAME, (1e-4, 1e-4))
+    grad_limit = RELU_LIMITS.get(cfg.MODEL.MODEL_NAME, 1e-4)
+    # The grad norm of a step whose ReLUs decide on their own is read, not
+    # held (RELU_LIMITS); with the CPU's decisions held it is held below.
+    norm_limit = None if cfg.MODEL.MODEL_NAME in RELU_LIMITS else 1e-4
 
     counts = _launch_counts()
     t0 = time.perf_counter()
@@ -582,7 +620,8 @@ def _train_step_card_vs_cpu(phase, cfg, batch, expected, models=None):
     if launches != expected:
         raise AssertionError(f"{phase}: one train step launched {launches}, not {expected}")
     torch.testing.assert_close(gpu["loss"], cpu["loss"], atol=0, rtol=1e-4)
-    torch.testing.assert_close(gpu["grad_norm"], cpu["grad_norm"], atol=0, rtol=norm_limit)
+    if norm_limit is not None:
+        torch.testing.assert_close(gpu["grad_norm"], cpu["grad_norm"], atol=0, rtol=norm_limit)
     for key in ("top1_err", "top5_err", "nan"):
         if not torch.equal(gpu[key], cpu[key]):
             raise AssertionError(f"{key}: card {gpu[key]} against CPU {cpu[key]}")
@@ -887,6 +926,7 @@ def run_net_argv(recipe, out_dir, max_epoch):
         "TRAIN.BATCH_SIZE", "8",
         "TEST.BATCH_SIZE", "8",
         "TEST.NUM_SPATIAL_CROPS", "1",
+        "NUM_GPUS", "1",  # one process on the one card (the yamls say 8)
         "SOLVER.MAX_EPOCH", str(max_epoch),
         "OUTPUT_DIR", out_dir,
     ]
@@ -1034,8 +1074,9 @@ def phase_run_net(card, recipe, out_dir):
     checkpoint. Returns the launches of both calls."""
     from contextlib import redirect_stdout
 
-    # The runs log to OUTPUT_DIR/stdout.log; keep them off ours.
-    with open(os.devnull, "w") as quiet, redirect_stdout(quiet):
+    # The runs log to OUTPUT_DIR/stdout.log; keep them off ours. The sink
+    # stays open: the port's logger keeps it as its stream after the block.
+    with redirect_stdout(open(os.devnull, "w")):
         first = _run_net_call(recipe, out_dir, 1)
         restored = check_restore(run_net_cfg(run_net_argv(recipe, out_dir, 2)))
         second = _run_net_call(recipe, out_dir, 2)
@@ -1055,6 +1096,617 @@ def phase_run_net(card, recipe, out_dir):
         log(json.dumps({**rec, "card": card}))
     log(json.dumps({"phase": "run_net_restore", "recipe": recipe, **restored}))
     return [first["launches"], second["launches"]]
+
+
+def tensorboard_imports():
+    """True when ``torch.utils.tensorboard`` imports, else why not (printed,
+    not a gate: the writer is needed only with TENSORBOARD.ENABLE)."""
+    import importlib
+
+    try:
+        importlib.import_module("torch.utils.tensorboard")
+    except ImportError as e:
+        return str(e)
+    return True
+
+
+DIST_BATCH = 2  # rows a rank in phase 8a
+DIST_TIMED_STEPS = 5  # phase 8b's timed steps of each wrapper
+DIST_TIMED_STEPS_GLOO = 2  # phase 8a's timed steps, each rank
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _dist_rank(rank, world, port, work_dir, result_q):
+    """Phase 8a's rank: join the gloo job on the one card, report which
+    collectives gloo carries on CUDA tensors (rank 0), then one float32
+    ``dp`` train step of UniFormer-S on this rank's rows of the global batch
+    (the compared one, its K1 and wgrad launches counted), then
+    ``DIST_TIMED_STEPS_GLOO`` more steps, timed (a main path: launch counts
+    zeroed just before them, read just after). Puts its results, or its
+    error, on ``result_q``."""
+    import datetime
+    import traceback
+
+    import torch.distributed as dist
+
+    try:
+        from pmv_tpu_torch.engine.steps import init_state, make_train_step
+        from pmv_tpu_torch.models import build_model
+        from pmv_tpu_torch.parallel import distributed
+
+        torch.set_num_threads(max(1, (os.cpu_count() or world) // world))  # the host's cores
+        float32_without_tf32()  # as the one-process step in the parent
+        device = torch.device("cuda", 0)
+        distributed.init_distributed(rank, world, f"tcp://127.0.0.1:{port}", device, "gloo",
+                                     timeout=datetime.timedelta(seconds=120))
+        carried = {}
+        for name, op in (
+            ("all_reduce", lambda t: dist.all_reduce(t)),
+            ("broadcast", lambda t: dist.broadcast(t, 0)),
+            ("all_gather", lambda t: dist.all_gather([torch.empty_like(t) for _ in range(world)], t)),
+        ):
+            try:
+                op(torch.ones(4, device=device))
+                torch.cuda.synchronize()
+                carried[name] = True
+            except (RuntimeError, ValueError) as e:  # the same on both ranks
+                carried[name] = str(e).splitlines()[0]
+        case = torch.load(os.path.join(work_dir, "case.pt"), weights_only=False)
+        cfg = case["cfg"]
+        model = build_model(cfg, device=device, dtype=torch.float32, seed=0)
+        model.load_state_dict(case["state_dict"])
+        wrapped = distributed.wrap_model(model, "dp", device)
+        state = init_state(cfg, model, wrapped=wrapped)
+        step = make_train_step(cfg, device=device, seed=0)
+        local = {k: v[rank * DIST_BATCH:(rank + 1) * DIST_BATCH]
+                 for k, v in case["batch"].items()}
+        counts = _launch_counts()
+        metrics = {k: v.cpu() for k, v in step(state, local, cfg.SOLVER.BASE_LR).items()}
+        torch.cuda.synchronize()
+        result = {
+            "rank": rank, "carried": carried, "metrics": metrics,
+            "step_launches": _launches_since(counts),
+            # Copies: the timed steps below move the model's tensors in place.
+            "grads": {k: p.grad.detach().cpu().clone() for k, p in model.named_parameters()},
+            "state": {k: v.detach().cpu().clone() for k, v in model.state_dict().items()},
+        }
+        _zero_launch_counts()  # the main path starts here
+        t0 = time.perf_counter()
+        for _ in range(DIST_TIMED_STEPS_GLOO):
+            step(state, local, cfg.SOLVER.BASE_LR)
+        torch.cuda.synchronize()
+        result["ms_per_step"] = (time.perf_counter() - t0) / DIST_TIMED_STEPS_GLOO * 1e3
+        result["launches"] = _launch_counts()  # ... and ends here
+        torch.save(result, os.path.join(work_dir, f"rank{rank}.pt"))
+        distributed.destroy()
+        result_q.put((rank, None))
+    except BaseException:  # reported to the parent, which raises
+        result_q.put((rank, traceback.format_exc()))
+        raise
+
+
+def _step_readings(phase, got, ref, **extra):
+    """``got`` (a train step's metrics, gradients, state after it) against
+    ``ref``'s: the readings phase 3b's gates hold; logged."""
+    (gm, gg, gs), (rm, rg, rs) = got, ref
+    grad_rel = _grad_rel_err(gg, rg)
+    stats = [k for k in rs if "running" in k]
+    stats_over = max((float(((gs[k] - rs[k]).abs() - 1e-4 * rs[k].abs()).max()) for k in stats),
+                     default=0.0)
+    weights = [k for k in rg]
+    param_err = max(float((gs[k] - rs[k]).abs().max()) for k in weights)
+    n_off = sum(int(((gs[k] - rs[k]).abs() > 1e-6).sum()) for k in weights)
+    rec = {"phase": phase, "loss": [float(gm["loss"]), float(rm["loss"])],
+           "grad_norm": [float(gm["grad_norm"]), float(rm["grad_norm"])],
+           "grad_rel_err": grad_rel, "bn_stats": len(stats), "bn_stats_err_over_rtol": stats_over,
+           "param_max_abs_err": param_err, "params_off_by_1e-6": n_off, **extra}
+    log(json.dumps(rec))
+    return rec
+
+
+def _held_to_step(phase, got, ref, lr, n_params, **extra):
+    """Phase 3b's gates, ``got`` (metrics, gradients, state) against
+    ``ref``'s: loss rtol 1e-4, gradients 1e-4 (relative L2), BatchNorm
+    running statistics rtol 1e-4 (atol 1e-6), the weights within 2 x lr
+    after AdamW (a few of them: their gradient is float noise). Logs the
+    readings, with ``extra``, before it holds them."""
+    rec = _step_readings(phase, got, ref, **extra)
+    grad_rel, stats_over = rec["grad_rel_err"], rec["bn_stats_err_over_rtol"]
+    param_err, n_off = rec["param_max_abs_err"], rec["params_off_by_1e-6"]
+    torch.testing.assert_close(got[0]["loss"], ref[0]["loss"], atol=0, rtol=1e-4)
+    if grad_rel > 1e-4:
+        raise AssertionError(f"{phase}: gradients differ by {grad_rel} (relative L2)")
+    if stats_over > 1e-6:
+        raise AssertionError(f"{phase}: running statistics {stats_over} over rtol 1e-4")
+    if param_err > 2.0001 * lr or n_off > 1e-4 * n_params:
+        raise AssertionError(f"{phase}: weights differ by {param_err}, {n_off} by > 1e-6")
+    return rec
+
+
+def phase_distributed_gloo():
+    """Phase 8a: two ranks over gloo sharing the one card. UniFormer-S 16x4
+    at full width (BatchNorm, K1 on its 18 DPE convs a forward), float32,
+    the PMV rect crop with SWITCH_AUTO, MixUp on, 2 rows a rank, one portrait
+    row on rank 0 and none on rank 1; each rank's ``dp`` step against the
+    one-process step on the global batch of 4 under phase 3b's gates. The
+    kernels were built in phase 1: the ranks only load them. Returns the
+    ranks' launches."""
+    import multiprocessing
+
+    from pmv_tpu_torch.engine.steps import init_state, make_train_step
+    from pmv_tpu_torch.models import build_model
+
+    cfg = uniformer_cfg()
+    cfg.TRAIN.MIXED_PRECISION = False
+    cfg.MIXUP.ENABLE = True
+    cfg.DATA.TRAIN_CROP_SIZE_RECT = list(PMV_RECT)
+    cfg.DATA.TRAIN_CROP_SIZE_RECT_SWITCH_AUTO = True
+    world, n = 2, 2 * DIST_BATCH
+    rng = np.random.default_rng(8)
+    batch = {
+        "frames": rng.integers(0, 256, (n, cfg.DATA.NUM_FRAMES, *PMV_RECT, 3), np.uint8),
+        "labels": rng.integers(0, cfg.MODEL.NUM_CLASSES, n),
+        "pm": np.array([True, False, False, False]),
+    }
+    work_dir = os.path.join("build", "chip_smoke_distributed")
+    shutil.rmtree(work_dir, ignore_errors=True)
+    os.makedirs(work_dir)
+    model = build_model(cfg, device="cuda", dtype=torch.float32, seed=0)
+    state_dict = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    torch.save({"cfg": cfg, "state_dict": state_dict, "batch": batch},
+               os.path.join(work_dir, "case.pt"))
+    state = init_state(cfg, model)
+    t0 = time.perf_counter()
+    metrics = {k: v.cpu() for k, v in make_train_step(cfg, device="cuda", seed=0)(
+        state, batch, cfg.SOLVER.BASE_LR).items()}
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    ref = (metrics, _grads(model), {k: v.detach().cpu() for k, v in model.state_dict().items()})
+    n_params = sum(p.numel() for p in model.parameters())
+    del state, model
+    torch.cuda.empty_cache()
+
+    ctx = multiprocessing.get_context("spawn")
+    result_q = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=_dist_rank, args=(r, world, port, work_dir, result_q))
+             for r in range(world)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        errors = [result_q.get(timeout=240) for _ in procs]
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    wall = time.perf_counter() - t0
+    failed = [e for _, e in errors if e]
+    if failed:
+        raise AssertionError("a phase 8a rank failed:\n" + "\n".join(failed))
+    ranks = [torch.load(os.path.join(work_dir, f"rank{r}.pt"), weights_only=False)
+             for r in range(world)]
+    log(json.dumps({"phase": "distributed_gloo_collectives_on_cuda",
+                    "carried": ranks[0]["carried"]}))
+    launches = {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
+    expected = step_launches(2 * UNIFORMER_K1)  # the select: both orientations
+    for r in ranks:
+        _held_to_step(f"distributed_gloo_dp_rank{r['rank']}_vs_one_process",
+                      (r["metrics"], r["grads"], r["state"]), ref, cfg.SOLVER.BASE_LR, n_params,
+                      model=cfg.MODEL.MODEL_NAME, world=world, rows_per_rank=DIST_BATCH,
+                      step_launches=r["step_launches"], launches=r["launches"],
+                      timed_steps=DIST_TIMED_STEPS_GLOO, ms_per_step_2_ranks=r["ms_per_step"],
+                      one_process_first_step_s=one_s, spawn_to_end_s=wall)
+        if r["step_launches"] != expected:
+            raise AssertionError(
+                f"rank {r['rank']}'s step launched {r['step_launches']}, not {expected}")
+        timed = {k: v * DIST_TIMED_STEPS_GLOO for k, v in expected.items()}
+        if r["launches"] != timed:
+            raise AssertionError(f"rank {r['rank']}'s timed steps launched {r['launches']}, "
+                                 f"not {timed}")
+    return launches
+
+
+DIST_RUN_NET_TIMEOUT_S = 300  # phase 8c: one run_net call, its processes together
+
+
+def _write_counts(path):
+    with open(path, "w") as f:
+        json.dump(_launch_counts(), f)
+
+
+def _counted_run_process(local_rank, cfg, init_method, func, device_type):
+    """A process that ``launch_job`` spawned: ``distributed._run_process``
+    (join the group, run ``func``, leave), float32 in float32, then its
+    kernel launches to ``$PMV_SMOKE_COUNTS.rank<rank>.json``. A spawned
+    process starts with its counts at 0: its whole run is counted."""
+    from pmv_tpu_torch.parallel import distributed
+
+    float32_without_tf32()
+    _zero_launch_counts()  # the main path starts here
+    distributed._run_process(local_rank, cfg, init_method, func, device_type)
+    rank = cfg.SHARD_ID * max(cfg.NUM_GPUS, 1) + local_rank
+    _write_counts(f"{os.environ['PMV_SMOKE_COUNTS']}.rank{rank}.json")  # ... and ends here
+
+
+def run_net_counted(counts, argv):
+    """``--run-net-counts COUNTS -- ARGV``: ``run_net.main(ARGV)`` in this
+    process, float32 in float32, each process's kernel launches written
+    beside COUNTS: this one's (a world of one runs here) to
+    ``COUNTS.main.json``, each rank's that ``launch_job`` spawns to
+    ``COUNTS.rank<rank>.json`` (``_counted_run_process`` runs each)."""
+    from pmv_tpu_torch.parallel import distributed
+    from pmv_tpu_torch.tools import run_net
+
+    float32_without_tf32()
+    os.environ["PMV_SMOKE_COUNTS"] = counts
+    distributed._run_process = _counted_run_process
+    _zero_launch_counts()
+    run_net.main(argv)
+    _write_counts(f"{counts}.main.json")
+    return 0
+
+
+def _dist_run_net_argv(out_dir, max_epoch, shard=None, port=None):
+    """Phase 8c's run_net arguments: UniFormer-S's rect recipe as phase 6u
+    runs it, in float32, one augmented copy a video (AUG.NUM_SAMPLE 1: the
+    recipe's 2 copies lie copy-major within each process's rows, so 2
+    processes order a step's clips otherwise than one), the predictions
+    saved. With ``shard``: that shard of 2 hosts of one process each (gloo,
+    both on the one card), 4 videos a step each, meeting on ``port``; else
+    one process at 8, at the LR that BASE_LR_SCALE_NUM_SHARDS gives 2
+    shards."""
+    argv = run_net_argv("uniformer", out_dir, max_epoch)
+    opts = ["TRAIN.MIXED_PRECISION", "False", "AUG.NUM_SAMPLE", "1",
+            "TEST.SAVE_RESULTS_PATH", "preds.pkl"]
+    if shard is None:
+        return argv + opts + ["SOLVER.BASE_LR", "2e-4", "SOLVER.WARMUP_START_LR", "2e-6",
+                              "SOLVER.COSINE_END_LR", "2e-6"]
+    at = argv.index("--opts")
+    return (argv[:at] + ["--num_shards", "2", "--shard_id", str(shard),
+                         "--init_method", f"tcp://127.0.0.1:{port}"]
+            + argv[at:] + opts + ["TRAIN.BATCH_SIZE", "4", "TEST.BATCH_SIZE", "4",
+                                  "DIST_BACKEND", "gloo"])
+
+
+def _run_counted(runs, work_dir):
+    """Start ``python3 chip_smoke.py --run-net-counts`` for each (name,
+    argv) of ``runs`` at once, each with its output in ``work_dir/<name>.log``;
+    wait for all, at most DIST_RUN_NET_TIMEOUT_S, then kill each with what it
+    spawned. Raises if one failed or hung; returns the wall seconds and
+    every count file's launches, by file name."""
+    import subprocess
+
+    procs = []
+    t0 = time.perf_counter()
+    for name, argv in runs:
+        with open(os.path.join(work_dir, f"{name}.log"), "w") as out:
+            procs.append((name, subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--run-net-counts",
+                 os.path.join(work_dir, f"counts_{name}"), "--", *argv],
+                cwd=ROOT, stdout=out, stderr=subprocess.STDOUT, start_new_session=True)))
+    failed = []
+    try:
+        for name, proc in procs:
+            left = DIST_RUN_NET_TIMEOUT_S - (time.perf_counter() - t0)
+            try:
+                if proc.wait(timeout=max(left, 1.0)) != 0:
+                    failed.append(f"{name} exited {proc.returncode}")
+            except subprocess.TimeoutExpired:
+                failed.append(f"{name} still running after {DIST_RUN_NET_TIMEOUT_S} s")
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                os.killpg(proc.pid, 9)
+                proc.wait()
+    wall = time.perf_counter() - t0
+    if failed:
+        tails = []
+        for name, _ in runs:
+            with open(os.path.join(work_dir, f"{name}.log")) as f:
+                tails.append(f"--- {name}.log:\n" + f.read()[-3000:])
+        raise AssertionError("phase 8c: " + "; ".join(failed) + "\n" + "\n".join(tails))
+    counts = {}
+    for name in sorted(os.listdir(work_dir)):
+        if name.startswith("counts_"):
+            with open(os.path.join(work_dir, name)) as f:
+                counts[name] = json.load(f)
+            os.remove(os.path.join(work_dir, name))
+    return wall, counts
+
+
+def _json_stats(out_dir):
+    with open(os.path.join(out_dir, "stdout.log")) as f:
+        lines = f.read().splitlines()
+    return lines, [json.loads(line.split("json_stats: ", 1)[1])
+                   for line in lines if "json_stats: " in line]
+
+
+def _test_final(out_dir):
+    final = [s for s in _json_stats(out_dir)[1] if s.get("split") == "test_final"]
+    if not final:
+        raise AssertionError(f"{out_dir}: run_net ended without test_final stats")
+    return final[-1]
+
+
+def phase_distributed_run_net(card):
+    """Phase 8c: ``run_net`` as a user launches it on 2 hosts, two
+    processes of ``run_net --num_shards 2 --shard_id 0|1 --init_method
+    tcp://...`` with NUM_GPUS 1 and gloo, both on the one card
+    (``launch_job`` spawns each rank): UniFormer-S's rect recipe at full
+    width, float32, for one epoch (train with ``dp``, checkpoint, gathered
+    eval, test), beside one process at twice a process's batch. Each rank's
+    launches are counted from 0 in its own process (a main path) and must
+    equal the one process's, which must equal the count of its steps' K1
+    and wgrad launches; test_final must equal the one process's, the video
+    scores within 1e-5 and the weights within 2 x lr (phase 3b's gate after
+    AdamW); one checkpoint, written once; then the 2 processes again with
+    SOLVER.MAX_EPOCH 2, which must resume from it. Returns both 2-process
+    runs' launches."""
+    import pickle
+
+    from pmv_tpu_torch.data.loader import construct_loader
+
+    torch.cuda.empty_cache()  # this process's cached blocks, for the 3 processes below
+    work_dir = os.path.join("build", "chip_smoke_distributed_run_net")
+    shutil.rmtree(work_dir, ignore_errors=True)
+    os.makedirs(work_dir)
+    one, two = (os.path.join(work_dir, d) for d in ("one", "two"))
+    cfg = run_net_cfg(_dist_run_net_argv(one, 1))
+    n_steps, n_evals, n_tests = (len(construct_loader(cfg, split))
+                                 for split in ("train", "val", "test"))
+    per_forward = RUN_NET["uniformer"][1]
+    expected = {"depthwise3x3x3": 2 * per_forward * n_steps + per_forward * (n_evals + n_tests),
+                "depthwise3x3x3_wgrad": per_forward * n_steps}
+    zero = {k: 0 for k in expected}
+
+    def two_processes(max_epoch, tag):
+        port = _free_port()
+        return [(f"{tag}_shard{s}", _dist_run_net_argv(two, max_epoch, s, port)) for s in (0, 1)]
+
+    def rank_launches(counts, tag):
+        ranks = {k: v for k, v in counts.items() if ".rank" in k}
+        if sorted(ranks) != [f"counts_{tag}_shard{s}.rank{s}.json" for s in (0, 1)] or any(
+                v != expected for v in ranks.values()) or any(
+                v != zero for k, v in counts.items() if k.endswith(".main.json")):
+            raise AssertionError(f"phase 8c {tag}: launches {counts}, not {expected} a rank")
+        return {k: sum(v[k] for v in ranks.values()) for k in expected}
+
+    wall, counts = _run_counted([("one", _dist_run_net_argv(one, 1))]
+                                + two_processes(1, "two"), work_dir)
+    if counts.pop("counts_one.main.json") != expected:
+        raise AssertionError(f"one process launched otherwise than {expected}: {counts}")
+    paths = [rank_launches(counts, "two")]
+    got, want = _test_final(two), _test_final(one)
+    preds = []
+    ckpts = []
+    for out_dir in (two, one):
+        with open(os.path.join(out_dir, "preds.pkl"), "rb") as f:
+            preds.append(np.asarray(pickle.load(f)["video_preds"]))
+        ckpts.append(torch.load(os.path.join(out_dir, "checkpoints", "checkpoint_epoch_00001.pyth"),
+                                map_location="cpu", weights_only=True)["model_state"])
+    first_lines = _json_stats(two)[0]
+    rec = {
+        "phase": "distributed_run_net_2_processes_gloo", "model": cfg.MODEL.MODEL_NAME,
+        "card": card, "train_steps": n_steps, "launches_per_rank": expected,
+        "test_final_2_processes": got, "test_final_1_process": want,
+        "video_preds_max_abs_err": float(np.abs(preds[0] - preds[1]).max()),
+        "checkpoint_weights_max_abs_err": max(
+            float((ckpts[0][k].float() - v.float()).abs().max()) for k, v in ckpts[1].items()),
+        "wall_s": wall}
+    log(json.dumps(rec))
+    # test_final's accuracies after one epoch from random weights may well be
+    # 0 for both; the predictions and the weights say more.
+    if got != want:
+        raise AssertionError(f"2 processes' test_final {got} != one process's {want}")
+    if rec["video_preds_max_abs_err"] > 1e-5:
+        raise AssertionError(f"2 processes' video scores differ by "
+                             f"{rec['video_preds_max_abs_err']} from one process's")
+    if rec["checkpoint_weights_max_abs_err"] > 2.0001 * cfg.SOLVER.BASE_LR:
+        raise AssertionError(f"2 processes' weights differ by "
+                             f"{rec['checkpoint_weights_max_abs_err']} from one process's")
+    if sum("Saved checkpoint" in line for line in first_lines) != 1 or os.listdir(
+            os.path.join(two, "checkpoints")) != ["checkpoint_epoch_00001.pyth"]:
+        raise AssertionError("the 2-process run did not write its one checkpoint once")
+
+    wall, counts = _run_counted(two_processes(2, "resume"), work_dir)
+    paths.append(rank_launches(counts, "resume"))
+    resumed = _json_stats(two)[0][len(first_lines):]
+    ckpt = os.path.join(two, "checkpoints", "checkpoint_epoch_00001.pyth")
+    if not (any(f"Load from last checkpoint, {ckpt}." in line for line in resumed)
+            and any("Start epoch: 2" in line for line in resumed)):
+        raise AssertionError("the 2-process run did not resume from its checkpoint")
+    if sorted(os.listdir(os.path.join(two, "checkpoints"))) != [
+            "checkpoint_epoch_00001.pyth", "checkpoint_epoch_00002.pyth"]:
+        raise AssertionError("the resumed 2-process run did not write epoch 2's checkpoint")
+    log(json.dumps({"phase": "distributed_run_net_2_processes_resume", "card": card,
+                    "test_final": _test_final(two), "wall_s": wall}))
+    return paths
+
+
+# Planted in a wrapper to see what phase 8b's gates catch
+# (``--plant-wrapper-faults``): gradients reduced in bfloat16 (DDP's
+# bf16_compress_hook; FSDP2's reduce_dtype), FSDP2 gathering bfloat16
+# parameters (param_dtype), and the gradients x 2, as a world of 2 leaves
+# them without its division (a DDP comm hook; FSDP2's divide factor).
+WRAPPER_FAULTS = {"dp": ("bf16_reduce", "unscaled"),
+                  "fsdp": ("bf16_reduce", "bf16_params", "unscaled")}
+
+
+@contextlib.contextmanager
+def _fsdp_policy(fault):
+    """FSDP2's ``fully_shard`` with the mixed-precision policy of ``fault``
+    (else as it is) while the block is open."""
+    import torch.distributed.fsdp as fsdp
+
+    policy = {"bf16_reduce": dict(reduce_dtype=torch.bfloat16),
+              "bf16_params": dict(param_dtype=torch.bfloat16)}.get(fault)
+    original = fsdp.fully_shard
+    if policy is not None:
+        fsdp.fully_shard = functools.partial(
+            original, mp_policy=fsdp.MixedPrecisionPolicy(**policy))
+    try:
+        yield
+    finally:
+        fsdp.fully_shard = original
+
+
+def _plant(model, wrapped, fault):
+    """``fault`` (of WRAPPER_FAULTS) in a wrapped model, where it is not
+    planted at wrapping (``_fsdp_policy``): DDP's comm hooks, FSDP2's
+    gradient divide factor."""
+    from torch.distributed.algorithms.ddp_comm_hooks import default_hooks
+    from torch.distributed.fsdp import FSDPModule
+
+    ddp = isinstance(wrapped, torch.nn.parallel.DistributedDataParallel)
+    if fault == "bf16_reduce" and ddp:
+        wrapped.register_comm_hook(None, default_hooks.bf16_compress_hook)
+    elif fault == "unscaled" and ddp:
+        wrapped.register_comm_hook(None, lambda state, bucket: default_hooks.allreduce_hook(
+            None, bucket).then(lambda fut: fut.value() * 2.0))
+    elif fault == "unscaled":
+        for m in model.modules():
+            if isinstance(m, FSDPModule):
+                m.set_gradient_divide_factor(0.5)
+
+
+def _wrapped_steps(cfg, strategy, batch, device, timed, fault=None):
+    """From the seeded init, one train step of MViTv2-S under ``strategy``
+    ("dp", "fsdp"; else unwrapped), with ``fault`` planted in the wrapper
+    when given, then ``timed`` more (a main path: launch counts zeroed just
+    before them, read just after). Returns (metrics, gradients, state) after
+    the first, the timed steps' ms a step and launches, and the count of
+    weights."""
+    from pmv_tpu_torch.engine.steps import init_state, make_train_step
+    from pmv_tpu_torch.models import build_model
+    from pmv_tpu_torch.parallel import distributed
+
+    model = build_model(cfg, device=device, seed=0)
+    wrapped = None
+    if strategy in ("dp", "fsdp"):
+        with _fsdp_policy(fault):
+            wrapped = distributed.wrap_model(model, strategy, device)
+        _plant(model, wrapped, fault)
+    state = init_state(cfg, model, wrapped=wrapped)
+    step = make_train_step(cfg, device=device, seed=0)
+    metrics = {k: v.cpu() for k, v in step(state, batch, TRAIN_LR).items()}
+    first = (metrics,
+             {k: distributed.full(p.grad).detach().float().cpu()
+              for k, p in model.named_parameters()},
+             {k: distributed.full(v).detach().cpu() for k, v in model.state_dict().items()})
+    n_params = sum(p.numel() for p in model.parameters())
+    torch.cuda.synchronize()
+    _zero_launch_counts()  # the main path starts here
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        step(state, batch, TRAIN_LR)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / max(timed, 1) * 1e3
+    launches = _launch_counts()  # ... and ends here
+    del state, model, wrapped
+    torch.cuda.empty_cache()
+    return first, ms, launches, n_params
+
+
+@contextlib.contextmanager
+def _nccl_world_of_one():
+    """A world of one over NCCL on the card, cuDNN deterministic, while the
+    block is open; yields MViTv2-S's bfloat16 and float32 cfgs, a batch of 8
+    and the device."""
+    from pmv_tpu_torch.parallel import distributed
+
+    cfg = _train_cfg()  # bfloat16
+    f32 = cfg.clone()
+    f32.TRAIN.MIXED_PRECISION = False
+    rng = np.random.default_rng(9)
+    size = cfg.DATA.TRAIN_CROP_SIZE
+    batch = {"frames": rng.integers(0, 256, (8, cfg.DATA.NUM_FRAMES, size, size, 3), np.uint8),
+             "labels": rng.integers(0, cfg.MODEL.NUM_CLASSES, 8)}
+    device = torch.device("cuda", 0)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    distributed.init_distributed(0, 1, f"tcp://127.0.0.1:{_free_port()}", device, "nccl")
+    try:
+        yield cfg, f32, batch, device
+    finally:
+        distributed.destroy()
+        torch.backends.cudnn.deterministic = deterministic
+
+
+# bfloat16 gradients of the dp and fsdp steps against the unwrapped step
+# (relative L2). Sound wrappers read as a second unwrapped run does, the
+# bfloat16 floor of atomic sums that differ from run to run: 3.30e-3 to
+# 3.75e-3 on an H100 80GB HBM3 at 700 W (PERF.md). Of the planted faults
+# (``--plant-wrapper-faults``) the unscaled gradients read 1.0; a bfloat16
+# reduction reads 3.47e-3 (dp) and 3.58e-3 (fsdp), inside the floor, and
+# only the float32 gate tells it apart (1.66e-3 against 1e-4); FSDP2's
+# bfloat16 parameters stop the step.
+BF16_WRAPPER_LIMIT = 1e-2
+
+
+def phase_distributed_nccl(card):
+    """Phase 8b: a world of one over NCCL, made here. MViTv2-S (the bench
+    recipe, batch 8, cuDNN deterministic): the ``dp`` and the ``fsdp`` step
+    against the unwrapped step from the same weights and draws, in float32
+    under phase 3b's gates, and in bfloat16 with the gradients within
+    BF16_WRAPPER_LIMIT (beside a second unwrapped run's reading: bfloat16
+    gradients summed by atomics differ from run to run); then 5 timed
+    bfloat16 steps of each (a main path): the wrappers' overhead in ms.
+    Returns the launches of the wrapped timed steps."""
+    with _nccl_world_of_one() as (cfg, f32, batch, device):
+        exact = {s: _wrapped_steps(f32, s, batch, device, 0) for s in (None, "dp", "fsdp")}
+        timed = {s: _wrapped_steps(cfg, s, batch, device, DIST_TIMED_STEPS)
+                 for s in (None, "again", "dp", "fsdp")}
+    for strategy in ("dp", "fsdp"):
+        _held_to_step(f"distributed_nccl_world1_{strategy}_vs_unwrapped_f32",
+                      exact[strategy][0], exact[None][0], TRAIN_LR, exact[None][3],
+                      model=f32.MODEL.MODEL_NAME, card=card, batch=8)
+    plain_ms = timed[None][1]
+    for strategy in ("again", "dp", "fsdp"):
+        first, ms, launches, _ = timed[strategy]
+        rec = _step_readings(f"distributed_nccl_world1_{strategy}_vs_unwrapped_bf16", first,
+                             timed[None][0], model=cfg.MODEL.MODEL_NAME, card=card, batch=8,
+                             ms_per_step=ms, unwrapped_ms_per_step=plain_ms,
+                             overhead_ms=ms - plain_ms, launches=launches,
+                             limit=BF16_WRAPPER_LIMIT)
+        if strategy != "again" and rec["grad_rel_err"] > BF16_WRAPPER_LIMIT:
+            raise AssertionError(f"{strategy}: bfloat16 gradients differ by "
+                                 f"{rec['grad_rel_err']} (relative L2)")
+        expected = {k: v * DIST_TIMED_STEPS for k, v in step_launches(MVIT_K1).items()}
+        if launches != expected:
+            raise AssertionError(f"{strategy}: {launches} launches, not {expected}")
+    return [timed["dp"][2], timed["fsdp"][2]]
+
+
+def plant_wrapper_faults(card):
+    """``--plant-wrapper-faults``: phase 8b's first step in float32 and in
+    bfloat16, the sound wrappers and each planted fault of WRAPPER_FAULTS
+    against the unwrapped step, beside a second unwrapped run: the readings
+    that phase 8b's limits have to tell apart. Logs them; a fault that
+    raises is logged with its error."""
+    with _nccl_world_of_one() as (cfg, f32, batch, device):
+        for tag, c in (("f32", f32), ("bf16", cfg)):
+            ref = _wrapped_steps(c, None, batch, device, 0)[0]
+            runs = [("again", None, None), ("dp", "dp", None), ("fsdp", "fsdp", None)]
+            runs += [(f"{s}_{f}", s, f) for s, faults in WRAPPER_FAULTS.items() for f in faults]
+            for name, strategy, fault in runs:
+                phase = f"planted_{name}_vs_unwrapped_{tag}"
+                try:
+                    got = _wrapped_steps(c, strategy, batch, device, 0, fault)[0]
+                except Exception as e:  # logged: a fault may stop the step
+                    log(json.dumps({"phase": phase, "error": str(e).splitlines()[0]}))
+                    continue
+                _step_readings(phase, got, ref, card=card, fault=fault,
+                               bf16_limit=BF16_WRAPPER_LIMIT)
 
 
 def kernels_line(records, launches):
@@ -1134,17 +1786,24 @@ def kernels_line(records, launches):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write every record to this JSON file")
+    parser.add_argument("--plant-wrapper-faults", action="store_true",
+                        help="only build the kernels and log phase 8b's readings with "
+                        "faults planted in the wrappers (WRAPPER_FAULTS)")
+    parser.add_argument("--run-net-counts", metavar="COUNTS",
+                        help="only run run_net with the arguments after --, writing each "
+                        "process's kernel launches beside COUNTS (phase 8c's processes)")
+    parser.add_argument("run_net_argv", nargs="*", help=argparse.SUPPRESS)
     args = parser.parse_args()
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if args.run_net_counts:
+        return run_net_counted(args.run_net_counts, args.run_net_argv)
     from pmv_tpu_torch.ops import build as kernel_build
     from pmv_tpu_torch.tools.timing import card_line
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
+    float32_without_tf32()
     torch.set_num_threads(os.cpu_count() or 1)
 
     # Phase 1: the card, and the kernel build.
@@ -1161,6 +1820,10 @@ def main():
               if any(int(n) for n in re.findall(r"(\d+) bytes spill", line))]
     if spills:
         raise AssertionError("ptxas reports spills:\n" + "\n".join(spills))
+    if args.plant_wrapper_faults:
+        plant_wrapper_faults(card)
+        log(card)
+        return 0
 
     # Phase 2: every kernel against its plain version.
     flush = torch.empty(96 * 2**20, dtype=torch.uint8, device="cuda")
@@ -1204,6 +1867,13 @@ def main():
     out_dir = os.path.join("build", "chip_smoke_run_net_x3d")
     shutil.rmtree(out_dir, ignore_errors=True)
     paths += phase_run_net(card, "x3d", out_dir)
+
+    # Phase 8: the distributed paths.
+    log(json.dumps({"phase": "tensorboard_import",
+                    "torch.utils.tensorboard": tensorboard_imports()}))
+    paths += [phase_distributed_gloo()]
+    paths += phase_distributed_run_net(card)
+    paths += phase_distributed_nccl(card)
     launches = {k: sum(p[k] for p in paths) for k in paths[0]}
 
     line = kernels_line(records, launches)

@@ -399,12 +399,14 @@ _C.SOLVER.BETAS = (0.9, 0.999)
 _C.SOLVER.ZERO_WD_1D_PARAM = False
 
 # ----------------------------------------------------------------------- MISC
-_C.NUM_GPUS = 1  # kept name for config-surface parity; = chips per host
+_C.NUM_GPUS = 1  # processes (one per card) on each host
 _C.NUM_SHARDS = 1
 _C.SHARD_ID = 0
 _C.OUTPUT_DIR = "."
 _C.RNG_SEED = 1
-_C.DIST_BACKEND = "ici"  # parity key; collectives ride ICI/DCN via XLA
+# torch.distributed backend: "nccl", "gloo", or "ici" (the JAX package's
+# value): NCCL on CUDA, gloo on the CPU (parallel/distributed.py).
+_C.DIST_BACKEND = "ici"
 _C.LOG_PERIOD = 10
 _C.LOG_MODEL_INFO = True
 _C.TASK = ""

@@ -29,8 +29,8 @@ def parse_args(argv=None):
     )
     parser.add_argument(
         "--init_method",
-        help="Rendezvous address of a multi-process job, e.g. tcp://host:port "
-        "(multi-process runs are not ported yet).",
+        help="Rendezvous address of a multi-process job, tcp://host:port "
+        "(the host of shard 0).",
         default="tcp://localhost:9999",
         type=str,
     )

@@ -4,11 +4,21 @@ collated numpy batches.
 Counterpart of `pmv_tpu/data/loader.py` (`MViT/slowfast/datasets/
 loader.py`). The decoder is native code that releases the GIL, so threads
 decode in parallel without pickling every clip between processes, as
-``torch.utils.data.DataLoader``'s worker processes would. Each rank draws
-its slice of the epoch's permutation (``DistributedSampler``'s role); the
-rank and world size come from ``torch.distributed`` when it is initialised,
-else 0 and 1. The order of a (RNG_SEED, epoch) is the JAX package's.
-Batches are numpy arrays; ``engine/prefetch.py`` moves them to the card.
+``torch.utils.data.DataLoader``'s worker processes would. The order of a
+(RNG_SEED, epoch) is the JAX package's. Batches are numpy arrays;
+``engine/prefetch.py`` moves them to the card.
+
+Ranks (``DistributedSampler``'s role; the rank and world size come from
+``torch.distributed`` when it is initialised, else 0 and 1): a step's
+global batch is the ``batch_size x world_size`` samples that one process
+would take at that step, and rank r takes rows [r b, (r + 1) b) of it, so
+the ranks together run the one-process job's steps. The JAX package gives
+each host a strided slice of the order instead (`pmv_tpu/data/loader.py:
+67`): the same samples in each step, in another order, and hosts whose
+slices differ in length take different counts of training steps. Here every
+rank has ``len(loader)`` steps; in a split without ``drop_last`` a rank
+whose rows of the last step are none yields one batch fewer
+(``parallel.distributed.lockstep`` evens them out).
 """
 
 import queue
@@ -54,31 +64,26 @@ class DataLoader:
         if hasattr(self.dataset, "_set_epoch_num"):
             self.dataset._set_epoch_num(epoch)
 
-    def _epoch_indices(self):
+    def _batches(self):
+        """This rank's sample indices of each step of the epoch."""
         n = len(self.dataset)
         if self.shuffle:
             order = np.random.default_rng((self.seed, self.epoch)).permutation(n)
         else:
             order = np.arange(n)
-        shard = order[self.rank::self.world_size]
-        if self.drop_last:
-            shard = shard[:(len(shard) // self.batch_size) * self.batch_size]
-        return shard
+        step = self.batch_size * self.world_size
+        starts = (s * step + self.rank * self.batch_size for s in range(len(self)))
+        return [b for b in (order[i:i + self.batch_size] for i in starts) if len(b)]
 
     def __len__(self):
-        shard_len = (len(self.dataset) + self.world_size - 1) // self.world_size
+        """Steps in an epoch, the same on every rank."""
+        step = self.batch_size * self.world_size
         if self.drop_last:
-            return shard_len // self.batch_size
-        return (shard_len + self.batch_size - 1) // self.batch_size
+            return len(self.dataset) // step
+        return (len(self.dataset) + step - 1) // step
 
     def __iter__(self):
-        indices = self._epoch_indices()
-        batches = [
-            indices[i:i + self.batch_size]
-            for i in range(0, len(indices), self.batch_size)
-        ]
-        if self.drop_last:
-            batches = [b for b in batches if len(b) == self.batch_size]
+        batches = self._batches()
         out_q = queue.Queue(maxsize=self.prefetch_depth)
         stop = threading.Event()
 
@@ -147,7 +152,8 @@ def multiple_samples_collate(samples):
 def construct_loader(cfg, split, dataset=None):
     """The loader of ``split`` (`loader.py:112-169`): train shuffles and
     drops the last partial batch; val and test keep the order and every
-    sample."""
+    sample. A process takes TRAIN.BATCH_SIZE (TEST.BATCH_SIZE) / NUM_GPUS
+    samples a step."""
     assert split in ["train", "val", "test"]
     if split == "train" and (cfg.MULTIGRID.SHORT_CYCLE or cfg.MULTIGRID.LONG_CYCLE):
         raise NotImplementedError("multigrid training is not ported")
@@ -155,6 +161,7 @@ def construct_loader(cfg, split, dataset=None):
         dataset_name, batch_size = cfg.TRAIN.DATASET, cfg.TRAIN.BATCH_SIZE
     else:
         dataset_name, batch_size = cfg.TEST.DATASET, cfg.TEST.BATCH_SIZE
+    batch_size //= max(cfg.NUM_GPUS, 1)  # per process, as in PySlowFast
     shuffle = drop_last = split == "train"
     if dataset is None:
         dataset = build_dataset(dataset_name, cfg, split)

@@ -2,7 +2,7 @@
 
 Counterpart of `pmv_tpu/data/mixup.py` (the reference's timm port,
 `MViT/slowfast/datasets/mixup.py:22-194`): batch-level mixing against the
-batch flipped on axis 0, Beta-sampled lam, mixup <-> cutmix switching, and
+batch flipped on axis 0 (the global batch in a multi-process job), Beta-sampled lam, mixup <-> cutmix switching, and
 one-hot soft targets with label smoothing. Inputs are channels-last video
 batches [B, T, H, W, C].
 
@@ -22,13 +22,18 @@ def _f32(v):
     return torch.as_tensor(v, dtype=torch.float32)
 
 
-def mixup_target(labels, num_classes, lam, smoothing):
-    """Soft targets: lam * onehot(y) + (1-lam) * onehot(flip(y)), smoothed."""
+def _flip(t):
+    return t.flip(0)
+
+
+def mixup_target(labels, num_classes, lam, smoothing, flip=_flip):
+    """Soft targets: lam * onehot(y) + (1-lam) * onehot(flip(y)), smoothed.
+    ``flip`` gives each row's partner, the batch reversed on axis 0."""
     off_value = smoothing / num_classes
     on_value = 1.0 - smoothing + off_value
     lam = _f32(lam)
     y1 = F.one_hot(labels.long(), num_classes).float() * (on_value - off_value) + off_value
-    y2 = F.one_hot(labels.flip(0).long(), num_classes).float() * (on_value - off_value) + off_value
+    y2 = F.one_hot(flip(labels).long(), num_classes).float() * (on_value - off_value) + off_value
     return lam * y1 + (1.0 - lam) * y2
 
 
@@ -123,20 +128,22 @@ class MixUp:
         cx = int(torch.randint(0, width, (), generator=generator))
         return MixUpDraws(apply, use_cutmix, _f32(lam_mix), _f32(lam_cut), cy, cx)
 
-    def apply(self, x, labels, draws):
-        """Returns (mixed x, soft targets [B, num_classes] float32)."""
-        lam = 1.0
-        if draws.apply:
-            x_flip = x.flip(0)
-            if draws.use_cutmix:
-                height, width = x.shape[-3], x.shape[-2]
-                (yl, yh, xl, xh), lam = _rand_bbox(
-                    height, width, draws.lam_cut, draws.cy, draws.cx
-                )
-                x = x.clone()
-                x[..., yl:yh, xl:xh, :] = x_flip[..., yl:yh, xl:xh, :]
-            else:
-                lam = draws.lam_mix
-                x = x * lam + x_flip * (1.0 - lam)
-        targets = mixup_target(labels, self.num_classes, lam, self.label_smoothing)
+    def apply(self, x, labels, draws, flip=_flip):
+        """Returns (mixed x, soft targets [B, num_classes] float32).
+        ``flip(t)`` gives the partner rows of ``t``'s rows: the batch
+        reversed on axis 0, or on one rank of a multi-process job the rows
+        that the global batch reversed puts there (``engine/steps.py``). It
+        is called only when the batch mixes."""
+        if not draws.apply:
+            return x, mixup_target(labels, self.num_classes, 1.0, self.label_smoothing)
+        x_flip = flip(x)
+        if draws.use_cutmix:
+            height, width = x.shape[-3], x.shape[-2]
+            (yl, yh, xl, xh), lam = _rand_bbox(height, width, draws.lam_cut, draws.cy, draws.cx)
+            x = x.clone()
+            x[..., yl:yh, xl:xh, :] = x_flip[..., yl:yh, xl:xh, :]
+        else:
+            lam = draws.lam_mix
+            x = x * lam + x_flip * (1.0 - lam)
+        targets = mixup_target(labels, self.num_classes, lam, self.label_smoothing, flip)
         return x, targets

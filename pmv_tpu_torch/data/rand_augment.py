@@ -296,6 +296,20 @@ class RandAugmentDraws:
     magnitude: torch.Tensor  # float32
     negate: torch.Tensor  # bool
 
+    def rows(self, start, stop, batch):
+        """The draws of rows [start, stop) of a ``batch``-row batch drawn
+        with these: the groups that hold them. A group's ops see all its
+        rows at once (``_contrast`` takes their mean), so the rows must be
+        whole groups."""
+        chunk = batch // self.op_idx.shape[0]
+        if start % chunk or stop % chunk:
+            raise ValueError(
+                f"rows [{start}, {stop}) cut a RandAugment group of {chunk} rows: "
+                "set AUG.RA_GROUPS so that each process's rows are whole groups"
+            )
+        keep = slice(start // chunk, stop // chunk)
+        return RandAugmentDraws(self.op_idx[keep], self.magnitude[keep], self.negate[keep])
+
 
 class RandAugment:
     """RandAugment: ``num_layers`` ops per group, applied in sequence."""

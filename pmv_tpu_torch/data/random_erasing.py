@@ -28,6 +28,13 @@ class ErasingDraws:
     width: torch.Tensor
     fill: torch.Tensor = None  # float32, the shape of the batch
 
+    def rows(self, start, stop):
+        """The draws of rows [start, stop)."""
+        keep = slice(start, stop)
+        return ErasingDraws(self.apply[keep], self.top[keep], self.left[keep],
+                            self.height[keep], self.width[keep],
+                            None if self.fill is None else self.fill[keep])
+
 
 def sample_random_erasing(
     shape,

@@ -19,6 +19,12 @@ The head's dropout gets an all-ones keep mask (it follows every BatchNorm,
 so it cannot touch the statistics); drop-connect masks are drawn from a
 generator seeded with 0 (the JAX package's ``PRNGKey(0)``), as train mode
 drops paths there too.
+
+In a multi-process job each rank runs its rows of the global batches: the
+BatchNorms take the global batch statistics (``models/batchnorm.py``), and
+the masks are drawn at the global batch's shape, each rank taking its rows,
+so the statistics are those of the JAX package's pass over the global
+batches.
 """
 
 from itertools import islice
@@ -28,7 +34,7 @@ import torch
 from pmv_tpu_torch.engine import steps
 from pmv_tpu_torch.models.batchnorm import frozen_stats, recorded_stats
 from pmv_tpu_torch.utils import logging as pmv_logging
-from pmv_tpu_torch.utils.device import resolve_device
+from pmv_tpu_torch.utils.device import rank_and_world_size, resolve_device
 
 logger = pmv_logging.get_logger(__name__)
 
@@ -50,14 +56,19 @@ def calculate_and_update_precise_bn(loader, state, cfg, device=None):
         was_training = model.training
         model.train()
         count = 0
+        rank, world = rank_and_world_size()
         with frozen_stats(model):
             for batch in islice(loader, num_batches):
                 frames = torch.as_tensor(batch["frames"]).to(device, non_blocking=True)
                 x = steps.pack_pathways(cfg, preprocess(frames))[0]
                 b = x.shape[0]
-                keep = model.sample_head_dropout_mask(b, generator, device)
-                model(x, drop_path_masks=model.sample_drop_path_masks(b, generator, device),
-                      head_dropout_mask=None if keep is None else torch.ones_like(keep))
+                # The global batch's masks, this rank's rows of them.
+                keep = model.sample_head_dropout_mask(b * world, generator, device)
+                drop_path = steps.slice_rows(
+                    model.sample_drop_path_masks(b * world, generator, device),
+                    rank * b, (rank + 1) * b, b * world)
+                model(x, drop_path_masks=drop_path,
+                      head_dropout_mask=None if keep is None else torch.ones_like(keep[:b]))
                 count += 1
         model.train(was_training)
         if count == 0:

@@ -39,6 +39,21 @@ batch transposed, whose statistics are thrown away; then ``where(pm, ...)``.
 At eval BatchNorm reads its running statistics, and the split stays exact.
 MODEL.FROZEN_BN holds the running statistics still in training
 (`steps.py:223-227`).
+
+In a multi-process job (``parallel/distributed.py``) a rank's step gives the
+numbers of the JAX step on the global batch, of which rank r holds rows
+[r b, (r + 1) b): the draws are made at the global batch's shape from the
+same seed on every rank, and each rank takes its rows; MixUp's partner rows
+come from rank W - 1 - r; BatchNorm's statistics are global
+(``models/batchnorm.py``); where a forward runs collectives (BatchNorm's
+in training, FSDP's) whether any row of the global batch is portrait is
+decided across ranks, and then every rank takes the select, so that each
+runs the same forwards, and so the same collectives, as the others
+(``portrait_route``; elsewhere each rank splits its own rows); the gradient
+is that of the global mean loss (DDP or FSDP average the ranks' gradients),
+the grad norm is taken over the whole gradient, every shard of it, and the
+loss and top-k errors are averaged over the ranks. The step calls ``state.wrapped``, the model wrapped for the
+strategy, once per step: DDP expects one forward per backward.
 """
 
 import numpy as np
@@ -51,7 +66,8 @@ from pmv_tpu_torch.engine.train_state import TrainState
 from pmv_tpu_torch.models import optimizer as optim
 from pmv_tpu_torch.models.batchnorm import frozen_stats, has_batchnorm
 from pmv_tpu_torch.models.losses import get_loss_func
-from pmv_tpu_torch.utils.device import resolve_device
+from pmv_tpu_torch.parallel import distributed
+from pmv_tpu_torch.utils.device import rank_and_world_size, resolve_device
 
 
 class Preprocess:
@@ -145,6 +161,58 @@ def portrait_rows(pm, batch_size):
     return pm if pm.any() else None
 
 
+def portrait_route(model, pm, batch_size, train):
+    """(route, flags): how a batch's rows run by orientation, and
+    ``portrait_rows``. The JAX package's whole-batch select
+    (``select_by_orientation``) where the forwards must be the whole
+    batch's or the same on every rank: BatchNorm in training, whose
+    statistics cover every row (every rank's in a multi-process job), and,
+    in a multi-process job, FSDP, which gathers each block's parameters in
+    every forward. There the decision is taken across ranks: the flags are
+    all False, not None, on a rank without portrait rows when another rank
+    has some, so that every rank runs both passes and the same collectives.
+    Elsewhere (MViT's train step, any eval step, under ``dp``) each row runs
+    once, in its orientation (``forward_by_orientation``), which runs no
+    collective."""
+    pm = portrait_rows(pm, batch_size)
+    world = rank_and_world_size()[1]
+    sharded = world > 1 and distributed.is_sharded(next(model.parameters()))
+    if not (train and has_batchnorm(model) or sharded):
+        return forward_by_orientation, pm
+    if world > 1 and distributed.any_across_ranks(pm is not None) and pm is None:
+        pm = np.zeros(batch_size, bool)
+    return select_by_orientation, pm
+
+
+def slice_rows(masks, start, stop, batch):
+    """Rows [start, stop) of a ``batch``-row batch's per-row masks (a mask
+    of k x ``batch`` rows holds k rows a clip, clip by clip: UniFormer's
+    split blocks), or of each mask in a nested list or tuple of them; None
+    stays None."""
+    if masks is None:
+        return None
+    if isinstance(masks, (list, tuple)):
+        return type(masks)(slice_rows(m, start, stop, batch) for m in masks)
+    k = masks.shape[0] // batch
+    return masks[start * k:stop * k]
+
+
+def local_draws(draws, start, stop, batch):
+    """The draws of rows [start, stop) of a ``batch``-row batch: per-row
+    draws sliced, RandAugment's groups that hold the rows, MixUp's scalars
+    as they are."""
+    if (start, stop) == (0, batch):
+        return draws
+    out = dict(draws)
+    if "rand_augment" in draws:
+        out["rand_augment"] = draws["rand_augment"].rows(start, stop, batch)
+    if "erasing" in draws:
+        out["erasing"] = draws["erasing"].rows(start, stop)
+    for key in ("drop_path", "dropout"):
+        out[key] = slice_rows(draws.get(key), start, stop, batch)
+    return out
+
+
 def forward_by_orientation(model, x, pm, drop_path_masks=None, head_dropout_mask=None):
     """``model`` on each row of ``x`` [B, T, H, W, C] in its orientation:
     rows where ``pm`` (a host bool array, or None) is set run transposed
@@ -201,7 +269,9 @@ def make_train_step(cfg, device=None, seed=0):
     also the JAX package's ``make_train_step(model_pm=...)``. The step
     updates ``state`` in place and returns "loss", "grad_norm" (before
     clipping), "top1_err", "top5_err" and "nan" as tensors on the device, so
-    that the host reads them only when it logs.
+    that the host reads them only when it logs. In a multi-process job the
+    batch is this rank's rows, ``draws`` are those of the global batch, and
+    the metrics are the global batch's (the module docstring).
     """
     device = resolve_device(device)
     loss_fun = get_loss_func(cfg.MODEL.LOSS_FUNC)
@@ -240,16 +310,23 @@ def make_train_step(cfg, device=None, seed=0):
             )
         return draws
 
+    def partner_rows_flipped(t):  # the batch reversed, in one process
+        return distributed.partner_rows(t).flip(0)
+
     def train_step(state: TrainState, batch, lr, draws=None):
         model, optimizer = state.model, state.optimizer
         model.train()
         frames = torch.as_tensor(batch["frames"]).to(device, non_blocking=True)
         labels = torch.as_tensor(batch["labels"]).to(device, non_blocking=True)
-        draws = sample_draws(model, tuple(frames.shape), draws or {}, state.step)
+        rank, world = rank_and_world_size()
+        b = frames.shape[0]
+        shape = (b * world, *frames.shape[1:])
+        draws = local_draws(sample_draws(model, shape, draws or {}, state.step),
+                            rank * b, (rank + 1) * b, shape[0])
 
         x = preprocess(frames, draws)
         if mixup_fn is not None:
-            x, targets = mixup_fn.apply(x, labels, draws["mixup"])
+            x, targets = mixup_fn.apply(x, labels, draws["mixup"], partner_rows_flipped)
         elif cfg.MODEL.LOSS_FUNC == "soft_cross_entropy":
             targets = mixup_target(
                 labels, cfg.MODEL.NUM_CLASSES, 1.0, cfg.MIXUP.LABEL_SMOOTH_VALUE
@@ -257,13 +334,14 @@ def make_train_step(cfg, device=None, seed=0):
         else:
             targets = labels
         inputs = pack_pathways(cfg, x)
-        route = select_by_orientation if has_batchnorm(model) else forward_by_orientation
+        route, pm = portrait_route(model, batch.get("pm"), b, train=True)
+        args = (inputs[0], pm)
+        kwargs = dict(drop_path_masks=draws["drop_path"], head_dropout_mask=draws["dropout"])
         with frozen_stats(model, cfg.MODEL.FROZEN_BN):
-            preds = route(
-                model, inputs[0], portrait_rows(batch.get("pm"), frames.shape[0]),
-                drop_path_masks=draws["drop_path"],
-                head_dropout_mask=draws["dropout"],
-            )
+            if state.wrapped is None:
+                preds = route(model, *args, **kwargs)
+            else:
+                preds = state.wrapped(route, *args, **kwargs)
         loss = loss_fun(preds.float(), targets)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
@@ -295,12 +373,16 @@ def make_train_step(cfg, device=None, seed=0):
                 top = _top_k(metric_preds, min(5, preds.shape[-1]))
                 correct1 = (top[:, :1] == metric_labels[:, None]).any(dim=1)
                 correct5 = (top == metric_labels[:, None]).any(dim=1)
-            loss = loss.detach()
+            loss, top1_err, top5_err = distributed.all_reduce_mean(torch.stack([
+                loss.detach(),
+                (1.0 - correct1.float().mean()) * 100.0,
+                (1.0 - correct5.float().mean()) * 100.0,
+            ])).unbind()
             return {
                 "loss": loss,
                 "grad_norm": grad_norm,
-                "top1_err": (1.0 - correct1.float().mean()) * 100.0,
-                "top5_err": (1.0 - correct5.float().mean()) * 100.0,
+                "top1_err": top1_err,
+                "top5_err": top5_err,
                 "nan": ~(torch.isfinite(loss) & torch.isfinite(grad_norm)),
             }
 
@@ -317,7 +399,10 @@ def make_eval_step(cfg, model, device=None):
     ``device`` (CUDA by default; raises without a CUDA device unless
     ``device="cpu"``), which must be the model's device. Rows that ``pm``
     marks run through the portrait specialization: this is also the JAX
-    package's ``_make_pm_eval_step`` (`train.py:183-199`)."""
+    package's ``_make_pm_eval_step`` (`train.py:183-199`). In a
+    multi-process job every rank calls it the same number of times; under
+    ``fsdp`` every rank takes the select (exact at eval), so that each runs
+    the same forwards (``portrait_route``)."""
     device = resolve_device(device)
     preprocess = make_eval_preprocess_fn(cfg, device)
 
@@ -326,7 +411,8 @@ def make_eval_step(cfg, model, device=None):
         model.eval()
         frames = torch.as_tensor(frames).to(device, non_blocking=True)
         inputs = pack_pathways(cfg, preprocess(frames))
-        return forward_by_orientation(model, inputs[0], portrait_rows(pm, frames.shape[0]))
+        route, pm = portrait_route(model, pm, frames.shape[0], train=False)
+        return route(model, inputs[0], pm)
 
     return eval_step
 
@@ -352,9 +438,11 @@ def make_feat_step(cfg, model, device=None):
     return feat_step
 
 
-def init_state(cfg, model, optimizer=None):
+def init_state(cfg, model, optimizer=None, wrapped=None):
     """TrainState at step 0 over ``model`` (`init_state`, `:406-445`); the
-    optimizer is built from the model's parameters when not given."""
+    optimizer is built from the model's parameters when not given, which
+    must come after ``wrapped`` was made from ``model`` (FSDP's parameters
+    are its shards)."""
     if optimizer is None:
         optimizer = optim.construct_optimizer(model, cfg)
-    return TrainState(step=0, model=model, optimizer=optimizer)
+    return TrainState(step=0, model=model, optimizer=optimizer, wrapped=wrapped)

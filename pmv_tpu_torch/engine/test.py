@@ -12,8 +12,17 @@ Counterpart of `pmv_tpu/engine/test.py`.
 - ``test``: TEST.PROCESS, the checkpoint priority chain, then features, the
   DENSE_SPATIAL_CROP ratio sweep (`test_net.py:358-379`) or one pass.
 
-Not ported, each raising NotImplementedError: detection (AVA), VIS_MASK
-and the gather across ranks.
+In a multi-process job every rank runs its shard of the test split with the
+whole model (read from the same checkpoint), and the predictions, labels
+and clip indices of each step are gathered across ranks into every rank's
+TestMeter (the JAX package's ``process_allgather``, `test.py:31-36,
+52-54`), so each clip is scored once; rank 0 logs and writes the results.
+Shards of unequal length are handled: a rank whose shard ran out runs its
+last batch again and contributes nothing (``distributed.lockstep``).
+TENSORBOARD.ENABLE opens no writer here: the JAX package's ``test`` writes
+only in its VIS_MASK path.
+
+Not ported, each raising NotImplementedError: detection (AVA) and VIS_MASK.
 """
 
 import os
@@ -26,6 +35,7 @@ import torch
 from pmv_tpu_torch.data import loader as loader_mod
 from pmv_tpu_torch.engine import steps
 from pmv_tpu_torch.models import build_model
+from pmv_tpu_torch.parallel import distributed
 from pmv_tpu_torch.utils import checkpoint as cu
 from pmv_tpu_torch.utils import logging as pmv_logging
 from pmv_tpu_torch.utils import meters as meters_mod
@@ -38,9 +48,10 @@ logger = pmv_logging.get_logger(__name__)
 def perform_test(test_loader, eval_step, test_meter):
     """Run ``eval_step`` over ``test_loader`` (any iterable of dicts with
     "frames", "labels" and "index", and "pm" where rows may be portrait)
-    and ensemble into ``test_meter``. Returns (test_meter, final stats)."""
+    and ensemble into ``test_meter``. Returns (test_meter, final stats).
+    In a multi-process job each step's clips are gathered from every rank."""
     test_meter.iter_tic()
-    for cur_iter, batch in enumerate(test_loader):
+    for cur_iter, (batch, real) in enumerate(distributed.lockstep(test_loader)):
         test_meter.data_toc()
         if np.any(batch.get("pm", False)):
             preds = eval_step(batch["frames"], batch["pm"])
@@ -48,9 +59,10 @@ def perform_test(test_loader, eval_step, test_meter):
             preds = eval_step(batch["frames"])
         preds = preds.float().cpu().numpy()  # waits for the device
         test_meter.iter_toc()
-        test_meter.update_stats(
-            preds, np.asarray(batch["labels"]), np.asarray(batch["index"])
-        )
+        keep = slice(None) if real else slice(0)
+        preds, labels, index = distributed.gather_host(
+            [preds[keep], np.asarray(batch["labels"])[keep], np.asarray(batch["index"])[keep]])
+        test_meter.update_stats(preds, labels, index)
         test_meter.log_iter_stats(cur_iter)
         test_meter.iter_tic()
     stats = test_meter.finalize_metrics()
@@ -63,9 +75,12 @@ def extract_features(cfg, model, device):
     test_loader = loader_mod.construct_loader(cfg, "test")
     feat_step = steps.make_feat_step(cfg, model, device=device)
     feats, indices = [], []
-    for batch in test_loader:
-        feats.append(feat_step(batch["frames"]).cpu().numpy())
-        indices.append(batch["index"])
+    for batch, real in distributed.lockstep(test_loader):
+        keep = slice(None) if real else slice(0)
+        feat, index = distributed.gather_host(
+            [feat_step(batch["frames"]).cpu().numpy()[keep], np.asarray(batch["index"])[keep]])
+        feats.append(feat)
+        indices.append(index)
     out = {"features": np.concatenate(feats), "index": np.concatenate(indices)}
     if pmv_logging.is_master_process():
         path = os.path.join(cfg.OUTPUT_DIR, "features.npz")
@@ -110,6 +125,7 @@ def test(cfg, device=None):
     by default; raises without a CUDA device unless ``device="cpu"``)."""
     device = resolve_device(device)
     pmv_logging.setup_logging(cfg.OUTPUT_DIR)
+    distributed.check_world(cfg)
     if cfg.DETECTION.ENABLE:
         raise NotImplementedError("detection (AVA) testing is not ported")
     if cfg.VIS_MASK.ENABLE:

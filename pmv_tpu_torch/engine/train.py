@@ -14,9 +14,21 @@ Counterpart of `pmv_tpu/engine/train.py`.
   the guard raises, and the epoch-end flush raises before a checkpoint of
   poisoned weights is written.
 - ``eval_epoch``: the validation loop into a ValMeter.
-- ``train``: seeds, model, optimizer, auto-resume, loaders, meters, then
-  per epoch {set_epoch, train_epoch, precise BN, checkpoint, eval_epoch},
-  then the result string.
+- ``train``: seeds, model, its wrapper for the strategy in a
+  multi-process job (``parallel/distributed.py``), optimizer, auto-resume,
+  loaders, meters, the TensorBoard writer (rank 0), then per epoch
+  {set_epoch, train_epoch, precise BN, checkpoint, eval_epoch}, then the
+  result string.
+
+In a multi-process job every rank runs ``train`` on its shard of each
+split, from the same seeds and the same weights: the train step gives the
+global batch's numbers (``engine/steps.py``), the meters count the global
+batch (this rank's rows x the world size), the evaluation gathers every
+rank's predictions, and rank 0 logs, writes the checkpoints and the
+TensorBoard events. With TENSORBOARD.ENABLE the writer takes the
+evaluation's errors after each evaluated epoch (Val/Top1_err, Val/Top5_err;
+Val/mAP when multi-label), as the JAX package's ``train`` does
+(`train.py:282-286, 372-382`).
 
 It trains MViT, UniFormer and X3D; the BatchNorm running statistics of a
 model that has them move in its train step and are saved with its
@@ -27,7 +39,7 @@ MODEL.USE_CHECKPOINT and MODEL.CHECKPOINT_NUM (UniFormer's activation
 checkpointing) are read nowhere in the JAX package, and are ignored here.
 
 Not ported, each raising NotImplementedError where the config asks for it:
-multigrid, TensorBoard,
+multigrid, TensorBoard's model and wrong-prediction visualization,
 detection and AVA, audio, the UniFormer pretrain registry
 (UNIFORMER.PRETRAIN_NAME: no pretrained weights are in the repository) and
 the profiler window.
@@ -45,12 +57,13 @@ from pmv_tpu_torch.engine import steps
 from pmv_tpu_torch.engine.precise_bn import calculate_and_update_precise_bn
 from pmv_tpu_torch.engine.prefetch import DevicePrefetcher
 from pmv_tpu_torch.models import build_model
+from pmv_tpu_torch.parallel import distributed
 from pmv_tpu_torch.utils import checkpoint as cu
 from pmv_tpu_torch.utils import logging as pmv_logging
 from pmv_tpu_torch.utils import meters as meters_mod
 from pmv_tpu_torch.utils import metrics as metrics_mod
 from pmv_tpu_torch.utils import misc
-from pmv_tpu_torch.utils.device import resolve_device
+from pmv_tpu_torch.utils.device import rank_and_world_size, resolve_device
 from pmv_tpu_torch.utils.lr_policy import get_lr_at_epoch
 
 logger = pmv_logging.get_logger(__name__)
@@ -61,6 +74,7 @@ def train_epoch(train_loader, train_step, state, meter, cur_epoch, cfg):
     "frames" and "labels", and "pm" where rows may be portrait). Returns
     ``state``, updated in place."""
     data_size = len(train_loader)
+    world = rank_and_world_size()[1]
     pending = []
     flush_every = max(1, cfg.LOG_PERIOD)
 
@@ -78,7 +92,7 @@ def train_epoch(train_loader, train_step, state, meter, cur_epoch, cfg):
                 raise RuntimeError(f"ERROR: Got Loss explosion of {m['loss']}")
             meter.update_stats(
                 m["top1_err"], m["top5_err"], m["loss"], lr_it, m["grad_norm"],
-                mb_size * max(cfg.NUM_SHARDS, 1),
+                mb_size * world,
             )
             meter.log_iter_stats(cur_epoch, it)
         pending.clear()
@@ -104,13 +118,18 @@ def train_epoch(train_loader, train_step, state, meter, cur_epoch, cfg):
 
 def eval_epoch(val_loader, eval_step, meter, cur_epoch, cfg):
     """One pass of ``eval_step`` over ``val_loader`` into the ValMeter;
-    returns the epoch's stats."""
+    returns the epoch's stats. In a multi-process job every rank's
+    predictions are gathered, and each step's errors are those of the
+    global batch."""
     meter.iter_tic()
-    for cur_iter, batch in enumerate(val_loader):
+    for cur_iter, (batch, real) in enumerate(distributed.lockstep(val_loader)):
         meter.data_toc()
         preds = eval_step(batch["frames"], batch.get("pm"))
         preds = preds.float().cpu().numpy()  # waits for the device
         labels = batch["labels"]
+        if not real:
+            preds, labels = preds[:0], np.asarray(labels)[:0]
+        preds, labels = distributed.gather_host([preds, labels])
         if np.asarray(labels).ndim > 1:  # multi-label: mAP at the epoch's end
             top1_err = top5_err = 0.0
         else:
@@ -120,7 +139,7 @@ def eval_epoch(val_loader, eval_step, meter, cur_epoch, cfg):
                     torch.from_numpy(preds), torch.as_tensor(labels), (1, 5))
             )
         meter.iter_toc()
-        meter.update_stats(top1_err, top5_err, preds.shape[0] * max(cfg.NUM_SHARDS, 1))
+        meter.update_stats(top1_err, top5_err, preds.shape[0])
         meter.update_predictions(preds, labels)
         meter.log_iter_stats(cur_epoch, cur_iter)
         meter.iter_tic()
@@ -134,7 +153,8 @@ def refuse_unported(cfg):
     unported = {
         "MULTIGRID.LONG_CYCLE / SHORT_CYCLE (multigrid)":
             cfg.MULTIGRID.LONG_CYCLE or cfg.MULTIGRID.SHORT_CYCLE,
-        "TENSORBOARD.ENABLE": cfg.TENSORBOARD.ENABLE,
+        "TENSORBOARD.MODEL_VIS / WRONG_PRED_VIS": cfg.TENSORBOARD.ENABLE and (
+            cfg.TENSORBOARD.MODEL_VIS.ENABLE or cfg.TENSORBOARD.WRONG_PRED_VIS.ENABLE),
         "DETECTION.ENABLE (detection and AVA)": cfg.DETECTION.ENABLE,
         "audio (MODEL.ARCH avslowfast)": cfg.MODEL.ARCH == "avslowfast",
         "UNIFORMER.PRETRAIN_NAME (the pretrain registry)":
@@ -152,6 +172,7 @@ def train(cfg, device=None):
     string of the reference's train()."""
     device = resolve_device(device)
     pmv_logging.setup_logging(cfg.OUTPUT_DIR)
+    distributed.check_world(cfg)
     refuse_unported(cfg)
     np.random.seed(cfg.RNG_SEED)
     torch.manual_seed(cfg.RNG_SEED)
@@ -161,7 +182,10 @@ def train(cfg, device=None):
     model = build_model(cfg, device=device, seed=cfg.RNG_SEED)
     if cfg.LOG_MODEL_INFO:
         misc.log_model_info(model)
-    state = steps.init_state(cfg, model)
+    wrapped = None
+    if rank_and_world_size()[1] > 1:
+        wrapped = distributed.wrap_model(model, cfg.TPU.SHARD_STRATEGY, device)
+    state = steps.init_state(cfg, model, wrapped=wrapped)
     start_epoch = cu.load_train_checkpoint(cfg, state)
     train_step = steps.make_train_step(cfg, device=device, seed=cfg.RNG_SEED)
     eval_step = steps.make_eval_step(cfg, model, device=device)
@@ -171,6 +195,11 @@ def train(cfg, device=None):
     train_meter = meters_mod.TrainMeter(len(train_loader), cfg)
     val_meter = meters_mod.ValMeter(len(val_loader), cfg)
     epoch_timer = meters_mod.EpochTimer()
+    writer = None
+    if cfg.TENSORBOARD.ENABLE and pmv_logging.is_master_process():
+        from pmv_tpu_torch.visualization.tensorboard_vis import TensorboardWriter
+
+        writer = TensorboardWriter(cfg)
 
     logger.info("Start epoch: %d", start_epoch + 1)
     for cur_epoch in range(start_epoch, cfg.SOLVER.MAX_EPOCH):
@@ -199,9 +228,15 @@ def train(cfg, device=None):
             cu.save_checkpoint(cfg.OUTPUT_DIR, state, cur_epoch, cfg)
         if misc.is_eval_epoch(cfg, cur_epoch):
             eval_tic = time.perf_counter()
-            eval_epoch(val_loader, eval_step, val_meter, cur_epoch, cfg)
+            stats = eval_epoch(val_loader, eval_step, val_meter, cur_epoch, cfg)
             logger.info("Eval of epoch %d takes %.4fs.", cur_epoch,
                         time.perf_counter() - eval_tic)
+            if writer is not None:
+                writer.add_scalars({f"Val/{tag}": stats[key] for key, tag in (
+                    ("top1_err", "Top1_err"), ("top5_err", "Top5_err"), ("map", "mAP"))
+                    if key in stats}, global_step=cur_epoch)
+    if writer is not None:
+        writer.close()
 
     median = epoch_timer.median_epoch_time() if epoch_timer.epoch_times else 0.0
     result_string = (

@@ -11,8 +11,20 @@ epsilon=1e-5)`` (`pmv_tpu/models/uniformer.py:22-26, 382-385`):
   with that same biased variance; eval mode normalizes with the running
   statistics.
 
+In a ``torch.distributed`` job of more than one process the batch
+statistics are those of the global batch, every rank's rows, under
+BN.NORM_TYPE "batchnorm" as under "sync_batchnorm", as in the JAX package,
+whose one program sees the global batch (`pmv_tpu/models/batchnorm.py:104-112`;
+PySlowFast's plain BatchNorm takes each GPU's own): each rank's mean and
+biased variance (float32) and its count go to every rank in one all-reduce
+with autograd (``parallel.distributed.gather_rows``), and combine as
+``mean = sum n_i m_i / N``, ``var = sum n_i (v_i + (m_i - mean)^2) / N``.
+The backward all-reduces their gradients in turn. In a world of one no
+collective runs.
+
 ``nn.BatchNorm3d`` puts the channels at axis 1 and moves ``running_var``
-with the unbiased variance, so it is not used. The buffers keep
+with the unbiased variance, and ``nn.SyncBatchNorm`` does the same, so
+neither is used. The buffers keep
 PyTorch's names (``running_mean``, ``running_var``, ``num_batches_tracked``),
 so that the reference's checkpoints load by name.
 
@@ -28,6 +40,9 @@ import contextlib
 
 import torch
 from torch import nn
+
+from pmv_tpu_torch.parallel.distributed import gather_rows
+from pmv_tpu_torch.utils.device import rank_and_world_size
 
 
 class BatchNorm(nn.Module):
@@ -47,6 +62,8 @@ class BatchNorm(nn.Module):
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
         if self.training:
             var, mean = torch.var_mean(xf, dim=tuple(range(x.dim() - 1)), correction=0)
+            if rank_and_world_size()[1] > 1:
+                mean, var = global_moments(mean, var, xf.numel() // xf.shape[-1])
             if self.recorded is not None:
                 self.recorded.append((mean.detach(), var.detach()))
             if self.update_stats:
@@ -58,6 +75,17 @@ class BatchNorm(nn.Module):
             mean, var = self.running_mean, self.running_var
         scale = torch.rsqrt(var + self.eps) * self.weight
         return ((xf - mean) * scale + self.bias).to(x.dtype)
+
+
+def global_moments(mean, var, count):
+    """The mean and biased variance over every rank's rows, from this
+    rank's (over ``count`` values a channel)."""
+    stats = gather_rows(torch.stack([mean, var, torch.full_like(mean, count)]))
+    means, variances, counts = stats.unbind(1)  # each [W, C]
+    total = counts.sum(0)
+    g_mean = (counts * means).sum(0) / total
+    g_var = (counts * (variances + (means - g_mean).square())).sum(0) / total
+    return g_mean, g_var
 
 
 def has_batchnorm(model):
@@ -96,8 +124,9 @@ def recorded_stats(model):
 
 def get_norm(cfg):
     """The norm constructor (``dim -> module``) of cfg.BN.NORM_TYPE.
-    "sync_batchnorm" is plain BatchNorm in one process, as in the JAX
-    package (`batchnorm.py:107-112`); "sub_batchnorm" is not ported."""
+    "batchnorm" and "sync_batchnorm" are the same module: the global
+    batch's statistics in a multi-process job, as in the JAX package
+    (`batchnorm.py:107-112`); "sub_batchnorm" is not ported."""
     norm_type = cfg.BN.NORM_TYPE
     if norm_type in ("batchnorm", "sync_batchnorm"):
         return BatchNorm

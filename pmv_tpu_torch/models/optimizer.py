@@ -19,11 +19,17 @@ update, in the same order:
 Parameter groups carry what optax carries as masks: ``decay`` (the weight
 decay mask, ``make_wd_mask``) and ``lr_scale`` (``make_layer_decay_scales``).
 The learning rate is set per iteration with ``set_lr``.
+
+Under FSDP (``parallel/distributed.py``) the parameters, their gradients and
+the optimizer's state are sharded ``DTensor``s: every stage but the norms
+works on each rank's shards, updating them in place, and the norms (the
+global grad norm, LARS's trust ratio) sum their squares over every shard.
 """
 
 import numpy as np
 import torch
 
+from pmv_tpu_torch.parallel import distributed
 from pmv_tpu_torch.utils import lr_policy
 
 
@@ -93,9 +99,17 @@ def make_layer_decay_scales(model, cfg):
 
 def global_norm(tensors):
     """sqrt of the sum of squares over all ``tensors`` (optax global_norm),
-    as the norm of the per-tensor norms."""
-    norms = torch._foreach_norm([t.float() for t in tensors])
-    return torch.linalg.vector_norm(torch.stack(norms))
+    as the norm of the per-tensor norms; over every shard of the sharded
+    ones."""
+    tensors = list(tensors)
+    norms = torch.stack(torch._foreach_norm([distributed.local(t).float() for t in tensors]))
+    sharded = [distributed.is_sharded(t) for t in tensors]
+    if not any(sharded):
+        return torch.linalg.vector_norm(norms)
+    sharded = torch.tensor(sharded, device=norms.device)
+    squares = norms.square()
+    total = distributed.all_reduce_sum(torch.where(sharded, squares, 0.0).sum())
+    return (total + torch.where(sharded, 0.0, squares).sum()).sqrt()
 
 
 class ChainOptimizer(torch.optim.Optimizer):
@@ -134,6 +148,7 @@ class ChainOptimizer(torch.optim.Optimizer):
                      for p in group["params"]])
             for group in self.param_groups
         ]
+        local = distributed.local
         if self.clip_grad_l2norm is not None and self.clip_grad_val is None:
             if grad_norm is None:
                 grad_norm = global_norm(g for _, grads in groups for g in grads)
@@ -142,6 +157,7 @@ class ChainOptimizer(torch.optim.Optimizer):
             divisor = torch.where(keep, torch.ones_like(grad_norm), grad_norm)
             factor = torch.where(keep, 1.0, self.clip_grad_l2norm).to(grad_norm)
         for group, grads in groups:
+            grads = [local(g) for g in grads]
             if self.clip_grad_val is not None:
                 v = self.clip_grad_val
                 grads = torch._foreach_clamp_max(torch._foreach_clamp_min(grads, -v), v)
@@ -154,23 +170,34 @@ class ChainOptimizer(torch.optim.Optimizer):
                 updates = self._sgd(params, grads, wd)
             else:
                 updates = self._adam(params, grads, wd, group["count"])
-            if group["lr_scale"] != 1.0:
-                torch._foreach_mul_(updates, group["lr_scale"])
+            if group["lr_scale"] != 1.0:  # not in place: SGD's updates may be its traces
+                updates = torch._foreach_mul(updates, group["lr_scale"])
             if self.lars:
                 updates = [u * _trust_ratio(p, u) for p, u in zip(params, updates)]
-            torch._foreach_add_(params, torch._foreach_mul(updates, -group["lr"]))
+            torch._foreach_add_([local(p) for p in params],
+                                torch._foreach_mul(updates, -group["lr"]))
+
+    def _state(self, params, key, first=None):
+        """This rank's shards of the state ``key`` of each of ``params``,
+        updated in place; made (a ``DTensor`` where the parameter is one)
+        equal to ``first``'s tensors, else zeros, at the first step."""
+        for i, p in enumerate(params):
+            if key not in self.state[p]:
+                self.state[p][key] = torch.zeros_like(p)
+                if first is not None:
+                    distributed.local(self.state[p][key]).copy_(first[i])
+        return [distributed.local(self.state[p][key]) for p in params]
 
     def _sgd(self, params, grads, wd):
         """Masked weight decay into the gradient, then optax ``trace``."""
+        local_params = [distributed.local(p) for p in params]
         updates = grads if wd is None else torch._foreach_add(
-            grads, torch._foreach_mul(params, wd))
-        traces = [self.state[p].get("trace") for p in params]
-        if traces[0] is None:
-            traces = [u.clone() for u in updates]
-        else:
-            traces = torch._foreach_add(updates, torch._foreach_mul(traces, self.momentum))
-        for p, t in zip(params, traces):
-            self.state[p]["trace"] = t
+            grads, torch._foreach_mul(local_params, wd))
+        started = "trace" in self.state[params[0]]
+        traces = self._state(params, "trace", first=updates)
+        if started:
+            torch._foreach_mul_(traces, self.momentum)
+            torch._foreach_add_(traces, updates)
         if self.nesterov:
             return torch._foreach_add(updates, torch._foreach_mul(traces, self.momentum))
         return traces
@@ -178,26 +205,18 @@ class ChainOptimizer(torch.optim.Optimizer):
     def _adam(self, params, grads, wd, count):
         """optax ``scale_by_adam``, then the masked weight decay."""
         b1, b2 = self.betas
-        for p in params:
-            if not self.state[p]:
-                self.state[p]["mu"] = torch.zeros_like(p)
-                self.state[p]["nu"] = torch.zeros_like(p)
-        mus = torch._foreach_add(
-            torch._foreach_mul(grads, 1 - b1),
-            torch._foreach_mul([self.state[p]["mu"] for p in params], b1),
-        )
-        nus = torch._foreach_add(
-            torch._foreach_mul(torch._foreach_mul(grads, grads), 1 - b2),
-            torch._foreach_mul([self.state[p]["nu"] for p in params], b2),
-        )
-        for p, mu, nu in zip(params, mus, nus):
-            self.state[p]["mu"], self.state[p]["nu"] = mu, nu
+        mus, nus = self._state(params, "mu"), self._state(params, "nu")
+        torch._foreach_mul_(mus, b1)
+        torch._foreach_add_(mus, torch._foreach_mul(grads, 1 - b1))
+        torch._foreach_mul_(nus, b2)
+        torch._foreach_add_(nus, torch._foreach_mul(torch._foreach_mul(grads, grads), 1 - b2))
         mu_hat = torch._foreach_div(mus, _bias_correction(b1, count))
         nu_hat = torch._foreach_div(nus, _bias_correction(b2, count))
         denom = torch._foreach_add(torch._foreach_sqrt(nu_hat), self.eps)
         updates = torch._foreach_div(mu_hat, denom)
         if wd is not None:
-            updates = torch._foreach_add(updates, torch._foreach_mul(params, wd))
+            updates = torch._foreach_add(
+                updates, torch._foreach_mul([distributed.local(p) for p in params], wd))
         return updates
 
 
@@ -207,9 +226,16 @@ def _bias_correction(decay, count):
 
 
 def _trust_ratio(p, u):
-    """optax scale_by_trust_ratio: ||p|| / ||u||, 1 where either is 0."""
-    p_norm = torch.linalg.vector_norm(p)
-    u_norm = torch.linalg.vector_norm(u)
+    """optax scale_by_trust_ratio: ||p|| / ||u||, 1 where either is 0. ``u``
+    is this rank's shard of the update of ``p``."""
+    sharded = distributed.is_sharded(p)
+
+    def norm(t):
+        n = torch.linalg.vector_norm(t)
+        return distributed.all_reduce_sum(n.square()).sqrt() if sharded else n
+
+    p_norm = norm(distributed.local(p))
+    u_norm = norm(u)
     ratio = p_norm / u_norm
     return torch.where((p_norm == 0) | (u_norm == 0), torch.ones_like(ratio), ratio)
 

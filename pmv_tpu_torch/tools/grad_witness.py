@@ -36,17 +36,18 @@ import torch
 import torch.nn.functional as F
 
 X3D_M = "configs/Kinetics/X3D_M.yaml"
-# The float32 train step's limits, card against CPU, each deciding its own
-# ReLUs, of a model whose ReLUs make its gradients jump: (relative L2 of the
-# gradients, rtol of the grad norm). Set between the sound readings and the
-# faults' of tests/test_torch_port_x3d_gradients.py (PERF.md section 6): at
-# full width and depth on a small input, X3D-M's float32 gradients, the
-# port's and the JAX package's, lie up to 2.2e-2 from float64 ones and
-# their grad norms up to 9.6e-4; a fault in K1's taps, its channel pad's
-# slice, dx's weight flip or BatchNorm's eps moves the gradients by 0.91 or
-# more and the grad norm by 9.4e-3 or more. With the ReLU decisions held
-# equal, the gradients are held to 1e-4.
-RELU_LIMITS = {"X3D": (0.1, 3e-3)}
+# The float32 train step's limit, card against CPU, each deciding its own
+# ReLUs, of a model whose ReLUs make its gradients jump: the relative L2 of
+# the gradients. Set between the sound readings and the faults' of
+# tests/test_torch_port_x3d_gradients.py (PERF.md section 6): at full width
+# and depth on a small input, X3D-M's float32 gradients, the port's and the
+# JAX package's, lie up to 3.1e-2 from float64 ones; a fault in K1's taps,
+# its channel pad's slice, dx's weight flip or BatchNorm's eps moves them by
+# 0.91 or more. The grad norm of such a step is not held: a sound reading
+# of the JAX package's own moves it by 5.5e-3, as far as some faults do.
+# With the ReLU decisions held equal, the gradients and the grad norm are
+# held to 1e-4.
+RELU_LIMITS = {"X3D": 0.1}
 
 
 @dataclasses.dataclass

@@ -1,22 +1,28 @@
 """Train, then test (`MViT/tools/run_net.py:15-49`, `tools/run_net.py`).
 
     python -m pmv_tpu_torch.tools.run_net --cfg <yaml> [--device cpu] \\
+        [--num_shards N --shard_id I --init_method tcp://host:port] \\
         [--opts KEY VALUE ...]
 
 The ``--cfg``/``--opts`` surface of ``config/parser.py``, the JAX package's
 CLI's, so the `exps/PMV` recipes' options carry over. It runs on the CUDA
-device unless ``--device cpu`` is given, and raises without one.
+devices unless ``--device cpu`` is given, and raises without one.
+NUM_GPUS x NUM_SHARDS above 1 makes a multi-process job
+(``parallel.distributed.launch_job``): on each host ("shard", ``--shard_id``
+of ``--num_shards``, all meeting at ``--init_method``) NUM_GPUS processes,
+one per card, each taking TRAIN.BATCH_SIZE / NUM_GPUS clips a step; so a
+recipe's yaml with NUM_GPUS 8 needs eight cards, or NUM_GPUS 1 for one.
 TRAIN.ENABLE trains; TEST.ENABLE tests, sweeping NUM_ENSEMBLE_VIEWS over
 [1, 3, 5, 7, 10] when it is -1, or over TEST.NUM_TEMPORAL_CLIPS when that is
-set. The self-supervised models, the visualization and the demo are not
-ported and raise NotImplementedError. Multi-process runs (``--num_shards``)
-wait for the torch.distributed port.
+set. The self-supervised models, the model and wrong-prediction
+visualization and the demo are not ported and raise NotImplementedError.
 """
 
 import sys
 
 from pmv_tpu_torch.config.defaults import assert_and_infer_cfg
 from pmv_tpu_torch.config.parser import load_config, parse_args
+from pmv_tpu_torch.parallel import distributed
 from pmv_tpu_torch.utils.device import resolve_device
 
 
@@ -24,8 +30,13 @@ def run(cfg, device):
     """Train and test one config."""
     if cfg.MODEL.MODEL_NAME in ("ContrastiveModel", "MaskMViT"):
         raise NotImplementedError(f"{cfg.MODEL.MODEL_NAME} (self-supervised) is not ported")
-    if cfg.TENSORBOARD.ENABLE or cfg.DEMO.ENABLE:
-        raise NotImplementedError("the visualization and the demo are not ported")
+    if cfg.TENSORBOARD.ENABLE and (
+        cfg.TENSORBOARD.MODEL_VIS.ENABLE or cfg.TENSORBOARD.WRONG_PRED_VIS.ENABLE
+    ):
+        raise NotImplementedError("TensorBoard's model and wrong-prediction visualization "
+                                  "are not ported")
+    if cfg.DEMO.ENABLE:
+        raise NotImplementedError("the demo is not ported")
     if cfg.TRAIN.ENABLE:
         from pmv_tpu_torch.engine.train import train
 
@@ -50,12 +61,10 @@ def main(argv=None):
     args = parse_args(argv)
     if args.cfg_files is None:  # the parser printed its help
         return 0
-    if args.num_shards != 1:
-        raise NotImplementedError("multi-process runs (torch.distributed) are not ported")
     device = resolve_device(args.device)
     for path in args.cfg_files:
         cfg = assert_and_infer_cfg(load_config(args, path))
-        run(cfg, device)
+        distributed.launch_job(cfg, args.init_method, run, device)
     return 0
 
 

@@ -6,7 +6,13 @@
   BatchNorm running statistics), "optimizer_state", "cfg"} to
   ``OUTPUT_DIR/checkpoints/checkpoint_epoch_{epoch:05d}.pyth`` (prefixed
   with TASK when set), written by rank 0 only, through a temporary file and
-  a rename, so that a cut job never leaves half a checkpoint.
+  a rename, so that a cut job never leaves half a checkpoint. Every rank of
+  a multi-process job calls ``save_checkpoint``: under FSDP the sharded
+  weights and optimizer state are gathered whole first (a collective), so
+  that the file is the one a single process or DDP writes; the ranks wait
+  for rank 0's write to end. Every rank loads the whole file, and under
+  FSDP keeps its shards of it: a checkpoint written under one strategy
+  resumes under another.
 - ``get_last_checkpoint``: the lexicographic maximum of the names.
 - ``load_train_checkpoint``: TRAIN.AUTO_RESUME resumes from the last
   checkpoint at its epoch + 1 with the weights and the optimizer's state
@@ -33,6 +39,7 @@ import time
 
 import torch
 
+from pmv_tpu_torch.parallel import distributed
 from pmv_tpu_torch.utils import logging as pmv_logging
 
 logger = pmv_logging.get_logger(__name__)
@@ -76,24 +83,40 @@ def is_checkpoint_epoch(cfg, cur_epoch):
     )
 
 
+def full_state(state):
+    """(model state_dict, optimizer state_dict) of ``state`` with every
+    sharded tensor gathered whole (every rank calls it)."""
+    model_state = {k: distributed.full(v) for k, v in state.model.state_dict().items()}
+    opt_state = state.optimizer.state_dict()
+    opt_state["state"] = {
+        i: {k: distributed.full(v) for k, v in s.items()}
+        for i, s in opt_state["state"].items()
+    }
+    return model_state, opt_state
+
+
 def save_checkpoint(path_to_job, state, epoch, cfg):
     """Write ``state`` after epoch ``epoch`` (0-based) as checkpoint
-    ``epoch + 1``; returns its path (None on ranks other than 0)."""
-    if not pmv_logging.is_master_process():
-        return None
-    os.makedirs(get_checkpoint_dir(path_to_job), exist_ok=True)
-    path = get_path_to_checkpoint(path_to_job, epoch + 1, cfg.TASK)
-    payload = {
-        "epoch": epoch,
-        "model_state": state.model.state_dict(),
-        "optimizer_state": state.optimizer.state_dict(),
-        "cfg": cfg.dump(),
-    }
-    tmp = f"{path}.{os.getpid()}.tmp"
-    tic = time.perf_counter()
-    torch.save(payload, tmp)
-    os.replace(tmp, path)
-    logger.info("Saved checkpoint to %s in %.4fs", path, time.perf_counter() - tic)
+    ``epoch + 1``; returns its path (None on ranks other than 0). Every rank
+    of a multi-process job calls it, and it returns on each once the file
+    is written."""
+    model_state, opt_state = full_state(state)
+    path = None
+    if pmv_logging.is_master_process():
+        os.makedirs(get_checkpoint_dir(path_to_job), exist_ok=True)
+        path = get_path_to_checkpoint(path_to_job, epoch + 1, cfg.TASK)
+        payload = {
+            "epoch": epoch,
+            "model_state": model_state,
+            "optimizer_state": opt_state,
+            "cfg": cfg.dump(),
+        }
+        tmp = f"{path}.{os.getpid()}.tmp"
+        tic = time.perf_counter()
+        torch.save(payload, tmp)
+        os.replace(tmp, path)
+        logger.info("Saved checkpoint to %s in %.4fs", path, time.perf_counter() - tic)
+    distributed.barrier()
     return path
 
 
@@ -143,7 +166,7 @@ def load_model_state(model, state_dict, clear_name_pattern=()):
                 f"checkpoint weight {name} has shape {tuple(src.shape)}, the "
                 f"model's is {tuple(value.shape)}"
             )
-        merged[name] = src
+        merged[name] = distributed.shard_like(src, value)
     unused = [k for k in loaded if k not in merged]
     if missing:
         logger.warning("Missing from the checkpoint: %s", missing[:10])
@@ -170,11 +193,24 @@ def load_checkpoint(path, state=None, model=None, epoch_reset=False,
         and not clear_name_pattern
         and all("count" in g for g in opt_state.get("param_groups", ()))
     ):
-        state.optimizer.load_state_dict(opt_state)
+        state.optimizer.load_state_dict(_sharded_like(opt_state, state.optimizer))
         state.step = int(state.optimizer.param_groups[0]["count"])
     if epoch_reset or "epoch" not in ckpt:
         return -1
     return int(ckpt["epoch"])
+
+
+def _sharded_like(opt_state, optimizer):
+    """``opt_state`` (whole tensors) with each parameter's state laid out as
+    the parameter is (its shard under FSDP)."""
+    params = [p for group in optimizer.param_groups for p in group["params"]]
+    out = dict(opt_state)
+    out["state"] = {
+        i: {k: distributed.shard_like(v, params[int(i)]) if torch.is_tensor(v)
+            and v.shape == params[int(i)].shape else v for k, v in s.items()}
+        for i, s in opt_state["state"].items()
+    }
+    return out
 
 
 def load_train_checkpoint(cfg, state):

@@ -17,6 +17,21 @@ def resolve_device(device=None):
     return device
 
 
+def local_device(local_rank, device_type="cuda"):
+    """The device of the process of ``local_rank`` on its host: ``cuda:<local
+    rank>``, or the CPU for ``device_type`` "cpu". Raises when the host has
+    no such card: two processes never share one by wrapping around."""
+    if device_type == "cpu":
+        return torch.device("cpu")
+    resolve_device(device_type)
+    if local_rank >= torch.cuda.device_count():
+        raise RuntimeError(
+            f"local rank {local_rank} needs cuda:{local_rank}, and this host has "
+            f"{torch.cuda.device_count()} CUDA device(s): lower NUM_GPUS"
+        )
+    return torch.device("cuda", local_rank)
+
+
 def rank_and_world_size():
     """(rank, world size) of ``torch.distributed``, or (0, 1) when it is not
     initialised."""

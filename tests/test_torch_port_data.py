@@ -276,12 +276,15 @@ def test_loader_order_matches_jax(shuffle, drop_last, rank, world):
     for epoch in (0, 3):
         ours = loader.DataLoader(ds, 4, shuffle=shuffle, drop_last=drop_last, seed=5,
                                  rank=rank, world_size=world, num_workers=2)
-        ref = jloader.DataLoader(ds, 4, shuffle=shuffle, drop_last=drop_last, seed=5,
-                                 process_index=rank, process_count=world, num_workers=2)
+        # One process's loader at the global batch (4 a rank): a rank takes
+        # its rows of each of its batches, [4 rank, 4 rank + 4).
+        ref = jloader.DataLoader(ds, 4 * world, shuffle=shuffle, drop_last=drop_last,
+                                 seed=5, num_workers=2)
         ours.set_epoch(epoch)
         ref.set_epoch(epoch)
-        got, want = list(ours), list(ref)
-        # len is JAX's: the batches of the largest rank's slice.
+        got = list(ours)
+        want = [{k: v[4 * rank:4 * rank + 4] for k, v in b.items()} for b in ref]
+        want = [b for b in want if len(b["index"])]
         assert len(ours) == len(ref) and len(got) == len(want)
         for a, b in zip(got, want):
             assert a.keys() == b.keys()

@@ -1,0 +1,450 @@
+"""The port's multi-process training and testing against the JAX package's
+global step, on the CPU: 2 ranks over gloo, spawned, tiny widths.
+
+Every collective of a rank waits at most ``RANK_TIMEOUT_S`` and a spawn at
+most ``JOIN_TIMEOUT_S`` (tests/torch_port_util.py), so that a hang fails the
+test. One spawn runs every case (``rank_cases``) while this process computes
+the references:
+
+- (a) the ``dp`` train step of tiny UniFormer, X3D and MViT, 2 ranks x 2
+  rows, MixUp on, the rect crop with one portrait row on rank 0 and none on
+  rank 1, against the JAX package's ``make_train_step(model_pm=...)`` on the
+  global batch of 4 with the same draws (RandAugment, erasing, MixUp, and
+  X3D's head dropout mask): loss and grad norm to rtol 1e-4, top-1/top-5
+  equal, the updated weights and BatchNorm running statistics as each
+  model's one-process parity test holds them; the gradients against the
+  port's one-process step on the global batch (relative L2 1e-5); the
+  whole-batch select on every rank where a forward runs collectives
+  (BatchNorm in training, FSDP), each rank's own split elsewhere;
+- (b) the ``fsdp`` step equal to the ``dp`` step, and a checkpoint written
+  under one strategy resumed under the other (every weight and optimizer
+  tensor), then a second step under each equal to the one-process port's;
+- (c) precise BN over 2 ranks against
+  ``pmv_tpu.engine.precise_bn.calculate_and_update_precise_bn`` on the
+  global batches;
+- (d) ``perform_test`` on 2 ranks with shards of unequal length: the
+  TestMeter equals the one-process run's and every clip is scored once;
+- (e) the global BatchNorm module, forward and backward, equal to one
+  process on the concatenated rows;
+- (f) ``python -m pmv_tpu_torch.tools.run_net --cfg configs/tiny_synthetic.yaml
+  --device cpu`` with NUM_GPUS 2: train, checkpoint, eval and test give the
+  one-process run's ``test_final``, the checkpoint is written once, and a
+  second call resumes from it.
+"""
+
+import json
+import os
+import signal
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import test_torch_port_pm as mvit_pm
+import test_torch_port_uniformer_train as uni_train
+import test_torch_port_x3d_train as x3d_train
+from pmv_tpu.engine import precise_bn as jprecise_bn
+from pmv_tpu.engine import steps as jsteps
+from pmv_tpu.parallel import mesh as mesh_lib
+from pmv_tpu_torch.engine import train as ptrain
+from pmv_tpu_torch.engine.steps import init_state, make_eval_step, make_train_step
+from pmv_tpu_torch.engine.test import perform_test
+from pmv_tpu_torch.entry import mvitv2_s_cfg
+from pmv_tpu_torch.models import build_model
+from pmv_tpu_torch.models.batchnorm import BatchNorm
+from pmv_tpu_torch.parallel import distributed
+from pmv_tpu_torch.tools import run_net
+from pmv_tpu_torch.utils.device import local_device
+from pmv_tpu_torch.utils import meters
+from pmv_tpu_torch.utils.weights import load_jax_params, state_dict_from_jax
+from torch_port_util import (
+    JOIN_TIMEOUT_S,
+    ClipDataset,
+    free_port,
+    jax_dropout_key,
+    jax_dropout_masks,
+    jax_train_draws,
+    join_ranks,
+    numpy_tree,
+    port_cfg,
+    rank_cases,
+    start_ranks,
+)
+
+ROOT = Path(__file__).resolve().parents[1]
+PM = np.array([True, False, False, False])  # rank 0: rows 0-1, rank 1: rows 2-3
+MODELS = ("uniformer", "x3d", "mvit")
+LR = 1e-3
+
+
+def _step_case(name):
+    """The case of one model handed to the ranks (its port cfg and weights,
+    the global batch and the JAX step's draws for it), and what the JAX
+    step needs."""
+    rng = jax.random.PRNGKey(3)
+    if name == "uniformer":
+        cfg = uni_train._train_cfg(rect=uni_train.RECT)
+        batch = uni_train._batch(cfg, 0, PM)
+        jmodel, jstate, tx = uni_train._jax_state(cfg, batch, 4)
+        jport = jmodel
+    elif name == "x3d":
+        cfg = x3d_train._cfg(*x3d_train.RECT, "MIXUP.ENABLE", "True",
+                             "MODEL.LOSS_FUNC", "soft_cross_entropy")
+        batch = x3d_train._batch(cfg, 1, PM)
+        jmodel, jstate, tx = x3d_train._jax_state(cfg, batch, 4)
+        jport = jmodel
+    else:
+        cfg = mvit_pm._pm_cfg()
+        batch = mvit_pm._batch(cfg, 0)
+        batch["pm"] = PM
+        jmodel, jport, jstate, tx = mvit_pm._jax_state(cfg, batch, 4)
+    draws = jax_train_draws(cfg, rng, 0, batch["frames"].shape)
+    variables = {"params": jstate.params}
+    if jstate.batch_stats:
+        variables["batch_stats"] = jstate.batch_stats
+    masks = jax_dropout_masks(jmodel, variables, batch["frames"], jax_dropout_key(rng, 0))
+    if masks:  # X3D's head; the others' dropout is off
+        (mask,) = masks
+        draws["dropout"] = torch.tensor(mask, dtype=torch.float32)
+    pcfg = port_cfg(cfg)
+    model = build_model(pcfg, device="cpu", dtype=torch.float32)
+    load_jax_params(model, variables)
+    case = {"cfg": pcfg, "state_dict": {k: v.clone() for k, v in model.state_dict().items()},
+            "batch": batch, "draws": draws, "lr": LR}
+    return case, (cfg, jmodel, jport, jstate, tx, rng)
+
+
+def _step_refs(case, jax_args):
+    """The JAX pm train step on the global batch, and the port's
+    one-process step on it with the same draws."""
+    cfg, jmodel, jport, jstate, tx, rng = jax_args
+    jstep = jax.jit(jsteps.make_train_step(cfg, jmodel, tx, model_pm=jport))
+    jstate, jm = jstep(jstate, {k: jnp.asarray(v) for k, v in case["batch"].items()}, rng, LR)
+    return {"jax_metrics": jm, "jstate": jstate, "one": _one_process_steps(case), "cfg": cfg}
+
+
+def _one_process_steps(case, second=None):
+    """The port's step (and a second one) on the global batch in this
+    process: (metrics, gradients, state) after each."""
+    model = build_model(case["cfg"], device="cpu", dtype=torch.float32)
+    model.load_state_dict(case["state_dict"])
+    state = init_state(case["cfg"], model)
+    step = make_train_step(case["cfg"], device="cpu")
+    out = []
+    for batch, draws in [(case["batch"], case["draws"])] + ([second] if second else []):
+        m = step(state, batch, case["lr"], draws)
+        out.append(({k: float(v) for k, v in m.items()},
+                    {k: p.grad.clone() for k, p in model.named_parameters()},
+                    {k: v.clone() for k, v in model.state_dict().items()}))
+    return out
+
+
+def _precise_bn_case():
+    """(the JAX precise BN's arguments, the case handed to the ranks)."""
+    cfg = x3d_train._cfg("BN.NUM_BATCHES_PRECISE", "2")
+    batches = [x3d_train._batch(cfg, seed) for seed in (5, 6)]
+    jmodel, jstate, _ = x3d_train._jax_state(cfg, batches[0], 8)
+    model = build_model(port_cfg(cfg), device="cpu", dtype=torch.float32)
+    load_jax_params(model, {"params": jstate.params, "batch_stats": jstate.batch_stats})
+    case = {"cfg": port_cfg(cfg), "state_dict": model.state_dict(), "batches": batches}
+    mesh = mesh_lib.create_mesh(devices=jax.devices()[:1])
+    return (batches, jstate, cfg, jmodel, mesh), case
+
+
+def _test_case():
+    """5 videos x 2 clips at 2 clips a rank a step: the last step's rows
+    are all rank 0's."""
+    cfg = mvitv2_s_cfg(tiny=True)
+    rng = np.random.default_rng(9)
+    frames = rng.integers(0, 256, (10, 2, 16, 16, 3), np.uint8)
+    labels = rng.integers(0, cfg.MODEL.NUM_CLASSES, 5)
+    model = build_model(cfg, device="cpu", dtype=torch.float32, seed=2)
+    return {"cfg": cfg, "state_dict": model.state_dict(), "frames": frames, "labels": labels,
+            "num_clips": 2, "batch_size": 2}
+
+
+def _bn_case():
+    gen = torch.Generator().manual_seed(0)
+    bn = BatchNorm(6)
+    with torch.no_grad():
+        bn.weight.uniform_(0.5, 1.5, generator=gen)
+        bn.bias.normal_(generator=gen)
+    x = 2.0 + 3.0 * torch.randn(4, 3, 5, 6, generator=gen)
+    return {"x": x, "weight": torch.randn(4, 3, 5, 6, generator=gen),
+            "state_dict": bn.state_dict()}
+
+
+@pytest.fixture(scope="module")
+def two_ranks(tmp_path_factory):
+    """Every case through ``rank_cases`` on 2 ranks, and the references,
+    computed here while the ranks run."""
+    case_dir = tmp_path_factory.mktemp("two_ranks")
+    with ThreadPoolExecutor(len(MODELS) + 1) as pool:  # XLA compiles in parallel
+        step_futures = {name: pool.submit(_step_case, name) for name in MODELS}
+        precise_future = pool.submit(_precise_bn_case)
+        steps, jax_args = {}, {}
+        for name, future in step_futures.items():
+            steps[name], jax_args[name] = future.result()
+        precise_args, precise = precise_future.result()
+        resume = dict(steps["uniformer"])
+        resume["batch2"] = uni_train._batch(jax_args["uniformer"][0], 1, PM)
+        resume["draws2"] = jax_train_draws(jax_args["uniformer"][0], jax.random.PRNGKey(3), 1,
+                                           resume["batch2"]["frames"].shape)
+        cases = {"steps": steps, "resume": resume, "precise_bn": precise,
+                 "test": _test_case(), "bn": _bn_case()}
+        torch.save(cases, case_dir / "cases.pt")
+        procs = start_ranks(rank_cases, str(case_dir))
+        try:
+            ref_futures = {name: pool.submit(_step_refs, steps[name], jax_args[name])
+                           for name in MODELS}
+            ref_futures["resume"] = pool.submit(
+                _one_process_steps, resume, (resume["batch2"], resume["draws2"]))
+            ref_futures["precise_bn"] = pool.submit(
+                jprecise_bn.calculate_and_update_precise_bn, *precise_args)
+            refs = {key: future.result() for key, future in ref_futures.items()}
+        finally:
+            join_ranks(procs)
+    return torch.load(case_dir / "results.pt", weights_only=False), refs, cases
+
+
+def _relative_l2(got, want):
+    diff = sum(float((got[k] - v).square().sum()) for k, v in want.items())
+    return (diff / sum(float(v.square().sum()) for v in want.values())) ** 0.5
+
+
+@pytest.mark.parametrize("name", MODELS)
+def test_dp_step_matches_jax_on_the_global_batch(two_ranks, name):
+    results, refs, _ = two_ranks
+    got, ref = results[name, "dp"], refs[name]
+    jm = ref["jax_metrics"]
+    np.testing.assert_allclose(got["metrics"]["loss"], float(jm["loss"]), rtol=1e-4)
+    np.testing.assert_allclose(got["metrics"]["grad_norm"], float(jm["grad_norm"]), rtol=1e-4)
+    for key in ("top1_err", "top5_err"):
+        np.testing.assert_allclose(got["metrics"][key], float(jm[key]), rtol=1e-6)
+    assert not got["metrics"]["nan"]
+    _, one_grads, _ = ref["one"][0]
+    assert _relative_l2(got["grads"], one_grads) < 1e-5
+    model = build_model(port_cfg(ref["cfg"]), device="cpu", dtype=torch.float32)
+    model.load_state_dict(got["state"])
+    if name == "uniformer":
+        uni_train._assert_state_matches(model, ref["jstate"], [LR])
+    elif name == "x3d":
+        x3d_train._assert_state_matches(model, ref["jstate"])
+    else:
+        want = state_dict_from_jax(numpy_tree(ref["jstate"].params))
+        for key, value in want.items():
+            if not key.endswith("norm_k.bias"):  # float noise that Adam scales to +-lr
+                np.testing.assert_allclose(got["state"][key].numpy(), value.numpy(),
+                                           atol=1e-5, rtol=0, err_msg=key)
+
+
+@pytest.mark.parametrize("name", MODELS)
+def test_fsdp_step_equals_dp(two_ranks, name):
+    results, _, _ = two_ranks
+    dp, fsdp = results[name, "dp"], results[name, "fsdp"]
+    for key, value in dp["metrics"].items():
+        np.testing.assert_allclose(fsdp["metrics"][key], value, rtol=1e-6, err_msg=key)
+    assert _relative_l2(fsdp["grads"], dp["grads"]) < 1e-6
+    for key, value in dp["state"].items():
+        if key.endswith("norm_k.bias"):
+            # MViT's key-norm bias: a shift of every key, which the softmax
+            # ignores, so its gradient is float noise, which AdamW scales to
+            # +-lr; dp splits the rows by orientation and fsdp takes the
+            # select, so the noise differs.
+            assert float((fsdp["state"][key] - value).abs().max()) <= 2.0001 * LR, key
+            continue
+        torch.testing.assert_close(fsdp["state"][key], value, atol=1e-6, rtol=1e-5, msg=key)
+
+
+@pytest.mark.parametrize("name", MODELS)
+def test_every_rank_takes_the_select_only_where_a_forward_runs_collectives(two_ranks, name):
+    """Rank 0 holds a portrait row, rank 1 none. BatchNorm's training
+    statistics (UniFormer, X3D) and FSDP's gathers need the same forwards on
+    every rank: both ranks take the whole-batch select. MViT under dp runs
+    no collective in its forward: each rank splits its own rows."""
+    results, _, _ = two_ranks
+    for strategy in ("dp", "fsdp"):
+        split = name == "mvit" and strategy == "dp"
+        want = "forward_by_orientation" if split else "select_by_orientation"
+        assert results[name, strategy]["routes"] == [want, want], strategy
+
+
+def _assert_weights_close(got, want, lrs, stats_tol=(1e-6, 1e-5)):
+    """Tiny UniFormer's state: BatchNorm buffers to ``stats_tol`` (atol,
+    rtol);
+    weights as tests/test_torch_port_uniformer_train.py holds them: to 1e-5,
+    but the few whose gradient is float noise, which AdamW's first steps
+    (about lr x sign(g)) may move either way: within 2 x the summed LRs, and
+    no more than 1e-3 of the elements; the weights whose whole gradient is
+    float noise (the last block's fc2 bias, the keys' qkv bias) are left
+    out."""
+    n_off = n = 0
+    for key, value in want.items():
+        if "running" in key or key.endswith("num_batches_tracked"):
+            torch.testing.assert_close(got[key], value.to(got[key].dtype), atol=stats_tol[0],
+                                       rtol=stats_tol[1], msg=key)
+            continue
+        a, b = got[key], value
+        if key == "blocks4.0.mlp.fc2.bias":
+            continue
+        if key.endswith("qkv.bias"):
+            c = len(a) // 3
+            a, b = torch.cat([a[:c], a[2 * c:]]), torch.cat([b[:c], b[2 * c:]])
+        diff = (a - b).abs()
+        assert float(diff.max()) <= 2.0001 * sum(lrs), key
+        n_off += int((diff > 1e-5).sum())
+        n += diff.numel()
+    assert n_off <= 1e-3 * n, f"{n_off} of {n} weights off by more than 1e-5"
+
+
+def test_checkpoint_resumes_across_strategies(two_ranks):
+    """A dp checkpoint resumed under fsdp and an fsdp one under dp hold the
+    same weights and optimizer state; the second step under each equals the
+    one-process port's second step; each file was written once."""
+    results, refs, _ = two_ranks
+    res = results["resume"]
+    (dp_model, dp_opt), (fsdp_model, fsdp_opt) = res["first"]["dp"], res["first"]["fsdp"]
+    for key, value in dp_model.items():
+        torch.testing.assert_close(fsdp_model[key], value, atol=1e-6, rtol=1e-5, msg=key)
+    assert dp_opt["param_groups"] == fsdp_opt["param_groups"]
+    for i, state in dp_opt["state"].items():
+        for key, value in state.items():
+            torch.testing.assert_close(fsdp_opt["state"][i][key], value, atol=1e-6, rtol=1e-5)
+    _assert_weights_close(dp_model, refs["resume"][0][2], [LR])
+    for strategy in ("dp", "fsdp"):
+        # The second step's batch statistics see weights that the first
+        # moved by the noise above: the running statistics as the
+        # two-step UniFormer test holds them (atol 2e-4, rtol 1e-4).
+        _assert_weights_close(res["second"][strategy], refs["resume"][1][2], [LR, LR],
+                              stats_tol=(2e-4, 1e-4))
+    assert res["files"] == ["checkpoint_epoch_00001.pyth"]
+
+
+def test_precise_bn_matches_jax_over_two_ranks(two_ranks):
+    results, refs, cases = two_ranks
+    got = results["precise_bn"]
+    want = state_dict_from_jax(numpy_tree({"params": {}, "batch_stats":
+                                           refs["precise_bn"].batch_stats}))
+    before = cases["precise_bn"]["state_dict"]
+    for name, value in want.items():
+        if name.endswith("num_batches_tracked"):
+            assert torch.equal(got[name], before[name]), name
+            continue
+        np.testing.assert_allclose(got[name].numpy(), value.numpy(), atol=1e-5, rtol=1e-4,
+                                   err_msg=name)
+        assert not torch.equal(got[name], before[name]), name
+
+
+def test_perform_test_gathers_every_clip_once(two_ranks):
+    """Rank 1's shard ends a step early; the gathered TestMeter equals the
+    one-process run's over the same clips, each clip counted once."""
+    results, _, cases = two_ranks
+    case, got = cases["test"], results["test"]
+    model = build_model(case["cfg"], device="cpu", dtype=torch.float32)
+    model.load_state_dict(case["state_dict"])
+    from pmv_tpu_torch.data.loader import DataLoader
+
+    loader = DataLoader(ClipDataset(case["frames"], case["labels"], 2), 4, num_workers=1)
+    meter = meters.TestMeter(5, 2, case["cfg"].MODEL.NUM_CLASSES, len(loader))
+    meter, stats = perform_test(loader, make_eval_step(case["cfg"], model, device="cpu"), meter)
+    assert got["steps"] == len(loader) == 3 and list(got["local_batches"]) == [3, 2]
+    np.testing.assert_array_equal(got["clip_count"], [2] * 5)
+    np.testing.assert_allclose(got["video_preds"], meter.video_preds, atol=1e-6, rtol=1e-5)
+    assert got["stats"] == stats
+
+
+def test_global_batchnorm_equals_one_process(two_ranks):
+    results, _, cases = two_ranks
+    case, got = cases["bn"], results["bn"]
+    bn = BatchNorm(6)
+    bn.load_state_dict(case["state_dict"])
+    x = case["x"].clone().requires_grad_()
+    y = bn.train()(x)
+    (y * case["weight"]).sum().backward()
+    np.testing.assert_allclose(got["y"], y.detach().numpy(), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(got["x_grad"], x.grad.numpy(), atol=1e-5, rtol=1e-5)
+    for g, want in zip(got["param_grads"], (bn.weight.grad, bn.bias.grad)):
+        torch.testing.assert_close(g, want, atol=1e-5, rtol=1e-5)
+    for key, value in bn.state_dict().items():
+        torch.testing.assert_close(got["state"][key], value, atol=1e-6, rtol=1e-5, msg=key)
+
+
+def _argv(out, nproc, *opts):
+    return ["--cfg", str(ROOT / "configs" / "tiny_synthetic.yaml"), "--device", "cpu",
+            "--init_method", f"tcp://127.0.0.1:{free_port()}", "--opts", "OUTPUT_DIR", str(out),
+            "NUM_GPUS", str(nproc), "DATA_LOADER.NUM_WORKERS", "2", *opts]
+
+
+def _run_net_two_processes(out, *opts):
+    """run_net with NUM_GPUS 2 in a process group of its own, killed with
+    every rank it spawned after JOIN_TIMEOUT_S."""
+    proc = subprocess.Popen([sys.executable, "-m", "pmv_tpu_torch.tools.run_net",
+                             *_argv(out, 2, *opts)], cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    try:
+        log, _ = proc.communicate(timeout=JOIN_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError("run_net with 2 processes hung")
+    assert proc.returncode == 0, log[-4000:]
+
+
+def _json_stats(path):
+    lines = Path(path).read_text().splitlines()
+    return [json.loads(line.split("json_stats: ", 1)[1]) for line in lines
+            if "json_stats: " in line]
+
+
+def test_run_net_two_processes_equal_one_and_resume(tmp_path):
+    """NUM_GPUS 2: 4 clips a process a step, the one-process run's 8; the
+    same test_final; one checkpoint, written by rank 0; a resume. (The
+    TensorBoard writer is left off: its import pulls in TensorFlow where that
+    is installed, seconds of a rank's time; tests/test_torch_port_tensorboard.py
+    holds it to rank 0.)"""
+    two, one = tmp_path / "two", tmp_path / "one"
+    _run_net_two_processes(two)
+    assert run_net.main(_argv(one, 1)) == 0
+    final = [s for s in _json_stats(two / "stdout.log") if s.get("split") == "test_final"]
+    want = [s for s in _json_stats(one / "stdout.log") if s.get("split") == "test_final"]
+    assert final == want and len(final) == 1
+    log = (two / "stdout.log").read_text()
+    assert log.count("Saved checkpoint") == 1
+    assert os.listdir(two / "checkpoints") == ["checkpoint_epoch_00001.pyth"]
+    a = torch.load(two / "checkpoints" / "checkpoint_epoch_00001.pyth", weights_only=True)
+    b = torch.load(one / "checkpoints" / "checkpoint_epoch_00001.pyth", weights_only=True)
+    assert a["optimizer_state"]["param_groups"][0]["count"] == 8  # 64 videos, 8 a step
+
+    _run_net_two_processes(two, "SOLVER.MAX_EPOCH", "2")
+    log = (two / "stdout.log").read_text()
+    assert "Load from last checkpoint" in log and "Start epoch: 2" in log
+    assert sorted(os.listdir(two / "checkpoints")) == [
+        "checkpoint_epoch_00001.pyth", "checkpoint_epoch_00002.pyth"]
+    assert _json_stats(two / "stdout.log")[-1]["split"] == "test_final"
+    assert b["epoch"] == a["epoch"] == 0
+
+
+def test_dp_sp_is_the_next_slice():
+    model = build_model(mvitv2_s_cfg(tiny=True), device="cpu", dtype=torch.float32)
+    with pytest.raises(NotImplementedError, match="next slice"):
+        distributed.wrap_model(model, "dp_sp", torch.device("cpu"))
+
+
+def test_a_process_never_shares_a_card():
+    with pytest.raises(RuntimeError):
+        local_device(torch.cuda.device_count(), "cuda")
+    assert local_device(3, "cpu") == torch.device("cpu")
+
+
+def test_train_refuses_a_world_it_is_not_launched_in(tmp_path):
+    cfg = port_cfg(x3d_train._cfg())
+    cfg.NUM_GPUS = 2
+    cfg.OUTPUT_DIR = str(tmp_path)
+    with pytest.raises(RuntimeError, match="launch_job"):
+        ptrain.train(cfg, device="cpu")

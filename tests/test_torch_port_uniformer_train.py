@@ -241,6 +241,7 @@ def _run_net_argv(out, max_epoch):
             "TRAIN.BATCH_SIZE", "8", "TEST.BATCH_SIZE", "8",
             "TRAIN.EVAL_PERIOD", "1", "TRAIN.CHECKPOINT_PERIOD", "1",
             "TEST.NUM_ENSEMBLE_VIEWS", "2", "DATA_LOADER.NUM_WORKERS", "2",
+            "NUM_GPUS", "1",  # the yaml's 8 would make eight processes
             "SOLVER.MAX_EPOCH", str(max_epoch), "OUTPUT_DIR", str(out)]
 
 
@@ -275,12 +276,14 @@ def test_run_net_trains_checkpoints_resumes_and_tests_uniformer(tmp_path):
     assert '"split": "test_final"' in stats_lines[-1]
 
 
-@pytest.mark.parametrize("key, value", [
-    ("UNIFORMER.PRETRAIN_NAME", "uniformer_small_in1k"),  # the config's own value
-    ("TENSORBOARD.ENABLE", "True"),
-])
-def test_run_net_refuses_the_recipe_parts_not_ported(tmp_path, key, value):
-    argv = _run_net_argv(tmp_path, 1)
+@pytest.mark.parametrize("key, value, extra", [
+    ("UNIFORMER.PRETRAIN_NAME", "uniformer_small_in1k", []),  # the config's own value
+    # The writer is ported (the config's own TENSORBOARD.ENABLE True); its
+    # model visualization is not.
+    ("TENSORBOARD.ENABLE", "True", ["TENSORBOARD.MODEL_VIS.ENABLE", "True"]),
+], ids=["UNIFORMER.PRETRAIN_NAME-uniformer_small_in1k", "TENSORBOARD.ENABLE-True"])
+def test_run_net_refuses_the_recipe_parts_not_ported(tmp_path, key, value, extra):
+    argv = _run_net_argv(tmp_path, 1) + extra
     argv[argv.index(key) + 1] = value
     with pytest.raises(NotImplementedError):
         run_net.main(argv)

@@ -12,8 +12,10 @@ float32 runs can lie far apart (``tools/grad_witness.py``):
   float64 ones to 1e-4 (relative L2) and its grad norm to rtol 1e-4: apart
   from the ReLUs, what is left is float32 rounding;
 - deciding on their own, the port's float32 gradients and the JAX
-  package's lie within ``grad_witness.RELU_LIMITS["X3D"]`` of the float64
-  ones (the sound readings);
+  package's lie within ``grad_witness.RELU_LIMITS["X3D"]`` (relative L2) of
+  the float64 ones (the sound readings); their grad norms are printed, not
+  held: the JAX package's own moves by up to 5.5e-3 on a seed, as far as
+  some faults move it;
 - a fault in K1's taps, in the channel pad's slice, in dx's weight flip or
   in BatchNorm's eps moves the float32 gradients by more than that limit.
 
@@ -41,7 +43,7 @@ from pmv_tpu_torch.utils.weights import load_jax_params, state_dict_from_jax
 from torch_port_util import numpy_tree, port_cfg
 
 X3D_M = str(Path(__file__).resolve().parents[1] / "configs" / "Kinetics" / "X3D_M.yaml")
-GRAD_LIMIT, NORM_LIMIT = RELU_LIMITS["X3D"]
+GRAD_LIMIT = RELU_LIMITS["X3D"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -116,8 +118,7 @@ def test_float32_gradients_against_float64_and_jax(seed):
     grad_err, norm_err = readings["port_f32_f64_decisions"]
     assert grad_err < 1e-4 and abs(norm_err) < 1e-4
     for name in ("port_f32", "jax_f32"):
-        grad_err, norm_err = readings[name]
-        assert grad_err < GRAD_LIMIT and abs(norm_err) < NORM_LIMIT, name
+        assert readings[name][0] < GRAD_LIMIT, name
 
 
 class _DxUnflipped(torch.autograd.Function):

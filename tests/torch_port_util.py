@@ -230,3 +230,203 @@ def jax_dropout_key(rng, step):
     import jax
 
     return jax.random.split(jax.random.fold_in(rng, step), 3)[2]
+
+
+# ----------------------------------------------------------------------------
+# Ranks of a multi-process job on the CPU (gloo), for
+# tests/test_torch_port_distributed.py. The functions that run in a rank live
+# here, so that a spawned rank imports torch and the port, not JAX.
+
+RANK_TIMEOUT_S = 60  # a collective waits this long before it raises
+JOIN_TIMEOUT_S = 120  # the whole spawn, after which a rank counts as hung
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _rank_entry(target, rank, world, port, args):
+    import datetime
+
+    from pmv_tpu_torch.parallel import distributed
+
+    torch.set_num_threads(2)
+    distributed.init_distributed(
+        rank, world, f"tcp://127.0.0.1:{port}", torch.device("cpu"), "gloo",
+        timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S))
+    try:
+        target(rank, world, *args)
+    finally:
+        distributed.destroy()
+
+
+def start_ranks(target, *args, world=2):
+    """Start ``target(rank, world, *args)`` in ``world`` spawned processes
+    that form a gloo job; ``join_ranks`` waits for them."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    port = free_port()
+    procs = [ctx.Process(target=_rank_entry, args=(target, rank, world, port, args))
+             for rank in range(world)]
+    for p in procs:
+        p.start()
+    return procs
+
+
+def join_ranks(procs, timeout=JOIN_TIMEOUT_S):
+    """Wait for the ranks; kill and fail on a rank still running after
+    ``timeout`` seconds (a hang), and fail on a rank that failed."""
+    import time
+
+    deadline = time.monotonic() + timeout
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    hung = [i for i, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    assert not hung, f"ranks {hung} still running after {timeout} s"
+    assert all(p.exitcode == 0 for p in procs), [p.exitcode for p in procs]
+
+
+def local_rows(batch, rank, world):
+    """Rank ``rank``'s rows of a global batch (a dict of arrays)."""
+    b = len(batch["labels"]) // world
+    return {k: v[rank * b:(rank + 1) * b] for k, v in batch.items()}
+
+
+def whole_state(model):
+    """The model's state_dict with every sharded tensor gathered."""
+    from pmv_tpu_torch.parallel import distributed
+
+    return {k: distributed.full(v).detach().clone() for k, v in model.state_dict().items()}
+
+
+def rank_train_step(rank, world, case, strategy):
+    """One train step of ``case`` (cfg, state_dict, global batch, its draws,
+    lr) on this rank's rows under ``strategy``: its metrics, the whole
+    gradients, the state after it, every rank's portrait route (the name of
+    ``steps.portrait_route``'s choice), and the TrainState."""
+    from pmv_tpu_torch.engine.steps import init_state, make_train_step, portrait_route
+    from pmv_tpu_torch.models import build_model
+    from pmv_tpu_torch.parallel import distributed
+
+    cfg = case["cfg"]
+    model = build_model(cfg, device="cpu", dtype=torch.float32)
+    model.load_state_dict(case["state_dict"])
+    wrapped = distributed.wrap_model(model, strategy, torch.device("cpu"))
+    state = init_state(cfg, model, wrapped=wrapped)
+    step = make_train_step(cfg, device="cpu")
+    batch = local_rows(case["batch"], rank, world)
+    route, _ = portrait_route(model, batch.get("pm"), len(batch["labels"]), train=True)
+    routes = distributed.gather_host([np.array([route.__name__])])[0]
+    metrics = step(state, batch, case["lr"], case["draws"])
+    grads = {k: distributed.full(p.grad).clone() for k, p in model.named_parameters()}
+    return {"metrics": {k: float(v) for k, v in metrics.items()}, "grads": grads,
+            "state": whole_state(model), "routes": list(routes)}, state
+
+
+def rank_cases(rank, world, case_dir):
+    """Every case of ``case_dir/cases.pt`` on this rank; rank 0 writes the
+    results to ``case_dir/results.pt``."""
+    from pathlib import Path
+
+    from pmv_tpu_torch.data.loader import DataLoader
+    from pmv_tpu_torch.engine.precise_bn import calculate_and_update_precise_bn
+    from pmv_tpu_torch.engine.steps import init_state, make_eval_step, make_train_step
+    from pmv_tpu_torch.engine.test import perform_test
+    from pmv_tpu_torch.models import build_model
+    from pmv_tpu_torch.models.batchnorm import BatchNorm
+    from pmv_tpu_torch.parallel import distributed
+    from pmv_tpu_torch.utils import checkpoint as cu
+    from pmv_tpu_torch.utils.meters import TestMeter
+
+    case_dir = Path(case_dir)
+    cases = torch.load(case_dir / "cases.pt", weights_only=False)
+    out = {}
+
+    # (a), (b): the dp and the fsdp step of each model.
+    for name, case in cases["steps"].items():
+        for strategy in ("dp", "fsdp"):
+            out[name, strategy], _ = rank_train_step(rank, world, case, strategy)
+
+    # (b): a checkpoint of one strategy resumed under the other, and a
+    # second step under each.
+    case = cases["resume"]
+    cfg = case["cfg"].clone()
+    first, second = {}, {}
+    for strategy, other in (("dp", "fsdp"), ("fsdp", "dp")):
+        cfg.OUTPUT_DIR = str(case_dir / strategy)
+        _, state = rank_train_step(rank, world, case, strategy)
+        cu.save_checkpoint(cfg.OUTPUT_DIR, state, 0, cfg)
+        model = build_model(cfg, device="cpu", dtype=torch.float32)
+        resumed = init_state(cfg, model, wrapped=distributed.wrap_model(
+            model, other, torch.device("cpu")))
+        assert cu.load_train_checkpoint(cfg, resumed) == 1
+        # Copies: the optimizer's live state tensors, which the next step moves.
+        opt_state = cu.full_state(resumed)[1]
+        opt_state["state"] = {i: {k: v.clone() for k, v in st.items()}
+                              for i, st in opt_state["state"].items()}
+        first[strategy] = whole_state(resumed.model), opt_state
+        step = make_train_step(cfg, device="cpu")
+        step(resumed, local_rows(case["batch2"], rank, world), case["lr"], case["draws2"])
+        second[strategy] = whole_state(resumed.model)
+    out["resume"] = {"first": first, "second": second,
+                     "files": sorted(p.name for p in (case_dir / "dp" / "checkpoints").iterdir())}
+
+    # (c): precise BN over this rank's rows of the global batches.
+    case = cases["precise_bn"]
+    model = build_model(case["cfg"], device="cpu", dtype=torch.float32)
+    model.load_state_dict(case["state_dict"])
+    calculate_and_update_precise_bn([local_rows(b, rank, world) for b in case["batches"]],
+                                    init_state(case["cfg"], model), case["cfg"], "cpu")
+    out["precise_bn"] = whole_state(model)
+
+    # (d): the multi-view test through the loader's shard of this rank.
+    case = cases["test"]
+    model = build_model(case["cfg"], device="cpu", dtype=torch.float32)
+    model.load_state_dict(case["state_dict"])
+    loader = DataLoader(ClipDataset(case["frames"], case["labels"], case["num_clips"]),
+                        case["batch_size"], rank=rank, world_size=world, num_workers=1)
+    meter = TestMeter(len(case["labels"]), case["num_clips"], case["cfg"].MODEL.NUM_CLASSES,
+                      len(loader))
+    meter, stats = perform_test(loader, make_eval_step(case["cfg"], model, device="cpu"), meter)
+    out["test"] = {"stats": stats, "video_preds": meter.video_preds,
+                   "clip_count": meter.clip_count, "steps": len(loader),
+                   "local_batches": distributed.gather_host([[len(list(loader))]])[0]}
+
+    # (e): the global BatchNorm, forward and backward, on this rank's rows.
+    case = cases["bn"]
+    bn = BatchNorm(case["x"].shape[-1])
+    bn.load_state_dict(case["state_dict"])
+    b = case["x"].shape[0] // world
+    x = case["x"][rank * b:(rank + 1) * b].clone().requires_grad_()
+    y = bn.train()(x)
+    (y * case["weight"][rank * b:(rank + 1) * b]).sum().backward()
+    params = [bn.weight.grad, bn.bias.grad]
+    out["bn"] = {"y": distributed.gather_host([y.detach().numpy()])[0],
+                 "x_grad": distributed.gather_host([x.grad.numpy()])[0],
+                 "param_grads": [distributed.all_reduce_sum(g) for g in params],
+                 "state": {k: v.clone() for k, v in bn.state_dict().items()}}
+    if rank == 0:
+        torch.save(out, case_dir / "results.pt")
+
+
+class ClipDataset:
+    """Clips in memory: clip i is view i % num_clips of video i // num_clips."""
+
+    def __init__(self, frames, labels, num_clips):
+        self.frames, self.labels, self.num_clips = frames, labels, num_clips
+
+    def __len__(self):
+        return len(self.frames)
+
+    def __getitem__(self, i):
+        return {"frames": self.frames[i], "label": int(self.labels[i // self.num_clips]),
+                "index": i, "time": 0.0, "pm": False}
