@@ -107,6 +107,31 @@ run on K1, C = 54 and 108 through the wrappers' channel pad:
    a step), one epoch: train, precise BN (its log line checked), checkpoint,
    eval, test 2 views of 256^2; the restore, every tensor compared; the
    resume with SOLVER.MAX_EPOCH 2 (main paths).
+SlowFast 8x8 R50 (configs/Kinetics/SLOWFAST_8x8_R50.yaml, full width and
+depth, random weights from a seed; 32 frames, the slow pathway every 4th),
+the first of the ResNet family, whose convs are all dense or 1x3x3 (none on
+K1: each of its phases asserts 0 K1 and 0 wgrad launches):
+3s. Eval at batch 1 and one SGD train step at batch 2 (the config's
+   recipe: cross-entropy, head dropout 0.5, SGD with momentum), float32,
+   card against CPU under phase 3b's gates with the BatchNorm running
+   statistics; the pm steps (rect [256, 192], one portrait and one
+   landscape row; the train step runs the whole batch in both
+   orientations); precise BN over 2 batches, card against CPU. ReLU
+   decisions move SlowFast's float32 gradients as X3D-M's, and float32's
+   own floor lies above the 1e-4 gates even with them held
+   (``grad_witness.FLOAT64_HELD``): the float32 gradients are held to
+   ``RELU_LIMITS``, the held readings and precise BN's float32 statistics
+   printed, and each train step and precise BN run again in float64 on
+   card and CPU under every 1e-4 gate.
+4s. Serve 4 videos x 2 temporal views x the recipe's 3 spatial crops of
+   256^2 in bfloat16 at batch 8 (a main path; the views cut from 10 to 2).
+5s. Train 5 timed batch-8 bfloat16 steps at 224^2 through ``train_epoch``
+   (a main path).
+6s-7s. ``run_net`` on configs/Kinetics/SLOWFAST_8x8_R50.yaml with the
+   rect_256_192 data options of exps/PMV/run_X3D_PMV.sh, the Synthetic
+   dataset, batch 8, one epoch: train, precise BN, checkpoint, eval, test 2
+   views of 256^2; the restore, every tensor compared; the resume with
+   SOLVER.MAX_EPOCH 2 (main paths).
 Distributed (``pmv_tpu_torch/parallel/distributed.py``):
 8. Print whether ``torch.utils.tensorboard`` imports. 8a: two ranks over
    gloo sharing the one card (NCCL refuses two ranks on one device; the
@@ -130,8 +155,8 @@ Distributed (``pmv_tpu_torch/parallel/distributed.py``):
    run to run), then 5 timed steps of each (main paths): the wrappers'
    overhead in ms. ``--plant-wrapper-faults`` logs 8b's readings with faults
    planted in the wrappers instead of running the phases.
-9. Print the kernels line, the card line, and last
-   {"ok": true, "device": {...}}.
+9. Print the script's wall time, the kernels line, the card line, and
+   last {"ok": true, "device": {...}}.
 
 FFmpeg's development files are not on the card's machine, so no phase
 decodes video there; ``run_net`` reads the Synthetic dataset.
@@ -177,11 +202,13 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 MVIT_CFG = os.path.join(ROOT, "configs", "Kinetics", "MVITv2_S_16x4.yaml")
 UNIFORMER_CFG = os.path.join(ROOT, "configs", "Kinetics", "UNIFORMER_S_16x4.yaml")
 X3D_CFG = os.path.join(ROOT, "configs", "Kinetics", "X3D_M.yaml")
+SLOWFAST_CFG = os.path.join(ROOT, "configs", "Kinetics", "SLOWFAST_8x8_R50.yaml")
 # K1 launches in one forward: MViTv2-S's stride-1 pools, UniFormer-S's DPEs,
-# X3D-M's stride-1 channelwise convs.
+# X3D-M's stride-1 channelwise convs; SlowFast has none.
 MVIT_K1 = 17
 UNIFORMER_K1 = 18
 X3D_K1 = 22
+SLOWFAST_K1 = 0
 X3D_LR = 0.05  # SOLVER.BASE_LR of exps/PMV/run_X3D_PMV.sh
 
 
@@ -486,6 +513,20 @@ def x3d_cfg():
     return cfg
 
 
+def slowfast_cfg():
+    """SlowFast 8x8 R50 with its config's recipe (cross-entropy, head
+    dropout 0.5, SGD with momentum) at the PMV X3D recipe's LR (``X3D_LR``:
+    no PMV recipe is published for SlowFast), and its test protocol of 3
+    crops of 256^2 with the views cut from 10 to 2."""
+    from pmv_tpu_torch.config import get_cfg
+
+    cfg = get_cfg()
+    cfg.merge_from_file(SLOWFAST_CFG)
+    cfg.SOLVER.BASE_LR = X3D_LR
+    cfg.TEST.NUM_ENSEMBLE_VIEWS = 2
+    return cfg
+
+
 def _launch_counts():
     from pmv_tpu_torch.ops.depthwise import depthwise3x3x3, depthwise3x3x3_wgrad
 
@@ -503,14 +544,19 @@ def _launches_since(before):
     return {k: v - before[k] for k, v in _launch_counts().items()}
 
 
-def _models_card_and_cpu(cfg):
-    """float32 models from one seeded init, on the CPU and on the card."""
+def _models_card_and_cpu(cfg, dtype=torch.float32):
+    """Models from one seeded init, on the CPU and on the card, computing in
+    ``dtype`` (float32 weights)."""
     from pmv_tpu_torch.models import build_model
 
-    cpu_model = build_model(cfg, device="cpu", dtype=torch.float32, seed=0)
-    gpu_model = build_model(cfg, device="cuda", dtype=torch.float32, seed=0)
+    cpu_model = build_model(cfg, device="cpu", dtype=dtype, seed=0)
+    gpu_model = build_model(cfg, device="cuda", dtype=dtype, seed=0)
     gpu_model.load_state_dict(cpu_model.state_dict(), strict=True)
     return cpu_model, gpu_model
+
+
+def _running_stats(model):
+    return {k: v.detach().cpu() for k, v in model.named_buffers() if "running" in k}
 
 
 def _running_stats_err(gpu_model, cpu_model):
@@ -518,12 +564,13 @@ def _running_stats_err(gpu_model, cpu_model):
     difference beyond rtol 1e-4, the largest difference), 0 without
     BatchNorm. An entry near 0 may differ by 1e-6 at most (a running mean
     is 0.1 x a batch mean, which may be any small number)."""
-    stats_gpu = {k: v.cpu() for k, v in gpu_model.named_buffers() if "running" in k}
-    stats_cpu = {k: v for k, v in cpu_model.named_buffers() if "running" in k}
-    over = max((float(((stats_gpu[k] - v).abs() - 1e-4 * v.abs()).max())
-                for k, v in stats_cpu.items()), default=0.0)
-    diff = max((float((stats_gpu[k] - v).abs().max()) for k, v in stats_cpu.items()),
-               default=0.0)
+    return _stats_err(_running_stats(gpu_model), _running_stats(cpu_model))
+
+
+def _stats_err(got, want):
+    over = max((float(((got[k] - v).abs() - 1e-4 * v.abs()).max())
+                for k, v in want.items()), default=0.0)
+    diff = max((float((got[k] - v).abs().max()) for k, v in want.items()), default=0.0)
     return over, diff
 
 
@@ -537,28 +584,33 @@ def _grad_rel_err(grads, ref):
     return (diff / sum(float(v.square().sum()) for v in ref.values())) ** 0.5
 
 
-def _train_step_card_vs_cpu(phase, cfg, batch, expected, models=None):
-    """One float32 train step at cfg.SOLVER.BASE_LR on the card and on the
-    CPU from the same weights and draws; raises unless they agree and the
-    card's step launched ``expected``. The gradients (relative L2) and the
-    grad norm are held to 1e-4; for a model in ``grad_witness.RELU_LIMITS``
-    (X3D-M) the gradients to its limit and the grad norm not at all, and then
-    the card's step again, from the same weights, with every ReLU taking the
-    CPU step's decisions, both to 1e-4."""
+def _train_step_card_vs_cpu(phase, cfg, batch, expected, models=None, dtype=torch.float32):
+    """One train step at cfg.SOLVER.BASE_LR on the card and on the CPU from
+    the same weights and draws, activations in ``dtype``; raises unless they
+    agree and the card's step launched ``expected``. The gradients (relative
+    L2) and the grad norm are held to 1e-4; for a model in
+    ``grad_witness.RELU_LIMITS`` (X3D-M, SlowFast) in float32 the gradients
+    to its limit and the grad norm not at all, and then the card's step
+    again, from the same weights, with every ReLU taking the CPU step's
+    decisions, both to 1e-4; for a model in ``grad_witness.FLOAT64_HELD``
+    (SlowFast) that step's readings are printed, and the step is run again in
+    float64 on both sides, every gate at 1e-4."""
     from pmv_tpu_torch.engine.steps import init_state, make_train_step
-    from pmv_tpu_torch.tools.grad_witness import RELU_LIMITS, relu_decisions
+    from pmv_tpu_torch.tools.grad_witness import FLOAT64_HELD, RELU_LIMITS, relu_decisions
 
     lr = cfg.SOLVER.BASE_LR
-    cpu_model, gpu_model = models or _models_card_and_cpu(cfg)
+    name = cfg.MODEL.MODEL_NAME
+    free = dtype == torch.float32 and name in RELU_LIMITS  # ReLUs that jump
+    cpu_model, gpu_model = models or _models_card_and_cpu(cfg, dtype)
     before = {k: v.detach().clone() for k, v in cpu_model.state_dict().items()}
     cpu_state, gpu_state = init_state(cfg, cpu_model), init_state(cfg, gpu_model)
     cpu_step = make_train_step(cfg, device="cpu", seed=0)
     gpu_step = make_train_step(cfg, device="cuda", seed=0)
     draws = cpu_step.sample_draws(cpu_model, batch["frames"].shape)
-    grad_limit = RELU_LIMITS.get(cfg.MODEL.MODEL_NAME, 1e-4)
+    grad_limit = RELU_LIMITS[name] if free else 1e-4
     # The grad norm of a step whose ReLUs decide on their own is read, not
     # held (RELU_LIMITS); with the CPU's decisions held it is held below.
-    norm_limit = None if cfg.MODEL.MODEL_NAME in RELU_LIMITS else 1e-4
+    norm_limit = None if free else 1e-4
 
     counts = _launch_counts()
     t0 = time.perf_counter()
@@ -588,7 +640,8 @@ def _train_step_card_vs_cpu(phase, cfg, batch, expected, models=None):
     stats_moved = sum(int((v != before[k]).sum()) for k, v in stats_cpu.items())
     n_stats = sum(v.numel() for v in stats_cpu.values())
     rec = {
-        "phase": phase, "model": cfg.MODEL.MODEL_NAME, "frames": list(batch["frames"].shape),
+        "phase": phase, "model": name, "dtype": str(dtype),
+        "frames": list(batch["frames"].shape),
         "launches": launches, "loss": [float(gpu["loss"]), float(cpu["loss"])],
         "grad_norm": [float(gpu["grad_norm"]), float(cpu["grad_norm"])],
         "top1_err": [float(gpu["top1_err"]), float(cpu["top1_err"])],
@@ -601,7 +654,7 @@ def _train_step_card_vs_cpu(phase, cfg, batch, expected, models=None):
         "gpu_first_call_s": gpu_s, "cpu_s": cpu_s,
     }
     held = None
-    if cfg.MODEL.MODEL_NAME in RELU_LIMITS:
+    if free:
         # The card's step again from the same weights, deciding each ReLU as
         # the CPU step did.
         from pmv_tpu_torch.models import build_model
@@ -627,7 +680,7 @@ def _train_step_card_vs_cpu(phase, cfg, batch, expected, models=None):
             raise AssertionError(f"{key}: card {gpu[key]} against CPU {cpu[key]}")
     if grad_rel > grad_limit:
         raise AssertionError(f"gradients differ by {grad_rel} (relative L2), over {grad_limit}")
-    if held is not None:
+    if held is not None and name not in FLOAT64_HELD:
         torch.testing.assert_close(held["grad_norm"].cpu(), cpu["grad_norm"], atol=0, rtol=1e-4)
         if rec["relu_decisions_held"]["grad_rel_err"] > 1e-4:
             raise AssertionError(f"with the CPU's ReLU decisions the gradients differ by "
@@ -652,6 +705,9 @@ def _train_step_card_vs_cpu(phase, cfg, batch, expected, models=None):
     if stats_err > 1e-6 or stats_moved < 0.5 * n_stats:
         raise AssertionError(f"running statistics: {stats_err} over rtol 1e-4, "
                              f"{stats_moved} of {n_stats} moved")
+    if free and name in FLOAT64_HELD:
+        _train_step_card_vs_cpu(phase.replace("_f32_", "_f64_"), cfg, batch, expected,
+                                dtype=torch.float64)
 
 
 def phase_train_step_vs_cpu(cfg, per_forward, phase="train_step_f32_b2_card_vs_cpu"):
@@ -711,15 +767,19 @@ def phase_portrait_steps(cfg, per_forward, prefix=""):
                             step_launches(2 * per_forward), models=models)
 
 
-def phase_precise_bn(cfg, per_forward, prefix=""):
-    """Precise BN over 2 batches of 2 clips at the train crop, float32, card
-    against CPU from the same weights (a loader of 3 batches, of which
-    BN.NUM_BATCHES_PRECISE 2 are read): the running statistics under phase
-    3b's BatchNorm gate, every tensor of them moved, ``num_batches_tracked``
-    and the weights left as they were, ``per_forward`` K1 launches a
-    batch."""
+def phase_precise_bn(cfg, per_forward, prefix="", dtype=torch.float32, cpu_float32=None):
+    """Precise BN over 2 batches of 2 clips at the train crop, activations in
+    ``dtype``, card against CPU from the same weights (a loader of 3
+    batches, of which BN.NUM_BATCHES_PRECISE 2 are read): the running
+    statistics under phase 3b's BatchNorm gate, every tensor of them moved,
+    ``num_batches_tracked`` and the weights left as they were,
+    ``per_forward`` K1 launches a batch. For a model in
+    ``grad_witness.FLOAT64_HELD`` (SlowFast) the float32 statistics are
+    printed and the gate holds the float64 ones, beside which the CPU's
+    float32 statistics (``cpu_float32``) are read against its float64 ones."""
     from pmv_tpu_torch.engine.precise_bn import calculate_and_update_precise_bn
     from pmv_tpu_torch.engine.steps import init_state
+    from pmv_tpu_torch.tools.grad_witness import FLOAT64_HELD
 
     cfg = cfg.clone()
     cfg.BN.NUM_BATCHES_PRECISE = 2
@@ -727,7 +787,7 @@ def phase_precise_bn(cfg, per_forward, prefix=""):
     size = cfg.DATA.TRAIN_CROP_SIZE
     loader = [{"frames": rng.integers(0, 256, (2, cfg.DATA.NUM_FRAMES, size, size, 3), np.uint8)}
               for _ in range(3)]
-    cpu_model, gpu_model = _models_card_and_cpu(cfg)
+    cpu_model, gpu_model = _models_card_and_cpu(cfg, dtype)
     before = {k: v.detach().clone() for k, v in cpu_model.state_dict().items()}
     counts = _launch_counts()
     t0 = time.perf_counter()
@@ -743,17 +803,25 @@ def phase_precise_bn(cfg, per_forward, prefix=""):
     kept = all(torch.equal(after[k], v) for k, v in before.items() if "running" not in k)
     gpu_kept = all(torch.equal(gpu_model.state_dict()[k].cpu(), v)
                    for k, v in before.items() if "running" not in k)
-    log(json.dumps({
-        "phase": f"{prefix}precise_bn_f32_card_vs_cpu", "model": cfg.MODEL.MODEL_NAME,
+    gated = dtype == torch.float64 or cfg.MODEL.MODEL_NAME not in FLOAT64_HELD
+    rec = {
+        "phase": f"{prefix}precise_bn_{'f64' if dtype == torch.float64 else 'f32'}_card_vs_cpu",
+        "model": cfg.MODEL.MODEL_NAME, "gated": gated,
         "batches": cfg.BN.NUM_BATCHES_PRECISE, "launches": launches, "bn_stats_tensors": n_stats,
         "bn_stats_tensors_moved": moved, "bn_stats_max_abs_err": stats_abs,
         "bn_stats_err_over_rtol": stats_err, "gpu_s": gpu_s,
-    }))
+    }
+    if cpu_float32 is not None:
+        over, diff = _stats_err(cpu_float32, _running_stats(cpu_model))
+        rec["cpu_f32_vs_f64"] = {"bn_stats_max_abs_err": diff, "bn_stats_err_over_rtol": over}
+    log(json.dumps(rec))
     if launches != eval_launches(2 * per_forward):
         raise AssertionError(f"precise BN launched {launches}, not 2 x {per_forward} K1")
-    if stats_err > 1e-6 or moved != n_stats or not (kept and gpu_kept):
+    if gated and stats_err > 1e-6 or moved != n_stats or not (kept and gpu_kept):
         raise AssertionError(f"precise BN: {stats_err} over rtol 1e-4, {moved} of {n_stats} "
                              "statistics moved, or a weight or count moved")
+    if not gated:
+        phase_precise_bn(cfg, per_forward, prefix, torch.float64, _running_stats(cpu_model))
 
 
 def phase_serve(card, cfg, per_forward, prefix=""):
@@ -804,7 +872,7 @@ def phase_serve(card, cfg, per_forward, prefix=""):
     if preds.shape != (n, cfg.MODEL.NUM_CLASSES) or not torch.isfinite(preds).all():
         raise AssertionError(f"bad class scores: shape {tuple(preds.shape)}")
     np.testing.assert_array_equal(meter.clip_count, [num_clips] * num_videos)
-    if cfg.MODEL.MODEL_NAME in ("MViT", "X3D"):  # softmax'd scores; UniFormer's are logits
+    if cfg.MODEL.MODEL_NAME in ("MViT", "X3D", "SlowFast"):  # softmax'd; UniFormer's logits
         torch.testing.assert_close(preds.sum(dim=1), torch.ones(n), atol=1e-3, rtol=0)
         np.testing.assert_allclose(meter.video_preds.sum(axis=1), num_clips, atol=1e-2)
     if launches != eval_launches(per_forward * len(loader)):
@@ -886,8 +954,9 @@ def _run_net_opts(recipe):
     exps/PMV/run_X3D_PMV.sh) and the test protocol: for MViT a test crop
     equal to the train rect (its rel-pos tables are sized by the crop) and 2
     views; for UniFormer the recipe's 4 views x 1 crop at 224^2, without
-    pretrained weights and TensorBoard; for X3D 2 of the recipe's 10 views
-    at its 256^2 test crop (1 spatial crop, as for the others)."""
+    pretrained weights and TensorBoard; for X3D, and for SlowFast with X3D's
+    rect options, 2 of the recipe's 10 views at its 256^2 test crop (1
+    spatial crop, as for the others)."""
     rect = f"[{PMV_RECT[0]},{PMV_RECT[1]}]"
     common = [
         "DATA.TRAIN_JITTER_ASPECT_RELATIVE", "[]",
@@ -897,7 +966,7 @@ def _run_net_opts(recipe):
     ]
     if recipe == "mvit":
         return common + ["DATA.TEST_CROP_SIZE_RECT", rect, "TEST.NUM_ENSEMBLE_VIEWS", "2"]
-    if recipe == "x3d":
+    if recipe in ("x3d", "slowfast"):
         return common + ["TEST.NUM_ENSEMBLE_VIEWS", "2"]
     return common + [
         "UNIFORMER.PRETRAIN_NAME", "",
@@ -911,6 +980,7 @@ RUN_NET = {  # recipe -> (config file, K1 launches per forward, clips a train st
     "mvit": (MVIT_CFG, MVIT_K1, 16),
     "uniformer": (UNIFORMER_CFG, UNIFORMER_K1, 16),
     "x3d": (X3D_CFG, X3D_K1, 8),  # no repeated augmentation in X3D's recipe
+    "slowfast": (SLOWFAST_CFG, SLOWFAST_K1, 8),
 }
 
 
@@ -1709,7 +1779,7 @@ def plant_wrapper_faults(card):
                                bf16_limit=BF16_WRAPPER_LIMIT)
 
 
-def kernels_line(records, launches):
+def kernels_line(records, launches, slowfast_launches):
     """One entry per kernel: times summed over the launches at the 224^2
     crop's shapes in bfloat16 at batch 8; K1 over one MViTv2-S forward (17
     launches, as many again for dx in a train step), the wgrad kernel over
@@ -1720,7 +1790,8 @@ def kernels_line(records, launches):
     and pad_ms the pad's alone; bound_ms on the unpadded shapes; for the
     wgrad kernel also the pad copies of a train step's layers through the
     autograd Function, step_pad_ms).
-    ``launches`` sums every path's."""
+    ``launches`` sums every path's; "launches_slowfast" the SlowFast paths'
+    (0: none of its convs is on K1)."""
 
     def entry(name, source, replaces, recs, basis):
         def grid(name):
@@ -1738,6 +1809,7 @@ def kernels_line(records, launches):
             "source": source,
             "replaces": replaces,
             "launches": launches[name],
+            "launches_slowfast": slowfast_launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in recs),
             "ms": kernel_ms,
             "kernel_ms": kernel_ms,
@@ -1795,6 +1867,7 @@ def main():
     parser.add_argument("run_net_argv", nargs="*", help=argparse.SUPPRESS)
     args = parser.parse_args()
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1847,6 +1920,12 @@ def main():
     phase_train_step_vs_cpu(x3d, X3D_K1, "x3d_train_step_f32_b2_card_vs_cpu")
     phase_portrait_steps(x3d, X3D_K1, "x3d_")
     phase_precise_bn(x3d, X3D_K1, "x3d_")
+    slowfast = slowfast_cfg()
+    frames_32 = np.random.default_rng(1).integers(0, 256, (1, 32, 224, 224, 3), np.uint8)
+    phase_full_model(slowfast, frames_32, SLOWFAST_K1, "slowfast_full_model_f32_b1")
+    phase_train_step_vs_cpu(slowfast, SLOWFAST_K1, "slowfast_train_step_f32_b2_card_vs_cpu")
+    phase_portrait_steps(slowfast, SLOWFAST_K1, "slowfast_")
+    phase_precise_bn(slowfast, SLOWFAST_K1, "slowfast_")
 
     # Phases 4 to 7: the main paths; serving, training, and run_net's train,
     # checkpoint, eval and test, then its resume; MViTv2-S, UniFormer-S,
@@ -1867,6 +1946,12 @@ def main():
     out_dir = os.path.join("build", "chip_smoke_run_net_x3d")
     shutil.rmtree(out_dir, ignore_errors=True)
     paths += phase_run_net(card, "x3d", out_dir)
+    slowfast_paths = [phase_serve(card, slowfast, SLOWFAST_K1, "slowfast_"),
+                      phase_train(card, slowfast, SLOWFAST_K1, "slowfast_")]
+    out_dir = os.path.join("build", "chip_smoke_run_net_slowfast")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    slowfast_paths += phase_run_net(card, "slowfast", out_dir)
+    paths += slowfast_paths
 
     # Phase 8: the distributed paths.
     log(json.dumps({"phase": "tensorboard_import",
@@ -1875,8 +1960,10 @@ def main():
     paths += phase_distributed_run_net(card)
     paths += phase_distributed_nccl(card)
     launches = {k: sum(p[k] for p in paths) for k in paths[0]}
+    slowfast_launches = {k: sum(p[k] for p in slowfast_paths) for k in paths[0]}
 
-    line = kernels_line(records, launches)
+    log(json.dumps({"phase": "total", "wall_s": time.perf_counter() - t_start}))
+    line = kernels_line(records, launches, slowfast_launches)
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": card, "records": records, **line}, f, indent=1)

@@ -60,8 +60,8 @@ def calculate_and_update_precise_bn(loader, state, cfg, device=None):
         with frozen_stats(model):
             for batch in islice(loader, num_batches):
                 frames = torch.as_tensor(batch["frames"]).to(device, non_blocking=True)
-                x = steps.pack_pathways(cfg, preprocess(frames))[0]
-                b = x.shape[0]
+                x = steps.model_input(cfg, preprocess(frames))
+                b = frames.shape[0]
                 # The global batch's masks, this rank's rows of them.
                 keep = model.sample_head_dropout_mask(b * world, generator, device)
                 drop_path = steps.slice_rows(

@@ -136,15 +136,40 @@ def make_eval_preprocess_fn(cfg, device=None):
 
 
 def pack_pathways(cfg, x):
-    """Single tensor -> per-pathway list. Single-pathway archs only here."""
+    """[B, T, H, W, C] -> the per-pathway list (`steps.py:150-167`): [x] for a
+    single-pathway arch; for SlowFast [slow, fast], the slow pathway every
+    SLOWFAST.ALPHA-th frame from the first, ``x[:, ::ALPHA]``, and the fast
+    one ``x``. AVSlowFast's audio pathway is not ported."""
     if cfg.MODEL.ARCH in cfg.MODEL.SINGLE_PATHWAY_ARCH:
         return [x]
+    if cfg.MODEL.ARCH == "slowfast":
+        return [x[:, ::cfg.SLOWFAST.ALPHA], x]
     raise NotImplementedError(f"arch {cfg.MODEL.ARCH} is not ported yet")
+
+
+def model_input(cfg, x):
+    """What a model's forward takes: the one pathway's tensor, or the list of
+    ``pack_pathways``."""
+    inputs = pack_pathways(cfg, x)
+    return inputs[0] if len(inputs) == 1 else inputs
+
+
+def _transposed(x):
+    """An input with H and W swapped: a tensor, or each pathway of a list
+    (the same as packing the swapped clip: the pathways differ in T only)."""
+    if isinstance(x, list):
+        return [t.transpose(2, 3) for t in x]
+    return x.transpose(2, 3)
+
+
+def _device_of(x):
+    return (x[0] if isinstance(x, list) else x).device
 
 
 def _rows(masks, index):
     """The rows ``index`` of a per-row mask, or of each mask in a nested
-    list or tuple of them (DropPath's per-block pairs); None stays None."""
+    list or tuple of them (DropPath's per-block pairs, a list of pathways);
+    None stays None."""
     if masks is None:
         return None
     if isinstance(masks, (list, tuple)):
@@ -214,42 +239,46 @@ def local_draws(draws, start, stop, batch):
 
 
 def forward_by_orientation(model, x, pm, drop_path_masks=None, head_dropout_mask=None):
-    """``model`` on each row of ``x`` [B, T, H, W, C] in its orientation:
-    rows where ``pm`` (a host bool array, or None) is set run transposed
-    through the portrait specialization (``hw_switch=True``), the others
-    through the plain forward; the outputs come back in batch order."""
+    """``model`` on each row of ``x`` (``model_input``: [B, T, H, W, C], or
+    a list of pathways) in its orientation: rows where ``pm`` (a host bool
+    array, or None) is set run transposed through the portrait
+    specialization (``hw_switch=True``), the others through the plain
+    forward; the outputs come back in batch order."""
     if pm is None:
         return model(x, drop_path_masks=drop_path_masks,
                      head_dropout_mask=head_dropout_mask)
+    device = _device_of(x)
     groups = (np.flatnonzero(~pm), np.flatnonzero(pm))
     outs = []
     for rows, portrait in zip(groups, (False, True)):
         if len(rows) == 0:
             continue
-        index = torch.as_tensor(rows, device=x.device)
-        xg = x.index_select(0, index)
+        index = torch.as_tensor(rows, device=device)
+        xg = _rows(x, index)
         outs.append(model(
-            xg.transpose(2, 3) if portrait else xg,
+            _transposed(xg) if portrait else xg,
             drop_path_masks=_rows(drop_path_masks, index),
             head_dropout_mask=_rows(head_dropout_mask, index),
             hw_switch=portrait,
         ))
-    inverse = torch.as_tensor(np.argsort(np.concatenate(groups)), device=x.device)
+    inverse = torch.as_tensor(np.argsort(np.concatenate(groups)), device=device)
     return torch.cat(outs).index_select(0, inverse)
 
 
 def select_by_orientation(model, x, pm, drop_path_masks=None, head_dropout_mask=None):
     """The JAX package's portrait select (`steps.py:238-252`): ``model`` on
-    the whole batch, then on the whole batch transposed (``hw_switch=True``)
-    with its BatchNorm running statistics left as they are, and per row the
-    output of the row's orientation (``pm``, a host bool array, or None)."""
+    the whole batch, then on the whole batch transposed (``hw_switch=True``;
+    each pathway of a list transposed, which is the JAX step's packing of
+    the transposed clip) with its BatchNorm running statistics left as they
+    are, and per row the output of the row's orientation (``pm``, a host
+    bool array, or None)."""
     land = model(x, drop_path_masks=drop_path_masks, head_dropout_mask=head_dropout_mask)
     if pm is None:
         return land
     with frozen_stats(model):
-        port = model(x.transpose(2, 3), drop_path_masks=drop_path_masks,
+        port = model(_transposed(x), drop_path_masks=drop_path_masks,
                      head_dropout_mask=head_dropout_mask, hw_switch=True)
-    return torch.where(torch.as_tensor(pm, device=x.device)[:, None], port, land)
+    return torch.where(torch.as_tensor(pm, device=_device_of(x))[:, None], port, land)
 
 
 def _top_k(scores, k):
@@ -333,9 +362,8 @@ def make_train_step(cfg, device=None, seed=0):
             )
         else:
             targets = labels
-        inputs = pack_pathways(cfg, x)
         route, pm = portrait_route(model, batch.get("pm"), b, train=True)
-        args = (inputs[0], pm)
+        args = (model_input(cfg, x), pm)
         kwargs = dict(drop_path_masks=draws["drop_path"], head_dropout_mask=draws["dropout"])
         with frozen_stats(model, cfg.MODEL.FROZEN_BN):
             if state.wrapped is None:
@@ -410,9 +438,8 @@ def make_eval_step(cfg, model, device=None):
     def eval_step(frames, pm=None):
         model.eval()
         frames = torch.as_tensor(frames).to(device, non_blocking=True)
-        inputs = pack_pathways(cfg, preprocess(frames))
         route, pm = portrait_route(model, pm, frames.shape[0], train=False)
-        return route(model, inputs[0], pm)
+        return route(model, model_input(cfg, preprocess(frames)), pm)
 
     return eval_step
 
@@ -429,8 +456,7 @@ def make_feat_step(cfg, model, device=None):
     def feat_step(frames):
         model.eval()
         frames = torch.as_tensor(frames).to(device, non_blocking=True)
-        inputs = pack_pathways(cfg, preprocess(frames))
-        feats = model(inputs[0], return_features=True)
+        feats = model(model_input(cfg, preprocess(frames)), return_features=True)
         if isinstance(feats, tuple):  # MViT's (tokens, thw)
             feats = feats[0]
         return feats.float().mean(dim=tuple(range(1, feats.dim() - 1)))

@@ -1,5 +1,6 @@
 """Classification heads (`MViT/slowfast/models/head_helper.py`)."""
 
+import torch
 import torch.nn.functional as F
 from torch import nn
 
@@ -38,6 +39,28 @@ class TransformerBasicHead(nn.Module):
         if self.detach_final_fc:
             x = x.detach()
         x = self.projection(x)
+        if not self.training:
+            x = head_act(x, self.act_func)
+        return x
+
+
+class ResNetBasicHead(nn.Module):
+    """The ResNet family's head (`pmv_tpu/models/heads.py:54`): per pathway
+    the mean over T, H and W, the pathways concatenated, dropout, the
+    ``projection`` linear; the activation at eval only. ``dim_in`` lists the
+    pathways' widths. In training the dropout applies ``dropout_mask``
+    [B, sum(dim_in)], drawn with ``self.dropout.sample``."""
+
+    def __init__(self, dim_in, num_classes, dropout_rate=0.0, act_func="softmax"):
+        super().__init__()
+        self.dim_in = sum(dim_in)
+        self.dropout = Dropout(dropout_rate)
+        self.projection = Linear(self.dim_in, num_classes)
+        self.act_func = act_func
+
+    def forward(self, inputs, dropout_mask=None):
+        x = torch.cat([x.mean(dim=(1, 2, 3)) for x in inputs], dim=-1)
+        x = self.projection(self.dropout(x, dropout_mask))
         if not self.training:
             x = head_act(x, self.act_func)
         return x

@@ -1,16 +1,19 @@
-"""Stems (`MViT/slowfast/models/stem_helper.py`): MViT's ``PatchEmbed``
-and X3D's ``X3DStem``.
+"""Stems (`MViT/slowfast/models/stem_helper.py`): MViT's ``PatchEmbed``,
+the ResNet family's ``ResNetBasicStem`` and X3D's ``X3DStem``.
 
 Plain convs. The JAX package's TPU.FOLD_STEM layout rewrite
-(`pmv_tpu/models/stem.py:165-181`, ``use_fold`` of ``X3DStem``) is not
-ported: it computes the same conv.
+(`pmv_tpu/models/stem.py:165-360`, ``use_fold`` of ``ResNetBasicStem`` and
+``X3DStem``: the strided stem conv with its stride blocks, and for narrow
+outputs a block of output positions, folded into channels; BatchNorm in the
+folded layout) is not ported: it computes the same conv and BatchNorm on
+the same parameters.
 """
 
 import torch.nn.functional as F
 from torch import nn
 
 from pmv_tpu_torch.models.batchnorm import BatchNorm
-from pmv_tpu_torch.models.common import ChannelsLastConv3d
+from pmv_tpu_torch.models.common import ChannelsLastConv3d, max_pool_3d
 
 
 class PatchEmbed(nn.Module):
@@ -36,6 +39,22 @@ class PatchEmbed(nn.Module):
         else:
             y = p(x)
         return y.flatten(1, 3), tuple(y.shape[1:4])
+
+
+class ResNetBasicStem(nn.Module):
+    """A kt x kh x kw conv ``conv`` (no bias), BatchNorm ``bn``, ReLU, then
+    the 1x3x3 max pool of stride (1, 2, 2) (`pmv_tpu/models/stem.py:277`);
+    on [B, T, H, W, C] tensors."""
+
+    def __init__(self, dim_in, dim_out, kernel, stride, padding):
+        super().__init__()
+        self.conv = ChannelsLastConv3d(dim_in, dim_out, tuple(kernel), tuple(stride),
+                                       tuple(padding), bias=False)
+        self.bn = BatchNorm(dim_out)
+
+    def forward(self, x):
+        x = F.relu(self.bn(self.conv(x)))
+        return max_pool_3d(x, (1, 3, 3), (1, 2, 2), (0, 1, 1))
 
 
 class X3DStem(nn.Module):

@@ -258,13 +258,14 @@ class Routed(nn.Module):
 
 def block_types():
     """The module classes that FSDP shards one by one: MViT's
-    MultiScaleBlock, UniFormer's CBlock, SABlock and SplitSABlock, X3D's
-    ResBlock."""
+    MultiScaleBlock, UniFormer's CBlock, SABlock and SplitSABlock, the
+    ResBlock of X3D and the ResNet family, and its Nonlocal blocks."""
     from pmv_tpu_torch.models.attention import MultiScaleBlock
+    from pmv_tpu_torch.models.nonlocal_block import Nonlocal
     from pmv_tpu_torch.models.resnet_helper import ResBlock
     from pmv_tpu_torch.models.uniformer import CBlock, SABlock, SplitSABlock
 
-    return (MultiScaleBlock, CBlock, SABlock, SplitSABlock, ResBlock)
+    return (MultiScaleBlock, CBlock, SABlock, SplitSABlock, ResBlock, Nonlocal)
 
 
 def wrap_model(model, strategy, device):

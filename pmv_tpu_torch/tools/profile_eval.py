@@ -2,7 +2,9 @@
 MViTv2-S 16x4's, or that of any config given with ``--cfg`` (UniFormer-S
 16x4's: ``--cfg configs/Kinetics/UNIFORMER_S_16x4.yaml --opts
 UNIFORMER.PRETRAIN_NAME "" TENSORBOARD.ENABLE False``; X3D-M's: ``--cfg
-configs/Kinetics/X3D_M.yaml``, its eval at the 256^2 test crop).
+configs/Kinetics/X3D_M.yaml``, its eval at the 256^2 test crop; SlowFast
+8x8 R50's: ``--cfg configs/Kinetics/SLOWFAST_8x8_R50.yaml``, 32 frames a
+clip, of which the slow pathway takes 8).
 
     python -m pmv_tpu_torch.tools.profile_eval [--train] [--batch 8] [--steps 10] [--top 20] \\
         [--cfg <yaml> [--opts KEY VALUE ...]]

@@ -6,11 +6,13 @@ most ``JOIN_TIMEOUT_S`` (tests/torch_port_util.py), so that a hang fails the
 test. One spawn runs every case (``rank_cases``) while this process computes
 the references:
 
-- (a) the ``dp`` train step of tiny UniFormer, X3D and MViT, 2 ranks x 2
-  rows, MixUp on, the rect crop with one portrait row on rank 0 and none on
+- (a) the ``dp`` train step of tiny UniFormer, X3D, MViT and SlowFast, 2
+  ranks x 2 rows, MixUp on, the rect crop with one portrait row on rank 0 and none on
   rank 1, against the JAX package's ``make_train_step(model_pm=...)`` on the
   global batch of 4 with the same draws (RandAugment, erasing, MixUp, and
-  X3D's head dropout mask): loss and grad norm to rtol 1e-4, top-1/top-5
+  the head dropout masks of X3D and SlowFast; SlowFast's port steps in
+  float64 activations, JAX's ReLUs taking the port's decisions): loss and
+  grad norm to rtol 1e-4, top-1/top-5
   equal, the updated weights and BatchNorm running statistics as each
   model's one-process parity test holds them; the gradients against the
   port's one-process step on the global batch (relative L2 1e-5); the
@@ -32,6 +34,7 @@ the references:
   second call resumes from it.
 """
 
+import contextlib
 import json
 import os
 import signal
@@ -47,6 +50,7 @@ import pytest
 import torch
 
 import test_torch_port_pm as mvit_pm
+import test_torch_port_slowfast_train as sf_train
 import test_torch_port_uniformer_train as uni_train
 import test_torch_port_x3d_train as x3d_train
 from pmv_tpu.engine import precise_bn as jprecise_bn
@@ -60,6 +64,7 @@ from pmv_tpu_torch.models import build_model
 from pmv_tpu_torch.models.batchnorm import BatchNorm
 from pmv_tpu_torch.parallel import distributed
 from pmv_tpu_torch.tools import run_net
+from pmv_tpu_torch.tools.grad_witness import relu_decisions
 from pmv_tpu_torch.utils.device import local_device
 from pmv_tpu_torch.utils import meters
 from pmv_tpu_torch.utils.weights import load_jax_params, state_dict_from_jax
@@ -69,6 +74,7 @@ from torch_port_util import (
     free_port,
     jax_dropout_key,
     jax_dropout_masks,
+    jax_relu_decisions,
     jax_train_draws,
     join_ranks,
     numpy_tree,
@@ -79,7 +85,7 @@ from torch_port_util import (
 
 ROOT = Path(__file__).resolve().parents[1]
 PM = np.array([True, False, False, False])  # rank 0: rows 0-1, rank 1: rows 2-3
-MODELS = ("uniformer", "x3d", "mvit")
+MODELS = ("uniformer", "x3d", "mvit", "slowfast")
 LR = 1e-3
 
 
@@ -99,6 +105,12 @@ def _step_case(name):
         batch = x3d_train._batch(cfg, 1, PM)
         jmodel, jstate, tx = x3d_train._jax_state(cfg, batch, 4)
         jport = jmodel
+    elif name == "slowfast":
+        cfg = sf_train._cfg(*sf_train.RECT, "MIXUP.ENABLE", "True",
+                            "MODEL.LOSS_FUNC", "soft_cross_entropy")
+        batch = sf_train._batch(cfg, 1, PM)
+        jmodel, jstate, tx = sf_train._jax_state(cfg, batch, 4)
+        jport = jmodel
     else:
         cfg = mvit_pm._pm_cfg()
         batch = mvit_pm._batch(cfg, 0)
@@ -108,8 +120,9 @@ def _step_case(name):
     variables = {"params": jstate.params}
     if jstate.batch_stats:
         variables["batch_stats"] = jstate.batch_stats
-    masks = jax_dropout_masks(jmodel, variables, batch["frames"], jax_dropout_key(rng, 0))
-    if masks:  # X3D's head; the others' dropout is off
+    jx = sf_train._pathways(cfg, batch["frames"]) if name == "slowfast" else batch["frames"]
+    masks = jax_dropout_masks(jmodel, variables, jx, jax_dropout_key(rng, 0))
+    if masks:  # the heads of X3D and SlowFast; the others' dropout is off
         (mask,) = masks
         draws["dropout"] = torch.tensor(mask, dtype=torch.float32)
     pcfg = port_cfg(cfg)
@@ -117,22 +130,35 @@ def _step_case(name):
     load_jax_params(model, variables)
     case = {"cfg": pcfg, "state_dict": {k: v.clone() for k, v in model.state_dict().items()},
             "batch": batch, "draws": draws, "lr": LR}
+    if name == "slowfast":
+        # The ranks' and the one process's steps in float64 activations: in
+        # float32 this net's gradients at these widths (its last stage's
+        # BatchNorms normalize 4 values a channel a rank) move by the
+        # rounding of the global statistics' sums.
+        case["dtype"] = torch.float64
     return case, (cfg, jmodel, jport, jstate, tx, rng)
 
 
-def _step_refs(case, jax_args):
+def _step_refs(case, jax_args, held=False):
     """The JAX pm train step on the global batch, and the port's
-    one-process step on it with the same draws."""
+    one-process step on it with the same draws; with ``held``, JAX's ReLUs
+    take the one-process step's decisions (``jax_relu_decisions``: it
+    patches the modules' ReLU, so the call must have the process to
+    itself)."""
     cfg, jmodel, jport, jstate, tx, rng = jax_args
+    with relu_decisions() if held else contextlib.nullcontext() as decisions:
+        one = _one_process_steps(case)
     jstep = jax.jit(jsteps.make_train_step(cfg, jmodel, tx, model_pm=jport))
-    jstate, jm = jstep(jstate, {k: jnp.asarray(v) for k, v in case["batch"].items()}, rng, LR)
-    return {"jax_metrics": jm, "jstate": jstate, "one": _one_process_steps(case), "cfg": cfg}
+    with jax_relu_decisions(decisions) if held else contextlib.nullcontext():
+        jstate, jm = jstep(jstate, {k: jnp.asarray(v) for k, v in case["batch"].items()}, rng,
+                           LR)
+    return {"jax_metrics": jm, "jstate": jstate, "one": one, "cfg": cfg}
 
 
 def _one_process_steps(case, second=None):
     """The port's step (and a second one) on the global batch in this
     process: (metrics, gradients, state) after each."""
-    model = build_model(case["cfg"], device="cpu", dtype=torch.float32)
+    model = build_model(case["cfg"], device="cpu", dtype=case.get("dtype", torch.float32))
     model.load_state_dict(case["state_dict"])
     state = init_state(case["cfg"], model)
     step = make_train_step(case["cfg"], device="cpu")
@@ -202,12 +228,15 @@ def two_ranks(tmp_path_factory):
         procs = start_ranks(rank_cases, str(case_dir))
         try:
             ref_futures = {name: pool.submit(_step_refs, steps[name], jax_args[name])
-                           for name in MODELS}
+                           for name in MODELS if name != "slowfast"}
             ref_futures["resume"] = pool.submit(
                 _one_process_steps, resume, (resume["batch2"], resume["draws2"]))
             ref_futures["precise_bn"] = pool.submit(
                 jprecise_bn.calculate_and_update_precise_bn, *precise_args)
             refs = {key: future.result() for key, future in ref_futures.items()}
+            # SlowFast's float32 gradients move with a ReLU that decides otherwise:
+            # its reference holds JAX's ReLUs, alone in the process.
+            refs["slowfast"] = _step_refs(steps["slowfast"], jax_args["slowfast"], held=True)
         finally:
             join_ranks(procs)
     return torch.load(case_dir / "results.pt", weights_only=False), refs, cases
@@ -236,6 +265,9 @@ def test_dp_step_matches_jax_on_the_global_batch(two_ranks, name):
         uni_train._assert_state_matches(model, ref["jstate"], [LR])
     elif name == "x3d":
         x3d_train._assert_state_matches(model, ref["jstate"])
+    elif name == "slowfast":
+        before = {k: v.clone() for k, v in two_ranks[2]["steps"][name]["state_dict"].items()}
+        sf_train._assert_state_matches(model, ref["jstate"], before)
     else:
         want = state_dict_from_jax(numpy_tree(ref["jstate"].params))
         for key, value in want.items():
@@ -383,10 +415,15 @@ def _argv(out, nproc, *opts):
 
 def _run_net_two_processes(out, *opts):
     """run_net with NUM_GPUS 2 in a process group of its own, killed with
-    every rank it spawned after JOIN_TIMEOUT_S."""
+    every rank it spawned after JOIN_TIMEOUT_S. Each rank computes on one
+    thread (OMP_NUM_THREADS 1, which the spawned ranks inherit): beside
+    other test workers on a shared CPU, ranks whose intra-op threads claim
+    the host's cores wait on each other's threads, and the call ran past
+    JOIN_TIMEOUT_S (ROADMAP.md, section 3)."""
     proc = subprocess.Popen([sys.executable, "-m", "pmv_tpu_torch.tools.run_net",
                              *_argv(out, 2, *opts)], cwd=ROOT, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True, start_new_session=True)
+                            stderr=subprocess.STDOUT, text=True, start_new_session=True,
+                            env={**os.environ, "OMP_NUM_THREADS": "1"})
     try:
         log, _ = proc.communicate(timeout=JOIN_TIMEOUT_S)
     except subprocess.TimeoutExpired:

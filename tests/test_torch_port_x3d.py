@@ -385,6 +385,6 @@ def test_norm_types():
     with pytest.raises(NotImplementedError, match="sub_batchnorm"):
         build_model(cfg, device="cpu")
     cfg.BN.NORM_TYPE = "batchnorm"
-    cfg.RESNET.TRANS_FUNC = "bottleneck_transform"
-    with pytest.raises(NotImplementedError, match="bottleneck_transform"):
+    cfg.RESNET.TRANS_FUNC = "tf_bottleneck_transform"  # AVSlowFast's audio blocks
+    with pytest.raises(NotImplementedError, match="tf_bottleneck_transform"):
         build_model(cfg, device="cpu")

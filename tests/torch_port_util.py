@@ -6,6 +6,8 @@ This module imports no JAX at import time, so that the CUDA tests, which
 run where JAX is not installed, can use it.
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -172,25 +174,64 @@ def jax_mixup_draws(mixup, key, height, width):
 def jax_dropout_masks(jmodel, variables, x, key, **kwargs):
     """The keep masks (bool, in call order) that the ``nn.Dropout`` modules of
     ``jmodel`` draw in one train-mode apply on an input of ``x``'s shape
-    with ``rngs={"dropout": key}``, as the JAX train step applies it. A mask
+    with ``rngs={"dropout": key}``, as the JAX train step applies it (``x``
+    an array, or a list of a multi-pathway net's arrays). A mask
     depends on the key, the module's path and the shape, not on the values:
-    each Dropout is called once, on ones, and its output read."""
+    each Dropout is called once, on ones, and its output read. The apply is
+    jitted: it returns the masks only, so XLA drops the rest of the model."""
     import flax.linen as fnn
+    import jax
     import jax.numpy as jnp
 
-    masks = []
+    def masks_of(variables, key):
+        masks = []
 
-    def interceptor(next_fun, args, call_kwargs, context):
-        if isinstance(context.module, fnn.Dropout) and context.method_name == "__call__":
-            kept = next_fun(jnp.ones_like(args[0]), *args[1:], **call_kwargs)
-            masks.append(np.asarray(kept != 0))
-            return args[0] * kept
-        return next_fun(*args, **call_kwargs)
+        def interceptor(next_fun, args, call_kwargs, context):
+            if isinstance(context.module, fnn.Dropout) and context.method_name == "__call__":
+                kept = next_fun(jnp.ones_like(args[0]), *args[1:], **call_kwargs)
+                masks.append(kept != 0)
+                return args[0] * kept
+            return next_fun(*args, **call_kwargs)
 
-    with fnn.intercept_methods(interceptor):
-        jmodel.apply(variables, jnp.zeros(x.shape, jnp.float32), train=True,
-                     mutable=["batch_stats"], rngs={"dropout": key}, **kwargs)
-    return masks
+        with fnn.intercept_methods(interceptor):
+            zeros = jax.tree_util.tree_map(lambda a: jnp.zeros(a.shape, jnp.float32), x)
+            jmodel.apply(variables, zeros, train=True,
+                         mutable=["batch_stats"], rngs={"dropout": key}, **kwargs)
+        return masks
+
+    return [np.asarray(m) for m in jax.jit(masks_of)(variables, key)]
+
+
+@contextlib.contextmanager
+def jax_relu_decisions(decisions):
+    """Within the block (which must trace the JAX model: a jit traced
+    inside it), each call of flax's ``nn.relu`` takes the decisions of the
+    port's ReLUs recorded by ``tools.grad_witness.relu_decisions`` on the
+    same model and batch, in call order: relu(v) = v * decision. A ReLU
+    input within a rounding of 0 decides either way in float32 and moves a
+    whole gradient (ROADMAP.md); with the decisions held equal what is left
+    is the rounding itself. The JAX stem's ReLU under TPU.FOLD_STEM runs in
+    the folded layout [B, T, H / f, W / f, f * f * C]; its decisions are
+    folded the same way."""
+    import flax.linen as fnn
+
+    relu, masks = fnn.relu, iter(decisions.masks)
+
+    def held(v):
+        mask = next(masks).cpu().numpy()
+        if mask.shape != v.shape:
+            b, t, h, w, c = mask.shape
+            f = int(round((v.shape[-1] / c) ** 0.5))
+            mask = mask.reshape(b, t, h // f, f, w // f, f, c).transpose(
+                0, 1, 2, 4, 3, 5, 6).reshape(v.shape)
+        return v * mask.astype(v.dtype)
+
+    fnn.relu = held
+    try:
+        yield
+    finally:
+        fnn.relu = relu
+    assert next(masks, None) is None, "the JAX model made fewer ReLU calls than the port"
 
 
 def jax_train_draws(cfg, rng, step, shape):
@@ -310,7 +351,8 @@ def whole_state(model):
 
 def rank_train_step(rank, world, case, strategy):
     """One train step of ``case`` (cfg, state_dict, global batch, its draws,
-    lr) on this rank's rows under ``strategy``: its metrics, the whole
+    lr, and the activations' dtype, float32 unless it names one) on this
+    rank's rows under ``strategy``: its metrics, the whole
     gradients, the state after it, every rank's portrait route (the name of
     ``steps.portrait_route``'s choice), and the TrainState."""
     from pmv_tpu_torch.engine.steps import init_state, make_train_step, portrait_route
@@ -318,7 +360,7 @@ def rank_train_step(rank, world, case, strategy):
     from pmv_tpu_torch.parallel import distributed
 
     cfg = case["cfg"]
-    model = build_model(cfg, device="cpu", dtype=torch.float32)
+    model = build_model(cfg, device="cpu", dtype=case.get("dtype", torch.float32))
     model.load_state_dict(case["state_dict"])
     wrapped = distributed.wrap_model(model, strategy, torch.device("cpu"))
     state = init_state(cfg, model, wrapped=wrapped)
