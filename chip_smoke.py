@@ -132,6 +132,43 @@ K1: each of its phases asserts 0 K1 and 0 wgrad launches):
    dataset, batch 8, one epoch: train, precise BN, checkpoint, eval, test 2
    views of 256^2; the restore, every tensor compared; the resume with
    SOLVER.MAX_EPOCH 2 (main paths).
+MaskFeat pre-training of MViTv2-S 16x4
+(configs/masked_ssl/k400_MVITv2_S_16x4_MaskFeat_PT.yaml at full width:
+16 blocks, 16 frames of 224^2, HOG targets; 36,190,974 parameters, the JAX
+model's count; random weights from a seed), whose blocks 14-15 keep the
+14 x 14 grid: its 14 stride-1 q-pools a forward run on K1, at shapes phase
+2 holds (``MASKFEAT_POOL_SHAPES``):
+3m. (Run after 3s, with phase 3.) float32, card against CPU: the forward
+   at batch 1 with one mask from a seed (pred to atol 1e-4; the HOG target
+   with the CPU's orientation bins held to 1e-5, the card's own target to
+   1e-5 on the tokens whose pixels both sides binned alike, the pixels
+   binned otherwise counted; 14 K1);
+   one AdamW step at batch 2 with the 0.02 clip from the same draws and
+   bins: loss and grad norm to 1e-4, weights within 2 x lr, 28 K1 and 14
+   wgrad; the gradients to 1e-4 (relative L2) with the card's max pools
+   (the skip pools of blocks 1 and 3) taking the CPU's taps, as the bins
+   are held (the gradients with the card's own taps, and the taps taken
+   otherwise, printed).
+4m. The bf16 masked step at batch 8, timed alone: ms a step, clips/s, peak
+   memory, K1's and wgrad's launches and their share of the step.
+5m. 5 steps of ``train_ssl``'s loop body (``train_epoch`` over the masked
+   step) at batch 8 in bfloat16 (a main path).
+6m. ``run_net`` on the PT yaml (one process, batch 8, ``Synthetic``: the
+   model draws its masks) for one epoch, its checkpoint; the restore as
+   ``train_ssl`` makes it, every tensor compared; ``run_net`` again with
+   SOLVER.MAX_EPOCH 2, which must resume (main paths; log in
+   ``build/chip_smoke_run_net_maskfeat/stdout.log``).
+7m. The fine-tuning yaml (configs/masked_ssl/k400_MVITv2_S_16x4_FT.yaml)
+   from 6m's checkpoint with CLEAR_NAME_PATTERN ["backbone."]: the load as
+   ``train()`` makes it (every FT tensor equal to the checkpoint's
+   ``backbone.`` tensor of its name and shape, the rest at their init, no
+   optimizer state, epoch 0; the counts printed), then ``run_net`` in
+   float32 (4 videos x 2 clips a step, eval, a 1-view test; 17 K1 a
+   forward; a main path; log in
+   ``build/chip_smoke_run_net_maskfeat_ft/stdout.log``).
+VIS_MASK. ``run_net`` with the MAE variant (MASK.PRED_HOG False) at
+   TEST.BATCH_SIZE 2: 4 (original | masked | reconstructed) stacks in
+   ``build/chip_smoke_vis_mask/`` (a main path).
 Distributed (``pmv_tpu_torch/parallel/distributed.py``):
 8. Print whether ``torch.utils.tensorboard`` imports. 8a: two ranks over
    gloo sharing the one card (NCCL refuses two ranks on one device; the
@@ -210,6 +247,13 @@ UNIFORMER_K1 = 18
 X3D_K1 = 22
 SLOWFAST_K1 = 0
 X3D_LR = 0.05  # SOLVER.BASE_LR of exps/PMV/run_X3D_PMV.sh
+# MaskFeat pre-training of MViTv2-S 16x4, and the fine-tuning from it.
+MASKFEAT_PT_CFG = os.path.join(ROOT, "configs", "masked_ssl", "k400_MVITv2_S_16x4_MaskFeat_PT.yaml")
+MASKFEAT_FT_CFG = os.path.join(ROOT, "configs", "masked_ssl", "k400_MVITv2_S_16x4_FT.yaml")
+MASKFEAT_K1 = 14  # the PT yaml's stride-1 q-pools: blocks 0, 2 and 4-15
+MASKFEAT_FT_K1 = 17  # the FT yaml's MViT pools as MViTv2-S does
+MASKFEAT_PARAMS = 36_190_974  # the JAX MaskMViT's count (tests/test_torch_port_masked.py)
+MASKFEAT_BATCH = 8  # clips a bf16 step (phases 4m-6m)
 
 
 def step_launches(per_forward):
@@ -956,7 +1000,9 @@ def _run_net_opts(recipe):
     views; for UniFormer the recipe's 4 views x 1 crop at 224^2, without
     pretrained weights and TensorBoard; for X3D, and for SlowFast with X3D's
     rect options, 2 of the recipe's 10 views at its 256^2 test crop (1
-    spatial crop, as for the others)."""
+    spatial crop, as for the others); for MaskFeat's fine-tuning (FT yaml)
+    its own 224^2 crops, a 1-view test and CLEAR_NAME_PATTERN
+    ["backbone."]."""
     rect = f"[{PMV_RECT[0]},{PMV_RECT[1]}]"
     common = [
         "DATA.TRAIN_JITTER_ASPECT_RELATIVE", "[]",
@@ -968,6 +1014,9 @@ def _run_net_opts(recipe):
         return common + ["DATA.TEST_CROP_SIZE_RECT", rect, "TEST.NUM_ENSEMBLE_VIEWS", "2"]
     if recipe in ("x3d", "slowfast"):
         return common + ["TEST.NUM_ENSEMBLE_VIEWS", "2"]
+    if recipe == "maskfeat_ft":  # the FT yaml's own crops; a 1-view test
+        return ["TEST.NUM_TEMPORAL_CLIPS", "[]", "TEST.NUM_ENSEMBLE_VIEWS", "1",
+                "TRAIN.CHECKPOINT_CLEAR_NAME_PATTERN", "['backbone.']"]
     return common + [
         "UNIFORMER.PRETRAIN_NAME", "",
         "TENSORBOARD.ENABLE", "False",
@@ -981,6 +1030,7 @@ RUN_NET = {  # recipe -> (config file, K1 launches per forward, clips a train st
     "uniformer": (UNIFORMER_CFG, UNIFORMER_K1, 16),
     "x3d": (X3D_CFG, X3D_K1, 8),  # no repeated augmentation in X3D's recipe
     "slowfast": (SLOWFAST_CFG, SLOWFAST_K1, 8),
+    "maskfeat_ft": (MASKFEAT_FT_CFG, MASKFEAT_FT_K1, 8),  # 4 videos x AUG.NUM_SAMPLE 2
 }
 
 
@@ -1063,16 +1113,16 @@ def _last_match(lines, pattern):
     return found[-1]
 
 
-def _run_net_call(recipe, out_dir, max_epoch):
+def _run_net_call(recipe, out_dir, max_epoch, extra=()):
     """One ``run_net`` call (a main path: launch counts zeroed just before it
     and read just after), measured from its own log: the epoch's seconds
     (its EpochTimer line), the eval's, the checkpoint's write, and the
     test's (the sum of its test_iter times); with BN.USE_PRECISE_STATS, its
-    precise-BN line."""
+    precise-BN line. ``extra`` opts go after the recipe's."""
     from pmv_tpu_torch.data.loader import construct_loader
     from pmv_tpu_torch.tools import run_net
 
-    argv = run_net_argv(recipe, out_dir, max_epoch)
+    argv = run_net_argv(recipe, out_dir, max_epoch) + list(extra)
     cfg = run_net_cfg(argv)
     _, per_forward, train_batch = RUN_NET[recipe]
     if run_net_train_batch(cfg) != train_batch:
@@ -1166,6 +1216,468 @@ def phase_run_net(card, recipe, out_dir):
         log(json.dumps({**rec, "card": card}))
     log(json.dumps({"phase": "run_net_restore", "recipe": recipe, **restored}))
     return [first["launches"], second["launches"]]
+
+
+# MaskFeat pre-training of MViTv2-S 16x4 (configs/masked_ssl/), phases 3m-7m.
+
+
+def maskfeat_cfg():
+    """The MaskFeat PT yaml at full width (16 blocks, 16 frames of 224^2, HOG
+    targets), one process."""
+    from pmv_tpu_torch.config import get_cfg
+
+    cfg = get_cfg()
+    cfg.merge_from_file(MASKFEAT_PT_CFG)
+    cfg.NUM_GPUS = 1
+    cfg.TRAIN.BATCH_SIZE = MASKFEAT_BATCH
+    return cfg
+
+
+def _maskfeat_clip(cfg):
+    """A clip's shape [T, S, S, 3] at the config's train crop."""
+    size = cfg.DATA.TRAIN_CROP_SIZE
+    return (cfg.DATA.NUM_FRAMES, size, size, 3)
+
+
+def _token_otherwise(otherwise, model):
+    """Per patch token, whether any pixel of its HOG cells (its frames,
+    rows, columns and channels) took another bin: [B, n_tok] bool."""
+    b, t, h, w, c = otherwise.shape
+    pt, ph, pw = model.patch
+    t_tok, h_tok, w_tok = model.token_grid(otherwise.shape)
+    grid = otherwise.reshape(b, t_tok, t // t_tok, h_tok, ph, w_tok, pw, c)
+    return grid.any(dim=7).any(dim=6).any(dim=4).any(dim=2).reshape(b, -1)
+
+
+def phase_maskfeat_card_vs_cpu():
+    """3m: full-width MaskMViT in float32, card against CPU from one seeded
+    init: the forward at batch 1 with one mask from a seed (pred to atol
+    1e-4; target, with the CPU's HOG bins held, to 1e-5, and the card's own
+    target to 1e-5 on every token whose pixels both sides binned alike; the
+    pixels binned otherwise counted), 14 K1 launches; then one AdamW step at
+    batch 2 (the PT recipe, the gradient clipped at 0.02) from the same
+    draws and held bins: loss and grad norm to 1e-4 and weights within 2 x
+    lr of the CPU's, 28 K1 and 14 wgrad launches; and the card's step again
+    from the same weights with each max pool taking the CPU step's taps
+    (``grad_witness.max_pool_decisions``, as the bins are held): its
+    gradients to 1e-4 (relative L2) of the CPU's, its grad norm to 1e-4.
+    The gradients as the card takes its own taps, and the count of taps
+    taken otherwise, are printed. The count of weights off the CPU's by
+    more than 1e-6 is printed: under the 0.02 clip many gradient elements
+    are of the order of Adam's epsilon, where the update moves with the
+    gradient's last bits."""
+    from pmv_tpu_torch.engine.ssl_steps import init_masked_state, make_masked_train_step
+    from pmv_tpu_torch.engine.steps import make_preprocess_fn
+    from pmv_tpu_torch.models import build_model
+    from pmv_tpu_torch.models.masked import hog_bins
+    from pmv_tpu_torch.tools.grad_witness import max_pool_decisions
+
+    cfg = maskfeat_cfg()
+    lr = cfg.SOLVER.BASE_LR
+    cpu_model, gpu_model = _models_card_and_cpu(cfg)
+    n_params = sum(p.numel() for p in gpu_model.parameters())
+    rng = np.random.default_rng(7)
+    frames = rng.integers(0, 256, (1, *_maskfeat_clip(cfg)), np.uint8)
+    mask = cpu_model.sample_mask(frames.shape, torch.Generator().manual_seed(7))
+    preprocess = {d: make_preprocess_fn(cfg, train=False, device=d) for d in ("cpu", "cuda")}
+    x_cpu = preprocess["cpu"](torch.as_tensor(frames))
+    x_gpu = preprocess["cuda"](torch.as_tensor(frames, device="cuda"))
+    bins_cpu = hog_bins(x_cpu)
+    otherwise = hog_bins(x_gpu).cpu() != bins_cpu
+    cpu_model.eval()
+    gpu_model.eval()
+    with torch.no_grad():
+        counts = _launch_counts()
+        gpred, gtarget, _ = gpu_model(x_gpu, mask.cuda(), hog_bins=bins_cpu)
+        launches = _launches_since(counts)
+        own_target = gpu_model.targets(x_gpu).cpu()
+        cpred, ctarget, _ = cpu_model(x_cpu, mask)
+    gpred, gtarget = gpred.cpu(), gtarget.cpu()
+    alike = ~_token_otherwise(otherwise, cpu_model)
+    own_err = float((own_target - ctarget)[alike].abs().max())
+    log(json.dumps({
+        "phase": "maskfeat_forward_f32_b1_card_vs_cpu", "model": cfg.MODEL.MODEL_NAME,
+        "params": n_params, "params_jax": MASKFEAT_PARAMS, "launches": launches,
+        "masked_tokens": int(mask.sum()), "tokens": mask.numel(),
+        "pred_max_abs_err": float((gpred - cpred).abs().max()),
+        "target_bins_held_max_abs_err": float((gtarget - ctarget).abs().max()),
+        "pixels_binned_otherwise": int(otherwise.sum()), "pixels": otherwise.numel(),
+        "tokens_binned_otherwise": int((~alike).sum()),
+        "target_own_bins_max_abs_err_where_alike": own_err,
+    }))
+    if n_params != MASKFEAT_PARAMS:
+        raise AssertionError(f"MaskMViT has {n_params} parameters, the JAX model "
+                             f"{MASKFEAT_PARAMS}")
+    if launches != eval_launches(MASKFEAT_K1):
+        raise AssertionError(f"one MaskMViT forward launched {launches}, not {MASKFEAT_K1} K1")
+    if not (torch.isfinite(gpred).all() and torch.isfinite(gtarget).all()):
+        raise AssertionError("non-finite MaskMViT outputs on the card")
+    torch.testing.assert_close(gpred, cpred, atol=1e-4, rtol=0)
+    torch.testing.assert_close(gtarget, ctarget, atol=1e-5, rtol=0)
+    if own_err > 1e-5:
+        raise AssertionError(f"the card's own HOG targets differ by {own_err} where every "
+                             "pixel was binned alike")
+
+    batch = {"frames": rng.integers(0, 256, (2, *_maskfeat_clip(cfg)), np.uint8)}
+    cpu_state, gpu_state = init_masked_state(cfg, cpu_model), init_masked_state(cfg, gpu_model)
+    cpu_step = make_masked_train_step(cfg, device="cpu", seed=0)
+    gpu_step = make_masked_train_step(cfg, device="cuda", seed=0)
+    draws = cpu_step.sample_draws(cpu_model, batch["frames"].shape)
+    train_pre = {d: make_preprocess_fn(cfg, train=True, device=d) for d in ("cpu", "cuda")}
+    draws["hog_bins"] = hog_bins(train_pre["cpu"](torch.as_tensor(batch["frames"]), draws))
+    x_train = train_pre["cuda"](torch.as_tensor(batch["frames"], device="cuda"), draws)
+    step_otherwise = int((hog_bins(x_train).cpu() != draws["hog_bins"]).sum())
+    before = {k: v.detach().clone() for k, v in cpu_model.state_dict().items()}
+    counts = _launch_counts()
+    t0 = time.perf_counter()
+    gpu = {k: v.cpu() for k, v in gpu_step(gpu_state, batch, lr, draws).items()}
+    gpu_s = time.perf_counter() - t0
+    launches = _launches_since(counts)
+    t0 = time.perf_counter()
+    with max_pool_decisions() as cpu_decisions:
+        cpu = cpu_step(cpu_state, batch, lr, draws)
+    cpu_s = time.perf_counter() - t0
+    # The card's step again from the same weights, each max pool (the skip
+    # pools of blocks 1 and 3) taking the CPU step's taps: two taps within a
+    # rounding of each other move the gradients of everything before the
+    # pool (PERF.md; tools/op_witness.py).
+    held_model = build_model(cfg, device="cuda", dtype=torch.float32, seed=0)
+    held_model.load_state_dict(before, strict=True)
+    with max_pool_decisions(cpu_decisions) as card_decisions:
+        held = gpu_step(init_masked_state(cfg, held_model), batch, lr, draws)
+    cpu_grads, gpu_grads, held_grads = _grads(cpu_model), _grads(gpu_model), _grads(held_model)
+    grad_rel = _grad_rel_err(held_grads, cpu_grads)
+    worst = sorted((float((held_grads[k] - v).norm()), k, float(v.norm()),
+                    float((gpu_grads[k] - v).norm())) for k, v in cpu_grads.items())[-3:]
+    params_gpu = {k: v.detach().cpu() for k, v in gpu_model.named_parameters()}
+    params_cpu = {k: v.detach() for k, v in cpu_model.named_parameters()}
+    param_err = max(float((params_gpu[k] - v).abs().max()) for k, v in params_cpu.items())
+    n_off = sum(int(((params_gpu[k] - v).abs() > 1e-6).sum()) for k, v in params_cpu.items())
+    moved = sum(int((v != before[k]).sum()) for k, v in params_cpu.items())
+    log(json.dumps({
+        "phase": "maskfeat_train_step_f32_b2_card_vs_cpu", "model": cfg.MODEL.MODEL_NAME,
+        "frames": list(batch["frames"].shape), "lr": lr,
+        "clip_grad_l2norm": cfg.SOLVER.CLIP_GRAD_L2NORM, "launches": launches,
+        "loss": [float(gpu["loss"]), float(cpu["loss"])],
+        "grad_norm": [float(gpu["grad_norm"]), float(cpu["grad_norm"]),
+                      float(held["grad_norm"])],
+        "grad_rel_err_max_pools_held": grad_rel,
+        "grad_rel_err_own_max_pools": _grad_rel_err(gpu_grads, cpu_grads),
+        "max_pool_outputs": sum(int(m.numel()) for m in cpu_decisions.masks),
+        "card_max_pool_taps_otherwise": card_decisions.taken_otherwise,
+        "grads_furthest_apart": [{"param": n, "held_l2_diff": d, "grad_l2": g,
+                                  "own_l2_diff": o} for d, n, g, o in worst],
+        "param_max_abs_err": param_err, "params_off_by_1e-6": n_off, "params": n_params,
+        "params_moved": moved, "pixels_binned_otherwise": step_otherwise,
+        "gpu_first_call_s": gpu_s, "cpu_s": cpu_s,
+    }))
+    if launches != step_launches(MASKFEAT_K1):
+        raise AssertionError(f"one MaskMViT train step launched {launches}, not "
+                             f"{step_launches(MASKFEAT_K1)}")
+    torch.testing.assert_close(gpu["loss"], cpu["loss"], atol=0, rtol=1e-4)
+    torch.testing.assert_close(gpu["grad_norm"], cpu["grad_norm"], atol=0, rtol=1e-4)
+    torch.testing.assert_close(held["grad_norm"].cpu(), cpu["grad_norm"], atol=0, rtol=1e-4)
+    if bool(gpu["nan"]) or bool(cpu["nan"]):
+        raise AssertionError("a non-finite MaskFeat loss")
+    if grad_rel > 1e-4:
+        raise AssertionError(f"with the CPU's max-pool taps MaskMViT's card gradients lie "
+                             f"{grad_rel} from the CPU's (relative L2)")
+    if param_err > 2.0001 * lr:
+        raise AssertionError(f"updated parameters differ by {param_err}, over 2 x lr")
+    if moved < 0.5 * n_params:
+        raise AssertionError(f"only {moved} of {n_params} weights moved")
+
+
+def maskfeat_kernel_ms(records):
+    """ms of K1 (forward and dx) and of the wgrad kernel in one bf16 train
+    step at batch 8 at the PT yaml's shapes (``MASKFEAT_POOL_SHAPES``, the
+    phase 2 records of those shapes), per key."""
+    from pmv_tpu_torch.ops.depthwise import MASKFEAT_POOL_SHAPES
+
+    def summed(kernel, key):
+        total = 0.0
+        for shape, n in MASKFEAT_POOL_SHAPES:
+            rec = next(r for r in records if r["kernel"] == kernel and r["dtype"] == "bfloat16"
+                       and r["grid"] == "square" and tuple(r["shape"]) == tuple(shape))
+            total += n * rec[key]
+        return total
+
+    keys = ("kernel_ms", "kernel_warm_ms", "plain_ms", "bound_ms", "library_ms")
+    return {kernel: {key: summed(kernel, key) for key in keys}
+            for kernel in ("depthwise3x3x3", "depthwise3x3x3_wgrad")}
+
+
+def phase_maskfeat_step(card, records):
+    """4m: the bf16 masked train step at batch 8, the model drawing its
+    masks, timed alone (2 warm-up steps, then 5 between synchronizes): ms a
+    step, clips/s, peak memory, its K1 and wgrad launches and their share of
+    the step (phase 2's ms at these shapes, from ``records``: K1 twice,
+    forward and dx)."""
+    from pmv_tpu_torch.engine.ssl_steps import init_masked_state, make_masked_train_step
+    from pmv_tpu_torch.models import build_model
+
+    cfg = maskfeat_cfg()
+    model = build_model(cfg, device="cuda", seed=0)  # bfloat16 activations
+    state = init_masked_state(cfg, model)
+    step = make_masked_train_step(cfg, device="cuda", seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    batch = {"frames": torch.randint(0, 256, (MASKFEAT_BATCH, *_maskfeat_clip(cfg)),
+                                     dtype=torch.uint8, device="cuda", generator=gen)}
+    for _ in range(2):
+        step(state, batch, cfg.SOLVER.BASE_LR)
+    torch.cuda.synchronize()
+    timed = 5
+    torch.cuda.reset_peak_memory_stats()
+    counts = _launch_counts()
+    t0 = time.perf_counter()
+    losses = [step(state, batch, cfg.SOLVER.BASE_LR)["loss"] for _ in range(timed)]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / timed * 1e3
+    launches = _launches_since(counts)
+    peak = torch.cuda.max_memory_allocated()
+    rec = {"phase": "maskfeat_step_bf16_b8", "card": card, "batch": MASKFEAT_BATCH,
+           "steps": timed, "ms_per_step": ms, "clips_per_s": MASKFEAT_BATCH / ms * 1e3,
+           "max_memory_allocated_bytes": peak, "launches": launches,
+           "losses": [float(v) for v in losses]}
+    kernels = maskfeat_kernel_ms(records)
+    k1_ms = 2 * kernels["depthwise3x3x3"]["kernel_ms"]
+    wgrad_ms = kernels["depthwise3x3x3_wgrad"]["kernel_ms"]
+    rec.update(k1_ms_per_step=k1_ms, wgrad_ms_per_step=wgrad_ms, k1_share=k1_ms / ms,
+               wgrad_share=wgrad_ms / ms)
+    log(json.dumps(rec))
+    losses = rec["losses"]
+    if launches != {k: n * timed for k, n in step_launches(MASKFEAT_K1).items()}:
+        raise AssertionError(f"{timed} masked steps launched {launches}")
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite MaskFeat losses {losses}")
+
+
+def phase_maskfeat_train(card):
+    """5m, a main path: 5 steps of ``train_ssl``'s loop body
+    (``train_epoch`` over the masked step) on synthetic batch-8 clips in
+    bfloat16, after one warm-up step; counts zeroed just before the 5 and
+    read just after."""
+    from pmv_tpu_torch.engine.ssl_steps import init_masked_state, make_masked_train_step
+    from pmv_tpu_torch.engine.train import train_epoch
+    from pmv_tpu_torch.models import build_model
+    from pmv_tpu_torch.utils.meters import TrainMeter
+
+    cfg = maskfeat_cfg()
+    timed = 5
+    cfg.LOG_PERIOD = timed
+    cfg.SOLVER.MAX_EPOCH = 1
+    model = build_model(cfg, device="cuda", seed=0)
+    state = init_masked_state(cfg, model)
+    step = make_masked_train_step(cfg, device="cuda", seed=0)
+    metrics = []
+
+    def recording_step(state, batch, lr):
+        m = step(state, batch, lr)
+        metrics.append(m)
+        return m
+
+    rng = np.random.default_rng(9)
+    loader = [{"frames": rng.integers(0, 256, (MASKFEAT_BATCH, *_maskfeat_clip(cfg)), np.uint8)}
+              for _ in range(1 + timed)]
+    train_epoch(loader[:1], recording_step, state, TrainMeter(1, cfg), 0, cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launch_counts()  # the main path starts here
+    t0 = time.perf_counter()
+    train_epoch(loader[1:], recording_step, state, TrainMeter(timed, cfg), 0, cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launch_counts()  # ... and ends here
+    losses = [float(m["loss"]) for m in metrics]
+    grad_norms = [float(m["grad_norm"]) for m in metrics]
+    log(json.dumps({
+        "phase": "maskfeat_train_epoch_bf16_b8", "card": card, "steps": timed,
+        "batch": MASKFEAT_BATCH, "wall_s": wall, "ms_per_step": wall / timed * 1e3,
+        "clips_per_s": timed * MASKFEAT_BATCH / wall,
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "launches": launches, "losses": losses, "grad_norms": grad_norms,
+        "steps_taken": state.step,
+    }))
+    if not np.all(np.isfinite(losses + grad_norms)):
+        raise AssertionError(f"non-finite losses {losses} or grad norms {grad_norms}")
+    if launches != {k: n * timed for k, n in step_launches(MASKFEAT_K1).items()}:
+        raise AssertionError(f"{timed} masked steps launched {launches}")
+    return launches
+
+
+def maskfeat_pt_argv(out_dir, max_epoch):
+    """run_net's arguments for the PT yaml: one process, batch 8, the
+    Synthetic dataset (no loader mask: the model draws its own)."""
+    return ["--cfg", MASKFEAT_PT_CFG, "--opts", "NUM_GPUS", "1",
+            "TRAIN.BATCH_SIZE", str(MASKFEAT_BATCH), "TRAIN.DATASET", "synthetic",
+            "SOLVER.MAX_EPOCH", str(max_epoch), "OUTPUT_DIR", out_dir]
+
+
+def _maskfeat_pt_call(out_dir, max_epoch):
+    """One PT ``run_net`` call (a main path): its launches, wall time, the
+    train stats and the checkpoint it wrote, from its own log."""
+    from pmv_tpu_torch.data.loader import construct_loader
+    from pmv_tpu_torch.tools import run_net
+
+    argv = maskfeat_pt_argv(out_dir, max_epoch)
+    steps = len(construct_loader(run_net_cfg(argv), "train"))
+    log_path = os.path.join(out_dir, "stdout.log")
+    skip = 0
+    if os.path.exists(log_path):
+        with open(log_path) as f:
+            skip = len(f.read().splitlines())
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launch_counts()  # the main path starts here
+    t0 = time.perf_counter()
+    run_net.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launch_counts()  # ... and ends here
+    with open(log_path) as f:
+        lines = f.read().splitlines()[skip:]
+    stats = [json.loads(line.split("json_stats: ", 1)[1])
+             for line in lines if "json_stats: " in line]
+    train_stats = [s for s in stats if s.get("_type") == "train_epoch"][-1]
+    if not np.isfinite(train_stats["loss"]):
+        raise AssertionError(f"non-finite MaskFeat train loss {train_stats}")
+    expected = {k: n * steps for k, n in step_launches(MASKFEAT_K1).items()}
+    if launches != expected:
+        raise AssertionError(f"the PT run_net launched {launches}, not {expected}")
+    saved = _last_match(lines, r"Saved checkpoint to (\S+) in ([\d.]+)s")
+    return {
+        "phase": f"maskfeat_run_net_pt_epoch_{max_epoch}", "wall_s": wall,
+        "train_steps": steps, "train_clips": steps * MASKFEAT_BATCH,
+        "train_clips_per_s_of_wall": steps * MASKFEAT_BATCH / wall,
+        "checkpoint": saved[1], "checkpoint_s": float(saved[2]),
+        "checkpoint_bytes": os.path.getsize(saved[1]),
+        "optimizer_steps": torch.load(saved[1], map_location="cpu", weights_only=True)[
+            "optimizer_state"]["param_groups"][0]["count"],
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "launches": launches, "train_epoch_stats": train_stats, "log": lines,
+    }
+
+
+def phase_maskfeat_run_net(card, out_dir):
+    """6m: ``run_net`` on the PT yaml for one epoch (train_ssl, its
+    checkpoint); the restore as train_ssl restores it, every weight and
+    AdamW tensor compared with the file's; ``run_net`` again with
+    SOLVER.MAX_EPOCH 2, which must resume. Returns (both calls' launches,
+    the last checkpoint)."""
+    from contextlib import redirect_stdout
+
+    from pmv_tpu_torch.engine.ssl_steps import init_masked_state
+    from pmv_tpu_torch.models import build_model
+    from pmv_tpu_torch.utils import checkpoint as cu
+
+    with redirect_stdout(open(os.devnull, "w")):
+        first = _maskfeat_pt_call(out_dir, 1)
+        cfg = run_net_cfg(maskfeat_pt_argv(out_dir, 2))
+        state = init_masked_state(cfg, build_model(cfg, device="cuda", seed=cfg.RNG_SEED))
+        last = cu.get_last_checkpoint(cfg.OUTPUT_DIR, cfg.TASK)
+        start = cu.load_checkpoint(last, state) + 1
+        restored = {"checkpoint": last, **_compare_restored(
+            state, torch.load(last, map_location="cpu", weights_only=True), start)}
+        second = _maskfeat_pt_call(out_dir, 2)
+    if restored["start_epoch"] != 1 or restored["checkpoint"] != first["checkpoint"]:
+        raise AssertionError(f"the MaskFeat restore did not start after epoch 1: {restored}")
+    if not (any(f"Resumed SSL training from {first['checkpoint']}" in line
+                for line in second["log"])
+            and any("Start epoch: 2" in line for line in second["log"])):
+        raise AssertionError("the second PT call did not resume from the first's checkpoint")
+    if second["optimizer_steps"] != first["optimizer_steps"] + second["train_steps"]:
+        raise AssertionError(f"the PT optimizer took {second['optimizer_steps']} steps in all")
+    for rec in (first, second):
+        rec.pop("log")
+        log(json.dumps({**rec, "card": card}))
+    log(json.dumps({"phase": "maskfeat_run_net_restore", **restored}))
+    return [first["launches"], second["launches"]], second["checkpoint"]
+
+
+def phase_maskfeat_fine_tune(card, pt_checkpoint, out_dir):
+    """7m: the FT yaml from the PT checkpoint with CLEAR_NAME_PATTERN
+    ["backbone."]: first the load as ``train()`` makes it, every FT tensor
+    equal to the checkpoint's ``backbone.`` tensor of its name and shape,
+    the others to their init, no optimizer state, epoch 0; then ``run_net``
+    (float32, as the yaml sets; 4 videos of 2 clips a step; eval; a 1-view
+    test), a main path. Returns its launches."""
+    from contextlib import redirect_stdout
+
+    from pmv_tpu_torch.engine.steps import init_state
+    from pmv_tpu_torch.models import build_model
+    from pmv_tpu_torch.utils import checkpoint as cu
+
+    extra = ["TRAIN.BATCH_SIZE", "4", "TRAIN.CHECKPOINT_FILE_PATH", pt_checkpoint]
+    cfg = run_net_cfg(run_net_argv("maskfeat_ft", out_dir, 1) + extra)
+    model = build_model(cfg, device="cuda", seed=cfg.RNG_SEED)
+    init = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    state = init_state(cfg, model)
+    with redirect_stdout(open(os.devnull, "w")):
+        start = cu.load_train_checkpoint(cfg, state)
+    pt = torch.load(pt_checkpoint, map_location="cpu", weights_only=True)["model_state"]
+    loaded, kept = [], []
+    for name, value in model.state_dict().items():
+        src = pt.get("backbone." + name)
+        if src is not None and src.shape == value.shape:
+            if not torch.equal(value.cpu(), src):
+                raise AssertionError(f"FT {name} differs from the PT checkpoint's")
+            loaded.append(name)
+        else:
+            if not torch.equal(value.cpu(), init[name]):
+                raise AssertionError(f"FT {name} moved from its init")
+            kept.append(name)
+    backbone = [k for k in pt if k.startswith("backbone.")]
+    rec = {"phase": "maskfeat_fine_tune_load", "start_epoch": start,
+           "tensors_loaded": len(loaded), "tensors_kept_init": len(kept), "kept": kept,
+           "pt_backbone_tensors": len(backbone), "optimizer_state": len(state.optimizer.state)}
+    log(json.dumps(rec))
+    if start != 0 or state.step != 0 or state.optimizer.state:
+        raise AssertionError(f"the FT load took the PT run's epoch or optimizer: {rec}")
+    if not loaded or any(k.startswith("blocks.0.") for k in kept):
+        raise AssertionError(f"the FT load left backbone tensors at their init: {kept}")
+    with redirect_stdout(open(os.devnull, "w")):
+        ft = _run_net_call("maskfeat_ft", out_dir, 1, extra)
+    ft.pop("log")
+    log(json.dumps({**ft, "card": card}))
+    return ft["launches"]
+
+
+def phase_maskfeat_vis_mask(card, out_dir):
+    """VIS_MASK, a main path: ``run_net`` with the MAE variant of the PT yaml
+    (MASK.PRED_HOG False) at TEST.BATCH_SIZE 2, TRAIN off, TEST and
+    VIS_MASK on: 4 batches, each's (original | masked | reconstructed)
+    stack written and checked (uint8, the original plane equal to the
+    Synthetic clip's frames of every temporal patch). Returns its launches."""
+    from contextlib import redirect_stdout
+
+    from pmv_tpu_torch.data.synthetic import Synthetic
+    from pmv_tpu_torch.tools import run_net
+
+    argv = ["--cfg", MASKFEAT_PT_CFG, "--opts", "NUM_GPUS", "1", "TRAIN.ENABLE", "False",
+            "TEST.ENABLE", "True", "VIS_MASK.ENABLE", "True", "MASK.PRED_HOG", "False",
+            "TEST.BATCH_SIZE", "2", "TEST.DATASET", "synthetic", "TEST.NUM_TEMPORAL_CLIPS", "[]",
+            "TEST.NUM_ENSEMBLE_VIEWS", "1", "TEST.NUM_SPATIAL_CROPS", "1", "OUTPUT_DIR", out_dir]
+    _zero_launch_counts()  # the main path starts here
+    t0 = time.perf_counter()
+    with redirect_stdout(open(os.devnull, "w")):
+        run_net.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launch_counts()  # ... and ends here
+    paths = sorted(p for p in os.listdir(out_dir) if p.startswith("vis_mask_"))
+    comp = np.load(os.path.join(out_dir, paths[0]))
+    cfg = run_net_cfg(argv)
+    frames = Synthetic(cfg, "test")[0]["frames"]
+    size = cfg.DATA.TEST_CROP_SIZE
+    log(json.dumps({"phase": "maskfeat_vis_mask_bf16_b2", "card": card, "wall_s": wall,
+                    "stacks": paths, "shape": list(comp.shape), "launches": launches}))
+    if len(paths) != 4 or comp.dtype != np.uint8 or comp.shape != (
+            2, 3, cfg.DATA.NUM_FRAMES // 2, size, size, 3):
+        raise AssertionError(f"VIS_MASK wrote {paths}, of shape {comp.shape}")
+    if not np.array_equal(comp[0, 0], frames[::2]):
+        raise AssertionError("the VIS_MASK original plane is not the clip's frames")
+    if launches != eval_launches(4 * MASKFEAT_K1):
+        raise AssertionError(f"VIS_MASK launched {launches}, not 4 x {MASKFEAT_K1} K1")
+    return launches
 
 
 def tensorboard_imports():
@@ -1779,7 +2291,7 @@ def plant_wrapper_faults(card):
                                bf16_limit=BF16_WRAPPER_LIMIT)
 
 
-def kernels_line(records, launches, slowfast_launches):
+def kernels_line(records, launches, slowfast_launches, maskfeat_launches):
     """One entry per kernel: times summed over the launches at the 224^2
     crop's shapes in bfloat16 at batch 8; K1 over one MViTv2-S forward (17
     launches, as many again for dx in a train step), the wgrad kernel over
@@ -1791,7 +2303,11 @@ def kernels_line(records, launches, slowfast_launches):
     wgrad kernel also the pad copies of a train step's layers through the
     autograd Function, step_pad_ms).
     ``launches`` sums every path's; "launches_slowfast" the SlowFast paths'
-    (0: none of its convs is on K1)."""
+    (0: none of its convs is on K1), "launches_maskfeat" the MaskFeat paths'
+    (phases 5m-7m and VIS_MASK); "maskfeat" the sums over one MaskFeat PT
+    forward's 14 launches at batch 8, bf16 (``maskfeat_kernel_ms``; for K1
+    the forward's, which dx repeats)."""
+    maskfeat = maskfeat_kernel_ms(records)
 
     def entry(name, source, replaces, recs, basis):
         def grid(name):
@@ -1810,6 +2326,7 @@ def kernels_line(records, launches, slowfast_launches):
             "replaces": replaces,
             "launches": launches[name],
             "launches_slowfast": slowfast_launches[name],
+            "launches_maskfeat": maskfeat_launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in recs),
             "ms": kernel_ms,
             "kernel_ms": kernel_ms,
@@ -1841,6 +2358,7 @@ def kernels_line(records, launches, slowfast_launches):
                 ) if key in recs[0]}
                 for g in ("square", "rect", "portrait", "test")
             },
+            "maskfeat": maskfeat[name],
         }
 
     fwd = [r for r in records if r["kernel"] == "depthwise3x3x3"]
@@ -1926,6 +2444,7 @@ def main():
     phase_train_step_vs_cpu(slowfast, SLOWFAST_K1, "slowfast_train_step_f32_b2_card_vs_cpu")
     phase_portrait_steps(slowfast, SLOWFAST_K1, "slowfast_")
     phase_precise_bn(slowfast, SLOWFAST_K1, "slowfast_")
+    phase_maskfeat_card_vs_cpu()
 
     # Phases 4 to 7: the main paths; serving, training, and run_net's train,
     # checkpoint, eval and test, then its resume; MViTv2-S, UniFormer-S,
@@ -1952,6 +2471,19 @@ def main():
     shutil.rmtree(out_dir, ignore_errors=True)
     slowfast_paths += phase_run_net(card, "slowfast", out_dir)
     paths += slowfast_paths
+    phase_maskfeat_step(card, records)
+    maskfeat_paths = [phase_maskfeat_train(card)]
+    out_dir = os.path.join("build", "chip_smoke_run_net_maskfeat")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    pt_paths, pt_checkpoint = phase_maskfeat_run_net(card, out_dir)
+    maskfeat_paths += pt_paths
+    out_dir = os.path.join("build", "chip_smoke_run_net_maskfeat_ft")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    maskfeat_paths.append(phase_maskfeat_fine_tune(card, pt_checkpoint, out_dir))
+    out_dir = os.path.join("build", "chip_smoke_vis_mask")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    maskfeat_paths.append(phase_maskfeat_vis_mask(card, out_dir))
+    paths += maskfeat_paths
 
     # Phase 8: the distributed paths.
     log(json.dumps({"phase": "tensorboard_import",
@@ -1961,9 +2493,10 @@ def main():
     paths += phase_distributed_nccl(card)
     launches = {k: sum(p[k] for p in paths) for k in paths[0]}
     slowfast_launches = {k: sum(p[k] for p in slowfast_paths) for k in paths[0]}
+    maskfeat_launches = {k: sum(p[k] for p in maskfeat_paths) for k in paths[0]}
 
     log(json.dumps({"phase": "total", "wall_s": time.perf_counter() - t_start}))
-    line = kernels_line(records, launches, slowfast_launches)
+    line = kernels_line(records, launches, slowfast_launches, maskfeat_launches)
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": card, "records": records, **line}, f, indent=1)

@@ -20,9 +20,14 @@ unseeded generator. Test mode draws nothing. The host stops at uint8
 crops [T, H, W, C]; RandAugment, normalization, erasing and mixup run on
 the device in the train step.
 
-Not ported, each raising NotImplementedError: DATA.DUMMY_LOAD,
-AUG.GEN_MASK_LOADER (MaskFeat masks), the contrastive multi-clip views
-(DATA.TRAIN_CROP_NUM_TEMPORAL or _SPATIAL > 1) and multigrid short cycles.
+With AUG.GEN_MASK_LOADER a train sample also carries "mask", MaskFeat's
+blockwise mask on the AUG.MASK_WINDOW_SIZE grid, flattened to booleans
+(``data/masking.py::gen_mask``), drawn last from the sample's generator, as
+the JAX package draws it after the decode (`kinetics.py:237-242`).
+
+Not ported, each raising NotImplementedError: DATA.DUMMY_LOAD, the
+contrastive multi-clip views (DATA.TRAIN_CROP_NUM_TEMPORAL or _SPATIAL > 1)
+and multigrid short cycles.
 """
 
 import math
@@ -30,7 +35,7 @@ import os
 
 import numpy as np
 
-from pmv_tpu_torch.data import spatial, transform, video_decoder
+from pmv_tpu_torch.data import masking, spatial, transform, video_decoder
 from pmv_tpu_torch.data.build import DATASET_REGISTRY
 from pmv_tpu_torch.native import binding
 from pmv_tpu_torch.utils import logging as pmv_logging
@@ -46,8 +51,6 @@ class Kinetics:
         assert mode in ["train", "val", "test"]
         if cfg.DATA.DUMMY_LOAD:
             raise NotImplementedError("DATA.DUMMY_LOAD is not ported")
-        if mode == "train" and cfg.AUG.GEN_MASK_LOADER:
-            raise NotImplementedError("AUG.GEN_MASK_LOADER is not ported")
         if mode == "train" and (
             cfg.DATA.TRAIN_CROP_NUM_TEMPORAL > 1 or cfg.DATA.TRAIN_CROP_NUM_SPATIAL > 1
         ):
@@ -195,13 +198,18 @@ class Kinetics:
                     index = int(rng.integers(0, len(self._path_to_videos)))
                 continue
             frames, pm = frames
-            return {
+            sample = {
                 "frames": frames,  # uint8 [T, H, W, C]
                 "label": self._labels[index],
                 "index": index,
                 "time": time_frac,
                 "pm": pm,
             }
+            if self.mode == "train" and self.cfg.AUG.GEN_MASK_LOADER:
+                # Blockwise MaskFeat mask on the AUG.MASK_WINDOW_SIZE grid
+                # (`kinetics.py:542-578` _gen_mask), the sample's last draw.
+                sample["mask"] = masking.gen_mask(self.cfg, rng).reshape(-1).astype(bool)
+            return sample
         raise RuntimeError(
             f"Failed to fetch video after {self._NUM_RETRIES} retries."
         )

@@ -122,9 +122,10 @@ class DataLoader:
 
 
 def _collate(samples):
-    """Stack sample dicts into a batch of numpy arrays."""
+    """Stack sample dicts into a batch of numpy arrays; a sample's "mask"
+    (AUG.GEN_MASK_LOADER) too."""
     labels = [s["label"] for s in samples]
-    return {
+    batch = {
         "frames": np.stack([s["frames"] for s in samples]),
         "labels": (
             np.stack(labels)
@@ -135,6 +136,9 @@ def _collate(samples):
         "time": np.asarray([s["time"] for s in samples], np.float32),
         "pm": np.asarray([s["pm"] for s in samples], bool),
     }
+    if "mask" in samples[0]:
+        batch["mask"] = np.stack([s["mask"] for s in samples])
+    return batch
 
 
 def multiple_samples_collate(samples):

@@ -287,6 +287,31 @@ def _top_k(scores, k):
     return torch.sort(scores, dim=-1, descending=True, stable=True).indices[:, :k]
 
 
+def make_draw_sampler(preprocess, seed, device):
+    """sample(shape, given, step, extra) -> a train step's draws: the
+    ``given`` ones, then, of those not given, the preprocessing's
+    (RandAugment, erasing) and each of ``extra`` (name -> fn(host generator,
+    device generator), drawn in that order), from generators seeded anew
+    from (``seed``, ``step``), so that a step's draws depend on the seed and
+    the step count alone."""
+    generator = torch.Generator()
+    device_generator = torch.Generator(device)
+
+    def sample(shape, given, step, extra):
+        step_seed = int(np.random.SeedSequence((seed, step)).generate_state(1)[0])
+        generator.manual_seed(step_seed)
+        device_generator.manual_seed(step_seed)
+        missing = ({"rand_augment", "erasing"} | set(extra)) - set(given)
+        draws = dict(given)
+        draws.update(preprocess.sample(shape, generator, device_generator, missing))
+        for name, draw in extra.items():
+            if name in missing:
+                draws[name] = draw(generator, device_generator)
+        return draws
+
+    return sample
+
+
 def make_train_step(cfg, device=None, seed=0):
     """Returns train_step(state, batch, lr, draws=None) -> metrics.
 
@@ -317,27 +342,15 @@ def make_train_step(cfg, device=None, seed=0):
         if cfg.MIXUP.ENABLE
         else None
     )
-    generator = torch.Generator()
-    device_generator = torch.Generator(device)
+    draw = make_draw_sampler(preprocess, seed, device)
 
     def sample_draws(model, shape, given, step):
-        step_seed = int(np.random.SeedSequence((seed, step)).generate_state(1)[0])
-        generator.manual_seed(step_seed)
-        device_generator.manual_seed(step_seed)
-        draws = dict(given)
-        missing = {"rand_augment", "erasing", "mixup", "drop_path", "dropout"} - set(given)
-        draws.update(preprocess.sample(shape, generator, device_generator, missing))
-        if mixup_fn is not None and "mixup" in missing:
-            draws["mixup"] = mixup_fn.sample(shape[2], shape[3], generator)
-        if "drop_path" in missing:
-            draws["drop_path"] = model.sample_drop_path_masks(
-                shape[0], device_generator, device
-            )
-        if "dropout" in missing:
-            draws["dropout"] = model.sample_head_dropout_mask(
-                shape[0], device_generator, device
-            )
-        return draws
+        extra = {}
+        if mixup_fn is not None:
+            extra["mixup"] = lambda g, _: mixup_fn.sample(shape[2], shape[3], g)
+        extra["drop_path"] = lambda _, g: model.sample_drop_path_masks(shape[0], g, device)
+        extra["dropout"] = lambda _, g: model.sample_head_dropout_mask(shape[0], g, device)
+        return draw(shape, given, step, extra)
 
     def partner_rows_flipped(t):  # the batch reversed, in one process
         return distributed.partner_rows(t).flip(0)

@@ -9,8 +9,11 @@ Counterpart of `pmv_tpu/engine/test.py`.
 - ``test_one``: one pass over the test loader, and TEST.SAVE_RESULTS_PATH.
 - ``extract_features``: TEST.FEAT_EXTRACT, pooled features to
   ``OUTPUT_DIR/features.npz``.
-- ``test``: TEST.PROCESS, the checkpoint priority chain, then features, the
-  DENSE_SPATIAL_CROP ratio sweep (`test_net.py:358-379`) or one pass.
+- ``visualize_mask_reconstruction``: VIS_MASK.ENABLE with a MaskMViT,
+  the MAE (original | masked | reconstructed) stacks.
+- ``test``: TEST.PROCESS, the checkpoint priority chain, then VIS_MASK,
+  features, the DENSE_SPATIAL_CROP ratio sweep (`test_net.py:358-379`) or
+  one pass.
 
 In a multi-process job every rank runs its shard of the test split with the
 whole model (read from the same checkpoint), and the predictions, labels
@@ -19,10 +22,10 @@ TestMeter (the JAX package's ``process_allgather``, `test.py:31-36,
 52-54`), so each clip is scored once; rank 0 logs and writes the results.
 Shards of unequal length are handled: a rank whose shard ran out runs its
 last batch again and contributes nothing (``distributed.lockstep``).
-TENSORBOARD.ENABLE opens no writer here: the JAX package's ``test`` writes
-only in its VIS_MASK path.
+TENSORBOARD.ENABLE opens a writer only in the VIS_MASK path, as in the JAX
+package's ``test``; there, rank 0 writes the stacks of its shard's batches.
 
-Not ported, each raising NotImplementedError: detection (AVA) and VIS_MASK.
+Not ported, raising NotImplementedError: detection (AVA).
 """
 
 import os
@@ -35,6 +38,7 @@ import torch
 from pmv_tpu_torch.data import loader as loader_mod
 from pmv_tpu_torch.engine import steps
 from pmv_tpu_torch.models import build_model
+from pmv_tpu_torch.models.masked import mae_visualize
 from pmv_tpu_torch.parallel import distributed
 from pmv_tpu_torch.utils import checkpoint as cu
 from pmv_tpu_torch.utils import logging as pmv_logging
@@ -120,6 +124,49 @@ def test_one(cfg, model, device, rel_ratio=None):
     return stats
 
 
+def visualize_mask_reconstruction(cfg, model, device):
+    """VIS_MASK.ENABLE with a MaskMViT (`pmv_tpu/engine/test.py:216-262`,
+    the reference's `test_net.py:140` and `masked.py:505-535`): for the
+    first 4 test batches, the frames as they are (uint8 values as float, no
+    normalisation, as the JAX package feeds them), a mask the model draws
+    (its generator seeded from (RNG_SEED, the batch's index)), and the
+    (original | masked | reconstructed) stack of ``mae_visualize``, written
+    to ``OUTPUT_DIR/vis_mask_{iter:04d}.npy`` and, with TENSORBOARD.ENABLE,
+    as a video, by rank 0. Returns the paths written."""
+    test_loader = loader_mod.construct_loader(cfg, "test")
+    master = pmv_logging.is_master_process()
+    writer = None
+    if cfg.TENSORBOARD.ENABLE and master:
+        from pmv_tpu_torch.visualization.tensorboard_vis import TensorboardWriter
+
+        writer = TensorboardWriter(cfg)
+    model.eval()
+    generator = torch.Generator(device)
+    out_paths = []
+    for cur_iter, batch in enumerate(test_loader):
+        x = torch.as_tensor(batch["frames"]).to(device).float()
+        generator.manual_seed(int(np.random.SeedSequence(
+            (cfg.RNG_SEED, cur_iter)).generate_state(1)[0]))
+        with torch.inference_mode():
+            mask = model.sample_mask(tuple(x.shape), generator, device)
+            pred, _, mask = model(x, mask)
+            comp = mae_visualize(cfg, x, pred, mask).cpu().numpy()
+        path = os.path.join(cfg.OUTPUT_DIR, f"vis_mask_{cur_iter:04d}.npy")
+        if master:
+            np.save(path, comp)
+            out_paths.append(path)
+        if writer is not None:
+            b, three, t, h, w, c = comp.shape
+            writer.add_video(comp.reshape(b * three, t, h, w, c)[:6],
+                             tag="mae_reconstruction", global_step=cur_iter)
+        if cur_iter >= 3:  # a bounded sweep
+            break
+    if writer is not None:
+        writer.close()
+    logger.info("VIS_MASK wrote %d comparison stacks", len(out_paths))
+    return out_paths
+
+
 def test(cfg, device=None):
     """Multi-view test entry (`tools/test_net.py` test) on ``device`` (CUDA
     by default; raises without a CUDA device unless ``device="cpu"``)."""
@@ -128,8 +175,6 @@ def test(cfg, device=None):
     distributed.check_world(cfg)
     if cfg.DETECTION.ENABLE:
         raise NotImplementedError("detection (AVA) testing is not ported")
-    if cfg.VIS_MASK.ENABLE:
-        raise NotImplementedError("VIS_MASK is not ported")
     np.random.seed(cfg.RNG_SEED)
     torch.manual_seed(cfg.RNG_SEED)
     logger.info("Test with config:")
@@ -142,6 +187,8 @@ def test(cfg, device=None):
         misc.log_model_info(model)
     cu.load_test_checkpoint(cfg, model)
 
+    if cfg.VIS_MASK.ENABLE and cfg.MODEL.MODEL_NAME == "MaskMViT":
+        return visualize_mask_reconstruction(cfg, model, device)
     if cfg.TEST.FEAT_EXTRACT:
         return extract_features(cfg, model, device)
     if cfg.TEST.DENSE_SPATIAL_CROP:

@@ -71,7 +71,8 @@ logger = pmv_logging.get_logger(__name__)
 
 def train_epoch(train_loader, train_step, state, meter, cur_epoch, cfg):
     """One epoch over ``train_loader`` (any sized iterable of batches with
-    "frames" and "labels", and "pm" where rows may be portrait). Returns
+    "frames" and "labels", and "pm" where rows may be portrait; or "frames"
+    and "mask" for the masked step of ``engine/ssl_steps.py``). Returns
     ``state``, updated in place."""
     data_size = len(train_loader)
     world = rank_and_world_size()[1]
@@ -90,9 +91,11 @@ def train_epoch(train_loader, train_step, state, meter, cur_epoch, cfg):
                 > cfg.TRAIN.KILL_LOSS_EXPLOSION_FACTOR * meter.loss.get_global_avg()
             ):
                 raise RuntimeError(f"ERROR: Got Loss explosion of {m['loss']}")
+            # A masked (SSL) step has no top-k errors: 0, as the JAX
+            # package's SSL loop logs them.
             meter.update_stats(
-                m["top1_err"], m["top5_err"], m["loss"], lr_it, m["grad_norm"],
-                mb_size * world,
+                m.get("top1_err", 0.0), m.get("top5_err", 0.0), m["loss"], lr_it,
+                m["grad_norm"], mb_size * world,
             )
             meter.log_iter_stats(cur_epoch, it)
         pending.clear()

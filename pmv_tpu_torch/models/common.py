@@ -84,16 +84,17 @@ class ChannelsLastConv3d(nn.Conv3d):
 
 
 class LayerNorm(nn.LayerNorm):
-    """LayerNorm with float32 statistics, returning its input's dtype
-    (flax LayerNorm's float32 reductions; eps 1e-6 as the reference)."""
+    """LayerNorm with float32 statistics (float64 for a float64 input),
+    returning its input's dtype (flax LayerNorm's float32 reductions; eps
+    1e-6 as the reference)."""
 
     def __init__(self, dim, eps=1e-6):
         super().__init__(dim, eps=eps)
 
     def forward(self, x):
-        y = F.layer_norm(
-            x.float(), self.normalized_shape, self.weight, self.bias, self.eps
-        )
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        y = F.layer_norm(xf, self.normalized_shape, self.weight.to(xf.dtype),
+                         self.bias.to(xf.dtype), self.eps)
         return y.to(x.dtype)
 
 

@@ -156,9 +156,12 @@ def geometry(cfg):
 class MViT(nn.Module):
     """Config-driven MViT. forward(x [B, T, H, W, 3]) -> class scores
     (softmax'd at eval, logits in train mode), or (tokens, thw) with
-    ``return_features``."""
+    ``return_features``: the last block's tokens, before the final norm.
+    With ``head=False`` the model has no final norm and no head, and only
+    returns features: the backbone of MaskMViT, whose JAX counterpart never
+    calls them and so has no parameters for them."""
 
-    def __init__(self, cfg, dtype=torch.float32):
+    def __init__(self, cfg, dtype=torch.float32, head=True):
         super().__init__()
         self.compute_dtype = dtype
         self.cls_on = cfg.MVIT.CLS_EMBED_ON
@@ -243,12 +246,14 @@ class MViT(nn.Module):
                     for size, stride in zip(input_size, spec["stride_q"])
                 ]
         self.blocks = nn.ModuleList(blocks)
-        self.norm = LayerNorm(embed_dim)
-        self.head = TransformerBasicHead(
-            embed_dim, cfg.MODEL.NUM_CLASSES,
-            dropout_rate=cfg.MODEL.DROPOUT_RATE, act_func=cfg.MODEL.HEAD_ACT,
-            detach_final_fc=cfg.MODEL.DETACH_FINAL_FC,
-        )
+        self.dim_out = embed_dim
+        if head:
+            self.norm = LayerNorm(embed_dim)
+            self.head = TransformerBasicHead(
+                embed_dim, cfg.MODEL.NUM_CLASSES,
+                dropout_rate=cfg.MODEL.DROPOUT_RATE, act_func=cfg.MODEL.HEAD_ACT,
+                detach_final_fc=cfg.MODEL.DETACH_FINAL_FC,
+            )
 
     def _abs_pos_embed(self, thw):
         if self.sep_pos_embed:

@@ -80,15 +80,20 @@ def make_wd_mask(model, cfg):
 
 def make_layer_decay_scales(model, cfg):
     """{parameter name: LAYER_DECAY ** (num_layers - layer_id)}
-    (`optimizer.py:151-200` get_param_groups)."""
+    (`optimizer.py:151-200` get_param_groups): MViT's block i, also under a
+    prefix (MaskMViT's ``backbone.blocks.i``), is layer i + 1; the tokens,
+    position tables (the decoder's too) and patch embedding layer 0; the
+    rest (the head, the decoder's blocks) the last layer."""
     decay = cfg.SOLVER.LAYER_DECAY
     num_layers = cfg.MVIT.DEPTH + 1
 
     def layer_id(name):
         if any(n in name for n in ("cls_token", "pos_embed", "patch_embed")):
             return 0
-        if name.startswith("blocks."):
-            return int(name.split(".")[1]) + 1
+        parts = name.split(".")
+        for part, index in zip(parts, parts[1:]):
+            if part == "blocks":
+                return int(index) + 1
         return num_layers
 
     return {
@@ -100,9 +105,16 @@ def make_layer_decay_scales(model, cfg):
 def global_norm(tensors):
     """sqrt of the sum of squares over all ``tensors`` (optax global_norm),
     as the norm of the per-tensor norms; over every shard of the sharded
-    ones."""
+    ones. On the CPU each tensor's norm sums in float64: PyTorch's CPU
+    float32 norm sums in order, and read MaskFeat's float32 gradients' norm
+    1.6e-5 to 2.0e-5 low, where the card's lies within 3e-7 of float64's
+    (PERF.md, ``tools/op_witness.py``)."""
     tensors = list(tensors)
-    norms = torch.stack(torch._foreach_norm([distributed.local(t).float() for t in tensors]))
+    local = [distributed.local(t) for t in tensors]
+    if local and local[0].device.type == "cpu":
+        norms = torch.stack(torch._foreach_norm([t.double() for t in local])).float()
+    else:
+        norms = torch.stack(torch._foreach_norm([t.float() for t in local]))
     sharded = [distributed.is_sharded(t) for t in tensors]
     if not any(sharded):
         return torch.linalg.vector_norm(norms)

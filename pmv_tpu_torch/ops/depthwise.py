@@ -26,7 +26,7 @@ convs (``models/resnet_helper.py``).
 - ``plan_forward`` and ``plan_wgrad``: the kernels' launch plans (tiles,
   threads, shared memory) by one rule, worked out here so that the CPU
   tests can check them.
-- ``MVIT_POOL_SHAPES``, ``MVIT_RECT_POOL_SHAPES``,
+- ``MVIT_POOL_SHAPES``, ``MASKFEAT_POOL_SHAPES``, ``MVIT_RECT_POOL_SHAPES``,
   ``MVIT_PORTRAIT_POOL_SHAPES``, ``MVIT_RECT_TRAIN_POOL_SHAPES``, the
   ``UNIFORMER_*_DPE_SHAPES``, the ``X3D_*_DW_SHAPES``, ``ODD_SHAPES`` and
   ``PADDED_ODD_SHAPES``: the shapes the main paths give the kernels
@@ -82,6 +82,16 @@ MVIT_POOL_SHAPES = (
     ((8, 8, 14, 14, 384), 10),  # q-pools, blocks 4-13
     ((8, 8, 14, 14, 768), 2),   # K and V pools, block 14
     ((8, 8, 7, 7, 768), 3),     # q, K and V pools, block 15
+)
+# MaskFeat pre-training of MViTv2-S 16x4
+# (configs/masked_ssl/k400_MVITv2_S_16x4_MaskFeat_PT.yaml) keeps blocks 14 and
+# 15 on the 14 x 14 grid: its stride-1 pools are q-pools only, 14 a forward,
+# each at a shape of MVIT_POOL_SHAPES (whose plans and timings cover them).
+MASKFEAT_POOL_SHAPES = (
+    ((8, 8, 56, 56, 96), 1),    # q-pool, block 0
+    ((8, 8, 28, 28, 192), 1),   # q-pool, block 2
+    ((8, 8, 14, 14, 384), 10),  # q-pools, blocks 4-13
+    ((8, 8, 14, 14, 768), 2),   # q-pools, blocks 14-15
 )
 # The same at the PMV rect crop (DATA.TRAIN_CROP_SIZE_RECT [256, 192],
 # exps/PMV/run_MViT_PMV.sh): H > W, so the rel-pos tables swap under

@@ -62,8 +62,9 @@ FLOAT64_HELD = {"SlowFast"}
 
 @dataclasses.dataclass
 class Decisions:
-    """The decisions (input > 0) of each F.relu call, in call order, and the
-    count of elements whose input would have decided otherwise."""
+    """The decisions of each call, in call order (a ReLU's input > 0, a max
+    pool's tap), and the count of elements whose input would have decided
+    otherwise."""
 
     masks: list
     taken_otherwise: int = 0
@@ -94,6 +95,37 @@ def relu_decisions(decisions=None):
         yield record
     finally:
         F.relu = relu
+
+
+@contextlib.contextmanager
+def max_pool_decisions(decisions=None):
+    """Within the block, ``F.max_pool3d`` records each call's decisions (the
+    tap each output takes, as its indices) into the yielded ``Decisions``;
+    or, given ``decisions`` (a record of a run of the same model on the same
+    batch), takes those taps in call order, out = x at the recorded tap,
+    whose gradient goes to that tap, and counts the outputs whose own
+    maximum lies at another. Two taps within a rounding of each other decide
+    either way, and the whole gradient moves with the one element's."""
+    record = Decisions([])
+    pool = F.max_pool3d
+
+    def recorded_pool(x, kernel_size, stride=None, padding=0, dilation=1, ceil_mode=False,
+                      return_indices=False):
+        out, index = pool(x, kernel_size, stride, padding, dilation, ceil_mode,
+                          return_indices=True)
+        if decisions is not None:
+            held = decisions.masks[len(record.masks)].to(x.device)
+            record.taken_otherwise += int((held != index).sum())
+            index = held
+            out = x.flatten(2).gather(2, index.flatten(2)).view_as(out)
+        record.masks.append(index)
+        return (out, index) if return_indices else out
+
+    F.max_pool3d = recorded_pool
+    try:
+        yield record
+    finally:
+        F.max_pool3d = pool
 
 
 def load_cfg(path, opts=()):

@@ -4,7 +4,8 @@ CUDA device.
     python -m pmv_tpu_torch.tools.plan_sweep [--iters N]
 
 For each MViTv2-S 16x4 pool shape at batch 8 (``ops.depthwise
-.MVIT_POOL_SHAPES``), dtype (bfloat16, float32) and kernel (K1, wgrad),
+.MVIT_POOL_SHAPES``, which hold MaskFeat pre-training's too:
+``MASKFEAT_POOL_SHAPES``), dtype (bfloat16, float32) and kernel (K1, wgrad),
 every plan of ``ops.depthwise.make_plan`` over tile rows 2, 4, 7 and 8,
 the kernel's chunks, 1, 2 or 4 ranges of T and (wgrad) 1, 2 or 4 W segments runs
 once against the plain version (it must agree, as in chip_smoke.py), then

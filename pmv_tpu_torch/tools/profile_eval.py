@@ -4,7 +4,9 @@ MViTv2-S 16x4's, or that of any config given with ``--cfg`` (UniFormer-S
 UNIFORMER.PRETRAIN_NAME "" TENSORBOARD.ENABLE False``; X3D-M's: ``--cfg
 configs/Kinetics/X3D_M.yaml``, its eval at the 256^2 test crop; SlowFast
 8x8 R50's: ``--cfg configs/Kinetics/SLOWFAST_8x8_R50.yaml``, 32 frames a
-clip, of which the slow pathway takes 8).
+clip, of which the slow pathway takes 8); MaskFeat pre-training's train step
+with ``--train --cfg configs/masked_ssl/k400_MVITv2_S_16x4_MaskFeat_PT.yaml``
+(the masked step of ``engine/ssl_steps.py``, the model drawing its masks).
 
     python -m pmv_tpu_torch.tools.profile_eval [--train] [--batch 8] [--steps 10] [--top 20] \\
         [--cfg <yaml> [--opts KEY VALUE ...]]
@@ -97,6 +99,7 @@ def main(argv=None):
 
     from pmv_tpu_torch.config.defaults import assert_and_infer_cfg
     from pmv_tpu_torch.config.parser import load_config
+    from pmv_tpu_torch.engine import ssl_steps
     from pmv_tpu_torch.engine.steps import init_state, make_eval_step, make_train_step
     from pmv_tpu_torch.entry import apply_bench_recipe, mvitv2_s_cfg
     from pmv_tpu_torch.models import build_model
@@ -109,6 +112,9 @@ def main(argv=None):
         cfg = assert_and_infer_cfg(load_config(args, args.cfg))
     else:
         cfg = apply_bench_recipe(mvitv2_s_cfg()) if args.train else mvitv2_s_cfg()
+    if cfg.MODEL.MODEL_NAME == "MaskMViT" and not args.train:
+        print("profile_eval: MaskMViT has no eval step; pass --train", file=sys.stderr)
+        return 1
     model = build_model(cfg, device="cuda", seed=0)
     if args.train:
         rect, size = cfg.DATA.TRAIN_CROP_SIZE_RECT, cfg.DATA.TRAIN_CROP_SIZE
@@ -120,7 +126,14 @@ def main(argv=None):
         0, 256, (args.batch, cfg.DATA.NUM_FRAMES, height, width, 3),
         dtype=torch.uint8, device="cuda", generator=gen,
     )
-    if args.train:
+    if args.train and cfg.MODEL.MODEL_NAME == "MaskMViT":
+        state = ssl_steps.init_masked_state(cfg, model)
+        train_step = ssl_steps.make_masked_train_step(cfg, device="cuda")
+        batch = {"frames": frames}
+
+        def step():
+            train_step(state, batch, 1e-4)
+    elif args.train:
         state = init_state(cfg, model)
         train_step = make_train_step(cfg, device="cuda")
         batch = {"frames": frames, "labels": torch.randint(

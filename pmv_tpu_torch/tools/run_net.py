@@ -14,7 +14,9 @@ one per card, each taking TRAIN.BATCH_SIZE / NUM_GPUS clips a step; so a
 recipe's yaml with NUM_GPUS 8 needs eight cards, or NUM_GPUS 1 for one.
 TRAIN.ENABLE trains; TEST.ENABLE tests, sweeping NUM_ENSEMBLE_VIEWS over
 [1, 3, 5, 7, 10] when it is -1, or over TEST.NUM_TEMPORAL_CLIPS when that is
-set. The self-supervised models, the model and wrong-prediction
+set. MaskMViT (MaskFeat pre-training) trains through
+``engine/ssl_train.py::train_ssl``, in one process. The contrastive model,
+SSL over more than one process, the model and wrong-prediction
 visualization and the demo are not ported and raise NotImplementedError.
 """
 
@@ -22,14 +24,13 @@ import sys
 
 from pmv_tpu_torch.config.defaults import assert_and_infer_cfg
 from pmv_tpu_torch.config.parser import load_config, parse_args
+from pmv_tpu_torch.engine import ssl_train
 from pmv_tpu_torch.parallel import distributed
 from pmv_tpu_torch.utils.device import resolve_device
 
 
 def run(cfg, device):
     """Train and test one config."""
-    if cfg.MODEL.MODEL_NAME in ("ContrastiveModel", "MaskMViT"):
-        raise NotImplementedError(f"{cfg.MODEL.MODEL_NAME} (self-supervised) is not ported")
     if cfg.TENSORBOARD.ENABLE and (
         cfg.TENSORBOARD.MODEL_VIS.ENABLE or cfg.TENSORBOARD.WRONG_PRED_VIS.ENABLE
     ):
@@ -37,7 +38,10 @@ def run(cfg, device):
                                   "are not ported")
     if cfg.DEMO.ENABLE:
         raise NotImplementedError("the demo is not ported")
-    if cfg.TRAIN.ENABLE:
+    if cfg.TRAIN.ENABLE and cfg.MODEL.MODEL_NAME in ssl_train.SSL_MODELS:
+        # `tools/run_net.py:38-43` of the JAX package
+        ssl_train.train_ssl(cfg, device=device)
+    elif cfg.TRAIN.ENABLE:
         from pmv_tpu_torch.engine.train import train
 
         train(cfg, device=device)
@@ -64,6 +68,8 @@ def main(argv=None):
     device = resolve_device(args.device)
     for path in args.cfg_files:
         cfg = assert_and_infer_cfg(load_config(args, path))
+        if cfg.MODEL.MODEL_NAME in ssl_train.SSL_MODELS:  # before any process starts
+            ssl_train.refuse_unported_ssl(cfg)
         distributed.launch_job(cfg, args.init_method, run, device)
     return 0
 

@@ -28,7 +28,11 @@ the JAX package (its torch importer, and its forward on a restored tree of
 other shapes), except the head's, which keeps the model's value (a
 checkpoint of another class count); names only one side has are logged.
 So a model built for another crop (a test geometry other than the train
-one: other rel-pos table sizes) refuses the checkpoint. Not ported, each
+one: other rel-pos table sizes) refuses the checkpoint. A load with
+TRAIN.CHECKPOINT_CLEAR_NAME_PATTERN is one across models (MaskFeat's
+pre-training into the supervised MViT, whose last blocks pool otherwise):
+there a weight of another shape keeps the model's value, as in the JAX
+package, and the optimizer's state is not loaded. Not ported, each
 raising NotImplementedError: the JAX package's orbax directories, caffe2
 checkpoints and 2D->3D inflation.
 """
@@ -149,7 +153,12 @@ def _rename(state_dict, patterns):
 
 
 def load_model_state(model, state_dict, clear_name_pattern=()):
-    """Load the weights of ``state_dict`` that ``model`` has, by name."""
+    """Load the weights of ``state_dict`` that ``model`` has, by name.
+    Returns the names that kept the model's value. With
+    ``clear_name_pattern`` (a load across models, such as a MaskFeat
+    pre-training's backbone into the supervised MViT) a weight of another
+    shape keeps the model's value too, as in the JAX package's
+    ``clear_name_patterns`` (`pmv_tpu/utils/checkpoint.py:120-165`)."""
     loaded = _rename(dict(state_dict), clear_name_pattern)
     merged = model.state_dict()
     missing = []
@@ -159,8 +168,10 @@ def load_model_state(model, state_dict, clear_name_pattern=()):
             continue
         src = loaded[name]
         if tuple(src.shape) != tuple(value.shape):
-            if "head" in name or "projection" in name:
-                logger.info("Dropping %s (shape mismatch)", name)
+            if "head" in name or "projection" in name or clear_name_pattern:
+                logger.info("Dropping %s (shape mismatch: checkpoint %s, model %s)",
+                            name, tuple(src.shape), tuple(value.shape))
+                missing.append(name)
                 continue
             raise ValueError(
                 f"checkpoint weight {name} has shape {tuple(src.shape)}, the "
@@ -172,6 +183,8 @@ def load_model_state(model, state_dict, clear_name_pattern=()):
         logger.warning("Missing from the checkpoint: %s", missing[:10])
     if unused:
         logger.info("Unused checkpoint weights: %s", unused[:10])
+    logger.info("Loaded %d of the model's %d tensors from the checkpoint",
+                len(merged) - len(missing), len(merged))
     model.load_state_dict(merged, strict=True)
     return missing
 

@@ -6,7 +6,10 @@ returns a ``state_dict`` under the reference's PySlowFast
 names (``blocks.3.attn.pool_q.weight``, ``blocks.3.attn.norm_q.weight``, ...),
 in PyTorch's layouts, ready for ``load_state_dict(strict=True)``. It is the
 inverse of the JAX package's torch importer (`utils/torch_import.py`), whose
-name mapping is copied here.
+name mapping is copied here. MaskMViT's tree maps by the same rules:
+``backbone/...`` to ``backbone.`` and the MViT names, ``mask_token``,
+``pred_head.{norm,projection}``, ``decoder_embed``,
+``decoder_pos_embed{,_spatial,_temporal}`` and ``decoder_blocks.{i}.*``.
 
 Layouts (flax, channels-last -> torch):
 - Dense kernel [in, out]                 -> Linear weight [out, in]

@@ -3,11 +3,15 @@
 Counterpart of `pmv_tpu/visualization/tensorboard_vis.py`, which already
 writes through ``torch.utils.tensorboard``; the same log directory, tags and
 values. ``train()`` writes its evaluation's errors through it, on rank 0
-only. The JAX writer's video, histogram and confusion-matrix plots have no
-caller in the port yet (their one caller there, VIS_MASK, is not ported).
+only; VIS_MASK its comparison videos (``add_video``). The JAX writer's
+histogram and confusion-matrix plots, whose caller is the model and
+wrong-prediction visualization (`tools/visualization.py`), are not ported.
 """
 
 import os
+
+import numpy as np
+import torch
 
 from pmv_tpu_torch.utils import logging as pmv_logging
 
@@ -30,6 +34,12 @@ class TensorboardWriter:
     def add_scalars(self, data_dict, global_step=None):
         for key, item in data_dict.items():
             self.writer.add_scalar(key, item, global_step)
+
+    def add_video(self, video, tag, global_step=None, fps=4):
+        """``video``: [B, T, H, W, C] uint8 (``torch.utils.tensorboard``
+        encodes it with moviepy, and skips it where moviepy is absent)."""
+        frames = torch.from_numpy(np.ascontiguousarray(video)).permute(0, 1, 4, 2, 3)
+        self.writer.add_video(tag, frames, global_step=global_step, fps=fps)
 
     def close(self):
         self.writer.flush()

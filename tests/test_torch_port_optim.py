@@ -164,9 +164,11 @@ def test_optimizer_update_matches_optax(case, tiny_params):
     assert moved == len(ref)
 
 
-def test_grad_norm_is_optax_global_norm():
+@pytest.mark.parametrize("shapes", [[(3, 4), (5,), (2, 2, 2)], [(768, 3072), (96,)]],
+                         ids=["small", "mlp_weight"])
+def test_grad_norm_is_optax_global_norm(shapes):
     rng = np.random.default_rng(3)
-    tensors = [rng.normal(size=s).astype(np.float32) for s in [(3, 4), (5,), (2, 2, 2)]]
+    tensors = [rng.normal(size=s).astype(np.float32) for s in shapes]
     ref = optax.global_norm([jnp.asarray(t) for t in tensors])
     out = optimizer.global_norm(torch.from_numpy(t) for t in tensors)
     np.testing.assert_allclose(float(out), float(ref), rtol=1e-6)

@@ -8,12 +8,14 @@
   (`pmv_tpu/engine/train.py:372-380`): Val/Top1_err and Val/Top5_err at the
   epoch, equal to the epoch's val_epoch stats;
 - only rank 0 writes: another rank's ``train()`` opens no writer;
+- ``add_video`` (VIS_MASK's) writes what the JAX writer writes;
 - TENSORBOARD.MODEL_VIS and WRONG_PRED_VIS still raise NotImplementedError.
 """
 
 import json
 from pathlib import Path
 
+import numpy as np
 import pytest
 from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
 
@@ -42,6 +44,20 @@ def _cfg(out, *opts):
     cfg.merge_from_file(TINY)
     cfg.merge_from_list(["OUTPUT_DIR", str(out), "TENSORBOARD.ENABLE", "True", *opts])
     return cfg
+
+
+def test_add_video_writes_what_the_jax_writer_writes(tmp_path):
+    video = np.random.default_rng(0).integers(0, 256, (2, 3, 8, 8, 3), np.uint8)
+    tags = []
+    for name, writer_cls, to_cfg in (("jax", JaxWriter, lambda c: c),
+                                     ("port", TensorboardWriter, port_cfg)):
+        writer = writer_cls(to_cfg(_cfg(tmp_path / name)))
+        writer.add_video(video, tag="mae_reconstruction", global_step=1)
+        writer.close()
+        acc = EventAccumulator(str(tmp_path / name / "runs-synthetic"))
+        acc.Reload()
+        tags.append(acc.Tags())
+    assert tags[0] == tags[1]
 
 
 @pytest.mark.parametrize("log_dir", ["", "tb"])

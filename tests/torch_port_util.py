@@ -86,6 +86,19 @@ def depthwise_calls(monkeypatch):
     return calls
 
 
+@pytest.fixture
+def one_thread():
+    """torch's intra-op threads cut to one for the test. A tiny model's step
+    is thousands of small ops; beside the suite's other busy workers their
+    threads wait on each other (a tiny MaskFeat run_net: 96 s under five
+    busy processes, 11 s on one thread), as the 2-process CLI test's did
+    (ROADMAP.md, section 3)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 # ----------------------------------------------------------------------------
 # The JAX package's random draws, as the port's "sample" outputs. Each helper
 # repeats the key splits of the JAX function it names, so that the port's
@@ -271,6 +284,60 @@ def jax_dropout_key(rng, step):
     import jax
 
     return jax.random.split(jax.random.fold_in(rng, step), 3)[2]
+
+
+# ----------------------------------------------------------------------------
+# MaskFeat (tests/test_torch_port_masked.py, test_torch_port_maskfeat_train.py).
+
+
+def tiny_maskfeat_cfg(crop=32, pred_hog=True, decoder_depth=0, sep_pos=False):
+    """MaskMViT at depth 2, width 8, 4 frames: block 0 pools q at stride 1
+    (3x3x3, K1's path), block 1 at (1, 2, 2), so the tokens are up-sampled."""
+    from pmv_tpu.config import get_cfg
+
+    cfg = get_cfg()
+    cfg.MODEL.MODEL_NAME = "MaskMViT"
+    cfg.MODEL.ARCH = "maskmvit"
+    cfg.DATA.NUM_FRAMES = 4
+    cfg.DATA.TRAIN_CROP_SIZE = cfg.DATA.TEST_CROP_SIZE = crop
+    cfg.DATA.INPUT_CHANNEL_NUM = [3]
+    cfg.MVIT.DEPTH = 2
+    cfg.MVIT.EMBED_DIM = 8
+    cfg.MVIT.NUM_HEADS = 1
+    cfg.MVIT.DIM_MUL = [[1, 2.0]]
+    cfg.MVIT.HEAD_MUL = [[1, 2.0]]
+    cfg.MVIT.USE_ABS_POS = False
+    cfg.MVIT.REL_POS_SPATIAL = cfg.MVIT.REL_POS_TEMPORAL = True
+    cfg.MVIT.RESIDUAL_POOLING = True
+    cfg.MVIT.POOL_KVQ_KERNEL = [3, 3, 3]
+    cfg.MVIT.POOL_KV_STRIDE_ADAPTIVE = [1, 4, 4]
+    cfg.MVIT.POOL_Q_STRIDE = [[0, 1, 1, 1], [1, 1, 2, 2]]
+    cfg.MVIT.DROPPATH_RATE = 0.0  # the PT yaml's
+    cfg.AUG.MASK_RATIO = 0.4
+    cfg.MASK.ENABLE = True
+    cfg.MASK.PRED_HOG = pred_hog
+    cfg.MASK.DECODER_DEPTH = decoder_depth
+    cfg.MASK.DECODER_EMBED_DIM = 16
+    cfg.MASK.DECODER_SEP_POS_EMBED = sep_pos
+    cfg.MASK.DEC_NUM_HEADS = 2
+    if decoder_depth:
+        cfg.MASK.DEC_KV_KERNEL = [3, 3, 3]
+        cfg.MASK.DEC_KV_STRIDE = [1, 2, 2]
+    return cfg
+
+
+def jax_hog_bins(frames, nbins=9):
+    """The bins the JAX package's ``hog_targets`` takes (`masked.py:29-36`),
+    as a numpy array: the side whose bins a comparison holds."""
+    import jax.numpy as jnp
+
+    gx = frames[:, :, :, 2:] - frames[:, :, :, :-2]
+    gx = jnp.pad(gx, ((0, 0), (0, 0), (0, 0), (1, 1), (0, 0)))
+    gy = frames[:, :, 2:] - frames[:, :, :-2]
+    gy = jnp.pad(gy, ((0, 0), (0, 0), (1, 1), (0, 0), (0, 0)))
+    ang = jnp.arctan2(gy, gx) % np.pi
+    return np.asarray(jnp.floor(ang / (np.pi / nbins)).astype(jnp.int32) % nbins)
+
 
 
 # ----------------------------------------------------------------------------
