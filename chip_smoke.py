@@ -169,6 +169,32 @@ model's count; random weights from a seed), whose blocks 14-15 keep the
 VIS_MASK. ``run_net`` with the MAE variant (MASK.PRED_HOG False) at
    TEST.BATCH_SIZE 2: 4 (original | masked | reconstructed) stacks in
    ``build/chip_smoke_vis_mask/`` (a main path).
+Contrastive SSL (configs/contrastive_ssl/: MoCo, SimCLR, BYOL, SwAV on
+Slow 8x8 R50, full width; random weights from a seed; no conv of Slow R50
+is on K1, 0 launches asserted):
+3c. (Run with phase 3.) Each yaml's step at batch 2 (2 views a video),
+   card against CPU from the same weights, SSL state (a seeded queue and
+   bank) and colour draws: its encoder's parameter count equal to the JAX
+   model's (``SSL_PARAMS``); MoCo in float32 (the gradients to
+   ``grad_witness.RELU_LIMITS["Slow"]``, the readings with the CPU's ReLU
+   decisions held printed), then every yaml in float64 under the 1e-4
+   gates: loss, grad norm, gradients, the weights' updates, BatchNorm
+   statistics, the momentum encoder, the queue and its pointer, the bank.
+3cx. A SimCLR ContrastiveModel on X3D-M's backbone (X3D_M.yaml with the
+   SimCLR yaml's contrastive options): one float32 step at batch 2, card
+   against CPU, the CPU's ReLU decisions held as for X3D-M; 88 K1 and 44
+   wgrad launches (two train forwards and their backward).
+4c. The MoCo yaml's bf16 step at batch 8 (8 videos of two views), timed
+   alone: ms, clips/s, peak memory.
+5c. 5 steps of ``train_epoch`` over the MoCo step at batch 8 (a main path).
+6c. ``run_net`` on the MoCo yaml (one process, batch 8, ``Synthetic``,
+   the kNN monitor each epoch, a 1-view test), the restore as
+   ``train_ssl`` makes it (every tensor, the queue, bank and momentum
+   encoder among them), ``run_net`` again with SOLVER.MAX_EPOCH 2, which
+   must resume; then configs/Kinetics/SLOW_8x8_R50.yaml fine-tunes from
+   that checkpoint with CLEAR_NAME_PATTERN ["backbone."] (the head alone at
+   its init; train, precise BN, eval, a 1-view test). Main paths; logs in
+   ``build/chip_smoke_run_net_{moco,slow_ft}/stdout.log``.
 Distributed (``pmv_tpu_torch/parallel/distributed.py``):
 8. Print whether ``torch.utils.tensorboard`` imports. 8a: two ranks over
    gloo sharing the one card (NCCL refuses two ranks on one device; the
@@ -190,8 +216,15 @@ Distributed (``pmv_tpu_torch/parallel/distributed.py``):
    in float32, and in bfloat16 within BF16_WRAPPER_LIMIT beside a second
    unwrapped run's reading (atomic sums make bfloat16 gradients differ from
    run to run), then 5 timed steps of each (main paths): the wrappers'
-   overhead in ms. ``--plant-wrapper-faults`` logs 8b's readings with faults
-   planted in the wrappers instead of running the phases.
+   overhead in ms. 8d: 2 ranks over gloo on the one card, the SSL steps
+   under ``dp``: MoCo and SimCLR at full width (2 videos of 2 views a
+   rank) in float64 activations (Slow R50's ReLUs decide with float32's
+   rounding), MaskFeat with loader masks of unequal counts on the two ranks
+   in float32, its skip max pools taking the one-process step's taps; each
+   rank against the one-process step on the global batch of 4 under phase
+   3b's gates, the SSL state to 1e-5.
+   ``--plant-wrapper-faults`` logs 8b's readings with faults planted in
+   the wrappers instead of running the phases.
 9. Print the script's wall time, the kernels line, the card line, and
    last {"ok": true, "device": {...}}.
 
@@ -254,6 +287,9 @@ MASKFEAT_K1 = 14  # the PT yaml's stride-1 q-pools: blocks 0, 2 and 4-15
 MASKFEAT_FT_K1 = 17  # the FT yaml's MViT pools as MViTv2-S does
 MASKFEAT_PARAMS = 36_190_974  # the JAX MaskMViT's count (tests/test_torch_port_masked.py)
 MASKFEAT_BATCH = 8  # clips a bf16 step (phases 4m-6m)
+# Slow 8x8 R50, the contrastive yamls' backbone, and its supervised yaml.
+SLOW_CFG = os.path.join(ROOT, "configs", "Kinetics", "SLOW_8x8_R50.yaml")
+SLOW_K1 = 0  # Slow R50's convs: none is a stride-1 3x3x3 depthwise conv
 
 
 def step_launches(per_forward):
@@ -1002,7 +1038,8 @@ def _run_net_opts(recipe):
     rect options, 2 of the recipe's 10 views at its 256^2 test crop (1
     spatial crop, as for the others); for MaskFeat's fine-tuning (FT yaml)
     its own 224^2 crops, a 1-view test and CLEAR_NAME_PATTERN
-    ["backbone."]."""
+    ["backbone."]; for Slow R50's fine-tuning from a contrastive checkpoint
+    the same, the epoch reset."""
     rect = f"[{PMV_RECT[0]},{PMV_RECT[1]}]"
     common = [
         "DATA.TRAIN_JITTER_ASPECT_RELATIVE", "[]",
@@ -1017,6 +1054,10 @@ def _run_net_opts(recipe):
     if recipe == "maskfeat_ft":  # the FT yaml's own crops; a 1-view test
         return ["TEST.NUM_TEMPORAL_CLIPS", "[]", "TEST.NUM_ENSEMBLE_VIEWS", "1",
                 "TRAIN.CHECKPOINT_CLEAR_NAME_PATTERN", "['backbone.']"]
+    if recipe == "slow_ft":  # from a contrastive checkpoint: its backbone, epoch 0
+        return ["TEST.NUM_ENSEMBLE_VIEWS", "1",
+                "TRAIN.CHECKPOINT_CLEAR_NAME_PATTERN", "['backbone.']",
+                "TRAIN.CHECKPOINT_EPOCH_RESET", "True"]
     return common + [
         "UNIFORMER.PRETRAIN_NAME", "",
         "TENSORBOARD.ENABLE", "False",
@@ -1031,6 +1072,7 @@ RUN_NET = {  # recipe -> (config file, K1 launches per forward, clips a train st
     "x3d": (X3D_CFG, X3D_K1, 8),  # no repeated augmentation in X3D's recipe
     "slowfast": (SLOWFAST_CFG, SLOWFAST_K1, 8),
     "maskfeat_ft": (MASKFEAT_FT_CFG, MASKFEAT_FT_K1, 8),  # 4 videos x AUG.NUM_SAMPLE 2
+    "slow_ft": (SLOW_CFG, SLOW_K1, 8),
 }
 
 
@@ -1680,6 +1722,579 @@ def phase_maskfeat_vis_mask(card, out_dir):
     return launches
 
 
+# Contrastive SSL (configs/contrastive_ssl/) on Slow R50, phases 3c-6c and 8d.
+
+SSL_CFGS = {name: os.path.join(ROOT, "configs", "contrastive_ssl", f) for name, f in (
+    ("moco", "MoCo_SlowR50_8x8.yaml"), ("simclr", "SimCLR_SlowR50_8x8.yaml"),
+    ("byol", "BYOL_SlowR50_8x8.yaml"), ("swav", "SwAV_Slow_R50_8x8.yaml"))}
+# The JAX ContrastiveEncoder's parameter count of each yaml (its
+# ``build_model``; tests/test_torch_port_contrastive.py holds the port to it).
+SSL_PARAMS = {"moco": 40_289_472, "simclr": 40_289_472, "byol": 41_076_032,
+              "swav": 40_289_472}
+SSL_BATCH = 8  # videos a bf16 contrastive step (phases 4c-6c), two views each
+
+
+def ssl_cfg(name):
+    """A published contrastive yaml in one process (the yamls say 8)."""
+    from pmv_tpu_torch.config import get_cfg
+
+    cfg = get_cfg()
+    cfg.merge_from_file(SSL_CFGS[name])
+    cfg.NUM_GPUS = 1
+    return cfg
+
+
+def contrastive_x3d_cfg():
+    """X3D-M (configs/Kinetics/X3D_M.yaml) as a ContrastiveModel's backbone,
+    with the SimCLR yaml's contrastive options, colour jitter and LARS."""
+    cfg, simclr = x3d_cfg(), ssl_cfg("simclr")
+    cfg.MODEL.MODEL_NAME = "ContrastiveModel"
+    cfg.MODEL.NUM_CLASSES = simclr.MODEL.NUM_CLASSES
+    cfg.CONTRASTIVE = simclr.CONTRASTIVE
+    for key in ("COLOR_RND_GRAYSCALE", "SSL_COLOR_BRI_CON_SAT", "SSL_COLOR_HUE",
+                "SSL_COLOR_JITTER", "SSL_MOCOV2_AUG"):
+        cfg.DATA[key] = simclr.DATA[key]
+    for key in ("BASE_LR", "LARS_ON", "WEIGHT_DECAY"):
+        cfg.SOLVER[key] = simclr.SOLVER[key]
+    return cfg
+
+
+def _ssl_batch(cfg, seed, b=2, views=2):
+    """b videos of ``views`` uint8 views (the loader's [B, V, T, H, W, C])
+    and their sample indices."""
+    rng = np.random.default_rng(seed)
+    size = cfg.DATA.TRAIN_CROP_SIZE
+    frames = rng.integers(0, 256, (b, views, cfg.DATA.NUM_FRAMES, size, size, 3), np.uint8)
+    return {"frames": frames, "index": np.arange(b, dtype=np.int64) * 1000 + 7}
+
+
+def _ssl_models_card_and_cpu(cfg, dtype):
+    """``_models_card_and_cpu`` with the queue and the bank filled with unit
+    rows from a seed (the loss reads them) and the queue's pointer one row
+    from its end (the enqueue wraps)."""
+    cpu_model, gpu_model = _models_card_and_cpu(cfg, dtype)
+    gen = torch.Generator().manual_seed(5)
+    with torch.no_grad():
+        for name in ("queue", "bank"):
+            if hasattr(cpu_model, name):
+                t = getattr(cpu_model, name)
+                t.copy_(torch.nn.functional.normalize(torch.randn(t.shape, generator=gen), dim=1))
+        if hasattr(cpu_model, "queue_ptr"):
+            cpu_model.queue_ptr.fill_(cpu_model.queue.shape[0] - 1)
+    gpu_model.load_state_dict(cpu_model.state_dict(), strict=True)
+    return cpu_model, gpu_model
+
+
+def _update_rel_err(got, want, before):
+    """Relative L2 distance of the weights' updates (after - before)."""
+    diff = sum(float(((got[k] - before[k]) - (v - before[k])).square().sum())
+               for k, v in want.items())
+    return (diff / max(sum(float((v - before[k]).square().sum()) for k, v in want.items()),
+                       1e-30)) ** 0.5
+
+
+def _ssl_step_card_vs_cpu(phase, cfg, batch, expected, dtype=torch.float32):
+    """One contrastive train step on the card and on the CPU from the same
+    weights, SSL state and draws, activations in ``dtype``; raises unless
+    they agree and the card's step launched ``expected``. Gates: the loss to
+    1e-4; the gradients, the weights' updates (relative L2) and the grad
+    norm to 1e-4, the BatchNorm running statistics to rtol 1e-4, the
+    momentum encoder, the queue and the bank to 1e-4 (absolute), the
+    queue's pointer equal. For a backbone in ``grad_witness.RELU_LIMITS`` in
+    float32 the gradients and updates to its limit and the grad norm
+    printed, then the card's step again with each ReLU taking the CPU's
+    decisions, both to 1e-4; for one in ``FLOAT64_HELD`` (Slow) the held
+    readings and the float32 statistics printed, and the step again in
+    float64 on both sides under every gate."""
+    from pmv_tpu_torch.engine.ssl_steps import init_ssl_state, make_ssl_train_step
+    from pmv_tpu_torch.tools.grad_witness import (
+        FLOAT64_HELD, RELU_LIMITS, relu_decisions, witness_key)
+
+    key = witness_key(cfg)
+    free = dtype == torch.float32 and key in RELU_LIMITS
+    lr = cfg.SOLVER.BASE_LR
+    cpu_model, gpu_model = _ssl_models_card_and_cpu(cfg, dtype)
+    before = {k: v.detach().clone() for k, v in cpu_model.state_dict().items()}
+    cpu_step = make_ssl_train_step(cfg, device="cpu", seed=0)
+    gpu_step = make_ssl_train_step(cfg, device="cuda", seed=0)
+    view = batch["frames"].shape[:1] + batch["frames"].shape[2:]
+    draws = cpu_step.sample_draws(view)
+    counts = _launch_counts()
+    t0 = time.perf_counter()
+    gpu = {k: v.cpu() for k, v in gpu_step(init_ssl_state(cfg, gpu_model), batch, lr,
+                                           draws).items()}
+    gpu_s = time.perf_counter() - t0
+    launches = _launches_since(counts)
+    t0 = time.perf_counter()
+    with relu_decisions() as cpu_decisions:
+        cpu = cpu_step(init_ssl_state(cfg, cpu_model), batch, lr, draws)
+    cpu_s = time.perf_counter() - t0
+
+    cpu_grads, gpu_grads = _grads(cpu_model), _grads(gpu_model)
+    got = {k: v.detach().cpu() for k, v in gpu_model.state_dict().items()}
+    want = {k: v.detach() for k, v in cpu_model.state_dict().items()}
+    params = [k for k, _ in cpu_model.named_parameters()]
+    ssl = [k for k in want if k.startswith("momentum.") or k in ("queue", "bank")]
+    grad_limit = RELU_LIMITS[key] if free else 1e-4
+    encoder = sum(p.numel() for _, p in cpu_model.encoder_parameters())
+    rec = {
+        "phase": phase, "model": cfg.MODEL.MODEL_NAME, "type": cfg.CONTRASTIVE.TYPE,
+        "backbone": key, "dtype": str(dtype), "frames": list(batch["frames"].shape),
+        "encoder_params": encoder, "params": sum(p.numel() for p in cpu_model.parameters()),
+        "launches": launches, "loss": [float(gpu["loss"]), float(cpu["loss"])],
+        "grad_norm": [float(gpu["grad_norm"]), float(cpu["grad_norm"])],
+        "grad_rel_err": _grad_rel_err(gpu_grads, cpu_grads), "grad_limit": grad_limit,
+        "update_rel_err": _update_rel_err({k: got[k] for k in params},
+                                          {k: want[k] for k in params}, before),
+        "bn_stats_err_over_rtol": _stats_err(
+            {k: got[k] for k in want if "running" in k},
+            {k: want[k] for k in want if "running" in k})[0],
+        "ssl_state_max_abs_err": {name: max((float((got[k] - want[k]).abs().max())
+                                              for k in ssl if k.split(".")[0] == name),
+                                             default=None)
+                                  for name in ("momentum", "queue", "bank")},
+        "queue_ptr": [int(got["queue_ptr"]), int(want["queue_ptr"])] if "queue_ptr" in want
+        else None,
+        "gpu_first_call_s": gpu_s, "cpu_s": cpu_s,
+    }
+    if free:
+        from pmv_tpu_torch.models import build_model
+
+        held_model = build_model(cfg, device="cuda", dtype=torch.float32, seed=0)
+        held_model.load_state_dict(before, strict=True)
+        with relu_decisions(cpu_decisions) as card_decisions:
+            held = gpu_step(init_ssl_state(cfg, held_model), batch, lr, draws)
+        rec["relu_decisions_held"] = {
+            "grad_rel_err": _grad_rel_err(_grads(held_model), cpu_grads),
+            "grad_norm": float(held["grad_norm"]),
+            "relu_elements": sum(int(m.numel()) for m in cpu_decisions.masks),
+            "card_decisions_otherwise": card_decisions.taken_otherwise,
+        }
+    log(json.dumps(rec))
+    if launches != expected:
+        raise AssertionError(f"{phase}: one step launched {launches}, not {expected}")
+    torch.testing.assert_close(gpu["loss"], cpu["loss"], atol=0, rtol=1e-4)
+    if bool(gpu["nan"]) or bool(cpu["nan"]):
+        raise AssertionError(f"{phase}: a loss is not finite")
+    if not free:
+        torch.testing.assert_close(gpu["grad_norm"], cpu["grad_norm"], atol=0, rtol=1e-4)
+    for reading in ("grad_rel_err", "update_rel_err"):
+        if rec[reading] > grad_limit:
+            raise AssertionError(f"{phase}: {reading} {rec[reading]} over {grad_limit}")
+    if free and key not in FLOAT64_HELD:
+        held = rec["relu_decisions_held"]
+        torch.testing.assert_close(torch.tensor(held["grad_norm"]), cpu["grad_norm"],
+                                   atol=0, rtol=1e-4)
+        if held["grad_rel_err"] > 1e-4:
+            raise AssertionError(f"{phase}: with the CPU's ReLU decisions the gradients "
+                                 f"differ by {held['grad_rel_err']}")
+    if not (free and key in FLOAT64_HELD) and rec["bn_stats_err_over_rtol"] > 1e-6:
+        raise AssertionError(f"{phase}: running statistics over rtol 1e-4")
+    over = {k: v for k, v in rec["ssl_state_max_abs_err"].items() if v is not None and v > 1e-4}
+    if over or (rec["queue_ptr"] and rec["queue_ptr"][0] != rec["queue_ptr"][1]):
+        raise AssertionError(f"{phase}: the SSL state differs: {over}, {rec['queue_ptr']}")
+    if free and key in FLOAT64_HELD:
+        _ssl_step_card_vs_cpu(phase.replace("_f32_", "_f64_"), cfg, batch, expected,
+                              torch.float64)
+    return rec
+
+
+def phase_contrastive_card_vs_cpu():
+    """3c: each published contrastive yaml at full width, one step at batch
+    2 (2 views a video), card against CPU; its encoder's parameter count
+    equal to the JAX model's. MoCo in float32 (its gradients held to
+    ``RELU_LIMITS["Slow"]``), then, as for every yaml, in float64 under every
+    1e-4 gate. No conv of Slow R50 is on K1: 0 launches."""
+    for name in SSL_CFGS:
+        cfg = ssl_cfg(name)
+        batch = _ssl_batch(cfg, 3)
+        dtype = torch.float32 if name == "moco" else torch.float64
+        rec = _ssl_step_card_vs_cpu(
+            f"contrastive_{name}_step_{'f32' if name == 'moco' else 'f64'}_b2_card_vs_cpu",
+            cfg, batch, step_launches(SLOW_K1), dtype)
+        if rec["encoder_params"] != SSL_PARAMS[name]:
+            raise AssertionError(f"{name}: {rec['encoder_params']} encoder parameters, the JAX "
+                                 f"model has {SSL_PARAMS[name]}")
+
+
+def phase_contrastive_x3d():
+    """3cx: a SimCLR ContrastiveModel on X3D-M's backbone at full width, one
+    float32 step at batch 2, card against CPU (the CPU's ReLU decisions
+    held, as for X3D-M): two train forwards and their backward, 88 K1 and
+    44 wgrad launches. Returns them."""
+    cfg = contrastive_x3d_cfg()
+    expected = step_launches(2 * X3D_K1)
+    rec = _ssl_step_card_vs_cpu("contrastive_x3d_simclr_step_f32_b2_card_vs_cpu", cfg,
+                                _ssl_batch(cfg, 4), expected)
+    return rec["launches"]
+
+
+def _ssl_device_batch(cfg, b, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    size = cfg.DATA.TRAIN_CROP_SIZE
+    return {"frames": torch.randint(0, 256, (b, 2, cfg.DATA.NUM_FRAMES, size, size, 3),
+                                    dtype=torch.uint8, device="cuda", generator=gen),
+            "index": torch.arange(b, device="cuda")}
+
+
+def phase_contrastive_step(card):
+    """4c: the MoCo yaml's bf16 step at batch 8 (8 videos, two views each),
+    timed alone (2 warm-up steps, then 5 between synchronizes): ms a step,
+    clips/s (a clip is one video with its two views), peak memory; 0 K1."""
+    from pmv_tpu_torch.engine.ssl_steps import init_ssl_state, make_ssl_train_step
+    from pmv_tpu_torch.models import build_model
+
+    cfg = ssl_cfg("moco")
+    model = build_model(cfg, device="cuda", seed=0)  # bfloat16 activations
+    state = init_ssl_state(cfg, model)
+    step = make_ssl_train_step(cfg, device="cuda", seed=0)
+    batch = _ssl_device_batch(cfg, SSL_BATCH, 8)
+    lr = cfg.SOLVER.WARMUP_START_LR
+    for _ in range(2):
+        step(state, batch, lr)
+    torch.cuda.synchronize()
+    timed = 5
+    torch.cuda.reset_peak_memory_stats()
+    counts = _launch_counts()
+    t0 = time.perf_counter()
+    losses = [step(state, batch, lr)["loss"] for _ in range(timed)]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / timed * 1e3
+    launches = _launches_since(counts)
+    rec = {"phase": "contrastive_moco_step_bf16_b8", "card": card, "batch": SSL_BATCH,
+           "views": 2, "steps": timed, "ms_per_step": ms, "clips_per_s": SSL_BATCH / ms * 1e3,
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+           "launches": launches, "losses": [float(v) for v in losses]}
+    log(json.dumps(rec))
+    if launches != {k: 0 for k in launches}:
+        raise AssertionError(f"the MoCo steps launched {launches}")
+    if not np.all(np.isfinite(rec["losses"])):
+        raise AssertionError(f"non-finite MoCo losses {rec['losses']}")
+
+
+def phase_contrastive_train(card):
+    """5c, a main path: 5 steps of ``train_ssl``'s loop body
+    (``train_epoch`` over the MoCo step) on batch-8 bf16 synthetic videos of
+    two views, after one warm-up step; counts zeroed just before the 5 and
+    read just after (0 K1)."""
+    from pmv_tpu_torch.engine.ssl_steps import init_ssl_state, make_ssl_train_step
+    from pmv_tpu_torch.engine.train import train_epoch
+    from pmv_tpu_torch.models import build_model
+    from pmv_tpu_torch.utils.meters import TrainMeter
+
+    cfg = ssl_cfg("moco")
+    timed = 5
+    cfg.LOG_PERIOD = timed
+    cfg.SOLVER.MAX_EPOCH = 1
+    model = build_model(cfg, device="cuda", seed=0)
+    state = init_ssl_state(cfg, model)
+    step = make_ssl_train_step(cfg, device="cuda", seed=0)
+    metrics = []
+
+    def recording_step(state, batch, lr):
+        m = step(state, batch, lr)
+        metrics.append(m)
+        return m
+
+    rng = np.random.default_rng(9)
+    size = cfg.DATA.TRAIN_CROP_SIZE
+    loader = [{"frames": rng.integers(0, 256, (SSL_BATCH, 2, cfg.DATA.NUM_FRAMES, size, size, 3),
+                                      np.uint8),
+               "index": np.arange(SSL_BATCH) + SSL_BATCH * i} for i in range(1 + timed)]
+    train_epoch(loader[:1], recording_step, state, TrainMeter(1, cfg), 0, cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launch_counts()  # the main path starts here
+    t0 = time.perf_counter()
+    train_epoch(loader[1:], recording_step, state, TrainMeter(timed, cfg), 0, cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launch_counts()  # ... and ends here
+    losses = [float(m["loss"]) for m in metrics]
+    grad_norms = [float(m["grad_norm"]) for m in metrics]
+    log(json.dumps({
+        "phase": "contrastive_moco_train_epoch_bf16_b8", "card": card, "steps": timed,
+        "batch": SSL_BATCH, "wall_s": wall, "ms_per_step": wall / timed * 1e3,
+        "clips_per_s": timed * SSL_BATCH / wall,
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "launches": launches, "losses": losses, "grad_norms": grad_norms,
+        "queue_ptr": int(model.queue_ptr), "steps_taken": state.step,
+    }))
+    if not np.all(np.isfinite(losses + grad_norms)):
+        raise AssertionError(f"non-finite losses {losses} or grad norms {grad_norms}")
+    if launches != {k: 0 for k in launches} or int(model.queue_ptr) != 6 * SSL_BATCH:
+        raise AssertionError(f"5 MoCo steps launched {launches}, queue at {model.queue_ptr}")
+    return launches
+
+
+def moco_pt_argv(out_dir, max_epoch):
+    """run_net's arguments for the MoCo yaml: one process, batch 8, the
+    Synthetic dataset, the kNN monitor every epoch, a 1-view test (the
+    test's views cut from 10 x 3, as the other phases cut them)."""
+    return ["--cfg", SSL_CFGS["moco"], "--opts", "NUM_GPUS", "1",
+            "TRAIN.BATCH_SIZE", str(SSL_BATCH), "TRAIN.DATASET", "synthetic",
+            "TEST.DATASET", "synthetic", "TRAIN.EVAL_PERIOD", "1",
+            "TEST.NUM_ENSEMBLE_VIEWS", "1", "TEST.NUM_SPATIAL_CROPS", "1",
+            "SOLVER.MAX_EPOCH", str(max_epoch), "OUTPUT_DIR", out_dir]
+
+
+def _moco_pt_call(out_dir, max_epoch):
+    """One MoCo ``run_net`` call (a main path): its launches, wall time, the
+    train and kNN stats and the checkpoint it wrote, from its own log."""
+    from pmv_tpu_torch.data.loader import construct_loader
+    from pmv_tpu_torch.tools import run_net
+
+    argv = moco_pt_argv(out_dir, max_epoch)
+    steps = len(construct_loader(run_net_cfg(argv), "train"))
+    log_path = os.path.join(out_dir, "stdout.log")
+    skip = 0
+    if os.path.exists(log_path):
+        with open(log_path) as f:
+            skip = len(f.read().splitlines())
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launch_counts()  # the main path starts here
+    t0 = time.perf_counter()
+    run_net.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launch_counts()  # ... and ends here
+    with open(log_path) as f:
+        lines = f.read().splitlines()[skip:]
+    stats = [json.loads(line.split("json_stats: ", 1)[1])
+             for line in lines if "json_stats: " in line]
+    train_stats = [s for s in stats if s.get("_type") == "train_epoch"][-1]
+    knn = [s for s in stats if s.get("_type") == "ssl_knn_epoch"]
+    if not np.isfinite(train_stats["loss"]) or not knn or knn[-1]["epoch"] != max_epoch - 1:
+        raise AssertionError(f"the MoCo run: train {train_stats}, kNN lines {knn}")
+    if launches != {k: 0 for k in launches}:
+        raise AssertionError(f"the MoCo run_net launched {launches}")
+    saved = _last_match(lines, r"Saved checkpoint to (\S+) in ([\d.]+)s")
+    return {
+        "phase": f"contrastive_moco_run_net_epoch_{max_epoch}", "wall_s": wall,
+        "train_steps": steps, "train_clips": steps * SSL_BATCH,
+        "train_clips_per_s_of_wall": steps * SSL_BATCH / wall, "knn": knn[-1],
+        "checkpoint": saved[1], "checkpoint_s": float(saved[2]),
+        "checkpoint_bytes": os.path.getsize(saved[1]),
+        "optimizer_steps": torch.load(saved[1], map_location="cpu", weights_only=True)[
+            "optimizer_state"]["param_groups"][0]["count"],
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "launches": launches, "train_epoch_stats": train_stats,
+        "final_stats": stats[-1], "log": lines,
+    }
+
+
+def phase_contrastive_run_net(card, out_dir, ft_dir):
+    """6c: ``run_net`` on the MoCo yaml for one epoch (train_ssl, the kNN
+    line, its checkpoint); the restore as train_ssl makes it, every tensor
+    compared with the file's, the queue, the bank and the momentum encoder
+    among them; ``run_net`` again with SOLVER.MAX_EPOCH 2, which must
+    resume; then configs/Kinetics/SLOW_8x8_R50.yaml fine-tunes from that
+    checkpoint with CLEAR_NAME_PATTERN ["backbone."] (train, precise BN,
+    eval, a 1-view test). Main paths; returns their launches."""
+    from contextlib import redirect_stdout
+
+    from pmv_tpu_torch.engine.ssl_steps import init_ssl_state
+    from pmv_tpu_torch.models import build_model
+    from pmv_tpu_torch.utils import checkpoint as cu
+
+    with redirect_stdout(open(os.devnull, "w")):
+        first = _moco_pt_call(out_dir, 1)
+        cfg = run_net_cfg(moco_pt_argv(out_dir, 2))
+        state = init_ssl_state(cfg, build_model(cfg, device="cuda", seed=cfg.RNG_SEED))
+        last = cu.get_last_checkpoint(cfg.OUTPUT_DIR, cfg.TASK)
+        start = cu.load_checkpoint(last, state) + 1
+        ckpt = torch.load(last, map_location="cpu", weights_only=True)
+        restored = {"checkpoint": last, **_compare_restored(state, ckpt, start),
+                    "ssl_tensors": sorted({k.split(".")[0] for k in ckpt["model_state"]}
+                                          & {"momentum", "queue", "queue_ptr", "bank"})}
+        del state
+        second = _moco_pt_call(out_dir, 2)
+        ft = _run_net_call("slow_ft", ft_dir, 1, ["TRAIN.CHECKPOINT_FILE_PATH",
+                                                   second["checkpoint"]])
+    if restored["start_epoch"] != 1 or restored["checkpoint"] != first["checkpoint"] or \
+            restored["ssl_tensors"] != ["bank", "momentum", "queue", "queue_ptr"]:
+        raise AssertionError(f"the MoCo restore: {restored}")
+    if not (any(f"Resumed SSL training from {first['checkpoint']}" in line
+                for line in second["log"])
+            and any("Start epoch: 2" in line for line in second["log"])):
+        raise AssertionError("the second MoCo call did not resume from the first's checkpoint")
+    if second["optimizer_steps"] != first["optimizer_steps"] + second["train_steps"]:
+        raise AssertionError(f"the MoCo optimizer took {second['optimizer_steps']} steps")
+    # The first load is the MoCo checkpoint's (test() loads the FT run's own).
+    loaded = next(m for m in map(re.compile(
+        r"Loaded (\d+) of the model's (\d+) tensors from the checkpoint; (\d+) kept "
+        r"their init").search, ft["log"]) if m)
+    ft["tensors_loaded"], ft["tensors"], ft["tensors_kept_init"] = map(int, loaded.groups())
+    if ft["tensors_kept_init"] != 2:  # the head's projection: weight and bias
+        raise AssertionError(f"the Slow fine-tuning kept {ft['tensors_kept_init']} at init")
+    for rec in (first, second, ft):
+        rec.pop("log")
+        log(json.dumps({**rec, "card": card}))
+    log(json.dumps({"phase": "contrastive_moco_run_net_restore", **restored}))
+    return [first["launches"], second["launches"], ft["launches"]]
+
+
+def _ssl_dist_rank(rank, world, port, work_dir, result_q):
+    """Phase 8d's rank: join the gloo job on the one card, then each SSL
+    case's ``dp`` step on this rank's rows of the global batch with the
+    global batch's draws. Puts its error, or None, on ``result_q``."""
+    import datetime
+    import traceback
+
+    try:
+        from pmv_tpu_torch.engine import ssl_steps
+        from pmv_tpu_torch.models import build_model
+        from pmv_tpu_torch.parallel import distributed
+        from pmv_tpu_torch.tools.grad_witness import Decisions, max_pool_decisions
+
+        torch.set_num_threads(max(1, (os.cpu_count() or world) // world))
+        float32_without_tf32()
+        device = torch.device("cuda", 0)
+        distributed.init_distributed(rank, world, f"tcp://127.0.0.1:{port}", device, "gloo",
+                                     timeout=datetime.timedelta(seconds=120))
+        results = {}
+        for name, case in torch.load(os.path.join(work_dir, "ssl_cases.pt"),
+                                     weights_only=False).items():
+            cfg = case["cfg"]
+            model = build_model(cfg, device=device, dtype=case["dtype"], seed=0)
+            model.load_state_dict(case["state_dict"])
+            state = ssl_steps.init_ssl_state(
+                cfg, model, wrapped=distributed.wrap_model(model, "dp", device))
+            make = (ssl_steps.make_masked_train_step if name == "maskfeat"
+                    else ssl_steps.make_ssl_train_step)
+            b = len(case["batch"]["frames"]) // world
+            local = {k: v[rank * b:(rank + 1) * b] for k, v in case["batch"].items()}
+            taps = None
+            if case.get("taps") is not None:  # this rank's rows of the one process's
+                taps = Decisions([m[rank * b:(rank + 1) * b] for m in case["taps"]])
+            counts = _launch_counts()
+            with max_pool_decisions(taps) if taps else contextlib.nullcontext():
+                metrics = {k: v.cpu() for k, v in make(cfg, device=device, seed=0)(
+                    state, local, cfg.SOLVER.BASE_LR, case["draws"]).items()}
+            torch.cuda.synchronize()
+            results[name] = {
+                "metrics": metrics, "launches": _launches_since(counts),
+                "grads": {k: p.grad.detach().cpu().clone() for k, p in model.named_parameters()},
+                "state": {k: v.detach().cpu().clone() for k, v in model.state_dict().items()},
+            }
+            del state, model
+            torch.cuda.empty_cache()
+        torch.save(results, os.path.join(work_dir, f"ssl_rank{rank}.pt"))
+        distributed.destroy()
+        result_q.put((rank, None))
+    except BaseException:  # reported to the parent, which raises
+        result_q.put((rank, traceback.format_exc()))
+        raise
+
+
+def _ssl_dist_cases():
+    """Phase 8d's cases at full width, each with its one-process step on the
+    global batch of 4, on the card: the MoCo and SimCLR steps (2 videos of 2
+    views a rank) in float64 activations (Slow R50's ReLUs decide with
+    float32's rounding); the MaskFeat step with loader masks of unequal
+    counts on the two ranks in float32 (K1 takes no float64), its skip max
+    pools taking the one-process step's taps on every rank (``taps``)."""
+    from pmv_tpu_torch.engine import ssl_steps
+    from pmv_tpu_torch.models import build_model
+    from pmv_tpu_torch.tools.grad_witness import max_pool_decisions
+
+    cases, refs = {}, {}
+    for name in ("moco", "simclr", "maskfeat"):
+        dtype, taps = torch.float64, contextlib.nullcontext()
+        if name == "maskfeat":
+            cfg = maskfeat_cfg()
+            rng = np.random.default_rng(6)
+            clip = _maskfeat_clip(cfg)
+            dtype, taps = torch.float32, max_pool_decisions()
+            model = build_model(cfg, device="cuda", dtype=dtype, seed=0)
+            n_tok = model.sample_mask((1, *clip), torch.Generator()).shape[1]
+            batch = {"frames": rng.integers(0, 256, (2 * DIST_BATCH, *clip), np.uint8),
+                     "mask": rng.uniform(size=(2 * DIST_BATCH, n_tok))
+                     < np.array([0.6, 0.5, 0.1, 0.2])[:, None]}
+            step = ssl_steps.make_masked_train_step(cfg, device="cuda", seed=0)
+            draws = step.sample_draws(model, batch["frames"].shape)
+            draws["mask"] = None
+        else:
+            cfg = ssl_cfg(name)
+            batch = _ssl_batch(cfg, 7, b=2 * DIST_BATCH)
+            _, model = _ssl_models_card_and_cpu(cfg, torch.float64)
+            step = ssl_steps.make_ssl_train_step(cfg, device="cuda", seed=0)
+            draws = step.sample_draws(batch["frames"].shape[:1] + batch["frames"].shape[2:])
+        state_dict = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+        with taps as record:
+            metrics = {k: v.cpu() for k, v in step(ssl_steps.init_ssl_state(cfg, model), batch,
+                                                  cfg.SOLVER.BASE_LR, draws).items()}
+        cases[name] = {"cfg": cfg, "state_dict": state_dict, "batch": batch, "draws": draws,
+                       "dtype": dtype, "taps": [m.cpu() for m in record.masks] if record else None}
+        refs[name] = (metrics, _grads(model),
+                      {k: v.detach().cpu() for k, v in model.state_dict().items()},
+                      sum(p.numel() for p in model.parameters()))
+        del model
+        torch.cuda.empty_cache()
+    return cases, refs
+
+
+def phase_distributed_ssl():
+    """Phase 8d: two ranks over gloo sharing the one card, the SSL steps
+    under ``dp`` (``_ssl_dist_cases``), each rank's against the one-process
+    step on the global batch under phase 3b's gates (``_held_to_step``), the
+    grad norm to 1e-4 and the SSL state (momentum encoder, queue, bank) to
+    1e-5 besides. Returns the ranks' launches (0: Slow R50 has no K1 conv;
+    MaskFeat's 14 a forward)."""
+    import multiprocessing
+
+    work_dir = os.path.join("build", "chip_smoke_distributed_ssl")
+    shutil.rmtree(work_dir, ignore_errors=True)
+    os.makedirs(work_dir)
+    cases, refs = _ssl_dist_cases()
+    torch.save(cases, os.path.join(work_dir, "ssl_cases.pt"))
+    world = 2
+    ctx = multiprocessing.get_context("spawn")
+    result_q = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=_ssl_dist_rank, args=(r, world, port, work_dir, result_q))
+             for r in range(world)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        errors = [result_q.get(timeout=300) for _ in procs]
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    wall = time.perf_counter() - t0
+    failed = [e for _, e in errors if e]
+    if failed:
+        raise AssertionError("a phase 8d rank failed:\n" + "\n".join(failed))
+    ranks = [torch.load(os.path.join(work_dir, f"ssl_rank{r}.pt"), weights_only=False)
+             for r in range(world)]
+    launches = {k: 0 for k in _launch_counts()}
+    for name, (metrics, grads, state, n_params) in refs.items():
+        expected = step_launches(MASKFEAT_K1 if name == "maskfeat" else SLOW_K1)
+        for rank, r in enumerate(ranks):
+            got = r[name]
+            ssl = [k for k in state if k.split(".")[0] in ("momentum", "queue", "bank")]
+            ssl_err = max((float((got["state"][k] - state[k]).abs().max()) for k in ssl),
+                          default=0.0)
+            dtype = "f32" if name == "maskfeat" else "f64"
+            rec = _held_to_step(f"distributed_gloo_{name}_dp_{dtype}_rank{rank}_vs_one_process",
+                                (got["metrics"], got["grads"], got["state"]),
+                                (metrics, grads, state), cases[name]["cfg"].SOLVER.BASE_LR,
+                                n_params, world=world, rows_per_rank=DIST_BATCH,
+                                step_launches=got["launches"], ssl_state_max_abs_err=ssl_err,
+                                spawn_to_end_s=wall)
+            torch.testing.assert_close(got["metrics"]["grad_norm"], metrics["grad_norm"],
+                                       atol=0, rtol=1e-4)
+            if ssl_err > 1e-5 or got["launches"] != expected:
+                raise AssertionError(f"{rec['phase']}: SSL state {ssl_err}, launches "
+                                     f"{got['launches']}, not {expected}")
+            launches = {k: v + got["launches"][k] for k, v in launches.items()}
+    return launches
+
+
 def tensorboard_imports():
     """True when ``torch.utils.tensorboard`` imports, else why not (printed,
     not a gate: the writer is needed only with TENSORBOARD.ENABLE)."""
@@ -2291,7 +2906,8 @@ def plant_wrapper_faults(card):
                                bf16_limit=BF16_WRAPPER_LIMIT)
 
 
-def kernels_line(records, launches, slowfast_launches, maskfeat_launches):
+def kernels_line(records, launches, slowfast_launches, maskfeat_launches,
+                 contrastive_launches):
     """One entry per kernel: times summed over the launches at the 224^2
     crop's shapes in bfloat16 at batch 8; K1 over one MViTv2-S forward (17
     launches, as many again for dx in a train step), the wgrad kernel over
@@ -2306,7 +2922,9 @@ def kernels_line(records, launches, slowfast_launches, maskfeat_launches):
     (0: none of its convs is on K1), "launches_maskfeat" the MaskFeat paths'
     (phases 5m-7m and VIS_MASK); "maskfeat" the sums over one MaskFeat PT
     forward's 14 launches at batch 8, bf16 (``maskfeat_kernel_ms``; for K1
-    the forward's, which dx repeats)."""
+    the forward's, which dx repeats); "launches_contrastive" the contrastive
+    paths' (phases 5c-6c, 0: Slow R50 has no K1 conv), the SimCLR step on
+    X3D-M's backbone (phase 3cx) and the 2-rank SSL steps (phase 8d)."""
     maskfeat = maskfeat_kernel_ms(records)
 
     def entry(name, source, replaces, recs, basis):
@@ -2327,6 +2945,7 @@ def kernels_line(records, launches, slowfast_launches, maskfeat_launches):
             "launches": launches[name],
             "launches_slowfast": slowfast_launches[name],
             "launches_maskfeat": maskfeat_launches[name],
+            "launches_contrastive": {k: v[name] for k, v in contrastive_launches.items()},
             "max_abs_err": max(r["max_abs_err"] for r in recs),
             "ms": kernel_ms,
             "kernel_ms": kernel_ms,
@@ -2445,6 +3064,8 @@ def main():
     phase_portrait_steps(slowfast, SLOWFAST_K1, "slowfast_")
     phase_precise_bn(slowfast, SLOWFAST_K1, "slowfast_")
     phase_maskfeat_card_vs_cpu()
+    phase_contrastive_card_vs_cpu()
+    x3d_ssl_launches = phase_contrastive_x3d()
 
     # Phases 4 to 7: the main paths; serving, training, and run_net's train,
     # checkpoint, eval and test, then its resume; MViTv2-S, UniFormer-S,
@@ -2484,19 +3105,32 @@ def main():
     shutil.rmtree(out_dir, ignore_errors=True)
     maskfeat_paths.append(phase_maskfeat_vis_mask(card, out_dir))
     paths += maskfeat_paths
+    phase_contrastive_step(card)
+    out_dir = os.path.join("build", "chip_smoke_run_net_moco")
+    ft_dir = os.path.join("build", "chip_smoke_run_net_slow_ft")
+    for d in (out_dir, ft_dir):
+        shutil.rmtree(d, ignore_errors=True)
+    contrastive_paths = [phase_contrastive_train(card)]
+    contrastive_paths += phase_contrastive_run_net(card, out_dir, ft_dir)
+    paths += contrastive_paths
 
     # Phase 8: the distributed paths.
     log(json.dumps({"phase": "tensorboard_import",
                     "torch.utils.tensorboard": tensorboard_imports()}))
     paths += [phase_distributed_gloo()]
+    ssl_dist_launches = phase_distributed_ssl()
     paths += phase_distributed_run_net(card)
     paths += phase_distributed_nccl(card)
     launches = {k: sum(p[k] for p in paths) for k in paths[0]}
     slowfast_launches = {k: sum(p[k] for p in slowfast_paths) for k in paths[0]}
     maskfeat_launches = {k: sum(p[k] for p in maskfeat_paths) for k in paths[0]}
+    contrastive_launches = {
+        "main_paths": {k: sum(p[k] for p in contrastive_paths) for k in paths[0]},
+        "x3d_simclr_step": x3d_ssl_launches, "distributed_ssl_ranks": ssl_dist_launches}
 
     log(json.dumps({"phase": "total", "wall_s": time.perf_counter() - t_start}))
-    line = kernels_line(records, launches, slowfast_launches, maskfeat_launches)
+    line = kernels_line(records, launches, slowfast_launches, maskfeat_launches,
+                        contrastive_launches)
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": card, "records": records, **line}, f, indent=1)

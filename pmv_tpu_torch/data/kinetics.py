@@ -20,14 +20,21 @@ unseeded generator. Test mode draws nothing. The host stops at uint8
 crops [T, H, W, C]; RandAugment, normalization, erasing and mixup run on
 the device in the train step.
 
+Contrastive multi-clip views (DATA.TRAIN_CROP_NUM_TEMPORAL or
+TRAIN_CROP_NUM_SPATIAL > 1, train mode): TRAIN_CROP_NUM_TEMPORAL temporal
+windows (``video_decoder.decode_multi_clip``, their gaps within
+CONTRASTIVE.DELTA_CLIPS_MIN/MAX), each cropped and flipped
+TRAIN_CROP_NUM_SPATIAL times on its own, stacked on a view axis: the
+sample's frames are [V, T, H, W, C], V = the product of the two
+(`kinetics.py:301-330, 360-390` of the JAX package, draw for draw).
+
 With AUG.GEN_MASK_LOADER a train sample also carries "mask", MaskFeat's
 blockwise mask on the AUG.MASK_WINDOW_SIZE grid, flattened to booleans
 (``data/masking.py::gen_mask``), drawn last from the sample's generator, as
 the JAX package draws it after the decode (`kinetics.py:237-242`).
 
-Not ported, each raising NotImplementedError: DATA.DUMMY_LOAD, the
-contrastive multi-clip views (DATA.TRAIN_CROP_NUM_TEMPORAL or _SPATIAL > 1)
-and multigrid short cycles.
+Not ported, each raising NotImplementedError: DATA.DUMMY_LOAD and
+multigrid short cycles.
 """
 
 import math
@@ -51,10 +58,6 @@ class Kinetics:
         assert mode in ["train", "val", "test"]
         if cfg.DATA.DUMMY_LOAD:
             raise NotImplementedError("DATA.DUMMY_LOAD is not ported")
-        if mode == "train" and (
-            cfg.DATA.TRAIN_CROP_NUM_TEMPORAL > 1 or cfg.DATA.TRAIN_CROP_NUM_SPATIAL > 1
-        ):
-            raise NotImplementedError("contrastive multi-clip views are not ported")
         self.cfg = cfg
         self.mode = mode
         self.epoch = 0
@@ -281,18 +284,36 @@ class Kinetics:
         target_fps = cfg.DATA.TARGET_FPS
         if self.mode == "train" and cfg.DATA.TRAIN_JITTER_FPS > 0.0:
             target_fps += float(rng.uniform(0.0, cfg.DATA.TRAIN_JITTER_FPS))
-        frames, time_frac = video_decoder.decode_clip(
-            reader,
-            sampling_rate,
-            cfg.DATA.NUM_FRAMES,
-            clip_idx=temporal_idx,
-            num_clips=(cfg.TEST.NUM_ENSEMBLE_VIEWS if is_test else 1),
-            target_fps=target_fps,
-            use_offset=cfg.DATA.USE_OFFSET_SAMPLING,
-            out_w=out_w,
-            out_h=out_h,
-            rng=rng,
-        )
+        # Contrastive multi-clip positives: V temporal windows a sample.
+        num_temporal = cfg.DATA.TRAIN_CROP_NUM_TEMPORAL if self.mode == "train" else 1
+        if num_temporal > 1:
+            frames, fracs = video_decoder.decode_multi_clip(
+                reader,
+                sampling_rate,
+                cfg.DATA.NUM_FRAMES,
+                num_views=num_temporal,
+                min_delta=cfg.CONTRASTIVE.DELTA_CLIPS_MIN,
+                max_delta=cfg.CONTRASTIVE.DELTA_CLIPS_MAX,
+                target_fps=target_fps,
+                use_offset=cfg.DATA.USE_OFFSET_SAMPLING,
+                out_w=out_w,
+                out_h=out_h,
+                rng=rng,
+            )
+            time_frac = float(fracs[0])
+        else:
+            frames, time_frac = video_decoder.decode_clip(
+                reader,
+                sampling_rate,
+                cfg.DATA.NUM_FRAMES,
+                clip_idx=temporal_idx,
+                num_clips=(cfg.TEST.NUM_ENSEMBLE_VIEWS if is_test else 1),
+                target_fps=target_fps,
+                use_offset=cfg.DATA.USE_OFFSET_SAMPLING,
+                out_w=out_w,
+                out_h=out_h,
+                rng=rng,
+            )
         frames = frames.astype(np.float32)
 
         # Crop and flip (host, cheap).
@@ -315,6 +336,7 @@ class Kinetics:
                     fr = transform.horizontal_flip(0.5, fr, rng=rng)
                 return fr
 
+            num_spatial = cfg.DATA.TRAIN_CROP_NUM_SPATIAL if self.mode == "train" else 1
             # Repeated augmentation (AUG.NUM_SAMPLE): decode once, crop and
             # flip each copy anew.
             num_aug = (
@@ -322,7 +344,12 @@ class Kinetics:
                 if self.mode == "train" and cfg.AUG.ENABLE
                 else 1
             )
-            if num_aug > 1:
+            if num_temporal > 1 or num_spatial > 1:
+                # Contrastive views: independent crops of each window, on a
+                # leading view axis.
+                clips = frames if num_temporal > 1 else [frames]
+                frames = np.stack([one_crop(clip) for clip in clips for _ in range(num_spatial)])
+            elif num_aug > 1:
                 frames = np.stack([one_crop(frames) for _ in range(num_aug)])
             else:
                 frames = one_crop(frames)

@@ -157,7 +157,9 @@ def construct_loader(cfg, split, dataset=None):
     """The loader of ``split`` (`loader.py:112-169`): train shuffles and
     drops the last partial batch; val and test keep the order and every
     sample. A process takes TRAIN.BATCH_SIZE (TEST.BATCH_SIZE) / NUM_GPUS
-    samples a step."""
+    samples a step. A train sample of contrastive views (DATA.
+    TRAIN_CROP_NUM_TEMPORAL or _SPATIAL > 1) keeps its view axis: frames
+    [B, V, T, H, W, C]."""
     assert split in ["train", "val", "test"]
     if split == "train" and (cfg.MULTIGRID.SHORT_CYCLE or cfg.MULTIGRID.LONG_CYCLE):
         raise NotImplementedError("multigrid training is not ported")
@@ -170,7 +172,10 @@ def construct_loader(cfg, split, dataset=None):
     if dataset is None:
         dataset = build_dataset(dataset_name, cfg, split)
     collate = None
-    if split == "train" and cfg.AUG.ENABLE and cfg.AUG.NUM_SAMPLE > 1:
+    multi_view = cfg.DATA.TRAIN_CROP_NUM_TEMPORAL > 1 or cfg.DATA.TRAIN_CROP_NUM_SPATIAL > 1
+    if split == "train" and cfg.AUG.ENABLE and cfg.AUG.NUM_SAMPLE > 1 and not multi_view:
+        # Repeated-augmentation copies fold into the batch; contrastive
+        # views keep their axis ([B, V, T, H, W, C]) for the SSL step.
         collate = multiple_samples_collate
     rank, world_size = rank_and_world_size()
     return DataLoader(

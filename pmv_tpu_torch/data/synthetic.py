@@ -44,6 +44,11 @@ class Synthetic:
             )
         )
 
+    @property
+    def _labels(self):
+        """Each sample's label (the SSL kNN monitor's bank labels)."""
+        return [self._label_of(i // self._num_clips) for i in range(len(self))]
+
     def __getitem__(self, index):
         cfg = self.cfg
         # Label (and base content) must be per-video, not per-view, so

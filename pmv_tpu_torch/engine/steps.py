@@ -59,6 +59,7 @@ strategy, once per step: DDP expects one forward per backward.
 import numpy as np
 import torch
 
+from pmv_tpu_torch.data import color_jitter
 from pmv_tpu_torch.data.mixup import MixUp, mixup_target
 from pmv_tpu_torch.data.rand_augment import RandAugment, num_groups
 from pmv_tpu_torch.data.random_erasing import random_erasing, sample_random_erasing
@@ -73,35 +74,51 @@ from pmv_tpu_torch.utils.device import rank_and_world_size, resolve_device
 class Preprocess:
     """On-device preprocessing (`make_preprocess_fn`, `:35-123`): uint8
     [B, T, H, W, C] -> float32, in the channel order of DATA.USE_BGR_ORDER
-    (`kinetics.py:443-448` of the reference); in training RandAugment
-    (AUG.AA_TYPE), then normalize, then random erasing (AUG.RE_PROB).
-    ``sample`` draws the augmentation's parameters; ``__call__`` applies
-    them."""
+    (`kinetics.py:443-448` of the reference); in training, in the JAX
+    package's order, the time difference (DATA.TIME_DIFF_PROB), the SSL
+    colour jitter (DATA.SSL_COLOR_JITTER, with SSL_MOCOV2_AUG and
+    COLOR_RND_GRAYSCALE), RandAugment (AUG.AA_TYPE), then normalize, then
+    random erasing (AUG.RE_PROB). ``sample`` draws the augmentation's
+    parameters; ``__call__`` applies them. The AVA colour augmentation
+    (DETECTION.ENABLE with AVA.TRAIN_USE_COLOR_AUGMENTATION) is not ported
+    and raises NotImplementedError."""
+
+    # The draws, in the order a step samples them.
+    DRAWS = ("time_diff", "ssl_color", "rand_augment", "erasing")
 
     def __init__(self, cfg, train, device):
-        if train and (
-            cfg.DETECTION.ENABLE and cfg.AVA.TRAIN_USE_COLOR_AUGMENTATION
-            or cfg.DATA.TIME_DIFF_PROB > 0
-            or cfg.DATA.SSL_COLOR_JITTER
-        ):
-            raise NotImplementedError(
-                "the AVA colour, time-difference and SSL colour augmentations "
-                "are not ported yet"
-            )
+        if train and cfg.DETECTION.ENABLE and cfg.AVA.TRAIN_USE_COLOR_AUGMENTATION:
+            raise NotImplementedError("the AVA colour augmentation is not ported yet")
         self.device = device
         mean = torch.tensor(cfg.DATA.MEAN, dtype=torch.float32) * 255.0
         inv_std = 1.0 / (torch.tensor(cfg.DATA.STD, dtype=torch.float32) * 255.0)
         self.mean, self.inv_std = mean.to(device), inv_std.to(device)
         self.use_bgr = cfg.DATA.USE_BGR_ORDER
+        self.time_diff_prob = cfg.DATA.TIME_DIFF_PROB if train else 0.0
+        self.ssl_color = None
+        if train and cfg.DATA.SSL_COLOR_JITTER:
+            self.ssl_color = dict(
+                bri_con_sat=tuple(cfg.DATA.SSL_COLOR_BRI_CON_SAT),
+                hue=cfg.DATA.SSL_COLOR_HUE,
+                p_convert_gray=cfg.DATA.COLOR_RND_GRAYSCALE,
+                moco_v2_aug=cfg.DATA.SSL_MOCOV2_AUG,
+                blur_sigma=(cfg.DATA.SSL_BLUR_SIGMA_MIN[1], cfg.DATA.SSL_BLUR_SIGMA_MAX[1]),
+            )
         use_ra = train and cfg.AUG.ENABLE and cfg.AUG.AA_TYPE
         self.rand_augment = RandAugment(cfg.AUG.AA_TYPE) if use_ra else None
         self.ra_groups = cfg.AUG.RA_GROUPS
         self.re_prob = cfg.AUG.RE_PROB if train and cfg.AUG.ENABLE else 0.0
         self.re_mode = cfg.AUG.RE_MODE
 
-    def sample(self, shape, generator, device_generator, needed=("rand_augment", "erasing")):
+    def sample(self, shape, generator, device_generator, needed=DRAWS):
         """The draws named in ``needed`` that this preprocessing uses."""
         draws = {}
+        if self.time_diff_prob > 0 and "time_diff" in needed:
+            draws["time_diff"] = color_jitter.sample_time_difference(
+                shape[0], generator, self.time_diff_prob)
+        if self.ssl_color is not None and "ssl_color" in needed:
+            draws["ssl_color"] = color_jitter.sample_ssl_color_jitter(
+                shape[0], generator, **self.ssl_color)
         if self.rand_augment is not None and "rand_augment" in needed:
             groups = num_groups(shape[0], self.ra_groups)
             draws["rand_augment"] = self.rand_augment.sample(groups, generator)
@@ -112,10 +129,18 @@ class Preprocess:
             )
         return draws
 
-    def __call__(self, frames, draws=None):
-        x = frames.float()
+    def __call__(self, frames, draws=None, dtype=torch.float32):
+        """The preprocessed clips, computed in ``dtype`` (float32; float64
+        for a model of float64 activations, so that its checks see no
+        float32 rounding in the augmentation)."""
+        x = frames.to(dtype)
         if self.use_bgr:
             x = x.flip(-1)
+        if self.time_diff_prob > 0:
+            x = color_jitter.augment_time_difference(x, draws["time_diff"])
+        if self.ssl_color is not None:
+            x = color_jitter.ssl_color_jitter(x, draws["ssl_color"],
+                                              self.ssl_color["moco_v2_aug"])
         if self.rand_augment is not None:
             x = self.rand_augment.apply_batch(x, draws["rand_augment"])
         x = (x - self.mean) * self.inv_std
@@ -224,17 +249,22 @@ def slice_rows(masks, start, stop, batch):
 
 def local_draws(draws, start, stop, batch):
     """The draws of rows [start, stop) of a ``batch``-row batch: per-row
-    draws sliced, RandAugment's groups that hold the rows, MixUp's scalars
+    draws (the SSL colour's, the time difference's, MaskFeat's masks and
+    HOG bins too) sliced, RandAugment's groups that hold the rows, MixUp's scalars
     as they are."""
     if (start, stop) == (0, batch):
         return draws
     out = dict(draws)
     if "rand_augment" in draws:
         out["rand_augment"] = draws["rand_augment"].rows(start, stop, batch)
-    if "erasing" in draws:
-        out["erasing"] = draws["erasing"].rows(start, stop)
-    for key in ("drop_path", "dropout"):
-        out[key] = slice_rows(draws.get(key), start, stop, batch)
+    for key in ("erasing", "ssl_color"):
+        if key in draws:
+            out[key] = draws[key].rows(start, stop)
+    if "time_diff" in draws:
+        out["time_diff"] = draws["time_diff"][start:stop]
+    for key in ("drop_path", "dropout", "mask", "hog_bins"):
+        if key in draws:
+            out[key] = slice_rows(draws[key], start, stop, batch)
     return out
 
 
@@ -290,18 +320,20 @@ def _top_k(scores, k):
 def make_draw_sampler(preprocess, seed, device):
     """sample(shape, given, step, extra) -> a train step's draws: the
     ``given`` ones, then, of those not given, the preprocessing's
-    (RandAugment, erasing) and each of ``extra`` (name -> fn(host generator,
+    (``Preprocess.DRAWS``) and each of ``extra`` (name -> fn(host generator,
     device generator), drawn in that order), from generators seeded anew
     from (``seed``, ``step``), so that a step's draws depend on the seed and
-    the step count alone."""
+    the step count alone. ``step`` may be a tuple of ints (a step and a
+    view of it)."""
     generator = torch.Generator()
     device_generator = torch.Generator(device)
 
     def sample(shape, given, step, extra):
-        step_seed = int(np.random.SeedSequence((seed, step)).generate_state(1)[0])
+        step = step if isinstance(step, tuple) else (step,)
+        step_seed = int(np.random.SeedSequence((seed, *step)).generate_state(1)[0])
         generator.manual_seed(step_seed)
         device_generator.manual_seed(step_seed)
-        missing = ({"rand_augment", "erasing"} | set(extra)) - set(given)
+        missing = (set(Preprocess.DRAWS) | set(extra)) - set(given)
         draws = dict(given)
         draws.update(preprocess.sample(shape, generator, device_generator, missing))
         for name, draw in extra.items():

@@ -298,11 +298,13 @@ def mae_visualize(cfg, frames, pred, mask):
     return torch.clamp(comp, 0, 255).to(torch.uint8)
 
 
-def masked_loss(pred, target, mask):
+def masked_loss(pred, target, mask, count=None):
     """Mean squared error over the masked tokens only (`masked.py:270-274`),
-    in float32 (float64 for float64 predictions)."""
+    in float32 (float64 for float64 predictions): the sum over the masked
+    tokens over ``count`` (at least 1), the count of masked tokens, by
+    default ``mask``'s (in a multi-process job the global batch's)."""
     err = ((pred.to(torch.promote_types(pred.dtype, torch.float32)) - target) ** 2).mean(dim=-1)
-    denom = torch.clamp(mask.sum(), min=1)
+    denom = torch.clamp(mask.sum() if count is None else count, min=1)
     return (err * mask).sum() / denom
 
 

@@ -99,7 +99,8 @@ class _ResNetBase(nn.Module):
 
     def init_weights(self, generator):
         """flax's default initializers, as the JAX model's (module docstring)."""
-        init_flax_defaults(self, generator, {self.head.projection: 0.01})
+        head = getattr(self, "head", None)  # none in a contrastive backbone
+        init_flax_defaults(self, generator, {head.projection: 0.01} if head else {})
         with torch.no_grad():
             for m in self.modules():
                 if isinstance(m, Nonlocal):

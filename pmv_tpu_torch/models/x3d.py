@@ -78,7 +78,8 @@ class X3D(nn.Module):
 
     def init_weights(self, generator):
         """flax's default initializers, as the JAX model's (module docstring)."""
-        init_flax_defaults(self, generator, {self.head.projection: 0.01})
+        head = getattr(self, "head", None)  # none in a contrastive backbone
+        init_flax_defaults(self, generator, {head.projection: 0.01} if head else {})
 
     def sample_drop_path_masks(self, batch, generator, device=None):
         """Per stage, per block, the drop-connect keep masks of one train-mode

@@ -49,7 +49,11 @@ X3D_M = "configs/Kinetics/X3D_M.yaml"
 # held to 1e-4. SlowFast 8x8 R50's float32 gradients jump the same way: the
 # card's lie 2.4e-2 to 2.6e-2 from the CPU's, and the CPU's 1.8e-2 from
 # float64 ones (at 8 frames of 64^2); so they take X3D's limit.
-RELU_LIMITS = {"X3D": 0.1, "SlowFast": 0.1}
+# Slow R50 (the contrastive yamls' backbone, configs/contrastive_ssl/) has
+# SlowFast's slow pathway's ReLUs, and takes its limit and its float64 check:
+# the MoCo yaml's float32 step at batch 2, card against CPU, reads 1.33e-2,
+# and 1.69e-4 with the CPU's ReLU decisions held (PERF.md section 6).
+RELU_LIMITS = {"X3D": 0.1, "SlowFast": 0.1, "Slow": 0.1}
 # Models whose float32 step cannot meet the 1e-4 gates even with the ReLU
 # decisions held: SlowFast's float32 gradients lie 9.9e-5 from float64 ones
 # on the CPU with float64's decisions held (8 frames of 64^2), the card's
@@ -57,7 +61,16 @@ RELU_LIMITS = {"X3D": 0.1, "SlowFast": 0.1}
 # float32 BatchNorm statistics of the last stage (batch means of 1e-3)
 # 2.7e-6 over the statistics' gate on the CPU against float64. Their held
 # check is the step (and precise BN) in float64 on card and CPU, at 1e-4.
-FLOAT64_HELD = {"SlowFast"}
+FLOAT64_HELD = {"SlowFast", "Slow"}
+
+
+def witness_key(cfg):
+    """The key of ``cfg``'s net in ``RELU_LIMITS`` and ``FLOAT64_HELD``: its
+    MODEL_NAME, or for a ResNet and a contrastive model its backbone's
+    (X3D for arch x3d, Slow for arch slow)."""
+    if cfg.MODEL.MODEL_NAME in ("ResNet", "ContrastiveModel"):
+        return {"x3d": "X3D", "slow": "Slow"}.get(cfg.MODEL.ARCH, cfg.MODEL.MODEL_NAME)
+    return cfg.MODEL.MODEL_NAME
 
 
 @dataclasses.dataclass

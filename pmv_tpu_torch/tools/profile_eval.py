@@ -6,7 +6,10 @@ configs/Kinetics/X3D_M.yaml``, its eval at the 256^2 test crop; SlowFast
 8x8 R50's: ``--cfg configs/Kinetics/SLOWFAST_8x8_R50.yaml``, 32 frames a
 clip, of which the slow pathway takes 8); MaskFeat pre-training's train step
 with ``--train --cfg configs/masked_ssl/k400_MVITv2_S_16x4_MaskFeat_PT.yaml``
-(the masked step of ``engine/ssl_steps.py``, the model drawing its masks).
+(the masked step of ``engine/ssl_steps.py``, the model drawing its masks);
+a contrastive yaml's with ``--train --cfg
+configs/contrastive_ssl/MoCo_SlowR50_8x8.yaml`` (the contrastive step of
+``engine/ssl_steps.py``; ``--batch`` videos of two views each).
 
     python -m pmv_tpu_torch.tools.profile_eval [--train] [--batch 8] [--steps 10] [--top 20] \\
         [--cfg <yaml> [--opts KEY VALUE ...]]
@@ -130,6 +133,15 @@ def main(argv=None):
         state = ssl_steps.init_masked_state(cfg, model)
         train_step = ssl_steps.make_masked_train_step(cfg, device="cuda")
         batch = {"frames": frames}
+
+        def step():
+            train_step(state, batch, 1e-4)
+    elif args.train and cfg.MODEL.MODEL_NAME == "ContrastiveModel":
+        state = ssl_steps.init_ssl_state(cfg, model)
+        train_step = ssl_steps.make_ssl_train_step(cfg, device="cuda")
+        frames = torch.stack([frames, torch.randint(0, 256, frames.shape, dtype=torch.uint8,
+                                                    device="cuda", generator=gen)], 1)
+        batch = {"frames": frames, "index": torch.arange(args.batch, device="cuda")}
 
         def step():
             train_step(state, batch, 1e-4)

@@ -14,9 +14,10 @@ one per card, each taking TRAIN.BATCH_SIZE / NUM_GPUS clips a step; so a
 recipe's yaml with NUM_GPUS 8 needs eight cards, or NUM_GPUS 1 for one.
 TRAIN.ENABLE trains; TEST.ENABLE tests, sweeping NUM_ENSEMBLE_VIEWS over
 [1, 3, 5, 7, 10] when it is -1, or over TEST.NUM_TEMPORAL_CLIPS when that is
-set. MaskMViT (MaskFeat pre-training) trains through
-``engine/ssl_train.py::train_ssl``, in one process. The contrastive model,
-SSL over more than one process, the model and wrong-prediction
+set. The SSL models, MaskMViT (MaskFeat pre-training) and ContrastiveModel
+(MoCo, SimCLR, BYOL, SwAV, memory bank, with the kNN monitor), train
+through ``engine/ssl_train.py::train_ssl``, over several processes under
+TPU.SHARD_STRATEGY "dp". SSL under "fsdp", the model and wrong-prediction
 visualization and the demo are not ported and raise NotImplementedError.
 """
 

@@ -183,8 +183,8 @@ def load_model_state(model, state_dict, clear_name_pattern=()):
         logger.warning("Missing from the checkpoint: %s", missing[:10])
     if unused:
         logger.info("Unused checkpoint weights: %s", unused[:10])
-    logger.info("Loaded %d of the model's %d tensors from the checkpoint",
-                len(merged) - len(missing), len(merged))
+    logger.info("Loaded %d of the model's %d tensors from the checkpoint; %d kept their init",
+                len(merged) - len(missing), len(merged), len(missing))
     model.load_state_dict(merged, strict=True)
     return missing
 

@@ -10,6 +10,11 @@ name mapping is copied here. MaskMViT's tree maps by the same rules:
 ``backbone/...`` to ``backbone.`` and the MViT names, ``mask_token``,
 ``pred_head.{norm,projection}``, ``decoder_embed``,
 ``decoder_pos_embed{,_spatial,_temporal}`` and ``decoder_blocks.{i}.*``.
+A ContrastiveEncoder's tree maps to ``backbone.`` and ``projection.fc{i}``;
+the rest of the JAX package's ``SSLTrainState`` comes in beside "params"
+and "batch_stats", under the state's field names: "momentum_params" (to
+``momentum.``), "predictor_params" (to ``predictor.``), "prototypes",
+"queue", "queue_ptr" and "bank" (``models/contrastive.py``).
 
 Layouts (flax, channels-last -> torch):
 - Dense kernel [in, out]                 -> Linear weight [out, in]
@@ -92,24 +97,39 @@ def _leaves(tree, prefix=()):
             yield path, value
 
 
+# The fields of the JAX package's SSLTrainState that hold module trees, and
+# the port's prefix of each; and those that hold one array, kept by name.
+_SSL_TREES = {"momentum_params": "momentum.", "predictor_params": "predictor."}
+_SSL_ARRAYS = ("prototypes", "queue", "queue_ptr", "bank")
+
+
 def state_dict_from_jax(variables):
     """flax variables -> state_dict: a param tree (nested dicts of arrays),
     or {"params": ..., "batch_stats": ...}, whose BatchNorm statistics
     become ``running_mean`` / ``running_var``; each BatchNorm also gets a
-    ``num_batches_tracked`` of 0, which the JAX package does not keep."""
+    ``num_batches_tracked`` of 0, which the JAX package does not keep. The
+    latter may also hold the SSL state's fields (module docstring); a field
+    that is None is left out."""
     if "params" in variables:
-        trees = (variables["params"], variables.get("batch_stats", {}))
+        trees = [("", variables["params"]), ("", variables.get("batch_stats") or {})]
+        trees += [(prefix, variables[key]) for key, prefix in _SSL_TREES.items()
+                  if variables.get(key) is not None]
     else:
-        trees = (variables,)
+        trees = [("", variables)]
     state = {}
-    for tree in trees:
+    for prefix, tree in trees:
         for path, value in _leaves(tree):
             arr = _to_torch_layout(np.asarray(value, dtype=np.float32), path[-1])
-            state[flax_path_to_torch(path)] = torch.from_numpy(
+            state[prefix + flax_path_to_torch(path)] = torch.from_numpy(
                 np.array(arr, order="C")  # a writable copy
             )
     for name in [n for n in state if n.rsplit(".", 1)[-1] == "running_mean"]:
         state[name.removesuffix("running_mean") + "num_batches_tracked"] = torch.tensor(0)
+    if "params" in variables:
+        for key in _SSL_ARRAYS:
+            if variables.get(key) is not None:
+                dtype = np.int64 if key == "queue_ptr" else np.float32
+                state[key] = torch.from_numpy(np.array(variables[key], dtype=dtype))
     return state
 
 

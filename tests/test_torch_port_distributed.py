@@ -31,7 +31,18 @@ the references:
 - (f) ``python -m pmv_tpu_torch.tools.run_net --cfg configs/tiny_synthetic.yaml
   --device cpu`` with NUM_GPUS 2: train, checkpoint, eval and test give the
   one-process run's ``test_final``, the checkpoint is written once, and a
-  second call resumes from it.
+  second call resumes from it;
+- (g) the SSL steps under ``dp`` (a spawn of their own, ``rank_ssl_cases``):
+  the MoCo, SimCLR and SwAV steps of the tiny Slow contrastive model
+  (tests/test_torch_port_contrastive_train.py), 2 ranks x 2 rows, against
+  the JAX package's step on the global batch of 4 with the same colour
+  draws, JAX's ReLUs taking the one-process port step's decisions: loss,
+  grad norm, gradients and every tensor of the state after the step (the
+  queue filled with both ranks' keys, the bank with both ranks' rows) as
+  the one-process tests hold them; and the MaskFeat step with loader masks
+  of unequal counts on the two ranks (57 + 56 against 7 + 6 masked
+  tokens of 128 a clip), against JAX's on the global batch with its HOG bins held: the
+  loss divides by the global count.
 """
 
 import contextlib
@@ -49,12 +60,17 @@ import numpy as np
 import pytest
 import torch
 
+import test_torch_port_contrastive_train as ssl_train
+import test_torch_port_maskfeat_train as mf_train
 import test_torch_port_pm as mvit_pm
 import test_torch_port_slowfast_train as sf_train
 import test_torch_port_uniformer_train as uni_train
 import test_torch_port_x3d_train as x3d_train
 from pmv_tpu.engine import precise_bn as jprecise_bn
+from pmv_tpu.engine import ssl_steps as jssl
 from pmv_tpu.engine import steps as jsteps
+from pmv_tpu.engine.train_state import TrainState
+from pmv_tpu.models import optimizer as joptim
 from pmv_tpu.parallel import mesh as mesh_lib
 from pmv_tpu_torch.engine import train as ptrain
 from pmv_tpu_torch.engine.steps import init_state, make_eval_step, make_train_step
@@ -79,7 +95,10 @@ from torch_port_util import (
     join_ranks,
     numpy_tree,
     port_cfg,
+    jax_hog_bins,
+    jax_ssl_step_draws,
     rank_cases,
+    rank_ssl_cases,
     start_ranks,
 )
 
@@ -485,3 +504,116 @@ def test_train_refuses_a_world_it_is_not_launched_in(tmp_path):
     cfg.OUTPUT_DIR = str(tmp_path)
     with pytest.raises(RuntimeError, match="launch_job"):
         ptrain.train(cfg, device="cpu")
+
+
+# ------------------------------------------------------------ (g) SSL under dp
+
+SSL_TYPES = ("moco", "simclr", "swav")
+MASK_P = np.array([0.45, 0.4, 0.05, 0.08])  # rows 0-1 on rank 0, 2-3 on rank 1
+
+
+def _contrastive_case(ssl_type):
+    """(the case handed to the ranks, the JAX reference of the global
+    step): the port's one-process step on the global batch records its
+    ReLU decisions, which JAX's ReLUs take."""
+    cfg = ssl_train.step_cfg(ssl_type)
+    jmodel, jstate, tx = ssl_train.jax_ssl_state(cfg)
+    frames = ssl_train._frames(0)
+    rng = jax.random.PRNGKey(3)
+    draws = jax_ssl_step_draws(cfg, rng, 0, frames.shape)
+    pcfg = port_cfg(cfg)
+    state_dict = ssl_train.port_state_dict(jstate, ssl_type)
+    case = {"cfg": pcfg, "state_dict": state_dict, "batch": {
+        "frames": frames, "index": ssl_train.INDEX}, "draws": draws, "lr": ssl_train.LR}
+    model = build_model(pcfg, device="cpu", dtype=torch.float32)
+    model.load_state_dict(state_dict)
+    from pmv_tpu_torch.engine import ssl_steps
+
+    with relu_decisions() as decisions:
+        ssl_steps.make_ssl_train_step(pcfg, device="cpu")(
+            ssl_steps.init_ssl_state(pcfg, model), case["batch"], ssl_train.LR, draws)
+    masks = [m.numpy() for m in ssl_train.jax_order(decisions, ssl_type).masks]
+    jframes = np.repeat(frames[:, None], ssl_train.VIEWS, axis=1)  # views 0, 1: the clip
+
+    def reference():
+        jnew, jm = ssl_train.jax_step(ssl_type, cfg, jmodel, tx)(
+            jstate, {"frames": jnp.asarray(jframes), "index": jnp.asarray(ssl_train.INDEX)},
+            rng, ssl_train.LR, masks)
+        trace = ssl_train._trace(jnew.opt_state)
+        grads = state_dict_from_jax(numpy_tree({
+            "params": trace["online"], "prototypes": trace.get("prototypes")}))
+        return {"metrics": jm, "grads": grads,
+                "state": ssl_train.port_state_dict(jnew, ssl_type)}
+
+    return case, reference
+
+
+def _maskfeat_case():
+    """The masked step with the loader's masks: the ranks' counts differ."""
+    cfg = mf_train._step_cfg()
+    batch = mf_train._batch(4, 32, 0)
+    batch["mask"] = np.random.default_rng(1).uniform(size=(4, 128)) < MASK_P[:, None]
+    jmodel, params = mf_train._jax_model_and_params(cfg)
+    tx = joptim.construct_optimizer(params, cfg)
+    jstate = TrainState(step=jnp.zeros((), jnp.int32), params=params, batch_stats={},
+                        opt_state=tx.init(params))
+    jstep = jssl.make_masked_train_step(cfg, jmodel, tx)
+    preprocess = jsteps.make_preprocess_fn(cfg, train=True)
+    rng = jax.random.PRNGKey(3)
+
+    def step_and_input(state, batch):
+        k_pre = jax.random.split(jax.random.fold_in(rng, 0), 3)[0]
+        return jstep(state, batch, rng, mf_train.LR), preprocess(k_pre, batch["frames"])
+
+    (jnew, jm), x = jax.jit(step_and_input)(jstate, {k: jnp.asarray(v) for k, v in batch.items()})
+    b1 = cfg.SOLVER.BETAS[0]
+    clip = min(1.0, cfg.SOLVER.CLIP_GRAD_L2NORM / float(jm["grad_norm"]))
+    grads = state_dict_from_jax(jax.tree_util.tree_map(
+        lambda mu: np.asarray(mu, np.float64) / ((1 - b1) * clip),
+        mf_train._adam_first_moment(jnew)))
+    case = {"cfg": port_cfg(cfg), "state_dict": state_dict_from_jax(numpy_tree(params)),
+            "batch": batch, "draws": {"hog_bins": torch.tensor(jax_hog_bins(x))},
+            "lr": mf_train.LR}
+    ref = {"metrics": jm, "grads": grads, "state": state_dict_from_jax(numpy_tree(jnew.params))}
+    return case, lambda: ref
+
+
+@pytest.fixture(scope="module")
+def ssl_two_ranks(tmp_path_factory):
+    """The SSL cases on 2 ranks (``rank_ssl_cases``), and the JAX package's
+    global steps, computed here while the ranks run (the contrastive ones
+    patch flax's ReLU while they trace: one at a time)."""
+    case_dir = tmp_path_factory.mktemp("ssl_two_ranks")
+    cases, references = {}, {}
+    for name in SSL_TYPES:
+        cases[name], references[name] = _contrastive_case(name)
+    cases["maskfeat"], references["maskfeat"] = _maskfeat_case()
+    torch.save(cases, case_dir / "ssl_cases.pt")
+    procs = start_ranks(rank_ssl_cases, str(case_dir))
+    try:
+        refs = {name: reference() for name, reference in references.items()}
+    finally:
+        join_ranks(procs)
+    return torch.load(case_dir / "ssl_results.pt", weights_only=False), refs, cases
+
+
+@pytest.mark.parametrize("name", SSL_TYPES + ("maskfeat",))
+def test_ssl_dp_step_matches_jax_on_the_global_batch(ssl_two_ranks, name):
+    results, refs, cases = ssl_two_ranks
+    got, ref = results[name], refs[name]
+    assert not got["metrics"]["nan"]
+    for key in ("loss", "grad_norm"):
+        np.testing.assert_allclose(got["metrics"][key], float(ref["metrics"][key]),
+                                   atol=2e-4, rtol=1e-4, err_msg=key)
+    assert set(got["grads"]) == set(ref["grads"])
+    assert _relative_l2(got["grads"], {k: v.float() for k, v in ref["grads"].items()}) < 1e-4
+    before = cases[name]["state_dict"]
+    if name == "maskfeat":
+        counts = cases[name]["batch"]["mask"].sum(axis=1)
+        assert counts[:2].sum() > 2 * counts[2:].sum()  # the ranks' counts differ
+    for key, value in ref["state"].items():
+        if key.endswith("num_batches_tracked"):
+            continue
+        np.testing.assert_allclose(got["state"][key].numpy(), value.numpy(), atol=2e-4,
+                                   rtol=1e-4, err_msg=key)
+        assert torch.equal(got["state"][key], before[key]) == torch.equal(value, before[key]), key

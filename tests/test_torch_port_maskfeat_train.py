@@ -18,9 +18,9 @@ float32.
   train_ssl trains, checkpoints and resumes; then the fine-tuning yaml
   from that checkpoint loads every backbone tensor that matches by name and
   shape (the rest keep their init, no optimizer state comes over) and
-  trains and tests; VIS_MASK writes its comparison stacks; the contrastive
-  model, SSL over two processes and a run without ``--device cpu`` on a
-  machine without CUDA raise.
+  trains and tests; VIS_MASK writes its comparison stacks; a contrastive
+  model on MaskMViT's arch, SSL under fsdp and a run without ``--device
+  cpu`` on a machine without CUDA raise.
 """
 
 import json
@@ -336,9 +336,12 @@ def test_vis_mask_writes_its_comparison_stacks(tmp_path):
 
 
 SSL_REFUSALS = {  # case -> (config, opts)
+    # A contrastive model on MaskMViT's arch: no such SSL backbone (nor in JAX).
     "contrastive": (TINY_PT, ("MODEL.MODEL_NAME", "ContrastiveModel")),
-    "contrastive_yaml": (str(ROOT / "configs" / "contrastive_ssl" / "MoCo_SlowR50_8x8.yaml"), ()),
-    "two_processes": (TINY_PT, ("NUM_GPUS", "2")),
+    # SSL over several processes trains under dp; fsdp is not ported.
+    "contrastive_yaml": (str(ROOT / "configs" / "contrastive_ssl" / "MoCo_SlowR50_8x8.yaml"),
+                         ("TPU.SHARD_STRATEGY", "fsdp")),
+    "two_processes": (TINY_PT, ("NUM_GPUS", "2", "TPU.SHARD_STRATEGY", "fsdp")),
 }
 
 

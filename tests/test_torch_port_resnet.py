@@ -68,6 +68,7 @@ from pmv_tpu_torch.utils.weights import flax_path_to_torch, load_jax_params, sta
 from pmv_tpu_torch.tools.grad_witness import relu_decisions
 from torch_port_util import (  # noqa: F401
     depthwise_calls,
+    draw_variables,
     jax_dropout_masks,
     jax_relu_decisions,
     port_cfg,
@@ -86,25 +87,6 @@ def tiny_cfg(*opts):
     cfg.merge_from_file(TINY_SLOWFAST)
     cfg.merge_from_list(list(opts))
     return cfg
-
-
-def draw_variables(shapes, seed):
-    """numpy draws on a tree of ``jax.eval_shape`` shapes (module
-    docstring)."""
-    rng = np.random.default_rng(seed)
-
-    def draw(path, leaf):
-        name, shape = str(path[-1].key), tuple(leaf.shape)
-        if name == "kernel":
-            fan_in = int(np.prod(shape[:-1]))
-            return (rng.normal(size=shape) / np.sqrt(fan_in)).astype(np.float32)
-        if name == "scale":
-            return (1.0 + 0.1 * rng.normal(size=shape)).astype(np.float32)
-        if name == "var":
-            return rng.uniform(0.5, 1.5, size=shape).astype(np.float32)
-        return (0.1 * rng.normal(size=shape)).astype(np.float32)  # bias, mean
-
-    return jax.tree_util.tree_map_with_path(draw, shapes)
 
 
 def jax_variables(module, x, seed, **kwargs):

@@ -126,7 +126,9 @@ UNPORTED = {
     # The writer is ported; its model visualization is not.
     "tensorboard": ("TENSORBOARD.ENABLE", True, "TENSORBOARD.MODEL_VIS.ENABLE", True),
     "detection": ("DETECTION.ENABLE", True),
-    "ssl": ("MODEL.MODEL_NAME", "ContrastiveModel"),
+    # SSL trains over several processes under dp only.
+    "ssl": ("MODEL.MODEL_NAME", "ContrastiveModel", "NUM_GPUS", "2", "TPU.SHARD_STRATEGY",
+            "fsdp"),
     "profiler": ("TPU.PROFILE_DIR", "/tmp/trace"),
 }
 

@@ -215,6 +215,18 @@ def jax_dropout_masks(jmodel, variables, x, key, **kwargs):
     return [np.asarray(m) for m in jax.jit(masks_of)(variables, key)]
 
 
+def folded_like(mask, shape):
+    """A ReLU's decisions [B, T, H, W, C] in the layout of a JAX activation
+    of ``shape``: as they are, or folded as TPU.FOLD_STEM folds the stem
+    ([B, T, H / f, W / f, f * f * C]). Arrays, or tracers."""
+    if tuple(mask.shape) == tuple(shape):
+        return mask
+    b, t, h, w, c = mask.shape
+    f = int(round((shape[-1] / c) ** 0.5))
+    return mask.reshape(b, t, h // f, f, w // f, f, c).transpose(
+        0, 1, 2, 4, 3, 5, 6).reshape(shape)
+
+
 @contextlib.contextmanager
 def jax_relu_decisions(decisions):
     """Within the block (which must trace the JAX model: a jit traced
@@ -231,13 +243,7 @@ def jax_relu_decisions(decisions):
     relu, masks = fnn.relu, iter(decisions.masks)
 
     def held(v):
-        mask = next(masks).cpu().numpy()
-        if mask.shape != v.shape:
-            b, t, h, w, c = mask.shape
-            f = int(round((v.shape[-1] / c) ** 0.5))
-            mask = mask.reshape(b, t, h // f, f, w // f, f, c).transpose(
-                0, 1, 2, 4, 3, 5, 6).reshape(v.shape)
-        return v * mask.astype(v.dtype)
+        return v * folded_like(next(masks).cpu().numpy(), v.shape).astype(v.dtype)
 
     fnn.relu = held
     try:
@@ -247,27 +253,92 @@ def jax_relu_decisions(decisions):
     assert next(masks, None) is None, "the JAX model made fewer ReLU calls than the port"
 
 
+def jax_color_jitter_draws(key, b, brightness=0.4, contrast=0.4, saturation=0.4, hue=0.1):
+    """`color_jitter` (`color_jitter.py:88-128`): five keys, the factors,
+    the hue delta and the batch's order."""
+    import jax
+    from pmv_tpu_torch.data.color_jitter import ColorJitterDraws
+
+    k_b, k_c, k_s, k_h, k_o = jax.random.split(key, 5)
+
+    def uniform(k, lo, hi, shape=(b, 1, 1, 1, 1)):
+        return torch.from_numpy(np.array(
+            jax.random.uniform(k, shape, minval=lo, maxval=hi)).reshape(b))
+
+    return ColorJitterDraws(
+        uniform(k_b, max(0.0, 1 - brightness), 1 + brightness),
+        uniform(k_c, max(0.0, 1 - contrast), 1 + contrast),
+        uniform(k_s, max(0.0, 1 - saturation), 1 + saturation),
+        uniform(k_h, -hue, hue, (b, 1, 1, 1)),
+        int(jax.random.randint(k_o, (), 0, 24)),
+    )
+
+
+def jax_ssl_color_draws(key, b, bri_con_sat=(0.4, 0.4, 0.4), hue=0.1, p_convert_gray=0.0,
+                        moco_v2_aug=False, blur_sigma=(0.1, 2.0)):
+    """`ssl_color_jitter` (`color_jitter.py:197-229`): five keys; the jitter
+    from the first, the grayscale coin from the third, the moco-v2 coins
+    from the second and the fifth, the blur's sigma from the fourth."""
+    import jax
+    from pmv_tpu_torch.data.color_jitter import SSLColorDraws
+
+    k1, k2, k3, k4, k5 = jax.random.split(key, 5)
+
+    def coin(k, p):
+        return torch.from_numpy(np.array(jax.random.uniform(k, (b, 1, 1, 1, 1)) < p).reshape(b))
+
+    draws = SSLColorDraws(jax_color_jitter_draws(k1, b, *bri_con_sat, hue),
+                          coin(k3, p_convert_gray))
+    if moco_v2_aug:
+        draws.apply_jitter, draws.apply_blur = coin(k2, 0.8), coin(k5, 0.5)
+        draws.sigma = torch.from_numpy(np.array(
+            jax.random.uniform(k4, (b,), minval=blur_sigma[0], maxval=blur_sigma[1])))
+    return draws
+
+
+def jax_preprocess_draws(cfg, key, shape):
+    """The draws of the JAX package's train preprocessing (`steps.py:75-115`)
+    from its key, for a batch of ``shape``: the time difference's coin, the
+    SSL colour jitter's, RandAugment's and erasing's, each from the next
+    split of the key."""
+    import jax
+    from pmv_tpu_torch.data.rand_augment import num_groups
+
+    draws = {}
+    b = shape[0]
+    if cfg.DATA.TIME_DIFF_PROB > 0:
+        k_td, key = jax.random.split(key)
+        draws["time_diff"] = torch.from_numpy(np.array(
+            jax.random.uniform(k_td, (b, 1, 1, 1, 1)) < cfg.DATA.TIME_DIFF_PROB).reshape(b))
+    if cfg.DATA.SSL_COLOR_JITTER:
+        k_cj, key = jax.random.split(key)
+        draws["ssl_color"] = jax_ssl_color_draws(
+            k_cj, b, tuple(cfg.DATA.SSL_COLOR_BRI_CON_SAT), cfg.DATA.SSL_COLOR_HUE,
+            cfg.DATA.COLOR_RND_GRAYSCALE, cfg.DATA.SSL_MOCOV2_AUG,
+            (cfg.DATA.SSL_BLUR_SIGMA_MIN[1], cfg.DATA.SSL_BLUR_SIGMA_MAX[1]))
+    if cfg.AUG.ENABLE and cfg.AUG.AA_TYPE:
+        k_ra, key = jax.random.split(key)
+        groups = num_groups(b, cfg.AUG.RA_GROUPS)
+        draws["rand_augment"] = jax_rand_augment_draws(cfg.AUG.AA_TYPE, k_ra, groups)
+    if cfg.AUG.ENABLE and cfg.AUG.RE_PROB > 0:
+        k_re, key = jax.random.split(key)
+        draws["erasing"] = jax_erasing_draws(key=k_re, shape=shape,
+                                             probability=cfg.AUG.RE_PROB, mode=cfg.AUG.RE_MODE)
+    return draws
+
+
 def jax_train_draws(cfg, rng, step, shape):
     """The draws of the JAX train step (`steps.py:197-199`) at ``step``
-    for a batch of ``shape``: RandAugment and erasing from the preprocess
-    key, MixUp from the mixup key. DropPath's and the head dropout's keys
+    for a batch of ``shape``: the preprocessing's from the preprocess key,
+    MixUp from the mixup key. DropPath's and the head dropout's keys
     come from flax's module RNG streams and are not repeated here: tests
     run DropPath at rate 0, and read the head's masks off the model with
     ``jax_dropout_masks`` under ``jax_dropout_key``."""
     import jax
     from pmv_tpu.data.mixup import MixUp
-    from pmv_tpu_torch.data.rand_augment import num_groups
 
     k_pre, k_mix, _ = jax.random.split(jax.random.fold_in(rng, step), 3)
-    draws = {}
-    key = k_pre
-    if cfg.AUG.ENABLE and cfg.AUG.AA_TYPE:
-        k_ra, key = jax.random.split(key)
-        groups = num_groups(shape[0], cfg.AUG.RA_GROUPS)
-        draws["rand_augment"] = jax_rand_augment_draws(cfg.AUG.AA_TYPE, k_ra, groups)
-    if cfg.AUG.ENABLE and cfg.AUG.RE_PROB > 0:
-        k_re, key = jax.random.split(key)
-        draws["erasing"] = jax_erasing_draws(k_re, shape, cfg.AUG.RE_PROB, cfg.AUG.RE_MODE)
+    draws = jax_preprocess_draws(cfg, k_pre, shape)
     if cfg.MIXUP.ENABLE:
         mixup = MixUp(
             mixup_alpha=cfg.MIXUP.ALPHA, cutmix_alpha=cfg.MIXUP.CUTMIX_ALPHA,
@@ -277,6 +348,39 @@ def jax_train_draws(cfg, rng, step, shape):
         )
         draws["mixup"] = jax_mixup_draws(mixup, k_mix, shape[2], shape[3])
     return draws
+
+
+def jax_ssl_step_draws(cfg, rng, step, shape):
+    """The draws of the JAX contrastive step (`ssl_steps.py:176-187`) at
+    ``step`` for one view of ``shape``: each view's preprocessing from its
+    key."""
+    import jax
+
+    k1, k2 = jax.random.split(jax.random.fold_in(rng, step))
+    return {"view1": jax_preprocess_draws(cfg, k1, shape),
+            "view2": jax_preprocess_draws(cfg, k2, shape)}
+
+
+def draw_variables(shapes, seed):
+    """numpy draws on a tree of ``jax.eval_shape`` shapes: kernels of
+    variance 1 / fan_in, norm scales near 1, variances in [0.5, 1.5], the
+    rest (biases, means) small."""
+    import jax
+
+    rng = np.random.default_rng(seed)
+
+    def draw(path, leaf):
+        name, shape = str(path[-1].key), tuple(leaf.shape)
+        if name == "kernel":
+            fan_in = int(np.prod(shape[:-1]))
+            return (rng.normal(size=shape) / np.sqrt(fan_in)).astype(np.float32)
+        if name == "scale":
+            return (1.0 + 0.1 * rng.normal(size=shape)).astype(np.float32)
+        if name == "var":
+            return rng.uniform(0.5, 1.5, size=shape).astype(np.float32)
+        return (0.1 * rng.normal(size=shape)).astype(np.float32)  # bias, mean
+
+    return jax.tree_util.tree_map_with_path(draw, shapes)
 
 
 def jax_dropout_key(rng, step):
@@ -405,7 +509,7 @@ def join_ranks(procs, timeout=JOIN_TIMEOUT_S):
 
 def local_rows(batch, rank, world):
     """Rank ``rank``'s rows of a global batch (a dict of arrays)."""
-    b = len(batch["labels"]) // world
+    b = len(batch["frames"]) // world
     return {k: v[rank * b:(rank + 1) * b] for k, v in batch.items()}
 
 
@@ -525,6 +629,36 @@ def rank_cases(rank, world, case_dir):
                  "state": {k: v.clone() for k, v in bn.state_dict().items()}}
     if rank == 0:
         torch.save(out, case_dir / "results.pt")
+
+
+def rank_ssl_cases(rank, world, case_dir):
+    """Each SSL step of ``case_dir/ssl_cases.pt`` (cfg, state_dict, global
+    batch, its draws, lr; "masked" or a contrastive step) under ``dp`` on
+    this rank's rows; rank 0 writes the metrics, the whole gradients and
+    the state after each to ``case_dir/ssl_results.pt``."""
+    from pathlib import Path
+
+    from pmv_tpu_torch.engine import ssl_steps
+    from pmv_tpu_torch.models import build_model
+    from pmv_tpu_torch.parallel import distributed
+
+    case_dir = Path(case_dir)
+    out = {}
+    for name, case in torch.load(case_dir / "ssl_cases.pt", weights_only=False).items():
+        cfg = case["cfg"]
+        model = build_model(cfg, device="cpu", dtype=torch.float32)
+        model.load_state_dict(case["state_dict"])
+        wrapped = distributed.wrap_model(model, "dp", torch.device("cpu"))
+        state = ssl_steps.init_ssl_state(cfg, model, wrapped=wrapped)
+        make = ssl_steps.make_masked_train_step if name == "maskfeat" else \
+            ssl_steps.make_ssl_train_step
+        metrics = make(cfg, device="cpu")(state, local_rows(case["batch"], rank, world),
+                                          case["lr"], case["draws"])
+        out[name] = {"metrics": {k: float(v) for k, v in metrics.items()},
+                     "grads": {k: p.grad.clone() for k, p in model.named_parameters()},
+                     "state": whole_state(model)}
+    if rank == 0:
+        torch.save(out, case_dir / "ssl_results.pt")
 
 
 class ClipDataset:
