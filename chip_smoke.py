@@ -121,8 +121,8 @@ K1: each of its phases asserts 0 K1 and 0 wgrad launches):
    own floor lies above the 1e-4 gates even with them held
    (``grad_witness.FLOAT64_HELD``): the float32 gradients are held to
    ``RELU_LIMITS``, the held readings and precise BN's float32 statistics
-   printed, and each train step and precise BN run again in float64 on
-   card and CPU under every 1e-4 gate.
+   printed, and each train step (at 16 of the 32 frames) and precise BN
+   run again in float64 on card and CPU under every 1e-4 gate.
 4s. Serve 4 videos x 2 temporal views x the recipe's 3 spatial crops of
    256^2 in bfloat16 at batch 8 (a main path; the views cut from 10 to 2).
 5s. Train 5 timed batch-8 bfloat16 steps at 224^2 through ``train_epoch``
@@ -132,6 +132,36 @@ K1: each of its phases asserts 0 K1 and 0 wgrad launches):
    dataset, batch 8, one epoch: train, precise BN, checkpoint, eval, test 2
    views of 256^2; the restore, every tensor compared; the resume with
    SOLVER.MAX_EPOCH 2 (main paths).
+Multigrid training of SlowFast 8x8 R50
+(configs/Kinetics/SLOWFAST_8x8_R50_stepwise_multigrid.yaml: long and short
+cycles, SubBatchNorm, the BatchNorm swap across cycles; 0 K1 launches):
+3g. (Run with phase 3.) SubBatchNorms of 2 splits, one float32 SGD step at
+   batch 4, card against CPU under phase 3s's gates (and again in float64
+   at 16 frames),
+   the split running statistics to rtol 1e-4; then the norms swapped to
+   plain BatchNorm and back on both sides: the card's converted statistics
+   equal to the same conversion, on the CPU, of the card's own.
+4g. The bf16 train step at each of the four long-cycle shapes of the full
+   recipe at TRAIN.BATCH_SIZE 8 (64 x 8 x 158^2 sub 8, 32 x 16 x 158^2 sub
+   4, 16 x 16 x 224^2 sub 2, 8 x 32 x 224^2 plain), each at its short
+   cycle's three batches (up to 128 clips): ms a step, clips/s, peak
+   memory (a main path).
+6g. ``run_net`` on the recipe cut to 64 Synthetic videos (TRAIN.BATCH_SIZE
+   2, BN_BASE_SIZE 2, STEPS [0, 3], MAX_EPOCH 4 before the schedule
+   rewrites them: 6 epochs through sub_batchnorm of 8, 4 and 2 splits, then
+   batchnorm), bf16: each epoch's shape and BatchNorm type as the schedule
+   gives them, precise BN after each, the evaluations of ``is_eval_epoch``,
+   a 2-view test; the restore of the checkpoint of epoch 3 (4 splits),
+   every tensor compared; that checkpoint alone in a fresh OUTPUT_DIR, from
+   which ``run_net`` resumes at epoch 4 (2 splits) and finishes (main
+   paths; logs in ``build/chip_smoke_run_net_multigrid{,_resumed}/``).
+6p. 6g's first call runs with TPU.PROFILE_DIR: its one trace
+   (``build/chip_smoke_profile/``), its bytes, the steps it covers and its
+   CUDA kernel events.
+6b. ``python -m pmv_tpu_torch.tools.benchmark`` (a process of its own) on
+   SlowFast 8x8 R50's yaml, Synthetic, batch 8, one epoch: the loader's
+   clips/s and the process's peak RAM (numpy's draws, the loader's threads
+   and collate; no decoding).
 MaskFeat pre-training of MViTv2-S 16x4
 (configs/masked_ssl/k400_MVITv2_S_16x4_MaskFeat_PT.yaml at full width:
 16 blocks, 16 frames of 224^2, HOG targets; 36,190,974 parameters, the JAX
@@ -237,6 +267,7 @@ and prints no result.
 
 import argparse
 import contextlib
+import copy
 import functools
 import json
 import os
@@ -265,6 +296,11 @@ WGRAD_TOLERANCE = {
     torch.bfloat16: (1e-2, 8e-3),
 }
 TRAIN_LR = 1e-4  # bench.py's learning rate
+# Launches timed (median) in phase 2 of the kernel warm, of the plain
+# version and of the library call; the kernel cold (L2 flushed), the time
+# reported, takes time_ms's 25. Fewer launches of the others keep the
+# script's wall time under 600 s.
+COMPARE_ITERS = 10
 # DATA.TRAIN_CROP_SIZE_RECT of exps/PMV/run_MViT_PMV.sh and of
 # exps/PMV/run_Uniformer_PMV.sh's rect_256_192 run.
 PMV_RECT = (256, 192)
@@ -437,10 +473,11 @@ def phase_kernels(flush):
                 "launches_per_forward": per_forward,
                 "max_abs_err": err,
                 "kernel_ms": time_ms(lambda: depthwise3x3x3(x, w), flush=flush),
-                "kernel_warm_ms": time_ms(lambda: depthwise3x3x3(x, w)),
-                "plain_ms": time_ms(lambda: depthwise3x3x3_plain(x, w), flush=flush),
+                "kernel_warm_ms": time_ms(lambda: depthwise3x3x3(x, w), COMPARE_ITERS),
+                "plain_ms": time_ms(lambda: depthwise3x3x3_plain(x, w), COMPARE_ITERS,
+                                    flush=flush),
                 "library_ms": time_ms(
-                    lambda: F.conv3d(x_ncdhw, w_conv, padding=1, groups=c),
+                    lambda: F.conv3d(x_ncdhw, w_conv, padding=1, groups=c), COMPARE_ITERS,
                     flush=flush,
                 ),
                 "bound_ms": bound_ms,
@@ -497,13 +534,14 @@ def phase_backward(flush):
                 "max_abs_err": float((wg.grad.float() - dw_ref).abs().max()),
                 "dw_max_abs": float(dw_ref.abs().max()),
                 "kernel_ms": time_ms(lambda: depthwise3x3x3_wgrad(x, g), flush=flush),
-                "kernel_warm_ms": time_ms(lambda: depthwise3x3x3_wgrad(x, g)),
-                "plain_ms": time_ms(lambda: depthwise3x3x3_wgrad_plain(x, g), flush=flush),
+                "kernel_warm_ms": time_ms(lambda: depthwise3x3x3_wgrad(x, g), COMPARE_ITERS),
+                "plain_ms": time_ms(lambda: depthwise3x3x3_wgrad_plain(x, g), COMPARE_ITERS,
+                                    flush=flush),
                 "library_ms": time_ms(
                     lambda: torch.ops.aten.convolution_backward(
                         g_ncdhw, x_ncdhw, w_conv, None, [1, 1, 1], [1, 1, 1],
                         [1, 1, 1], False, [0, 0, 0], c, [False, True, False],
-                    ),
+                    ), COMPARE_ITERS,
                     flush=flush,
                 ),
                 "bound_ms": bound_ms,
@@ -674,7 +712,8 @@ def _train_step_card_vs_cpu(phase, cfg, batch, expected, models=None, dtype=torc
     again, from the same weights, with every ReLU taking the CPU step's
     decisions, both to 1e-4; for a model in ``grad_witness.FLOAT64_HELD``
     (SlowFast) that step's readings are printed, and the step is run again in
-    float64 on both sides, every gate at 1e-4."""
+    float64 on both sides on every other frame of the batch, every gate at
+    1e-4."""
     from pmv_tpu_torch.engine.steps import init_state, make_train_step
     from pmv_tpu_torch.tools.grad_witness import FLOAT64_HELD, RELU_LIMITS, relu_decisions
 
@@ -786,7 +825,11 @@ def _train_step_card_vs_cpu(phase, cfg, batch, expected, models=None, dtype=torc
         raise AssertionError(f"running statistics: {stats_err} over rtol 1e-4, "
                              f"{stats_moved} of {n_stats} moved")
     if free and name in FLOAT64_HELD:
-        _train_step_card_vs_cpu(phase.replace("_f32_", "_f64_"), cfg, batch, expected,
+        # Every other frame (16 of SlowFast's 32): the same step and gates
+        # at half the CPU's float64 time, which keeps the script's wall time
+        # under 600 s.
+        half = dict(batch, frames=batch["frames"][:, ::2])
+        _train_step_card_vs_cpu(phase.replace("_f32_", "_f64_t16_"), cfg, half, expected,
                                 dtype=torch.float64)
 
 
@@ -2295,6 +2338,323 @@ def phase_distributed_ssl():
     return launches
 
 
+# Multigrid training of SlowFast 8x8 R50
+# (configs/Kinetics/SLOWFAST_8x8_R50_stepwise_multigrid.yaml), phases 3g, 4g,
+# 6g with 6p, and 6b.
+
+MULTIGRID_CFG = os.path.join(ROOT, "configs", "Kinetics",
+                             "SLOWFAST_8x8_R50_stepwise_multigrid.yaml")
+# What a 64-video Synthetic epoch needs of the recipe: its schedule then
+# visits every BatchNorm type of the full recipe in 6 epochs (16 x 8 x 158
+# sub 8, 8 x 16 x 158 sub 4, 4 x 16 x 224 sub 2, 2 x 32 x 224 plain).
+MULTIGRID_RUN = ["TRAIN.BATCH_SIZE", "2", "MULTIGRID.BN_BASE_SIZE", "2",
+                 "SOLVER.MAX_EPOCH", "4", "SOLVER.STEPS", "[0, 3]"]
+MULTIGRID_RESUME = 4  # 6g: checkpoint 4 (after epoch 3, 4 splits) resumes at epoch 4
+SHAPE_STEPS = 2  # 4g's timed steps at each short-cycle batch, after one warm-up
+
+
+def multigrid_cfg(*opts):
+    """The multigrid recipe in one process (the yaml says 8)."""
+    from pmv_tpu_torch.config import get_cfg
+
+    cfg = get_cfg()
+    cfg.merge_from_file(MULTIGRID_CFG)
+    cfg.merge_from_list(["NUM_GPUS", "1", *opts])
+    return cfg
+
+
+def norm_of(cfg):
+    from pmv_tpu_torch.models.batchnorm import norm_name
+
+    return norm_name(cfg)
+
+
+def phase_sub_batchnorm_card_vs_cpu():
+    """3g: SlowFast 8x8 R50 with SubBatchNorms of 2 splits, one float32 SGD
+    step at batch 4 (2 clips a split), card against CPU under phase 3s's
+    gates (the float32 gradients to ``RELU_LIMITS``, the step again in
+    float64 under every 1e-4 gate), the split running statistics to rtol
+    1e-4, atol 1e-6; then each model's norms swapped to plain BatchNorm and
+    back (``swap_norms``): the card's converted statistics equal to the same
+    conversion, on the CPU, of the card's own, and card against CPU under
+    the statistics' gate. 0 K1 launches. (The float64 step takes every
+    other frame, as every float64 rerun of ``_train_step_card_vs_cpu``.)"""
+    from pmv_tpu_torch.models.batchnorm import swap_norms
+
+    cfg = slowfast_cfg()
+    cfg.BN.NORM_TYPE, cfg.BN.NUM_SPLITS = "sub_batchnorm", 2
+    plain = cfg.clone()
+    plain.BN.NORM_TYPE = "batchnorm"
+    rng = np.random.default_rng(2)
+    batch = {"frames": rng.integers(0, 256, (4, cfg.DATA.NUM_FRAMES, 224, 224, 3), np.uint8),
+             "labels": rng.integers(0, cfg.MODEL.NUM_CLASSES, 4)}
+    cpu_model, gpu_model = _models_card_and_cpu(cfg)
+    _train_step_card_vs_cpu("slowfast_sub_bn_train_step_f32_b4_card_vs_cpu", cfg, batch,
+                            step_launches(SLOWFAST_K1), models=(cpu_model, gpu_model))
+    for name, to_cfg in (("sub_to_plain", plain), ("plain_to_sub", cfg)):
+        shadow = copy.deepcopy(cpu_model)  # the card's statistics, converted on the CPU
+        shadow.load_state_dict({**shadow.state_dict(), **_running_stats(gpu_model)})
+        turned = [swap_norms(m, to_cfg) for m in (gpu_model, cpu_model, shadow)]
+        conversion_err = _stats_err(_running_stats(gpu_model), _running_stats(shadow))[1]
+        over, diff = _running_stats_err(gpu_model, cpu_model)
+        rec = {"phase": f"slowfast_sub_bn_swap_{name}", "norms_turned": turned,
+               "card_vs_cpu_conversion_max_abs_err": conversion_err,
+               "bn_stats_err_over_rtol": over, "bn_stats_max_abs_err": diff,
+               "s5_slow_a_bn_stats": list(gpu_model.get_submodule(
+                   "s5.pathway0_res0.branch2.a_bn").running_mean.shape)}
+        log(json.dumps(rec))
+        if len(set(turned)) != 1 or not turned[0]:
+            raise AssertionError(f"3g: the swaps turned {turned} norms")
+        if conversion_err != 0.0 or over > 1e-6:
+            raise AssertionError(f"3g: {name}: conversion {conversion_err}, statistics {over}")
+
+
+def phase_multigrid_shapes(card):
+    """4g: the bf16 train step at each long-cycle shape of the full recipe
+    at TRAIN.BATCH_SIZE 8 (64 x 8 x 158 sub 8, 32 x 16 x 158 sub 4,
+    16 x 16 x 224 sub 2, 8 x 32 x 224 plain), each at its short cycle's
+    three batches: one warm-up and SHAPE_STEPS timed steps of each, one
+    model whose norms turn as the schedule does (a main path). Returns its
+    launches."""
+    from pmv_tpu_torch.data.loader import short_cycle_factors
+    from pmv_tpu_torch.engine.steps import init_state, make_train_step
+    from pmv_tpu_torch.models import build_model
+    from pmv_tpu_torch.models.batchnorm import swap_norms
+    from pmv_tpu_torch.utils.multigrid import MultigridSchedule
+
+    cfg = multigrid_cfg("TRAIN.BATCH_SIZE", "8")
+    mg = MultigridSchedule()
+    mg.init_multigrid(cfg)
+    model = build_model(cfg, device="cuda", seed=0)
+    state = init_state(cfg, model)
+    step = make_train_step(cfg, device="cuda", seed=0)
+    gen = torch.Generator("cuda").manual_seed(0)
+    seen = set()
+    _zero_launch_counts()  # the main path starts here
+    for epoch in range(cfg.SOLVER.MAX_EPOCH):  # each step of the schedule repeats the cycles
+        mg.update_long_cycle(cfg, epoch)
+        shape = (cfg.TRAIN.BATCH_SIZE, cfg.DATA.NUM_FRAMES, cfg.DATA.TRAIN_CROP_SIZE)
+        if shape in seen:
+            continue
+        seen.add(shape)
+        swap_norms(model, cfg)
+        f0, f1 = short_cycle_factors(cfg)
+        crops = [int(round(f * cfg.MULTIGRID.DEFAULT_S)) for f in cfg.MULTIGRID.SHORT_CYCLE_FACTORS]
+        b, t = cfg.TRAIN.BATCH_SIZE, cfg.DATA.NUM_FRAMES
+        phases = []
+        for clips, crop in ((b * f0, crops[0]), (b * f1, crops[1]), (b, cfg.DATA.TRAIN_CROP_SIZE)):
+            batch = {"frames": torch.randint(0, 256, (clips, t, crop, crop, 3), generator=gen,
+                                             device="cuda", dtype=torch.uint8),
+                     "labels": torch.randint(0, cfg.MODEL.NUM_CLASSES, (clips,), generator=gen,
+                                             device="cuda")}
+            torch.cuda.reset_peak_memory_stats()
+            m = step(state, batch, X3D_LR)  # warm-up: cuDNN picks its algorithms
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(SHAPE_STEPS):
+                m = step(state, batch, X3D_LR)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / SHAPE_STEPS * 1e3
+            if not bool(torch.isfinite(m["loss"])):
+                raise AssertionError(f"4g: a non-finite loss at {clips} x {t} x {crop}^2")
+            phases.append({"clips": clips, "frames": t, "crop": crop, "ms": ms,
+                           "clips_per_s": clips / ms * 1e3,
+                           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()})
+        log(json.dumps({"phase": "multigrid_shape_bf16", "card": card, "epoch": epoch,
+                        "long_cycle": [b, t, cfg.DATA.TRAIN_CROP_SIZE], "bn": norm_of(cfg),
+                        "short_cycle": phases}))
+    launches = _launch_counts()  # ... and ends here
+    if len(seen) != 4 or launches != step_launches(SLOWFAST_K1):
+        raise AssertionError(f"4g: {len(seen)} shapes, {launches} launched")
+    return launches
+
+
+def multigrid_argv(out_dir, profile_dir=None):
+    """run_net's arguments for the 64-video schedule on Synthetic, a 2-view
+    test of 8 clips a batch; with TPU.PROFILE_DIR when ``profile_dir``."""
+    argv = ["--cfg", MULTIGRID_CFG, "--opts", *MULTIGRID_RUN, "NUM_GPUS", "1",
+            "TRAIN.DATASET", "synthetic", "TEST.DATASET", "synthetic",
+            "TEST.NUM_ENSEMBLE_VIEWS", "2", "TEST.NUM_SPATIAL_CROPS", "1",
+            "TEST.BATCH_SIZE", "8", "OUTPUT_DIR", out_dir]
+    return argv + (["TPU.PROFILE_DIR", profile_dir] if profile_dir else [])
+
+
+def _multigrid_call(argv):
+    """One ``run_net`` call on the schedule (a main path); its launches,
+    wall seconds, epochs' lines and stats."""
+    from pmv_tpu_torch.tools import run_net
+
+    out_dir = argv[argv.index("OUTPUT_DIR") + 1]
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launch_counts()  # the main path starts here
+    t0 = time.perf_counter()
+    run_net.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launch_counts()  # ... and ends here
+    with open(os.path.join(out_dir, "stdout.log")) as f:
+        lines = f.read().splitlines()
+    epochs = [m.groups() for m in map(re.compile(
+        r"Epoch (\d+): (\d+) clips a step \((\d+) steps\), (\d+) frames, crop (\d+), (.+)").search,
+        lines) if m]
+    times = {int(m[1]): float(m[2]) for m in map(
+        re.compile(r"Epoch (\d+) takes ([\d.]+)s").search, lines) if m}
+    stats = [json.loads(line.split("json_stats: ", 1)[1]) for line in lines
+             if "json_stats: " in line]
+    if stats[-1].get("split") != "test_final":
+        raise AssertionError(f"6g: run_net ended without test_final: {stats[-1]}")
+    if launches != {"depthwise3x3x3": 0, "depthwise3x3x3_wgrad": 0}:
+        raise AssertionError(f"6g: run_net launched {launches}")
+    return {"wall_s": wall, "launches": launches, "lines": lines, "stats": stats,
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "epochs": [{"epoch": int(e), "clips_a_step": int(b), "steps": int(n),
+                        "frames": int(t), "crop": int(s), "bn": bn, "epoch_s": times[int(e)]}
+                       for e, b, n, t, s, bn in epochs]}
+
+
+def _expected_epochs(argv):
+    """(epoch, clips a step, frames, crop, BN) of each epoch of the schedule
+    that run_net builds from ``argv``, and its evaluated epochs."""
+    from pmv_tpu_torch.utils import misc
+    from pmv_tpu_torch.utils.multigrid import MultigridSchedule
+
+    cfg = run_net_cfg(argv)
+    mg = MultigridSchedule()
+    mg.init_multigrid(cfg)
+    want, evals = [], []
+    for epoch in range(cfg.SOLVER.MAX_EPOCH):
+        mg.update_long_cycle(cfg, epoch)
+        want.append((epoch, cfg.TRAIN.BATCH_SIZE, cfg.DATA.NUM_FRAMES,
+                     cfg.DATA.TRAIN_CROP_SIZE, norm_of(cfg)))
+        evals.append(misc.is_eval_epoch(cfg, epoch, mg.schedule))
+    return want, evals
+
+
+def check_multigrid_restore(argv, path):
+    """Restore checkpoint ``path`` as ``train()`` does under multigrid: the
+    model built at the cfg's base BatchNorm type, its norms turned to the
+    long cycle of the checkpoint's epoch once the file is read, then the
+    load; every tensor must equal the file's."""
+    from pmv_tpu_torch.engine.steps import init_state
+    from pmv_tpu_torch.models import build_model
+    from pmv_tpu_torch.models.batchnorm import swap_norms
+    from pmv_tpu_torch.utils import checkpoint as cu
+    from pmv_tpu_torch.utils.multigrid import MultigridSchedule
+
+    cfg = run_net_cfg(argv)
+    mg = MultigridSchedule()
+    mg.init_multigrid(cfg)
+    model = build_model(cfg, device="cuda", seed=cfg.RNG_SEED)
+    state = init_state(cfg, model)
+
+    def at(epoch):
+        mg.update_long_cycle(cfg, epoch)
+        swap_norms(model, cfg)
+
+    epoch = cu.load_checkpoint(path, state, before_load=at)
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    return {"checkpoint": path, "bn": norm_of(cfg), **_compare_restored(state, ckpt, epoch + 1)}
+
+
+def phase_multigrid_run_net(card, out_dir, resume_dir, profile_dir):
+    """6g: ``run_net`` on the 64-video schedule (one process, bf16,
+    Synthetic, precise BN after every epoch, the evaluations of
+    ``is_eval_epoch``, a 2-view test), with the profiler window (6p) on:
+    each epoch's batch, frames, crop and BatchNorm type as the schedule
+    gives them, the precise-BN line each epoch, test_final; the restore of
+    checkpoint ``MULTIGRID_RESUME`` (a sub_batchnorm epoch), every tensor
+    compared; then that checkpoint alone in a fresh OUTPUT_DIR, from which
+    run_net must resume at its next epoch, in that epoch's shape and
+    BatchNorm type, and finish (main paths). Returns their launches."""
+    from contextlib import redirect_stdout
+
+    argv = multigrid_argv(out_dir, profile_dir)
+    want, evals = _expected_epochs(argv)
+    with redirect_stdout(open(os.devnull, "w")):
+        first = _multigrid_call(argv)
+        ckpt = os.path.join(out_dir, "checkpoints",
+                            f"checkpoint_epoch_{MULTIGRID_RESUME:05d}.pyth")
+        restored = check_multigrid_restore(argv, ckpt)
+        os.makedirs(os.path.join(resume_dir, "checkpoints"))
+        shutil.copy(ckpt, os.path.join(resume_dir, "checkpoints"))
+        second = _multigrid_call(multigrid_argv(resume_dir))
+    got = [(e["epoch"], e["clips_a_step"], e["frames"], e["crop"], e["bn"])
+           for e in first["epochs"]]
+    if got != want:
+        raise AssertionError(f"6g: the epochs ran {got}, the schedule says {want}")
+    lines = first["lines"]
+    precise = sum("Updated precise BN stats over" in line for line in lines)
+    val_epochs = [s["epoch"] for s in first["stats"] if s.get("_type") == "val_epoch"]
+    if precise != len(want) or len(val_epochs) != sum(evals):
+        raise AssertionError(f"6g: {precise} precise-BN lines, evaluations {val_epochs}")
+    if restored["start_epoch"] != MULTIGRID_RESUME or "sub_batchnorm" not in restored["bn"]:
+        raise AssertionError(f"6g: the restore {restored}")
+    got2 = [(e["epoch"], e["clips_a_step"], e["frames"], e["crop"], e["bn"])
+            for e in second["epochs"]]
+    if (got2 != want[MULTIGRID_RESUME:]
+            or not any(f"Start epoch: {MULTIGRID_RESUME + 1}" in x for x in second["lines"])):
+        raise AssertionError(f"6g: the resumed run ran {got2}")
+    for name, rec in (("multigrid_run_net", first), ("multigrid_run_net_resumed", second)):
+        log(json.dumps({"phase": name, "card": card, "wall_s": rec["wall_s"],
+                        "epochs": rec["epochs"], "launches": rec["launches"],
+                        "max_memory_allocated_bytes": rec["max_memory_allocated_bytes"],
+                        "evaluated_epochs": val_epochs if rec is first else None,
+                        "precise_bn_lines": precise if rec is first else None,
+                        "final_stats": rec["stats"][-1]}))
+    log(json.dumps({"phase": "multigrid_run_net_restore", **restored}))
+    phase_profiler_window(first["lines"], profile_dir)
+    return [first["launches"], second["launches"]]
+
+
+def phase_profiler_window(lines, profile_dir):
+    """6p: the trace that 6g's first call wrote with TPU.PROFILE_DIR: one
+    file, its bytes, the steps its log line names, and its CUDA kernel
+    events (there must be some)."""
+    traces = sorted(os.listdir(profile_dir))
+    if len(traces) != 1:
+        raise AssertionError(f"6p: {len(traces)} traces in {profile_dir}")
+    path = os.path.join(profile_dir, traces[0])
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    window = _last_match(lines, r"Profiled steps (\d+) to (\d+) of epoch 0")
+    rec = {"phase": "profiler_window", "trace": path, "bytes": os.path.getsize(path),
+           "steps": [int(window[1]), int(window[2])], "events": len(events),
+           "cuda_kernel_events": len(kernels),
+           "cuda_kernel_ms": sum(e.get("dur", 0) for e in kernels) / 1e3}
+    log(json.dumps(rec))
+    if not kernels:
+        raise AssertionError("6p: the trace holds no CUDA kernel event")
+
+
+def phase_data_benchmark(out_dir):
+    """6b: ``python -m pmv_tpu_torch.tools.benchmark`` (a process of its
+    own, so that its peak RAM is the loader's) on SlowFast 8x8 R50's yaml,
+    Synthetic, batch 8, one epoch: the loader's clips/s and the process's
+    peak RAM. Synthetic draws its clips with numpy: this measures the
+    loader's threads and collate on the card's host, not decoding (no
+    FFmpeg there)."""
+    import subprocess
+
+    argv = [sys.executable, "-m", "pmv_tpu_torch.tools.benchmark", "--cfg", SLOWFAST_CFG,
+            "--opts", "NUM_GPUS", "1", "TRAIN.DATASET", "synthetic", "TRAIN.BATCH_SIZE", "8",
+            "BENCHMARK.NUM_EPOCHS", "1", "BENCHMARK.LOG_PERIOD", "4", "OUTPUT_DIR", out_dir]
+    t0 = time.perf_counter()
+    subprocess.run(argv, cwd=ROOT, check=True, timeout=300, stdout=subprocess.DEVNULL)
+    wall = time.perf_counter() - t0
+    with open(os.path.join(out_dir, "stdout.log")) as f:
+        lines = f.read().splitlines()
+    done = _last_match(lines, r"Benchmark complete: (\d+) clips loaded, ([\d.]+) s/batch, "
+                              r"([\d.]+) clips/s, RAM ([\d.]+) GB")
+    rec = {"phase": "data_loading_benchmark", "what": "Synthetic: numpy draws, the loader's "
+           "threads and collate on the host; no decoding", "wall_s": wall,
+           "clips": int(done[1]), "s_per_batch": float(done[2]),
+           "clips_per_s": float(done[3]), "ram_gb": float(done[4])}
+    log(json.dumps(rec))
+    if rec["clips"] != 64:
+        raise AssertionError(f"6b: the benchmark loaded {rec['clips']} clips, not 64")
+
+
 def tensorboard_imports():
     """True when ``torch.utils.tensorboard`` imports, else why not (printed,
     not a gate: the writer is needed only with TENSORBOARD.ENABLE)."""
@@ -2557,14 +2917,15 @@ def _dist_run_net_argv(out_dir, max_epoch, shard=None, port=None):
     """Phase 8c's run_net arguments: UniFormer-S's rect recipe as phase 6u
     runs it, in float32, one augmented copy a video (AUG.NUM_SAMPLE 1: the
     recipe's 2 copies lie copy-major within each process's rows, so 2
-    processes order a step's clips otherwise than one), the predictions
-    saved. With ``shard``: that shard of 2 hosts of one process each (gloo,
+    processes order a step's clips otherwise than one), a 1-view test (the
+    recipe's 4 views cut to 1 to keep the script's wall time under 600 s),
+    the predictions saved. With ``shard``: that shard of 2 hosts of one process each (gloo,
     both on the one card), 4 videos a step each, meeting on ``port``; else
     one process at 8, at the LR that BASE_LR_SCALE_NUM_SHARDS gives 2
     shards."""
     argv = run_net_argv("uniformer", out_dir, max_epoch)
     opts = ["TRAIN.MIXED_PRECISION", "False", "AUG.NUM_SAMPLE", "1",
-            "TEST.SAVE_RESULTS_PATH", "preds.pkl"]
+            "TEST.SAVE_RESULTS_PATH", "preds.pkl", "TEST.NUM_ENSEMBLE_VIEWS", "1"]
     if shard is None:
         return argv + opts + ["SOLVER.BASE_LR", "2e-4", "SOLVER.WARMUP_START_LR", "2e-6",
                               "SOLVER.COSINE_END_LR", "2e-6"]
@@ -2907,7 +3268,7 @@ def plant_wrapper_faults(card):
 
 
 def kernels_line(records, launches, slowfast_launches, maskfeat_launches,
-                 contrastive_launches):
+                 contrastive_launches, multigrid_launches):
     """One entry per kernel: times summed over the launches at the 224^2
     crop's shapes in bfloat16 at batch 8; K1 over one MViTv2-S forward (17
     launches, as many again for dx in a train step), the wgrad kernel over
@@ -2924,7 +3285,9 @@ def kernels_line(records, launches, slowfast_launches, maskfeat_launches,
     forward's 14 launches at batch 8, bf16 (``maskfeat_kernel_ms``; for K1
     the forward's, which dx repeats); "launches_contrastive" the contrastive
     paths' (phases 5c-6c, 0: Slow R50 has no K1 conv), the SimCLR step on
-    X3D-M's backbone (phase 3cx) and the 2-rank SSL steps (phase 8d)."""
+    X3D-M's backbone (phase 3cx) and the 2-rank SSL steps (phase 8d);
+    "launches_multigrid" the multigrid paths' (phases 4g and 6g, 0: SlowFast
+    has no K1 conv)."""
     maskfeat = maskfeat_kernel_ms(records)
 
     def entry(name, source, replaces, recs, basis):
@@ -2946,6 +3309,7 @@ def kernels_line(records, launches, slowfast_launches, maskfeat_launches,
             "launches_slowfast": slowfast_launches[name],
             "launches_maskfeat": maskfeat_launches[name],
             "launches_contrastive": {k: v[name] for k, v in contrastive_launches.items()},
+            "launches_multigrid": multigrid_launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in recs),
             "ms": kernel_ms,
             "kernel_ms": kernel_ms,
@@ -3036,14 +3400,18 @@ def main():
         return 0
 
     # Phase 2: every kernel against its plain version.
+    walls = {"build": time.perf_counter() - t_start}
+    tic = time.perf_counter()
     flush = torch.empty(96 * 2**20, dtype=torch.uint8, device="cuda")
     records = phase_kernels(flush) + phase_backward(flush)
     del flush
+    walls["kernels"] = time.perf_counter() - tic
 
     # Phase 3: the full models on the card and on the CPU, eval and train,
     # landscape and portrait.
     from pmv_tpu_torch.entry import mvitv2_s_cfg
 
+    tic = time.perf_counter()
     frames = np.random.default_rng(1).integers(0, 256, (1, 16, 224, 224, 3), np.uint8)
     phase_full_model(mvitv2_s_cfg(), frames, MVIT_K1)
     phase_train_step_vs_cpu(_train_cfg(), MVIT_K1)
@@ -3063,9 +3431,16 @@ def main():
     phase_train_step_vs_cpu(slowfast, SLOWFAST_K1, "slowfast_train_step_f32_b2_card_vs_cpu")
     phase_portrait_steps(slowfast, SLOWFAST_K1, "slowfast_")
     phase_precise_bn(slowfast, SLOWFAST_K1, "slowfast_")
+    walls["card_vs_cpu_supervised"] = time.perf_counter() - tic
+    tic = time.perf_counter()
+    phase_sub_batchnorm_card_vs_cpu()
+    walls["card_vs_cpu_sub_batchnorm"] = time.perf_counter() - tic
+    tic = time.perf_counter()
     phase_maskfeat_card_vs_cpu()
     phase_contrastive_card_vs_cpu()
     x3d_ssl_launches = phase_contrastive_x3d()
+    walls["card_vs_cpu_ssl"] = time.perf_counter() - tic
+    tic = time.perf_counter()
 
     # Phases 4 to 7: the main paths; serving, training, and run_net's train,
     # checkpoint, eval and test, then its resume; MViTv2-S, UniFormer-S,
@@ -3092,6 +3467,18 @@ def main():
     shutil.rmtree(out_dir, ignore_errors=True)
     slowfast_paths += phase_run_net(card, "slowfast", out_dir)
     paths += slowfast_paths
+    walls["main_paths_supervised"] = time.perf_counter() - tic
+    tic = time.perf_counter()
+    multigrid_paths = [phase_multigrid_shapes(card)]
+    dirs = [os.path.join("build", f"chip_smoke_{d}") for d in (
+        "run_net_multigrid", "run_net_multigrid_resumed", "profile", "benchmark")]
+    for d in dirs:
+        shutil.rmtree(d, ignore_errors=True)
+    multigrid_paths += phase_multigrid_run_net(card, *dirs[:3])
+    paths += multigrid_paths
+    phase_data_benchmark(dirs[3])
+    walls["main_paths_multigrid"] = time.perf_counter() - tic
+    tic = time.perf_counter()
     phase_maskfeat_step(card, records)
     maskfeat_paths = [phase_maskfeat_train(card)]
     out_dir = os.path.join("build", "chip_smoke_run_net_maskfeat")
@@ -3113,24 +3500,33 @@ def main():
     contrastive_paths = [phase_contrastive_train(card)]
     contrastive_paths += phase_contrastive_run_net(card, out_dir, ft_dir)
     paths += contrastive_paths
+    walls["main_paths_ssl"] = time.perf_counter() - tic
 
     # Phase 8: the distributed paths.
     log(json.dumps({"phase": "tensorboard_import",
                     "torch.utils.tensorboard": tensorboard_imports()}))
-    paths += [phase_distributed_gloo()]
-    ssl_dist_launches = phase_distributed_ssl()
-    paths += phase_distributed_run_net(card)
-    paths += phase_distributed_nccl(card)
+    def timed(name, fn, *args):
+        tic = time.perf_counter()
+        out = fn(*args)
+        walls[name] = time.perf_counter() - tic
+        return out
+
+    paths += [timed("distributed_8a", phase_distributed_gloo)]
+    ssl_dist_launches = timed("distributed_8d", phase_distributed_ssl)
+    paths += timed("distributed_8c", phase_distributed_run_net, card)
+    paths += timed("distributed_8b", phase_distributed_nccl, card)
     launches = {k: sum(p[k] for p in paths) for k in paths[0]}
     slowfast_launches = {k: sum(p[k] for p in slowfast_paths) for k in paths[0]}
     maskfeat_launches = {k: sum(p[k] for p in maskfeat_paths) for k in paths[0]}
+    multigrid_launches = {k: sum(p[k] for p in multigrid_paths) for k in paths[0]}
     contrastive_launches = {
         "main_paths": {k: sum(p[k] for p in contrastive_paths) for k in paths[0]},
         "x3d_simclr_step": x3d_ssl_launches, "distributed_ssl_ranks": ssl_dist_launches}
 
+    log(json.dumps({"phase": "walls", "seconds": walls}))
     log(json.dumps({"phase": "total", "wall_s": time.perf_counter() - t_start}))
     line = kernels_line(records, launches, slowfast_launches, maskfeat_launches,
-                        contrastive_launches)
+                        contrastive_launches, multigrid_launches)
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": card, "records": records, **line}, f, indent=1)

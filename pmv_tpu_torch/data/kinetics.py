@@ -33,8 +33,11 @@ blockwise mask on the AUG.MASK_WINDOW_SIZE grid, flattened to booleans
 (``data/masking.py::gen_mask``), drawn last from the sample's generator, as
 the JAX package draws it after the decode (`kinetics.py:237-242`).
 
-Not ported, each raising NotImplementedError: DATA.DUMMY_LOAD and
-multigrid short cycles.
+A multigrid short cycle's sample comes indexed (index, phase) from the
+loader (``data/loader.py``), and phases 0 and 1 crop smaller
+(``_sample_params``).
+
+Not ported, raising NotImplementedError: DATA.DUMMY_LOAD.
 """
 
 import math
@@ -142,8 +145,12 @@ class Kinetics:
     def __len__(self):
         return len(self._path_to_videos)
 
-    def _sample_params(self, index):
-        """(temporal_idx, spatial_idx, min_scale, max_scale, crop_size)."""
+    def _sample_params(self, index, short_cycle_idx=None):
+        """(temporal_idx, spatial_idx, min_scale, max_scale, crop_size).
+        Under multigrid a short cycle's phase (``short_cycle_idx`` 0 or 1)
+        crops SHORT_CYCLE_FACTORS[phase] x DEFAULT_S, and the smaller scale
+        follows the crop (x crop / DEFAULT_S), as in the JAX package
+        (`kinetics.py:138-163`)."""
         cfg = self.cfg
         if self.mode in ["train", "val"]:
             temporal_idx = -1
@@ -151,6 +158,11 @@ class Kinetics:
             min_scale = cfg.DATA.TRAIN_JITTER_SCALES[0]
             max_scale = cfg.DATA.TRAIN_JITTER_SCALES[1]
             crop_size = cfg.DATA.TRAIN_CROP_SIZE
+            if short_cycle_idx in [0, 1] and cfg.MULTIGRID.SHORT_CYCLE:
+                crop_size = int(round(
+                    cfg.MULTIGRID.SHORT_CYCLE_FACTORS[short_cycle_idx] * cfg.MULTIGRID.DEFAULT_S))
+            if cfg.MULTIGRID.DEFAULT_S > 0:
+                min_scale = int(round(float(min_scale) * crop_size / cfg.MULTIGRID.DEFAULT_S))
         else:
             st_idx = self._spatial_temporal_idx[index]
             temporal_idx = st_idx // cfg.TEST.NUM_SPATIAL_CROPS
@@ -175,10 +187,11 @@ class Kinetics:
         return temporal_idx, spatial_idx, min_scale, max_scale, crop_size
 
     def __getitem__(self, index):
-        if isinstance(index, tuple):
-            raise NotImplementedError("multigrid short cycles are not ported")
+        short_cycle_idx = None
+        if isinstance(index, tuple):  # (index, short-cycle phase) of the loader
+            index, short_cycle_idx = index
         rng = np.random.default_rng((self.cfg.RNG_SEED, self.epoch, index))
-        params = self._sample_params(index)
+        params = self._sample_params(index, short_cycle_idx)
         for i_try in range(self._NUM_RETRIES):
             path = self._path_to_videos[index]
             try:

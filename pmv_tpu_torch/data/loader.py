@@ -19,6 +19,14 @@ slices differ in length take different counts of training steps. Here every
 rank has ``len(loader)`` steps; in a split without ``drop_last`` a rank
 whose rows of the last step are none yields one batch fewer
 (``parallel.distributed.lockstep`` evens them out).
+
+Multigrid short cycles (`pmv_tpu/data/loader.py:77-123`, PySlowFast's
+``ShortCycleBatchSampler``): the steps cycle through batches of
+``batch_size x [f0, f1, 1]`` samples, and a sample of the two short phases
+is indexed ``(i, phase)`` so that the dataset shrinks its crop
+(``data/kinetics.py``, ``data/synthetic.py``). Each rank takes its
+contiguous share of each phase's global batch, as of a plain step's.
+``len`` follows the JAX package's rule, ``drop_last`` included.
 """
 
 import queue
@@ -44,6 +52,7 @@ class DataLoader:
         rank=0,
         world_size=1,
         collate=None,
+        short_cycle=None,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -56,6 +65,14 @@ class DataLoader:
         self.rank = rank
         self.world_size = world_size
         self.collate = collate or _collate
+        self.short_cycle = short_cycle  # (f0, f1): the multigrid short cycle's factors
+
+    def _sizes(self):
+        """The batch sizes of a cycle of steps, this rank's."""
+        if self.short_cycle:
+            f0, f1 = self.short_cycle
+            return [self.batch_size * f0, self.batch_size * f1, self.batch_size]
+        return [self.batch_size]
 
     def set_epoch(self, epoch):
         """Reseed the shuffle and the dataset's draws (reference
@@ -65,22 +82,38 @@ class DataLoader:
             self.dataset._set_epoch_num(epoch)
 
     def _batches(self):
-        """This rank's sample indices of each step of the epoch."""
+        """This rank's sample indices of each step of the epoch: ints, or
+        (index, phase) in a short cycle's phases 0 and 1."""
         n = len(self.dataset)
         if self.shuffle:
             order = np.random.default_rng((self.seed, self.epoch)).permutation(n)
         else:
             order = np.arange(n)
-        step = self.batch_size * self.world_size
-        starts = (s * step + self.rank * self.batch_size for s in range(len(self)))
-        return [b for b in (order[i:i + self.batch_size] for i in starts) if len(b)]
+        sizes = self._sizes()
+        batches, pos = [], 0
+        for step in range(len(self)):
+            size = sizes[step % len(sizes)]
+            phase = step % 3 if self.short_cycle and step % 3 < 2 else None
+            start = pos + self.rank * size
+            rows = [int(i) if phase is None else (int(i), phase)
+                    for i in order[start:min(start + size, pos + size * self.world_size)]]
+            if rows:
+                batches.append(rows)
+            pos += size * self.world_size
+        return batches
 
     def __len__(self):
         """Steps in an epoch, the same on every rank."""
-        step = self.batch_size * self.world_size
-        if self.drop_last:
-            return len(self.dataset) // step
-        return (len(self.dataset) + step - 1) // step
+        sizes = [s * self.world_size for s in self._sizes()]
+        cycle = sum(sizes)
+        steps = len(self.dataset) // cycle * len(sizes)
+        rest = len(self.dataset) % cycle
+        for size in sizes:
+            if rest <= 0 or (self.drop_last and rest < size):
+                break
+            steps += 1
+            rest -= size
+        return steps
 
     def __iter__(self):
         batches = self._batches()
@@ -93,8 +126,7 @@ class DataLoader:
                     for batch_idx in batches:
                         if stop.is_set():
                             return
-                        samples = list(pool.map(self.dataset.__getitem__,
-                                                (int(i) for i in batch_idx)))
+                        samples = list(pool.map(self.dataset.__getitem__, batch_idx))
                         out_q.put(self.collate(samples))
             except Exception as e:  # raised again in the consumer
                 out_q.put(e)
@@ -153,16 +185,28 @@ def multiple_samples_collate(samples):
     return _collate(flat)
 
 
+def short_cycle_factors(cfg):
+    """The batch factors (f0, f1) of the multigrid short cycle's phases 0
+    and 1, round((TRAIN_CROP_SIZE / (s x DEFAULT_S))^2) for each s of
+    SHORT_CYCLE_FACTORS (`pmv_tpu/data/loader.py:242-260`); None without
+    MULTIGRID.SHORT_CYCLE or before ``init_multigrid`` set DEFAULT_S."""
+    if not (cfg.MULTIGRID.SHORT_CYCLE and cfg.MULTIGRID.DEFAULT_S > 0):
+        return None
+    return tuple(
+        int(round((float(cfg.DATA.TRAIN_CROP_SIZE) / (s * cfg.MULTIGRID.DEFAULT_S)) ** 2))
+        for s in cfg.MULTIGRID.SHORT_CYCLE_FACTORS
+    )
+
+
 def construct_loader(cfg, split, dataset=None):
     """The loader of ``split`` (`loader.py:112-169`): train shuffles and
     drops the last partial batch; val and test keep the order and every
     sample. A process takes TRAIN.BATCH_SIZE (TEST.BATCH_SIZE) / NUM_GPUS
     samples a step. A train sample of contrastive views (DATA.
     TRAIN_CROP_NUM_TEMPORAL or _SPATIAL > 1) keeps its view axis: frames
-    [B, V, T, H, W, C]."""
+    [B, V, T, H, W, C]. Under MULTIGRID.SHORT_CYCLE the train loader takes
+    the short cycle's batches (``short_cycle_factors``)."""
     assert split in ["train", "val", "test"]
-    if split == "train" and (cfg.MULTIGRID.SHORT_CYCLE or cfg.MULTIGRID.LONG_CYCLE):
-        raise NotImplementedError("multigrid training is not ported")
     if split in ("train", "val"):
         dataset_name, batch_size = cfg.TRAIN.DATASET, cfg.TRAIN.BATCH_SIZE
     else:
@@ -177,6 +221,7 @@ def construct_loader(cfg, split, dataset=None):
         # Repeated-augmentation copies fold into the batch; contrastive
         # views keep their axis ([B, V, T, H, W, C]) for the SSL step.
         collate = multiple_samples_collate
+    short_cycle = short_cycle_factors(cfg) if split == "train" else None
     rank, world_size = rank_and_world_size()
     return DataLoader(
         dataset,
@@ -189,4 +234,5 @@ def construct_loader(cfg, split, dataset=None):
         rank=rank,
         world_size=world_size,
         collate=collate,
+        short_cycle=short_cycle,
     )

@@ -50,13 +50,22 @@ class Synthetic:
         return [self._label_of(i // self._num_clips) for i in range(len(self))]
 
     def __getitem__(self, index):
+        """The sample of ``index``, or of (index, phase) in a multigrid
+        short cycle's phase 0 or 1: a crop of SHORT_CYCLE_FACTORS[phase] x
+        DEFAULT_S (`pmv_tpu/data/synthetic.py:58-71`)."""
         cfg = self.cfg
+        short_cycle_idx = None
+        if isinstance(index, tuple):
+            index, short_cycle_idx = index
         # Label (and base content) must be per-video, not per-view, so
         # multi-view ensembling sees consistent labels across views.
         video_id = index // self._num_clips
         rng = np.random.default_rng(video_id)
         t = cfg.DATA.NUM_FRAMES
         h, w = self._crop
+        if short_cycle_idx in [0, 1] and cfg.MULTIGRID.SHORT_CYCLE:
+            h = w = int(round(
+                cfg.MULTIGRID.SHORT_CYCLE_FACTORS[short_cycle_idx] * cfg.MULTIGRID.DEFAULT_S))
         num_aug = (
             cfg.AUG.NUM_SAMPLE
             if self.mode == "train" and cfg.AUG.ENABLE

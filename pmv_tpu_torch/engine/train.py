@@ -30,19 +30,37 @@ evaluation's errors after each evaluated epoch (Val/Top1_err, Val/Top5_err;
 Val/mAP when multi-label), as the JAX package's ``train`` does
 (`train.py:282-286, 372-382`).
 
-It trains MViT, UniFormer and X3D; the BatchNorm running statistics of a
-model that has them move in its train step and are saved with its
-checkpoints. With BN.USE_PRECISE_STATS they are recomputed after every
+- The profiler window (TPU.PROFILE_DIR, `pmv_tpu/engine/train.py:41-44,
+  125-143`): a ``torch.profiler`` trace (CPU activities, and CUDA's on the
+  card) of steps 10 to 15 of epoch 0, or of steps 0 to min(2, n) in an
+  epoch of n <= 15 steps, written to that directory by
+  ``tensorboard_trace_handler``: one trace a job (rank 0's), ended cleanly
+  when the epoch ends inside the window.
+- Multigrid (MULTIGRID.LONG_CYCLE / SHORT_CYCLE; `pmv_tpu/engine/train.py:
+  213-218, 304-356`, ``utils/multigrid.py``): ``init_multigrid`` rewrites
+  the schedule before the model is built; at every epoch
+  ``update_long_cycle`` sets the base shape, and where it changes the train
+  loader and its TrainMeter are built anew, the model's norms turn to the
+  BatchNorm type of the cycle's batch (``models/batchnorm.py::
+  swap_norms``, in place: the parameters, the optimizer's state and a DDP
+  or FSDP wrapper stay), and the steps are built anew. The val loader is
+  built once; its dataset reads the cfg the cycles change. A resume sets
+  the long cycle of the checkpoint's epoch before the checkpoint loads, so
+  that its statistics fit, and the first epoch then moves to its own, as
+  the run that wrote it did. ``is_eval_epoch`` takes the schedule.
+
+It trains MViT, UniFormer, X3D and the ResNet family; the BatchNorm running
+statistics of a model that has them move in its train step and are saved
+with its checkpoints. With BN.USE_PRECISE_STATS they are recomputed after every
 epoch's training, before the checkpoint and the eval, as the JAX package
 does (`train.py:352-366`; ``engine/precise_bn.py``).
 MODEL.USE_CHECKPOINT and MODEL.CHECKPOINT_NUM (UniFormer's activation
 checkpointing) are read nowhere in the JAX package, and are ignored here.
 
 Not ported, each raising NotImplementedError where the config asks for it:
-multigrid, TensorBoard's model and wrong-prediction visualization,
-detection and AVA, audio, the UniFormer pretrain registry
-(UNIFORMER.PRETRAIN_NAME: no pretrained weights are in the repository) and
-the profiler window.
+TensorBoard's model and wrong-prediction visualization, detection and AVA,
+audio, and the UniFormer pretrain registry (UNIFORMER.PRETRAIN_NAME: no
+pretrained weights are in the repository).
 """
 
 import math
@@ -57,6 +75,7 @@ from pmv_tpu_torch.engine import steps
 from pmv_tpu_torch.engine.precise_bn import calculate_and_update_precise_bn
 from pmv_tpu_torch.engine.prefetch import DevicePrefetcher
 from pmv_tpu_torch.models import build_model
+from pmv_tpu_torch.models.batchnorm import norm_name, swap_norms
 from pmv_tpu_torch.parallel import distributed
 from pmv_tpu_torch.utils import checkpoint as cu
 from pmv_tpu_torch.utils import logging as pmv_logging
@@ -65,8 +84,37 @@ from pmv_tpu_torch.utils import metrics as metrics_mod
 from pmv_tpu_torch.utils import misc
 from pmv_tpu_torch.utils.device import rank_and_world_size, resolve_device
 from pmv_tpu_torch.utils.lr_policy import get_lr_at_epoch
+from pmv_tpu_torch.utils.multigrid import MultigridSchedule
 
 logger = pmv_logging.get_logger(__name__)
+
+
+def profiler_window(data_size):
+    """The steps (first, last) of epoch 0 that TPU.PROFILE_DIR traces."""
+    return (10, 15) if data_size > 15 else (0, min(2, data_size))
+
+
+def start_profiler(prof_dir, device):
+    """A started ``torch.profiler`` of the host's activities, and the card's
+    on CUDA, that writes its trace to ``prof_dir`` when it stops."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(
+        activities=activities,
+        on_trace_ready=torch.profiler.tensorboard_trace_handler(prof_dir),
+    )
+    prof.start()
+    return prof
+
+
+def stop_profiler(prof, device, first, last, prof_dir):
+    """Stop ``prof`` once the card has run what it was given; its trace is
+    written."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    prof.stop()
+    logger.info("Profiled steps %d to %d of epoch 0 into %s", first, last, prof_dir)
 
 
 def train_epoch(train_loader, train_step, state, meter, cur_epoch, cfg):
@@ -101,9 +149,15 @@ def train_epoch(train_loader, train_step, state, meter, cur_epoch, cfg):
         pending.clear()
 
     device = next(state.model.parameters()).device
+    # The profiler window: one trace a job, of epoch 0, on rank 0.
+    prof_dir = cfg.TPU.PROFILE_DIR if cur_epoch == 0 and pmv_logging.is_master_process() else ""
+    first, last = profiler_window(data_size)
+    prof = None
     stream = DevicePrefetcher(train_loader, device, cfg.TPU.DEVICE_PREFETCH)
     meter.iter_tic()
     for cur_iter, (batch, device_batch) in enumerate(stream):
+        if prof_dir and cur_iter == first:
+            prof = start_profiler(prof_dir, device)
         epoch_exact = cur_epoch + float(cur_iter) / data_size
         lr = get_lr_at_epoch(cfg, epoch_exact)
         meter.data_toc()
@@ -112,7 +166,12 @@ def train_epoch(train_loader, train_step, state, meter, cur_epoch, cfg):
         meter.iter_toc()
         if (cur_iter + 1) % flush_every == 0:
             flush_metrics()
+        if prof is not None and cur_iter == last:
+            stop_profiler(prof, device, first, last, prof_dir)
+            prof = None
         meter.iter_tic()
+    if prof is not None:  # the epoch ended inside the window
+        stop_profiler(prof, device, first, data_size - 1, prof_dir)
     flush_metrics()
     meter.log_epoch_stats(cur_epoch)
     meter.reset()
@@ -154,15 +213,12 @@ def eval_epoch(val_loader, eval_step, meter, cur_epoch, cfg):
 def refuse_unported(cfg):
     """Raise for what the config asks for and the port does not have."""
     unported = {
-        "MULTIGRID.LONG_CYCLE / SHORT_CYCLE (multigrid)":
-            cfg.MULTIGRID.LONG_CYCLE or cfg.MULTIGRID.SHORT_CYCLE,
         "TENSORBOARD.MODEL_VIS / WRONG_PRED_VIS": cfg.TENSORBOARD.ENABLE and (
             cfg.TENSORBOARD.MODEL_VIS.ENABLE or cfg.TENSORBOARD.WRONG_PRED_VIS.ENABLE),
         "DETECTION.ENABLE (detection and AVA)": cfg.DETECTION.ENABLE,
         "audio (MODEL.ARCH avslowfast)": cfg.MODEL.ARCH == "avslowfast",
         "UNIFORMER.PRETRAIN_NAME (the pretrain registry)":
             cfg.MODEL.MODEL_NAME.startswith("Uniformer") and bool(cfg.UNIFORMER.PRETRAIN_NAME),
-        "TPU.PROFILE_DIR (the profiler window)": bool(cfg.TPU.PROFILE_DIR),
     }
     asked = [name for name, on in unported.items() if on]
     if asked:
@@ -182,6 +238,12 @@ def train(cfg, device=None):
     logger.info("Train with config:")
     logger.info(pprint.pformat(cfg))
 
+    multigrid = None
+    if cfg.MULTIGRID.LONG_CYCLE or cfg.MULTIGRID.SHORT_CYCLE:
+        multigrid = MultigridSchedule()
+        cfg = multigrid.init_multigrid(cfg)
+    long_cycle = multigrid is not None and cfg.MULTIGRID.LONG_CYCLE
+
     model = build_model(cfg, device=device, seed=cfg.RNG_SEED)
     if cfg.LOG_MODEL_INFO:
         misc.log_model_info(model)
@@ -189,12 +251,25 @@ def train(cfg, device=None):
     if rank_and_world_size()[1] > 1:
         wrapped = distributed.wrap_model(model, cfg.TPU.SHARD_STRATEGY, device)
     state = steps.init_state(cfg, model, wrapped=wrapped)
-    start_epoch = cu.load_train_checkpoint(cfg, state)
+    val_loader = loader_mod.construct_loader(cfg, "val")
+
+    def set_long_cycle(epoch):
+        """The long cycle of ``epoch``: its base shape in cfg and its
+        BatchNorm type in the model. Whether the shape changed."""
+        _, changed = multigrid.update_long_cycle(cfg, epoch)
+        if changed and swap_norms(model, cfg):
+            logger.info("Norms now %s (%d splits)", cfg.BN.NORM_TYPE, cfg.BN.NUM_SPLITS)
+        return changed
+
+    # A checkpoint holds the statistics of the long cycle of its epoch:
+    # the model takes that cycle's norms before it loads, and the loop
+    # below moves on to the next epoch's, as the run that wrote it did.
+    start_epoch = cu.load_train_checkpoint(
+        cfg, state, before_load=set_long_cycle if long_cycle else None)
     train_step = steps.make_train_step(cfg, device=device, seed=cfg.RNG_SEED)
     eval_step = steps.make_eval_step(cfg, model, device=device)
 
     train_loader = loader_mod.construct_loader(cfg, "train")
-    val_loader = loader_mod.construct_loader(cfg, "val")
     train_meter = meters_mod.TrainMeter(len(train_loader), cfg)
     val_meter = meters_mod.ValMeter(len(val_loader), cfg)
     epoch_timer = meters_mod.EpochTimer()
@@ -215,6 +290,18 @@ def train(cfg, device=None):
             logger.info("chunked loader: skip_rows %d", cfg.DATA.SKIP_ROWS)
             train_loader = loader_mod.construct_loader(cfg, "train")
             train_meter = meters_mod.TrainMeter(len(train_loader), cfg)
+        if long_cycle and set_long_cycle(cur_epoch):
+            # A new base shape: the train loader, its meter and the steps
+            # anew (`train.py:304-342` of the JAX package).
+            train_loader = loader_mod.construct_loader(cfg, "train")
+            train_meter = meters_mod.TrainMeter(len(train_loader), cfg)
+            train_step = steps.make_train_step(cfg, device=device, seed=cfg.RNG_SEED)
+            eval_step = steps.make_eval_step(cfg, model, device=device)
+        if multigrid is not None:
+            logger.info("Epoch %d: %d clips a step (%d steps), %d frames, crop %d, %s",
+                        cur_epoch, cfg.TRAIN.BATCH_SIZE, len(train_loader),
+                        cfg.DATA.NUM_FRAMES, cfg.DATA.TRAIN_CROP_SIZE,
+                        norm_name(cfg))
         train_loader.set_epoch(cur_epoch)
         epoch_timer.epoch_tic()
         train_epoch(train_loader, train_step, state, train_meter, cur_epoch, cfg)
@@ -229,7 +316,8 @@ def train(cfg, device=None):
             calculate_and_update_precise_bn(train_loader, state, cfg, device)
         if cu.is_checkpoint_epoch(cfg, cur_epoch):
             cu.save_checkpoint(cfg.OUTPUT_DIR, state, cur_epoch, cfg)
-        if misc.is_eval_epoch(cfg, cur_epoch):
+        if misc.is_eval_epoch(cfg, cur_epoch,
+                              multigrid.schedule if multigrid is not None else None):
             eval_tic = time.perf_counter()
             stats = eval_epoch(val_loader, eval_step, val_meter, cur_epoch, cfg)
             logger.info("Eval of epoch %d takes %.4fs.", cur_epoch,

@@ -105,16 +105,17 @@ def make_layer_decay_scales(model, cfg):
 def global_norm(tensors):
     """sqrt of the sum of squares over all ``tensors`` (optax global_norm),
     as the norm of the per-tensor norms; over every shard of the sharded
-    ones. On the CPU each tensor's norm sums in float64: PyTorch's CPU
-    float32 norm sums in order, and read MaskFeat's float32 gradients' norm
-    1.6e-5 to 2.0e-5 low, where the card's lies within 3e-7 of float64's
-    (PERF.md, ``tools/op_witness.py``)."""
+    ones; float32, or float64 for float64 tensors. On the CPU each tensor's
+    norm sums in float64: PyTorch's CPU float32 norm sums in order, and
+    read MaskFeat's float32 gradients' norm 1.6e-5 to 2.0e-5 low, where the
+    card's lies within 3e-7 of float64's (PERF.md, ``tools/op_witness.py``)."""
     tensors = list(tensors)
     local = [distributed.local(t) for t in tensors]
+    dtype = torch.promote_types(local[0].dtype, torch.float32) if local else torch.float32
     if local and local[0].device.type == "cpu":
-        norms = torch.stack(torch._foreach_norm([t.double() for t in local])).float()
+        norms = torch.stack(torch._foreach_norm([t.double() for t in local])).to(dtype)
     else:
-        norms = torch.stack(torch._foreach_norm([t.float() for t in local]))
+        norms = torch.stack(torch._foreach_norm([t.to(dtype) for t in local]))
     sharded = [distributed.is_sharded(t) for t in tensors]
     if not any(sharded):
         return torch.linalg.vector_norm(norms)
@@ -238,17 +239,21 @@ def _bias_correction(decay, count):
 
 
 def _trust_ratio(p, u):
-    """optax scale_by_trust_ratio: ||p|| / ||u||, 1 where either is 0. ``u``
-    is this rank's shard of the update of ``p``."""
+    """optax scale_by_trust_ratio: ||p|| / ||u||, 1 where either is 0, in
+    ``u``'s dtype. ``u`` is this rank's shard of the update of ``p``. The
+    norms sum in float64 on every device: PyTorch's CPU float32 norm sums
+    in order and read Slow R50's weights' norms up to 2.6e-4 off float64's,
+    the card's within 8e-8 (``tools/f64_witness.py``, PERF.md), and moved
+    the LARS updates by 1.2e-5 to 2.8e-5, card against CPU."""
     sharded = distributed.is_sharded(p)
 
     def norm(t):
-        n = torch.linalg.vector_norm(t)
+        n = torch.linalg.vector_norm(t, dtype=torch.float64)
         return distributed.all_reduce_sum(n.square()).sqrt() if sharded else n
 
     p_norm = norm(distributed.local(p))
     u_norm = norm(u)
-    ratio = p_norm / u_norm
+    ratio = (p_norm / u_norm).to(u.dtype)
     return torch.where((p_norm == 0) | (u_norm == 0), torch.ones_like(ratio), ratio)
 
 

@@ -191,13 +191,17 @@ def load_model_state(model, state_dict, clear_name_pattern=()):
 
 def load_checkpoint(path, state=None, model=None, epoch_reset=False,
                     clear_name_pattern=(), checkpoint_type="pytorch",
-                    inflate=False):
+                    inflate=False, before_load=None):
     """Load checkpoint ``path`` into ``state`` (model and optimizer) or into
     ``model`` alone. The optimizer's state comes back when the checkpoint
     holds one of this package's (its groups carry "count") and neither
     ``epoch_reset`` nor a name pattern is given. Returns the checkpoint's
-    epoch, or -1 under ``epoch_reset``."""
+    epoch, or -1 under ``epoch_reset``; ``before_load(epoch)``, when given,
+    is called with it once the file is read, before anything loads."""
     ckpt = _read(path, checkpoint_type, inflate)
+    epoch = -1 if epoch_reset or "epoch" not in ckpt else int(ckpt["epoch"])
+    if before_load is not None:
+        before_load(epoch)
     model = state.model if state is not None else model
     load_model_state(model, ckpt["model_state"], clear_name_pattern)
     opt_state = ckpt.get("optimizer_state")
@@ -208,9 +212,7 @@ def load_checkpoint(path, state=None, model=None, epoch_reset=False,
     ):
         state.optimizer.load_state_dict(_sharded_like(opt_state, state.optimizer))
         state.step = int(state.optimizer.param_groups[0]["count"])
-    if epoch_reset or "epoch" not in ckpt:
-        return -1
-    return int(ckpt["epoch"])
+    return epoch
 
 
 def _sharded_like(opt_state, optimizer):
@@ -226,13 +228,15 @@ def _sharded_like(opt_state, optimizer):
     return out
 
 
-def load_train_checkpoint(cfg, state):
+def load_train_checkpoint(cfg, state, before_load=None):
     """Auto-resume, or the given checkpoint (`train_net.py:589-631`).
-    Returns the epoch to start from."""
+    Returns the epoch to start from; ``before_load`` as ``load_checkpoint``
+    takes it (``engine/train.py`` sets the multigrid long cycle of the
+    checkpoint's epoch)."""
     if cfg.TRAIN.AUTO_RESUME and has_checkpoint(cfg.OUTPUT_DIR, cfg.TASK):
         last = get_last_checkpoint(cfg.OUTPUT_DIR, cfg.TASK)
         logger.info("Load from last checkpoint, %s.", last)
-        return load_checkpoint(last, state) + 1
+        return load_checkpoint(last, state, before_load=before_load) + 1
     if cfg.TRAIN.CHECKPOINT_FILE_PATH:
         logger.info("Load from given checkpoint file %s.", cfg.TRAIN.CHECKPOINT_FILE_PATH)
         return load_checkpoint(
@@ -241,6 +245,7 @@ def load_train_checkpoint(cfg, state):
             clear_name_pattern=list(cfg.TRAIN.CHECKPOINT_CLEAR_NAME_PATTERN),
             checkpoint_type=cfg.TRAIN.CHECKPOINT_TYPE,
             inflate=cfg.TRAIN.CHECKPOINT_INFLATE,
+            before_load=before_load,
         ) + 1
     return 0
 

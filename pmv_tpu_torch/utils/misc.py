@@ -24,10 +24,17 @@ def log_model_info(model):
     logger.info("Flops and activations: not counted (not ported)")
 
 
-def is_eval_epoch(cfg, cur_epoch):
-    """Eval on EVAL_PERIOD boundaries and at the final epoch
-    (`misc.py:228-250`; the multigrid schedule is not ported)."""
-    return (
-        cur_epoch + 1 == cfg.SOLVER.MAX_EPOCH
-        or (cur_epoch + 1) % cfg.TRAIN.EVAL_PERIOD == 0
-    )
+def is_eval_epoch(cfg, cur_epoch, multigrid_schedule=None):
+    """Eval on EVAL_PERIOD boundaries and at the final epoch; under multigrid
+    long cycles (``multigrid_schedule``), EVAL_FREQ times a cycle, aligned
+    to the cycle's end (`misc.py:228-250`)."""
+    if cur_epoch + 1 == cfg.SOLVER.MAX_EPOCH:
+        return True
+    if multigrid_schedule is not None:
+        prev_epoch = 0
+        for s in multigrid_schedule:
+            if cur_epoch < s[-1]:
+                period = max((s[-1] - prev_epoch) // cfg.MULTIGRID.EVAL_FREQ + 1, 1)
+                return (s[-1] - 1 - cur_epoch) % period == 0
+            prev_epoch = s[-1]
+    return (cur_epoch + 1) % cfg.TRAIN.EVAL_PERIOD == 0

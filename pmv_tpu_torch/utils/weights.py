@@ -23,6 +23,8 @@ Layouts (flax, channels-last -> torch):
 - Conv2d kernel [H, W, I, O]             -> Conv2d weight [O, I, H, W]
 - LayerNorm / BatchNorm scale, bias      -> weight, bias
 - BatchNorm mean, var (``batch_stats``)  -> running_mean, running_var
+  (a SubBatchNorm's of S x C values, its scale and bias at its own level,
+  with no "BatchNorm_0" under it)
 """
 
 import re

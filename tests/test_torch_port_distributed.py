@@ -27,7 +27,9 @@ the references:
 - (d) ``perform_test`` on 2 ranks with shards of unequal length: the
   TestMeter equals the one-process run's and every clip is scored once;
 - (e) the global BatchNorm module, forward and backward, equal to one
-  process on the concatenated rows;
+  process on the concatenated rows; and SubBatchNorm's splits of the
+  global batch of 6 rows (3 a rank): 2 splits, each inside a rank, and 3
+  splits, the middle one spanning both ranks;
 - (f) ``python -m pmv_tpu_torch.tools.run_net --cfg configs/tiny_synthetic.yaml
   --device cpu`` with NUM_GPUS 2: train, checkpoint, eval and test give the
   one-process run's ``test_final``, the checkpoint is written once, and a
@@ -214,6 +216,24 @@ def _test_case():
             "num_clips": 2, "batch_size": 2}
 
 
+SUB_BN_SPLITS = (2, 3)
+
+
+def _sub_bn_case():
+    gen = torch.Generator().manual_seed(1)
+    state_dicts = {}
+    for splits in SUB_BN_SPLITS:
+        bn = BatchNorm(6, num_splits=splits)
+        with torch.no_grad():
+            bn.weight.uniform_(0.5, 1.5, generator=gen)
+            bn.bias.normal_(generator=gen)
+        state_dicts[splits] = bn.state_dict()
+    x = 2.0 + 3.0 * torch.randn(6, 3, 5, 6, generator=gen)
+    x[2:4] += 4.0  # split means apart
+    return {"x": x, "weight": torch.randn(6, 3, 5, 6, generator=gen),
+            "splits": SUB_BN_SPLITS, "state_dicts": state_dicts}
+
+
 def _bn_case():
     gen = torch.Generator().manual_seed(0)
     bn = BatchNorm(6)
@@ -242,7 +262,7 @@ def two_ranks(tmp_path_factory):
         resume["draws2"] = jax_train_draws(jax_args["uniformer"][0], jax.random.PRNGKey(3), 1,
                                            resume["batch2"]["frames"].shape)
         cases = {"steps": steps, "resume": resume, "precise_bn": precise,
-                 "test": _test_case(), "bn": _bn_case()}
+                 "test": _test_case(), "bn": _bn_case(), "sub_bn": _sub_bn_case()}
         torch.save(cases, case_dir / "cases.pt")
         procs = start_ranks(rank_cases, str(case_dir))
         try:
@@ -424,6 +444,27 @@ def test_global_batchnorm_equals_one_process(two_ranks):
         torch.testing.assert_close(g, want, atol=1e-5, rtol=1e-5)
     for key, value in bn.state_dict().items():
         torch.testing.assert_close(got["state"][key], value, atol=1e-6, rtol=1e-5, msg=key)
+
+
+@pytest.mark.parametrize("splits", SUB_BN_SPLITS)
+def test_sub_batchnorm_splits_of_the_global_batch_equal_one_process(two_ranks, splits):
+    """A split is a slice of the global batch, inside a rank (2 splits) or
+    across ranks (3): forward, backward and the split statistics equal one
+    process's on the concatenated rows."""
+    results, _, cases = two_ranks
+    case, got = cases["sub_bn"], results["sub_bn"][splits]
+    bn = BatchNorm(6, num_splits=splits)
+    bn.load_state_dict(case["state_dicts"][splits])
+    x = case["x"].clone().requires_grad_()
+    y = bn.train()(x)
+    (y * case["weight"]).sum().backward()
+    np.testing.assert_allclose(got["y"], y.detach().numpy(), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(got["x_grad"], x.grad.numpy(), atol=1e-5, rtol=1e-5)
+    for g, want in zip(got["param_grads"], (bn.weight.grad, bn.bias.grad)):
+        torch.testing.assert_close(g, want, atol=1e-5, rtol=1e-5)
+    for key, value in bn.state_dict().items():
+        torch.testing.assert_close(got["state"][key], value, atol=1e-6, rtol=1e-5, msg=key)
+    assert got["state"]["running_mean"].shape == (splits * 6,)
 
 
 def _argv(out, nproc, *opts):

@@ -172,3 +172,53 @@ def test_grad_norm_is_optax_global_norm(shapes):
     ref = optax.global_norm([jnp.asarray(t) for t in tensors])
     out = optimizer.global_norm(torch.from_numpy(t) for t in tensors)
     np.testing.assert_allclose(float(out), float(ref), rtol=1e-6)
+
+
+def test_norms_keep_float64():
+    """The float64 step's norms stay float64 (the repair of the contrastive
+    steps' float64 residue, PERF.md section 6): ``global_norm`` of float64
+    tensors is float64 and exact, of float32 ones float32 as before; LARS's
+    trust ratio sums its norms in float64 and comes back in the update's
+    dtype."""
+    rng = np.random.default_rng(4)
+    arrays = [rng.normal(size=s) for s in [(300, 700), (50,)]]
+    exact = np.sqrt(sum(float(np.square(a).sum()) for a in arrays))
+    out = optimizer.global_norm(torch.from_numpy(a) for a in arrays)
+    assert out.dtype == torch.float64
+    np.testing.assert_allclose(float(out), exact, rtol=1e-14)
+    out32 = optimizer.global_norm(torch.from_numpy(a.astype(np.float32)) for a in arrays)
+    assert out32.dtype == torch.float32
+    np.testing.assert_allclose(float(out32), exact, rtol=1e-6)
+
+    p, u = (torch.from_numpy(a.astype(np.float32)) for a in
+            (rng.normal(size=(2048, 1000)), 1e-3 * rng.normal(size=(2048, 1000))))
+    ratio = optimizer._trust_ratio(p, u)
+    want = np.linalg.norm(p.double().numpy()) / np.linalg.norm(u.double().numpy())
+    assert ratio.dtype == torch.float32
+    assert float(ratio) == float(np.float32(want))
+
+
+def test_batchnorm_eval_of_float64_input_is_float64():
+    """Eval mode reads the float32 running statistics in float64 for a
+    float64 input (the momentum encoder's key forward of MoCo and BYOL):
+    the output is float64's to its own rounding, where a float32 rsqrt of
+    the statistics moved it by 6e-8."""
+    from pmv_tpu_torch.models.batchnorm import BatchNorm
+
+    gen = torch.Generator().manual_seed(0)
+    for splits in (0, 2):
+        bn = BatchNorm(16, num_splits=splits).eval()
+        with torch.no_grad():
+            bn.running_mean.normal_(generator=gen)
+            bn.running_var.uniform_(0.5, 1.5, generator=gen)
+            bn.weight.uniform_(0.5, 1.5, generator=gen)
+        x = torch.randn(4, 3, 16, generator=gen, dtype=torch.float64)
+        m, v = bn.running_mean.double(), bn.running_var.double()
+        if splits:
+            m, v = m.reshape(splits, 16), v.reshape(splits, 16)
+            m, v = m.mean(0), (v + m.square()).mean(0) - m.mean(0).square()
+        want = (x - m) / torch.sqrt(v + 1e-5) * bn.weight.double() + bn.bias.double()
+        with torch.no_grad():
+            got = bn(x)
+        assert got.dtype == torch.float64
+        torch.testing.assert_close(got, want, atol=1e-13, rtol=1e-13)

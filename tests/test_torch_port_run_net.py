@@ -122,14 +122,12 @@ def test_run_net_refuses_without_cuda_unless_asked_for_the_cpu(tmp_path):
 
 
 UNPORTED = {
-    "multigrid": ("MULTIGRID.LONG_CYCLE", True),
     # The writer is ported; its model visualization is not.
     "tensorboard": ("TENSORBOARD.ENABLE", True, "TENSORBOARD.MODEL_VIS.ENABLE", True),
     "detection": ("DETECTION.ENABLE", True),
     # SSL trains over several processes under dp only.
     "ssl": ("MODEL.MODEL_NAME", "ContrastiveModel", "NUM_GPUS", "2", "TPU.SHARD_STRATEGY",
             "fsdp"),
-    "profiler": ("TPU.PROFILE_DIR", "/tmp/trace"),
 }
 
 

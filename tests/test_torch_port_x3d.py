@@ -377,13 +377,19 @@ def test_init_matches_jax_init_per_kind():
 
 
 def test_norm_types():
+    """batchnorm and sync_batchnorm make the one BatchNorm (global batch
+    statistics); sub_batchnorm a SubBatchNorm of BN.NUM_SPLITS splits in
+    the blocks, the stem's and the head's norms plain, as in the JAX
+    package."""
     cfg = port_cfg(tiny_x3d_cfg())
     for norm_type in ("batchnorm", "sync_batchnorm"):
         cfg.BN.NORM_TYPE = norm_type
-        assert get_norm(cfg) is BatchNorm
-    cfg.BN.NORM_TYPE = "sub_batchnorm"
-    with pytest.raises(NotImplementedError, match="sub_batchnorm"):
-        build_model(cfg, device="cpu")
+        norm = get_norm(cfg)(4)
+        assert type(norm) is BatchNorm and norm.num_splits == 0
+    cfg.BN.NORM_TYPE, cfg.BN.NUM_SPLITS = "sub_batchnorm", 2
+    model = build_model(cfg, device="cpu")
+    splits = {name: m.num_splits for name, m in model.named_modules() if isinstance(m, BatchNorm)}
+    assert splits["s1.pathway0_stem.bn"] == 0 and 2 in splits.values()
     cfg.BN.NORM_TYPE = "batchnorm"
     cfg.RESNET.TRANS_FUNC = "tf_bottleneck_transform"  # AVSlowFast's audio blocks
     with pytest.raises(NotImplementedError, match="tf_bottleneck_transform"):

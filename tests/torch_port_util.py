@@ -627,6 +627,22 @@ def rank_cases(rank, world, case_dir):
                  "x_grad": distributed.gather_host([x.grad.numpy()])[0],
                  "param_grads": [distributed.all_reduce_sum(g) for g in params],
                  "state": {k: v.clone() for k, v in bn.state_dict().items()}}
+
+    # (e): SubBatchNorm's splits of the global batch, on this rank's rows.
+    case = cases["sub_bn"]
+    b = case["x"].shape[0] // world
+    out["sub_bn"] = {}
+    for splits in case["splits"]:
+        bn = BatchNorm(case["x"].shape[-1], num_splits=splits)
+        bn.load_state_dict(case["state_dicts"][splits])
+        x = case["x"][rank * b:(rank + 1) * b].clone().requires_grad_()
+        y = bn.train()(x)
+        (y * case["weight"][rank * b:(rank + 1) * b]).sum().backward()
+        out["sub_bn"][splits] = {
+            "y": distributed.gather_host([y.detach().numpy()])[0],
+            "x_grad": distributed.gather_host([x.grad.numpy()])[0],
+            "param_grads": [distributed.all_reduce_sum(g) for g in (bn.weight.grad, bn.bias.grad)],
+            "state": {k: v.clone() for k, v in bn.state_dict().items()}}
     if rank == 0:
         torch.save(out, case_dir / "results.pt")
 
