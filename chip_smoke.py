@@ -40,9 +40,9 @@ Phases, in order; any failure raises and exits non-zero:
 4. Serve 4 synthetic videos x 2 temporal views x 3 spatial crops through
    the multi-view test loop in bfloat16 at batch 8 (a main path: launch
    counts are zeroed just before it and read just after).
-5. Train: ``train_epoch`` over 1 warm-up and then 5 timed synthetic batches
+5. Train: ``train_epoch`` over 1 warm-up and then 2 timed synthetic batches
    of 8 clips [16, 224, 224, 3] uint8, bfloat16 activations, AdamW, LR 1e-4
-   (a main path: counts zeroed just before the 5 batches and read just
+   (a main path: counts zeroed just before the 2 batches and read just
    after; 34 K1 and 17 wgrad launches per step).
 6. ``run_net`` in this process on configs/Kinetics/MVITv2_S_16x4.yaml with
    the PMV rect recipe (exps/PMV/run_MViT_PMV.sh), the Synthetic dataset,
@@ -69,7 +69,7 @@ with a DPE conv on K1, 18 a forward:
    cross rows, so the step runs the whole batch in both orientations).
 4u. Serve 4 videos x 4 temporal views x 1 crop at 224^2 (the recipe's
    test protocol) in bfloat16 at batch 8 (a main path).
-5u. Train 5 timed batch-8 bfloat16 steps through ``train_epoch`` (a main
+5u. Train 2 timed batch-8 bfloat16 steps through ``train_epoch`` (a main
    path).
 6u-7u. ``run_net`` on configs/Kinetics/UNIFORMER_S_16x4.yaml with the
    rect 256x192 run of exps/PMV/run_Uniformer_PMV.sh, the Synthetic
@@ -100,7 +100,7 @@ run on K1, C = 54 and 108 through the wrappers' channel pad:
 4x. Serve 4 videos x 2 temporal views x the recipe's 3 spatial crops of
    256^2 in bfloat16 at batch 8 (a main path; the views cut from 10 to 2,
    as phase 4 cuts MViT's).
-5x. Train 5 timed batch-8 bfloat16 steps at 224^2 through ``train_epoch``
+5x. Train 2 timed batch-8 bfloat16 steps at 224^2 through ``train_epoch``
    (a main path).
 6x-7x. ``run_net`` on configs/Kinetics/X3D_M.yaml with the rect_256_192
    run of exps/PMV/run_X3D_PMV.sh, the Synthetic dataset, batch 8 (8 clips
@@ -121,23 +121,61 @@ K1: each of its phases asserts 0 K1 and 0 wgrad launches):
    own floor lies above the 1e-4 gates even with them held
    (``grad_witness.FLOAT64_HELD``): the float32 gradients are held to
    ``RELU_LIMITS``, the held readings and precise BN's float32 statistics
-   printed, and each train step (at 16 of the 32 frames) and precise BN
+   printed, and each train step (at 8 of the 32 frames) and precise BN
    run again in float64 on card and CPU under every 1e-4 gate.
 4s. Serve 4 videos x 2 temporal views x the recipe's 3 spatial crops of
    256^2 in bfloat16 at batch 8 (a main path; the views cut from 10 to 2).
-5s. Train 5 timed batch-8 bfloat16 steps at 224^2 through ``train_epoch``
+5s. Train 2 timed batch-8 bfloat16 steps at 224^2 through ``train_epoch``
    (a main path).
 6s-7s. ``run_net`` on configs/Kinetics/SLOWFAST_8x8_R50.yaml with the
    rect_256_192 data options of exps/PMV/run_X3D_PMV.sh, the Synthetic
    dataset, batch 8, one epoch: train, precise BN, checkpoint, eval, test 2
    views of 256^2; the restore, every tensor compared; the resume with
    SOLVER.MAX_EPOCH 2 (main paths).
+ir-CSN-101 32x2 (configs/Kinetics/CSN_32x2_R101.yaml, 22,213,776
+parameters: 30 stride-1 depthwise conv_bs a forward on K1) and R(2+1)D-50
+16x4 (configs/Kinetics/R2PLUS1D_16x4_R50.yaml, 46,979,120 parameters, 0
+K1), full width and depth, random weights from a seed; the image MViTv2-S
+(configs/ImageNet/MVITv2_S.yaml); SlowFast 16x8 R50 on Charades:
+2n. Phase 2 also holds both kernels at CSN-101's four conv_b shapes at
+   batch 8 on 32 x 224^2 (grid "csn") and on the 256^2 test crop that
+   serving and run_net's test give K1 (grid "csn_test"), bfloat16 and
+   float32.
+3n. (Run with phase 3.) CSN-101 at batch 1 on 16 of its 32 frames (the
+   CPU reference's time), float32, card against CPU: the eval step (30
+   K1), one SGD train step (60 K1, 30 wgrad), the gradients to
+   ``grad_witness.RELU_LIMITS["CSN"]`` free and, with the CPU's ReLU
+   decisions held, to ``HELD_LIMITS["CSN"]`` (its float32 floor against
+   float64 lies above 1e-4), the running statistics to
+   ``STATS_LIMITS["CSN"]``; K1 takes no float64, so no float64 rerun.
+3r. R(2+1)D-50 the same at batch 1 on its 16 frames (0 K1), then the step
+   again in float64 on 8 frames under every 1e-4 gate (``FLOAT64_HELD``).
+3i. The image MViTv2-S (PATCH_2D, 1 frame of 224^2, 1000 classes): eval
+   and one AdamW step at batch 2 under MViT's 1e-4 gates, 0 K1.
+4n-5n. Each of CSN-101 and R(2+1)D-50 serves 4 videos x 2 views x 3 crops
+   of 256^2, then trains 3 timed batch-8 bfloat16 steps through
+   ``train_epoch`` (main paths), then 2 more under the profiler: ms a step,
+   clips/s, peak memory, the device's busy share and K1's and wgrad's
+   shares of it.
+6n. ``run_net`` on the CSN yaml (Synthetic, batch 8, one epoch: train,
+   precise BN, checkpoint, eval, a 2-view test of 256^2), the restore,
+   every tensor compared, and the resume with SOLVER.MAX_EPOCH 2 (main
+   paths; log in ``build/chip_smoke_run_net_csn/stdout.log``). 6r: one
+   ``run_net`` epoch of the R(2+1)D yaml, no resume.
+6h. A Charades frame dump from a seed in ``build/chip_smoke_charades/`` (16
+   videos of 140 JPEG frames of 340x256, 1-3 of 157 classes a frame), then
+   ``run_net`` on configs/Charades/SLOWFAST_16x8_R50.yaml at full width
+   (64 frames, bce_logit, 2 views x 3 crops of the test ensembled by max),
+   overriding only the data paths, NUM_GPUS 1, batch 8,
+   TRAIN.CHECKPOINT_FILE_PATH "", one epoch and the test's views (the
+   yaml's 10 cut to 2): the eval epoch's mAP and the test's (a main path,
+   0 K1).
 Multigrid training of SlowFast 8x8 R50
 (configs/Kinetics/SLOWFAST_8x8_R50_stepwise_multigrid.yaml: long and short
 cycles, SubBatchNorm, the BatchNorm swap across cycles; 0 K1 launches):
 3g. (Run with phase 3.) SubBatchNorms of 2 splits, one float32 SGD step at
    batch 4, card against CPU under phase 3s's gates (and again in float64
-   at 16 frames),
+   at 8 frames),
    the split running statistics to rtol 1e-4; then the norms swapped to
    plain BatchNorm and back on both sides: the card's converted statistics
    equal to the same conversion, on the CPU, of the card's own.
@@ -181,7 +219,7 @@ model's count; random weights from a seed), whose blocks 14-15 keep the
    otherwise, printed).
 4m. The bf16 masked step at batch 8, timed alone: ms a step, clips/s, peak
    memory, K1's and wgrad's launches and their share of the step.
-5m. 5 steps of ``train_ssl``'s loop body (``train_epoch`` over the masked
+5m. 2 steps of ``train_ssl``'s loop body (``train_epoch`` over the masked
    step) at batch 8 in bfloat16 (a main path).
 6m. ``run_net`` on the PT yaml (one process, batch 8, ``Synthetic``: the
    model draws its masks) for one epoch, its checkpoint; the restore as
@@ -207,16 +245,17 @@ is on K1, 0 launches asserted):
    bank) and colour draws: its encoder's parameter count equal to the JAX
    model's (``SSL_PARAMS``); MoCo in float32 (the gradients to
    ``grad_witness.RELU_LIMITS["Slow"]``, the readings with the CPU's ReLU
-   decisions held printed), then every yaml in float64 under the 1e-4
-   gates: loss, grad norm, gradients, the weights' updates, BatchNorm
-   statistics, the momentum encoder, the queue and its pointer, the bank.
+   decisions held printed), then every yaml in float64 on 4 of the 8
+   frames (``SSL_FLOAT64_FRAMES``) under the 1e-4 gates: loss, grad norm,
+   gradients, the weights' updates, BatchNorm statistics, the momentum
+   encoder, the queue and its pointer, the bank.
 3cx. A SimCLR ContrastiveModel on X3D-M's backbone (X3D_M.yaml with the
    SimCLR yaml's contrastive options): one float32 step at batch 2, card
    against CPU, the CPU's ReLU decisions held as for X3D-M; 88 K1 and 44
    wgrad launches (two train forwards and their backward).
 4c. The MoCo yaml's bf16 step at batch 8 (8 videos of two views), timed
    alone: ms, clips/s, peak memory.
-5c. 5 steps of ``train_epoch`` over the MoCo step at batch 8 (a main path).
+5c. 2 steps of ``train_epoch`` over the MoCo step at batch 8 (a main path).
 6c. ``run_net`` on the MoCo yaml (one process, batch 8, ``Synthetic``,
    the kNN monitor each epoch, a 1-view test), the restore as
    ``train_ssl`` makes it (every tensor, the queue, bank and momentum
@@ -239,9 +278,9 @@ Distributed (``pmv_tpu_torch/parallel/distributed.py``):
    --init_method`` with NUM_GPUS 1 and gloo, both processes on the one card:
    UniFormer-S's rect recipe in float32 for one epoch (``launch_job``,
    ``train()`` with ``dp``, the gathered eval, the checkpoint written by rank
-   0, the gathered test), its test_final against one process's at twice a
-   process's batch, then a resume (main paths, counted in each rank's
-   process). 8b: a world of one over NCCL: MViTv2-S at batch 8, the ``dp``
+   0, the gathered test; 32 Synthetic videos), its test_final against one
+   process's at twice a process's batch, then a resume (main paths, counted
+   in each rank's process); its processes run while 8d's do. 8b: a world of one over NCCL: MViTv2-S at batch 8, the ``dp``
    and the ``fsdp`` step against the unwrapped step under phase 3b's gates
    in float32, and in bfloat16 within BF16_WRAPPER_LIMIT beside a second
    unwrapped run's reading (atomic sums make bfloat16 gradients differ from
@@ -259,7 +298,9 @@ Distributed (``pmv_tpu_torch/parallel/distributed.py``):
    last {"ok": true, "device": {...}}.
 
 FFmpeg's development files are not on the card's machine, so no phase
-decodes video there; ``run_net`` reads the Synthetic dataset.
+decodes video there; ``run_net`` reads the Synthetic dataset (32 videos in
+the earlier slices' phases 6-7, 6u-7u, 6x-7x, 6s-7s, 6m-7m, 6c and 8c,
+``synthetic_videos``; its 64 elsewhere), and 6h JPEG frames it writes.
 
 Without a CUDA device, or without the package beside it, it exits non-zero
 and prints no result.
@@ -274,6 +315,7 @@ import os
 import re
 import shutil
 import sys
+import threading
 import time
 
 import numpy as np
@@ -326,6 +368,16 @@ MASKFEAT_BATCH = 8  # clips a bf16 step (phases 4m-6m)
 # Slow 8x8 R50, the contrastive yamls' backbone, and its supervised yaml.
 SLOW_CFG = os.path.join(ROOT, "configs", "Kinetics", "SLOW_8x8_R50.yaml")
 SLOW_K1 = 0  # Slow R50's convs: none is a stride-1 3x3x3 depthwise conv
+# ir-CSN-101 and R(2+1)D-50 (the ported PyTorchVideo recipes), the image
+# MViTv2-S on ImageNet, and SlowFast 16x8 R50 on Charades.
+CSN_CFG = os.path.join(ROOT, "configs", "Kinetics", "CSN_32x2_R101.yaml")
+R2PLUS1D_CFG = os.path.join(ROOT, "configs", "Kinetics", "R2PLUS1D_16x4_R50.yaml")
+IMAGENET_MVIT_CFG = os.path.join(ROOT, "configs", "ImageNet", "MVITv2_S.yaml")
+CHARADES_CFG = os.path.join(ROOT, "configs", "Charades", "SLOWFAST_16x8_R50.yaml")
+CSN_K1 = 30  # the stride-1 conv_bs: 3 + 3 + 22 + 2
+R2PLUS1D_K1 = 0  # its conv_b is factored into 1x3x3 and 3x1x1 convs
+IMAGENET_MVIT_K1 = 0  # its pools are 1x3x3
+CSN_CPU_FRAMES = 16  # the card-against-CPU steps' frames (of the yaml's 32)
 
 
 def step_launches(per_forward):
@@ -337,8 +389,12 @@ def eval_launches(per_forward):
     return {"depthwise3x3x3": per_forward, "depthwise3x3x3_wgrad": 0}
 
 
+_LOG_LOCK = threading.Lock()  # phase 8c logs from a thread of its own
+
+
 def log(msg):
-    print(msg, flush=True)
+    with _LOG_LOCK:
+        print(msg, flush=True)
 
 
 def float32_without_tf32():
@@ -384,8 +440,10 @@ def _kernel_cases():
     16 ("rect_b16", "portrait_b16"); UniFormer-S 16x4's DPE shapes on the
     same grids at batch 8 and 16 ("uni_square" ... "uni_portrait_b16");
     X3D-M's channelwise-conv shapes at batch 8 ("x3d_square", "x3d_rect",
-    "x3d_portrait", "x3d_test" at 256^2); then the odd shapes, and those
-    whose C the wrappers pad ("padded_odd")."""
+    "x3d_portrait", "x3d_test" at 256^2), ir-CSN-101's conv_b shapes at
+    batch 8 on 32 x 224^2 ("csn") and on its 256^2 test crop ("csn_test");
+    then the odd shapes, and those whose C the wrappers pad
+    ("padded_odd")."""
     from pmv_tpu_torch.ops.depthwise import (
         MVIT_POOL_SHAPES,
         MVIT_PORTRAIT_POOL_SHAPES,
@@ -402,6 +460,8 @@ def _kernel_cases():
         X3D_PORTRAIT_DW_SHAPES,
         X3D_RECT_DW_SHAPES,
         X3D_TEST_DW_SHAPES,
+        CSN_DW_SHAPES,
+        CSN_TEST_DW_SHAPES,
     )
 
     uniformer = (UNIFORMER_DPE_SHAPES + UNIFORMER_RECT_DPE_SHAPES
@@ -417,6 +477,8 @@ def _kernel_cases():
             (X3D_DW_SHAPES, "square"), (X3D_RECT_DW_SHAPES, "rect"),
             (X3D_PORTRAIT_DW_SHAPES, "portrait"), (X3D_TEST_DW_SHAPES, "test"))
            for s, n in shapes]
+        + [(s, n, "csn") for s, n in CSN_DW_SHAPES]
+        + [(s, n, "csn_test") for s, n in CSN_TEST_DW_SHAPES]
         + [(s, 0, "odd") for s in ODD_SHAPES]
         + [(s, 0, "padded_odd") for s in PADDED_ODD_SHAPES]
     )
@@ -645,6 +707,59 @@ def slowfast_cfg():
     return cfg
 
 
+def csn_cfg(path=CSN_CFG):
+    """ir-CSN-101 32x2 (or, given its yaml, R(2+1)D-50 16x4) with its
+    recipe (SGD with Nesterov momentum, head dropout 0.5, LR 0.1), and its
+    test protocol of 3 crops of 256^2 with the views cut from 10 to 2."""
+    from pmv_tpu_torch.config import get_cfg
+
+    cfg = get_cfg()
+    cfg.merge_from_file(path)
+    cfg.TEST.NUM_ENSEMBLE_VIEWS = 2
+    return cfg
+
+
+def imagenet_mvit_cfg():
+    """The image MViTv2-S (PATCH_2D, 1 frame of 224^2, 1000 classes) with its
+    recipe (RandAugment, MixUp/CutMix, AdamW with clipping)."""
+    from pmv_tpu_torch.config import get_cfg
+
+    cfg = get_cfg()
+    cfg.merge_from_file(IMAGENET_MVIT_CFG)
+    return cfg
+
+
+@contextlib.contextmanager
+def synthetic_videos(n):
+    """Within the block, the Synthetic dataset holds ``n`` videos (its
+    ``NUM_VIDEOS``, the JAX package's 64 outside): the run_net epochs of
+    the earlier slices' paths at 32 keep the script's wall time under 600
+    s."""
+    from pmv_tpu_torch.data.synthetic import Synthetic
+
+    before = Synthetic.NUM_VIDEOS
+    Synthetic.NUM_VIDEOS = n
+    try:
+        yield
+    finally:
+        Synthetic.NUM_VIDEOS = before
+
+
+EARLIER_RUN_NET_VIDEOS = 32
+# The float64 reruns' frames, evenly strided from the batch's: the
+# supervised steps' (SlowFast's 32, R(2+1)D's 16) and the contrastive
+# steps' (Slow's 8). The same gates at a fraction of the CPU's float64 time.
+FLOAT64_FRAMES = 8
+SSL_FLOAT64_FRAMES = 4
+
+
+def _fewer_frames(frames, t):
+    """``t`` frames of ``frames`` (time on axis -4: [B, T, H, W, C] or
+    [B, V, T, H, W, C]), every (T // t)-th from the first."""
+    every = slice(None, None, frames.shape[-4] // t)
+    return frames[(slice(None),) * (frames.ndim - 4) + (every,)]
+
+
 def _launch_counts():
     from pmv_tpu_torch.ops.depthwise import depthwise3x3x3, depthwise3x3x3_wgrad
 
@@ -662,15 +777,28 @@ def _launches_since(before):
     return {k: v - before[k] for k, v in _launch_counts().items()}
 
 
+_SEEDED = {}  # (config, dtype) -> the CPU model of build_model(..., seed=0)
+
+
+def seeded_model(cfg, device, dtype=None):
+    """``build_model(cfg, device, dtype, seed=0)``: a copy of that model,
+    whose seeded init (drawn on the CPU, seconds at full width) is drawn
+    once for each config and dtype; the phases build the same ones again
+    and again."""
+    from pmv_tpu_torch.models import build_model
+    from pmv_tpu_torch.models.build import compute_dtype
+
+    dtype = compute_dtype(cfg) if dtype is None else dtype
+    key = (cfg.dump(), dtype)
+    if key not in _SEEDED:
+        _SEEDED[key] = build_model(cfg, device="cpu", dtype=dtype, seed=0)
+    return copy.deepcopy(_SEEDED[key]).to(device)
+
+
 def _models_card_and_cpu(cfg, dtype=torch.float32):
     """Models from one seeded init, on the CPU and on the card, computing in
     ``dtype`` (float32 weights)."""
-    from pmv_tpu_torch.models import build_model
-
-    cpu_model = build_model(cfg, device="cpu", dtype=dtype, seed=0)
-    gpu_model = build_model(cfg, device="cuda", dtype=dtype, seed=0)
-    gpu_model.load_state_dict(cpu_model.state_dict(), strict=True)
-    return cpu_model, gpu_model
+    return seeded_model(cfg, "cpu", dtype), seeded_model(cfg, "cuda", dtype)
 
 
 def _running_stats(model):
@@ -707,18 +835,24 @@ def _train_step_card_vs_cpu(phase, cfg, batch, expected, models=None, dtype=torc
     the same weights and draws, activations in ``dtype``; raises unless they
     agree and the card's step launched ``expected``. The gradients (relative
     L2) and the grad norm are held to 1e-4; for a model in
-    ``grad_witness.RELU_LIMITS`` (X3D-M, SlowFast) in float32 the gradients
-    to its limit and the grad norm not at all, and then the card's step
-    again, from the same weights, with every ReLU taking the CPU step's
-    decisions, both to 1e-4; for a model in ``grad_witness.FLOAT64_HELD``
-    (SlowFast) that step's readings are printed, and the step is run again in
-    float64 on both sides on every other frame of the batch, every gate at
-    1e-4."""
+    ``grad_witness.RELU_LIMITS`` (X3D-M, SlowFast, CSN, R(2+1)D; the key
+    ``witness_key``) in float32 the gradients to its limit and the grad
+    norm not at all, and then the card's step again, from the same weights,
+    with every ReLU taking the CPU step's decisions, both to 1e-4 (CSN to
+    its ``HELD_LIMITS``); the running statistics to 1e-6 beyond rtol 1e-4
+    (in float32, CSN and R(2+1)D to their ``STATS_LIMITS``); for a model in
+    ``grad_witness.FLOAT64_HELD`` (SlowFast, R(2+1)D) that step's readings
+    are printed, and the step is run again in float64 on both sides on
+    ``FLOAT64_FRAMES`` of the batch's frames, every gate at 1e-4."""
     from pmv_tpu_torch.engine.steps import init_state, make_train_step
-    from pmv_tpu_torch.tools.grad_witness import FLOAT64_HELD, RELU_LIMITS, relu_decisions
+    from pmv_tpu_torch.tools.grad_witness import (
+        FLOAT64_HELD, HELD_LIMITS, RELU_LIMITS, STATS_LIMITS, relu_decisions, stats_distance,
+        witness_key)
 
     lr = cfg.SOLVER.BASE_LR
-    name = cfg.MODEL.MODEL_NAME
+    name = witness_key(cfg)
+    held_limit = HELD_LIMITS.get(name, 1e-4)
+    stats_limit = STATS_LIMITS.get(name, 1e-6) if dtype == torch.float32 else 1e-6
     free = dtype == torch.float32 and name in RELU_LIMITS  # ReLUs that jump
     cpu_model, gpu_model = models or _models_card_and_cpu(cfg, dtype)
     before = {k: v.detach().clone() for k, v in cpu_model.state_dict().items()}
@@ -770,20 +904,21 @@ def _train_step_card_vs_cpu(phase, cfg, batch, expected, models=None, dtype=torc
         "params_off_by_1e-6": n_off, "params": n_params, "params_moved": moved,
         "bn_stats": n_stats, "bn_stats_moved": stats_moved,
         "bn_stats_max_abs_err": stats_abs, "bn_stats_err_over_rtol": stats_err,
+        "bn_stats_limit": stats_limit,
+        "bn_stats_furthest": stats_distance(_running_stats(gpu_model),
+                                            _running_stats(cpu_model))["tensor"],
         "gpu_first_call_s": gpu_s, "cpu_s": cpu_s,
     }
     held = None
     if free:
         # The card's step again from the same weights, deciding each ReLU as
         # the CPU step did.
-        from pmv_tpu_torch.models import build_model
-
-        held_model = build_model(cfg, device="cuda", dtype=torch.float32, seed=0)
+        held_model = seeded_model(cfg, "cuda", torch.float32)
         held_model.load_state_dict(before, strict=True)
         with relu_decisions(cpu_decisions) as card_decisions:
             held = gpu_step(init_state(cfg, held_model), batch, lr, draws)
         rec["relu_decisions_held"] = {
-            "grad_rel_err": _grad_rel_err(_grads(held_model), cpu_grads),
+            "limit": held_limit, "grad_rel_err": _grad_rel_err(_grads(held_model), cpu_grads),
             "grad_norm": float(held["grad_norm"]),
             "relu_elements": sum(int(m.numel()) for m in cpu_decisions.masks),
             "card_decisions_otherwise": card_decisions.taken_otherwise,
@@ -800,10 +935,12 @@ def _train_step_card_vs_cpu(phase, cfg, batch, expected, models=None, dtype=torc
     if grad_rel > grad_limit:
         raise AssertionError(f"gradients differ by {grad_rel} (relative L2), over {grad_limit}")
     if held is not None and name not in FLOAT64_HELD:
-        torch.testing.assert_close(held["grad_norm"].cpu(), cpu["grad_norm"], atol=0, rtol=1e-4)
-        if rec["relu_decisions_held"]["grad_rel_err"] > 1e-4:
+        torch.testing.assert_close(held["grad_norm"].cpu(), cpu["grad_norm"], atol=0,
+                                   rtol=held_limit)
+        if rec["relu_decisions_held"]["grad_rel_err"] > held_limit:
             raise AssertionError(f"with the CPU's ReLU decisions the gradients differ by "
-                                 f"{rec['relu_decisions_held']['grad_rel_err']}, over 1e-4")
+                                 f"{rec['relu_decisions_held']['grad_rel_err']}, over "
+                                 f"{held_limit}")
     if cfg.SOLVER.OPTIMIZING_METHOD == "sgd":
         # SGD's first step is linear in the gradient: lr (1 + momentum) g
         # with Nesterov momentum, plus the weight decay, equal on both
@@ -821,26 +958,26 @@ def _train_step_card_vs_cpu(phase, cfg, batch, expected, models=None, dtype=torc
         )
     if moved < 0.5 * n_params:
         raise AssertionError(f"only {moved} of {n_params} weights moved")
-    if stats_err > 1e-6 or stats_moved < 0.5 * n_stats:
-        raise AssertionError(f"running statistics: {stats_err} over rtol 1e-4, "
-                             f"{stats_moved} of {n_stats} moved")
+    if stats_err > stats_limit or stats_moved < 0.5 * n_stats:
+        raise AssertionError(f"running statistics: {stats_err} over rtol 1e-4 (limit "
+                             f"{stats_limit}), {stats_moved} of {n_stats} moved")
     if free and name in FLOAT64_HELD:
-        # Every other frame (16 of SlowFast's 32): the same step and gates
-        # at half the CPU's float64 time, which keeps the script's wall time
-        # under 600 s.
-        half = dict(batch, frames=batch["frames"][:, ::2])
-        _train_step_card_vs_cpu(phase.replace("_f32_", "_f64_t16_"), cfg, half, expected,
-                                dtype=torch.float64)
+        # FLOAT64_FRAMES evenly strided frames (8 of SlowFast's 32 and of
+        # R(2+1)D's 16): the same step and gates at a fraction of the CPU's
+        # float64 time, which keeps the script's wall time under 600 s.
+        fewer = dict(batch, frames=_fewer_frames(batch["frames"], FLOAT64_FRAMES))
+        _train_step_card_vs_cpu(phase.replace("_f32_", f"_f64_t{FLOAT64_FRAMES}_"), cfg, fewer,
+                                expected, dtype=torch.float64)
 
 
-def phase_train_step_vs_cpu(cfg, per_forward, phase="train_step_f32_b2_card_vs_cpu"):
-    """One full-width float32 train step at batch 2, card against CPU, from
-    the same weights and the same draws."""
+def phase_train_step_vs_cpu(cfg, per_forward, phase="train_step_f32_b2_card_vs_cpu", clips=2):
+    """One full-width float32 train step at batch ``clips``, card against
+    CPU, from the same weights and the same draws."""
     rng = np.random.default_rng(2)
     size = cfg.DATA.TRAIN_CROP_SIZE
     batch = {
-        "frames": rng.integers(0, 256, (2, cfg.DATA.NUM_FRAMES, size, size, 3), np.uint8),
-        "labels": rng.integers(0, cfg.MODEL.NUM_CLASSES, 2),
+        "frames": rng.integers(0, 256, (clips, cfg.DATA.NUM_FRAMES, size, size, 3), np.uint8),
+        "labels": rng.integers(0, cfg.MODEL.NUM_CLASSES, clips),
     }
     _train_step_card_vs_cpu(phase, cfg, batch, step_launches(per_forward))
 
@@ -899,7 +1036,9 @@ def phase_precise_bn(cfg, per_forward, prefix="", dtype=torch.float32, cpu_float
     ``per_forward`` K1 launches a batch. For a model in
     ``grad_witness.FLOAT64_HELD`` (SlowFast) the float32 statistics are
     printed and the gate holds the float64 ones, beside which the CPU's
-    float32 statistics (``cpu_float32``) are read against its float64 ones."""
+    float32 statistics (``cpu_float32``) are read against its float64 ones;
+    both runs then take ``FLOAT64_FRAMES`` of the clips' frames (the CPU's
+    float64 time)."""
     from pmv_tpu_torch.engine.precise_bn import calculate_and_update_precise_bn
     from pmv_tpu_torch.engine.steps import init_state
     from pmv_tpu_torch.tools.grad_witness import FLOAT64_HELD
@@ -908,7 +1047,8 @@ def phase_precise_bn(cfg, per_forward, prefix="", dtype=torch.float32, cpu_float
     cfg.BN.NUM_BATCHES_PRECISE = 2
     rng = np.random.default_rng(6)
     size = cfg.DATA.TRAIN_CROP_SIZE
-    loader = [{"frames": rng.integers(0, 256, (2, cfg.DATA.NUM_FRAMES, size, size, 3), np.uint8)}
+    frames = FLOAT64_FRAMES if cfg.MODEL.MODEL_NAME in FLOAT64_HELD else cfg.DATA.NUM_FRAMES
+    loader = [{"frames": rng.integers(0, 256, (2, frames, size, size, 3), np.uint8)}
               for _ in range(3)]
     cpu_model, gpu_model = _models_card_and_cpu(cfg, dtype)
     before = {k: v.detach().clone() for k, v in cpu_model.state_dict().items()}
@@ -929,7 +1069,7 @@ def phase_precise_bn(cfg, per_forward, prefix="", dtype=torch.float32, cpu_float
     gated = dtype == torch.float64 or cfg.MODEL.MODEL_NAME not in FLOAT64_HELD
     rec = {
         "phase": f"{prefix}precise_bn_{'f64' if dtype == torch.float64 else 'f32'}_card_vs_cpu",
-        "model": cfg.MODEL.MODEL_NAME, "gated": gated,
+        "model": cfg.MODEL.MODEL_NAME, "gated": gated, "frames": frames,
         "batches": cfg.BN.NUM_BATCHES_PRECISE, "launches": launches, "bn_stats_tensors": n_stats,
         "bn_stats_tensors_moved": moved, "bn_stats_max_abs_err": stats_abs,
         "bn_stats_err_over_rtol": stats_err, "gpu_s": gpu_s,
@@ -953,12 +1093,11 @@ def phase_serve(card, cfg, per_forward, prefix=""):
     bfloat16."""
     from pmv_tpu_torch.engine.steps import make_eval_step
     from pmv_tpu_torch.engine.test import perform_test
-    from pmv_tpu_torch.models import build_model
     from pmv_tpu_torch.utils.meters import TestMeter
 
     num_videos, batch = 4, 8
     num_clips = cfg.TEST.NUM_ENSEMBLE_VIEWS * cfg.TEST.NUM_SPATIAL_CROPS
-    model = build_model(cfg, device="cuda", seed=0)  # bfloat16 activations
+    model = seeded_model(cfg, "cuda")  # bfloat16 activations
     eval_step = make_eval_step(cfg, model, device="cuda")
 
     rng = np.random.default_rng(0)
@@ -995,7 +1134,8 @@ def phase_serve(card, cfg, per_forward, prefix=""):
     if preds.shape != (n, cfg.MODEL.NUM_CLASSES) or not torch.isfinite(preds).all():
         raise AssertionError(f"bad class scores: shape {tuple(preds.shape)}")
     np.testing.assert_array_equal(meter.clip_count, [num_clips] * num_videos)
-    if cfg.MODEL.MODEL_NAME in ("MViT", "X3D", "SlowFast"):  # softmax'd; UniFormer's logits
+    if cfg.MODEL.MODEL_NAME in ("MViT", "X3D", "SlowFast", "PTVCSN", "PTVR2plus1D"):
+        # softmax'd; UniFormer's are logits
         torch.testing.assert_close(preds.sum(dim=1), torch.ones(n), atol=1e-3, rtol=0)
         np.testing.assert_allclose(meter.video_preds.sum(axis=1), num_clips, atol=1e-2)
     if launches != eval_launches(per_forward * len(loader)):
@@ -1011,18 +1151,49 @@ def phase_serve(card, cfg, per_forward, prefix=""):
     return launches
 
 
-def phase_train(card, cfg, per_forward, prefix=""):
-    """A main path: train_epoch over synthetic batch-8 clips."""
+def _profiled(steps):
+    """The device's busy share over ``steps`` (callables, each a train step
+    that ends on the host's side), and the share of that busy time in which
+    K1 and the wgrad kernel ran (``tools/profile_eval.py``'s kinds)."""
+    from pmv_tpu_torch.tools.profile_eval import kind_of, union_us
+
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        for step in steps:
+            step()
+        torch.cuda.synchronize()
+        window_us = (time.perf_counter() - t0) * 1e6
+    intervals = {}
+    for evt in prof.events():
+        if (evt.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(evt, "is_user_annotation", False)):
+            intervals.setdefault(kind_of(evt.name), []).append(
+                (evt.time_range.start, evt.time_range.end))
+    busy_us = union_us([iv for ivs in intervals.values() for iv in ivs])
+    if busy_us == 0:
+        raise AssertionError("the profiler saw no CUDA kernel")
+    return {
+        "steps": len(steps), "window_ms_per_step": window_us / len(steps) / 1e3,
+        "busy_ms_per_step": busy_us / len(steps) / 1e3, "busy_share": busy_us / window_us,
+        "k1_share_of_busy": union_us(intervals.get("depthwise3x3x3 (K1)", [])) / busy_us,
+        "wgrad_share_of_busy": union_us(intervals.get("depthwise wgrad", [])) / busy_us,
+    }
+
+
+def phase_train(card, cfg, per_forward, prefix="", timed=2, profile=False):
+    """A main path: train_epoch over ``timed`` synthetic batches of 8 clips
+    after one warm-up batch; with ``profile``, 2 more steps under the
+    profiler after it (``_profiled``)."""
     from pmv_tpu_torch.engine.steps import init_state, make_train_step
     from pmv_tpu_torch.engine.train import train_epoch
-    from pmv_tpu_torch.models import build_model
     from pmv_tpu_torch.utils.meters import TrainMeter
 
     cfg = cfg.clone()
-    timed, batch = 5, 8
+    batch = 8
     cfg.LOG_PERIOD = timed
     cfg.SOLVER.MAX_EPOCH = 1
-    model = build_model(cfg, device="cuda", seed=0)  # bfloat16 activations
+    model = seeded_model(cfg, "cuda")  # bfloat16 activations
     state = init_state(cfg, model)
     step = make_train_step(cfg, device="cuda", seed=0)
     metrics = []
@@ -1037,7 +1208,7 @@ def phase_train(card, cfg, per_forward, prefix=""):
     loader = [
         {"frames": rng.integers(0, 256, (batch, cfg.DATA.NUM_FRAMES, size, size, 3), np.uint8),
          "labels": rng.integers(0, cfg.MODEL.NUM_CLASSES, batch)}
-        for _ in range(1 + timed)
+        for _ in range(1 + max(timed, 2 if profile else 0))
     ]
     t0 = time.perf_counter()
     train_epoch(loader[:1], recording_step, state, TrainMeter(1, cfg), 0, cfg)
@@ -1047,11 +1218,15 @@ def phase_train(card, cfg, per_forward, prefix=""):
     torch.cuda.reset_peak_memory_stats()
     _zero_launch_counts()  # the main path starts here
     t0 = time.perf_counter()
-    train_epoch(loader[1:], recording_step, state, TrainMeter(timed, cfg), 0, cfg)
+    train_epoch(loader[1:1 + timed], recording_step, state, TrainMeter(timed, cfg), 0, cfg)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _launch_counts()  # ... and ends here
     peak = torch.cuda.max_memory_allocated()
+    profiled = None
+    if profile:
+        profiled = _profiled([functools.partial(step, state, b, cfg.SOLVER.BASE_LR)
+                              for b in loader[1:3]])
 
     losses = [float(m["loss"]) for m in metrics]
     grad_norms = [float(m["grad_norm"]) for m in metrics]
@@ -1067,6 +1242,7 @@ def phase_train(card, cfg, per_forward, prefix=""):
         "clips_per_s": timed * batch / wall, "warmup_step_s": warm_s,
         "max_memory_allocated_bytes": peak, "launches": launches,
         "losses": losses, "grad_norms": grad_norms, "steps_taken": state.step,
+        "profile": profiled,
     }))
     return launches
 
@@ -1079,7 +1255,8 @@ def _run_net_opts(recipe):
     views; for UniFormer the recipe's 4 views x 1 crop at 224^2, without
     pretrained weights and TensorBoard; for X3D, and for SlowFast with X3D's
     rect options, 2 of the recipe's 10 views at its 256^2 test crop (1
-    spatial crop, as for the others); for MaskFeat's fine-tuning (FT yaml)
+    spatial crop, as for the others); for CSN and R(2+1)D their yamls'
+    224^2 train and 256^2 test crops, 2 views; for MaskFeat's fine-tuning (FT yaml)
     its own 224^2 crops, a 1-view test and CLEAR_NAME_PATTERN
     ["backbone."]; for Slow R50's fine-tuning from a contrastive checkpoint
     the same, the epoch reset."""
@@ -1094,6 +1271,8 @@ def _run_net_opts(recipe):
         return common + ["DATA.TEST_CROP_SIZE_RECT", rect, "TEST.NUM_ENSEMBLE_VIEWS", "2"]
     if recipe in ("x3d", "slowfast"):
         return common + ["TEST.NUM_ENSEMBLE_VIEWS", "2"]
+    if recipe in ("csn", "r2plus1d"):  # the yamls' own crops; a 2-view test
+        return ["TEST.NUM_ENSEMBLE_VIEWS", "2"]
     if recipe == "maskfeat_ft":  # the FT yaml's own crops; a 1-view test
         return ["TEST.NUM_TEMPORAL_CLIPS", "[]", "TEST.NUM_ENSEMBLE_VIEWS", "1",
                 "TRAIN.CHECKPOINT_CLEAR_NAME_PATTERN", "['backbone.']"]
@@ -1116,6 +1295,8 @@ RUN_NET = {  # recipe -> (config file, K1 launches per forward, clips a train st
     "slowfast": (SLOWFAST_CFG, SLOWFAST_K1, 8),
     "maskfeat_ft": (MASKFEAT_FT_CFG, MASKFEAT_FT_K1, 8),  # 4 videos x AUG.NUM_SAMPLE 2
     "slow_ft": (SLOW_CFG, SLOW_K1, 8),
+    "csn": (CSN_CFG, CSN_K1, 8),
+    "r2plus1d": (R2PLUS1D_CFG, R2PLUS1D_K1, 8),
 }
 
 
@@ -1272,19 +1453,24 @@ def _run_net_call(recipe, out_dir, max_epoch, extra=()):
     }
 
 
-def phase_run_net(card, recipe, out_dir):
+def phase_run_net(card, recipe, out_dir, resume=True):
     """``run_net`` in this process at full width with the PMV rect crop, for
-    one epoch; the restore of its checkpoint, every tensor compared; then
-    ``run_net`` again with SOLVER.MAX_EPOCH 2, which must resume from that
-    checkpoint. Returns the launches of both calls."""
+    one epoch; with ``resume``, the restore of its checkpoint, every tensor
+    compared, then ``run_net`` again with SOLVER.MAX_EPOCH 2, which must
+    resume from that checkpoint. Returns the launches of each call."""
     from contextlib import redirect_stdout
 
     # The runs log to OUTPUT_DIR/stdout.log; keep them off ours. The sink
     # stays open: the port's logger keeps it as its stream after the block.
     with redirect_stdout(open(os.devnull, "w")):
         first = _run_net_call(recipe, out_dir, 1)
-        restored = check_restore(run_net_cfg(run_net_argv(recipe, out_dir, 2)))
-        second = _run_net_call(recipe, out_dir, 2)
+        if resume:
+            restored = check_restore(run_net_cfg(run_net_argv(recipe, out_dir, 2)))
+            second = _run_net_call(recipe, out_dir, 2)
+    if not resume:
+        first.pop("log")
+        log(json.dumps({**first, "card": card}))
+        return [first["launches"]]
     if restored["start_epoch"] != 1 or restored["checkpoint"] != first["checkpoint"]:
         raise AssertionError(f"the restore did not start after epoch 1: {restored}")
     resumed = f"Load from last checkpoint, {first['checkpoint']}."
@@ -1301,6 +1487,135 @@ def phase_run_net(card, recipe, out_dir):
         log(json.dumps({**rec, "card": card}))
     log(json.dumps({"phase": "run_net_restore", "recipe": recipe, **restored}))
     return [first["launches"], second["launches"]]
+
+
+# CSN, R(2+1)D, the image MViTv2-S and Charades (phases 3n, 3r, 3i, 4n-6n,
+# 6r, 6h).
+
+
+def phase_csn_card_vs_cpu():
+    """3n, 3r, 3i: float32 eval and train steps, card against CPU, from one
+    seeded init. ir-CSN-101 at batch 1 on ``CSN_CPU_FRAMES`` of its 32
+    frames (the CPU reference's time; phase 2 holds the kernels at the full
+    32 x 224^2): 30 K1 a forward, 60 K1 and 30 wgrad a train step, its
+    gradients held to ``RELU_LIMITS["CSN"]`` free and to
+    ``HELD_LIMITS["CSN"]`` with the CPU's ReLU decisions held. R(2+1)D-50 at
+    batch 1 on its 16 frames, 0 K1, then in float64 on 8 frames
+    (``FLOAT64_HELD``). The image MViTv2-S at batch 2 under MViT's 1e-4
+    gates, 0 K1 (its pools are 1x3x3)."""
+    rng = np.random.default_rng(1)
+    for name, path, k1 in (("csn", CSN_CFG, CSN_K1), ("r2plus1d", R2PLUS1D_CFG, R2PLUS1D_K1)):
+        cfg = csn_cfg(path)
+        cfg.DATA.NUM_FRAMES = min(cfg.DATA.NUM_FRAMES, CSN_CPU_FRAMES)
+        frames = rng.integers(0, 256, (1, cfg.DATA.NUM_FRAMES, 224, 224, 3), np.uint8)
+        phase_full_model(cfg, frames, k1, f"{name}_full_model_f32_b1")
+        phase_train_step_vs_cpu(cfg, k1, f"{name}_train_step_f32_b1_card_vs_cpu", clips=1)
+    cfg = imagenet_mvit_cfg()
+    phase_full_model(cfg, rng.integers(0, 256, (2, 1, 224, 224, 3), np.uint8),
+                     IMAGENET_MVIT_K1, "imagenet_mvit_full_model_f32_b2")
+    phase_train_step_vs_cpu(cfg, IMAGENET_MVIT_K1, "imagenet_mvit_train_step_f32_b2_card_vs_cpu")
+
+
+CHARADES_VIDEOS = 16
+CHARADES_FRAMES = 140  # a clip spans (64 - 1) x 2 + 1 = 127
+CHARADES_SIZE = (340, 256)  # W x H of the frames
+
+
+def write_charades(root, seed=0):
+    """A Charades frame dump from ``seed``: ``CHARADES_VIDEOS`` videos of
+    ``CHARADES_FRAMES`` JPEG frames (a smooth random picture a video,
+    shifted and brightened frame by frame), train.csv with a random set of
+    1-3 of the 157 classes a frame, val.csv with one set a video (the
+    multi-view test holds a video's labels equal across its views)."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    header = "original_vido_id video_id frame_id path labels"
+    train, val = [header], [header]
+
+    def labels():
+        return ",".join(map(str, sorted(rng.choice(157, rng.integers(1, 4), replace=False))))
+
+    for v in range(CHARADES_VIDEOS):
+        name = f"video{v:03d}"
+        os.makedirs(os.path.join(root, "frames", name), exist_ok=True)
+        base = Image.fromarray(rng.integers(0, 256, (9, 12, 3), np.uint8)).resize(
+            (CHARADES_SIZE[0] + CHARADES_FRAMES, CHARADES_SIZE[1]), Image.BILINEAR)
+        video = labels()
+        for j in range(CHARADES_FRAMES):
+            frame = base.crop((j, 0, j + CHARADES_SIZE[0], CHARADES_SIZE[1]))
+            frame.point(lambda p, j=j: min(255, p + j % 32)).save(
+                os.path.join(root, "frames", name, f"{j:05d}.jpg"), quality=90)
+            path = f"{name}/{j:05d}.jpg"
+            train.append(f'{name} {v} {j} {path} "{labels()}"')
+            val.append(f'{name} {v} {j} {path} "{video}"')
+    for split, rows in (("train", train), ("val", val)):
+        with open(os.path.join(root, f"{split}.csv"), "w") as f:
+            f.write("\n".join(rows) + "\n")
+
+
+def phase_charades(card, root):
+    """6h, a main path: ``run_net`` on configs/Charades/SLOWFAST_16x8_R50.yaml
+    at full width (64 frames, 157 classes, bce_logit, sigmoid, a test of 3
+    crops ensembled by max) over a frame dump from a seed
+    (``write_charades``), overriding only the data paths, NUM_GPUS 1, batch
+    8, TRAIN.CHECKPOINT_FILE_PATH "" (its caffe2 checkpoint is not in the
+    repository), one epoch, and the test's views, cut from the yaml's 10 to
+    2 as in every other phase's test (the host decodes each view's 64
+    JPEGs): the train loss finite, the eval epoch's mAP and the test's mAP
+    in the log, 0 K1 (SlowFast has no K1 conv)."""
+    from contextlib import redirect_stdout
+
+    from pmv_tpu_torch.data.loader import construct_loader
+    from pmv_tpu_torch.tools import run_net
+
+    t0 = time.perf_counter()
+    write_charades(root)
+    write_s = time.perf_counter() - t0
+    out_dir = os.path.join(root, "run")
+    argv = ["--cfg", CHARADES_CFG, "--opts", "DATA.PATH_TO_DATA_DIR", root,
+            "DATA.PATH_PREFIX", os.path.join(root, "frames"), "NUM_GPUS", "1",
+            "TRAIN.BATCH_SIZE", "8", "TEST.BATCH_SIZE", "8", "TRAIN.CHECKPOINT_FILE_PATH", "",
+            "SOLVER.MAX_EPOCH", "1", "TEST.NUM_ENSEMBLE_VIEWS", "2", "OUTPUT_DIR", out_dir]
+    cfg = run_net_cfg(argv)
+    if not (cfg.DATA.MULTI_LABEL and cfg.MODEL.LOSS_FUNC == "bce_logit"
+            and cfg.DATA.ENSEMBLE_METHOD == "max" and cfg.MODEL.NUM_CLASSES == 157
+            and cfg.DATA.NUM_FRAMES == 64):
+        raise AssertionError("the Charades yaml is not the multi-label recipe it was")
+    tests = construct_loader(cfg, "test")
+    with redirect_stdout(open(os.devnull, "w")):
+        torch.cuda.reset_peak_memory_stats()
+        _zero_launch_counts()  # the main path starts here
+        t0 = time.perf_counter()
+        run_net.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _launch_counts()  # ... and ends here
+    with open(os.path.join(out_dir, "stdout.log")) as f:
+        lines = f.read().splitlines()
+    stats = [json.loads(line.split("json_stats: ", 1)[1])
+             for line in lines if "json_stats: " in line]
+    train = [s for s in stats if s.get("_type") == "train_epoch"]
+    val = [s for s in stats if s.get("_type") == "val_epoch"]
+    final = stats[-1]
+    rec = {"phase": "charades_run_net", "card": card, "videos": CHARADES_VIDEOS,
+           "frames_a_video": CHARADES_FRAMES, "write_s": write_s, "wall_s": wall,
+           "test_clips": len(tests.dataset), "test_s": sum(
+               s["time_diff"] for s in stats if s.get("split") == "test_iter"),
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+           "launches": launches, "train_epoch_stats": train, "val_epoch_stats": val,
+           "final_stats": final}
+    rec["test_clips_per_s"] = rec["test_clips"] / rec["test_s"]
+    log(json.dumps(rec))
+    if not (len(train) == 1 and np.isfinite(train[0]["loss"])):
+        raise AssertionError(f"Charades trained no epoch of finite loss: {train}")
+    if not (len(val) == 1 and 0.0 <= val[0].get("map", -1) <= 1.0):
+        raise AssertionError(f"no eval epoch mAP in the Charades log: {val}")
+    if not (final.get("split") == "test_final" and 0.0 <= final.get("map", -1) <= 1.0):
+        raise AssertionError(f"no test_final mAP in the Charades log: {final}")
+    if launches != eval_launches(0):
+        raise AssertionError(f"Charades' SlowFast launched {launches}")
+    return launches
 
 
 # MaskFeat pre-training of MViTv2-S 16x4 (configs/masked_ssl/), phases 3m-7m.
@@ -1499,10 +1814,9 @@ def phase_maskfeat_step(card, records):
     the step (phase 2's ms at these shapes, from ``records``: K1 twice,
     forward and dx)."""
     from pmv_tpu_torch.engine.ssl_steps import init_masked_state, make_masked_train_step
-    from pmv_tpu_torch.models import build_model
 
     cfg = maskfeat_cfg()
-    model = build_model(cfg, device="cuda", seed=0)  # bfloat16 activations
+    model = seeded_model(cfg, "cuda")  # bfloat16 activations
     state = init_masked_state(cfg, model)
     step = make_masked_train_step(cfg, device="cuda", seed=0)
     gen = torch.Generator(device="cuda").manual_seed(8)
@@ -1538,9 +1852,9 @@ def phase_maskfeat_step(card, records):
 
 
 def phase_maskfeat_train(card):
-    """5m, a main path: 5 steps of ``train_ssl``'s loop body
+    """5m, a main path: 2 steps of ``train_ssl``'s loop body
     (``train_epoch`` over the masked step) on synthetic batch-8 clips in
-    bfloat16, after one warm-up step; counts zeroed just before the 5 and
+    bfloat16, after one warm-up step; counts zeroed just before the 2 and
     read just after."""
     from pmv_tpu_torch.engine.ssl_steps import init_masked_state, make_masked_train_step
     from pmv_tpu_torch.engine.train import train_epoch
@@ -1548,7 +1862,7 @@ def phase_maskfeat_train(card):
     from pmv_tpu_torch.utils.meters import TrainMeter
 
     cfg = maskfeat_cfg()
-    timed = 5
+    timed = 2
     cfg.LOG_PERIOD = timed
     cfg.SOLVER.MAX_EPOCH = 1
     model = build_model(cfg, device="cuda", seed=0)
@@ -1901,9 +2215,7 @@ def _ssl_step_card_vs_cpu(phase, cfg, batch, expected, dtype=torch.float32):
         "gpu_first_call_s": gpu_s, "cpu_s": cpu_s,
     }
     if free:
-        from pmv_tpu_torch.models import build_model
-
-        held_model = build_model(cfg, device="cuda", dtype=torch.float32, seed=0)
+        held_model = seeded_model(cfg, "cuda", torch.float32)
         held_model.load_state_dict(before, strict=True)
         with relu_decisions(cpu_decisions) as card_decisions:
             held = gpu_step(init_ssl_state(cfg, held_model), batch, lr, draws)
@@ -1937,8 +2249,10 @@ def _ssl_step_card_vs_cpu(phase, cfg, batch, expected, dtype=torch.float32):
     if over or (rec["queue_ptr"] and rec["queue_ptr"][0] != rec["queue_ptr"][1]):
         raise AssertionError(f"{phase}: the SSL state differs: {over}, {rec['queue_ptr']}")
     if free and key in FLOAT64_HELD:
-        _ssl_step_card_vs_cpu(phase.replace("_f32_", "_f64_"), cfg, batch, expected,
-                              torch.float64)
+        _ssl_step_card_vs_cpu(phase.replace("_f32_", f"_f64_t{SSL_FLOAT64_FRAMES}_"), cfg,
+                              dict(batch, frames=_fewer_frames(batch["frames"],
+                                                               SSL_FLOAT64_FRAMES)),
+                              expected, torch.float64)
     return rec
 
 
@@ -1946,15 +2260,19 @@ def phase_contrastive_card_vs_cpu():
     """3c: each published contrastive yaml at full width, one step at batch
     2 (2 views a video), card against CPU; its encoder's parameter count
     equal to the JAX model's. MoCo in float32 (its gradients held to
-    ``RELU_LIMITS["Slow"]``), then, as for every yaml, in float64 under every
-    1e-4 gate. No conv of Slow R50 is on K1: 0 launches."""
+    ``RELU_LIMITS["Slow"]``), then, as for every yaml, in float64 on
+    ``SSL_FLOAT64_FRAMES`` of the 8 frames under every 1e-4 gate. No conv
+    of Slow R50 is on K1: 0 launches."""
     for name in SSL_CFGS:
         cfg = ssl_cfg(name)
         batch = _ssl_batch(cfg, 3)
-        dtype = torch.float32 if name == "moco" else torch.float64
-        rec = _ssl_step_card_vs_cpu(
-            f"contrastive_{name}_step_{'f32' if name == 'moco' else 'f64'}_b2_card_vs_cpu",
-            cfg, batch, step_launches(SLOW_K1), dtype)
+        if name == "moco":
+            dtype, phase = torch.float32, "f32"
+        else:
+            dtype, phase = torch.float64, f"f64_t{SSL_FLOAT64_FRAMES}"
+            batch["frames"] = _fewer_frames(batch["frames"], SSL_FLOAT64_FRAMES)
+        rec = _ssl_step_card_vs_cpu(f"contrastive_{name}_step_{phase}_b2_card_vs_cpu",
+                                    cfg, batch, step_launches(SLOW_K1), dtype)
         if rec["encoder_params"] != SSL_PARAMS[name]:
             raise AssertionError(f"{name}: {rec['encoder_params']} encoder parameters, the JAX "
                                  f"model has {SSL_PARAMS[name]}")
@@ -1985,10 +2303,9 @@ def phase_contrastive_step(card):
     timed alone (2 warm-up steps, then 5 between synchronizes): ms a step,
     clips/s (a clip is one video with its two views), peak memory; 0 K1."""
     from pmv_tpu_torch.engine.ssl_steps import init_ssl_state, make_ssl_train_step
-    from pmv_tpu_torch.models import build_model
 
     cfg = ssl_cfg("moco")
-    model = build_model(cfg, device="cuda", seed=0)  # bfloat16 activations
+    model = seeded_model(cfg, "cuda")  # bfloat16 activations
     state = init_ssl_state(cfg, model)
     step = make_ssl_train_step(cfg, device="cuda", seed=0)
     batch = _ssl_device_batch(cfg, SSL_BATCH, 8)
@@ -2016,9 +2333,9 @@ def phase_contrastive_step(card):
 
 
 def phase_contrastive_train(card):
-    """5c, a main path: 5 steps of ``train_ssl``'s loop body
+    """5c, a main path: 2 steps of ``train_ssl``'s loop body
     (``train_epoch`` over the MoCo step) on batch-8 bf16 synthetic videos of
-    two views, after one warm-up step; counts zeroed just before the 5 and
+    two views, after one warm-up step; counts zeroed just before the 2 and
     read just after (0 K1)."""
     from pmv_tpu_torch.engine.ssl_steps import init_ssl_state, make_ssl_train_step
     from pmv_tpu_torch.engine.train import train_epoch
@@ -2026,7 +2343,7 @@ def phase_contrastive_train(card):
     from pmv_tpu_torch.utils.meters import TrainMeter
 
     cfg = ssl_cfg("moco")
-    timed = 5
+    timed = 2
     cfg.LOG_PERIOD = timed
     cfg.SOLVER.MAX_EPOCH = 1
     model = build_model(cfg, device="cuda", seed=0)
@@ -2065,8 +2382,9 @@ def phase_contrastive_train(card):
     }))
     if not np.all(np.isfinite(losses + grad_norms)):
         raise AssertionError(f"non-finite losses {losses} or grad norms {grad_norms}")
-    if launches != {k: 0 for k in launches} or int(model.queue_ptr) != 6 * SSL_BATCH:
-        raise AssertionError(f"5 MoCo steps launched {launches}, queue at {model.queue_ptr}")
+    if launches != {k: 0 for k in launches} or int(model.queue_ptr) != (1 + timed) * SSL_BATCH:
+        raise AssertionError(f"{timed} MoCo steps launched {launches}, queue at "
+                             f"{model.queue_ptr}")
     return launches
 
 
@@ -2890,14 +3208,16 @@ def _counted_run_process(local_rank, cfg, init_method, func, device_type):
 
     float32_without_tf32()
     _zero_launch_counts()  # the main path starts here
-    distributed._run_process(local_rank, cfg, init_method, func, device_type)
+    with synthetic_videos(EARLIER_RUN_NET_VIDEOS):
+        distributed._run_process(local_rank, cfg, init_method, func, device_type)
     rank = cfg.SHARD_ID * max(cfg.NUM_GPUS, 1) + local_rank
     _write_counts(f"{os.environ['PMV_SMOKE_COUNTS']}.rank{rank}.json")  # ... and ends here
 
 
 def run_net_counted(counts, argv):
     """``--run-net-counts COUNTS -- ARGV``: ``run_net.main(ARGV)`` in this
-    process, float32 in float32, each process's kernel launches written
+    process on ``EARLIER_RUN_NET_VIDEOS`` Synthetic videos, float32 in
+    float32, each process's kernel launches written
     beside COUNTS: this one's (a world of one runs here) to
     ``COUNTS.main.json``, each rank's that ``launch_job`` spawns to
     ``COUNTS.rank<rank>.json`` (``_counted_run_process`` runs each)."""
@@ -2908,7 +3228,8 @@ def run_net_counted(counts, argv):
     os.environ["PMV_SMOKE_COUNTS"] = counts
     distributed._run_process = _counted_run_process
     _zero_launch_counts()
-    run_net.main(argv)
+    with synthetic_videos(EARLIER_RUN_NET_VIDEOS):
+        run_net.main(argv)
     _write_counts(f"{counts}.main.json")
     return 0
 
@@ -3002,7 +3323,8 @@ def phase_distributed_run_net(card):
     tcp://...`` with NUM_GPUS 1 and gloo, both on the one card
     (``launch_job`` spawns each rank): UniFormer-S's rect recipe at full
     width, float32, for one epoch (train with ``dp``, checkpoint, gathered
-    eval, test), beside one process at twice a process's batch. Each rank's
+    eval, test; ``EARLIER_RUN_NET_VIDEOS`` Synthetic videos), beside one
+    process at twice a process's batch. Each rank's
     launches are counted from 0 in its own process (a main path) and must
     equal the one process's, which must equal the count of its steps' K1
     and wgrad launches; test_final must equal the one process's, the video
@@ -3020,8 +3342,9 @@ def phase_distributed_run_net(card):
     os.makedirs(work_dir)
     one, two = (os.path.join(work_dir, d) for d in ("one", "two"))
     cfg = run_net_cfg(_dist_run_net_argv(one, 1))
-    n_steps, n_evals, n_tests = (len(construct_loader(cfg, split))
-                                 for split in ("train", "val", "test"))
+    with synthetic_videos(EARLIER_RUN_NET_VIDEOS):  # as the processes hold it
+        n_steps, n_evals, n_tests = (len(construct_loader(cfg, split))
+                                     for split in ("train", "val", "test"))
     per_forward = RUN_NET["uniformer"][1]
     expected = {"depthwise3x3x3": 2 * per_forward * n_steps + per_forward * (n_evals + n_tests),
                 "depthwise3x3x3_wgrad": per_forward * n_steps}
@@ -3268,7 +3591,7 @@ def plant_wrapper_faults(card):
 
 
 def kernels_line(records, launches, slowfast_launches, maskfeat_launches,
-                 contrastive_launches, multigrid_launches):
+                 contrastive_launches, multigrid_launches, csn_launches):
     """One entry per kernel: times summed over the launches at the 224^2
     crop's shapes in bfloat16 at batch 8; K1 over one MViTv2-S forward (17
     launches, as many again for dx in a train step), the wgrad kernel over
@@ -3287,7 +3610,13 @@ def kernels_line(records, launches, slowfast_launches, maskfeat_launches,
     paths' (phases 5c-6c, 0: Slow R50 has no K1 conv), the SimCLR step on
     X3D-M's backbone (phase 3cx) and the 2-rank SSL steps (phase 8d);
     "launches_multigrid" the multigrid paths' (phases 4g and 6g, 0: SlowFast
-    has no K1 conv)."""
+    has no K1 conv); "launches_csn" the CSN paths' (phases 4n-6n: 30 K1 a
+    forward, 30 wgrad a train step), and "csn" the sums over ir-CSN-101's
+    30 launches at batch 8 on 32 x 224^2, per dtype, over the same 30 on
+    its 256^2 test crop ("test", per dtype; K1's forward, which the wgrad
+    kernel never sees at that crop but is held there all the same), and
+    over its 22 launches at [8, 8, 14, 14, 256] alone ("s4_22_launches",
+    bf16)."""
     maskfeat = maskfeat_kernel_ms(records)
 
     def entry(name, source, replaces, recs, basis):
@@ -3342,6 +3671,23 @@ def kernels_line(records, launches, slowfast_launches, maskfeat_launches,
                 for g in ("square", "rect", "portrait", "test")
             },
             "maskfeat": maskfeat[name],
+            "launches_csn": csn_launches[name],
+            "csn": {
+                **{dtype: {key: summed(key, [r for r in recs if r["grid"] == "csn"
+                                             and r["dtype"] == dtype])
+                           for key in ("kernel_ms", "kernel_warm_ms", "plain_ms", "bound_ms",
+                                       "library_ms")}
+                   for dtype in ("bfloat16", "float32")},
+                "test": {dtype: {key: summed(key, [r for r in recs if r["grid"] == "csn_test"
+                                                   and r["dtype"] == dtype])
+                                 for key in ("kernel_ms", "kernel_warm_ms", "plain_ms",
+                                             "bound_ms", "library_ms")}
+                         for dtype in ("bfloat16", "float32")},
+                "s4_22_launches": {key: summed(key, [
+                    r for r in grid("csn") if tuple(r["shape"]) == (8, 8, 14, 14, 256)])
+                    for key in ("kernel_ms", "kernel_warm_ms", "plain_ms", "bound_ms",
+                                "library_ms")},
+            },
         }
 
     fwd = [r for r in records if r["kernel"] == "depthwise3x3x3"]
@@ -3412,19 +3758,23 @@ def main():
     from pmv_tpu_torch.entry import mvitv2_s_cfg
 
     tic = time.perf_counter()
+    by_model = {}  # the supervised group's seconds, model by model
     frames = np.random.default_rng(1).integers(0, 256, (1, 16, 224, 224, 3), np.uint8)
     phase_full_model(mvitv2_s_cfg(), frames, MVIT_K1)
     phase_train_step_vs_cpu(_train_cfg(), MVIT_K1)
     phase_portrait_steps(_train_cfg(), MVIT_K1)
+    by_model["mvit"] = time.perf_counter() - tic
     uni = uniformer_cfg()
     phase_full_model(uni, frames, UNIFORMER_K1, "uniformer_full_model_f32_b1")
     phase_train_step_vs_cpu(uni, UNIFORMER_K1, "uniformer_train_step_f32_b2_card_vs_cpu")
     phase_portrait_steps(uni, UNIFORMER_K1, "uniformer_")
+    by_model["uniformer"] = time.perf_counter() - tic - sum(by_model.values())
     x3d = x3d_cfg()
     phase_full_model(x3d, frames, X3D_K1, "x3d_full_model_f32_b1")
     phase_train_step_vs_cpu(x3d, X3D_K1, "x3d_train_step_f32_b2_card_vs_cpu")
     phase_portrait_steps(x3d, X3D_K1, "x3d_")
     phase_precise_bn(x3d, X3D_K1, "x3d_")
+    by_model["x3d"] = time.perf_counter() - tic - sum(by_model.values())
     slowfast = slowfast_cfg()
     frames_32 = np.random.default_rng(1).integers(0, 256, (1, 32, 224, 224, 3), np.uint8)
     phase_full_model(slowfast, frames_32, SLOWFAST_K1, "slowfast_full_model_f32_b1")
@@ -3432,14 +3782,23 @@ def main():
     phase_portrait_steps(slowfast, SLOWFAST_K1, "slowfast_")
     phase_precise_bn(slowfast, SLOWFAST_K1, "slowfast_")
     walls["card_vs_cpu_supervised"] = time.perf_counter() - tic
+    by_model["slowfast"] = walls["card_vs_cpu_supervised"] - sum(by_model.values())
+    walls["card_vs_cpu_supervised_by_model"] = by_model
+    tic = time.perf_counter()
+    phase_csn_card_vs_cpu()
+    walls["card_vs_cpu_csn_r2plus1d_imagenet"] = time.perf_counter() - tic
     tic = time.perf_counter()
     phase_sub_batchnorm_card_vs_cpu()
     walls["card_vs_cpu_sub_batchnorm"] = time.perf_counter() - tic
     tic = time.perf_counter()
     phase_maskfeat_card_vs_cpu()
+    t_3m = time.perf_counter() - tic
     phase_contrastive_card_vs_cpu()
+    t_3c = time.perf_counter() - tic - t_3m
     x3d_ssl_launches = phase_contrastive_x3d()
     walls["card_vs_cpu_ssl"] = time.perf_counter() - tic
+    walls["card_vs_cpu_ssl_by_phase"] = {"3m": t_3m, "3c": t_3c,
+                                         "3cx": walls["card_vs_cpu_ssl"] - t_3m - t_3c}
     tic = time.perf_counter()
 
     # Phases 4 to 7: the main paths; serving, training, and run_net's train,
@@ -3451,23 +3810,44 @@ def main():
     paths = [phase_serve(card, serve_mvit, MVIT_K1), phase_train(card, _train_cfg(), MVIT_K1)]
     out_dir = os.path.join("build", "chip_smoke_run_net")
     shutil.rmtree(out_dir, ignore_errors=True)
-    paths += phase_run_net(card, "mvit", out_dir)
+    with synthetic_videos(EARLIER_RUN_NET_VIDEOS):
+        paths += phase_run_net(card, "mvit", out_dir)
     paths += [phase_serve(card, uni, UNIFORMER_K1, "uniformer_"),
               phase_train(card, uni, UNIFORMER_K1, "uniformer_")]
     out_dir = os.path.join("build", "chip_smoke_run_net_uniformer")
     shutil.rmtree(out_dir, ignore_errors=True)
-    paths += phase_run_net(card, "uniformer", out_dir)
+    with synthetic_videos(EARLIER_RUN_NET_VIDEOS):
+        paths += phase_run_net(card, "uniformer", out_dir)
     paths += [phase_serve(card, x3d, X3D_K1, "x3d_"), phase_train(card, x3d, X3D_K1, "x3d_")]
     out_dir = os.path.join("build", "chip_smoke_run_net_x3d")
     shutil.rmtree(out_dir, ignore_errors=True)
-    paths += phase_run_net(card, "x3d", out_dir)
+    with synthetic_videos(EARLIER_RUN_NET_VIDEOS):
+        paths += phase_run_net(card, "x3d", out_dir)
     slowfast_paths = [phase_serve(card, slowfast, SLOWFAST_K1, "slowfast_"),
                       phase_train(card, slowfast, SLOWFAST_K1, "slowfast_")]
     out_dir = os.path.join("build", "chip_smoke_run_net_slowfast")
     shutil.rmtree(out_dir, ignore_errors=True)
-    slowfast_paths += phase_run_net(card, "slowfast", out_dir)
+    with synthetic_videos(EARLIER_RUN_NET_VIDEOS):
+        slowfast_paths += phase_run_net(card, "slowfast", out_dir)
     paths += slowfast_paths
     walls["main_paths_supervised"] = time.perf_counter() - tic
+    tic = time.perf_counter()
+    csn, r2plus1d = csn_cfg(), csn_cfg(R2PLUS1D_CFG)
+    csn_paths = [phase_serve(card, csn, CSN_K1, "csn_"),
+                 phase_train(card, csn, CSN_K1, "csn_", timed=3, profile=True)]
+    out_dir = os.path.join("build", "chip_smoke_run_net_csn")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    csn_paths += phase_run_net(card, "csn", out_dir)
+    paths += csn_paths
+    paths += [phase_serve(card, r2plus1d, R2PLUS1D_K1, "r2plus1d_"),
+              phase_train(card, r2plus1d, R2PLUS1D_K1, "r2plus1d_", timed=3, profile=True)]
+    out_dir = os.path.join("build", "chip_smoke_run_net_r2plus1d")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    paths += phase_run_net(card, "r2plus1d", out_dir, resume=False)
+    out_dir = os.path.join("build", "chip_smoke_charades")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    paths.append(phase_charades(card, out_dir))
+    walls["main_paths_csn_r2plus1d_charades"] = time.perf_counter() - tic
     tic = time.perf_counter()
     multigrid_paths = [phase_multigrid_shapes(card)]
     dirs = [os.path.join("build", f"chip_smoke_{d}") for d in (
@@ -3483,11 +3863,12 @@ def main():
     maskfeat_paths = [phase_maskfeat_train(card)]
     out_dir = os.path.join("build", "chip_smoke_run_net_maskfeat")
     shutil.rmtree(out_dir, ignore_errors=True)
-    pt_paths, pt_checkpoint = phase_maskfeat_run_net(card, out_dir)
-    maskfeat_paths += pt_paths
-    out_dir = os.path.join("build", "chip_smoke_run_net_maskfeat_ft")
-    shutil.rmtree(out_dir, ignore_errors=True)
-    maskfeat_paths.append(phase_maskfeat_fine_tune(card, pt_checkpoint, out_dir))
+    with synthetic_videos(EARLIER_RUN_NET_VIDEOS):
+        pt_paths, pt_checkpoint = phase_maskfeat_run_net(card, out_dir)
+        maskfeat_paths += pt_paths
+        out_dir = os.path.join("build", "chip_smoke_run_net_maskfeat_ft")
+        shutil.rmtree(out_dir, ignore_errors=True)
+        maskfeat_paths.append(phase_maskfeat_fine_tune(card, pt_checkpoint, out_dir))
     out_dir = os.path.join("build", "chip_smoke_vis_mask")
     shutil.rmtree(out_dir, ignore_errors=True)
     maskfeat_paths.append(phase_maskfeat_vis_mask(card, out_dir))
@@ -3498,11 +3879,14 @@ def main():
     for d in (out_dir, ft_dir):
         shutil.rmtree(d, ignore_errors=True)
     contrastive_paths = [phase_contrastive_train(card)]
-    contrastive_paths += phase_contrastive_run_net(card, out_dir, ft_dir)
+    with synthetic_videos(EARLIER_RUN_NET_VIDEOS):
+        contrastive_paths += phase_contrastive_run_net(card, out_dir, ft_dir)
     paths += contrastive_paths
     walls["main_paths_ssl"] = time.perf_counter() - tic
 
     # Phase 8: the distributed paths.
+    from concurrent.futures import ThreadPoolExecutor
+
     log(json.dumps({"phase": "tensorboard_import",
                     "torch.utils.tensorboard": tensorboard_imports()}))
     def timed(name, fn, *args):
@@ -3512,13 +3896,20 @@ def main():
         return out
 
     paths += [timed("distributed_8a", phase_distributed_gloo)]
-    ssl_dist_launches = timed("distributed_8d", phase_distributed_ssl)
-    paths += timed("distributed_8c", phase_distributed_run_net, card)
+    # 8c's processes spend most of their time starting (two interpreters a
+    # host, gloo, CUDA): they run beside 8d's, from a thread that waits on
+    # them. 8a and 8b, which time their steps, run alone.
+    torch.cuda.empty_cache()
+    with ThreadPoolExecutor(1) as pool:
+        run_net_8c = pool.submit(timed, "distributed_8c", phase_distributed_run_net, card)
+        ssl_dist_launches = timed("distributed_8d", phase_distributed_ssl)
+        paths += run_net_8c.result()
     paths += timed("distributed_8b", phase_distributed_nccl, card)
     launches = {k: sum(p[k] for p in paths) for k in paths[0]}
     slowfast_launches = {k: sum(p[k] for p in slowfast_paths) for k in paths[0]}
     maskfeat_launches = {k: sum(p[k] for p in maskfeat_paths) for k in paths[0]}
     multigrid_launches = {k: sum(p[k] for p in multigrid_paths) for k in paths[0]}
+    csn_launches = {k: sum(p[k] for p in csn_paths) for k in paths[0]}
     contrastive_launches = {
         "main_paths": {k: sum(p[k] for p in contrastive_paths) for k in paths[0]},
         "x3d_simclr_step": x3d_ssl_launches, "distributed_ssl_ranks": ssl_dist_launches}
@@ -3526,7 +3917,7 @@ def main():
     log(json.dumps({"phase": "walls", "seconds": walls}))
     log(json.dumps({"phase": "total", "wall_s": time.perf_counter() - t_start}))
     line = kernels_line(records, launches, slowfast_launches, maskfeat_launches,
-                        contrastive_launches, multigrid_launches)
+                        contrastive_launches, multigrid_launches, csn_launches)
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": card, "records": records, **line}, f, indent=1)

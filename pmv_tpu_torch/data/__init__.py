@@ -1,7 +1,9 @@
 """Host data and on-device training augmentation.
 
 - Datasets (``DATASET_REGISTRY``): ``Kinetics`` (also registered as
-  ``Ptvkinetics``) and ``Synthetic``; the threaded ``loader``.
+  ``Ptvkinetics``), ``Synthetic``, and the frame-list datasets ``Ssv2``
+  (``Ptvssv2``), ``Sth``, ``Charades`` (``Ptvcharades``) and ``Imagenet``
+  (``frame_datasets.py``); the threaded ``loader``.
 - On-device augmentation: RandAugment, random erasing, MixUp/CutMix. Each is
   split into "sample" (the random parameters, drawn from a
   ``torch.Generator`` the train step owns) and "apply" (deterministic given
@@ -10,4 +12,4 @@
 """
 
 from pmv_tpu_torch.data.build import DATASET_REGISTRY, build_dataset  # noqa: F401
-from pmv_tpu_torch.data import kinetics, synthetic  # noqa: F401  (registration)
+from pmv_tpu_torch.data import frame_datasets, kinetics, synthetic  # noqa: F401  (registration)

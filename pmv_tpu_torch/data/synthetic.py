@@ -1,9 +1,9 @@
 """Synthetic video dataset (`pmv_tpu/data/synthetic.py`).
 
-Deterministic random clips at the configured geometry (64 videos; a clip is
-a function of its video's index), so the full train/eval/test stack runs
-without video IO; the same clips and labels as the JAX package's.
-Registered as DATASET 'synthetic'.
+Deterministic random clips at the configured geometry (``NUM_VIDEOS``
+videos, the JAX package's 64; a clip is a function of its video's index),
+so the full train/eval/test stack runs without video IO; the same clips and
+labels as the JAX package's. Registered as DATASET 'synthetic'.
 """
 
 import numpy as np
@@ -13,6 +13,8 @@ from pmv_tpu_torch.data.build import DATASET_REGISTRY
 
 @DATASET_REGISTRY.register(name="Synthetic")
 class Synthetic:
+    NUM_VIDEOS = 64
+
     def __init__(self, cfg, mode):
         assert mode in ["train", "val", "test"]
         self.cfg = cfg
@@ -22,7 +24,7 @@ class Synthetic:
             if mode in ["train", "val"]
             else cfg.TEST.NUM_ENSEMBLE_VIEWS * cfg.TEST.NUM_SPATIAL_CROPS
         )
-        self._num_videos = 64
+        self._num_videos = self.NUM_VIDEOS
         is_test = mode == "test"
         rect = (
             cfg.DATA.TEST_CROP_SIZE_RECT if is_test

@@ -7,6 +7,10 @@ Counterpart of `pmv_tpu/engine/test.py`.
   in the TestMeter. A batch with portrait rows ("pm") hands them to the
   eval step, which runs them through the portrait specialization.
 - ``test_one``: one pass over the test loader, and TEST.SAVE_RESULTS_PATH.
+  With DATA.MULTI_LABEL (Charades) a video's views ensemble by
+  DATA.ENSEMBLE_METHOD ("max" or "sum") and the result is mAP; a video's
+  label vector must be the same in each of its views, as in the JAX
+  package (the TestMeter raises otherwise).
 - ``extract_features``: TEST.FEAT_EXTRACT, pooled features to
   ``OUTPUT_DIR/features.npz``.
 - ``visualize_mask_reconstruction``: VIS_MASK.ENABLE with a MaskMViT,

@@ -49,7 +49,11 @@ Val/mAP when multi-label), as the JAX package's ``train`` does
   that its statistics fit, and the first epoch then moves to its own, as
   the run that wrote it did. ``is_eval_epoch`` takes the schedule.
 
-It trains MViT, UniFormer, X3D and the ResNet family; the BatchNorm running
+It trains MViT, UniFormer, X3D, the ResNet family, CSN and R(2+1)D, on
+Kinetics, Synthetic or the frame-list datasets (SSv2, Sth, Charades,
+ImageNet); with DATA.MULTI_LABEL (Charades) the loss is
+MODEL.LOSS_FUNC's (``bce_logit``) on label vectors and the eval epoch
+reports mAP (``utils/meters.py``). The BatchNorm running
 statistics of a model that has them move in its train step and are saved
 with its checkpoints. With BN.USE_PRECISE_STATS they are recomputed after every
 epoch's training, before the checkpoint and the eval, as the JAX package
@@ -59,8 +63,10 @@ checkpointing) are read nowhere in the JAX package, and are ignored here.
 
 Not ported, each raising NotImplementedError where the config asks for it:
 TensorBoard's model and wrong-prediction visualization, detection and AVA,
-audio, and the UniFormer pretrain registry (UNIFORMER.PRETRAIN_NAME: no
-pretrained weights are in the repository).
+audio, the UniFormer pretrain registry (UNIFORMER.PRETRAIN_NAME: no
+pretrained weights are in the repository), and MULTIGRID.SHORT_CYCLE on a
+frame-list dataset (its samples refuse the short cycle's (index, phase)
+index, on which the JAX package's fail).
 """
 
 import math

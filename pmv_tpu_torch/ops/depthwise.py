@@ -28,11 +28,13 @@ convs (``models/resnet_helper.py``).
   tests can check them.
 - ``MVIT_POOL_SHAPES``, ``MASKFEAT_POOL_SHAPES``, ``MVIT_RECT_POOL_SHAPES``,
   ``MVIT_PORTRAIT_POOL_SHAPES``, ``MVIT_RECT_TRAIN_POOL_SHAPES``, the
-  ``UNIFORMER_*_DPE_SHAPES``, the ``X3D_*_DW_SHAPES``, ``ODD_SHAPES`` and
-  ``PADDED_ODD_SHAPES``: the shapes the main paths give the kernels
-  (MViT's pools, UniFormer's DPE convs and X3D-M's stride-1 channelwise
-  convs at the 224^2 crop, the PMV rect crop and its transposes at batch 8,
-  at the PMV train step's batch of 16, and X3D-M's test crop of 256^2), and
+  ``UNIFORMER_*_DPE_SHAPES``, the ``X3D_*_DW_SHAPES``, the ``CSN_*DW_SHAPES``,
+  ``ODD_SHAPES`` and ``PADDED_ODD_SHAPES``: the shapes the main paths give
+  the kernels (MViT's pools, UniFormer's DPE convs and X3D-M's stride-1
+  channelwise convs at the 224^2 crop, the PMV rect crop and its transposes
+  at batch 8, at the PMV train step's batch of 16, X3D-M's test crop of
+  256^2, and ir-CSN-101's conv_bs at 32 x 224^2 and at its 256^2 test
+  crop), and
   the odd ones their tiling and the channel pad must take besides; the
   tests, ``chip_smoke.py`` and ``tools/plan_sweep.py`` take them from
   here.
@@ -166,6 +168,22 @@ X3D_TEST_DW_SHAPES = (
     ((8, 16, 32, 32, 108), 4),
     ((8, 16, 16, 16, 216), 10),
     ((8, 16, 8, 8, 432), 6),
+)
+# ir-CSN-101's stride-1 depthwise conv_bs (configs/Kinetics/CSN_32x2_R101.yaml:
+# inner widths 64, 128, 256 and 512; blocks [3, 4, 23, 3], the first of
+# stages 3-5 strided (2, 2, 2)) at batch 8 on the 32 x 224^2 train crop,
+# and on the recipe's 256^2 test crop.
+CSN_DW_SHAPES = (
+    ((8, 32, 56, 56, 64), 3),
+    ((8, 16, 28, 28, 128), 3),
+    ((8, 8, 14, 14, 256), 22),
+    ((8, 4, 7, 7, 512), 2),
+)
+CSN_TEST_DW_SHAPES = (
+    ((8, 32, 64, 64, 64), 3),
+    ((8, 16, 32, 32, 128), 3),
+    ((8, 8, 16, 16, 256), 22),
+    ((8, 4, 8, 8, 512), 2),
 )
 # Shapes the tiling must take besides: C of 8, 24 and 40 (not multiples of
 # a chunk), H and W of 1, 2, 7 and 13, portrait grids, T of 1 to 3, B of 1.

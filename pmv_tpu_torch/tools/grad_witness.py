@@ -8,10 +8,11 @@ BatchNorm statistics, the plain depthwise convs and the loss in float64:
 the reference). On the card twice: with TF32 off, as chip_smoke.py runs
 its float32 gates, and with PyTorch's default, which lets cuDNN's convs
 round their inputs to TF32. For each float32 run it prints the relative
-L2 distance of every parameter's gradient from the float64 run's, and the
-grad norms: first as the run decides each ReLU itself, then with every
-ReLU taking the float64 run's decisions (``relu_decisions``), with the
-count of decisions the run's own inputs would have taken otherwise. A ReLU
+L2 distance of every parameter's gradient from the float64 run's, the
+grad norms and the BatchNorm running statistics (their largest difference
+beyond rtol 1e-4): first as the run decides each ReLU itself, then with
+every ReLU taking the float64 run's decisions (``relu_decisions``), with
+the count of decisions the run's own inputs would have taken otherwise. A ReLU
 whose input lies within a rounding of 0 decides either way, and its one
 element's gradient moves the whole gradient; with the decisions held
 equal, what is left is the float32 rounding itself.
@@ -53,7 +54,13 @@ X3D_M = "configs/Kinetics/X3D_M.yaml"
 # SlowFast's slow pathway's ReLUs, and takes its limit and its float64 check:
 # the MoCo yaml's float32 step at batch 2, card against CPU, reads 1.33e-2,
 # and 1.69e-4 with the CPU's ReLU decisions held (PERF.md section 6).
-RELU_LIMITS = {"X3D": 0.1, "SlowFast": 0.1, "Slow": 0.1}
+# ir-CSN-101's (configs/Kinetics/CSN_32x2_R101.yaml) float32 gradients jump
+# further: at batch 1 on 16 frames of 224^2 the card's lie 5.5e-2 from
+# float64 ones, the CPU's 7.6e-2, card and CPU 7.9e-2 apart (an NVIDIA H100
+# 80GB HBM3 at 700 W and its host's CPU), so its limit is 0.2, still under
+# a fifth of X3D's faults'. R(2+1)D-50 takes X3D's limit, and SlowFast's
+# float64 check.
+RELU_LIMITS = {"X3D": 0.1, "SlowFast": 0.1, "Slow": 0.1, "CSN": 0.2, "R2Plus1D": 0.1}
 # Models whose float32 step cannot meet the 1e-4 gates even with the ReLU
 # decisions held: SlowFast's float32 gradients lie 9.9e-5 from float64 ones
 # on the CPU with float64's decisions held (8 frames of 64^2), the card's
@@ -61,16 +68,36 @@ RELU_LIMITS = {"X3D": 0.1, "SlowFast": 0.1, "Slow": 0.1}
 # float32 BatchNorm statistics of the last stage (batch means of 1e-3)
 # 2.7e-6 over the statistics' gate on the CPU against float64. Their held
 # check is the step (and precise BN) in float64 on card and CPU, at 1e-4.
-FLOAT64_HELD = {"SlowFast", "Slow"}
+FLOAT64_HELD = {"SlowFast", "Slow", "R2Plus1D"}
+# Models whose float32 floor with the ReLU decisions held lies above 1e-4,
+# and whose check stays in float32 (CSN's depthwise convs run on K1, which
+# takes no float64): the gradients' and the grad norm's limit, card against
+# CPU with the CPU's decisions held, a stated margin over the floor
+# measured against float64. ir-CSN-101 at batch 1 on 16 frames of 224^2:
+# the CPU's float32 gradients lie 4.75e-4 from float64 ones with float64's
+# decisions held, the card's 4.90e-4, card and CPU 5.67e-4 apart (the same
+# in every layer: the rounding of the last stage's BatchNorm backward,
+# carried down); margin 3.
+HELD_LIMITS = {"CSN": 3 * 4.75e-4}
+# The same for the BatchNorm running statistics of a float32 step, read as
+# their largest difference beyond rtol 1e-4 (1e-6 elsewhere). At batch 1 on
+# 16 frames the last stage's statistics are means over 2 x 7 x 7 positions,
+# and float32 moves them further: ir-CSN-101's lie 1.44e-5 (CPU) and 1.68e-5
+# (card, float64's ReLU decisions held) beyond it from float64 ones,
+# R(2+1)D-50's 3.75e-6 and 4.29e-6 (s5's shortcut and last BatchNorms);
+# margin 3. R(2+1)D's float64 step holds them to 1e-6.
+STATS_LIMITS = {"CSN": 3 * 1.68e-5, "R2Plus1D": 3 * 4.29e-6}
 
 
 def witness_key(cfg):
-    """The key of ``cfg``'s net in ``RELU_LIMITS`` and ``FLOAT64_HELD``: its
-    MODEL_NAME, or for a ResNet and a contrastive model its backbone's
-    (X3D for arch x3d, Slow for arch slow)."""
+    """The key of ``cfg``'s net in ``RELU_LIMITS``, ``FLOAT64_HELD``,
+    ``HELD_LIMITS`` and ``STATS_LIMITS``: its MODEL_NAME (CSN for PTVCSN,
+    R2Plus1D for PTVR2plus1D), or for a ResNet and a contrastive model its
+    backbone's (X3D for arch x3d, Slow for arch slow)."""
     if cfg.MODEL.MODEL_NAME in ("ResNet", "ContrastiveModel"):
         return {"x3d": "X3D", "slow": "Slow"}.get(cfg.MODEL.ARCH, cfg.MODEL.MODEL_NAME)
-    return cfg.MODEL.MODEL_NAME
+    return {"PTVCSN": "CSN", "PTVR2plus1D": "R2Plus1D"}.get(cfg.MODEL.MODEL_NAME,
+                                                           cfg.MODEL.MODEL_NAME)
 
 
 @dataclasses.dataclass
@@ -171,7 +198,9 @@ def batch(cfg, size, seed=2):
 
 def gradients(cfg, data, device, dtype, decisions=None):
     """One train-mode forward and backward of the seeded model in ``dtype``
-    on ``device``: ({name: gradient, float64 on the CPU}, loss, Decisions)."""
+    on ``device``: ({name: gradient, float64 on the CPU}, loss, Decisions,
+    {name: BatchNorm running statistic after the forward, float64 on the
+    CPU})."""
     from pmv_tpu_torch.engine.steps import make_eval_preprocess_fn, model_input
     from pmv_tpu_torch.models import build_model
     from pmv_tpu_torch.models.losses import get_loss_func
@@ -190,7 +219,19 @@ def gradients(cfg, data, device, dtype, decisions=None):
                                               torch.as_tensor(labels).to(device))
     loss.backward()
     grads = {k: p.grad.detach().double().cpu() for k, p in model.named_parameters()}
-    return grads, float(loss.detach()), record
+    stats = {k: b.detach().double().cpu() for k, b in model.named_buffers() if "running" in k}
+    return grads, float(loss.detach()), record, stats
+
+
+def stats_distance(stats, ref):
+    """BatchNorm running statistics against ``ref``: the largest difference
+    beyond rtol 1e-4 (what chip_smoke.py gates at 1e-6), the largest
+    difference, and the tensor of the first."""
+    over = {k: float(((stats[k] - v).abs() - 1e-4 * v.abs()).max()) for k, v in ref.items()}
+    worst = max(over, key=over.get, default=None)
+    return {"over_rtol": over.get(worst, 0.0), "tensor": worst,
+            "max_abs": max((float((stats[k] - v).abs().max()) for k, v in ref.items()),
+                           default=0.0)}
 
 
 def distance(grads, ref):
@@ -223,7 +264,7 @@ def main(argv=None):
     cfg = load_cfg(args.cfg, opts)
     data = batch(cfg, args.batch)
     t0 = time.perf_counter()
-    ref, ref_loss, ref_decisions = gradients(cfg, data, "cpu", torch.float64)
+    ref, ref_loss, ref_decisions, ref_stats = gradients(cfg, data, "cpu", torch.float64)
     rec = {"model": cfg.MODEL.MODEL_NAME, "batch": args.batch,
            "frames": cfg.DATA.NUM_FRAMES, "crop": cfg.DATA.TRAIN_CROP_SIZE,
            "relu_elements": sum(int(m.numel()) for m in ref_decisions.masks),
@@ -239,18 +280,20 @@ def main(argv=None):
         torch.backends.cudnn.allow_tf32 = tf32
         torch.backends.cuda.matmul.allow_tf32 = False
         for held in (False, True):
-            grads, loss, record = gradients(cfg, data, device, torch.float32,
-                                            ref_decisions if held else None)
+            grads, loss, record, stats = gradients(cfg, data, device, torch.float32,
+                                                   ref_decisions if held else None)
             key = f"{name}_f32" + ("_f64_decisions" if held else "")
             rec[key] = {"grad_rel_l2_vs_f64": distance(grads, ref),
                         "grad_norm_rel_vs_f64": norm(grads) / rec["f64_grad_norm"] - 1,
-                        "loss_rel_vs_f64": loss / ref_loss - 1}
+                        "loss_rel_vs_f64": loss / ref_loss - 1,
+                        "bn_stats_vs_f64": stats_distance(stats, ref_stats)}
             if held:
                 rec[key]["decisions_taken_otherwise"] = record.taken_otherwise
             elif name == "cpu":
-                cpu_grads = grads
+                cpu_grads, cpu_stats = grads, stats
             else:
                 rec[key]["grad_rel_l2_vs_cpu_f32"] = distance(grads, cpu_grads)
+                rec[key]["bn_stats_vs_cpu_f32"] = stats_distance(stats, cpu_stats)
     line = json.dumps(rec)
     print(line, flush=True)
     if args.out:

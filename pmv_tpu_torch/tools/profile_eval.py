@@ -4,7 +4,10 @@ MViTv2-S 16x4's, or that of any config given with ``--cfg`` (UniFormer-S
 UNIFORMER.PRETRAIN_NAME "" TENSORBOARD.ENABLE False``; X3D-M's: ``--cfg
 configs/Kinetics/X3D_M.yaml``, its eval at the 256^2 test crop; SlowFast
 8x8 R50's: ``--cfg configs/Kinetics/SLOWFAST_8x8_R50.yaml``, 32 frames a
-clip, of which the slow pathway takes 8); MaskFeat pre-training's train step
+clip, of which the slow pathway takes 8; ir-CSN-101's: ``--cfg
+configs/Kinetics/CSN_32x2_R101.yaml``, whose 30 stride-1 conv_bs run K1;
+R(2+1)D-50's: ``--cfg configs/Kinetics/R2PLUS1D_16x4_R50.yaml``); MaskFeat
+pre-training's train step
 with ``--train --cfg configs/masked_ssl/k400_MVITv2_S_16x4_MaskFeat_PT.yaml``
 (the masked step of ``engine/ssl_steps.py``, the model drawing its masks);
 a contrastive yaml's with ``--train --cfg
@@ -71,7 +74,7 @@ def kind_of(name):
     return "other"
 
 
-def _union_us(intervals):
+def union_us(intervals):
     """Length of the union of (start, end) intervals: the time at least one
     kernel ran, which is less than their sum where kernels overlap."""
     total, end_max = 0.0, None
@@ -197,11 +200,11 @@ def main(argv=None):
             intervals[kind_of(evt.name)].append(
                 (evt.time_range.start, evt.time_range.end))
     device_us = sum(t for t, _ in by_kernel.values())
-    busy_us = _union_us([iv for ivs in intervals.values() for iv in ivs])
+    busy_us = union_us([iv for ivs in intervals.values() for iv in ivs])
     by_kind = defaultdict(float)
     for name, (t, _) in by_kernel.items():
         by_kind[kind_of(name)] += t
-    busy_by_kind = {k: _union_us(ivs) for k, ivs in intervals.items()}
+    busy_by_kind = {k: union_us(ivs) for k, ivs in intervals.items()}
     n = PROFILE_STEPS
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:args.top]
     print(json.dumps({

@@ -32,9 +32,13 @@ one: other rel-pos table sizes) refuses the checkpoint. A load with
 TRAIN.CHECKPOINT_CLEAR_NAME_PATTERN is one across models (MaskFeat's
 pre-training into the supervised MViT, whose last blocks pool otherwise):
 there a weight of another shape keeps the model's value, as in the JAX
-package, and the optimizer's state is not loaded. Not ported, each
-raising NotImplementedError: the JAX package's orbax directories, caffe2
-checkpoints and 2D->3D inflation.
+package, and the optimizer's state is not loaded. CHECKPOINT_TYPE "caffe2"
+(TRAIN and TEST) reads a Caffe2 zoo pickle through ``utils/c2_import.py``:
+the model's parameters only (BatchNorm statistics keep their init, a head
+of another shape too), no optimizer state, training from epoch 0, as the
+JAX package loads it (`pmv_tpu/utils/checkpoint.py:196-201,237-241`). Not
+ported, each raising NotImplementedError: the JAX package's orbax
+directories and 2D->3D inflation.
 """
 
 import os
@@ -44,6 +48,7 @@ import time
 import torch
 
 from pmv_tpu_torch.parallel import distributed
+from pmv_tpu_torch.utils import c2_import
 from pmv_tpu_torch.utils import logging as pmv_logging
 
 logger = pmv_logging.get_logger(__name__)
@@ -124,14 +129,12 @@ def save_checkpoint(path_to_job, state, epoch, cfg):
     return path
 
 
-def _read(path, checkpoint_type="pytorch", inflate=False):
+def _read(path, inflate=False):
     if os.path.isdir(path):
         raise NotImplementedError(
             f"{path} is a directory: the JAX package's orbax checkpoints are not "
             "read by the port"
         )
-    if checkpoint_type == "caffe2":
-        raise NotImplementedError("caffe2 checkpoints are not ported")
     if inflate:
         raise NotImplementedError("2D->3D checkpoint inflation is not ported")
     return torch.load(path, map_location="cpu", weights_only=True)
@@ -197,12 +200,20 @@ def load_checkpoint(path, state=None, model=None, epoch_reset=False,
     holds one of this package's (its groups carry "count") and neither
     ``epoch_reset`` nor a name pattern is given. Returns the checkpoint's
     epoch, or -1 under ``epoch_reset``; ``before_load(epoch)``, when given,
-    is called with it once the file is read, before anything loads."""
-    ckpt = _read(path, checkpoint_type, inflate)
+    is called with it once the file is read, before anything loads. A
+    caffe2 checkpoint loads the model's parameters alone and counts as
+    epoch -1 (``c2_import``)."""
+    model = state.model if state is not None else model
+    if checkpoint_type == "caffe2":
+        params = c2_import.model_params(path, model)
+        if before_load is not None:
+            before_load(-1)
+        load_model_state(model, params)
+        return -1
+    ckpt = _read(path, inflate)
     epoch = -1 if epoch_reset or "epoch" not in ckpt else int(ckpt["epoch"])
     if before_load is not None:
         before_load(epoch)
-    model = state.model if state is not None else model
     load_model_state(model, ckpt["model_state"], clear_name_pattern)
     opt_state = ckpt.get("optimizer_state")
     if (

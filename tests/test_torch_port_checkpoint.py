@@ -188,8 +188,10 @@ def test_shape_mismatch_raises_but_the_heads_is_dropped(tmp_path):
         cu.load_model_state(model, other)
 
 
-@pytest.mark.parametrize("kind", ["orbax_dir", "caffe2", "inflate"])
+@pytest.mark.parametrize("kind", ["orbax_dir", "inflate"])
 def test_unported_checkpoint_kinds_raise(tmp_path, kind):
+    """caffe2 checkpoints load since they were ported
+    (tests/test_torch_port_c2_import.py)."""
     cfg = _cfg(tmp_path / "job")
     cfg.TRAIN.AUTO_RESUME = False
     path = tmp_path / "ckpt"
@@ -198,7 +200,6 @@ def test_unported_checkpoint_kinds_raise(tmp_path, kind):
     else:
         torch.save({"model_state": {}}, path)
     cfg.TRAIN.CHECKPOINT_FILE_PATH = str(path)
-    cfg.TRAIN.CHECKPOINT_TYPE = "caffe2" if kind == "caffe2" else "pytorch"
     cfg.TRAIN.CHECKPOINT_INFLATE = kind == "inflate"
     with pytest.raises(NotImplementedError):
         cu.load_train_checkpoint(cfg, _state(cfg))
