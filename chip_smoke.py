@@ -132,6 +132,31 @@ K1: each of its phases asserts 0 K1 and 0 wgrad launches):
    dataset, batch 8, one epoch: train, precise BN, checkpoint, eval, test 2
    views of 256^2; the restore, every tensor compared; the resume with
    SOLVER.MAX_EPOCH 2 (main paths).
+AVSlowFast 8x8 R50 (configs/Kinetics/AVSLOWFAST_8x8_R50.yaml, full width
+and depth, 38,059,696 parameters with the misaligned audio's AVS
+projections, random weights from a seed): SlowFast's trunk, an audio
+pathway of 2-D convs over a 128 x 80 log-mel, the audio-to-slow fusions,
+the AVS sync losses and DropPathway; no conv on K1 (0 launches asserted):
+3v. (Run after 3s.) At batch 1 on 8 of the 32 frames (2 slow) of 224^2 and
+   a full log-mel, float32, card against CPU: the eval step; a train step
+   with the misaligned audio at DROPPATHWAY_RATE 0 and at 1 (the audio
+   fusion kept, then dropped: every AVS loss counts), each AVS loss and the
+   loss to rtol 1e-4, the gradients to ``grad_witness.RELU_LIMITS``, the
+   update and the BatchNorm statistics; then each step in float64 on both
+   sides under every 1e-4 gate (``grad_witness.FLOAT64_HELD``).
+4v. Serve 4 videos x 2 views x 3 crops of 256^2, each clip with its
+   log-mel, through ``perform_test`` in bfloat16 at batch 8 (a main path).
+5v. Train 3 timed batch-8 bfloat16 steps at 32 x 224^2 through
+   ``train_epoch``, the batches' misaligned audio rolled into the easy
+   negatives, then 2 under the profiler: ms a step, clips/s, the busy
+   share, peak memory (a main path).
+6v. ``run_net`` on the yaml (NUM_GPUS 1, batch 8) over ``Synthetic_av``,
+   a dataset this script registers (``register_synthetic_av``: Synthetic's
+   32 videos' clips with log-mels cut as ``Kinetics_av`` cuts them from a
+   waveform drawn from the video), one epoch: train, precise BN,
+   checkpoint, eval, a 2-view test of 256^2; the restore, every tensor
+   compared; the resume with SOLVER.MAX_EPOCH 2 (main paths; log in
+   ``build/chip_smoke_run_net_avslowfast/stdout.log``).
 ir-CSN-101 32x2 (configs/Kinetics/CSN_32x2_R101.yaml, 22,213,776
 parameters: 30 stride-1 depthwise conv_bs a forward on K1) and R(2+1)D-50
 16x4 (configs/Kinetics/R2PLUS1D_16x4_R50.yaml, 46,979,120 parameters, 0
@@ -299,7 +324,8 @@ Distributed (``pmv_tpu_torch/parallel/distributed.py``):
 
 FFmpeg's development files are not on the card's machine, so no phase
 decodes video there; ``run_net`` reads the Synthetic dataset (32 videos in
-the earlier slices' phases 6-7, 6u-7u, 6x-7x, 6s-7s, 6m-7m, 6c and 8c,
+the earlier slices' phases 6-7, 6u-7u, 6x-7x, 6s-7s, 6m-7m, 6c and 8c, and
+with log-mel audio in 6v,
 ``synthetic_videos``; its 64 elsewhere), and 6h JPEG frames it writes.
 
 Without a CUDA device, or without the package beside it, it exits non-zero
@@ -357,6 +383,11 @@ MVIT_K1 = 17
 UNIFORMER_K1 = 18
 X3D_K1 = 22
 SLOWFAST_K1 = 0
+# AVSlowFast 8x8 R50 (the audio pathway's convs are 2-D: none on K1).
+AVSLOWFAST_CFG = os.path.join(ROOT, "configs", "Kinetics", "AVSLOWFAST_8x8_R50.yaml")
+AVSLOWFAST_K1 = 0
+AVSLOWFAST_PARAMS = 38_059_696  # the JAX model's, with the misaligned audio
+AVSLOWFAST_CPU_FRAMES = 8  # the card-against-CPU phase's frames (of the yaml's 32)
 X3D_LR = 0.05  # SOLVER.BASE_LR of exps/PMV/run_X3D_PMV.sh
 # MaskFeat pre-training of MViTv2-S 16x4, and the fine-tuning from it.
 MASKFEAT_PT_CFG = os.path.join(ROOT, "configs", "masked_ssl", "k400_MVITv2_S_16x4_MaskFeat_PT.yaml")
@@ -625,9 +656,10 @@ def phase_backward(flush):
     return records
 
 
-def phase_full_model(cfg, frames, per_forward, phase="full_model_f32_b1"):
+def phase_full_model(cfg, frames, per_forward, phase="full_model_f32_b1", audio=None):
     """The eval step of the full model at batch 1 in float32, card against
-    CPU: scores to atol 1e-4, ``per_forward`` K1 launches."""
+    CPU (AVSlowFast's with ``audio``): scores to atol 1e-4, ``per_forward``
+    K1 launches."""
     from pmv_tpu_torch.engine.steps import make_eval_step
 
     cpu_model, gpu_model = _models_card_and_cpu(cfg)
@@ -635,11 +667,11 @@ def phase_full_model(cfg, frames, per_forward, phase="full_model_f32_b1"):
 
     before = _launch_counts()
     t0 = time.perf_counter()
-    gpu = make_eval_step(cfg, gpu_model, device="cuda")(frames).cpu()
+    gpu = make_eval_step(cfg, gpu_model, device="cuda")(frames, audio=audio).cpu()
     gpu_s = time.perf_counter() - t0
     launches = _launches_since(before)
     t0 = time.perf_counter()
-    cpu = make_eval_step(cfg, cpu_model, device="cpu")(frames)
+    cpu = make_eval_step(cfg, cpu_model, device="cpu")(frames, audio=audio)
     cpu_s = time.perf_counter() - t0
     err = float((gpu - cpu).abs().max())
     log(json.dumps({
@@ -923,10 +955,16 @@ def _train_step_card_vs_cpu(phase, cfg, batch, expected, models=None, dtype=torc
             "relu_elements": sum(int(m.numel()) for m in cpu_decisions.masks),
             "card_decisions_otherwise": card_decisions.taken_otherwise,
         }
+    avs = sorted(k for k in cpu if k.endswith("_avs"))  # AVSlowFast's AVS losses
+    if avs:
+        rec["avs_losses"] = {k: [float(gpu[k]), float(cpu[k])] for k in avs}
+        rec["drop_pathway"] = draws["drop_pathway"]
     log(json.dumps(rec))
     if launches != expected:
         raise AssertionError(f"{phase}: one train step launched {launches}, not {expected}")
     torch.testing.assert_close(gpu["loss"], cpu["loss"], atol=0, rtol=1e-4)
+    for key in avs:
+        torch.testing.assert_close(gpu[key], cpu[key], atol=1e-6, rtol=1e-4)
     if norm_limit is not None:
         torch.testing.assert_close(gpu["grad_norm"], cpu["grad_norm"], atol=0, rtol=norm_limit)
     for key in ("top1_err", "top5_err", "nan"):
@@ -1110,13 +1148,18 @@ def phase_serve(card, cfg, per_forward, prefix=""):
          "labels": labels[np.arange(i, min(i + batch, n)) // num_clips]}
         for i in range(0, n, batch)
     ]
-    eval_step(loader[0]["frames"])  # warm-up: cuDNN and cuBLAS plans
+    if cfg.MODEL.ARCH == "avslowfast":  # each clip with its log-mel
+        audio = av_logmels(cfg, rng, n)
+        for i, b in zip(range(0, n, batch), loader):
+            b["audio"] = audio[i:i + batch]
+    warm = {"audio": loader[0]["audio"]} if "audio" in loader[0] else {}
+    eval_step(loader[0]["frames"], **warm)  # warm-up: cuDNN and cuBLAS plans
     torch.cuda.synchronize()
 
     outputs = []
 
-    def serving_step(frames):
-        preds = eval_step(frames)
+    def serving_step(frames, **audio):
+        preds = eval_step(frames, **audio)
         outputs.append(preds)
         return preds
 
@@ -1134,7 +1177,8 @@ def phase_serve(card, cfg, per_forward, prefix=""):
     if preds.shape != (n, cfg.MODEL.NUM_CLASSES) or not torch.isfinite(preds).all():
         raise AssertionError(f"bad class scores: shape {tuple(preds.shape)}")
     np.testing.assert_array_equal(meter.clip_count, [num_clips] * num_videos)
-    if cfg.MODEL.MODEL_NAME in ("MViT", "X3D", "SlowFast", "PTVCSN", "PTVR2plus1D"):
+    if cfg.MODEL.MODEL_NAME in ("MViT", "X3D", "SlowFast", "PTVCSN", "PTVR2plus1D",
+                                "AVSlowFast"):
         # softmax'd; UniFormer's are logits
         torch.testing.assert_close(preds.sum(dim=1), torch.ones(n), atol=1e-3, rtol=0)
         np.testing.assert_allclose(meter.video_preds.sum(axis=1), num_clips, atol=1e-2)
@@ -1210,6 +1254,9 @@ def phase_train(card, cfg, per_forward, prefix="", timed=2, profile=False):
          "labels": rng.integers(0, cfg.MODEL.NUM_CLASSES, batch)}
         for _ in range(1 + max(timed, 2 if profile else 0))
     ]
+    if cfg.MODEL.ARCH == "avslowfast":  # the audio, and the misaligned audio
+        for b in loader:              # that train_epoch rolls into easy negatives
+            b["audio"], b["audio_mis"] = av_logmels(cfg, rng, batch), av_logmels(cfg, rng, batch)
     t0 = time.perf_counter()
     train_epoch(loader[:1], recording_step, state, TrainMeter(1, cfg), 0, cfg)
     torch.cuda.synchronize()
@@ -1256,7 +1303,8 @@ def _run_net_opts(recipe):
     pretrained weights and TensorBoard; for X3D, and for SlowFast with X3D's
     rect options, 2 of the recipe's 10 views at its 256^2 test crop (1
     spatial crop, as for the others); for CSN and R(2+1)D their yamls'
-    224^2 train and 256^2 test crops, 2 views; for MaskFeat's fine-tuning (FT yaml)
+    224^2 train and 256^2 test crops, 2 views (AVSlowFast's on ``Synthetic_av``,
+    ``register_synthetic_av``); for MaskFeat's fine-tuning (FT yaml)
     its own 224^2 crops, a 1-view test and CLEAR_NAME_PATTERN
     ["backbone."]; for Slow R50's fine-tuning from a contrastive checkpoint
     the same, the epoch reset."""
@@ -1273,6 +1321,9 @@ def _run_net_opts(recipe):
         return common + ["TEST.NUM_ENSEMBLE_VIEWS", "2"]
     if recipe in ("csn", "r2plus1d"):  # the yamls' own crops; a 2-view test
         return ["TEST.NUM_ENSEMBLE_VIEWS", "2"]
+    if recipe == "avslowfast":  # its yaml's crops, a 2-view test, clips with audio
+        return ["TEST.NUM_ENSEMBLE_VIEWS", "2", "TRAIN.DATASET", "synthetic_av",
+                "TEST.DATASET", "synthetic_av"]
     if recipe == "maskfeat_ft":  # the FT yaml's own crops; a 1-view test
         return ["TEST.NUM_TEMPORAL_CLIPS", "[]", "TEST.NUM_ENSEMBLE_VIEWS", "1",
                 "TRAIN.CHECKPOINT_CLEAR_NAME_PATTERN", "['backbone.']"]
@@ -1297,18 +1348,21 @@ RUN_NET = {  # recipe -> (config file, K1 launches per forward, clips a train st
     "slow_ft": (SLOW_CFG, SLOW_K1, 8),
     "csn": (CSN_CFG, CSN_K1, 8),
     "r2plus1d": (R2PLUS1D_CFG, R2PLUS1D_K1, 8),
+    "avslowfast": (AVSLOWFAST_CFG, AVSLOWFAST_K1, 8),
 }
 
 
 def run_net_argv(recipe, out_dir, max_epoch):
     """run_net's arguments: ``recipe``'s config with its PMV rect opts on the
-    Synthetic dataset, batch 8, bfloat16 (the config's MIXED_PRECISION)."""
+    Synthetic dataset (or the one its opts name), batch 8, bfloat16 (the
+    config's MIXED_PRECISION)."""
     return [
-        "--cfg", RUN_NET[recipe][0], "--opts", *_run_net_opts(recipe),
-        "SOLVER.BASE_LR", "1e-4",
-        "MODEL.NUM_CLASSES", "400",
+        "--cfg", RUN_NET[recipe][0], "--opts",
         "TRAIN.DATASET", "synthetic",
         "TEST.DATASET", "synthetic",
+        *_run_net_opts(recipe),
+        "SOLVER.BASE_LR", "1e-4",
+        "MODEL.NUM_CLASSES", "400",
         "TRAIN.BATCH_SIZE", "8",
         "TEST.BATCH_SIZE", "8",
         "TEST.NUM_SPATIAL_CROPS", "1",
@@ -1487,6 +1541,107 @@ def phase_run_net(card, recipe, out_dir, resume=True):
         log(json.dumps({**rec, "card": card}))
     log(json.dumps({"phase": "run_net_restore", "recipe": recipe, **restored}))
     return [first["launches"], second["launches"]]
+
+
+# AVSlowFast 8x8 R50 (configs/Kinetics/AVSLOWFAST_8x8_R50.yaml), phases
+# 3v-6v.
+
+
+def avslowfast_cfg(*opts):
+    """AVSlowFast 8x8 R50 with its yaml's recipe (cross-entropy plus the AVS
+    losses, DropPathway, head dropout 0.5, SGD with momentum) at the PMV X3D
+    recipe's LR (``X3D_LR``), and a test of 3 crops of 256^2 with the views
+    cut from 10 to 2; ``opts`` after them."""
+    from pmv_tpu_torch.config import get_cfg
+
+    cfg = get_cfg()
+    cfg.merge_from_file(AVSLOWFAST_CFG)
+    cfg.SOLVER.BASE_LR = X3D_LR
+    cfg.TEST.NUM_ENSEMBLE_VIEWS = 2
+    cfg.merge_from_list(list(opts))
+    return cfg
+
+
+def av_logmels(cfg, rng, n):
+    """``n`` log-mel clips [n, AUDIO_FRAME_NUM, AUDIO_MEL_NUM] of the
+    loader's pipeline (``data/audio.gen_logmel``), each of a window of
+    noise and a tone from ``rng`` as long as the clip."""
+    from pmv_tpu_torch.data.kinetics_av import logmel
+
+    sr = cfg.DATA.AUDIO_SAMPLE_RATE
+    t = np.arange(int(cfg.DATA.NUM_FRAMES * cfg.DATA.SAMPLING_RATE / 30.0 * sr)) / sr
+    return np.stack([logmel(cfg, (np.sin(2 * np.pi * rng.uniform(100, 2000) * t)
+                                  + rng.normal(size=t.shape)).astype(np.float32))
+                     for _ in range(n)])
+
+
+def register_synthetic_av():
+    """Register DATASET "Synthetic_av" (once): ``Synthetic``'s clips, each
+    with "audio" and "audio_mis" cut from a waveform of its video as
+    ``Kinetics_av`` cuts them (``data/kinetics_av.audio_windows``): 10 s of
+    noise and a tone at DATA.AUDIO_SAMPLE_RATE drawn from the video's index,
+    a 30 fps video, the clip's time a fraction drawn from the sample's
+    index in training and the view's place in testing. The card's machine
+    has no FFmpeg, so no AVI is decoded there."""
+    from pmv_tpu_torch.data.build import DATASET_REGISTRY
+    from pmv_tpu_torch.data.kinetics_av import audio_windows, logmel
+    from pmv_tpu_torch.data.synthetic import Synthetic
+
+    if "Synthetic_av" in DATASET_REGISTRY:
+        return
+
+    class SyntheticAV(Synthetic):
+        SECONDS = 10.0
+
+        def __getitem__(self, index):
+            sample = super().__getitem__(index)
+            cfg = self.cfg
+            video, view = divmod(sample["index"], self._num_clips)
+            rng = np.random.default_rng((video, 2))
+            sr = cfg.DATA.AUDIO_SAMPLE_RATE
+            t = np.arange(int(self.SECONDS * sr)) / sr
+            wav = (np.sin(2 * np.pi * rng.uniform(100, 2000) * t)
+                   + rng.normal(size=t.shape)).astype(np.float32)
+            frac = (view / max(self._num_clips - 1, 1) if self.mode == "test"
+                    else float(np.random.default_rng((sample["index"], 3)).uniform()))
+            start, mis, window = audio_windows(cfg, frac, 30.0, self.SECONDS)
+
+            def cut(s):
+                return wav[int(s * sr):int((s + window) * sr)]
+
+            sample["time"] = frac
+            sample["audio"] = logmel(cfg, cut(start))
+            if mis is not None:
+                sample["audio_mis"] = logmel(cfg, cut(mis))
+            return sample
+
+    DATASET_REGISTRY.register(SyntheticAV, name="Synthetic_av")
+
+
+def phase_avslowfast_card_vs_cpu():
+    """3v: full-width AVSlowFast at batch 1 on ``AVSLOWFAST_CPU_FRAMES`` of
+    its 32 frames (2 slow) of 224^2 and a full log-mel, float32, card against
+    CPU: the eval step; then a train step with the misaligned audio at
+    DROPPATHWAY_RATE 0 and at 1 (the decision forced on both sides), each
+    AVS loss, the loss, the gradients (to ``grad_witness.RELU_LIMITS``; the
+    grad norm read), the update and the BatchNorm statistics, then the same
+    step in float64 on both sides under every 1e-4 gate
+    (``grad_witness.FLOAT64_HELD``). 0 K1 launches each."""
+    rng = np.random.default_rng(11)
+    cfg = avslowfast_cfg()
+    size = cfg.DATA.TRAIN_CROP_SIZE
+    frames = rng.integers(0, 256, (1, AVSLOWFAST_CPU_FRAMES, size, size, 3), np.uint8)
+    audio = av_logmels(cfg, rng, 1)
+    phase_full_model(cfg, frames, AVSLOWFAST_K1, "avslowfast_full_model_f32_b1", audio=audio)
+    n_params = sum(p.numel() for p in seeded_model(cfg, "meta", torch.float32).parameters())
+    if n_params != AVSLOWFAST_PARAMS:
+        raise AssertionError(f"AVSlowFast has {n_params} parameters, not {AVSLOWFAST_PARAMS}")
+    batch = {"frames": frames, "labels": rng.integers(0, cfg.MODEL.NUM_CLASSES, 1),
+             "audio": audio, "audio_mis": av_logmels(cfg, rng, 1)}
+    for rate in ("0.0", "1.0"):
+        cfg = avslowfast_cfg("SLOWFAST.DROPPATHWAY_RATE", rate)
+        _train_step_card_vs_cpu(f"avslowfast_rate{rate[0]}_train_step_f32_b1_card_vs_cpu", cfg,
+                                batch, step_launches(AVSLOWFAST_K1))
 
 
 # CSN, R(2+1)D, the image MViTv2-S and Charades (phases 3n, 3r, 3i, 4n-6n,
@@ -3591,7 +3746,7 @@ def plant_wrapper_faults(card):
 
 
 def kernels_line(records, launches, slowfast_launches, maskfeat_launches,
-                 contrastive_launches, multigrid_launches, csn_launches):
+                 contrastive_launches, multigrid_launches, csn_launches, avslowfast_launches):
     """One entry per kernel: times summed over the launches at the 224^2
     crop's shapes in bfloat16 at batch 8; K1 over one MViTv2-S forward (17
     launches, as many again for dx in a train step), the wgrad kernel over
@@ -3616,7 +3771,8 @@ def kernels_line(records, launches, slowfast_launches, maskfeat_launches,
     its 256^2 test crop ("test", per dtype; K1's forward, which the wgrad
     kernel never sees at that crop but is held there all the same), and
     over its 22 launches at [8, 8, 14, 14, 256] alone ("s4_22_launches",
-    bf16)."""
+    bf16); "launches_avslowfast" the AVSlowFast paths' (phases 4v-6v, 0: its
+    convs are dense or 2-D)."""
     maskfeat = maskfeat_kernel_ms(records)
 
     def entry(name, source, replaces, recs, basis):
@@ -3636,6 +3792,7 @@ def kernels_line(records, launches, slowfast_launches, maskfeat_launches,
             "replaces": replaces,
             "launches": launches[name],
             "launches_slowfast": slowfast_launches[name],
+            "launches_avslowfast": avslowfast_launches[name],
             "launches_maskfeat": maskfeat_launches[name],
             "launches_contrastive": {k: v[name] for k, v in contrastive_launches.items()},
             "launches_multigrid": multigrid_launches[name],
@@ -3785,6 +3942,9 @@ def main():
     by_model["slowfast"] = walls["card_vs_cpu_supervised"] - sum(by_model.values())
     walls["card_vs_cpu_supervised_by_model"] = by_model
     tic = time.perf_counter()
+    phase_avslowfast_card_vs_cpu()
+    walls["card_vs_cpu_avslowfast"] = time.perf_counter() - tic
+    tic = time.perf_counter()
     phase_csn_card_vs_cpu()
     walls["card_vs_cpu_csn_r2plus1d_imagenet"] = time.perf_counter() - tic
     tic = time.perf_counter()
@@ -3831,6 +3991,18 @@ def main():
         slowfast_paths += phase_run_net(card, "slowfast", out_dir)
     paths += slowfast_paths
     walls["main_paths_supervised"] = time.perf_counter() - tic
+    tic = time.perf_counter()
+    avslowfast = avslowfast_cfg()
+    avslowfast_paths = [phase_serve(card, avslowfast, AVSLOWFAST_K1, "avslowfast_"),
+                        phase_train(card, avslowfast, AVSLOWFAST_K1, "avslowfast_", timed=3,
+                                    profile=True)]
+    out_dir = os.path.join("build", "chip_smoke_run_net_avslowfast")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    register_synthetic_av()
+    with synthetic_videos(EARLIER_RUN_NET_VIDEOS):
+        avslowfast_paths += phase_run_net(card, "avslowfast", out_dir)
+    paths += avslowfast_paths
+    walls["main_paths_avslowfast"] = time.perf_counter() - tic
     tic = time.perf_counter()
     csn, r2plus1d = csn_cfg(), csn_cfg(R2PLUS1D_CFG)
     csn_paths = [phase_serve(card, csn, CSN_K1, "csn_"),
@@ -3907,6 +4079,7 @@ def main():
     paths += timed("distributed_8b", phase_distributed_nccl, card)
     launches = {k: sum(p[k] for p in paths) for k in paths[0]}
     slowfast_launches = {k: sum(p[k] for p in slowfast_paths) for k in paths[0]}
+    avslowfast_launches = {k: sum(p[k] for p in avslowfast_paths) for k in paths[0]}
     maskfeat_launches = {k: sum(p[k] for p in maskfeat_paths) for k in paths[0]}
     multigrid_launches = {k: sum(p[k] for p in multigrid_paths) for k in paths[0]}
     csn_launches = {k: sum(p[k] for p in csn_paths) for k in paths[0]}
@@ -3917,7 +4090,8 @@ def main():
     log(json.dumps({"phase": "walls", "seconds": walls}))
     log(json.dumps({"phase": "total", "wall_s": time.perf_counter() - t_start}))
     line = kernels_line(records, launches, slowfast_launches, maskfeat_launches,
-                        contrastive_launches, multigrid_launches, csn_launches)
+                        contrastive_launches, multigrid_launches, csn_launches,
+                        avslowfast_launches)
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": card, "records": records, **line}, f, indent=1)

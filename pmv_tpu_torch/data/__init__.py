@@ -1,7 +1,8 @@
 """Host data and on-device training augmentation.
 
 - Datasets (``DATASET_REGISTRY``): ``Kinetics`` (also registered as
-  ``Ptvkinetics``), ``Synthetic``, and the frame-list datasets ``Ssv2``
+  ``Ptvkinetics``), ``Kinetics_av`` (``kinetics_av.py``: with log-mel
+  audio, ``audio.py``), ``Synthetic``, and the frame-list datasets ``Ssv2``
   (``Ptvssv2``), ``Sth``, ``Charades`` (``Ptvcharades``) and ``Imagenet``
   (``frame_datasets.py``); the threaded ``loader``.
 - On-device augmentation: RandAugment, random erasing, MixUp/CutMix. Each is
@@ -12,4 +13,9 @@
 """
 
 from pmv_tpu_torch.data.build import DATASET_REGISTRY, build_dataset  # noqa: F401
-from pmv_tpu_torch.data import frame_datasets, kinetics, synthetic  # noqa: F401  (registration)
+from pmv_tpu_torch.data import (  # noqa: F401  (registration)
+    frame_datasets,
+    kinetics,
+    kinetics_av,
+    synthetic,
+)

@@ -155,7 +155,7 @@ class DataLoader:
 
 def _collate(samples):
     """Stack sample dicts into a batch of numpy arrays; a sample's "mask"
-    (AUG.GEN_MASK_LOADER) too."""
+    (AUG.GEN_MASK_LOADER), "audio" and "audio_mis" (``Kinetics_av``) too."""
     labels = [s["label"] for s in samples]
     batch = {
         "frames": np.stack([s["frames"] for s in samples]),
@@ -168,8 +168,9 @@ def _collate(samples):
         "time": np.asarray([s["time"] for s in samples], np.float32),
         "pm": np.asarray([s["pm"] for s in samples], bool),
     }
-    if "mask" in samples[0]:
-        batch["mask"] = np.stack([s["mask"] for s in samples])
+    for key in ("mask", "audio", "audio_mis"):
+        if key in samples[0]:
+            batch[key] = np.stack([s[key] for s in samples])
     return batch
 
 

@@ -20,6 +20,14 @@ so it cannot touch the statistics); drop-connect masks are drawn from a
 generator seeded with 0 (the JAX package's ``PRNGKey(0)``), as train mode
 drops paths there too.
 
+AVSlowFast runs on the batch's "audio" (the JAX package's pass packs the
+frames alone and fails: it passes no audio, `precise_bn.py:28`), without
+the misaligned audio, as its eval does. Its DropPathway takes one decision
+for the whole pass, from a host generator seeded with 0: the JAX package's
+``stats_step`` applies the same ``PRNGKey(0)`` to every batch
+(`precise_bn.py:30-33`), so its decision too is one for all batches, but
+the two draws cannot give the same value.
+
 In a multi-process job each rank runs its rows of the global batches: the
 BatchNorms take the global batch statistics (``models/batchnorm.py``), and
 the masks are drawn at the global batch's shape, each rank taking its rows,
@@ -43,7 +51,7 @@ logger = pmv_logging.get_logger(__name__)
 def calculate_and_update_precise_bn(loader, state, cfg, device=None):
     """Replace the running statistics of ``state.model``'s BatchNorms by
     their precise averages over ``loader``'s batches (any sized iterable of
-    batches with uint8 "frames"); returns ``state``, updated in place. Does
+    batches with uint8 "frames", and "audio" for AVSlowFast); returns ``state``, updated in place. Does
     nothing when the model has no BatchNorm."""
     model = state.model
     device = resolve_device(device)
@@ -53,6 +61,9 @@ def calculate_and_update_precise_bn(loader, state, cfg, device=None):
             return state
         preprocess = steps.make_eval_preprocess_fn(cfg, device)
         generator = torch.Generator(device).manual_seed(0)
+        kwargs = {}
+        if hasattr(model, "sample_drop_pathway"):  # one decision for the pass
+            kwargs["drop_pathway"] = model.sample_drop_pathway(torch.Generator().manual_seed(0))
         was_training = model.training
         model.train()
         count = 0
@@ -60,7 +71,8 @@ def calculate_and_update_precise_bn(loader, state, cfg, device=None):
         with frozen_stats(model):
             for batch in islice(loader, num_batches):
                 frames = torch.as_tensor(batch["frames"]).to(device, non_blocking=True)
-                x = steps.model_input(cfg, preprocess(frames))
+                x = steps.model_input(cfg, preprocess(frames),
+                                      steps.audio_of(batch, "audio", device))
                 b = frames.shape[0]
                 # The global batch's masks, this rank's rows of them.
                 keep = model.sample_head_dropout_mask(b * world, generator, device)
@@ -68,7 +80,8 @@ def calculate_and_update_precise_bn(loader, state, cfg, device=None):
                     model.sample_drop_path_masks(b * world, generator, device),
                     rank * b, (rank + 1) * b, b * world)
                 model(x, drop_path_masks=drop_path,
-                      head_dropout_mask=None if keep is None else torch.ones_like(keep[:b]))
+                      head_dropout_mask=None if keep is None else torch.ones_like(keep[:b]),
+                      **kwargs)
                 count += 1
         model.train(was_training)
         if count == 0:

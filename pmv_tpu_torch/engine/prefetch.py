@@ -4,7 +4,8 @@ Counterpart of `pmv_tpu/engine/prefetch.py` (the reference's pinned-memory
 ``non_blocking`` copies, `MViT/tools/train_net.py:88-111`). On a CUDA device
 ``DevicePrefetcher`` keeps ``depth`` batches ahead of the one the step is
 working on: each batch's "frames", "labels" and, from a loader with
-AUG.GEN_MASK_LOADER, "mask" go into pinned memory and
+AUG.GEN_MASK_LOADER, "mask", and from ``Kinetics_av`` the float32 log-mel
+"audio" and "audio_mis", go into pinned memory and
 then to the card on a side stream, and the event recorded after the copy is
 what the consuming stream waits on. The other keys (the "pm" flags, the
 indices) stay numpy arrays on the host, where the engine reads them without
@@ -18,7 +19,7 @@ import collections
 
 import torch
 
-DEVICE_KEYS = ("frames", "labels", "mask")
+DEVICE_KEYS = ("frames", "labels", "mask", "audio", "audio_mis")
 
 
 class DevicePrefetcher:

@@ -13,9 +13,21 @@ the NaN/inf flag. Its random draws come from generators the step owns,
 seeded anew at every step from (``seed``, the state's step count), so that
 a run resumed from a checkpoint draws what the uninterrupted run drew, as
 the JAX step's ``fold_in(rng, state.step)`` does; or from the caller:
-``draws`` may carry any of "rand_augment", "erasing", "mixup", "drop_path"
-and "dropout" (the head's), in the forms the modules' ``sample`` functions
-return, so that a test can hand the port the draws of the JAX package.
+``draws`` may carry any of "rand_augment", "erasing", "mixup", "drop_path",
+"dropout" (the head's) and "drop_pathway" (AVSlowFast's DropPathway), in the
+forms the modules' ``sample`` functions return, so that a test can hand the
+port the draws of the JAX package.
+
+AVSlowFast (MODEL.ARCH avslowfast) takes the batch's log-mel "audio" and,
+with DATA.GET_MISALIGNED_AUDIO, "audio_mis" beside the frames
+(``pack_pathways``); its train-mode forward with the misaligned audio
+returns the AVS sync losses, which the step adds to the task loss
+(`steps.py:238-256`) and reports beside it. Its eval step takes the
+batch's audio, as the JAX package's ``eval_step(state, frames, audio)``.
+Its portrait rows have no route (the JAX package's ``pm`` step packs the
+transposed clip without the audio and fails, `steps.py:246`): a ``pm``
+batch, or a config with DATA.TRAIN_CROP_SIZE_RECT_SWITCH_AUTO or
+TEST_CROP_SIZE_RECT_SWITCH_AUTO, raises NotImplementedError.
 
 Portrait (``pm``) batches, whose "pm" flags mark rows: the JAX package runs a
 second module, the portrait specialization over the same parameters, on
@@ -160,23 +172,72 @@ def make_eval_preprocess_fn(cfg, device=None):
     return make_preprocess_fn(cfg, train=False, device=device)
 
 
-def pack_pathways(cfg, x):
+def pack_pathways(cfg, x, audio=None, audio_mis=None):
     """[B, T, H, W, C] -> the per-pathway list (`steps.py:150-167`): [x] for a
     single-pathway arch; for SlowFast [slow, fast], the slow pathway every
     SLOWFAST.ALPHA-th frame from the first, ``x[:, ::ALPHA]``, and the fast
-    one ``x``. AVSlowFast's audio pathway is not ported."""
+    one ``x``; for AVSlowFast [slow, fast, audio], and audio_mis after them
+    where it is given."""
     if cfg.MODEL.ARCH in cfg.MODEL.SINGLE_PATHWAY_ARCH:
         return [x]
     if cfg.MODEL.ARCH == "slowfast":
         return [x[:, ::cfg.SLOWFAST.ALPHA], x]
+    if cfg.MODEL.ARCH == "avslowfast":
+        if audio is None:
+            raise ValueError("AVSlowFast needs the batch's audio (a Kinetics_av loader)")
+        inputs = [x[:, ::cfg.SLOWFAST.ALPHA], x, audio]
+        return inputs if audio_mis is None else inputs + [audio_mis]
     raise NotImplementedError(f"arch {cfg.MODEL.ARCH} is not ported yet")
 
 
-def model_input(cfg, x):
+def model_input(cfg, x, audio=None, audio_mis=None):
     """What a model's forward takes: the one pathway's tensor, or the list of
     ``pack_pathways``."""
-    inputs = pack_pathways(cfg, x)
+    inputs = pack_pathways(cfg, x, audio, audio_mis)
     return inputs[0] if len(inputs) == 1 else inputs
+
+
+def audio_of(batch, key, device):
+    """The batch's float32 log-mel clips under ``key`` on ``device``, or
+    None."""
+    value = batch.get(key)
+    if value is None:
+        return None
+    return torch.as_tensor(value).to(device, torch.float32, non_blocking=True)
+
+
+def refuse_portrait_audio(cfg, pm=None):
+    """Raise for portrait rows (``pm``, as ``portrait_rows`` gives them) or a
+    portrait-switching config on AVSlowFast (module docstring)."""
+    if cfg.MODEL.ARCH != "avslowfast":
+        return
+    if (pm is not None or cfg.DATA.TRAIN_CROP_SIZE_RECT_SWITCH_AUTO
+            or cfg.DATA.TEST_CROP_SIZE_RECT_SWITCH_AUTO):
+        raise NotImplementedError(
+            "portrait (pm) rows on AVSlowFast: the portrait route has no audio, as "
+            "the JAX package's pm step packs the transposed clip without it and fails")
+
+
+def easy_negatives(cfg, audio_mis, epoch):
+    """The AVS easy negatives (the JAX package's ``prepare_batch``,
+    `train.py:96-109`, the reference's `loader.py:25-43`): over the global
+    batch of n rows, before DATA.MIX_NEG_EPOCH every row takes the next
+    row's misaligned audio (a clip of another video), from that epoch on
+    only the first max(int(EASY_NEG_RATIO n), 1) rows do, in a cycle among
+    themselves, the rest keeping their own (hard negatives). Returns this
+    rank's rows; in a multi-process job every rank's clips are gathered
+    first, since the roll crosses ranks."""
+    rank, world = rank_and_world_size()
+    audio_mis = torch.as_tensor(audio_mis)
+    b = audio_mis.shape[0]
+    n = b * world
+    sn = max(int(cfg.DATA.EASY_NEG_RATIO * n), 1) if epoch >= cfg.DATA.MIX_NEG_EPOCH else n
+    idx = np.arange(n)
+    idx[:sn] = np.arange(1, sn + 1) % sn
+    if world > 1:
+        audio_mis = distributed.gather_rows(audio_mis).flatten(0, 1)
+    return audio_mis.index_select(0, torch.as_tensor(idx[rank * b:(rank + 1) * b],
+                                                     device=audio_mis.device))
 
 
 def _transposed(x):
@@ -268,15 +329,17 @@ def local_draws(draws, start, stop, batch):
     return out
 
 
-def forward_by_orientation(model, x, pm, drop_path_masks=None, head_dropout_mask=None):
+def forward_by_orientation(model, x, pm, drop_path_masks=None, head_dropout_mask=None,
+                           **kwargs):
     """``model`` on each row of ``x`` (``model_input``: [B, T, H, W, C], or
     a list of pathways) in its orientation: rows where ``pm`` (a host bool
     array, or None) is set run transposed through the portrait
     specialization (``hw_switch=True``), the others through the plain
-    forward; the outputs come back in batch order."""
+    forward; the outputs come back in batch order. ``kwargs`` go to the
+    model as they are (AVSlowFast's ``drop_pathway``)."""
     if pm is None:
         return model(x, drop_path_masks=drop_path_masks,
-                     head_dropout_mask=head_dropout_mask)
+                     head_dropout_mask=head_dropout_mask, **kwargs)
     device = _device_of(x)
     groups = (np.flatnonzero(~pm), np.flatnonzero(pm))
     outs = []
@@ -289,25 +352,27 @@ def forward_by_orientation(model, x, pm, drop_path_masks=None, head_dropout_mask
             _transposed(xg) if portrait else xg,
             drop_path_masks=_rows(drop_path_masks, index),
             head_dropout_mask=_rows(head_dropout_mask, index),
-            hw_switch=portrait,
+            hw_switch=portrait, **kwargs,
         ))
     inverse = torch.as_tensor(np.argsort(np.concatenate(groups)), device=device)
     return torch.cat(outs).index_select(0, inverse)
 
 
-def select_by_orientation(model, x, pm, drop_path_masks=None, head_dropout_mask=None):
+def select_by_orientation(model, x, pm, drop_path_masks=None, head_dropout_mask=None,
+                          **kwargs):
     """The JAX package's portrait select (`steps.py:238-252`): ``model`` on
     the whole batch, then on the whole batch transposed (``hw_switch=True``;
     each pathway of a list transposed, which is the JAX step's packing of
     the transposed clip) with its BatchNorm running statistics left as they
     are, and per row the output of the row's orientation (``pm``, a host
-    bool array, or None)."""
-    land = model(x, drop_path_masks=drop_path_masks, head_dropout_mask=head_dropout_mask)
+    bool array, or None). ``kwargs`` go to the model as they are."""
+    land = model(x, drop_path_masks=drop_path_masks, head_dropout_mask=head_dropout_mask,
+                 **kwargs)
     if pm is None:
         return land
     with frozen_stats(model):
         port = model(_transposed(x), drop_path_masks=drop_path_masks,
-                     head_dropout_mask=head_dropout_mask, hw_switch=True)
+                     head_dropout_mask=head_dropout_mask, hw_switch=True, **kwargs)
     return torch.where(torch.as_tensor(pm, device=_device_of(x))[:, None], port, land)
 
 
@@ -348,18 +413,21 @@ def make_train_step(cfg, device=None, seed=0):
     """Returns train_step(state, batch, lr, draws=None) -> metrics.
 
     ``batch`` holds uint8 "frames" [B, T, H, W, 3] and int "labels" [B]
-    (arrays or tensors), moved to ``device`` (CUDA by default; raises
+    (arrays or tensors), and for AVSlowFast float32 "audio" [B, T_spec, M]
+    and "audio_mis", moved to ``device`` (CUDA by default; raises
     without a CUDA device unless ``device="cpu"``), the device of
     ``state.model``. The rows that the batch's optional "pm" flags mark run
     through the portrait specialization (the module docstring); this is
     also the JAX package's ``make_train_step(model_pm=...)``. The step
     updates ``state`` in place and returns "loss", "grad_norm" (before
-    clipping), "top1_err", "top5_err" and "nan" as tensors on the device, so
-    that the host reads them only when it logs. In a multi-process job the
+    clipping), "top1_err", "top5_err", "nan" and AVSlowFast's AVS losses
+    ("s{i}_avs", in the loss already) as tensors on the device, so that the
+    host reads them only when it logs. In a multi-process job the
     batch is this rank's rows, ``draws`` are those of the global batch, and
     the metrics are the global batch's (the module docstring).
     """
     device = resolve_device(device)
+    refuse_portrait_audio(cfg)
     loss_fun = get_loss_func(cfg.MODEL.LOSS_FUNC)
     preprocess = make_preprocess_fn(cfg, train=True, device=device)
     mixup_fn = (
@@ -382,6 +450,8 @@ def make_train_step(cfg, device=None, seed=0):
             extra["mixup"] = lambda g, _: mixup_fn.sample(shape[2], shape[3], g)
         extra["drop_path"] = lambda _, g: model.sample_drop_path_masks(shape[0], g, device)
         extra["dropout"] = lambda _, g: model.sample_head_dropout_mask(shape[0], g, device)
+        if hasattr(model, "sample_drop_pathway"):  # one decision for every rank
+            extra["drop_pathway"] = lambda g, _: model.sample_drop_pathway(g)
         return draw(shape, given, step, extra)
 
     def partner_rows_flipped(t):  # the batch reversed, in one process
@@ -408,14 +478,23 @@ def make_train_step(cfg, device=None, seed=0):
         else:
             targets = labels
         route, pm = portrait_route(model, batch.get("pm"), b, train=True)
-        args = (model_input(cfg, x), pm)
+        refuse_portrait_audio(cfg, pm)
+        audio = (audio_of(batch, "audio", device), audio_of(batch, "audio_mis", device))
+        args = (model_input(cfg, x, *audio), pm)
         kwargs = dict(drop_path_masks=draws["drop_path"], head_dropout_mask=draws["dropout"])
+        if "drop_pathway" in draws:
+            kwargs["drop_pathway"] = draws["drop_pathway"]
         with frozen_stats(model, cfg.MODEL.FROZEN_BN):
             if state.wrapped is None:
                 preds = route(model, *args, **kwargs)
             else:
                 preds = state.wrapped(route, *args, **kwargs)
+        aux = {}
+        if isinstance(preds, tuple):  # AVSlowFast's AVS losses, added to the loss
+            preds, aux = preds
         loss = loss_fun(preds.float(), targets)
+        for value in aux.values():
+            loss = loss + value
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
         grad_norm = optim.global_norm(
@@ -446,10 +525,13 @@ def make_train_step(cfg, device=None, seed=0):
                 top = _top_k(metric_preds, min(5, preds.shape[-1]))
                 correct1 = (top[:, :1] == metric_labels[:, None]).any(dim=1)
                 correct5 = (top == metric_labels[:, None]).any(dim=1)
-            loss, top1_err, top5_err = distributed.all_reduce_mean(torch.stack([
-                loss.detach(),
-                (1.0 - correct1.float().mean()) * 100.0,
-                (1.0 - correct5.float().mean()) * 100.0,
+            loss, top1_err, top5_err, *aux_values = distributed.all_reduce_mean(torch.stack([
+                t.detach().to(loss.dtype) for t in (
+                    loss,
+                    (1.0 - correct1.float().mean()) * 100.0,
+                    (1.0 - correct5.float().mean()) * 100.0,
+                    *aux.values(),
+                )
             ])).unbind()
             return {
                 "loss": loss,
@@ -457,6 +539,7 @@ def make_train_step(cfg, device=None, seed=0):
                 "top1_err": top1_err,
                 "top5_err": top5_err,
                 "nan": ~(torch.isfinite(loss) & torch.isfinite(grad_norm)),
+                **dict(zip(aux, aux_values)),
             }
 
     train_step.sample_draws = (
@@ -466,9 +549,11 @@ def make_train_step(cfg, device=None, seed=0):
 
 
 def make_eval_step(cfg, model, device=None):
-    """eval_step(frames, pm=None) -> scores [B, NUM_CLASSES] (softmax'd head).
+    """eval_step(frames, pm=None, audio=None) -> scores [B, NUM_CLASSES]
+    (softmax'd head).
 
-    ``frames`` is a uint8 [B, T, H, W, 3] array or tensor; it is moved to
+    ``frames`` is a uint8 [B, T, H, W, 3] array or tensor, and ``audio``
+    AVSlowFast's float32 log-mel clips [B, T_spec, M]; they are moved to
     ``device`` (CUDA by default; raises without a CUDA device unless
     ``device="cpu"``), which must be the model's device. Rows that ``pm``
     marks run through the portrait specialization: this is also the JAX
@@ -477,14 +562,17 @@ def make_eval_step(cfg, model, device=None):
     ``fsdp`` every rank takes the select (exact at eval), so that each runs
     the same forwards (``portrait_route``)."""
     device = resolve_device(device)
+    refuse_portrait_audio(cfg)
     preprocess = make_eval_preprocess_fn(cfg, device)
 
     @torch.inference_mode()
-    def eval_step(frames, pm=None):
+    def eval_step(frames, pm=None, audio=None):
         model.eval()
         frames = torch.as_tensor(frames).to(device, non_blocking=True)
         route, pm = portrait_route(model, pm, frames.shape[0], train=False)
-        return route(model, model_input(cfg, preprocess(frames)), pm)
+        refuse_portrait_audio(cfg, pm)
+        audio = audio_of({"audio": audio}, "audio", device)
+        return route(model, model_input(cfg, preprocess(frames), audio), pm)
 
     return eval_step
 

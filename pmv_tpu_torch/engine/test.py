@@ -55,16 +55,17 @@ logger = pmv_logging.get_logger(__name__)
 
 def perform_test(test_loader, eval_step, test_meter):
     """Run ``eval_step`` over ``test_loader`` (any iterable of dicts with
-    "frames", "labels" and "index", and "pm" where rows may be portrait)
-    and ensemble into ``test_meter``. Returns (test_meter, final stats).
+    "frames", "labels" and "index", "pm" where rows may be portrait, and
+    "audio" for AVSlowFast) and ensemble into ``test_meter``. Returns (test_meter, final stats).
     In a multi-process job each step's clips are gathered from every rank."""
     test_meter.iter_tic()
     for cur_iter, (batch, real) in enumerate(distributed.lockstep(test_loader)):
         test_meter.data_toc()
+        audio = {"audio": batch["audio"]} if "audio" in batch else {}
         if np.any(batch.get("pm", False)):
-            preds = eval_step(batch["frames"], batch["pm"])
+            preds = eval_step(batch["frames"], batch["pm"], **audio)
         else:
-            preds = eval_step(batch["frames"])
+            preds = eval_step(batch["frames"], **audio)
         preds = preds.float().cpu().numpy()  # waits for the device
         test_meter.iter_toc()
         keep = slice(None) if real else slice(0)

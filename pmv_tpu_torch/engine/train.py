@@ -49,9 +49,9 @@ Val/mAP when multi-label), as the JAX package's ``train`` does
   that its statistics fit, and the first epoch then moves to its own, as
   the run that wrote it did. ``is_eval_epoch`` takes the schedule.
 
-It trains MViT, UniFormer, X3D, the ResNet family, CSN and R(2+1)D, on
-Kinetics, Synthetic or the frame-list datasets (SSv2, Sth, Charades,
-ImageNet); with DATA.MULTI_LABEL (Charades) the loss is
+It trains MViT, UniFormer, X3D, the ResNet family, CSN, R(2+1)D and
+AVSlowFast, on Kinetics, Kinetics_av, Synthetic or the frame-list datasets
+(SSv2, Sth, Charades, ImageNet); with DATA.MULTI_LABEL (Charades) the loss is
 MODEL.LOSS_FUNC's (``bce_logit``) on label vectors and the eval epoch
 reports mAP (``utils/meters.py``). The BatchNorm running
 statistics of a model that has them move in its train step and are saved
@@ -61,9 +61,16 @@ does (`train.py:352-366`; ``engine/precise_bn.py``).
 MODEL.USE_CHECKPOINT and MODEL.CHECKPOINT_NUM (UniFormer's activation
 checkpointing) are read nowhere in the JAX package, and are ignored here.
 
+AVSlowFast's batches carry the log-mel "audio" and "audio_mis": the train
+loop rolls "audio_mis" into the AVS easy negatives of the epoch
+(``steps.easy_negatives``, the JAX package's ``prepare_batch``,
+`train.py:96-109`), and the eval loop, the test loop and precise BN pass
+the batch's "audio", which the JAX package's loops drop (its
+``eval_step(state, frames, audio)`` takes it).
+
 Not ported, each raising NotImplementedError where the config asks for it:
 TensorBoard's model and wrong-prediction visualization, detection and AVA,
-audio, the UniFormer pretrain registry (UNIFORMER.PRETRAIN_NAME: no
+the UniFormer pretrain registry (UNIFORMER.PRETRAIN_NAME: no
 pretrained weights are in the repository), and MULTIGRID.SHORT_CYCLE on a
 frame-list dataset (its samples refuse the short cycle's (index, phase)
 index, on which the JAX package's fail).
@@ -125,9 +132,10 @@ def stop_profiler(prof, device, first, last, prof_dir):
 
 def train_epoch(train_loader, train_step, state, meter, cur_epoch, cfg):
     """One epoch over ``train_loader`` (any sized iterable of batches with
-    "frames" and "labels", and "pm" where rows may be portrait; or "frames"
-    and "mask" for the masked step of ``engine/ssl_steps.py``). Returns
-    ``state``, updated in place."""
+    "frames" and "labels", and "pm" where rows may be portrait, and "audio"
+    and "audio_mis" for AVSlowFast; or "frames" and "mask" for the masked
+    step of ``engine/ssl_steps.py``). Returns ``state``, updated in
+    place."""
     data_size = len(train_loader)
     world = rank_and_world_size()[1]
     pending = []
@@ -167,6 +175,9 @@ def train_epoch(train_loader, train_step, state, meter, cur_epoch, cfg):
         epoch_exact = cur_epoch + float(cur_iter) / data_size
         lr = get_lr_at_epoch(cfg, epoch_exact)
         meter.data_toc()
+        if cfg.DATA.GET_MISALIGNED_AUDIO and "audio_mis" in device_batch:
+            device_batch = dict(device_batch, audio_mis=steps.easy_negatives(
+                cfg, device_batch["audio_mis"], cur_epoch))
         metrics = train_step(state, device_batch, lr)
         pending.append((cur_iter, lr, batch["frames"].shape[0], metrics))
         meter.iter_toc()
@@ -192,7 +203,8 @@ def eval_epoch(val_loader, eval_step, meter, cur_epoch, cfg):
     meter.iter_tic()
     for cur_iter, (batch, real) in enumerate(distributed.lockstep(val_loader)):
         meter.data_toc()
-        preds = eval_step(batch["frames"], batch.get("pm"))
+        audio = {"audio": batch["audio"]} if "audio" in batch else {}
+        preds = eval_step(batch["frames"], batch.get("pm"), **audio)
         preds = preds.float().cpu().numpy()  # waits for the device
         labels = batch["labels"]
         if not real:
@@ -222,7 +234,6 @@ def refuse_unported(cfg):
         "TENSORBOARD.MODEL_VIS / WRONG_PRED_VIS": cfg.TENSORBOARD.ENABLE and (
             cfg.TENSORBOARD.MODEL_VIS.ENABLE or cfg.TENSORBOARD.WRONG_PRED_VIS.ENABLE),
         "DETECTION.ENABLE (detection and AVA)": cfg.DETECTION.ENABLE,
-        "audio (MODEL.ARCH avslowfast)": cfg.MODEL.ARCH == "avslowfast",
         "UNIFORMER.PRETRAIN_NAME (the pretrain registry)":
             cfg.MODEL.MODEL_NAME.startswith("Uniformer") and bool(cfg.UNIFORMER.PRETRAIN_NAME),
     }

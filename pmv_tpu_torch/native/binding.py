@@ -97,6 +97,27 @@ def get_lib():
             ctypes.c_int,
             ctypes.c_int,
         ]
+        lib.pmv_decode_audio.restype = ctypes.c_longlong
+        lib.pmv_decode_audio.argtypes = [
+            ctypes.c_void_p,
+            ctypes.c_double,
+            ctypes.c_double,
+            ctypes.c_int,
+            ctypes.POINTER(ctypes.c_float),
+            ctypes.c_longlong,
+        ]
+        lib.pmv_write_test_video_av.restype = ctypes.c_int
+        lib.pmv_write_test_video_av.argtypes = [
+            ctypes.c_char_p,
+            ctypes.POINTER(ctypes.c_ubyte),
+            ctypes.c_int,
+            ctypes.c_int,
+            ctypes.c_int,
+            ctypes.c_int,
+            ctypes.POINTER(ctypes.c_float),
+            ctypes.c_longlong,
+            ctypes.c_int,
+        ]
         _LIB = lib
         return lib
 
@@ -145,6 +166,21 @@ class VideoReader:
             raise IOError(f"decode failed (code {got})")
         return out
 
+    def read_audio(self, start_sec, dur_sec, sample_rate=16000):
+        """Decode the audio over [start_sec, start_sec + dur_sec), resampled
+        to mono float32 at ``sample_rate`` -> [N]; an empty array when the
+        container has no audio stream."""
+        max_samples = int(dur_sec * sample_rate) + sample_rate
+        out = np.zeros((max_samples,), np.float32)
+        got = self._lib.pmv_decode_audio(
+            self._handle, float(start_sec), float(dur_sec), int(sample_rate),
+            out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+            max_samples,
+        )
+        if got < 0:
+            raise IOError(f"audio decode failed (code {got})")
+        return out[:got]
+
     def close(self):
         if self._handle:
             self._lib.pmv_close(self._handle)
@@ -163,17 +199,23 @@ class VideoReader:
             pass
 
 
-def write_test_video(path, frames, fps=30):
-    """Write uint8 [T, H, W, 3] RGB frames as an uncompressed AVI."""
+def write_test_video(path, frames, fps=30, audio=None, audio_sr=16000):
+    """Write uint8 [T, H, W, 3] RGB frames as an uncompressed AVI; with
+    ``audio`` (float32 mono samples at ``audio_sr``) a PCM track beside
+    them."""
     lib = get_lib()
     frames = np.ascontiguousarray(frames, np.uint8)
     t, h, w, c = frames.shape
     if c != 3:
         raise ValueError(f"frames must be RGB [T, H, W, 3], got {frames.shape}")
-    rc = lib.pmv_write_test_video(
-        str(path).encode(),
-        frames.ctypes.data_as(ctypes.POINTER(ctypes.c_ubyte)),
-        t, w, h, fps,
-    )
+    pixels = frames.ctypes.data_as(ctypes.POINTER(ctypes.c_ubyte))
+    if audio is None:
+        rc = lib.pmv_write_test_video(str(path).encode(), pixels, t, w, h, fps)
+    else:
+        audio = np.ascontiguousarray(audio, np.float32)
+        rc = lib.pmv_write_test_video_av(
+            str(path).encode(), pixels, t, w, h, fps,
+            audio.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), len(audio), audio_sr,
+        )
     if rc != 0:
         raise IOError(f"write_test_video failed (code {rc})")

@@ -14,7 +14,11 @@ one process would take (``data/loader.py``). The JAX package runs one
 program over that global batch; the port keeps its numbers: BatchNorm
 statistics, MixUp's partner rows, the random draws, the portrait decision,
 the loss, the grad norm and the metrics are those of the global batch
-(``models/batchnorm.py``, ``engine/steps.py``).
+(``models/batchnorm.py``, ``engine/steps.py``); so are AVSlowFast's AVS
+losses (their pair count summed over the ranks), its DropPathway decision
+(drawn from the seed on every rank) and its easy-negative roll of the
+misaligned audio (every rank's clips gathered; ``models/avslowfast.py``,
+``steps.easy_negatives``).
 
 Groups. The default group (NCCL on CUDA, gloo on the CPU; DIST_BACKEND
 "ici", the JAX package's default, maps to those) carries the collectives on

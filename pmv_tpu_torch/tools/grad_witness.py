@@ -20,6 +20,9 @@ equal, what is left is the float32 rounding itself.
     python -m pmv_tpu_torch.tools.grad_witness [--cfg configs/Kinetics/X3D_M.yaml]
         [--batch 2] [--frames F] [--crop S] [--cpu-only] [--out FILE]
 
+AVSlowFast's yaml runs with seeded log-mel audio and misaligned audio, its
+AVS losses in the loss.
+
 Without ``--cpu-only`` it needs a CUDA device. The full-size X3D-M step in
 float64 on the CPU takes some GiB and a minute or so: run it on the GPU
 machine, or at a small ``--frames`` and ``--crop``.
@@ -60,7 +63,10 @@ X3D_M = "configs/Kinetics/X3D_M.yaml"
 # 80GB HBM3 at 700 W and its host's CPU), so its limit is 0.2, still under
 # a fifth of X3D's faults'. R(2+1)D-50 takes X3D's limit, and SlowFast's
 # float64 check.
-RELU_LIMITS = {"X3D": 0.1, "SlowFast": 0.1, "Slow": 0.1, "CSN": 0.2, "R2Plus1D": 0.1}
+# AVSlowFast, whose visual trunk is SlowFast's, takes SlowFast's limit and
+# its float64 check.
+RELU_LIMITS = {"X3D": 0.1, "SlowFast": 0.1, "Slow": 0.1, "CSN": 0.2, "R2Plus1D": 0.1,
+               "AVSlowFast": 0.1}
 # Models whose float32 step cannot meet the 1e-4 gates even with the ReLU
 # decisions held: SlowFast's float32 gradients lie 9.9e-5 from float64 ones
 # on the CPU with float64's decisions held (8 frames of 64^2), the card's
@@ -68,7 +74,7 @@ RELU_LIMITS = {"X3D": 0.1, "SlowFast": 0.1, "Slow": 0.1, "CSN": 0.2, "R2Plus1D":
 # float32 BatchNorm statistics of the last stage (batch means of 1e-3)
 # 2.7e-6 over the statistics' gate on the CPU against float64. Their held
 # check is the step (and precise BN) in float64 on card and CPU, at 1e-4.
-FLOAT64_HELD = {"SlowFast", "Slow", "R2Plus1D"}
+FLOAT64_HELD = {"SlowFast", "Slow", "R2Plus1D", "AVSlowFast"}
 # Models whose float32 floor with the ReLU decisions held lies above 1e-4,
 # and whose check stays in float32 (CSN's depthwise convs run on K1, which
 # takes no float64): the gradients' and the grad norm's limit, card against
@@ -85,8 +91,14 @@ HELD_LIMITS = {"CSN": 3 * 4.75e-4}
 # and float32 moves them further: ir-CSN-101's lie 1.44e-5 (CPU) and 1.68e-5
 # (card, float64's ReLU decisions held) beyond it from float64 ones,
 # R(2+1)D-50's 3.75e-6 and 4.29e-6 (s5's shortcut and last BatchNorms);
-# margin 3. R(2+1)D's float64 step holds them to 1e-6.
-STATS_LIMITS = {"CSN": 3 * 1.68e-5, "R2Plus1D": 3 * 4.29e-6}
+# margin 3. R(2+1)D's float64 step holds them to 1e-6. AVSlowFast 8x8 R50 at
+# batch 1 on 8 frames of 224^2 and a 128 x 80 log-mel: its last audio
+# junction's statistics (s5_fuse.bn_a2fs_1, 4 values a channel) lie 4.34e-6
+# (CPU) and 3.39e-6 (card) beyond it from float64 ones, card and CPU 6.0e-6
+# apart (``--cfg configs/Kinetics/AVSLOWFAST_8x8_R50.yaml --batch 1 --frames
+# 8``, an NVIDIA H100 80GB HBM3 at 700 W); margin 3; its float64 step holds
+# them to 1e-6.
+STATS_LIMITS = {"CSN": 3 * 1.68e-5, "R2Plus1D": 3 * 4.29e-6, "AVSlowFast": 3 * 4.34e-6}
 
 
 def witness_key(cfg):
@@ -178,14 +190,21 @@ def load_cfg(path, opts=()):
 
 
 def batch(cfg, size, seed=2):
-    """uint8 frames [size, T, S, S, 3] at the train crop, labels, and the
-    head's dropout keep mask (None without head dropout), from ``seed``."""
+    """uint8 frames [size, T, S, S, 3] at the train crop, labels, the head's
+    dropout keep mask (None without head dropout), and for AVSlowFast the
+    log-mel audio and misaligned audio ([size, AUDIO_FRAME_NUM,
+    AUDIO_MEL_NUM], normal draws: the loader's clips are z-normalised),
+    from ``seed``."""
     from pmv_tpu_torch.models.build import MODEL_REGISTRY
 
     rng = np.random.default_rng(seed)
     s = cfg.DATA.TRAIN_CROP_SIZE
     frames = rng.integers(0, 256, (size, cfg.DATA.NUM_FRAMES, s, s, 3), np.uint8)
     labels = rng.integers(0, cfg.MODEL.NUM_CLASSES, size)
+    audio = ()
+    if cfg.MODEL.ARCH == "avslowfast":
+        shape = (size, cfg.DATA.AUDIO_FRAME_NUM, cfg.DATA.AUDIO_MEL_NUM)
+        audio = tuple(rng.normal(size=shape).astype(np.float32) for _ in range(2))
     keep = 1.0 - cfg.MODEL.DROPOUT_RATE
     mask = None
     if keep < 1.0:
@@ -193,30 +212,36 @@ def batch(cfg, size, seed=2):
             model = MODEL_REGISTRY.get(cfg.MODEL.MODEL_NAME)(cfg)
         shape = model.sample_head_dropout_mask(size, None, "meta").shape
         mask = (rng.random(tuple(shape)) < keep).astype(np.float32)
-    return frames, labels, mask
+    return frames, labels, mask, audio
 
 
 def gradients(cfg, data, device, dtype, decisions=None):
     """One train-mode forward and backward of the seeded model in ``dtype``
-    on ``device``: ({name: gradient, float64 on the CPU}, loss, Decisions,
-    {name: BatchNorm running statistic after the forward, float64 on the
-    CPU})."""
+    on ``device`` (AVSlowFast's with the misaligned audio, DropPathway
+    keeping the audio, its AVS losses added to the loss): ({name: gradient,
+    float64 on the CPU}, loss, Decisions, {name: BatchNorm running
+    statistic after the forward, float64 on the CPU})."""
     from pmv_tpu_torch.engine.steps import make_eval_preprocess_fn, model_input
     from pmv_tpu_torch.models import build_model
     from pmv_tpu_torch.models.losses import get_loss_func
 
-    frames, labels, mask = data
+    frames, labels, mask, audio = data
     model = build_model(cfg, device=device, dtype=dtype, seed=0)
     model.train()
     x = model_input(cfg, make_eval_preprocess_fn(cfg, device=device)(
-        torch.as_tensor(frames).to(device)))
+        torch.as_tensor(frames).to(device)), *(torch.as_tensor(a).to(device) for a in audio))
     kwargs = {}
     if mask is not None:
         kwargs["head_dropout_mask"] = torch.as_tensor(mask).to(device)
     with relu_decisions(decisions) as record:
         preds = model(x, **kwargs)
+    aux = {}
+    if isinstance(preds, tuple):  # AVSlowFast's AVS losses
+        preds, aux = preds
     loss = get_loss_func(cfg.MODEL.LOSS_FUNC)(preds.to(torch.promote_types(dtype, torch.float32)),
                                               torch.as_tensor(labels).to(device))
+    for value in aux.values():
+        loss = loss + value
     loss.backward()
     grads = {k: p.grad.detach().double().cpu() for k, p in model.named_parameters()}
     stats = {k: b.detach().double().cpu() for k, b in model.named_buffers() if "running" in k}

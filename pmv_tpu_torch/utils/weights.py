@@ -14,7 +14,12 @@ A ContrastiveEncoder's tree maps to ``backbone.`` and ``projection.fc{i}``;
 the rest of the JAX package's ``SSLTrainState`` comes in beside "params"
 and "batch_stats", under the state's field names: "momentum_params" (to
 ``momentum.``), "predictor_params" (to ``predictor.``), "prototypes",
-"queue", "queue_ptr" and "bank" (``models/contrastive.py``).
+"queue", "queue_ptr" and "bank" (``models/contrastive.py``). AVSlowFast's tree maps by the same
+rules, with no rule of its own: the audio pathway ``s1.pathway2_stem/
+{conv_t,conv_f,bn}`` and ``s{2..5}.pathway2/b{i}_{a,b,c,proj}(_bn)``, the
+junctions ``s{3,4,5}_fuse/{conv_f2s,bn_f2s,conv_a2fs_k,bn_a2fs_k}`` and
+their ``avs/{ref_fc,query_fc}`` keep their flax paths as the port's names
+(``models/avslowfast.py``), the 2-D kernels in Conv2d's layout.
 
 Layouts (flax, channels-last -> torch):
 - Dense kernel [in, out]                 -> Linear weight [out, in]

@@ -44,7 +44,15 @@ the references:
   the one-process tests hold them; and the MaskFeat step with loader masks
   of unequal counts on the two ranks (57 + 56 against 7 + 6 masked
   tokens of 128 a clip), against JAX's on the global batch with its HOG bins held: the
-  loss divides by the global count.
+  loss divides by the global count;
+- (h) AVSlowFast (the tiny yaml of tests/test_torch_port_avslowfast.py at
+  DROPPATHWAY_RATE 0.5, float64 activations, as SlowFast's) under ``dp``
+  and ``fsdp``, 2 ranks x 2 rows, two steps, the first at epoch 0 and the
+  second at DATA.MIX_NEG_EPOCH, each batch's misaligned audio rolled into
+  its easy negatives across the ranks: every rank takes the one-process
+  run's DropPathway decisions, the rolled clips, the loss and each AVS
+  loss (their sums over the global batch), the grad norm, the gradients
+  and the state after the steps of one process on the global batch.
 """
 
 import contextlib
@@ -62,6 +70,7 @@ import numpy as np
 import pytest
 import torch
 
+import test_torch_port_avslowfast as av_test
 import test_torch_port_contrastive_train as ssl_train
 import test_torch_port_maskfeat_train as mf_train
 import test_torch_port_pm as mvit_pm
@@ -99,6 +108,7 @@ from torch_port_util import (
     port_cfg,
     jax_hog_bins,
     jax_ssl_step_draws,
+    rank_av_steps,
     rank_cases,
     rank_ssl_cases,
     start_ranks,
@@ -234,6 +244,24 @@ def _sub_bn_case():
             "splits": SUB_BN_SPLITS, "state_dicts": state_dicts}
 
 
+def _av_case():
+    """Two global batches of 4 rows (2 a rank), with audio and misaligned
+    audio, and tiny AVSlowFast's weights (the port's seeded init, its
+    BatchNorm scales and biases moved away from 1 and 0)."""
+    cfg = port_cfg(av_test.tiny_cfg("SLOWFAST.DROPPATHWAY_RATE", "0.5"))
+    model = build_model(cfg, device="cpu", dtype=torch.float64, seed=4)
+    gen = torch.Generator().manual_seed(5)
+    with torch.no_grad():
+        for module in model.modules():
+            if isinstance(module, BatchNorm):
+                for p in (module.weight, module.bias):
+                    p.add_(0.1 * torch.randn(p.shape, generator=gen))
+    return {"cfg": cfg, "state_dict": model.state_dict(), "dtype": torch.float64, "lr": 0.05,
+            "batches": [av_test._batch(seed) for seed in (7, 8)],
+            "epochs": [0, cfg.DATA.MIX_NEG_EPOCH],
+            "seed": 1}  # the steps' seed: DropPathway keeps the audio, then drops it
+
+
 def _bn_case():
     gen = torch.Generator().manual_seed(0)
     bn = BatchNorm(6)
@@ -262,7 +290,8 @@ def two_ranks(tmp_path_factory):
         resume["draws2"] = jax_train_draws(jax_args["uniformer"][0], jax.random.PRNGKey(3), 1,
                                            resume["batch2"]["frames"].shape)
         cases = {"steps": steps, "resume": resume, "precise_bn": precise,
-                 "test": _test_case(), "bn": _bn_case(), "sub_bn": _sub_bn_case()}
+                 "test": _test_case(), "bn": _bn_case(), "sub_bn": _sub_bn_case(),
+                 "avslowfast": _av_case()}
         torch.save(cases, case_dir / "cases.pt")
         procs = start_ranks(rank_cases, str(case_dir))
         try:
@@ -272,6 +301,7 @@ def two_ranks(tmp_path_factory):
                 _one_process_steps, resume, (resume["batch2"], resume["draws2"]))
             ref_futures["precise_bn"] = pool.submit(
                 jprecise_bn.calculate_and_update_precise_bn, *precise_args)
+            ref_futures["avslowfast"] = pool.submit(rank_av_steps, 0, 1, cases["avslowfast"])
             refs = {key: future.result() for key, future in ref_futures.items()}
             # SlowFast's float32 gradients move with a ReLU that decides otherwise:
             # its reference holds JAX's ReLUs, alone in the process.
@@ -395,6 +425,43 @@ def test_checkpoint_resumes_across_strategies(two_ranks):
         _assert_weights_close(res["second"][strategy], refs["resume"][1][2], [LR, LR],
                               stats_tol=(2e-4, 1e-4))
     assert res["files"] == ["checkpoint_epoch_00001.pyth"]
+
+
+@pytest.mark.parametrize("strategy", ["dp", "fsdp"])
+def test_avslowfast_step_over_two_ranks_equals_one_process(two_ranks, strategy):
+    """The DropPathway decisions, the easy negatives rolled across ranks,
+    the AVS losses over the global batch, the loss, the grad norm, the
+    gradients and the state of two steps equal one process's on the global
+    batch (float64 activations)."""
+    results, refs, cases = two_ranks
+    got, one = results["avslowfast", strategy], refs["avslowfast"]
+    firsts = [batch["audio_mis"][:, 0, 0].tolist() for batch in cases["avslowfast"]["batches"]]
+    # Epoch 0: each row takes the next row's clip (rank 1's last takes rank
+    # 0's first); at MIX_NEG_EPOCH the first 3 of 4 rows cycle, the last
+    # keeps its own.
+    assert [step["rolled"][:, 0, 0].tolist() for step in one["steps"]] == [
+        [firsts[0][i] for i in (1, 2, 3, 0)], [firsts[1][i] for i in (1, 2, 0, 3)]]
+    # The seed's decisions: the audio kept in the first step, dropped in
+    # the second; every rank's the same.
+    assert [ref["decisions"] for ref in one["steps"]] == [[False], [True]]
+    for mine, ref in zip(got["steps"], one["steps"]):
+        np.testing.assert_array_equal(mine["rolled"], ref["rolled"])
+        assert mine["decisions"] == ref["decisions"] * 2
+        assert sorted(k for k in mine["metrics"] if k.endswith("_avs")) == [
+            "s3_avs", "s4_avs", "s5_avs"]
+        for key, value in ref["metrics"].items():
+            np.testing.assert_allclose(mine["metrics"][key], value, rtol=1e-6, atol=1e-9,
+                                       err_msg=key)
+    assert _relative_l2(got["grads"], one["grads"]) < 1e-5
+    # Two SGD steps' updates (the gradients they hold) to relative L2 1e-5;
+    # the BatchNorm statistics.
+    before = cases["avslowfast"]["state_dict"]
+    names = [k for k in before if "running" not in k and not k.endswith("num_batches_tracked")]
+    assert _relative_l2({k: before[k] - got["state"][k] for k in names},
+                        {k: before[k] - one["state"][k] for k in names}) < 1e-5
+    for key in set(before) - set(names):
+        torch.testing.assert_close(got["state"][key], one["state"][key], atol=1e-7, rtol=1e-6,
+                                   msg=key)
 
 
 def test_precise_bn_matches_jax_over_two_ranks(two_ranks):

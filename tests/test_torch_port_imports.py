@@ -41,3 +41,13 @@ def test_no_jax_or_pmv_tpu_imports(path):
         if m.split(".")[0] in FORBIDDEN
     ]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_the_scan_covers_the_audio_modules():
+    """AVSlowFast's modules are scanned, and the audio dataset decodes
+    through the port's own binding, never the JAX package's."""
+    for name in ("data/audio.py", "data/kinetics_av.py", "models/avslowfast.py"):
+        assert ROOT / "pmv_tpu_torch" / name in SOURCES, name
+    imported = set(_imported_modules(ROOT / "pmv_tpu_torch" / "data" / "kinetics_av.py"))
+    assert "pmv_tpu_torch.native" in imported
+    assert not any(m.startswith("pmv_tpu.") for m in imported)

@@ -313,8 +313,20 @@ def test_pack_pathways_matches_jax():
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), w)
     assert got[0][0, :, 0, 0, 0].tolist() == list(range(0, 32, 4))
+    # AVSlowFast: the audio, and the misaligned audio where given, after
+    # the two; without the audio both packages refuse.
     cfg.MODEL.ARCH = "avslowfast"
-    with pytest.raises(NotImplementedError, match="avslowfast"):
+    audio = np.random.default_rng(0).normal(size=(2, 8, 4)).astype(np.float32)
+    for extra in ([audio], [audio, audio + 1]):
+        want = jsteps.pack_pathways(cfg, jnp.asarray(x), *map(jnp.asarray, extra))
+        got = psteps.pack_pathways(port_cfg(cfg), torch.from_numpy(x),
+                                   *map(torch.from_numpy, extra))
+        assert len(got) == len(want) == 2 + len(extra)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    with pytest.raises(AssertionError, match="audio"):
+        jsteps.pack_pathways(cfg, jnp.asarray(x))
+    with pytest.raises(ValueError, match="audio"):
         psteps.pack_pathways(port_cfg(cfg), torch.from_numpy(x))
 
 

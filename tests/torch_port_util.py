@@ -188,10 +188,16 @@ def jax_dropout_masks(jmodel, variables, x, key, **kwargs):
     """The keep masks (bool, in call order) that the ``nn.Dropout`` modules of
     ``jmodel`` draw in one train-mode apply on an input of ``x``'s shape
     with ``rngs={"dropout": key}``, as the JAX train step applies it (``x``
-    an array, or a list of a multi-pathway net's arrays). A mask
-    depends on the key, the module's path and the shape, not on the values:
-    each Dropout is called once, on ones, and its output read. The apply is
-    jitted: it returns the masks only, so XLA drops the rest of the model."""
+    an array, or a list of a multi-pathway net's arrays)."""
+    return [np.asarray(m) for m in jax_dropout_masks_fn(jmodel, x, **kwargs)(variables, key)]
+
+
+def jax_dropout_masks_fn(jmodel, x, **kwargs):
+    """masks(variables, key): ``jax_dropout_masks`` compiled once for every
+    key. A mask depends on the key, the module's path and the shape, not on
+    the values: each Dropout is called once, on ones, and its output read.
+    The apply is jitted: it returns the masks only, so XLA drops the rest
+    of the model."""
     import flax.linen as fnn
     import jax
     import jax.numpy as jnp
@@ -212,7 +218,7 @@ def jax_dropout_masks(jmodel, variables, x, key, **kwargs):
                          mutable=["batch_stats"], rngs={"dropout": key}, **kwargs)
         return masks
 
-    return [np.asarray(m) for m in jax.jit(masks_of)(variables, key)]
+    return jax.jit(masks_of)
 
 
 def folded_like(mask, shape):
@@ -545,6 +551,39 @@ def rank_train_step(rank, world, case, strategy):
             "state": whole_state(model), "routes": list(routes)}, state
 
 
+def rank_av_steps(rank, world, case, strategy=None):
+    """AVSlowFast's case (cfg, state_dict, the global batches, their epochs,
+    lr, dtype, the steps' seed): a train step on each batch under ``strategy`` (None: the
+    model unwrapped, as one process runs it), this rank's rows of
+    "audio_mis" first rolled into the easy negatives of the batch's epoch
+    (``steps.easy_negatives``, across ranks). Per step: the metrics, the
+    rolled clips of every rank and every rank's DropPathway decision (the
+    step's ``sample_draws``); then the whole gradients and the state."""
+    from pmv_tpu_torch.engine import steps
+    from pmv_tpu_torch.models import build_model
+    from pmv_tpu_torch.parallel import distributed
+
+    cfg = case["cfg"]
+    model = build_model(cfg, device="cpu", dtype=case["dtype"])
+    model.load_state_dict(case["state_dict"])
+    wrapped = None if strategy is None else distributed.wrap_model(
+        model, strategy, torch.device("cpu"))
+    state = steps.init_state(cfg, model, wrapped=wrapped)
+    step = steps.make_train_step(cfg, device="cpu", seed=case["seed"])
+    out = []
+    for batch, epoch in zip(case["batches"], case["epochs"]):
+        local = local_rows(batch, rank, world)
+        local["audio_mis"] = steps.easy_negatives(cfg, local["audio_mis"], epoch)
+        decision = step.sample_draws(model, batch["frames"].shape, state.step)["drop_pathway"]
+        rolled, decisions = distributed.gather_host(
+            [local["audio_mis"].numpy(), np.array([decision])])
+        metrics = step(state, local, case["lr"])
+        out.append({"metrics": {k: float(v) for k, v in metrics.items()}, "rolled": rolled,
+                    "decisions": decisions.tolist()})
+    grads = {k: distributed.full(p.grad).clone() for k, p in model.named_parameters()}
+    return {"steps": out, "grads": grads, "state": whole_state(model)}
+
+
 def rank_cases(rank, world, case_dir):
     """Every case of ``case_dir/cases.pt`` on this rank; rank 0 writes the
     results to ``case_dir/results.pt``."""
@@ -643,6 +682,10 @@ def rank_cases(rank, world, case_dir):
             "x_grad": distributed.gather_host([x.grad.numpy()])[0],
             "param_grads": [distributed.all_reduce_sum(g) for g in (bn.weight.grad, bn.bias.grad)],
             "state": {k: v.clone() for k, v in bn.state_dict().items()}}
+
+    # (h): AVSlowFast's steps, the AVS losses over the global batch.
+    for strategy in ("dp", "fsdp"):
+        out["avslowfast", strategy] = rank_av_steps(rank, world, cases["avslowfast"], strategy)
     if rank == 0:
         torch.save(out, case_dir / "results.pt")
 
