@@ -152,7 +152,7 @@ the AVS sync losses and DropPathway; no conv on K1 (0 launches asserted):
    share, peak memory (a main path).
 6v. ``run_net`` on the yaml (NUM_GPUS 1, batch 8) over ``Synthetic_av``,
    a dataset this script registers (``register_synthetic_av``: Synthetic's
-   32 videos' clips with log-mels cut as ``Kinetics_av`` cuts them from a
+   16 videos' clips with log-mels cut as ``Kinetics_av`` cuts them from a
    waveform drawn from the video), one epoch: train, precise BN,
    checkpoint, eval, a 2-view test of 256^2; the restore, every tensor
    compared; the resume with SOLVER.MAX_EPOCH 2 (main paths; log in
@@ -195,6 +195,36 @@ K1), full width and depth, random weights from a seed; the image MViTv2-S
    TRAIN.CHECKPOINT_FILE_PATH "", one epoch and the test's views (the
    yaml's 10 cut to 2): the eval epoch's mAP and the test's (a main path,
    0 K1).
+AVA action detection (configs/AVA/SLOWFAST_32x2_R50_SHORT.yaml at full
+width: SlowFast 32x2 R50 with res5 at stride 1 and dilation 2, the feature
+stride 16, RoIAlign 7x7 and the spatial max per pathway, 80 classes on
+2048 + 256 channels; ``AVA_PARAMS``, the JAX model's count; random
+weights from a seed), on a dump written from a seed (``tools/ava_dump.py``:
+8 videos of 90 JPEGs of 455x256, keyframes at seconds 902-904, the
+groundtruth, label map and excluded timestamp, so ``AVAMeter`` reads its
+groundtruth file); no conv on K1 (0 launches asserted on every phase):
+3a. (Run after 3v.) At batch 2 on 8 of the 32 frames (2 slow) of 224^2,
+   16 box slots a clip, 3 valid (one at the crop's edge), float32, card
+   against CPU: the detection eval step (scores to atol 1e-4, 0 on the
+   padded boxes); one detection train step (BCE over the valid boxes,
+   head dropout 0.5, SGD) under phase 3s's gates (the gradients to
+   ``grad_witness.RELU_LIMITS["SlowFast_AVA"]``, the loss, the update, the
+   BatchNorm statistics), then in float64 on both sides under every 1e-4
+   gate (``FLOAT64_HELD``).
+4a. Serve 4 batches of 8 keyframe clips of 32 x 224^2 (3 boxes each)
+   through ``test.perform_detection`` into a test ``AVAMeter`` in bfloat16:
+   ms a batch, clips/s, the mAP finite (a main path).
+5a. Train 3 timed batch-8 bfloat16 detection steps through ``train_epoch``
+   (the boxes through the prefetcher), then 2 under the profiler: ms a
+   step, clips/s, peak memory, the busy share (a main path).
+6a. ``run_net`` on the dump, on each AVA yaml (NUM_GPUS 1, batch 8, one
+   epoch): train, the val epoch's AVA mAP, the checkpoint, ``test()``'s AVA
+   mAP; the restore, every tensor compared; the resume with
+   SOLVER.MAX_EPOCH 2. SlowFast's first call starts, as the recipe does,
+   from a Kinetics SlowFast (configs/Kinetics/SLOWFAST_8x8_R50.yaml's
+   model from a seed, 400 classes, a ``.pyth``): the trunk's tensors load,
+   the projection keeps its init (main paths; logs in
+   ``build/chip_smoke_ava/run_{slowfast,slow}/stdout.log``).
 Multigrid training of SlowFast 8x8 R50
 (configs/Kinetics/SLOWFAST_8x8_R50_stepwise_multigrid.yaml: long and short
 cycles, SubBatchNorm, the BatchNorm swap across cycles; 0 K1 launches):
@@ -303,7 +333,7 @@ Distributed (``pmv_tpu_torch/parallel/distributed.py``):
    --init_method`` with NUM_GPUS 1 and gloo, both processes on the one card:
    UniFormer-S's rect recipe in float32 for one epoch (``launch_job``,
    ``train()`` with ``dp``, the gathered eval, the checkpoint written by rank
-   0, the gathered test; 32 Synthetic videos), its test_final against one
+   0, the gathered test; 16 Synthetic videos), its test_final against one
    process's at twice a process's batch, then a resume (main paths, counted
    in each rank's process); its processes run while 8d's do. 8b: a world of one over NCCL: MViTv2-S at batch 8, the ``dp``
    and the ``fsdp`` step against the unwrapped step under phase 3b's gates
@@ -323,10 +353,11 @@ Distributed (``pmv_tpu_torch/parallel/distributed.py``):
    last {"ok": true, "device": {...}}.
 
 FFmpeg's development files are not on the card's machine, so no phase
-decodes video there; ``run_net`` reads the Synthetic dataset (32 videos in
+decodes video there; ``run_net`` reads the Synthetic dataset (16 videos in
 the earlier slices' phases 6-7, 6u-7u, 6x-7x, 6s-7s, 6m-7m, 6c and 8c, and
 with log-mel audio in 6v,
-``synthetic_videos``; its 64 elsewhere), and 6h JPEG frames it writes.
+``synthetic_videos``; its 64 elsewhere), and 6h and 6a JPEG frames it
+writes.
 
 Without a CUDA device, or without the package beside it, it exits non-zero
 and prints no result.
@@ -765,8 +796,8 @@ def imagenet_mvit_cfg():
 def synthetic_videos(n):
     """Within the block, the Synthetic dataset holds ``n`` videos (its
     ``NUM_VIDEOS``, the JAX package's 64 outside): the run_net epochs of
-    the earlier slices' paths at 32 keep the script's wall time under 600
-    s."""
+    the earlier slices' paths at 16 (32 before the AVA phases came) keep
+    the script's wall time near 600 s."""
     from pmv_tpu_torch.data.synthetic import Synthetic
 
     before = Synthetic.NUM_VIDEOS
@@ -777,7 +808,7 @@ def synthetic_videos(n):
         Synthetic.NUM_VIDEOS = before
 
 
-EARLIER_RUN_NET_VIDEOS = 32
+EARLIER_RUN_NET_VIDEOS = 16
 # The float64 reruns' frames, evenly strided from the batch's: the
 # supervised steps' (SlowFast's 32, R(2+1)D's 16) and the contrastive
 # steps' (Slow's 8). The same gates at a fraction of the CPU's float64 time.
@@ -1227,8 +1258,8 @@ def _profiled(steps):
 
 def phase_train(card, cfg, per_forward, prefix="", timed=2, profile=False):
     """A main path: train_epoch over ``timed`` synthetic batches of 8 clips
-    after one warm-up batch; with ``profile``, 2 more steps under the
-    profiler after it (``_profiled``)."""
+    (with boxes for a detection config) after one warm-up batch; with
+    ``profile``, 2 more steps under the profiler after it (``_profiled``)."""
     from pmv_tpu_torch.engine.steps import init_state, make_train_step
     from pmv_tpu_torch.engine.train import train_epoch
     from pmv_tpu_torch.utils.meters import TrainMeter
@@ -1254,6 +1285,11 @@ def phase_train(card, cfg, per_forward, prefix="", timed=2, profile=False):
          "labels": rng.integers(0, cfg.MODEL.NUM_CLASSES, batch)}
         for _ in range(1 + max(timed, 2 if profile else 0))
     ]
+    if cfg.DETECTION.ENABLE:  # 16 box slots a clip, 3 valid, multi-hot labels
+        from pmv_tpu_torch.tools.grad_witness import detection_boxes
+
+        for b in loader:
+            b.update(detection_boxes(batch, size, cfg.MODEL.NUM_CLASSES, rng))
     if cfg.MODEL.ARCH == "avslowfast":  # the audio, and the misaligned audio
         for b in loader:              # that train_epoch rolls into easy negatives
             b["audio"], b["audio_mis"] = av_logmels(cfg, rng, batch), av_logmels(cfg, rng, batch)
@@ -1770,6 +1806,239 @@ def phase_charades(card, root):
         raise AssertionError(f"no test_final mAP in the Charades log: {final}")
     if launches != eval_launches(0):
         raise AssertionError(f"Charades' SlowFast launched {launches}")
+    return launches
+
+
+# AVA action detection (configs/AVA/), phases 3a-6a.
+
+AVA_CFGS = {name: os.path.join(ROOT, "configs", "AVA", f) for name, f in (
+    ("slowfast", "SLOWFAST_32x2_R50_SHORT.yaml"), ("slow", "SLOW_8x8_R50_SHORT.yaml"))}
+AVA_PARAMS = 33_828_888  # the JAX model's (tests/test_torch_port_detection.py)
+AVA_K1 = 0  # SlowFast's and Slow's convs are dense
+AVA_CPU_FRAMES = 8  # 3a's frames of the 32
+AVA_VIDEOS = 8  # the dump's videos, 3 keyframes each
+# The loader's threads in 6a: the card's host has 8 cores for its one card
+# (the yamls' 2 are a process's of 8 on a host).
+AVA_LOADER_THREADS = 8
+
+
+def ava_cfg():
+    """The SlowFast 32x2 AVA yaml as it is, NUM_GPUS 1."""
+    from pmv_tpu_torch.config import get_cfg
+
+    cfg = get_cfg()
+    cfg.merge_from_file(AVA_CFGS["slowfast"])
+    cfg.NUM_GPUS = 1
+    return cfg
+
+
+def ava_batch(cfg, b, frames, rng):
+    """``b`` keyframe clips of ``frames`` frames at the train crop with
+    ``grad_witness.detection_boxes`` (16 slots, 3 valid, one at the edge)."""
+    from pmv_tpu_torch.tools.grad_witness import detection_boxes
+
+    size = cfg.DATA.TRAIN_CROP_SIZE
+    return {"frames": rng.integers(0, 256, (b, frames, size, size, 3), np.uint8),
+            **detection_boxes(b, size, cfg.MODEL.NUM_CLASSES, rng)}
+
+
+def phase_ava_card_vs_cpu():
+    """3a: full-width SlowFast 32x2 AVA at batch 2 on ``AVA_CPU_FRAMES`` of
+    its 32 frames of 224^2, float32, card against CPU: the detection eval
+    step, then one detection train step under phase 3s's gates and in
+    float64 (``_train_step_card_vs_cpu``); 0 K1 each."""
+    from pmv_tpu_torch.engine.steps import make_detection_eval_step
+
+    cfg = ava_cfg()
+    batch = ava_batch(cfg, 2, AVA_CPU_FRAMES, np.random.default_rng(13))
+    n_params = sum(p.numel() for p in seeded_model(cfg, "meta", torch.float32).parameters())
+    if n_params != AVA_PARAMS:
+        raise AssertionError(f"SlowFast AVA has {n_params} parameters, not {AVA_PARAMS}")
+    cpu_model, gpu_model = _models_card_and_cpu(cfg)
+    args = (batch["frames"], batch["boxes"], batch["box_mask"])
+    before = _launch_counts()
+    t0 = time.perf_counter()
+    gpu = make_detection_eval_step(cfg, gpu_model, device="cuda")(*args).cpu()
+    gpu_s = time.perf_counter() - t0
+    launches = _launches_since(before)
+    t0 = time.perf_counter()
+    cpu = make_detection_eval_step(cfg, cpu_model, device="cpu")(*args)
+    cpu_s = time.perf_counter() - t0
+    err = float((gpu - cpu).abs().max())
+    padded = float(gpu[~torch.from_numpy(batch["box_mask"])].abs().max())
+    log(json.dumps({"phase": "ava_full_model_f32_b2", "params": n_params,
+                    "scores": list(gpu.shape), "max_abs_err_vs_cpu": err,
+                    "padded_max_abs": padded, "launches": launches,
+                    "gpu_first_call_s": gpu_s, "cpu_s": cpu_s}))
+    if launches != eval_launches(AVA_K1):
+        raise AssertionError(f"the AVA forward launched {launches}")
+    if not torch.isfinite(gpu).all() or padded != 0.0:
+        raise AssertionError("non-finite scores, or scores on padded boxes")
+    torch.testing.assert_close(gpu, cpu, atol=1e-4, rtol=0)
+    _train_step_card_vs_cpu("ava_train_step_f32_b2_card_vs_cpu", cfg, batch,
+                            step_launches(AVA_K1), models=(cpu_model, gpu_model))
+
+
+def phase_ava_serve(card, batches=4, batch=8):
+    """4a, a main path: ``perform_detection`` over ``batches`` batches of
+    ``batch`` keyframe clips (32 x 224^2, 3 boxes each) into a test
+    ``AVAMeter`` in bfloat16, its groundtruth from the batches."""
+    from pmv_tpu_torch.engine.steps import make_detection_eval_step
+    from pmv_tpu_torch.engine.test import perform_detection
+    from pmv_tpu_torch.utils.meters import AVAMeter
+
+    cfg = ava_cfg()
+    cfg.AVA.ANNOTATION_DIR = ""  # no files: the groundtruth from the batches
+    model = seeded_model(cfg, "cuda")  # bfloat16 activations
+    eval_step = make_detection_eval_step(cfg, model, device="cuda")
+    rng = np.random.default_rng(4)
+    size = cfg.DATA.TEST_CROP_SIZE
+    loader = []
+    for i in range(batches):
+        b = ava_batch(cfg, batch, cfg.DATA.NUM_FRAMES, rng)
+        b["ori_boxes"] = b["boxes"] / size
+        b["metadata"] = np.stack([np.arange(i * batch, (i + 1) * batch),
+                                  np.full(batch, 904)], axis=1)
+        loader.append(b)
+    eval_step(loader[0]["frames"], loader[0]["boxes"], loader[0]["box_mask"])  # warm-up
+    torch.cuda.synchronize()
+    meter = AVAMeter(len(loader), cfg, "test")
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launch_counts()  # the main path starts here
+    t0 = time.perf_counter()
+    groundtruth = perform_detection(loader, eval_step, meter)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launch_counts()  # ... and ends here
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    mean_ap = meter.finalize_metrics(log=False, groundtruth=groundtruth)
+    n = batches * batch
+    preds = np.concatenate(meter.all_preds)
+    log(json.dumps({
+        "phase": "ava_serve_bf16_b8", "card": card, "clips": n, "batches": batches,
+        "boxes": int(preds.shape[0]), "wall_s": wall, "ms_per_batch": wall / batches * 1e3,
+        "clips_per_s": n / wall, "map": mean_ap, "map_s": time.perf_counter() - t0,
+        "max_memory_allocated_bytes": peak, "launches": launches}))
+    if preds.shape != (3 * n, cfg.MODEL.NUM_CLASSES) or not np.isfinite(preds).all():
+        raise AssertionError(f"bad detection scores: {preds.shape}")
+    if not 0.0 <= mean_ap <= 1.0:
+        raise AssertionError(f"AVA mAP {mean_ap}")
+    if launches != eval_launches(AVA_K1):
+        raise AssertionError(f"AVA serving launched {launches}")
+    return launches
+
+
+def ava_run_net_argv(name, root, out_dir, max_epoch, extra=()):
+    """run_net's arguments: the yaml as it is, its data at the dump
+    ``root``, NUM_GPUS 1, batch 8, ``AVA_LOADER_THREADS`` loader threads."""
+    return ["--cfg", AVA_CFGS[name], "--opts",
+            "AVA.FRAME_DIR", os.path.join(root, "frames"),
+            "AVA.FRAME_LIST_DIR", os.path.join(root, "frame_lists"),
+            "AVA.ANNOTATION_DIR", os.path.join(root, "annotations"),
+            "NUM_GPUS", "1", "TRAIN.BATCH_SIZE", "8", "TEST.BATCH_SIZE", "8",
+            "DATA_LOADER.NUM_WORKERS", str(AVA_LOADER_THREADS),
+            "SOLVER.MAX_EPOCH", str(max_epoch), "OUTPUT_DIR", out_dir, *extra]
+
+
+def _ava_run_net_call(name, root, out_dir, max_epoch, extra):
+    """One ``run_net`` call on an AVA yaml (a main path), read from its log:
+    the epoch's, the eval's, the checkpoint's and the test's seconds, the
+    val epoch's and the test's AVA mAP, the checkpoint's bytes."""
+    from pmv_tpu_torch.data.loader import construct_loader
+    from pmv_tpu_torch.tools import run_net
+
+    argv = ava_run_net_argv(name, root, out_dir, max_epoch, extra)
+    cfg = run_net_cfg(argv)
+    train_steps = len(construct_loader(cfg, "train"))
+    log_path = os.path.join(out_dir, "stdout.log")
+    skip = 0
+    if os.path.exists(log_path):
+        with open(log_path) as f:
+            skip = len(f.read().splitlines())
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launch_counts()  # the main path starts here
+    t0 = time.perf_counter()
+    run_net.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launch_counts()  # ... and ends here
+    with open(log_path) as f:
+        lines = f.read().splitlines()[skip:]
+    stats = [json.loads(line.split("json_stats: ", 1)[1])
+             for line in lines if "json_stats: " in line]
+    train = [s for s in stats if s.get("_type") == "train_epoch"]
+    val = [s for s in stats if s.get("_type") == "val_epoch"]
+    final = stats[-1]
+    if not (len(train) == 1 and np.isfinite(train[0]["loss"])):
+        raise AssertionError(f"AVA {name} trained no epoch of finite loss: {train}")
+    if not (len(val) == 1 and 0.0 <= val[0]["map"] <= 1.0):
+        raise AssertionError(f"no val epoch mAP in the AVA {name} log: {val}")
+    if not (final.get("split") == "test_final" and 0.0 <= final.get("map", -1) <= 1.0):
+        raise AssertionError(f"no test_final mAP in the AVA {name} log: {final}")
+    if launches != eval_launches(AVA_K1):
+        raise AssertionError(f"AVA {name}'s run_net launched {launches}")
+    epoch = max_epoch - 1
+    saved = _last_match(lines, r"Saved checkpoint to (\S+) in ([\d.]+)s")
+    tested = _last_match(lines, r"AVA test: (\d+) keyframes in ([\d.]+)s")
+    return {
+        "phase": f"ava_run_net_{name}_epoch_{max_epoch}", "wall_s": wall,
+        "epoch_s": float(_last_match(lines, rf"Epoch {epoch} takes ([\d.]+)s")[1]),
+        "train_steps": train_steps, "train_clips": 8 * train_steps,
+        "eval_s": float(_last_match(lines, rf"Eval of epoch {epoch} takes ([\d.]+)s")[1]),
+        "test_keyframes": int(tested[1]), "test_s": float(tested[2]),
+        "checkpoint": saved[1], "checkpoint_s": float(saved[2]),
+        "checkpoint_bytes": os.path.getsize(saved[1]),
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "launches": launches, "train_epoch_stats": train[0], "val_map": val[0]["map"],
+        "test_map": final["map"], "log": lines,
+    }
+
+
+def phase_ava_run_net(card, root):
+    """6a, main paths: the dump (``tools/ava_dump.py``, ``AVA_VIDEOS``
+    videos), then on each AVA yaml ``run_net`` for one epoch, the restore,
+    every tensor compared, and the resume with SOLVER.MAX_EPOCH 2;
+    SlowFast's first call from a Kinetics SlowFast ``.pyth`` (the
+    projection alone keeps its init). Returns the launches of each call."""
+    from contextlib import redirect_stdout
+
+    from pmv_tpu_torch.tools.ava_dump import write_ava_dump
+
+    t0 = time.perf_counter()
+    keyframes = write_ava_dump(root, videos=AVA_VIDEOS)
+    kinetics = os.path.join(root, "kinetics_slowfast_8x8_r50.pyth")
+    torch.save({"model_state": seeded_model(slowfast_cfg(), "cpu", torch.float32).state_dict()},
+               kinetics)
+    log(json.dumps({"phase": "ava_dump", "keyframes": len(keyframes),
+                    "seconds": time.perf_counter() - t0}))
+    launches = []
+    for name in ("slowfast", "slow"):
+        out_dir = os.path.join(root, f"run_{name}")
+        extra = ["TRAIN.CHECKPOINT_TYPE", "pytorch",
+                 "TRAIN.CHECKPOINT_FILE_PATH", kinetics if name == "slowfast" else ""]
+        with redirect_stdout(open(os.devnull, "w")):
+            first = _ava_run_net_call(name, root, out_dir, 1, extra)
+            restored = check_restore(run_net_cfg(ava_run_net_argv(name, root, out_dir, 2, extra)))
+            second = _ava_run_net_call(name, root, out_dir, 2, extra)
+        if name == "slowfast":  # train()'s load, the first (test() loads the run's own)
+            loaded = next(m for m in map(re.compile(
+                r"Loaded (\d+) of the model's (\d+) tensors from the checkpoint; (\d+) kept "
+                r"their init").search, first["log"]) if m)
+            first["kinetics_load"] = loaded[0]
+            if int(loaded[3]) != 2 or not any("Dropping head.projection.weight" in line
+                                              for line in first["log"]):
+                raise AssertionError(f"the Kinetics SlowFast did not load as the trunk: {loaded[0]}")
+        if restored["start_epoch"] != 1 or restored["checkpoint"] != first["checkpoint"]:
+            raise AssertionError(f"the AVA {name} restore did not start after epoch 1")
+        if not any(f"Load from last checkpoint, {first['checkpoint']}." in line
+                   for line in second["log"]):
+            raise AssertionError(f"the second AVA {name} call did not resume")
+        for rec in (first, second):
+            rec.pop("log")
+            log(json.dumps({**rec, "card": card}))
+        log(json.dumps({"phase": f"ava_run_net_{name}_restore", **restored}))
+        launches += [first["launches"], second["launches"]]
     return launches
 
 
@@ -3746,7 +4015,8 @@ def plant_wrapper_faults(card):
 
 
 def kernels_line(records, launches, slowfast_launches, maskfeat_launches,
-                 contrastive_launches, multigrid_launches, csn_launches, avslowfast_launches):
+                 contrastive_launches, multigrid_launches, csn_launches, avslowfast_launches,
+                 ava_launches):
     """One entry per kernel: times summed over the launches at the 224^2
     crop's shapes in bfloat16 at batch 8; K1 over one MViTv2-S forward (17
     launches, as many again for dx in a train step), the wgrad kernel over
@@ -3772,7 +4042,8 @@ def kernels_line(records, launches, slowfast_launches, maskfeat_launches,
     kernel never sees at that crop but is held there all the same), and
     over its 22 launches at [8, 8, 14, 14, 256] alone ("s4_22_launches",
     bf16); "launches_avslowfast" the AVSlowFast paths' (phases 4v-6v, 0: its
-    convs are dense or 2-D)."""
+    convs are dense or 2-D); "launches_ava" the AVA detection paths'
+    (phases 4a-6a, 0: SlowFast's and Slow's convs are dense)."""
     maskfeat = maskfeat_kernel_ms(records)
 
     def entry(name, source, replaces, recs, basis):
@@ -3793,6 +4064,7 @@ def kernels_line(records, launches, slowfast_launches, maskfeat_launches,
             "launches": launches[name],
             "launches_slowfast": slowfast_launches[name],
             "launches_avslowfast": avslowfast_launches[name],
+            "launches_ava": ava_launches[name],
             "launches_maskfeat": maskfeat_launches[name],
             "launches_contrastive": {k: v[name] for k, v in contrastive_launches.items()},
             "launches_multigrid": multigrid_launches[name],
@@ -3945,6 +4217,9 @@ def main():
     phase_avslowfast_card_vs_cpu()
     walls["card_vs_cpu_avslowfast"] = time.perf_counter() - tic
     tic = time.perf_counter()
+    phase_ava_card_vs_cpu()
+    walls["card_vs_cpu_ava"] = time.perf_counter() - tic
+    tic = time.perf_counter()
     phase_csn_card_vs_cpu()
     walls["card_vs_cpu_csn_r2plus1d_imagenet"] = time.perf_counter() - tic
     tic = time.perf_counter()
@@ -4003,6 +4278,14 @@ def main():
         avslowfast_paths += phase_run_net(card, "avslowfast", out_dir)
     paths += avslowfast_paths
     walls["main_paths_avslowfast"] = time.perf_counter() - tic
+    tic = time.perf_counter()
+    ava_paths = [phase_ava_serve(card),
+                 phase_train(card, ava_cfg(), AVA_K1, "ava_", timed=3, profile=True)]
+    out_dir = os.path.join("build", "chip_smoke_ava")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    ava_paths += phase_ava_run_net(card, out_dir)
+    paths += ava_paths
+    walls["main_paths_ava"] = time.perf_counter() - tic
     tic = time.perf_counter()
     csn, r2plus1d = csn_cfg(), csn_cfg(R2PLUS1D_CFG)
     csn_paths = [phase_serve(card, csn, CSN_K1, "csn_"),
@@ -4080,6 +4363,7 @@ def main():
     launches = {k: sum(p[k] for p in paths) for k in paths[0]}
     slowfast_launches = {k: sum(p[k] for p in slowfast_paths) for k in paths[0]}
     avslowfast_launches = {k: sum(p[k] for p in avslowfast_paths) for k in paths[0]}
+    ava_launches = {k: sum(p[k] for p in ava_paths) for k in paths[0]}
     maskfeat_launches = {k: sum(p[k] for p in maskfeat_paths) for k in paths[0]}
     multigrid_launches = {k: sum(p[k] for p in multigrid_paths) for k in paths[0]}
     csn_launches = {k: sum(p[k] for p in csn_paths) for k in paths[0]}
@@ -4091,7 +4375,7 @@ def main():
     log(json.dumps({"phase": "total", "wall_s": time.perf_counter() - t_start}))
     line = kernels_line(records, launches, slowfast_launches, maskfeat_launches,
                         contrastive_launches, multigrid_launches, csn_launches,
-                        avslowfast_launches)
+                        avslowfast_launches, ava_launches)
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": card, "records": records, **line}, f, indent=1)

@@ -20,8 +20,10 @@ the CPU tests can feed the port the JAX package's draws:
   recipe the jitter coin (p 0.8), the blur coin (p 0.5) and the blur sigma;
 - ``sample_time_difference``: the per-clip coin of the time difference.
 
-``lighting_jitter`` (the AVA colour augmentation's, whose branch of the
-preprocessing is not ported) takes its [B, 3] alphas as given.
+- ``AVAColorDraws``: the AVA colour augmentation's (DETECTION.ENABLE with
+  AVA.TRAIN_USE_COLOR_AUGMENTATION, `pmv_tpu/engine/steps.py:63-87`): the
+  jitter's at hue 0, unless AVA.TRAIN_PCA_JITTER_ONLY, and the [B, 3]
+  alphas of ``lighting_jitter`` (alphastd 0.1).
 """
 
 import itertools
@@ -236,6 +238,33 @@ def lighting_jitter(x, alpha, eigval, eigvec, scale=255.0):
     evec = torch.as_tensor(eigvec, dtype=torch.float32)
     rgb = torch.einsum("cj,bj->bc", evec, alpha.float() * ev[None, :]) * scale
     return x + rgb.to(device=x.device, dtype=x.dtype)[:, None, None, None, :]
+
+
+@dataclass
+class AVAColorDraws:
+    """``ava_color``'s draws: the jitter's (None with PCA jitter only) and
+    the lighting jitter's [B, 3] alphas, already times alphastd."""
+
+    jitter: ColorJitterDraws
+    alpha: torch.Tensor
+
+    def rows(self, start, stop):
+        jitter = None if self.jitter is None else self.jitter.rows(start, stop)
+        return AVAColorDraws(jitter, self.alpha[start:stop])
+
+
+def sample_ava_color(b, generator, pca_only, alphastd=0.1):
+    """The AVAColorDraws of a batch of ``b`` clips."""
+    jitter = None if pca_only else sample_color_jitter(b, generator, 0.4, 0.4, 0.4, hue=0.0)
+    return AVAColorDraws(jitter, alphastd * torch.randn((b, 3), generator=generator))
+
+
+def ava_color(x, draws, eigval, eigvec):
+    """The AVA colour augmentation on the device: ColorJitter(0.4, 0.4, 0.4,
+    hue 0) where drawn, then the PCA lighting jitter."""
+    if draws.jitter is not None:
+        x = color_jitter(x, draws.jitter)
+    return lighting_jitter(x, draws.alpha, eigval, eigvec)
 
 
 def temporal_difference(x, use_grayscale=True, absolute=False):

@@ -155,7 +155,8 @@ class DataLoader:
 
 def _collate(samples):
     """Stack sample dicts into a batch of numpy arrays; a sample's "mask"
-    (AUG.GEN_MASK_LOADER), "audio" and "audio_mis" (``Kinetics_av``) too."""
+    (AUG.GEN_MASK_LOADER), "audio" and "audio_mis" (``Kinetics_av``), and
+    "boxes", "box_mask", "ori_boxes" and "metadata" (``Ava``) too."""
     labels = [s["label"] for s in samples]
     batch = {
         "frames": np.stack([s["frames"] for s in samples]),
@@ -168,7 +169,7 @@ def _collate(samples):
         "time": np.asarray([s["time"] for s in samples], np.float32),
         "pm": np.asarray([s["pm"] for s in samples], bool),
     }
-    for key in ("mask", "audio", "audio_mis"):
+    for key in ("mask", "audio", "audio_mis", "boxes", "box_mask", "ori_boxes", "metadata"):
         if key in samples[0]:
             batch[key] = np.stack([s[key] for s in samples])
     return batch

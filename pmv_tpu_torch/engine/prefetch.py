@@ -4,12 +4,13 @@ Counterpart of `pmv_tpu/engine/prefetch.py` (the reference's pinned-memory
 ``non_blocking`` copies, `MViT/tools/train_net.py:88-111`). On a CUDA device
 ``DevicePrefetcher`` keeps ``depth`` batches ahead of the one the step is
 working on: each batch's "frames", "labels" and, from a loader with
-AUG.GEN_MASK_LOADER, "mask", and from ``Kinetics_av`` the float32 log-mel
-"audio" and "audio_mis", go into pinned memory and
+AUG.GEN_MASK_LOADER, "mask", from ``Kinetics_av`` the float32 log-mel
+"audio" and "audio_mis", and from ``Ava`` the "boxes" and "box_mask" (its
+"labels" are the boxes' multi-hot rows), go into pinned memory and
 then to the card on a side stream, and the event recorded after the copy is
 what the consuming stream waits on. The other keys (the "pm" flags, the
-indices) stay numpy arrays on the host, where the engine reads them without
-waiting for the card. ``record_stream`` tells the caching allocator that
+indices, AVA's "ori_boxes" and "metadata") stay numpy arrays on the
+host, where the engine reads them without waiting for the card. ``record_stream`` tells the caching allocator that
 the consuming stream uses the copies; the caching host allocator keeps a
 pinned buffer until the copy out of it has ended, so no buffer is reused
 early. On the CPU it passes batches through as they are.
@@ -19,7 +20,7 @@ import collections
 
 import torch
 
-DEVICE_KEYS = ("frames", "labels", "mask", "audio", "audio_mis")
+DEVICE_KEYS = ("frames", "labels", "mask", "audio", "audio_mis", "boxes", "box_mask")
 
 
 class DevicePrefetcher:

@@ -29,6 +29,14 @@ transposed clip without the audio and fails, `steps.py:246`): a ``pm``
 batch, or a config with DATA.TRAIN_CROP_SIZE_RECT_SWITCH_AUTO or
 TEST_CROP_SIZE_RECT_SWITCH_AUTO, raises NotImplementedError.
 
+Detection (DETECTION.ENABLE, the AVA recipes): ``make_train_step`` returns
+``make_detection_train_step`` (`steps.py:325-370`), whose batch carries
+"boxes", "box_mask" and multi-hot "labels" and whose loss is
+``detection_loss`` (over the global batch's valid boxes in a
+multi-process job); ``make_detection_eval_step`` is the JAX package's
+``det_step`` (`test.py:95-105`). The AVA colour augmentation is a
+preprocessing draw ("ava_color") like the others.
+
 Portrait (``pm``) batches, whose "pm" flags mark rows: the JAX package runs a
 second module, the portrait specialization over the same parameters, on
 the whole batch transposed, and selects per row,
@@ -70,8 +78,10 @@ strategy, once per step: DDP expects one forward per backward.
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from pmv_tpu_torch.data import color_jitter
+from pmv_tpu_torch.data.ava import MAX_BOXES
 from pmv_tpu_torch.data.mixup import MixUp, mixup_target
 from pmv_tpu_torch.data.rand_augment import RandAugment, num_groups
 from pmv_tpu_torch.data.random_erasing import random_erasing, sample_random_erasing
@@ -87,21 +97,25 @@ class Preprocess:
     """On-device preprocessing (`make_preprocess_fn`, `:35-123`): uint8
     [B, T, H, W, C] -> float32, in the channel order of DATA.USE_BGR_ORDER
     (`kinetics.py:443-448` of the reference); in training, in the JAX
-    package's order, the time difference (DATA.TIME_DIFF_PROB), the SSL
-    colour jitter (DATA.SSL_COLOR_JITTER, with SSL_MOCOV2_AUG and
-    COLOR_RND_GRAYSCALE), RandAugment (AUG.AA_TYPE), then normalize, then
-    random erasing (AUG.RE_PROB). ``sample`` draws the augmentation's
-    parameters; ``__call__`` applies them. The AVA colour augmentation
-    (DETECTION.ENABLE with AVA.TRAIN_USE_COLOR_AUGMENTATION) is not ported
-    and raises NotImplementedError."""
+    package's order, the AVA colour augmentation (DETECTION.ENABLE with
+    AVA.TRAIN_USE_COLOR_AUGMENTATION: ColorJitter at hue 0 unless
+    AVA.TRAIN_PCA_JITTER_ONLY, then the PCA lighting jitter), the time
+    difference (DATA.TIME_DIFF_PROB), the SSL colour jitter
+    (DATA.SSL_COLOR_JITTER, with SSL_MOCOV2_AUG and COLOR_RND_GRAYSCALE),
+    RandAugment (AUG.AA_TYPE), then normalize, then random erasing
+    (AUG.RE_PROB). ``sample`` draws the augmentation's parameters;
+    ``__call__`` applies them."""
 
     # The draws, in the order a step samples them.
-    DRAWS = ("time_diff", "ssl_color", "rand_augment", "erasing")
+    DRAWS = ("ava_color", "time_diff", "ssl_color", "rand_augment", "erasing")
 
     def __init__(self, cfg, train, device):
-        if train and cfg.DETECTION.ENABLE and cfg.AVA.TRAIN_USE_COLOR_AUGMENTATION:
-            raise NotImplementedError("the AVA colour augmentation is not ported yet")
         self.device = device
+        self.ava_color = None
+        if train and cfg.DETECTION.ENABLE and cfg.AVA.TRAIN_USE_COLOR_AUGMENTATION:
+            self.ava_color = dict(pca_only=cfg.AVA.TRAIN_PCA_JITTER_ONLY,
+                                  eigval=cfg.DATA.TRAIN_PCA_EIGVAL,
+                                  eigvec=cfg.DATA.TRAIN_PCA_EIGVEC)
         mean = torch.tensor(cfg.DATA.MEAN, dtype=torch.float32) * 255.0
         inv_std = 1.0 / (torch.tensor(cfg.DATA.STD, dtype=torch.float32) * 255.0)
         self.mean, self.inv_std = mean.to(device), inv_std.to(device)
@@ -125,6 +139,9 @@ class Preprocess:
     def sample(self, shape, generator, device_generator, needed=DRAWS):
         """The draws named in ``needed`` that this preprocessing uses."""
         draws = {}
+        if self.ava_color is not None and "ava_color" in needed:
+            draws["ava_color"] = color_jitter.sample_ava_color(
+                shape[0], generator, self.ava_color["pca_only"])
         if self.time_diff_prob > 0 and "time_diff" in needed:
             draws["time_diff"] = color_jitter.sample_time_difference(
                 shape[0], generator, self.time_diff_prob)
@@ -148,6 +165,9 @@ class Preprocess:
         x = frames.to(dtype)
         if self.use_bgr:
             x = x.flip(-1)
+        if self.ava_color is not None:
+            x = color_jitter.ava_color(x, draws["ava_color"], self.ava_color["eigval"],
+                                       self.ava_color["eigvec"])
         if self.time_diff_prob > 0:
             x = color_jitter.augment_time_difference(x, draws["time_diff"])
         if self.ssl_color is not None:
@@ -310,15 +330,15 @@ def slice_rows(masks, start, stop, batch):
 
 def local_draws(draws, start, stop, batch):
     """The draws of rows [start, stop) of a ``batch``-row batch: per-row
-    draws (the SSL colour's, the time difference's, MaskFeat's masks and
-    HOG bins too) sliced, RandAugment's groups that hold the rows, MixUp's scalars
-    as they are."""
+    draws (the SSL and AVA colours', the time difference's, MaskFeat's masks
+    and HOG bins, the detection head's dropout of M rows a clip too) sliced,
+    RandAugment's groups that hold the rows, MixUp's scalars as they are."""
     if (start, stop) == (0, batch):
         return draws
     out = dict(draws)
     if "rand_augment" in draws:
         out["rand_augment"] = draws["rand_augment"].rows(start, stop, batch)
-    for key in ("erasing", "ssl_color"):
+    for key in ("erasing", "ssl_color", "ava_color"):
         if key in draws:
             out[key] = draws[key].rows(start, stop)
     if "time_diff" in draws:
@@ -424,8 +444,11 @@ def make_train_step(cfg, device=None, seed=0):
     ("s{i}_avs", in the loss already) as tensors on the device, so that the
     host reads them only when it logs. In a multi-process job the
     batch is this rank's rows, ``draws`` are those of the global batch, and
-    the metrics are the global batch's (the module docstring).
+    the metrics are the global batch's (the module docstring). With
+    DETECTION.ENABLE it is ``make_detection_train_step``'s.
     """
+    if cfg.DETECTION.ENABLE:
+        return make_detection_train_step(cfg, device, seed)
     device = resolve_device(device)
     refuse_portrait_audio(cfg)
     loss_fun = get_loss_func(cfg.MODEL.LOSS_FUNC)
@@ -546,6 +569,111 @@ def make_train_step(cfg, device=None, seed=0):
         lambda model, shape, step=0: sample_draws(model, tuple(shape), {}, step)
     )
     return train_step
+
+
+def _call(model, x, **kwargs):
+    return model(x, **kwargs)
+
+
+def detection_loss(preds, labels, box_mask):
+    """The detection step's loss (`steps.py:350-355`): per box the mean over
+    the classes of the binary cross-entropy of the float32 logits, summed
+    over the valid boxes and divided by their count (at least 1). In a
+    multi-process job the count is the global batch's, and each rank's sum
+    is scaled by the world size: the ranks' mean, which DDP's averaged
+    gradient follows, is the global batch's loss."""
+    per_box = F.binary_cross_entropy_with_logits(preds.float(), labels.float(),
+                                                 reduction="none").mean(dim=-1)
+    mask = box_mask.to(per_box.dtype)
+    count = mask.sum().detach()
+    world = rank_and_world_size()[1]
+    if world > 1:
+        count = distributed.all_reduce_sum(count)
+    return (per_box * mask).sum() * world / torch.clamp(count, min=1.0)
+
+
+def make_detection_train_step(cfg, device=None, seed=0):
+    """Returns train_step(state, batch, lr, draws=None) -> metrics, the
+    detection step of AVA (`make_detection_train_step`, `steps.py:325-370`).
+
+    ``batch`` holds uint8 "frames" [B, T, H, W, 3], "boxes" [B, M, 4] in the
+    clip's pixels, bool "box_mask" [B, M] and multi-hot "labels" [B, M,
+    NUM_CLASSES]. The preprocessing (the AVA colour augmentation where the
+    config asks for it), the train-mode forward with the boxes and the
+    head's dropout over B x M rows, ``detection_loss``, the backward, the
+    grad norm, the optimizer; portrait flags are not read (AVA's are all
+    False), as in the JAX package. Draws as ``make_train_step``'s: "dropout"
+    and the preprocessing's. Returns "loss", "grad_norm", "top1_err" and
+    "top5_err" (0, as the JAX step's) and "nan"; in a multi-process job the
+    global batch's (``detection_loss``)."""
+    device = resolve_device(device)
+    preprocess = make_preprocess_fn(cfg, train=True, device=device)
+    draw = make_draw_sampler(preprocess, seed, device)
+
+    def sample_draws(model, shape, given, step, rows):
+        head = model.head
+        extra = {"dropout": lambda _, g: head.dropout.sample((shape[0] * rows, head.dim_in),
+                                                             g, device)}
+        return draw(shape, given, step, extra)
+
+    def train_step(state: TrainState, batch, lr, draws=None):
+        model, optimizer = state.model, state.optimizer
+        model.train()
+        frames = torch.as_tensor(batch["frames"]).to(device, non_blocking=True)
+        boxes = torch.as_tensor(batch["boxes"]).to(device, torch.float32, non_blocking=True)
+        box_mask = torch.as_tensor(batch["box_mask"]).to(device, torch.bool, non_blocking=True)
+        labels = torch.as_tensor(batch["labels"]).to(device, torch.float32, non_blocking=True)
+        rank, world = rank_and_world_size()
+        b, m = boxes.shape[:2]
+        shape = (b * world, *frames.shape[1:])
+        draws = local_draws(sample_draws(model, shape, draws or {}, state.step, m),
+                            rank * b, (rank + 1) * b, shape[0])
+        x = model_input(cfg, preprocess(frames, draws))
+        kwargs = dict(boxes=boxes, box_mask=box_mask, head_dropout_mask=draws["dropout"])
+        with frozen_stats(model, cfg.MODEL.FROZEN_BN):
+            if state.wrapped is None:
+                preds = model(x, **kwargs)
+            else:
+                preds = state.wrapped(_call, x, **kwargs)
+        loss = detection_loss(preds, labels, box_mask)
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        grad_norm = optim.global_norm(
+            p.grad if p.grad is not None else torch.zeros_like(p)
+            for p in model.parameters()
+        )
+        optim.set_lr(optimizer, lr)
+        optimizer.step(grad_norm=grad_norm)
+        state.step += 1
+        loss = distributed.all_reduce_mean(loss.detach())
+        zero = torch.zeros((), device=device)
+        return {"loss": loss, "grad_norm": grad_norm, "top1_err": zero, "top5_err": zero,
+                "nan": ~(torch.isfinite(loss) & torch.isfinite(grad_norm))}
+
+    train_step.sample_draws = (
+        lambda model, shape, step=0, rows=MAX_BOXES: sample_draws(model, tuple(shape), {},
+                                                                  step, rows)
+    )
+    return train_step
+
+
+def make_detection_eval_step(cfg, model, device=None):
+    """eval_step(frames, boxes, box_mask) -> the boxes' sigmoid scores [B, M,
+    NUM_CLASSES], 0 on padded boxes (the JAX package's ``det_step``,
+    `test.py:95-105`); the inputs as ``make_detection_train_step``'s
+    batch's, moved to ``device``."""
+    device = resolve_device(device)
+    preprocess = make_eval_preprocess_fn(cfg, device)
+
+    @torch.inference_mode()
+    def eval_step(frames, boxes, box_mask):
+        model.eval()
+        frames = torch.as_tensor(frames).to(device, non_blocking=True)
+        boxes = torch.as_tensor(boxes).to(device, torch.float32, non_blocking=True)
+        box_mask = torch.as_tensor(box_mask).to(device, torch.bool, non_blocking=True)
+        return model(model_input(cfg, preprocess(frames)), boxes=boxes, box_mask=box_mask)
+
+    return eval_step
 
 
 def make_eval_step(cfg, model, device=None):

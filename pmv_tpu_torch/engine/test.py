@@ -15,9 +15,14 @@ Counterpart of `pmv_tpu/engine/test.py`.
   ``OUTPUT_DIR/features.npz``.
 - ``visualize_mask_reconstruction``: VIS_MASK.ENABLE with a MaskMViT,
   the MAE (original | masked | reconstructed) stacks.
+- ``test_detection``: DETECTION.ENABLE (AVA), one pass of the detection
+  eval step over the test split's keyframes into an ``AVAMeter``, whose
+  mAP is the result (`pmv_tpu/engine/test.py:83-166`); without the
+  annotations' GROUNDTRUTH_FILE the groundtruth is the batches' own boxes
+  and labels (``perform_detection``).
 - ``test``: TEST.PROCESS, the checkpoint priority chain, then VIS_MASK,
-  features, the DENSE_SPATIAL_CROP ratio sweep (`test_net.py:358-379`) or
-  one pass.
+  detection, features, the DENSE_SPATIAL_CROP ratio sweep
+  (`test_net.py:358-379`) or one pass.
 
 In a multi-process job every rank runs its shard of the test split with the
 whole model (read from the same checkpoint), and the predictions, labels
@@ -28,13 +33,15 @@ Shards of unequal length are handled: a rank whose shard ran out runs its
 last batch again and contributes nothing (``distributed.lockstep``).
 TENSORBOARD.ENABLE opens a writer only in the VIS_MASK path, as in the JAX
 package's ``test``; there, rank 0 writes the stacks of its shard's batches.
-
-Not ported, raising NotImplementedError: detection (AVA).
+Detection gathers each step's scores, original boxes and metadata (and
+labels, for the groundtruth from the batches) of the valid boxes alike.
 """
 
 import os
 import pickle
 import pprint
+import time
+from collections import defaultdict
 
 import numpy as np
 import torch
@@ -48,6 +55,7 @@ from pmv_tpu_torch.utils import checkpoint as cu
 from pmv_tpu_torch.utils import logging as pmv_logging
 from pmv_tpu_torch.utils import meters as meters_mod
 from pmv_tpu_torch.utils import misc
+from pmv_tpu_torch.utils.ava_eval import make_image_key
 from pmv_tpu_torch.utils.device import resolve_device
 
 logger = pmv_logging.get_logger(__name__)
@@ -76,6 +84,67 @@ def perform_test(test_loader, eval_step, test_meter):
         test_meter.iter_tic()
     stats = test_meter.finalize_metrics()
     return test_meter, stats
+
+
+def add_batch_groundtruth(groundtruth, labels, ori_boxes, metadata, video_idx_to_name):
+    """Add boxes' multi-hot ``labels`` [K, C] to ``groundtruth`` (boxes,
+    labels, scores by image key, as ``ava_eval.read_csv`` returns them):
+    class column c is action id c + 1, the box [y1, x1, y2, x2] of
+    ``ori_boxes``, the key of ``metadata``'s (video index, second)."""
+    for k in range(len(labels)):
+        video, sec = int(metadata[k][0]), int(metadata[k][1])
+        name = video_idx_to_name[video] if video_idx_to_name is not None else str(video)
+        key = make_image_key(name, sec)
+        y1, x1, y2, x2 = ori_boxes[k][[1, 0, 3, 2]]
+        for c in np.nonzero(labels[k])[0]:
+            groundtruth[0][key].append([y1, x1, y2, x2])
+            groundtruth[1][key].append(int(c) + 1)
+            groundtruth[2][key].append(1.0)
+
+
+def perform_detection(loader, eval_step, meter, cur_epoch=None):
+    """Run the detection ``eval_step`` (``steps.make_detection_eval_step``)
+    over ``loader`` (batches of ``Ava``'s keys) into the ``AVAMeter``: each
+    step's valid boxes' scores, original boxes and metadata, gathered from
+    every rank. Returns the groundtruth of the batches' own boxes and labels
+    where the meter has no GROUNDTRUTH_FILE, else None."""
+    from_batches = meter.full_groundtruth is None
+    groundtruth = (defaultdict(list), defaultdict(list), defaultdict(list))
+    meter.iter_tic()
+    for cur_iter, (batch, real) in enumerate(distributed.lockstep(loader)):
+        meter.data_toc()
+        scores = eval_step(batch["frames"], batch["boxes"], batch["box_mask"])
+        scores = scores.float().cpu().numpy()  # waits for the device
+        b_idx, m_idx = np.nonzero(np.asarray(batch["box_mask"], bool) & real)
+        preds, ori, metadata, labels = distributed.gather_host([
+            scores[b_idx, m_idx], np.asarray(batch["ori_boxes"], np.float32)[b_idx, m_idx],
+            np.asarray(batch["metadata"])[b_idx],
+            np.asarray(batch["labels"], np.float32)[b_idx, m_idx]])
+        meter.iter_toc()
+        meter.update_stats(preds, ori, metadata)
+        if from_batches:
+            add_batch_groundtruth(groundtruth, labels, ori, metadata, meter.video_idx_to_name)
+        meter.log_iter_stats(cur_epoch, cur_iter)
+        meter.iter_tic()
+    return groundtruth if from_batches else None
+
+
+def test_detection(cfg, model, device):
+    """AVA's test: ``perform_detection`` over the test split into a test
+    ``AVAMeter``; logs and returns {"map": the AVA mAP}."""
+    test_loader = loader_mod.construct_loader(cfg, "test")
+    eval_step = steps.make_detection_eval_step(cfg, model, device=device)
+    meter = meters_mod.AVAMeter(len(test_loader), cfg, mode="test",
+                                video_idx_to_name=getattr(test_loader.dataset,
+                                                          "_video_names", None))
+    tic = time.perf_counter()
+    groundtruth = perform_detection(test_loader, eval_step, meter)
+    logger.info("AVA test: %d keyframes in %.4fs", len(test_loader.dataset),
+                time.perf_counter() - tic)
+    mean_ap = meter.finalize_metrics(log=False, groundtruth=groundtruth)
+    logger.info("AVA mAP: %.4f", mean_ap)
+    pmv_logging.log_json_stats({"split": "test_final", "map": mean_ap}, logger)
+    return {"map": mean_ap}
 
 
 def extract_features(cfg, model, device):
@@ -178,8 +247,6 @@ def test(cfg, device=None):
     device = resolve_device(device)
     pmv_logging.setup_logging(cfg.OUTPUT_DIR)
     distributed.check_world(cfg)
-    if cfg.DETECTION.ENABLE:
-        raise NotImplementedError("detection (AVA) testing is not ported")
     np.random.seed(cfg.RNG_SEED)
     torch.manual_seed(cfg.RNG_SEED)
     logger.info("Test with config:")
@@ -194,6 +261,8 @@ def test(cfg, device=None):
 
     if cfg.VIS_MASK.ENABLE and cfg.MODEL.MODEL_NAME == "MaskMViT":
         return visualize_mask_reconstruction(cfg, model, device)
+    if cfg.DETECTION.ENABLE:
+        return test_detection(cfg, model, device)
     if cfg.TEST.FEAT_EXTRACT:
         return extract_features(cfg, model, device)
     if cfg.TEST.DENSE_SPATIAL_CROP:

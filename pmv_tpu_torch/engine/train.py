@@ -13,7 +13,14 @@ Counterpart of `pmv_tpu/engine/train.py`.
   TrainMeter. So up to LOG_PERIOD - 1 steps may run after a bad one before
   the guard raises, and the epoch-end flush raises before a checkpoint of
   poisoned weights is written.
-- ``eval_epoch``: the validation loop into a ValMeter.
+- ``eval_epoch``: the validation loop into a ValMeter; with
+  DETECTION.ENABLE ``eval_detection_epoch``, the detection eval step into
+  an ``AVAMeter`` in "val" mode, whose mAP the epoch reports. The JAX
+  package's ``eval_epoch`` cannot run detection (it calls the eval step
+  without boxes, `pmv_tpu/engine/train.py:159`), nor can its ``train``
+  start an AVA run (its example batch for the init holds no boxes,
+  `:234-237`): the port's ``train`` builds the model from the config and
+  its loops pass the boxes (ROADMAP.md records both differences).
 - ``train``: seeds, model, its wrapper for the strategy in a
   multi-process job (``parallel/distributed.py``), optimizer, auto-resume,
   loaders, meters, the TensorBoard writer (rank 0), then per epoch
@@ -51,7 +58,9 @@ Val/mAP when multi-label), as the JAX package's ``train`` does
 
 It trains MViT, UniFormer, X3D, the ResNet family, CSN, R(2+1)D and
 AVSlowFast, on Kinetics, Kinetics_av, Synthetic or the frame-list datasets
-(SSv2, Sth, Charades, ImageNet); with DATA.MULTI_LABEL (Charades) the loss is
+(SSv2, Sth, Charades, ImageNet), and AVA's detection on the ResNet family
+(DETECTION.ENABLE: ``steps.make_detection_train_step`` on ``Ava``'s
+keyframes, the val epoch's AVA mAP); with DATA.MULTI_LABEL (Charades) the loss is
 MODEL.LOSS_FUNC's (``bce_logit``) on label vectors and the eval epoch
 reports mAP (``utils/meters.py``). The BatchNorm running
 statistics of a model that has them move in its train step and are saved
@@ -69,8 +78,9 @@ the batch's "audio", which the JAX package's loops drop (its
 ``eval_step(state, frames, audio)`` takes it).
 
 Not ported, each raising NotImplementedError where the config asks for it:
-TensorBoard's model and wrong-prediction visualization, detection and AVA,
-the UniFormer pretrain registry (UNIFORMER.PRETRAIN_NAME: no
+TensorBoard's model and wrong-prediction visualization, precise BN with
+DETECTION.ENABLE (the JAX package's ``precise_bn`` packs no boxes), the
+UniFormer pretrain registry (UNIFORMER.PRETRAIN_NAME: no
 pretrained weights are in the repository), and MULTIGRID.SHORT_CYCLE on a
 frame-list dataset (its samples refuse the short cycle's (index, phase)
 index, on which the JAX package's fail).
@@ -228,12 +238,25 @@ def eval_epoch(val_loader, eval_step, meter, cur_epoch, cfg):
     return stats
 
 
+def eval_detection_epoch(val_loader, eval_step, meter, cur_epoch):
+    """One pass of the detection ``eval_step`` over ``val_loader`` into the
+    val ``AVAMeter`` (``test.perform_detection``); returns the epoch's
+    stats, its "map" among them."""
+    from pmv_tpu_torch.engine.test import perform_detection
+
+    groundtruth = perform_detection(val_loader, eval_step, meter, cur_epoch)
+    stats = meter.log_epoch_stats(cur_epoch, groundtruth)
+    meter.reset()
+    return stats
+
+
 def refuse_unported(cfg):
     """Raise for what the config asks for and the port does not have."""
     unported = {
         "TENSORBOARD.MODEL_VIS / WRONG_PRED_VIS": cfg.TENSORBOARD.ENABLE and (
             cfg.TENSORBOARD.MODEL_VIS.ENABLE or cfg.TENSORBOARD.WRONG_PRED_VIS.ENABLE),
-        "DETECTION.ENABLE (detection and AVA)": cfg.DETECTION.ENABLE,
+        "BN.USE_PRECISE_STATS with DETECTION.ENABLE": (cfg.DETECTION.ENABLE
+                                                       and cfg.BN.USE_PRECISE_STATS),
         "UNIFORMER.PRETRAIN_NAME (the pretrain registry)":
             cfg.MODEL.MODEL_NAME.startswith("Uniformer") and bool(cfg.UNIFORMER.PRETRAIN_NAME),
     }
@@ -283,12 +306,18 @@ def train(cfg, device=None):
     # below moves on to the next epoch's, as the run that wrote it did.
     start_epoch = cu.load_train_checkpoint(
         cfg, state, before_load=set_long_cycle if long_cycle else None)
+    detection = cfg.DETECTION.ENABLE
+    make_eval_step = steps.make_detection_eval_step if detection else steps.make_eval_step
     train_step = steps.make_train_step(cfg, device=device, seed=cfg.RNG_SEED)
-    eval_step = steps.make_eval_step(cfg, model, device=device)
+    eval_step = make_eval_step(cfg, model, device=device)
 
     train_loader = loader_mod.construct_loader(cfg, "train")
     train_meter = meters_mod.TrainMeter(len(train_loader), cfg)
-    val_meter = meters_mod.ValMeter(len(val_loader), cfg)
+    if detection:
+        val_meter = meters_mod.AVAMeter(len(val_loader), cfg, "val", video_idx_to_name=getattr(
+            val_loader.dataset, "_video_names", None))
+    else:
+        val_meter = meters_mod.ValMeter(len(val_loader), cfg)
     epoch_timer = meters_mod.EpochTimer()
     writer = None
     if cfg.TENSORBOARD.ENABLE and pmv_logging.is_master_process():
@@ -313,7 +342,7 @@ def train(cfg, device=None):
             train_loader = loader_mod.construct_loader(cfg, "train")
             train_meter = meters_mod.TrainMeter(len(train_loader), cfg)
             train_step = steps.make_train_step(cfg, device=device, seed=cfg.RNG_SEED)
-            eval_step = steps.make_eval_step(cfg, model, device=device)
+            eval_step = make_eval_step(cfg, model, device=device)
         if multigrid is not None:
             logger.info("Epoch %d: %d clips a step (%d steps), %d frames, crop %d, %s",
                         cur_epoch, cfg.TRAIN.BATCH_SIZE, len(train_loader),
@@ -336,7 +365,10 @@ def train(cfg, device=None):
         if misc.is_eval_epoch(cfg, cur_epoch,
                               multigrid.schedule if multigrid is not None else None):
             eval_tic = time.perf_counter()
-            stats = eval_epoch(val_loader, eval_step, val_meter, cur_epoch, cfg)
+            if detection:
+                stats = eval_detection_epoch(val_loader, eval_step, val_meter, cur_epoch)
+            else:
+                stats = eval_epoch(val_loader, eval_step, val_meter, cur_epoch, cfg)
             logger.info("Eval of epoch %d takes %.4fs.", cur_epoch,
                         time.perf_counter() - eval_tic)
             if writer is not None:
@@ -347,9 +379,8 @@ def train(cfg, device=None):
         writer.close()
 
     median = epoch_timer.median_epoch_time() if epoch_timer.epoch_times else 0.0
-    result_string = (
-        f"_p{misc.params_count(model) / 1e6:.2f}M _t{median / 60:.2f}m "
-        f"top1 {val_meter.min_top1_err:.2f} top5 {val_meter.min_top5_err:.2f}"
-    )
+    result_string = f"_p{misc.params_count(model) / 1e6:.2f}M _t{median / 60:.2f}m " + (
+        f"map {val_meter.max_map:.4f}" if detection else
+        f"top1 {val_meter.min_top1_err:.2f} top5 {val_meter.min_top5_err:.2f}")
     logger.info("training done: %s", result_string)
     return result_string

@@ -6,6 +6,7 @@ from torch import nn
 
 from pmv_tpu_torch.models.batchnorm import BatchNorm
 from pmv_tpu_torch.models.common import Dropout, Linear, PointwiseConv
+from pmv_tpu_torch.ops.roi_align import roi_align
 
 
 def head_act(x, act_func):
@@ -64,6 +65,48 @@ class ResNetBasicHead(nn.Module):
         if not self.training:
             x = head_act(x, self.act_func)
         return x
+
+
+class ResNetRoIHead(nn.Module):
+    """The detection head (`pmv_tpu/models/heads.py:88`): per pathway the
+    mean over T, RoIAlign of each box at ``resolution``^2 (``spatial_scale``
+    1 / ``spatial_scale_factor``), the max over the bins; the pathways
+    concatenated, dropout, the ``projection`` linear in the trunk's dtype,
+    the activation at eval only; rows of padded boxes times ``box_mask``
+    (0). RoIAlign, the max and the dropout run in float32 (float64 for float64
+    grids). The max is ``torch.amax``, whose gradient is shared evenly among
+    equal maxima, as JAX's is (bins over a flat region tie). ``inputs`` [B, T, H, W, C] per pathway, ``boxes`` [B, M, 4] in the
+    clip's pixels, ``box_mask`` [B, M] -> [B, M, num_classes]. In training
+    the dropout applies ``dropout_mask`` [B x M, sum(dim_in)], drawn with
+    ``self.dropout.sample``."""
+
+    def __init__(self, dim_in, num_classes, resolution=7, spatial_scale_factor=16,
+                 dropout_rate=0.0, act_func="sigmoid", aligned=True):
+        super().__init__()
+        self.dim_in = sum(dim_in)
+        self.resolution = resolution
+        self.spatial_scale = 1.0 / spatial_scale_factor
+        self.aligned = aligned
+        self.dropout = Dropout(dropout_rate)
+        self.projection = Linear(self.dim_in, num_classes)
+        self.act_func = act_func
+
+    def forward(self, inputs, boxes, box_mask, dropout_mask=None):
+        b, m = boxes.shape[:2]
+        flat = boxes.reshape(b * m, 4)
+        batch_idx = torch.arange(b, device=boxes.device).repeat_interleave(m)
+        pooled = [
+            torch.amax(roi_align(x.mean(dim=1), flat, batch_idx,
+                                 (self.resolution, self.resolution), self.spatial_scale,
+                                 aligned=self.aligned), dim=(1, 2))
+            for x in inputs
+        ]
+        x = self.dropout(torch.cat(pooled, dim=-1), dropout_mask)
+        x = self.projection(x.to(inputs[0].dtype))
+        if not self.training:
+            x = head_act(x, self.act_func)
+        x = x.reshape(b, m, -1)
+        return x * box_mask[..., None].to(x.dtype)
 
 
 class X3DHead(nn.Module):

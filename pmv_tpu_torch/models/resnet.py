@@ -27,7 +27,11 @@ fusions ``s1_fuse`` ... ``s4_fuse``, then ``head``.
   convs, the projection from normal(0.01), BatchNorm scales 1 but the
   non-local blocks' 0), drawn with torch. RESNET.ZERO_INIT_FINAL_BN is read
   nowhere in the JAX package and is ignored here too. No DropPath (the JAX
-  nets have none); the detection head (DETECTION.ENABLE) is not ported.
+  nets have none).
+- With DETECTION.ENABLE (the AVA recipes) the head is ``ResNetRoIHead``
+  over the last stage's grid of each pathway, and the forward takes the
+  clip's ``boxes`` [B, M, 4] and ``box_mask`` [B, M] and returns [B, M,
+  NUM_CLASSES] (`pmv_tpu/models/resnet.py:121-133,261-273`).
 - Conv-only but for the non-local blocks, whose affinity runs over every
   position, so the transposed input gives the transposed output:
   ``hw_switch`` changes nothing.
@@ -40,7 +44,7 @@ from torch import nn
 from pmv_tpu_torch.models.batchnorm import get_norm
 from pmv_tpu_torch.models.build import MODEL_REGISTRY
 from pmv_tpu_torch.models.common import init_flax_defaults, max_pool_3d
-from pmv_tpu_torch.models.heads import ResNetBasicHead
+from pmv_tpu_torch.models.heads import ResNetBasicHead, ResNetRoIHead
 from pmv_tpu_torch.models.nonlocal_block import Nonlocal
 from pmv_tpu_torch.models.resnet_helper import PathwayStages, ResStage, conv
 from pmv_tpu_torch.models.stem import ResNetBasicStem
@@ -87,12 +91,34 @@ class _ResNetBase(nn.Module):
     """What the ResNet family's nets share: the init, the draws, the
     stages."""
 
-    def __init__(self, cfg, dtype):
+    def __init__(self, cfg, dtype, has_detection_head=False):
         super().__init__()
-        if cfg.DETECTION.ENABLE:
-            raise NotImplementedError("DETECTION.ENABLE: the ResNet family's detection "
-                                      "head (ResNetRoIHead, AVA) is not ported")
+        if cfg.DETECTION.ENABLE and not has_detection_head:
+            raise NotImplementedError(
+                f"DETECTION.ENABLE on {type(self).__name__}: the detection head is "
+                "ResNet's and SlowFast's, as in the JAX package")
         self.compute_dtype = dtype
+        self.detection = cfg.DETECTION.ENABLE
+
+    def make_head(self, cfg, dim_in):
+        """``ResNetBasicHead``, or with DETECTION.ENABLE ``ResNetRoIHead``,
+        over pathways of widths ``dim_in``."""
+        if self.detection:
+            det = cfg.DETECTION
+            return ResNetRoIHead(dim_in, cfg.MODEL.NUM_CLASSES, det.ROI_XFORM_RESOLUTION,
+                                 det.SPATIAL_SCALE_FACTOR, cfg.MODEL.DROPOUT_RATE,
+                                 cfg.MODEL.HEAD_ACT, det.ALIGNED)
+        return ResNetBasicHead(dim_in, cfg.MODEL.NUM_CLASSES, cfg.MODEL.DROPOUT_RATE,
+                               cfg.MODEL.HEAD_ACT)
+
+    def run_head(self, xs, head_dropout_mask, boxes, box_mask):
+        """The head on the pathways ``xs``; the detection head takes the
+        boxes."""
+        if not self.detection:
+            return self.head(xs, head_dropout_mask)
+        if boxes is None or box_mask is None:
+            raise ValueError("a detection model (DETECTION.ENABLE) takes boxes and box_mask")
+        return self.head(xs, boxes, box_mask, head_dropout_mask)
 
     def stages(self):
         return [getattr(self, f"s{i}") for i in range(2, 6)]
@@ -111,7 +137,8 @@ class _ResNetBase(nn.Module):
         return None
 
     def sample_head_dropout_mask(self, batch, generator, device=None):
-        """The head's dropout keep mask [batch, its width], or None at rate 0."""
+        """The head's dropout keep mask [batch, its width], or None at rate 0
+        (``batch`` counts a detection head's boxes)."""
         return self.head.dropout.sample((batch, self.head.dim_in), generator, device)
 
 
@@ -121,7 +148,7 @@ class ResNetModel(_ResNetBase):
     grid [B, T', H', W', C] with ``return_features``."""
 
     def __init__(self, cfg, dtype=torch.float32):
-        super().__init__(cfg, dtype)
+        super().__init__(cfg, dtype, has_detection_head=True)
         arch = cfg.MODEL.ARCH
         tk = _TEMPORAL_KERNEL_BASIS[arch]
         self.pool1 = tuple(_POOL1[arch])
@@ -140,14 +167,14 @@ class ResNetModel(_ResNetBase):
                 nonlocal_inds=cfg.NONLOCAL.LOCATION[s][0], nonlocal_pool=cfg.NONLOCAL.POOL[s][0],
                 nonlocal_instantiation=cfg.NONLOCAL.INSTANTIATION,
             ))
-        self.head = ResNetBasicHead([width * 32], cfg.MODEL.NUM_CLASSES,
-                                    cfg.MODEL.DROPOUT_RATE, cfg.MODEL.HEAD_ACT)
+        self.head = self.make_head(cfg, [width * 32])
 
     def forward(self, x, return_features=False, drop_path_masks=None,
-                head_dropout_mask=None, hw_switch=False):
+                head_dropout_mask=None, hw_switch=False, boxes=None, box_mask=None):
         """``head_dropout_mask`` (``sample_head_dropout_mask``) in train mode
-        when MODEL.DROPOUT_RATE > 0. ``drop_path_masks`` and ``hw_switch``
-        change nothing (module docstring)."""
+        when MODEL.DROPOUT_RATE > 0; ``boxes`` and ``box_mask`` with
+        DETECTION.ENABLE. ``drop_path_masks`` and ``hw_switch`` change nothing
+        (module docstring)."""
         if isinstance(x, (list, tuple)):
             x = x[0]
         x = self.s1["pathway0_stem"](x.to(self.compute_dtype))
@@ -157,7 +184,7 @@ class ResNetModel(_ResNetBase):
                 x = max_pool_3d(x, self.pool1, self.pool1, (0, 0, 0))
         if return_features:
             return x
-        return self.head([x], head_dropout_mask)
+        return self.run_head([x], head_dropout_mask, boxes, box_mask)
 
 
 class FuseFastToSlow(nn.Module):
@@ -182,7 +209,7 @@ class SlowFast(_ResNetBase):
     3], fast [B, T, H, W, 3]]) -> class scores."""
 
     def __init__(self, cfg, dtype=torch.float32):
-        super().__init__(cfg, dtype)
+        super().__init__(cfg, dtype, has_detection_head=True)
         tk = _TEMPORAL_KERNEL_BASIS_SLOWFAST
         width = cfg.RESNET.WIDTH_PER_GROUP
         beta = cfg.SLOWFAST.BETA_INV
@@ -217,11 +244,11 @@ class SlowFast(_ResNetBase):
             setattr(self, f"s{s + 2}", PathwayStages([slow, fast]))
             if s < 3:
                 setattr(self, f"s{s + 2}_fuse", fuse(dim_out // beta))
-        self.head = ResNetBasicHead([width * 32, width * 32 // beta], cfg.MODEL.NUM_CLASSES,
-                                    cfg.MODEL.DROPOUT_RATE, cfg.MODEL.HEAD_ACT)
+        self.head = self.make_head(cfg, [width * 32, width * 32 // beta])
 
-    def forward(self, x, drop_path_masks=None, head_dropout_mask=None, hw_switch=False):
-        """``x`` is [slow, fast]; ``head_dropout_mask`` as ``ResNetModel``'s."""
+    def forward(self, x, drop_path_masks=None, head_dropout_mask=None, hw_switch=False,
+                boxes=None, box_mask=None):
+        """``x`` is [slow, fast]; the rest as ``ResNetModel``'s."""
         if not (isinstance(x, (list, tuple)) and len(x) == 2):
             raise ValueError("SlowFast takes [slow, fast] pathway inputs (steps.pack_pathways)")
         xs = [self.s1[f"pathway{p}_stem"](x[p].to(self.compute_dtype)) for p in (0, 1)]
@@ -230,7 +257,7 @@ class SlowFast(_ResNetBase):
             xs = stage(xs)
             if s < 3:
                 xs = getattr(self, f"s{s + 2}_fuse")(xs)
-        return self.head(xs, head_dropout_mask)
+        return self.run_head(xs, head_dropout_mask, boxes, box_mask)
 
 
 @MODEL_REGISTRY.register(name="ResNet")

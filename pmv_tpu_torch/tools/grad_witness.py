@@ -21,7 +21,10 @@ equal, what is left is the float32 rounding itself.
         [--batch 2] [--frames F] [--crop S] [--cpu-only] [--out FILE]
 
 AVSlowFast's yaml runs with seeded log-mel audio and misaligned audio, its
-AVS losses in the loss.
+AVS losses in the loss. A detection yaml (configs/AVA/, DETECTION.ENABLE)
+runs on 16 box slots a clip, 3 of them valid (one at the crop's edge),
+with multi-hot labels and the detection step's loss
+(``steps.detection_loss``).
 
 Without ``--cpu-only`` it needs a CUDA device. The full-size X3D-M step in
 float64 on the CPU takes some GiB and a minute or so: run it on the GPU
@@ -64,9 +67,17 @@ X3D_M = "configs/Kinetics/X3D_M.yaml"
 # a fifth of X3D's faults'. R(2+1)D-50 takes X3D's limit, and SlowFast's
 # float64 check.
 # AVSlowFast, whose visual trunk is SlowFast's, takes SlowFast's limit and
-# its float64 check.
+# its float64 check; so do SlowFast and Slow with AVA's RoI head
+# (DETECTION.ENABLE, "SlowFast_AVA" and "Slow_AVA"), whose max over the
+# RoIAlign bins adds near-ties that move float32 gradients as a ReLU does.
+# SlowFast 32x2 AVA at batch 2 on 8 frames of 224^2 (``--cfg
+# configs/AVA/SLOWFAST_32x2_R50_SHORT.yaml --batch 2 --frames 8``, an NVIDIA
+# H100 80GB HBM3 at 700 W and its host's CPU): float32 gradients 2.05e-2
+# (CPU) and 2.11e-2 (card) from float64 ones free, 2.8e-5 with float64's
+# ReLU decisions held; its statistics 3.0e-7 and 3.5e-7 beyond rtol 1e-4,
+# under the 1e-6 gate, so it takes no entry in STATS_LIMITS.
 RELU_LIMITS = {"X3D": 0.1, "SlowFast": 0.1, "Slow": 0.1, "CSN": 0.2, "R2Plus1D": 0.1,
-               "AVSlowFast": 0.1}
+               "AVSlowFast": 0.1, "SlowFast_AVA": 0.1, "Slow_AVA": 0.1}
 # Models whose float32 step cannot meet the 1e-4 gates even with the ReLU
 # decisions held: SlowFast's float32 gradients lie 9.9e-5 from float64 ones
 # on the CPU with float64's decisions held (8 frames of 64^2), the card's
@@ -74,7 +85,7 @@ RELU_LIMITS = {"X3D": 0.1, "SlowFast": 0.1, "Slow": 0.1, "CSN": 0.2, "R2Plus1D":
 # float32 BatchNorm statistics of the last stage (batch means of 1e-3)
 # 2.7e-6 over the statistics' gate on the CPU against float64. Their held
 # check is the step (and precise BN) in float64 on card and CPU, at 1e-4.
-FLOAT64_HELD = {"SlowFast", "Slow", "R2Plus1D", "AVSlowFast"}
+FLOAT64_HELD = {"SlowFast", "Slow", "R2Plus1D", "AVSlowFast", "SlowFast_AVA", "Slow_AVA"}
 # Models whose float32 floor with the ReLU decisions held lies above 1e-4,
 # and whose check stays in float32 (CSN's depthwise convs run on K1, which
 # takes no float64): the gradients' and the grad norm's limit, card against
@@ -105,11 +116,13 @@ def witness_key(cfg):
     """The key of ``cfg``'s net in ``RELU_LIMITS``, ``FLOAT64_HELD``,
     ``HELD_LIMITS`` and ``STATS_LIMITS``: its MODEL_NAME (CSN for PTVCSN,
     R2Plus1D for PTVR2plus1D), or for a ResNet and a contrastive model its
-    backbone's (X3D for arch x3d, Slow for arch slow)."""
+    backbone's (X3D for arch x3d, Slow for arch slow); "_AVA" after it with
+    DETECTION.ENABLE."""
+    suffix = "_AVA" if cfg.DETECTION.ENABLE else ""
     if cfg.MODEL.MODEL_NAME in ("ResNet", "ContrastiveModel"):
-        return {"x3d": "X3D", "slow": "Slow"}.get(cfg.MODEL.ARCH, cfg.MODEL.MODEL_NAME)
+        return {"x3d": "X3D", "slow": "Slow"}.get(cfg.MODEL.ARCH, cfg.MODEL.MODEL_NAME) + suffix
     return {"PTVCSN": "CSN", "PTVR2plus1D": "R2Plus1D"}.get(cfg.MODEL.MODEL_NAME,
-                                                           cfg.MODEL.MODEL_NAME)
+                                                           cfg.MODEL.MODEL_NAME) + suffix
 
 
 @dataclasses.dataclass
@@ -189,18 +202,39 @@ def load_cfg(path, opts=()):
     return cfg
 
 
+def detection_boxes(size, crop, classes, rng, slots=16, valid=3):
+    """A detection batch's "boxes" [size, slots, 4] in the crop's pixels,
+    "box_mask" [size, slots] (the first ``valid`` of each clip, the first
+    reaching the crop's bottom-right edge) and multi-hot "labels" [size,
+    slots, classes] (0 on padded slots), from ``rng``."""
+    boxes = np.zeros((size, slots, 4), np.float32)
+    xy = rng.uniform(0, 0.6 * crop, (size, valid, 2))
+    wh = rng.uniform(0.2 * crop, 0.4 * crop, (size, valid, 2))
+    boxes[:, :valid] = np.concatenate([xy, np.minimum(xy + wh, crop - 1)], axis=-1)
+    boxes[:, 0, 2:] = crop - 1
+    mask = np.zeros((size, slots), bool)
+    mask[:, :valid] = True
+    labels = (rng.uniform(size=(size, slots, classes)) < 0.1) * mask[..., None]
+    return {"boxes": boxes, "box_mask": mask, "labels": labels.astype(np.float32)}
+
+
 def batch(cfg, size, seed=2):
     """uint8 frames [size, T, S, S, 3] at the train crop, labels, the head's
-    dropout keep mask (None without head dropout), and for AVSlowFast the
+    dropout keep mask (None without head dropout), for AVSlowFast the
     log-mel audio and misaligned audio ([size, AUDIO_FRAME_NUM,
-    AUDIO_MEL_NUM], normal draws: the loader's clips are z-normalised),
-    from ``seed``."""
+    AUDIO_MEL_NUM], normal draws: the loader's clips are z-normalised), and
+    for a detection config ``detection_boxes`` (else {}), from ``seed``;
+    a detection config's labels are its boxes' multi-hot rows."""
     from pmv_tpu_torch.models.build import MODEL_REGISTRY
 
     rng = np.random.default_rng(seed)
     s = cfg.DATA.TRAIN_CROP_SIZE
     frames = rng.integers(0, 256, (size, cfg.DATA.NUM_FRAMES, s, s, 3), np.uint8)
     labels = rng.integers(0, cfg.MODEL.NUM_CLASSES, size)
+    det = {}
+    if cfg.DETECTION.ENABLE:
+        det = detection_boxes(size, s, cfg.MODEL.NUM_CLASSES, rng)
+        labels = det.pop("labels")
     audio = ()
     if cfg.MODEL.ARCH == "avslowfast":
         shape = (size, cfg.DATA.AUDIO_FRAME_NUM, cfg.DATA.AUDIO_MEL_NUM)
@@ -210,9 +244,10 @@ def batch(cfg, size, seed=2):
     if keep < 1.0:
         with torch.device("meta"):  # the mask's shape, with no weights made
             model = MODEL_REGISTRY.get(cfg.MODEL.MODEL_NAME)(cfg)
-        shape = model.sample_head_dropout_mask(size, None, "meta").shape
+        rows = size * det["boxes"].shape[1] if det else size  # a detection head's boxes
+        shape = model.sample_head_dropout_mask(rows, None, "meta").shape
         mask = (rng.random(tuple(shape)) < keep).astype(np.float32)
-    return frames, labels, mask, audio
+    return frames, labels, mask, audio, det
 
 
 def gradients(cfg, data, device, dtype, decisions=None):
@@ -221,16 +256,16 @@ def gradients(cfg, data, device, dtype, decisions=None):
     keeping the audio, its AVS losses added to the loss): ({name: gradient,
     float64 on the CPU}, loss, Decisions, {name: BatchNorm running
     statistic after the forward, float64 on the CPU})."""
-    from pmv_tpu_torch.engine.steps import make_eval_preprocess_fn, model_input
+    from pmv_tpu_torch.engine.steps import detection_loss, make_eval_preprocess_fn, model_input
     from pmv_tpu_torch.models import build_model
     from pmv_tpu_torch.models.losses import get_loss_func
 
-    frames, labels, mask, audio = data
+    frames, labels, mask, audio, det = data
     model = build_model(cfg, device=device, dtype=dtype, seed=0)
     model.train()
     x = model_input(cfg, make_eval_preprocess_fn(cfg, device=device)(
         torch.as_tensor(frames).to(device)), *(torch.as_tensor(a).to(device) for a in audio))
-    kwargs = {}
+    kwargs = {k: torch.as_tensor(v).to(device) for k, v in det.items()}
     if mask is not None:
         kwargs["head_dropout_mask"] = torch.as_tensor(mask).to(device)
     with relu_decisions(decisions) as record:
@@ -238,8 +273,12 @@ def gradients(cfg, data, device, dtype, decisions=None):
     aux = {}
     if isinstance(preds, tuple):  # AVSlowFast's AVS losses
         preds, aux = preds
-    loss = get_loss_func(cfg.MODEL.LOSS_FUNC)(preds.to(torch.promote_types(dtype, torch.float32)),
-                                              torch.as_tensor(labels).to(device))
+    labels = torch.as_tensor(labels).to(device)
+    if det:
+        loss = detection_loss(preds, labels, kwargs["box_mask"])
+    else:
+        loss = get_loss_func(cfg.MODEL.LOSS_FUNC)(
+            preds.to(torch.promote_types(dtype, torch.float32)), labels)
     for value in aux.values():
         loss = loss + value
     loss.backward()

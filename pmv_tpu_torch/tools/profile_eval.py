@@ -12,7 +12,10 @@ with ``--train --cfg configs/masked_ssl/k400_MVITv2_S_16x4_MaskFeat_PT.yaml``
 (the masked step of ``engine/ssl_steps.py``, the model drawing its masks);
 a contrastive yaml's with ``--train --cfg
 configs/contrastive_ssl/MoCo_SlowR50_8x8.yaml`` (the contrastive step of
-``engine/ssl_steps.py``; ``--batch`` videos of two views each).
+``engine/ssl_steps.py``; ``--batch`` videos of two views each); an AVA
+yaml's (``--cfg configs/AVA/SLOWFAST_32x2_R50_SHORT.yaml``, DETECTION.ENABLE)
+with 16 box slots a clip, 3 valid (``grad_witness.detection_boxes``),
+through the detection steps.
 
     python -m pmv_tpu_torch.tools.profile_eval [--train] [--batch 8] [--steps 10] [--top 20] \\
         [--cfg <yaml> [--opts KEY VALUE ...]]
@@ -28,6 +31,9 @@ Prints JSON lines:
 - "step": steady-state ms per step and clips/s (host clock around steps
   that end in a synchronize), and peak device memory, beside the card's
   name and power limit;
+- "detection" (an AVA yaml): the RoI head alone (its forward, and with
+  ``--train`` its backward) and RoIAlign alone on the inputs the step gave
+  the head, in ms by CUDA events, beside the step's ms;
 - "profile": from a torch.profiler window over 3 steps, the device's
   busy share (the time at least one kernel ran, over the window's wall
   time), the summed kernel ms per step (larger than the busy time where
@@ -88,6 +94,55 @@ def union_us(intervals):
     return total
 
 
+def _event_ms(fn, iters):
+    """The mean ms of ``fn`` over ``iters`` calls, by CUDA events, after one
+    call."""
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def roi_head_ms(model, step, train, iters):
+    """The detection head's ms and RoIAlign's alone, on the inputs one
+    ``step`` gives the head (its pathways' grids, the boxes, the mask, the
+    dropout mask), with their backward in training."""
+    from pmv_tpu_torch.ops.roi_align import roi_align
+
+    head = model.head
+    seen = []
+    hook = head.register_forward_pre_hook(lambda _, args: seen.append(args))
+    step()
+    hook.remove()
+    xs, boxes, box_mask, *rest = seen[-1]
+    xs = [x.detach() for x in xs]
+    b, m = boxes.shape[:2]
+    idx = torch.arange(b, device=boxes.device).repeat_interleave(m)
+
+    def run(fn):
+        if not train:
+            with torch.inference_mode():
+                return fn(xs)
+        out = fn([x.clone().requires_grad_() for x in xs])
+        torch.cat([o.float().flatten() for o in out]).sum().backward()
+
+    def head_call(ins):
+        return [head(ins, boxes, box_mask, *rest)]
+
+    def roi_call(ins):
+        return [roi_align(x.mean(dim=1), boxes.reshape(b * m, 4), idx,
+                          (head.resolution, head.resolution), head.spatial_scale,
+                          aligned=head.aligned) for x in ins]
+
+    return {"boxes": b * m, "grids": [list(x.shape) for x in xs],
+            "roi_head_ms": _event_ms(lambda: run(head_call), iters),
+            "roi_align_ms": _event_ms(lambda: run(roi_call), iters)}
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--train", action="store_true",
@@ -106,7 +161,8 @@ def main(argv=None):
     from pmv_tpu_torch.config.defaults import assert_and_infer_cfg
     from pmv_tpu_torch.config.parser import load_config
     from pmv_tpu_torch.engine import ssl_steps
-    from pmv_tpu_torch.engine.steps import init_state, make_eval_step, make_train_step
+    from pmv_tpu_torch.engine.steps import (
+        init_state, make_detection_eval_step, make_eval_step, make_train_step)
     from pmv_tpu_torch.entry import apply_bench_recipe, mvitv2_s_cfg
     from pmv_tpu_torch.models import build_model
     from pmv_tpu_torch.tools.timing import card_line
@@ -148,6 +204,25 @@ def main(argv=None):
 
         def step():
             train_step(state, batch, 1e-4)
+    elif cfg.DETECTION.ENABLE:
+        import numpy as np
+
+        from pmv_tpu_torch.tools.grad_witness import detection_boxes
+
+        det = {k: torch.as_tensor(v, device="cuda") for k, v in detection_boxes(
+            args.batch, width, cfg.MODEL.NUM_CLASSES, np.random.default_rng(0)).items()}
+        if args.train:
+            state = init_state(cfg, model)
+            train_step = make_train_step(cfg, device="cuda")
+            batch = {"frames": frames, **det}
+
+            def step():
+                train_step(state, batch, 1e-4)
+        else:
+            eval_step = make_detection_eval_step(cfg, model, device="cuda")
+
+            def step():
+                eval_step(frames, det["boxes"], det["box_mask"])
     elif args.train:
         state = init_state(cfg, model)
         train_step = make_train_step(cfg, device="cuda")
@@ -179,6 +254,10 @@ def main(argv=None):
                  "clips_per_s": args.batch / step_ms * 1e3,
                  "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()},
     }), flush=True)
+
+    if cfg.DETECTION.ENABLE:
+        print(json.dumps({"detection": {"card": card, "train": args.train, **roi_head_ms(
+            model, step, args.train, args.steps), "step_ms": step_ms}}), flush=True)
 
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]

@@ -10,15 +10,19 @@ in numpy, with the JAX package's ``json_stats`` keys.
   ensemble of the clips' softmax scores; labels must agree across a
   video's views; finalize reports top-1/top-5 accuracy (or mAP when
   multi-label).
+- AVAMeter: AVA detection's train, val and test meter; the frame-level
+  mAP of ``utils/ava_eval.py`` over the gathered detections.
 - EpochTimer: epoch durations.
 """
 
 import datetime
+import os
 from collections import deque
 
 import numpy as np
 import torch
 
+from pmv_tpu_torch.utils import ava_eval
 from pmv_tpu_torch.utils import logging as pmv_logging
 from pmv_tpu_torch.utils import metrics
 from pmv_tpu_torch.utils.timer import Timer
@@ -381,6 +385,136 @@ def _average_precision(scores, targets):
     tp = np.cumsum(targets)
     precision = tp / (np.arange(len(targets)) + 1)
     return float((precision * targets).sum() / max(targets.sum(), 1))
+
+
+class AVAMeter:
+    """AVA's train, val and test meter (`pmv_tpu/utils/meters.py:429-586`,
+    the reference's `meters.py:46-260`). Val and test gather (preds [K, C],
+    ori_boxes [K, 4] in [0, 1], metadata [K, 2] of video index and second)
+    over the valid boxes; ``finalize_metrics`` takes the AVA mAP under the
+    label map's whitelist (every class without AVA.LABEL_MAP_FILE), the
+    excluded timestamps and the groundtruth CSV: the full one in test (and
+    in val with AVA.FULL_TEST_ON_VAL), else its keyframes at seconds
+    divisible by 4. ``groundtruth`` given to it replaces the CSV's (the
+    test's groundtruth from the batches, where no GROUNDTRUTH_FILE is
+    shipped)."""
+
+    def __init__(self, overall_iters, cfg, mode, video_idx_to_name=None):
+        self.cfg = cfg
+        self.lr = None
+        self.loss = ScalarMeter(cfg.LOG_PERIOD)
+        self.full_ava_test = cfg.AVA.FULL_TEST_ON_VAL
+        self.mode = mode
+        self.iter_timer = Timer()
+        self.data_timer = Timer()
+        self.net_timer = Timer()
+        self.all_preds = []
+        self.all_ori_boxes = []
+        self.all_metadata = []
+        self.overall_iters = overall_iters
+        self.full_map = 0.0
+        self.max_map = 0.0
+        ann = cfg.AVA.ANNOTATION_DIR
+        exclusion = os.path.join(ann, cfg.AVA.EXCLUSION_FILE)
+        self.excluded_keys = (ava_eval.read_exclusions(exclusion)
+                              if ann and os.path.exists(exclusion) else set())
+        labelmap = os.path.join(ann, cfg.AVA.LABEL_MAP_FILE)
+        if ann and os.path.exists(labelmap):
+            self.categories, self.class_whitelist = ava_eval.read_labelmap(labelmap)
+        else:
+            self.class_whitelist = set(range(1, cfg.MODEL.NUM_CLASSES + 1))
+            self.categories = [{"id": i, "name": str(i)} for i in self.class_whitelist]
+        gt_file = os.path.join(ann, cfg.AVA.GROUNDTRUTH_FILE)
+        if ann and os.path.exists(gt_file):
+            self.full_groundtruth = ava_eval.read_csv(gt_file, self.class_whitelist)
+            self.mini_groundtruth = ava_eval.get_ava_mini_groundtruth(self.full_groundtruth)
+        else:
+            self.full_groundtruth = self.mini_groundtruth = None
+        self.video_idx_to_name = video_idx_to_name
+
+    def log_iter_stats(self, cur_epoch, cur_iter):
+        if (cur_iter + 1) % self.cfg.LOG_PERIOD != 0:
+            return
+        eta_sec = self.iter_timer.seconds() * (self.overall_iters - cur_iter)
+        stats = {
+            "_type": f"{self.mode}_iter",
+            "cur_iter": f"{cur_iter + 1}",
+            "eta": str(datetime.timedelta(seconds=int(eta_sec))),
+            "dt": self.iter_timer.seconds(),
+            "dt_data": self.data_timer.seconds(),
+            "dt_net": self.net_timer.seconds(),
+            "mode": self.mode,
+        }
+        if self.mode in ("train", "val"):
+            stats["cur_epoch"] = f"{cur_epoch + 1}/{self.cfg.SOLVER.MAX_EPOCH}"
+        if self.mode == "train":
+            stats["loss"] = self.loss.get_win_median()
+            stats["lr"] = self.lr
+        pmv_logging.log_json_stats(stats, logger)
+
+    def iter_tic(self):
+        self.iter_timer.reset()
+        self.data_timer.reset()
+
+    def iter_toc(self):
+        self.iter_timer.pause()
+        self.net_timer.pause()
+
+    def data_toc(self):
+        self.data_timer.pause()
+        self.net_timer.reset()
+
+    def reset(self):
+        self.loss.reset()
+        self.all_preds = []
+        self.all_ori_boxes = []
+        self.all_metadata = []
+
+    def update_stats(self, preds, ori_boxes, metadata, loss=None, lr=None):
+        if self.mode in ("val", "test"):
+            self.all_preds.append(np.asarray(preds))
+            self.all_ori_boxes.append(np.asarray(ori_boxes))
+            self.all_metadata.append(np.asarray(metadata))
+        if loss is not None:
+            self.loss.add_value(loss)
+        if lr is not None:
+            self.lr = lr
+
+    def finalize_metrics(self, log=True, groundtruth=None):
+        """The mAP of the detections so far; ``groundtruth`` replaces the
+        CSV's."""
+        if groundtruth is None:
+            full = self.mode == "test" or (self.full_ava_test and self.mode == "val")
+            groundtruth = self.full_groundtruth if full else self.mini_groundtruth
+        if groundtruth is None:
+            raise ValueError("AVA groundtruth unavailable: set AVA.ANNOTATION_DIR and "
+                             "AVA.GROUNDTRUTH_FILE, or pass groundtruth")
+        self.full_map = ava_eval.evaluate_ava(
+            np.concatenate(self.all_preds, axis=0),
+            np.concatenate(self.all_ori_boxes, axis=0),
+            np.concatenate(self.all_metadata, axis=0),
+            self.excluded_keys, self.class_whitelist, self.categories,
+            groundtruth=groundtruth, video_idx_to_name=self.video_idx_to_name,
+        )
+        self.max_map = max(self.max_map, self.full_map)
+        if log:
+            pmv_logging.log_json_stats({"mode": self.mode, "map": self.full_map}, logger)
+        return self.full_map
+
+    def log_epoch_stats(self, cur_epoch, groundtruth=None):
+        """Val and test: the epoch's mAP, logged; returns its stats."""
+        if self.mode not in ("val", "test"):
+            return None
+        self.finalize_metrics(log=False, groundtruth=groundtruth)
+        stats = {
+            "_type": f"{self.mode}_epoch",
+            "cur_epoch": f"{cur_epoch + 1}",
+            "mode": self.mode,
+            "map": self.full_map,
+            "gpu_mem": f"{gpu_mem_usage():.2f}G",
+        }
+        pmv_logging.log_json_stats(stats, logger)
+        return stats
 
 
 class EpochTimer:

@@ -196,11 +196,19 @@ def test_train_preprocess_takes_the_jax_order():
 
 
 def test_ava_colour_branch_still_raises():
+    """The AVA colour branch (ported with detection; its parity with JAX is
+    tests/test_torch_port_detection.py's) samples its draws, cut to a
+    rank's rows like the others; applied without them it raises."""
     cfg = _preprocess_cfg()
     cfg.DETECTION.ENABLE = True
     cfg.AVA.TRAIN_USE_COLOR_AUGMENTATION = True
-    with pytest.raises(NotImplementedError, match="AVA"):
-        steps.make_preprocess_fn(port_cfg(cfg), train=True, device="cpu")
+    pre = steps.make_preprocess_fn(port_cfg(cfg), train=True, device="cpu")
+    own = steps.make_draw_sampler(pre, 0, torch.device("cpu"))((4, 4, 16, 16, 3), {}, 0, {})
+    assert own["ava_color"].alpha.shape == (4, 3) and own["ava_color"].jitter is None
+    rows = steps.local_draws(own, 2, 4, 4)
+    assert rows["ava_color"].alpha.tolist() == own["ava_color"].alpha[2:].tolist()
+    with pytest.raises(KeyError, match="ava_color"):
+        pre(torch.zeros((4, 4, 16, 16, 3), dtype=torch.uint8), {})
 
 
 # ------------------------------------------------------------- multi-clip views

@@ -52,7 +52,14 @@ the references:
   its easy negatives across the ranks: every rank takes the one-process
   run's DropPathway decisions, the rolled clips, the loss and each AVS
   loss (their sums over the global batch), the grad norm, the gradients
-  and the state after the steps of one process on the global batch.
+  and the state after the steps of one process on the global batch;
+- (i) AVA detection (the tiny SlowFast yaml of
+  tests/test_torch_port_detection.py, float64 activations, head dropout
+  0.5) under ``dp``, 2 ranks x 2 clips holding 5 and 1 valid boxes: the
+  loss divides by the global count of boxes, so the step's loss, grad
+  norm, gradients and state equal one process's on the global batch; then
+  ``test_detection`` over the ranks' shards of a dump written from a seed
+  gathers the scores, boxes and metadata into the one-process run's mAP.
 """
 
 import contextlib
@@ -72,6 +79,7 @@ import torch
 
 import test_torch_port_avslowfast as av_test
 import test_torch_port_contrastive_train as ssl_train
+import test_torch_port_detection as det_test
 import test_torch_port_maskfeat_train as mf_train
 import test_torch_port_pm as mvit_pm
 import test_torch_port_slowfast_train as sf_train
@@ -110,6 +118,7 @@ from torch_port_util import (
     jax_ssl_step_draws,
     rank_av_steps,
     rank_cases,
+    rank_detection,
     rank_ssl_cases,
     start_ranks,
 )
@@ -262,6 +271,28 @@ def _av_case():
             "seed": 1}  # the steps' seed: DropPathway keeps the audio, then drops it
 
 
+def _detection_case(case_dir):
+    """A global batch of 4 clips (2 a rank) with 3 + 2 valid boxes on rank
+    0 and 1 + 0 on rank 1, tiny AVA SlowFast's seeded weights, and the
+    config pointed at a dump written under ``case_dir``."""
+    from pmv_tpu_torch.tools.ava_dump import write_ava_dump
+
+    root = case_dir / "ava"
+    write_ava_dump(str(root), videos=2, frames=90, width=64, height=48, seed=2)
+    cfg = port_cfg(det_test.tiny_cfg(
+        "slowfast", "AVA.FRAME_DIR", str(root / "frames"), "AVA.FRAME_LIST_DIR",
+        str(root / "frame_lists"), "AVA.ANNOTATION_DIR", str(root / "annotations"),
+        "MODEL.NUM_CLASSES", "80", "TEST.BATCH_SIZE", "2"))
+    halves = [det_test._batch(seed, classes=80) for seed in (3, 4)]
+    batch = {k: np.concatenate([h[k] for h in halves]) for k in halves[0]}
+    batch["box_mask"][1, :2] = True  # rank 0: 3 + 2 boxes; rank 1: 1 + 0
+    batch["box_mask"][2, 1:] = batch["box_mask"][3] = False
+    batch["labels"] *= batch["box_mask"][..., None]
+    model = build_model(cfg, device="cpu", dtype=torch.float64, seed=6)
+    return {"cfg": cfg, "state_dict": model.state_dict(), "dtype": torch.float64,
+            "batch": batch, "lr": 0.05}
+
+
 def _bn_case():
     gen = torch.Generator().manual_seed(0)
     bn = BatchNorm(6)
@@ -291,7 +322,7 @@ def two_ranks(tmp_path_factory):
                                            resume["batch2"]["frames"].shape)
         cases = {"steps": steps, "resume": resume, "precise_bn": precise,
                  "test": _test_case(), "bn": _bn_case(), "sub_bn": _sub_bn_case(),
-                 "avslowfast": _av_case()}
+                 "avslowfast": _av_case(), "detection": _detection_case(case_dir)}
         torch.save(cases, case_dir / "cases.pt")
         procs = start_ranks(rank_cases, str(case_dir))
         try:
@@ -302,6 +333,7 @@ def two_ranks(tmp_path_factory):
             ref_futures["precise_bn"] = pool.submit(
                 jprecise_bn.calculate_and_update_precise_bn, *precise_args)
             ref_futures["avslowfast"] = pool.submit(rank_av_steps, 0, 1, cases["avslowfast"])
+            ref_futures["detection"] = pool.submit(rank_detection, 0, 1, cases["detection"])
             refs = {key: future.result() for key, future in ref_futures.items()}
             # SlowFast's float32 gradients move with a ReLU that decides otherwise:
             # its reference holds JAX's ReLUs, alone in the process.
@@ -462,6 +494,30 @@ def test_avslowfast_step_over_two_ranks_equals_one_process(two_ranks, strategy):
     for key in set(before) - set(names):
         torch.testing.assert_close(got["state"][key], one["state"][key], atol=1e-7, rtol=1e-6,
                                    msg=key)
+
+
+def test_detection_step_and_test_over_two_ranks_equal_one_process(two_ranks):
+    """Unequal box counts on the ranks (5 and 1): the loss, the grad norm,
+    the gradients and the state equal one process's on the global batch;
+    the gathered test's AVA mAP equals one process's."""
+    results, refs, cases = two_ranks
+    got, one = results["detection"], refs["detection"]
+    mask = cases["detection"]["batch"]["box_mask"]
+    assert mask[:2].sum() == 5 and mask[2:].sum() == 1
+    for key in ("loss", "grad_norm"):
+        np.testing.assert_allclose(got["metrics"][key], one["metrics"][key], rtol=1e-6,
+                                   err_msg=key)
+    assert got["metrics"]["nan"] == 0.0
+    assert _relative_l2(got["grads"], one["grads"]) < 1e-5
+    before = cases["detection"]["state_dict"]
+    names = [k for k in before if "running" not in k and not k.endswith("num_batches_tracked")]
+    assert _relative_l2({k: before[k] - got["state"][k] for k in names},
+                        {k: before[k] - one["state"][k] for k in names}) < 1e-5
+    for key in set(before) - set(names):
+        torch.testing.assert_close(got["state"][key], one["state"][key], atol=1e-7, rtol=1e-6,
+                                   msg=key)
+    assert 0.0 < one["map"] <= 1.0
+    np.testing.assert_allclose(got["map"], one["map"], atol=1e-6, rtol=0)
 
 
 def test_precise_bn_matches_jax_over_two_ranks(two_ranks):

@@ -408,11 +408,20 @@ def test_kinetics_yaml_builds(name):
 
 
 def test_detection_head_is_refused():
-    """AVA's yamls ask for the detection head, which is not ported (M18)."""
+    """AVA's yamls build the detection head (ported in slice 14, held to
+    JAX in tests/test_torch_port_detection.py); a net of the family with no
+    detection head in the JAX package (CSN) refuses DETECTION.ENABLE."""
     from pmv_tpu_torch.config import get_cfg
+    from pmv_tpu_torch.models.heads import ResNetRoIHead
 
     cfg = get_cfg()
     cfg.merge_from_file(str(ROOT / "configs" / "AVA" / "SLOWFAST_32x2_R50_SHORT.yaml"))
+    with torch.device("meta"):
+        model = presnet.SlowFast(cfg)
+    assert isinstance(model.head, ResNetRoIHead) and model.head.resolution == 7
+    cfg = get_cfg()
+    cfg.merge_from_file(str(ROOT / "configs" / "Kinetics" / "CSN_32x2_R101.yaml"))
+    cfg.DETECTION.ENABLE = True
     with pytest.raises(NotImplementedError, match="detection head"):
         build_model(cfg, device="cpu")
 

@@ -584,6 +584,32 @@ def rank_av_steps(rank, world, case, strategy=None):
     return {"steps": out, "grads": grads, "state": whole_state(model)}
 
 
+def rank_detection(rank, world, case, strategy=None):
+    """AVA detection's case (cfg, state_dict, the global batch, lr, dtype):
+    the detection train step on this rank's rows under ``strategy`` (None:
+    the model unwrapped, as one process runs it), its metrics, the whole
+    gradients and the state; then ``test_detection`` of the state over
+    this rank's shard of the test split (the loader shards it by
+    NUM_GPUS = the world size), its AVA mAP."""
+    from pmv_tpu_torch.engine.steps import init_state, make_train_step
+    from pmv_tpu_torch.engine.test import test_detection
+    from pmv_tpu_torch.models import build_model
+    from pmv_tpu_torch.parallel import distributed
+
+    cfg = case["cfg"].clone()
+    cfg.NUM_GPUS = world
+    model = build_model(cfg, device="cpu", dtype=case["dtype"])
+    model.load_state_dict(case["state_dict"])
+    wrapped = None if strategy is None else distributed.wrap_model(
+        model, strategy, torch.device("cpu"))
+    metrics = make_train_step(cfg, device="cpu")(
+        init_state(cfg, model, wrapped=wrapped), local_rows(case["batch"], rank, world),
+        case["lr"])
+    grads = {k: distributed.full(p.grad).clone() for k, p in model.named_parameters()}
+    return {"metrics": {k: float(v) for k, v in metrics.items()}, "grads": grads,
+            "state": whole_state(model), "map": test_detection(cfg, model, "cpu")["map"]}
+
+
 def rank_cases(rank, world, case_dir):
     """Every case of ``case_dir/cases.pt`` on this rank; rank 0 writes the
     results to ``case_dir/results.pt``."""
@@ -686,6 +712,10 @@ def rank_cases(rank, world, case_dir):
     # (h): AVSlowFast's steps, the AVS losses over the global batch.
     for strategy in ("dp", "fsdp"):
         out["avslowfast", strategy] = rank_av_steps(rank, world, cases["avslowfast"], strategy)
+
+    # (i): AVA detection, the loss over the global count of boxes, the
+    # gathered test.
+    out["detection"] = rank_detection(rank, world, cases["detection"], "dp")
     if rank == 0:
         torch.save(out, case_dir / "results.pt")
 
