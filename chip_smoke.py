@@ -20,7 +20,11 @@ Phases, in order; any failure raises and exits non-zero:
    ``depthwise3x3x3_wgrad``; two runs of the wgrad kernel give the same
    bits. The same at the grids of the PMV rect crop [256, 192] and at their
    transposes (the portrait rows' grids), at batch 8 and at batch 16, the
-   clips of run_net's train step in phase 6 (checked against its cfg).
+   clips of run_net's train step in phase 6 (checked against its cfg); and
+   at a rank's shapes under dp_sp, 4 + 2 halo planes: the rect crop's and
+   their transposes at the batches phase 8e's paths give a rank (2 and 4;
+   8e checks that each of its calls is at one of them), and the 224^2
+   crop's at batch 8.
 3. Build full-width MViTv2-S 16x4 from a seeded init and run its eval step
    at batch 1 in float32 on the card and on the CPU (the CPU copy takes the
    plain versions); the class scores must agree, and one forward must
@@ -347,6 +351,19 @@ Distributed (``pmv_tpu_torch/parallel/distributed.py``):
    in float32, its skip max pools taking the one-process step's taps; each
    rank against the one-process step on the global batch of 4 under phase
    3b's gates, the SSL state to 1e-5.
+   8e: MViTv2-S 16x4 under TPU.SHARD_STRATEGY dp_sp (temporal sequence
+   parallelism, ``parallel/mesh.py``), 2 ranks over gloo on the one card, a
+   grid of data 1 x model 2: full width and depth, 16 frames of the PMV
+   rect crop, the bench recipe, float32, a global batch of 2 that both
+   ranks hold, each its 4 of the 8 token planes; each rank's eval scores
+   (atol 1e-4) and train step (phase 3b's gates) against one process on
+   the card; each rank's 17 K1, 17 dx and 17 wgrad calls a train step, 17
+   K1 an eval, on 4 + 2 halo planes; 3 timed bf16 steps a rank (a main
+   path) beside one process's, and the bytes its halos, K/V gathers and
+   reductions hand to all_reduce a step; then ``run_net --num_shards 2
+   TPU.SHARD_STRATEGY dp_sp`` on the MViT rect recipe in float32 (16
+   Synthetic videos, 4 a step) against one process under 8c's gates (logs
+   in ``build/chip_smoke_sequence_parallel_run_net/``).
    ``--plant-wrapper-faults`` logs 8b's readings with faults planted in
    the wrappers instead of running the phases.
 9. Print the script's wall time, the kernels line, the card line, and
@@ -499,7 +516,10 @@ def _kernel_cases():
     """(shape, launches per forward, grid set): the MViTv2-S 16x4 pool shapes
     at batch 8 at the 224^2 crop ("square"), at the PMV rect crop ("rect")
     and transposed ("portrait"), the last two at run_net's train batch of
-    16 ("rect_b16", "portrait_b16"); UniFormer-S 16x4's DPE shapes on the
+    16 ("rect_b16", "portrait_b16"); a rank's under dp_sp on 4 + 2 halo
+    planes, at the rect crop and transposed at the batches phase 8e's paths
+    give a rank ("sp_rect_b2", "sp_portrait_b2", "sp_rect_b4",
+    "sp_portrait_b4") and at the 224^2 crop at batch 8 ("sp_square_b8"); UniFormer-S 16x4's DPE shapes on the
     same grids at batch 8 and 16 ("uni_square" ... "uni_portrait_b16");
     X3D-M's channelwise-conv shapes at batch 8 ("x3d_square", "x3d_rect",
     "x3d_portrait", "x3d_test" at 256^2), ir-CSN-101's conv_b shapes at
@@ -511,6 +531,8 @@ def _kernel_cases():
         MVIT_PORTRAIT_POOL_SHAPES,
         MVIT_RECT_POOL_SHAPES,
         MVIT_RECT_TRAIN_POOL_SHAPES,
+        MVIT_SP_POOL_SHAPES,
+        MVIT_SP_SQUARE_POOL_SHAPES,
         ODD_SHAPES,
         PADDED_ODD_SHAPES,
         PMV_TRAIN_BATCH,
@@ -533,6 +555,8 @@ def _kernel_cases():
         + [(s, n, "rect") for s, n in MVIT_RECT_POOL_SHAPES]
         + [(s, n, "portrait") for s, n in MVIT_PORTRAIT_POOL_SHAPES]
         + [(s, n, _orientation(s) + "_b16") for s, n in MVIT_RECT_TRAIN_POOL_SHAPES]
+        + [(s, n, f"sp_{_orientation(s)}_b{s[0]}")
+           for s, n in MVIT_SP_POOL_SHAPES + MVIT_SP_SQUARE_POOL_SHAPES]
         + [(s, n, "uni_" + _orientation(s) + ("_b16" if s[0] == PMV_TRAIN_BATCH else ""))
            for s, n in uniformer]
         + [(s, n, "x3d_" + g) for shapes, g in (
@@ -3626,16 +3650,22 @@ def _write_counts(path):
 def _counted_run_process(local_rank, cfg, init_method, func, device_type):
     """A process that ``launch_job`` spawned: ``distributed._run_process``
     (join the group, run ``func``, leave), float32 in float32, then its
-    kernel launches to ``$PMV_SMOKE_COUNTS.rank<rank>.json``. A spawned
-    process starts with its counts at 0: its whole run is counted."""
+    kernel launches to ``$PMV_SMOKE_COUNTS.rank<rank>.json`` and the
+    distinct (call, shape) of its K1 and wgrad calls (``record_shapes``)
+    to ``$PMV_SMOKE_COUNTS.rank<rank>.shapes.json``. A spawned process
+    starts with its counts at 0: its whole run is counted."""
+    from pmv_tpu_torch.ops.depthwise import record_shapes
     from pmv_tpu_torch.parallel import distributed
 
     float32_without_tf32()
     _zero_launch_counts()  # the main path starts here
-    with synthetic_videos(EARLIER_RUN_NET_VIDEOS):
+    with synthetic_videos(EARLIER_RUN_NET_VIDEOS), record_shapes() as shapes:
         distributed._run_process(local_rank, cfg, init_method, func, device_type)
     rank = cfg.SHARD_ID * max(cfg.NUM_GPUS, 1) + local_rank
-    _write_counts(f"{os.environ['PMV_SMOKE_COUNTS']}.rank{rank}.json")  # ... and ends here
+    counts = f"{os.environ['PMV_SMOKE_COUNTS']}.rank{rank}"
+    _write_counts(f"{counts}.json")  # ... and ends here
+    with open(f"{counts}.shapes.json", "w") as f:
+        json.dump(sorted(set(shapes)), f)
 
 
 def run_net_counted(counts, argv):
@@ -3658,35 +3688,39 @@ def run_net_counted(counts, argv):
     return 0
 
 
-def _dist_run_net_argv(out_dir, max_epoch, shard=None, port=None):
-    """Phase 8c's run_net arguments: UniFormer-S's rect recipe as phase 6u
-    runs it, in float32, one augmented copy a video (AUG.NUM_SAMPLE 1: the
+def _dist_run_net_argv(out_dir, max_epoch, shard=None, port=None, recipe="uniformer",
+                       batch=4, extra=()):
+    """Phase 8c's run_net arguments (8e's with ``recipe`` "mvit", ``batch``
+    2 and ``extra`` naming dp_sp): the recipe's rect run as phase 6 runs
+    it, in float32, one augmented copy a video (AUG.NUM_SAMPLE 1: the
     recipe's 2 copies lie copy-major within each process's rows, so 2
     processes order a step's clips otherwise than one), a 1-view test (the
-    recipe's 4 views cut to 1 to keep the script's wall time under 600 s),
-    the predictions saved. With ``shard``: that shard of 2 hosts of one process each (gloo,
-    both on the one card), 4 videos a step each, meeting on ``port``; else
-    one process at 8, at the LR that BASE_LR_SCALE_NUM_SHARDS gives 2
-    shards."""
-    argv = run_net_argv("uniformer", out_dir, max_epoch)
+    recipe's views cut to 1 to keep the script's wall time down), the
+    predictions saved. With ``shard``: that shard of 2 hosts of one process
+    each (gloo, both on the one card), ``batch`` videos a step each, meeting
+    on ``port``, with ``extra`` opts; else one process at twice ``batch``,
+    at the LR that BASE_LR_SCALE_NUM_SHARDS gives 2 shards."""
+    argv = run_net_argv(recipe, out_dir, max_epoch)
     opts = ["TRAIN.MIXED_PRECISION", "False", "AUG.NUM_SAMPLE", "1",
             "TEST.SAVE_RESULTS_PATH", "preds.pkl", "TEST.NUM_ENSEMBLE_VIEWS", "1"]
     if shard is None:
-        return argv + opts + ["SOLVER.BASE_LR", "2e-4", "SOLVER.WARMUP_START_LR", "2e-6",
-                              "SOLVER.COSINE_END_LR", "2e-6"]
+        return argv + opts + ["TRAIN.BATCH_SIZE", str(2 * batch), "TEST.BATCH_SIZE",
+                              str(2 * batch), "SOLVER.BASE_LR", "2e-4",
+                              "SOLVER.WARMUP_START_LR", "2e-6", "SOLVER.COSINE_END_LR", "2e-6"]
     at = argv.index("--opts")
     return (argv[:at] + ["--num_shards", "2", "--shard_id", str(shard),
                          "--init_method", f"tcp://127.0.0.1:{port}"]
-            + argv[at:] + opts + ["TRAIN.BATCH_SIZE", "4", "TEST.BATCH_SIZE", "4",
-                                  "DIST_BACKEND", "gloo"])
+            + argv[at:] + opts + ["TRAIN.BATCH_SIZE", str(batch), "TEST.BATCH_SIZE",
+                                  str(batch), "DIST_BACKEND", "gloo", *extra])
 
 
 def _run_counted(runs, work_dir):
     """Start ``python3 chip_smoke.py --run-net-counts`` for each (name,
     argv) of ``runs`` at once, each with its output in ``work_dir/<name>.log``;
     wait for all, at most DIST_RUN_NET_TIMEOUT_S, then kill each with what it
-    spawned. Raises if one failed or hung; returns the wall seconds and
-    every count file's launches, by file name."""
+    spawned. Raises if one failed or hung; returns the wall seconds, every
+    count file's launches and every shapes file's K1 and wgrad calls, by
+    file name."""
     import subprocess
 
     procs = []
@@ -3718,13 +3752,13 @@ def _run_counted(runs, work_dir):
             with open(os.path.join(work_dir, f"{name}.log")) as f:
                 tails.append(f"--- {name}.log:\n" + f.read()[-3000:])
         raise AssertionError("phase 8c: " + "; ".join(failed) + "\n" + "\n".join(tails))
-    counts = {}
+    counts, shapes = {}, {}
     for name in sorted(os.listdir(work_dir)):
         if name.startswith("counts_"):
             with open(os.path.join(work_dir, name)) as f:
-                counts[name] = json.load(f)
+                (shapes if name.endswith(".shapes.json") else counts)[name] = json.load(f)
             os.remove(os.path.join(work_dir, name))
-    return wall, counts
+    return wall, counts, shapes
 
 
 def _json_stats(out_dir):
@@ -3748,49 +3782,70 @@ def phase_distributed_run_net(card):
     (``launch_job`` spawns each rank): UniFormer-S's rect recipe at full
     width, float32, for one epoch (train with ``dp``, checkpoint, gathered
     eval, test; ``EARLIER_RUN_NET_VIDEOS`` Synthetic videos), beside one
-    process at twice a process's batch. Each rank's
-    launches are counted from 0 in its own process (a main path) and must
-    equal the one process's, which must equal the count of its steps' K1
-    and wgrad launches; test_final must equal the one process's, the video
-    scores within 1e-5 and the weights within 2 x lr (phase 3b's gate after
-    AdamW); one checkpoint, written once; then the 2 processes again with
-    SOLVER.MAX_EPOCH 2, which must resume from it. Returns both 2-process
-    runs' launches."""
+    process at twice a process's batch (``_run_net_against_one``); then the
+    2 processes again with SOLVER.MAX_EPOCH 2, which must resume from its
+    checkpoint. Returns both 2-process runs' launches."""
+    return _run_net_against_one(card, "uniformer", "chip_smoke_distributed_run_net",
+                                "distributed_run_net_2_processes", resume=True)
+
+
+def _run_net_against_one(card, recipe, work_name, phase, batch=4, extra=(), resume=False,
+                         held=None):
+    """``recipe``'s run_net (``_dist_run_net_argv``) as 2 hosts with
+    ``batch`` videos a step each and the ``extra`` opts, beside one process
+    at twice the batch, in ``build/<work_name>``. Each rank's launches are
+    counted from 0 in its own process (a main path) and must equal the one
+    process's, which must equal the count of its steps' K1 and wgrad
+    launches; test_final must equal the one process's, the video scores
+    within 1e-5 and the weights within 2 x lr (phase 3b's gate after
+    AdamW); one checkpoint, written once; with ``resume``, the 2 processes
+    again with SOLVER.MAX_EPOCH 2, which must resume from it. With
+    ``held`` (a set of shapes), every K1 and wgrad call of the 2 processes
+    must be at one of them. Returns the 2-process runs' launches."""
     import pickle
 
     from pmv_tpu_torch.data.loader import construct_loader
 
     torch.cuda.empty_cache()  # this process's cached blocks, for the 3 processes below
-    work_dir = os.path.join("build", "chip_smoke_distributed_run_net")
+    work_dir = os.path.join("build", work_name)
     shutil.rmtree(work_dir, ignore_errors=True)
     os.makedirs(work_dir)
     one, two = (os.path.join(work_dir, d) for d in ("one", "two"))
-    cfg = run_net_cfg(_dist_run_net_argv(one, 1))
+    one_argv = _dist_run_net_argv(one, 1, recipe=recipe, batch=batch)
+    cfg = run_net_cfg(one_argv)
     with synthetic_videos(EARLIER_RUN_NET_VIDEOS):  # as the processes hold it
         n_steps, n_evals, n_tests = (len(construct_loader(cfg, split))
                                      for split in ("train", "val", "test"))
-    per_forward = RUN_NET["uniformer"][1]
+    per_forward = RUN_NET[recipe][1]
     expected = {"depthwise3x3x3": 2 * per_forward * n_steps + per_forward * (n_evals + n_tests),
                 "depthwise3x3x3_wgrad": per_forward * n_steps}
     zero = {k: 0 for k in expected}
 
     def two_processes(max_epoch, tag):
         port = _free_port()
-        return [(f"{tag}_shard{s}", _dist_run_net_argv(two, max_epoch, s, port)) for s in (0, 1)]
+        return [(f"{tag}_shard{s}", _dist_run_net_argv(two, max_epoch, s, port, recipe, batch,
+                                                       extra)) for s in (0, 1)]
 
     def rank_launches(counts, tag):
         ranks = {k: v for k, v in counts.items() if ".rank" in k}
         if sorted(ranks) != [f"counts_{tag}_shard{s}.rank{s}.json" for s in (0, 1)] or any(
                 v != expected for v in ranks.values()) or any(
                 v != zero for k, v in counts.items() if k.endswith(".main.json")):
-            raise AssertionError(f"phase 8c {tag}: launches {counts}, not {expected} a rank")
+            raise AssertionError(f"{phase} {tag}: launches {counts}, not {expected} a rank")
         return {k: sum(v[k] for v in ranks.values()) for k in expected}
 
-    wall, counts = _run_counted([("one", _dist_run_net_argv(one, 1))]
-                                + two_processes(1, "two"), work_dir)
+    def rank_shapes(shapes, tag):
+        seen = sorted({tuple(s) for calls in shapes.values() for _, s in calls})
+        if held is not None and (not seen or set(seen) - held):
+            raise AssertionError(f"{phase} {tag}: K1 and wgrad calls at {seen}, not all of "
+                                 f"them held against the plain versions ({sorted(held)})")
+        return seen
+
+    wall, counts, shapes = _run_counted([("one", one_argv)] + two_processes(1, "two"), work_dir)
     if counts.pop("counts_one.main.json") != expected:
         raise AssertionError(f"one process launched otherwise than {expected}: {counts}")
     paths = [rank_launches(counts, "two")]
+    kernel_shapes = rank_shapes(shapes, "two")
     got, want = _test_final(two), _test_final(one)
     preds = []
     ckpts = []
@@ -3801,8 +3856,9 @@ def phase_distributed_run_net(card):
                                 map_location="cpu", weights_only=True)["model_state"])
     first_lines = _json_stats(two)[0]
     rec = {
-        "phase": "distributed_run_net_2_processes_gloo", "model": cfg.MODEL.MODEL_NAME,
+        "phase": f"{phase}_gloo", "model": cfg.MODEL.MODEL_NAME, "extra": list(extra),
         "card": card, "train_steps": n_steps, "launches_per_rank": expected,
+        "kernel_shapes": kernel_shapes,
         "test_final_2_processes": got, "test_final_1_process": want,
         "video_preds_max_abs_err": float(np.abs(preds[0] - preds[1]).max()),
         "checkpoint_weights_max_abs_err": max(
@@ -3822,9 +3878,12 @@ def phase_distributed_run_net(card):
     if sum("Saved checkpoint" in line for line in first_lines) != 1 or os.listdir(
             os.path.join(two, "checkpoints")) != ["checkpoint_epoch_00001.pyth"]:
         raise AssertionError("the 2-process run did not write its one checkpoint once")
+    if not resume:
+        return paths
 
-    wall, counts = _run_counted(two_processes(2, "resume"), work_dir)
+    wall, counts, shapes = _run_counted(two_processes(2, "resume"), work_dir)
     paths.append(rank_launches(counts, "resume"))
+    rank_shapes(shapes, "resume")
     resumed = _json_stats(two)[0][len(first_lines):]
     ckpt = os.path.join(two, "checkpoints", "checkpoint_epoch_00001.pyth")
     if not (any(f"Load from last checkpoint, {ckpt}." in line for line in resumed)
@@ -3833,9 +3892,227 @@ def phase_distributed_run_net(card):
     if sorted(os.listdir(os.path.join(two, "checkpoints"))) != [
             "checkpoint_epoch_00001.pyth", "checkpoint_epoch_00002.pyth"]:
         raise AssertionError("the resumed 2-process run did not write epoch 2's checkpoint")
-    log(json.dumps({"phase": "distributed_run_net_2_processes_resume", "card": card,
+    log(json.dumps({"phase": f"{phase}_resume", "card": card,
                     "test_final": _test_final(two), "wall_s": wall}))
     return paths
+
+
+SP_BATCH = 2  # phase 8e's global batch, which both ranks of its model group hold
+SP_TIMED_STEPS = 3  # phase 8e's timed bf16 steps, each rank
+SP_EVAL_ATOL = 1e-4  # phase 3's eval gate, card against CPU
+
+
+def _sp_rank(rank, world, port, work_dir, result_q):
+    """Phase 8e's rank of a data 1 x model 2 grid over gloo on the one card:
+    the eval step on the case's clips, one float32 dp_sp train step on the
+    global batch, then a bfloat16 model's step, warm, and
+    ``SP_TIMED_STEPS`` timed steps (a main path: launch counts and the T
+    collectives' bytes zeroed just before them, read just after); the K1
+    and wgrad calls' shapes recorded in each. Puts its results, or its
+    error, on ``result_q``."""
+    import datetime
+    import traceback
+
+    try:
+        from pmv_tpu_torch.engine.steps import init_state, make_eval_step, make_train_step
+        from pmv_tpu_torch.models import build_model
+        from pmv_tpu_torch.ops.depthwise import record_shapes
+        from pmv_tpu_torch.parallel import distributed, mesh
+
+        torch.set_num_threads(max(1, (os.cpu_count() or world) // world))
+        float32_without_tf32()
+        device = torch.device("cuda", 0)
+        case = torch.load(os.path.join(work_dir, "case.pt"), weights_only=False)
+        cfg = case["cfg"]
+        distributed.init_distributed(rank, world, f"tcp://127.0.0.1:{port}", device, "gloo",
+                                     timeout=datetime.timedelta(seconds=120),
+                                     model_size=mesh.model_size(cfg, world))
+        lay = mesh.layout(cfg)
+        model = build_model(cfg, device=device, dtype=torch.float32)
+        model.load_state_dict(case["state_dict"])
+        counts = _launch_counts()
+        with record_shapes() as eval_shapes:
+            scores = make_eval_step(cfg, model, device=device)(case["eval_frames"]).cpu()
+        eval_launches = _launches_since(counts)
+        state = init_state(cfg, model, wrapped=distributed.wrap_model(model, "dp_sp", device))
+        step = make_train_step(cfg, device=device, seed=0)
+        counts = _launch_counts()
+        with record_shapes() as shapes:
+            metrics = {k: v.cpu() for k, v in step(state, case["batch"], TRAIN_LR).items()}
+        torch.cuda.synchronize()
+        result = {
+            "rank": rank, "layout": [lay.data, lay.data_size, lay.model, lay.model_size],
+            "metrics": metrics, "scores": scores, "eval_launches": eval_launches,
+            "eval_shapes": eval_shapes, "step_launches": _launches_since(counts),
+            "shapes": shapes,
+            "grads": {k: p.grad.detach().cpu().clone() for k, p in model.named_parameters()},
+            "state": {k: v.detach().cpu().clone() for k, v in model.state_dict().items()},
+        }
+        del state, model
+        model = build_model(cfg, device=device, dtype=torch.bfloat16)
+        model.load_state_dict(case["state_dict"])
+        state = init_state(cfg, model, wrapped=distributed.wrap_model(model, "dp_sp", device))
+        step(state, case["batch"], TRAIN_LR)  # warm
+        torch.cuda.synchronize()
+        _zero_launch_counts()  # the main path starts here
+        mesh.traffic.update(dict.fromkeys(mesh.traffic, 0))
+        t0 = time.perf_counter()
+        with record_shapes() as timed_shapes:
+            for _ in range(SP_TIMED_STEPS):
+                step(state, case["batch"], TRAIN_LR)
+            torch.cuda.synchronize()
+        result["ms_per_step"] = (time.perf_counter() - t0) / SP_TIMED_STEPS * 1e3
+        result["launches"] = _launch_counts()  # ... and ends here
+        result["timed_shapes"] = timed_shapes
+        result["bytes_per_step"] = {k: v // SP_TIMED_STEPS for k, v in mesh.traffic.items()}
+        torch.save(result, os.path.join(work_dir, f"rank{rank}.pt"))
+        distributed.destroy()
+        result_q.put((rank, None))
+    except BaseException:  # reported to the parent, which raises
+        result_q.put((rank, traceback.format_exc()))
+        raise
+
+
+def _sp_extents(phase, shapes, t_ext, train, steps=1):
+    """Raise unless ``shapes`` (``record_shapes``) hold MViT's 17 K1 calls
+    of a forward, and in a train step 17 dx calls after them and 17 weight
+    gradients (each ``steps`` times), every one on ``t_ext`` planes and at
+    a shape that the kernel phases hold against the plain versions
+    (``MVIT_SP_POOL_SHAPES``)."""
+    from pmv_tpu_torch.ops.depthwise import MVIT_SP_POOL_SHAPES
+
+    kinds = [kind for kind, _ in shapes]
+    counts = [kinds.count(kind) for kind in ("fwd", "dx", "wgrad")]
+    want = [steps * MVIT_K1] * 3 if train else [MVIT_K1, 0, 0]
+    extents = sorted({shape[1] for _, shape in shapes})
+    if counts != want or extents != [t_ext]:
+        raise AssertionError(f"{phase}: K1 forward, dx and wgrad calls {counts} on T "
+                             f"{extents}, not {want} on T [{t_ext}]")
+    seen = sorted({shape for _, shape in shapes})
+    outside = sorted(set(seen) - {s for s, _ in MVIT_SP_POOL_SHAPES})
+    if outside:
+        raise AssertionError(f"{phase}: K1 and wgrad calls at {outside}, which the kernel "
+                             "phases do not hold against the plain versions")
+    return {"k1_forward_dx_wgrad": counts, "t_extent": t_ext, "shapes": seen}
+
+
+def phase_sequence_parallel(card):
+    """Phase 8e: MViTv2-S 16x4 under TPU.SHARD_STRATEGY dp_sp, two ranks over
+    gloo sharing the one card, a grid of data 1 x model 2: full width and
+    depth, 16 frames of the PMV rect crop (SWITCH_AUTO, landscape rows),
+    the bench recipe (RandAugment, erasing, MixUp, DropPath), float32, a
+    global batch of ``SP_BATCH`` that both ranks hold, each rank half of its
+    8 token planes. Each rank's eval scores against the one process's on
+    the card within ``SP_EVAL_ATOL``, its train step against the one
+    process's on the global batch under phase 3b's gates; each rank's 17
+    K1, 17 dx and 17 wgrad calls a train step (17 K1 an eval) on 4 + 2 halo
+    planes; then each rank's bf16 step, timed, beside the one process's,
+    with the bytes its halos and K/V gathers hand to all_reduce. Then
+    ``run_net --num_shards 2 TPU.SHARD_STRATEGY dp_sp`` on 16 Synthetic
+    videos against one process, under phase 8c's gates. Every K1 and wgrad
+    call of these paths must be at a shape of ``MVIT_SP_POOL_SHAPES``,
+    which the kernel phases hold against the plain versions. Returns the
+    ranks' launches of both main paths."""
+    import multiprocessing
+
+    from pmv_tpu_torch.engine.steps import init_state, make_eval_step, make_train_step
+    from pmv_tpu_torch.models import build_model
+    from pmv_tpu_torch.ops.depthwise import MVIT_SP_POOL_SHAPES
+
+    cfg = _train_cfg()
+    cfg.DATA.TRAIN_CROP_SIZE_RECT = list(PMV_RECT)
+    cfg.DATA.TRAIN_CROP_SIZE_RECT_SWITCH_AUTO = True
+    cfg.TPU.SHARD_STRATEGY = "dp_sp"
+    world = 2
+    rng = np.random.default_rng(15)
+    clip = (SP_BATCH, cfg.DATA.NUM_FRAMES, *PMV_RECT, 3)
+    batch = {"frames": rng.integers(0, 256, clip, np.uint8),
+             "labels": rng.integers(0, cfg.MODEL.NUM_CLASSES, SP_BATCH)}
+    eval_frames = rng.integers(0, 256, clip, np.uint8)
+    work_dir = os.path.join("build", "chip_smoke_sequence_parallel")
+    shutil.rmtree(work_dir, ignore_errors=True)
+    os.makedirs(work_dir)
+    model = seeded_model(cfg, "cuda", torch.float32)
+    state_dict = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    torch.save({"cfg": cfg, "state_dict": state_dict, "batch": batch,
+                "eval_frames": eval_frames}, os.path.join(work_dir, "case.pt"))
+    scores = make_eval_step(cfg, model, device="cuda")(eval_frames).cpu()
+    state = init_state(cfg, model)
+    step = make_train_step(cfg, device="cuda", seed=0)
+    metrics = {k: v.cpu() for k, v in step(state, batch, TRAIN_LR).items()}
+    torch.cuda.synchronize()
+    ref = (metrics, _grads(model), {k: v.detach().cpu() for k, v in model.state_dict().items()})
+    n_params = sum(p.numel() for p in model.parameters())
+    del state, model
+    model = build_model(cfg, device="cuda", dtype=torch.bfloat16)
+    model.load_state_dict(state_dict)
+    state = init_state(cfg, model)
+    step(state, batch, TRAIN_LR)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(SP_TIMED_STEPS):
+        step(state, batch, TRAIN_LR)
+    torch.cuda.synchronize()
+    one_ms = (time.perf_counter() - t0) / SP_TIMED_STEPS * 1e3
+    del state, model
+    torch.cuda.empty_cache()
+
+    ctx = multiprocessing.get_context("spawn")
+    result_q = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=_sp_rank, args=(r, world, port, work_dir, result_q))
+             for r in range(world)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        errors = [result_q.get(timeout=300) for _ in procs]
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    wall = time.perf_counter() - t0
+    failed = [e for _, e in errors if e]
+    if failed:
+        raise AssertionError("a phase 8e rank failed:\n" + "\n".join(failed))
+    ranks = [torch.load(os.path.join(work_dir, f"rank{r}.pt"), weights_only=False)
+             for r in range(world)]
+    t_ext = cfg.DATA.NUM_FRAMES // cfg.MVIT.PATCH_STRIDE[0] // world + 2
+    for r in ranks:
+        phase = f"sequence_parallel_dp_sp_rank{r['rank']}"
+        eval_err = float((r["scores"] - scores).abs().max())
+        extents = _sp_extents(phase, r["shapes"], t_ext, train=True)
+        _sp_extents(phase + "_eval", r["eval_shapes"], t_ext, train=False)
+        _sp_extents(phase + "_timed", r["timed_shapes"], t_ext, train=True,
+                    steps=SP_TIMED_STEPS)
+        _held_to_step(f"{phase}_vs_one_process", (r["metrics"], r["grads"], r["state"]), ref,
+                      TRAIN_LR, n_params, card=card, layout=r["layout"],
+                      global_batch=SP_BATCH, frames=cfg.DATA.NUM_FRAMES,
+                      crop=list(PMV_RECT), eval_max_abs_err=eval_err, **extents,
+                      step_launches=r["step_launches"], eval_launches=r["eval_launches"],
+                      timed_steps=SP_TIMED_STEPS, ms_per_step_bf16_2_ranks=r["ms_per_step"],
+                      ms_per_step_bf16_1_process=one_ms,
+                      bytes_per_step_bf16=r["bytes_per_step"], launches=r["launches"],
+                      spawn_to_end_s=wall)
+        if eval_err > SP_EVAL_ATOL:
+            raise AssertionError(f"{phase}: eval scores differ by {eval_err}")
+        if r["layout"] != [0, 1, r["rank"], 2]:
+            raise AssertionError(f"{phase}: layout {r['layout']}")
+        if r["step_launches"] != step_launches(MVIT_K1) or r["eval_launches"] != eval_launches(
+                MVIT_K1):
+            raise AssertionError(f"{phase}: launched {r['step_launches']} a step, "
+                                 f"{r['eval_launches']} an eval")
+        timed = {k: v * SP_TIMED_STEPS for k, v in step_launches(MVIT_K1).items()}
+        if r["launches"] != timed:
+            raise AssertionError(f"{phase}: the timed steps launched {r['launches']}, not {timed}")
+    launches = {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
+    run_net_paths = _run_net_against_one(
+        card, "mvit", "chip_smoke_sequence_parallel_run_net", "sequence_parallel_run_net",
+        batch=2, extra=("TPU.SHARD_STRATEGY", "dp_sp"),
+        held={s for s, _ in MVIT_SP_POOL_SHAPES})
+    return [launches] + run_net_paths
 
 
 # Planted in a wrapper to see what phase 8b's gates catch
@@ -4016,7 +4293,7 @@ def plant_wrapper_faults(card):
 
 def kernels_line(records, launches, slowfast_launches, maskfeat_launches,
                  contrastive_launches, multigrid_launches, csn_launches, avslowfast_launches,
-                 ava_launches):
+                 ava_launches, sp_launches):
     """One entry per kernel: times summed over the launches at the 224^2
     crop's shapes in bfloat16 at batch 8; K1 over one MViTv2-S forward (17
     launches, as many again for dx in a train step), the wgrad kernel over
@@ -4043,7 +4320,12 @@ def kernels_line(records, launches, slowfast_launches, maskfeat_launches,
     over its 22 launches at [8, 8, 14, 14, 256] alone ("s4_22_launches",
     bf16); "launches_avslowfast" the AVSlowFast paths' (phases 4v-6v, 0: its
     convs are dense or 2-D); "launches_ava" the AVA detection paths'
-    (phases 4a-6a, 0: SlowFast's and Slow's convs are dense)."""
+    (phases 4a-6a, 0: SlowFast's and Slow's convs are dense);
+    "launches_dp_sp" the dp_sp paths' (phase 8e, both ranks), and "dp_sp"
+    the sums over a rank's 17 launches under dp_sp (4 + 2 halo planes of
+    the 8), bf16, per grid: the rect crop's and its transposes at batch 2
+    (8e's train step) and 4 (8e's run_net), and the 224^2 crop's at batch
+    8."""
     maskfeat = maskfeat_kernel_ms(records)
 
     def entry(name, source, replaces, recs, basis):
@@ -4065,6 +4347,7 @@ def kernels_line(records, launches, slowfast_launches, maskfeat_launches,
             "launches_slowfast": slowfast_launches[name],
             "launches_avslowfast": avslowfast_launches[name],
             "launches_ava": ava_launches[name],
+            "launches_dp_sp": sp_launches[name],
             "launches_maskfeat": maskfeat_launches[name],
             "launches_contrastive": {k: v[name] for k, v in contrastive_launches.items()},
             "launches_multigrid": multigrid_launches[name],
@@ -4082,6 +4365,12 @@ def kernels_line(records, launches, slowfast_launches, maskfeat_launches,
             "rect_bound_ms": summed("bound_ms", grid("rect")),
             "portrait_ms": summed("kernel_ms", grid("portrait")),
             "portrait_bound_ms": summed("bound_ms", grid("portrait")),
+            # A rank's shapes under dp_sp.
+            "dp_sp": {
+                g: {key: summed(key, grid("sp_" + g)) for key in (
+                    "kernel_ms", "kernel_warm_ms", "plain_ms", "bound_ms", "library_ms")}
+                for g in ("rect_b2", "portrait_b2", "rect_b4", "portrait_b4", "square_b8")
+            },
             # The rect grids at run_net's train batch of 16.
             "rect_b16_ms": summed("kernel_ms", grid("rect_b16")),
             "rect_b16_bound_ms": summed("bound_ms", grid("rect_b16")),
@@ -4360,10 +4649,13 @@ def main():
         ssl_dist_launches = timed("distributed_8d", phase_distributed_ssl)
         paths += run_net_8c.result()
     paths += timed("distributed_8b", phase_distributed_nccl, card)
+    sp_paths = timed("sequence_parallel_8e", phase_sequence_parallel, card)
+    paths += sp_paths
     launches = {k: sum(p[k] for p in paths) for k in paths[0]}
     slowfast_launches = {k: sum(p[k] for p in slowfast_paths) for k in paths[0]}
     avslowfast_launches = {k: sum(p[k] for p in avslowfast_paths) for k in paths[0]}
     ava_launches = {k: sum(p[k] for p in ava_paths) for k in paths[0]}
+    sp_launches = {k: sum(p[k] for p in sp_paths) for k in paths[0]}
     maskfeat_launches = {k: sum(p[k] for p in maskfeat_paths) for k in paths[0]}
     multigrid_launches = {k: sum(p[k] for p in multigrid_paths) for k in paths[0]}
     csn_launches = {k: sum(p[k] for p in csn_paths) for k in paths[0]}
@@ -4375,7 +4667,7 @@ def main():
     log(json.dumps({"phase": "total", "wall_s": time.perf_counter() - t_start}))
     line = kernels_line(records, launches, slowfast_launches, maskfeat_launches,
                         contrastive_launches, multigrid_launches, csn_launches,
-                        avslowfast_launches, ava_launches)
+                        avslowfast_launches, ava_launches, sp_launches)
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": card, "records": records, **line}, f, indent=1)

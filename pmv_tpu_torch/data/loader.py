@@ -36,7 +36,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 from pmv_tpu_torch.data.build import build_dataset
-from pmv_tpu_torch.utils.device import rank_and_world_size
+from pmv_tpu_torch.parallel import mesh
 
 
 class DataLoader:
@@ -204,7 +204,8 @@ def construct_loader(cfg, split, dataset=None):
     """The loader of ``split`` (`loader.py:112-169`): train shuffles and
     drops the last partial batch; val and test keep the order and every
     sample. A process takes TRAIN.BATCH_SIZE (TEST.BATCH_SIZE) / NUM_GPUS
-    samples a step. A train sample of contrastive views (DATA.
+    samples a step (x the model axis under dp_sp, whose model groups take
+    the same rows). A train sample of contrastive views (DATA.
     TRAIN_CROP_NUM_TEMPORAL or _SPATIAL > 1) keeps its view axis: frames
     [B, V, T, H, W, C]. Under MULTIGRID.SHORT_CYCLE the train loader takes
     the short cycle's batches (``short_cycle_factors``)."""
@@ -213,7 +214,8 @@ def construct_loader(cfg, split, dataset=None):
         dataset_name, batch_size = cfg.TRAIN.DATASET, cfg.TRAIN.BATCH_SIZE
     else:
         dataset_name, batch_size = cfg.TEST.DATASET, cfg.TEST.BATCH_SIZE
-    batch_size //= max(cfg.NUM_GPUS, 1)  # per process, as in PySlowFast
+    lay = mesh.layout(cfg)
+    batch_size = batch_size // max(cfg.NUM_GPUS, 1) * lay.model_size  # as in PySlowFast
     shuffle = drop_last = split == "train"
     if dataset is None:
         dataset = build_dataset(dataset_name, cfg, split)
@@ -224,7 +226,6 @@ def construct_loader(cfg, split, dataset=None):
         # views keep their axis ([B, V, T, H, W, C]) for the SSL step.
         collate = multiple_samples_collate
     short_cycle = short_cycle_factors(cfg) if split == "train" else None
-    rank, world_size = rank_and_world_size()
     return DataLoader(
         dataset,
         batch_size=batch_size,
@@ -233,8 +234,8 @@ def construct_loader(cfg, split, dataset=None):
         num_workers=cfg.DATA_LOADER.NUM_WORKERS,
         prefetch_depth=cfg.DATA_LOADER.PREFETCH_DEPTH,
         seed=cfg.RNG_SEED,
-        rank=rank,
-        world_size=world_size,
+        rank=lay.data,
+        world_size=lay.data_size,
         collate=collate,
         short_cycle=short_cycle,
     )

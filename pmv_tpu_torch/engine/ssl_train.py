@@ -62,7 +62,7 @@ def refuse_unported_ssl(cfg):
     if distributed.world_size_of(cfg) > 1 and cfg.TPU.SHARD_STRATEGY != "dp":
         raise NotImplementedError(
             f"SSL training under TPU.SHARD_STRATEGY {cfg.TPU.SHARD_STRATEGY} is not "
-            "ported: use dp, or NUM_GPUS 1"
+            "ported (queued in ROADMAP.md): use dp, or NUM_GPUS 1"
         )
 
 

@@ -74,6 +74,14 @@ is that of the global mean loss (DDP or FSDP average the ranks' gradients),
 the grad norm is taken over the whole gradient, every shard of it, and the
 loss and top-k errors are averaged over the ranks. The step calls ``state.wrapped``, the model wrapped for the
 strategy, once per step: DDP expects one forward per backward.
+
+Under TPU.SHARD_STRATEGY dp_sp (``parallel/mesh.py``) the rows above are
+those of a data group, of which every rank of a model group holds the
+same; the draws, the preprocessing and MixUp run on the whole clip (the
+erasing draws are per pixel of the whole batch), then each rank keeps its
+frames of the clip (``mesh.Layout.planes``) and runs the forward inside
+``mesh.sequence_parallel``; the portrait rows take the whole-batch select,
+decided across ranks, since every forward runs collectives.
 """
 
 import numpy as np
@@ -89,7 +97,7 @@ from pmv_tpu_torch.engine.train_state import TrainState
 from pmv_tpu_torch.models import optimizer as optim
 from pmv_tpu_torch.models.batchnorm import frozen_stats, has_batchnorm
 from pmv_tpu_torch.models.losses import get_loss_func
-from pmv_tpu_torch.parallel import distributed
+from pmv_tpu_torch.parallel import distributed, mesh
 from pmv_tpu_torch.utils.device import rank_and_world_size, resolve_device
 
 
@@ -292,23 +300,25 @@ def portrait_rows(pm, batch_size):
     return pm if pm.any() else None
 
 
-def portrait_route(model, pm, batch_size, train):
+def portrait_route(model, pm, batch_size, train, lay=None):
     """(route, flags): how a batch's rows run by orientation, and
     ``portrait_rows``. The JAX package's whole-batch select
     (``select_by_orientation``) where the forwards must be the whole
     batch's or the same on every rank: BatchNorm in training, whose
     statistics cover every row (every rank's in a multi-process job), and,
     in a multi-process job, FSDP, which gathers each block's parameters in
-    every forward. There the decision is taken across ranks: the flags are
-    all False, not None, on a rank without portrait rows when another rank
-    has some, so that every rank runs both passes and the same collectives.
-    Elsewhere (MViT's train step, any eval step, under ``dp``) each row runs
-    once, in its orientation (``forward_by_orientation``), which runs no
-    collective."""
+    every forward, and the sequence parallelism of ``lay`` (a
+    ``mesh.Layout``), whose every forward runs collectives. There the
+    decision is taken across ranks: the flags are all False, not None, on a
+    rank without portrait rows when another rank has some, so that every
+    rank runs both passes and the same collectives. Elsewhere (MViT's train
+    step, any eval step, under ``dp``) each row runs once, in its
+    orientation (``forward_by_orientation``), which runs no collective."""
     pm = portrait_rows(pm, batch_size)
     world = rank_and_world_size()[1]
     sharded = world > 1 and distributed.is_sharded(next(model.parameters()))
-    if not (train and has_batchnorm(model) or sharded):
+    sequence = lay is not None and lay.sequence_parallel
+    if not (train and has_batchnorm(model) or sharded or sequence):
         return forward_by_orientation, pm
     if world > 1 and distributed.any_across_ranks(pm is not None) and pm is None:
         pm = np.zeros(batch_size, bool)
@@ -477,19 +487,20 @@ def make_train_step(cfg, device=None, seed=0):
             extra["drop_pathway"] = lambda g, _: model.sample_drop_pathway(g)
         return draw(shape, given, step, extra)
 
-    def partner_rows_flipped(t):  # the batch reversed, in one process
-        return distributed.partner_rows(t).flip(0)
-
     def train_step(state: TrainState, batch, lr, draws=None):
         model, optimizer = state.model, state.optimizer
         model.train()
         frames = torch.as_tensor(batch["frames"]).to(device, non_blocking=True)
         labels = torch.as_tensor(batch["labels"]).to(device, non_blocking=True)
-        rank, world = rank_and_world_size()
+        lay = mesh.layout(cfg)
+        rank, world = lay.data, lay.data_size
         b = frames.shape[0]
         shape = (b * world, *frames.shape[1:])
         draws = local_draws(sample_draws(model, shape, draws or {}, state.step),
                             rank * b, (rank + 1) * b, shape[0])
+
+        def partner_rows_flipped(t):  # the batch reversed, in one process
+            return distributed.partner_rows(t, lay).flip(0)
 
         x = preprocess(frames, draws)
         if mixup_fn is not None:
@@ -500,14 +511,15 @@ def make_train_step(cfg, device=None, seed=0):
             )
         else:
             targets = labels
-        route, pm = portrait_route(model, batch.get("pm"), b, train=True)
+        x = local_frames(x, lay)
+        route, pm = portrait_route(model, batch.get("pm"), b, train=True, lay=lay)
         refuse_portrait_audio(cfg, pm)
         audio = (audio_of(batch, "audio", device), audio_of(batch, "audio_mis", device))
         args = (model_input(cfg, x, *audio), pm)
         kwargs = dict(drop_path_masks=draws["drop_path"], head_dropout_mask=draws["dropout"])
         if "drop_pathway" in draws:
             kwargs["drop_pathway"] = draws["drop_pathway"]
-        with frozen_stats(model, cfg.MODEL.FROZEN_BN):
+        with frozen_stats(model, cfg.MODEL.FROZEN_BN), mesh.sequence_parallel(lay):
             if state.wrapped is None:
                 preds = route(model, *args, **kwargs)
             else:
@@ -569,6 +581,15 @@ def make_train_step(cfg, device=None, seed=0):
         lambda model, shape, step=0: sample_draws(model, tuple(shape), {}, step)
     )
     return train_step
+
+
+def local_frames(x, lay):
+    """This rank's frames ([B, T, ...] -> [B, T / M, ...]) of a clip under
+    the sequence parallelism of ``lay``; ``x`` itself without it."""
+    if not lay.sequence_parallel:
+        return x
+    start, stop = lay.planes(x.shape[1])
+    return x[:, start:stop]
 
 
 def _call(model, x, **kwargs):
@@ -688,7 +709,9 @@ def make_eval_step(cfg, model, device=None):
     package's ``_make_pm_eval_step`` (`train.py:183-199`). In a
     multi-process job every rank calls it the same number of times; under
     ``fsdp`` every rank takes the select (exact at eval), so that each runs
-    the same forwards (``portrait_route``)."""
+    the same forwards (``portrait_route``). Under dp_sp the ranks of a model
+    group take the same rows, each its frames of the clip after the
+    preprocessing, and return the same scores."""
     device = resolve_device(device)
     refuse_portrait_audio(cfg)
     preprocess = make_eval_preprocess_fn(cfg, device)
@@ -697,10 +720,13 @@ def make_eval_step(cfg, model, device=None):
     def eval_step(frames, pm=None, audio=None):
         model.eval()
         frames = torch.as_tensor(frames).to(device, non_blocking=True)
-        route, pm = portrait_route(model, pm, frames.shape[0], train=False)
+        lay = mesh.layout(cfg)
+        route, pm = portrait_route(model, pm, frames.shape[0], train=False, lay=lay)
         refuse_portrait_audio(cfg, pm)
         audio = audio_of({"audio": audio}, "audio", device)
-        return route(model, model_input(cfg, preprocess(frames), audio), pm)
+        with mesh.sequence_parallel(lay):
+            return route(model, model_input(cfg, local_frames(preprocess(frames), lay), audio),
+                         pm)
 
     return eval_step
 

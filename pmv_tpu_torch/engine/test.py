@@ -35,6 +35,9 @@ TENSORBOARD.ENABLE opens a writer only in the VIS_MASK path, as in the JAX
 package's ``test``; there, rank 0 writes the stacks of its shard's batches.
 Detection gathers each step's scores, original boxes and metadata (and
 labels, for the groundtruth from the batches) of the valid boxes alike.
+Under TPU.SHARD_STRATEGY dp_sp the ranks of a model group score the same
+clips (``parallel/mesh.py``): only model rank 0 of each adds them to the
+gather, so that each clip is counted once.
 """
 
 import os
@@ -50,7 +53,7 @@ from pmv_tpu_torch.data import loader as loader_mod
 from pmv_tpu_torch.engine import steps
 from pmv_tpu_torch.models import build_model
 from pmv_tpu_torch.models.masked import mae_visualize
-from pmv_tpu_torch.parallel import distributed
+from pmv_tpu_torch.parallel import distributed, mesh
 from pmv_tpu_torch.utils import checkpoint as cu
 from pmv_tpu_torch.utils import logging as pmv_logging
 from pmv_tpu_torch.utils import meters as meters_mod
@@ -61,11 +64,13 @@ from pmv_tpu_torch.utils.device import resolve_device
 logger = pmv_logging.get_logger(__name__)
 
 
-def perform_test(test_loader, eval_step, test_meter):
+def perform_test(test_loader, eval_step, test_meter, lay=None):
     """Run ``eval_step`` over ``test_loader`` (any iterable of dicts with
     "frames", "labels" and "index", "pm" where rows may be portrait, and
     "audio" for AVSlowFast) and ensemble into ``test_meter``. Returns (test_meter, final stats).
-    In a multi-process job each step's clips are gathered from every rank."""
+    In a multi-process job each step's clips are gathered from every rank;
+    under the sequence parallelism of ``lay`` (a ``mesh.Layout``) from model
+    rank 0 of each model group."""
     test_meter.iter_tic()
     for cur_iter, (batch, real) in enumerate(distributed.lockstep(test_loader)):
         test_meter.data_toc()
@@ -76,7 +81,7 @@ def perform_test(test_loader, eval_step, test_meter):
             preds = eval_step(batch["frames"], **audio)
         preds = preds.float().cpu().numpy()  # waits for the device
         test_meter.iter_toc()
-        keep = slice(None) if real else slice(0)
+        keep = slice(None) if real and (lay is None or lay.model == 0) else slice(0)
         preds, labels, index = distributed.gather_host(
             [preds[keep], np.asarray(batch["labels"])[keep], np.asarray(batch["index"])[keep]])
         test_meter.update_stats(preds, labels, index)
@@ -183,7 +188,7 @@ def test_one(cfg, model, device, rel_ratio=None):
         ensemble_method=cfg.DATA.ENSEMBLE_METHOD,
     )
     eval_step = steps.make_eval_step(cfg, model, device=device)
-    test_meter, stats = perform_test(test_loader, eval_step, test_meter)
+    test_meter, stats = perform_test(test_loader, eval_step, test_meter, mesh.layout(cfg))
 
     if cfg.TEST.SAVE_RESULTS_PATH and pmv_logging.is_master_process():
         tag = "" if rel_ratio is None else f"_r{rel_ratio[0]:.2f}x{rel_ratio[1]:.2f}"
@@ -247,6 +252,7 @@ def test(cfg, device=None):
     device = resolve_device(device)
     pmv_logging.setup_logging(cfg.OUTPUT_DIR)
     distributed.check_world(cfg)
+    distributed.refuse_sequence_parallel(cfg)
     np.random.seed(cfg.RNG_SEED)
     torch.manual_seed(cfg.RNG_SEED)
     logger.info("Test with config:")

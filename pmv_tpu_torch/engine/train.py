@@ -99,7 +99,7 @@ from pmv_tpu_torch.engine.precise_bn import calculate_and_update_precise_bn
 from pmv_tpu_torch.engine.prefetch import DevicePrefetcher
 from pmv_tpu_torch.models import build_model
 from pmv_tpu_torch.models.batchnorm import norm_name, swap_norms
-from pmv_tpu_torch.parallel import distributed
+from pmv_tpu_torch.parallel import distributed, mesh
 from pmv_tpu_torch.utils import checkpoint as cu
 from pmv_tpu_torch.utils import logging as pmv_logging
 from pmv_tpu_torch.utils import meters as meters_mod
@@ -147,7 +147,7 @@ def train_epoch(train_loader, train_step, state, meter, cur_epoch, cfg):
     step of ``engine/ssl_steps.py``). Returns ``state``, updated in
     place."""
     data_size = len(train_loader)
-    world = rank_and_world_size()[1]
+    world = mesh.data_shard_count(cfg)  # the processes over which the rows are split
     pending = []
     flush_every = max(1, cfg.LOG_PERIOD)
 
@@ -208,8 +208,10 @@ def train_epoch(train_loader, train_step, state, meter, cur_epoch, cfg):
 def eval_epoch(val_loader, eval_step, meter, cur_epoch, cfg):
     """One pass of ``eval_step`` over ``val_loader`` into the ValMeter;
     returns the epoch's stats. In a multi-process job every rank's
-    predictions are gathered, and each step's errors are those of the
-    global batch."""
+    predictions are gathered (under dp_sp model rank 0's of each model
+    group, whose ranks score the same clips), and each step's errors are
+    those of the global batch."""
+    lay = mesh.layout(cfg)
     meter.iter_tic()
     for cur_iter, (batch, real) in enumerate(distributed.lockstep(val_loader)):
         meter.data_toc()
@@ -217,7 +219,7 @@ def eval_epoch(val_loader, eval_step, meter, cur_epoch, cfg):
         preds = eval_step(batch["frames"], batch.get("pm"), **audio)
         preds = preds.float().cpu().numpy()  # waits for the device
         labels = batch["labels"]
-        if not real:
+        if not real or lay.model != 0:
             preds, labels = preds[:0], np.asarray(labels)[:0]
         preds, labels = distributed.gather_host([preds, labels])
         if np.asarray(labels).ndim > 1:  # multi-label: mAP at the epoch's end
@@ -272,6 +274,7 @@ def train(cfg, device=None):
     device = resolve_device(device)
     pmv_logging.setup_logging(cfg.OUTPUT_DIR)
     distributed.check_world(cfg)
+    distributed.refuse_sequence_parallel(cfg)
     refuse_unported(cfg)
     np.random.seed(cfg.RNG_SEED)
     torch.manual_seed(cfg.RNG_SEED)

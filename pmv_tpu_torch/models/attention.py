@@ -16,6 +16,13 @@ FusedQKVSplitDots (one ``qkv`` Linear here), SPARSE_KV_POOL (the full
 projection followed by the strided conv), FLAT_POOLS / FlatGroupLN, the 0/1
 rel-pos expansion matrix, q-chunked attention and the ``_DIAG_*`` switches.
 POOL_FIRST is not ported yet.
+
+Under temporal sequence parallelism (``parallel/mesh.py``) a rank holds
+the token planes of its T slice and the cls token: its pools run on the
+slice extended by their halo (``common.py``), then K's and V's tokens are
+gathered over the model group in one collective, with one cls token, and
+q stays local; the temporal rel-pos table takes the clip's q size and this
+rank's q offset, since q_t is a slice of it.
 """
 
 import functools
@@ -34,6 +41,7 @@ from pmv_tpu_torch.models.common import (
     channels_last_conv3d,
     max_pool_3d,
 )
+from pmv_tpu_torch.parallel import mesh
 
 
 @functools.lru_cache(maxsize=None)
@@ -111,12 +119,16 @@ def rel_q_tables_spatial(q, q_shape, k_shape, rel_pos_h, rel_pos_w, has_cls_embe
     return rel_h.reshape(b, q_n, n_head, k_h), rel_w.reshape(b, q_n, n_head, k_w)
 
 
-def rel_q_table_temporal(q, q_shape, k_shape, rel_pos_t, has_cls_embed):
-    """Per-query-row temporal table [B, q_n, heads, k_t]."""
+def rel_q_table_temporal(q, q_shape, k_shape, rel_pos_t, has_cls_embed, q_t_total=None,
+                         q_t_offset=0):
+    """Per-query-row temporal table [B, q_n, heads, k_t]. With
+    ``q_t_total``, q's ``q_shape[0]`` planes are planes [q_t_offset,
+    q_t_offset + q_t) of the clip's ``q_t_total``: their rows of the clip's
+    table."""
     sp = 1 if has_cls_embed else 0
     q_t, q_h, q_w = q_shape
     k_t = k_shape[0]
-    rt = _rel_table(rel_pos_t, q_t, k_t).to(q.dtype)
+    rt = _rel_table(rel_pos_t, q_t_total or q_t, k_t)[q_t_offset:q_t_offset + q_t].to(q.dtype)
     b, _, n_head, dim = q.shape
     r_q = q[:, sp:].reshape(b, q_t, q_h, q_w, n_head, dim)
     rel = torch.einsum("bthwyc,tkc->bthwyk", r_q, rt)
@@ -171,6 +183,22 @@ class AttentionPool(nn.Module):
         if norm is not None:
             x = norm(x)
         return x, new_thw
+
+
+def gather_kv(k, v, thw_shape, has_cls_embed):
+    """K's and V's tokens ([B, N, heads, C], this rank's T slice of the grid
+    ``thw_shape`` after a cls token where ``has_cls_embed``) gathered over
+    the model group in one collective, this rank's cls token first: (k, v,
+    the clip's grid)."""
+    sp = 1 if has_cls_embed else 0
+    b, _, heads, c = k.shape
+    t = thw_shape[0]
+    kv = torch.cat([k[:, sp:], v[:, sp:]], dim=-1).reshape(b, t, -1, heads, 2 * c)
+    kv = mesh.gather_t(kv).flatten(1, 2)
+    k_tok, v_tok = kv[..., :c], kv[..., c:]
+    if has_cls_embed:
+        k_tok, v_tok = torch.cat([k[:, :1], k_tok], dim=1), torch.cat([v[:, :1], v_tok], dim=1)
+    return k_tok, v_tok, (kv.shape[1] // (thw_shape[1] * thw_shape[2]), *thw_shape[1:])
 
 
 class MultiScaleAttention(nn.Module):
@@ -266,6 +294,11 @@ class MultiScaleAttention(nn.Module):
         q, q_shape = self.pool_q(q, thw_shape, self.norm_q)
         k, k_shape = self.pool_k(k, thw_shape, self.norm_k)
         v, _ = self.pool_v(v, thw_shape, self.norm_v)
+        q_t_total, q_t_offset = q_shape[0], 0
+        lay = mesh.active()
+        if lay is not None:
+            k, v, k_shape = gather_kv(k, v, k_shape, self.has_cls_embed)
+            q_t_total, q_t_offset = q_shape[0] * lay.model_size, q_shape[0] * lay.model
 
         qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))  # [B, H, N, C]
         attn = torch.matmul(qh * self.scale, kh.transpose(-2, -1))
@@ -285,7 +318,8 @@ class MultiScaleAttention(nn.Module):
                 bias += rel_w.transpose(1, 2)[:, :, :, None, None, :]
             if self.rel_pos_temporal:
                 rel_t = rel_q_table_temporal(
-                    q, q_shape, k_shape, self.rel_pos_t, self.has_cls_embed
+                    q, q_shape, k_shape, self.rel_pos_t, self.has_cls_embed,
+                    q_t_total, q_t_offset,
                 )
                 bias += rel_t.transpose(1, 2)[:, :, :, :, None, None]
         attn = attn.softmax(dim=-1)

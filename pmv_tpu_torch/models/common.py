@@ -12,6 +12,7 @@ from torch import nn
 
 from pmv_tpu_torch.models.batchnorm import BatchNorm
 from pmv_tpu_torch.ops.depthwise import depthwise3x3x3
+from pmv_tpu_torch.parallel import mesh
 
 
 class Linear(nn.Linear):
@@ -47,6 +48,51 @@ def on_k1(c, w, stride, padding, dilation=(1, 1, 1), groups=1):
             and tuple(dilation) == (1, 1, 1))
 
 
+def t_extent(kernel, stride, padding, t, dilation=1):
+    """(left, right, out): the halo planes a conv or pool of T ``kernel``,
+    ``stride``, ``padding`` and ``dilation`` needs on a rank's ``t`` planes
+    under sequence parallelism, and the planes it gives. The conv reads
+    ``padding`` planes before a rank's first and ``span - padding - stride``
+    after its last (span = the dilated kernel); every rank's ``t`` must be
+    a multiple of the stride, and the conv SAME-like (T / stride planes out
+    over the whole clip), so that the ranks' outputs tile the clip's."""
+    span = dilation * (kernel - 1) + 1
+    if t % stride:
+        raise ValueError(f"a rank's {t} planes are not a multiple of the T stride {stride}: "
+                         "give each rank a multiple of it (DATA.NUM_FRAMES / the model axis)")
+    if not span - stride <= 2 * padding < span:
+        raise NotImplementedError(f"a T kernel of {kernel}, stride {stride}, padding "
+                                  f"{padding} under sequence parallelism")
+    return padding, max(span - padding - stride, 0), t // stride
+
+
+def _f_conv3d(x, w, bias, stride, padding, dilation, groups):
+    x = x.permute(0, 4, 1, 2, 3)
+    if groups > 1:
+        x = x.contiguous()
+    return F.conv3d(x, w, bias, stride, padding, dilation, groups).permute(0, 2, 3, 4, 1)
+
+
+def _k1(x, w, bias):
+    c = x.shape[-1]
+    y = depthwise3x3x3(x.contiguous(), w.reshape(c, 27).t().reshape(3, 3, 3, c).contiguous())
+    return y if bias is None else y + bias
+
+
+def conv_on_extended(xe, w, bias, stride, padding, dilation, groups, out):
+    """A rank's ``out`` output planes of the conv from ``xe``, its planes
+    extended by their halo (``t_extent``; weights and bias in xe.dtype): K1
+    on the whole extent (``on_k1``: one plane each side), its first and last
+    output planes dropped, so that its backward runs dx through K1 and dw
+    through the wgrad kernel on the same extent (dw a partial sum, which
+    the gradient's all-reduce completes); every other conv ``F.conv3d``
+    with T padded by 0, its first ``out`` planes."""
+    if on_k1(xe.shape[-1], w, stride, padding, dilation, groups):
+        return _k1(xe, w, bias)[:, 1:-1]
+    y = _f_conv3d(xe, w, bias, stride, (0, *padding[1:]), dilation, groups)
+    return y[:, :out]
+
+
 def channels_last_conv3d(x, w, bias=None, stride=(1, 1, 1), padding=(0, 0, 0),
                          dilation=(1, 1, 1), groups=1):
     """A conv3d on [B, T, H, W, C] tensors, weights [O, I / groups, kt, kh,
@@ -57,17 +103,19 @@ def channels_last_conv3d(x, w, bias=None, stride=(1, 1, 1), padding=(0, 0, 0),
     grouped one on a contiguous NCDHW copy, a dense one on the channels-last
     grid viewed as NCDHW, whichever layout the card ran faster (PERF.md,
     ``tools/pool_conv_variants.py [--uniformer | --x3d]``: on the view cuDNN
-    runs a grouped conv one channel at a time)."""
+    runs a grouped conv one channel at a time). Inside
+    ``mesh.sequence_parallel`` ``x`` is a rank's T slice, and a conv of T
+    kernel above 1 runs on it extended by its halo (``conv_on_extended``)."""
     w = w.to(x.dtype)
     bias = None if bias is None else bias.to(x.dtype)
-    c = x.shape[-1]
-    if on_k1(c, w, stride, padding, dilation, groups):
-        y = depthwise3x3x3(x.contiguous(), w.reshape(c, 27).t().reshape(3, 3, 3, c).contiguous())
-        return y if bias is None else y + bias
-    x = x.permute(0, 4, 1, 2, 3)
-    if groups > 1:
-        x = x.contiguous()
-    return F.conv3d(x, w, bias, stride, padding, dilation, groups).permute(0, 2, 3, 4, 1)
+    if mesh.active() is not None and w.shape[2] > 1:
+        left, right, out = t_extent(w.shape[2], stride[0], padding[0], x.shape[1],
+                                    dilation[0])
+        return conv_on_extended(mesh.extend_t(x, left, right), w, bias, stride, padding,
+                                dilation, groups, out)
+    if on_k1(x.shape[-1], w, stride, padding, dilation, groups):
+        return _k1(x, w, bias)
+    return _f_conv3d(x, w, bias, stride, padding, dilation, groups)
 
 
 class ChannelsLastConv3d(nn.Conv3d):
@@ -183,15 +231,26 @@ def _ndhwc(x):
     return x.permute(0, 2, 3, 4, 1)
 
 
+def _pool(pool, x, kernel, stride, padding, fill):
+    """``pool`` over [B, T, H, W, C]; inside ``mesh.sequence_parallel``, of a
+    T kernel above 1, on a rank's T slice extended by its halo, ``fill``
+    beyond the clip's ends, T padded by 0."""
+    if mesh.active() is None or kernel[0] == 1:
+        return _ndhwc(pool(_ncdhw(x), kernel, stride, padding))
+    left, right, out = t_extent(kernel[0], stride[0], padding[0], x.shape[1])
+    xe = mesh.extend_t(x, left, right, fill)
+    return _ndhwc(pool(_ncdhw(xe), kernel, stride, (0, *padding[1:])))[:, :out]
+
+
 def max_pool_3d(x, kernel, stride, padding):
     """Max pool on [B, T, H, W, C] with symmetric integer ``padding`` per
     axis; padded taps are -inf, as ``reduce_window`` pads them."""
-    return _ndhwc(F.max_pool3d(_ncdhw(x), kernel, stride, padding))
+    return _pool(F.max_pool3d, x, tuple(kernel), tuple(stride), tuple(padding), -float("inf"))
 
 
 def avg_pool_3d(x, kernel, stride, padding):
     """Average pool on [B, T, H, W, C], padded taps counted (the default)."""
-    return _ndhwc(F.avg_pool3d(_ncdhw(x), kernel, stride, padding))
+    return _pool(F.avg_pool3d, x, tuple(kernel), tuple(stride), tuple(padding), None)
 
 
 @torch.no_grad()

@@ -8,6 +8,12 @@ W tables swap when the switch is on: DATA.TRAIN_CROP_SIZE_RECT_SWITCH_AUTO,
 or ``forward(..., hw_switch=True)``, which is how the portrait
 specialization of the JAX package (``build_model(cfg, hw_switch=True)``, a
 second module over the same parameters) is one module here.
+
+Inside ``parallel.mesh.sequence_parallel`` (TPU.SHARD_STRATEGY dp_sp) the
+input is a rank's frames of the clip, and every activation its token
+planes: the cls token is replicated on every rank of the model group, the
+fixed and absolute position embeddings are sliced at the rank's T offset,
+and the mean pooling sums over the model group.
 """
 
 import numpy as np
@@ -19,6 +25,7 @@ from pmv_tpu_torch.models.build import MODEL_REGISTRY
 from pmv_tpu_torch.models.common import Dropout, LayerNorm, round_width
 from pmv_tpu_torch.models.heads import TransformerBasicHead
 from pmv_tpu_torch.models.stem import PatchEmbed
+from pmv_tpu_torch.parallel import mesh
 
 
 def _compute_mvit_schedule(cfg):
@@ -279,6 +286,16 @@ class MViT(nn.Module):
             pos = torch.cat([cls_pos, pos], dim=1)
         return pos
 
+    @staticmethod
+    def _planes_of(pos, thw, lay):
+        """The rows of a clip's token table ``pos`` [1, T * H * W, D] (t-major)
+        that hold a rank's planes of the grid ``thw`` (its own T): all of them
+        outside sequence parallelism."""
+        if lay is None:
+            return pos
+        plane = thw[1] * thw[2]
+        return pos[:, lay.model * thw[0] * plane:(lay.model + 1) * thw[0] * plane]
+
     def sample_drop_path_masks(self, batch, generator, device=None):
         """Per block, the DropPath keep masks of one train-mode forward
         (``MultiScaleBlock.sample_drop_path_masks``), drawn from
@@ -301,18 +318,22 @@ class MViT(nn.Module):
         MODEL.DROPOUT_RATE > 0. MVIT.DROPOUT_RATE > 0 is not ported for
         training yet. ``hw_switch`` runs the portrait specialization: the
         rel-pos H and W tables swap on grids with H > W."""
+        lay = mesh.active()
         x, thw = self.patch_embed(x.to(self.compute_dtype))
         b, _, c = x.shape
         s = 1 if self.cls_on else 0
         if self.pos_fixed is not None:
-            x = x + self.pos_fixed[:, s:].to(x.dtype)
+            x = x + self._planes_of(self.pos_fixed[:, s:], thw, lay).to(x.dtype)
         if self.cls_on:
             cls_tokens = self.cls_token.to(x.dtype).expand(b, -1, -1)
             if self.pos_fixed is not None:
                 cls_tokens = cls_tokens + self.pos_fixed[:, :s].to(x.dtype)
             x = torch.cat([cls_tokens, x], dim=1)
         if self.use_abs_pos:
-            x = x + self._abs_pos_embed(thw).to(x.dtype)
+            clip = thw if lay is None else (thw[0] * lay.model_size, *thw[1:])
+            pos = self._abs_pos_embed(clip)
+            pos = torch.cat([pos[:, :s], self._planes_of(pos[:, s:], thw, lay)], dim=1)
+            x = x + pos.to(x.dtype)
         x = self.pos_drop(x)
         if self.norm_stem is not None:
             x = self.norm_stem(x)
@@ -326,12 +347,21 @@ class MViT(nn.Module):
         if self.use_mean_pooling:
             if self.cls_on:
                 x = x[:, 1:]
-            x = self.norm(x.mean(dim=1))
+            x = self.norm(_token_mean(x, lay))
         elif self.cls_on:
             x = self.norm(x)[:, 0]
         else:
-            x = self.norm(x).mean(dim=1)
+            x = _token_mean(self.norm(x), lay)
         return self.head(x, head_dropout_mask)
+
+
+def _token_mean(x, lay):
+    """The mean of [B, N, D] over the tokens; under sequence parallelism
+    (``lay``) over the model group's, in float32."""
+    if lay is None:
+        return x.mean(dim=1)
+    total = mesh.all_reduce_model(x.float().sum(dim=1))
+    return (total / (x.shape[1] * lay.model_size)).to(x.dtype)
 
 
 @MODEL_REGISTRY.register(name="MViT")

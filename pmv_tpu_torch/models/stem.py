@@ -17,7 +17,11 @@ from pmv_tpu_torch.models.common import ChannelsLastConv3d, max_pool_3d
 
 
 class PatchEmbed(nn.Module):
-    """[B, T, H, W, C] -> (tokens [B, T'*H'*W', D], (T', H', W'))."""
+    """[B, T, H, W, C] -> (tokens [B, T'*H'*W', D], (T', H', W')). Under
+    sequence parallelism (``parallel/mesh.py``) ``x`` is a rank's frames:
+    MViT's (3, 7, 7) / (2, 4, 4) conv, padded (1, 3, 3), reads one frame of
+    the previous rank's (``common.t_extent``), and a rank's frames that its
+    T stride does not divide raise ValueError."""
 
     def __init__(self, dim_in, dim_out, kernel, stride, padding, conv_2d=False):
         super().__init__()

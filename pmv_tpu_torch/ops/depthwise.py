@@ -27,10 +27,12 @@ convs (``models/resnet_helper.py``).
   threads, shared memory) by one rule, worked out here so that the CPU
   tests can check them.
 - ``MVIT_POOL_SHAPES``, ``MASKFEAT_POOL_SHAPES``, ``MVIT_RECT_POOL_SHAPES``,
-  ``MVIT_PORTRAIT_POOL_SHAPES``, ``MVIT_RECT_TRAIN_POOL_SHAPES``, the
-  ``UNIFORMER_*_DPE_SHAPES``, the ``X3D_*_DW_SHAPES``, the ``CSN_*DW_SHAPES``,
-  ``ODD_SHAPES`` and ``PADDED_ODD_SHAPES``: the shapes the main paths give
-  the kernels (MViT's pools, UniFormer's DPE convs and X3D-M's stride-1
+  ``MVIT_PORTRAIT_POOL_SHAPES``, ``MVIT_SP_POOL_SHAPES`` and
+  ``MVIT_SP_SQUARE_POOL_SHAPES`` (a rank's under dp_sp),
+  ``MVIT_RECT_TRAIN_POOL_SHAPES``, the ``UNIFORMER_*_DPE_SHAPES``, the
+  ``X3D_*_DW_SHAPES``, the ``CSN_*DW_SHAPES``, ``ODD_SHAPES`` and
+  ``PADDED_ODD_SHAPES``: the shapes the main paths give the kernels
+  (MViT's pools, UniFormer's DPE convs and X3D-M's stride-1
   channelwise convs at the 224^2 crop, the PMV rect crop and its transposes
   at batch 8, at the PMV train step's batch of 16, X3D-M's test crop of
   256^2, and ir-CSN-101's conv_bs at 32 x 224^2 and at its 256^2 test
@@ -42,11 +44,14 @@ convs (``models/resnet_helper.py``).
 A CUDA tensor launches the kernels; a CPU tensor takes the plain versions.
 Nothing else falls back: a CUDA input the kernels do not take, a failed
 build or a refused launch raises. Each wrapper counts its launches in
-``.launches``.
+``.launches``. Inside ``record_shapes()`` the autograd Function's calls
+(forward, dx and dw) note their input shapes, on either device: under
+sequence parallelism they show the halo-extended T.
 
 Bound on the card: bytes, for both kernels; see the kernel sources.
 """
 
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -108,6 +113,21 @@ MVIT_RECT_POOL_SHAPES = (
 )
 MVIT_PORTRAIT_POOL_SHAPES = tuple(
     ((b, t, w, h, c), n) for (b, t, h, w, c), n in MVIT_RECT_POOL_SHAPES
+)
+# The same pools under TPU.SHARD_STRATEGY dp_sp on a model axis of 2, per rank
+# (parallel/mesh.py): each rank's 4 of the 8 token planes and the halo plane
+# either side, 6 planes where half of a whole clip's launch reads 4. The PMV
+# rect crop's grids and their transposes at the batches a rank holds on the
+# dp_sp paths (SP_BATCHES: a train step's 2 clips, and run_net's 4 when 2
+# processes take 2 videos each); then the 224^2 crop's at batch 8, where
+# the launches are long enough to show what the halo planes cost.
+SP_BATCHES = (2, 4)
+MVIT_SP_POOL_SHAPES = tuple(
+    ((b, t // 2 + 2, h, w, c), n) for b in SP_BATCHES
+    for (_, t, h, w, c), n in MVIT_RECT_POOL_SHAPES + MVIT_PORTRAIT_POOL_SHAPES
+)
+MVIT_SP_SQUARE_POOL_SHAPES = tuple(
+    ((b, t // 2 + 2, h, w, c), n) for (b, t, h, w, c), n in MVIT_POOL_SHAPES
 )
 # The PMV recipe's train step through run_net takes TRAIN.BATCH_SIZE 8 x
 # AUG.NUM_SAMPLE 2 = 16 clips (``multiple_samples_collate``): the rect grids,
@@ -443,14 +463,35 @@ def channel_padded(conv, x, other):
     return sliced_channels(conv(F.pad(x, (0, pad)), F.pad(other, (0, pad))), c)
 
 
+_shapes = []  # the lists of the open record_shapes() contexts
+
+
+@contextlib.contextmanager
+def record_shapes():
+    """A list that gets ("fwd", "dx" or "wgrad", [B, T, H, W, C]) for each
+    call of K1 (the forward, dx) and of the weight gradient made within."""
+    shapes = []
+    _shapes.append(shapes)
+    try:
+        yield shapes
+    finally:
+        _shapes.remove(shapes)
+
+
+def _note(kind, x):
+    for shapes in _shapes:
+        shapes.append((kind, tuple(x.shape)))
+
+
 def _pads(x):
     """Whether the kernels' channel pad applies to ``x``: on the card."""
     return x.device.type == "cuda"
 
 
-def _conv(x, w):
+def _conv(x, w, kind="fwd"):
     """K1 on CUDA (one launch; C a multiple of 8), the plain version on the
-    CPU."""
+    CPU; ``kind`` names the call in ``record_shapes``."""
+    _note(kind, x)
     if x.device.type == "cpu":
         return depthwise3x3x3_plain(x, w)
     return _launch_forward(x, w)
@@ -459,6 +500,7 @@ def _conv(x, w):
 def _wgrad(x, g):
     """The wgrad kernel on CUDA (C a multiple of 8), the plain version on the
     CPU."""
+    _note("wgrad", x)
     if x.device.type == "cpu":
         return depthwise3x3x3_wgrad_plain(x, g)
     _check("depthwise3x3x3_wgrad", x, g, x.shape)
@@ -555,7 +597,7 @@ class Depthwise3x3x3(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             # A stride-1 SAME conv is its own transpose up to a kernel flip.
             w_flip = w.flip(0, 1, 2).contiguous()
-            dx = sliced_channels(_conv(g, w_flip), c).to(x.dtype)
+            dx = sliced_channels(_conv(g, w_flip, "dx"), c).to(x.dtype)
         if ctx.needs_input_grad[1]:
             dw = sliced_channels(_wgrad(x, g), c).to(w.dtype)
         return dx, dw

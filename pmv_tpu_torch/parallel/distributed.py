@@ -34,7 +34,13 @@ Strategies (TPU.SHARD_STRATEGY). "dp" wraps the model in
 ``DistributedDataParallel``; "fsdp" shards its parameters with FSDP2's
 ``fully_shard``, per block and then the root. The JAX package's "fsdp" only
 lays the parameters out otherwise (`mesh.py:125-137`), and so does this one:
-both give dp's numbers. "dp_sp" is not ported yet.
+both give dp's numbers. "dp_sp" lays the ranks out as a (data, model)
+grid and cuts every activation of the MViT classification model in T over
+the model axis (``parallel/mesh.py``); the parameters are replicated and
+wrapped in ``DistributedDataParallel`` over the whole world. Under it the
+rows of the global batch are split over a data group as over the world
+under dp (``partner_rows`` and ``gather_rows`` take a layout for that), and
+the other models raise NotImplementedError.
 """
 
 import datetime
@@ -45,6 +51,7 @@ import torch.distributed as dist
 from torch import nn
 from torch.distributed.tensor import DTensor, distribute_tensor
 
+from pmv_tpu_torch.parallel import mesh
 from pmv_tpu_torch.utils.device import local_device, rank_and_world_size
 
 # How long a collective waits for the other ranks before it raises.
@@ -82,10 +89,14 @@ def backend_of(cfg, device_type):
     return backend
 
 
-def init_distributed(rank, world_size, init_method, device, backend, timeout=None):
+def init_distributed(rank, world_size, init_method, device, backend, timeout=None,
+                     model_size=1):
     """Join the process group as ``rank`` of ``world_size`` at
     ``init_method`` (``tcp://host:port``), with ``device`` as this process's
-    device, and make the host and pair groups. Every rank calls it."""
+    device, and make the host and pair groups, and the groups of the dp_sp
+    grid with a model axis of ``model_size`` (``mesh.model_size`` of the
+    job's cfg) where it is above 1 and divides the world
+    (``mesh.make_groups``). Every rank calls it."""
     timeout = timeout or DEFAULT_TIMEOUT
     if device.type == "cuda":
         torch.cuda.set_device(device)
@@ -98,11 +109,13 @@ def init_distributed(rank, world_size, init_method, device, backend, timeout=Non
         group = dist.new_group(pair)  # every rank takes part in making each
         if rank in pair:
             _groups["partner"] = group
+    mesh.make_groups(rank, world_size, model_size, timeout)
 
 
 def destroy():
     """Leave the process group (a no-op outside one)."""
     _groups.clear()
+    mesh.clear_groups()
     if dist.is_initialized():
         dist.destroy_process_group()
 
@@ -127,9 +140,11 @@ def _run_process(local_rank, cfg, init_method, func, device_type):
     device = local_device(local_rank, device_type)
     if device_type == "cpu":  # the host's cores, shared among its processes
         torch.set_num_threads(max(1, torch.get_num_threads() // max(cfg.NUM_GPUS, 1)))
+    world = world_size_of(cfg)
     init_distributed(
-        cfg.SHARD_ID * max(cfg.NUM_GPUS, 1) + local_rank, world_size_of(cfg),
+        cfg.SHARD_ID * max(cfg.NUM_GPUS, 1) + local_rank, world,
         init_method, device, backend_of(cfg, device_type),
+        model_size=mesh.model_size(cfg, world),
     )
     try:
         func(cfg, device)
@@ -164,45 +179,42 @@ def any_across_ranks(flag):
     return bool(t.item())
 
 
-class _AllReduceSum(torch.autograd.Function):
-    """The sum over the ranks of each rank's tensor; its gradient on a rank is
-    the sum over the ranks of their gradients of the sum."""
-
-    @staticmethod
-    def forward(ctx, t):
-        t = t.clone()
-        dist.all_reduce(t)
-        return t
-
-    @staticmethod
-    def backward(ctx, grad):
-        return _AllReduceSum.apply(grad)
+def _data_axis(lay):
+    """(this rank's index, the size, the group) of the data axis of ``lay``:
+    the world under a layout without a model axis (or none given)."""
+    if lay is None or not lay.sequence_parallel:
+        return (*rank_and_world_size(), None)
+    return lay.data, lay.data_size, mesh.group(lay, "data")
 
 
-def gather_rows(t):
-    """[W, *t.shape]: every rank's ``t``, in rank order, with autograd: the
-    gradient of a rank's slot is the sum of every rank's gradients of it. An
-    all-reduce of zeros beside this rank's slot, so that it also runs over
-    gloo on CUDA tensors; adding zeros changes no value."""
-    rank, world = rank_and_world_size()
+def gather_rows(t, lay=None):
+    """[D, *t.shape]: every rank's ``t`` over the data axis of ``lay`` (the
+    world when None), in order, with autograd: the gradient of a rank's slot
+    is the sum of every rank's gradients of it. An all-reduce of zeros
+    beside this rank's slot, so that it also runs over gloo on CUDA tensors;
+    adding zeros changes no value."""
+    rank, world, group = _data_axis(lay)
     if world == 1:
         return t[None]
     buf = torch.cat([t.new_zeros((rank,) + t.shape), t[None],
                      t.new_zeros((world - 1 - rank,) + t.shape)])
-    return _AllReduceSum.apply(buf)
+    return mesh.AllReduceSum.apply(buf, group)
 
 
-def partner_rows(t):
-    """The ``t`` of rank W - 1 - r on rank r (of the same shape): the rows
-    that the global batch reversed puts here are these rows, reversed."""
-    rank, world = rank_and_world_size()
+def partner_rows(t, lay=None):
+    """The ``t`` of data index D - 1 - d on data index d (of the same shape;
+    the world's ranks when ``lay`` has no model axis): the rows that the
+    global batch reversed puts here are these rows, reversed."""
+    rank, world, _ = _data_axis(lay)
     partner = world - 1 - rank
     if partner == rank:
         return t
     low = min(rank, partner)
     buf = t.new_zeros((2,) + t.shape)
     buf[int(rank != low)] = t
-    dist.all_reduce(buf, group=_groups["partner"])
+    pair = mesh.group(lay, "partner") if lay is not None and lay.sequence_parallel else \
+        _groups["partner"]
+    dist.all_reduce(buf, group=pair)
     return buf[int(partner != low)]
 
 
@@ -272,14 +284,42 @@ def block_types():
     return (MultiScaleBlock, CBlock, SABlock, SplitSABlock, ResBlock, Nonlocal)
 
 
+def _refuse_model(name):
+    if name != "MViT":
+        raise NotImplementedError(
+            f"TPU.SHARD_STRATEGY dp_sp takes the MViT classification model; {name} under "
+            "dp_sp is queued in ROADMAP.md")
+
+
+def refuse_sequence_parallel(cfg):
+    """Raise for what a multi-process dp_sp job of ``cfg`` asks for and the
+    port does not run under it: a model other than MViT, detection, feature
+    extraction, multigrid."""
+    if cfg.TPU.SHARD_STRATEGY != "dp_sp" or world_size_of(cfg) == 1:
+        return
+    _refuse_model(cfg.MODEL.MODEL_NAME)
+    asked = [name for name, on in (
+        ("DETECTION.ENABLE", cfg.DETECTION.ENABLE), ("TEST.FEAT_EXTRACT", cfg.TEST.FEAT_EXTRACT),
+        ("MULTIGRID", cfg.MULTIGRID.LONG_CYCLE or cfg.MULTIGRID.SHORT_CYCLE)) if on]
+    if asked:
+        raise NotImplementedError(f"{', '.join(asked)} under TPU.SHARD_STRATEGY dp_sp: "
+                                  "queued in ROADMAP.md")
+
+
 def wrap_model(model, strategy, device):
     """The module a train step calls (``Routed``): under "dp" the model in
     ``DistributedDataParallel`` (buffers not broadcast: every rank moves its
     BatchNorm statistics by the same global batch statistics); under "fsdp"
     the model with its parameters sharded by ``fully_shard``, block by
-    block, then the root. ``model`` stays the module that holds the
-    parameters (FSDP's are sharded ``DTensor``s); its parameter names do not
-    change."""
+    block, then the root; under "dp_sp" (MViT alone) as under "dp", over
+    the whole world, since the parameters are replicated over the grid.
+    ``model`` stays the module that holds the parameters (FSDP's are
+    sharded ``DTensor``s); its parameter names do not change."""
+    if strategy == "dp_sp":
+        from pmv_tpu_torch.models.mvit import MViT
+
+        _refuse_model("MViT" if type(model) is MViT else type(model).__name__)
+        strategy = "dp"
     if strategy == "dp":
         return nn.parallel.DistributedDataParallel(
             Routed(model), device_ids=[device.index] if device.type == "cuda" else None,
@@ -294,13 +334,7 @@ def wrap_model(model, strategy, device):
             fully_shard(module, mesh=mesh)
         fully_shard(model, mesh=mesh)
         return Routed(model)
-    if strategy == "dp_sp":
-        raise NotImplementedError(
-            "TPU.SHARD_STRATEGY dp_sp (temporal sequence parallelism: K1's "
-            "one-plane T halo exchanged across ranks, K and V all-gathered) is "
-            "the next slice of the distributed port"
-        )
-    raise ValueError(f"TPU.SHARD_STRATEGY {strategy!r}: use dp or fsdp")
+    raise ValueError(f"TPU.SHARD_STRATEGY {strategy!r}: use dp, fsdp or dp_sp")
 
 
 def local(t):

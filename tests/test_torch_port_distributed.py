@@ -59,7 +59,14 @@ the references:
   loss divides by the global count of boxes, so the step's loss, grad
   norm, gradients and state equal one process's on the global batch; then
   ``test_detection`` over the ranks' shards of a dump written from a seed
-  gathers the scores, boxes and metadata into the one-process run's mAP.
+  gathers the scores, boxes and metadata into the one-process run's mAP;
+- (j) MViT under ``dp_sp`` on a grid of data 1 x model 2 (the tiny MViT at
+  8 frames, so that its 4 token planes split 2 and 2, with 3x3x3 pools so
+  that K1 runs on each rank's planes extended by their halo), both ranks
+  holding the global batch of 4 with its portrait row: the train step
+  against the JAX step on the global batch at (a)'s tolerance, every rank
+  on the whole-batch select; the eval scores and ``perform_test`` (each
+  clip counted once) against one process.
 """
 
 import contextlib
@@ -97,7 +104,7 @@ from pmv_tpu_torch.engine.test import perform_test
 from pmv_tpu_torch.entry import mvitv2_s_cfg
 from pmv_tpu_torch.models import build_model
 from pmv_tpu_torch.models.batchnorm import BatchNorm
-from pmv_tpu_torch.parallel import distributed
+from pmv_tpu_torch.parallel import distributed, mesh
 from pmv_tpu_torch.tools import run_net
 from pmv_tpu_torch.tools.grad_witness import relu_decisions
 from pmv_tpu_torch.utils.device import local_device
@@ -127,6 +134,7 @@ ROOT = Path(__file__).resolve().parents[1]
 PM = np.array([True, False, False, False])  # rank 0: rows 0-1, rank 1: rows 2-3
 MODELS = ("uniformer", "x3d", "mvit", "slowfast")
 LR = 1e-3
+SP_FRAMES = 8  # (j): 4 token planes, 2 a rank
 
 
 def _step_case(name):
@@ -153,6 +161,8 @@ def _step_case(name):
         jport = jmodel
     else:
         cfg = mvit_pm._pm_cfg()
+        if name == "mvit_sp":
+            cfg.DATA.NUM_FRAMES = SP_FRAMES
         batch = mvit_pm._batch(cfg, 0)
         batch["pm"] = PM
         jmodel, jport, jstate, tx = mvit_pm._jax_state(cfg, batch, 4)
@@ -170,6 +180,15 @@ def _step_case(name):
     load_jax_params(model, variables)
     case = {"cfg": pcfg, "state_dict": {k: v.clone() for k, v in model.state_dict().items()},
             "batch": batch, "draws": draws, "lr": LR}
+    if name == "mvit_sp":
+        pcfg.TPU.SHARD_STRATEGY = "dp_sp"
+        rng_np = np.random.default_rng(11)
+        case["eval"] = {"frames": rng_np.integers(0, 256, batch["frames"].shape, np.uint8),
+                        "pm": PM}
+        case["test"] = {"frames": rng_np.integers(0, 256, (10, SP_FRAMES, *mvit_pm.RECT, 3),
+                                                  np.uint8),
+                        "labels": rng_np.integers(0, cfg.MODEL.NUM_CLASSES, 5),
+                        "num_clips": 2, "batch_size": 4}
     if name == "slowfast":
         # The ranks' and the one process's steps in float64 activations: in
         # float32 this net's gradients at these widths (its last stage's
@@ -304,13 +323,31 @@ def _bn_case():
             "state_dict": bn.state_dict()}
 
 
+def _sp_one_process_eval(case):
+    """The dp_sp case's eval scores and ``perform_test`` in one process."""
+    from pmv_tpu_torch.data.loader import DataLoader
+
+    model = build_model(case["cfg"], device="cpu", dtype=torch.float32)
+    model.load_state_dict(case["state_dict"])
+    eval_step = make_eval_step(case["cfg"], model, device="cpu")
+    scores = eval_step(case["eval"]["frames"], case["eval"]["pm"]).clone()
+    test = case["test"]
+    loader = DataLoader(ClipDataset(test["frames"], test["labels"], test["num_clips"]),
+                        test["batch_size"], num_workers=1)
+    meter = meters.TestMeter(len(test["labels"]), test["num_clips"],
+                             case["cfg"].MODEL.NUM_CLASSES, len(loader))
+    meter, stats = perform_test(loader, eval_step, meter)
+    return {"scores": scores, "video_preds": meter.video_preds, "stats": stats,
+            "steps": len(loader)}
+
+
 @pytest.fixture(scope="module")
 def two_ranks(tmp_path_factory):
     """Every case through ``rank_cases`` on 2 ranks, and the references,
     computed here while the ranks run."""
     case_dir = tmp_path_factory.mktemp("two_ranks")
     with ThreadPoolExecutor(len(MODELS) + 1) as pool:  # XLA compiles in parallel
-        step_futures = {name: pool.submit(_step_case, name) for name in MODELS}
+        step_futures = {name: pool.submit(_step_case, name) for name in MODELS + ("mvit_sp",)}
         precise_future = pool.submit(_precise_bn_case)
         steps, jax_args = {}, {}
         for name, future in step_futures.items():
@@ -320,14 +357,18 @@ def two_ranks(tmp_path_factory):
         resume["batch2"] = uni_train._batch(jax_args["uniformer"][0], 1, PM)
         resume["draws2"] = jax_train_draws(jax_args["uniformer"][0], jax.random.PRNGKey(3), 1,
                                            resume["batch2"]["frames"].shape)
-        cases = {"steps": steps, "resume": resume, "precise_bn": precise,
+        sp = steps.pop("mvit_sp")
+        cases = {"steps": steps, "sp": sp, "resume": resume, "precise_bn": precise,
                  "test": _test_case(), "bn": _bn_case(), "sub_bn": _sub_bn_case(),
                  "avslowfast": _av_case(), "detection": _detection_case(case_dir)}
         torch.save(cases, case_dir / "cases.pt")
-        procs = start_ranks(rank_cases, str(case_dir))
+        procs = start_ranks(rank_cases, str(case_dir),
+                            model_size=mesh.model_size(sp["cfg"], 2))
         try:
             ref_futures = {name: pool.submit(_step_refs, steps[name], jax_args[name])
                            for name in MODELS if name != "slowfast"}
+            ref_futures["mvit_sp"] = pool.submit(_step_refs, sp, jax_args["mvit_sp"])
+            ref_futures["sp_eval"] = pool.submit(_sp_one_process_eval, sp)
             ref_futures["resume"] = pool.submit(
                 _one_process_steps, resume, (resume["batch2"], resume["draws2"]))
             ref_futures["precise_bn"] = pool.submit(
@@ -406,6 +447,62 @@ def test_every_rank_takes_the_select_only_where_a_forward_runs_collectives(two_r
         split = name == "mvit" and strategy == "dp"
         want = "forward_by_orientation" if split else "select_by_orientation"
         assert results[name, strategy]["routes"] == [want, want], strategy
+
+
+def test_dp_sp_step_matches_jax_on_the_global_batch(two_ranks):
+    """(j): each rank of the data 1 x model 2 grid holds the global batch's
+    4 rows and half of its token planes; its step is JAX's on the global
+    batch, as (a) holds MViT's dp step."""
+    results, refs, _ = two_ranks
+    ref = refs["mvit_sp"]
+    jm = ref["jax_metrics"]
+    _, one_grads, _ = ref["one"][0]
+    want = state_dict_from_jax(numpy_tree(ref["jstate"].params))
+    for rank, got in enumerate(results["sp"]):
+        assert got["layout"] == mesh.Layout(0, 1, rank, 2)
+        np.testing.assert_allclose(got["metrics"]["loss"], float(jm["loss"]), rtol=1e-4)
+        np.testing.assert_allclose(got["metrics"]["grad_norm"], float(jm["grad_norm"]),
+                                   rtol=1e-4)
+        for key in ("top1_err", "top5_err"):
+            np.testing.assert_allclose(got["metrics"][key], float(jm[key]), rtol=1e-6)
+        assert not got["metrics"]["nan"]
+        assert _relative_l2(got["grads"], one_grads) < 1e-5
+        for key, value in want.items():
+            if not key.endswith("norm_k.bias"):  # float noise that Adam scales to +-lr
+                np.testing.assert_allclose(got["state"][key].numpy(), value.numpy(),
+                                           atol=1e-5, rtol=0, err_msg=key)
+
+
+def test_dp_sp_takes_the_select_and_k1_on_halo_extended_slices(two_ranks):
+    """Every forward under dp_sp runs collectives: every rank takes the
+    whole-batch select. The tiny MViT's three stride-1 3x3x3 pools a
+    forward (block 0's q, block 1's K and V) run K1 on 2 + 2 halo planes,
+    forward and dx, and the weight gradient on the same extent: in the
+    train step, two forwards (both orientations); in the eval step, two."""
+    results, _, _ = two_ranks
+    for got in results["sp"]:
+        assert got["routes"] == ["select_by_orientation"] * 2
+        kinds = [kind for kind, _ in got["shapes"]]
+        assert [kinds.count(k) for k in ("fwd", "dx", "wgrad")] == [6, 6, 6]
+        assert [kind for kind, _ in got["eval_shapes"]] == ["fwd"] * 6
+        for _, shape in got["shapes"] + got["eval_shapes"]:
+            assert shape[1] == SP_FRAMES // 2 // 2 + 2, shape
+
+
+def test_dp_sp_eval_and_perform_test_equal_one_process(two_ranks):
+    """The eval scores of each rank (with a portrait row) and the gathered
+    TestMeter (model rank 0's clips only: each clip counted once) equal one
+    process's."""
+    results, refs, _ = two_ranks
+    one = refs["sp_eval"]
+    for got in results["sp"]:
+        torch.testing.assert_close(got["scores"], one["scores"], atol=1e-6, rtol=1e-5)
+        test = got["test"]
+        assert test["steps"] == one["steps"] == 3
+        np.testing.assert_array_equal(test["clip_count"], [2] * 5)
+        np.testing.assert_allclose(test["video_preds"], one["video_preds"], atol=1e-6,
+                                   rtol=1e-5)
+        assert test["stats"] == one["stats"]
 
 
 def _assert_weights_close(got, want, lrs, stats_tol=(1e-6, 1e-5)):
@@ -648,12 +745,6 @@ def test_run_net_two_processes_equal_one_and_resume(tmp_path):
         "checkpoint_epoch_00001.pyth", "checkpoint_epoch_00002.pyth"]
     assert _json_stats(two / "stdout.log")[-1]["split"] == "test_final"
     assert b["epoch"] == a["epoch"] == 0
-
-
-def test_dp_sp_is_the_next_slice():
-    model = build_model(mvitv2_s_cfg(tiny=True), device="cpu", dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        distributed.wrap_model(model, "dp_sp", torch.device("cpu"))
 
 
 def test_a_process_never_shares_a_card():

@@ -467,7 +467,7 @@ def free_port():
         return s.getsockname()[1]
 
 
-def _rank_entry(target, rank, world, port, args):
+def _rank_entry(target, rank, world, port, model_size, args):
     import datetime
 
     from pmv_tpu_torch.parallel import distributed
@@ -475,21 +475,23 @@ def _rank_entry(target, rank, world, port, args):
     torch.set_num_threads(2)
     distributed.init_distributed(
         rank, world, f"tcp://127.0.0.1:{port}", torch.device("cpu"), "gloo",
-        timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S))
+        timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S), model_size=model_size)
     try:
         target(rank, world, *args)
     finally:
         distributed.destroy()
 
 
-def start_ranks(target, *args, world=2):
+def start_ranks(target, *args, world=2, model_size=1):
     """Start ``target(rank, world, *args)`` in ``world`` spawned processes
-    that form a gloo job; ``join_ranks`` waits for them."""
+    that form a gloo job, with the dp_sp groups of a model axis of
+    ``model_size`` (``mesh.model_size`` of a dp_sp case's cfg);
+    ``join_ranks`` waits for them."""
     import multiprocessing
 
     ctx = multiprocessing.get_context("spawn")
     port = free_port()
-    procs = [ctx.Process(target=_rank_entry, args=(target, rank, world, port, args))
+    procs = [ctx.Process(target=_rank_entry, args=(target, rank, world, port, model_size, args))
              for rank in range(world)]
     for p in procs:
         p.start()
@@ -529,12 +531,13 @@ def whole_state(model):
 def rank_train_step(rank, world, case, strategy):
     """One train step of ``case`` (cfg, state_dict, global batch, its draws,
     lr, and the activations' dtype, float32 unless it names one) on this
-    rank's rows under ``strategy``: its metrics, the whole
-    gradients, the state after it, every rank's portrait route (the name of
+    rank's rows under ``strategy`` (under dp_sp, which the cfg must name,
+    its data group's rows): its metrics, the whole gradients, the state
+    after it, every rank's portrait route (the name of
     ``steps.portrait_route``'s choice), and the TrainState."""
     from pmv_tpu_torch.engine.steps import init_state, make_train_step, portrait_route
     from pmv_tpu_torch.models import build_model
-    from pmv_tpu_torch.parallel import distributed
+    from pmv_tpu_torch.parallel import distributed, mesh
 
     cfg = case["cfg"]
     model = build_model(cfg, device="cpu", dtype=case.get("dtype", torch.float32))
@@ -542,8 +545,10 @@ def rank_train_step(rank, world, case, strategy):
     wrapped = distributed.wrap_model(model, strategy, torch.device("cpu"))
     state = init_state(cfg, model, wrapped=wrapped)
     step = make_train_step(cfg, device="cpu")
-    batch = local_rows(case["batch"], rank, world)
-    route, _ = portrait_route(model, batch.get("pm"), len(batch["labels"]), train=True)
+    lay = mesh.layout(cfg)
+    batch = local_rows(case["batch"], lay.data, lay.data_size)
+    route, _ = portrait_route(model, batch.get("pm"), len(batch["labels"]), train=True,
+                              lay=lay)
     routes = distributed.gather_host([np.array([route.__name__])])[0]
     metrics = step(state, batch, case["lr"], case["draws"])
     grads = {k: distributed.full(p.grad).clone() for k, p in model.named_parameters()}
@@ -608,6 +613,74 @@ def rank_detection(rank, world, case, strategy=None):
     grads = {k: distributed.full(p.grad).clone() for k, p in model.named_parameters()}
     return {"metrics": {k: float(v) for k, v in metrics.items()}, "grads": grads,
             "state": whole_state(model), "map": test_detection(cfg, model, "cpu")["map"]}
+
+
+def rank_sp_case(rank, world, case):
+    """The dp_sp case (cfg naming TPU.SHARD_STRATEGY dp_sp, state_dict, the
+    global batch and its draws, lr; "eval": frames and portrait flags;
+    "test": clips, labels, clips a video, rows a data group a step) on this
+    rank: the train step (``rank_train_step``) with the shapes the K1 and
+    wgrad calls took; the eval step's scores on the eval frames; then
+    ``perform_test`` through the loader's shard of this rank's data index
+    (the meter's scores, clip counts and stats), with the model of the
+    case's weights."""
+    from pmv_tpu_torch.data.loader import DataLoader
+    from pmv_tpu_torch.engine.steps import make_eval_step
+    from pmv_tpu_torch.engine.test import perform_test
+    from pmv_tpu_torch.models import build_model
+    from pmv_tpu_torch.ops.depthwise import record_shapes
+    from pmv_tpu_torch.parallel import mesh
+    from pmv_tpu_torch.utils.meters import TestMeter
+
+    with record_shapes() as shapes:
+        out, _ = rank_train_step(rank, world, case, "dp_sp")
+    out["shapes"] = shapes
+    cfg = case["cfg"]
+    lay = mesh.layout(cfg)
+    model = build_model(cfg, device="cpu", dtype=torch.float32)
+    model.load_state_dict(case["state_dict"])
+    eval_step = make_eval_step(cfg, model, device="cpu")
+    rows = local_rows(case["eval"], lay.data, lay.data_size)
+    with record_shapes() as shapes:
+        out["scores"] = eval_step(rows["frames"], rows["pm"]).clone()
+    out["eval_shapes"] = shapes
+    test = case["test"]
+    loader = DataLoader(ClipDataset(test["frames"], test["labels"], test["num_clips"]),
+                        test["batch_size"], rank=lay.data, world_size=lay.data_size,
+                        num_workers=1)
+    meter = TestMeter(len(test["labels"]), test["num_clips"], cfg.MODEL.NUM_CLASSES,
+                      len(loader))
+    meter, stats = perform_test(loader, eval_step, meter, lay)
+    out["test"] = {"stats": stats, "video_preds": meter.video_preds,
+                   "clip_count": meter.clip_count, "steps": len(loader)}
+    out["layout"] = lay
+    return out
+
+
+def rank_grid_case(rank, world, case_dir):
+    """``case_dir/grid_case.pt``'s dp_sp step on this rank of a 2 x 2 grid
+    (``rank_train_step``), and the data-axis collectives: every data
+    index's rank (``distributed.gather_rows``) and the MixUp partner's
+    (``distributed.partner_rows``), on each rank; rank 0 writes them all to
+    ``case_dir/grid_results.pt``."""
+    from pathlib import Path
+
+    from pmv_tpu_torch.parallel import distributed, mesh
+
+    case_dir = Path(case_dir)
+    case = torch.load(case_dir / "grid_case.pt", weights_only=False)
+    out, _ = rank_train_step(rank, world, case, "dp_sp")
+    lay = mesh.layout(case["cfg"])
+    mine = torch.tensor([float(rank)])
+    out["layout"] = (lay.data, lay.data_size, lay.model, lay.model_size)
+    out["data_axis"] = distributed.gather_rows(mine, lay).flatten().tolist()
+    out["partner"] = float(distributed.partner_rows(mine, lay))
+    everyone = distributed.gather_host([np.array([out["layout"]]),
+                                        np.array([out["data_axis"]]),
+                                        np.array([out["partner"]])])
+    if rank == 0:
+        out["ranks"] = [a.tolist() for a in everyone]
+        torch.save(out, case_dir / "grid_results.pt")
 
 
 def rank_cases(rank, world, case_dir):
@@ -716,6 +789,13 @@ def rank_cases(rank, world, case_dir):
     # (i): AVA detection, the loss over the global count of boxes, the
     # gathered test.
     out["detection"] = rank_detection(rank, world, cases["detection"], "dp")
+
+    # (j): MViT under dp_sp, a grid of data 1 x model 2: every rank's
+    # results, gathered to rank 0.
+    sp = rank_sp_case(rank, world, cases["sp"])
+    sp_ranks = [None] * world
+    torch.distributed.all_gather_object(sp_ranks, sp)
+    out["sp"] = sp_ranks
     if rank == 0:
         torch.save(out, case_dir / "results.pt")
 
