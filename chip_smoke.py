@@ -24,7 +24,9 @@ Phases, in order; any failure raises and exits non-zero:
    at a rank's shapes under dp_sp, 4 + 2 halo planes: the rect crop's and
    their transposes at the batches phase 8e's paths give a rank (2 and 4;
    8e checks that each of its calls is at one of them), and the 224^2
-   crop's at batch 8.
+   crop's at batch 8; UniFormer-S's DPE shapes likewise, the rect crop's
+   and their transposes at batch 2 and 4 and its 224^2 test crop's at
+   batch 4 (``sp_uniformer_*``).
 3. Build full-width MViTv2-S 16x4 from a seeded init and run its eval step
    at batch 1 in float32 on the card and on the CPU (the CPU copy takes the
    plain versions); the class scores must agree, and one forward must
@@ -243,7 +245,7 @@ cycles, SubBatchNorm, the BatchNorm swap across cycles; 0 K1 launches):
    4, 16 x 16 x 224^2 sub 2, 8 x 32 x 224^2 plain), each at its short
    cycle's three batches (up to 128 clips): ms a step, clips/s, peak
    memory (a main path).
-6g. ``run_net`` on the recipe cut to 64 Synthetic videos (TRAIN.BATCH_SIZE
+6g. ``run_net`` on the recipe cut to 32 Synthetic videos (TRAIN.BATCH_SIZE
    2, BN_BASE_SIZE 2, STEPS [0, 3], MAX_EPOCH 4 before the schedule
    rewrites them: 6 epochs through sub_batchnorm of 8, 4 and 2 splits, then
    batchnorm), bf16: each epoch's shape and BatchNorm type as the schedule
@@ -304,7 +306,7 @@ is on K1, 0 launches asserted):
    bank) and colour draws: its encoder's parameter count equal to the JAX
    model's (``SSL_PARAMS``); MoCo in float32 (the gradients to
    ``grad_witness.RELU_LIMITS["Slow"]``, the readings with the CPU's ReLU
-   decisions held printed), then every yaml in float64 on 4 of the 8
+   decisions held printed), then every yaml in float64 on 2 of the 8
    frames (``SSL_FLOAT64_FRAMES``) under the 1e-4 gates: loss, grad norm,
    gradients, the weights' updates, BatchNorm statistics, the momentum
    encoder, the queue and its pointer, the bank.
@@ -339,7 +341,8 @@ Distributed (``pmv_tpu_torch/parallel/distributed.py``):
    ``train()`` with ``dp``, the gathered eval, the checkpoint written by rank
    0, the gathered test; 16 Synthetic videos), its test_final against one
    process's at twice a process's batch, then a resume (main paths, counted
-   in each rank's process); its processes run while 8d's do. 8b: a world of one over NCCL: MViTv2-S at batch 8, the ``dp``
+   in each rank's process); its processes run while 8d's do. 8b: a world
+   of one over NCCL: MViTv2-S at batch 8, the ``dp``
    and the ``fsdp`` step against the unwrapped step under phase 3b's gates
    in float32, and in bfloat16 within BF16_WRAPPER_LIMIT beside a second
    unwrapped run's reading (atomic sums make bfloat16 gradients differ from
@@ -350,7 +353,13 @@ Distributed (``pmv_tpu_torch/parallel/distributed.py``):
    rounding), MaskFeat with loader masks of unequal counts on the two ranks
    in float32, its skip max pools taking the one-process step's taps; each
    rank against the one-process step on the global batch of 4 under phase
-   3b's gates, the SSL state to 1e-5.
+   3b's gates, the SSL state to 1e-5. 8f: a world of one over NCCL, the
+   SSL steps under ``fsdp``: MoCo on Slow R50 (the momentum encoder
+   sharded as the online one, its key forwards through FSDP's gathers) and
+   MaskFeat PT (14 K1 a forward), each against the unwrapped step from the
+   same seeded init, float32 at batch 2 under phase 3b's gates with the SSL
+   state to 1e-5, bfloat16 at batch 8 within BF16_WRAPPER_LIMIT, then 3
+   timed steps of each (main paths): the wrapper's overhead in ms.
    8e: MViTv2-S 16x4 under TPU.SHARD_STRATEGY dp_sp (temporal sequence
    parallelism, ``parallel/mesh.py``), 2 ranks over gloo on the one card, a
    grid of data 1 x model 2: full width and depth, 16 frames of the PMV
@@ -363,7 +372,12 @@ Distributed (``pmv_tpu_torch/parallel/distributed.py``):
    reductions hand to all_reduce a step; then ``run_net --num_shards 2
    TPU.SHARD_STRATEGY dp_sp`` on the MViT rect recipe in float32 (16
    Synthetic videos, 4 a step) against one process under 8c's gates (logs
-   in ``build/chip_smoke_sequence_parallel_run_net/``).
+   in ``build/chip_smoke_sequence_parallel_run_net/``). Then the same for
+   UniFormer-S 16x4 (its recipe with the rect 256x192 run of
+   exps/PMV/run_Uniformer_PMV.sh: 18 K1, 18 dx and 18 wgrad a rank a step,
+   the BatchNorm statistics over both ranks' planes held to one process's;
+   its run_net tests the recipe's 224^2 crop; files in
+   ``build/chip_smoke_sequence_parallel_uniformer{,_run_net}/``).
    ``--plant-wrapper-faults`` logs 8b's readings with faults planted in
    the wrappers instead of running the phases.
 9. Print the script's wall time, the kernels line, the card line, and
@@ -371,10 +385,9 @@ Distributed (``pmv_tpu_torch/parallel/distributed.py``):
 
 FFmpeg's development files are not on the card's machine, so no phase
 decodes video there; ``run_net`` reads the Synthetic dataset (16 videos in
-the earlier slices' phases 6-7, 6u-7u, 6x-7x, 6s-7s, 6m-7m, 6c and 8c, and
-with log-mel audio in 6v,
-``synthetic_videos``; its 64 elsewhere), and 6h and 6a JPEG frames it
-writes.
+the earlier slices' phases 6-7, 6u-7u, 6x-7x, 6s-7s, 6m-7m, 6c, 8c and
+8e, and with log-mel audio in 6v; 32 in 6g, ``synthetic_videos``; its 64
+elsewhere), and 6h and 6a JPEG frames it writes.
 
 Without a CUDA device, or without the package beside it, it exits non-zero
 and prints no result.
@@ -519,7 +532,10 @@ def _kernel_cases():
     16 ("rect_b16", "portrait_b16"); a rank's under dp_sp on 4 + 2 halo
     planes, at the rect crop and transposed at the batches phase 8e's paths
     give a rank ("sp_rect_b2", "sp_portrait_b2", "sp_rect_b4",
-    "sp_portrait_b4") and at the 224^2 crop at batch 8 ("sp_square_b8"); UniFormer-S 16x4's DPE shapes on the
+    "sp_portrait_b4") and at the 224^2 crop at batch 8 ("sp_square_b8"), and
+    UniFormer-S 16x4's DPE shapes likewise ("sp_uniformer_rect_b2" ...
+    "sp_uniformer_portrait_b4"), and at its 224^2 test crop at batch 4
+    ("sp_uniformer_square_b4"); UniFormer-S 16x4's DPE shapes on the
     same grids at batch 8 and 16 ("uni_square" ... "uni_portrait_b16");
     X3D-M's channelwise-conv shapes at batch 8 ("x3d_square", "x3d_rect",
     "x3d_portrait", "x3d_test" at 256^2), ir-CSN-101's conv_b shapes at
@@ -539,6 +555,8 @@ def _kernel_cases():
         UNIFORMER_DPE_SHAPES,
         UNIFORMER_PORTRAIT_DPE_SHAPES,
         UNIFORMER_RECT_DPE_SHAPES,
+        UNIFORMER_SP_DPE_SHAPES,
+        UNIFORMER_SP_TEST_DPE_SHAPES,
         UNIFORMER_TRAIN_DPE_SHAPES,
         X3D_DW_SHAPES,
         X3D_PORTRAIT_DW_SHAPES,
@@ -557,6 +575,8 @@ def _kernel_cases():
         + [(s, n, _orientation(s) + "_b16") for s, n in MVIT_RECT_TRAIN_POOL_SHAPES]
         + [(s, n, f"sp_{_orientation(s)}_b{s[0]}")
            for s, n in MVIT_SP_POOL_SHAPES + MVIT_SP_SQUARE_POOL_SHAPES]
+        + [(s, n, f"sp_uniformer_{_orientation(s)}_b{s[0]}")
+           for s, n in UNIFORMER_SP_DPE_SHAPES + UNIFORMER_SP_TEST_DPE_SHAPES]
         + [(s, n, "uni_" + _orientation(s) + ("_b16" if s[0] == PMV_TRAIN_BATCH else ""))
            for s, n in uniformer]
         + [(s, n, "x3d_" + g) for shapes, g in (
@@ -837,7 +857,10 @@ EARLIER_RUN_NET_VIDEOS = 16
 # supervised steps' (SlowFast's 32, R(2+1)D's 16) and the contrastive
 # steps' (Slow's 8). The same gates at a fraction of the CPU's float64 time.
 FLOAT64_FRAMES = 8
-SSL_FLOAT64_FRAMES = 4
+SSL_FLOAT64_FRAMES = 2
+# 6g's Synthetic videos: the schedule visits every BatchNorm type and epoch
+# shape as on 64, each epoch in half the steps (1 to 6 of them).
+MULTIGRID_VIDEOS = 32
 
 
 def _fewer_frames(frames, t):
@@ -3110,7 +3133,7 @@ def phase_distributed_ssl():
 
 MULTIGRID_CFG = os.path.join(ROOT, "configs", "Kinetics",
                              "SLOWFAST_8x8_R50_stepwise_multigrid.yaml")
-# What a 64-video Synthetic epoch needs of the recipe: its schedule then
+# What a Synthetic epoch of 32 or 64 videos needs of the recipe: its schedule then
 # visits every BatchNorm type of the full recipe in 6 epochs (16 x 8 x 158
 # sub 8, 8 x 16 x 158 sub 4, 4 x 16 x 224 sub 2, 2 x 32 x 224 plain).
 MULTIGRID_RUN = ["TRAIN.BATCH_SIZE", "2", "MULTIGRID.BN_BASE_SIZE", "2",
@@ -3236,7 +3259,7 @@ def phase_multigrid_shapes(card):
 
 
 def multigrid_argv(out_dir, profile_dir=None):
-    """run_net's arguments for the 64-video schedule on Synthetic, a 2-view
+    """run_net's arguments for the schedule on Synthetic, a 2-view
     test of 8 clips a batch; with TPU.PROFILE_DIR when ``profile_dir``."""
     argv = ["--cfg", MULTIGRID_CFG, "--opts", *MULTIGRID_RUN, "NUM_GPUS", "1",
             "TRAIN.DATASET", "synthetic", "TEST.DATASET", "synthetic",
@@ -3323,8 +3346,8 @@ def check_multigrid_restore(argv, path):
 
 
 def phase_multigrid_run_net(card, out_dir, resume_dir, profile_dir):
-    """6g: ``run_net`` on the 64-video schedule (one process, bf16,
-    Synthetic, precise BN after every epoch, the evaluations of
+    """6g: ``run_net`` on the schedule over ``MULTIGRID_VIDEOS`` Synthetic
+    videos (one process, bf16, precise BN after every epoch, the evaluations of
     ``is_eval_epoch``, a 2-view test), with the profiler window (6p) on:
     each epoch's batch, frames, crop and BatchNorm type as the schedule
     gives them, the precise-BN line each epoch, test_final; the restore of
@@ -3973,66 +3996,84 @@ def _sp_rank(rank, world, port, work_dir, result_q):
         raise
 
 
-def _sp_extents(phase, shapes, t_ext, train, steps=1):
-    """Raise unless ``shapes`` (``record_shapes``) hold MViT's 17 K1 calls
-    of a forward, and in a train step 17 dx calls after them and 17 weight
-    gradients (each ``steps`` times), every one on ``t_ext`` planes and at
-    a shape that the kernel phases hold against the plain versions
-    (``MVIT_SP_POOL_SHAPES``)."""
-    from pmv_tpu_torch.ops.depthwise import MVIT_SP_POOL_SHAPES
+def _sp_model(recipe):
+    """Phase 8e's model of ``recipe`` ("mvit", "uniformer"): (its cfg under
+    dp_sp on the PMV rect crop with SWITCH_AUTO, K1 launches a forward, the
+    shapes at which the kernel phases hold K1 and wgrad for its dp_sp
+    paths)."""
+    from pmv_tpu_torch.ops import depthwise as dw
 
+    if recipe == "mvit":
+        cfg, per_forward, held = _train_cfg(), MVIT_K1, dw.MVIT_SP_POOL_SHAPES
+    else:
+        cfg, per_forward = uniformer_cfg(), UNIFORMER_K1
+        held = dw.UNIFORMER_SP_DPE_SHAPES + dw.UNIFORMER_SP_TEST_DPE_SHAPES
+    cfg.DATA.TRAIN_CROP_SIZE_RECT = list(PMV_RECT)
+    cfg.DATA.TRAIN_CROP_SIZE_RECT_SWITCH_AUTO = True
+    cfg.TPU.SHARD_STRATEGY = "dp_sp"
+    return cfg, per_forward, {s for s, _ in held}
+
+
+def _sp_extents(phase, shapes, t_ext, train, per_forward, held, steps=1):
+    """Raise unless ``shapes`` (``record_shapes``) hold the model's
+    ``per_forward`` K1 calls of a forward, and in a train step as many dx
+    calls after them and weight gradients (each ``steps`` times), every one
+    on ``t_ext`` planes and at a shape of ``held``, at which the kernel
+    phases hold them against the plain versions."""
     kinds = [kind for kind, _ in shapes]
     counts = [kinds.count(kind) for kind in ("fwd", "dx", "wgrad")]
-    want = [steps * MVIT_K1] * 3 if train else [MVIT_K1, 0, 0]
+    want = [steps * per_forward] * 3 if train else [per_forward, 0, 0]
     extents = sorted({shape[1] for _, shape in shapes})
     if counts != want or extents != [t_ext]:
         raise AssertionError(f"{phase}: K1 forward, dx and wgrad calls {counts} on T "
                              f"{extents}, not {want} on T [{t_ext}]")
     seen = sorted({shape for _, shape in shapes})
-    outside = sorted(set(seen) - {s for s, _ in MVIT_SP_POOL_SHAPES})
+    outside = sorted(set(seen) - held)
     if outside:
         raise AssertionError(f"{phase}: K1 and wgrad calls at {outside}, which the kernel "
                              "phases do not hold against the plain versions")
     return {"k1_forward_dx_wgrad": counts, "t_extent": t_ext, "shapes": seen}
 
 
-def phase_sequence_parallel(card):
-    """Phase 8e: MViTv2-S 16x4 under TPU.SHARD_STRATEGY dp_sp, two ranks over
-    gloo sharing the one card, a grid of data 1 x model 2: full width and
-    depth, 16 frames of the PMV rect crop (SWITCH_AUTO, landscape rows),
-    the bench recipe (RandAugment, erasing, MixUp, DropPath), float32, a
-    global batch of ``SP_BATCH`` that both ranks hold, each rank half of its
-    8 token planes. Each rank's eval scores against the one process's on
-    the card within ``SP_EVAL_ATOL``, its train step against the one
-    process's on the global batch under phase 3b's gates; each rank's 17
-    K1, 17 dx and 17 wgrad calls a train step (17 K1 an eval) on 4 + 2 halo
-    planes; then each rank's bf16 step, timed, beside the one process's,
-    with the bytes its halos and K/V gathers hand to all_reduce. Then
-    ``run_net --num_shards 2 TPU.SHARD_STRATEGY dp_sp`` on 16 Synthetic
-    videos against one process, under phase 8c's gates. Every K1 and wgrad
-    call of these paths must be at a shape of ``MVIT_SP_POOL_SHAPES``,
-    which the kernel phases hold against the plain versions. Returns the
-    ranks' launches of both main paths."""
+def phase_sequence_parallel(card, recipe="mvit"):
+    """Phase 8e: ``recipe``'s model (MViTv2-S 16x4, UniFormer-S 16x4) under
+    TPU.SHARD_STRATEGY dp_sp, two ranks over gloo sharing the one card, a
+    grid of data 1 x model 2: full width and depth, 16 frames of the PMV
+    rect crop (SWITCH_AUTO, landscape rows), the model's train recipe
+    (RandAugment, erasing, MixUp, DropPath; UniFormer's BatchNorm statistics
+    over both ranks' planes), float32, a global batch of ``SP_BATCH`` that
+    both ranks hold, each rank half of its 8 token planes. Each rank's eval
+    scores against the one process's on the card within ``SP_EVAL_ATOL``,
+    its train step (and running statistics) against the one process's on
+    the global batch under phase 3b's gates; each rank's K1, dx and wgrad
+    calls a train step (MViT 17 each, UniFormer 18; as many K1 an eval) on
+    4 + 2 halo planes; then each rank's bf16 step, timed, beside the one
+    process's, with the bytes its halos and K/V gathers hand to all_reduce.
+    Then ``run_net --num_shards 2 TPU.SHARD_STRATEGY dp_sp`` on 16
+    Synthetic videos against one process, under phase 8c's gates. Every K1
+    and wgrad call of these paths must be at a shape of the model's dp_sp
+    grid (``_sp_model``), which the kernel phases hold against the plain
+    versions. Returns the ranks' launches of both main paths."""
     import multiprocessing
 
     from pmv_tpu_torch.engine.steps import init_state, make_eval_step, make_train_step
     from pmv_tpu_torch.models import build_model
-    from pmv_tpu_torch.ops.depthwise import MVIT_SP_POOL_SHAPES
 
-    cfg = _train_cfg()
-    cfg.DATA.TRAIN_CROP_SIZE_RECT = list(PMV_RECT)
-    cfg.DATA.TRAIN_CROP_SIZE_RECT_SWITCH_AUTO = True
-    cfg.TPU.SHARD_STRATEGY = "dp_sp"
+    cfg, per_forward, held = _sp_model(recipe)
     world = 2
     rng = np.random.default_rng(15)
     clip = (SP_BATCH, cfg.DATA.NUM_FRAMES, *PMV_RECT, 3)
     batch = {"frames": rng.integers(0, 256, clip, np.uint8),
              "labels": rng.integers(0, cfg.MODEL.NUM_CLASSES, SP_BATCH)}
     eval_frames = rng.integers(0, 256, clip, np.uint8)
-    work_dir = os.path.join("build", "chip_smoke_sequence_parallel")
+    suffix = "" if recipe == "mvit" else f"_{recipe}"
+    work_dir = os.path.join("build", f"chip_smoke_sequence_parallel{suffix}")
     shutil.rmtree(work_dir, ignore_errors=True)
     os.makedirs(work_dir)
     model = seeded_model(cfg, "cuda", torch.float32)
+    # A rank's token planes after the patch embed's T stride, and 2 halo planes.
+    embed = model.patch_embed if recipe == "mvit" else model.patch_embed1
+    t_ext = cfg.DATA.NUM_FRAMES // embed.proj.stride[0] // world + 2
     state_dict = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
     torch.save({"cfg": cfg, "state_dict": state_dict, "batch": batch,
                 "eval_frames": eval_frames}, os.path.join(work_dir, "case.pt"))
@@ -4079,16 +4120,16 @@ def phase_sequence_parallel(card):
         raise AssertionError("a phase 8e rank failed:\n" + "\n".join(failed))
     ranks = [torch.load(os.path.join(work_dir, f"rank{r}.pt"), weights_only=False)
              for r in range(world)]
-    t_ext = cfg.DATA.NUM_FRAMES // cfg.MVIT.PATCH_STRIDE[0] // world + 2
     for r in ranks:
-        phase = f"sequence_parallel_dp_sp_rank{r['rank']}"
+        phase = f"sequence_parallel{suffix}_dp_sp_rank{r['rank']}"
         eval_err = float((r["scores"] - scores).abs().max())
-        extents = _sp_extents(phase, r["shapes"], t_ext, train=True)
-        _sp_extents(phase + "_eval", r["eval_shapes"], t_ext, train=False)
-        _sp_extents(phase + "_timed", r["timed_shapes"], t_ext, train=True,
+        extents = _sp_extents(phase, r["shapes"], t_ext, True, per_forward, held)
+        _sp_extents(phase + "_eval", r["eval_shapes"], t_ext, False, per_forward, held)
+        _sp_extents(phase + "_timed", r["timed_shapes"], t_ext, True, per_forward, held,
                     steps=SP_TIMED_STEPS)
         _held_to_step(f"{phase}_vs_one_process", (r["metrics"], r["grads"], r["state"]), ref,
-                      TRAIN_LR, n_params, card=card, layout=r["layout"],
+                      TRAIN_LR, n_params, model=cfg.MODEL.MODEL_NAME, card=card,
+                      layout=r["layout"],
                       global_batch=SP_BATCH, frames=cfg.DATA.NUM_FRAMES,
                       crop=list(PMV_RECT), eval_max_abs_err=eval_err, **extents,
                       step_launches=r["step_launches"], eval_launches=r["eval_launches"],
@@ -4100,18 +4141,18 @@ def phase_sequence_parallel(card):
             raise AssertionError(f"{phase}: eval scores differ by {eval_err}")
         if r["layout"] != [0, 1, r["rank"], 2]:
             raise AssertionError(f"{phase}: layout {r['layout']}")
-        if r["step_launches"] != step_launches(MVIT_K1) or r["eval_launches"] != eval_launches(
-                MVIT_K1):
+        if (r["step_launches"] != step_launches(per_forward)
+                or r["eval_launches"] != eval_launches(per_forward)):
             raise AssertionError(f"{phase}: launched {r['step_launches']} a step, "
                                  f"{r['eval_launches']} an eval")
-        timed = {k: v * SP_TIMED_STEPS for k, v in step_launches(MVIT_K1).items()}
+        timed = {k: v * SP_TIMED_STEPS for k, v in step_launches(per_forward).items()}
         if r["launches"] != timed:
             raise AssertionError(f"{phase}: the timed steps launched {r['launches']}, not {timed}")
     launches = {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
     run_net_paths = _run_net_against_one(
-        card, "mvit", "chip_smoke_sequence_parallel_run_net", "sequence_parallel_run_net",
-        batch=2, extra=("TPU.SHARD_STRATEGY", "dp_sp"),
-        held={s for s, _ in MVIT_SP_POOL_SHAPES})
+        card, recipe, f"chip_smoke_sequence_parallel{suffix}_run_net",
+        f"sequence_parallel{suffix}_run_net", batch=2, extra=("TPU.SHARD_STRATEGY", "dp_sp"),
+        held=held)
     return [launches] + run_net_paths
 
 
@@ -4161,26 +4202,30 @@ def _plant(model, wrapped, fault):
                 m.set_gradient_divide_factor(0.5)
 
 
-def _wrapped_steps(cfg, strategy, batch, device, timed, fault=None):
-    """From the seeded init, one train step of MViTv2-S under ``strategy``
-    ("dp", "fsdp"; else unwrapped), with ``fault`` planted in the wrapper
-    when given, then ``timed`` more (a main path: launch counts zeroed just
-    before them, read just after). Returns (metrics, gradients, state) after
-    the first, the timed steps' ms a step and launches, and the count of
-    weights."""
+def _wrapped_steps(cfg, strategy, batch, device, timed, fault=None, lr=TRAIN_LR):
+    """From the seeded init (``seeded_model``), one train step of ``cfg``'s
+    model (MViTv2-S; or an SSL model, through its step) at ``lr`` under
+    ``strategy`` ("dp", "fsdp"; else unwrapped), with ``fault`` planted in
+    the wrapper when given, then ``timed`` more (a main path: launch counts
+    zeroed just before them, read just after). Returns (metrics, gradients,
+    state) after the first, the timed steps' ms a step and launches, and
+    the count of weights."""
+    from pmv_tpu_torch.engine import ssl_steps
     from pmv_tpu_torch.engine.steps import init_state, make_train_step
-    from pmv_tpu_torch.models import build_model
     from pmv_tpu_torch.parallel import distributed
 
-    model = build_model(cfg, device=device, seed=0)
+    model = seeded_model(cfg, device)
     wrapped = None
     if strategy in ("dp", "fsdp"):
         with _fsdp_policy(fault):
             wrapped = distributed.wrap_model(model, strategy, device)
         _plant(model, wrapped, fault)
     state = init_state(cfg, model, wrapped=wrapped)
-    step = make_train_step(cfg, device=device, seed=0)
-    metrics = {k: v.cpu() for k, v in step(state, batch, TRAIN_LR).items()}
+    make = {"MaskMViT": ssl_steps.make_masked_train_step,
+            "ContrastiveModel": ssl_steps.make_ssl_train_step}.get(cfg.MODEL.MODEL_NAME,
+                                                                   make_train_step)
+    step = make(cfg, device=device, seed=0)
+    metrics = {k: v.cpu() for k, v in step(state, batch, lr).items()}
     first = (metrics,
              {k: distributed.full(p.grad).detach().float().cpu()
               for k, p in model.named_parameters()},
@@ -4190,7 +4235,7 @@ def _wrapped_steps(cfg, strategy, batch, device, timed, fault=None):
     _zero_launch_counts()  # the main path starts here
     t0 = time.perf_counter()
     for _ in range(timed):
-        step(state, batch, TRAIN_LR)
+        step(state, batch, lr)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) / max(timed, 1) * 1e3
     launches = _launch_counts()  # ... and ends here
@@ -4269,6 +4314,76 @@ def phase_distributed_nccl(card):
     return [timed["dp"][2], timed["fsdp"][2]]
 
 
+SSL_FSDP_TIMED_STEPS = 3  # phase 8f's timed bf16 steps of each SSL model and wrapper
+SSL_FSDP_F32_BATCH = 2  # videos (MoCo: of two views) in 8f's float32 steps
+
+
+def phase_ssl_fsdp_nccl(card):
+    """Phase 8f: the SSL steps under ``fsdp`` at a world of one over NCCL
+    (cuDNN deterministic), as phase 8b holds the supervised step: MoCo on
+    Slow R50 (the momentum encoder sharded as the online one, its key
+    forwards through FSDP's gathers, the EMA on the shards) and MaskFeat PT
+    (MaskMViT's blocks and decoder sharded, 14 K1 a forward), each at full
+    width from the seeded init: the fsdp step against the unwrapped one in
+    float32 at ``SSL_FSDP_F32_BATCH`` under phase 3b's gates (``_held_to_step``),
+    the SSL state (momentum encoder, queue, bank) to 1e-5; then bfloat16 at
+    batch 8, the gradients within BF16_WRAPPER_LIMIT (beside a second
+    unwrapped run's reading) and ``SSL_FSDP_TIMED_STEPS`` timed steps of each
+    (a main path): ms a step and the wrapper's overhead. NCCL cannot place
+    two ranks on one card; FSDP2's reduce-scatter and all-gather of CUDA
+    tensors have no gloo route, so the 2-rank fsdp equality is held on the
+    CPU (tests/test_torch_port_distributed.py). Returns the fsdp timed
+    steps' launches."""
+    moco, maskfeat = ssl_cfg("moco"), maskfeat_cfg()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    cases = (
+        ("moco", moco, SLOW_K1, lambda cfg, b: _ssl_device_batch(cfg, b, 13)),
+        ("maskfeat", maskfeat, MASKFEAT_K1, lambda cfg, b: {"frames": torch.randint(
+            0, 256, (b, *_maskfeat_clip(cfg)), dtype=torch.uint8, device="cuda",
+            generator=gen)}),
+    )
+    paths = []
+    with _nccl_world_of_one() as (_, _, _, device):
+        for name, cfg, per_forward, batch_of in cases:
+            f32 = cfg.clone()
+            f32.TRAIN.MIXED_PRECISION = False
+            lr = cfg.SOLVER.BASE_LR
+            small = batch_of(f32, SSL_FSDP_F32_BATCH)
+            exact = {s: _wrapped_steps(f32, s, small, device, 0, lr=lr) for s in (None, "fsdp")}
+            big = batch_of(cfg, SSL_BATCH if name == "moco" else MASKFEAT_BATCH)
+            timed = {s: _wrapped_steps(cfg, s, big, device, SSL_FSDP_TIMED_STEPS, lr=lr)
+                     for s in (None, "again", "fsdp")}
+            (_, _, got_state), (_, _, want_state) = exact["fsdp"][0], exact[None][0]
+            ssl = [k for k in want_state if k.split(".")[0] in ("momentum", "queue", "bank")]
+            ssl_err = max((float((got_state[k].float() - want_state[k].float()).abs().max())
+                           for k in ssl), default=0.0)
+            _held_to_step(f"ssl_fsdp_nccl_world1_{name}_vs_unwrapped_f32", exact["fsdp"][0],
+                          exact[None][0], lr, exact[None][3],
+                          model=cfg.MODEL.MODEL_NAME, card=card, batch=SSL_FSDP_F32_BATCH,
+                          ssl_state_max_abs_err=ssl_err, ssl_tensors=len(ssl))
+            if ssl_err > 1e-5 or (name == "moco" and not ssl):
+                raise AssertionError(f"8f {name}: the SSL state ({len(ssl)} tensors) differs "
+                                     f"by {ssl_err}")
+            plain_ms = timed[None][1]
+            expected = {k: v * SSL_FSDP_TIMED_STEPS
+                        for k, v in step_launches(per_forward).items()}
+            for strategy in ("again", "fsdp"):
+                first, ms, launches, _ = timed[strategy]
+                rec = _step_readings(f"ssl_fsdp_nccl_world1_{name}_{strategy}_vs_unwrapped_bf16",
+                                     first, timed[None][0], model=cfg.MODEL.MODEL_NAME,
+                                     card=card, batch=len(big["frames"]), ms_per_step=ms,
+                                     unwrapped_ms_per_step=plain_ms, overhead_ms=ms - plain_ms,
+                                     launches=launches, limit=BF16_WRAPPER_LIMIT)
+                if strategy == "fsdp" and rec["grad_rel_err"] > BF16_WRAPPER_LIMIT:
+                    raise AssertionError(f"8f {name}: bfloat16 gradients differ by "
+                                         f"{rec['grad_rel_err']} (relative L2)")
+                if launches != expected:
+                    raise AssertionError(f"8f {name} {strategy}: {launches} launches, not "
+                                         f"{expected}")
+            paths.append(timed["fsdp"][2])
+    return paths
+
+
 def plant_wrapper_faults(card):
     """``--plant-wrapper-faults``: phase 8b's first step in float32 and in
     bfloat16, the sound wrappers and each planted fault of WRAPPER_FAULTS
@@ -4293,7 +4408,7 @@ def plant_wrapper_faults(card):
 
 def kernels_line(records, launches, slowfast_launches, maskfeat_launches,
                  contrastive_launches, multigrid_launches, csn_launches, avslowfast_launches,
-                 ava_launches, sp_launches):
+                 ava_launches, sp_launches, sp_uniformer_launches, ssl_fsdp_launches):
     """One entry per kernel: times summed over the launches at the 224^2
     crop's shapes in bfloat16 at batch 8; K1 over one MViTv2-S forward (17
     launches, as many again for dx in a train step), the wgrad kernel over
@@ -4321,11 +4436,15 @@ def kernels_line(records, launches, slowfast_launches, maskfeat_launches,
     bf16); "launches_avslowfast" the AVSlowFast paths' (phases 4v-6v, 0: its
     convs are dense or 2-D); "launches_ava" the AVA detection paths'
     (phases 4a-6a, 0: SlowFast's and Slow's convs are dense);
-    "launches_dp_sp" the dp_sp paths' (phase 8e, both ranks), and "dp_sp"
-    the sums over a rank's 17 launches under dp_sp (4 + 2 halo planes of
-    the 8), bf16, per grid: the rect crop's and its transposes at batch 2
-    (8e's train step) and 4 (8e's run_net), and the 224^2 crop's at batch
-    8."""
+    "launches_dp_sp" MViT's dp_sp paths' (phase 8e, both ranks),
+    "launches_dp_sp_uniformer" UniFormer's (18 K1 a forward, 18 wgrad a
+    step), and "dp_sp" the sums over a rank's 17 launches under dp_sp (4 +
+    2 halo planes of the 8), bf16, per grid: the rect crop's and its
+    transposes at batch 2 (8e's train step) and 4 (8e's run_net), and the
+    224^2 crop's at batch 8; then over UniFormer's 18 ("uniformer_*": the
+    rect crop's and its transposes at batch 2 and 4, the 224^2 test crop's
+    at batch 4); "launches_ssl_fsdp" the SSL steps' under fsdp (phase 8f:
+    MoCo 0, MaskFeat 14 a forward)."""
     maskfeat = maskfeat_kernel_ms(records)
 
     def entry(name, source, replaces, recs, basis):
@@ -4348,6 +4467,8 @@ def kernels_line(records, launches, slowfast_launches, maskfeat_launches,
             "launches_avslowfast": avslowfast_launches[name],
             "launches_ava": ava_launches[name],
             "launches_dp_sp": sp_launches[name],
+            "launches_dp_sp_uniformer": sp_uniformer_launches[name],
+            "launches_ssl_fsdp": ssl_fsdp_launches[name],
             "launches_maskfeat": maskfeat_launches[name],
             "launches_contrastive": {k: v[name] for k, v in contrastive_launches.items()},
             "launches_multigrid": multigrid_launches[name],
@@ -4369,7 +4490,9 @@ def kernels_line(records, launches, slowfast_launches, maskfeat_launches,
             "dp_sp": {
                 g: {key: summed(key, grid("sp_" + g)) for key in (
                     "kernel_ms", "kernel_warm_ms", "plain_ms", "bound_ms", "library_ms")}
-                for g in ("rect_b2", "portrait_b2", "rect_b4", "portrait_b4", "square_b8")
+                for g in ("rect_b2", "portrait_b2", "rect_b4", "portrait_b4", "square_b8",
+                          "uniformer_rect_b2", "uniformer_portrait_b2", "uniformer_rect_b4",
+                          "uniformer_portrait_b4", "uniformer_square_b4")
             },
             # The rect grids at run_net's train batch of 16.
             "rect_b16_ms": summed("kernel_ms", grid("rect_b16")),
@@ -4598,7 +4721,8 @@ def main():
         "run_net_multigrid", "run_net_multigrid_resumed", "profile", "benchmark")]
     for d in dirs:
         shutil.rmtree(d, ignore_errors=True)
-    multigrid_paths += phase_multigrid_run_net(card, *dirs[:3])
+    with synthetic_videos(MULTIGRID_VIDEOS):
+        multigrid_paths += phase_multigrid_run_net(card, *dirs[:3])
     paths += multigrid_paths
     phase_data_benchmark(dirs[3])
     walls["main_paths_multigrid"] = time.perf_counter() - tic
@@ -4649,13 +4773,19 @@ def main():
         ssl_dist_launches = timed("distributed_8d", phase_distributed_ssl)
         paths += run_net_8c.result()
     paths += timed("distributed_8b", phase_distributed_nccl, card)
+    ssl_fsdp_paths = timed("ssl_fsdp_8f", phase_ssl_fsdp_nccl, card)
+    paths += ssl_fsdp_paths
     sp_paths = timed("sequence_parallel_8e", phase_sequence_parallel, card)
-    paths += sp_paths
+    sp_uniformer_paths = timed("sequence_parallel_8e_uniformer", phase_sequence_parallel, card,
+                               "uniformer")
+    paths += sp_paths + sp_uniformer_paths
     launches = {k: sum(p[k] for p in paths) for k in paths[0]}
     slowfast_launches = {k: sum(p[k] for p in slowfast_paths) for k in paths[0]}
     avslowfast_launches = {k: sum(p[k] for p in avslowfast_paths) for k in paths[0]}
     ava_launches = {k: sum(p[k] for p in ava_paths) for k in paths[0]}
     sp_launches = {k: sum(p[k] for p in sp_paths) for k in paths[0]}
+    sp_uniformer_launches = {k: sum(p[k] for p in sp_uniformer_paths) for k in paths[0]}
+    ssl_fsdp_launches = {k: sum(p[k] for p in ssl_fsdp_paths) for k in paths[0]}
     maskfeat_launches = {k: sum(p[k] for p in maskfeat_paths) for k in paths[0]}
     multigrid_launches = {k: sum(p[k] for p in multigrid_paths) for k in paths[0]}
     csn_launches = {k: sum(p[k] for p in csn_paths) for k in paths[0]}
@@ -4667,7 +4797,8 @@ def main():
     log(json.dumps({"phase": "total", "wall_s": time.perf_counter() - t_start}))
     line = kernels_line(records, launches, slowfast_launches, maskfeat_launches,
                         contrastive_launches, multigrid_launches, csn_launches,
-                        avslowfast_launches, ava_launches, sp_launches)
+                        avslowfast_launches, ava_launches, sp_launches,
+                        sp_uniformer_launches, ssl_fsdp_launches)
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": card, "records": records, **line}, f, indent=1)

@@ -32,7 +32,11 @@ In a multi-process job each rank runs its rows of the global batches: the
 BatchNorms take the global batch statistics (``models/batchnorm.py``), and
 the masks are drawn at the global batch's shape, each rank taking its rows,
 so the statistics are those of the JAX package's pass over the global
-batches.
+batches. Under dp_sp (``parallel/mesh.py``) the rows are those of the
+rank's data index, and each rank runs its frames of them inside
+``mesh.sequence_parallel``, as the train step does: every rank's
+(rows, planes) are its own, so the statistics are again the global
+batch's.
 """
 
 from itertools import islice
@@ -41,8 +45,9 @@ import torch
 
 from pmv_tpu_torch.engine import steps
 from pmv_tpu_torch.models.batchnorm import frozen_stats, recorded_stats
+from pmv_tpu_torch.parallel import mesh
 from pmv_tpu_torch.utils import logging as pmv_logging
-from pmv_tpu_torch.utils.device import rank_and_world_size, resolve_device
+from pmv_tpu_torch.utils.device import resolve_device
 
 logger = pmv_logging.get_logger(__name__)
 
@@ -67,11 +72,12 @@ def calculate_and_update_precise_bn(loader, state, cfg, device=None):
         was_training = model.training
         model.train()
         count = 0
-        rank, world = rank_and_world_size()
-        with frozen_stats(model):
+        lay = mesh.layout(cfg)
+        rank, world = lay.data, lay.data_size
+        with frozen_stats(model), mesh.sequence_parallel(lay):
             for batch in islice(loader, num_batches):
                 frames = torch.as_tensor(batch["frames"]).to(device, non_blocking=True)
-                x = steps.model_input(cfg, preprocess(frames),
+                x = steps.model_input(cfg, steps.local_frames(preprocess(frames), lay),
                                       steps.audio_of(batch, "audio", device))
                 b = frames.shape[0]
                 # The global batch's masks, this rank's rows of them.

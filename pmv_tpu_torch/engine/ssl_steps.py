@@ -50,18 +50,24 @@ step's may also carry "hog_bins": HOG's orientation bins to hold
 on one side's bins; the contrastive step's are {"view1": ..., "view2": ...},
 each a dict of the preprocessing's draws.
 
-In a multi-process job (TPU.SHARD_STRATEGY "dp"; the state's ``wrapped``
-is the model under DDP) a rank's step gives the JAX step's numbers on the
-global batch, of which rank r holds rows [r b, (r + 1) b): the draws are
-made at the global batch's shape and each rank takes its rows; DDP
-averages the gradients. SimCLR takes its logits of the local rows against
+In a multi-process job (TPU.SHARD_STRATEGY "dp" or "fsdp"; the state's
+``wrapped`` is the model under DDP, or sharded by FSDP2) a rank's step
+gives the JAX step's numbers on the global batch, of which rank r holds
+rows [r b, (r + 1) b): the draws are made at the global batch's shape and
+each rank takes its rows; DDP or FSDP averages the gradients (SwAV's
+prototypes, whole on every rank under FSDP as in the JAX package's
+``param_sharding``, by an all-reduce of their own). Under FSDP the
+momentum encoder's tensors are sharded as their online parameters, so the
+EMA is a local update, and its key forward gathers them block by block as
+FSDP gathers the online encoder's (``ContrastiveModel.encode_momentum``);
+the grad norm and LARS's trust ratios sum over every shard
+(``models/optimizer.py``). SimCLR takes its logits of the local rows against
 every rank's z of both views, gathered with their gradient (the gather's
 backward sums over the ranks); Sinkhorn's sums over the batch, its total
 and its B are the global batch's; the queue takes every rank's keys and the
 bank every rank's (index, z1), in rank order, so that they stay the same
 on every rank; MaskFeat's loss divides by the global count of masked
-tokens. The loss reported is the global batch's. FSDP with an SSL model is
-not ported (``engine/ssl_train.py``).
+tokens. The loss reported is the global batch's.
 """
 
 import torch
@@ -236,6 +242,7 @@ def make_ssl_train_step(cfg, device=None, seed=0):
             loss, z1 = state.wrapped(losses, *args)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        distributed.average_replicated_grads(state.wrapped)  # FSDP's whole prototypes
         grad_norm = _grad_norm(model)
         optim.set_lr(optimizer, lr)
         optimizer.step(grad_norm=grad_norm)

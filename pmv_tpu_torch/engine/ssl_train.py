@@ -28,10 +28,12 @@ initialises from that batch, which fails on a loader of multi-clip views
 
 The JAX loop reads no ``pm`` flag: a portrait row runs as it comes, and so
 here. In a multi-process job (NUM_GPUS x NUM_SHARDS > 1) both SSL models
-train under TPU.SHARD_STRATEGY "dp" (``engine/ssl_steps.py``): each rank
-its rows of the global batch, the kNN monitor's hits and counts summed over
-the ranks. "fsdp" with an SSL model is not ported and raises
-NotImplementedError.
+train under TPU.SHARD_STRATEGY "dp" or "fsdp" (``engine/ssl_steps.py``;
+``distributed.wrap_model`` as ``engine/train.py`` calls it): each rank its
+rows of the global batch, the kNN monitor's hits and counts summed over the
+ranks, every rank running as many feature forwards as the longest shard
+(``distributed.lockstep``: FSDP gathers in each). "dp_sp" with an SSL model
+is not ported and raises NotImplementedError.
 """
 
 import pprint
@@ -58,11 +60,11 @@ SSL_MODELS = ("ContrastiveModel", "MaskMViT")
 
 def refuse_unported_ssl(cfg):
     """Raise for the SSL runs the port does not have: any SSL model over
-    more than one process under a strategy other than "dp"."""
-    if distributed.world_size_of(cfg) > 1 and cfg.TPU.SHARD_STRATEGY != "dp":
+    more than one process under "dp_sp"."""
+    if distributed.world_size_of(cfg) > 1 and cfg.TPU.SHARD_STRATEGY == "dp_sp":
         raise NotImplementedError(
-            f"SSL training under TPU.SHARD_STRATEGY {cfg.TPU.SHARD_STRATEGY} is not "
-            "ported (queued in ROADMAP.md): use dp, or NUM_GPUS 1"
+            "SSL training under TPU.SHARD_STRATEGY dp_sp is not ported (queued in "
+            "ROADMAP.md): use dp or fsdp, or NUM_GPUS 1"
         )
 
 
@@ -83,9 +85,11 @@ def make_knn_eval(cfg, model, train_loader, device):
         hits = torch.zeros((), dtype=torch.int64, device=device)
         seen = torch.zeros((), dtype=torch.int64, device=device)
         k = min(200, model.bank.shape[0])
-        for batch in val_loader:
-            scores = cm.knn_predict(model.bank, bank_labels, feature_step(batch["frames"]),
-                                    cfg.MODEL.NUM_CLASSES, k=k)
+        for batch, real in distributed.lockstep(val_loader):  # FSDP's gathers
+            feats = feature_step(batch["frames"])
+            if not real:
+                continue
+            scores = cm.knn_predict(model.bank, bank_labels, feats, cfg.MODEL.NUM_CLASSES, k=k)
             target = torch.as_tensor(batch["labels"], device=device)
             hits += (scores.argmax(dim=-1) == target).sum()
             seen += target.shape[0]

@@ -16,7 +16,11 @@ module, so that the ``.pyth`` checkpoint and auto-resume carry all of it:
   that DDP takes none of them for its own. It has no BatchNorm statistics:
   ``encode_momentum`` runs the module with these tensors in place of its
   parameters, in eval mode, on the statistics it is given (the online
-  encoder's from before the step, `ssl_steps.py:193-195, 244-248`);
+  encoder's from before the step, `ssl_steps.py:193-195, 244-248`). Under
+  FSDP each is sharded as its online parameter (``sharded_buffers``), as
+  the JAX package's ``param_sharding`` lays out the whole state: the EMA is
+  a local update, and the key forward is FSDP's own, gathering the
+  momentum weights block by block (``distributed.swapped``);
 - ``queue`` [QUEUE_LEN, DIM] and ``queue_ptr`` (MoCo), ``bank`` [LENGTH,
   DIM] (TYPE "mem", or CONTRASTIVE.KNN_ON): buffers.
 
@@ -36,6 +40,7 @@ from torch import nn
 
 from pmv_tpu_torch.models.build import MODEL_REGISTRY
 from pmv_tpu_torch.models.common import Linear, init_flax_defaults, init_weights
+from pmv_tpu_torch.parallel import distributed
 
 MOMENTUM_TYPES = ("moco", "byol")
 
@@ -147,7 +152,21 @@ class ContrastiveModel(nn.Module):
 
     def momentum_tensors(self):
         """The momentum encoder's tensors, in ``encoder_parameters``'s order."""
-        return [self.momentum.get_buffer(n) for n, _ in self.encoder_parameters()]
+        return [self.get_buffer(n) for n, _ in self.sharded_buffers()]
+
+    def replicated_parameters(self):
+        """The parameters that stay whole on every rank under FSDP
+        (``distributed.wrap_model``): SwAV's prototypes, which the loss reads
+        outside the forward."""
+        return [self.prototypes] if hasattr(self, "prototypes") else []
+
+    def sharded_buffers(self):
+        """(buffer name, parameter): each momentum tensor beside its online
+        parameter, which it is laid out as under FSDP
+        (``distributed.wrap_model``). The queue and the bank stay whole."""
+        if not hasattr(self, "momentum"):
+            return []
+        return [("momentum." + n, p) for n, p in self.encoder_parameters()]
 
     def encoder_statistics(self):
         """{name: a copy} of the encoder's BatchNorm running statistics."""
@@ -185,14 +204,19 @@ class ContrastiveModel(nn.Module):
     def encode_momentum(self, x, statistics):
         """The momentum encoder on x: eval mode, the BatchNorm running
         ``statistics`` given ({name: tensor}, ``encoder_statistics``), no
-        gradient."""
-        tensors = dict(zip((n for n, _ in self.encoder_parameters()), self.momentum_tensors()))
-        tensors.update(statistics)
+        gradient. The encoder's parameters and statistics hold the momentum
+        tensors and ``statistics`` for the forward (``distributed.swapped``:
+        under FSDP each block gathers its momentum weights as it gathers its
+        online ones). A step calls it before the online forward and after
+        the optimizer's, never while a graph holds the parameters."""
+        tensors = [p for _, p in self.encoder_parameters()]
+        tensors += [self.get_buffer(n) for n in statistics]
+        values = self.momentum_tensors() + list(statistics.values())
         training = self.training
         self.eval()
         try:
-            with torch.no_grad():
-                return torch.func.functional_call(self, tensors, (x,))
+            with torch.no_grad(), distributed.swapped(self, tensors, values):
+                return self(x)
         finally:
             self.train(training)
 
@@ -287,9 +311,12 @@ def mem_bank_loss(q, bank, indices, temperature):
 
 @torch.no_grad()
 def ema_update(online, momentum_tensors, momentum):
-    """m <- m * momentum + o * (1 - momentum), in place (`:176-180`)."""
+    """m <- m * momentum + o * (1 - momentum), in place (`:176-180`); on each
+    rank's shards where the tensors are sharded alike (no collective)."""
+    online = [distributed.local(t) for t in online]
+    momentum_tensors = [distributed.local(t) for t in momentum_tensors]
     torch._foreach_mul_(momentum_tensors, momentum)
-    torch._foreach_add_(momentum_tensors, torch._foreach_mul(list(online), 1.0 - momentum))
+    torch._foreach_add_(momentum_tensors, torch._foreach_mul(online, 1.0 - momentum))
 
 
 @torch.no_grad()

@@ -347,15 +347,15 @@ class MViT(nn.Module):
         if self.use_mean_pooling:
             if self.cls_on:
                 x = x[:, 1:]
-            x = self.norm(_token_mean(x, lay))
+            x = self.norm(token_mean(x, lay))
         elif self.cls_on:
             x = self.norm(x)[:, 0]
         else:
-            x = _token_mean(self.norm(x), lay)
+            x = token_mean(self.norm(x), lay)
         return self.head(x, head_dropout_mask)
 
 
-def _token_mean(x, lay):
+def token_mean(x, lay):
     """The mean of [B, N, D] over the tokens; under sequence parallelism
     (``lay``) over the model group's, in float32."""
     if lay is None:

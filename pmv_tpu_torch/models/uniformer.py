@@ -29,6 +29,16 @@ Counterpart of `pmv_tpu/models/uniformer.py`, on channels-last
   ATTENTION_DROPOUT_RATE > 0 are not ported for training.
 - Eval returns the logits, as the JAX package's model does (no head
   activation).
+- Under temporal sequence parallelism (TPU.SHARD_STRATEGY dp_sp,
+  ``parallel/mesh.py``) a rank holds its T slice of every activation: the
+  stage-1 patch embed (T kernel 3, stride 2) takes one halo plane on the
+  left, the DPE convs one either side (K1 on T_loc + 2 planes,
+  ``common.channels_last_conv3d``), the CBlocks' 5x5x5 conv two; stages 2-4
+  embed with T kernel 1 (UNIFORMER.STD off) and need none. The attention
+  keeps this rank's queries and gathers K and V over the model group
+  (SplitSABlock's temporal branch per site), SplitSABlock's
+  per-(clip, frame) DropPath masks are cut to the rank's planes, and the
+  final mean sums over the model group (``mvit.token_mean``).
 """
 
 import numpy as np
@@ -46,7 +56,8 @@ from pmv_tpu_torch.models.common import (
     Mlp,
     PointwiseConv,
 )
-from pmv_tpu_torch.models.mvit import geometry
+from pmv_tpu_torch.models.mvit import geometry, token_mean
+from pmv_tpu_torch.parallel import mesh
 
 
 class CMlp(nn.Module):
@@ -74,11 +85,32 @@ class Attention(nn.Module):
         if zero_init:
             self.qkv.init_value, self.proj.init_value = 0.0, 1.0
 
-    def forward(self, x):
+    def forward(self, x, gather=None):
+        """``gather``: under sequence parallelism, a function that takes this
+        rank's K and V rows [B, n, 2, heads, d] to the clip's; the queries
+        stay this rank's."""
         b, n, c = x.shape
-        q, k, v = self.qkv(x).reshape(b, n, 3, self.num_heads, -1).permute(2, 0, 3, 1, 4)
+        qkv = self.qkv(x).reshape(b, n, 3, self.num_heads, -1)
+        kv = qkv[:, :, 1:] if gather is None else gather(qkv[:, :, 1:])
+        q = qkv[:, :, 0].transpose(1, 2)
+        k, v = kv.permute(2, 0, 3, 1, 4)
         attn = torch.matmul(q * self.scale, k.transpose(-2, -1)).softmax(dim=-1)
         return self.proj(torch.matmul(attn, v).transpose(1, 2).reshape(b, n, c))
+
+
+def _gather_tokens(kv, t):
+    """[B, M t s, ...]: the K and V rows [B, t s, ...] of this rank's ``t``
+    planes (s sites a plane, planes first), gathered over the model group in
+    one collective (``mesh.gather_t``), in the clip's token order."""
+    b = kv.shape[0]
+    return mesh.gather_t(kv.reshape(b, t, -1, *kv.shape[2:])).flatten(1, 2)
+
+
+def _gather_sites(kv, b, sites):
+    """SplitSABlock's temporal K and V rows [B sites, t, ...] of this rank's
+    ``t`` planes, gathered likewise: [B sites, M t, ...]."""
+    grid = kv.unflatten(0, (b, sites)).transpose(1, 2)  # [B, t, sites, ...]
+    return mesh.gather_t(grid).transpose(1, 2).flatten(0, 1)
 
 
 class _Block(nn.Module):
@@ -137,7 +169,9 @@ class SABlock(_Block):
         m1, m2 = masks or (None, None)
         x = x + self.pos_embed(x)
         tok = x.flatten(1, 3)
-        tok = tok + self.drop_path1(self.attn(self.norm1(tok)), m1)
+        t = x.shape[1]
+        gather = None if mesh.active() is None else lambda kv: _gather_tokens(kv, t)
+        tok = tok + self.drop_path1(self.attn(self.norm1(tok), gather), m1)
         tok = tok + self.drop_path2(self.mlp(self.norm2(tok)), m2)
         return tok.reshape(x.shape)
 
@@ -164,8 +198,18 @@ class SplitSABlock(_Block):
         mt, m1, m2 = masks or (None, None, None)
         x = x + self.pos_embed(x)
         b, t, h, w, c = x.shape
+        lay = mesh.active()
+        gather = None
+        if lay is not None:
+            # The temporal branch's keys span the clip's planes; the spatial
+            # branch's masks, one per (clip, frame) of the clip, are cut to
+            # this rank's frames.
+            gather = lambda kv: _gather_sites(kv, b, h * w)  # noqa: E731
+            if m1 is not None:
+                start, stop = lay.planes(t * lay.model_size)
+                m1 = m1.reshape(b, -1)[:, start:stop].reshape(-1)
         t_tok = x.permute(0, 2, 3, 1, 4).reshape(b * h * w, t, c)
-        t_tok = t_tok + self.drop_path_t(self.t_attn(self.t_norm(t_tok)), mt)
+        t_tok = t_tok + self.drop_path_t(self.t_attn(self.t_norm(t_tok), gather), mt)
         s_tok = t_tok.reshape(b, h, w, t, c).permute(0, 3, 1, 2, 4).reshape(b * t, h * w, c)
         s_tok = s_tok + self.drop_path1(self.attn(self.norm1(s_tok)), m1)
         tok = s_tok.reshape(b, t * h * w, c)
@@ -275,7 +319,7 @@ class Uniformer(nn.Module):
         x = self.norm(x)
         if return_features:
             return x
-        return self.head(x.mean(dim=(1, 2, 3)))
+        return self.head(token_mean(x.flatten(1, 3), mesh.active()))
 
 
 @MODEL_REGISTRY.register(name="Uniformer")

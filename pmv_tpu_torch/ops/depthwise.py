@@ -162,6 +162,18 @@ UNIFORMER_TRAIN_DPE_SHAPES = tuple(
     ((PMV_TRAIN_BATCH, *s[1:]), n)
     for s, n in UNIFORMER_DPE_SHAPES + UNIFORMER_RECT_DPE_SHAPES + UNIFORMER_PORTRAIT_DPE_SHAPES
 )
+# The DPE convs under TPU.SHARD_STRATEGY dp_sp on a model axis of 2, per
+# rank, as MVIT_SP_POOL_SHAPES: 4 of the 8 token planes and the halo plane
+# either side, on the rect crop's grids and their transposes at SP_BATCHES.
+UNIFORMER_SP_DPE_SHAPES = tuple(
+    ((b, t // 2 + 2, h, w, c), n) for b in SP_BATCHES
+    for (_, t, h, w, c), n in UNIFORMER_RECT_DPE_SHAPES + UNIFORMER_PORTRAIT_DPE_SHAPES
+)
+# ... and the recipe's 224^2 test crop (exps/PMV/run_Uniformer_PMV.sh), at
+# the batch a rank holds in run_net's eval and test (2 videos a process).
+UNIFORMER_SP_TEST_DPE_SHAPES = tuple(
+    ((SP_BATCHES[-1], t // 2 + 2, h, w, c), n) for (_, t, h, w, c), n in UNIFORMER_DPE_SHAPES
+)
 # X3D-M's stride-1 channelwise Tx3x3 convs (configs/Kinetics/X3D_M.yaml:
 # inner widths 54, 108, 216 and 432; blocks [3, 5, 11, 7], the first of each
 # stage strided), at batch 8: the 224^2 train crop's grids, the PMV rect

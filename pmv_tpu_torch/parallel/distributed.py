@@ -34,15 +34,19 @@ Strategies (TPU.SHARD_STRATEGY). "dp" wraps the model in
 ``DistributedDataParallel``; "fsdp" shards its parameters with FSDP2's
 ``fully_shard``, per block and then the root. The JAX package's "fsdp" only
 lays the parameters out otherwise (`mesh.py:125-137`), and so does this one:
-both give dp's numbers. "dp_sp" lays the ranks out as a (data, model)
-grid and cuts every activation of the MViT classification model in T over
-the model axis (``parallel/mesh.py``); the parameters are replicated and
-wrapped in ``DistributedDataParallel`` over the whole world. Under it the
-rows of the global batch are split over a data group as over the world
-under dp (``partner_rows`` and ``gather_rows`` take a layout for that), and
-the other models raise NotImplementedError.
+both give dp's numbers; the SSL models' momentum encoder is laid out as
+its online parameters are (``ContrastiveModel.sharded_buffers``), and SwAV's
+prototypes stay whole, as the JAX package leaves a leaf of fewer than
+65,536 elements replicated. "dp_sp" lays the ranks out as a (data, model)
+grid and cuts every activation of the MViT classification model and of
+UniFormer in T over the model axis (``parallel/mesh.py``); the parameters
+are replicated and wrapped in ``DistributedDataParallel`` over the whole
+world. Under it the rows of the global batch are split over a data group
+as over the world under dp (``partner_rows`` and ``gather_rows`` take a
+layout for that), and the other models raise NotImplementedError.
 """
 
+import contextlib
 import datetime
 
 import numpy as np
@@ -264,9 +268,10 @@ class Routed(nn.Module):
     one call of itself: DDP expects one forward per backward, and a
     portrait step may run the model twice."""
 
-    def __init__(self, model):
+    def __init__(self, model, replicated=()):
         super().__init__()
         self.model = model
+        self.replicated = list(replicated)  # see average_replicated_grads
 
     def forward(self, route, *args, **kwargs):
         return route(self.model, *args, **kwargs)
@@ -274,27 +279,35 @@ class Routed(nn.Module):
 
 def block_types():
     """The module classes that FSDP shards one by one: MViT's
-    MultiScaleBlock, UniFormer's CBlock, SABlock and SplitSABlock, the
-    ResBlock of X3D and the ResNet family, and its Nonlocal blocks."""
+    MultiScaleBlock (MaskMViT's backbone and decoder blocks too),
+    UniFormer's CBlock, SABlock and SplitSABlock, the ResBlock of X3D and
+    the ResNet family, and its Nonlocal blocks; the contrastive models'
+    projection and predictor MLPs."""
     from pmv_tpu_torch.models.attention import MultiScaleBlock
+    from pmv_tpu_torch.models.contrastive import ProjectionMLP
     from pmv_tpu_torch.models.nonlocal_block import Nonlocal
     from pmv_tpu_torch.models.resnet_helper import ResBlock
     from pmv_tpu_torch.models.uniformer import CBlock, SABlock, SplitSABlock
 
-    return (MultiScaleBlock, CBlock, SABlock, SplitSABlock, ResBlock, Nonlocal)
+    return (MultiScaleBlock, CBlock, SABlock, SplitSABlock, ResBlock, Nonlocal, ProjectionMLP)
+
+
+# The models that run under dp_sp (by MODEL.MODEL_NAME, and their classes'
+# names): MViT's classification model and UniFormer.
+SEQUENCE_PARALLEL_MODELS = ("MViT", "Uniformer", "Uniformerframe")
 
 
 def _refuse_model(name):
-    if name != "MViT":
+    if name not in SEQUENCE_PARALLEL_MODELS:
         raise NotImplementedError(
-            f"TPU.SHARD_STRATEGY dp_sp takes the MViT classification model; {name} under "
-            "dp_sp is queued in ROADMAP.md")
+            f"TPU.SHARD_STRATEGY dp_sp takes the MViT classification model and UniFormer; "
+            f"{name} under dp_sp is queued in ROADMAP.md")
 
 
 def refuse_sequence_parallel(cfg):
     """Raise for what a multi-process dp_sp job of ``cfg`` asks for and the
-    port does not run under it: a model other than MViT, detection, feature
-    extraction, multigrid."""
+    port does not run under it: a model other than MViT and UniFormer (the
+    SSL models among them), detection, feature extraction, multigrid."""
     if cfg.TPU.SHARD_STRATEGY != "dp_sp" or world_size_of(cfg) == 1:
         return
     _refuse_model(cfg.MODEL.MODEL_NAME)
@@ -311,14 +324,17 @@ def wrap_model(model, strategy, device):
     ``DistributedDataParallel`` (buffers not broadcast: every rank moves its
     BatchNorm statistics by the same global batch statistics); under "fsdp"
     the model with its parameters sharded by ``fully_shard``, block by
-    block, then the root; under "dp_sp" (MViT alone) as under "dp", over
-    the whole world, since the parameters are replicated over the grid.
-    ``model`` stays the module that holds the parameters (FSDP's are
-    sharded ``DTensor``s); its parameter names do not change."""
+    block, then the root. Under "fsdp" a model may also name
+    ``replicated_parameters()``, which stay whole on every rank
+    (``average_replicated_grads`` averages their gradients), and
+    ``sharded_buffers()``, (buffer name, parameter) pairs, each buffer then
+    laid out as its parameter's shards are. Under "dp_sp" (MViT and
+    UniFormer) as under "dp", over the whole world, since the parameters
+    are replicated over the grid. ``model`` stays the module that holds the
+    parameters (FSDP's are sharded ``DTensor``s); its parameter and buffer
+    names do not change."""
     if strategy == "dp_sp":
-        from pmv_tpu_torch.models.mvit import MViT
-
-        _refuse_model("MViT" if type(model) is MViT else type(model).__name__)
+        _refuse_model(type(model).__name__)
         strategy = "dp"
     if strategy == "dp":
         return nn.parallel.DistributedDataParallel(
@@ -329,12 +345,61 @@ def wrap_model(model, strategy, device):
         from torch.distributed.device_mesh import init_device_mesh
         from torch.distributed.fsdp import fully_shard
 
-        mesh = init_device_mesh(device.type, (rank_and_world_size()[1],))
+        world = rank_and_world_size()[1]
+        mesh = init_device_mesh(device.type, (world,))
+        replicated = list(getattr(model, "replicated_parameters", tuple)())
         for module in [m for m in model.modules() if isinstance(m, block_types())]:
             fully_shard(module, mesh=mesh)
-        fully_shard(model, mesh=mesh)
-        return Routed(model)
+        fully_shard(model, mesh=mesh,
+                    **({"ignored_params": set(replicated)} if replicated else {}))
+        for name, p in getattr(model, "sharded_buffers", tuple)():
+            owner, _, leaf = name.rpartition(".")
+            model.get_submodule(owner).register_buffer(
+                leaf, shard_like(model.get_buffer(name), p))
+        return Routed(model, replicated if world > 1 else ())
     raise ValueError(f"TPU.SHARD_STRATEGY {strategy!r}: use dp, fsdp or dp_sp")
+
+
+def average_replicated_grads(wrapped):
+    """The mean over the ranks of the gradients of the parameters that
+    ``wrap_model`` left whole under FSDP (``wrapped.replicated``), as DDP
+    averages every gradient; nothing for another ``wrapped`` (DDP's, or
+    None)."""
+    for p in getattr(wrapped, "replicated", ()):
+        if p.grad is not None:
+            p.grad.copy_(all_reduce_mean(p.grad))
+
+
+def _reshard(model):
+    """Every FSDP module of ``model`` back to its shards: a module that FSDP
+    left gathered after a forward (the root does, until its backward)
+    gathers its shards again at its next forward."""
+    from torch.distributed.fsdp import FSDPModule
+
+    for m in model.modules():
+        if isinstance(m, FSDPModule):
+            m.reshard()
+
+
+@contextlib.contextmanager
+@torch.no_grad()
+def swapped(model, tensors, values):
+    """Inside the block, ``tensors`` (parameters or buffers of ``model``)
+    hold ``values`` (laid out alike), copied in place; after it, their own
+    values again. Under FSDP the copies are of each rank's shards, and every
+    FSDP module of ``model`` is resharded before and after: a forward inside
+    the block gathers ``values`` block by block, as it gathers the
+    parameters, and never the whole model at once. Run no backward through
+    a graph that holds ``tensors`` across the block."""
+    tensors = [local(t) for t in tensors]
+    saved = [t.clone() for t in tensors]
+    _reshard(model)  # no module holds its own gathered tensors ...
+    torch._foreach_copy_(tensors, [local(v) for v in values])
+    try:
+        yield
+    finally:
+        _reshard(model)  # ... nor gathered values
+        torch._foreach_copy_(tensors, saved)
 
 
 def local(t):

@@ -26,8 +26,11 @@ collectives themselves:
   above 1 extends its input by its halo planes (``extend_t``, from
   ``t_halo``) and pads T by 0 itself (``models/common.py``); MViT's
   attention gathers K's and V's tokens (``gather_t``) and offsets its
-  temporal rel-pos table; MViT's mean pooling sums over the model group
-  (``all_reduce_model``).
+  temporal rel-pos table, UniFormer's global and temporal attention gather
+  theirs; both models' mean pooling sums over the model group
+  (``all_reduce_model``); BatchNorm's statistics, over every rank's
+  (rows, planes), are the global batch's already
+  (``models/batchnorm.py``).
 - The collectives are ``torch.autograd.Function``s built from
   ``all_reduce`` alone, each rank adding its part to a buffer of zeros (so
   that they also run over gloo on CUDA tensors, two ranks sharing a card).

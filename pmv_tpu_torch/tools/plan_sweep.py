@@ -6,7 +6,9 @@ CUDA device.
 For each MViTv2-S 16x4 pool shape at batch 8 (``ops.depthwise
 .MVIT_POOL_SHAPES``, which hold MaskFeat pre-training's too:
 ``MASKFEAT_POOL_SHAPES``; and a rank's under dp_sp, on 4 + 2 halo planes:
-``MVIT_SP_POOL_SHAPES`` and ``MVIT_SP_SQUARE_POOL_SHAPES``) and each
+``MVIT_SP_POOL_SHAPES`` and ``MVIT_SP_SQUARE_POOL_SHAPES``), UniFormer-S's DPE
+convs under dp_sp (``UNIFORMER_SP_DPE_SHAPES``,
+``UNIFORMER_SP_TEST_DPE_SHAPES``) and each
 ir-CSN-101 conv_b shape at batch 8 on the train and the 256^2 test crop
 (``CSN_DW_SHAPES``, ``CSN_TEST_DW_SHAPES``), dtype (bfloat16, float32) and kernel (K1, wgrad),
 every plan of ``ops.depthwise.make_plan`` over tile rows 2, 4, 7 and 8,
@@ -56,7 +58,9 @@ def main():
         return 1
     gen = torch.Generator(device="cuda").manual_seed(0)
     for shape, _ in (dw.MVIT_POOL_SHAPES + dw.MVIT_SP_POOL_SHAPES
-                     + dw.MVIT_SP_SQUARE_POOL_SHAPES + dw.CSN_DW_SHAPES + dw.CSN_TEST_DW_SHAPES):
+                     + dw.MVIT_SP_SQUARE_POOL_SHAPES + dw.UNIFORMER_SP_DPE_SHAPES
+                     + dw.UNIFORMER_SP_TEST_DPE_SHAPES
+                     + dw.CSN_DW_SHAPES + dw.CSN_TEST_DW_SHAPES):
         for dtype in (torch.bfloat16, torch.float32):
             x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
             g = torch.randn(shape, generator=gen, device="cuda").to(dtype)

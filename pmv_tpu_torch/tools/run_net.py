@@ -17,13 +17,13 @@ TRAIN.ENABLE trains; TEST.ENABLE tests, sweeping NUM_ENSEMBLE_VIEWS over
 set. The SSL models, MaskMViT (MaskFeat pre-training) and ContrastiveModel
 (MoCo, SimCLR, BYOL, SwAV, memory bank, with the kNN monitor), train
 through ``engine/ssl_train.py::train_ssl``, over several processes under
-TPU.SHARD_STRATEGY "dp". Under "dp_sp" (temporal sequence parallelism,
-``parallel/mesh.py``) the NUM_GPUS x NUM_SHARDS processes form a (data,
-model) grid with a model axis of 2 (TPU.MESH_SHAPE's where it is set), whose
-model groups each hold the same clips and cut them in T; it takes the MViT
-classification model. SSL under "fsdp" or "dp_sp", another model under
-"dp_sp", the model and wrong-prediction visualization and the demo are not
-ported and raise NotImplementedError.
+TPU.SHARD_STRATEGY "dp" or "fsdp". Under "dp_sp" (temporal sequence
+parallelism, ``parallel/mesh.py``) the NUM_GPUS x NUM_SHARDS processes form
+a (data, model) grid with a model axis of 2 (TPU.MESH_SHAPE's where it is
+set), whose model groups each hold the same clips and cut them in T; it
+takes the MViT classification model and UniFormer. SSL under "dp_sp",
+another model under "dp_sp", the model and wrong-prediction visualization
+and the demo are not ported and raise NotImplementedError.
 """
 
 import sys

@@ -364,10 +364,3 @@ def test_run_net_pretrains_moco_resumes_and_fine_tunes_slow_on_cpu(tmp_path):
     assert f"Loaded {loaded} of the model's {loaded + kept} tensors from the checkpoint" in log
     assert f"{kept} kept their init" in log
     assert '"split": "test_final"' in log
-
-
-def test_run_net_refuses_ssl_under_fsdp(tmp_path):
-    with pytest.raises(NotImplementedError, match="SHARD_STRATEGY fsdp"):
-        run_net.main(["--cfg", MOCO_YAML, "--device", "cpu", "--opts", "OUTPUT_DIR",
-                      str(tmp_path), *TINY_MOCO, "NUM_GPUS", "2", "TPU.SHARD_STRATEGY", "fsdp"])
-    assert not cu.has_checkpoint(str(tmp_path), "ssl")

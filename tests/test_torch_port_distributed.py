@@ -35,7 +35,7 @@ the references:
   one-process run's ``test_final``, the checkpoint is written once, and a
   second call resumes from it;
 - (g) the SSL steps under ``dp`` (a spawn of their own, ``rank_ssl_cases``):
-  the MoCo, SimCLR and SwAV steps of the tiny Slow contrastive model
+  the MoCo, SimCLR, SwAV and BYOL steps of the tiny Slow contrastive model
   (tests/test_torch_port_contrastive_train.py), 2 ranks x 2 rows, against
   the JAX package's step on the global batch of 4 with the same colour
   draws, JAX's ReLUs taking the one-process port step's decisions: loss,
@@ -66,15 +66,27 @@ the references:
   holding the global batch of 4 with its portrait row: the train step
   against the JAX step on the global batch at (a)'s tolerance, every rank
   on the whole-batch select; the eval scores and ``perform_test`` (each
-  clip counted once) against one process.
+  clip counted once) against one process;
+- (k) UniFormer under ``dp_sp`` on the same grid: tiny UniFormer at 8
+  frames (2 + 2 token planes after the stride-2 patch embed), DropPath on
+  (rates 0 to 0.6, JAX's masks read off its DropPath modules), the rect
+  crop with its portrait row: the train step against JAX's on the global
+  batch at (a)'s tolerances and the one-process port's gradients
+  (relative L2 1e-5: no collective's backward, the global BatchNorm's
+  among them, counts a rank's share twice), the K1 extents, the eval
+  scores, precise BN and ``perform_test`` against one process; with
+  UNIFORMER.SPLIT (the temporal branch's keys gathered, the spatial
+  branch's DropPath masks cut to the rank's frames) against one process;
+- (l) the SSL steps of (g) under ``fsdp`` in the same spawn: each against
+  JAX's global step at (g)'s tolerances and against ``dp``'s to float
+  rounding; MoCo's checkpoint written under each strategy resumed under
+  the other (every tensor as written, the optimizer's state), then a
+  second step under both.
 """
 
 import contextlib
 import json
 import os
-import signal
-import subprocess
-import sys
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -111,8 +123,8 @@ from pmv_tpu_torch.utils.device import local_device
 from pmv_tpu_torch.utils import meters
 from pmv_tpu_torch.utils.weights import load_jax_params, state_dict_from_jax
 from torch_port_util import (
-    JOIN_TIMEOUT_S,
     ClipDataset,
+    finish_run_net,
     free_port,
     jax_dropout_key,
     jax_dropout_masks,
@@ -121,6 +133,7 @@ from torch_port_util import (
     join_ranks,
     numpy_tree,
     port_cfg,
+    jax_drop_path_masks,
     jax_hog_bins,
     jax_ssl_step_draws,
     rank_av_steps,
@@ -128,13 +141,15 @@ from torch_port_util import (
     rank_detection,
     rank_ssl_cases,
     start_ranks,
+    start_run_net,
 )
 
 ROOT = Path(__file__).resolve().parents[1]
 PM = np.array([True, False, False, False])  # rank 0: rows 0-1, rank 1: rows 2-3
 MODELS = ("uniformer", "x3d", "mvit", "slowfast")
 LR = 1e-3
-SP_FRAMES = 8  # (j): 4 token planes, 2 a rank
+SP_FRAMES = 8  # (j), (k): 4 token planes, 2 a rank
+SP_DROP_PATH = 0.6  # (k): UniFormer's DropPath rates 0, 0.2, 0.4 and 0.6 over its 4 blocks
 
 
 def _step_case(name):
@@ -142,8 +157,11 @@ def _step_case(name):
     the global batch and the JAX step's draws for it), and what the JAX
     step needs."""
     rng = jax.random.PRNGKey(3)
-    if name == "uniformer":
+    if name in ("uniformer", "uniformer_sp"):
         cfg = uni_train._train_cfg(rect=uni_train.RECT)
+        if name == "uniformer_sp":
+            cfg.DATA.NUM_FRAMES = SP_FRAMES
+            cfg.UNIFORMER.DROP_DEPTH_RATE = SP_DROP_PATH
         batch = uni_train._batch(cfg, 0, PM)
         jmodel, jstate, tx = uni_train._jax_state(cfg, batch, 4)
         jport = jmodel
@@ -178,17 +196,22 @@ def _step_case(name):
     pcfg = port_cfg(cfg)
     model = build_model(pcfg, device="cpu", dtype=torch.float32)
     load_jax_params(model, variables)
+    if name == "uniformer_sp":  # JAX's DropPath masks, which its step draws
+        draws["drop_path"] = jax_drop_path_masks(jmodel, variables, jx, jax_dropout_key(rng, 0),
+                                                 model)
     case = {"cfg": pcfg, "state_dict": {k: v.clone() for k, v in model.state_dict().items()},
             "batch": batch, "draws": draws, "lr": LR}
-    if name == "mvit_sp":
+    if name.endswith("_sp"):
         pcfg.TPU.SHARD_STRATEGY = "dp_sp"
+        rect = uni_train.RECT if name == "uniformer_sp" else mvit_pm.RECT
         rng_np = np.random.default_rng(11)
         case["eval"] = {"frames": rng_np.integers(0, 256, batch["frames"].shape, np.uint8),
                         "pm": PM}
-        case["test"] = {"frames": rng_np.integers(0, 256, (10, SP_FRAMES, *mvit_pm.RECT, 3),
-                                                  np.uint8),
+        case["test"] = {"frames": rng_np.integers(0, 256, (10, SP_FRAMES, *rect, 3), np.uint8),
                         "labels": rng_np.integers(0, cfg.MODEL.NUM_CLASSES, 5),
                         "num_clips": 2, "batch_size": 4}
+    if name == "uniformer_sp":
+        case["precise_batches"] = [uni_train._batch(cfg, seed, PM) for seed in (5, 6)]
     if name == "slowfast":
         # The ranks' and the one process's steps in float64 activations: in
         # float32 this net's gradients at these widths (its last stage's
@@ -228,6 +251,34 @@ def _one_process_steps(case, second=None):
                     {k: p.grad.clone() for k, p in model.named_parameters()},
                     {k: v.clone() for k, v in model.state_dict().items()}))
     return out
+
+
+def _split_sp_case():
+    """(k): tiny UniFormer with SplitSABlocks at ``SP_FRAMES`` frames under
+    dp_sp, DropPath on: the port's seeded weights, the global batch of 4
+    with its portrait row and the port's draws for it."""
+    cfg = port_cfg(uni_train._train_cfg(rect=uni_train.RECT))
+    cfg.DATA.NUM_FRAMES = SP_FRAMES
+    cfg.UNIFORMER.SPLIT = True
+    cfg.UNIFORMER.DROP_DEPTH_RATE = SP_DROP_PATH
+    cfg.TPU.SHARD_STRATEGY = "dp_sp"
+    batch = uni_train._batch(cfg, 2, PM)
+    model = build_model(cfg, device="cpu", dtype=torch.float32, seed=7)
+    draws = make_train_step(cfg, device="cpu").sample_draws(model, batch["frames"].shape)
+    return {"cfg": cfg, "state_dict": {k: v.clone() for k, v in model.state_dict().items()},
+            "batch": batch, "draws": draws, "lr": LR}
+
+
+def _sp_one_process_precise_bn(case):
+    """Precise BN over the dp_sp case's global batches in one process: the
+    running statistics after it."""
+    from pmv_tpu_torch.engine.precise_bn import calculate_and_update_precise_bn
+
+    model = build_model(case["cfg"], device="cpu", dtype=torch.float32)
+    model.load_state_dict(case["state_dict"])
+    calculate_and_update_precise_bn(case["precise_batches"], init_state(case["cfg"], model),
+                                    case["cfg"], "cpu")
+    return {k: v.clone() for k, v in model.state_dict().items() if "running" in k}
 
 
 def _precise_bn_case():
@@ -346,8 +397,9 @@ def two_ranks(tmp_path_factory):
     """Every case through ``rank_cases`` on 2 ranks, and the references,
     computed here while the ranks run."""
     case_dir = tmp_path_factory.mktemp("two_ranks")
-    with ThreadPoolExecutor(len(MODELS) + 1) as pool:  # XLA compiles in parallel
-        step_futures = {name: pool.submit(_step_case, name) for name in MODELS + ("mvit_sp",)}
+    with ThreadPoolExecutor(len(MODELS) + 2) as pool:  # XLA compiles in parallel
+        step_futures = {name: pool.submit(_step_case, name)
+                        for name in MODELS + ("mvit_sp", "uniformer_sp")}
         precise_future = pool.submit(_precise_bn_case)
         steps, jax_args = {}, {}
         for name, future in step_futures.items():
@@ -357,10 +409,12 @@ def two_ranks(tmp_path_factory):
         resume["batch2"] = uni_train._batch(jax_args["uniformer"][0], 1, PM)
         resume["draws2"] = jax_train_draws(jax_args["uniformer"][0], jax.random.PRNGKey(3), 1,
                                            resume["batch2"]["frames"].shape)
-        sp = steps.pop("mvit_sp")
-        cases = {"steps": steps, "sp": sp, "resume": resume, "precise_bn": precise,
-                 "test": _test_case(), "bn": _bn_case(), "sub_bn": _sub_bn_case(),
-                 "avslowfast": _av_case(), "detection": _detection_case(case_dir)}
+        sp, uni_sp = steps.pop("mvit_sp"), steps.pop("uniformer_sp")
+        cases = {"steps": steps, "sp": sp, "uniformer_sp": uni_sp,
+                 "uniformer_split_sp": _split_sp_case(), "resume": resume,
+                 "precise_bn": precise, "test": _test_case(), "bn": _bn_case(),
+                 "sub_bn": _sub_bn_case(), "avslowfast": _av_case(),
+                 "detection": _detection_case(case_dir)}
         torch.save(cases, case_dir / "cases.pt")
         procs = start_ranks(rank_cases, str(case_dir),
                             model_size=mesh.model_size(sp["cfg"], 2))
@@ -369,6 +423,13 @@ def two_ranks(tmp_path_factory):
                            for name in MODELS if name != "slowfast"}
             ref_futures["mvit_sp"] = pool.submit(_step_refs, sp, jax_args["mvit_sp"])
             ref_futures["sp_eval"] = pool.submit(_sp_one_process_eval, sp)
+            ref_futures["uniformer_sp"] = pool.submit(_step_refs, uni_sp,
+                                                      jax_args["uniformer_sp"])
+            ref_futures["uniformer_sp_eval"] = pool.submit(_sp_one_process_eval, uni_sp)
+            ref_futures["uniformer_sp_precise_bn"] = pool.submit(_sp_one_process_precise_bn,
+                                                                 uni_sp)
+            ref_futures["uniformer_split_sp"] = pool.submit(_one_process_steps,
+                                                            cases["uniformer_split_sp"])
             ref_futures["resume"] = pool.submit(
                 _one_process_steps, resume, (resume["batch2"], resume["draws2"]))
             ref_futures["precise_bn"] = pool.submit(
@@ -503,6 +564,93 @@ def test_dp_sp_eval_and_perform_test_equal_one_process(two_ranks):
         np.testing.assert_allclose(test["video_preds"], one["video_preds"], atol=1e-6,
                                    rtol=1e-5)
         assert test["stats"] == one["stats"]
+
+
+def test_uniformer_dp_sp_step_matches_jax_on_the_global_batch(two_ranks):
+    """(k): tiny UniFormer at 8 frames on the data 1 x model 2 grid, each
+    rank half of its token planes after the stride-2 patch embed (2 and 2),
+    DropPath on with JAX's masks, the rect crop with one portrait row: the
+    step is JAX's on the global batch (loss and grad norm to rtol 1e-4,
+    the weights and BatchNorm statistics as the one-process UniFormer test
+    holds them) and its gradients the port's one-process step's (relative
+    L2 1e-5): no collective's backward counts a rank's share twice, the
+    global BatchNorm's among them."""
+    results, refs, cases = two_ranks
+    ref = refs["uniformer_sp"]
+    jm = ref["jax_metrics"]
+    _, one_grads, _ = ref["one"][0]
+    drop_path = cases["uniformer_sp"]["draws"]["drop_path"]
+    assert drop_path[0] is None and any(float(m.min()) == 0.0 for block in drop_path[1:]
+                                        for m in block)  # some rows dropped
+    model = build_model(port_cfg(ref["cfg"]), device="cpu", dtype=torch.float32)
+    for rank, got in enumerate(results["uniformer_sp"]):
+        assert got["layout"] == mesh.Layout(0, 1, rank, 2)
+        np.testing.assert_allclose(got["metrics"]["loss"], float(jm["loss"]), rtol=1e-4)
+        np.testing.assert_allclose(got["metrics"]["grad_norm"], float(jm["grad_norm"]),
+                                   rtol=1e-4)
+        for key in ("top1_err", "top5_err"):
+            np.testing.assert_allclose(got["metrics"][key], float(jm[key]), rtol=1e-6)
+        assert not got["metrics"]["nan"]
+        assert _relative_l2(got["grads"], one_grads) < 1e-5
+        model.load_state_dict(got["state"])
+        uni_train._assert_state_matches(model, ref["jstate"], [LR])
+    first, second = results["uniformer_sp"]
+    for key, value in first["state"].items():  # every rank's statistics the same
+        assert torch.equal(second["state"][key], value), key
+
+
+def test_uniformer_dp_sp_takes_the_select_and_k1_on_halo_extended_slices(two_ranks):
+    """Every rank takes the whole-batch select; the 4 DPE convs a forward
+    run K1 on 2 + 2 halo planes, forward and dx, and the weight gradient on
+    the same extent: two forwards a train step (both orientations), two an
+    eval."""
+    results, _, _ = two_ranks
+    for got in results["uniformer_sp"]:
+        assert got["routes"] == ["select_by_orientation"] * 2
+        kinds = [kind for kind, _ in got["shapes"]]
+        assert [kinds.count(k) for k in ("fwd", "dx", "wgrad")] == [8, 8, 8]
+        assert [kind for kind, _ in got["eval_shapes"]] == ["fwd"] * 8
+        for _, shape in got["shapes"] + got["eval_shapes"]:
+            assert shape[1] == SP_FRAMES // 2 // 2 + 2, shape
+
+
+def test_uniformer_dp_sp_eval_precise_bn_and_perform_test_equal_one_process(two_ranks):
+    """Each rank's eval scores (a portrait row), its precise BN statistics
+    and the gathered TestMeter (model rank 0's clips) equal one
+    process's."""
+    results, refs, _ = two_ranks
+    one = refs["uniformer_sp_eval"]
+    for got in results["uniformer_sp"]:
+        torch.testing.assert_close(got["scores"], one["scores"], atol=1e-6, rtol=1e-5)
+        test = got["test"]
+        assert test["steps"] == one["steps"] == 3
+        np.testing.assert_array_equal(test["clip_count"], [2] * 5)
+        np.testing.assert_allclose(test["video_preds"], one["video_preds"], atol=1e-6,
+                                   rtol=1e-5)
+        assert test["stats"] == one["stats"]
+        want = refs["uniformer_sp_precise_bn"]
+        assert sorted(got["precise_bn"]) == sorted(want)
+        for key, value in want.items():
+            torch.testing.assert_close(got["precise_bn"][key], value, atol=1e-6, rtol=1e-5,
+                                       msg=key)
+
+
+def test_uniformer_split_dp_sp_step_equals_one_process(two_ranks):
+    """UNIFORMER.SPLIT: the temporal branch's keys gathered over T, this
+    rank's queries; the spatial branch's per-(clip, frame) DropPath masks
+    cut to this rank's planes: the step equals one process's on the global
+    batch."""
+    results, refs, cases = two_ranks
+    (one_metrics, one_grads, one_state), = refs["uniformer_split_sp"]
+    masks = cases["uniformer_split_sp"]["draws"]["drop_path"]
+    t_mask = masks[2][1].reshape(len(PM), -1)  # stage 3's spatial branch: a mask a frame
+    assert t_mask.shape[1] == SP_FRAMES // 2 and (t_mask == 0).any()
+    for got in results["uniformer_split_sp"]:
+        for key in ("loss", "grad_norm", "top1_err", "top5_err"):
+            np.testing.assert_allclose(got["metrics"][key], one_metrics[key], rtol=1e-5,
+                                       err_msg=key)
+        assert _relative_l2(got["grads"], one_grads) < 1e-5
+        _assert_weights_close(got["state"], one_state, [LR])
 
 
 def _assert_weights_close(got, want, lrs, stats_tol=(1e-6, 1e-5)):
@@ -694,23 +842,11 @@ def _argv(out, nproc, *opts):
 
 
 def _run_net_two_processes(out, *opts):
-    """run_net with NUM_GPUS 2 in a process group of its own, killed with
-    every rank it spawned after JOIN_TIMEOUT_S. Each rank computes on one
-    thread (OMP_NUM_THREADS 1, which the spawned ranks inherit): beside
-    other test workers on a shared CPU, ranks whose intra-op threads claim
-    the host's cores wait on each other's threads, and the call ran past
-    JOIN_TIMEOUT_S (ROADMAP.md, section 3)."""
-    proc = subprocess.Popen([sys.executable, "-m", "pmv_tpu_torch.tools.run_net",
-                             *_argv(out, 2, *opts)], cwd=ROOT, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True, start_new_session=True,
-                            env={**os.environ, "OMP_NUM_THREADS": "1"})
-    try:
-        log, _ = proc.communicate(timeout=JOIN_TIMEOUT_S)
-    except subprocess.TimeoutExpired:
-        os.killpg(proc.pid, signal.SIGKILL)
-        proc.communicate()
-        raise AssertionError("run_net with 2 processes hung")
-    assert proc.returncode == 0, log[-4000:]
+    """run_net with NUM_GPUS 2 (``start_run_net``: one thread a process;
+    with the ranks' intra-op threads claiming the host's cores beside other
+    test workers, the call once ran past JOIN_TIMEOUT_S, ROADMAP.md, section
+    3), killed with every rank it spawned after JOIN_TIMEOUT_S."""
+    finish_run_net(start_run_net(_argv(out, 2, *opts)))
 
 
 def _json_stats(path):
@@ -763,7 +899,7 @@ def test_train_refuses_a_world_it_is_not_launched_in(tmp_path):
 
 # ------------------------------------------------------------ (g) SSL under dp
 
-SSL_TYPES = ("moco", "simclr", "swav")
+SSL_TYPES = ("moco", "simclr", "swav", "byol")
 MASK_P = np.array([0.45, 0.4, 0.05, 0.08])  # rows 0-1 on rank 0, 2-3 on rank 1
 
 
@@ -796,7 +932,8 @@ def _contrastive_case(ssl_type):
             rng, ssl_train.LR, masks)
         trace = ssl_train._trace(jnew.opt_state)
         grads = state_dict_from_jax(numpy_tree({
-            "params": trace["online"], "prototypes": trace.get("prototypes")}))
+            "params": trace["online"], "predictor_params": trace.get("predictor"),
+            "prototypes": trace.get("prototypes")}))
         return {"metrics": jm, "grads": grads,
                 "state": ssl_train.port_state_dict(jnew, ssl_type)}
 
@@ -843,6 +980,10 @@ def ssl_two_ranks(tmp_path_factory):
     for name in SSL_TYPES:
         cases[name], references[name] = _contrastive_case(name)
     cases["maskfeat"], references["maskfeat"] = _maskfeat_case()
+    resume = dict(cases["moco"])
+    resume["batch2"] = {"frames": np.random.default_rng(12).integers(
+        0, 256, resume["batch"]["frames"].shape, np.uint8), "index": ssl_train.INDEX[::-1].copy()}
+    cases["ssl_resume"] = resume
     torch.save(cases, case_dir / "ssl_cases.pt")
     procs = start_ranks(rank_ssl_cases, str(case_dir))
     try:
@@ -854,8 +995,56 @@ def ssl_two_ranks(tmp_path_factory):
 
 @pytest.mark.parametrize("name", SSL_TYPES + ("maskfeat",))
 def test_ssl_dp_step_matches_jax_on_the_global_batch(ssl_two_ranks, name):
+    _assert_ssl_step_matches_jax(ssl_two_ranks, name, "dp")
+
+
+@pytest.mark.parametrize("name", SSL_TYPES + ("maskfeat",))
+def test_ssl_fsdp_step_matches_jax_and_dp(ssl_two_ranks, name):
+    """(l): under fsdp the online encoder and the momentum one are sharded
+    alike (the EMA a local update), SwAV's prototypes stay whole: the step
+    is JAX's on the global batch at (g)'s tolerances, and dp's to float
+    rounding."""
+    _assert_ssl_step_matches_jax(ssl_two_ranks, name, "fsdp")
+    results, _, _ = ssl_two_ranks
+    dp, fsdp = results[name, "dp"], results[name, "fsdp"]
+    for key, value in dp["metrics"].items():
+        np.testing.assert_allclose(fsdp["metrics"][key], value, rtol=1e-6, err_msg=key)
+    assert _relative_l2(fsdp["grads"], dp["grads"]) < 1e-6
+    for key, value in dp["state"].items():
+        torch.testing.assert_close(fsdp["state"][key], value, atol=1e-5, rtol=1e-5, msg=key)
+
+
+def test_ssl_checkpoint_resumes_across_strategies(ssl_two_ranks):
+    """MoCo's checkpoint, written once under one strategy (the momentum
+    encoder gathered whole under fsdp, the queue, its pointer, the bank),
+    resumes under the other with every tensor and the optimizer's state as
+    written; a second step then gives the same state under both."""
+    results, _, _ = ssl_two_ranks
+    res = results["ssl_resume"]
+    written = res["written"]
+    assert {"queue", "queue_ptr", "bank"} <= set(written["dp"])
+    assert any(k.startswith("momentum.backbone.") for k in written["dp"])
+    for strategy, other in (("dp", "fsdp"), ("fsdp", "dp")):
+        assert res["files"][strategy] == ["ssl_checkpoint_epoch_00001.pyth"]
+        model_state, _ = res["first"][strategy]  # written under strategy, resumed under other
+        assert set(model_state) == set(written[strategy])
+        for key, value in written[strategy].items():
+            assert torch.equal(model_state[key], value), (strategy, key)
+        torch.testing.assert_close(written[strategy], written[other], atol=1e-5, rtol=1e-5)
+    (_, dp_opt), (_, fsdp_opt) = res["first"]["dp"], res["first"]["fsdp"]
+    assert dp_opt["param_groups"] == fsdp_opt["param_groups"]
+    # SGD's momentum: the first step's gradients, dp's and fsdp's (float
+    # rounding apart, as test_ssl_fsdp_step_matches_jax_and_dp holds them).
+    assert dp_opt["state"].keys() == fsdp_opt["state"].keys()
+    flat = {(i, k): v for i, st in dp_opt["state"].items() for k, v in st.items()}
+    assert _relative_l2({(i, k): fsdp_opt["state"][i][k] for i, k in flat}, flat) < 1e-6
+    torch.testing.assert_close(res["second"]["fsdp"], res["second"]["dp"], atol=1e-5,
+                               rtol=1e-5)
+
+
+def _assert_ssl_step_matches_jax(ssl_two_ranks, name, strategy):
     results, refs, cases = ssl_two_ranks
-    got, ref = results[name], refs[name]
+    got, ref = results[name, strategy], refs[name]
     assert not got["metrics"]["nan"]
     for key in ("loss", "grad_norm"):
         np.testing.assert_allclose(got["metrics"][key], float(ref["metrics"][key]),

@@ -53,7 +53,15 @@ from pmv_tpu_torch.native import binding
 from pmv_tpu_torch.tools import run_net
 from pmv_tpu_torch.utils import checkpoint as cu
 from pmv_tpu_torch.utils.weights import state_dict_from_jax
-from torch_port_util import jax_hog_bins, port_cfg, random_params, tiny_maskfeat_cfg
+from torch_port_util import (
+    finish_run_net,
+    free_port,
+    jax_hog_bins,
+    port_cfg,
+    random_params,
+    start_run_net,
+    tiny_maskfeat_cfg,
+)
 from torch_port_util import one_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -338,10 +346,10 @@ def test_vis_mask_writes_its_comparison_stacks(tmp_path):
 SSL_REFUSALS = {  # case -> (config, opts)
     # A contrastive model on MaskMViT's arch: no such SSL backbone (nor in JAX).
     "contrastive": (TINY_PT, ("MODEL.MODEL_NAME", "ContrastiveModel")),
-    # SSL over several processes trains under dp; fsdp is not ported.
+    # SSL over several processes trains under dp or fsdp; dp_sp is not ported.
     "contrastive_yaml": (str(ROOT / "configs" / "contrastive_ssl" / "MoCo_SlowR50_8x8.yaml"),
-                         ("TPU.SHARD_STRATEGY", "fsdp")),
-    "two_processes": (TINY_PT, ("NUM_GPUS", "2", "TPU.SHARD_STRATEGY", "fsdp")),
+                         ("TPU.SHARD_STRATEGY", "dp_sp")),
+    "two_processes": (TINY_PT, ("NUM_GPUS", "2", "TPU.SHARD_STRATEGY", "dp_sp")),
 }
 
 
@@ -352,6 +360,61 @@ def test_unported_ssl_runs_raise(tmp_path, case):
         run_net.main(["--cfg", path, "--device", "cpu", "--opts", "OUTPUT_DIR", str(tmp_path),
                       *opts])
     assert not cu.has_checkpoint(str(tmp_path), "ssl")
+
+
+def _knn_epochs(log):
+    return [json.loads(line.split("json_stats: ", 1)[1])["epoch"] for line in log.splitlines()
+            if "ssl_knn_epoch" in line]
+
+
+def test_run_net_pretrains_moco_and_maskfeat_under_fsdp_on_two_processes_and_resumes(
+        tmp_path):
+    """NUM_GPUS 2 under fsdp: MoCo (the tiny Slow of
+    tests/test_torch_port_contrastive_train.py: its momentum encoder
+    sharded as the online one, the kNN monitor over both ranks' shards) and
+    tiny MaskFeat (MaskMViT's blocks sharded one by one), each one epoch of
+    8 steps (64 videos, 4 a rank a step) and one checkpoint written whole
+    by rank 0 (the queue's pointer past both ranks' keys); then a second
+    call of MoCo, run while MaskFeat's first runs, that resumes from its
+    checkpoint (the momentum encoder, the queue and the bank among it).
+    (The 2-rank steps' numbers, and a checkpoint of each strategy resumed
+    under the other, are held in tests/test_torch_port_distributed.py.)"""
+    from test_torch_port_contrastive_train import MOCO_YAML, TINY_MOCO
+
+    def start(name, epochs):
+        cfg, out, opts = runs[name]
+        return start_run_net([
+            "--cfg", cfg, "--device", "cpu", "--init_method", f"tcp://127.0.0.1:{free_port()}",
+            "--opts", "OUTPUT_DIR", str(out), *opts, "SOLVER.MAX_EPOCH", str(epochs),
+            "NUM_GPUS", "2", "TPU.SHARD_STRATEGY", "fsdp"])
+
+    def checkpoint(name, epoch):
+        state = torch.load(_ckpt(runs[name][1], epoch), map_location="cpu", weights_only=True)
+        assert state["optimizer_state"]["param_groups"][0]["count"] == 8 * epoch
+        return state
+
+    runs = {"moco": (MOCO_YAML, tmp_path / "moco", TINY_MOCO),
+            "maskfeat": (TINY_PT, tmp_path / "maskfeat", [])}
+    moco, maskfeat = start("moco", 1), start("maskfeat", 1)
+    finish_run_net(moco)
+    moco = start("moco", 2)
+    finish_run_net(maskfeat)
+    finish_run_net(moco)
+    for name, (cfg_path, out, opts) in runs.items():
+        log = (out / "stdout.log").read_text()
+        state = checkpoint(name, 1)
+        assert log.count("Saved checkpoint") == (2 if name == "moco" else 1)
+        if name == "moco":
+            assert int(state["model_state"]["queue_ptr"]) == (8 * 8) % 32
+            assert f"Resumed SSL training from {_ckpt(out, 1)}" in log
+            assert _knn_epochs(log) == [0, 1]
+            checkpoint(name, 2)
+        cfg = get_cfg()
+        cfg.merge_from_file(cfg_path)
+        cfg.merge_from_list(list(opts))
+        model = build_model(cfg, device="cpu")  # whole tensors, not shards
+        assert {k: v.shape for k, v in state["model_state"].items()} == {
+            k: v.shape for k, v in model.state_dict().items()}
 
 
 def test_run_net_refuses_without_cuda_unless_asked_for_the_cpu(tmp_path):

@@ -126,9 +126,9 @@ UNPORTED = {
     "tensorboard": ("TENSORBOARD.ENABLE", True, "TENSORBOARD.MODEL_VIS.ENABLE", True),
     # Detection is ported; its precise BN is not (the JAX package's packs no boxes).
     "detection": ("DETECTION.ENABLE", True, "BN.USE_PRECISE_STATS", True),
-    # SSL trains over several processes under dp only.
+    # SSL trains over several processes under dp or fsdp, not dp_sp.
     "ssl": ("MODEL.MODEL_NAME", "ContrastiveModel", "NUM_GPUS", "2", "TPU.SHARD_STRATEGY",
-            "fsdp"),
+            "dp_sp"),
 }
 
 

@@ -12,24 +12,25 @@
 - The layout: the port's rank grid is the device grid of the JAX package's
   ``create_mesh`` for 2, 4, 6 and 8 processes (and TPU.MESH_SHAPE's), and
   an odd world falls back to dp as ``create_mesh`` does.
-- The refusals: another model than MViT under dp_sp raises
+- The refusals: another model than MViT and UniFormer under dp_sp raises
   NotImplementedError naming ROADMAP.md, in ``wrap_model`` and before
   ``run_net`` starts a process; a rank's frames that the patch conv's T
-  stride does not divide raise ValueError.
+  stride does not divide raise ValueError. UniFormer and Uniformerframe
+  pass them.
 - 4 ranks, a grid of data 2 x model 2, one spawn: the data groups' rows,
-  MixUp's partner rows across them, and one train step equal to the
-  port's one-process step on the global batch.
+  MixUp's partner rows across them, and one train step of MViT and one of
+  UniFormer (BatchNorm over the 4 ranks' planes) equal to the port's
+  one-process step on the global batch.
 - ``run_net`` with NUM_GPUS 2 and TPU.SHARD_STRATEGY dp_sp on the tiny
   yaml at 4 frames (2 token planes, one a rank): train, the gathered eval,
   one checkpoint written by rank 0, the test; its test_final equals one
   process's at the same global batch. The launch plans take a rank's
-  MViTv2-S pool shapes under dp_sp (4 + 2 halo planes).
+  MViTv2-S pool shapes and UniFormer-S DPE shapes under dp_sp (4 + 2 halo
+  planes).
 """
 
 import json
 import os
-import subprocess
-import sys
 from pathlib import Path
 
 import jax
@@ -52,12 +53,13 @@ from pmv_tpu_torch.tools import run_net
 from pmv_tpu_torch.utils import checkpoint as cu
 from test_torch_port_depthwise import _check_halo, _check_tiling
 from torch_port_util import (
-    JOIN_TIMEOUT_S,
+    finish_run_net,
     free_port,
     join_ranks,
     port_cfg,
     rank_grid_case,
     start_ranks,
+    start_run_net,
 )
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -205,7 +207,6 @@ TINY_UNIFORMER = ("UNIFORMER.PRETRAIN_NAME", "", "UNIFORMER.EMBED_DIM", [8, 16, 
 @pytest.mark.parametrize("path, opts", [
     ("configs/tiny_x3d_synthetic.yaml", ()),  # BatchNorm
     ("configs/tiny_slowfast_synthetic.yaml", ()),  # BatchNorm, T-strided fusions
-    ("configs/Kinetics/UNIFORMER_S_16x4.yaml", TINY_UNIFORMER),
     ("configs/tiny_maskfeat_synthetic.yaml", ()),  # MaskMViT, an SSL model
 ])
 def test_another_model_under_dp_sp_raises(path, opts):
@@ -218,6 +219,23 @@ def test_another_model_under_dp_sp_raises(path, opts):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):  # before any process starts
         run_net.main(["--cfg", path, "--device", "cpu", "--opts", *map(str, opts),
                       "NUM_GPUS", "2", "TPU.SHARD_STRATEGY", "dp_sp"])
+
+
+@pytest.mark.parametrize("name", ["Uniformer", "Uniformerframe"])
+def test_uniformer_runs_under_dp_sp(name):
+    """UniFormer and its frame-based variant pass the dp_sp refusals, and
+    their 1x1-in-T patch embeds (every stage of Uniformerframe, stages 2-4
+    of Uniformer) take no halo."""
+    cfg = get_cfg()
+    cfg.merge_from_file("configs/Kinetics/UNIFORMER_S_16x4.yaml")
+    cfg.merge_from_list([*TINY_UNIFORMER, "MODEL.MODEL_NAME", name, "UNIFORMER.FRAME_BASE",
+                         name == "Uniformerframe", "NUM_GPUS", 2, "TPU.SHARD_STRATEGY", "dp_sp"])
+    distributed.refuse_sequence_parallel(cfg)
+    model = build_model(cfg, device="cpu", dtype=torch.float32)
+    assert type(model).__name__ in distributed.SEQUENCE_PARALLEL_MODELS
+    kernels = [model.patch_embed1.proj.kernel_size[0]] + [
+        getattr(model, f"patch_embed{i}").proj.kernel_size[0] for i in (2, 3, 4)]
+    assert kernels == ([1] * 4 if name == "Uniformerframe" else [3, 1, 1, 1])
 
 
 def _grid_cfg():
@@ -237,47 +255,99 @@ def _grid_cfg():
     return cfg
 
 
-def test_a_2x2_grid_step_equals_one_process(tmp_path):
-    """Data groups {0, 2} and {1, 3}, model groups {0, 1} and {2, 3}; each
-    model group holds 2 of the global batch's 4 rows (MixUp mixing them
-    with the other group's, reversed), each rank half of their planes; the
-    head pools the tokens' mean."""
-    cfg = _grid_cfg()
-    rng = np.random.default_rng(4)
-    batch = {"frames": rng.integers(0, 256, (4, 8, 16, 16, 3), np.uint8),
+def _grid_uniformer_cfg():
+    """Tiny UniFormer at 8 frames (2 token planes a rank after the stride-2
+    patch embed), BatchNorm's statistics over the 4 ranks' (rows, planes),
+    DropPath on."""
+    cfg = get_cfg()
+    cfg.merge_from_file(str(ROOT / "configs" / "Kinetics" / "UNIFORMER_S_16x4.yaml"))
+    cfg.merge_from_list([*TINY_UNIFORMER, "DATA.NUM_FRAMES", 8, "DATA.TRAIN_CROP_SIZE", 32,
+                         "UNIFORMER.DROP_DEPTH_RATE", 0.5, "AUG.ENABLE", True, "AUG.AA_TYPE",
+                         "rand-m7-n1-mstd0.5-inc1", "AUG.RE_PROB", 0.5, "NUM_GPUS", 1,
+                         "TPU.SHARD_STRATEGY", "dp_sp"])
+    return cfg
+
+
+def _grid_case(cfg, seed):
+    """The port's seeded model, a global batch of 4 and its draws."""
+    rng = np.random.default_rng(seed)
+    size = cfg.DATA.TRAIN_CROP_SIZE
+    batch = {"frames": rng.integers(0, 256, (4, 8, size, size, 3), np.uint8),
              "labels": rng.integers(0, cfg.MODEL.NUM_CLASSES, 4)}
-    model = build_model(cfg, device="cpu", dtype=torch.float32, seed=5)
-    step = make_train_step(cfg, device="cpu")
-    draws = step.sample_draws(model, batch["frames"].shape)
-    case = {"cfg": cfg, "state_dict": {k: v.clone() for k, v in model.state_dict().items()},
-            "batch": batch, "draws": draws, "lr": 1e-3}
-    torch.save(case, tmp_path / "grid_case.pt")
-    procs = start_ranks(rank_grid_case, str(tmp_path), world=4,
-                        model_size=mesh.model_size(cfg, 4))
+    model = build_model(cfg, device="cpu", dtype=torch.float32, seed=seed + 1)
+    draws = make_train_step(cfg, device="cpu").sample_draws(model, batch["frames"].shape)
+    return model, {"cfg": cfg, "state_dict": {k: v.clone() for k, v in model.state_dict().items()},
+                   "batch": batch, "draws": draws, "lr": 1e-3}
+
+
+@pytest.fixture(scope="module")
+def grid_ranks(tmp_path_factory):
+    """MViT's and UniFormer's dp_sp steps on 4 ranks, a grid of data 2 x model
+    2, one spawn; each one-process step on the global batch, computed here
+    while the ranks run."""
+    case_dir = tmp_path_factory.mktemp("grid")
+    models, cases = {}, {}
+    for name, cfg, seed in (("mvit", _grid_cfg(), 4), ("uniformer", _grid_uniformer_cfg(), 6)):
+        models[name], cases[name] = _grid_case(cfg, seed)
+    torch.save(cases, case_dir / "grid_case.pt")
+    procs = start_ranks(rank_grid_case, str(case_dir), world=4,
+                        model_size=mesh.model_size(cases["mvit"]["cfg"], 4))
     try:
-        metrics = step(init_state(cfg, model), batch, case["lr"], draws)
-        grads = {k: p.grad.clone() for k, p in model.named_parameters()}
+        refs = {}
+        for name, case in cases.items():
+            model = models[name]
+            metrics = make_train_step(case["cfg"], device="cpu")(
+                init_state(case["cfg"], model), case["batch"], case["lr"], case["draws"])
+            refs[name] = (metrics, {k: p.grad.clone() for k, p in model.named_parameters()},
+                          model.state_dict())
     finally:
         join_ranks(procs)
-    got = torch.load(tmp_path / "grid_results.pt", weights_only=False)
-    layouts, data_axis, partners = got["ranks"]
-    assert layouts == [[0, 2, 0, 2], [0, 2, 1, 2], [1, 2, 0, 2], [1, 2, 1, 2]]
-    assert data_axis == [[0.0, 2.0], [1.0, 3.0], [0.0, 2.0], [1.0, 3.0]]
-    assert partners == [2.0, 3.0, 0.0, 1.0]
+    return torch.load(case_dir / "grid_results.pt", weights_only=False), refs
+
+
+def _assert_grid_step(got, ref, skip=()):
+    metrics, grads, state = ref
     for key in ("loss", "grad_norm", "top1_err", "top5_err"):
         np.testing.assert_allclose(got["metrics"][key], float(metrics[key]), rtol=1e-5,
                                    err_msg=key)
     diff = sum(float((got["grads"][k] - g).square().sum()) for k, g in grads.items())
     assert (diff / sum(float(g.square().sum()) for g in grads.values())) ** 0.5 < 1e-5
-    for key, value in model.state_dict().items():
-        if not key.endswith("norm_k.bias"):  # float noise that Adam scales to +-lr
+    for key, value in state.items():
+        if not key.endswith(skip):
             torch.testing.assert_close(got["state"][key], value, atol=1e-5, rtol=0, msg=key)
+
+
+def test_a_2x2_grid_step_equals_one_process(grid_ranks):
+    """Data groups {0, 2} and {1, 3}, model groups {0, 1} and {2, 3}; each
+    model group holds 2 of the global batch's 4 rows (MixUp mixing them
+    with the other group's, reversed), each rank half of their planes; the
+    head pools the tokens' mean."""
+    got, refs = grid_ranks
+    layouts, data_axis, partners = got["ranks"]
+    assert layouts == [[0, 2, 0, 2], [0, 2, 1, 2], [1, 2, 0, 2], [1, 2, 1, 2]]
+    assert data_axis == [[0.0, 2.0], [1.0, 3.0], [0.0, 2.0], [1.0, 3.0]]
+    assert partners == [2.0, 3.0, 0.0, 1.0]
+    # MViT's key-norm bias: float noise that Adam scales to +-lr.
+    _assert_grid_step(got["steps"]["mvit"], refs["mvit"], skip=("norm_k.bias",))
+
+
+def test_a_2x2_grid_uniformer_step_equals_one_process(grid_ranks):
+    """UniFormer on the same grid: BatchNorm's statistics over 4 ranks,
+    each holding its (rows, planes); K and V gathered over the model group;
+    the feature mean summed over it."""
+    got, refs = grid_ranks
+    # The last block's fc2 bias reaches the loss only as a per-channel shift
+    # into the final BatchNorm: its gradient is float noise, as
+    # tests/test_torch_port_uniformer_train.py finds.
+    _assert_grid_step(got["steps"]["uniformer"], refs["uniformer"],
+                      skip=("blocks4.0.mlp.fc2.bias",))
 
 
 @pytest.mark.parametrize("kernel", ["forward", "wgrad"])
 @pytest.mark.parametrize("elem", [2, 4], ids=["bfloat16", "float32"])
-@pytest.mark.parametrize(
-    "shape", [s for s, _ in dw.MVIT_SP_POOL_SHAPES + dw.MVIT_SP_SQUARE_POOL_SHAPES])
+@pytest.mark.parametrize("shape", [s for s, _ in dw.MVIT_SP_POOL_SHAPES + dw.MVIT_SP_SQUARE_POOL_SHAPES
+                                   + dw.UNIFORMER_SP_DPE_SHAPES
+                                   + dw.UNIFORMER_SP_TEST_DPE_SHAPES])
 def test_a_launch_plan_fits_each_halo_extended_shape(shape, elem, kernel):
     assert shape[1] == 6
     plan = (dw.plan_forward if kernel == "forward" else dw.plan_wgrad)(shape, elem)
@@ -286,49 +356,76 @@ def test_a_launch_plan_fits_each_halo_extended_shape(shape, elem, kernel):
     assert plan.smem_bytes <= dw.SMEM_PER_BLOCK and plan.blocks >= dw.H100_SMS
 
 
-def _start_run_net(out, nproc, *opts):
-    """run_net on the tiny yaml at 4 frames, 4 clips a step, in ``nproc``
-    processes (one thread each) of a process group of its own."""
-    argv = [sys.executable, "-m", "pmv_tpu_torch.tools.run_net", "--cfg",
-            str(ROOT / "configs" / "tiny_synthetic.yaml"), "--device", "cpu", "--init_method",
-            f"tcp://127.0.0.1:{free_port()}", "--opts", "OUTPUT_DIR", str(out), "NUM_GPUS",
-            str(nproc), "DATA.NUM_FRAMES", "4", "TRAIN.BATCH_SIZE", "4", "TEST.BATCH_SIZE", "4",
-            "DATA_LOADER.NUM_WORKERS", "2", *opts]
-    return subprocess.Popen(argv, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                            text=True, start_new_session=True,
-                            env={**os.environ, "OMP_NUM_THREADS": "1"})
+def _start_run_net(out, nproc, *opts, cfg="tiny_synthetic.yaml"):
+    """run_net on ``cfg`` (the tiny yaml by default) at 4 clips a step, in
+    ``nproc`` processes (``start_run_net``)."""
+    return start_run_net([
+        "--cfg", str(ROOT / "configs" / cfg), "--device", "cpu", "--init_method",
+        f"tcp://127.0.0.1:{free_port()}", "--opts", "OUTPUT_DIR", str(out), "NUM_GPUS",
+        str(nproc), "TRAIN.BATCH_SIZE", "4", "TEST.BATCH_SIZE", "4",
+        "DATA_LOADER.NUM_WORKERS", "2", *opts])
 
 
 def _finish_run_net(proc, out):
-    """Wait for ``proc`` (killed with what it spawned after JOIN_TIMEOUT_S);
-    its log's lines and test_final stats."""
-    try:
-        log, _ = proc.communicate(timeout=JOIN_TIMEOUT_S)
-    except subprocess.TimeoutExpired:
-        os.killpg(proc.pid, 9)
-        proc.communicate()
-        raise AssertionError("run_net hung")
-    assert proc.returncode == 0, log[-4000:]
+    """Wait for ``proc`` (``finish_run_net``); its log's lines and
+    test_final stats."""
+    finish_run_net(proc)
     lines = (out / "stdout.log").read_text().splitlines()
     return lines, [json.loads(line.split("json_stats: ", 1)[1]) for line in lines
                    if "json_stats: " in line and "test_final" in line]
 
 
-def test_run_net_under_dp_sp_equals_one_process(tmp_path):
+# Tiny UniFormer with the PMV rect recipe's crop options, at 8 frames (2 + 2
+# token planes), one clip a video, one test view, one epoch.
+UNIFORMER_RUN = ("--cfg", "Kinetics/UNIFORMER_S_16x4.yaml", *TINY_UNIFORMER,
+                 "DATA.NUM_FRAMES", 8, "DATA.TRAIN_CROP_SIZE", 32, "DATA.TEST_CROP_SIZE", 32,
+                 "DATA.TRAIN_CROP_SIZE_RECT", [48, 32], "DATA.TRAIN_JITTER_SCALES", [32, 40],
+                 "DATA.TRAIN_JITTER_SCALES_RELATIVE", [],
+                 "DATA.TRAIN_JITTER_ASPECT_RELATIVE", [],
+                 "DATA.TRAIN_JITTER_SCALES_AUTO_ADJUST", True, "TRAIN.DATASET", "synthetic",
+                 "TEST.DATASET", "synthetic", "TRAIN.MIXED_PRECISION", False,
+                 "AUG.NUM_SAMPLE", 1, "TEST.NUM_ENSEMBLE_VIEWS", 1,
+                 "TEST.NUM_SPATIAL_CROPS", 1, "SOLVER.MAX_EPOCH", 1)
+
+
+def _uniformer_run(out, nproc, *opts):
+    cfg, opts_all = UNIFORMER_RUN[1], [str(o) for o in UNIFORMER_RUN[2:] + opts]
+    return _start_run_net(out, nproc, *opts_all, cfg=cfg)
+
+
+@pytest.fixture(scope="module")
+def run_nets(tmp_path_factory):
+    """run_net under dp_sp with NUM_GPUS 2 and in one process: the tiny MViT
+    at 4 frames (2 token planes, one a rank) and tiny UniFormer, all four
+    at once; then UniFormer's 2 processes again with SOLVER.MAX_EPOCH 2."""
+    root = tmp_path_factory.mktemp("run_nets")
+    runs = {
+        ("mvit", 2): _start_run_net(root / "mvit2", 2, "DATA.NUM_FRAMES", "4",
+                                    "TPU.SHARD_STRATEGY", "dp_sp"),
+        ("mvit", 1): _start_run_net(root / "mvit1", 1, "DATA.NUM_FRAMES", "4"),
+        ("uniformer", 2): _uniformer_run(root / "uniformer2", 2, "TPU.SHARD_STRATEGY", "dp_sp"),
+        ("uniformer", 1): _uniformer_run(root / "uniformer1", 1),
+    }
+    out = {key: _finish_run_net(proc, root / f"{key[0]}{key[1]}") for key, proc in runs.items()}
+    resumed = _uniformer_run(root / "uniformer2", 2, "TPU.SHARD_STRATEGY", "dp_sp",
+                             "SOLVER.MAX_EPOCH", "2")
+    out["uniformer", "resumed"] = _finish_run_net(resumed, root / "uniformer2")
+    return root, out
+
+
+def test_run_net_under_dp_sp_equals_one_process(run_nets):
     """... and its checkpoint resumes in one process under dp, every weight
     and AdamW tensor as written."""
-    procs = [_start_run_net(tmp_path / "two", 2, "TPU.SHARD_STRATEGY", "dp_sp"),
-             _start_run_net(tmp_path / "one", 1)]
-    (lines, two), (_, one) = [_finish_run_net(p, tmp_path / d)
-                              for p, d in zip(procs, ("two", "one"))]
+    root, out = run_nets
+    (lines, two), (_, one) = out["mvit", 2], out["mvit", 1]
     assert two == one and len(two) == 1
     assert sum("Saved checkpoint" in line for line in lines) == 1
-    path = tmp_path / "two" / "checkpoints" / "checkpoint_epoch_00001.pyth"
+    path = root / "mvit2" / "checkpoints" / "checkpoint_epoch_00001.pyth"
     assert os.listdir(path.parent) == [path.name]
 
     cfg = get_cfg()
     cfg.merge_from_file(str(ROOT / "configs" / "tiny_synthetic.yaml"))
-    cfg.merge_from_list(["DATA.NUM_FRAMES", 4, "OUTPUT_DIR", str(tmp_path / "two")])
+    cfg.merge_from_list(["DATA.NUM_FRAMES", 4, "OUTPUT_DIR", str(root / "mvit2")])
     state = init_state(cfg, build_model(cfg, device="cpu", dtype=torch.float32))
     assert cu.load_train_checkpoint(cfg, state) == 1
     ckpt = torch.load(path, weights_only=True)
@@ -338,3 +435,23 @@ def test_run_net_under_dp_sp_equals_one_process(tmp_path):
     for i, entries in ckpt["optimizer_state"]["state"].items():
         for key, value in entries.items():
             assert torch.equal(opt[i][key], value), (i, key)
+
+
+def test_run_net_uniformer_under_dp_sp_equals_one_process_and_resumes(run_nets):
+    """UniFormer under dp_sp with NUM_GPUS 2 (the rect crop, BatchNorm's
+    statistics over both ranks' planes, the gathered eval, the test of
+    model rank 0's clips): one process's test_final and weights; one
+    checkpoint, written by rank 0; a second call resumes from it."""
+    root, out = run_nets
+    (lines, two), (_, one) = out["uniformer", 2], out["uniformer", 1]
+    assert two == one and len(two) == 1
+    assert sum("Saved checkpoint" in line for line in lines) == 1
+    ckpts = [torch.load(root / d / "checkpoints" / "checkpoint_epoch_00001.pyth",
+                        weights_only=True)["model_state"] for d in ("uniformer2", "uniformer1")]
+    for key, value in ckpts[1].items():
+        torch.testing.assert_close(ckpts[0][key], value, atol=1e-5, rtol=1e-5, msg=key)
+    lines, final = out["uniformer", "resumed"]
+    assert any("Load from last checkpoint" in line for line in lines)
+    assert any("Start epoch: 2" in line for line in lines) and len(final) == 2
+    assert sorted(os.listdir(root / "uniformer2" / "checkpoints")) == [
+        "checkpoint_epoch_00001.pyth", "checkpoint_epoch_00002.pyth"]

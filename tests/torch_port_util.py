@@ -192,21 +192,24 @@ def jax_dropout_masks(jmodel, variables, x, key, **kwargs):
     return [np.asarray(m) for m in jax_dropout_masks_fn(jmodel, x, **kwargs)(variables, key)]
 
 
-def jax_dropout_masks_fn(jmodel, x, **kwargs):
+def jax_dropout_masks_fn(jmodel, x, module_type=None, **kwargs):
     """masks(variables, key): ``jax_dropout_masks`` compiled once for every
     key. A mask depends on the key, the module's path and the shape, not on
-    the values: each Dropout is called once, on ones, and its output read.
+    the values: each Dropout (each ``module_type`` module, when given: the
+    JAX package's DropPath) is called once, on ones, and its output read.
     The apply is jitted: it returns the masks only, so XLA drops the rest
     of the model."""
     import flax.linen as fnn
     import jax
     import jax.numpy as jnp
 
+    module_type = module_type or fnn.Dropout
+
     def masks_of(variables, key):
         masks = []
 
         def interceptor(next_fun, args, call_kwargs, context):
-            if isinstance(context.module, fnn.Dropout) and context.method_name == "__call__":
+            if isinstance(context.module, module_type) and context.method_name == "__call__":
                 kept = next_fun(jnp.ones_like(args[0]), *args[1:], **call_kwargs)
                 masks.append(kept != 0)
                 return args[0] * kept
@@ -219,6 +222,27 @@ def jax_dropout_masks_fn(jmodel, x, **kwargs):
         return masks
 
     return jax.jit(masks_of)
+
+
+def jax_drop_path_masks(jmodel, variables, x, key, model, **kwargs):
+    """The DropPath keep masks that the JAX package's train step draws with
+    ``rngs={"dropout": key}`` on an input of ``x``'s shape, in the layout of
+    the port ``model``'s ``sample_drop_path_masks``: per block, None where
+    its rate is 0, else one float32 mask a residual branch, in call
+    order."""
+    from pmv_tpu.models.common import DropPath
+
+    masks = iter(jax_dropout_masks_fn(jmodel, x, DropPath, **kwargs)(variables, key))
+    out = []
+    for _, blocks in model._stages():
+        for block in blocks:
+            # A kept branch's ones, [rows, ...]: a row's mask is its first value.
+            drawn = [(lambda m: m.reshape(m.shape[0], -1)[:, 0])(np.asarray(next(masks)))
+                     for _ in block.mask_rows]
+            out.append(None if block.drop_path_rate == 0.0 else tuple(
+                torch.tensor(m, dtype=torch.float32) for m in drawn))
+    assert next(masks, None) is None, "the JAX model drew more DropPath masks than the port"
+    return out
 
 
 def folded_like(mask, shape):
@@ -515,6 +539,42 @@ def join_ranks(procs, timeout=JOIN_TIMEOUT_S):
     assert all(p.exitcode == 0 for p in procs), [p.exitcode for p in procs]
 
 
+def start_run_net(argv):
+    """``python -m pmv_tpu_torch.tools.run_net`` with ``argv`` started in a
+    process group of its own (a multi-process job's ranks, which it spawns,
+    join the group), each process computing on one thread (OMP_NUM_THREADS
+    1, which the ranks inherit): beside other test workers on a shared CPU,
+    ranks whose intra-op threads claim the host's cores wait on each
+    other's threads. ``finish_run_net`` waits for it."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    return subprocess.Popen([sys.executable, "-m", "pmv_tpu_torch.tools.run_net", *argv],
+                            cwd=Path(__file__).resolve().parents[1], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, start_new_session=True,
+                            env={**os.environ, "OMP_NUM_THREADS": "1"})
+
+
+def finish_run_net(proc, timeout=JOIN_TIMEOUT_S):
+    """Wait for ``start_run_net``'s ``proc``, killed with every rank it
+    spawned after ``timeout`` seconds; its output. Fails on a hang or a
+    non-zero exit."""
+    import os
+    import signal
+    import subprocess
+
+    try:
+        log, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError(f"run_net {proc.args[3:]} hung")
+    assert proc.returncode == 0, log[-4000:]
+    return log
+
+
 def local_rows(batch, rank, world):
     """Rank ``rank``'s rows of a global batch (a dict of arrays)."""
     b = len(batch["frames"]) // world
@@ -617,15 +677,17 @@ def rank_detection(rank, world, case, strategy=None):
 
 def rank_sp_case(rank, world, case):
     """The dp_sp case (cfg naming TPU.SHARD_STRATEGY dp_sp, state_dict, the
-    global batch and its draws, lr; "eval": frames and portrait flags;
-    "test": clips, labels, clips a video, rows a data group a step) on this
-    rank: the train step (``rank_train_step``) with the shapes the K1 and
-    wgrad calls took; the eval step's scores on the eval frames; then
-    ``perform_test`` through the loader's shard of this rank's data index
-    (the meter's scores, clip counts and stats), with the model of the
-    case's weights."""
+    global batch and its draws, lr; optionally "eval": frames and portrait
+    flags; "test": clips, labels, clips a video, rows a data group a step;
+    "precise_batches": global batches) on this rank: the train step
+    (``rank_train_step``) with the shapes the K1 and wgrad calls took; the
+    eval step's scores on the eval frames; ``perform_test`` through the
+    loader's shard of this rank's data index (the meter's scores, clip
+    counts and stats); precise BN over its rows of the batches (the running
+    statistics after it); each with the model of the case's weights."""
     from pmv_tpu_torch.data.loader import DataLoader
-    from pmv_tpu_torch.engine.steps import make_eval_step
+    from pmv_tpu_torch.engine.precise_bn import calculate_and_update_precise_bn
+    from pmv_tpu_torch.engine.steps import init_state, make_eval_step
     from pmv_tpu_torch.engine.test import perform_test
     from pmv_tpu_torch.models import build_model
     from pmv_tpu_torch.ops.depthwise import record_shapes
@@ -637,6 +699,17 @@ def rank_sp_case(rank, world, case):
     out["shapes"] = shapes
     cfg = case["cfg"]
     lay = mesh.layout(cfg)
+    out["layout"] = lay
+    if "precise_batches" in case:
+        model = build_model(cfg, device="cpu", dtype=torch.float32)
+        model.load_state_dict(case["state_dict"])
+        calculate_and_update_precise_bn(
+            [local_rows(b, lay.data, lay.data_size) for b in case["precise_batches"]],
+            init_state(cfg, model), cfg, "cpu")
+        out["precise_bn"] = {k: v.clone() for k, v in model.state_dict().items()
+                             if "running" in k}
+    if "eval" not in case:
+        return out
     model = build_model(cfg, device="cpu", dtype=torch.float32)
     model.load_state_dict(case["state_dict"])
     eval_step = make_eval_step(cfg, model, device="cpu")
@@ -653,24 +726,24 @@ def rank_sp_case(rank, world, case):
     meter, stats = perform_test(loader, eval_step, meter, lay)
     out["test"] = {"stats": stats, "video_preds": meter.video_preds,
                    "clip_count": meter.clip_count, "steps": len(loader)}
-    out["layout"] = lay
     return out
 
 
 def rank_grid_case(rank, world, case_dir):
-    """``case_dir/grid_case.pt``'s dp_sp step on this rank of a 2 x 2 grid
-    (``rank_train_step``), and the data-axis collectives: every data
-    index's rank (``distributed.gather_rows``) and the MixUp partner's
-    (``distributed.partner_rows``), on each rank; rank 0 writes them all to
-    ``case_dir/grid_results.pt``."""
+    """``case_dir/grid_case.pt``'s dp_sp steps ({name: case}) on this rank of
+    a 2 x 2 grid (``rank_train_step``), and the data-axis collectives:
+    every data index's rank (``distributed.gather_rows``) and the MixUp
+    partner's (``distributed.partner_rows``), on each rank; rank 0 writes
+    them all to ``case_dir/grid_results.pt``."""
     from pathlib import Path
 
     from pmv_tpu_torch.parallel import distributed, mesh
 
     case_dir = Path(case_dir)
-    case = torch.load(case_dir / "grid_case.pt", weights_only=False)
-    out, _ = rank_train_step(rank, world, case, "dp_sp")
-    lay = mesh.layout(case["cfg"])
+    cases = torch.load(case_dir / "grid_case.pt", weights_only=False)
+    out = {"steps": {name: rank_train_step(rank, world, case, "dp_sp")[0]
+                     for name, case in cases.items()}}
+    lay = mesh.layout(next(iter(cases.values()))["cfg"])
     mine = torch.tensor([float(rank)])
     out["layout"] = (lay.data, lay.data_size, lay.model, lay.model_size)
     out["data_axis"] = distributed.gather_rows(mine, lay).flatten().tolist()
@@ -790,42 +863,85 @@ def rank_cases(rank, world, case_dir):
     # gathered test.
     out["detection"] = rank_detection(rank, world, cases["detection"], "dp")
 
-    # (j): MViT under dp_sp, a grid of data 1 x model 2: every rank's
-    # results, gathered to rank 0.
-    sp = rank_sp_case(rank, world, cases["sp"])
-    sp_ranks = [None] * world
-    torch.distributed.all_gather_object(sp_ranks, sp)
-    out["sp"] = sp_ranks
+    # (j), (k): MViT and UniFormer under dp_sp, a grid of data 1 x model 2:
+    # every rank's results, gathered to rank 0.
+    for key in ("sp", "uniformer_sp", "uniformer_split_sp"):
+        sp = rank_sp_case(rank, world, cases[key])
+        sp_ranks = [None] * world
+        torch.distributed.all_gather_object(sp_ranks, sp)
+        out[key] = sp_ranks
     if rank == 0:
         torch.save(out, case_dir / "results.pt")
 
 
+def _rank_ssl_step(rank, world, name, case, strategy):
+    """One SSL step of ``case`` on this rank's rows under ``strategy``: its
+    metrics, the whole gradients, the state after it, and the TrainState."""
+    from pmv_tpu_torch.engine import ssl_steps
+    from pmv_tpu_torch.models import build_model
+    from pmv_tpu_torch.parallel import distributed
+
+    cfg = case["cfg"]
+    model = build_model(cfg, device="cpu", dtype=torch.float32)
+    model.load_state_dict(case["state_dict"])
+    wrapped = distributed.wrap_model(model, strategy, torch.device("cpu"))
+    state = ssl_steps.init_ssl_state(cfg, model, wrapped=wrapped)
+    make = ssl_steps.make_masked_train_step if name == "maskfeat" else \
+        ssl_steps.make_ssl_train_step
+    metrics = make(cfg, device="cpu")(state, local_rows(case["batch"], rank, world),
+                                      case["lr"], case["draws"])
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "grads": {k: distributed.full(p.grad).clone() for k, p in model.named_parameters()},
+            "state": whole_state(model)}, state
+
+
 def rank_ssl_cases(rank, world, case_dir):
     """Each SSL step of ``case_dir/ssl_cases.pt`` (cfg, state_dict, global
-    batch, its draws, lr; "masked" or a contrastive step) under ``dp`` on
-    this rank's rows; rank 0 writes the metrics, the whole gradients and
+    batch, its draws, lr; "maskfeat" or a contrastive step) under ``dp`` and
+    under ``fsdp`` on this rank's rows; then ``ssl_resume``'s step under
+    each strategy, its checkpoint (``save_checkpoint``) resumed under the
+    other (``load_checkpoint``: the state and the optimizer's state), and a
+    second step there. Rank 0 writes the metrics, the whole gradients and
     the state after each to ``case_dir/ssl_results.pt``."""
     from pathlib import Path
 
     from pmv_tpu_torch.engine import ssl_steps
     from pmv_tpu_torch.models import build_model
     from pmv_tpu_torch.parallel import distributed
+    from pmv_tpu_torch.utils import checkpoint as cu
 
     case_dir = Path(case_dir)
+    cases = torch.load(case_dir / "ssl_cases.pt", weights_only=False)
+    resume = cases.pop("ssl_resume")
     out = {}
-    for name, case in torch.load(case_dir / "ssl_cases.pt", weights_only=False).items():
-        cfg = case["cfg"]
+    for name, case in cases.items():
+        for strategy in ("dp", "fsdp"):
+            out[name, strategy], _ = _rank_ssl_step(rank, world, name, case, strategy)
+
+    cfg = resume["cfg"].clone()
+    first, second = {}, {}
+    for strategy, other in (("dp", "fsdp"), ("fsdp", "dp")):
+        cfg.OUTPUT_DIR = str(case_dir / f"ssl_{strategy}")
+        _, state = _rank_ssl_step(rank, world, "moco", resume, strategy)
+        cu.save_checkpoint(cfg.OUTPUT_DIR, state, 0, cfg)
         model = build_model(cfg, device="cpu", dtype=torch.float32)
-        model.load_state_dict(case["state_dict"])
-        wrapped = distributed.wrap_model(model, "dp", torch.device("cpu"))
-        state = ssl_steps.init_ssl_state(cfg, model, wrapped=wrapped)
-        make = ssl_steps.make_masked_train_step if name == "maskfeat" else \
-            ssl_steps.make_ssl_train_step
-        metrics = make(cfg, device="cpu")(state, local_rows(case["batch"], rank, world),
-                                          case["lr"], case["draws"])
-        out[name] = {"metrics": {k: float(v) for k, v in metrics.items()},
-                     "grads": {k: p.grad.clone() for k, p in model.named_parameters()},
-                     "state": whole_state(model)}
+        resumed = ssl_steps.init_ssl_state(cfg, model, wrapped=distributed.wrap_model(
+            model, other, torch.device("cpu")))
+        path = cu.get_last_checkpoint(cfg.OUTPUT_DIR, cfg.TASK)
+        assert cu.load_checkpoint(path, resumed) == 0
+        opt_state = cu.full_state(resumed)[1]
+        opt_state["state"] = {i: {k: v.clone() for k, v in st.items()}
+                              for i, st in opt_state["state"].items()}
+        first[strategy] = whole_state(model), opt_state
+        ssl_steps.make_ssl_train_step(cfg, device="cpu")(
+            resumed, local_rows(resume["batch2"], rank, world), resume["lr"])
+        second[strategy] = whole_state(model)
+    out["ssl_resume"] = {
+        "first": first, "second": second,
+        "files": {s: sorted(p.name for p in (case_dir / f"ssl_{s}" / "checkpoints").iterdir())
+                  for s in ("dp", "fsdp")},
+        "written": {s: torch.load(cu.get_last_checkpoint(str(case_dir / f"ssl_{s}"), cfg.TASK),
+                                  weights_only=True)["model_state"] for s in ("dp", "fsdp")}}
     if rank == 0:
         torch.save(out, case_dir / "ssl_results.pt")
 
