@@ -26,7 +26,10 @@ Phases, in order; any failure raises and exits non-zero:
    8e checks that each of its calls is at one of them), and the 224^2
    crop's at batch 8; UniFormer-S's DPE shapes likewise, the rect crop's
    and their transposes at batch 2 and 4 and its 224^2 test crop's at
-   batch 4 (``sp_uniformer_*``).
+   batch 4 (``sp_uniformer_*``); X3D-M's channelwise convs on 8 + 2 of its
+   16 frames, the rect crop's and their transposes at batch 2 and 4 and
+   its 256^2 test crop's at batch 4 (``sp_x3d_*``), and ir-CSN-101's conv_bs
+   on half of each stage's planes + 2 at batch 2 (``sp_csn_b2``).
 3. Build full-width MViTv2-S 16x4 from a seeded init and run its eval step
    at batch 1 in float32 on the card and on the CPU (the CPU copy takes the
    plain versions); the class scores must agree, and one forward must
@@ -360,24 +363,32 @@ Distributed (``pmv_tpu_torch/parallel/distributed.py``):
    same seeded init, float32 at batch 2 under phase 3b's gates with the SSL
    state to 1e-5, bfloat16 at batch 8 within BF16_WRAPPER_LIMIT, then 3
    timed steps of each (main paths): the wrapper's overhead in ms.
-   8e: MViTv2-S 16x4 under TPU.SHARD_STRATEGY dp_sp (temporal sequence
-   parallelism, ``parallel/mesh.py``), 2 ranks over gloo on the one card, a
-   grid of data 1 x model 2: full width and depth, 16 frames of the PMV
-   rect crop, the bench recipe, float32, a global batch of 2 that both
-   ranks hold, each its 4 of the 8 token planes; each rank's eval scores
-   (atol 1e-4) and train step (phase 3b's gates) against one process on
-   the card; each rank's 17 K1, 17 dx and 17 wgrad calls a train step, 17
-   K1 an eval, on 4 + 2 halo planes; 3 timed bf16 steps a rank (a main
-   path) beside one process's, and the bytes its halos, K/V gathers and
-   reductions hand to all_reduce a step; then ``run_net --num_shards 2
-   TPU.SHARD_STRATEGY dp_sp`` on the MViT rect recipe in float32 (16
-   Synthetic videos, 4 a step) against one process under 8c's gates (logs
-   in ``build/chip_smoke_sequence_parallel_run_net/``). Then the same for
-   UniFormer-S 16x4 (its recipe with the rect 256x192 run of
-   exps/PMV/run_Uniformer_PMV.sh: 18 K1, 18 dx and 18 wgrad a rank a step,
-   the BatchNorm statistics over both ranks' planes held to one process's;
-   its run_net tests the recipe's 224^2 crop; files in
-   ``build/chip_smoke_sequence_parallel_uniformer{,_run_net}/``).
+   8e: every classification model under TPU.SHARD_STRATEGY dp_sp
+   (temporal sequence parallelism, ``parallel/mesh.py``) in one spawn of 2
+   ranks over gloo on the one card, a grid of data 1 x model 2: full width
+   and depth, float32, a global batch of 2 that both ranks hold, each
+   rank half of its planes. MViTv2-S 16x4 (16 frames of the PMV rect
+   crop, the bench recipe; 17 K1, 17 dx and 17 wgrad a rank a step on
+   4 + 2 halo planes), UniFormer-S 16x4 (the rect 256x192 run of
+   exps/PMV/run_Uniformer_PMV.sh: 18 each), X3D-M (the rect_256_192 run of
+   exps/PMV/run_X3D_PMV.sh: 22 each on 8 + 2 planes, C 54 and 108 through
+   the pad), SlowFast 8x8 R50 (32 frames of 224^2: 16 fast and 4 slow a
+   rank), ir-CSN-101 32x2 (30 each on 16, 8, 4 and 2 planes + 2),
+   R(2+1)D-50 16x4 and AVSlowFast 8x8 R50 (its log-mel audio whole on
+   each rank); each rank's eval scores (atol 1e-4) and train step against
+   one process on the card (phase 3b's gates for MViT and UniFormer; the
+   ReLU nets free to ``RELU_LIMITS``, then X3D-M and CSN with the one
+   process's ReLU decisions and the others in float64 on 8 frames, as
+   their card-against-CPU phases hold them); BatchNorm's statistics over
+   both ranks' planes held to one process's; 3 timed bf16 steps a rank (a
+   main path) beside one process's, and the bytes its halos, gathers and
+   reductions hand to all_reduce a step (files in
+   ``build/chip_smoke_sequence_parallel/``). Then ``run_net --num_shards 2
+   TPU.SHARD_STRATEGY dp_sp`` on MViT's, UniFormer's (its 224^2 test crop)
+   and X3D-M's (its 256^2 test crop) rect recipes in float32 (16 Synthetic
+   videos, 4 a step), each against one process under 8c's gates, the 9
+   processes started at once (logs in
+   ``build/chip_smoke_sequence_parallel_run_net/``).
    ``--plant-wrapper-faults`` logs 8b's readings with faults planted in
    the wrappers instead of running the phases.
 9. Print the script's wall time, the kernels line, the card line, and
@@ -535,7 +546,12 @@ def _kernel_cases():
     "sp_portrait_b4") and at the 224^2 crop at batch 8 ("sp_square_b8"), and
     UniFormer-S 16x4's DPE shapes likewise ("sp_uniformer_rect_b2" ...
     "sp_uniformer_portrait_b4"), and at its 224^2 test crop at batch 4
-    ("sp_uniformer_square_b4"); UniFormer-S 16x4's DPE shapes on the
+    ("sp_uniformer_square_b4"), X3D-M's channelwise-conv shapes likewise
+    on 8 + 2 of its 16 frames ("sp_x3d_rect_b2" ... "sp_x3d_portrait_b4",
+    and its 256^2 test crop's at batch 4, "sp_x3d_square_b4"), and
+    ir-CSN-101's conv_b shapes at batch 2 on 32 x 224^2, half of each
+    stage's planes and 2 halo planes ("sp_csn_b2"); UniFormer-S 16x4's DPE
+    shapes on the
     same grids at batch 8 and 16 ("uni_square" ... "uni_portrait_b16");
     X3D-M's channelwise-conv shapes at batch 8 ("x3d_square", "x3d_rect",
     "x3d_portrait", "x3d_test" at 256^2), ir-CSN-101's conv_b shapes at
@@ -561,8 +577,11 @@ def _kernel_cases():
         X3D_DW_SHAPES,
         X3D_PORTRAIT_DW_SHAPES,
         X3D_RECT_DW_SHAPES,
+        X3D_SP_DW_SHAPES,
+        X3D_SP_TEST_DW_SHAPES,
         X3D_TEST_DW_SHAPES,
         CSN_DW_SHAPES,
+        CSN_SP_DW_SHAPES,
         CSN_TEST_DW_SHAPES,
     )
 
@@ -577,6 +596,9 @@ def _kernel_cases():
            for s, n in MVIT_SP_POOL_SHAPES + MVIT_SP_SQUARE_POOL_SHAPES]
         + [(s, n, f"sp_uniformer_{_orientation(s)}_b{s[0]}")
            for s, n in UNIFORMER_SP_DPE_SHAPES + UNIFORMER_SP_TEST_DPE_SHAPES]
+        + [(s, n, f"sp_x3d_{_orientation(s)}_b{s[0]}")
+           for s, n in X3D_SP_DW_SHAPES + X3D_SP_TEST_DW_SHAPES]
+        + [(s, n, "sp_csn_b2") for s, n in CSN_SP_DW_SHAPES]
         + [(s, n, "uni_" + _orientation(s) + ("_b16" if s[0] == PMV_TRAIN_BATCH else ""))
            for s, n in uniformer]
         + [(s, n, "x3d_" + g) for shapes, g in (
@@ -3712,29 +3734,32 @@ def run_net_counted(counts, argv):
 
 
 def _dist_run_net_argv(out_dir, max_epoch, shard=None, port=None, recipe="uniformer",
-                       batch=4, extra=()):
+                       batch=4, extra=(), opts=()):
     """Phase 8c's run_net arguments (8e's with ``recipe`` "mvit", ``batch``
     2 and ``extra`` naming dp_sp): the recipe's rect run as phase 6 runs
     it, in float32, one augmented copy a video (AUG.NUM_SAMPLE 1: the
     recipe's 2 copies lie copy-major within each process's rows, so 2
     processes order a step's clips otherwise than one), a 1-view test (the
     recipe's views cut to 1 to keep the script's wall time down), the
-    predictions saved. With ``shard``: that shard of 2 hosts of one process
-    each (gloo, both on the one card), ``batch`` videos a step each, meeting
-    on ``port``, with ``extra`` opts; else one process at twice ``batch``,
-    at the LR that BASE_LR_SCALE_NUM_SHARDS gives 2 shards."""
-    argv = run_net_argv(recipe, out_dir, max_epoch)
-    opts = ["TRAIN.MIXED_PRECISION", "False", "AUG.NUM_SAMPLE", "1",
-            "TEST.SAVE_RESULTS_PATH", "preds.pkl", "TEST.NUM_ENSEMBLE_VIEWS", "1"]
+    predictions saved, and ``opts``. With ``shard``: that shard of 2 hosts
+    of one process each (gloo, both on the one card), ``batch`` videos a
+    step each, meeting on ``port``, with ``extra`` opts; else one process
+    at twice ``batch``, at the LRs (base, warm-up start, cosine end) that
+    BASE_LR_SCALE_NUM_SHARDS gives 2 shards."""
+    argv = run_net_argv(recipe, out_dir, max_epoch) + [
+        "TRAIN.MIXED_PRECISION", "False", "AUG.NUM_SAMPLE", "1", "TEST.SAVE_RESULTS_PATH",
+        "preds.pkl", "TEST.NUM_ENSEMBLE_VIEWS", "1", *opts]
     if shard is None:
-        return argv + opts + ["TRAIN.BATCH_SIZE", str(2 * batch), "TEST.BATCH_SIZE",
-                              str(2 * batch), "SOLVER.BASE_LR", "2e-4",
-                              "SOLVER.WARMUP_START_LR", "2e-6", "SOLVER.COSINE_END_LR", "2e-6"]
+        lr = run_net_cfg(_dist_run_net_argv(out_dir, max_epoch, 0, 0, recipe, batch,
+                                            opts=opts)).SOLVER
+        return argv + ["TRAIN.BATCH_SIZE", str(2 * batch), "TEST.BATCH_SIZE", str(2 * batch),
+                       "SOLVER.BASE_LR", repr(lr.BASE_LR), "SOLVER.WARMUP_START_LR",
+                       repr(lr.WARMUP_START_LR), "SOLVER.COSINE_END_LR", repr(lr.COSINE_END_LR)]
     at = argv.index("--opts")
     return (argv[:at] + ["--num_shards", "2", "--shard_id", str(shard),
                          "--init_method", f"tcp://127.0.0.1:{port}"]
-            + argv[at:] + opts + ["TRAIN.BATCH_SIZE", str(batch), "TEST.BATCH_SIZE",
-                                  str(batch), "DIST_BACKEND", "gloo", *extra])
+            + argv[at:] + ["TRAIN.BATCH_SIZE", str(batch), "TEST.BATCH_SIZE", str(batch),
+                           "DIST_BACKEND", "gloo", *extra])
 
 
 def _run_counted(runs, work_dir):
@@ -3805,190 +3830,308 @@ def phase_distributed_run_net(card):
     (``launch_job`` spawns each rank): UniFormer-S's rect recipe at full
     width, float32, for one epoch (train with ``dp``, checkpoint, gathered
     eval, test; ``EARLIER_RUN_NET_VIDEOS`` Synthetic videos), beside one
-    process at twice a process's batch (``_run_net_against_one``); then the
+    process at twice a process's batch (``_run_net_pairs``); then the
     2 processes again with SOLVER.MAX_EPOCH 2, which must resume from its
     checkpoint. Returns both 2-process runs' launches."""
-    return _run_net_against_one(card, "uniformer", "chip_smoke_distributed_run_net",
-                                "distributed_run_net_2_processes", resume=True)
+    return _run_net_pairs(card, [dict(
+        recipe="uniformer", work_name="chip_smoke_distributed_run_net",
+        phase="distributed_run_net_2_processes", resume=True)])["uniformer"]
 
 
-def _run_net_against_one(card, recipe, work_name, phase, batch=4, extra=(), resume=False,
-                         held=None):
-    """``recipe``'s run_net (``_dist_run_net_argv``) as 2 hosts with
-    ``batch`` videos a step each and the ``extra`` opts, beside one process
-    at twice the batch, in ``build/<work_name>``. Each rank's launches are
-    counted from 0 in its own process (a main path) and must equal the one
-    process's, which must equal the count of its steps' K1 and wgrad
-    launches; test_final must equal the one process's, the video scores
-    within 1e-5 and the weights within 2 x lr (phase 3b's gate after
-    AdamW); one checkpoint, written once; with ``resume``, the 2 processes
-    again with SOLVER.MAX_EPOCH 2, which must resume from it. With
-    ``held`` (a set of shapes), every K1 and wgrad call of the 2 processes
-    must be at one of them. Returns the 2-process runs' launches."""
+def _run_net_pairs(card, specs):
+    """For each spec of ``specs`` (a dict: "recipe", "work_name", "phase",
+    and "batch" (4), "extra" (()), "opts" (()), "resume" (False), "held"
+    (None)), ``recipe``'s run_net (``_dist_run_net_argv``, with ``opts``)
+    as 2 hosts with ``batch`` videos a step each and the ``extra`` opts,
+    beside one process at twice the batch, in ``build/<work_name>``: every spec's 3 processes start at
+    once (``_run_counted``), so that the pairs share their start-up. Each
+    rank's launches are counted from 0 in its own process (a main path) and
+    must equal the one process's, which must equal the count of its steps'
+    K1 and wgrad launches (precise BN's forwards among them); test_final must equal the one process's, the
+    video scores within 1e-5 and the weights within 2 x lr (phase 3b's gate
+    after AdamW); one checkpoint, written once; with ``resume``, the 2
+    processes again with SOLVER.MAX_EPOCH 2, which must resume from it.
+    With ``held`` (a set of shapes), every K1 and wgrad call of the 2
+    processes must be at one of them. Returns each recipe's 2-process runs'
+    launches."""
     import pickle
 
     from pmv_tpu_torch.data.loader import construct_loader
 
-    torch.cuda.empty_cache()  # this process's cached blocks, for the 3 processes below
-    work_dir = os.path.join("build", work_name)
-    shutil.rmtree(work_dir, ignore_errors=True)
-    os.makedirs(work_dir)
-    one, two = (os.path.join(work_dir, d) for d in ("one", "two"))
-    one_argv = _dist_run_net_argv(one, 1, recipe=recipe, batch=batch)
-    cfg = run_net_cfg(one_argv)
-    with synthetic_videos(EARLIER_RUN_NET_VIDEOS):  # as the processes hold it
-        n_steps, n_evals, n_tests = (len(construct_loader(cfg, split))
-                                     for split in ("train", "val", "test"))
-    per_forward = RUN_NET[recipe][1]
-    expected = {"depthwise3x3x3": 2 * per_forward * n_steps + per_forward * (n_evals + n_tests),
-                "depthwise3x3x3_wgrad": per_forward * n_steps}
-    zero = {k: 0 for k in expected}
+    torch.cuda.empty_cache()  # this process's cached blocks, for the processes below
+    pairs = []
+    for spec in specs:
+        spec = {"batch": 4, "extra": (), "opts": (), "resume": False, "held": None, **spec}
+        recipe, batch, extra = spec["recipe"], spec["batch"], tuple(spec["extra"])
+        work_dir = os.path.join("build", spec["work_name"])
+        shutil.rmtree(work_dir, ignore_errors=True)
+        os.makedirs(work_dir)
+        one, two = (os.path.join(work_dir, d) for d in ("one", "two"))
+        one_argv = _dist_run_net_argv(one, 1, recipe=recipe, batch=batch, opts=spec["opts"])
+        cfg = run_net_cfg(one_argv)
+        with synthetic_videos(EARLIER_RUN_NET_VIDEOS):  # as the processes hold it
+            n_steps, n_evals, n_tests = (len(construct_loader(cfg, split))
+                                         for split in ("train", "val", "test"))
+        per_forward = RUN_NET[recipe][1]
+        precise = min(cfg.BN.NUM_BATCHES_PRECISE, n_steps) if cfg.BN.USE_PRECISE_STATS else 0
+        expected = {"depthwise3x3x3": per_forward * (2 * n_steps + n_evals + n_tests + precise),
+                    "depthwise3x3x3_wgrad": per_forward * n_steps}
+        pairs.append(dict(spec, work_dir=work_dir, one=one, two=two, one_argv=one_argv,
+                          cfg=cfg, n_steps=n_steps, expected=expected, extra=extra))
 
-    def two_processes(max_epoch, tag):
+    def two_processes(pair, max_epoch, tag):
         port = _free_port()
-        return [(f"{tag}_shard{s}", _dist_run_net_argv(two, max_epoch, s, port, recipe, batch,
-                                                       extra)) for s in (0, 1)]
+        return [(f"{pair['recipe']}_{tag}_shard{s}", _dist_run_net_argv(
+            pair["two"], max_epoch, s, port, pair["recipe"], pair["batch"], pair["extra"],
+            pair["opts"])) for s in (0, 1)]
 
-    def rank_launches(counts, tag):
-        ranks = {k: v for k, v in counts.items() if ".rank" in k}
-        if sorted(ranks) != [f"counts_{tag}_shard{s}.rank{s}.json" for s in (0, 1)] or any(
-                v != expected for v in ranks.values()) or any(
-                v != zero for k, v in counts.items() if k.endswith(".main.json")):
+    def rank_launches(pair, counts, tag):
+        phase, expected = pair["phase"], pair["expected"]
+        zero = {k: 0 for k in expected}
+        prefix = f"counts_{pair['recipe']}_{tag}_shard"
+        ranks = {k: v for k, v in counts.items() if k.startswith(prefix) and ".rank" in k}
+        mains = [v for k, v in counts.items() if k.startswith(prefix) and k.endswith(".main.json")]
+        if sorted(ranks) != [f"{prefix}{s}.rank{s}.json" for s in (0, 1)] or any(
+                v != expected for v in ranks.values()) or any(v != zero for v in mains):
             raise AssertionError(f"{phase} {tag}: launches {counts}, not {expected} a rank")
         return {k: sum(v[k] for v in ranks.values()) for k in expected}
 
-    def rank_shapes(shapes, tag):
-        seen = sorted({tuple(s) for calls in shapes.values() for _, s in calls})
+    def rank_shapes(pair, shapes, tag):
+        prefix = f"counts_{pair['recipe']}_{tag}_shard"
+        seen = sorted({tuple(s) for name, calls in shapes.items() if name.startswith(prefix)
+                       for _, s in calls})
+        held = pair["held"]
         if held is not None and (not seen or set(seen) - held):
-            raise AssertionError(f"{phase} {tag}: K1 and wgrad calls at {seen}, not all of "
-                                 f"them held against the plain versions ({sorted(held)})")
+            raise AssertionError(f"{pair['phase']} {tag}: K1 and wgrad calls at {seen}, not all "
+                                 f"of them held against the plain versions ({sorted(held)})")
         return seen
 
-    wall, counts, shapes = _run_counted([("one", one_argv)] + two_processes(1, "two"), work_dir)
-    if counts.pop("counts_one.main.json") != expected:
-        raise AssertionError(f"one process launched otherwise than {expected}: {counts}")
-    paths = [rank_launches(counts, "two")]
-    kernel_shapes = rank_shapes(shapes, "two")
-    got, want = _test_final(two), _test_final(one)
-    preds = []
-    ckpts = []
-    for out_dir in (two, one):
-        with open(os.path.join(out_dir, "preds.pkl"), "rb") as f:
-            preds.append(np.asarray(pickle.load(f)["video_preds"]))
-        ckpts.append(torch.load(os.path.join(out_dir, "checkpoints", "checkpoint_epoch_00001.pyth"),
-                                map_location="cpu", weights_only=True)["model_state"])
-    first_lines = _json_stats(two)[0]
-    rec = {
-        "phase": f"{phase}_gloo", "model": cfg.MODEL.MODEL_NAME, "extra": list(extra),
-        "card": card, "train_steps": n_steps, "launches_per_rank": expected,
-        "kernel_shapes": kernel_shapes,
-        "test_final_2_processes": got, "test_final_1_process": want,
-        "video_preds_max_abs_err": float(np.abs(preds[0] - preds[1]).max()),
-        "checkpoint_weights_max_abs_err": max(
-            float((ckpts[0][k].float() - v.float()).abs().max()) for k, v in ckpts[1].items()),
-        "wall_s": wall}
-    log(json.dumps(rec))
-    # test_final's accuracies after one epoch from random weights may well be
-    # 0 for both; the predictions and the weights say more.
-    if got != want:
-        raise AssertionError(f"2 processes' test_final {got} != one process's {want}")
-    if rec["video_preds_max_abs_err"] > 1e-5:
-        raise AssertionError(f"2 processes' video scores differ by "
-                             f"{rec['video_preds_max_abs_err']} from one process's")
-    if rec["checkpoint_weights_max_abs_err"] > 2.0001 * cfg.SOLVER.BASE_LR:
-        raise AssertionError(f"2 processes' weights differ by "
-                             f"{rec['checkpoint_weights_max_abs_err']} from one process's")
-    if sum("Saved checkpoint" in line for line in first_lines) != 1 or os.listdir(
-            os.path.join(two, "checkpoints")) != ["checkpoint_epoch_00001.pyth"]:
-        raise AssertionError("the 2-process run did not write its one checkpoint once")
-    if not resume:
-        return paths
+    log_dir = pairs[0]["work_dir"]  # every process's log and counts
+    wall, counts, shapes = _run_counted(
+        [run for pair in pairs
+         for run in [(f"{pair['recipe']}_one", pair["one_argv"])] + two_processes(pair, 1, "two")],
+        log_dir)
+    paths = {}
+    for pair in pairs:
+        phase, cfg, one, two = pair["phase"], pair["cfg"], pair["one"], pair["two"]
+        expected = pair["expected"]
+        if counts[f"counts_{pair['recipe']}_one.main.json"] != expected:
+            raise AssertionError(f"{phase}: one process launched otherwise than {expected}: "
+                                 f"{counts}")
+        paths[pair["recipe"]] = [rank_launches(pair, counts, "two")]
+        kernel_shapes = rank_shapes(pair, shapes, "two")
+        got, want = _test_final(two), _test_final(one)
+        preds = []
+        ckpts = []
+        for out_dir in (two, one):
+            with open(os.path.join(out_dir, "preds.pkl"), "rb") as f:
+                preds.append(np.asarray(pickle.load(f)["video_preds"]))
+            ckpts.append(torch.load(os.path.join(out_dir, "checkpoints",
+                                                 "checkpoint_epoch_00001.pyth"),
+                                    map_location="cpu", weights_only=True)["model_state"])
+        pair["first_lines"] = _json_stats(two)[0]
+        rec = {
+            "phase": f"{phase}_gloo", "model": cfg.MODEL.MODEL_NAME, "extra": list(pair["extra"]),
+            "card": card, "train_steps": pair["n_steps"], "launches_per_rank": expected,
+            "kernel_shapes": kernel_shapes,
+            "test_final_2_processes": got, "test_final_1_process": want,
+            "video_preds_max_abs_err": float(np.abs(preds[0] - preds[1]).max()),
+            "checkpoint_weights_max_abs_err": max(
+                float((ckpts[0][k].float() - v.float()).abs().max()) for k, v in ckpts[1].items()),
+            "pairs_started_together": [p["recipe"] for p in pairs], "wall_s": wall}
+        log(json.dumps(rec))
+        # test_final's accuracies after one epoch from random weights may well
+        # be 0 for both; the predictions and the weights say more.
+        if got != want:
+            raise AssertionError(f"{phase}: 2 processes' test_final {got} != one process's {want}")
+        if rec["video_preds_max_abs_err"] > 1e-5:
+            raise AssertionError(f"{phase}: 2 processes' video scores differ by "
+                                 f"{rec['video_preds_max_abs_err']} from one process's")
+        if rec["checkpoint_weights_max_abs_err"] > 2.0001 * cfg.SOLVER.BASE_LR:
+            raise AssertionError(f"{phase}: 2 processes' weights differ by "
+                                 f"{rec['checkpoint_weights_max_abs_err']} from one process's")
+        if sum("Saved checkpoint" in line for line in pair["first_lines"]) != 1 or os.listdir(
+                os.path.join(two, "checkpoints")) != ["checkpoint_epoch_00001.pyth"]:
+            raise AssertionError(f"{phase}: the 2-process run did not write its one checkpoint "
+                                 "once")
 
-    wall, counts, shapes = _run_counted(two_processes(2, "resume"), work_dir)
-    paths.append(rank_launches(counts, "resume"))
-    rank_shapes(shapes, "resume")
-    resumed = _json_stats(two)[0][len(first_lines):]
-    ckpt = os.path.join(two, "checkpoints", "checkpoint_epoch_00001.pyth")
-    if not (any(f"Load from last checkpoint, {ckpt}." in line for line in resumed)
-            and any("Start epoch: 2" in line for line in resumed)):
-        raise AssertionError("the 2-process run did not resume from its checkpoint")
-    if sorted(os.listdir(os.path.join(two, "checkpoints"))) != [
-            "checkpoint_epoch_00001.pyth", "checkpoint_epoch_00002.pyth"]:
-        raise AssertionError("the resumed 2-process run did not write epoch 2's checkpoint")
-    log(json.dumps({"phase": f"{phase}_resume", "card": card,
-                    "test_final": _test_final(two), "wall_s": wall}))
+    for pair in [p for p in pairs if p["resume"]]:
+        phase, two = pair["phase"], pair["two"]
+        wall, counts, shapes = _run_counted(two_processes(pair, 2, "resume"), log_dir)
+        paths[pair["recipe"]].append(rank_launches(pair, counts, "resume"))
+        rank_shapes(pair, shapes, "resume")
+        resumed = _json_stats(two)[0][len(pair["first_lines"]):]
+        ckpt = os.path.join(two, "checkpoints", "checkpoint_epoch_00001.pyth")
+        if not (any(f"Load from last checkpoint, {ckpt}." in line for line in resumed)
+                and any("Start epoch: 2" in line for line in resumed)):
+            raise AssertionError(f"{phase}: the 2-process run did not resume from its checkpoint")
+        if sorted(os.listdir(os.path.join(two, "checkpoints"))) != [
+                "checkpoint_epoch_00001.pyth", "checkpoint_epoch_00002.pyth"]:
+            raise AssertionError(f"{phase}: the resumed 2-process run did not write epoch 2's "
+                                 "checkpoint")
+        log(json.dumps({"phase": f"{phase}_resume", "card": card,
+                        "test_final": _test_final(two), "wall_s": wall}))
     return paths
 
 
 SP_BATCH = 2  # phase 8e's global batch, which both ranks of its model group hold
 SP_TIMED_STEPS = 3  # phase 8e's timed bf16 steps, each rank
 SP_EVAL_ATOL = 1e-4  # phase 3's eval gate, card against CPU
+# Phase 8e's models: MViTv2-S and UniFormer-S (AdamW at TRAIN_LR, no ReLU),
+# then the BatchNorm conv families (SGD at their recipes' LR).
+SP_RECIPES = ("mvit", "uniformer", "x3d", "slowfast", "csn", "r2plus1d", "avslowfast")
+
+
+@contextlib.contextmanager
+def _held_relus(packed, lay, device):
+    """Within the block ``F.relu`` takes, call by call, the decisions of a
+    one-process step (``packed``: each mask as (np.packbits of it, its
+    shape)), relu(v) = v * decision, as ``grad_witness.relu_decisions``
+    holds them: on a rank of the sequence parallelism of ``lay`` the rank's
+    planes of a mask over the clip's planes (a visual activation), the
+    whole mask where the rank's activation is the whole one (the heads'
+    and SE's pooled features, the audio pathway). Yields a list whose entry
+    counts the elements whose own sign decides otherwise."""
+    import torch.nn.functional as F
+
+    relu, masks, otherwise = F.relu, iter(packed), [0]
+
+    def held(v, inplace=False):
+        bits, shape = next(masks)
+        mask = torch.from_numpy(np.unpackbits(bits, count=int(np.prod(shape))).reshape(shape))
+        if tuple(shape) != tuple(v.shape):
+            start, stop = lay.planes(shape[1])
+            mask = mask[:, start:stop]
+        mask = mask.to(device, torch.bool)
+        otherwise[0] += int((mask != (v.detach() > 0)).sum())
+        return v * mask
+
+    F.relu = held
+    try:
+        yield otherwise
+    finally:
+        F.relu = relu
+    if next(masks, None) is not None:
+        raise AssertionError("the rank made fewer ReLU calls than the one process")
+
+
+def _sp_model_of(cfg, case, device, dtype):
+    """``case``'s weights on ``device``, computing in ``dtype``: a copy of
+    one seeded init for each config (``seeded_model``; the parameters are
+    float32 whatever the activations' dtype), its compute dtype set."""
+    model = seeded_model(cfg, device, torch.float32)
+    model.compute_dtype = dtype
+    model.load_state_dict(case["state_dict"])
+    return model
+
+
+def _sp_train(cfg, case, device, dtype, batch, wrap, relus=None):
+    """One train step of ``case`` at ``cfg``'s LR on ``batch`` from its
+    weights, activations in ``dtype``, the model wrapped for dp_sp where
+    ``wrap`` (a rank), the ReLUs held to ``relus`` (``_held_relus``'s
+    arguments) where given: (metrics, gradients, state after it), the K1
+    and wgrad calls' shapes and launches, and the ReLU elements decided
+    otherwise."""
+    from pmv_tpu_torch.engine.steps import init_state, make_train_step
+    from pmv_tpu_torch.ops.depthwise import record_shapes
+    from pmv_tpu_torch.parallel import distributed
+
+    model = _sp_model_of(cfg, case, device, dtype)
+    wrapped = distributed.wrap_model(model, "dp_sp", device) if wrap else None
+    state = init_state(cfg, model, wrapped=wrapped)
+    step = make_train_step(cfg, device=device, seed=0)
+    counts = _launch_counts()
+    with record_shapes() as shapes, (
+            _held_relus(*relus, device) if relus else contextlib.nullcontext([0])) as other:
+        metrics = {k: v.cpu() for k, v in step(state, batch, cfg.SOLVER.BASE_LR).items()}
+    torch.cuda.synchronize()
+    return {"step": (metrics, _grads(model),
+                     {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}),
+            "shapes": shapes, "launches": _launches_since(counts), "otherwise": other[0]}
+
+
+def _sp_timed(cfg, case, device, wrap):
+    """A bfloat16 model's train step on ``case``'s batch, warm, then
+    ``SP_TIMED_STEPS`` timed steps (a main path: launch counts and the T
+    collectives' bytes zeroed just before them, read just after): their ms
+    a step, launches, K1 and wgrad shapes, and bytes a step."""
+    from pmv_tpu_torch.engine.steps import init_state, make_train_step
+    from pmv_tpu_torch.ops.depthwise import record_shapes
+    from pmv_tpu_torch.parallel import distributed, mesh
+
+    model = _sp_model_of(cfg, case, device, torch.bfloat16)
+    wrapped = distributed.wrap_model(model, "dp_sp", device) if wrap else None
+    state = init_state(cfg, model, wrapped=wrapped)
+    step = make_train_step(cfg, device=device, seed=0)
+    step(state, case["batch"], cfg.SOLVER.BASE_LR)  # warm
+    torch.cuda.synchronize()
+    _zero_launch_counts()  # the main path starts here
+    mesh.traffic.update(dict.fromkeys(mesh.traffic, 0))
+    t0 = time.perf_counter()
+    with record_shapes() as shapes:
+        for _ in range(SP_TIMED_STEPS):
+            step(state, case["batch"], cfg.SOLVER.BASE_LR)
+        torch.cuda.synchronize()
+    return {"ms_per_step": (time.perf_counter() - t0) / SP_TIMED_STEPS * 1e3,
+            "launches": _launch_counts(),  # ... and ends here
+            "timed_shapes": shapes,
+            "bytes_per_step": {k: v // SP_TIMED_STEPS for k, v in mesh.traffic.items()}}
+
+
+def _sp_eval(cfg, case, device):
+    """The eval step's scores on ``case``'s clips (and audio), float32, its
+    K1 calls' shapes and launches."""
+    from pmv_tpu_torch.engine.steps import make_eval_step
+    from pmv_tpu_torch.ops.depthwise import record_shapes
+
+    model = _sp_model_of(cfg, case, device, torch.float32)
+    counts = _launch_counts()
+    with record_shapes() as shapes:
+        scores = make_eval_step(cfg, model, device=device)(
+            case["eval_frames"], None, case.get("eval_audio")).cpu()
+    return {"scores": scores, "eval_shapes": shapes, "eval_launches": _launches_since(counts)}
 
 
 def _sp_rank(rank, world, port, work_dir, result_q):
     """Phase 8e's rank of a data 1 x model 2 grid over gloo on the one card:
-    the eval step on the case's clips, one float32 dp_sp train step on the
-    global batch, then a bfloat16 model's step, warm, and
-    ``SP_TIMED_STEPS`` timed steps (a main path: launch counts and the T
-    collectives' bytes zeroed just before them, read just after); the K1
-    and wgrad calls' shapes recorded in each. Puts its results, or its
-    error, on ``result_q``."""
+    for each case of ``work_dir/cases.pt`` in turn, the eval step on its
+    clips, one float32 dp_sp train step on the global batch, the case's
+    check step where it names one (the float32 step with each ReLU taking
+    the one process's decisions, or the step in float64 on fewer frames),
+    then a bfloat16 model's timed steps (``_sp_timed``). Writes its results
+    to ``work_dir/rank<rank>.pt`` and puts None, or its error, on
+    ``result_q``."""
     import datetime
     import traceback
 
     try:
-        from pmv_tpu_torch.engine.steps import init_state, make_eval_step, make_train_step
-        from pmv_tpu_torch.models import build_model
-        from pmv_tpu_torch.ops.depthwise import record_shapes
         from pmv_tpu_torch.parallel import distributed, mesh
 
         torch.set_num_threads(max(1, (os.cpu_count() or world) // world))
         float32_without_tf32()
         device = torch.device("cuda", 0)
-        case = torch.load(os.path.join(work_dir, "case.pt"), weights_only=False)
-        cfg = case["cfg"]
+        cases = torch.load(os.path.join(work_dir, "cases.pt"), weights_only=False)
         distributed.init_distributed(rank, world, f"tcp://127.0.0.1:{port}", device, "gloo",
                                      timeout=datetime.timedelta(seconds=120),
-                                     model_size=mesh.model_size(cfg, world))
-        lay = mesh.layout(cfg)
-        model = build_model(cfg, device=device, dtype=torch.float32)
-        model.load_state_dict(case["state_dict"])
-        counts = _launch_counts()
-        with record_shapes() as eval_shapes:
-            scores = make_eval_step(cfg, model, device=device)(case["eval_frames"]).cpu()
-        eval_launches = _launches_since(counts)
-        state = init_state(cfg, model, wrapped=distributed.wrap_model(model, "dp_sp", device))
-        step = make_train_step(cfg, device=device, seed=0)
-        counts = _launch_counts()
-        with record_shapes() as shapes:
-            metrics = {k: v.cpu() for k, v in step(state, case["batch"], TRAIN_LR).items()}
-        torch.cuda.synchronize()
-        result = {
-            "rank": rank, "layout": [lay.data, lay.data_size, lay.model, lay.model_size],
-            "metrics": metrics, "scores": scores, "eval_launches": eval_launches,
-            "eval_shapes": eval_shapes, "step_launches": _launches_since(counts),
-            "shapes": shapes,
-            "grads": {k: p.grad.detach().cpu().clone() for k, p in model.named_parameters()},
-            "state": {k: v.detach().cpu().clone() for k, v in model.state_dict().items()},
-        }
-        del state, model
-        model = build_model(cfg, device=device, dtype=torch.bfloat16)
-        model.load_state_dict(case["state_dict"])
-        state = init_state(cfg, model, wrapped=distributed.wrap_model(model, "dp_sp", device))
-        step(state, case["batch"], TRAIN_LR)  # warm
-        torch.cuda.synchronize()
-        _zero_launch_counts()  # the main path starts here
-        mesh.traffic.update(dict.fromkeys(mesh.traffic, 0))
-        t0 = time.perf_counter()
-        with record_shapes() as timed_shapes:
-            for _ in range(SP_TIMED_STEPS):
-                step(state, case["batch"], TRAIN_LR)
-            torch.cuda.synchronize()
-        result["ms_per_step"] = (time.perf_counter() - t0) / SP_TIMED_STEPS * 1e3
-        result["launches"] = _launch_counts()  # ... and ends here
-        result["timed_shapes"] = timed_shapes
-        result["bytes_per_step"] = {k: v // SP_TIMED_STEPS for k, v in mesh.traffic.items()}
-        torch.save(result, os.path.join(work_dir, f"rank{rank}.pt"))
+                                     model_size=mesh.model_size(cases[0]["cfg"], world))
+        results = []
+        for case in cases:
+            cfg = case["cfg"]
+            lay = mesh.layout(cfg)
+            result = {"recipe": case["recipe"], "rank": rank,
+                      "layout": [lay.data, lay.data_size, lay.model, lay.model_size],
+                      **_sp_eval(cfg, case, device)}
+            result["train"] = _sp_train(cfg, case, device, torch.float32, case["batch"], True)
+            check = case.get("check")
+            if check == "held":
+                result["check"] = _sp_train(cfg, case, device, torch.float32, case["batch"],
+                                            True, (case["relus"], lay))
+            elif check == "float64":
+                result["check"] = _sp_train(cfg, case, device, torch.float64,
+                                            case["batch64"], True)
+            result.update(_sp_timed(cfg, case, device, True))
+            results.append(result)
+        torch.save(results, os.path.join(work_dir, f"rank{rank}.pt"))
         distributed.destroy()
         result_q.put((rank, None))
     except BaseException:  # reported to the parent, which raises
@@ -3997,107 +4140,177 @@ def _sp_rank(rank, world, port, work_dir, result_q):
 
 
 def _sp_model(recipe):
-    """Phase 8e's model of ``recipe`` ("mvit", "uniformer"): (its cfg under
-    dp_sp on the PMV rect crop with SWITCH_AUTO, K1 launches a forward, the
-    shapes at which the kernel phases hold K1 and wgrad for its dp_sp
-    paths)."""
+    """Phase 8e's model of ``recipe`` (``SP_RECIPES``): (its cfg under
+    dp_sp, K1 launches a forward, the shapes at which the kernel phases
+    hold K1 and wgrad for its dp_sp paths, with C padded as the wrappers
+    pad it, its crop). MViTv2-S, UniFormer-S
+    and X3D-M at the PMV rect crop (SWITCH_AUTO, landscape rows) and 16
+    frames; SlowFast 8x8 R50 and AVSlowFast 8x8 R50 at their 32 frames of
+    224^2 (16 fast and 4 slow a rank), ir-CSN-101 at its 32 (16, 8, 4 and 2
+    planes a rank through its T strides), R(2+1)D-50 at its 16."""
     from pmv_tpu_torch.ops import depthwise as dw
 
-    if recipe == "mvit":
-        cfg, per_forward, held = _train_cfg(), MVIT_K1, dw.MVIT_SP_POOL_SHAPES
-    else:
-        cfg, per_forward = uniformer_cfg(), UNIFORMER_K1
-        held = dw.UNIFORMER_SP_DPE_SHAPES + dw.UNIFORMER_SP_TEST_DPE_SHAPES
-    cfg.DATA.TRAIN_CROP_SIZE_RECT = list(PMV_RECT)
-    cfg.DATA.TRAIN_CROP_SIZE_RECT_SWITCH_AUTO = True
+    cfg, per_forward, held = {
+        "mvit": lambda: (_train_cfg(), MVIT_K1, dw.MVIT_SP_POOL_SHAPES),
+        "uniformer": lambda: (uniformer_cfg(), UNIFORMER_K1,
+                              dw.UNIFORMER_SP_DPE_SHAPES + dw.UNIFORMER_SP_TEST_DPE_SHAPES),
+        "x3d": lambda: (x3d_cfg(), X3D_K1, dw.X3D_SP_DW_SHAPES + dw.X3D_SP_TEST_DW_SHAPES),
+        "slowfast": lambda: (slowfast_cfg(), SLOWFAST_K1, ()),
+        "csn": lambda: (csn_cfg(), CSN_K1, dw.CSN_SP_DW_SHAPES),
+        "r2plus1d": lambda: (csn_cfg(R2PLUS1D_CFG), R2PLUS1D_K1, ()),
+        "avslowfast": lambda: (avslowfast_cfg(), AVSLOWFAST_K1, ()),
+    }[recipe]()
+    # The kernels' shapes: C padded as the wrappers pad it (X3D's 54, 108).
+    held = {(*s[:-1], s[-1] + -s[-1] % dw.CHANNEL_MULTIPLE) for s, _ in held}
+    crop = (cfg.DATA.TRAIN_CROP_SIZE,) * 2
+    if recipe in ("mvit", "uniformer", "x3d"):
+        crop = PMV_RECT
+        cfg.DATA.TRAIN_CROP_SIZE_RECT = list(PMV_RECT)
+        cfg.DATA.TRAIN_CROP_SIZE_RECT_SWITCH_AUTO = True
     cfg.TPU.SHARD_STRATEGY = "dp_sp"
-    return cfg, per_forward, {s for s, _ in held}
+    return cfg, per_forward, held, crop
 
 
-def _sp_extents(phase, shapes, t_ext, train, per_forward, held, steps=1):
+def _sp_extents(phase, shapes, t_exts, train, per_forward, held, steps=1):
     """Raise unless ``shapes`` (``record_shapes``) hold the model's
     ``per_forward`` K1 calls of a forward, and in a train step as many dx
-    calls after them and weight gradients (each ``steps`` times), every one
-    on ``t_ext`` planes and at a shape of ``held``, at which the kernel
+    calls after them and weight gradients (each ``steps`` times), on the
+    planes ``t_exts`` (a rank's planes and a halo plane either side, each
+    of the model's stages) and at shapes of ``held``, at which the kernel
     phases hold them against the plain versions."""
     kinds = [kind for kind, _ in shapes]
     counts = [kinds.count(kind) for kind in ("fwd", "dx", "wgrad")]
     want = [steps * per_forward] * 3 if train else [per_forward, 0, 0]
     extents = sorted({shape[1] for _, shape in shapes})
-    if counts != want or extents != [t_ext]:
+    if counts != want or extents != t_exts:
         raise AssertionError(f"{phase}: K1 forward, dx and wgrad calls {counts} on T "
-                             f"{extents}, not {want} on T [{t_ext}]")
+                             f"{extents}, not {want} on T {t_exts}")
     seen = sorted({shape for _, shape in shapes})
     outside = sorted(set(seen) - held)
     if outside:
         raise AssertionError(f"{phase}: K1 and wgrad calls at {outside}, which the kernel "
                              "phases do not hold against the plain versions")
-    return {"k1_forward_dx_wgrad": counts, "t_extent": t_ext, "shapes": seen}
+    return {"k1_forward_dx_wgrad": counts, "t_extent": t_exts, "shapes": seen}
 
 
-def phase_sequence_parallel(card, recipe="mvit"):
-    """Phase 8e: ``recipe``'s model (MViTv2-S 16x4, UniFormer-S 16x4) under
-    TPU.SHARD_STRATEGY dp_sp, two ranks over gloo sharing the one card, a
-    grid of data 1 x model 2: full width and depth, 16 frames of the PMV
-    rect crop (SWITCH_AUTO, landscape rows), the model's train recipe
-    (RandAugment, erasing, MixUp, DropPath; UniFormer's BatchNorm statistics
-    over both ranks' planes), float32, a global batch of ``SP_BATCH`` that
-    both ranks hold, each rank half of its 8 token planes. Each rank's eval
-    scores against the one process's on the card within ``SP_EVAL_ATOL``,
-    its train step (and running statistics) against the one process's on
-    the global batch under phase 3b's gates; each rank's K1, dx and wgrad
-    calls a train step (MViT 17 each, UniFormer 18; as many K1 an eval) on
-    4 + 2 halo planes; then each rank's bf16 step, timed, beside the one
-    process's, with the bytes its halos and K/V gathers hand to all_reduce.
-    Then ``run_net --num_shards 2 TPU.SHARD_STRATEGY dp_sp`` on 16
-    Synthetic videos against one process, under phase 8c's gates. Every K1
-    and wgrad call of these paths must be at a shape of the model's dp_sp
-    grid (``_sp_model``), which the kernel phases hold against the plain
-    versions. Returns the ranks' launches of both main paths."""
-    import multiprocessing
+def _sp_reference(recipe):
+    """The one-process side of ``recipe``'s phase 8e on the card, and its
+    case for the ranks: the global batch of ``SP_BATCH`` (with the
+    misaligned audio for AVSlowFast) and eval clips from a seed, the eval
+    scores, the float32 train step; for a ReLU net of ``grad_witness
+    .RELU_LIMITS`` the check step, as its one-process phases hold it: X3D-M
+    and ir-CSN-101 (K1 takes no float64) the float32 step's ReLU decisions,
+    which the ranks' step takes again; the others the step in float64 on
+    ``FLOAT64_FRAMES`` of the clip; then the bfloat16 step's ms."""
+    from pmv_tpu_torch.tools.grad_witness import RELU_LIMITS, relu_decisions, witness_key
 
-    from pmv_tpu_torch.engine.steps import init_state, make_eval_step, make_train_step
-    from pmv_tpu_torch.models import build_model
-
-    cfg, per_forward, held = _sp_model(recipe)
-    world = 2
+    cfg, per_forward, held, crop = _sp_model(recipe)
     rng = np.random.default_rng(15)
-    clip = (SP_BATCH, cfg.DATA.NUM_FRAMES, *PMV_RECT, 3)
+    clip = (SP_BATCH, cfg.DATA.NUM_FRAMES, *crop, 3)
     batch = {"frames": rng.integers(0, 256, clip, np.uint8),
              "labels": rng.integers(0, cfg.MODEL.NUM_CLASSES, SP_BATCH)}
-    eval_frames = rng.integers(0, 256, clip, np.uint8)
-    suffix = "" if recipe == "mvit" else f"_{recipe}"
-    work_dir = os.path.join("build", f"chip_smoke_sequence_parallel{suffix}")
+    case = {"recipe": recipe, "cfg": cfg, "batch": batch,
+            "eval_frames": rng.integers(0, 256, clip, np.uint8)}
+    if recipe == "avslowfast":
+        batch["audio"], batch["audio_mis"] = (av_logmels(cfg, rng, SP_BATCH) for _ in range(2))
+        case["eval_audio"] = av_logmels(cfg, rng, SP_BATCH)
+    name = witness_key(cfg)
+    if name in RELU_LIMITS:
+        case["check"] = "held" if per_forward else "float64"
+    model = seeded_model(cfg, "cpu", torch.float32)
+    case["state_dict"] = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    del model
+    ref = _sp_eval(cfg, case, "cuda")
+    with relu_decisions() if case.get("check") == "held" else contextlib.nullcontext() as rec:
+        ref["train"] = _sp_train(cfg, case, "cuda", torch.float32, batch, False)
+    if case.get("check") == "held":
+        case["relus"] = [(np.packbits(m.cpu().numpy()), tuple(m.shape)) for m in rec.masks]
+        del rec
+    elif case.get("check") == "float64":
+        case["batch64"] = dict(batch, frames=_fewer_frames(batch["frames"], FLOAT64_FRAMES))
+        ref["check"] = _sp_train(cfg, case, "cuda", torch.float64, case["batch64"], False)
+    ref.update(_sp_timed(cfg, case, "cuda", False))
+    torch.cuda.empty_cache()
+    return case, ref, per_forward, held
+
+
+def _sp_gates(phase, cfg, got, ref, kind, n_params, **extra):
+    """A rank's train step ``got`` (metrics, gradients, state) against the
+    one process's ``ref``; ``kind`` names the gates: "adamw" phase 3b's
+    (``_held_to_step``, MViT and UniFormer); for the ReLU nets, as their
+    card-against-CPU phases hold them (``grad_witness``), "free" a float32
+    step whose ReLUs decide on their own (the gradients to
+    ``RELU_LIMITS``, the grad norm read), "held" a float32 step with the one
+    process's ReLU decisions (gradients and grad norm to ``HELD_LIMITS``,
+    1e-4 elsewhere), "float64" every gate at 1e-4; then the loss to rtol
+    1e-4, top-1 and top-5 equal, the BatchNorm running statistics to 1e-6
+    beyond rtol 1e-4 (a float32 step to ``STATS_LIMITS``), and SGD's first
+    update linear in the gradient."""
+    from pmv_tpu_torch.tools.grad_witness import (
+        HELD_LIMITS, RELU_LIMITS, STATS_LIMITS, witness_key)
+
+    if kind == "adamw":
+        return _held_to_step(phase, got, ref, cfg.SOLVER.BASE_LR, n_params, **extra)
+    name = witness_key(cfg)
+    grad_limit = {"free": RELU_LIMITS.get(name, 1e-4), "held": HELD_LIMITS.get(name, 1e-4),
+                  "float64": 1e-4}[kind]
+    stats_limit = 1e-6 if kind == "float64" else STATS_LIMITS.get(name, 1e-6)
+    (gm, gg, gs), (rm, rg, rs) = got, ref
+    grad_max = max(float((gg[k] - v).abs().max()) for k, v in rg.items())
+    rec = _step_readings(phase, got, ref, gates=kind, grad_limit=grad_limit,
+                         bn_stats_limit=stats_limit, **extra)
+    torch.testing.assert_close(gm["loss"], rm["loss"], atol=0, rtol=1e-4)
+    for key in [k for k in rm if k.endswith("_avs")]:  # AVSlowFast's AVS losses
+        torch.testing.assert_close(gm[key], rm[key], atol=1e-6, rtol=1e-4)
+    if kind != "free":
+        torch.testing.assert_close(gm["grad_norm"], rm["grad_norm"], atol=0, rtol=grad_limit)
+    for key in ("top1_err", "top5_err", "nan"):
+        if not torch.equal(gm[key], rm[key]):
+            raise AssertionError(f"{phase}: {key} {gm[key]} against one process's {rm[key]}")
+    if rec["grad_rel_err"] > grad_limit:
+        raise AssertionError(f"{phase}: gradients differ by {rec['grad_rel_err']} (relative "
+                             f"L2), over {grad_limit}")
+    if rec["bn_stats_err_over_rtol"] > stats_limit:
+        raise AssertionError(f"{phase}: running statistics {rec['bn_stats_err_over_rtol']} "
+                             f"over rtol 1e-4 (limit {stats_limit})")
+    lr = cfg.SOLVER.BASE_LR
+    if rec["param_max_abs_err"] > (1 + cfg.SOLVER.MOMENTUM) * lr * grad_max * 1.0001 + 1e-6:
+        raise AssertionError(f"{phase}: weights differ by {rec['param_max_abs_err']}")
+    return rec
+
+
+def phase_sequence_parallel(card):
+    """Phase 8e: every model of ``SP_RECIPES`` under TPU.SHARD_STRATEGY
+    dp_sp, in one spawn of two ranks over gloo sharing the one card, a grid
+    of data 1 x model 2: full width and depth, each model's frames and crop
+    (``_sp_model``) and train recipe (MViT's and UniFormer's RandAugment,
+    erasing, MixUp and DropPath; the conv families' head dropout, X3D-M's
+    SE blocks, AVSlowFast's misaligned audio and AVS losses), float32, a
+    global batch of ``SP_BATCH`` that both ranks hold, each rank half of its
+    planes. For each model, each rank's eval scores against the one
+    process's on the card within ``SP_EVAL_ATOL``; its train step against
+    the one process's on the global batch (``_sp_gates``: phase 3b's for
+    MViT and UniFormer; the ReLU nets free in float32 and then held, X3D-M
+    and ir-CSN-101 with the one process's ReLU decisions, SlowFast,
+    R(2+1)D and AVSlowFast in float64 on ``FLOAT64_FRAMES``); each rank's
+    K1, dx and wgrad calls a train step (MViT 17 each, UniFormer 18, X3D-M
+    22, ir-CSN-101 30; as many K1 an eval) on its planes and 2 halo planes,
+    each at a shape of the model's dp_sp grid (``_sp_model``), which the
+    kernel phases hold against the plain versions; then each rank's bf16
+    step, timed, beside the one process's, with the bytes its halos,
+    gathers and reductions hand to all_reduce. Returns each model's ranks'
+    launches of the timed steps."""
+    import multiprocessing
+
+    world = 2
+    work_dir = os.path.join("build", "chip_smoke_sequence_parallel")
     shutil.rmtree(work_dir, ignore_errors=True)
     os.makedirs(work_dir)
-    model = seeded_model(cfg, "cuda", torch.float32)
-    # A rank's token planes after the patch embed's T stride, and 2 halo planes.
-    embed = model.patch_embed if recipe == "mvit" else model.patch_embed1
-    t_ext = cfg.DATA.NUM_FRAMES // embed.proj.stride[0] // world + 2
-    state_dict = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
-    torch.save({"cfg": cfg, "state_dict": state_dict, "batch": batch,
-                "eval_frames": eval_frames}, os.path.join(work_dir, "case.pt"))
-    scores = make_eval_step(cfg, model, device="cuda")(eval_frames).cpu()
-    state = init_state(cfg, model)
-    step = make_train_step(cfg, device="cuda", seed=0)
-    metrics = {k: v.cpu() for k, v in step(state, batch, TRAIN_LR).items()}
-    torch.cuda.synchronize()
-    ref = (metrics, _grads(model), {k: v.detach().cpu() for k, v in model.state_dict().items()})
-    n_params = sum(p.numel() for p in model.parameters())
-    del state, model
-    model = build_model(cfg, device="cuda", dtype=torch.bfloat16)
-    model.load_state_dict(state_dict)
-    state = init_state(cfg, model)
-    step(state, batch, TRAIN_LR)  # warm
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(SP_TIMED_STEPS):
-        step(state, batch, TRAIN_LR)
-    torch.cuda.synchronize()
-    one_ms = (time.perf_counter() - t0) / SP_TIMED_STEPS * 1e3
-    del state, model
-    torch.cuda.empty_cache()
-
+    cases, refs = [], {}
+    for recipe in SP_RECIPES:
+        case, *refs[recipe] = _sp_reference(recipe)
+        cases.append(case)
+    torch.save(cases, os.path.join(work_dir, "cases.pt"))
     ctx = multiprocessing.get_context("spawn")
     result_q = ctx.Queue()
     port = _free_port()
@@ -4107,7 +4320,7 @@ def phase_sequence_parallel(card, recipe="mvit"):
     for p in procs:
         p.start()
     try:
-        errors = [result_q.get(timeout=300) for _ in procs]
+        errors = [result_q.get(timeout=600) for _ in procs]
     finally:
         for p in procs:
             p.join(timeout=30)
@@ -4120,40 +4333,78 @@ def phase_sequence_parallel(card, recipe="mvit"):
         raise AssertionError("a phase 8e rank failed:\n" + "\n".join(failed))
     ranks = [torch.load(os.path.join(work_dir, f"rank{r}.pt"), weights_only=False)
              for r in range(world)]
-    for r in ranks:
-        phase = f"sequence_parallel{suffix}_dp_sp_rank{r['rank']}"
-        eval_err = float((r["scores"] - scores).abs().max())
-        extents = _sp_extents(phase, r["shapes"], t_ext, True, per_forward, held)
-        _sp_extents(phase + "_eval", r["eval_shapes"], t_ext, False, per_forward, held)
-        _sp_extents(phase + "_timed", r["timed_shapes"], t_ext, True, per_forward, held,
-                    steps=SP_TIMED_STEPS)
-        _held_to_step(f"{phase}_vs_one_process", (r["metrics"], r["grads"], r["state"]), ref,
-                      TRAIN_LR, n_params, model=cfg.MODEL.MODEL_NAME, card=card,
-                      layout=r["layout"],
-                      global_batch=SP_BATCH, frames=cfg.DATA.NUM_FRAMES,
-                      crop=list(PMV_RECT), eval_max_abs_err=eval_err, **extents,
-                      step_launches=r["step_launches"], eval_launches=r["eval_launches"],
-                      timed_steps=SP_TIMED_STEPS, ms_per_step_bf16_2_ranks=r["ms_per_step"],
-                      ms_per_step_bf16_1_process=one_ms,
-                      bytes_per_step_bf16=r["bytes_per_step"], launches=r["launches"],
-                      spawn_to_end_s=wall)
-        if eval_err > SP_EVAL_ATOL:
-            raise AssertionError(f"{phase}: eval scores differ by {eval_err}")
-        if r["layout"] != [0, 1, r["rank"], 2]:
-            raise AssertionError(f"{phase}: layout {r['layout']}")
-        if (r["step_launches"] != step_launches(per_forward)
-                or r["eval_launches"] != eval_launches(per_forward)):
-            raise AssertionError(f"{phase}: launched {r['step_launches']} a step, "
-                                 f"{r['eval_launches']} an eval")
-        timed = {k: v * SP_TIMED_STEPS for k, v in step_launches(per_forward).items()}
-        if r["launches"] != timed:
-            raise AssertionError(f"{phase}: the timed steps launched {r['launches']}, not {timed}")
-    launches = {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
-    run_net_paths = _run_net_against_one(
-        card, recipe, f"chip_smoke_sequence_parallel{suffix}_run_net",
-        f"sequence_parallel{suffix}_run_net", batch=2, extra=("TPU.SHARD_STRATEGY", "dp_sp"),
-        held=held)
-    return [launches] + run_net_paths
+    launches = {}
+    for i, case in enumerate(cases):
+        recipe, cfg = case["recipe"], case["cfg"]
+        ref, per_forward, held = refs[recipe]
+        t_exts = sorted({s[1] for s in held})
+        n_params = sum(v.numel() for v in ref["train"]["step"][1].values())
+        suffix = "" if recipe == "mvit" else f"_{recipe}"
+        for r in (rank[i] for rank in ranks):
+            phase = f"sequence_parallel{suffix}_dp_sp_rank{r['rank']}"
+            eval_err = float((r["scores"] - ref["scores"]).abs().max())
+            extents = _sp_extents(phase, r["train"]["shapes"], t_exts, True, per_forward, held)
+            _sp_extents(phase + "_eval", r["eval_shapes"], t_exts, False, per_forward, held)
+            _sp_extents(phase + "_timed", r["timed_shapes"], t_exts, True, per_forward, held,
+                        steps=SP_TIMED_STEPS)
+            extra = dict(model=cfg.MODEL.MODEL_NAME, card=card, layout=r["layout"],
+                         global_batch=SP_BATCH, frames=cfg.DATA.NUM_FRAMES,
+                         crop=list(case["batch"]["frames"].shape[2:4]),
+                         eval_max_abs_err=eval_err, **extents,
+                         step_launches=r["train"]["launches"],
+                         eval_launches=r["eval_launches"], timed_steps=SP_TIMED_STEPS,
+                         ms_per_step_bf16_2_ranks=r["ms_per_step"],
+                         ms_per_step_bf16_1_process=ref["ms_per_step"],
+                         bytes_per_step_bf16=r["bytes_per_step"], launches=r["launches"],
+                         spawn_to_end_s=wall)
+            check = case.get("check")
+            _sp_gates(f"{phase}_vs_one_process", cfg, r["train"]["step"], ref["train"]["step"],
+                      "free" if check else "adamw", n_params, **extra)
+            if check == "held":
+                _sp_gates(f"{phase}_relus_held_vs_one_process", cfg, r["check"]["step"],
+                          ref["train"]["step"], "held", n_params,
+                          relu_decisions_otherwise=r["check"]["otherwise"])
+            elif check == "float64":
+                _sp_gates(f"{phase}_f64_t{FLOAT64_FRAMES}_vs_one_process", cfg,
+                          r["check"]["step"], ref["check"]["step"], "float64", n_params)
+            if eval_err > SP_EVAL_ATOL:
+                raise AssertionError(f"{phase}: eval scores differ by {eval_err}")
+            if r["layout"] != [0, 1, r["rank"], 2] or r["recipe"] != recipe:
+                raise AssertionError(f"{phase}: layout {r['layout']} of {r['recipe']}")
+            if (r["train"]["launches"] != step_launches(per_forward)
+                    or r["eval_launches"] != eval_launches(per_forward)):
+                raise AssertionError(f"{phase}: launched {r['train']['launches']} a step, "
+                                     f"{r['eval_launches']} an eval")
+            timed = {k: v * SP_TIMED_STEPS for k, v in step_launches(per_forward).items()}
+            if r["launches"] != timed:
+                raise AssertionError(f"{phase}: the timed steps launched {r['launches']}, "
+                                     f"not {timed}")
+        launches[recipe] = {k: sum(rank[i]["launches"][k] for rank in ranks)
+                            for k in ranks[0][i]["launches"]}
+    return launches
+
+
+# X3D-M's yaml warms up from an LR of 0.01, 100 x the base LR of the
+# run_net phases (1e-4); its dp_sp pair warms up from MViT's and UniFormer's
+# 1e-6 instead, so that its gates read the same LRs.
+X3D_PAIR_LRS = ("SOLVER.WARMUP_START_LR", "1e-6", "SOLVER.COSINE_END_LR", "1e-6")
+
+
+def phase_sequence_parallel_run_net(card):
+    """Phase 8e's ``run_net --num_shards 2 TPU.SHARD_STRATEGY dp_sp`` pairs,
+    each against one process under 8c's gates on 16 Synthetic videos, all
+    9 processes started at once (``_run_net_pairs``): MViTv2-S's and
+    UniFormer-S's rect recipes, and X3D-M's (exps/PMV/run_X3D_PMV.sh's
+    rect_256_192 run, its 256^2 test crop); every K1 and wgrad call of
+    their ranks at a shape of the model's dp_sp grid. Returns each model's
+    2-process launches."""
+    specs = [dict(recipe=recipe, work_name=f"chip_smoke_sequence_parallel{suffix}_run_net",
+                  phase=f"sequence_parallel{suffix}_run_net", batch=2,
+                  extra=("TPU.SHARD_STRATEGY", "dp_sp"), held=_sp_model(recipe)[2])
+             for recipe, suffix in (("mvit", ""), ("uniformer", "_uniformer"),
+                                    ("x3d", "_x3d"))]
+    specs[-1]["opts"] = X3D_PAIR_LRS
+    return _run_net_pairs(card, specs)
 
 
 # Planted in a wrapper to see what phase 8b's gates catch
@@ -4408,7 +4659,7 @@ def plant_wrapper_faults(card):
 
 def kernels_line(records, launches, slowfast_launches, maskfeat_launches,
                  contrastive_launches, multigrid_launches, csn_launches, avslowfast_launches,
-                 ava_launches, sp_launches, sp_uniformer_launches, ssl_fsdp_launches):
+                 ava_launches, sp_launches, ssl_fsdp_launches):
     """One entry per kernel: times summed over the launches at the 224^2
     crop's shapes in bfloat16 at batch 8; K1 over one MViTv2-S forward (17
     launches, as many again for dx in a train step), the wgrad kernel over
@@ -4438,12 +4689,16 @@ def kernels_line(records, launches, slowfast_launches, maskfeat_launches,
     (phases 4a-6a, 0: SlowFast's and Slow's convs are dense);
     "launches_dp_sp" MViT's dp_sp paths' (phase 8e, both ranks),
     "launches_dp_sp_uniformer" UniFormer's (18 K1 a forward, 18 wgrad a
-    step), and "dp_sp" the sums over a rank's 17 launches under dp_sp (4 +
-    2 halo planes of the 8), bf16, per grid: the rect crop's and its
-    transposes at batch 2 (8e's train step) and 4 (8e's run_net), and the
-    224^2 crop's at batch 8; then over UniFormer's 18 ("uniformer_*": the
-    rect crop's and its transposes at batch 2 and 4, the 224^2 test crop's
-    at batch 4); "launches_ssl_fsdp" the SSL steps' under fsdp (phase 8f:
+    step), "launches_dp_sp_conv" each conv family's (X3D-M 22, ir-CSN-101
+    30, the others 0), and "dp_sp" the sums over a rank's 17 launches under
+    dp_sp (4 + 2 halo planes of the 8), bf16, per grid: the rect crop's and
+    its transposes at batch 2 (8e's train step) and 4 (8e's run_net), and
+    the 224^2 crop's at batch 8; then over UniFormer's 18 ("uniformer_*":
+    the rect crop's and its transposes at batch 2 and 4, the 224^2 test
+    crop's at batch 4), X3D-M's 22 ("x3d_*": 8 + 2 of its 16 frames, the
+    rect crop's and its transposes at batch 2 and 4, the 256^2 test crop's
+    at batch 4) and ir-CSN-101's 30 ("csn_b2": 16, 8, 4 and 2 planes of its
+    stages and 2 halo planes, 224^2, batch 2); "launches_ssl_fsdp" the SSL steps' under fsdp (phase 8f:
     MoCo 0, MaskFeat 14 a forward)."""
     maskfeat = maskfeat_kernel_ms(records)
 
@@ -4466,8 +4721,11 @@ def kernels_line(records, launches, slowfast_launches, maskfeat_launches,
             "launches_slowfast": slowfast_launches[name],
             "launches_avslowfast": avslowfast_launches[name],
             "launches_ava": ava_launches[name],
-            "launches_dp_sp": sp_launches[name],
-            "launches_dp_sp_uniformer": sp_uniformer_launches[name],
+            "launches_dp_sp": sp_launches["mvit"][name],
+            "launches_dp_sp_uniformer": sp_launches["uniformer"][name],
+            "launches_dp_sp_conv": {recipe: launches[name] for recipe, launches
+                                    in sp_launches.items()
+                                    if recipe not in ("mvit", "uniformer")},
             "launches_ssl_fsdp": ssl_fsdp_launches[name],
             "launches_maskfeat": maskfeat_launches[name],
             "launches_contrastive": {k: v[name] for k, v in contrastive_launches.items()},
@@ -4492,7 +4750,9 @@ def kernels_line(records, launches, slowfast_launches, maskfeat_launches,
                     "kernel_ms", "kernel_warm_ms", "plain_ms", "bound_ms", "library_ms")}
                 for g in ("rect_b2", "portrait_b2", "rect_b4", "portrait_b4", "square_b8",
                           "uniformer_rect_b2", "uniformer_portrait_b2", "uniformer_rect_b4",
-                          "uniformer_portrait_b4", "uniformer_square_b4")
+                          "uniformer_portrait_b4", "uniformer_square_b4",
+                          "x3d_rect_b2", "x3d_portrait_b2", "x3d_rect_b4", "x3d_portrait_b4",
+                          "x3d_square_b4", "csn_b2")
             },
             # The rect grids at run_net's train batch of 16.
             "rect_b16_ms": summed("kernel_ms", grid("rect_b16")),
@@ -4775,16 +5035,17 @@ def main():
     paths += timed("distributed_8b", phase_distributed_nccl, card)
     ssl_fsdp_paths = timed("ssl_fsdp_8f", phase_ssl_fsdp_nccl, card)
     paths += ssl_fsdp_paths
-    sp_paths = timed("sequence_parallel_8e", phase_sequence_parallel, card)
-    sp_uniformer_paths = timed("sequence_parallel_8e_uniformer", phase_sequence_parallel, card,
-                               "uniformer")
-    paths += sp_paths + sp_uniformer_paths
+    sp_ranks = timed("sequence_parallel_8e", phase_sequence_parallel, card)
+    sp_run_nets = timed("sequence_parallel_8e_run_net", phase_sequence_parallel_run_net, card)
+    sp_paths = {recipe: [launches] + sp_run_nets.get(recipe, [])
+                for recipe, launches in sp_ranks.items()}
+    paths += [p for recipe_paths in sp_paths.values() for p in recipe_paths]
     launches = {k: sum(p[k] for p in paths) for k in paths[0]}
     slowfast_launches = {k: sum(p[k] for p in slowfast_paths) for k in paths[0]}
     avslowfast_launches = {k: sum(p[k] for p in avslowfast_paths) for k in paths[0]}
     ava_launches = {k: sum(p[k] for p in ava_paths) for k in paths[0]}
-    sp_launches = {k: sum(p[k] for p in sp_paths) for k in paths[0]}
-    sp_uniformer_launches = {k: sum(p[k] for p in sp_uniformer_paths) for k in paths[0]}
+    sp_launches = {recipe: {k: sum(p[k] for p in recipe_paths) for k in paths[0]}
+                   for recipe, recipe_paths in sp_paths.items()}
     ssl_fsdp_launches = {k: sum(p[k] for p in ssl_fsdp_paths) for k in paths[0]}
     maskfeat_launches = {k: sum(p[k] for p in maskfeat_paths) for k in paths[0]}
     multigrid_launches = {k: sum(p[k] for p in multigrid_paths) for k in paths[0]}
@@ -4797,8 +5058,7 @@ def main():
     log(json.dumps({"phase": "total", "wall_s": time.perf_counter() - t_start}))
     line = kernels_line(records, launches, slowfast_launches, maskfeat_launches,
                         contrastive_launches, multigrid_launches, csn_launches,
-                        avslowfast_launches, ava_launches, sp_launches,
-                        sp_uniformer_launches, ssl_fsdp_launches)
+                        avslowfast_launches, ava_launches, sp_launches, ssl_fsdp_launches)
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": card, "records": records, **line}, f, indent=1)

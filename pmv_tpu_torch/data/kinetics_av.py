@@ -14,6 +14,11 @@ or before it when the video ends first (the AVS sync loss's negative).
 A failed audio decode, like a video with no audio stream, gives an empty
 waveform (logged as a warning for a failure), which ``gen_logmel`` pads, as
 in the JAX package; a failed decode gives no "audio_mis" either, as there.
+
+Under TPU.SHARD_STRATEGY dp_sp every rank of a model group loads the same
+rows (``loader.construct_loader``, by the rank's data index) and keeps the
+whole audio of each: the step cuts the frames to the rank's planes, and
+the audio pathway runs whole on every rank (``models/avslowfast.py``).
 """
 
 import numpy as np

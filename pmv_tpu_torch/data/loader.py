@@ -205,7 +205,9 @@ def construct_loader(cfg, split, dataset=None):
     drops the last partial batch; val and test keep the order and every
     sample. A process takes TRAIN.BATCH_SIZE (TEST.BATCH_SIZE) / NUM_GPUS
     samples a step (x the model axis under dp_sp, whose model groups take
-    the same rows). A train sample of contrastive views (DATA.
+    the same rows, by the rank's data index, each rank the whole sample:
+    the steps cut its frames to the rank's planes, and AVSlowFast's audio
+    stays whole). A train sample of contrastive views (DATA.
     TRAIN_CROP_NUM_TEMPORAL or _SPATIAL > 1) keeps its view axis: frames
     [B, V, T, H, W, C]. Under MULTIGRID.SHORT_CYCLE the train loader takes
     the short cycle's batches (``short_cycle_factors``)."""

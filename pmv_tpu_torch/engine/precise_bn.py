@@ -36,7 +36,9 @@ batches. Under dp_sp (``parallel/mesh.py``) the rows are those of the
 rank's data index, and each rank runs its frames of them inside
 ``mesh.sequence_parallel``, as the train step does: every rank's
 (rows, planes) are its own, so the statistics are again the global
-batch's.
+batch's (AVSlowFast's audio pathway, whole on every rank of a model
+group, counts each row once a rank: the mean and biased variance of the
+copies are one copy's).
 """
 
 from itertools import islice

@@ -205,17 +205,32 @@ def pack_pathways(cfg, x, audio=None, audio_mis=None):
     single-pathway arch; for SlowFast [slow, fast], the slow pathway every
     SLOWFAST.ALPHA-th frame from the first, ``x[:, ::ALPHA]``, and the fast
     one ``x``; for AVSlowFast [slow, fast, audio], and audio_mis after them
-    where it is given."""
+    where it is given. Inside ``mesh.sequence_parallel`` ``x`` is a rank's
+    frames of the clip and the audio the whole clip's: the rank's every
+    ALPHA-th frame is the clip's slow frames on it only where its first
+    frame's number in the clip is a multiple of ALPHA, so a rank's frames
+    that ALPHA does not divide raise ValueError."""
     if cfg.MODEL.ARCH in cfg.MODEL.SINGLE_PATHWAY_ARCH:
         return [x]
     if cfg.MODEL.ARCH == "slowfast":
-        return [x[:, ::cfg.SLOWFAST.ALPHA], x]
+        return [slow_frames(cfg, x), x]
     if cfg.MODEL.ARCH == "avslowfast":
         if audio is None:
             raise ValueError("AVSlowFast needs the batch's audio (a Kinetics_av loader)")
-        inputs = [x[:, ::cfg.SLOWFAST.ALPHA], x, audio]
+        inputs = [slow_frames(cfg, x), x, audio]
         return inputs if audio_mis is None else inputs + [audio_mis]
     raise NotImplementedError(f"arch {cfg.MODEL.ARCH} is not ported yet")
+
+
+def slow_frames(cfg, x):
+    """The slow pathway's frames of [B, T, H, W, C] ``x``: every
+    SLOWFAST.ALPHA-th from the first (``pack_pathways``)."""
+    alpha = cfg.SLOWFAST.ALPHA
+    if mesh.active() is not None and x.shape[1] % alpha:
+        raise ValueError(f"a rank's {x.shape[1]} frames are not a multiple of SLOWFAST.ALPHA "
+                         f"{alpha}: give each rank a multiple of it (DATA.NUM_FRAMES / the "
+                         "model axis)")
+    return x[:, ::alpha]
 
 
 def model_input(cfg, x, audio=None, audio_mis=None):
@@ -515,11 +530,11 @@ def make_train_step(cfg, device=None, seed=0):
         route, pm = portrait_route(model, batch.get("pm"), b, train=True, lay=lay)
         refuse_portrait_audio(cfg, pm)
         audio = (audio_of(batch, "audio", device), audio_of(batch, "audio_mis", device))
-        args = (model_input(cfg, x, *audio), pm)
         kwargs = dict(drop_path_masks=draws["drop_path"], head_dropout_mask=draws["dropout"])
         if "drop_pathway" in draws:
             kwargs["drop_pathway"] = draws["drop_pathway"]
         with frozen_stats(model, cfg.MODEL.FROZEN_BN), mesh.sequence_parallel(lay):
+            args = (model_input(cfg, x, *audio), pm)
             if state.wrapped is None:
                 preds = route(model, *args, **kwargs)
             else:

@@ -39,6 +39,21 @@ model built with DATA.GET_MISALIGNED_AUDIO (the JAX package creates them
 only when its init sees ``audio_mis``, `pmv_tpu/engine/steps.py:414-416`),
 which the loader then gives.
 
+Under temporal sequence parallelism (TPU.SHARD_STRATEGY dp_sp,
+``parallel/mesh.py``) the visual pathways hold a rank's planes and the audio
+is whole on every rank of a model group, which runs the audio pathway
+whole: the audio-to-slow sum takes the rank's planes of the audio resized
+to the clip's slow T (``audio_planes``), and the pooled visual features of
+the AVS loss, of the embeddings and of the head are the model group's means
+(``mesh.t_mean``); the audio's means stay each rank's own. The audio
+pathway's BatchNorm statistics combine the model group's copies of the same
+rows, whose mean and biased variance are those of one copy. Every
+cross-rank step is a collective whose backward sums over the model group,
+and the rest runs on each rank alone, so each rank's gradient is that of
+its own loss, the losses over the world sum to M times the global batch's
+(M the model axis), and DDP's mean over the M x D ranks gives the global
+batch's gradient, the audio pathway's included.
+
 DropPathway (`:894`) is a draw: one Bernoulli(SLOWFAST.DROPPATHWAY_RATE) a
 train step, ``sample_drop_pathway``, which the step hands to forward as
 ``drop_pathway``, so that a test can hand both packages one decision. A
@@ -71,7 +86,7 @@ from pmv_tpu_torch.models.resnet import (
 )
 from pmv_tpu_torch.models.resnet_helper import PathwayStages, ResStage, conv
 from pmv_tpu_torch.models.stem import ResNetBasicStem
-from pmv_tpu_torch.parallel import distributed
+from pmv_tpu_torch.parallel import distributed, mesh
 from pmv_tpu_torch.utils.device import rank_and_world_size
 
 
@@ -185,6 +200,18 @@ def audio_pair_mask(a_pos, a_neg, var_thresh, dup_thresh):
     return var_ok & ((pn * nn_).sum(dim=1) < dup_thresh)
 
 
+def audio_planes(a, t):
+    """[B, T_a, C] audio resized along time to the slow pathway's planes, of
+    which a rank holds ``t``: to the clip's slow T (``resize_axis``), then,
+    inside ``mesh.sequence_parallel``, the rank's planes of it (the audio
+    is whole on every rank)."""
+    lay = mesh.active()
+    if lay is None:
+        return resize_axis(a, 1, t)
+    start, stop = lay.planes(t * lay.model_size)
+    return resize_axis(a, 1, t * lay.model_size)[:, start:stop]
+
+
 class FuseAV(nn.Module):
     """One junction (`pmv_tpu/models/avslowfast.py:134`): the fast-to-slow
     concat where ``use_fs``; the audio conv stack where ``use_afs`` or
@@ -232,12 +259,12 @@ class FuseAV(nn.Module):
         a_pos = self.a2fs(x_pos)
         a_neg = self.a2fs(x_neg) if use_avs else None
         if self.use_afs:
-            a_t = resize_axis(a_pos, 1, fuse.shape[1]).to(fuse.dtype)
-            fuse = fuse + afs_gate * a_t[:, :, None, None, :]
+            fuse = fuse + afs_gate * audio_planes(a_pos, fuse.shape[1]).to(
+                fuse.dtype)[:, :, None, None, :]
         loss = None
         if use_avs:
             ft = torch.promote_types(fuse.dtype, torch.float32)
-            loss = self.avs(fuse.mean(dim=(1, 2, 3)).to(ft), a_pos.mean(dim=1).to(ft),
+            loss = self.avs(mesh.t_mean(fuse, (1, 2, 3)).to(ft), a_pos.mean(dim=1).to(ft),
                             a_neg.mean(dim=1).to(ft), audio_mask) * avs_gate
         return fuse, loss
 
@@ -298,7 +325,7 @@ class AVSlowFast(_ResNetBase):
                 self.s5_fuse = junction(4, dim_out, dim_out // beta, True, True)
         self.head = ResNetBasicHead([width * 32, width * 32 // beta, width * 32 // beta],
                                     cfg.MODEL.NUM_CLASSES, cfg.MODEL.DROPOUT_RATE,
-                                    cfg.MODEL.HEAD_ACT)
+                                    cfg.MODEL.HEAD_ACT, replicated=(2,))
 
     def _has_junction(self, idx, misaligned):
         return self.fs_fusion[idx] or self.afs_fusion[idx] or (self.avs_flag[idx] and misaligned)
@@ -364,7 +391,8 @@ class AVSlowFast(_ResNetBase):
             elif j == 4 and self.avs_flag[4] and misaligned:
                 fuse(4, x_s, x_f, 0.0)  # the AVS loss alone; the fused output goes
         if return_embeddings:
-            v_emb = torch.cat([x_s.mean(dim=(1, 2, 3)), x_f.mean(dim=(1, 2, 3))], dim=-1)
+            v_emb = torch.cat([mesh.t_mean(x_s, (1, 2, 3)), mesh.t_mean(x_f, (1, 2, 3))],
+                              dim=-1)
             return v_emb, a[0].mean(dim=(1, 2))
         out = self.head([x_s, x_f, a[0].mean(dim=2)[:, :, None, None, :]], head_dropout_mask)
         if self.training and misaligned:

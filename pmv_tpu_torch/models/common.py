@@ -105,10 +105,12 @@ def channels_last_conv3d(x, w, bias=None, stride=(1, 1, 1), padding=(0, 0, 0),
     ``tools/pool_conv_variants.py [--uniformer | --x3d]``: on the view cuDNN
     runs a grouped conv one channel at a time). Inside
     ``mesh.sequence_parallel`` ``x`` is a rank's T slice, and a conv of T
-    kernel above 1 runs on it extended by its halo (``conv_on_extended``)."""
+    kernel or stride above 1 runs on it extended by its halo
+    (``conv_on_extended``; none for a T kernel of 1, whose stride must
+    divide the rank's planes)."""
     w = w.to(x.dtype)
     bias = None if bias is None else bias.to(x.dtype)
-    if mesh.active() is not None and w.shape[2] > 1:
+    if mesh.active() is not None and (w.shape[2] > 1 or stride[0] > 1):
         left, right, out = t_extent(w.shape[2], stride[0], padding[0], x.shape[1],
                                     dilation[0])
         return conv_on_extended(mesh.extend_t(x, left, right), w, bias, stride, padding,
@@ -235,7 +237,7 @@ def _pool(pool, x, kernel, stride, padding, fill):
     """``pool`` over [B, T, H, W, C]; inside ``mesh.sequence_parallel``, of a
     T kernel above 1, on a rank's T slice extended by its halo, ``fill``
     beyond the clip's ends, T padded by 0."""
-    if mesh.active() is None or kernel[0] == 1:
+    if mesh.active() is None or kernel[0] == stride[0] == 1:
         return _ndhwc(pool(_ncdhw(x), kernel, stride, padding))
     left, right, out = t_extent(kernel[0], stride[0], padding[0], x.shape[1])
     xe = mesh.extend_t(x, left, right, fill)

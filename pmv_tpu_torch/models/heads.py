@@ -7,6 +7,7 @@ from torch import nn
 from pmv_tpu_torch.models.batchnorm import BatchNorm
 from pmv_tpu_torch.models.common import Dropout, Linear, PointwiseConv
 from pmv_tpu_torch.ops.roi_align import roi_align
+from pmv_tpu_torch.parallel import mesh
 
 
 def head_act(x, act_func):
@@ -50,17 +51,23 @@ class ResNetBasicHead(nn.Module):
     the mean over T, H and W, the pathways concatenated, dropout, the
     ``projection`` linear; the activation at eval only. ``dim_in`` lists the
     pathways' widths. In training the dropout applies ``dropout_mask``
-    [B, sum(dim_in)], drawn with ``self.dropout.sample``."""
+    [B, sum(dim_in)], drawn with ``self.dropout.sample``. Under sequence
+    parallelism a pathway's mean is the model group's (``mesh.t_mean``),
+    but for the pathways ``replicated`` lists, which every rank holds whole
+    (AVSlowFast's audio)."""
 
-    def __init__(self, dim_in, num_classes, dropout_rate=0.0, act_func="softmax"):
+    def __init__(self, dim_in, num_classes, dropout_rate=0.0, act_func="softmax",
+                 replicated=()):
         super().__init__()
         self.dim_in = sum(dim_in)
+        self.replicated = tuple(replicated)
         self.dropout = Dropout(dropout_rate)
         self.projection = Linear(self.dim_in, num_classes)
         self.act_func = act_func
 
     def forward(self, inputs, dropout_mask=None):
-        x = torch.cat([x.mean(dim=(1, 2, 3)) for x in inputs], dim=-1)
+        x = torch.cat([x.mean(dim=(1, 2, 3)) if p in self.replicated
+                       else mesh.t_mean(x, (1, 2, 3)) for p, x in enumerate(inputs)], dim=-1)
         x = self.projection(self.dropout(x, dropout_mask))
         if not self.training:
             x = head_act(x, self.act_func)
@@ -115,7 +122,8 @@ class X3DHead(nn.Module):
     to ``dim_out`` (then BatchNorm with ``bn_lin5_on``), ReLU, dropout, the
     ``projection`` linear; the activation at eval only. In training the
     dropout applies ``dropout_mask`` [B, dim_out], drawn with
-    ``self.dropout.sample``."""
+    ``self.dropout.sample``. Under sequence parallelism the mean is the
+    model group's (``mesh.t_mean``)."""
 
     def __init__(self, dim_in, dim_inner, dim_out, num_classes, dropout_rate=0.5,
                  act_func="softmax", bn_lin5_on=False):
@@ -131,7 +139,7 @@ class X3DHead(nn.Module):
 
     def forward(self, x, dropout_mask=None):
         x = F.relu(self.conv_5_bn(self.conv_5(x)))
-        x = self.lin_5(x.mean(dim=(1, 2, 3)))
+        x = self.lin_5(mesh.t_mean(x, (1, 2, 3)))
         if self.lin_5_bn is not None:
             x = self.lin_5_bn(x)
         x = self.projection(self.dropout(F.relu(x), dropout_mask))

@@ -347,21 +347,12 @@ class MViT(nn.Module):
         if self.use_mean_pooling:
             if self.cls_on:
                 x = x[:, 1:]
-            x = self.norm(token_mean(x, lay))
+            x = self.norm(mesh.t_mean(x, (1,)))
         elif self.cls_on:
             x = self.norm(x)[:, 0]
         else:
-            x = token_mean(self.norm(x), lay)
+            x = mesh.t_mean(self.norm(x), (1,))
         return self.head(x, head_dropout_mask)
-
-
-def token_mean(x, lay):
-    """The mean of [B, N, D] over the tokens; under sequence parallelism
-    (``lay``) over the model group's, in float32."""
-    if lay is None:
-        return x.mean(dim=1)
-    total = mesh.all_reduce_model(x.float().sum(dim=1))
-    return (total / (x.shape[1] * lay.model_size)).to(x.dtype)
 
 
 @MODEL_REGISTRY.register(name="MViT")

@@ -5,11 +5,13 @@ Counterpart of `pmv_tpu/models/nonlocal_block.py`, on channels-last
 ``conv_phi``, ``conv_g``, ``conv_out``, ``bn``).
 """
 
+import torch
 import torch.nn.functional as F
 from torch import nn
 
 from pmv_tpu_torch.models.batchnorm import BatchNorm
 from pmv_tpu_torch.models.common import PointwiseConv, max_pool_3d
+from pmv_tpu_torch.parallel import mesh
 
 
 class Nonlocal(nn.Module):
@@ -19,7 +21,11 @@ class Nonlocal(nn.Module):
     products scaled by ``dim_inner ** -0.5`` ("softmax") or the products
     over the count of positions ("dot_product"), times g, then ``conv_out``,
     BatchNorm and the residual (`nonlocal_block.py:15`). The two products are
-    ``torch.matmul``s, as the JAX package's are einsums. The BatchNorm's
+    ``torch.matmul``s, as the JAX package's are einsums. Under sequence
+    parallelism (``parallel/mesh.py``) theta holds the rank's positions and
+    phi and g, pooled on the rank's planes, are gathered over the model
+    group in one ``mesh.gather_t``, so that each of the rank's positions attends
+    to every position of the clip; the output is the rank's. The BatchNorm's
     scale starts at 0, so that a new block is the identity: the model's
     ``init_weights`` sets it."""
 
@@ -42,8 +48,11 @@ class Nonlocal(nn.Module):
         theta = self.conv_theta(x).reshape(b, -1, self.dim_inner)
         pooled = x if self.pool_size is None else max_pool_3d(
             x, self.pool_size, self.pool_size, (0, 0, 0))
-        phi = self.conv_phi(pooled).reshape(b, -1, self.dim_inner)
-        g = self.conv_g(pooled).reshape(b, -1, self.dim_inner)
+        phi, g = self.conv_phi(pooled), self.conv_g(pooled)
+        if mesh.active() is not None:  # one gather for both
+            phi, g = mesh.gather_t(torch.cat([phi, g], dim=-1)).split(self.dim_inner, dim=-1)
+        phi = phi.reshape(b, -1, self.dim_inner)
+        g = g.reshape(b, -1, self.dim_inner)
         attn = theta @ phi.transpose(1, 2)
         if self.instantiation == "softmax":
             attn = F.softmax(attn * self.dim_inner ** -0.5, dim=-1)

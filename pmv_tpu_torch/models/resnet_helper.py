@@ -24,11 +24,13 @@ from torch import nn
 
 from pmv_tpu_torch.models.common import ChannelsLastConv3d, DropPath, PointwiseConv, round_width
 from pmv_tpu_torch.models.nonlocal_block import Nonlocal
+from pmv_tpu_torch.parallel import mesh
 
 
 class SE(nn.Module):
-    """Squeeze-excitation (`resnet_helper.py:32`): the mean over T, H and W,
-    fc1, ReLU (or swish), fc2, sigmoid, times the input."""
+    """Squeeze-excitation (`resnet_helper.py:32`): the mean over T, H and W
+    (the model group's under sequence parallelism, ``mesh.t_mean``), fc1,
+    ReLU (or swish), fc2, sigmoid, times the input."""
 
     def __init__(self, dim_in, ratio, relu_act=True):
         super().__init__()
@@ -38,7 +40,7 @@ class SE(nn.Module):
         self.relu_act = relu_act
 
     def forward(self, x):
-        s = self.fc1(x.mean(dim=(1, 2, 3), keepdim=True))
+        s = self.fc1(mesh.t_mean(x, (1, 2, 3), keepdim=True))
         s = F.relu(s) if self.relu_act else F.silu(s)
         return x * torch.sigmoid(self.fc2(s))
 

@@ -38,7 +38,7 @@ Counterpart of `pmv_tpu/models/uniformer.py`, on channels-last
   keeps this rank's queries and gathers K and V over the model group
   (SplitSABlock's temporal branch per site), SplitSABlock's
   per-(clip, frame) DropPath masks are cut to the rank's planes, and the
-  final mean sums over the model group (``mvit.token_mean``).
+  final mean sums over the model group (``mesh.t_mean``).
 """
 
 import numpy as np
@@ -56,7 +56,7 @@ from pmv_tpu_torch.models.common import (
     Mlp,
     PointwiseConv,
 )
-from pmv_tpu_torch.models.mvit import geometry, token_mean
+from pmv_tpu_torch.models.mvit import geometry
 from pmv_tpu_torch.parallel import mesh
 
 
@@ -319,7 +319,7 @@ class Uniformer(nn.Module):
         x = self.norm(x)
         if return_features:
             return x
-        return self.head(token_mean(x.flatten(1, 3), mesh.active()))
+        return self.head(mesh.t_mean(x.flatten(1, 3), (1,)))
 
 
 @MODEL_REGISTRY.register(name="Uniformer")

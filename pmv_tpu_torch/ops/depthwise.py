@@ -217,6 +217,24 @@ CSN_TEST_DW_SHAPES = (
     ((8, 8, 16, 16, 256), 22),
     ((8, 4, 8, 8, 512), 2),
 )
+# X3D-M's channelwise convs under TPU.SHARD_STRATEGY dp_sp on a model axis of
+# 2, per rank, as MVIT_SP_POOL_SHAPES: 8 of the 16 frames and the halo plane
+# either side, on the PMV rect crop's grids and their transposes at
+# SP_BATCHES, and on the recipe's 256^2 test crop at the batch a rank holds
+# in run_net's test (2 videos a process).
+X3D_SP_DW_SHAPES = tuple(
+    ((b, t // 2 + 2, h, w, c), n) for b in SP_BATCHES
+    for (_, t, h, w, c), n in X3D_RECT_DW_SHAPES + X3D_PORTRAIT_DW_SHAPES
+)
+X3D_SP_TEST_DW_SHAPES = tuple(
+    ((SP_BATCHES[-1], t // 2 + 2, h, w, c), n) for (_, t, h, w, c), n in X3D_TEST_DW_SHAPES
+)
+# ir-CSN-101's stride-1 conv_bs under dp_sp, per rank, at batch 2 on the
+# 32 x 224^2 train crop: half of each stage's planes (16, 8, 4, 2) and the
+# halo plane either side.
+CSN_SP_DW_SHAPES = tuple(
+    ((SP_BATCHES[0], t // 2 + 2, h, w, c), n) for (_, t, h, w, c), n in CSN_DW_SHAPES
+)
 # Shapes the tiling must take besides: C of 8, 24 and 40 (not multiples of
 # a chunk), H and W of 1, 2, 7 and 13, portrait grids, T of 1 to 3, B of 1.
 ODD_SHAPES = (

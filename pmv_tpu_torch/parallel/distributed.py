@@ -38,12 +38,13 @@ both give dp's numbers; the SSL models' momentum encoder is laid out as
 its online parameters are (``ContrastiveModel.sharded_buffers``), and SwAV's
 prototypes stay whole, as the JAX package leaves a leaf of fewer than
 65,536 elements replicated. "dp_sp" lays the ranks out as a (data, model)
-grid and cuts every activation of the MViT classification model and of
-UniFormer in T over the model axis (``parallel/mesh.py``); the parameters
-are replicated and wrapped in ``DistributedDataParallel`` over the whole
-world. Under it the rows of the global batch are split over a data group
-as over the world under dp (``partner_rows`` and ``gather_rows`` take a
-layout for that), and the other models raise NotImplementedError.
+grid and cuts every video activation of a classification model
+(``SEQUENCE_PARALLEL_MODELS``) in T over the model axis
+(``parallel/mesh.py``); the parameters are replicated and wrapped in
+``DistributedDataParallel`` over the whole world. Under it the rows of the
+global batch are split over a data group as over the world under dp
+(``partner_rows`` and ``gather_rows`` take a layout for that), and the SSL
+models raise NotImplementedError.
 """
 
 import contextlib
@@ -293,21 +294,25 @@ def block_types():
 
 
 # The models that run under dp_sp (by MODEL.MODEL_NAME, and their classes'
-# names): MViT's classification model and UniFormer.
-SEQUENCE_PARALLEL_MODELS = ("MViT", "Uniformer", "Uniformerframe")
+# names): every classification model, MViT's, UniFormer, X3D, the ResNet
+# family (C2D, I3D, Slow, non-local blocks), SlowFast, CSN, R(2+1)D and
+# AVSlowFast; not the SSL models (ContrastiveModel, MaskMViT).
+SEQUENCE_PARALLEL_MODELS = ("MViT", "Uniformer", "Uniformerframe", "X3D", "ResNet",
+                            "ResNetModel", "SlowFast", "CSN", "PTVCSN", "R2Plus1D",
+                            "PTVR2plus1D", "SeparatedConvNet", "AVSlowFast")
 
 
 def _refuse_model(name):
     if name not in SEQUENCE_PARALLEL_MODELS:
         raise NotImplementedError(
-            f"TPU.SHARD_STRATEGY dp_sp takes the MViT classification model and UniFormer; "
-            f"{name} under dp_sp is queued in ROADMAP.md")
+            f"TPU.SHARD_STRATEGY dp_sp takes the classification models; {name} under "
+            "dp_sp is queued in ROADMAP.md")
 
 
 def refuse_sequence_parallel(cfg):
     """Raise for what a multi-process dp_sp job of ``cfg`` asks for and the
-    port does not run under it: a model other than MViT and UniFormer (the
-    SSL models among them), detection, feature extraction, multigrid."""
+    port does not run under it: an SSL model (``SEQUENCE_PARALLEL_MODELS``
+    lists the others), detection, feature extraction, multigrid."""
     if cfg.TPU.SHARD_STRATEGY != "dp_sp" or world_size_of(cfg) == 1:
         return
     _refuse_model(cfg.MODEL.MODEL_NAME)
@@ -328,13 +333,17 @@ def wrap_model(model, strategy, device):
     ``replicated_parameters()``, which stay whole on every rank
     (``average_replicated_grads`` averages their gradients), and
     ``sharded_buffers()``, (buffer name, parameter) pairs, each buffer then
-    laid out as its parameter's shards are. Under "dp_sp" (MViT and
-    UniFormer) as under "dp", over the whole world, since the parameters
-    are replicated over the grid. ``model`` stays the module that holds the
+    laid out as its parameter's shards are. Under "dp_sp" (a model of
+    ``SEQUENCE_PARALLEL_MODELS``; the SSL models and a detection model
+    raise) as under "dp", over the whole world, since the parameters are
+    replicated over the grid. ``model`` stays the module that holds the
     parameters (FSDP's are sharded ``DTensor``s); its parameter and buffer
     names do not change."""
     if strategy == "dp_sp":
         _refuse_model(type(model).__name__)
+        if getattr(model, "detection", False):
+            raise NotImplementedError("DETECTION.ENABLE under TPU.SHARD_STRATEGY dp_sp: "
+                                      "queued in ROADMAP.md")
         strategy = "dp"
     if strategy == "dp":
         return nn.parallel.DistributedDataParallel(

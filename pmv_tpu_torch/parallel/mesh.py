@@ -27,10 +27,15 @@ collectives themselves:
   ``t_halo``) and pads T by 0 itself (``models/common.py``); MViT's
   attention gathers K's and V's tokens (``gather_t``) and offsets its
   temporal rel-pos table, UniFormer's global and temporal attention gather
-  theirs; both models' mean pooling sums over the model group
-  (``all_reduce_model``); BatchNorm's statistics, over every rank's
-  (rows, planes), are the global batch's already
-  (``models/batchnorm.py``).
+  theirs, and so do the ResNet family's non-local blocks; every mean over
+  T (the heads', SE's, AVSlowFast's AVS features) sums over the model
+  group (``t_mean``, on ``all_reduce_model``); SlowFast's slow frames are
+  every ALPHA-th of a rank's (``engine/steps.py::pack_pathways``), and
+  AVSlowFast's audio, whole on every rank, is resized to the clip's slow T
+  before a rank takes its planes of it; BatchNorm's statistics, over every
+  rank's (rows, planes), are the global batch's already
+  (``models/batchnorm.py``), and over rows that every rank of a model
+  group holds whole (AVSlowFast's audio pathway) equal to one copy's.
 - The collectives are ``torch.autograd.Function``s built from
   ``all_reduce`` alone, each rank adding its part to a buffer of zeros (so
   that they also run over gloo on CUDA tensors, two ranks sharing a card).
@@ -285,8 +290,10 @@ def t_halo(x, left, right):
 def extend_t(x, left, right, fill=None):
     """[B, left + t + right, ...]: ``x`` between its halo planes
     (``t_halo``); beyond the clip's ends the planes are ``fill`` (zeros
-    when None)."""
+    when None); ``x`` itself where both are 0."""
     lay = _required()
+    if not (left or right):
+        return x
     lo, hi = t_halo(x, left, right)
     if fill is not None:
         if lay.model == 0:
@@ -312,3 +319,19 @@ def all_reduce_model(x):
     """The sum of ``x`` over the model group; its gradient the group's
     summed gradient."""
     return AllReduceSum.apply(x, group(_required(), "model"), "reduce")
+
+
+def t_mean(x, dims, keepdim=False):
+    """The mean of ``x`` over ``dims``, which hold axis 1, T. Inside
+    ``sequence_parallel`` ``x`` is a rank's T slice: the rank's float32 sum
+    over ``dims``, summed over the model group (``all_reduce_model``),
+    divided by the clip's count, the rank's count times the model size
+    (every rank holds as many planes), in x.dtype. Outside it
+    ``x.mean(dims)``."""
+    lay = _active
+    if lay is None:
+        return x.mean(dim=dims, keepdim=keepdim)
+    count = lay.model_size * int(np.prod([x.shape[d] for d in dims]))
+    total = all_reduce_model(x.to(torch.promote_types(x.dtype, torch.float32))
+                             .sum(dim=dims, keepdim=keepdim))
+    return (total / count).to(x.dtype)

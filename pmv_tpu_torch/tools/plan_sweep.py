@@ -8,7 +8,10 @@ For each MViTv2-S 16x4 pool shape at batch 8 (``ops.depthwise
 ``MASKFEAT_POOL_SHAPES``; and a rank's under dp_sp, on 4 + 2 halo planes:
 ``MVIT_SP_POOL_SHAPES`` and ``MVIT_SP_SQUARE_POOL_SHAPES``), UniFormer-S's DPE
 convs under dp_sp (``UNIFORMER_SP_DPE_SHAPES``,
-``UNIFORMER_SP_TEST_DPE_SHAPES``) and each
+``UNIFORMER_SP_TEST_DPE_SHAPES``), X3D-M's channelwise convs under dp_sp on
+8 + 2 planes (``X3D_SP_DW_SHAPES``, ``X3D_SP_TEST_DW_SHAPES``; C = 54 and 108
+padded to 56 and 112, as the wrappers pad them), ir-CSN-101's conv_bs under
+dp_sp (``CSN_SP_DW_SHAPES``) and each
 ir-CSN-101 conv_b shape at batch 8 on the train and the 256^2 test crop
 (``CSN_DW_SHAPES``, ``CSN_TEST_DW_SHAPES``), dtype (bfloat16, float32) and kernel (K1, wgrad),
 every plan of ``ops.depthwise.make_plan`` over tile rows 2, 4, 7 and 8,
@@ -59,8 +62,11 @@ def main():
     gen = torch.Generator(device="cuda").manual_seed(0)
     for shape, _ in (dw.MVIT_POOL_SHAPES + dw.MVIT_SP_POOL_SHAPES
                      + dw.MVIT_SP_SQUARE_POOL_SHAPES + dw.UNIFORMER_SP_DPE_SHAPES
-                     + dw.UNIFORMER_SP_TEST_DPE_SHAPES
+                     + dw.UNIFORMER_SP_TEST_DPE_SHAPES + dw.X3D_SP_DW_SHAPES
+                     + dw.X3D_SP_TEST_DW_SHAPES + dw.CSN_SP_DW_SHAPES
                      + dw.CSN_DW_SHAPES + dw.CSN_TEST_DW_SHAPES):
+        # The kernels' C: X3D's 54 and 108 as the wrappers pad them.
+        shape = (*shape[:-1], shape[-1] + -shape[-1] % dw.CHANNEL_MULTIPLE)
         for dtype in (torch.bfloat16, torch.float32):
             x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
             g = torch.randn(shape, generator=gen, device="cuda").to(dtype)

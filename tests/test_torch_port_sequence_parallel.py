@@ -12,11 +12,11 @@
 - The layout: the port's rank grid is the device grid of the JAX package's
   ``create_mesh`` for 2, 4, 6 and 8 processes (and TPU.MESH_SHAPE's), and
   an odd world falls back to dp as ``create_mesh`` does.
-- The refusals: another model than MViT and UniFormer under dp_sp raises
-  NotImplementedError naming ROADMAP.md, in ``wrap_model`` and before
-  ``run_net`` starts a process; a rank's frames that the patch conv's T
-  stride does not divide raise ValueError. UniFormer and Uniformerframe
-  pass them.
+- The refusals: an SSL model, detection and multigrid under dp_sp raise
+  NotImplementedError naming ROADMAP.md before ``run_net`` starts a
+  process, and the SSL and detection models in ``wrap_model``; a rank's
+  frames that the patch conv's T stride does not divide raise ValueError.
+  UniFormer and Uniformerframe pass them.
 - 4 ranks, a grid of data 2 x model 2, one spawn: the data groups' rows,
   MixUp's partner rows across them, and one train step of MViT and one of
   UniFormer (BatchNorm over the 4 ranks' planes) equal to the port's
@@ -204,18 +204,31 @@ TINY_UNIFORMER = ("UNIFORMER.PRETRAIN_NAME", "", "UNIFORMER.EMBED_DIM", [8, 16, 
                   "TENSORBOARD.ENABLE", False)
 
 
-@pytest.mark.parametrize("path, opts", [
-    ("configs/tiny_x3d_synthetic.yaml", ()),  # BatchNorm
-    ("configs/tiny_slowfast_synthetic.yaml", ()),  # BatchNorm, T-strided fusions
-    ("configs/tiny_maskfeat_synthetic.yaml", ()),  # MaskMViT, an SSL model
+TINY_SLOW = ("RESNET.DEPTH", 18, "RESNET.WIDTH_PER_GROUP", 4, "DATA.NUM_FRAMES", 4,
+             "DATA.TRAIN_CROP_SIZE", 16, "DATA.TEST_CROP_SIZE", 16)
+
+
+@pytest.mark.parametrize("path, opts, model_refused", [
+    ("configs/contrastive_ssl/MoCo_SlowR50_8x8.yaml", TINY_SLOW, True),  # an SSL model
+    ("configs/AVA/SLOW_8x8_R50_SHORT.yaml", TINY_SLOW, True),  # detection
+    ("configs/tiny_multigrid_synthetic.yaml", (), False),  # multigrid, on SlowFast
+    ("configs/tiny_maskfeat_synthetic.yaml", (), True),  # MaskMViT, an SSL model
 ])
-def test_another_model_under_dp_sp_raises(path, opts):
+def test_another_model_under_dp_sp_raises(path, opts, model_refused):
+    """What dp_sp does not run raises NotImplementedError naming ROADMAP.md
+    before ``run_net`` starts a process, and, for a model that it does not
+    run (the SSL models, a detection model), in ``wrap_model``; the conv
+    families run under it (tests/test_torch_port_sequence_parallel_conv.py),
+    but not with multigrid."""
     cfg = get_cfg()
     cfg.merge_from_file(path)
     cfg.merge_from_list(list(opts))
     model = build_model(cfg, device="cpu", dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        distributed.wrap_model(model, "dp_sp", torch.device("cpu"))
+    if model_refused:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            distributed.wrap_model(model, "dp_sp", torch.device("cpu"))
+    else:
+        assert type(model).__name__ in distributed.SEQUENCE_PARALLEL_MODELS
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):  # before any process starts
         run_net.main(["--cfg", path, "--device", "cpu", "--opts", *map(str, opts),
                       "NUM_GPUS", "2", "TPU.SHARD_STRATEGY", "dp_sp"])

@@ -248,9 +248,13 @@ def jax_drop_path_masks(jmodel, variables, x, key, model, **kwargs):
 def folded_like(mask, shape):
     """A ReLU's decisions [B, T, H, W, C] in the layout of a JAX activation
     of ``shape``: as they are, or folded as TPU.FOLD_STEM folds the stem
-    ([B, T, H / f, W / f, f * f * C]). Arrays, or tracers."""
+    ([B, T, H / f, W / f, f * f * C]); or, of the same channels, with other
+    unit axes (X3D's pooled head: [B, C] here, [B, 1, 1, 1, C] there).
+    Arrays, or tracers."""
     if tuple(mask.shape) == tuple(shape):
         return mask
+    if mask.shape[-1] == shape[-1]:
+        return mask.reshape(shape)
     b, t, h, w, c = mask.shape
     f = int(round((shape[-1] / c) ** 0.5))
     return mask.reshape(b, t, h // f, f, w // f, f, c).transpose(
@@ -677,8 +681,9 @@ def rank_detection(rank, world, case, strategy=None):
 
 def rank_sp_case(rank, world, case):
     """The dp_sp case (cfg naming TPU.SHARD_STRATEGY dp_sp, state_dict, the
-    global batch and its draws, lr; optionally "eval": frames and portrait
-    flags; "test": clips, labels, clips a video, rows a data group a step;
+    global batch and its draws, lr, the activations' dtype, float32 unless
+    it names one; optionally "eval": frames, and portrait flags or audio;
+    "test": clips, labels, clips a video, rows a data group a step;
     "precise_batches": global batches) on this rank: the train step
     (``rank_train_step``) with the shapes the K1 and wgrad calls took; the
     eval step's scores on the eval frames; ``perform_test`` through the
@@ -700,8 +705,9 @@ def rank_sp_case(rank, world, case):
     cfg = case["cfg"]
     lay = mesh.layout(cfg)
     out["layout"] = lay
+    dtype = case.get("dtype", torch.float32)
     if "precise_batches" in case:
-        model = build_model(cfg, device="cpu", dtype=torch.float32)
+        model = build_model(cfg, device="cpu", dtype=dtype)
         model.load_state_dict(case["state_dict"])
         calculate_and_update_precise_bn(
             [local_rows(b, lay.data, lay.data_size) for b in case["precise_batches"]],
@@ -710,13 +716,15 @@ def rank_sp_case(rank, world, case):
                              if "running" in k}
     if "eval" not in case:
         return out
-    model = build_model(cfg, device="cpu", dtype=torch.float32)
+    model = build_model(cfg, device="cpu", dtype=dtype)
     model.load_state_dict(case["state_dict"])
     eval_step = make_eval_step(cfg, model, device="cpu")
     rows = local_rows(case["eval"], lay.data, lay.data_size)
     with record_shapes() as shapes:
-        out["scores"] = eval_step(rows["frames"], rows["pm"]).clone()
+        out["scores"] = eval_step(rows["frames"], rows.get("pm"), rows.get("audio")).clone()
     out["eval_shapes"] = shapes
+    if "test" not in case:
+        return out
     test = case["test"]
     loader = DataLoader(ClipDataset(test["frames"], test["labels"], test["num_clips"]),
                         test["batch_size"], rank=lay.data, world_size=lay.data_size,
@@ -727,6 +735,29 @@ def rank_sp_case(rank, world, case):
     out["test"] = {"stats": stats, "video_preds": meter.video_preds,
                    "clip_count": meter.clip_count, "steps": len(loader)}
     return out
+
+
+def rank_sp_cases(rank, world, case_dir):
+    """Each dp_sp case of ``case_dir/sp_cases.pt`` ({name: case}) on this
+    rank (``rank_sp_case``), with the bytes its T collectives handed to
+    ``all_reduce`` (``mesh.traffic``); rank 0 writes every rank's results
+    to ``case_dir/sp_results.pt``."""
+    from pathlib import Path
+
+    from pmv_tpu_torch.parallel import mesh
+
+    case_dir = Path(case_dir)
+    cases = torch.load(case_dir / "sp_cases.pt", weights_only=False)
+    out = {}
+    for name, case in cases.items():
+        before = dict(mesh.traffic)
+        got = rank_sp_case(rank, world, case)
+        got["traffic"] = {k: v - before[k] for k, v in mesh.traffic.items()}
+        ranks = [None] * world
+        torch.distributed.all_gather_object(ranks, got)
+        out[name] = ranks
+    if rank == 0:
+        torch.save(out, case_dir / "sp_results.pt")
 
 
 def rank_grid_case(rank, world, case_dir):
