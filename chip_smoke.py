@@ -329,7 +329,8 @@ is on K1, 0 launches asserted):
    its init; train, precise BN, eval, a 1-view test). Main paths; logs in
    ``build/chip_smoke_run_net_{moco,slow_ft}/stdout.log``.
 Distributed (``pmv_tpu_torch/parallel/distributed.py``):
-8. Print whether ``torch.utils.tensorboard`` imports. 8a: two ranks over
+8. Print whether ``torch.utils.tensorboard``, matplotlib, cv2 and moviepy
+   import. 8a: two ranks over
    gloo sharing the one card (NCCL refuses two ranks on one device; the
    kernels were built in phase 1, the ranks only load them): which
    collectives gloo carries on CUDA tensors; UniFormer-S 16x4 at full width,
@@ -344,7 +345,8 @@ Distributed (``pmv_tpu_torch/parallel/distributed.py``):
    ``train()`` with ``dp``, the gathered eval, the checkpoint written by rank
    0, the gathered test; 16 Synthetic videos), its test_final against one
    process's at twice a process's batch, then a resume (main paths, counted
-   in each rank's process); its processes run while 8d's do. 8b: a world
+   in each rank's process); its first 3 processes start with 8e's
+   ``run_net`` pairs', and 8d's ranks run beside them. 8b: a world
    of one over NCCL: MViTv2-S at batch 8, the ``dp``
    and the ``fsdp`` step against the unwrapped step under phase 3b's gates
    in float32, and in bfloat16 within BF16_WRAPPER_LIMIT beside a second
@@ -386,12 +388,44 @@ Distributed (``pmv_tpu_torch/parallel/distributed.py``):
    ``build/chip_smoke_sequence_parallel/``). Then ``run_net --num_shards 2
    TPU.SHARD_STRATEGY dp_sp`` on MViT's, UniFormer's (its 224^2 test crop)
    and X3D-M's (its 256^2 test crop) rect recipes in float32 (16 Synthetic
-   videos, 4 a step), each against one process under 8c's gates, the 9
-   processes started at once (logs in
+   videos, 4 a step), each against one process under 8c's gates, their 9
+   processes and 8c's first 3 started at once (every process's log in
    ``build/chip_smoke_sequence_parallel_run_net/``).
    ``--plant-wrapper-faults`` logs 8b's readings with faults planted in
    the wrappers instead of running the phases.
-9. Print the script's wall time, the kernels line, the card line, and
+Visualization, the demos and 2D->3D inflation, in this process;
+the card's host has neither matplotlib nor moviepy, nor FFmpeg, so the
+demos read seeded frames from memory and hand theirs to a sink in memory
+(``FrameSource``, ``FrameSink``), and no phase asks for a confusion matrix
+or a video:
+9a. Grad-CAM (``visualization/gradcam.py``) of full-width MViTv2-S 16x4
+   on phase 6's checkpoint (its rect crop), float32 at batch 2, card
+   against CPU: maps and scores to atol 1e-4, one forward's 17 K1 and no
+   wgrad (the gradient stops at the tap).
+9b. ``run_net`` on configs/Kinetics/MVITv2_S_16x4.yaml (phase 6's options)
+   with TRAIN.ENABLE and TEST.ENABLE False, TENSORBOARD.ENABLE, MODEL_VIS
+   (MODEL_WEIGHTS, GRAD_CAM, INPUT_VIDEO) and WRONG_PRED_VIS on 16
+   Synthetic videos and phase 6's checkpoint (a main path): a weight
+   histogram of every parameter in its event file, 17 K1 a test batch;
+   ``plot_eval`` raises where matplotlib is absent.
+9c. The demo (``visualization/demo.py``) on MViTv2-S (the yaml, random
+   weights from its seed, float32) over 150 seeded frames of 320x240 in
+   memory, DEMO.BUFFER_SIZE 8, NUM_CLIPS_SKIP 1, its drawing pool in
+   process and with 2 spawned workers (a main path): 150 frames out of
+   each, equal; each predicted window's scores equal to the eval step's on
+   the same clip; 17 K1 a predicted window.
+9d. The AVA demo (``visualization/ava_demo.py``) on SlowFast 32x2 R50 AVA
+   (phase 6a's checkpoint) over 90 seeded frames of 455x256 at 30 fps and a
+   seeded DEMO.PREDS_BOXES file (a main path): each keyframe's box scores
+   equal to the detection eval step's, 90 frames out, 0 K1.
+9e. UniFormer-S 16x4 from a seeded image checkpoint in the reference's
+   layout (every conv 2-D, 1000 classes, under ``build/chip_smoke_m19/
+   pretrained/``) through the pretrain registry (UNIFORMER.PRETRAIN_NAME
+   uniformer_small_in1k, PMV_PRETRAIN_ROOT): the card's load equal to the
+   CPU's bit for bit, the head and BatchNorm statistics at their init; the
+   f32 eval card against CPU (atol 1e-4, 18 K1); 2 bf16 batch-8 steps
+   through ``train_epoch`` (a main path; 18 K1, 18 dx, 18 wgrad a step).
+10. Print the script's wall time, the kernels line, the card line, and
    last {"ok": true, "device": {...}}.
 
 FFmpeg's development files are not on the card's machine, so no phase
@@ -492,7 +526,7 @@ def eval_launches(per_forward):
     return {"depthwise3x3x3": per_forward, "depthwise3x3x3_wgrad": 0}
 
 
-_LOG_LOCK = threading.Lock()  # phase 8c logs from a thread of its own
+_LOG_LOCK = threading.Lock()  # phase 8d logs from a thread of its own
 
 
 def log(msg):
@@ -1325,9 +1359,10 @@ def _profiled(steps):
     }
 
 
-def phase_train(card, cfg, per_forward, prefix="", timed=2, profile=False):
+def phase_train(card, cfg, per_forward, prefix="", timed=2, profile=False, model=None):
     """A main path: train_epoch over ``timed`` synthetic batches of 8 clips
-    (with boxes for a detection config) after one warm-up batch; with
+    (with boxes for a detection config) after one warm-up batch, from
+    ``model`` (on the card, in the config's dtype) or the seeded init; with
     ``profile``, 2 more steps under the profiler after it (``_profiled``)."""
     from pmv_tpu_torch.engine.steps import init_state, make_train_step
     from pmv_tpu_torch.engine.train import train_epoch
@@ -1337,7 +1372,8 @@ def phase_train(card, cfg, per_forward, prefix="", timed=2, profile=False):
     batch = 8
     cfg.LOG_PERIOD = timed
     cfg.SOLVER.MAX_EPOCH = 1
-    model = seeded_model(cfg, "cuda")  # bfloat16 activations
+    if model is None:
+        model = seeded_model(cfg, "cuda")  # bfloat16 activations
     state = init_state(cfg, model)
     step = make_train_step(cfg, device="cuda", seed=0)
     metrics = []
@@ -3466,13 +3502,15 @@ def phase_data_benchmark(out_dir):
         raise AssertionError(f"6b: the benchmark loaded {rec['clips']} clips, not 64")
 
 
-def tensorboard_imports():
-    """True when ``torch.utils.tensorboard`` imports, else why not (printed,
-    not a gate: the writer is needed only with TENSORBOARD.ENABLE)."""
+def imports(module):
+    """True when ``module`` imports, else why not (printed, not a gate:
+    ``torch.utils.tensorboard`` is needed only with TENSORBOARD.ENABLE,
+    matplotlib by ``plot_eval`` and Grad-CAM's ``overlay_heatmap``, cv2 by
+    the demo's webcam, moviepy by the writer's videos)."""
     import importlib
 
     try:
-        importlib.import_module("torch.utils.tensorboard")
+        importlib.import_module(module)
     except ImportError as e:
         return str(e)
     return True
@@ -3823,25 +3861,15 @@ def _test_final(out_dir):
     return final[-1]
 
 
-def phase_distributed_run_net(card):
-    """Phase 8c: ``run_net`` as a user launches it on 2 hosts, two
-    processes of ``run_net --num_shards 2 --shard_id 0|1 --init_method
-    tcp://...`` with NUM_GPUS 1 and gloo, both on the one card
-    (``launch_job`` spawns each rank): UniFormer-S's rect recipe at full
-    width, float32, for one epoch (train with ``dp``, checkpoint, gathered
-    eval, test; ``EARLIER_RUN_NET_VIDEOS`` Synthetic videos), beside one
-    process at twice a process's batch (``_run_net_pairs``); then the
-    2 processes again with SOLVER.MAX_EPOCH 2, which must resume from its
-    checkpoint. Returns both 2-process runs' launches."""
-    return _run_net_pairs(card, [dict(
-        recipe="uniformer", work_name="chip_smoke_distributed_run_net",
-        phase="distributed_run_net_2_processes", resume=True)])["uniformer"]
+DISTRIBUTED_RUN_NET = dict(  # phase 8c's pair
+    recipe="uniformer", name="distributed", work_name="chip_smoke_distributed_run_net",
+    phase="distributed_run_net_2_processes", resume=True)
 
 
 def _run_net_pairs(card, specs):
     """For each spec of ``specs`` (a dict: "recipe", "work_name", "phase",
-    and "batch" (4), "extra" (()), "opts" (()), "resume" (False), "held"
-    (None)), ``recipe``'s run_net (``_dist_run_net_argv``, with ``opts``)
+    and "name" (the recipe), "batch" (4), "extra" (()), "opts" (()),
+    "resume" (False), "held" (None)), ``recipe``'s run_net (``_dist_run_net_argv``, with ``opts``)
     as 2 hosts with ``batch`` videos a step each and the ``extra`` opts,
     beside one process at twice the batch, in ``build/<work_name>``: every spec's 3 processes start at
     once (``_run_counted``), so that the pairs share their start-up. Each
@@ -3852,8 +3880,9 @@ def _run_net_pairs(card, specs):
     after AdamW); one checkpoint, written once; with ``resume``, the 2
     processes again with SOLVER.MAX_EPOCH 2, which must resume from it.
     With ``held`` (a set of shapes), every K1 and wgrad call of the 2
-    processes must be at one of them. Returns each recipe's 2-process runs'
-    launches."""
+    processes must be at one of them. Every process's log lands in the first
+    spec's directory. Returns each spec's 2-process runs' launches, by its
+    name."""
     import pickle
 
     from pmv_tpu_torch.data.loader import construct_loader
@@ -3861,7 +3890,8 @@ def _run_net_pairs(card, specs):
     torch.cuda.empty_cache()  # this process's cached blocks, for the processes below
     pairs = []
     for spec in specs:
-        spec = {"batch": 4, "extra": (), "opts": (), "resume": False, "held": None, **spec}
+        spec = {"batch": 4, "extra": (), "opts": (), "resume": False, "held": None,
+                "name": spec["recipe"], **spec}
         recipe, batch, extra = spec["recipe"], spec["batch"], tuple(spec["extra"])
         work_dir = os.path.join("build", spec["work_name"])
         shutil.rmtree(work_dir, ignore_errors=True)
@@ -3881,14 +3911,14 @@ def _run_net_pairs(card, specs):
 
     def two_processes(pair, max_epoch, tag):
         port = _free_port()
-        return [(f"{pair['recipe']}_{tag}_shard{s}", _dist_run_net_argv(
+        return [(f"{pair['name']}_{tag}_shard{s}", _dist_run_net_argv(
             pair["two"], max_epoch, s, port, pair["recipe"], pair["batch"], pair["extra"],
             pair["opts"])) for s in (0, 1)]
 
     def rank_launches(pair, counts, tag):
         phase, expected = pair["phase"], pair["expected"]
         zero = {k: 0 for k in expected}
-        prefix = f"counts_{pair['recipe']}_{tag}_shard"
+        prefix = f"counts_{pair['name']}_{tag}_shard"
         ranks = {k: v for k, v in counts.items() if k.startswith(prefix) and ".rank" in k}
         mains = [v for k, v in counts.items() if k.startswith(prefix) and k.endswith(".main.json")]
         if sorted(ranks) != [f"{prefix}{s}.rank{s}.json" for s in (0, 1)] or any(
@@ -3897,7 +3927,7 @@ def _run_net_pairs(card, specs):
         return {k: sum(v[k] for v in ranks.values()) for k in expected}
 
     def rank_shapes(pair, shapes, tag):
-        prefix = f"counts_{pair['recipe']}_{tag}_shard"
+        prefix = f"counts_{pair['name']}_{tag}_shard"
         seen = sorted({tuple(s) for name, calls in shapes.items() if name.startswith(prefix)
                        for _, s in calls})
         held = pair["held"]
@@ -3909,16 +3939,16 @@ def _run_net_pairs(card, specs):
     log_dir = pairs[0]["work_dir"]  # every process's log and counts
     wall, counts, shapes = _run_counted(
         [run for pair in pairs
-         for run in [(f"{pair['recipe']}_one", pair["one_argv"])] + two_processes(pair, 1, "two")],
+         for run in [(f"{pair['name']}_one", pair["one_argv"])] + two_processes(pair, 1, "two")],
         log_dir)
     paths = {}
     for pair in pairs:
         phase, cfg, one, two = pair["phase"], pair["cfg"], pair["one"], pair["two"]
         expected = pair["expected"]
-        if counts[f"counts_{pair['recipe']}_one.main.json"] != expected:
+        if counts[f"counts_{pair['name']}_one.main.json"] != expected:
             raise AssertionError(f"{phase}: one process launched otherwise than {expected}: "
                                  f"{counts}")
-        paths[pair["recipe"]] = [rank_launches(pair, counts, "two")]
+        paths[pair["name"]] = [rank_launches(pair, counts, "two")]
         kernel_shapes = rank_shapes(pair, shapes, "two")
         got, want = _test_final(two), _test_final(one)
         preds = []
@@ -3938,7 +3968,7 @@ def _run_net_pairs(card, specs):
             "video_preds_max_abs_err": float(np.abs(preds[0] - preds[1]).max()),
             "checkpoint_weights_max_abs_err": max(
                 float((ckpts[0][k].float() - v.float()).abs().max()) for k, v in ckpts[1].items()),
-            "pairs_started_together": [p["recipe"] for p in pairs], "wall_s": wall}
+            "pairs_started_together": [p["name"] for p in pairs], "wall_s": wall}
         log(json.dumps(rec))
         # test_final's accuracies after one epoch from random weights may well
         # be 0 for both; the predictions and the weights say more.
@@ -3958,7 +3988,7 @@ def _run_net_pairs(card, specs):
     for pair in [p for p in pairs if p["resume"]]:
         phase, two = pair["phase"], pair["two"]
         wall, counts, shapes = _run_counted(two_processes(pair, 2, "resume"), log_dir)
-        paths[pair["recipe"]].append(rank_launches(pair, counts, "resume"))
+        paths[pair["name"]].append(rank_launches(pair, counts, "resume"))
         rank_shapes(pair, shapes, "resume")
         resumed = _json_stats(two)[0][len(pair["first_lines"]):]
         ckpt = os.path.join(two, "checkpoints", "checkpoint_epoch_00001.pyth")
@@ -4390,21 +4420,30 @@ def phase_sequence_parallel(card):
 X3D_PAIR_LRS = ("SOLVER.WARMUP_START_LR", "1e-6", "SOLVER.COSINE_END_LR", "1e-6")
 
 
-def phase_sequence_parallel_run_net(card):
-    """Phase 8e's ``run_net --num_shards 2 TPU.SHARD_STRATEGY dp_sp`` pairs,
-    each against one process under 8c's gates on 16 Synthetic videos, all
-    9 processes started at once (``_run_net_pairs``): MViTv2-S's and
-    UniFormer-S's rect recipes, and X3D-M's (exps/PMV/run_X3D_PMV.sh's
-    rect_256_192 run, its 256^2 test crop); every K1 and wgrad call of
-    their ranks at a shape of the model's dp_sp grid. Returns each model's
-    2-process launches."""
+def phase_run_net_pairs(card):
+    """The ``run_net`` pairs of phases 8e and 8c, their 12 processes started
+    at once (``_run_net_pairs``; most of a process's time is its start).
+    8e's: ``run_net --num_shards 2 TPU.SHARD_STRATEGY dp_sp`` on MViTv2-S's
+    and UniFormer-S's rect recipes, and X3D-M's (exps/PMV/run_X3D_PMV.sh's
+    rect_256_192 run, its 256^2 test crop), each against one process under
+    8c's gates on 16 Synthetic videos; every K1 and wgrad call of their
+    ranks at a shape of the model's dp_sp grid. 8c's: ``run_net`` as a user
+    launches it on 2 hosts, two processes of ``run_net --num_shards 2
+    --shard_id 0|1 --init_method tcp://...`` with NUM_GPUS 1 and gloo, both
+    on the one card (``launch_job`` spawns each rank): UniFormer-S's rect
+    recipe at full width, float32, for one epoch (train with ``dp``,
+    checkpoint, gathered eval, test) beside one process at twice a
+    process's batch; then the 2 processes again with SOLVER.MAX_EPOCH 2,
+    which must resume from its checkpoint. Returns (8c's 2-process runs'
+    launches, 8e's by model)."""
     specs = [dict(recipe=recipe, work_name=f"chip_smoke_sequence_parallel{suffix}_run_net",
                   phase=f"sequence_parallel{suffix}_run_net", batch=2,
                   extra=("TPU.SHARD_STRATEGY", "dp_sp"), held=_sp_model(recipe)[2])
              for recipe, suffix in (("mvit", ""), ("uniformer", "_uniformer"),
                                     ("x3d", "_x3d"))]
     specs[-1]["opts"] = X3D_PAIR_LRS
-    return _run_net_pairs(card, specs)
+    paths = _run_net_pairs(card, specs + [DISTRIBUTED_RUN_NET])
+    return paths.pop("distributed"), paths
 
 
 # Planted in a wrapper to see what phase 8b's gates catch
@@ -4657,9 +4696,436 @@ def plant_wrapper_faults(card):
                                bf16_limit=BF16_WRAPPER_LIMIT)
 
 
+# Visualization, the demos and the inflated UniFormer-S, phases
+# 9a-9e. The card's host has neither matplotlib nor moviepy (nor FFmpeg):
+# its visualization writes the weight histograms and leaves
+# CONFUSION_MATRIX and HISTOGRAM off (``plot_eval`` raises there, checked in
+# 9b), tensorboard skips the videos, and the demos read and write frames in
+# memory (``FrameSource``, ``FrameSink``).
+
+M19_DIR = os.path.join("build", "chip_smoke_m19")
+GRADCAM_BATCH = 2  # 9a's clips, card against CPU
+DEMO_FRAMES = 150  # 9c's source: 2 windows of 16 x 4 frames and 22 more
+DEMO_SIZE = (240, 320)  # 9c's frames, H x W
+DEMO_BUFFER = 8  # DEMO.BUFFER_SIZE in 9c
+AVA_DEMO_FRAMES = 90  # 9d's source at 30 fps: keyframes at seconds 901 and 902
+AVA_DEMO_SIZE = (256, 455)
+
+
+class FrameSource:
+    """Frames in memory with the surface of ``native/binding.VideoReader``
+    that the demos read (the card's host has no FFmpeg to decode a file)."""
+
+    def __init__(self, frames, fps):
+        self.frames, self.fps = frames, float(fps)
+        self.num_frames, self.height, self.width = frames.shape[:3]
+
+    def read_frames(self, indices):
+        return self.frames[np.sort(np.asarray(indices, np.int64))]
+
+    def close(self):
+        pass
+
+
+class FrameSink:
+    """The demos' output sink: keeps the frames written (``binding.
+    write_test_video``'s signature)."""
+
+    def __init__(self):
+        self.frames, self.fps, self.path = None, None, None
+
+    def __call__(self, path, frames, fps):
+        self.path, self.frames, self.fps = path, np.asarray(frames), fps
+
+
+def mvit_run_net_checkpoint():
+    """Phase 6-7's last MViTv2-S checkpoint (the PMV rect recipe)."""
+    from pmv_tpu_torch.utils import checkpoint as cu
+
+    last = cu.get_last_checkpoint(os.path.join("build", "chip_smoke_run_net"))
+    if last is None:
+        raise AssertionError("phase 6 left no MViTv2-S checkpoint")
+    return last
+
+
+def phase_gradcam(card, checkpoint):
+    """9a: Grad-CAM (``visualization/gradcam.py``) of full-width MViTv2-S
+    16x4 on phase 6's checkpoint (the PMV rect crop), float32 at batch
+    ``GRADCAM_BATCH``, card against CPU: the maps to atol 1e-4, the scores
+    to phase 3's 1e-4, 17 K1 and 0 wgrad launches (the gradient stops at the
+    tap). Returns the card's launches."""
+    from pmv_tpu_torch.engine.steps import make_eval_preprocess_fn
+    from pmv_tpu_torch.utils import checkpoint as cu
+    from pmv_tpu_torch.visualization.gradcam import gradcam
+
+    cfg = run_net_cfg(run_net_argv("mvit", M19_DIR, 1))
+    cfg.TRAIN.MIXED_PRECISION = False
+    h, w = cfg.DATA.TEST_CROP_SIZE_RECT
+    frames = torch.from_numpy(np.random.default_rng(19).integers(
+        0, 256, (GRADCAM_BATCH, cfg.DATA.NUM_FRAMES, h, w, 3), np.uint8))
+    out = {}
+    for device in ("cuda", "cpu"):
+        model = seeded_model(cfg, device)
+        cu.load_checkpoint(checkpoint, model=model)
+        x = make_eval_preprocess_fn(cfg, device)(frames.to(device))
+        before = _launch_counts()
+        t0 = time.perf_counter()
+        maps, preds = gradcam(model, x)
+        maps, preds = maps.cpu(), preds.cpu()
+        out[device] = (maps, preds, _launches_since(before), time.perf_counter() - t0)
+    (maps, preds, launches, gpu_s), (cpu_maps, cpu_preds, _, cpu_s) = out["cuda"], out["cpu"]
+    rec = {"phase": "gradcam_f32_card_vs_cpu", "model": cfg.MODEL.MODEL_NAME, "card": card,
+           "checkpoint": checkpoint, "batch": GRADCAM_BATCH, "crop": [h, w],
+           "maps_shape": list(maps.shape), "maps_max_abs_err": float((maps - cpu_maps).abs().max()),
+           "scores_max_abs_err": float((preds - cpu_preds).abs().max()),
+           "argmax_equal": bool(torch.equal(preds.argmax(-1), cpu_preds.argmax(-1))),
+           "launches": launches, "card_s": gpu_s, "cpu_s": cpu_s}
+    log(json.dumps(rec))
+    if launches != eval_launches(MVIT_K1):
+        raise AssertionError(f"9a: Grad-CAM launched {launches}, not one forward's")
+    if not (torch.isfinite(maps).all() and maps.min() >= 0 and maps.max() <= 1):
+        raise AssertionError("9a: Grad-CAM maps outside [0, 1]")
+    if not rec["argmax_equal"] or rec["scores_max_abs_err"] > 1e-4:
+        raise AssertionError(f"9a: scores differ from the CPU's: {rec}")
+    if rec["maps_max_abs_err"] > 1e-4:
+        raise AssertionError(f"9a: Grad-CAM maps differ from the CPU's by "
+                             f"{rec['maps_max_abs_err']}")
+    return launches
+
+
+def _event_tags(log_dir):
+    from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
+
+    acc = EventAccumulator(log_dir, size_guidance={"histograms": 0})
+    acc.Reload()
+    return acc.Tags()
+
+
+def phase_visualization_run_net(card, checkpoint):
+    """9b, a main path: ``run_net`` on configs/Kinetics/MVITv2_S_16x4.yaml
+    (phase 6's PMV rect options) with TRAIN.ENABLE and TEST.ENABLE False,
+    TENSORBOARD.ENABLE with MODEL_VIS (MODEL_WEIGHTS, GRAD_CAM, INPUT_VIDEO)
+    and WRONG_PRED_VIS, on ``EARLIER_RUN_NET_VIDEOS`` Synthetic videos and
+    phase 6's checkpoint, bfloat16 (the yaml's): a weight histogram of every
+    parameter in the event file, 17 K1 and 0 wgrad a test batch (Grad-CAM's
+    forwards). Then ``plot_eval`` with CONFUSION_MATRIX on: it must raise
+    where matplotlib is absent and write the figure where it is present.
+    Returns the launches."""
+    import importlib.util
+
+    from pmv_tpu_torch.data.loader import construct_loader
+    from pmv_tpu_torch.models import build_model
+    from pmv_tpu_torch.tools import run_net
+    from pmv_tpu_torch.tools.visualization import MAX_BATCHES
+    from pmv_tpu_torch.visualization.tensorboard_vis import TensorboardWriter
+
+    out_dir = os.path.join(M19_DIR, "visualization")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    argv = run_net_argv("mvit", out_dir, 1) + [
+        "TRAIN.ENABLE", "False", "TEST.ENABLE", "False", "TEST.CHECKPOINT_FILE_PATH", checkpoint,
+        "TENSORBOARD.ENABLE", "True", "TENSORBOARD.MODEL_VIS.ENABLE", "True",
+        "TENSORBOARD.MODEL_VIS.MODEL_WEIGHTS", "True", "TENSORBOARD.MODEL_VIS.GRAD_CAM.ENABLE",
+        "True", "TENSORBOARD.MODEL_VIS.INPUT_VIDEO", "True",
+        "TENSORBOARD.WRONG_PRED_VIS.ENABLE", "True"]
+    cfg = run_net_cfg(argv)
+    with synthetic_videos(EARLIER_RUN_NET_VIDEOS):
+        test_cfg = cfg.clone()
+        test_cfg.TEST.PROCESS = True
+        batches = min(len(construct_loader(test_cfg, "test")), MAX_BATCHES)
+        torch.cuda.synchronize()
+        _zero_launch_counts()  # the main path starts here
+        t0 = time.perf_counter()
+        run_net.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _launch_counts()  # ... and ends here
+    log_dir = os.path.join(out_dir, "runs-synthetic")
+    tags = _event_tags(log_dir)
+    names = [n for n, _ in build_model(cfg, device="cpu").named_parameters()]
+    has_matplotlib = importlib.util.find_spec("matplotlib") is not None
+    cfg.TENSORBOARD.CONFUSION_MATRIX.ENABLE = True
+    cfg.TENSORBOARD.LOG_DIR = "plot_eval"
+    writer = TensorboardWriter(cfg)
+    try:
+        writer.plot_eval(np.eye(cfg.MODEL.NUM_CLASSES)[:4], np.arange(4), global_step=0)
+        plot_eval = "written"
+    except ModuleNotFoundError as e:
+        plot_eval = f"raised {type(e).__name__}: {e}"
+    writer.close()
+    rec = {"phase": "visualization_run_net", "card": card, "checkpoint": checkpoint,
+           "test_batches": batches, "wall_s": wall, "launches": launches,
+           "histograms": len(tags["histograms"]), "parameters": len(names),
+           "images": tags["images"], "matplotlib": has_matplotlib, "plot_eval": plot_eval}
+    log(json.dumps(rec))
+    if sorted(tags["histograms"]) != sorted(f"weights/{n}" for n in names):
+        raise AssertionError(f"9b: the histograms are not the model's parameters: {tags}")
+    if launches != {k: batches * v for k, v in eval_launches(MVIT_K1).items()}:
+        raise AssertionError(f"9b: {launches} launched over {batches} Grad-CAM forwards")
+    if (plot_eval == "written") != has_matplotlib:
+        raise AssertionError(f"9b: plot_eval {plot_eval} with matplotlib {has_matplotlib}")
+    return launches
+
+
+class _RecordedVis:
+    """An ``AsyncVis`` that records the frames and scores of each task it is
+    handed, before it draws them."""
+
+    @staticmethod
+    def make(base, tasks):
+        class Recording(base):
+            def put(self, task):
+                tasks.append((task.id, np.array(task.frames), None if task.action_preds is None
+                              else np.array(task.action_preds)))
+                super().put(task)
+
+        return Recording
+
+
+def demo_cfg(workers):
+    from pmv_tpu_torch.config import get_cfg
+
+    cfg = get_cfg()
+    cfg.merge_from_file(MVIT_CFG)
+    cfg.merge_from_list([
+        "NUM_GPUS", "1", "TRAIN.MIXED_PRECISION", "False", "DEMO.ENABLE", "True",
+        "DEMO.INPUT_VIDEO", "seeded.avi", "DEMO.BUFFER_SIZE", str(DEMO_BUFFER),
+        "DEMO.NUM_CLIPS_SKIP", "1", "DEMO.NUM_VIS_INSTANCES", str(workers),
+        "TEST.CHECKPOINT_FILE_PATH", "", "OUTPUT_DIR", os.path.join(M19_DIR, "demo")])
+    return cfg
+
+
+def phase_demo(card):
+    """9c, a main path: the demo (``visualization/demo.py``) on full-width
+    MViTv2-S 16x4 (configs/Kinetics/MVITv2_S_16x4.yaml, random weights from
+    its seed, float32) over ``DEMO_FRAMES`` seeded frames in memory: windows
+    of 16 x 4 frames with DEMO.BUFFER_SIZE ``DEMO_BUFFER`` and
+    NUM_CLIPS_SKIP 1, run with ``AsyncVis`` in this process and with 2
+    spawned workers. Every source frame comes out once, each predicted
+    window's scores equal the eval step's on the same clip (atol 1e-5), the
+    2 workers' frames equal the in-process ones, 17 K1 a predicted window.
+    Returns the launches of both runs."""
+    from pmv_tpu_torch.engine.steps import make_eval_step
+    from pmv_tpu_torch.models import build_model
+    from pmv_tpu_torch.visualization import demo as demo_mod
+
+    source = np.random.default_rng(9).integers(0, 256, (DEMO_FRAMES, *DEMO_SIZE, 3), np.uint8)
+    runs = {}
+    torch.cuda.synchronize()
+    _zero_launch_counts()  # the main path starts here
+    for workers in (0, 2):
+        tasks, sink = [], FrameSink()
+        base = demo_mod.AsyncVis
+        demo_mod.AsyncVis = _RecordedVis.make(base, tasks)
+        try:
+            t0 = time.perf_counter()
+            demo_mod.demo(demo_cfg(workers), source=FrameSource(source, 30), sink=sink)
+            runs[workers] = (tasks, sink, time.perf_counter() - t0)
+        finally:
+            demo_mod.AsyncVis = base
+    torch.cuda.synchronize()
+    launches = _launch_counts()  # ... and ends here
+    cfg = demo_cfg(0)
+    model = build_model(cfg, device="cuda", seed=cfg.RNG_SEED)
+    eval_step = make_eval_step(cfg, model, device="cuda")
+    (tasks, sink, wall), (tasks_2, sink_2, wall_2) = runs[0], runs[2]
+    predicted = [t for t in tasks if t[2] is not None]
+    errs = []
+    for _, frames, preds in predicted:
+        clip = demo_mod.window_clip(frames, cfg.DATA.NUM_FRAMES, cfg.DATA.TEST_CROP_SIZE)
+        errs.append(float(np.abs(eval_step(clip[None]).float().cpu().numpy()[0] - preds).max()))
+    seq_len = cfg.DATA.NUM_FRAMES * cfg.DATA.SAMPLING_RATE
+    windows = -(-DEMO_FRAMES // seq_len)
+    rec = {"phase": "demo_mvit", "card": card, "frames_in": DEMO_FRAMES,
+           "frames_out": len(sink.frames), "frames_out_2_workers": len(sink_2.frames),
+           "windows": [t[0] for t in tasks], "predicted": [t[0] for t in predicted],
+           "scores_max_abs_err_vs_eval_step": errs,
+           "frames_equal_2_workers": bool(np.array_equal(sink.frames, sink_2.frames)),
+           "wall_s": wall, "wall_s_2_workers": wall_2, "launches": launches}
+    log(json.dumps(rec))
+    if [t[0] for t in tasks] != list(range(windows)) or len(predicted) != (windows + 1) // 2:
+        raise AssertionError(f"9c: windows {rec['windows']}, predicted {rec['predicted']}")
+    if not (len(sink.frames) == len(sink_2.frames) == DEMO_FRAMES):
+        raise AssertionError(f"9c: {len(sink.frames)} frames out of {DEMO_FRAMES}")
+    if max(errs) > 1e-5:
+        raise AssertionError(f"9c: window scores differ from the eval step's by {max(errs)}")
+    if not rec["frames_equal_2_workers"] or [t[0] for t in tasks_2] != [t[0] for t in tasks]:
+        raise AssertionError("9c: the 2 workers drew otherwise than the in-process pool")
+    if launches != {k: 2 * len(predicted) * v for k, v in eval_launches(MVIT_K1).items()}:
+        raise AssertionError(f"9c: {launches} for 2 x {len(predicted)} predicted windows")
+    return launches
+
+
+def phase_ava_demo(card):
+    """9d, a main path: the AVA demo (``visualization/ava_demo.py``) on
+    SlowFast 32x2 R50 AVA (configs/AVA/SLOWFAST_32x2_R50_SHORT.yaml, phase
+    6a's checkpoint) over ``AVA_DEMO_FRAMES`` seeded frames of 455 x 256 in
+    memory at 30 fps and a seeded DEMO.PREDS_BOXES file (2 boxes at each of
+    seconds 901 and 902): each keyframe's box scores equal the detection
+    eval step's on the same clip (atol 1e-5), every source frame comes out
+    once (SLOWMO 1), 0 K1. Returns the launches."""
+    from pmv_tpu_torch.data import transform
+    from pmv_tpu_torch.data.ava import MAX_BOXES, _scale_box_ratio, get_sequence
+    from pmv_tpu_torch.engine.steps import make_detection_eval_step
+    from pmv_tpu_torch.models import build_model
+    from pmv_tpu_torch.utils import checkpoint as cu
+    from pmv_tpu_torch.visualization import ava_demo as ava_mod
+
+    out_dir = os.path.join(M19_DIR, "ava_demo")
+    os.makedirs(out_dir, exist_ok=True)
+    boxes = os.path.join(out_dir, "preds.csv")
+    rng = np.random.default_rng(18)
+    with open(boxes, "w") as f:
+        for sec in (901, 902):
+            for _ in range(2):
+                x1, y1 = rng.uniform(0.0, 0.5, 2)
+                f.write(f"seeded,{sec},{x1:.3f},{y1:.3f},{x1 + 0.4:.3f},{y1 + 0.45:.3f},,0.95\n")
+    checkpoint = cu.get_last_checkpoint(os.path.join("build", "chip_smoke_ava", "run_slowfast"))
+    cfg = ava_cfg()
+    cfg.merge_from_list(["DEMO.ENABLE", "True", "DEMO.INPUT_VIDEO", "seeded.avi",
+                         "DEMO.PREDS_BOXES", boxes, "DEMO.STARTING_SECOND", "900",
+                         "TEST.CHECKPOINT_FILE_PATH", checkpoint or "",
+                         "OUTPUT_DIR", out_dir])
+    source = rng.integers(0, 256, (AVA_DEMO_FRAMES, *AVA_DEMO_SIZE, 3), np.uint8)
+    merged, sink = [], FrameSink()
+    merge = ava_mod.merge_pred_gt_boxes
+    ava_mod.merge_pred_gt_boxes = lambda *a: merged.append(a[0]) or merge(*a)
+    try:
+        torch.cuda.synchronize()
+        _zero_launch_counts()  # the main path starts here
+        t0 = time.perf_counter()
+        ava_mod.ava_demo(cfg, source=FrameSource(source, 30), sink=sink)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _launch_counts()  # ... and ends here
+    finally:
+        ava_mod.merge_pred_gt_boxes = merge
+    preds, = merged
+    model = build_model(cfg, device="cuda", seed=0)
+    cu.load_test_checkpoint(cfg, model)
+    det_step = make_detection_eval_step(cfg, model, device="cuda")
+    t, stride, crop = cfg.DATA.NUM_FRAMES, cfg.DATA.SAMPLING_RATE, cfg.DATA.TEST_CROP_SIZE
+    errs = {}
+    for kf, (kf_boxes, scores) in sorted(preds.items()):
+        seq = get_sequence(kf, t * stride // 2, stride, AVA_DEMO_FRAMES)[:t]
+        clip = source[np.sort(seq)].astype(np.float32)
+        n = len(kf_boxes)
+        boxes_in = np.zeros((1, MAX_BOXES, 4), np.float32)
+        boxes_in[0, :n] = np.asarray(kf_boxes, np.float32) * _scale_box_ratio(
+            *AVA_DEMO_SIZE, crop)
+        mask = np.zeros((1, MAX_BOXES), bool)
+        mask[0, :n] = True
+        want = det_step(np.clip(transform.short_side_scale(clip, crop), 0, 255).astype(
+            np.uint8)[None], boxes_in, mask).float().cpu().numpy()[0, :n]
+        errs[kf] = float(np.abs(want - np.asarray(scores)).max())
+    rec = {"phase": "ava_demo_slowfast", "card": card, "checkpoint": checkpoint,
+           "keyframes": sorted(preds), "boxes": {k: len(v[0]) for k, v in preds.items()},
+           "scores_max_abs_err_vs_eval_step": errs, "frames_in": AVA_DEMO_FRAMES,
+           "frames_out": len(sink.frames), "wall_s": wall, "launches": launches}
+    log(json.dumps(rec))
+    if sorted(preds) != [30, 60] or any(len(v[0]) != 2 for v in preds.values()):
+        raise AssertionError(f"9d: keyframes {rec['keyframes']}, boxes {rec['boxes']}")
+    if max(errs.values()) > 1e-5:
+        raise AssertionError(f"9d: box scores differ from the eval step's: {errs}")
+    if len(sink.frames) != AVA_DEMO_FRAMES:
+        raise AssertionError(f"9d: {len(sink.frames)} frames out of {AVA_DEMO_FRAMES}")
+    if launches != eval_launches(AVA_K1):
+        raise AssertionError(f"9d: {launches} launched; SlowFast has no conv on K1")
+    return launches
+
+
+def write_image_checkpoint(model, path, seed):
+    """``model``'s weights as the reference's image checkpoint of it: each
+    5-D conv weight's middle T plane as a 4-D [O, I, H, W] kernel, the head
+    of 1000 classes (drawn from ``seed``), BatchNorm statistics drawn from
+    ``seed``, under "model" (the layout of uniformer_small_in1k.pth)."""
+    rng = np.random.default_rng(seed)
+    state = {}
+    for name, value in model.state_dict().items():
+        value = value.detach().cpu()
+        if value.dim() == 5:
+            value = value[:, :, value.shape[2] // 2].clone()
+        elif name.startswith("head."):
+            value = torch.from_numpy(
+                (0.02 * rng.normal(size=(1000, *value.shape[1:]))).astype(np.float32))
+        elif name.endswith(("running_mean", "running_var")):
+            value = torch.from_numpy(rng.uniform(0.5, 1.5, tuple(value.shape)).astype(np.float32))
+        state[name] = value
+    torch.save({"model": state}, path)
+    return state
+
+
+def phase_inflated_uniformer(card):
+    """9e: UniFormer-S 16x4 from a seeded "in1k" image checkpoint
+    (``write_image_checkpoint`` under ``M19_DIR/pretrained``) loaded through
+    the registry (``utils/pretrain.py``: UNIFORMER.PRETRAIN_NAME
+    uniformer_small_in1k, PMV_PRETRAIN_ROOT at that directory) on the card
+    and on the CPU: every tensor equal bit for bit, the 2-D kernels inflated
+    over T, the head and the BatchNorm statistics at their init; the f32
+    eval at batch 1 card against CPU (atol 1e-4, 18 K1); then, a main path,
+    2 bf16 batch-8 steps through ``train_epoch`` from the loaded weights
+    (18 K1, 18 dx and 18 wgrad a step). Returns the train launches."""
+    from pmv_tpu_torch.engine.steps import make_eval_step
+    from pmv_tpu_torch.utils import pretrain
+
+    root = os.path.join(M19_DIR, "pretrained")
+    os.makedirs(root, exist_ok=True)
+    cfg = uniformer_cfg()
+    cfg.UNIFORMER.PRETRAIN_NAME = "uniformer_small_in1k"
+    image_cfg = cfg.clone()
+    image_cfg.MODEL.NUM_CLASSES = 1000
+    saved = write_image_checkpoint(seeded_model(image_cfg, "cpu", torch.float32),
+                                   os.path.join(root, "uniformer_small_in1k.pth"), seed=1)
+    previous = os.environ.get("PMV_PRETRAIN_ROOT")
+    os.environ["PMV_PRETRAIN_ROOT"] = root
+    try:
+        models = {}
+        for dtype in (torch.float32, None):  # None: the config's bfloat16
+            for device in ("cpu", "cuda") if dtype else ("cuda",):
+                model = seeded_model(cfg, device, dtype)
+                t0 = time.perf_counter()
+                pretrain.load_pretrained(cfg, model)
+                models[device, dtype] = (model, time.perf_counter() - t0)
+    finally:
+        if previous is None:
+            os.environ.pop("PMV_PRETRAIN_ROOT")
+        else:
+            os.environ["PMV_PRETRAIN_ROOT"] = previous
+    (cpu_model, cpu_s), (gpu_model, gpu_s) = models["cpu", torch.float32], models[
+        "cuda", torch.float32]
+    init = seeded_model(cfg, "cpu", torch.float32).state_dict()
+    got, want = gpu_model.state_dict(), cpu_model.state_dict()
+    unequal = [k for k in want if not torch.equal(got[k].cpu(), want[k])]
+    params = dict(cpu_model.named_parameters())
+    inflated = [k for k in params if saved[k].dim() == 4 and want[k].dim() == 5]
+    wrong = [k for k in params if k not in inflated and not k.startswith("head.")
+             and not torch.equal(want[k], saved[k])]
+    wrong += [k for k in inflated if not torch.equal(
+        want[k], saved[k].unsqueeze(2).repeat(1, 1, want[k].shape[2], 1, 1) / want[k].shape[2])]
+    at_init = [k for k in want if k.startswith("head.") or k not in params]
+    moved = [k for k in at_init if not torch.equal(want[k], init[k])]
+
+    frames = np.random.default_rng(1).integers(0, 256, (1, 16, 224, 224, 3), np.uint8)
+    before = _launch_counts()
+    gpu = make_eval_step(cfg, gpu_model, device="cuda")(frames).cpu()
+    launches = _launches_since(before)
+    cpu = make_eval_step(cfg, cpu_model, device="cpu")(frames)
+    rec = {"phase": "inflated_uniformer_load_and_eval", "card": card,
+           "tensors": len(want), "parameters": len(params), "inflated": len(inflated),
+           "unequal_card_vs_cpu": unequal, "not_as_the_file": wrong, "moved_from_init": moved,
+           "kept_init": len(at_init), "load_s_card": gpu_s, "load_s_cpu": cpu_s,
+           "eval_max_abs_err_vs_cpu": float((gpu - cpu).abs().max()), "eval_launches": launches}
+    log(json.dumps(rec))
+    if unequal or wrong or moved or not inflated:
+        raise AssertionError(f"9e: the load is not the file's: {rec}")
+    if launches != eval_launches(UNIFORMER_K1) or rec["eval_max_abs_err_vs_cpu"] > 1e-4:
+        raise AssertionError(f"9e: the eval differs from the CPU's, or launched {launches}")
+    return phase_train(card, cfg, UNIFORMER_K1, "inflated_uniformer_",
+                       model=models["cuda", None][0])
+
+
 def kernels_line(records, launches, slowfast_launches, maskfeat_launches,
                  contrastive_launches, multigrid_launches, csn_launches, avslowfast_launches,
-                 ava_launches, sp_launches, ssl_fsdp_launches):
+                 ava_launches, sp_launches, ssl_fsdp_launches, m19_launches):
     """One entry per kernel: times summed over the launches at the 224^2
     crop's shapes in bfloat16 at batch 8; K1 over one MViTv2-S forward (17
     launches, as many again for dx in a train step), the wgrad kernel over
@@ -4730,6 +5196,7 @@ def kernels_line(records, launches, slowfast_launches, maskfeat_launches,
             "launches_maskfeat": maskfeat_launches[name],
             "launches_contrastive": {k: v[name] for k, v in contrastive_launches.items()},
             "launches_multigrid": multigrid_launches[name],
+            "launches_visualization": {k: v[name] for k, v in m19_launches.items()},
             "max_abs_err": max(r["max_abs_err"] for r in recs),
             "ms": kernel_ms,
             "kernel_ms": kernel_ms,
@@ -5015,8 +5482,8 @@ def main():
     # Phase 8: the distributed paths.
     from concurrent.futures import ThreadPoolExecutor
 
-    log(json.dumps({"phase": "tensorboard_import",
-                    "torch.utils.tensorboard": tensorboard_imports()}))
+    log(json.dumps({"phase": "imports", **{m: imports(m) for m in (
+        "torch.utils.tensorboard", "matplotlib", "cv2", "moviepy")}}))
     def timed(name, fn, *args):
         tic = time.perf_counter()
         out = fn(*args)
@@ -5024,22 +5491,36 @@ def main():
         return out
 
     paths += [timed("distributed_8a", phase_distributed_gloo)]
-    # 8c's processes spend most of their time starting (two interpreters a
-    # host, gloo, CUDA): they run beside 8d's, from a thread that waits on
-    # them. 8a and 8b, which time their steps, run alone.
-    torch.cuda.empty_cache()
-    with ThreadPoolExecutor(1) as pool:
-        run_net_8c = pool.submit(timed, "distributed_8c", phase_distributed_run_net, card)
-        ssl_dist_launches = timed("distributed_8d", phase_distributed_ssl)
-        paths += run_net_8c.result()
     paths += timed("distributed_8b", phase_distributed_nccl, card)
     ssl_fsdp_paths = timed("ssl_fsdp_8f", phase_ssl_fsdp_nccl, card)
     paths += ssl_fsdp_paths
     sp_ranks = timed("sequence_parallel_8e", phase_sequence_parallel, card)
-    sp_run_nets = timed("sequence_parallel_8e_run_net", phase_sequence_parallel_run_net, card)
+    # The run_net pairs' processes (8e's and 8c's) spend most of their time
+    # starting (two interpreters a host, gloo, CUDA): they start together,
+    # and 8d's ranks run beside them from a thread. 8a, 8b, 8f and 8e's
+    # spawn, which time their steps, run alone.
+    torch.cuda.empty_cache()
+    with ThreadPoolExecutor(1) as pool:
+        ssl_8d = pool.submit(timed, "distributed_8d", phase_distributed_ssl)
+        run_net_8c, sp_run_nets = timed("run_net_pairs_8c_8e", phase_run_net_pairs, card)
+        ssl_dist_launches = ssl_8d.result()
+    paths += run_net_8c
     sp_paths = {recipe: [launches] + sp_run_nets.get(recipe, [])
                 for recipe, launches in sp_ranks.items()}
     paths += [p for recipe_paths in sp_paths.values() for p in recipe_paths]
+
+    # Phases 9a-9e: Grad-CAM, the visualization through run_net, the demos,
+    # the inflated UniFormer-S.
+    checkpoint = mvit_run_net_checkpoint()
+    m19_launches = {
+        "gradcam_card_vs_cpu": timed("gradcam_9a", phase_gradcam, card, checkpoint),
+        "run_net_visualization": timed("visualization_9b", phase_visualization_run_net, card,
+                                       checkpoint),
+        "demo": timed("demo_9c", phase_demo, card),
+        "ava_demo": timed("ava_demo_9d", phase_ava_demo, card),
+        "inflated_uniformer_train": timed("inflated_uniformer_9e", phase_inflated_uniformer, card),
+    }
+    paths += [v for k, v in m19_launches.items() if k != "gradcam_card_vs_cpu"]
     launches = {k: sum(p[k] for p in paths) for k in paths[0]}
     slowfast_launches = {k: sum(p[k] for p in slowfast_paths) for k in paths[0]}
     avslowfast_launches = {k: sum(p[k] for p in avslowfast_paths) for k in paths[0]}
@@ -5058,7 +5539,8 @@ def main():
     log(json.dumps({"phase": "total", "wall_s": time.perf_counter() - t_start}))
     line = kernels_line(records, launches, slowfast_launches, maskfeat_launches,
                         contrastive_launches, multigrid_launches, csn_launches,
-                        avslowfast_launches, ava_launches, sp_launches, ssl_fsdp_launches)
+                        avslowfast_launches, ava_launches, sp_launches, ssl_fsdp_launches,
+                        m19_launches)
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": card, "records": records, **line}, f, indent=1)

@@ -77,12 +77,16 @@ loop rolls "audio_mis" into the AVS easy negatives of the epoch
 the batch's "audio", which the JAX package's loops drop (its
 ``eval_step(state, frames, audio)`` takes it).
 
-Not ported, each raising NotImplementedError where the config asks for it:
-TensorBoard's model and wrong-prediction visualization, precise BN with
-DETECTION.ENABLE (the JAX package's ``precise_bn`` packs no boxes), the
-UniFormer pretrain registry (UNIFORMER.PRETRAIN_NAME: no
-pretrained weights are in the repository), and MULTIGRID.SHORT_CYCLE on a
-frame-list dataset (its samples refuse the short cycle's (index, phase)
+A Uniformer or Uniformerframe that starts at epoch 0 with no
+TRAIN.CHECKPOINT_FILE_PATH loads UNIFORMER.PRETRAIN_NAME through the
+pretrain registry (``utils/pretrain.py``: an image checkpoint inflated over
+T, its head dropped where the class count differs), as the JAX package's
+``train`` does (`train.py:246-258`).
+
+Not run, each raising NotImplementedError where the config asks for it, as
+the JAX package cannot run them either: precise BN with DETECTION.ENABLE
+(the JAX package's ``precise_bn`` packs no boxes), and MULTIGRID.SHORT_CYCLE
+on a frame-list dataset (its samples refuse the short cycle's (index, phase)
 index, on which the JAX package's fail).
 """
 
@@ -104,7 +108,7 @@ from pmv_tpu_torch.utils import checkpoint as cu
 from pmv_tpu_torch.utils import logging as pmv_logging
 from pmv_tpu_torch.utils import meters as meters_mod
 from pmv_tpu_torch.utils import metrics as metrics_mod
-from pmv_tpu_torch.utils import misc
+from pmv_tpu_torch.utils import misc, pretrain
 from pmv_tpu_torch.utils.device import rank_and_world_size, resolve_device
 from pmv_tpu_torch.utils.lr_policy import get_lr_at_epoch
 from pmv_tpu_torch.utils.multigrid import MultigridSchedule
@@ -253,18 +257,11 @@ def eval_detection_epoch(val_loader, eval_step, meter, cur_epoch):
 
 
 def refuse_unported(cfg):
-    """Raise for what the config asks for and the port does not have."""
-    unported = {
-        "TENSORBOARD.MODEL_VIS / WRONG_PRED_VIS": cfg.TENSORBOARD.ENABLE and (
-            cfg.TENSORBOARD.MODEL_VIS.ENABLE or cfg.TENSORBOARD.WRONG_PRED_VIS.ENABLE),
-        "BN.USE_PRECISE_STATS with DETECTION.ENABLE": (cfg.DETECTION.ENABLE
-                                                       and cfg.BN.USE_PRECISE_STATS),
-        "UNIFORMER.PRETRAIN_NAME (the pretrain registry)":
-            cfg.MODEL.MODEL_NAME.startswith("Uniformer") and bool(cfg.UNIFORMER.PRETRAIN_NAME),
-    }
-    asked = [name for name, on in unported.items() if on]
-    if asked:
-        raise NotImplementedError(f"not ported: {', '.join(asked)}")
+    """Raise for what the config asks for and the port does not run: precise
+    BN of a detection model, whose JAX ``stats_step`` calls the model
+    without boxes (`pmv_tpu/engine/precise_bn.py:26-30`)."""
+    if cfg.DETECTION.ENABLE and cfg.BN.USE_PRECISE_STATS:
+        raise NotImplementedError("not ported: BN.USE_PRECISE_STATS with DETECTION.ENABLE")
 
 
 def train(cfg, device=None):
@@ -309,6 +306,10 @@ def train(cfg, device=None):
     # below moves on to the next epoch's, as the run that wrote it did.
     start_epoch = cu.load_train_checkpoint(
         cfg, state, before_load=set_long_cycle if long_cycle else None)
+    if (start_epoch == 0 and not cfg.TRAIN.CHECKPOINT_FILE_PATH
+            and cfg.MODEL.MODEL_NAME in pretrain.MODELS):
+        # The pretrain registry (`Uniformer/slowfast/models/build.py:42-46`).
+        pretrain.load_pretrained(cfg, model)
     detection = cfg.DETECTION.ENABLE
     make_eval_step = steps.make_detection_eval_step if detection else steps.make_eval_step
     train_step = steps.make_train_step(cfg, device=device, seed=cfg.RNG_SEED)

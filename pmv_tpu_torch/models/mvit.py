@@ -254,6 +254,7 @@ class MViT(nn.Module):
                 ]
         self.blocks = nn.ModuleList(blocks)
         self.dim_out = embed_dim
+        self.features = nn.Identity()  # the Grad-CAM tap (visualization/gradcam.py)
         if head:
             self.norm = LayerNorm(embed_dim)
             self.head = TransformerBasicHead(
@@ -341,6 +342,7 @@ class MViT(nn.Module):
         masks = drop_path_masks or [None] * len(self.blocks)
         for block, block_masks in zip(self.blocks, masks):
             x, thw = block(x, thw, block_masks, hw_switch)
+        x = self.features(x)
         if return_features:
             return x, thw
 

@@ -283,6 +283,7 @@ class Uniformer(nn.Module):
             setattr(self, f"blocks{stage + 1}", nn.ModuleList(blocks))
             dim_in, first = dims[stage], first + depth[stage]
         self.norm = BatchNorm(dims[3])
+        self.features = nn.Identity()  # the Grad-CAM tap (visualization/gradcam.py)
         self.head = Linear(dims[3], cfg.MODEL.NUM_CLASSES)
 
     def _stages(self):
@@ -316,7 +317,7 @@ class Uniformer(nn.Module):
             x = embed(x)
             for block in blocks:
                 x = block(x, next(masks, None))
-        x = self.norm(x)
+        x = self.features(self.norm(x))
         if return_features:
             return x
         return self.head(mesh.t_mean(x.flatten(1, 3), (1,)))

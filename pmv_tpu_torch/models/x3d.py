@@ -68,6 +68,7 @@ class X3D(nn.Module):
                 drop_connect_rate=cfg.MODEL.DROPCONNECT_RATE * (stage + 2) / (len(block_basis) + 1),
             ))
             dim_in = dim_out
+        self.features = nn.Identity()  # the Grad-CAM tap (visualization/gradcam.py)
         self.head = X3DHead(
             dim_in, dim_inner, x3d.DIM_C5, cfg.MODEL.NUM_CLASSES, cfg.MODEL.DROPOUT_RATE,
             cfg.MODEL.HEAD_ACT, x3d.BN_LIN5,
@@ -99,6 +100,7 @@ class X3D(nn.Module):
         x = self.s1["pathway0_stem"](x.to(self.compute_dtype))
         for stage, masks in zip(self.stages(), drop_path_masks or [None] * 4):
             x = stage(x, masks)
+        x = self.features(x)
         if return_features:
             return x
         return self.head(x, head_dropout_mask)

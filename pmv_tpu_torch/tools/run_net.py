@@ -21,9 +21,17 @@ TPU.SHARD_STRATEGY "dp" or "fsdp". Under "dp_sp" (temporal sequence
 parallelism, ``parallel/mesh.py``) the NUM_GPUS x NUM_SHARDS processes form
 a (data, model) grid with a model axis of 2 (TPU.MESH_SHAPE's where it is
 set), whose model groups each hold the same clips and cut them in T; it
-takes the MViT classification model and UniFormer. SSL under "dp_sp",
-another model under "dp_sp", the model and wrong-prediction visualization
-and the demo are not ported and raise NotImplementedError.
+takes every classification model; SSL, detection, feature extraction and
+multigrid under "dp_sp" are not ported and raise NotImplementedError.
+After train and test, with TENSORBOARD.ENABLE and MODEL_VIS or
+WRONG_PRED_VIS, ``tools/visualization.py::visualize`` writes the weight
+histograms, Grad-CAM's predictions, the input and misclassified videos and
+the confusion matrix; with DEMO.ENABLE the demo annotates DEMO.INPUT_VIDEO
+(``visualization/demo.py``), or, with DETECTION.ENABLE and
+DEMO.PREDS_BOXES, the AVA demo its precomputed boxes
+(``visualization/ava_demo.py``), as the JAX package's CLI dispatches them
+(`tools/run_net.py:66-88`); in a multi-process job rank 0 alone runs
+them.
 """
 
 import sys
@@ -32,18 +40,12 @@ from pmv_tpu_torch.config.defaults import assert_and_infer_cfg
 from pmv_tpu_torch.config.parser import load_config, parse_args
 from pmv_tpu_torch.engine import ssl_train
 from pmv_tpu_torch.parallel import distributed
+from pmv_tpu_torch.utils import logging as pmv_logging
 from pmv_tpu_torch.utils.device import resolve_device
 
 
 def run(cfg, device):
-    """Train and test one config."""
-    if cfg.TENSORBOARD.ENABLE and (
-        cfg.TENSORBOARD.MODEL_VIS.ENABLE or cfg.TENSORBOARD.WRONG_PRED_VIS.ENABLE
-    ):
-        raise NotImplementedError("TensorBoard's model and wrong-prediction visualization "
-                                  "are not ported")
-    if cfg.DEMO.ENABLE:
-        raise NotImplementedError("the demo is not ported")
+    """Train, test, visualize and run the demo for one config."""
     if cfg.TRAIN.ENABLE and cfg.MODEL.MODEL_NAME in ssl_train.SSL_MODELS:
         # `tools/run_net.py:38-43` of the JAX package
         ssl_train.train_ssl(cfg, device=device)
@@ -65,6 +67,23 @@ def run(cfg, device):
             sweep.TEST.NUM_TEMPORAL_CLIPS = []
             sweep.TEST.NUM_ENSEMBLE_VIEWS = num_view
             test(sweep, device=device)
+    if not pmv_logging.is_master_process():
+        return  # one process visualizes and runs the demo
+    if cfg.TENSORBOARD.ENABLE and (
+        cfg.TENSORBOARD.MODEL_VIS.ENABLE or cfg.TENSORBOARD.WRONG_PRED_VIS.ENABLE
+    ):
+        from pmv_tpu_torch.tools.visualization import visualize
+
+        visualize(cfg, device=device)
+    if cfg.DEMO.ENABLE:
+        if cfg.DETECTION.ENABLE and cfg.DEMO.PREDS_BOXES:  # `demo_net.py:96-105`
+            from pmv_tpu_torch.visualization.ava_demo import ava_demo
+
+            ava_demo(cfg, device=device)
+        else:
+            from pmv_tpu_torch.visualization.demo import demo
+
+            demo(cfg, device=device)
 
 
 def main(argv=None):

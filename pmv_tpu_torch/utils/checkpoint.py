@@ -36,9 +36,15 @@ package, and the optimizer's state is not loaded. CHECKPOINT_TYPE "caffe2"
 (TRAIN and TEST) reads a Caffe2 zoo pickle through ``utils/c2_import.py``:
 the model's parameters only (BatchNorm statistics keep their init, a head
 of another shape too), no optimizer state, training from epoch 0, as the
-JAX package loads it (`pmv_tpu/utils/checkpoint.py:196-201,237-241`). Not
-ported, each raising NotImplementedError: the JAX package's orbax
-directories and 2D->3D inflation.
+JAX package loads it (`pmv_tpu/utils/checkpoint.py:196-201,237-241`). A
+file that needs 2D->3D inflation (a 4-D weight where the model's is 5-D),
+that holds no "model_state" (a reference ``.pth``: "model" or "state_dict",
+or the bare state dict), or any file under TRAIN.CHECKPOINT_INFLATE loads
+through ``utils/torch_import.py``: the parameters alone, inflated where
+their ranks differ, a head of another shape kept at its init, no optimizer
+state, epoch 0, as the JAX package imports every PyTorch file
+(`pmv_tpu/utils/checkpoint.py:186-195`). The JAX package's orbax
+directories are not read: NotImplementedError.
 """
 
 import os
@@ -48,7 +54,7 @@ import time
 import torch
 
 from pmv_tpu_torch.parallel import distributed
-from pmv_tpu_torch.utils import c2_import
+from pmv_tpu_torch.utils import c2_import, torch_import
 from pmv_tpu_torch.utils import logging as pmv_logging
 
 logger = pmv_logging.get_logger(__name__)
@@ -129,18 +135,16 @@ def save_checkpoint(path_to_job, state, epoch, cfg):
     return path
 
 
-def _read(path, inflate=False):
+def _read(path):
     if os.path.isdir(path):
         raise NotImplementedError(
             f"{path} is a directory: the JAX package's orbax checkpoints are not "
             "read by the port"
         )
-    if inflate:
-        raise NotImplementedError("2D->3D checkpoint inflation is not ported")
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
-def _rename(state_dict, patterns):
+def _rename(state_dict, patterns, log=True):
     """TRAIN.CHECKPOINT_CLEAR_NAME_PATTERN: drop the first occurrence of
     each pattern from the names that hold it (`checkpoint.py:312-328`)."""
     for item in patterns:
@@ -148,7 +152,8 @@ def _rename(state_dict, patterns):
         for k, v in state_dict.items():
             if item in k:
                 k_new = k.replace(item, "", 1)
-                logger.info("renaming: %s -> %s", k, k_new)
+                if log:
+                    logger.info("renaming: %s -> %s", k, k_new)
                 k = k_new
             renamed[k] = v
         state_dict = renamed
@@ -202,7 +207,9 @@ def load_checkpoint(path, state=None, model=None, epoch_reset=False,
     epoch, or -1 under ``epoch_reset``; ``before_load(epoch)``, when given,
     is called with it once the file is read, before anything loads. A
     caffe2 checkpoint loads the model's parameters alone and counts as
-    epoch -1 (``c2_import``)."""
+    epoch -1 (``c2_import``), and so does a file that goes through
+    ``torch_import`` (the module docstring's rule; with ``inflate``,
+    TRAIN.CHECKPOINT_INFLATE, every file)."""
     model = state.model if state is not None else model
     if checkpoint_type == "caffe2":
         params = c2_import.model_params(path, model)
@@ -210,7 +217,14 @@ def load_checkpoint(path, state=None, model=None, epoch_reset=False,
             before_load(-1)
         load_model_state(model, params)
         return -1
-    ckpt = _read(path, inflate)
+    ckpt = _read(path)
+    imported = torch_import.state_dict_of(ckpt)
+    if inflate or "model_state" not in ckpt or torch_import.needs_inflation(
+            _rename(imported, clear_name_pattern, log=False), model):
+        if before_load is not None:
+            before_load(-1)
+        torch_import.load_params(model, _rename(imported, clear_name_pattern))
+        return -1
     epoch = -1 if epoch_reset or "epoch" not in ckpt else int(ckpt["epoch"])
     if before_load is not None:
         before_load(epoch)

@@ -1,2 +1,2 @@
-"""Visualization (`pmv_tpu/visualization`): the TensorBoard writer. The model
-and wrong-prediction visualization, the demo and Grad-CAM are not ported."""
+"""Visualization (`pmv_tpu/visualization`): the TensorBoard writer, Grad-CAM,
+the prediction overlays and their drawing pool, the demo and the AVA demo."""

@@ -188,21 +188,48 @@ def test_shape_mismatch_raises_but_the_heads_is_dropped(tmp_path):
         cu.load_model_state(model, other)
 
 
-@pytest.mark.parametrize("kind", ["orbax_dir", "inflate"])
+@pytest.mark.parametrize("kind", ["orbax_dir"])
 def test_unported_checkpoint_kinds_raise(tmp_path, kind):
     """caffe2 checkpoints load since they were ported
-    (tests/test_torch_port_c2_import.py)."""
+    (tests/test_torch_port_c2_import.py), 2D->3D inflation too
+    (``test_inflate_imports_the_parameters_alone_from_epoch_0``)."""
     cfg = _cfg(tmp_path / "job")
     cfg.TRAIN.AUTO_RESUME = False
     path = tmp_path / "ckpt"
-    if kind == "orbax_dir":
-        path.mkdir()
-    else:
-        torch.save({"model_state": {}}, path)
+    path.mkdir()
     cfg.TRAIN.CHECKPOINT_FILE_PATH = str(path)
-    cfg.TRAIN.CHECKPOINT_INFLATE = kind == "inflate"
     with pytest.raises(NotImplementedError):
         cu.load_train_checkpoint(cfg, _state(cfg))
+
+
+def test_inflate_imports_the_parameters_alone_from_epoch_0(tmp_path):
+    """TRAIN.CHECKPOINT_INFLATE routes even the port's own checkpoint through
+    the importer (``utils/torch_import.py``): its weights load, its
+    optimizer state and epoch do not; a 2-D kernel is inflated over T."""
+    cfg = _cfg(tmp_path / "job")
+    cfg.TRAIN.AUTO_RESUME = False
+    source = _state(cfg, 5)
+    make_train_step(cfg, device="cpu")(source, _batch(cfg, 0), 1e-3)
+    path = cu.save_checkpoint(str(tmp_path / "src"), source, 4, cfg)
+    cfg.TRAIN.CHECKPOINT_FILE_PATH = path
+    cfg.TRAIN.CHECKPOINT_INFLATE = True
+    state = _state(cfg, 6)
+    assert cu.load_train_checkpoint(cfg, state) == 0
+    assert _same_weights(state.model, source.model)
+    assert state.step == 0 and not state.optimizer.state_dict()["state"]
+
+    # A 2-D patch-embed kernel loads inflated, inflation flag or not.
+    image = {k: v.clone() for k, v in source.model.state_dict().items()}
+    kernel = image["patch_embed.proj.weight"]
+    image["patch_embed.proj.weight"] = kernel[:, :, 0] + 1
+    torch.save({"model": image}, tmp_path / "image.pth")
+    cfg.TRAIN.CHECKPOINT_FILE_PATH = str(tmp_path / "image.pth")
+    cfg.TRAIN.CHECKPOINT_INFLATE = False
+    state = _state(cfg, 6)
+    assert cu.load_train_checkpoint(cfg, state) == 0
+    t = kernel.shape[2]
+    assert torch.equal(state.model.patch_embed.proj.weight,
+                       (kernel[:, :, :1] + 1).repeat(1, 1, t, 1, 1) / t)
 
 
 def test_checkpoint_from_jax_params_crosses_both_ways(tmp_path):

@@ -122,8 +122,8 @@ def test_run_net_refuses_without_cuda_unless_asked_for_the_cpu(tmp_path):
 
 
 UNPORTED = {
-    # The writer is ported; its model visualization is not.
-    "tensorboard": ("TENSORBOARD.ENABLE", True, "TENSORBOARD.MODEL_VIS.ENABLE", True),
+    # The model and wrong-prediction visualization run since they were ported
+    # (tests/test_torch_port_tensorboard.py, tests/test_torch_port_visualization.py).
     # Detection is ported; its precise BN is not (the JAX package's packs no boxes).
     "detection": ("DETECTION.ENABLE", True, "BN.USE_PRECISE_STATS", True),
     # SSL trains over several processes under dp or fsdp, not dp_sp.

@@ -9,7 +9,9 @@
   epoch, equal to the epoch's val_epoch stats;
 - only rank 0 writes: another rank's ``train()`` opens no writer;
 - ``add_video`` (VIS_MASK's) writes what the JAX writer writes;
-- TENSORBOARD.MODEL_VIS and WRONG_PRED_VIS still raise NotImplementedError.
+- ``add_histogram`` and ``plot_eval`` write what the JAX writer writes;
+- ``run_net`` with TENSORBOARD.MODEL_VIS or WRONG_PRED_VIS visualizes
+  after train and test (``tools/visualization.py``).
 """
 
 import json
@@ -17,10 +19,12 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
 
 from pmv_tpu.config import get_cfg as jax_get_cfg
 from pmv_tpu.visualization.tensorboard_vis import TensorboardWriter as JaxWriter
+from pmv_tpu_torch.data.synthetic import Synthetic
 from pmv_tpu_torch.engine import train as ptrain
 from pmv_tpu_torch.tools import run_net
 from pmv_tpu_torch.utils import checkpoint as cu
@@ -98,10 +102,69 @@ def test_only_rank_0_writes(tmp_path, monkeypatch):
     assert not (tmp_path / "runs-synthetic").exists()
 
 
+def test_writer_plots_what_the_jax_writer_plots(tmp_path):
+    """``add_histogram`` and ``plot_eval`` (the confusion matrix and the
+    top-k histograms) write the JAX writer's events: the same tags,
+    histogram buckets and encoded images."""
+    rng = np.random.default_rng(1)
+    values = rng.normal(size=(6, 5)).astype(np.float32)
+    preds = rng.uniform(size=(10, 5)).astype(np.float32)
+    labels = rng.integers(0, 5, 10)
+    events = []
+    for name, writer_cls, to_cfg in (("jax", JaxWriter, lambda c: c),
+                                     ("port", TensorboardWriter, port_cfg)):
+        cfg = to_cfg(_cfg(tmp_path / name, "MODEL.NUM_CLASSES", "5",
+                          "TENSORBOARD.CONFUSION_MATRIX.ENABLE", "True",
+                          "TENSORBOARD.HISTOGRAM.ENABLE", "True"))
+        writer = writer_cls(cfg)
+        writer.add_histogram("weights/w", values if name == "jax" else torch.from_numpy(values.T),
+                             global_step=0)
+        writer.plot_eval(preds, labels, global_step=0)
+        writer.close()
+        acc = EventAccumulator(str(tmp_path / name / "runs-synthetic"),
+                               size_guidance={"images": 0, "histograms": 0})
+        acc.Reload()
+        h = acc.Histograms("weights/w")[0].histogram_value
+        events.append(({tag: acc.Images(tag)[0].encoded_image_string
+                        for tag in acc.Tags()["images"]},
+                       (h.min, h.max, h.num, list(h.bucket_limit), list(h.bucket))))
+    assert len(events[0][0]) == 6  # the confusion matrix and 5 classes' histograms
+    assert events[0] == events[1]
+
+
+def _tags(log_dir):
+    acc = EventAccumulator(str(log_dir), size_guidance={"histograms": 0})
+    acc.Reload()
+    return acc.Tags()
+
+
 @pytest.mark.parametrize("key", ["TENSORBOARD.MODEL_VIS.ENABLE",
                                  "TENSORBOARD.WRONG_PRED_VIS.ENABLE"])
-def test_model_and_wrong_prediction_visualization_still_raise(tmp_path, key):
-    with pytest.raises(NotImplementedError):
-        run_net.main(["--cfg", TINY, "--device", "cpu", "--opts", "OUTPUT_DIR", str(tmp_path),
-                      "TENSORBOARD.ENABLE", "True", key, "True"])
-    assert not cu.has_checkpoint(str(tmp_path))
+def test_run_net_runs_model_and_wrong_prediction_visualization(tmp_path, monkeypatch, key):
+    """``run_net`` visualizes (``tools/visualization.py``), after train and
+    test where they run (on 16 Synthetic videos here): with MODEL_VIS the
+    weight histograms of the trained checkpoint and the input video, with
+    WRONG_PRED_VIS alone Grad-CAM, the input video and the misclassified
+    clips' videos (recorded here: moviepy, which encodes them, is absent)."""
+    monkeypatch.setattr(Synthetic, "NUM_VIDEOS", 16)
+    videos = []
+    monkeypatch.setattr(TensorboardWriter, "add_video",
+                        lambda self, video, tag="", global_step=None, fps=4:
+                        videos.append((tag, np.asarray(video).shape)))
+    model_vis = key == "TENSORBOARD.MODEL_VIS.ENABLE"
+    extra = (["TENSORBOARD.MODEL_VIS.MODEL_WEIGHTS", "True",
+              "TENSORBOARD.MODEL_VIS.INPUT_VIDEO", "True"] if model_vis
+             else ["TRAIN.ENABLE", "False", "TEST.ENABLE", "False"])
+    assert run_net.main(["--cfg", TINY, "--device", "cpu", "--opts", "OUTPUT_DIR",
+                         str(tmp_path), "TENSORBOARD.ENABLE", "True", key, "True", *extra]) == 0
+    assert cu.has_checkpoint(str(tmp_path)) == model_vis
+    tags = _tags(tmp_path / "runs-synthetic")
+    weights = [t for t in tags["histograms"] if t.startswith("weights/")]
+    if model_vis:
+        assert "weights/head.projection.weight" in weights and len(weights) > 20
+        assert {"Val/Top1_err", "Val/Top5_err"} <= set(tags["scalars"])
+        assert "Load test checkpoint" in (tmp_path / "stdout.log").read_text()
+    else:
+        assert not weights
+        assert any(tag == "Incorrectly classified videos." for tag, _ in videos)
+    assert videos[0] == ("Input", (8, 2, 16, 16, 3))

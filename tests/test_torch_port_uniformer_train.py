@@ -24,7 +24,8 @@ BatchNorm statistics:
 - ``run_net --device cpu`` on configs/Kinetics/UNIFORMER_S_16x4.yaml at
   tiny width (``--opts`` only) with the PMV rect recipe: one epoch of train,
   checkpoint, eval and test, then a resume with SOLVER.MAX_EPOCH 2 that
-  restores the BatchNorm buffers.
+  restores the BatchNorm buffers; the recipe with its pretrain (a seeded
+  image checkpoint through the registry) and with MODEL_VIS.
 """
 
 from pathlib import Path
@@ -38,6 +39,7 @@ import torch
 from pmv_tpu.engine import steps as jsteps
 from pmv_tpu.engine.train import _make_pm_eval_step
 from pmv_tpu.models import build_model as jax_build_model
+from pmv_tpu_torch.data.synthetic import Synthetic
 from pmv_tpu_torch.engine.steps import (
     forward_by_orientation,
     init_state,
@@ -58,6 +60,7 @@ from torch_port_util import (  # noqa: F401
     port_cfg,
     random_batch_stats,
     random_params,
+    tensorboard_without_tensorflow,
     to_np,
 )
 
@@ -276,15 +279,36 @@ def test_run_net_trains_checkpoints_resumes_and_tests_uniformer(tmp_path):
     assert '"split": "test_final"' in stats_lines[-1]
 
 
-@pytest.mark.parametrize("key, value, extra", [
-    ("UNIFORMER.PRETRAIN_NAME", "uniformer_small_in1k", []),  # the config's own value
-    # The writer is ported (the config's own TENSORBOARD.ENABLE True); its
-    # model visualization is not.
-    ("TENSORBOARD.ENABLE", "True", ["TENSORBOARD.MODEL_VIS.ENABLE", "True"]),
-], ids=["UNIFORMER.PRETRAIN_NAME-uniformer_small_in1k", "TENSORBOARD.ENABLE-True"])
-def test_run_net_refuses_the_recipe_parts_not_ported(tmp_path, key, value, extra):
-    argv = _run_net_argv(tmp_path, 1) + extra
-    argv[argv.index(key) + 1] = value
-    with pytest.raises(NotImplementedError):
-        run_net.main(argv)
-    assert not cu.has_checkpoint(str(tmp_path))
+@pytest.mark.parametrize("part", ["pretrain", "model_vis"])
+def test_run_net_runs_the_recipe_with_its_pretrain_and_visualization(tmp_path, monkeypatch, part):
+    """The yaml's own UNIFORMER.PRETRAIN_NAME (uniformer_small_in1k, here a
+    seeded image checkpoint of 1000 classes under PMV_PRETRAIN_ROOT: its
+    2-D kernels inflated, its head dropped, the statistics at their init),
+    and its TensorBoard writer with MODEL_VIS (Grad-CAM at UniFormer's tap,
+    the weight histograms)."""
+    argv = _run_net_argv(tmp_path / "job", 1)
+    if part == "pretrain":
+        from test_torch_port_inflation import image_checkpoint
+
+        monkeypatch.setattr(Synthetic, "NUM_VIDEOS", 16)  # 2 train steps
+        monkeypatch.setenv("PMV_PRETRAIN_ROOT", str(tmp_path))
+        argv[argv.index("UNIFORMER.PRETRAIN_NAME") + 1] = "uniformer_small_in1k"
+        argv += ["TEST.ENABLE", "False"]
+        cfg = port_cfg(tiny_cfg())
+        cfg.MODEL.NUM_CLASSES = 5
+        image_checkpoint(build_model(cfg, device="cpu"), tmp_path / "uniformer_small_in1k.pth",
+                         seed=3)
+    else:
+        tensorboard_without_tensorflow()
+        argv[argv.index("TENSORBOARD.ENABLE") + 1] = "True"
+        argv += ["TRAIN.ENABLE", "False", "TEST.ENABLE", "False",
+                 "TENSORBOARD.MODEL_VIS.ENABLE", "True",
+                 "TENSORBOARD.MODEL_VIS.MODEL_WEIGHTS", "True"]
+    assert run_net.main(argv) == 0
+    log = (tmp_path / "job" / "stdout.log").read_text()
+    if part == "pretrain":
+        assert "Loading UniFormer pretrain 'uniformer_small_in1k'" in log
+        assert "Dropping head.weight" in log and cu.has_checkpoint(str(tmp_path / "job"))
+    else:
+        events = list((tmp_path / "job" / "runs-synthetic").glob("events.out.tfevents.*"))
+        assert events and not cu.has_checkpoint(str(tmp_path / "job"))

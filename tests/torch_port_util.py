@@ -7,6 +7,8 @@ run where JAX is not installed, can use it.
 """
 
 import contextlib
+import sys
+import types
 
 import numpy as np
 import pytest
@@ -15,6 +17,15 @@ import yaml
 
 import pmv_tpu_torch.config as port_config
 from pmv_tpu_torch.ops import depthwise as port_depthwise
+
+
+def tensorboard_without_tensorflow():
+    """Have tensorboard write and read its event files through its own stub
+    of TensorFlow's file API (``tensorboard.compat.notf`` importable), so that
+    the writers of both packages skip TensorFlow's import, seconds a process.
+    Call it before a writer first imports tensorboard."""
+    sys.modules.setdefault("tensorboard.compat.notf",
+                           types.ModuleType("tensorboard.compat.notf"))
 
 
 def port_cfg(jax_cfg):
