@@ -28,8 +28,10 @@ Phases, in order; any failure raises and exits non-zero:
    and their transposes at batch 2 and 4 and its 224^2 test crop's at
    batch 4 (``sp_uniformer_*``); X3D-M's channelwise convs on 8 + 2 of its
    16 frames, the rect crop's and their transposes at batch 2 and 4 and
-   its 256^2 test crop's at batch 4 (``sp_x3d_*``), and ir-CSN-101's conv_bs
-   on half of each stage's planes + 2 at batch 2 (``sp_csn_b2``).
+   its 256^2 test crop's at batch 4 (``sp_x3d_*``), ir-CSN-101's conv_bs
+   on half of each stage's planes + 2 at batch 2 (``sp_csn_b2``), and
+   MaskFeat PT's q-pools on 4 + 2 of its 8 token planes at 224^2, batch 2
+   and 4 (``sp_maskfeat_*``).
 3. Build full-width MViTv2-S 16x4 from a seeded init and run its eval step
    at batch 1 in float32 on the card and on the CPU (the CPU copy takes the
    plain versions); the class scores must agree, and one forward must
@@ -385,11 +387,26 @@ Distributed (``pmv_tpu_torch/parallel/distributed.py``):
    both ranks' planes held to one process's; 3 timed bf16 steps a rank (a
    main path) beside one process's, and the bytes its halos, gathers and
    reductions hand to all_reduce a step (files in
-   ``build/chip_smoke_sequence_parallel/``). Then ``run_net --num_shards 2
+   ``build/chip_smoke_sequence_parallel/``). The same spawn then runs the
+   other tasks, laid out as the JAX package's ``shard_batch`` lays them (a
+   rank-5 video cut in T, the rest whole on each rank): MaskFeat PT (16
+   frames of 224^2, the loader's masks, 60% and 20% of each clip's tokens;
+   float32 with the one process's HOG bins and skip max-pool taps under
+   phase 3b's gates; 14 K1, 14 dx and 14 wgrad a rank a step on 4 + 2 token
+   planes), MoCo and SimCLR on Slow R50 (2 videos of 2 views, whole on each
+   rank, float64; the SSL state to 1e-5), AVA SlowFast 32x2 R50 (16 box
+   slots, 3 and 1 valid; float64 on 8 of its 32 frames, the eval scores at
+   32), feature extraction on MViTv2-S (the rect crop; the pooled features
+   to 1e-4, 17 K1 a forward) and multigrid SlowFast 8x8 R50 (its first long
+   cycle, 16 clips x 8 frames x 158^2 through SubBatchNorms of 4 splits,
+   and a short-cycle batch of 32 at 112^2, float64, the split statistics
+   held); 0 K1 but MaskFeat's and the features'; each with 3 timed bf16
+   steps a rank. Then ``run_net --num_shards 2
    TPU.SHARD_STRATEGY dp_sp`` on MViT's, UniFormer's (its 224^2 test crop)
    and X3D-M's (its 256^2 test crop) rect recipes in float32 (16 Synthetic
-   videos, 4 a step), each against one process under 8c's gates, their 9
-   processes and 8c's first 3 started at once (every process's log in
+   videos, 4 a step) and MaskFeat PT (2 a step, then a resume), each
+   against one process under 8c's gates, their 12 processes and 8c's first
+   3 started at once (every process's log in
    ``build/chip_smoke_sequence_parallel_run_net/``).
    ``--plant-wrapper-faults`` logs 8b's readings with faults planted in
    the wrappers instead of running the phases.
@@ -446,6 +463,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import sys
 import threading
 import time
@@ -584,7 +602,9 @@ def _kernel_cases():
     on 8 + 2 of its 16 frames ("sp_x3d_rect_b2" ... "sp_x3d_portrait_b4",
     and its 256^2 test crop's at batch 4, "sp_x3d_square_b4"), and
     ir-CSN-101's conv_b shapes at batch 2 on 32 x 224^2, half of each
-    stage's planes and 2 halo planes ("sp_csn_b2"); UniFormer-S 16x4's DPE
+    stage's planes and 2 halo planes ("sp_csn_b2"), MaskFeat PT's q-pools on
+    4 + 2 of its 8 token planes at 224^2, batch 2 and 4 ("sp_maskfeat_b2",
+    "sp_maskfeat_b4"); UniFormer-S 16x4's DPE
     shapes on the
     same grids at batch 8 and 16 ("uni_square" ... "uni_portrait_b16");
     X3D-M's channelwise-conv shapes at batch 8 ("x3d_square", "x3d_rect",
@@ -599,6 +619,7 @@ def _kernel_cases():
         MVIT_RECT_TRAIN_POOL_SHAPES,
         MVIT_SP_POOL_SHAPES,
         MVIT_SP_SQUARE_POOL_SHAPES,
+        MASKFEAT_SP_POOL_SHAPES,
         ODD_SHAPES,
         PADDED_ODD_SHAPES,
         PMV_TRAIN_BATCH,
@@ -633,6 +654,7 @@ def _kernel_cases():
         + [(s, n, f"sp_x3d_{_orientation(s)}_b{s[0]}")
            for s, n in X3D_SP_DW_SHAPES + X3D_SP_TEST_DW_SHAPES]
         + [(s, n, "sp_csn_b2") for s, n in CSN_SP_DW_SHAPES]
+        + [(s, n, f"sp_maskfeat_b{s[0]}") for s, n in MASKFEAT_SP_POOL_SHAPES]
         + [(s, n, "uni_" + _orientation(s) + ("_b16" if s[0] == PMV_TRAIN_BATCH else ""))
            for s, n in uniformer]
         + [(s, n, "x3d_" + g) for shapes, g in (
@@ -950,12 +972,15 @@ def seeded_model(cfg, device, dtype=None):
     """``build_model(cfg, device, dtype, seed=0)``: a copy of that model,
     whose seeded init (drawn on the CPU, seconds at full width) is drawn
     once for each config and dtype; the phases build the same ones again
-    and again."""
+    and again. No model reads TPU.SHARD_STRATEGY, so a config under dp_sp
+    takes the model drawn for it under dp."""
     from pmv_tpu_torch.models import build_model
     from pmv_tpu_torch.models.build import compute_dtype
 
     dtype = compute_dtype(cfg) if dtype is None else dtype
-    key = (cfg.dump(), dtype)
+    spec = cfg.clone()
+    spec.TPU.SHARD_STRATEGY = "dp"
+    key = (spec.dump(), dtype)
     if key not in _SEEDED:
         _SEEDED[key] = build_model(cfg, device="cpu", dtype=dtype, seed=0)
     return copy.deepcopy(_SEEDED[key]).to(device)
@@ -1465,6 +1490,8 @@ def _run_net_opts(recipe):
     if recipe == "avslowfast":  # its yaml's crops, a 2-view test, clips with audio
         return ["TEST.NUM_ENSEMBLE_VIEWS", "2", "TRAIN.DATASET", "synthetic_av",
                 "TEST.DATASET", "synthetic_av"]
+    if recipe == "maskfeat_pt":  # the PT yaml's own crops; no test (TEST.ENABLE False)
+        return []
     if recipe == "maskfeat_ft":  # the FT yaml's own crops; a 1-view test
         return ["TEST.NUM_TEMPORAL_CLIPS", "[]", "TEST.NUM_ENSEMBLE_VIEWS", "1",
                 "TRAIN.CHECKPOINT_CLEAR_NAME_PATTERN", "['backbone.']"]
@@ -1485,6 +1512,7 @@ RUN_NET = {  # recipe -> (config file, K1 launches per forward, clips a train st
     "uniformer": (UNIFORMER_CFG, UNIFORMER_K1, 16),
     "x3d": (X3D_CFG, X3D_K1, 8),  # no repeated augmentation in X3D's recipe
     "slowfast": (SLOWFAST_CFG, SLOWFAST_K1, 8),
+    "maskfeat_pt": (MASKFEAT_PT_CFG, MASKFEAT_K1, 8),
     "maskfeat_ft": (MASKFEAT_FT_CFG, MASKFEAT_FT_K1, 8),  # 4 videos x AUG.NUM_SAMPLE 2
     "slow_ft": (SLOW_CFG, SLOW_K1, 8),
     "csn": (CSN_CFG, CSN_K1, 8),
@@ -3033,7 +3061,6 @@ def _ssl_dist_rank(rank, world, port, work_dir, result_q):
 
     try:
         from pmv_tpu_torch.engine import ssl_steps
-        from pmv_tpu_torch.models import build_model
         from pmv_tpu_torch.parallel import distributed
         from pmv_tpu_torch.tools.grad_witness import Decisions, max_pool_decisions
 
@@ -3046,8 +3073,7 @@ def _ssl_dist_rank(rank, world, port, work_dir, result_q):
         for name, case in torch.load(os.path.join(work_dir, "ssl_cases.pt"),
                                      weights_only=False).items():
             cfg = case["cfg"]
-            model = build_model(cfg, device=device, dtype=case["dtype"], seed=0)
-            model.load_state_dict(case["state_dict"])
+            model = _built_with(cfg, case["state_dict"], device, case["dtype"])
             state = ssl_steps.init_ssl_state(
                 cfg, model, wrapped=distributed.wrap_model(model, "dp", device))
             make = (ssl_steps.make_masked_train_step if name == "maskfeat"
@@ -3131,31 +3157,13 @@ def phase_distributed_ssl():
     grad norm to 1e-4 and the SSL state (momentum encoder, queue, bank) to
     1e-5 besides. Returns the ranks' launches (0: Slow R50 has no K1 conv;
     MaskFeat's 14 a forward)."""
-    import multiprocessing
-
     work_dir = os.path.join("build", "chip_smoke_distributed_ssl")
     shutil.rmtree(work_dir, ignore_errors=True)
     os.makedirs(work_dir)
     cases, refs = _ssl_dist_cases()
     torch.save(cases, os.path.join(work_dir, "ssl_cases.pt"))
     world = 2
-    ctx = multiprocessing.get_context("spawn")
-    result_q = ctx.Queue()
-    port = _free_port()
-    procs = [ctx.Process(target=_ssl_dist_rank, args=(r, world, port, work_dir, result_q))
-             for r in range(world)]
-    t0 = time.perf_counter()
-    for p in procs:
-        p.start()
-    try:
-        errors = [result_q.get(timeout=300) for _ in procs]
-    finally:
-        for p in procs:
-            p.join(timeout=30)
-            if p.is_alive():
-                p.kill()
-                p.join()
-    wall = time.perf_counter() - t0
+    errors, wall = _spawn_ranks(_ssl_dist_rank, world, work_dir, timeout=300)
     failed = [e for _, e in errors if e]
     if failed:
         raise AssertionError("a phase 8d rank failed:\n" + "\n".join(failed))
@@ -3529,6 +3537,36 @@ def _free_port():
         return sock.getsockname()[1]
 
 
+def _spawn_ranks(target, world, work_dir, timeout):
+    """Run ``target(rank, world, port, work_dir, queue)`` in ``world``
+    spawned processes meeting on a free port; each puts (rank, its error or
+    None) on the queue. Waits at most ``timeout`` s for each report, joins
+    every process (killing one still alive 30 s later) and closes the
+    queue. Returns the reports and the wall seconds."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    result_q = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=target, args=(r, world, port, work_dir, result_q))
+             for r in range(world)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        errors = [result_q.get(timeout=timeout) for _ in procs]
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+            p.close()
+        result_q.close()
+        result_q.join_thread()
+    return errors, time.perf_counter() - t0
+
+
 def _dist_rank(rank, world, port, work_dir, result_q):
     """Phase 8a's rank: join the gloo job on the one card, report which
     collectives gloo carries on CUDA tensors (rank 0), then one float32
@@ -3544,7 +3582,6 @@ def _dist_rank(rank, world, port, work_dir, result_q):
 
     try:
         from pmv_tpu_torch.engine.steps import init_state, make_train_step
-        from pmv_tpu_torch.models import build_model
         from pmv_tpu_torch.parallel import distributed
 
         torch.set_num_threads(max(1, (os.cpu_count() or world) // world))  # the host's cores
@@ -3566,8 +3603,7 @@ def _dist_rank(rank, world, port, work_dir, result_q):
                 carried[name] = str(e).splitlines()[0]
         case = torch.load(os.path.join(work_dir, "case.pt"), weights_only=False)
         cfg = case["cfg"]
-        model = build_model(cfg, device=device, dtype=torch.float32, seed=0)
-        model.load_state_dict(case["state_dict"])
+        model = _built_with(cfg, case["state_dict"], device, torch.float32)
         wrapped = distributed.wrap_model(model, "dp", device)
         state = init_state(cfg, model, wrapped=wrapped)
         step = make_train_step(cfg, device=device, seed=0)
@@ -3644,8 +3680,6 @@ def phase_distributed_gloo():
     one-process step on the global batch of 4 under phase 3b's gates. The
     kernels were built in phase 1: the ranks only load them. Returns the
     ranks' launches."""
-    import multiprocessing
-
     from pmv_tpu_torch.engine.steps import init_state, make_train_step
     from pmv_tpu_torch.models import build_model
 
@@ -3679,23 +3713,7 @@ def phase_distributed_gloo():
     del state, model
     torch.cuda.empty_cache()
 
-    ctx = multiprocessing.get_context("spawn")
-    result_q = ctx.Queue()
-    port = _free_port()
-    procs = [ctx.Process(target=_dist_rank, args=(r, world, port, work_dir, result_q))
-             for r in range(world)]
-    t0 = time.perf_counter()
-    for p in procs:
-        p.start()
-    try:
-        errors = [result_q.get(timeout=240) for _ in procs]
-    finally:
-        for p in procs:
-            p.join(timeout=30)
-            if p.is_alive():
-                p.kill()
-                p.join()
-    wall = time.perf_counter() - t0
+    errors, wall = _spawn_ranks(_dist_rank, world, work_dir, timeout=240)
     failed = [e for _, e in errors if e]
     if failed:
         raise AssertionError("a phase 8a rank failed:\n" + "\n".join(failed))
@@ -3827,10 +3845,10 @@ def _run_counted(runs, work_dir):
             except subprocess.TimeoutExpired:
                 failed.append(f"{name} still running after {DIST_RUN_NET_TIMEOUT_S} s")
     finally:
-        for _, proc in procs:
-            if proc.poll() is None:
-                os.killpg(proc.pid, 9)
-                proc.wait()
+        for _, proc in procs:  # the whole group: what a finished run_net left too
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
     wall = time.perf_counter() - t0
     if failed:
         tails = []
@@ -3878,7 +3896,10 @@ def _run_net_pairs(card, specs):
     K1 and wgrad launches (precise BN's forwards among them); test_final must equal the one process's, the
     video scores within 1e-5 and the weights within 2 x lr (phase 3b's gate
     after AdamW); one checkpoint, written once; with ``resume``, the 2
-    processes again with SOLVER.MAX_EPOCH 2, which must resume from it.
+    processes again with SOLVER.MAX_EPOCH 2, which must resume from it, the
+    resumes' processes started at once. An SSL recipe (TASK "ssl",
+    train_ssl: no test) is held by its epoch's loss (rtol 1e-4) and its
+    weights instead.
     With ``held`` (a set of shapes), every K1 and wgrad call of the 2
     processes must be at one of them. Every process's log lands in the first
     spec's directory. Returns each spec's 2-process runs' launches, by its
@@ -3904,6 +3925,8 @@ def _run_net_pairs(card, specs):
                                          for split in ("train", "val", "test"))
         per_forward = RUN_NET[recipe][1]
         precise = min(cfg.BN.NUM_BATCHES_PRECISE, n_steps) if cfg.BN.USE_PRECISE_STATS else 0
+        if cfg.TASK == "ssl":  # train_ssl: no evaluation, no test
+            n_evals = n_tests = 0
         expected = {"depthwise3x3x3": per_forward * (2 * n_steps + n_evals + n_tests + precise),
                     "depthwise3x3x3_wgrad": per_forward * n_steps}
         pairs.append(dict(spec, work_dir=work_dir, one=one, two=two, one_argv=one_argv,
@@ -3950,57 +3973,76 @@ def _run_net_pairs(card, specs):
                                  f"{counts}")
         paths[pair["name"]] = [rank_launches(pair, counts, "two")]
         kernel_shapes = rank_shapes(pair, shapes, "two")
-        got, want = _test_final(two), _test_final(one)
-        preds = []
-        ckpts = []
-        for out_dir in (two, one):
-            with open(os.path.join(out_dir, "preds.pkl"), "rb") as f:
-                preds.append(np.asarray(pickle.load(f)["video_preds"]))
-            ckpts.append(torch.load(os.path.join(out_dir, "checkpoints",
-                                                 "checkpoint_epoch_00001.pyth"),
-                                    map_location="cpu", weights_only=True)["model_state"])
+        ssl = cfg.TASK == "ssl"  # train_ssl's checkpoints; no test
+        pair["checkpoint"] = f"{'ssl_' if ssl else ''}checkpoint_epoch_%05d.pyth"
+        ckpts = [torch.load(os.path.join(out_dir, "checkpoints", pair["checkpoint"] % 1),
+                            map_location="cpu", weights_only=True)["model_state"]
+                 for out_dir in (two, one)]
         pair["first_lines"] = _json_stats(two)[0]
         rec = {
             "phase": f"{phase}_gloo", "model": cfg.MODEL.MODEL_NAME, "extra": list(pair["extra"]),
             "card": card, "train_steps": pair["n_steps"], "launches_per_rank": expected,
             "kernel_shapes": kernel_shapes,
-            "test_final_2_processes": got, "test_final_1_process": want,
-            "video_preds_max_abs_err": float(np.abs(preds[0] - preds[1]).max()),
             "checkpoint_weights_max_abs_err": max(
                 float((ckpts[0][k].float() - v.float()).abs().max()) for k, v in ckpts[1].items()),
             "pairs_started_together": [p["name"] for p in pairs], "wall_s": wall}
+        if ssl:
+            rec["train_epoch_loss_2_processes"], rec["train_epoch_loss_1_process"] = (
+                [s["loss"] for s in _json_stats(d)[1] if s.get("_type") == "train_epoch"][-1]
+                for d in (two, one))
+        else:
+            preds = []
+            for out_dir in (two, one):
+                with open(os.path.join(out_dir, "preds.pkl"), "rb") as f:
+                    preds.append(np.asarray(pickle.load(f)["video_preds"]))
+            rec.update(test_final_2_processes=_test_final(two),
+                       test_final_1_process=_test_final(one),
+                       video_preds_max_abs_err=float(np.abs(preds[0] - preds[1]).max()))
         log(json.dumps(rec))
         # test_final's accuracies after one epoch from random weights may well
         # be 0 for both; the predictions and the weights say more.
-        if got != want:
-            raise AssertionError(f"{phase}: 2 processes' test_final {got} != one process's {want}")
-        if rec["video_preds_max_abs_err"] > 1e-5:
+        if not ssl and rec["test_final_2_processes"] != rec["test_final_1_process"]:
+            raise AssertionError(f"{phase}: 2 processes' test_final "
+                                 f"{rec['test_final_2_processes']} != one process's "
+                                 f"{rec['test_final_1_process']}")
+        if not ssl and rec["video_preds_max_abs_err"] > 1e-5:
             raise AssertionError(f"{phase}: 2 processes' video scores differ by "
                                  f"{rec['video_preds_max_abs_err']} from one process's")
+        if ssl and not np.isclose(rec["train_epoch_loss_2_processes"],
+                                  rec["train_epoch_loss_1_process"], rtol=1e-4, atol=0):
+            raise AssertionError(f"{phase}: 2 processes' epoch loss differs from one process's")
         if rec["checkpoint_weights_max_abs_err"] > 2.0001 * cfg.SOLVER.BASE_LR:
             raise AssertionError(f"{phase}: 2 processes' weights differ by "
                                  f"{rec['checkpoint_weights_max_abs_err']} from one process's")
         if sum("Saved checkpoint" in line for line in pair["first_lines"]) != 1 or os.listdir(
-                os.path.join(two, "checkpoints")) != ["checkpoint_epoch_00001.pyth"]:
+                os.path.join(two, "checkpoints")) != [pair["checkpoint"] % 1]:
             raise AssertionError(f"{phase}: the 2-process run did not write its one checkpoint "
                                  "once")
 
-    for pair in [p for p in pairs if p["resume"]]:
+    resumes = [p for p in pairs if p["resume"]]  # their processes start together
+    if resumes:
+        wall, counts, shapes = _run_counted(
+            [run for pair in resumes for run in two_processes(pair, 2, "resume")], log_dir)
+    for pair in resumes:
         phase, two = pair["phase"], pair["two"]
-        wall, counts, shapes = _run_counted(two_processes(pair, 2, "resume"), log_dir)
         paths[pair["name"]].append(rank_launches(pair, counts, "resume"))
         rank_shapes(pair, shapes, "resume")
         resumed = _json_stats(two)[0][len(pair["first_lines"]):]
-        ckpt = os.path.join(two, "checkpoints", "checkpoint_epoch_00001.pyth")
-        if not (any(f"Load from last checkpoint, {ckpt}." in line for line in resumed)
+        ckpt = os.path.join(two, "checkpoints", pair["checkpoint"] % 1)
+        said = (f"Resumed SSL training from {ckpt}" if pair["cfg"].TASK == "ssl"
+                else f"Load from last checkpoint, {ckpt}.")
+        if not (any(said in line for line in resumed)
                 and any("Start epoch: 2" in line for line in resumed)):
             raise AssertionError(f"{phase}: the 2-process run did not resume from its checkpoint")
         if sorted(os.listdir(os.path.join(two, "checkpoints"))) != [
-                "checkpoint_epoch_00001.pyth", "checkpoint_epoch_00002.pyth"]:
+                pair["checkpoint"] % 1, pair["checkpoint"] % 2]:
             raise AssertionError(f"{phase}: the resumed 2-process run did not write epoch 2's "
                                  "checkpoint")
-        log(json.dumps({"phase": f"{phase}_resume", "card": card,
-                        "test_final": _test_final(two), "wall_s": wall}))
+        final = ({"train_epoch": [s for s in _json_stats(two)[1]
+                                  if s.get("_type") == "train_epoch"][-1]}
+                 if pair["cfg"].TASK == "ssl" else {"test_final": _test_final(two)})
+        log(json.dumps({"phase": f"{phase}_resume", "card": card, **final, "wall_s": wall,
+                        "resumes_started_together": [p["name"] for p in resumes]}))
     return paths
 
 
@@ -4045,14 +4087,29 @@ def _held_relus(packed, lay, device):
         raise AssertionError("the rank made fewer ReLU calls than the one process")
 
 
+def _built_with(cfg, state_dict, device, dtype):
+    """``build_model(cfg, device, dtype)`` with ``state_dict``'s weights, but
+    for the seeded draw (seconds a model on a rank's CPU), which they
+    replace in every tensor."""
+    from pmv_tpu_torch.models.build import MODEL_REGISTRY
+
+    model = MODEL_REGISTRY.get(cfg.MODEL.MODEL_NAME)(cfg, dtype=dtype)
+    model.load_state_dict(state_dict)
+    return model.to(device)
+
+
 def _sp_model_of(cfg, case, device, dtype):
-    """``case``'s weights on ``device``, computing in ``dtype``: a copy of
-    one seeded init for each config (``seeded_model``; the parameters are
-    float32 whatever the activations' dtype), its compute dtype set."""
-    model = seeded_model(cfg, device, torch.float32)
+    """``case``'s weights on ``device``, computing in ``dtype``: cfg's model
+    as ``build_model`` builds it but for the seeded draw (seconds a model on
+    a rank's CPU), which the case's weights replace in every tensor; the
+    parameters float32 whatever the activations' dtype, its compute dtype
+    set."""
+    from pmv_tpu_torch.models.build import MODEL_REGISTRY
+
+    model = MODEL_REGISTRY.get(cfg.MODEL.MODEL_NAME)(cfg, dtype=torch.float32)
     model.compute_dtype = dtype
     model.load_state_dict(case["state_dict"])
-    return model
+    return model.to(device)
 
 
 def _sp_train(cfg, case, device, dtype, batch, wrap, relus=None):
@@ -4128,7 +4185,8 @@ def _sp_rank(rank, world, port, work_dir, result_q):
     clips, one float32 dp_sp train step on the global batch, the case's
     check step where it names one (the float32 step with each ReLU taking
     the one process's decisions, or the step in float64 on fewer frames),
-    then a bfloat16 model's timed steps (``_sp_timed``). Writes its results
+    then a bfloat16 model's timed steps (``_sp_timed``); for a task of
+    ``SP_TASKS``, ``_sp_task_run``. Writes its results
     to ``work_dir/rank<rank>.pt`` and puts None, or its error, on
     ``result_q``."""
     import datetime
@@ -4149,8 +4207,11 @@ def _sp_rank(rank, world, port, work_dir, result_q):
             cfg = case["cfg"]
             lay = mesh.layout(cfg)
             result = {"recipe": case["recipe"], "rank": rank,
-                      "layout": [lay.data, lay.data_size, lay.model, lay.model_size],
-                      **_sp_eval(cfg, case, device)}
+                      "layout": [lay.data, lay.data_size, lay.model, lay.model_size]}
+            if case.get("task"):  # the other tasks (SP_TASKS)
+                results.append({**result, **_sp_task_run(case, device, True)})
+                continue
+            result.update(_sp_eval(cfg, case, device))
             result["train"] = _sp_train(cfg, case, device, torch.float32, case["batch"], True)
             check = case.get("check")
             if check == "held":
@@ -4309,6 +4370,363 @@ def _sp_gates(phase, cfg, got, ref, kind, n_params, **extra):
     return rec
 
 
+# Phase 8e's other tasks, laid out as the JAX package's ``shard_batch`` lays
+# them: each rank-5 video cut in T over the model axis, everything else (the
+# contrastive views, masks, boxes, indices) whole on every rank of a model
+# group. MaskFeat PT, MoCo and SimCLR on Slow R50, AVA SlowFast 32x2 R50,
+# feature extraction on MViTv2-S, multigrid SlowFast 8x8 R50.
+SP_TASKS = ("maskfeat", "moco", "simclr", "ava", "features", "multigrid")
+SP_SSL_STATE_LIMIT = 1e-5  # the momentum encoder, queue and bank, as 8d holds them
+
+
+@contextlib.contextmanager
+def _held_max_pools(taps, lay, device):
+    """Within the block ``F.max_pool3d`` takes, call by call, the taps of a
+    one-process step (``taps``: each call's indices [B, C, T, H, W] into its
+    input's flattened T x H x W, ``grad_witness.max_pool_decisions``' record),
+    out = x at the tap, as ``max_pool_decisions`` holds them; on a rank of
+    the sequence parallelism of ``lay`` the rank's output planes of each,
+    less its first input plane's offset (the pools whose taps are held take
+    a T kernel and stride of 1: MaskMViT's skip pools). Yields a list whose
+    entry counts the outputs whose own maximum lies at another tap."""
+    import torch.nn.functional as F
+
+    pool, calls, otherwise = F.max_pool3d, iter(taps), [0]
+
+    def held(x, kernel_size, stride=None, padding=0, dilation=1, ceil_mode=False,
+             return_indices=False):
+        out, index = pool(x, kernel_size, stride, padding, dilation, ceil_mode,
+                          return_indices=True)
+        tap = next(calls)
+        if tap.shape[2] != out.shape[2]:
+            start = lay.planes(tap.shape[2])[0]
+            tap = tap[:, :, start:start + out.shape[2]] - start * x.shape[3] * x.shape[4]
+        tap = tap.to(device)
+        otherwise[0] += int((tap != index).sum())
+        out = x.flatten(2).gather(2, tap.flatten(2)).view_as(out)
+        return (out, tap) if return_indices else out
+
+    F.max_pool3d = held
+    try:
+        yield otherwise
+    finally:
+        F.max_pool3d = pool
+    if next(calls, None) is not None:
+        raise AssertionError("the rank made fewer max-pool calls than the one process")
+
+
+def _sp_task_model(recipe):
+    """Phase 8e's task ``recipe`` (``SP_TASKS``): (its cfg under dp_sp, K1
+    launches a forward, the shapes at which the kernel phases hold its K1
+    and wgrad calls, its clips' crop). MaskFeat PT at its 16 frames of
+    224^2; MoCo and SimCLR on Slow R50 at 8 frames of 224^2, 2 views;
+    AVA SlowFast 32x2 R50 at 32 frames of 224^2; feature extraction on
+    MViTv2-S at 8e's MViT grid (16 frames of the rect crop); multigrid
+    SlowFast 8x8 R50 at its first long cycle's shape (``MULTIGRID_RUN``
+    over 2 processes: 16 clips x 8 frames x 158^2, SubBatchNorm of 4
+    splits)."""
+    from pmv_tpu_torch.ops import depthwise as dw
+    from pmv_tpu_torch.utils.multigrid import MultigridSchedule
+
+    held = set()
+    if recipe == "maskfeat":
+        cfg, per_forward = maskfeat_cfg(), MASKFEAT_K1
+        held = {s for s, _ in dw.MASKFEAT_SP_POOL_SHAPES}
+    elif recipe in ("moco", "simclr"):
+        cfg, per_forward = ssl_cfg(recipe), SLOW_K1
+    elif recipe == "ava":
+        cfg, per_forward = ava_cfg(), AVA_K1
+    elif recipe == "features":  # make_feat_step, as TEST.FEAT_EXTRACT runs it
+        cfg, per_forward, held, _ = _sp_model("mvit")
+    else:
+        cfg, per_forward = multigrid_cfg(*MULTIGRID_RUN, "NUM_GPUS", "2"), SLOWFAST_K1
+        schedule = MultigridSchedule()
+        cfg = schedule.init_multigrid(cfg)
+        schedule.update_long_cycle(cfg, 0)
+    crop = PMV_RECT if recipe == "features" else (cfg.DATA.TRAIN_CROP_SIZE,) * 2
+    cfg.TPU.SHARD_STRATEGY = "dp_sp"
+    return cfg, per_forward, held, crop
+
+
+def _set_compute_dtype(model, dtype):
+    """``model`` and each of its modules that has a compute dtype (a
+    backbone inside MaskMViT or a ContrastiveModel) computing in ``dtype``."""
+    for m in model.modules():
+        if hasattr(m, "compute_dtype"):
+            m.compute_dtype = dtype
+    return model
+
+
+def _sp_task_step(case, device, dtype, batch, wrap, taps=None, record=False):
+    """One train step of the task ``case`` on ``batch`` from its weights,
+    activations in ``dtype``, the model wrapped for dp_sp where ``wrap``:
+    MaskFeat's masked step (the loader's masks, the one process's HOG bins;
+    its skip max pools taking ``taps`` where given, or recording them where
+    ``record``), a contrastive step, or a train step (detection, multigrid).
+    Returns (metrics, gradients, state after it), the K1 and wgrad calls'
+    shapes and launches, the taps taken otherwise, and the recorded taps."""
+    from pmv_tpu_torch.engine import ssl_steps
+    from pmv_tpu_torch.engine.steps import init_state, make_train_step
+    from pmv_tpu_torch.ops.depthwise import record_shapes
+    from pmv_tpu_torch.parallel import distributed, mesh
+    from pmv_tpu_torch.tools.grad_witness import max_pool_decisions
+
+    cfg, recipe = case["cfg"], case["recipe"]
+    model = _set_compute_dtype(_sp_model_of(cfg, case, device, dtype), dtype)
+    wrapped = distributed.wrap_model(model, "dp_sp", device) if wrap else None
+    draws = None
+    if recipe == "maskfeat":
+        state = ssl_steps.init_masked_state(cfg, model, wrapped=wrapped)
+        step = ssl_steps.make_masked_train_step(cfg, device=device, seed=0)
+        draws = {"hog_bins": case["hog_bins"]}
+    elif recipe in ("moco", "simclr"):
+        state = ssl_steps.init_ssl_state(cfg, model, wrapped=wrapped)
+        step = ssl_steps.make_ssl_train_step(cfg, device=device, seed=0)
+    else:
+        state = init_state(cfg, model, wrapped=wrapped)
+        step = make_train_step(cfg, device=device, seed=0)
+    if taps is not None:
+        pools = _held_max_pools(taps, mesh.layout(cfg), device)
+    else:
+        pools = max_pool_decisions() if record else contextlib.nullcontext([0])
+    counts = _launch_counts()
+    with record_shapes() as shapes, pools as taken:
+        metrics = {k: v.cpu() for k, v in step(state, batch, cfg.SOLVER.BASE_LR, draws).items()}
+    torch.cuda.synchronize()
+    out = {"step": (metrics, _grads(model),
+                    {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}),
+           "shapes": shapes, "launches": _launches_since(counts),
+           "otherwise": taken[0] if isinstance(taken, list) else 0}
+    if record:
+        out["taps"] = [m.cpu() for m in taken.masks]
+    return out
+
+
+def _sp_task_eval(case, device):
+    """AVA's detection eval scores and MViTv2-S's pooled features on the
+    case's eval clips, float32, with their K1 calls' shapes and launches."""
+    from pmv_tpu_torch.engine.steps import make_detection_eval_step, make_feat_step
+    from pmv_tpu_torch.ops.depthwise import record_shapes
+
+    cfg, clips = case["cfg"], case["eval"]
+    model = _set_compute_dtype(_sp_model_of(cfg, case, device, torch.float32), torch.float32)
+    counts = _launch_counts()
+    with record_shapes() as shapes:
+        if case["recipe"] == "ava":
+            scores = make_detection_eval_step(cfg, model, device=device)(
+                clips["frames"], clips["boxes"], clips["box_mask"]).cpu()
+        else:
+            scores = make_feat_step(cfg, model, device=device)(clips["frames"]).cpu()
+    return {"scores": scores, "eval_shapes": shapes, "eval_launches": _launches_since(counts)}
+
+
+def _sp_task_timed(case, device, wrap):
+    """``SP_TIMED_STEPS`` bfloat16 steps of the task (feature extraction's
+    feature steps) on the case's batch after one warm, as ``_sp_timed``
+    times the classification steps (a main path)."""
+    from pmv_tpu_torch.engine import ssl_steps
+    from pmv_tpu_torch.engine.steps import init_state, make_feat_step, make_train_step
+    from pmv_tpu_torch.ops.depthwise import record_shapes
+    from pmv_tpu_torch.parallel import distributed, mesh
+
+    cfg, recipe = case["cfg"], case["recipe"]
+    model = _set_compute_dtype(_sp_model_of(cfg, case, device, torch.bfloat16), torch.bfloat16)
+    if recipe == "features":
+        feat_step = make_feat_step(cfg, model, device=device)
+        run = lambda: feat_step(case["eval"]["frames"])  # noqa: E731
+    else:
+        wrapped = distributed.wrap_model(model, "dp_sp", device) if wrap else None
+        if recipe == "maskfeat":
+            state = ssl_steps.init_masked_state(cfg, model, wrapped=wrapped)
+            step = ssl_steps.make_masked_train_step(cfg, device=device, seed=0)
+        elif recipe in ("moco", "simclr"):
+            state = ssl_steps.init_ssl_state(cfg, model, wrapped=wrapped)
+            step = ssl_steps.make_ssl_train_step(cfg, device=device, seed=0)
+        else:
+            state = init_state(cfg, model, wrapped=wrapped)
+            step = make_train_step(cfg, device=device, seed=0)
+        run = lambda: step(state, case["batch"], cfg.SOLVER.BASE_LR)  # noqa: E731
+    run()  # warm
+    torch.cuda.synchronize()
+    _zero_launch_counts()  # the main path starts here
+    mesh.traffic.update(dict.fromkeys(mesh.traffic, 0))
+    t0 = time.perf_counter()
+    with record_shapes() as shapes:
+        for _ in range(SP_TIMED_STEPS):
+            run()
+        torch.cuda.synchronize()
+    return {"ms_per_step": (time.perf_counter() - t0) / SP_TIMED_STEPS * 1e3,
+            "launches": _launch_counts(),  # ... and ends here
+            "timed_shapes": shapes,
+            "bytes_per_step": {k: v // SP_TIMED_STEPS for k, v in mesh.traffic.items()}}
+
+
+def _sp_task_run(case, device, wrap, record=False):
+    """A task's side of phase 8e on ``device`` (a rank's where ``wrap``, else
+    one process's): the eval (AVA, features); the check step: MaskFeat's in
+    float32 with the one process's max-pool taps (recorded where
+    ``record``), the others' in float64 (AVA on ``FLOAT64_FRAMES`` of its
+    32), multigrid's on the long cycle's batch and on a short-cycle batch;
+    then the timed bfloat16 steps."""
+    out = {}
+    recipe = case["recipe"]
+    if recipe in ("ava", "features"):
+        out.update(_sp_task_eval(case, device))
+    if recipe != "features":
+        dtype = torch.float32 if recipe == "maskfeat" else torch.float64
+        out["train"] = _sp_task_step(case, device, dtype, case.get("batch64", case["batch"]),
+                                     wrap, taps=case.get("taps") if wrap else None,
+                                     record=record)
+    if recipe == "multigrid":
+        out["short"] = _sp_task_step(case, device, torch.float64, case["short"], wrap)
+    out.update(_sp_task_timed(case, device, wrap))
+    torch.cuda.empty_cache()
+    return out
+
+
+def _sp_task_reference(recipe):
+    """The one-process side of task ``recipe``'s phase 8e on the card, and
+    its case for the ranks: a global batch of ``SP_BATCH`` clips from a seed
+    (MaskFeat's with the loader's masks, 60% and 20% of the tokens masked,
+    and the one process's HOG bins; the contrastive views 2 of each video;
+    AVA's 16 box slots, 3 valid in one clip and 1 in the other; multigrid's
+    the long cycle's 16 clips and a short-cycle batch of 32 at the crop of
+    its phase 0), the eval clips, and the one process's max-pool taps
+    (MaskFeat)."""
+    from pmv_tpu_torch.data.loader import short_cycle_factors
+    from pmv_tpu_torch.models.masked import hog_bins
+    from pmv_tpu_torch.utils.multigrid import short_cycle_crop_size
+
+    cfg, per_forward, held, crop = _sp_task_model(recipe)
+    rng = np.random.default_rng(16)
+    clip = (cfg.DATA.NUM_FRAMES, *crop, 3)
+    case = {"recipe": recipe, "task": True, "cfg": cfg}
+    if recipe == "maskfeat":
+        model = seeded_model(cfg, "cpu", torch.float32)
+        n_tok = model.sample_mask((1, *clip), torch.Generator()).shape[1]
+        frames = rng.integers(0, 256, (SP_BATCH, *clip), np.uint8)
+        case["batch"] = {"frames": frames, "mask": rng.uniform(size=(SP_BATCH, n_tok))
+                         < np.array([0.6, 0.2])[:, None]}
+        from pmv_tpu_torch.engine.steps import make_preprocess_fn
+
+        x = make_preprocess_fn(cfg, train=True, device="cuda")(torch.as_tensor(frames).cuda())
+        case["hog_bins"] = hog_bins(x).cpu()
+    elif recipe in ("moco", "simclr"):
+        model = seeded_model(cfg, "cpu", torch.float32)
+        case["batch"] = _ssl_batch(cfg, 17, b=SP_BATCH)
+    elif recipe == "ava":
+        model = seeded_model(cfg, "cpu", torch.float32)
+        batch = ava_batch(cfg, SP_BATCH, cfg.DATA.NUM_FRAMES, rng)
+        batch["box_mask"][1, 1:] = False  # 3 valid boxes, then 1
+        batch["labels"] = batch["labels"] * batch["box_mask"][..., None]
+        case["batch"] = batch
+        case["batch64"] = dict(batch, frames=_fewer_frames(batch["frames"], FLOAT64_FRAMES))
+        case["eval"] = ava_batch(cfg, SP_BATCH, cfg.DATA.NUM_FRAMES, rng)
+    elif recipe == "features":
+        model = seeded_model(cfg, "cpu", torch.float32)
+        case["eval"] = {"frames": rng.integers(0, 256, (SP_BATCH, *clip), np.uint8)}
+    else:
+        model = seeded_model(cfg, "cpu", torch.float32)
+        b = cfg.TRAIN.BATCH_SIZE
+        f0, _ = short_cycle_factors(cfg)
+        short = short_cycle_crop_size(0, cfg)
+        case["batch"] = {"frames": rng.integers(0, 256, (b, *clip), np.uint8),
+                         "labels": rng.integers(0, cfg.MODEL.NUM_CLASSES, b)}
+        case["short"] = {"frames": rng.integers(0, 256, (b * f0, clip[0], short, short, 3),
+                                                np.uint8),
+                         "labels": rng.integers(0, cfg.MODEL.NUM_CLASSES, b * f0)}
+    if recipe in ("moco", "simclr"):  # queue and bank of unit rows, the pointer near the end
+        gen = torch.Generator().manual_seed(5)
+        with torch.no_grad():
+            for name in ("queue", "bank"):
+                if hasattr(model, name):
+                    t = getattr(model, name)
+                    t.copy_(torch.nn.functional.normalize(
+                        torch.randn(t.shape, generator=gen, dtype=t.dtype), dim=1))
+            if hasattr(model, "queue_ptr"):
+                model.queue_ptr.fill_(model.queue.shape[0] - 1)
+    case["state_dict"] = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    del model
+    ref = _sp_task_run(case, "cuda", False, record=recipe == "maskfeat")
+    if recipe == "maskfeat":
+        case["taps"] = ref["train"].pop("taps")
+    return case, ref, per_forward, held
+
+
+def _sp_task_gates(case, ranks, ref, per_forward, held, card, wall):
+    """Task ``case``'s ranks (``ranks``: each rank's result) against the one
+    process's ``ref``: MaskFeat's float32 step under phase 3b's gates, the
+    grad norm to 1e-4; MoCo's and SimCLR's float64 steps likewise, the SSL
+    state to ``SP_SSL_STATE_LIMIT``; AVA's float64 step and multigrid's two
+    under every 1e-4 gate (``_sp_gates``' "float64": SubBatchNorm's split
+    statistics to 1e-6 beyond rtol 1e-4); AVA's eval scores and the features
+    within ``SP_EVAL_ATOL``; each rank's K1, dx and wgrad calls (MaskFeat 14
+    each a step on 4 + 2 planes, the features 17 K1 a forward, the others
+    none) at shapes the kernel phases hold. Returns the ranks' timed
+    launches."""
+    recipe, cfg = case["recipe"], case["cfg"]
+    t_exts = sorted({s[1] for s in held})
+    for r in ranks:
+        phase = f"sequence_parallel_{recipe}_dp_sp_rank{r['rank']}"
+        if r["layout"] != [0, 1, r["rank"], 2] or r["recipe"] != recipe:
+            raise AssertionError(f"{phase}: layout {r['layout']} of {r['recipe']}")
+        train = recipe != "features"
+        if train:
+            _sp_extents(phase + "_timed", r["timed_shapes"], t_exts, True, per_forward, held,
+                        steps=SP_TIMED_STEPS)
+        else:  # feature steps: forwards alone
+            _sp_extents(phase + "_timed", r["timed_shapes"], t_exts, False,
+                        per_forward * SP_TIMED_STEPS, held)
+        extra = dict(model=cfg.MODEL.MODEL_NAME, card=card, layout=r["layout"],
+                     frames=cfg.DATA.NUM_FRAMES, timed_steps=SP_TIMED_STEPS,
+                     ms_per_step_bf16_2_ranks=r["ms_per_step"],
+                     ms_per_step_bf16_1_process=ref["ms_per_step"],
+                     bytes_per_step_bf16=r["bytes_per_step"], launches=r["launches"],
+                     spawn_to_end_s=wall)
+        if "scores" in r:
+            _sp_extents(phase + "_eval", r["eval_shapes"], t_exts, False, per_forward, held)
+            eval_err = float((r["scores"] - ref["scores"]).abs().max())
+            extra.update(eval_max_abs_err=eval_err, eval_launches=r["eval_launches"])
+            if eval_err > SP_EVAL_ATOL or not torch.isfinite(r["scores"]).all():
+                raise AssertionError(f"{phase}: eval {list(r['scores'].shape)} differs by "
+                                     f"{eval_err}")
+            if r["eval_launches"] != eval_launches(per_forward):
+                raise AssertionError(f"{phase}: the eval launched {r['eval_launches']}")
+        if not train:
+            log(json.dumps({"phase": phase + "_vs_one_process", **extra}))
+        for key in [k for k in ("train", "short") if k in r]:
+            got, want = r[key]["step"], ref[key]["step"]
+            extra.update(_sp_extents(phase, r[key]["shapes"], t_exts, True, per_forward, held),
+                         step_launches=r[key]["launches"], global_batch=len(
+                             case["batch" if key == "train" else "short"]["frames"]))
+            n_params = sum(v.numel() for v in want[1].values())
+            if recipe in ("maskfeat", "moco", "simclr"):
+                state = want[2]
+                ssl = [k for k in state if k.split(".")[0] in ("momentum", "queue", "bank")]
+                ssl_err = max((float((got[2][k] - state[k]).abs().max()) for k in ssl),
+                              default=0.0)
+                dtype = "f32" if recipe == "maskfeat" else "f64"
+                rec = _held_to_step(f"{phase}_{dtype}_vs_one_process", got, want,
+                                    cfg.SOLVER.BASE_LR, n_params, ssl_state_max_abs_err=ssl_err,
+                                    max_pool_taps_otherwise=r[key]["otherwise"], **extra)
+                torch.testing.assert_close(got[0]["grad_norm"], want[0]["grad_norm"], atol=0,
+                                           rtol=1e-4)
+                if ssl_err > SP_SSL_STATE_LIMIT:
+                    raise AssertionError(f"{rec['phase']}: SSL state differs by {ssl_err}")
+            else:
+                _sp_gates(f"{phase}_{key}_f64_vs_one_process", cfg, got, want, "float64",
+                          n_params, **extra)
+            if r[key]["launches"] != step_launches(per_forward):
+                raise AssertionError(f"{phase}: launched {r[key]['launches']} a step")
+    timed = (eval_launches if recipe == "features" else step_launches)(per_forward)
+    timed = {k: v * SP_TIMED_STEPS for k, v in timed.items()}
+    for r in ranks:
+        if r["launches"] != timed:
+            raise AssertionError(f"sequence_parallel_{recipe}: the timed steps launched "
+                                 f"{r['launches']}, not {timed}")
+    return {k: sum(r["launches"][k] for r in ranks) for k in timed}
+
+
 def phase_sequence_parallel(card):
     """Phase 8e: every model of ``SP_RECIPES`` under TPU.SHARD_STRATEGY
     dp_sp, in one spawn of two ranks over gloo sharing the one card, a grid
@@ -4328,10 +4746,10 @@ def phase_sequence_parallel(card):
     each at a shape of the model's dp_sp grid (``_sp_model``), which the
     kernel phases hold against the plain versions; then each rank's bf16
     step, timed, beside the one process's, with the bytes its halos,
-    gathers and reductions hand to all_reduce. Returns each model's ranks'
-    launches of the timed steps."""
-    import multiprocessing
-
+    gathers and reductions hand to all_reduce. Then, in the same spawn, the
+    other tasks (``SP_TASKS``: MaskFeat PT, MoCo and SimCLR, AVA detection,
+    feature extraction, multigrid; ``_sp_task_gates``). Returns each model's
+    ranks' launches of the timed steps."""
     world = 2
     work_dir = os.path.join("build", "chip_smoke_sequence_parallel")
     shutil.rmtree(work_dir, ignore_errors=True)
@@ -4340,24 +4758,11 @@ def phase_sequence_parallel(card):
     for recipe in SP_RECIPES:
         case, *refs[recipe] = _sp_reference(recipe)
         cases.append(case)
+    for recipe in SP_TASKS:
+        case, *refs[recipe] = _sp_task_reference(recipe)
+        cases.append(case)
     torch.save(cases, os.path.join(work_dir, "cases.pt"))
-    ctx = multiprocessing.get_context("spawn")
-    result_q = ctx.Queue()
-    port = _free_port()
-    procs = [ctx.Process(target=_sp_rank, args=(r, world, port, work_dir, result_q))
-             for r in range(world)]
-    t0 = time.perf_counter()
-    for p in procs:
-        p.start()
-    try:
-        errors = [result_q.get(timeout=600) for _ in procs]
-    finally:
-        for p in procs:
-            p.join(timeout=30)
-            if p.is_alive():
-                p.kill()
-                p.join()
-    wall = time.perf_counter() - t0
+    errors, wall = _spawn_ranks(_sp_rank, world, work_dir, timeout=600)
     failed = [e for _, e in errors if e]
     if failed:
         raise AssertionError("a phase 8e rank failed:\n" + "\n".join(failed))
@@ -4366,6 +4771,10 @@ def phase_sequence_parallel(card):
     launches = {}
     for i, case in enumerate(cases):
         recipe, cfg = case["recipe"], case["cfg"]
+        if case.get("task"):
+            launches[recipe] = _sp_task_gates(case, [rank[i] for rank in ranks],
+                                              *refs[recipe], card, wall)
+            continue
         ref, per_forward, held = refs[recipe]
         t_exts = sorted({s[1] for s in held})
         n_params = sum(v.numel() for v in ref["train"]["step"][1].values())
@@ -4421,27 +4830,35 @@ X3D_PAIR_LRS = ("SOLVER.WARMUP_START_LR", "1e-6", "SOLVER.COSINE_END_LR", "1e-6"
 
 
 def phase_run_net_pairs(card):
-    """The ``run_net`` pairs of phases 8e and 8c, their 12 processes started
+    """The ``run_net`` pairs of phases 8e and 8c, their 15 processes started
     at once (``_run_net_pairs``; most of a process's time is its start).
     8e's: ``run_net --num_shards 2 TPU.SHARD_STRATEGY dp_sp`` on MViTv2-S's
-    and UniFormer-S's rect recipes, and X3D-M's (exps/PMV/run_X3D_PMV.sh's
-    rect_256_192 run, its 256^2 test crop), each against one process under
-    8c's gates on 16 Synthetic videos; every K1 and wgrad call of their
-    ranks at a shape of the model's dp_sp grid. 8c's: ``run_net`` as a user
+    and UniFormer-S's rect recipes, X3D-M's (exps/PMV/run_X3D_PMV.sh's
+    rect_256_192 run, its 256^2 test crop) and MaskFeat PT (its yaml, a
+    video a host a step, the model's own masks; the weights and the epoch's
+    loss, then a resume), each against one process under 8c's gates on 16
+    Synthetic videos; every K1 and wgrad call of their ranks at a shape of
+    the model's dp_sp grid. 8c's: ``run_net`` as a user
     launches it on 2 hosts, two processes of ``run_net --num_shards 2
     --shard_id 0|1 --init_method tcp://...`` with NUM_GPUS 1 and gloo, both
     on the one card (``launch_job`` spawns each rank): UniFormer-S's rect
     recipe at full width, float32, for one epoch (train with ``dp``,
     checkpoint, gathered eval, test) beside one process at twice a
     process's batch; then the 2 processes again with SOLVER.MAX_EPOCH 2,
-    which must resume from its checkpoint. Returns (8c's 2-process runs'
-    launches, 8e's by model)."""
+    which must resume from its checkpoint, its processes started with
+    MaskFeat's resume. Returns (8c's 2-process runs' launches, 8e's by
+    model)."""
     specs = [dict(recipe=recipe, work_name=f"chip_smoke_sequence_parallel{suffix}_run_net",
                   phase=f"sequence_parallel{suffix}_run_net", batch=2,
                   extra=("TPU.SHARD_STRATEGY", "dp_sp"), held=_sp_model(recipe)[2])
              for recipe, suffix in (("mvit", ""), ("uniformer", "_uniformer"),
                                     ("x3d", "_x3d"))]
     specs[-1]["opts"] = X3D_PAIR_LRS
+    specs.append(dict(  # a video a host a step: a rank holds 2, at SP_BATCHES[0]
+        recipe="maskfeat_pt", name="maskfeat", batch=1, resume=True,
+        work_name="chip_smoke_sequence_parallel_maskfeat_run_net",
+        phase="sequence_parallel_maskfeat_run_net", extra=("TPU.SHARD_STRATEGY", "dp_sp"),
+        held=_sp_task_model("maskfeat")[2]))
     paths = _run_net_pairs(card, specs + [DISTRIBUTED_RUN_NET])
     return paths.pop("distributed"), paths
 
@@ -5163,8 +5580,13 @@ def kernels_line(records, launches, slowfast_launches, maskfeat_launches,
     the rect crop's and its transposes at batch 2 and 4, the 224^2 test
     crop's at batch 4), X3D-M's 22 ("x3d_*": 8 + 2 of its 16 frames, the
     rect crop's and its transposes at batch 2 and 4, the 256^2 test crop's
-    at batch 4) and ir-CSN-101's 30 ("csn_b2": 16, 8, 4 and 2 planes of its
-    stages and 2 halo planes, 224^2, batch 2); "launches_ssl_fsdp" the SSL steps' under fsdp (phase 8f:
+    at batch 4), ir-CSN-101's 30 ("csn_b2": 16, 8, 4 and 2 planes of its
+    stages and 2 halo planes, 224^2, batch 2) and MaskFeat PT's 14
+    ("maskfeat_b2", "maskfeat_b4": 4 + 2 of its 8 token planes at 224^2);
+    "launches_dp_sp_tasks" the other tasks' dp_sp paths (phase 8e and its
+    run_net pair: MaskFeat PT 14 K1 a forward, MoCo, SimCLR, AVA, the
+    features of MViTv2-S (17 K1 a forward) and multigrid);
+    "launches_ssl_fsdp" the SSL steps' under fsdp (phase 8f:
     MoCo 0, MaskFeat 14 a forward)."""
     maskfeat = maskfeat_kernel_ms(records)
 
@@ -5191,7 +5613,8 @@ def kernels_line(records, launches, slowfast_launches, maskfeat_launches,
             "launches_dp_sp_uniformer": sp_launches["uniformer"][name],
             "launches_dp_sp_conv": {recipe: launches[name] for recipe, launches
                                     in sp_launches.items()
-                                    if recipe not in ("mvit", "uniformer")},
+                                    if recipe not in ("mvit", "uniformer") + SP_TASKS},
+            "launches_dp_sp_tasks": {recipe: sp_launches[recipe][name] for recipe in SP_TASKS},
             "launches_ssl_fsdp": ssl_fsdp_launches[name],
             "launches_maskfeat": maskfeat_launches[name],
             "launches_contrastive": {k: v[name] for k, v in contrastive_launches.items()},
@@ -5219,7 +5642,7 @@ def kernels_line(records, launches, slowfast_launches, maskfeat_launches,
                           "uniformer_rect_b2", "uniformer_portrait_b2", "uniformer_rect_b4",
                           "uniformer_portrait_b4", "uniformer_square_b4",
                           "x3d_rect_b2", "x3d_portrait_b2", "x3d_rect_b4", "x3d_portrait_b4",
-                          "x3d_square_b4", "csn_b2")
+                          "x3d_square_b4", "csn_b2", "maskfeat_b2", "maskfeat_b4")
             },
             # The rect grids at run_net's train batch of 16.
             "rect_b16_ms": summed("kernel_ms", grid("rect_b16")),
@@ -5553,5 +5976,82 @@ def main():
     return 0
 
 
+def _adopt_orphans():
+    """Make this process the parent of every orphan among the processes it
+    started (Linux's PR_SET_CHILD_SUBREAPER, set on this process alone), so
+    that `_end_processes` also finds a grandchild whose parent ended."""
+    import ctypes
+
+    with contextlib.suppress(OSError, AttributeError):
+        ctypes.CDLL(None, use_errno=True).prctl(36, 1, 0, 0, 0)
+
+
+def _descendants():
+    """The pids of every live process below this one, from /proc."""
+    children = {}
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+        except (OSError, IndexError):
+            continue
+        children.setdefault(int(fields[1]), []).append(int(name))
+    found, todo = [], [os.getpid()]
+    while todo:
+        for pid in children.get(todo.pop(), []):
+            found.append(pid)
+            todo.append(pid)
+    return found
+
+
+def _end_processes(timeout=10.0):
+    """Stop every process this script started, and what those started, and
+    reap them, so that none outlives the script: the rest with SIGTERM and,
+    ``timeout`` seconds later, SIGKILL; then multiprocessing's semaphore
+    tracker through its own stop, once the exit-time finalizers it serves
+    have run (it ignores SIGTERM, and waits for every spawned process that
+    shares it). Reports on stderr what it had to stop."""
+    import gc
+    from multiprocessing import resource_tracker, util
+
+    gc.collect()
+    util._run_finalizers(0)
+    tracker = resource_tracker._resource_tracker
+    spared = getattr(tracker, "_pid", None)
+
+    def others():
+        with contextlib.suppress(ChildProcessError):
+            while os.waitpid(-1, os.WNOHANG)[0]:
+                pass
+        return [pid for pid in _descendants() if pid != spared]
+
+    stopped = {}
+    for sig in (signal.SIGTERM, signal.SIGKILL):
+        deadline = time.monotonic() + timeout
+        while (pids := others()) and time.monotonic() < deadline:
+            for pid in pids:
+                with contextlib.suppress(OSError):
+                    if pid not in stopped:
+                        with open(f"/proc/{pid}/cmdline", "rb") as f:
+                            stopped[pid] = f.read().replace(b"\0", b" ").decode()[:200]
+                    os.kill(pid, sig)
+            time.sleep(0.1)
+        if not pids:
+            break
+    if getattr(tracker, "_pid", None) is not None and hasattr(tracker, "_stop"):
+        tracker._stop()
+    for pid, cmdline in stopped.items():
+        print(f"chip_smoke: stopped leftover process {pid}: {cmdline}", file=sys.stderr)
+    if _descendants():
+        print(f"chip_smoke: processes still alive at exit: {_descendants()}", file=sys.stderr)
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    _adopt_orphans()
+    try:
+        code = main()
+    finally:
+        _end_processes()
+    sys.exit(code)

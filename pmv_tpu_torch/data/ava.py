@@ -23,6 +23,11 @@ the reference tests on the full short-side-scaled frame (ROADMAP.md records
 the difference). AVA.TRAIN_USE_COLOR_AUGMENTATION jitters the clip here on
 the host and again in the train step's preprocessing, as the JAX package
 does (``engine/steps.py``; ROADMAP.md).
+
+Under TPU.SHARD_STRATEGY dp_sp the keyframe rows go by the rank's data
+index (``loader.construct_loader``): every rank of a model group loads the
+same clips whole, with their boxes, and the steps cut the frames to the
+rank's planes.
 """
 
 import os

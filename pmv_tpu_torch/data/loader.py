@@ -206,8 +206,9 @@ def construct_loader(cfg, split, dataset=None):
     sample. A process takes TRAIN.BATCH_SIZE (TEST.BATCH_SIZE) / NUM_GPUS
     samples a step (x the model axis under dp_sp, whose model groups take
     the same rows, by the rank's data index, each rank the whole sample:
-    the steps cut its frames to the rank's planes, and AVSlowFast's audio
-    stays whole). A train sample of contrastive views (DATA.
+    the steps cut its frames, and MaskFeat's mask, to the rank's planes;
+    AVSlowFast's audio, AVA's boxes and the contrastive views stay whole).
+    A train sample of contrastive views (DATA.
     TRAIN_CROP_NUM_TEMPORAL or _SPATIAL > 1) keeps its view axis: frames
     [B, V, T, H, W, C]. Under MULTIGRID.SHORT_CYCLE the train loader takes
     the short cycle's batches (``short_cycle_factors``)."""

@@ -8,7 +8,9 @@ generators draw from the ``np.random.Generator`` they are given, draw for
 draw as the JAX package's, so that one seed gives both packages the same
 mask. A mask is a small [t, h, w] int grid a sample, made on the host by
 the loader (AUG.GEN_MASK_LOADER); the train step takes it flattened to
-booleans.
+booleans. Under TPU.SHARD_STRATEGY dp_sp a mask is drawn for the whole
+clip, the same on every rank of a model group, and the masked step cuts it
+to the rank's token planes (``engine/ssl_steps.py::local_token_planes``).
 """
 
 import math

@@ -68,6 +68,20 @@ and its B are the global batch's; the queue takes every rank's keys and the
 bank every rank's (index, z1), in rank order, so that they stay the same
 on every rank; MaskFeat's loss divides by the global count of masked
 tokens. The loss reported is the global batch's.
+
+Under TPU.SHARD_STRATEGY dp_sp (``parallel/mesh.py``) the rows above are a
+data group's, which every rank of a model group holds alike, and the
+gathers, the sums and the queue's and bank's rows run over the data group
+(``distributed.gather_rows``, ``all_reduce_sum`` with the layout). The
+masked step draws and preprocesses the whole clip, then each rank keeps its
+frames, its token planes of the mask (the loader's or the model's draw)
+and of the HOG bins, and runs the forward inside
+``mesh.sequence_parallel``: the ranks hold disjoint (rows, planes), so the
+masked-token count sums over the world, and each rank's share of the loss,
+times the world, averages under DDP to the global loss. The contrastive
+views stay whole on every rank (rank 6, as the JAX package's
+``shard_batch`` leaves them), with no sequence-parallel forward; their
+BatchNorm moments combine over the data group (``mesh.whole_rows``).
 """
 
 import torch
@@ -76,7 +90,7 @@ from pmv_tpu_torch.engine import steps
 from pmv_tpu_torch.models import contrastive as cm
 from pmv_tpu_torch.models import optimizer as optim
 from pmv_tpu_torch.models.masked import masked_loss
-from pmv_tpu_torch.parallel import distributed
+from pmv_tpu_torch.parallel import distributed, mesh
 from pmv_tpu_torch.utils.device import rank_and_world_size, resolve_device
 
 # A MaskMViT's state is the supervised one's: the step count, the model and
@@ -95,10 +109,21 @@ def _call(model, *args, **kwargs):
     return model(*args, **kwargs)
 
 
-def _gathered(t):
-    """Every rank's ``t``, concatenated in rank order along the first axis,
-    with autograd (``distributed.gather_rows``)."""
-    return distributed.gather_rows(t).flatten(0, 1)
+def _gathered(t, lay=None):
+    """Every rank's ``t`` over the data axis of ``lay`` (the world when
+    None), concatenated in rank order along the first axis, with autograd
+    (``distributed.gather_rows``)."""
+    return distributed.gather_rows(t, lay).flatten(0, 1)
+
+
+def local_token_planes(mask, t_tok, lay):
+    """This rank's token planes ([B, n_tok] -> [B, n_tok / M], t-major) of a
+    clip's mask of ``t_tok`` token planes under the sequence parallelism of
+    ``lay``; ``mask`` itself without it."""
+    if not lay.sequence_parallel:
+        return mask
+    start, stop = lay.planes(t_tok)
+    return mask.reshape(mask.shape[0], t_tok, -1)[:, start:stop].reshape(mask.shape[0], -1)
 
 
 def _grad_norm(model):
@@ -115,8 +140,9 @@ def make_masked_train_step(cfg, device=None, seed=0):
     ``device="cpu"``), the device of ``state.model``, a MaskMViT. The step
     updates ``state`` in place and returns "loss", "grad_norm" (before
     clipping) and "nan" (the loss is not finite) as tensors on the device.
-    In a multi-process job the batch is this rank's rows, and ``draws``
-    (and their "hog_bins") those of the global batch.
+    In a multi-process job the batch is this rank's rows (under dp_sp its
+    data index's whole clips), and ``draws`` (and their "hog_bins") those
+    of the global batch's whole clips.
     ``train_step.sample_draws(model, shape, step)`` gives the draws of a
     step for a batch of ``shape``."""
     device = resolve_device(device)
@@ -133,7 +159,8 @@ def make_masked_train_step(cfg, device=None, seed=0):
         model, optimizer = state.model, state.optimizer
         model.train()
         frames = torch.as_tensor(batch["frames"]).to(device, non_blocking=True)
-        rank, world = rank_and_world_size()
+        lay = mesh.layout(cfg)
+        rank, world = lay.data, lay.data_size
         b = frames.shape[0]
         shape = (b * world, *frames.shape[1:])
         given = dict(draws or {})
@@ -143,18 +170,24 @@ def make_masked_train_step(cfg, device=None, seed=0):
         draws = steps.local_draws(sample_draws(model, shape, given, state.step),
                                   rank * b, (rank + 1) * b, shape[0])
         mask = loader_mask if loader_mask is not None else draws["mask"]
-        mask = torch.as_tensor(mask).to(device, non_blocking=True)
+        mask = local_token_planes(torch.as_tensor(mask).to(device, non_blocking=True),
+                                  model.token_grid(shape)[0], lay)
+        hog_bins = draws.get("hog_bins")
+        if hog_bins is not None:
+            hog_bins = steps.local_frames(torch.as_tensor(hog_bins), lay)
 
-        x = preprocess(frames, draws)
-        kwargs = dict(drop_path_masks=draws["drop_path"], hog_bins=draws.get("hog_bins"))
-        if state.wrapped is None:
-            pred, target, mask = model(x, mask, **kwargs)
-        else:
-            pred, target, mask = state.wrapped(_call, x, mask, **kwargs)
+        x = steps.local_frames(preprocess(frames, draws), lay)
+        kwargs = dict(drop_path_masks=draws["drop_path"], hog_bins=hog_bins)
+        with mesh.sequence_parallel(lay):
+            if state.wrapped is None:
+                pred, target, mask = model(x, mask, **kwargs)
+            else:
+                pred, target, mask = state.wrapped(_call, x, mask, **kwargs)
         # This rank's share of the global loss, times the world: DDP
-        # averages the ranks' gradients.
+        # averages the ranks' gradients (under dp_sp the ranks hold
+        # disjoint planes, and the count sums over all of them).
         count = distributed.all_reduce_sum(mask.sum())
-        loss = masked_loss(pred, target, mask, count) * world
+        loss = masked_loss(pred, target, mask, count) * rank_and_world_size()[1]
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
         grad_norm = _grad_norm(model)
@@ -195,20 +228,21 @@ def make_ssl_train_step(cfg, device=None, seed=0):
         return {view: draw(shape, given.get(view, {}), (step, i), {})
                 for i, view in enumerate(VIEWS)}
 
-    def losses(model, view1, view2, index, z2, start):
+    def losses(model, view1, view2, index, z2, start, lay):
         """(the loss of this rank's rows, z1): the online forwards."""
         z1 = model(view1)
         if ssl_type == "moco":
             loss = cm.moco_loss(z1, z2, model.queue, temperature)
         elif ssl_type == "simclr":
             z2 = model(view2)
-            loss = cm.simclr_loss(z1, z2, temperature, _gathered(z1), _gathered(z2), start)
+            loss = cm.simclr_loss(z1, z2, temperature, _gathered(z1, lay), _gathered(z2, lay),
+                                  start)
         elif ssl_type == "byol":
             loss = cm.byol_loss(model.predictor(z1), z2)
         elif ssl_type == "swav":
             z2 = model(view2)
             loss = cm.swav_loss(z1, z2, model.prototypes, temperature,
-                                reduce=distributed.all_reduce_sum)
+                                reduce=lambda t: distributed.all_reduce_sum(t, lay))
         else:  # mem
             loss = cm.mem_bank_loss(z1, model.bank, index, temperature)
         return loss, z1
@@ -222,7 +256,8 @@ def make_ssl_train_step(cfg, device=None, seed=0):
             f1, f2 = frames[:, 0], frames[:, 1 % frames.shape[1]]
         else:
             f1 = f2 = frames
-        rank, world = rank_and_world_size()
+        lay = mesh.layout(cfg)
+        rank, world = lay.data, lay.data_size
         b = f1.shape[0]
         shape = (b * world, *f1.shape[1:])
         draws = sample_draws(shape, draws or {}, state.step)
@@ -235,11 +270,12 @@ def make_ssl_train_step(cfg, device=None, seed=0):
         if ssl_type in cm.MOMENTUM_TYPES:
             statistics = model.encoder_statistics()  # before the step moves them
             z2 = model.encode_momentum(view2, statistics)
-        args = (view1, view2, index, z2, rank * b)
-        if state.wrapped is None:
-            loss, z1 = losses(model, *args)
-        else:
-            loss, z1 = state.wrapped(losses, *args)
+        args = (view1, view2, index, z2, rank * b, lay)
+        with mesh.whole_rows(lay):  # the views: every rank of a model group the same
+            if state.wrapped is None:
+                loss, z1 = losses(model, *args)
+            else:
+                loss, z1 = state.wrapped(losses, *args)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
         distributed.average_replicated_grads(state.wrapped)  # FSDP's whole prototypes
@@ -253,11 +289,12 @@ def make_ssl_train_step(cfg, device=None, seed=0):
                           model.momentum_tensors(), mom)
         if ssl_type == "moco":
             keys = model.encode_momentum(view2, statistics)
-            cm.queue_update(model.queue, model.queue_ptr, _gathered(keys))
+            cm.queue_update(model.queue, model.queue_ptr, _gathered(keys, lay))
         if hasattr(model, "bank"):
             with torch.no_grad():
-                cm.bank_update(model.bank, _gathered(index), _gathered(z1.detach()), mom)
-        loss = distributed.all_reduce_mean(loss.detach())
+                cm.bank_update(model.bank, _gathered(index, lay), _gathered(z1.detach(), lay),
+                               mom)
+        loss = distributed.all_reduce_mean(loss.detach(), lay)
         return {"loss": loss, "grad_norm": grad_norm, "nan": ~torch.isfinite(loss)}
 
     train_step.sample_draws = (

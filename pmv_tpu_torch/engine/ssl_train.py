@@ -28,12 +28,14 @@ initialises from that batch, which fails on a loader of multi-clip views
 
 The JAX loop reads no ``pm`` flag: a portrait row runs as it comes, and so
 here. In a multi-process job (NUM_GPUS x NUM_SHARDS > 1) both SSL models
-train under TPU.SHARD_STRATEGY "dp" or "fsdp" (``engine/ssl_steps.py``;
-``distributed.wrap_model`` as ``engine/train.py`` calls it): each rank its
-rows of the global batch, the kNN monitor's hits and counts summed over the
-ranks, every rank running as many feature forwards as the longest shard
-(``distributed.lockstep``: FSDP gathers in each). "dp_sp" with an SSL model
-is not ported and raises NotImplementedError.
+train under TPU.SHARD_STRATEGY "dp", "fsdp" or "dp_sp" (``engine/
+ssl_steps.py``; ``distributed.wrap_model`` as ``engine/train.py`` calls
+it): each rank its rows of the global batch (under dp_sp its data index's,
+MaskMViT's frames cut in T over the model axis, the contrastive views
+whole), the kNN monitor's hits and counts summed over the ranks (under
+dp_sp model rank 0's of each model group, whose ranks score the same
+clips), every rank running as many feature forwards as the longest shard
+(``distributed.lockstep``: FSDP gathers in each).
 """
 
 import pprint
@@ -46,7 +48,7 @@ from pmv_tpu_torch.engine import ssl_steps
 from pmv_tpu_torch.engine.train import refuse_unported, train_epoch
 from pmv_tpu_torch.models import build_model
 from pmv_tpu_torch.models import contrastive as cm
-from pmv_tpu_torch.parallel import distributed
+from pmv_tpu_torch.parallel import distributed, mesh
 from pmv_tpu_torch.utils import checkpoint as cu
 from pmv_tpu_torch.utils import logging as pmv_logging
 from pmv_tpu_torch.utils import meters as meters_mod
@@ -56,16 +58,6 @@ from pmv_tpu_torch.utils.device import rank_and_world_size, resolve_device
 logger = pmv_logging.get_logger(__name__)
 
 SSL_MODELS = ("ContrastiveModel", "MaskMViT")
-
-
-def refuse_unported_ssl(cfg):
-    """Raise for the SSL runs the port does not have: any SSL model over
-    more than one process under "dp_sp"."""
-    if distributed.world_size_of(cfg) > 1 and cfg.TPU.SHARD_STRATEGY == "dp_sp":
-        raise NotImplementedError(
-            "SSL training under TPU.SHARD_STRATEGY dp_sp is not ported (queued in "
-            "ROADMAP.md): use dp or fsdp, or NUM_GPUS 1"
-        )
 
 
 def make_knn_eval(cfg, model, train_loader, device):
@@ -80,6 +72,7 @@ def make_knn_eval(cfg, model, train_loader, device):
     bank_labels = torch.as_tensor(np.asarray(labels), device=device)
     val_loader = loader_mod.construct_loader(cfg, "val")
     feature_step = ssl_steps.make_ssl_feature_step(cfg, model, device)
+    lay = mesh.layout(cfg)
 
     def knn_eval(cur_epoch):
         hits = torch.zeros((), dtype=torch.int64, device=device)
@@ -87,7 +80,7 @@ def make_knn_eval(cfg, model, train_loader, device):
         k = min(200, model.bank.shape[0])
         for batch, real in distributed.lockstep(val_loader):  # FSDP's gathers
             feats = feature_step(batch["frames"])
-            if not real:
+            if not real or lay.model != 0:
                 continue
             scores = cm.knn_predict(model.bank, bank_labels, feats, cfg.MODEL.NUM_CLASSES, k=k)
             target = torch.as_tensor(batch["labels"], device=device)
@@ -106,7 +99,6 @@ def train_ssl(cfg, device=None):
     """Train ``cfg``'s SSL model on ``device`` (CUDA by default; raises
     without a CUDA device unless ``device="cpu"``). Returns the state."""
     device = resolve_device(device)
-    refuse_unported_ssl(cfg)
     pmv_logging.setup_logging(cfg.OUTPUT_DIR)
     distributed.check_world(cfg)
     refuse_unported(cfg)

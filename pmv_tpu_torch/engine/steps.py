@@ -269,8 +269,10 @@ def easy_negatives(cfg, audio_mis, epoch):
     only the first max(int(EASY_NEG_RATIO n), 1) rows do, in a cycle among
     themselves, the rest keeping their own (hard negatives). Returns this
     rank's rows; in a multi-process job every rank's clips are gathered
-    first, since the roll crosses ranks."""
-    rank, world = rank_and_world_size()
+    first, since the roll crosses ranks (under dp_sp a data group's, whose
+    ranks hold every row once)."""
+    lay = mesh.layout(cfg)
+    rank, world = lay.data, lay.data_size
     audio_mis = torch.as_tensor(audio_mis)
     b = audio_mis.shape[0]
     n = b * world
@@ -278,7 +280,7 @@ def easy_negatives(cfg, audio_mis, epoch):
     idx = np.arange(n)
     idx[:sn] = np.arange(1, sn + 1) % sn
     if world > 1:
-        audio_mis = distributed.gather_rows(audio_mis).flatten(0, 1)
+        audio_mis = distributed.gather_rows(audio_mis, lay).flatten(0, 1)
     return audio_mis.index_select(0, torch.as_tensor(idx[rank * b:(rank + 1) * b],
                                                      device=audio_mis.device))
 
@@ -611,20 +613,22 @@ def _call(model, x, **kwargs):
     return model(x, **kwargs)
 
 
-def detection_loss(preds, labels, box_mask):
+def detection_loss(preds, labels, box_mask, lay=None):
     """The detection step's loss (`steps.py:350-355`): per box the mean over
     the classes of the binary cross-entropy of the float32 logits, summed
     over the valid boxes and divided by their count (at least 1). In a
-    multi-process job the count is the global batch's, and each rank's sum
-    is scaled by the world size: the ranks' mean, which DDP's averaged
-    gradient follows, is the global batch's loss."""
+    multi-process job the count is the global batch's, summed over the data
+    axis of ``lay`` (the world when None), and each rank's sum is scaled by
+    that axis's size: the ranks' mean, which DDP's averaged gradient
+    follows, is the global batch's loss (under dp_sp every rank of a model
+    group computes its rows' loss, M times over the world)."""
     per_box = F.binary_cross_entropy_with_logits(preds.float(), labels.float(),
                                                  reduction="none").mean(dim=-1)
     mask = box_mask.to(per_box.dtype)
     count = mask.sum().detach()
-    world = rank_and_world_size()[1]
+    world = distributed.data_axis(lay)[1]
     if world > 1:
-        count = distributed.all_reduce_sum(count)
+        count = distributed.all_reduce_sum(count, lay)
     return (per_box * mask).sum() * world / torch.clamp(count, min=1.0)
 
 
@@ -641,7 +645,10 @@ def make_detection_train_step(cfg, device=None, seed=0):
     False), as in the JAX package. Draws as ``make_train_step``'s: "dropout"
     and the preprocessing's. Returns "loss", "grad_norm", "top1_err" and
     "top5_err" (0, as the JAX step's) and "nan"; in a multi-process job the
-    global batch's (``detection_loss``)."""
+    global batch's (``detection_loss``). Under dp_sp the rows are a data
+    group's, each rank runs its frames of the clips (the boxes whole) inside
+    ``mesh.sequence_parallel``, and the RoI head's mean over T sums over
+    the model group."""
     device = resolve_device(device)
     preprocess = make_preprocess_fn(cfg, train=True, device=device)
     draw = make_draw_sampler(preprocess, seed, device)
@@ -659,19 +666,21 @@ def make_detection_train_step(cfg, device=None, seed=0):
         boxes = torch.as_tensor(batch["boxes"]).to(device, torch.float32, non_blocking=True)
         box_mask = torch.as_tensor(batch["box_mask"]).to(device, torch.bool, non_blocking=True)
         labels = torch.as_tensor(batch["labels"]).to(device, torch.float32, non_blocking=True)
-        rank, world = rank_and_world_size()
+        lay = mesh.layout(cfg)
+        rank, world = lay.data, lay.data_size
         b, m = boxes.shape[:2]
         shape = (b * world, *frames.shape[1:])
         draws = local_draws(sample_draws(model, shape, draws or {}, state.step, m),
                             rank * b, (rank + 1) * b, shape[0])
-        x = model_input(cfg, preprocess(frames, draws))
+        x = local_frames(preprocess(frames, draws), lay)
         kwargs = dict(boxes=boxes, box_mask=box_mask, head_dropout_mask=draws["dropout"])
-        with frozen_stats(model, cfg.MODEL.FROZEN_BN):
+        with frozen_stats(model, cfg.MODEL.FROZEN_BN), mesh.sequence_parallel(lay):
+            x = model_input(cfg, x)
             if state.wrapped is None:
                 preds = model(x, **kwargs)
             else:
                 preds = state.wrapped(_call, x, **kwargs)
-        loss = detection_loss(preds, labels, box_mask)
+        loss = detection_loss(preds, labels, box_mask, lay)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
         grad_norm = optim.global_norm(
@@ -697,7 +706,9 @@ def make_detection_eval_step(cfg, model, device=None):
     """eval_step(frames, boxes, box_mask) -> the boxes' sigmoid scores [B, M,
     NUM_CLASSES], 0 on padded boxes (the JAX package's ``det_step``,
     `test.py:95-105`); the inputs as ``make_detection_train_step``'s
-    batch's, moved to ``device``."""
+    batch's, moved to ``device``. Under dp_sp the ranks of a model group
+    take the same rows, each its frames of the clips, and return the same
+    scores."""
     device = resolve_device(device)
     preprocess = make_eval_preprocess_fn(cfg, device)
 
@@ -707,7 +718,10 @@ def make_detection_eval_step(cfg, model, device=None):
         frames = torch.as_tensor(frames).to(device, non_blocking=True)
         boxes = torch.as_tensor(boxes).to(device, torch.float32, non_blocking=True)
         box_mask = torch.as_tensor(box_mask).to(device, torch.bool, non_blocking=True)
-        return model(model_input(cfg, preprocess(frames)), boxes=boxes, box_mask=box_mask)
+        lay = mesh.layout(cfg)
+        with mesh.sequence_parallel(lay):
+            return model(model_input(cfg, local_frames(preprocess(frames), lay)),
+                         boxes=boxes, box_mask=box_mask)
 
     return eval_step
 
@@ -749,21 +763,40 @@ def make_eval_step(cfg, model, device=None):
 def make_feat_step(cfg, model, device=None):
     """feat_step(frames) -> pooled backbone features [B, C]
     (TEST.FEAT_EXTRACT, `steps.py:384-403`), as the JAX package pools them:
-    the mean of MViT's last tokens, the cls token included, or of
-    UniFormer's feature grid [B, T, H, W, C] over T, H and W."""
+    the mean of MViT's last tokens, the cls token included, or of a feature
+    grid [B, T, H, W, C] over T, H and W. Under dp_sp each rank of a model
+    group runs its frames of the clips and pools its planes' sum over the
+    model group (``pooled_features``): every rank returns the clips'
+    features."""
     device = resolve_device(device)
     preprocess = make_eval_preprocess_fn(cfg, device)
+    cls_tokens = 1 if getattr(model, "cls_on", False) else 0
 
     @torch.inference_mode()
     def feat_step(frames):
         model.eval()
         frames = torch.as_tensor(frames).to(device, non_blocking=True)
-        feats = model(model_input(cfg, preprocess(frames)), return_features=True)
-        if isinstance(feats, tuple):  # MViT's (tokens, thw)
-            feats = feats[0]
-        return feats.float().mean(dim=tuple(range(1, feats.dim() - 1)))
+        lay = mesh.layout(cfg)
+        with mesh.sequence_parallel(lay):
+            feats = model(model_input(cfg, local_frames(preprocess(frames), lay)),
+                          return_features=True)
+            if isinstance(feats, tuple):  # MViT's (tokens, thw)
+                feats = feats[0]
+            return pooled_features(feats.float(), cls_tokens)
 
     return feat_step
+
+
+def pooled_features(feats, cls_tokens=0):
+    """The mean of tokens [B, N, C] (``cls_tokens`` of them first, whole on
+    every rank) or of a grid [B, T, H, W, C] over T, H and W; inside
+    ``mesh.sequence_parallel`` ``feats`` holds a rank's planes, whose sums
+    add over the model group (``mesh.t_mean``)."""
+    if feats.dim() != 3 or not cls_tokens or mesh.active() is None:
+        return mesh.t_mean(feats, tuple(range(1, feats.dim() - 1)))
+    total = mesh.all_reduce_model(feats[:, cls_tokens:].sum(dim=1)) + feats[:, :cls_tokens].sum(
+        dim=1)
+    return total / ((feats.shape[1] - cls_tokens) * mesh.active().model_size + cls_tokens)
 
 
 def init_state(cfg, model, optimizer=None, wrapped=None):

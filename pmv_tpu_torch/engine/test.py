@@ -36,8 +36,11 @@ package's ``test``; there, rank 0 writes the stacks of its shard's batches.
 Detection gathers each step's scores, original boxes and metadata (and
 labels, for the groundtruth from the batches) of the valid boxes alike.
 Under TPU.SHARD_STRATEGY dp_sp the ranks of a model group score the same
-clips (``parallel/mesh.py``): only model rank 0 of each adds them to the
-gather, so that each clip is counted once.
+clips (``parallel/mesh.py``), each on its frames of them: only model rank 0
+of each adds them to the gather, so that each clip is counted once; so
+with detection's boxes (the JAX package's test places the frames by batch
+only, `pmv_tpu/engine/test.py:42`: the numbers are the same) and the
+extracted features. VIS_MASK runs every rank's model on whole clips.
 """
 
 import os
@@ -107,12 +110,14 @@ def add_batch_groundtruth(groundtruth, labels, ori_boxes, metadata, video_idx_to
             groundtruth[2][key].append(1.0)
 
 
-def perform_detection(loader, eval_step, meter, cur_epoch=None):
+def perform_detection(loader, eval_step, meter, cur_epoch=None, lay=None):
     """Run the detection ``eval_step`` (``steps.make_detection_eval_step``)
     over ``loader`` (batches of ``Ava``'s keys) into the ``AVAMeter``: each
     step's valid boxes' scores, original boxes and metadata, gathered from
-    every rank. Returns the groundtruth of the batches' own boxes and labels
-    where the meter has no GROUNDTRUTH_FILE, else None."""
+    every rank (under the sequence parallelism of ``lay``, a
+    ``mesh.Layout``, from model rank 0 of each model group, as
+    ``perform_test``). Returns the groundtruth of the batches' own boxes and
+    labels where the meter has no GROUNDTRUTH_FILE, else None."""
     from_batches = meter.full_groundtruth is None
     groundtruth = (defaultdict(list), defaultdict(list), defaultdict(list))
     meter.iter_tic()
@@ -120,7 +125,8 @@ def perform_detection(loader, eval_step, meter, cur_epoch=None):
         meter.data_toc()
         scores = eval_step(batch["frames"], batch["boxes"], batch["box_mask"])
         scores = scores.float().cpu().numpy()  # waits for the device
-        b_idx, m_idx = np.nonzero(np.asarray(batch["box_mask"], bool) & real)
+        counted = real and (lay is None or lay.model == 0)
+        b_idx, m_idx = np.nonzero(np.asarray(batch["box_mask"], bool) & counted)
         preds, ori, metadata, labels = distributed.gather_host([
             scores[b_idx, m_idx], np.asarray(batch["ori_boxes"], np.float32)[b_idx, m_idx],
             np.asarray(batch["metadata"])[b_idx],
@@ -143,7 +149,7 @@ def test_detection(cfg, model, device):
                                 video_idx_to_name=getattr(test_loader.dataset,
                                                           "_video_names", None))
     tic = time.perf_counter()
-    groundtruth = perform_detection(test_loader, eval_step, meter)
+    groundtruth = perform_detection(test_loader, eval_step, meter, lay=mesh.layout(cfg))
     logger.info("AVA test: %d keyframes in %.4fs", len(test_loader.dataset),
                 time.perf_counter() - tic)
     mean_ap = meter.finalize_metrics(log=False, groundtruth=groundtruth)
@@ -154,12 +160,14 @@ def test_detection(cfg, model, device):
 
 def extract_features(cfg, model, device):
     """TEST.FEAT_EXTRACT: pooled backbone features of every test clip to
-    ``OUTPUT_DIR/features.npz`` (rank 0 writes)."""
+    ``OUTPUT_DIR/features.npz`` (rank 0 writes; under dp_sp model rank 0's
+    of each model group are gathered, whose ranks pool the same clips)."""
     test_loader = loader_mod.construct_loader(cfg, "test")
     feat_step = steps.make_feat_step(cfg, model, device=device)
+    lay = mesh.layout(cfg)
     feats, indices = [], []
     for batch, real in distributed.lockstep(test_loader):
-        keep = slice(None) if real else slice(0)
+        keep = slice(None) if real and lay.model == 0 else slice(0)
         feat, index = distributed.gather_host(
             [feat_step(batch["frames"]).cpu().numpy()[keep], np.asarray(batch["index"])[keep]])
         feats.append(feat)
@@ -252,7 +260,7 @@ def test(cfg, device=None):
     device = resolve_device(device)
     pmv_logging.setup_logging(cfg.OUTPUT_DIR)
     distributed.check_world(cfg)
-    distributed.refuse_sequence_parallel(cfg)
+    distributed.check_sequence_parallel(cfg)
     np.random.seed(cfg.RNG_SEED)
     torch.manual_seed(cfg.RNG_SEED)
     logger.info("Test with config:")

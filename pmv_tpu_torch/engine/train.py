@@ -244,13 +244,14 @@ def eval_epoch(val_loader, eval_step, meter, cur_epoch, cfg):
     return stats
 
 
-def eval_detection_epoch(val_loader, eval_step, meter, cur_epoch):
+def eval_detection_epoch(val_loader, eval_step, meter, cur_epoch, lay=None):
     """One pass of the detection ``eval_step`` over ``val_loader`` into the
-    val ``AVAMeter`` (``test.perform_detection``); returns the epoch's
-    stats, its "map" among them."""
+    val ``AVAMeter`` (``test.perform_detection``, under the sequence
+    parallelism of ``lay`` model rank 0's boxes); returns the epoch's stats,
+    its "map" among them."""
     from pmv_tpu_torch.engine.test import perform_detection
 
-    groundtruth = perform_detection(val_loader, eval_step, meter, cur_epoch)
+    groundtruth = perform_detection(val_loader, eval_step, meter, cur_epoch, lay)
     stats = meter.log_epoch_stats(cur_epoch, groundtruth)
     meter.reset()
     return stats
@@ -271,7 +272,7 @@ def train(cfg, device=None):
     device = resolve_device(device)
     pmv_logging.setup_logging(cfg.OUTPUT_DIR)
     distributed.check_world(cfg)
-    distributed.refuse_sequence_parallel(cfg)
+    distributed.check_sequence_parallel(cfg)
     refuse_unported(cfg)
     np.random.seed(cfg.RNG_SEED)
     torch.manual_seed(cfg.RNG_SEED)
@@ -297,6 +298,9 @@ def train(cfg, device=None):
         """The long cycle of ``epoch``: its base shape in cfg and its
         BatchNorm type in the model. Whether the shape changed."""
         _, changed = multigrid.update_long_cycle(cfg, epoch)
+        distributed.check_sequence_parallel(
+            cfg, what=f"epoch {epoch}'s long cycle of {cfg.TRAIN.BATCH_SIZE} clips x "
+            f"{cfg.DATA.NUM_FRAMES} frames x crop {cfg.DATA.TRAIN_CROP_SIZE}: DATA.NUM_FRAMES")
         if changed and swap_norms(model, cfg):
             logger.info("Norms now %s (%d splits)", cfg.BN.NORM_TYPE, cfg.BN.NUM_SPLITS)
         return changed
@@ -370,7 +374,8 @@ def train(cfg, device=None):
                               multigrid.schedule if multigrid is not None else None):
             eval_tic = time.perf_counter()
             if detection:
-                stats = eval_detection_epoch(val_loader, eval_step, val_meter, cur_epoch)
+                stats = eval_detection_epoch(val_loader, eval_step, val_meter, cur_epoch,
+                                             mesh.layout(cfg))
             else:
                 stats = eval_epoch(val_loader, eval_step, val_meter, cur_epoch, cfg)
             logger.info("Eval of epoch %d takes %.4fs.", cur_epoch,

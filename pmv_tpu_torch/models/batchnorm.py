@@ -20,7 +20,12 @@ biased variance (float32) and its count go to every rank in one all-reduce
 with autograd (``parallel.distributed.gather_rows``), and combine as
 ``mean = sum n_i m_i / N``, ``var = sum n_i (v_i + (m_i - mean)^2) / N``.
 The backward all-reduces their gradients in turn. In a world of one no
-collective runs.
+collective runs. Under TPU.SHARD_STRATEGY dp_sp (``parallel/mesh.py``)
+the rows are a data group's: inside ``mesh.sequence_parallel`` every rank
+holds its planes of its rows, and the moments combine over the world;
+inside ``mesh.whole_rows`` (the contrastive views, whole on every rank of a
+model group) over the data group, whose ranks hold every row once
+(``_moments_axis``).
 
 ``nn.BatchNorm3d`` puts the channels at axis 1 and moves ``running_var``
 with the unbiased variance, and ``nn.SyncBatchNorm`` does the same, so
@@ -62,6 +67,7 @@ import functools
 import torch
 from torch import nn
 
+from pmv_tpu_torch.parallel import mesh
 from pmv_tpu_torch.parallel.distributed import gather_rows
 from pmv_tpu_torch.utils.device import rank_and_world_size
 
@@ -92,7 +98,8 @@ class BatchNorm(nn.Module):
         if self.training:
             var, mean = torch.var_mean(xf, dim=tuple(range(x.dim() - 1)), correction=0)
             if rank_and_world_size()[1] > 1:
-                mean, var = global_moments(mean, var, xf.numel() // xf.shape[-1])
+                mean, var = global_moments(mean, var, xf.numel() // xf.shape[-1],
+                                           _moments_axis()[2])
             self._track(mean, var)
         else:
             mean, var = self.running_mean.to(xf.dtype), self.running_var.to(xf.dtype)
@@ -117,7 +124,7 @@ class BatchNorm(nn.Module):
         if self.training:
             mean, var = split_moments(xf, s)  # [S, C] each
             self._track(mean.reshape(-1), var.reshape(-1))
-            rank, world = rank_and_world_size()
+            rank, world, _ = _moments_axis()
             b = x.shape[0]
             split = (torch.arange(b, device=x.device) + rank * b) // (b * world // s)
             shape = (b,) + (1,) * (x.dim() - 2) + (c,)
@@ -151,10 +158,27 @@ class BatchNorm(nn.Module):
         self.num_splits = num_splits
 
 
-def global_moments(mean, var, count):
+def _moments_axis():
+    """(this rank's index among the holders of the global batch's rows, their
+    count, the layout whose data group combines the moments: None for the
+    world). Under dp_sp the rows go by data index: inside
+    ``mesh.sequence_parallel`` the world combines them, each rank's planes
+    of its rows a share of the batch; inside ``mesh.whole_rows`` the data
+    group, whose ranks hold every row once."""
+    lay = mesh.active()
+    if lay is not None:
+        return lay.data, lay.data_size, None
+    lay = mesh.rows()
+    if lay is not None:
+        return lay.data, lay.data_size, lay
+    return (*rank_and_world_size(), None)
+
+
+def global_moments(mean, var, count, lay=None):
     """The mean and biased variance over every rank's rows, from this
-    rank's (over ``count`` values a channel)."""
-    stats = gather_rows(torch.stack([mean, var, torch.full_like(mean, count)]))
+    rank's (over ``count`` values a channel), combined over the data axis
+    of ``lay`` (the world when None)."""
+    stats = gather_rows(torch.stack([mean, var, torch.full_like(mean, count)]), lay)
     means, variances, counts = stats.unbind(1)  # each [W, C]
     total = counts.sum(0)
     g_mean = (counts * means).sum(0) / total
@@ -165,15 +189,16 @@ def global_moments(mean, var, count):
 def split_moments(xf, num_splits):
     """The mean and biased variance [S, C] of each of ``num_splits``
     contiguous splits of the global batch, from this rank's rows
-    [r b, (r + 1) b) of it. In a multi-process job each rank takes the
-    moments of its rows of each split (none where it holds no row of it),
-    and they combine over the ranks as ``global_moments``'s."""
-    rank, world = rank_and_world_size()
+    [r b, (r + 1) b) of it (r its data index under dp_sp). In a
+    multi-process job each rank takes the moments of its rows of each split
+    (none where it holds no row of it), and they combine over the ranks as
+    ``global_moments``'s (``_moments_axis``)."""
+    rank, world, lay = _moments_axis()
     b, c = xf.shape[0], xf.shape[-1]
     if b * world % num_splits:
         raise ValueError(f"batch {b * world} not divisible by num_splits {num_splits}")
     n = b * world // num_splits  # rows a split
-    if world == 1:
+    if rank_and_world_size()[1] == 1:
         var, mean = torch.var_mean(xf.reshape(num_splits, -1, c), dim=1, correction=0)
         return mean, var
     per_row = xf[0].numel() // c
@@ -188,7 +213,7 @@ def split_moments(xf, num_splits):
         variances.append(var)
         counts.append(xf.new_full((c,), max(hi - lo, 0) * per_row))
     stats = gather_rows(torch.stack([torch.stack(means), torch.stack(variances),
-                                     torch.stack(counts)]))  # [W, 3, S, C]
+                                     torch.stack(counts)]), lay)  # [W, 3, S, C]
     means, variances, counts = stats.unbind(1)
     total = counts.sum(0)
     g_mean = (counts * means).sum(0) / total

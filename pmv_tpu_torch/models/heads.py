@@ -85,7 +85,9 @@ class ResNetRoIHead(nn.Module):
     equal maxima, as JAX's is (bins over a flat region tie). ``inputs`` [B, T, H, W, C] per pathway, ``boxes`` [B, M, 4] in the
     clip's pixels, ``box_mask`` [B, M] -> [B, M, num_classes]. In training
     the dropout applies ``dropout_mask`` [B x M, sum(dim_in)], drawn with
-    ``self.dropout.sample``."""
+    ``self.dropout.sample``. Under sequence parallelism a pathway's mean
+    over T is the model group's (``mesh.t_mean``), and every rank pools the
+    whole boxes from it."""
 
     def __init__(self, dim_in, num_classes, resolution=7, spatial_scale_factor=16,
                  dropout_rate=0.0, act_func="sigmoid", aligned=True):
@@ -103,7 +105,7 @@ class ResNetRoIHead(nn.Module):
         flat = boxes.reshape(b * m, 4)
         batch_idx = torch.arange(b, device=boxes.device).repeat_interleave(m)
         pooled = [
-            torch.amax(roi_align(x.mean(dim=1), flat, batch_idx,
+            torch.amax(roi_align(mesh.t_mean(x, (1,)), flat, batch_idx,
                                  (self.resolution, self.resolution), self.spatial_scale,
                                  aligned=self.aligned), dim=(1, 2))
             for x in inputs

@@ -24,6 +24,15 @@ HOG's orientation bins are a decision, like a ReLU: a pixel whose angle
 lies within a rounding of a bin edge takes either bin. ``hog_bins`` gives
 every pixel's bin, and the forward and ``hog_targets`` take bins to hold
 (``hog_bins=``), so that two sides can be compared with one side's bins.
+
+Inside ``parallel.mesh.sequence_parallel`` (TPU.SHARD_STRATEGY dp_sp) the
+input is a rank's frames of the clip, the mask its token planes, and every
+output its planes: the patch grid is the rank's (its frames, a multiple of
+the patch's T stride), HOG's gradients are spatial and take no halo, the
+backbone runs MViT's sliced path, a T resize of the backbone's tokens
+gathers the clip's planes first, and the decoder's position table is cut
+to the rank's planes while its blocks gather K and V over T, as the
+backbone's do.
 """
 
 import math
@@ -36,6 +45,7 @@ from pmv_tpu_torch.models.attention import MultiScaleBlock
 from pmv_tpu_torch.models.build import MODEL_REGISTRY
 from pmv_tpu_torch.models.common import LayerNorm, Linear
 from pmv_tpu_torch.models.mvit import MViT, geometry
+from pmv_tpu_torch.parallel import mesh
 
 
 def _gradients(frames):
@@ -170,9 +180,16 @@ class MaskMViT(nn.Module):
 
     def token_grid(self, shape):
         """(t_tok, h_tok, w_tok): the patch grid of an input of ``shape``
-        [B, T, H, W, C]."""
+        [B, T, H, W, C]; inside ``mesh.sequence_parallel`` the grid of a
+        rank's T frames, which the patch's T stride must divide."""
         pt, ph, pw = self.patch
-        return max(self.num_frames // pt, 1), shape[2] // ph, shape[3] // pw
+        if mesh.active() is None:
+            return max(self.num_frames // pt, 1), shape[2] // ph, shape[3] // pw
+        if shape[1] % pt:
+            raise ValueError(f"a rank's {shape[1]} frames are not a multiple of the patch's T "
+                             f"stride {pt}: give each rank a multiple of it (DATA.NUM_FRAMES / "
+                             "the model axis)")
+        return shape[1] // pt, shape[2] // ph, shape[3] // pw
 
     def sample_mask(self, shape, generator, device=None):
         """The model's own random mask for an input of ``shape``: [B, n_tok]
@@ -234,16 +251,23 @@ class MaskMViT(nn.Module):
         feats, thw = self.backbone(x, return_features=True, drop_path_masks=drop_path_masks)
         if self.cls_on:
             feats = feats[:, 1:]
+        lay = mesh.active()
+        m = 0 if lay is None else lay.model
         if tuple(thw) != (t_tok, h_tok, w_tok):
-            grid = resize_nearest(feats.reshape(b, *thw, -1), (t_tok, h_tok, w_tok))
-            feats = grid.reshape(b, n_tok, -1)
+            grid = feats.reshape(b, *thw, -1)
+            if lay is not None and thw[0] != t_tok:  # nearest over the clip's planes
+                grid = resize_nearest(mesh.gather_t(grid),
+                                      (t_tok * lay.model_size, h_tok, w_tok))
+                grid = grid[:, m * t_tok:(m + 1) * t_tok]
+            feats = resize_nearest(grid, (t_tok, h_tok, w_tok)).reshape(b, n_tok, -1)
         if self.decoder_depth > 0:
             feats = self.decoder_embed(feats)
-            if self.decoder_sep_pos:
+            if self.decoder_sep_pos:  # the rank's planes of the temporal table
+                temporal = self.decoder_pos_embed_temporal[:, m * t_tok:(m + 1) * t_tok]
                 pos = (self.decoder_pos_embed_spatial.repeat(1, t_tok, 1)
-                       + self.decoder_pos_embed_temporal.repeat_interleave(h_tok * w_tok, dim=1))
+                       + temporal.repeat_interleave(h_tok * w_tok, dim=1))
             else:
-                pos = self.decoder_pos_embed
+                pos = self.decoder_pos_embed[:, m * n_tok:(m + 1) * n_tok]
             feats = feats + pos.to(feats.dtype)
             thw_dec = (t_tok, h_tok, w_tok)
             for block in self.decoder_blocks:

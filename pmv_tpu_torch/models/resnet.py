@@ -31,7 +31,9 @@ fusions ``s1_fuse`` ... ``s4_fuse``, then ``head``.
 - With DETECTION.ENABLE (the AVA recipes) the head is ``ResNetRoIHead``
   over the last stage's grid of each pathway, and the forward takes the
   clip's ``boxes`` [B, M, 4] and ``box_mask`` [B, M] and returns [B, M,
-  NUM_CLASSES] (`pmv_tpu/models/resnet.py:121-133,261-273`).
+  NUM_CLASSES] (`pmv_tpu/models/resnet.py:121-133,261-273`); under
+  sequence parallelism each pathway's mean over T sums over the model
+  group (``heads.ResNetRoIHead``), and the boxes are whole on every rank.
 - Conv-only but for the non-local blocks, whose affinity runs over every
   position, so the transposed input gives the transposed output:
   ``hw_switch`` changes nothing.

@@ -27,8 +27,9 @@ convs (``models/resnet_helper.py``).
   threads, shared memory) by one rule, worked out here so that the CPU
   tests can check them.
 - ``MVIT_POOL_SHAPES``, ``MASKFEAT_POOL_SHAPES``, ``MVIT_RECT_POOL_SHAPES``,
-  ``MVIT_PORTRAIT_POOL_SHAPES``, ``MVIT_SP_POOL_SHAPES`` and
-  ``MVIT_SP_SQUARE_POOL_SHAPES`` (a rank's under dp_sp),
+  ``MVIT_PORTRAIT_POOL_SHAPES``, ``MVIT_SP_POOL_SHAPES``,
+  ``MVIT_SP_SQUARE_POOL_SHAPES`` and ``MASKFEAT_SP_POOL_SHAPES`` (a
+  rank's under dp_sp),
   ``MVIT_RECT_TRAIN_POOL_SHAPES``, the ``UNIFORMER_*_DPE_SHAPES``, the
   ``X3D_*_DW_SHAPES``, the ``CSN_*DW_SHAPES``, ``ODD_SHAPES`` and
   ``PADDED_ODD_SHAPES``: the shapes the main paths give the kernels
@@ -128,6 +129,14 @@ MVIT_SP_POOL_SHAPES = tuple(
 )
 MVIT_SP_SQUARE_POOL_SHAPES = tuple(
     ((b, t // 2 + 2, h, w, c), n) for (b, t, h, w, c), n in MVIT_POOL_SHAPES
+)
+# MaskFeat PT's q-pools (MASKFEAT_POOL_SHAPES, 16 frames of 224^2) under
+# dp_sp, per rank, as MVIT_SP_POOL_SHAPES: 4 of the 8 token planes and the
+# halo plane either side, at SP_BATCHES (a dp_sp train step's 2 clips, and
+# run_net's 4 when 2 processes take 2 videos each); C of 96, 192, 384, 768.
+MASKFEAT_SP_POOL_SHAPES = tuple(
+    ((b, t // 2 + 2, h, w, c), n) for b in SP_BATCHES
+    for (_, t, h, w, c), n in MASKFEAT_POOL_SHAPES
 )
 # The PMV recipe's train step through run_net takes TRAIN.BATCH_SIZE 8 x
 # AUG.NUM_SAMPLE 2 = 16 clips (``multiple_samples_collate``): the rect grids,
@@ -504,8 +513,8 @@ def record_shapes():
     _shapes.append(shapes)
     try:
         yield shapes
-    finally:
-        _shapes.remove(shapes)
+    finally:  # by identity: another block's list may be equal to this one
+        _shapes[:] = [s for s in _shapes if s is not shapes]
 
 
 def _note(kind, x):

@@ -38,13 +38,18 @@ both give dp's numbers; the SSL models' momentum encoder is laid out as
 its online parameters are (``ContrastiveModel.sharded_buffers``), and SwAV's
 prototypes stay whole, as the JAX package leaves a leaf of fewer than
 65,536 elements replicated. "dp_sp" lays the ranks out as a (data, model)
-grid and cuts every video activation of a classification model
-(``SEQUENCE_PARALLEL_MODELS``) in T over the model axis
-(``parallel/mesh.py``); the parameters are replicated and wrapped in
+grid and cuts every rank-5 video activation in T over the model axis
+(``parallel/mesh.py``), as the JAX package's ``shard_batch`` places every
+rank-5 tensor: the classification models', MaskMViT's, detection's and
+feature extraction's; the contrastive models' views [B, V, T, H, W, C],
+masks, boxes and indices stay whole on every rank of a model group, as
+there. The parameters are replicated and wrapped in
 ``DistributedDataParallel`` over the whole world. Under it the rows of the
 global batch are split over a data group as over the world under dp
-(``partner_rows`` and ``gather_rows`` take a layout for that), and the SSL
-models raise NotImplementedError.
+(``partner_rows``, ``gather_rows``, ``all_reduce_sum`` and
+``all_reduce_mean`` take a layout for that): every sum, gather and count
+over the batch runs over the data group, since the world holds each row
+once a model index.
 """
 
 import contextlib
@@ -160,18 +165,20 @@ def _run_process(local_rank, cfg, init_method, func, device_type):
 # ----------------------------------------------------------------- collectives
 
 
-def all_reduce_sum(t):
-    """The sum of ``t`` over the ranks (``t`` itself in a world of one)."""
-    if rank_and_world_size()[1] == 1:
+def all_reduce_sum(t, lay=None):
+    """The sum of ``t`` over the data axis of ``lay`` (the ranks when None,
+    or without a model axis); ``t`` itself on an axis of one."""
+    _, world, group = data_axis(lay)
+    if world == 1:
         return t
     t = t.clone()
-    dist.all_reduce(t)
+    dist.all_reduce(t, group=group)
     return t
 
 
-def all_reduce_mean(t):
-    """The mean of ``t`` over the ranks (``t`` itself in a world of one)."""
-    return all_reduce_sum(t) / rank_and_world_size()[1]
+def all_reduce_mean(t, lay=None):
+    """The mean of ``t`` over the data axis of ``lay`` (``all_reduce_sum``)."""
+    return all_reduce_sum(t, lay) / data_axis(lay)[1]
 
 
 def any_across_ranks(flag):
@@ -184,7 +191,7 @@ def any_across_ranks(flag):
     return bool(t.item())
 
 
-def _data_axis(lay):
+def data_axis(lay):
     """(this rank's index, the size, the group) of the data axis of ``lay``:
     the world under a layout without a model axis (or none given)."""
     if lay is None or not lay.sequence_parallel:
@@ -198,7 +205,7 @@ def gather_rows(t, lay=None):
     is the sum of every rank's gradients of it. An all-reduce of zeros
     beside this rank's slot, so that it also runs over gloo on CUDA tensors;
     adding zeros changes no value."""
-    rank, world, group = _data_axis(lay)
+    rank, world, group = data_axis(lay)
     if world == 1:
         return t[None]
     buf = torch.cat([t.new_zeros((rank,) + t.shape), t[None],
@@ -210,7 +217,7 @@ def partner_rows(t, lay=None):
     """The ``t`` of data index D - 1 - d on data index d (of the same shape;
     the world's ranks when ``lay`` has no model axis): the rows that the
     global batch reversed puts here are these rows, reversed."""
-    rank, world, _ = _data_axis(lay)
+    rank, world, _ = data_axis(lay)
     partner = world - 1 - rank
     if partner == rank:
         return t
@@ -293,35 +300,32 @@ def block_types():
     return (MultiScaleBlock, CBlock, SABlock, SplitSABlock, ResBlock, Nonlocal, ProjectionMLP)
 
 
-# The models that run under dp_sp (by MODEL.MODEL_NAME, and their classes'
-# names): every classification model, MViT's, UniFormer, X3D, the ResNet
-# family (C2D, I3D, Slow, non-local blocks), SlowFast, CSN, R(2+1)D and
-# AVSlowFast; not the SSL models (ContrastiveModel, MaskMViT).
-SEQUENCE_PARALLEL_MODELS = ("MViT", "Uniformer", "Uniformerframe", "X3D", "ResNet",
-                            "ResNetModel", "SlowFast", "CSN", "PTVCSN", "R2Plus1D",
-                            "PTVR2plus1D", "SeparatedConvNet", "AVSlowFast")
-
-
-def _refuse_model(name):
-    if name not in SEQUENCE_PARALLEL_MODELS:
-        raise NotImplementedError(
-            f"TPU.SHARD_STRATEGY dp_sp takes the classification models; {name} under "
-            "dp_sp is queued in ROADMAP.md")
-
-
-def refuse_sequence_parallel(cfg):
-    """Raise for what a multi-process dp_sp job of ``cfg`` asks for and the
-    port does not run under it: an SSL model (``SEQUENCE_PARALLEL_MODELS``
-    lists the others), detection, feature extraction, multigrid."""
-    if cfg.TPU.SHARD_STRATEGY != "dp_sp" or world_size_of(cfg) == 1:
+def check_sequence_parallel(cfg, frames=None, what="DATA.NUM_FRAMES"):
+    """Raise ValueError where a dp_sp job of ``cfg`` over several processes
+    cannot cut a clip of ``frames`` (DATA.NUM_FRAMES by default; ``what``
+    names them) over its model axis: the frames must split evenly over it;
+    for SlowFast and AVSlowFast SLOWFAST.ALPHA must divide a rank's frames
+    (``engine/steps.py::slow_frames``), for the MViT family (a MaskMViT, a
+    contrastive MViT) the patch's T stride. A model axis under another
+    strategy raises NotImplementedError (``mesh.model_size``)."""
+    world = world_size_of(cfg)
+    if world == 1:
         return
-    _refuse_model(cfg.MODEL.MODEL_NAME)
-    asked = [name for name, on in (
-        ("DETECTION.ENABLE", cfg.DETECTION.ENABLE), ("TEST.FEAT_EXTRACT", cfg.TEST.FEAT_EXTRACT),
-        ("MULTIGRID", cfg.MULTIGRID.LONG_CYCLE or cfg.MULTIGRID.SHORT_CYCLE)) if on]
-    if asked:
-        raise NotImplementedError(f"{', '.join(asked)} under TPU.SHARD_STRATEGY dp_sp: "
-                                  "queued in ROADMAP.md")
+    size = mesh.model_size(cfg, world)
+    if size == 1:
+        return
+    frames = cfg.DATA.NUM_FRAMES if frames is None else frames
+    if cfg.MODEL.ARCH in ("slowfast", "avslowfast"):
+        multiple, name = cfg.SLOWFAST.ALPHA, "SLOWFAST.ALPHA"
+    elif cfg.MODEL.ARCH in ("mvit", "maskmvit") and len(cfg.MVIT.PATCH_STRIDE) == 3:
+        multiple, name = cfg.MVIT.PATCH_STRIDE[0], "the T stride of MVIT.PATCH_STRIDE"
+    else:
+        multiple, name = 1, ""
+    if frames % size or frames // size % multiple:
+        raise ValueError(
+            f"{what} {frames} under TPU.SHARD_STRATEGY dp_sp: a rank takes {frames} / "
+            f"{size} frames of a clip, which must be a whole number"
+            + (f" and a multiple of {name} {multiple}" if multiple > 1 else ""))
 
 
 def wrap_model(model, strategy, device):
@@ -333,17 +337,12 @@ def wrap_model(model, strategy, device):
     ``replicated_parameters()``, which stay whole on every rank
     (``average_replicated_grads`` averages their gradients), and
     ``sharded_buffers()``, (buffer name, parameter) pairs, each buffer then
-    laid out as its parameter's shards are. Under "dp_sp" (a model of
-    ``SEQUENCE_PARALLEL_MODELS``; the SSL models and a detection model
-    raise) as under "dp", over the whole world, since the parameters are
-    replicated over the grid. ``model`` stays the module that holds the
-    parameters (FSDP's are sharded ``DTensor``s); its parameter and buffer
-    names do not change."""
+    laid out as its parameter's shards are. Under "dp_sp" (any model) as
+    under "dp", over the whole world, since the parameters are replicated
+    over the grid. ``model`` stays the module that holds the parameters
+    (FSDP's are sharded ``DTensor``s); its parameter and buffer names do not
+    change."""
     if strategy == "dp_sp":
-        _refuse_model(type(model).__name__)
-        if getattr(model, "detection", False):
-            raise NotImplementedError("DETECTION.ENABLE under TPU.SHARD_STRATEGY dp_sp: "
-                                      "queued in ROADMAP.md")
         strategy = "dp"
     if strategy == "dp":
         return nn.parallel.DistributedDataParallel(

@@ -35,7 +35,15 @@ collectives themselves:
   before a rank takes its planes of it; BatchNorm's statistics, over every
   rank's (rows, planes), are the global batch's already
   (``models/batchnorm.py``), and over rows that every rank of a model
-  group holds whole (AVSlowFast's audio pathway) equal to one copy's.
+  group holds whole (AVSlowFast's audio pathway) equal to one copy's;
+  MaskMViT's mask and HOG targets are the rank's token planes, the RoI
+  head's and the extracted features' means over T sum over the model
+  group.
+- A tensor that is not a rank-5 video (the contrastive models' views
+  [B, V, T, H, W, C], masks, boxes, indices) is whole on every rank of a
+  model group, as the JAX package's ``shard_batch`` places it: the sums
+  and gathers over the batch run over the data group, and BatchNorm's
+  moments too, inside ``whole_rows(layout)`` (the contrastive step).
 - The collectives are ``torch.autograd.Function``s built from
   ``all_reduce`` alone, each rank adding its part to a buffer of zeros (so
   that they also run over gloo on CUDA tensors, two ranks sharing a card).
@@ -64,6 +72,7 @@ DEFAULT_MODEL_SIZE = 2  # create_mesh's "model" axis under dp_sp
 
 _groups = {}  # model size -> {"model", "data", "partner"}: this rank's groups
 _active = None  # the Layout of the forward under way, or None
+_rows = None  # the Layout of the whole_rows forward under way, or None
 _logged_fallback = []
 traffic = {"halo": 0, "gather": 0, "reduce": 0}
 
@@ -204,6 +213,28 @@ def sequence_parallel(lay):
 def active():
     """The layout of the sequence-parallel forward under way, or None."""
     return _active
+
+
+@contextlib.contextmanager
+def whole_rows(lay):
+    """Run the forwards within on rows that every rank of a model group of
+    ``lay`` holds whole, not cut in T (the contrastive views): a sum over
+    the batch inside them (BatchNorm's moments) runs over the data group
+    (``rows``). Nothing changes for a layout without a model axis."""
+    global _rows
+    if not lay.sequence_parallel:
+        yield
+        return
+    previous, _rows = _rows, lay
+    try:
+        yield
+    finally:
+        _rows = previous
+
+
+def rows():
+    """The layout of the ``whole_rows`` forward under way, or None."""
+    return _rows
 
 
 def _required():

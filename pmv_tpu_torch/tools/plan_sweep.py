@@ -1,12 +1,13 @@
 """Check the depthwise kernels' launch-plan rule against other plans on one
 CUDA device.
 
-    python -m pmv_tpu_torch.tools.plan_sweep [--iters N]
+    python -m pmv_tpu_torch.tools.plan_sweep [--iters N] [--grids NAME ...]
 
 For each MViTv2-S 16x4 pool shape at batch 8 (``ops.depthwise
 .MVIT_POOL_SHAPES``, which hold MaskFeat pre-training's too:
 ``MASKFEAT_POOL_SHAPES``; and a rank's under dp_sp, on 4 + 2 halo planes:
-``MVIT_SP_POOL_SHAPES`` and ``MVIT_SP_SQUARE_POOL_SHAPES``), UniFormer-S's DPE
+``MVIT_SP_POOL_SHAPES``, ``MVIT_SP_SQUARE_POOL_SHAPES`` and MaskFeat PT's
+``MASKFEAT_SP_POOL_SHAPES``), UniFormer-S's DPE
 convs under dp_sp (``UNIFORMER_SP_DPE_SHAPES``,
 ``UNIFORMER_SP_TEST_DPE_SHAPES``), X3D-M's channelwise convs under dp_sp on
 8 + 2 planes (``X3D_SP_DW_SHAPES``, ``X3D_SP_TEST_DW_SHAPES``; C = 54 and 108
@@ -19,7 +20,9 @@ the kernel's chunks, 1, 2 or 4 ranges of T and (wgrad) 1, 2 or 4 W segments runs
 once against the plain version (it must agree, as in chip_smoke.py), then
 is timed warm (median of ``--iters`` launches by CUDA events). Prints, per
 case, the rule's plan (``plan_forward`` / ``plan_wgrad``) and the three
-fastest, then the card's name and power limit.
+fastest, then the card's name and power limit. ``--grids`` sweeps only the
+named sets of shapes (``GRIDS``: the names above without ``_SHAPES``, in
+lower case, e.g. ``maskfeat_sp_pool``).
 """
 
 import argparse
@@ -52,19 +55,29 @@ def describe(plan):
             "threads": plan.threads, "smem": plan.smem_bytes, "blocks": plan.blocks}
 
 
+# The sets of shapes swept, by name: their names in ops/depthwise.py.
+GRIDS = {name.lower().removesuffix("_shapes"): name for name in (
+    "MVIT_POOL_SHAPES", "MVIT_SP_POOL_SHAPES", "MVIT_SP_SQUARE_POOL_SHAPES",
+    "MASKFEAT_SP_POOL_SHAPES", "UNIFORMER_SP_DPE_SHAPES", "UNIFORMER_SP_TEST_DPE_SHAPES",
+    "X3D_SP_DW_SHAPES", "X3D_SP_TEST_DW_SHAPES", "CSN_SP_DW_SHAPES", "CSN_DW_SHAPES",
+    "CSN_TEST_DW_SHAPES")}
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--iters", type=int, default=10)
+    parser.add_argument("--grids", nargs="+", metavar="NAME",
+                        help="sweep only these sets of shapes (default: all of GRIDS)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("plan_sweep: no CUDA device", file=sys.stderr)
         return 1
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for shape, _ in (dw.MVIT_POOL_SHAPES + dw.MVIT_SP_POOL_SHAPES
-                     + dw.MVIT_SP_SQUARE_POOL_SHAPES + dw.UNIFORMER_SP_DPE_SHAPES
-                     + dw.UNIFORMER_SP_TEST_DPE_SHAPES + dw.X3D_SP_DW_SHAPES
-                     + dw.X3D_SP_TEST_DW_SHAPES + dw.CSN_SP_DW_SHAPES
-                     + dw.CSN_DW_SHAPES + dw.CSN_TEST_DW_SHAPES):
+    names = args.grids or list(GRIDS)
+    unknown = sorted(set(names) - set(GRIDS))
+    if unknown:
+        parser.error(f"unknown grids {unknown}: choose from {list(GRIDS)}")
+    for shape, _ in [case for name in names for case in getattr(dw, GRIDS[name])]:
         # The kernels' C: X3D's 54 and 108 as the wrappers pad them.
         shape = (*shape[:-1], shape[-1] + -shape[-1] % dw.CHANNEL_MULTIPLE)
         for dtype in (torch.bfloat16, torch.float32):

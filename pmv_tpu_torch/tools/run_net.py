@@ -21,8 +21,10 @@ TPU.SHARD_STRATEGY "dp" or "fsdp". Under "dp_sp" (temporal sequence
 parallelism, ``parallel/mesh.py``) the NUM_GPUS x NUM_SHARDS processes form
 a (data, model) grid with a model axis of 2 (TPU.MESH_SHAPE's where it is
 set), whose model groups each hold the same clips and cut them in T; it
-takes every classification model; SSL, detection, feature extraction and
-multigrid under "dp_sp" are not ported and raise NotImplementedError.
+takes every task: the classification models, MaskFeat and the contrastive
+models, AVA detection, feature extraction and multigrid (``check``
+refuses, before any process starts, a clip whose frames, or a multigrid
+long cycle's, the model axis cannot cut).
 After train and test, with TENSORBOARD.ENABLE and MODEL_VIS or
 WRONG_PRED_VIS, ``tools/visualization.py::visualize`` writes the weight
 histograms, Grad-CAM's predictions, the input and misclassified videos and
@@ -86,6 +88,22 @@ def run(cfg, device):
             demo(cfg, device=device)
 
 
+def check(cfg):
+    """Raise before any process starts where the job of ``cfg`` cannot run
+    its layout: under dp_sp, frames that do not split over the model axis,
+    at DATA.NUM_FRAMES and at each multigrid long cycle's
+    (``distributed.check_sequence_parallel``)."""
+    distributed.check_sequence_parallel(cfg)
+    if cfg.MULTIGRID.LONG_CYCLE and cfg.TRAIN.ENABLE:
+        from pmv_tpu_torch.utils.multigrid import MultigridSchedule
+
+        schedule = MultigridSchedule()
+        schedule.init_multigrid(cfg.clone())
+        for _, (_, frames, crop), end in schedule.schedule:
+            distributed.check_sequence_parallel(
+                cfg, frames, f"the long cycle's frames (crop {crop}, until epoch {end})")
+
+
 def main(argv=None):
     args = parse_args(argv)
     if args.cfg_files is None:  # the parser printed its help
@@ -93,10 +111,7 @@ def main(argv=None):
     device = resolve_device(args.device)
     for path in args.cfg_files:
         cfg = assert_and_infer_cfg(load_config(args, path))
-        if cfg.MODEL.MODEL_NAME in ssl_train.SSL_MODELS:  # before any process starts
-            ssl_train.refuse_unported_ssl(cfg)
-        else:
-            distributed.refuse_sequence_parallel(cfg)
+        check(cfg)
         distributed.launch_job(cfg, args.init_method, run, device)
     return 0
 

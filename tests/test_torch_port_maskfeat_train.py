@@ -50,6 +50,7 @@ from pmv_tpu_torch.models import build_model
 from pmv_tpu_torch.models import optimizer as optim
 from pmv_tpu_torch.models.masked import masked_loss
 from pmv_tpu_torch.native import binding
+from pmv_tpu_torch.parallel import mesh
 from pmv_tpu_torch.tools import run_net
 from pmv_tpu_torch.utils import checkpoint as cu
 from pmv_tpu_torch.utils.weights import state_dict_from_jax
@@ -343,23 +344,37 @@ def test_vis_mask_writes_its_comparison_stacks(tmp_path):
     assert (masked_plane == 0).all(axis=(2, 4, 5)).any()  # masked patches are blank
 
 
-SSL_REFUSALS = {  # case -> (config, opts)
+SSL_REFUSALS = {  # case -> (config, opts, whether run_net refuses it)
     # A contrastive model on MaskMViT's arch: no such SSL backbone (nor in JAX).
-    "contrastive": (TINY_PT, ("MODEL.MODEL_NAME", "ContrastiveModel")),
-    # SSL over several processes trains under dp or fsdp; dp_sp is not ported.
+    "contrastive": (TINY_PT, ("MODEL.MODEL_NAME", "ContrastiveModel"), True),
+    # SSL over several processes under dp_sp: the contrastive yaml's 8
+    # processes (4 x 2), the tiny MaskFeat's 2 (1 x 2).
     "contrastive_yaml": (str(ROOT / "configs" / "contrastive_ssl" / "MoCo_SlowR50_8x8.yaml"),
-                         ("TPU.SHARD_STRATEGY", "dp_sp")),
-    "two_processes": (TINY_PT, ("NUM_GPUS", "2", "TPU.SHARD_STRATEGY", "dp_sp")),
+                         ("TPU.SHARD_STRATEGY", "dp_sp"), False),
+    "two_processes": (TINY_PT, ("NUM_GPUS", "2", "TPU.SHARD_STRATEGY", "dp_sp"), False),
 }
 
 
 @pytest.mark.parametrize("case", sorted(SSL_REFUSALS))
 def test_unported_ssl_runs_raise(tmp_path, case):
-    path, opts = SSL_REFUSALS[case]
-    with pytest.raises(NotImplementedError):
-        run_net.main(["--cfg", path, "--device", "cpu", "--opts", "OUTPUT_DIR", str(tmp_path),
-                      *opts])
-    assert not cu.has_checkpoint(str(tmp_path), "ssl")
+    """A contrastive model on MaskMViT's arch raises NotImplementedError and
+    writes no checkpoint; SSL under dp_sp, refused before, passes
+    ``run_net.check`` on its (data, model) grid
+    (tests/test_torch_port_sequence_parallel_tasks.py runs it)."""
+    path, opts, refused = SSL_REFUSALS[case]
+    if refused:
+        with pytest.raises(NotImplementedError):
+            run_net.main(["--cfg", path, "--device", "cpu", "--opts", "OUTPUT_DIR",
+                          str(tmp_path), *opts])
+        assert not cu.has_checkpoint(str(tmp_path), "ssl")
+        return
+    cfg = get_cfg()
+    cfg.merge_from_file(path)
+    cfg.merge_from_list(list(opts))
+    run_net.check(cfg)
+    world = cfg.NUM_GPUS * cfg.NUM_SHARDS
+    assert [mesh.layout_of(cfg, r, world) for r in (0, world - 1)] == [
+        mesh.Layout(0, world // 2, 0, 2), mesh.Layout(world // 2 - 1, world // 2, 1, 2)]
 
 
 def _knn_epochs(log):

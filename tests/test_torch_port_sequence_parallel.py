@@ -12,11 +12,12 @@
 - The layout: the port's rank grid is the device grid of the JAX package's
   ``create_mesh`` for 2, 4, 6 and 8 processes (and TPU.MESH_SHAPE's), and
   an odd world falls back to dp as ``create_mesh`` does.
-- The refusals: an SSL model, detection and multigrid under dp_sp raise
-  NotImplementedError naming ROADMAP.md before ``run_net`` starts a
-  process, and the SSL and detection models in ``wrap_model``; a rank's
-  frames that the patch conv's T stride does not divide raise ValueError.
-  UniFormer and Uniformerframe pass them.
+- Every task passes dp_sp's checks: an SSL model, detection and
+  multigrid pass ``run_net.check`` before it starts a process, and
+  ``wrap_model`` wraps them in DDP; a rank's frames that the patch conv's
+  T stride does not divide raise ValueError. UniFormer and Uniformerframe
+  pass them too (tests/test_torch_port_sequence_parallel_tasks.py runs
+  the tasks).
 - 4 ranks, a grid of data 2 x model 2, one spawn: the data groups' rows,
   MixUp's partner rows across them, and one train step of MViT and one of
   UniFormer (BatchNorm over the 4 ranks' planes) equal to the port's
@@ -208,30 +209,39 @@ TINY_SLOW = ("RESNET.DEPTH", 18, "RESNET.WIDTH_PER_GROUP", 4, "DATA.NUM_FRAMES",
              "DATA.TRAIN_CROP_SIZE", 16, "DATA.TEST_CROP_SIZE", 16)
 
 
-@pytest.mark.parametrize("path, opts, model_refused", [
+# The multigrid case at 16 frames and ALPHA 2: its first long cycle's 4
+# frames give a rank 2 and the slow pathway 1 (at the yaml's 8 frames and
+# ALPHA 4 a rank's 1 frame fails ``run_net.check``, as
+# tests/test_torch_port_sequence_parallel_tasks.py holds).
+@pytest.mark.parametrize("path, opts, task", [
     ("configs/contrastive_ssl/MoCo_SlowR50_8x8.yaml", TINY_SLOW, True),  # an SSL model
     ("configs/AVA/SLOW_8x8_R50_SHORT.yaml", TINY_SLOW, True),  # detection
-    ("configs/tiny_multigrid_synthetic.yaml", (), False),  # multigrid, on SlowFast
+    ("configs/tiny_multigrid_synthetic.yaml", ("DATA.NUM_FRAMES", 16, "SLOWFAST.ALPHA", 2),
+     False),  # multigrid, on SlowFast
     ("configs/tiny_maskfeat_synthetic.yaml", (), True),  # MaskMViT, an SSL model
 ])
-def test_another_model_under_dp_sp_raises(path, opts, model_refused):
-    """What dp_sp does not run raises NotImplementedError naming ROADMAP.md
-    before ``run_net`` starts a process, and, for a model that it does not
-    run (the SSL models, a detection model), in ``wrap_model``; the conv
-    families run under it (tests/test_torch_port_sequence_parallel_conv.py),
-    but not with multigrid."""
+def test_another_model_under_dp_sp_raises(path, opts, task):
+    """What dp_sp refused before (the SSL models, detection, multigrid) now
+    passes ``run_net``'s checks before it starts a process (``run_net.
+    check``) on a job of 2 processes, a model axis of 2, and ``wrap_model``
+    wraps the model (an SSL or detection model where ``task``) in DDP for
+    dp_sp, in a gloo world of one."""
     cfg = get_cfg()
     cfg.merge_from_file(path)
-    cfg.merge_from_list(list(opts))
+    cfg.merge_from_list([*opts, "NUM_GPUS", 2, "TPU.SHARD_STRATEGY", "dp_sp"])
+    run_net.check(cfg)
+    assert mesh.model_size(cfg, distributed.world_size_of(cfg)) == 2
+    assert task == (cfg.MODEL.MODEL_NAME in ("MaskMViT", "ContrastiveModel")
+                    or cfg.DETECTION.ENABLE)
     model = build_model(cfg, device="cpu", dtype=torch.float32)
-    if model_refused:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            distributed.wrap_model(model, "dp_sp", torch.device("cpu"))
-    else:
-        assert type(model).__name__ in distributed.SEQUENCE_PARALLEL_MODELS
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):  # before any process starts
-        run_net.main(["--cfg", path, "--device", "cpu", "--opts", *map(str, opts),
-                      "NUM_GPUS", "2", "TPU.SHARD_STRATEGY", "dp_sp"])
+    distributed.init_distributed(0, 1, f"tcp://127.0.0.1:{free_port()}", torch.device("cpu"),
+                                 "gloo")
+    try:
+        wrapped = distributed.wrap_model(model, "dp_sp", torch.device("cpu"))
+        assert isinstance(wrapped, torch.nn.parallel.DistributedDataParallel)
+        assert wrapped.module.model is model
+    finally:
+        distributed.destroy()
 
 
 @pytest.mark.parametrize("name", ["Uniformer", "Uniformerframe"])
@@ -243,9 +253,8 @@ def test_uniformer_runs_under_dp_sp(name):
     cfg.merge_from_file("configs/Kinetics/UNIFORMER_S_16x4.yaml")
     cfg.merge_from_list([*TINY_UNIFORMER, "MODEL.MODEL_NAME", name, "UNIFORMER.FRAME_BASE",
                          name == "Uniformerframe", "NUM_GPUS", 2, "TPU.SHARD_STRATEGY", "dp_sp"])
-    distributed.refuse_sequence_parallel(cfg)
+    distributed.check_sequence_parallel(cfg)
     model = build_model(cfg, device="cpu", dtype=torch.float32)
-    assert type(model).__name__ in distributed.SEQUENCE_PARALLEL_MODELS
     kernels = [model.patch_embed1.proj.kernel_size[0]] + [
         getattr(model, f"patch_embed{i}").proj.kernel_size[0] for i in (2, 3, 4)]
     assert kernels == ([1] * 4 if name == "Uniformerframe" else [3, 1, 1, 1])

@@ -988,6 +988,96 @@ def rank_ssl_cases(rank, world, case_dir):
         torch.save(out, case_dir / "ssl_results.pt")
 
 
+def task_case(case, world=1):
+    """A dp_sp case of another task than classification (cfg naming
+    TPU.SHARD_STRATEGY dp_sp, state_dict, lr, the activations' dtype,
+    float32 unless it names one, "double" for float64 parameters too) on
+    this process, one of ``world`` (1: one process on the global batch,
+    the model unwrapped; else a rank, the model wrapped for dp_sp, its data
+    index's rows): the SSL step on "batch" with "draws" (MaskMViT's masked
+    step, or a contrastive step), or the train steps on "batches" in turn
+    (detection, a multigrid cycle's); their metrics, the whole gradients
+    after the last, the state after them and the K1 and wgrad calls'
+    shapes; then, where the case names them, the detection eval step's
+    scores on "eval" (``make_detection_eval_step``), ``test_detection``'s
+    mAP, and ``extract_features`` ("features", into cfg's OUTPUT_DIR)."""
+    import os
+
+    from pmv_tpu_torch.engine import ssl_steps
+    from pmv_tpu_torch.engine.steps import init_state, make_detection_eval_step, make_train_step
+    from pmv_tpu_torch.engine.test import extract_features, test_detection
+    from pmv_tpu_torch.models import build_model
+    from pmv_tpu_torch.ops.depthwise import record_shapes
+    from pmv_tpu_torch.parallel import distributed, mesh
+
+    cfg = case["cfg"].clone()
+    cfg.NUM_GPUS = world
+    lay = mesh.layout(cfg)
+
+    def model_of():
+        model = build_model(cfg, device="cpu", dtype=case.get("dtype", torch.float32))
+        if case.get("double"):
+            model.double()
+        model.load_state_dict(case["state_dict"])
+        return model
+
+    model = model_of()
+    wrapped = distributed.wrap_model(model, "dp_sp", torch.device("cpu")) if world > 1 else None
+    rows = lambda batch: local_rows(batch, lay.data, lay.data_size)  # noqa: E731
+    metrics = []
+    with record_shapes() as shapes:
+        if "batch" in case:
+            state = ssl_steps.init_ssl_state(cfg, model, wrapped=wrapped)
+            make = (ssl_steps.make_masked_train_step if cfg.MODEL.MODEL_NAME == "MaskMViT"
+                    else ssl_steps.make_ssl_train_step)
+            metrics = [make(cfg, device="cpu")(state, rows(case["batch"]), case["lr"],
+                                               case.get("draws"))]
+        elif "batches" in case:
+            state = init_state(cfg, model, wrapped=wrapped)
+            step = make_train_step(cfg, device="cpu")
+            metrics = [step(state, rows(batch), case["lr"]) for batch in case["batches"]]
+    out = {"layout": lay, "shapes": shapes,
+           "metrics": [{k: float(v) for k, v in m.items()} for m in metrics]}
+    if metrics:
+        out["grads"] = {k: distributed.full(p.grad).clone() for k, p in model.named_parameters()
+                        if p.grad is not None}
+        out["state"] = whole_state(model)
+    if "eval" in case:
+        batch = rows(case["eval"])
+        out["scores"] = make_detection_eval_step(cfg, model_of(), device="cpu")(
+            batch["frames"], batch["boxes"], batch["box_mask"]).clone()
+    if case.get("test_detection"):
+        out["map"] = test_detection(cfg, model_of(), "cpu")["map"]
+    if case.get("features"):
+        cfg.OUTPUT_DIR = f"{cfg.OUTPUT_DIR}_{world}"
+        os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
+        out["features"] = extract_features(cfg, model_of(), "cpu")
+    return out
+
+
+def rank_task_cases(rank, world, case_dir):
+    """Each case of ``case_dir/task_cases.pt`` ({name: case}) on this rank
+    (``task_case``), with the bytes its T collectives handed to
+    ``all_reduce`` (``mesh.traffic``); rank 0 writes every rank's results
+    to ``case_dir/task_results.pt``."""
+    from pathlib import Path
+
+    from pmv_tpu_torch.parallel import mesh
+
+    case_dir = Path(case_dir)
+    cases = torch.load(case_dir / "task_cases.pt", weights_only=False)
+    out = {}
+    for name, case in cases.items():
+        before = dict(mesh.traffic)
+        got = task_case(case, world)
+        got["traffic"] = {k: v - before[k] for k, v in mesh.traffic.items()}
+        ranks = [None] * world
+        torch.distributed.all_gather_object(ranks, got)
+        out[name] = ranks
+    if rank == 0:
+        torch.save(out, case_dir / "task_results.pt")
+
+
 class ClipDataset:
     """Clips in memory: clip i is view i % num_clips of video i // num_clips."""
 
