@@ -74,10 +74,12 @@ with a DPE conv on K1, 18 a forward:
 3u. Eval at batch 1 and one train step at batch 2 (the config's recipe:
    RandAugment, erasing, MixUp/CutMix, DropPath, AdamW), float32, card
    against CPU under phase 3b's gates, and the BatchNorm running statistics
-   to rtol 1e-4; 18 K1 launches a forward, 36 K1 and 18 wgrad a train step.
-   Then the pm steps (rect [256, 192], one portrait and one landscape row):
-   eval 2 x 18 K1; train 72 K1 and 36 wgrad (BatchNorm's batch statistics
-   cross rows, so the step runs the whole batch in both orientations).
+   to rtol 1e-4; 18 K1 launches a forward. The train step and the pm steps
+   at ``shallow``'s depth, one block a stage: 8 K1 and 4 wgrad a train
+   step; the pm steps (rect [256, 192], one portrait and one landscape
+   row): eval 2 x 4 K1; train 16 K1 and 8 wgrad (BatchNorm's batch
+   statistics cross rows, so the step runs the whole batch in both
+   orientations).
 4u. Serve 4 videos x 4 temporal views x 1 crop at 224^2 (the recipe's
    test protocol) in bfloat16 at batch 8 (a main path).
 5u. Train 2 timed batch-8 bfloat16 steps through ``train_epoch`` (a main
@@ -96,9 +98,10 @@ run on K1, C = 54 and 108 through the wrappers' channel pad:
    beside the wrapper's (pad included), and the pad copies of a layer's
    forward and backward through the autograd Function (each tensor padded
    once) beside the copies of padding each call's inputs apart.
-3x. Eval at batch 1 (22 K1 launches) and one train step at batch 2 (the
-   config's recipe: SGD with Nesterov momentum, head dropout 0.5; 44 K1 and
-   22 wgrad), float32, card against CPU under phase 3b's gates with the
+3x. Eval at batch 1 (22 K1 launches) and, at ``shallow``'s depth (11 K1 a
+   forward, every stage's shape), one train step at batch 2 (the
+   config's recipe: SGD with Nesterov momentum, head dropout 0.5; 22 K1 and
+   11 wgrad), float32, card against CPU under phase 3b's gates with the
    BatchNorm running statistics, save the gradients and the grad norm: a
    ReLU input within a rounding of 0 decides either way and moves X3D-M's
    whole gradient, so the gradients are held to the fixed limit of
@@ -106,7 +109,7 @@ run on K1, C = 54 and 108 through the wrappers' channel pad:
    printed, and then the card's step again from the same weights, each
    ReLU deciding as on the CPU, both to 1e-4;
    the pm steps (rect [256, 192], one portrait and one landscape row: eval
-   2 x 22 K1, train 88 K1 and 44 wgrad), the same way; precise BN over 2
+   2 x 11 K1, train 44 K1 and 22 wgrad), the same way; precise BN over 2
    batches, card against CPU, its statistics under the same gate.
 4x. Serve 4 videos x 2 temporal views x the recipe's 3 spatial crops of
    256^2 in bfloat16 at batch 8 (a main path; the views cut from 10 to 2,
@@ -122,7 +125,8 @@ SlowFast 8x8 R50 (configs/Kinetics/SLOWFAST_8x8_R50.yaml, full width and
 depth, random weights from a seed; 32 frames, the slow pathway every 4th),
 the first of the ResNet family, whose convs are all dense or 1x3x3 (none on
 K1: each of its phases asserts 0 K1 and 0 wgrad launches):
-3s. Eval at batch 1 and one SGD train step at batch 2 (the config's
+3s. Eval at batch 1 and, at ``shallow``'s RESNET.DEPTH 18, one SGD train
+   step at batch 2 (the config's
    recipe: cross-entropy, head dropout 0.5, SGD with momentum), float32,
    card against CPU under phase 3b's gates with the BatchNorm running
    statistics; the pm steps (rect [256, 192], one portrait and one
@@ -317,8 +321,9 @@ is on K1, 0 launches asserted):
    encoder, the queue and its pointer, the bank.
 3cx. A SimCLR ContrastiveModel on X3D-M's backbone (X3D_M.yaml with the
    SimCLR yaml's contrastive options): one float32 step at batch 2, card
-   against CPU, the CPU's ReLU decisions held as for X3D-M; 88 K1 and 44
-   wgrad launches (two train forwards and their backward).
+   against CPU, the CPU's ReLU decisions held as for X3D-M, at ``shallow``'s
+   depth; 44 K1 and 22 wgrad launches (two train forwards and their
+   backward).
 4c. The MoCo yaml's bf16 step at batch 8 (8 videos of two views), timed
    alone: ms, clips/s, peak memory.
 5c. 2 steps of ``train_epoch`` over the MoCo step at batch 8 (a main path).
@@ -335,10 +340,11 @@ Distributed (``pmv_tpu_torch/parallel/distributed.py``):
    import. 8a: two ranks over
    gloo sharing the one card (NCCL refuses two ranks on one device; the
    kernels were built in phase 1, the ranks only load them): which
-   collectives gloo carries on CUDA tensors; UniFormer-S 16x4 at full width,
-   float32, the PMV rect crop, MixUp on, 2 rows a rank, one portrait row on
-   rank 0 and none on rank 1 (so every rank takes the select: 72 K1 and 36
-   wgrad launches a rank a step); each rank's ``dp`` step against the
+   collectives gloo carries on CUDA tensors; UniFormer-S 16x4 at full width
+   and ``shallow``'s depth, float32, the PMV rect crop, MixUp on, 2 rows a
+   rank, one portrait row on rank 0 and none on rank 1 (so every rank takes
+   the select: 16 K1 and 8 wgrad launches a rank a step); each rank's
+   ``dp`` step against the
    one-process step on the global batch of 4 under phase 3b's gates; then
    2 timed steps a rank (a main path): the 2-rank step's ms. 8c: ``run_net``
    as a user launches it on 2 hosts, ``--num_shards 2 --shard_id 0|1
@@ -355,8 +361,8 @@ Distributed (``pmv_tpu_torch/parallel/distributed.py``):
    unwrapped run's reading (atomic sums make bfloat16 gradients differ from
    run to run), then 5 timed steps of each (main paths): the wrappers'
    overhead in ms. 8d: 2 ranks over gloo on the one card, the SSL steps
-   under ``dp``: MoCo and SimCLR at full width (2 videos of 2 views a
-   rank) in float64 activations (Slow R50's ReLUs decide with float32's
+   under ``dp``: MoCo and SimCLR at full width and ``shallow``'s depth (2
+   videos of 2 views a rank) in float64 activations (Slow R50's ReLUs decide with float32's
    rounding), MaskFeat with loader masks of unequal counts on the two ranks
    in float32, its skip max pools taking the one-process step's taps; each
    rank against the one-process step on the global batch of 4 under phase
@@ -369,12 +375,16 @@ Distributed (``pmv_tpu_torch/parallel/distributed.py``):
    timed steps of each (main paths): the wrapper's overhead in ms.
    8e: every classification model under TPU.SHARD_STRATEGY dp_sp
    (temporal sequence parallelism, ``parallel/mesh.py``) in one spawn of 2
-   ranks over gloo on the one card, a grid of data 1 x model 2: full width
-   and depth, float32, a global batch of 2 that both ranks hold, each
-   rank half of its planes. MViTv2-S 16x4 (16 frames of the PMV rect
-   crop, the bench recipe; 17 K1, 17 dx and 17 wgrad a rank a step on
-   4 + 2 halo planes), UniFormer-S 16x4 (the rect 256x192 run of
-   exps/PMV/run_Uniformer_PMV.sh: 18 each), X3D-M (the rect_256_192 run of
+   ranks over gloo on the one card, a grid of data 1 x model 2: full width,
+   MViTv2-S (and the tasks' MaskFeat PT and features) at full depth, the
+   other models at ``shallow``'s depth (every kernel shape kept), float32,
+   a global batch of 2 that both ranks hold, each rank half of its planes
+   (1 timed step a rank after the warm one, from 3; the cut depths here
+   and in phases 3, 8a and 8d make room for phase 3f and 8e's fsdp case).
+   MViTv2-S 16x4 (16 frames of the PMV rect crop, the bench recipe; 17 K1,
+   17 dx and 17 wgrad a rank a step on 4 + 2 halo planes), UniFormer-S 16x4
+   (the rect 256x192 run of exps/PMV/run_Uniformer_PMV.sh: 18 each at full
+   depth), X3D-M (the rect_256_192 run of
    exps/PMV/run_X3D_PMV.sh: 22 each on 8 + 2 planes, C 54 and 108 through
    the pad), SlowFast 8x8 R50 (32 frames of 224^2: 16 fast and 4 slow a
    rank), ir-CSN-101 32x2 (30 each on 16, 8, 4 and 2 planes + 2),
@@ -384,8 +394,8 @@ Distributed (``pmv_tpu_torch/parallel/distributed.py``):
    ReLU nets free to ``RELU_LIMITS``, then X3D-M and CSN with the one
    process's ReLU decisions and the others in float64 on 8 frames, as
    their card-against-CPU phases hold them); BatchNorm's statistics over
-   both ranks' planes held to one process's; 3 timed bf16 steps a rank (a
-   main path) beside one process's, and the bytes its halos, gathers and
+   both ranks' planes held to one process's; the timed bf16 steps a rank
+   (a main path) beside one process's, and the bytes its halos, gathers and
    reductions hand to all_reduce a step (files in
    ``build/chip_smoke_sequence_parallel/``). The same spawn then runs the
    other tasks, laid out as the JAX package's ``shard_batch`` lays them (a
@@ -400,8 +410,16 @@ Distributed (``pmv_tpu_torch/parallel/distributed.py``):
    to 1e-4, 17 K1 a forward) and multigrid SlowFast 8x8 R50 (its first long
    cycle, 16 clips x 8 frames x 158^2 through SubBatchNorms of 4 splits,
    and a short-cycle batch of 32 at 112^2, float64, the split statistics
-   held); 0 K1 but MaskFeat's and the features'; each with 3 timed bf16
-   steps a rank. Then ``run_net --num_shards 2
+   held); 0 K1 but MaskFeat's and the features'; each with 1 timed bf16
+   step a rank. Last in the spawn, MViTv2-S under
+   TPU.SHARD_STRATEGY fsdp with TPU.MESH_SHAPE [1, 2] (a model axis of 2):
+   the same case and one-process reference as its dp_sp case, each rank its
+   T slice as under dp_sp, its parameters sharded by FSDP2 over its data
+   group (one rank: a communicator of NCCL, which two ranks sharing a card
+   may each hold) and replicated over its model group (gloo), whose partial
+   gradients the step sums; its eval and float32 step under phase 3b's
+   gates (17 K1, 17 dx, 17 wgrad a rank a step on 4 + 2 planes), the
+   layout FSDP2 gave its parameters, 1 timed bf16 step. Then ``run_net --num_shards 2
    TPU.SHARD_STRATEGY dp_sp`` on MViT's, UniFormer's (its 224^2 test crop)
    and X3D-M's (its 256^2 test crop) rect recipes in float32 (16 Synthetic
    videos, 4 a step) and MaskFeat PT (2 a step, then a resume), each
@@ -442,6 +460,31 @@ or a video:
    CPU's bit for bit, the head and BatchNorm statistics at their init; the
    f32 eval card against CPU (atol 1e-4, 18 K1); 2 bf16 batch-8 steps
    through ``train_epoch`` (a main path; 18 K1, 18 dx, 18 wgrad a step).
+MVIT.POOL_FIRST, MViT's and UniFormer's dropout in training, and the FLOP
+counts:
+2f. Phase 2 also holds both kernels at MViTv2-S's pool shapes under
+   POOL_FIRST at batch 2 ("pool_first_b2": block 14's K and V pools at its
+   input's 384 channels).
+3f. (Run after phase 3's supervised models.) MViTv2-S with POOL_FIRST,
+   float32, card against CPU: eval at batch 2 (17 K1) and phase 3b's
+   AdamW train step at batch 2 under its gates (34 K1, 17 wgrad); phase
+   3b's step with MVIT.DROPOUT_RATE 0.1 and UniFormer-S's with
+   UNIFORMER.DROPOUT_RATE and ATTENTION_DROPOUT_RATE 0.1, each on the same
+   keep masks on both sides (17 and 18 K1 a forward); each a path whose
+   launches the kernels line counts.
+6. (Above.) The "Flops: G / clip" and "Activations: M / clip" lines of
+   MViTv2-S's ``run_net`` log, train()'s and test()'s, equal to
+   ``utils/misc.py::model_stats`` counted here.
+DATA.DUMMY_LOAD (the first decoded sample for every index) is held on the
+CPU only, against the JAX package's ``Kinetics``
+(tests/test_torch_port_data.py): the card's host has no FFmpeg to decode
+with.
+The earlier models' card-against-CPU steps run at a cut depth that keeps
+every kernel shape (``shallow``): UniFormer-S's train and pm steps (3u) one
+block a stage, X3D-M's (3x, 3cx) at X3D.DEPTH_FACTOR 1.1, SlowFast's (3s),
+SubBatchNorm's (3g) and AVSlowFast's (3v) at RESNET.DEPTH 18; their eval
+steps and parameter counts at full depth; so do 8e's and 8d's earlier
+models.
 10. Print the script's wall time, the kernels line, the card line, and
    last {"ok": true, "device": {...}}.
 
@@ -493,6 +536,10 @@ TRAIN_LR = 1e-4  # bench.py's learning rate
 # reported, takes time_ms's 25. Fewer launches of the others keep the
 # script's wall time under 600 s.
 COMPARE_ITERS = 10
+# The plain versions' and the library calls' launches timed in phase 2 (3
+# from 10: their medians sit 5-60x the kernel's time, and the
+# 636 records' syncs were a third of the phase's wall).
+REFERENCE_ITERS = 3
 # DATA.TRAIN_CROP_SIZE_RECT of exps/PMV/run_MViT_PMV.sh and of
 # exps/PMV/run_Uniformer_PMV.sh's rect_256_192 run.
 PMV_RECT = (256, 192)
@@ -604,7 +651,9 @@ def _kernel_cases():
     ir-CSN-101's conv_b shapes at batch 2 on 32 x 224^2, half of each
     stage's planes and 2 halo planes ("sp_csn_b2"), MaskFeat PT's q-pools on
     4 + 2 of its 8 token planes at 224^2, batch 2 and 4 ("sp_maskfeat_b2",
-    "sp_maskfeat_b4"); UniFormer-S 16x4's DPE
+    "sp_maskfeat_b4"), MViTv2-S's under MVIT.POOL_FIRST at batch 2
+    ("pool_first_b2": block 14's K and V pools at 384 channels); UniFormer-S
+    16x4's DPE
     shapes on the
     same grids at batch 8 and 16 ("uni_square" ... "uni_portrait_b16");
     X3D-M's channelwise-conv shapes at batch 8 ("x3d_square", "x3d_rect",
@@ -613,6 +662,7 @@ def _kernel_cases():
     then the odd shapes, and those whose C the wrappers pad
     ("padded_odd")."""
     from pmv_tpu_torch.ops.depthwise import (
+        MVIT_POOL_FIRST_SHAPES,
         MVIT_POOL_SHAPES,
         MVIT_PORTRAIT_POOL_SHAPES,
         MVIT_RECT_POOL_SHAPES,
@@ -655,6 +705,7 @@ def _kernel_cases():
            for s, n in X3D_SP_DW_SHAPES + X3D_SP_TEST_DW_SHAPES]
         + [(s, n, "sp_csn_b2") for s, n in CSN_SP_DW_SHAPES]
         + [(s, n, f"sp_maskfeat_b{s[0]}") for s, n in MASKFEAT_SP_POOL_SHAPES]
+        + [(s, n, "pool_first_b2") for s, n in MVIT_POOL_FIRST_SHAPES]
         + [(s, n, "uni_" + _orientation(s) + ("_b16" if s[0] == PMV_TRAIN_BATCH else ""))
            for s, n in uniformer]
         + [(s, n, "x3d_" + g) for shapes, g in (
@@ -720,10 +771,10 @@ def phase_kernels(flush):
                 "max_abs_err": err,
                 "kernel_ms": time_ms(lambda: depthwise3x3x3(x, w), flush=flush),
                 "kernel_warm_ms": time_ms(lambda: depthwise3x3x3(x, w), COMPARE_ITERS),
-                "plain_ms": time_ms(lambda: depthwise3x3x3_plain(x, w), COMPARE_ITERS,
+                "plain_ms": time_ms(lambda: depthwise3x3x3_plain(x, w), REFERENCE_ITERS,
                                     flush=flush),
                 "library_ms": time_ms(
-                    lambda: F.conv3d(x_ncdhw, w_conv, padding=1, groups=c), COMPARE_ITERS,
+                    lambda: F.conv3d(x_ncdhw, w_conv, padding=1, groups=c), REFERENCE_ITERS,
                     flush=flush,
                 ),
                 "bound_ms": bound_ms,
@@ -781,13 +832,13 @@ def phase_backward(flush):
                 "dw_max_abs": float(dw_ref.abs().max()),
                 "kernel_ms": time_ms(lambda: depthwise3x3x3_wgrad(x, g), flush=flush),
                 "kernel_warm_ms": time_ms(lambda: depthwise3x3x3_wgrad(x, g), COMPARE_ITERS),
-                "plain_ms": time_ms(lambda: depthwise3x3x3_wgrad_plain(x, g), COMPARE_ITERS,
+                "plain_ms": time_ms(lambda: depthwise3x3x3_wgrad_plain(x, g), REFERENCE_ITERS,
                                     flush=flush),
                 "library_ms": time_ms(
                     lambda: torch.ops.aten.convolution_backward(
                         g_ncdhw, x_ncdhw, w_conv, None, [1, 1, 1], [1, 1, 1],
                         [1, 1, 1], False, [0, 0, 0], c, [False, True, False],
-                    ), COMPARE_ITERS,
+                    ), REFERENCE_ITERS,
                     flush=flush,
                 ),
                 "bound_ms": bound_ms,
@@ -807,6 +858,43 @@ def phase_backward(flush):
             log(json.dumps(rec))
             records.append(rec)
     return records
+
+
+# The card-against-CPU phases of earlier paths at a cut depth: every stage
+# keeps its widths and grids, so each kernel shape the full-depth model
+# launches is launched still (its full depth runs on the main paths, and
+# phase 2 holds every shape); the eval steps and the parameter counts stay at
+# full depth. UniFormer-S's train and pm steps one block a stage (4 DPE convs
+# on K1 a forward, one at each stage's grid; 3u), X3D-M's at X3D.DEPTH_FACTOR
+# 1.1 (2, 3, 6 and 4 blocks: 11 K1 a forward, at each of its 4 channelwise
+# shapes; 3x, and the SimCLR step on its backbone, 3cx), the ResNet family's
+# at RESNET.DEPTH 18, two bottlenecks a stage (SlowFast 3s with precise BN,
+# 3g, AVSlowFast 3v). ROADMAP.md lists the seconds each cut saved.
+SHALLOW_UNIFORMER_DEPTH = [1, 1, 1, 1]
+UNIFORMER_SHALLOW_K1 = 4
+SHALLOW_X3D_DEPTH_FACTOR = 1.1
+X3D_SHALLOW_K1 = 11
+SHALLOW_RESNET_DEPTH = 18
+CSN_SHALLOW_K1 = 5  # ir-CSN at depth 18: a stride-1 conv_b at each stage's shape
+# Phase 8e's and 8d's earlier models run at the same cut depth: 8e's
+# UniFormer-S, X3D-M, SlowFast, ir-CSN, R(2+1)D and AVSlowFast and its Slow
+# R50 (MoCo, SimCLR), SlowFast AVA and multigrid tasks; 8d's MoCo and
+# SimCLR. MViTv2-S (dp_sp, and this slice's fsdp case), MaskFeat PT and the
+# features stay at full depth.
+SHALLOW_K1 = {"uniformer": UNIFORMER_SHALLOW_K1, "x3d": X3D_SHALLOW_K1,
+              "csn": CSN_SHALLOW_K1, "slowfast": 0, "r2plus1d": 0, "avslowfast": 0}
+
+
+def shallow(cfg):
+    """``cfg`` at the cut depth of its card-against-CPU phases."""
+    cfg = cfg.clone()
+    if cfg.MODEL.MODEL_NAME == "Uniformer":
+        cfg.UNIFORMER.DEPTH = list(SHALLOW_UNIFORMER_DEPTH)
+    elif cfg.MODEL.ARCH == "x3d":
+        cfg.X3D.DEPTH_FACTOR = SHALLOW_X3D_DEPTH_FACTOR
+    else:
+        cfg.RESNET.DEPTH = SHALLOW_RESNET_DEPTH
+    return cfg
 
 
 def phase_full_model(cfg, frames, per_forward, phase="full_model_f32_b1", audio=None):
@@ -1012,7 +1100,10 @@ def _stats_err(got, want):
 
 
 def _grads(model):
-    return {k: p.grad.detach().cpu() for k, p in model.named_parameters()}
+    """Every parameter's gradient, whole (gathered where FSDP shards it)."""
+    from pmv_tpu_torch.parallel.distributed import full
+
+    return {k: full(p.grad).detach().cpu() for k, p in model.named_parameters()}
 
 
 def _grad_rel_err(grads, ref):
@@ -1282,6 +1373,55 @@ def phase_precise_bn(cfg, per_forward, prefix="", dtype=torch.float32, cpu_float
                              "statistics moved, or a weight or count moved")
     if not gated:
         phase_precise_bn(cfg, per_forward, prefix, torch.float64, _running_stats(cpu_model))
+
+
+DROPOUT_3F = 0.1  # MVIT.DROPOUT_RATE, UNIFORMER.DROPOUT_RATE and ATTENTION_DROPOUT_RATE
+
+
+def pool_first_cfg():
+    """Phase 3b's MViTv2-S recipe with MVIT.POOL_FIRST: x pooled at each
+    block's input width, the q/k/v linears after the pools."""
+    cfg = _train_cfg()
+    cfg.MVIT.POOL_FIRST = True
+    return cfg
+
+
+def _counted(fn, *args):
+    """A path of phase 3f: launch counts zeroed just before ``fn(*args)``,
+    read just after (the CPU side of a card-against-CPU phase launches
+    nothing)."""
+    _zero_launch_counts()
+    fn(*args)
+    return _launch_counts()
+
+
+def phase_pool_first_dropout():
+    """3f: MViTv2-S with MVIT.POOL_FIRST at full width and depth, float32,
+    card against CPU: the eval step at batch 2 (17 K1, block 14's K and V
+    pools at its input's 384 channels, ``pool_first_b2`` of phase 2) and the
+    AdamW train step at batch 2 under phase 3b's gates (34 K1, 17 wgrad);
+    then phase 3b's train step with MVIT.DROPOUT_RATE ``DROPOUT_3F`` (the
+    embedding's, each attention projection's and each MLP's dropouts) and
+    UniFormer-S's with UNIFORMER.DROPOUT_RATE and ATTENTION_DROPOUT_RATE
+    ``DROPOUT_3F`` (its MLPs', projections' and attention
+    probabilities'), each from the same weights and the same draws, the
+    keep masks among them (``sample_dropout_masks``): 17 and 18 K1 a
+    forward. Returns each path's launches."""
+    frames = np.random.default_rng(20).integers(0, 256, (2, 16, 224, 224, 3), np.uint8)
+    pool_first = pool_first_cfg()
+    mvit, uni = _train_cfg(), uniformer_cfg()
+    mvit.MVIT.DROPOUT_RATE = DROPOUT_3F
+    uni.UNIFORMER.DROPOUT_RATE = uni.UNIFORMER.ATTENTION_DROPOUT_RATE = DROPOUT_3F
+    return {
+        "pool_first_eval": _counted(phase_full_model, pool_first, frames, MVIT_K1,
+                                    "pool_first_full_model_f32_b2"),
+        "pool_first_train": _counted(phase_train_step_vs_cpu, pool_first, MVIT_K1,
+                                     "pool_first_train_step_f32_b2_card_vs_cpu"),
+        "mvit_dropout_train": _counted(phase_train_step_vs_cpu, mvit, MVIT_K1,
+                                       "mvit_dropout_train_step_f32_b2_card_vs_cpu"),
+        "uniformer_dropout_train": _counted(phase_train_step_vs_cpu, uni, UNIFORMER_K1,
+                                            "uniformer_dropout_train_step_f32_b2_card_vs_cpu"),
+    }
 
 
 def phase_serve(card, cfg, per_forward, prefix=""):
@@ -1602,6 +1742,26 @@ def _last_match(lines, pattern):
     return found[-1]
 
 
+def check_model_info(cfg, lines):
+    """run_net's "Flops" and "Activations" lines, train()'s (its train crop)
+    then test()'s (its test crop), against ``utils/misc.py::model_stats`` of
+    cfg's model counted here, on the CPU's meta device, as they are logged."""
+    from pmv_tpu_torch.models.mvit import geometry
+    from pmv_tpu_torch.utils.misc import model_stats
+
+    logged = [(m[1], a[1]) for m, a in zip(
+        *(filter(None, map(re.compile(p).search, lines))
+          for p in (r"Flops: ([\d.]+) G / clip", r"Activations: ([\d.]+) M / clip")))]
+    test = cfg.clone()
+    test.TEST.PROCESS = True
+    want = [(f"{f / 1e9:.2f}", f"{a / 1e6:.2f}")
+            for f, a in (model_stats(c, [*geometry(c), 3]) for c in (cfg, test))]
+    if logged != want:
+        raise AssertionError(f"run_net logged Flops and Activations {logged}, the CPU counts "
+                             f"{want} (G, M a clip)")
+    return {"train": want[0], "test": want[1]}
+
+
 def _run_net_call(recipe, out_dir, max_epoch, extra=()):
     """One ``run_net`` call (a main path: launch counts zeroed just before it
     and read just after), measured from its own log: the epoch's seconds
@@ -1654,6 +1814,7 @@ def _run_net_call(recipe, out_dir, max_epoch, extra=()):
     if precise and int(_last_match(lines, r"Updated precise BN stats over (\d+) batches")[1]) \
             != precise:
         raise AssertionError(f"run_net's precise BN did not run over {precise} batches")
+    model_info = check_model_info(cfg, lines) if recipe == "mvit" else None
     epoch = max_epoch - 1
     epoch_s = float(_last_match(lines, rf"Epoch {epoch} takes ([\d.]+)s")[1])
     eval_s = float(_last_match(lines, rf"Eval of epoch {epoch} takes ([\d.]+)s")[1])
@@ -1672,6 +1833,7 @@ def _run_net_call(recipe, out_dir, max_epoch, extra=()):
         "optimizer_steps": torch.load(saved[1], map_location="cpu", weights_only=True)[
             "optimizer_state"]["param_groups"][0]["count"],
         "max_memory_allocated_bytes": peak, "launches": launches,
+        "flops_g_activations_m_per_clip": model_info,
         "train_epoch_stats": train_stats, "final_stats": final, "log": lines,
     }
 
@@ -1795,7 +1957,8 @@ def phase_avslowfast_card_vs_cpu():
     AVS loss, the loss, the gradients (to ``grad_witness.RELU_LIMITS``; the
     grad norm read), the update and the BatchNorm statistics, then the same
     step in float64 on both sides under every 1e-4 gate
-    (``grad_witness.FLOAT64_HELD``). 0 K1 launches each."""
+    (``grad_witness.FLOAT64_HELD``); the train steps at ``shallow``'s
+    depth. 0 K1 launches each."""
     rng = np.random.default_rng(11)
     cfg = avslowfast_cfg()
     size = cfg.DATA.TRAIN_CROP_SIZE
@@ -1808,9 +1971,10 @@ def phase_avslowfast_card_vs_cpu():
     batch = {"frames": frames, "labels": rng.integers(0, cfg.MODEL.NUM_CLASSES, 1),
              "audio": audio, "audio_mis": av_logmels(cfg, rng, 1)}
     for rate in ("0.0", "1.0"):
-        cfg = avslowfast_cfg("SLOWFAST.DROPPATHWAY_RATE", rate)
-        _train_step_card_vs_cpu(f"avslowfast_rate{rate[0]}_train_step_f32_b1_card_vs_cpu", cfg,
-                                batch, step_launches(AVSLOWFAST_K1))
+        cfg = shallow(avslowfast_cfg("SLOWFAST.DROPPATHWAY_RATE", rate))
+        _train_step_card_vs_cpu(
+            f"avslowfast_shallow_rate{rate[0]}_train_step_f32_b1_card_vs_cpu", cfg, batch,
+            step_launches(AVSLOWFAST_K1))
 
 
 # CSN, R(2+1)D, the image MViTv2-S and Charades (phases 3n, 3r, 3i, 4n-6n,
@@ -2836,13 +3000,13 @@ def phase_contrastive_card_vs_cpu():
 
 
 def phase_contrastive_x3d():
-    """3cx: a SimCLR ContrastiveModel on X3D-M's backbone at full width, one
-    float32 step at batch 2, card against CPU (the CPU's ReLU decisions
-    held, as for X3D-M): two train forwards and their backward, 88 K1 and
-    44 wgrad launches. Returns them."""
-    cfg = contrastive_x3d_cfg()
-    expected = step_launches(2 * X3D_K1)
-    rec = _ssl_step_card_vs_cpu("contrastive_x3d_simclr_step_f32_b2_card_vs_cpu", cfg,
+    """3cx: a SimCLR ContrastiveModel on X3D-M's backbone at full width and
+    ``shallow``'s depth, one float32 step at batch 2, card against CPU (the
+    CPU's ReLU decisions held, as for X3D-M): two train forwards and their
+    backward, 44 K1 and 22 wgrad launches. Returns them."""
+    cfg = shallow(contrastive_x3d_cfg())
+    expected = step_launches(2 * X3D_SHALLOW_K1)
+    rec = _ssl_step_card_vs_cpu("contrastive_x3d_shallow_simclr_step_f32_b2_card_vs_cpu", cfg,
                                 _ssl_batch(cfg, 4), expected)
     return rec["launches"]
 
@@ -3131,7 +3295,7 @@ def _ssl_dist_cases():
             draws = step.sample_draws(model, batch["frames"].shape)
             draws["mask"] = None
         else:
-            cfg = ssl_cfg(name)
+            cfg = shallow(ssl_cfg(name))
             batch = _ssl_batch(cfg, 7, b=2 * DIST_BATCH)
             _, model = _ssl_models_card_and_cpu(cfg, torch.float64)
             step = ssl_steps.make_ssl_train_step(cfg, device="cuda", seed=0)
@@ -3232,11 +3396,11 @@ def phase_sub_batchnorm_card_vs_cpu():
     1e-4, atol 1e-6; then each model's norms swapped to plain BatchNorm and
     back (``swap_norms``): the card's converted statistics equal to the same
     conversion, on the CPU, of the card's own, and card against CPU under
-    the statistics' gate. 0 K1 launches. (The float64 step takes every
+    the statistics' gate; at ``shallow``'s depth. 0 K1 launches. (The float64 step takes every
     other frame, as every float64 rerun of ``_train_step_card_vs_cpu``.)"""
     from pmv_tpu_torch.models.batchnorm import swap_norms
 
-    cfg = slowfast_cfg()
+    cfg = shallow(slowfast_cfg())
     cfg.BN.NORM_TYPE, cfg.BN.NUM_SPLITS = "sub_batchnorm", 2
     plain = cfg.clone()
     plain.BN.NORM_TYPE = "batchnorm"
@@ -3244,7 +3408,7 @@ def phase_sub_batchnorm_card_vs_cpu():
     batch = {"frames": rng.integers(0, 256, (4, cfg.DATA.NUM_FRAMES, 224, 224, 3), np.uint8),
              "labels": rng.integers(0, cfg.MODEL.NUM_CLASSES, 4)}
     cpu_model, gpu_model = _models_card_and_cpu(cfg)
-    _train_step_card_vs_cpu("slowfast_sub_bn_train_step_f32_b4_card_vs_cpu", cfg, batch,
+    _train_step_card_vs_cpu("slowfast_shallow_sub_bn_train_step_f32_b4_card_vs_cpu", cfg, batch,
                             step_launches(SLOWFAST_K1), models=(cpu_model, gpu_model))
     for name, to_cfg in (("sub_to_plain", plain), ("plain_to_sub", cfg)):
         shadow = copy.deepcopy(cpu_model)  # the card's statistics, converted on the CPU
@@ -3252,7 +3416,7 @@ def phase_sub_batchnorm_card_vs_cpu():
         turned = [swap_norms(m, to_cfg) for m in (gpu_model, cpu_model, shadow)]
         conversion_err = _stats_err(_running_stats(gpu_model), _running_stats(shadow))[1]
         over, diff = _running_stats_err(gpu_model, cpu_model)
-        rec = {"phase": f"slowfast_sub_bn_swap_{name}", "norms_turned": turned,
+        rec = {"phase": f"slowfast_shallow_sub_bn_swap_{name}", "norms_turned": turned,
                "card_vs_cpu_conversion_max_abs_err": conversion_err,
                "bn_stats_err_over_rtol": over, "bn_stats_max_abs_err": diff,
                "s5_slow_a_bn_stats": list(gpu_model.get_submodule(
@@ -3674,7 +3838,8 @@ def _held_to_step(phase, got, ref, lr, n_params, **extra):
 
 def phase_distributed_gloo():
     """Phase 8a: two ranks over gloo sharing the one card. UniFormer-S 16x4
-    at full width (BatchNorm, K1 on its 18 DPE convs a forward), float32,
+    at full width and ``shallow``'s depth (BatchNorm, K1 on its 4 DPE convs
+    a forward, one at each stage's grid), float32,
     the PMV rect crop with SWITCH_AUTO, MixUp on, 2 rows a rank, one portrait
     row on rank 0 and none on rank 1; each rank's ``dp`` step against the
     one-process step on the global batch of 4 under phase 3b's gates. The
@@ -3683,7 +3848,7 @@ def phase_distributed_gloo():
     from pmv_tpu_torch.engine.steps import init_state, make_train_step
     from pmv_tpu_torch.models import build_model
 
-    cfg = uniformer_cfg()
+    cfg = shallow(uniformer_cfg())
     cfg.TRAIN.MIXED_PRECISION = False
     cfg.MIXUP.ENABLE = True
     cfg.DATA.TRAIN_CROP_SIZE_RECT = list(PMV_RECT)
@@ -3722,7 +3887,7 @@ def phase_distributed_gloo():
     log(json.dumps({"phase": "distributed_gloo_collectives_on_cuda",
                     "carried": ranks[0]["carried"]}))
     launches = {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
-    expected = step_launches(2 * UNIFORMER_K1)  # the select: both orientations
+    expected = step_launches(2 * UNIFORMER_SHALLOW_K1)  # the select: both orientations
     for r in ranks:
         _held_to_step(f"distributed_gloo_dp_rank{r['rank']}_vs_one_process",
                       (r["metrics"], r["grads"], r["state"]), ref, cfg.SOLVER.BASE_LR, n_params,
@@ -4047,11 +4212,16 @@ def _run_net_pairs(card, specs):
 
 
 SP_BATCH = 2  # phase 8e's global batch, which both ranks of its model group hold
-SP_TIMED_STEPS = 3  # phase 8e's timed bf16 steps, each rank
+SP_TIMED_STEPS = 1  # phase 8e's timed bf16 steps after the warm one, each rank
 SP_EVAL_ATOL = 1e-4  # phase 3's eval gate, card against CPU
 # Phase 8e's models: MViTv2-S and UniFormer-S (AdamW at TRAIN_LR, no ReLU),
-# then the BatchNorm conv families (SGD at their recipes' LR).
-SP_RECIPES = ("mvit", "uniformer", "x3d", "slowfast", "csn", "r2plus1d", "avslowfast")
+# then the BatchNorm conv families (SGD at their recipes' LR); then MViTv2-S
+# under fsdp on TPU.MESH_SHAPE [1, 2] (``FSDP_RECIPE``: mvit's case and its
+# one-process reference, the ranks' parameters sharded by FSDP2 over their
+# data group of one rank, a group of NCCL, the model group of gloo).
+SP_RECIPES = ("mvit", "uniformer", "x3d", "slowfast", "csn", "r2plus1d", "avslowfast",
+              "mvit_fsdp")
+FSDP_RECIPE = "mvit_fsdp"
 
 
 @contextlib.contextmanager
@@ -4112,6 +4282,30 @@ def _sp_model_of(cfg, case, device, dtype):
     return model.to(device)
 
 
+def _sp_wrapped(cfg, model, device):
+    """A rank's ``model`` wrapped for cfg's TPU.SHARD_STRATEGY on its grid:
+    DDP under dp_sp; under fsdp with a model axis FSDP2 over the rank's data
+    group (``mesh.fsdp_mesh``: NCCL, a group of one rank here)."""
+    from pmv_tpu_torch.parallel import distributed, mesh
+
+    return distributed.wrap_model(model, cfg.TPU.SHARD_STRATEGY, device, mesh.layout(cfg))
+
+
+def _fsdp_layout(model):
+    """How FSDP laid out ``model``'s parameters on this rank: the number
+    sharded, each one's placements and device mesh's ranks (one set), and
+    the elements of this rank's shards against the whole."""
+    from torch.distributed.tensor import DTensor
+
+    params = list(model.parameters())
+    sharded = [p for p in params if isinstance(p, DTensor)]
+    return {"params": len(params), "sharded": len(sharded),
+            "placements": sorted({str(p.placements) for p in sharded}),
+            "mesh_ranks": sorted({tuple(p.device_mesh.mesh.tolist()) for p in sharded}),
+            "local_elements": sum(p.to_local().numel() for p in sharded),
+            "elements": sum(p.numel() for p in params)}
+
+
 def _sp_train(cfg, case, device, dtype, batch, wrap, relus=None):
     """One train step of ``case`` at ``cfg``'s LR on ``batch`` from its
     weights, activations in ``dtype``, the model wrapped for dp_sp where
@@ -4124,7 +4318,7 @@ def _sp_train(cfg, case, device, dtype, batch, wrap, relus=None):
     from pmv_tpu_torch.parallel import distributed
 
     model = _sp_model_of(cfg, case, device, dtype)
-    wrapped = distributed.wrap_model(model, "dp_sp", device) if wrap else None
+    wrapped = _sp_wrapped(cfg, model, device) if wrap else None
     state = init_state(cfg, model, wrapped=wrapped)
     step = make_train_step(cfg, device=device, seed=0)
     counts = _launch_counts()
@@ -4132,9 +4326,12 @@ def _sp_train(cfg, case, device, dtype, batch, wrap, relus=None):
             _held_relus(*relus, device) if relus else contextlib.nullcontext([0])) as other:
         metrics = {k: v.cpu() for k, v in step(state, batch, cfg.SOLVER.BASE_LR).items()}
     torch.cuda.synchronize()
+    launches = _launches_since(counts)
     return {"step": (metrics, _grads(model),
-                     {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}),
-            "shapes": shapes, "launches": _launches_since(counts), "otherwise": other[0]}
+                     {k: distributed.full(v).detach().cpu().clone()
+                      for k, v in model.state_dict().items()}),
+            "shapes": shapes, "launches": launches, "otherwise": other[0],
+            "fsdp": _fsdp_layout(model) if cfg.TPU.SHARD_STRATEGY == "fsdp" and wrap else None}
 
 
 def _sp_timed(cfg, case, device, wrap):
@@ -4147,7 +4344,8 @@ def _sp_timed(cfg, case, device, wrap):
     from pmv_tpu_torch.parallel import distributed, mesh
 
     model = _sp_model_of(cfg, case, device, torch.bfloat16)
-    wrapped = distributed.wrap_model(model, "dp_sp", device) if wrap else None
+    wrapped = _sp_wrapped(cfg, model, device) if wrap else None
+    n = SP_TIMED_STEPS
     state = init_state(cfg, model, wrapped=wrapped)
     step = make_train_step(cfg, device=device, seed=0)
     step(state, case["batch"], cfg.SOLVER.BASE_LR)  # warm
@@ -4156,13 +4354,13 @@ def _sp_timed(cfg, case, device, wrap):
     mesh.traffic.update(dict.fromkeys(mesh.traffic, 0))
     t0 = time.perf_counter()
     with record_shapes() as shapes:
-        for _ in range(SP_TIMED_STEPS):
+        for _ in range(n):
             step(state, case["batch"], cfg.SOLVER.BASE_LR)
         torch.cuda.synchronize()
-    return {"ms_per_step": (time.perf_counter() - t0) / SP_TIMED_STEPS * 1e3,
+    return {"ms_per_step": (time.perf_counter() - t0) / n * 1e3,
             "launches": _launch_counts(),  # ... and ends here
             "timed_shapes": shapes,
-            "bytes_per_step": {k: v // SP_TIMED_STEPS for k, v in mesh.traffic.items()}}
+            "bytes_per_step": {k: v // n for k, v in mesh.traffic.items()}}
 
 
 def _sp_eval(cfg, case, device):
@@ -4243,6 +4441,7 @@ def _sp_model(recipe):
 
     cfg, per_forward, held = {
         "mvit": lambda: (_train_cfg(), MVIT_K1, dw.MVIT_SP_POOL_SHAPES),
+        "mvit_fsdp": lambda: (_train_cfg(), MVIT_K1, dw.MVIT_SP_POOL_SHAPES),
         "uniformer": lambda: (uniformer_cfg(), UNIFORMER_K1,
                               dw.UNIFORMER_SP_DPE_SHAPES + dw.UNIFORMER_SP_TEST_DPE_SHAPES),
         "x3d": lambda: (x3d_cfg(), X3D_K1, dw.X3D_SP_DW_SHAPES + dw.X3D_SP_TEST_DW_SHAPES),
@@ -4251,14 +4450,19 @@ def _sp_model(recipe):
         "r2plus1d": lambda: (csn_cfg(R2PLUS1D_CFG), R2PLUS1D_K1, ()),
         "avslowfast": lambda: (avslowfast_cfg(), AVSLOWFAST_K1, ()),
     }[recipe]()
+    if recipe in SHALLOW_K1:
+        cfg, per_forward = shallow(cfg), SHALLOW_K1[recipe]
     # The kernels' shapes: C padded as the wrappers pad it (X3D's 54, 108).
     held = {(*s[:-1], s[-1] + -s[-1] % dw.CHANNEL_MULTIPLE) for s, _ in held}
     crop = (cfg.DATA.TRAIN_CROP_SIZE,) * 2
-    if recipe in ("mvit", "uniformer", "x3d"):
+    if recipe in ("mvit", "uniformer", "x3d", FSDP_RECIPE):
         crop = PMV_RECT
         cfg.DATA.TRAIN_CROP_SIZE_RECT = list(PMV_RECT)
         cfg.DATA.TRAIN_CROP_SIZE_RECT_SWITCH_AUTO = True
     cfg.TPU.SHARD_STRATEGY = "dp_sp"
+    if recipe == FSDP_RECIPE:
+        cfg.TPU.SHARD_STRATEGY = "fsdp"
+        cfg.TPU.MESH_SHAPE, cfg.TPU.MESH_AXES = [1, 2], ["data", "model"]
     return cfg, per_forward, held, crop
 
 
@@ -4433,13 +4637,14 @@ def _sp_task_model(recipe):
         cfg, per_forward = maskfeat_cfg(), MASKFEAT_K1
         held = {s for s, _ in dw.MASKFEAT_SP_POOL_SHAPES}
     elif recipe in ("moco", "simclr"):
-        cfg, per_forward = ssl_cfg(recipe), SLOW_K1
+        cfg, per_forward = shallow(ssl_cfg(recipe)), SLOW_K1
     elif recipe == "ava":
-        cfg, per_forward = ava_cfg(), AVA_K1
+        cfg, per_forward = shallow(ava_cfg()), AVA_K1
     elif recipe == "features":  # make_feat_step, as TEST.FEAT_EXTRACT runs it
         cfg, per_forward, held, _ = _sp_model("mvit")
     else:
-        cfg, per_forward = multigrid_cfg(*MULTIGRID_RUN, "NUM_GPUS", "2"), SLOWFAST_K1
+        cfg = shallow(multigrid_cfg(*MULTIGRID_RUN, "NUM_GPUS", "2"))
+        per_forward = SLOWFAST_K1
         schedule = MultigridSchedule()
         cfg = schedule.init_multigrid(cfg)
         schedule.update_long_cycle(cfg, 0)
@@ -4551,14 +4756,15 @@ def _sp_task_timed(case, device, wrap):
     _zero_launch_counts()  # the main path starts here
     mesh.traffic.update(dict.fromkeys(mesh.traffic, 0))
     t0 = time.perf_counter()
+    n = SP_TIMED_STEPS
     with record_shapes() as shapes:
-        for _ in range(SP_TIMED_STEPS):
+        for _ in range(n):
             run()
         torch.cuda.synchronize()
-    return {"ms_per_step": (time.perf_counter() - t0) / SP_TIMED_STEPS * 1e3,
+    return {"ms_per_step": (time.perf_counter() - t0) / n * 1e3,
             "launches": _launch_counts(),  # ... and ends here
             "timed_shapes": shapes,
-            "bytes_per_step": {k: v // SP_TIMED_STEPS for k, v in mesh.traffic.items()}}
+            "bytes_per_step": {k: v // n for k, v in mesh.traffic.items()}}
 
 
 def _sp_task_run(case, device, wrap, record=False):
@@ -4666,6 +4872,7 @@ def _sp_task_gates(case, ranks, ref, per_forward, held, card, wall):
     launches."""
     recipe, cfg = case["recipe"], case["cfg"]
     t_exts = sorted({s[1] for s in held})
+    timed_steps = SP_TIMED_STEPS
     for r in ranks:
         phase = f"sequence_parallel_{recipe}_dp_sp_rank{r['rank']}"
         if r["layout"] != [0, 1, r["rank"], 2] or r["recipe"] != recipe:
@@ -4673,12 +4880,12 @@ def _sp_task_gates(case, ranks, ref, per_forward, held, card, wall):
         train = recipe != "features"
         if train:
             _sp_extents(phase + "_timed", r["timed_shapes"], t_exts, True, per_forward, held,
-                        steps=SP_TIMED_STEPS)
+                        steps=timed_steps)
         else:  # feature steps: forwards alone
             _sp_extents(phase + "_timed", r["timed_shapes"], t_exts, False,
-                        per_forward * SP_TIMED_STEPS, held)
+                        per_forward * timed_steps, held)
         extra = dict(model=cfg.MODEL.MODEL_NAME, card=card, layout=r["layout"],
-                     frames=cfg.DATA.NUM_FRAMES, timed_steps=SP_TIMED_STEPS,
+                     frames=cfg.DATA.NUM_FRAMES, timed_steps=timed_steps,
                      ms_per_step_bf16_2_ranks=r["ms_per_step"],
                      ms_per_step_bf16_1_process=ref["ms_per_step"],
                      bytes_per_step_bf16=r["bytes_per_step"], launches=r["launches"],
@@ -4719,7 +4926,7 @@ def _sp_task_gates(case, ranks, ref, per_forward, held, card, wall):
             if r[key]["launches"] != step_launches(per_forward):
                 raise AssertionError(f"{phase}: launched {r[key]['launches']} a step")
     timed = (eval_launches if recipe == "features" else step_launches)(per_forward)
-    timed = {k: v * SP_TIMED_STEPS for k, v in timed.items()}
+    timed = {k: v * timed_steps for k, v in timed.items()}
     for r in ranks:
         if r["launches"] != timed:
             raise AssertionError(f"sequence_parallel_{recipe}: the timed steps launched "
@@ -4727,13 +4934,26 @@ def _sp_task_gates(case, ranks, ref, per_forward, held, card, wall):
     return {k: sum(r["launches"][k] for r in ranks) for k in timed}
 
 
+def _check_fsdp_layout(phase, layout, rank):
+    """Raise unless FSDP2 sharded every parameter (``_fsdp_layout``) over the
+    rank's data group alone, {rank} on a grid of data 1 x model 2, on dim 0:
+    each shard the whole parameter, replicated over the model group."""
+    want = {"params": layout["params"], "sharded": layout["params"],
+            "placements": ["(Shard(dim=0),)"], "mesh_ranks": [(rank,)],
+            "local_elements": layout["elements"], "elements": layout["elements"]}
+    if layout != want:
+        raise AssertionError(f"{phase}: FSDP laid the parameters out as {layout}")
+
+
 def phase_sequence_parallel(card):
     """Phase 8e: every model of ``SP_RECIPES`` under TPU.SHARD_STRATEGY
-    dp_sp, in one spawn of two ranks over gloo sharing the one card, a grid
-    of data 1 x model 2: full width and depth, each model's frames and crop
-    (``_sp_model``) and train recipe (MViT's and UniFormer's RandAugment,
-    erasing, MixUp and DropPath; the conv families' head dropout, X3D-M's
-    SE blocks, AVSlowFast's misaligned audio and AVS losses), float32, a
+    dp_sp (``FSDP_RECIPE`` under fsdp on the same grid), in one spawn of two
+    ranks over gloo sharing the one card, a grid of data 1 x model 2: full
+    width, MViTv2-S at full depth and the earlier models at ``shallow``'s,
+    each model's frames and crop (``_sp_model``) and train recipe (MViT's
+    and UniFormer's RandAugment, erasing, MixUp and DropPath; the conv
+    families' head dropout, X3D-M's SE blocks, AVSlowFast's misaligned
+    audio and AVS losses), float32, a
     global batch of ``SP_BATCH`` that both ranks hold, each rank half of its
     planes. For each model, each rank's eval scores against the one
     process's on the card within ``SP_EVAL_ATOL``; its train step against
@@ -4741,8 +4961,9 @@ def phase_sequence_parallel(card):
     MViT and UniFormer; the ReLU nets free in float32 and then held, X3D-M
     and ir-CSN-101 with the one process's ReLU decisions, SlowFast,
     R(2+1)D and AVSlowFast in float64 on ``FLOAT64_FRAMES``); each rank's
-    K1, dx and wgrad calls a train step (MViT 17 each, UniFormer 18, X3D-M
-    22, ir-CSN-101 30; as many K1 an eval) on its planes and 2 halo planes,
+    K1, dx and wgrad calls a train step (MViT 17 each, UniFormer 4, X3D-M
+    11, ir-CSN 5 at their cut depths; as many K1 an eval) on its planes and
+    2 halo planes,
     each at a shape of the model's dp_sp grid (``_sp_model``), which the
     kernel phases hold against the plain versions; then each rank's bf16
     step, timed, beside the one process's, with the bytes its halos,
@@ -4756,7 +4977,12 @@ def phase_sequence_parallel(card):
     os.makedirs(work_dir)
     cases, refs = [], {}
     for recipe in SP_RECIPES:
-        case, *refs[recipe] = _sp_reference(recipe)
+        if recipe == FSDP_RECIPE:  # mvit's case and one-process reference, under fsdp
+            case = dict(cases[SP_RECIPES.index("mvit")], recipe=recipe,
+                        cfg=_sp_model(recipe)[0])
+            refs[recipe] = refs["mvit"]
+        else:
+            case, *refs[recipe] = _sp_reference(recipe)
         cases.append(case)
     for recipe in SP_TASKS:
         case, *refs[recipe] = _sp_task_reference(recipe)
@@ -4778,20 +5004,23 @@ def phase_sequence_parallel(card):
         ref, per_forward, held = refs[recipe]
         t_exts = sorted({s[1] for s in held})
         n_params = sum(v.numel() for v in ref["train"]["step"][1].values())
-        suffix = "" if recipe == "mvit" else f"_{recipe}"
+        suffix = "" if recipe == "mvit" else f"_{recipe.removesuffix('_fsdp')}"
+        timed_steps = SP_TIMED_STEPS
         for r in (rank[i] for rank in ranks):
-            phase = f"sequence_parallel{suffix}_dp_sp_rank{r['rank']}"
+            phase = f"sequence_parallel{suffix}_{cfg.TPU.SHARD_STRATEGY}_rank{r['rank']}"
             eval_err = float((r["scores"] - ref["scores"]).abs().max())
             extents = _sp_extents(phase, r["train"]["shapes"], t_exts, True, per_forward, held)
             _sp_extents(phase + "_eval", r["eval_shapes"], t_exts, False, per_forward, held)
             _sp_extents(phase + "_timed", r["timed_shapes"], t_exts, True, per_forward, held,
-                        steps=SP_TIMED_STEPS)
+                        steps=timed_steps)
+            if cfg.TPU.SHARD_STRATEGY == "fsdp":
+                _check_fsdp_layout(phase, r["train"]["fsdp"], r["rank"])
             extra = dict(model=cfg.MODEL.MODEL_NAME, card=card, layout=r["layout"],
                          global_batch=SP_BATCH, frames=cfg.DATA.NUM_FRAMES,
                          crop=list(case["batch"]["frames"].shape[2:4]),
                          eval_max_abs_err=eval_err, **extents,
-                         step_launches=r["train"]["launches"],
-                         eval_launches=r["eval_launches"], timed_steps=SP_TIMED_STEPS,
+                         step_launches=r["train"]["launches"], fsdp=r["train"]["fsdp"],
+                         eval_launches=r["eval_launches"], timed_steps=timed_steps,
                          ms_per_step_bf16_2_ranks=r["ms_per_step"],
                          ms_per_step_bf16_1_process=ref["ms_per_step"],
                          bytes_per_step_bf16=r["bytes_per_step"], launches=r["launches"],
@@ -4814,7 +5043,7 @@ def phase_sequence_parallel(card):
                     or r["eval_launches"] != eval_launches(per_forward)):
                 raise AssertionError(f"{phase}: launched {r['train']['launches']} a step, "
                                      f"{r['eval_launches']} an eval")
-            timed = {k: v * SP_TIMED_STEPS for k, v in step_launches(per_forward).items()}
+            timed = {k: v * timed_steps for k, v in step_launches(per_forward).items()}
             if r["launches"] != timed:
                 raise AssertionError(f"{phase}: the timed steps launched {r['launches']}, "
                                      f"not {timed}")
@@ -5542,7 +5771,8 @@ def phase_inflated_uniformer(card):
 
 def kernels_line(records, launches, slowfast_launches, maskfeat_launches,
                  contrastive_launches, multigrid_launches, csn_launches, avslowfast_launches,
-                 ava_launches, sp_launches, ssl_fsdp_launches, m19_launches):
+                 ava_launches, sp_launches, ssl_fsdp_launches, m19_launches,
+                 pool_first_dropout_launches):
     """One entry per kernel: times summed over the launches at the 224^2
     crop's shapes in bfloat16 at batch 8; K1 over one MViTv2-S forward (17
     launches, as many again for dx in a train step), the wgrad kernel over
@@ -5572,8 +5802,9 @@ def kernels_line(records, launches, slowfast_launches, maskfeat_launches,
     (phases 4a-6a, 0: SlowFast's and Slow's convs are dense);
     "launches_dp_sp" MViT's dp_sp paths' (phase 8e, both ranks),
     "launches_dp_sp_uniformer" UniFormer's (18 K1 a forward, 18 wgrad a
-    step), "launches_dp_sp_conv" each conv family's (X3D-M 22, ir-CSN-101
-    30, the others 0), and "dp_sp" the sums over a rank's 17 launches under
+    step; 4 and 4 at its cut depth), "launches_dp_sp_conv"
+    each conv family's (X3D-M 11 and ir-CSN 5 K1 a forward at their cut
+    depths, the others 0), and "dp_sp" the sums over a rank's 17 launches under
     dp_sp (4 + 2 halo planes of the 8), bf16, per grid: the rect crop's and
     its transposes at batch 2 (8e's train step) and 4 (8e's run_net), and
     the 224^2 crop's at batch 8; then over UniFormer's 18 ("uniformer_*":
@@ -5587,7 +5818,12 @@ def kernels_line(records, launches, slowfast_launches, maskfeat_launches,
     run_net pair: MaskFeat PT 14 K1 a forward, MoCo, SimCLR, AVA, the
     features of MViTv2-S (17 K1 a forward) and multigrid);
     "launches_ssl_fsdp" the SSL steps' under fsdp (phase 8f:
-    MoCo 0, MaskFeat 14 a forward)."""
+    MoCo 0, MaskFeat 14 a forward); "launches_fsdp_model_axis" MViTv2-S's
+    under fsdp with a model axis (phase 8e's ``FSDP_RECIPE``, both ranks'
+    timed steps); "launches_pool_first_dropout" the paths of phase 3f (POOL_FIRST's eval
+    and train step, MViT's and UniFormer's dropout steps, the card's side
+    of each), and "pool_first_b2" the sums over POOL_FIRST's 17 launches at
+    batch 2 (block 14's K and V pools at its input's 384 channels), bf16."""
     maskfeat = maskfeat_kernel_ms(records)
 
     def entry(name, source, replaces, recs, basis):
@@ -5613,7 +5849,11 @@ def kernels_line(records, launches, slowfast_launches, maskfeat_launches,
             "launches_dp_sp_uniformer": sp_launches["uniformer"][name],
             "launches_dp_sp_conv": {recipe: launches[name] for recipe, launches
                                     in sp_launches.items()
-                                    if recipe not in ("mvit", "uniformer") + SP_TASKS},
+                                    if recipe not in ("mvit", "uniformer", FSDP_RECIPE)
+                                    + SP_TASKS},
+            "launches_fsdp_model_axis": sp_launches[FSDP_RECIPE][name],
+            "launches_pool_first_dropout": {k: v[name] for k, v
+                                            in pool_first_dropout_launches.items()},
             "launches_dp_sp_tasks": {recipe: sp_launches[recipe][name] for recipe in SP_TASKS},
             "launches_ssl_fsdp": ssl_fsdp_launches[name],
             "launches_maskfeat": maskfeat_launches[name],
@@ -5644,6 +5884,8 @@ def kernels_line(records, launches, slowfast_launches, maskfeat_launches,
                           "x3d_rect_b2", "x3d_portrait_b2", "x3d_rect_b4", "x3d_portrait_b4",
                           "x3d_square_b4", "csn_b2", "maskfeat_b2", "maskfeat_b4")
             },
+            "pool_first_b2": {key: summed(key, grid("pool_first_b2")) for key in (
+                "kernel_ms", "kernel_warm_ms", "plain_ms", "bound_ms", "library_ms")},
             # The rect grids at run_net's train batch of 16.
             "rect_b16_ms": summed("kernel_ms", grid("rect_b16")),
             "rect_b16_bound_ms": summed("bound_ms", grid("rect_b16")),
@@ -5757,24 +5999,30 @@ def main():
     by_model["mvit"] = time.perf_counter() - tic
     uni = uniformer_cfg()
     phase_full_model(uni, frames, UNIFORMER_K1, "uniformer_full_model_f32_b1")
-    phase_train_step_vs_cpu(uni, UNIFORMER_K1, "uniformer_train_step_f32_b2_card_vs_cpu")
-    phase_portrait_steps(uni, UNIFORMER_K1, "uniformer_")
+    phase_train_step_vs_cpu(shallow(uni), UNIFORMER_SHALLOW_K1,
+                            "uniformer_shallow_train_step_f32_b2_card_vs_cpu")
+    phase_portrait_steps(shallow(uni), UNIFORMER_SHALLOW_K1, "uniformer_shallow_")
     by_model["uniformer"] = time.perf_counter() - tic - sum(by_model.values())
     x3d = x3d_cfg()
     phase_full_model(x3d, frames, X3D_K1, "x3d_full_model_f32_b1")
-    phase_train_step_vs_cpu(x3d, X3D_K1, "x3d_train_step_f32_b2_card_vs_cpu")
-    phase_portrait_steps(x3d, X3D_K1, "x3d_")
-    phase_precise_bn(x3d, X3D_K1, "x3d_")
+    phase_train_step_vs_cpu(shallow(x3d), X3D_SHALLOW_K1,
+                            "x3d_shallow_train_step_f32_b2_card_vs_cpu")
+    phase_portrait_steps(shallow(x3d), X3D_SHALLOW_K1, "x3d_shallow_")
+    phase_precise_bn(shallow(x3d), X3D_SHALLOW_K1, "x3d_shallow_")
     by_model["x3d"] = time.perf_counter() - tic - sum(by_model.values())
     slowfast = slowfast_cfg()
     frames_32 = np.random.default_rng(1).integers(0, 256, (1, 32, 224, 224, 3), np.uint8)
     phase_full_model(slowfast, frames_32, SLOWFAST_K1, "slowfast_full_model_f32_b1")
-    phase_train_step_vs_cpu(slowfast, SLOWFAST_K1, "slowfast_train_step_f32_b2_card_vs_cpu")
-    phase_portrait_steps(slowfast, SLOWFAST_K1, "slowfast_")
-    phase_precise_bn(slowfast, SLOWFAST_K1, "slowfast_")
+    phase_train_step_vs_cpu(shallow(slowfast), SLOWFAST_K1,
+                            "slowfast_shallow_train_step_f32_b2_card_vs_cpu")
+    phase_portrait_steps(shallow(slowfast), SLOWFAST_K1, "slowfast_shallow_")
+    phase_precise_bn(shallow(slowfast), SLOWFAST_K1, "slowfast_shallow_")
     walls["card_vs_cpu_supervised"] = time.perf_counter() - tic
     by_model["slowfast"] = walls["card_vs_cpu_supervised"] - sum(by_model.values())
     walls["card_vs_cpu_supervised_by_model"] = by_model
+    tic = time.perf_counter()
+    pool_first_dropout_launches = phase_pool_first_dropout()
+    walls["card_vs_cpu_pool_first_dropout"] = time.perf_counter() - tic
     tic = time.perf_counter()
     phase_avslowfast_card_vs_cpu()
     walls["card_vs_cpu_avslowfast"] = time.perf_counter() - tic
@@ -5944,6 +6192,7 @@ def main():
         "inflated_uniformer_train": timed("inflated_uniformer_9e", phase_inflated_uniformer, card),
     }
     paths += [v for k, v in m19_launches.items() if k != "gradcam_card_vs_cpu"]
+    paths += list(pool_first_dropout_launches.values())
     launches = {k: sum(p[k] for p in paths) for k in paths[0]}
     slowfast_launches = {k: sum(p[k] for p in slowfast_paths) for k in paths[0]}
     avslowfast_launches = {k: sum(p[k] for p in avslowfast_paths) for k in paths[0]}
@@ -5963,7 +6212,7 @@ def main():
     line = kernels_line(records, launches, slowfast_launches, maskfeat_launches,
                         contrastive_launches, multigrid_launches, csn_launches,
                         avslowfast_launches, ava_launches, sp_launches, ssl_fsdp_launches,
-                        m19_launches)
+                        m19_launches, pool_first_dropout_launches)
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": card, "records": records, **line}, f, indent=1)

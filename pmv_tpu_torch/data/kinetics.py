@@ -37,7 +37,9 @@ A multigrid short cycle's sample comes indexed (index, phase) from the
 loader (``data/loader.py``), and phases 0 and 1 crop smaller
 (``_sample_params``).
 
-Not ported, raising NotImplementedError: DATA.DUMMY_LOAD.
+With DATA.DUMMY_LOAD the first sample decoded is returned for every later
+index (`kinetics.py:193-194, 243-244` of the JAX package): a loader
+benchmark without the decode.
 """
 
 import math
@@ -59,11 +61,10 @@ class Kinetics:
 
     def __init__(self, cfg, mode):
         assert mode in ["train", "val", "test"]
-        if cfg.DATA.DUMMY_LOAD:
-            raise NotImplementedError("DATA.DUMMY_LOAD is not ported")
         self.cfg = cfg
         self.mode = mode
         self.epoch = 0
+        self.dummy_output = None  # DATA.DUMMY_LOAD's first sample
         if mode in ["train", "val"]:
             self._num_clips = 1
         else:
@@ -190,6 +191,8 @@ class Kinetics:
         short_cycle_idx = None
         if isinstance(index, tuple):  # (index, short-cycle phase) of the loader
             index, short_cycle_idx = index
+        if self.cfg.DATA.DUMMY_LOAD and self.dummy_output is not None:
+            return self.dummy_output
         rng = np.random.default_rng((self.cfg.RNG_SEED, self.epoch, index))
         params = self._sample_params(index, short_cycle_idx)
         for i_try in range(self._NUM_RETRIES):
@@ -225,6 +228,8 @@ class Kinetics:
                 # Blockwise MaskFeat mask on the AUG.MASK_WINDOW_SIZE grid
                 # (`kinetics.py:542-578` _gen_mask), the sample's last draw.
                 sample["mask"] = masking.gen_mask(self.cfg, rng).reshape(-1).astype(bool)
+            if self.cfg.DATA.DUMMY_LOAD and self.dummy_output is None:
+                self.dummy_output = sample
             return sample
         raise RuntimeError(
             f"Failed to fetch video after {self._NUM_RETRIES} retries."

@@ -190,6 +190,7 @@ def make_masked_train_step(cfg, device=None, seed=0):
         loss = masked_loss(pred, target, mask, count) * rank_and_world_size()[1]
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        distributed.finish_grads(state.wrapped)  # FSDP under a model axis
         grad_norm = _grad_norm(model)
         optim.set_lr(optimizer, lr)
         optimizer.step(grad_norm=grad_norm)
@@ -278,7 +279,7 @@ def make_ssl_train_step(cfg, device=None, seed=0):
                 loss, z1 = state.wrapped(losses, *args)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
-        distributed.average_replicated_grads(state.wrapped)  # FSDP's whole prototypes
+        distributed.finish_grads(state.wrapped)  # FSDP's whole prototypes, a model axis
         grad_norm = _grad_norm(model)
         optim.set_lr(optimizer, lr)
         optimizer.step(grad_norm=grad_norm)

@@ -111,10 +111,11 @@ def train_ssl(cfg, device=None):
 
     model = build_model(cfg, device=device, seed=cfg.RNG_SEED)
     if cfg.LOG_MODEL_INFO:
-        misc.log_model_info(model)
+        misc.log_model_info(model, cfg)
     wrapped = None
     if rank_and_world_size()[1] > 1:
-        wrapped = distributed.wrap_model(model, cfg.TPU.SHARD_STRATEGY, device)
+        wrapped = distributed.wrap_model(model, cfg.TPU.SHARD_STRATEGY, device,
+                                           mesh.layout(cfg))
     if name == "MaskMViT":
         state = ssl_steps.init_masked_state(cfg, model, wrapped=wrapped)
         train_step = ssl_steps.make_masked_train_step(cfg, device=device, seed=cfg.RNG_SEED)

@@ -370,10 +370,15 @@ def local_draws(draws, start, stop, batch):
             out[key] = draws[key].rows(start, stop)
     if "time_diff" in draws:
         out["time_diff"] = draws["time_diff"][start:stop]
-    for key in ("drop_path", "dropout", "mask", "hog_bins"):
+    for key in ("drop_path", "dropout", "dropout_masks", "mask", "hog_bins"):
         if key in draws:
             out[key] = slice_rows(draws[key], start, stop, batch)
     return out
+
+
+# The forward's keyword arguments that hold per-row masks: a route passes
+# their rows with the rows of the clips.
+ROW_MASKS = ("drop_path_masks", "head_dropout_mask", "dropout_masks")
 
 
 def forward_by_orientation(model, x, pm, drop_path_masks=None, head_dropout_mask=None,
@@ -382,11 +387,12 @@ def forward_by_orientation(model, x, pm, drop_path_masks=None, head_dropout_mask
     a list of pathways) in its orientation: rows where ``pm`` (a host bool
     array, or None) is set run transposed through the portrait
     specialization (``hw_switch=True``), the others through the plain
-    forward; the outputs come back in batch order. ``kwargs`` go to the
-    model as they are (AVSlowFast's ``drop_pathway``)."""
+    forward; the outputs come back in batch order. The masks of
+    ``ROW_MASKS`` among ``kwargs`` go to the model by rows, the others as
+    they are (AVSlowFast's ``drop_pathway``)."""
+    kwargs.update(drop_path_masks=drop_path_masks, head_dropout_mask=head_dropout_mask)
     if pm is None:
-        return model(x, drop_path_masks=drop_path_masks,
-                     head_dropout_mask=head_dropout_mask, **kwargs)
+        return model(x, **kwargs)
     device = _device_of(x)
     groups = (np.flatnonzero(~pm), np.flatnonzero(pm))
     outs = []
@@ -396,10 +402,8 @@ def forward_by_orientation(model, x, pm, drop_path_masks=None, head_dropout_mask
         index = torch.as_tensor(rows, device=device)
         xg = _rows(x, index)
         outs.append(model(
-            _transposed(xg) if portrait else xg,
-            drop_path_masks=_rows(drop_path_masks, index),
-            head_dropout_mask=_rows(head_dropout_mask, index),
-            hw_switch=portrait, **kwargs,
+            _transposed(xg) if portrait else xg, hw_switch=portrait,
+            **{k: _rows(v, index) if k in ROW_MASKS else v for k, v in kwargs.items()},
         ))
     inverse = torch.as_tensor(np.argsort(np.concatenate(groups)), device=device)
     return torch.cat(outs).index_select(0, inverse)
@@ -413,13 +417,12 @@ def select_by_orientation(model, x, pm, drop_path_masks=None, head_dropout_mask=
     the transposed clip) with its BatchNorm running statistics left as they
     are, and per row the output of the row's orientation (``pm``, a host
     bool array, or None). ``kwargs`` go to the model as they are."""
-    land = model(x, drop_path_masks=drop_path_masks, head_dropout_mask=head_dropout_mask,
-                 **kwargs)
+    kwargs.update(drop_path_masks=drop_path_masks, head_dropout_mask=head_dropout_mask)
+    land = model(x, **kwargs)
     if pm is None:
         return land
     with frozen_stats(model):
-        port = model(_transposed(x), drop_path_masks=drop_path_masks,
-                     head_dropout_mask=head_dropout_mask, hw_switch=True, **kwargs)
+        port = model(_transposed(x), hw_switch=True, **kwargs)
     return torch.where(torch.as_tensor(pm, device=_device_of(x))[:, None], port, land)
 
 
@@ -500,6 +503,8 @@ def make_train_step(cfg, device=None, seed=0):
             extra["mixup"] = lambda g, _: mixup_fn.sample(shape[2], shape[3], g)
         extra["drop_path"] = lambda _, g: model.sample_drop_path_masks(shape[0], g, device)
         extra["dropout"] = lambda _, g: model.sample_head_dropout_mask(shape[0], g, device)
+        if hasattr(model, "sample_dropout_masks"):  # MViT's and UniFormer's dropouts
+            extra["dropout_masks"] = lambda _, g: model.sample_dropout_masks(shape, g, device)
         if hasattr(model, "sample_drop_pathway"):  # one decision for every rank
             extra["drop_pathway"] = lambda g, _: model.sample_drop_pathway(g)
         return draw(shape, given, step, extra)
@@ -533,6 +538,8 @@ def make_train_step(cfg, device=None, seed=0):
         refuse_portrait_audio(cfg, pm)
         audio = (audio_of(batch, "audio", device), audio_of(batch, "audio_mis", device))
         kwargs = dict(drop_path_masks=draws["drop_path"], head_dropout_mask=draws["dropout"])
+        if draws.get("dropout_masks") is not None:
+            kwargs["dropout_masks"] = draws["dropout_masks"]
         if "drop_pathway" in draws:
             kwargs["drop_pathway"] = draws["drop_pathway"]
         with frozen_stats(model, cfg.MODEL.FROZEN_BN), mesh.sequence_parallel(lay):
@@ -549,6 +556,7 @@ def make_train_step(cfg, device=None, seed=0):
             loss = loss + value
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        distributed.finish_grads(state.wrapped)  # FSDP under a model axis
         grad_norm = optim.global_norm(
             p.grad if p.grad is not None else torch.zeros_like(p)
             for p in model.parameters()
@@ -683,6 +691,7 @@ def make_detection_train_step(cfg, device=None, seed=0):
         loss = detection_loss(preds, labels, box_mask, lay)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        distributed.finish_grads(state.wrapped)  # FSDP under a model axis
         grad_norm = optim.global_norm(
             p.grad if p.grad is not None else torch.zeros_like(p)
             for p in model.parameters()

@@ -270,7 +270,7 @@ def test(cfg, device=None):
 
     model = build_model(cfg, device=device, seed=cfg.RNG_SEED)
     if cfg.LOG_MODEL_INFO:
-        misc.log_model_info(model)
+        misc.log_model_info(model, cfg)
     cu.load_test_checkpoint(cfg, model)
 
     if cfg.VIS_MASK.ENABLE and cfg.MODEL.MODEL_NAME == "MaskMViT":

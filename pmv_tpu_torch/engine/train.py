@@ -287,10 +287,11 @@ def train(cfg, device=None):
 
     model = build_model(cfg, device=device, seed=cfg.RNG_SEED)
     if cfg.LOG_MODEL_INFO:
-        misc.log_model_info(model)
+        misc.log_model_info(model, cfg)
     wrapped = None
     if rank_and_world_size()[1] > 1:
-        wrapped = distributed.wrap_model(model, cfg.TPU.SHARD_STRATEGY, device)
+        wrapped = distributed.wrap_model(model, cfg.TPU.SHARD_STRATEGY, device,
+                                           mesh.layout(cfg))
     state = steps.init_state(cfg, model, wrapped=wrapped)
     val_loader = loader_mod.construct_loader(cfg, "val")
 

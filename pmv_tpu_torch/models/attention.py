@@ -15,7 +15,11 @@ Not ported, because they are exact TPU layout rewrites of the same math:
 FusedQKVSplitDots (one ``qkv`` Linear here), SPARSE_KV_POOL (the full
 projection followed by the strided conv), FLAT_POOLS / FlatGroupLN, the 0/1
 rel-pos expansion matrix, q-chunked attention and the ``_DIAG_*`` switches.
-POOL_FIRST is not ported yet.
+
+MVIT.POOL_FIRST pools x itself, folded into the heads at the block's input
+width, and runs the ``q``, ``k`` and ``v`` linears on the pooled tokens
+(`attention.py:803-805, 865-875` of the JAX package); its stride-1 pools
+run K1 at the input width.
 
 Under temporal sequence parallelism (``parallel/mesh.py``) a rank holds
 the token planes of its T slice and the cls token: its pools run on the
@@ -159,6 +163,13 @@ class AttentionPool(nn.Module):
         if mode == "conv" and not self.identity:
             self.weight = nn.Parameter(torch.empty(head_dim, 1, *self.kernel))
 
+    def out_grid(self, thw):
+        """The (T, H, W) grid this pool gives on a grid ``thw``."""
+        if self.identity:
+            return tuple(thw)
+        return tuple((s + 2 * (k // 2) - k) // st + 1
+                     for s, k, st in zip(thw, self.kernel, self.stride))
+
     def forward(self, x, thw_shape, norm=None):
         if self.identity:
             return x, tuple(thw_shape)
@@ -227,8 +238,6 @@ class MultiScaleAttention(nn.Module):
         hw_switch=False,
     ):
         super().__init__()
-        if pool_first:
-            raise NotImplementedError("MVIT.POOL_FIRST is not ported yet")
         self.num_heads = num_heads
         self.dim_out = dim_out
         head_dim = dim_out // num_heads
@@ -236,6 +245,9 @@ class MultiScaleAttention(nn.Module):
         self.has_cls_embed = has_cls_embed
         self.residual_pooling = residual_pooling
         self.separate_qkv = separate_qkv
+        # POOL_FIRST: x itself, folded into the heads at dim, is pooled, and
+        # the q, k and v linears act on the pooled tokens.
+        self.pool_first = pool_first
         # hw_switch (the reference's switch-auto): on a portrait grid
         # (H > W) the H axis uses the W table and vice versa.
         self.hw_switch = hw_switch
@@ -243,7 +255,7 @@ class MultiScaleAttention(nn.Module):
         self.rel_pos_temporal = rel_pos_temporal
         self.rel_pos_zero_init = rel_pos_zero_init
 
-        if separate_qkv:
+        if separate_qkv or pool_first:
             self.q = Linear(dim, dim_out, bias=qkv_bias)
             self.k = Linear(dim, dim_out, bias=qkv_bias)
             self.v = Linear(dim, dim_out, bias=qkv_bias)
@@ -252,15 +264,16 @@ class MultiScaleAttention(nn.Module):
         self.proj = Linear(dim_out, dim_out)
         self.proj_drop = Dropout(drop_rate)
 
+        pool_dim = dim // num_heads if pool_first else head_dim
         for name, kernel, stride in (
             ("q", kernel_q, stride_q),
             ("k", kernel_kv, stride_kv),
             ("v", kernel_kv, stride_kv),
         ):
-            pool = AttentionPool(kernel, stride, mode, has_cls_embed, head_dim)
+            pool = AttentionPool(kernel, stride, mode, has_cls_embed, pool_dim)
             setattr(self, f"pool_{name}", pool)
             norm = (
-                LayerNorm(head_dim)
+                LayerNorm(pool_dim)
                 if mode == "conv" and not pool.identity
                 else None
             )
@@ -278,12 +291,16 @@ class MultiScaleAttention(nn.Module):
                 torch.zeros(2 * input_size[0] - 1, head_dim)
             )
 
-    def forward(self, x, thw_shape, hw_switch=False):
+    def forward(self, x, thw_shape, hw_switch=False, proj_mask=None):
         """``hw_switch`` sets the table swap for this call, on top of the
-        module's own (the portrait specialization shares the parameters)."""
+        module's own (the portrait specialization shares the parameters).
+        ``proj_mask``: the projection's dropout keep mask [B, N_q, dim_out]
+        of the clip, in training at a rate above 0."""
         b, n, _ = x.shape
         heads = self.num_heads
-        if self.separate_qkv:
+        if self.pool_first:
+            q = k = v = x.reshape(b, n, heads, -1)
+        elif self.separate_qkv:
             q, k, v = (
                 proj(x).reshape(b, n, heads, -1)
                 for proj in (self.q, self.k, self.v)
@@ -294,6 +311,9 @@ class MultiScaleAttention(nn.Module):
         q, q_shape = self.pool_q(q, thw_shape, self.norm_q)
         k, k_shape = self.pool_k(k, thw_shape, self.norm_k)
         v, _ = self.pool_v(v, thw_shape, self.norm_v)
+        if self.pool_first:
+            q, k, v = (proj(t.flatten(2)).unflatten(2, (heads, -1))
+                       for proj, t in ((self.q, q), (self.k, k), (self.v, v)))
         q_t_total, q_t_offset = q_shape[0], 0
         lay = mesh.active()
         if lay is not None:
@@ -331,7 +351,9 @@ class MultiScaleAttention(nn.Module):
             else:
                 x = x + q
 
-        x = self.proj_drop(self.proj(x.reshape(b, -1, self.dim_out)))
+        proj_mask = mesh.local_planes(proj_mask, 1, q_shape[1] * q_shape[2],
+                                      1 if self.has_cls_embed else 0)
+        x = self.proj_drop(self.proj(x.reshape(b, -1, self.dim_out)), proj_mask)
         return x, q_shape
 
 
@@ -410,10 +432,24 @@ class MultiScaleBlock(nn.Module):
             self.drop_path2.sample(batch, generator, device),
         )
 
-    def forward(self, x, thw_shape, drop_path_masks=None, hw_switch=False):
+    def sample_dropout_masks(self, batch, thw, generator, device=None):
+        """(the grid after this block, the keep masks of its dropouts for one
+        train-mode forward on ``batch`` clips of the grid ``thw``: the
+        attention projection's [B, N_q, att_dim], then the MLP's two) or
+        (grid, None) when MVIT.DROPOUT_RATE is 0."""
+        thw = self.attn.pool_q.out_grid(thw)
+        rows = (batch, int(np.prod(thw)) + (1 if self.has_cls_embed else 0))
+        if self.attn.proj_drop.rate == 0.0:
+            return thw, None
+        return thw, (self.attn.proj_drop.sample((*rows, self.attn.dim_out), generator, device),
+                     *self.mlp.sample_dropout_masks(rows, generator, device))
+
+    def forward(self, x, thw_shape, drop_path_masks=None, hw_switch=False,
+                dropout_masks=None):
         mask1, mask2 = drop_path_masks or (None, None)
+        proj_mask, *mlp_masks = dropout_masks or (None, None, None)
         x_norm = self.norm1(x)
-        x_block, thw_shape_new = self.attn(x_norm, thw_shape, hw_switch)
+        x_block, thw_shape_new = self.attn(x_norm, thw_shape, hw_switch, proj_mask)
         if self.dim_mul_in_att and self.dim != self.dim_out:
             x = self.proj(x_norm)
         if self.pool_skip:
@@ -428,7 +464,8 @@ class MultiScaleBlock(nn.Module):
             x_block = self.gamma_1.to(x_block.dtype) * x_block
         x = x + self.drop_path1(x_block, mask1)
         x_norm = self.norm2(x)
-        x_mlp = self.mlp(x_norm)
+        plane, cls = thw_shape_new[1] * thw_shape_new[2], 1 if self.has_cls_embed else 0
+        x_mlp = self.mlp(x_norm, [mesh.local_planes(m, 1, plane, cls) for m in mlp_masks])
         if not self.dim_mul_in_att and self.dim != self.dim_out:
             x = self.proj(x_norm)
         if self.gamma_2 is not None:

@@ -107,7 +107,9 @@ def channels_last_conv3d(x, w, bias=None, stride=(1, 1, 1), padding=(0, 0, 0),
     ``mesh.sequence_parallel`` ``x`` is a rank's T slice, and a conv of T
     kernel or stride above 1 runs on it extended by its halo
     (``conv_on_extended``; none for a T kernel of 1, whose stride must
-    divide the rank's planes)."""
+    divide the rank's planes). A ``meta`` tensor, which holds a shape and
+    computes nothing (``utils/misc.py::model_stats`` counts the ops), takes
+    ``F.conv3d`` for K1's conv."""
     w = w.to(x.dtype)
     bias = None if bias is None else bias.to(x.dtype)
     if mesh.active() is not None and (w.shape[2] > 1 or stride[0] > 1):
@@ -115,7 +117,7 @@ def channels_last_conv3d(x, w, bias=None, stride=(1, 1, 1), padding=(0, 0, 0),
                                     dilation[0])
         return conv_on_extended(mesh.extend_t(x, left, right), w, bias, stride, padding,
                                 dilation, groups, out)
-    if on_k1(x.shape[-1], w, stride, padding, dilation, groups):
+    if on_k1(x.shape[-1], w, stride, padding, dilation, groups) and x.device.type != "meta":
         return _k1(x, w, bias)
     return _f_conv3d(x, w, bias, stride, padding, dilation, groups)
 
@@ -196,9 +198,20 @@ class Mlp(nn.Module):
         self.fc2 = Linear(hidden_features, out_features)
         self.drop = Dropout(drop_rate)
 
-    def forward(self, x):
+    def forward(self, x, masks=None):
+        """``masks``: the two dropouts' keep masks (``sample_dropout_masks``)
+        in training at a rate above 0."""
+        m1, m2 = masks or (None, None)
         x = F.gelu(self.fc1(x), approximate="tanh")
-        return self.drop(self.fc2(self.drop(x)))
+        return self.drop(self.fc2(self.drop(x, m1)), m2)
+
+    def sample_dropout_masks(self, rows, generator, device=None):
+        """The keep masks of the two dropouts on ``rows`` ([B, N] or [B, T,
+        H, W]) of tokens: [*rows, hidden] and [*rows, out]; None at rate 0."""
+        if self.drop.rate == 0.0:
+            return None
+        return (self.drop.sample((*rows, self.fc1.out_features), generator, device),
+                self.drop.sample((*rows, self.fc2.out_features), generator, device))
 
 
 class DropPath(Dropout):

@@ -287,16 +287,6 @@ class MViT(nn.Module):
             pos = torch.cat([cls_pos, pos], dim=1)
         return pos
 
-    @staticmethod
-    def _planes_of(pos, thw, lay):
-        """The rows of a clip's token table ``pos`` [1, T * H * W, D] (t-major)
-        that hold a rank's planes of the grid ``thw`` (its own T): all of them
-        outside sequence parallelism."""
-        if lay is None:
-            return pos
-        plane = thw[1] * thw[2]
-        return pos[:, lay.model * thw[0] * plane:(lay.model + 1) * thw[0] * plane]
-
     def sample_drop_path_masks(self, batch, generator, device=None):
         """Per block, the DropPath keep masks of one train-mode forward
         (``MultiScaleBlock.sample_drop_path_masks``), drawn from
@@ -311,20 +301,39 @@ class MViT(nn.Module):
         forward, or None when MODEL.DROPOUT_RATE is 0."""
         return self.head.dropout.sample((batch, self.head.dim_in), generator, device)
 
+    def sample_dropout_masks(self, shape, generator, device=None):
+        """The keep masks of MVIT.DROPOUT_RATE's dropouts for one train-mode
+        forward on clips of ``shape`` ([B, T, H, W, C]; the whole clip under
+        sequence parallelism, whose forward takes its rank's planes of
+        them), in the JAX package's order: the embedding's [B, N, D], then
+        per block ``MultiScaleBlock.sample_dropout_masks``; None at rate 0."""
+        if self.pos_drop.rate == 0.0:
+            return None
+        thw = self.patch_embed.out_grid(shape[1:4])
+        rows = (shape[0], int(np.prod(thw)) + (1 if self.cls_on else 0))
+        masks = [self.pos_drop.sample((*rows, self.patch_embed.proj.out_channels), generator,
+                                      device)]
+        for block in self.blocks:
+            thw, block_masks = block.sample_dropout_masks(shape[0], thw, generator, device)
+            masks.append(block_masks)
+        return masks
+
     def forward(self, x, return_features=False, drop_path_masks=None,
-                head_dropout_mask=None, hw_switch=False):
+                head_dropout_mask=None, hw_switch=False, dropout_masks=None):
         """In train mode, ``drop_path_masks`` (one entry per block, from
-        ``sample_drop_path_masks``) when MVIT.DROPPATH_RATE > 0, and
+        ``sample_drop_path_masks``) when MVIT.DROPPATH_RATE > 0,
         ``head_dropout_mask`` (``sample_head_dropout_mask``) when
-        MODEL.DROPOUT_RATE > 0. MVIT.DROPOUT_RATE > 0 is not ported for
-        training yet. ``hw_switch`` runs the portrait specialization: the
-        rel-pos H and W tables swap on grids with H > W."""
+        MODEL.DROPOUT_RATE > 0, and ``dropout_masks``
+        (``sample_dropout_masks``) when MVIT.DROPOUT_RATE > 0.
+        ``hw_switch`` runs the portrait specialization: the rel-pos H and W
+        tables swap on grids with H > W."""
         lay = mesh.active()
         x, thw = self.patch_embed(x.to(self.compute_dtype))
         b, _, c = x.shape
         s = 1 if self.cls_on else 0
+        plane = thw[1] * thw[2]  # a clip's tables cut to this rank's planes
         if self.pos_fixed is not None:
-            x = x + self._planes_of(self.pos_fixed[:, s:], thw, lay).to(x.dtype)
+            x = x + mesh.local_planes(self.pos_fixed[:, s:], 1, plane).to(x.dtype)
         if self.cls_on:
             cls_tokens = self.cls_token.to(x.dtype).expand(b, -1, -1)
             if self.pos_fixed is not None:
@@ -332,16 +341,15 @@ class MViT(nn.Module):
             x = torch.cat([cls_tokens, x], dim=1)
         if self.use_abs_pos:
             clip = thw if lay is None else (thw[0] * lay.model_size, *thw[1:])
-            pos = self._abs_pos_embed(clip)
-            pos = torch.cat([pos[:, :s], self._planes_of(pos[:, s:], thw, lay)], dim=1)
-            x = x + pos.to(x.dtype)
-        x = self.pos_drop(x)
+            x = x + mesh.local_planes(self._abs_pos_embed(clip), 1, plane, s).to(x.dtype)
+        pos_mask, *dropouts = dropout_masks or [None] * (len(self.blocks) + 1)
+        x = self.pos_drop(x, mesh.local_planes(pos_mask, 1, plane, s))
         if self.norm_stem is not None:
             x = self.norm_stem(x)
 
         masks = drop_path_masks or [None] * len(self.blocks)
-        for block, block_masks in zip(self.blocks, masks):
-            x, thw = block(x, thw, block_masks, hw_switch)
+        for block, block_masks, block_dropouts in zip(self.blocks, masks, dropouts):
+            x, thw = block(x, thw, block_masks, hw_switch, block_dropouts)
         x = self.features(x)
         if return_features:
             return x, thw

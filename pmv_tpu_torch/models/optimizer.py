@@ -105,10 +105,11 @@ def make_layer_decay_scales(model, cfg):
 def global_norm(tensors):
     """sqrt of the sum of squares over all ``tensors`` (optax global_norm),
     as the norm of the per-tensor norms; over every shard of the sharded
-    ones; float32, or float64 for float64 tensors. On the CPU each tensor's
-    norm sums in float64: PyTorch's CPU float32 norm sums in order, and
-    read MaskFeat's float32 gradients' norm 1.6e-5 to 2.0e-5 low, where the
-    card's lies within 3e-7 of float64's (PERF.md, ``tools/op_witness.py``)."""
+    ones (``distributed.shard_sum``: FSDP's group); float32, or float64 for
+    float64 tensors. On the CPU each tensor's norm sums in float64:
+    PyTorch's CPU float32 norm sums in order, and read MaskFeat's float32
+    gradients' norm 1.6e-5 to 2.0e-5 low, where the card's lies within 3e-7
+    of float64's (PERF.md, ``tools/op_witness.py``)."""
     tensors = list(tensors)
     local = [distributed.local(t) for t in tensors]
     dtype = torch.promote_types(local[0].dtype, torch.float32) if local else torch.float32
@@ -119,9 +120,10 @@ def global_norm(tensors):
     sharded = [distributed.is_sharded(t) for t in tensors]
     if not any(sharded):
         return torch.linalg.vector_norm(norms)
+    like = tensors[sharded.index(True)]
     sharded = torch.tensor(sharded, device=norms.device)
     squares = norms.square()
-    total = distributed.all_reduce_sum(torch.where(sharded, squares, 0.0).sum())
+    total = distributed.shard_sum(torch.where(sharded, squares, 0.0).sum(), like)
     return (total + torch.where(sharded, 0.0, squares).sum()).sqrt()
 
 
@@ -249,7 +251,7 @@ def _trust_ratio(p, u):
 
     def norm(t):
         n = torch.linalg.vector_norm(t, dtype=torch.float64)
-        return distributed.all_reduce_sum(n.square()).sqrt() if sharded else n
+        return distributed.shard_sum(n.square(), p).sqrt() if sharded else n
 
     p_norm = norm(distributed.local(p))
     u_norm = norm(u)

@@ -32,6 +32,15 @@ class PatchEmbed(nn.Module):
         self.proj = conv(dim_in, dim_out, tuple(kernel), tuple(stride),
                          tuple(padding))
 
+    def out_grid(self, thw):
+        """The (T', H', W') grid of the tokens from a clip of ``thw``."""
+        p = self.proj
+        thw = list(thw)
+        sizes = thw[1:] if self.conv_2d else thw
+        out = [(s + 2 * pd - k) // st + 1
+               for s, k, st, pd in zip(sizes, p.kernel_size, p.stride, p.padding)]
+        return tuple(thw[:1] + out if self.conv_2d else out)
+
     def forward(self, x):
         p = self.proj
         if self.conv_2d:

@@ -101,6 +101,15 @@ MASKFEAT_POOL_SHAPES = (
     ((8, 8, 14, 14, 384), 10),  # q-pools, blocks 4-13
     ((8, 8, 14, 14, 768), 2),   # q-pools, blocks 14-15
 )
+# MVIT.POOL_FIRST pools x at each block's input width: block 14's K and V
+# pools run at its input's 384 channels (768 without it), the others as
+# above; at the 2 clips of chip_smoke.py's POOL_FIRST train step.
+MVIT_POOL_FIRST_SHAPES = (
+    ((2, 8, 56, 56, 96), 1),    # q-pool, block 0
+    ((2, 8, 28, 28, 192), 1),   # q-pool, block 2
+    ((2, 8, 14, 14, 384), 12),  # q-pools, blocks 4-13; K and V pools, block 14
+    ((2, 8, 7, 7, 768), 3),     # q, K and V pools, block 15
+)
 # The same at the PMV rect crop (DATA.TRAIN_CROP_SIZE_RECT [256, 192],
 # exps/PMV/run_MViT_PMV.sh): H > W, so the rel-pos tables swap under
 # SWITCH_AUTO; then its transposes, the grids of the portrait rows, which

@@ -49,7 +49,11 @@ global batch are split over a data group as over the world under dp
 (``partner_rows``, ``gather_rows``, ``all_reduce_sum`` and
 ``all_reduce_mean`` take a layout for that): every sum, gather and count
 over the batch runs over the data group, since the world holds each row
-once a model index.
+once a model index. TPU.MESH_SHAPE with a "model" axis lays the same grid
+under "dp" (DDP over the world, as under "dp_sp") and "fsdp": there FSDP2
+shards the parameters over each rank's data group alone, as the JAX
+package's ``param_sharding`` shards over "data", and ``finish_grads``
+sums the model group's partial gradients after the backward.
 """
 
 import contextlib
@@ -274,12 +278,15 @@ def lockstep(loader):
 class Routed(nn.Module):
     """Holds the model, and runs ``route(model, *args, **kwargs)`` inside
     one call of itself: DDP expects one forward per backward, and a
-    portrait step may run the model twice."""
+    portrait step may run the model twice. Under FSDP it names what
+    ``finish_grads`` completes: the parameters left whole, and the model
+    group that the sharded gradients are summed over."""
 
-    def __init__(self, model, replicated=()):
+    def __init__(self, model, replicated=(), model_group=None):
         super().__init__()
         self.model = model
-        self.replicated = list(replicated)  # see average_replicated_grads
+        self.replicated = list(replicated)
+        self.model_group = model_group
 
     def forward(self, route, *args, **kwargs):
         return route(self.model, *args, **kwargs)
@@ -301,13 +308,13 @@ def block_types():
 
 
 def check_sequence_parallel(cfg, frames=None, what="DATA.NUM_FRAMES"):
-    """Raise ValueError where a dp_sp job of ``cfg`` over several processes
-    cannot cut a clip of ``frames`` (DATA.NUM_FRAMES by default; ``what``
-    names them) over its model axis: the frames must split evenly over it;
-    for SlowFast and AVSlowFast SLOWFAST.ALPHA must divide a rank's frames
+    """Raise ValueError where a job of ``cfg`` over several processes with a
+    model axis (dp_sp's, or TPU.MESH_SHAPE's under any strategy) cannot cut
+    a clip of ``frames`` (DATA.NUM_FRAMES by default; ``what`` names them)
+    over it: the frames must split evenly over it; for SlowFast and
+    AVSlowFast SLOWFAST.ALPHA must divide a rank's frames
     (``engine/steps.py::slow_frames``), for the MViT family (a MaskMViT, a
-    contrastive MViT) the patch's T stride. A model axis under another
-    strategy raises NotImplementedError (``mesh.model_size``)."""
+    contrastive MViT) the patch's T stride."""
     world = world_size_of(cfg)
     if world == 1:
         return
@@ -323,25 +330,29 @@ def check_sequence_parallel(cfg, frames=None, what="DATA.NUM_FRAMES"):
         multiple, name = 1, ""
     if frames % size or frames // size % multiple:
         raise ValueError(
-            f"{what} {frames} under TPU.SHARD_STRATEGY dp_sp: a rank takes {frames} / "
+            f"{what} {frames} under TPU.SHARD_STRATEGY {cfg.TPU.SHARD_STRATEGY} with a model "
+            f"axis of {size}: a rank takes {frames} / "
             f"{size} frames of a clip, which must be a whole number"
             + (f" and a multiple of {name} {multiple}" if multiple > 1 else ""))
 
 
-def wrap_model(model, strategy, device):
+def wrap_model(model, strategy, device, lay=None):
     """The module a train step calls (``Routed``): under "dp" the model in
     ``DistributedDataParallel`` (buffers not broadcast: every rank moves its
     BatchNorm statistics by the same global batch statistics); under "fsdp"
     the model with its parameters sharded by ``fully_shard``, block by
     block, then the root. Under "fsdp" a model may also name
     ``replicated_parameters()``, which stay whole on every rank
-    (``average_replicated_grads`` averages their gradients), and
-    ``sharded_buffers()``, (buffer name, parameter) pairs, each buffer then
-    laid out as its parameter's shards are. Under "dp_sp" (any model) as
-    under "dp", over the whole world, since the parameters are replicated
-    over the grid. ``model`` stays the module that holds the parameters
-    (FSDP's are sharded ``DTensor``s); its parameter and buffer names do not
-    change."""
+    (``finish_grads`` averages their gradients), and ``sharded_buffers()``,
+    (buffer name, parameter) pairs, each buffer then laid out as its
+    parameter's shards are. Under "dp_sp" (any model) as under "dp", over
+    the whole world, since the parameters are replicated over the grid;
+    so too under "dp" with a model axis. Under "fsdp" with a model axis
+    (``lay``, a ``mesh.Layout``) the parameters are sharded over this
+    rank's data group only (``mesh.fsdp_mesh``) and replicated over its
+    model group, whose partial gradients ``finish_grads`` sums. ``model``
+    stays the module that holds the parameters (FSDP's are sharded
+    ``DTensor``s); its parameter and buffer names do not change."""
     if strategy == "dp_sp":
         strategy = "dp"
     if strategy == "dp":
@@ -354,28 +365,55 @@ def wrap_model(model, strategy, device):
         from torch.distributed.fsdp import fully_shard
 
         world = rank_and_world_size()[1]
-        mesh = init_device_mesh(device.type, (world,))
+        axis = lay is not None and lay.sequence_parallel
+        dmesh = (mesh.fsdp_mesh(lay, device.type, DEFAULT_TIMEOUT) if axis
+                 else init_device_mesh(device.type, (world,)))
         replicated = list(getattr(model, "replicated_parameters", tuple)())
         for module in [m for m in model.modules() if isinstance(m, block_types())]:
-            fully_shard(module, mesh=mesh)
-        fully_shard(model, mesh=mesh,
+            fully_shard(module, mesh=dmesh)
+        fully_shard(model, mesh=dmesh,
                     **({"ignored_params": set(replicated)} if replicated else {}))
         for name, p in getattr(model, "sharded_buffers", tuple)():
             owner, _, leaf = name.rpartition(".")
             model.get_submodule(owner).register_buffer(
                 leaf, shard_like(model.get_buffer(name), p))
-        return Routed(model, replicated if world > 1 else ())
+        return Routed(model, replicated if world > 1 else (),
+                      mesh.group(lay, "model") if axis else None)
     raise ValueError(f"TPU.SHARD_STRATEGY {strategy!r}: use dp, fsdp or dp_sp")
 
 
-def average_replicated_grads(wrapped):
-    """The mean over the ranks of the gradients of the parameters that
-    ``wrap_model`` left whole under FSDP (``wrapped.replicated``), as DDP
-    averages every gradient; nothing for another ``wrapped`` (DDP's, or
-    None)."""
+def finish_grads(wrapped):
+    """Complete the gradients that FSDP leaves partial (``wrapped``, a
+    ``wrap_model`` result): the mean over the ranks of those of the
+    parameters it left whole (``wrapped.replicated``), as DDP averages
+    every gradient; with a model axis, the mean over the model group of
+    each sharded gradient, which FSDP reduced over the data group only:
+    together the mean over the world, DDP's under dp_sp. Nothing for
+    another ``wrapped`` (DDP's, or None)."""
     for p in getattr(wrapped, "replicated", ()):
         if p.grad is not None:
             p.grad.copy_(all_reduce_mean(p.grad))
+    group = getattr(wrapped, "model_group", None)
+    if group is None:
+        return
+    grads = [local(p.grad) for p in wrapped.model.parameters()
+             if p.grad is not None and is_sharded(p.grad)]
+    if grads:
+        flat = torch.cat([g.flatten() for g in grads])
+        dist.all_reduce(flat, group=group)
+        flat /= dist.get_world_size(group)
+        torch._foreach_copy_(grads, [part.view_as(g) for part, g in zip(
+            flat.split([g.numel() for g in grads]), grads)])
+
+
+def shard_sum(t, like):
+    """``t``, a sum over this rank's shards of ``like`` (sharded ``DTensor``
+    parameters or gradients), summed over the ranks that hold ``like``'s
+    other shards: FSDP's group (the world, or the data group under a model
+    axis)."""
+    t = t.clone()
+    dist.all_reduce(t, group=like.device_mesh.get_group())
+    return t
 
 
 def _reshard(model):

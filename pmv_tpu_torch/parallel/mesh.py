@@ -12,7 +12,9 @@ collectives themselves:
 
 - Grid. Rank r of a world of W sits at (d, m) = (r // M, r % M) of a
   [W / M, M] grid (``grid``, ``layout_of``); an odd world under dp_sp runs
-  as dp, as ``create_mesh`` lays a 1-D mesh then. Every rank of a model
+  as dp, as ``create_mesh`` lays a 1-D mesh then. TPU.MESH_SHAPE's "model"
+  axis lays the grid under any strategy (under fsdp the parameters are
+  sharded over the data group, ``fsdp_mesh``). Every rank of a model
   group (one data index d) holds the same rows of the global batch; rank m
   of it holds token planes [m T / M, (m + 1) T / M) of every activation,
   frames first (``Layout.planes``), and the cls token whole. A data group
@@ -71,6 +73,7 @@ logger = pmv_logging.get_logger(__name__)
 DEFAULT_MODEL_SIZE = 2  # create_mesh's "model" axis under dp_sp
 
 _groups = {}  # model size -> {"model", "data", "partner"}: this rank's groups
+_fsdp_meshes = {}  # (model size, device type) -> this rank's DeviceMesh for FSDP
 _active = None  # the Layout of the forward under way, or None
 _rows = None  # the Layout of the whole_rows forward under way, or None
 _logged_fallback = []
@@ -102,8 +105,10 @@ class Layout:
 
 def model_size(cfg, world):
     """The size of the grid's "model" axis for ``cfg`` over ``world``
-    processes: TPU.MESH_SHAPE's "model" entry where the mesh is given, else
-    2 under dp_sp on an even world, else 1 (``create_mesh``'s rule)."""
+    processes: TPU.MESH_SHAPE's "model" entry where the mesh is given,
+    whatever the strategy (``batch_sharding`` cuts T over it under dp and
+    fsdp too), else 2 under dp_sp on an even world, else 1
+    (``create_mesh``'s rule)."""
     strategy = cfg.TPU.SHARD_STRATEGY
     if len(cfg.TPU.MESH_SHAPE):
         shape, axes = [int(s) for s in cfg.TPU.MESH_SHAPE], list(cfg.TPU.MESH_AXES)
@@ -113,10 +118,6 @@ def model_size(cfg, world):
         size = shape[axes.index("model")] if "model" in axes else 1
     else:
         size = DEFAULT_MODEL_SIZE if strategy == "dp_sp" and world % 2 == 0 else 1
-    if size > 1 and strategy != "dp_sp":
-        raise NotImplementedError(
-            f"a model axis of {size} under TPU.SHARD_STRATEGY {strategy}: temporal "
-            "sequence parallelism runs under dp_sp")
     return size
 
 
@@ -184,6 +185,29 @@ def make_groups(rank, world, size, timeout):
 
 def clear_groups():
     _groups.clear()
+    _fsdp_meshes.clear()
+
+
+def fsdp_mesh(lay, device_type, timeout=None):
+    """The ``DeviceMesh`` that FSDP shards the parameters over under the
+    grid of ``lay``: this rank's data group (the ranks of its model index),
+    as the JAX package's ``param_sharding`` shards over "data" alone; the
+    parameters are replicated over the model group. The groups are NCCL's on
+    CUDA (FSDP2's all-gather and reduce-scatter of CUDA tensors have no gloo
+    route; a data group of one rank is a communicator of one, which two
+    ranks sharing a card may each hold), the job's backend on the CPU.
+    Every rank makes them, on its first call, in the same order."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    key = (lay.model_size, device_type)
+    if key not in _fsdp_meshes:
+        rank = dist.get_rank()
+        backend = "nccl" if device_type == "cuda" else None
+        for col in grid(lay.data_size * lay.model_size, lay.model_size).T.tolist():
+            group = dist.new_group(col, backend=backend, timeout=timeout)
+            if rank in col:
+                _fsdp_meshes[key] = DeviceMesh.from_group(group, device_type, mesh=col)
+    return _fsdp_meshes[key]
 
 
 def group(lay, kind):
@@ -235,6 +259,19 @@ def whole_rows(lay):
 def rows():
     """The layout of the ``whole_rows`` forward under way, or None."""
     return _rows
+
+
+def local_planes(t, dim, per_plane=1, lead=0):
+    """The part of ``t`` that this rank's planes of the sequence-parallel
+    forward under way hold, along ``dim``: there ``t`` holds ``lead``
+    entries that every rank keeps (a cls token), then the clip's planes,
+    ``per_plane`` entries each, in T order (a dropout mask drawn for the
+    clip). ``t`` itself outside sequence parallelism, or when None."""
+    if t is None or _active is None:
+        return t
+    start, stop = _active.planes((t.shape[dim] - lead) // per_plane)
+    body = t.narrow(dim, lead + start * per_plane, (stop - start) * per_plane)
+    return torch.cat([t.narrow(dim, 0, lead), body], dim) if lead else body
 
 
 def _required():

@@ -343,3 +343,23 @@ def test_kinetics_retries_replace_a_missing_video_in_train_mode(pm_data, tmp_pat
     test = build_dataset("kinetics", port_cfg(cfg), "test")
     with pytest.raises(RuntimeError, match="retries"):
         test[0]
+
+
+@pytest.mark.parametrize("mode", ["train", "test"])
+def test_dummy_load_returns_the_first_sample_as_jax(pm_data, mode):
+    """DATA.DUMMY_LOAD: the first sample decoded, returned for every later
+    index; in test mode (no draws) the same sample as JAX's Kinetics on the
+    same CSV and decoder."""
+    cfg = _kinetics_cfg(pm_data, **{"DATA.DUMMY_LOAD": True})
+    ours = build_dataset("kinetics", port_cfg(cfg), mode)
+    first = ours[3]
+    assert first["index"] == 3
+    for i in (0, 5, 3):
+        assert ours[i] is first
+    if mode == "test":
+        ref = jax_build_dataset("kinetics", cfg, mode)
+        want = ref[3]
+        assert ref[0] is want
+        assert (first["label"], first["index"], first["pm"]) == (
+            want["label"], want["index"], want["pm"])
+        np.testing.assert_array_equal(first["frames"], want["frames"])

@@ -116,14 +116,17 @@ _SHAPES = {}
 
 
 def _variables(name, cfg, jmodel, seed, dtype=np.float32):
-    if name not in _SHAPES:
+    # Keyed by the whole cfg: another file's cfg of the same name (80 classes,
+    # other frames) must not hand its tree to this file's.
+    key = (name, cfg.dump())
+    if key not in _SHAPES:
         b = _batch(0)
-        _SHAPES[name] = jax.eval_shape(
+        _SHAPES[key] = jax.eval_shape(
             lambda x: jmodel.init(jax.random.PRNGKey(0), x, train=False,
                                   boxes=b["boxes"], box_mask=b["box_mask"]),
             _jax_inputs(cfg, b["frames"]))
     return jax.tree_util.tree_map(lambda a: np.asarray(a, dtype),
-                                  draw_variables(dict(_SHAPES[name]), seed))
+                                  draw_variables(dict(_SHAPES[key]), seed))
 
 
 def _assert_stats(model, batch_stats):

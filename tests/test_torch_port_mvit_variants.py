@@ -3,7 +3,7 @@
 Positional embeddings (absolute, separable, fixed sin-cos), mean pooling,
 no cls token with a stem norm and layer scale, the 2-D patch stem, and a
 portrait clip fed to a landscape-built model (rel-pos tables and the
-absolute embedding resized to the runtime grid). Tiny widths, float32 on
+absolute embedding resized to the runtime grid), MVIT.POOL_FIRST. Tiny widths, float32 on
 the CPU, random numpy weights; atol 2e-4, rtol 1e-4 on the class scores.
 """
 
@@ -36,6 +36,9 @@ VARIANTS = {
     "abs_pos_portrait_input": {
         "MVIT.USE_ABS_POS": True, "DATA.TEST_CROP_SIZE_RECT": [16, 24],
     },
+    # x pooled at the block's input width, the q/k/v linears after the pools;
+    # with the rel-pos tables and residual pooling of MViTv2-S.
+    "pool_first": {"MVIT.POOL_FIRST": True},
 }
 
 

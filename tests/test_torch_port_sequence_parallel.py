@@ -20,8 +20,13 @@
   the tasks).
 - 4 ranks, a grid of data 2 x model 2, one spawn: the data groups' rows,
   MixUp's partner rows across them, and one train step of MViT and one of
-  UniFormer (BatchNorm over the 4 ranks' planes) equal to the port's
-  one-process step on the global batch.
+  UniFormer (BatchNorm over the 4 ranks' planes; their dropouts' masks
+  drawn for the global batch, cut to a rank's rows and planes) equal to
+  the port's one-process step on the global batch; the same steps under
+  fsdp with TPU.MESH_SHAPE [2, 2] (the parameters sharded over the data
+  group) equal to it and to dp_sp's; a checkpoint of each strategy loaded
+  under the other; MoCo's momentum buffers under fsdp over the data group.
+  A model axis under fsdp and dp lays the grid of ``create_mesh``.
 - ``run_net`` with NUM_GPUS 2 and TPU.SHARD_STRATEGY dp_sp on the tiny
   yaml at 4 frames (2 token planes, one a rank): train, the gathered eval,
   one checkpoint written by rank 0, the test; its test_final equals one
@@ -194,10 +199,25 @@ def test_an_odd_world_falls_back_to_dp(n):
 
 
 def test_a_model_axis_runs_under_dp_sp_only():
-    cfg = mvitv2_s_cfg(tiny=True)
-    cfg.TPU.MESH_SHAPE, cfg.TPU.MESH_AXES = [2, 2], ["data", "model"]
-    with pytest.raises(NotImplementedError, match="under dp_sp"):
-        mesh.model_size(cfg, 4)
+    """A model axis no longer runs under dp_sp only: TPU.MESH_SHAPE's lays the
+    grid of ``create_mesh`` under fsdp and dp too, where the JAX package's
+    ``batch_sharding`` cuts T over it whatever the strategy. ``run_net``'s
+    check holds the frames rule under fsdp as under dp_sp."""
+    for strategy in ("fsdp", "dp"):
+        cfg, want, axes = _jax_grid(4, "TPU.SHARD_STRATEGY", strategy, "TPU.MESH_SHAPE", [2, 2],
+                                    "TPU.MESH_AXES", ["data", "model"])
+        assert axes == ("data", "model")
+        pcfg = port_cfg(cfg)
+        assert mesh.model_size(pcfg, 4) == 2
+        np.testing.assert_array_equal(mesh.grid(4, 2), want)
+    cfg = get_cfg()
+    cfg.merge_from_file(str(ROOT / "configs" / "tiny_synthetic.yaml"))
+    cfg.merge_from_list(["NUM_GPUS", 2, "TPU.SHARD_STRATEGY", "fsdp", "TPU.MESH_SHAPE", [1, 2],
+                         "TPU.MESH_AXES", ["data", "model"], "DATA.NUM_FRAMES", 4])
+    run_net.check(cfg)  # 2 frames a rank, the patch's T stride 2
+    cfg.DATA.NUM_FRAMES = 6
+    with pytest.raises(ValueError, match="under TPU.SHARD_STRATEGY fsdp with a model axis of 2"):
+        run_net.check(cfg)  # 3 frames a rank
 
 
 TINY_UNIFORMER = ("UNIFORMER.PRETRAIN_NAME", "", "UNIFORMER.EMBED_DIM", [8, 16, 16, 32],
@@ -270,9 +290,12 @@ def _grid_cfg():
     cfg.AUG.AA_TYPE = "rand-m7-n1-mstd0.5-inc1"
     cfg.AUG.RE_PROB = 0.5
     # The token mean over the model group and the absolute position
-    # embedding at a rank's T offset, which MViTv2-S leaves off.
+    # embedding at a rank's T offset, which MViTv2-S leaves off; MViT's
+    # dropouts, whose masks are drawn for the global batch and cut to a
+    # rank's rows and planes.
     cfg.MVIT.USE_MEAN_POOLING = True
     cfg.MVIT.USE_ABS_POS = True
+    cfg.MVIT.DROPOUT_RATE = 0.2
     cfg.TPU.SHARD_STRATEGY = "dp_sp"
     return cfg
 
@@ -280,11 +303,12 @@ def _grid_cfg():
 def _grid_uniformer_cfg():
     """Tiny UniFormer at 8 frames (2 token planes a rank after the stride-2
     patch embed), BatchNorm's statistics over the 4 ranks' (rows, planes),
-    DropPath on."""
+    DropPath and the dropouts on."""
     cfg = get_cfg()
     cfg.merge_from_file(str(ROOT / "configs" / "Kinetics" / "UNIFORMER_S_16x4.yaml"))
     cfg.merge_from_list([*TINY_UNIFORMER, "DATA.NUM_FRAMES", 8, "DATA.TRAIN_CROP_SIZE", 32,
-                         "UNIFORMER.DROP_DEPTH_RATE", 0.5, "AUG.ENABLE", True, "AUG.AA_TYPE",
+                         "UNIFORMER.DROP_DEPTH_RATE", 0.5, "UNIFORMER.DROPOUT_RATE", 0.2,
+                         "UNIFORMER.ATTENTION_DROPOUT_RATE", 0.2, "AUG.ENABLE", True, "AUG.AA_TYPE",
                          "rand-m7-n1-mstd0.5-inc1", "AUG.RE_PROB", 0.5, "NUM_GPUS", 1,
                          "TPU.SHARD_STRATEGY", "dp_sp"])
     return cfg
@@ -302,29 +326,53 @@ def _grid_case(cfg, seed):
                    "batch": batch, "draws": draws, "lr": 1e-3}
 
 
+def _fsdp_cfg(cfg):
+    """``cfg`` under fsdp on TPU.MESH_SHAPE's data 2 x model 2 grid."""
+    cfg = cfg.clone()
+    cfg.TPU.SHARD_STRATEGY = "fsdp"
+    cfg.TPU.MESH_SHAPE, cfg.TPU.MESH_AXES = [2, 2], ["data", "model"]
+    return cfg
+
+
+def _moco_case():
+    """Tiny MoCo on Slow under fsdp on the grid, and its seeded weights."""
+    cfg = get_cfg()
+    cfg.merge_from_file(str(ROOT / "configs" / "contrastive_ssl" / "MoCo_SlowR50_8x8.yaml"))
+    cfg.merge_from_list(list(TINY_SLOW))
+    cfg = _fsdp_cfg(cfg)
+    model = build_model(cfg, device="cpu", dtype=torch.float32, seed=8)
+    return {"cfg": cfg, "state_dict": model.state_dict()}
+
+
 @pytest.fixture(scope="module")
 def grid_ranks(tmp_path_factory):
-    """MViT's and UniFormer's dp_sp steps on 4 ranks, a grid of data 2 x model
-    2, one spawn; each one-process step on the global batch, computed here
-    while the ranks run."""
+    """MViT's and UniFormer's dp_sp and fsdp steps on 4 ranks, a grid of
+    data 2 x model 2, one spawn, with the checkpoints across the two and
+    MoCo's buffers under fsdp; each one-process step on the global batch,
+    computed here while the ranks run."""
     case_dir = tmp_path_factory.mktemp("grid")
     models, cases = {}, {}
     for name, cfg, seed in (("mvit", _grid_cfg(), 4), ("uniformer", _grid_uniformer_cfg(), 6)):
         models[name], cases[name] = _grid_case(cfg, seed)
+        cases[f"{name}_fsdp"] = dict(cases[name], cfg=_fsdp_cfg(cfg))
+    cases["moco"] = _moco_case()
     torch.save(cases, case_dir / "grid_case.pt")
     procs = start_ranks(rank_grid_case, str(case_dir), world=4,
                         model_size=mesh.model_size(cases["mvit"]["cfg"], 4))
     try:
         refs = {}
-        for name, case in cases.items():
-            model = models[name]
+        for name, model in models.items():
+            case = cases[name]
             metrics = make_train_step(case["cfg"], device="cpu")(
                 init_state(case["cfg"], model), case["batch"], case["lr"], case["draws"])
             refs[name] = (metrics, {k: p.grad.clone() for k, p in model.named_parameters()},
                           model.state_dict())
     finally:
         join_ranks(procs)
-    return torch.load(case_dir / "grid_results.pt", weights_only=False), refs
+    got = torch.load(case_dir / "grid_results.pt", weights_only=False)
+    got["moco"] = [torch.load(case_dir / f"grid_moco_{r}.pt", weights_only=False)
+                   for r in range(4)]
+    return got, dict(refs, moco=cases["moco"])
 
 
 def _assert_grid_step(got, ref, skip=()):
@@ -363,6 +411,50 @@ def test_a_2x2_grid_uniformer_step_equals_one_process(grid_ranks):
     # tests/test_torch_port_uniformer_train.py finds.
     _assert_grid_step(got["steps"]["uniformer"], refs["uniformer"],
                       skip=("blocks4.0.mlp.fc2.bias",))
+
+
+@pytest.mark.parametrize("name", ["mvit", "uniformer"])
+def test_a_2x2_grid_fsdp_step_equals_one_process_and_dp_sp(grid_ranks, name):
+    """fsdp on the same grid (TPU.MESH_SHAPE [2, 2]): each rank its T slice
+    as under dp_sp, the parameters sharded over the data group and the
+    model group's partial gradients summed; the same step as one process's
+    and as dp_sp's."""
+    got, refs = grid_ranks
+    skip = ("norm_k.bias",) if name == "mvit" else ("blocks4.0.mlp.fc2.bias",)
+    fsdp = got["steps"][f"{name}_fsdp"]
+    _assert_grid_step(fsdp, refs[name], skip=skip)
+    dp_sp = got["steps"][name]
+    for key in ("loss", "grad_norm"):
+        np.testing.assert_allclose(fsdp["metrics"][key], dp_sp["metrics"][key], rtol=1e-5)
+    diff = sum(float((fsdp["grads"][k] - g).square().sum()) for k, g in dp_sp["grads"].items())
+    assert (diff / sum(float(g.square().sum()) for g in dp_sp["grads"].values())) ** 0.5 < 1e-5
+
+
+def test_a_grid_checkpoint_resumes_across_dp_sp_and_fsdp(grid_ranks):
+    """MViT's fsdp step's checkpoint, loaded under dp_sp on the grid, and its
+    dp_sp step's loaded under fsdp: the weights and AdamW's tensors the step
+    left, gathered whole."""
+    got, _ = grid_ranks
+    for name in ("mvit_fsdp", "mvit"):
+        state, opt = got["resume"][name]
+        for key, value in got["steps"][name]["state"].items():
+            torch.testing.assert_close(state[key], value, atol=0, rtol=0, msg=key)
+        assert opt and all(torch.isfinite(v).all() for st in opt.values() for v in st.values()
+                           if torch.is_tensor(v))
+
+
+def test_moco_momentum_buffers_lie_over_the_data_group(grid_ranks):
+    """Under fsdp on the grid MoCo's momentum encoder's buffers are sharded as
+    their online parameters, over the data group ({0, 2} and {1, 3}): rank
+    r holds shard r // 2 of each, replicated over its model group."""
+    got, refs = grid_ranks
+    whole = refs["moco"]["state_dict"]
+    assert got["moco"][0]
+    for rank, shards in enumerate(got["moco"]):
+        for name, (ranks, shard) in shards.items():
+            assert ranks == [rank % 2, rank % 2 + 2], name
+            want = torch.chunk(whole[name], 2, dim=0)[rank // 2]
+            torch.testing.assert_close(shard[:len(want)], want, atol=0, rtol=0, msg=name)
 
 
 @pytest.mark.parametrize("kernel", ["forward", "wgrad"])

@@ -302,10 +302,14 @@ def test_temporal_attention_init_and_dropout_refusal():
     assert model.sample_head_dropout_mask(2, torch.Generator()) is None
     cfg.UNIFORMER.DROPOUT_RATE = 0.1
     model = build_model(cfg, device="cpu", dtype=torch.float32)
+    x = torch.zeros(1, 4, 32, 32, 3)
     with torch.inference_mode():
-        model.eval()(torch.zeros(1, 4, 32, 32, 3))  # eval: dropout is the identity
-    with pytest.raises(NotImplementedError, match="DROPOUT_RATE"):
-        model.train()(torch.zeros(1, 4, 32, 32, 3))
+        model.eval()(x)  # eval: dropout is the identity
+    # Training takes the keep masks that the train step draws
+    # (tests/test_torch_port_dropout_pool_first.py holds them against JAX).
+    with pytest.raises(ValueError, match="keep mask"):
+        model.train()(x)
+    model.train()(x, dropout_masks=model.sample_dropout_masks(x.shape, torch.Generator()))
 
 
 def test_split_drop_path_masks_are_per_site_and_frame():

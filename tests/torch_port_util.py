@@ -256,6 +256,29 @@ def jax_drop_path_masks(jmodel, variables, x, key, model, **kwargs):
     return out
 
 
+def jax_model_dropout_masks(jmodel, variables, x, key, model, **kwargs):
+    """(dropout_masks, head_dropout_mask): the keep masks that the
+    ``nn.Dropout`` modules of the JAX MViT or UniFormer ``jmodel`` draw in
+    the train step's apply under ``key``, laid out as the port ``model``'s
+    ``sample_dropout_masks`` lays them for an input of ``x``'s shape, each
+    mask's shape checked; then the head's mask (None without one)."""
+    masks = iter(jax_dropout_masks(jmodel, variables, x, key, **kwargs))
+
+    def fill(entry):
+        if entry is None:
+            return None
+        if isinstance(entry, (list, tuple)):
+            return type(entry)(fill(e) for e in entry)
+        mask = next(masks)
+        assert mask.shape == tuple(entry.shape), (mask.shape, tuple(entry.shape))
+        return torch.tensor(mask, dtype=torch.float32)
+
+    out = fill(model.sample_dropout_masks(np.shape(x), torch.Generator()))
+    head = next(masks, None)
+    assert next(masks, None) is None, "the JAX model drew more dropout masks than the port"
+    return out, None if head is None else torch.tensor(head, dtype=torch.float32)
+
+
 def folded_like(mask, shape):
     """A ReLU's decisions [B, T, H, W, C] in the layout of a JAX activation
     of ``shape``: as they are, or folded as TPU.FOLD_STEM folds the stem
@@ -617,10 +640,10 @@ def rank_train_step(rank, world, case, strategy):
     cfg = case["cfg"]
     model = build_model(cfg, device="cpu", dtype=case.get("dtype", torch.float32))
     model.load_state_dict(case["state_dict"])
-    wrapped = distributed.wrap_model(model, strategy, torch.device("cpu"))
+    lay = mesh.layout(cfg)
+    wrapped = distributed.wrap_model(model, strategy, torch.device("cpu"), lay)
     state = init_state(cfg, model, wrapped=wrapped)
     step = make_train_step(cfg, device="cpu")
-    lay = mesh.layout(cfg)
     batch = local_rows(case["batch"], lay.data, lay.data_size)
     route, _ = portrait_route(model, batch.get("pm"), len(batch["labels"]), train=True,
                               lay=lay)
@@ -772,20 +795,52 @@ def rank_sp_cases(rank, world, case_dir):
 
 
 def rank_grid_case(rank, world, case_dir):
-    """``case_dir/grid_case.pt``'s dp_sp steps ({name: case}) on this rank of
-    a 2 x 2 grid (``rank_train_step``), and the data-axis collectives:
-    every data index's rank (``distributed.gather_rows``) and the MixUp
-    partner's (``distributed.partner_rows``), on each rank; rank 0 writes
-    them all to ``case_dir/grid_results.pt``."""
+    """``case_dir/grid_case.pt``'s steps ({name: case}) on this rank of a 2 x
+    2 grid (``rank_train_step``) under each case's TPU.SHARD_STRATEGY, dp_sp
+    or fsdp (TPU.MESH_SHAPE [2, 2]); for the "fsdp_resume" case, its fsdp
+    step's checkpoint loaded under dp_sp and a dp_sp step's under fsdp
+    (``load_train_checkpoint``), each state gathered whole; the "moco"
+    cfg's momentum buffers under fsdp on the grid, where they lie; and the
+    data-axis collectives: every data index's rank
+    (``distributed.gather_rows``) and the MixUp partner's
+    (``distributed.partner_rows``), on each rank; rank 0 writes them all to
+    ``case_dir/grid_results.pt``."""
     from pathlib import Path
 
+    from pmv_tpu_torch.engine.steps import init_state
+    from pmv_tpu_torch.models import build_model
     from pmv_tpu_torch.parallel import distributed, mesh
+    from pmv_tpu_torch.utils import checkpoint as cu
 
     case_dir = Path(case_dir)
     cases = torch.load(case_dir / "grid_case.pt", weights_only=False)
-    out = {"steps": {name: rank_train_step(rank, world, case, "dp_sp")[0]
-                     for name, case in cases.items()}}
-    lay = mesh.layout(next(iter(cases.values()))["cfg"])
+    moco = cases.pop("moco")
+    out = {"steps": {}, "resume": {}}
+    states = {}
+    for name, case in cases.items():
+        strategy = case["cfg"].TPU.SHARD_STRATEGY
+        out["steps"][name], states[name] = rank_train_step(rank, world, case, strategy)
+    # A checkpoint of one strategy on the grid, loaded under the other.
+    for name, other in (("mvit_fsdp", "dp_sp"), ("mvit", "fsdp")):
+        cfg = cases[name]["cfg"].clone()
+        cfg.OUTPUT_DIR = str(case_dir / name)
+        cu.save_checkpoint(cfg.OUTPUT_DIR, states[name], 0, cfg)
+        model = build_model(cfg, device="cpu", dtype=torch.float32)
+        resumed = init_state(cfg, model, wrapped=distributed.wrap_model(
+            model, other, torch.device("cpu"), mesh.layout(cfg)))
+        assert cu.load_train_checkpoint(cfg, resumed) == 1
+        opt = cu.full_state(resumed)[1]["state"]
+        out["resume"][name] = (whole_state(model), {i: {k: v.clone() for k, v in st.items()}
+                                                    for i, st in opt.items()})
+    # MoCo's momentum buffers, laid out as their online parameters over the
+    # data group: their device mesh and this rank's shard of each.
+    model = build_model(moco["cfg"], device="cpu", dtype=torch.float32)
+    model.load_state_dict(moco["state_dict"])
+    distributed.wrap_model(model, "fsdp", torch.device("cpu"), mesh.layout(moco["cfg"]))
+    buffers = {name: model.get_buffer(name) for name, _ in model.sharded_buffers()}
+    out["moco"] = {name: (b.device_mesh.mesh.tolist(), distributed.local(b).clone())
+                   for name, b in buffers.items()}
+    lay = mesh.layout(cases["mvit"]["cfg"])
     mine = torch.tensor([float(rank)])
     out["layout"] = (lay.data, lay.data_size, lay.model, lay.model_size)
     out["data_axis"] = distributed.gather_rows(mine, lay).flatten().tolist()
@@ -793,6 +848,7 @@ def rank_grid_case(rank, world, case_dir):
     everyone = distributed.gather_host([np.array([out["layout"]]),
                                         np.array([out["data_axis"]]),
                                         np.array([out["partner"]])])
+    torch.save(out.pop("moco"), case_dir / f"grid_moco_{rank}.pt")  # each rank's shards
     if rank == 0:
         out["ranks"] = [a.tolist() for a in everyone]
         torch.save(out, case_dir / "grid_results.pt")
