@@ -479,12 +479,34 @@ DATA.DUMMY_LOAD (the first decoded sample for every index) is held on the
 CPU only, against the JAX package's ``Kinetics``
 (tests/test_torch_port_data.py): the card's host has no FFmpeg to decode
 with.
+Per-block recompute (MODEL.ACT_CHECKPOINT, TPU.REMAT_MIN_SEQ), MaskFeat's
+backbone dropout and the zoo tool:
+3k. (Run after 3f.) MViTv2-S 16x4 at full width and depth, phase 3b's
+   float32 step at batch 2 on the card, plain, under ACT_CHECKPOINT and
+   under TPU.REMAT_MIN_SEQ 20000 (blocks 0 and 1), from the same weights
+   and draws: each knob's loss, grad norm and gradients within 1e-4
+   (relative) of the plain step's; K1 34 a step plus the recompute's, 51
+   and 35 (``recompute_k1`` from ``_compute_mvit_schedule``), wgrad 17.
+3d. MaskFeat PT's MaskMViT with MVIT.DROPOUT_RATE 0.1, the AdamW step at
+   batch 2 card against CPU under 3m's gates on the same draws (the keep
+   masks among them); then the card's step under ACT_CHECKPOINT against
+   its plain step, to 1e-4; 42 K1 and 14 wgrad.
+5k. MViTv2-S's bf16 step at batch 8 on the PMV rect crop under no knob,
+   ACT_CHECKPOINT, REMAT_MIN_SEQ 20000 and no knob again: ms a step and
+   the peak memory of 3 timed steps (recorded, not gated), the launches.
+7z. (After phase 7.) ``python -m pmv_tpu_torch.tools.validate_zoo`` on
+   phase 7's checkpoint with phase 6's options: exit 0 with "pass": true
+   at the run's test top-1, exit 1 at 50 points off, its top-1 and top-5
+   the run's test's; 17 K1 a test batch.
 The earlier models' card-against-CPU steps run at a cut depth that keeps
 every kernel shape (``shallow``): UniFormer-S's train and pm steps (3u) one
 block a stage, X3D-M's (3x, 3cx) at X3D.DEPTH_FACTOR 1.1, SlowFast's (3s),
 SubBatchNorm's (3g) and AVSlowFast's (3v) at RESNET.DEPTH 18; their eval
 steps and parameter counts at full depth; so do 8e's and 8d's earlier
-models.
+models, and the main paths of CSN-101 and R(2+1)D-50 (4n-6n, 4r-6r; CSN 5
+K1 a forward), Charades' SlowFast (6h), AVA's SlowFast and Slow (4a-6a)
+multigrid's SlowFast (4g, 6g) and AVSlowFast (4v-6v), at RESNET.DEPTH 18
+(``SHALLOW_OPTS``).
 10. Print the script's wall time, the kernels line, the card line, and
    last {"ok": true, "device": {...}}.
 
@@ -875,6 +897,14 @@ UNIFORMER_SHALLOW_K1 = 4
 SHALLOW_X3D_DEPTH_FACTOR = 1.1
 X3D_SHALLOW_K1 = 11
 SHALLOW_RESNET_DEPTH = 18
+# The main paths of ir-CSN-101, R(2+1)D-50, Charades' SlowFast 16x8, AVA's
+# SlowFast 32x2 and Slow 8x8, multigrid's SlowFast 8x8 and AVSlowFast 8x8
+# (phases 4n-6n, 6h, 4a-6a, 4g, 6g and 4v-6v) run at the same depth: their serving, train_epoch and
+# run_net with restore and resume, every gate and launch count as at full
+# depth (CSN's rescaled to CSN_SHALLOW_K1), every kernel shape still
+# launched. Their full depth runs in the eval steps of 3n, 3r and 3a and in
+# phase 2's kernel shapes.
+SHALLOW_OPTS = ("RESNET.DEPTH", str(SHALLOW_RESNET_DEPTH))
 CSN_SHALLOW_K1 = 5  # ir-CSN at depth 18: a stride-1 conv_b at each stage's shape
 # Phase 8e's and 8d's earlier models run at the same cut depth: 8e's
 # UniFormer-S, X3D-M, SlowFast, ir-CSN, R(2+1)D and AVSlowFast and its Slow
@@ -1424,6 +1454,279 @@ def phase_pool_first_dropout():
     }
 
 
+# Per-block recompute in MViT (MODEL.ACT_CHECKPOINT, TPU.REMAT_MIN_SEQ),
+# MaskFeat's backbone dropout and the zoo tool: phases 3k, 5k, 3d and 7z.
+
+# 3k's and 5k's TPU.REMAT_MIN_SEQ: MViTv2-S's blocks 0 and 1 reach it, at
+# 224^2 (8 x 56 x 56 = 25,088 tokens) and at the PMV rect crop (8 x 64 x 48
+# = 24,576); block 2 on sees a quarter of that.
+RECOMPUTE_MIN_SEQ = 20000
+RECOMPUTE_KNOBS = ("plain", "act_checkpoint", "remat_min_seq")
+RECOMPUTE_TIMED_STEPS = 3  # 5k's timed bf16 steps of each setting, after a warm one
+RECOMPUTE_LIMIT = 1e-4  # 3k's and 3d's card-against-card gates (relative)
+
+
+def recompute_cfg(cfg, knob):
+    """``cfg`` with the recompute ``knob`` of ``RECOMPUTE_KNOBS`` set."""
+    cfg = cfg.clone()
+    if knob == "act_checkpoint":
+        cfg.MODEL.ACT_CHECKPOINT = True
+    elif knob == "remat_min_seq":
+        cfg.TPU.REMAT_MIN_SEQ = RECOMPUTE_MIN_SEQ
+    return cfg
+
+
+def recompute_k1(cfg, mvit, shape, per_forward):
+    """The K1 launches that the recompute adds to a train step of ``mvit``
+    (an MViT, or MaskMViT's backbone) of ``cfg`` on clips of ``shape``: the
+    stride-1 3x3x3 pools (q, K and V) of ``_compute_mvit_schedule`` in each
+    block that ``mvit.remats`` on its input grid. The schedule's pools of
+    all blocks must come to ``per_forward``, the launches of a forward."""
+    from pmv_tpu_torch.models.mvit import _compute_mvit_schedule
+
+    def k1(kernel, stride):
+        return int(tuple(kernel) == (3, 3, 3) and all(s == 1 for s in stride))
+
+    sites = [k1(s["kernel_q"], s["stride_q"]) + 2 * k1(s["kernel_kv"], s["stride_kv"])
+             for s in _compute_mvit_schedule(cfg)]
+    if sum(sites) != per_forward:
+        raise AssertionError(f"the schedule holds {sum(sites)} K1 pools, a forward launches "
+                             f"{per_forward}")
+    thw, extra = mvit.patch_embed.out_grid(shape[1:4]), 0
+    for n, block in zip(sites, mvit.blocks):
+        extra += n if mvit.remats(thw) else 0
+        thw = block.attn.pool_q.out_grid(thw)
+    return extra
+
+
+def _knob_model(cfg, knob, base, dtype):
+    """A model of ``recompute_cfg(cfg, knob)`` on the card holding ``base``'s
+    weights (the knobs change no parameter)."""
+    from pmv_tpu_torch.models import build_model
+
+    model = build_model(recompute_cfg(cfg, knob), device="cuda", dtype=dtype)
+    model.load_state_dict(base.state_dict(), strict=True)
+    return model
+
+
+def phase_recompute_card_vs_card():
+    """3k: MViTv2-S 16x4 at full width and depth (phase 3b's recipe and
+    batch of 2, float32): the train step under MODEL.ACT_CHECKPOINT and under
+    TPU.REMAT_MIN_SEQ ``RECOMPUTE_MIN_SEQ``, each against the step without
+    either, on the card from the same weights and draws: loss and grad norm
+    to ``RECOMPUTE_LIMIT`` relative, the gradients to it in relative L2; K1
+    launched 34 times a step plus the recompute's (``recompute_k1``: 17
+    under ACT_CHECKPOINT, block 0's q-pool under REMAT_MIN_SEQ), wgrad 17.
+    Returns each knob's launches."""
+    from pmv_tpu_torch.engine.steps import init_state, make_train_step
+
+    cfg = _train_cfg()
+    rng = np.random.default_rng(21)
+    batch = {"frames": rng.integers(0, 256, (2, 16, 224, 224, 3), np.uint8),
+             "labels": rng.integers(0, cfg.MODEL.NUM_CLASSES, 2)}
+    base = seeded_model(cfg, "cuda", torch.float32)
+    draws = make_train_step(cfg, device="cuda", seed=0).sample_draws(
+        base, batch["frames"].shape)
+    out, ref = {}, None
+    for knob in RECOMPUTE_KNOBS:
+        kcfg = recompute_cfg(cfg, knob)
+        model = _knob_model(cfg, knob, base, torch.float32)
+        extra = recompute_k1(kcfg, model, batch["frames"].shape, MVIT_K1)
+        counts = _launch_counts()
+        t0 = time.perf_counter()
+        metrics = {k: v.cpu() for k, v in make_train_step(kcfg, device="cuda", seed=0)(
+            init_state(kcfg, model), batch, cfg.SOLVER.BASE_LR, draws).items()}
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        launches = _launches_since(counts)
+        grads = _grads(model)
+        del model
+        rec = {"phase": f"recompute_{knob}_train_step_f32_b2", "knob": knob,
+               "remat_min_seq": kcfg.TPU.REMAT_MIN_SEQ,
+               "act_checkpoint": kcfg.MODEL.ACT_CHECKPOINT, "launches": launches,
+               "recompute_k1": extra, "loss": float(metrics["loss"]),
+               "grad_norm": float(metrics["grad_norm"]), "first_call_s": step_s}
+        expected = step_launches(MVIT_K1)
+        expected["depthwise3x3x3"] += extra
+        if ref is None:
+            ref = (metrics, grads)
+        else:
+            rec["grad_rel_err_vs_plain"] = _grad_rel_err(grads, ref[1])
+            for key in ("loss", "grad_norm"):
+                rec[f"{key}_rel_err_vs_plain"] = abs(float(metrics[key] / ref[0][key]) - 1)
+        log(json.dumps(rec))
+        if launches != expected:
+            raise AssertionError(f"3k {knob}: a step launched {launches}, not {expected}")
+        if knob == "act_checkpoint" and extra != MVIT_K1 or (
+                knob == "remat_min_seq" and extra != 1):
+            raise AssertionError(f"3k {knob}: the recompute adds {extra} K1 launches")
+        if not bool(torch.isfinite(metrics["loss"])):
+            raise AssertionError(f"3k {knob}: a non-finite loss")
+        if any(rec.get(k, 0.0) > RECOMPUTE_LIMIT for k in (
+                "grad_rel_err_vs_plain", "loss_rel_err_vs_plain", "grad_norm_rel_err_vs_plain")):
+            raise AssertionError(f"3k {knob}: the step lies off the plain one: {rec}")
+        out[knob] = launches
+    return out
+
+
+def phase_recompute_memory(card):
+    """5k: MViTv2-S 16x4's bf16 train step at batch 8 on the PMV rect crop
+    (phase 5's recipe) under each of ``RECOMPUTE_KNOBS``, in the order plain,
+    ACT_CHECKPOINT, REMAT_MIN_SEQ, plain again, from the same weights: one
+    warm step, then ``RECOMPUTE_TIMED_STEPS`` timed steps, ms a step and the
+    peak of ``torch.cuda.max_memory_allocated`` over them (recorded, not
+    gated), and each step's launches. Returns each setting's launches."""
+    from pmv_tpu_torch.engine.steps import init_state, make_train_step
+
+    cfg = _train_cfg()
+    cfg.DATA.TRAIN_CROP_SIZE_RECT = list(PMV_RECT)
+    shape = (8, cfg.DATA.NUM_FRAMES, *PMV_RECT, 3)
+    rng = np.random.default_rng(22)
+    batch = {"frames": torch.from_numpy(rng.integers(0, 256, shape, np.uint8)).cuda(),
+             "labels": torch.from_numpy(rng.integers(0, cfg.MODEL.NUM_CLASSES, 8)).cuda()}
+    base = seeded_model(cfg, "cuda")  # bfloat16 activations
+    out = {}
+    for i, knob in enumerate(RECOMPUTE_KNOBS + ("plain",)):
+        kcfg = recompute_cfg(cfg, knob)
+        model = _knob_model(cfg, knob, base, base.compute_dtype)
+        extra = recompute_k1(kcfg, model, shape, MVIT_K1)
+        state = init_state(kcfg, model)
+        step = make_train_step(kcfg, device="cuda", seed=0)
+        step(state, batch, cfg.SOLVER.BASE_LR)  # warm-up: cuDNN and cuBLAS plans
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counts = _launch_counts()
+        t0 = time.perf_counter()
+        for _ in range(RECOMPUTE_TIMED_STEPS):
+            m = step(state, batch, cfg.SOLVER.BASE_LR)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / RECOMPUTE_TIMED_STEPS * 1e3
+        launches = _launches_since(counts)
+        peak = torch.cuda.max_memory_allocated()
+        del model, state, step
+        torch.cuda.empty_cache()
+        expected = step_launches(MVIT_K1)
+        expected["depthwise3x3x3"] += extra
+        expected = {k: n * RECOMPUTE_TIMED_STEPS for k, n in expected.items()}
+        log(json.dumps({"phase": f"recompute_{knob}_train_bf16_b8_rect", "card": card,
+                        "turn": i, "knob": knob, "frames": list(shape),
+                        "steps": RECOMPUTE_TIMED_STEPS, "ms_per_step": ms,
+                        "max_memory_allocated_bytes": peak, "launches": launches,
+                        "recompute_k1_a_step": extra, "loss": float(m["loss"])}))
+        if launches != expected or not bool(torch.isfinite(m["loss"])):
+            raise AssertionError(f"5k {knob}: launched {launches}, not {expected}, or a "
+                                 f"non-finite loss {float(m['loss'])}")
+        out[f"{i}_{knob}"] = launches
+    return out
+
+
+def phase_maskfeat_dropout():
+    """3d: MaskFeat PT's MaskMViT at full width with MVIT.DROPOUT_RATE
+    ``DROPOUT_3F`` (the backbone's embedding, projection and MLP dropouts),
+    float32: the AdamW step at batch 2 card against CPU under 3m's gates,
+    from the same weights and draws, the keep masks among them, the CPU's
+    HOG bins held and, for the gradients, its max-pool taps
+    (``_maskfeat_step_card_vs_cpu``); then the same step on the card under
+    MODEL.ACT_CHECKPOINT from the same weights and draws against the card's
+    step without it (each taking its own taps): loss, grad norm and the
+    gradients to ``RECOMPUTE_LIMIT``; 28 + 14 K1 and 14 wgrad. Returns each
+    card step's launches."""
+    from pmv_tpu_torch.engine.ssl_steps import init_masked_state, make_masked_train_step
+
+    cfg = maskfeat_cfg()
+    cfg.MVIT.DROPOUT_RATE = DROPOUT_3F
+    cpu_model, gpu_model = _models_card_and_cpu(cfg)
+    counts = _launch_counts()
+    plain = _maskfeat_step_card_vs_cpu("maskfeat_dropout_train_step_f32_b2_card_vs_cpu", cfg,
+                                       cpu_model, gpu_model, np.random.default_rng(23))
+    plain_launches = _launches_since(counts)
+    if plain["draws"]["dropout_masks"] is None:
+        raise AssertionError("3d: the masked step drew no dropout masks")
+    kcfg = recompute_cfg(cfg, "act_checkpoint")
+    model = _knob_model(cfg, "act_checkpoint", cpu_model, torch.float32)
+    model.load_state_dict(plain["before"], strict=True)
+    extra = recompute_k1(kcfg, model.backbone, plain["batch"]["frames"].shape, MASKFEAT_K1)
+    counts = _launch_counts()
+    got = {k: v.cpu() for k, v in make_masked_train_step(kcfg, device="cuda", seed=0)(
+        init_masked_state(kcfg, model), plain["batch"], cfg.SOLVER.BASE_LR,
+        plain["draws"]).items()}
+    launches = _launches_since(counts)
+    want = plain["gpu"]
+    rec = {"phase": "maskfeat_dropout_act_checkpoint_train_step_f32_b2", "launches": launches,
+           "recompute_k1": extra, "loss": [float(got["loss"]), float(want["loss"])],
+           "grad_norm": [float(got["grad_norm"]), float(want["grad_norm"])],
+           "grad_rel_err_vs_plain": _grad_rel_err(_grads(model), plain["gpu_grads"])}
+    log(json.dumps(rec))
+    expected = step_launches(MASKFEAT_K1)
+    expected["depthwise3x3x3"] += extra
+    if extra != MASKFEAT_K1 or launches != expected:
+        raise AssertionError(f"3d: the recomputed step launched {launches}, not {expected}")
+    for key in ("loss", "grad_norm"):
+        torch.testing.assert_close(got[key], want[key], atol=0, rtol=RECOMPUTE_LIMIT)
+    if rec["grad_rel_err_vs_plain"] > RECOMPUTE_LIMIT:
+        raise AssertionError(f"3d: the recomputed gradients lie {rec['grad_rel_err_vs_plain']} "
+                             "from the plain step's")
+    return {"maskfeat_dropout_train": plain_launches, "maskfeat_act_checkpoint_train": launches}
+
+
+VALIDATE_ZOO_OFF = 50.0  # 7z's second expectation: this many points off the run's top-1
+
+
+def phase_validate_zoo(card, out_dir):
+    """7z: ``python -m pmv_tpu_torch.tools.validate_zoo`` (its ``main``, in this
+    process) on phase 7's last MViTv2-S checkpoint with phase 6's options
+    (the PMV rect recipe, Synthetic, a 2-view test), on the card, twice:
+    with --expected-top1 at that run's test_final top-1 and a tolerance of
+    0 it exits 0 with "pass": true, and with it ``VALIDATE_ZOO_OFF`` points
+    off, 1; its top-1 and top-5 are the run's, ``test()`` on the same file
+    and data; 17 K1 a test batch (each call a main path; its log in
+    ``out_dir``). Returns each call's launches."""
+    from contextlib import redirect_stdout
+
+    from pmv_tpu_torch.data.loader import construct_loader
+    from pmv_tpu_torch.tools import validate_zoo
+
+    final = _test_final(os.path.join("build", "chip_smoke_run_net"))
+    top1, top5 = float(final["top1_acc"]), float(final["top5_acc"])
+    ckpt = mvit_run_net_checkpoint()
+    argv = run_net_argv("mvit", out_dir, 2)  # phase 7's options, another OUTPUT_DIR
+    batches = len(construct_loader(run_net_cfg(argv), "test"))
+    out = {}
+    for name, expected, code in (("pass", top1, 0), ("off", top1 + VALIDATE_ZOO_OFF, 1)):
+        path = os.path.join(out_dir, f"validate_zoo_{name}.out")
+        os.makedirs(out_dir, exist_ok=True)
+        # The sink stays open: the port's logger keeps it as its stream.
+        sink = open(path, "w")
+        _zero_launch_counts()  # the main path starts here
+        t0 = time.perf_counter()
+        with redirect_stdout(sink):
+            try:
+                validate_zoo.main(["--cfg", MVIT_CFG, "--ckpt", ckpt, "--expected-top1",
+                                   str(expected), "--tolerance", "0",
+                                   *argv[argv.index("--opts"):]])
+                rc = 0
+            except SystemExit as exit_:
+                rc = exit_.code
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _launch_counts()  # ... and ends here
+        sink.flush()
+        with open(path) as f:
+            verdict = [json.loads(line) for line in f if line.startswith('{"config"')][-1]
+        log(json.dumps({"phase": f"validate_zoo_{name}", "card": card, "exit_code": rc,
+                        "verdict": verdict, "run_net_top1": top1, "run_net_top5": top5,
+                        "test_batches": batches, "wall_s": wall, "launches": launches}))
+        if rc != code or verdict.get("pass") is not (code == 0):
+            raise AssertionError(f"7z {name}: exit code {rc}, verdict {verdict}")
+        if (verdict["top1"], verdict["top5"]) != (top1, top5):
+            raise AssertionError(f"7z {name}: top-1/top-5 {verdict['top1']}/{verdict['top5']}, "
+                                 f"the run's test {top1}/{top5}")
+        if launches != eval_launches(MVIT_K1 * batches):
+            raise AssertionError(f"7z {name}: launched {launches}")
+        out[f"validate_zoo_{name}"] = launches
+    return out
+
+
 def phase_serve(card, cfg, per_forward, prefix=""):
     """A main path: the multi-view test loop over synthetic clips of 4
     videos (TEST.NUM_ENSEMBLE_VIEWS x NUM_SPATIAL_CROPS each) at batch 8,
@@ -1625,11 +1928,11 @@ def _run_net_opts(recipe):
         return common + ["DATA.TEST_CROP_SIZE_RECT", rect, "TEST.NUM_ENSEMBLE_VIEWS", "2"]
     if recipe in ("x3d", "slowfast"):
         return common + ["TEST.NUM_ENSEMBLE_VIEWS", "2"]
-    if recipe in ("csn", "r2plus1d"):  # the yamls' own crops; a 2-view test
-        return ["TEST.NUM_ENSEMBLE_VIEWS", "2"]
-    if recipe == "avslowfast":  # its yaml's crops, a 2-view test, clips with audio
+    if recipe in ("csn", "r2plus1d"):  # the yamls' own crops, the cut depth; a 2-view test
+        return ["TEST.NUM_ENSEMBLE_VIEWS", "2", *SHALLOW_OPTS]
+    if recipe == "avslowfast":  # its yaml's crops, the cut depth, a 2-view test, audio
         return ["TEST.NUM_ENSEMBLE_VIEWS", "2", "TRAIN.DATASET", "synthetic_av",
-                "TEST.DATASET", "synthetic_av"]
+                "TEST.DATASET", "synthetic_av", *SHALLOW_OPTS]
     if recipe == "maskfeat_pt":  # the PT yaml's own crops; no test (TEST.ENABLE False)
         return []
     if recipe == "maskfeat_ft":  # the FT yaml's own crops; a 1-view test
@@ -1655,7 +1958,7 @@ RUN_NET = {  # recipe -> (config file, K1 launches per forward, clips a train st
     "maskfeat_pt": (MASKFEAT_PT_CFG, MASKFEAT_K1, 8),
     "maskfeat_ft": (MASKFEAT_FT_CFG, MASKFEAT_FT_K1, 8),  # 4 videos x AUG.NUM_SAMPLE 2
     "slow_ft": (SLOW_CFG, SLOW_K1, 8),
-    "csn": (CSN_CFG, CSN_K1, 8),
+    "csn": (CSN_CFG, CSN_SHALLOW_K1, 8),  # at the cut depth, SHALLOW_OPTS
     "r2plus1d": (R2PLUS1D_CFG, R2PLUS1D_K1, 8),
     "avslowfast": (AVSLOWFAST_CFG, AVSLOWFAST_K1, 8),
 }
@@ -2045,12 +2348,12 @@ def write_charades(root, seed=0):
 def phase_charades(card, root):
     """6h, a main path: ``run_net`` on configs/Charades/SLOWFAST_16x8_R50.yaml
     at full width (64 frames, 157 classes, bce_logit, sigmoid, a test of 3
-    crops ensembled by max) over a frame dump from a seed
-    (``write_charades``), overriding only the data paths, NUM_GPUS 1, batch
-    8, TRAIN.CHECKPOINT_FILE_PATH "" (its caffe2 checkpoint is not in the
-    repository), one epoch, and the test's views, cut from the yaml's 10 to
-    2 as in every other phase's test (the host decodes each view's 64
-    JPEGs): the train loss finite, the eval epoch's mAP and the test's mAP
+    crops ensembled by max) and the cut depth (``SHALLOW_OPTS``) over a
+    frame dump from a seed (``write_charades``), overriding only the data
+    paths, NUM_GPUS 1, batch 8, TRAIN.CHECKPOINT_FILE_PATH "" (its caffe2
+    checkpoint is not in the repository), one epoch, and the test's views,
+    cut from the yaml's 10 to 2 as in every other phase's test (the host
+    decodes each view's 64 JPEGs): the train loss finite, the eval epoch's mAP and the test's mAP
     in the log, 0 K1 (SlowFast has no K1 conv)."""
     from contextlib import redirect_stdout
 
@@ -2064,7 +2367,8 @@ def phase_charades(card, root):
     argv = ["--cfg", CHARADES_CFG, "--opts", "DATA.PATH_TO_DATA_DIR", root,
             "DATA.PATH_PREFIX", os.path.join(root, "frames"), "NUM_GPUS", "1",
             "TRAIN.BATCH_SIZE", "8", "TEST.BATCH_SIZE", "8", "TRAIN.CHECKPOINT_FILE_PATH", "",
-            "SOLVER.MAX_EPOCH", "1", "TEST.NUM_ENSEMBLE_VIEWS", "2", "OUTPUT_DIR", out_dir]
+            "SOLVER.MAX_EPOCH", "1", "TEST.NUM_ENSEMBLE_VIEWS", "2", *SHALLOW_OPTS,
+            "OUTPUT_DIR", out_dir]
     cfg = run_net_cfg(argv)
     if not (cfg.DATA.MULTI_LABEL and cfg.MODEL.LOSS_FUNC == "bce_logit"
             and cfg.DATA.ENSEMBLE_METHOD == "max" and cfg.MODEL.NUM_CLASSES == 157
@@ -2179,12 +2483,13 @@ def phase_ava_card_vs_cpu():
 def phase_ava_serve(card, batches=4, batch=8):
     """4a, a main path: ``perform_detection`` over ``batches`` batches of
     ``batch`` keyframe clips (32 x 224^2, 3 boxes each) into a test
-    ``AVAMeter`` in bfloat16, its groundtruth from the batches."""
+    ``AVAMeter`` in bfloat16, its groundtruth from the batches; at the cut
+    depth (``shallow``)."""
     from pmv_tpu_torch.engine.steps import make_detection_eval_step
     from pmv_tpu_torch.engine.test import perform_detection
     from pmv_tpu_torch.utils.meters import AVAMeter
 
-    cfg = ava_cfg()
+    cfg = shallow(ava_cfg())
     cfg.AVA.ANNOTATION_DIR = ""  # no files: the groundtruth from the batches
     model = seeded_model(cfg, "cuda")  # bfloat16 activations
     eval_step = make_detection_eval_step(cfg, model, device="cuda")
@@ -2227,15 +2532,16 @@ def phase_ava_serve(card, batches=4, batch=8):
 
 
 def ava_run_net_argv(name, root, out_dir, max_epoch, extra=()):
-    """run_net's arguments: the yaml as it is, its data at the dump
-    ``root``, NUM_GPUS 1, batch 8, ``AVA_LOADER_THREADS`` loader threads."""
+    """run_net's arguments: the yaml at the cut depth (``SHALLOW_OPTS``),
+    its data at the dump ``root``, NUM_GPUS 1, batch 8,
+    ``AVA_LOADER_THREADS`` loader threads."""
     return ["--cfg", AVA_CFGS[name], "--opts",
             "AVA.FRAME_DIR", os.path.join(root, "frames"),
             "AVA.FRAME_LIST_DIR", os.path.join(root, "frame_lists"),
             "AVA.ANNOTATION_DIR", os.path.join(root, "annotations"),
             "NUM_GPUS", "1", "TRAIN.BATCH_SIZE", "8", "TEST.BATCH_SIZE", "8",
             "DATA_LOADER.NUM_WORKERS", str(AVA_LOADER_THREADS),
-            "SOLVER.MAX_EPOCH", str(max_epoch), "OUTPUT_DIR", out_dir, *extra]
+            "SOLVER.MAX_EPOCH", str(max_epoch), *SHALLOW_OPTS, "OUTPUT_DIR", out_dir, *extra]
 
 
 def _ava_run_net_call(name, root, out_dir, max_epoch, extra):
@@ -2296,8 +2602,8 @@ def phase_ava_run_net(card, root):
     """6a, main paths: the dump (``tools/ava_dump.py``, ``AVA_VIDEOS``
     videos), then on each AVA yaml ``run_net`` for one epoch, the restore,
     every tensor compared, and the resume with SOLVER.MAX_EPOCH 2;
-    SlowFast's first call from a Kinetics SlowFast ``.pyth`` (the
-    projection alone keeps its init). Returns the launches of each call."""
+    SlowFast's first call from a Kinetics SlowFast ``.pyth`` of the same
+    depth (the projection alone keeps its init). Returns the launches of each call."""
     from contextlib import redirect_stdout
 
     from pmv_tpu_torch.tools.ava_dump import write_ava_dump
@@ -2305,8 +2611,8 @@ def phase_ava_run_net(card, root):
     t0 = time.perf_counter()
     keyframes = write_ava_dump(root, videos=AVA_VIDEOS)
     kinetics = os.path.join(root, "kinetics_slowfast_8x8_r50.pyth")
-    torch.save({"model_state": seeded_model(slowfast_cfg(), "cpu", torch.float32).state_dict()},
-               kinetics)
+    torch.save({"model_state": seeded_model(shallow(slowfast_cfg()), "cpu",
+                                            torch.float32).state_dict()}, kinetics)
     log(json.dumps({"phase": "ava_dump", "keyframes": len(keyframes),
                     "seconds": time.perf_counter() - t0}))
     launches = []
@@ -2387,14 +2693,10 @@ def phase_maskfeat_card_vs_cpu():
     more than 1e-6 is printed: under the 0.02 clip many gradient elements
     are of the order of Adam's epsilon, where the update moves with the
     gradient's last bits."""
-    from pmv_tpu_torch.engine.ssl_steps import init_masked_state, make_masked_train_step
     from pmv_tpu_torch.engine.steps import make_preprocess_fn
-    from pmv_tpu_torch.models import build_model
     from pmv_tpu_torch.models.masked import hog_bins
-    from pmv_tpu_torch.tools.grad_witness import max_pool_decisions
 
     cfg = maskfeat_cfg()
-    lr = cfg.SOLVER.BASE_LR
     cpu_model, gpu_model = _models_card_and_cpu(cfg)
     n_params = sum(p.numel() for p in gpu_model.parameters())
     rng = np.random.default_rng(7)
@@ -2439,6 +2741,24 @@ def phase_maskfeat_card_vs_cpu():
         raise AssertionError(f"the card's own HOG targets differ by {own_err} where every "
                              "pixel was binned alike")
 
+    _maskfeat_step_card_vs_cpu("maskfeat_train_step_f32_b2_card_vs_cpu", cfg, cpu_model,
+                               gpu_model, rng)
+
+
+def _maskfeat_step_card_vs_cpu(phase, cfg, cpu_model, gpu_model, rng):
+    """One AdamW masked step at batch 2 of clips from ``rng``, card against
+    CPU from the same weights, draws and held HOG bins, under 3m's gates
+    (the card's step again with the CPU's max-pool taps held). Returns the
+    step's batch, draws, the weights before it, the card's metrics and its
+    gradients as it takes its own taps."""
+    from pmv_tpu_torch.engine.ssl_steps import init_masked_state, make_masked_train_step
+    from pmv_tpu_torch.engine.steps import make_preprocess_fn
+    from pmv_tpu_torch.models import build_model
+    from pmv_tpu_torch.models.masked import hog_bins
+    from pmv_tpu_torch.tools.grad_witness import max_pool_decisions
+
+    lr = cfg.SOLVER.BASE_LR
+    n_params = sum(p.numel() for p in gpu_model.parameters())
     batch = {"frames": rng.integers(0, 256, (2, *_maskfeat_clip(cfg)), np.uint8)}
     cpu_state, gpu_state = init_masked_state(cfg, cpu_model), init_masked_state(cfg, gpu_model)
     cpu_step = make_masked_train_step(cfg, device="cpu", seed=0)
@@ -2476,7 +2796,7 @@ def phase_maskfeat_card_vs_cpu():
     n_off = sum(int(((params_gpu[k] - v).abs() > 1e-6).sum()) for k, v in params_cpu.items())
     moved = sum(int((v != before[k]).sum()) for k, v in params_cpu.items())
     log(json.dumps({
-        "phase": "maskfeat_train_step_f32_b2_card_vs_cpu", "model": cfg.MODEL.MODEL_NAME,
+        "phase": phase, "model": cfg.MODEL.MODEL_NAME, "dropout_rate": cfg.MVIT.DROPOUT_RATE,
         "frames": list(batch["frames"].shape), "lr": lr,
         "clip_grad_l2norm": cfg.SOLVER.CLIP_GRAD_L2NORM, "launches": launches,
         "loss": [float(gpu["loss"]), float(cpu["loss"])],
@@ -2507,6 +2827,7 @@ def phase_maskfeat_card_vs_cpu():
         raise AssertionError(f"updated parameters differ by {param_err}, over 2 x lr")
     if moved < 0.5 * n_params:
         raise AssertionError(f"only {moved} of {n_params} weights moved")
+    return {"batch": batch, "draws": draws, "before": before, "gpu": gpu, "gpu_grads": gpu_grads}
 
 
 def maskfeat_kernel_ms(records):
@@ -3433,15 +3754,15 @@ def phase_multigrid_shapes(card):
     at TRAIN.BATCH_SIZE 8 (64 x 8 x 158 sub 8, 32 x 16 x 158 sub 4,
     16 x 16 x 224 sub 2, 8 x 32 x 224 plain), each at its short cycle's
     three batches: one warm-up and SHAPE_STEPS timed steps of each, one
-    model whose norms turn as the schedule does (a main path). Returns its
-    launches."""
+    model whose norms turn as the schedule does (a main path), at the cut
+    depth (``SHALLOW_OPTS``). Returns its launches."""
     from pmv_tpu_torch.data.loader import short_cycle_factors
     from pmv_tpu_torch.engine.steps import init_state, make_train_step
     from pmv_tpu_torch.models import build_model
     from pmv_tpu_torch.models.batchnorm import swap_norms
     from pmv_tpu_torch.utils.multigrid import MultigridSchedule
 
-    cfg = multigrid_cfg("TRAIN.BATCH_SIZE", "8")
+    cfg = multigrid_cfg("TRAIN.BATCH_SIZE", "8", *SHALLOW_OPTS)
     mg = MultigridSchedule()
     mg.init_multigrid(cfg)
     model = build_model(cfg, device="cuda", seed=0)
@@ -3489,9 +3810,10 @@ def phase_multigrid_shapes(card):
 
 
 def multigrid_argv(out_dir, profile_dir=None):
-    """run_net's arguments for the schedule on Synthetic, a 2-view
-    test of 8 clips a batch; with TPU.PROFILE_DIR when ``profile_dir``."""
-    argv = ["--cfg", MULTIGRID_CFG, "--opts", *MULTIGRID_RUN, "NUM_GPUS", "1",
+    """run_net's arguments for the schedule on Synthetic at the cut depth
+    (``SHALLOW_OPTS``), a 2-view test of 8 clips a batch; with
+    TPU.PROFILE_DIR when ``profile_dir``."""
+    argv = ["--cfg", MULTIGRID_CFG, "--opts", *MULTIGRID_RUN, *SHALLOW_OPTS, "NUM_GPUS", "1",
             "TRAIN.DATASET", "synthetic", "TEST.DATASET", "synthetic",
             "TEST.NUM_ENSEMBLE_VIEWS", "2", "TEST.NUM_SPATIAL_CROPS", "1",
             "TEST.BATCH_SIZE", "8", "OUTPUT_DIR", out_dir]
@@ -5772,7 +6094,7 @@ def phase_inflated_uniformer(card):
 def kernels_line(records, launches, slowfast_launches, maskfeat_launches,
                  contrastive_launches, multigrid_launches, csn_launches, avslowfast_launches,
                  ava_launches, sp_launches, ssl_fsdp_launches, m19_launches,
-                 pool_first_dropout_launches):
+                 pool_first_dropout_launches, recompute_launches):
     """One entry per kernel: times summed over the launches at the 224^2
     crop's shapes in bfloat16 at batch 8; K1 over one MViTv2-S forward (17
     launches, as many again for dx in a train step), the wgrad kernel over
@@ -5791,8 +6113,8 @@ def kernels_line(records, launches, slowfast_launches, maskfeat_launches,
     paths' (phases 5c-6c, 0: Slow R50 has no K1 conv), the SimCLR step on
     X3D-M's backbone (phase 3cx) and the 2-rank SSL steps (phase 8d);
     "launches_multigrid" the multigrid paths' (phases 4g and 6g, 0: SlowFast
-    has no K1 conv); "launches_csn" the CSN paths' (phases 4n-6n: 30 K1 a
-    forward, 30 wgrad a train step), and "csn" the sums over ir-CSN-101's
+    has no K1 conv); "launches_csn" the CSN paths' (phases 4n-6n at the cut
+    depth: 5 K1 a forward, 5 wgrad a train step), and "csn" the sums over ir-CSN-101's
     30 launches at batch 8 on 32 x 224^2, per dtype, over the same 30 on
     its 256^2 test crop ("test", per dtype; K1's forward, which the wgrad
     kernel never sees at that crop but is held there all the same), and
@@ -5823,7 +6145,12 @@ def kernels_line(records, launches, slowfast_launches, maskfeat_launches,
     timed steps); "launches_pool_first_dropout" the paths of phase 3f (POOL_FIRST's eval
     and train step, MViT's and UniFormer's dropout steps, the card's side
     of each), and "pool_first_b2" the sums over POOL_FIRST's 17 launches at
-    batch 2 (block 14's K and V pools at its input's 384 channels), bf16."""
+    batch 2 (block 14's K and V pools at its input's 384 channels), bf16;
+    "launches_recompute_dropout_zoo" the paths of phases 3k (MViTv2-S's
+    float32 step plain, under ACT_CHECKPOINT and under REMAT_MIN_SEQ), 3d
+    (MaskFeat PT's dropout step, and under ACT_CHECKPOINT), 5k (the bf16
+    batch-8 rect steps, "memory_<turn>_<setting>") and 7z (validate_zoo's
+    two tests), the card's side of each."""
     maskfeat = maskfeat_kernel_ms(records)
 
     def entry(name, source, replaces, recs, basis):
@@ -5854,6 +6181,8 @@ def kernels_line(records, launches, slowfast_launches, maskfeat_launches,
             "launches_fsdp_model_axis": sp_launches[FSDP_RECIPE][name],
             "launches_pool_first_dropout": {k: v[name] for k, v
                                             in pool_first_dropout_launches.items()},
+            "launches_recompute_dropout_zoo": {k: v[name] for k, v
+                                               in recompute_launches.items()},
             "launches_dp_sp_tasks": {recipe: sp_launches[recipe][name] for recipe in SP_TASKS},
             "launches_ssl_fsdp": ssl_fsdp_launches[name],
             "launches_maskfeat": maskfeat_launches[name],
@@ -6024,6 +6353,13 @@ def main():
     pool_first_dropout_launches = phase_pool_first_dropout()
     walls["card_vs_cpu_pool_first_dropout"] = time.perf_counter() - tic
     tic = time.perf_counter()
+    recompute_launches = phase_recompute_card_vs_card()
+    recompute_launches.update(phase_maskfeat_dropout())
+    walls["card_vs_card_recompute_maskfeat_dropout_3k_3d"] = time.perf_counter() - tic
+    tic = time.perf_counter()
+    recompute_launches.update({f"memory_{k}": v for k, v in phase_recompute_memory(card).items()})
+    walls["recompute_memory_5k"] = time.perf_counter() - tic
+    tic = time.perf_counter()
     phase_avslowfast_card_vs_cpu()
     walls["card_vs_cpu_avslowfast"] = time.perf_counter() - tic
     tic = time.perf_counter()
@@ -6055,8 +6391,13 @@ def main():
     paths = [phase_serve(card, serve_mvit, MVIT_K1), phase_train(card, _train_cfg(), MVIT_K1)]
     out_dir = os.path.join("build", "chip_smoke_run_net")
     shutil.rmtree(out_dir, ignore_errors=True)
+    zoo_dir = os.path.join("build", "chip_smoke_validate_zoo")
+    shutil.rmtree(zoo_dir, ignore_errors=True)
     with synthetic_videos(EARLIER_RUN_NET_VIDEOS):
         paths += phase_run_net(card, "mvit", out_dir)
+        tic_zoo = time.perf_counter()
+        recompute_launches.update(phase_validate_zoo(card, zoo_dir))
+        walls["validate_zoo_7z"] = time.perf_counter() - tic_zoo
     paths += [phase_serve(card, uni, UNIFORMER_K1, "uniformer_"),
               phase_train(card, uni, UNIFORMER_K1, "uniformer_")]
     out_dir = os.path.join("build", "chip_smoke_run_net_uniformer")
@@ -6075,9 +6416,9 @@ def main():
     with synthetic_videos(EARLIER_RUN_NET_VIDEOS):
         slowfast_paths += phase_run_net(card, "slowfast", out_dir)
     paths += slowfast_paths
-    walls["main_paths_supervised"] = time.perf_counter() - tic
+    walls["main_paths_supervised"] = time.perf_counter() - tic - walls["validate_zoo_7z"]
     tic = time.perf_counter()
-    avslowfast = avslowfast_cfg()
+    avslowfast = shallow(avslowfast_cfg())
     avslowfast_paths = [phase_serve(card, avslowfast, AVSLOWFAST_K1, "avslowfast_"),
                         phase_train(card, avslowfast, AVSLOWFAST_K1, "avslowfast_", timed=3,
                                     profile=True)]
@@ -6090,16 +6431,16 @@ def main():
     walls["main_paths_avslowfast"] = time.perf_counter() - tic
     tic = time.perf_counter()
     ava_paths = [phase_ava_serve(card),
-                 phase_train(card, ava_cfg(), AVA_K1, "ava_", timed=3, profile=True)]
+                 phase_train(card, shallow(ava_cfg()), AVA_K1, "ava_", timed=3, profile=True)]
     out_dir = os.path.join("build", "chip_smoke_ava")
     shutil.rmtree(out_dir, ignore_errors=True)
     ava_paths += phase_ava_run_net(card, out_dir)
     paths += ava_paths
     walls["main_paths_ava"] = time.perf_counter() - tic
     tic = time.perf_counter()
-    csn, r2plus1d = csn_cfg(), csn_cfg(R2PLUS1D_CFG)
-    csn_paths = [phase_serve(card, csn, CSN_K1, "csn_"),
-                 phase_train(card, csn, CSN_K1, "csn_", timed=3, profile=True)]
+    csn, r2plus1d = shallow(csn_cfg()), shallow(csn_cfg(R2PLUS1D_CFG))
+    csn_paths = [phase_serve(card, csn, CSN_SHALLOW_K1, "csn_"),
+                 phase_train(card, csn, CSN_SHALLOW_K1, "csn_", timed=3, profile=True)]
     out_dir = os.path.join("build", "chip_smoke_run_net_csn")
     shutil.rmtree(out_dir, ignore_errors=True)
     csn_paths += phase_run_net(card, "csn", out_dir)
@@ -6193,6 +6534,7 @@ def main():
     }
     paths += [v for k, v in m19_launches.items() if k != "gradcam_card_vs_cpu"]
     paths += list(pool_first_dropout_launches.values())
+    paths += list(recompute_launches.values())
     launches = {k: sum(p[k] for p in paths) for k in paths[0]}
     slowfast_launches = {k: sum(p[k] for p in slowfast_paths) for k in paths[0]}
     avslowfast_launches = {k: sum(p[k] for p in avslowfast_paths) for k in paths[0]}
@@ -6212,7 +6554,7 @@ def main():
     line = kernels_line(records, launches, slowfast_launches, maskfeat_launches,
                         contrastive_launches, multigrid_launches, csn_launches,
                         avslowfast_launches, ava_launches, sp_launches, ssl_fsdp_launches,
-                        m19_launches, pool_first_dropout_launches)
+                        m19_launches, pool_first_dropout_launches, recompute_launches)
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": card, "records": records, **line}, f, indent=1)

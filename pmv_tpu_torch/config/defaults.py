@@ -106,7 +106,7 @@ _C.MODEL.SINGLE_PATHWAY_ARCH = [
 _C.MODEL.MULTI_PATHWAY_ARCH = ["slowfast", "avslowfast"]
 # Accepted for config parity; on TPU, XLA chooses collective precision.
 _C.MODEL.FP16_ALLREDUCE = False
-_C.MODEL.ACT_CHECKPOINT = False  # remat MViT blocks via jax.checkpoint
+_C.MODEL.ACT_CHECKPOINT = False  # recompute every MViT block in the backward
 _C.MODEL.DETACH_FINAL_FC = False
 _C.MODEL.FROZEN_BN = False
 # UniFormer fork extras (`Uniformer/slowfast/config/defaults.py`).

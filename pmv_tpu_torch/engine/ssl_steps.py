@@ -153,6 +153,7 @@ def make_masked_train_step(cfg, device=None, seed=0):
         return draw(shape, given, step, {
             "mask": lambda _, g: model.sample_mask(shape, g, device),
             "drop_path": lambda _, g: model.sample_drop_path_masks(shape[0], g, device),
+            "dropout_masks": lambda _, g: model.sample_dropout_masks(shape, g, device),
         })
 
     def train_step(state, batch, lr, draws=None):
@@ -177,7 +178,10 @@ def make_masked_train_step(cfg, device=None, seed=0):
             hog_bins = steps.local_frames(torch.as_tensor(hog_bins), lay)
 
         x = steps.local_frames(preprocess(frames, draws), lay)
-        kwargs = dict(drop_path_masks=draws["drop_path"], hog_bins=hog_bins)
+        # The backbone's dropout masks are the clips' rows here, and its
+        # forward takes the rank's token planes of them (mesh.local_planes).
+        kwargs = dict(drop_path_masks=draws["drop_path"], hog_bins=hog_bins,
+                      dropout_masks=draws["dropout_masks"])
         with mesh.sequence_parallel(lay):
             if state.wrapped is None:
                 pred, target, mask = model(x, mask, **kwargs)

@@ -15,10 +15,15 @@ draws the model's own mask, exactly ``int(n_tok * (AUG.MASK_RATIO or
 0.4))`` tokens a row, each token equally likely (the JAX package's
 ``scores < sort(scores)[k]`` over uniform scores, from its "mask" RNG
 stream); the forward takes a mask, the model's or the loader's
-(AUG.GEN_MASK_LOADER). A mask whose token count is not the patch grid's
-raises a ``ValueError`` naming both (the JAX package fails there on a bare
-reshape: the published PT yaml's AUG.MASK_WINDOW_SIZE [8, 7, 7] against a
-patch grid of 8 x 56 x 56).
+(AUG.GEN_MASK_LOADER); the backbone's MVIT.DROPOUT_RATE keep masks come in
+as ``dropout_masks`` (``sample_dropout_masks``). A mask whose token count
+is not the patch grid's raises a ``ValueError`` naming both (the JAX
+package fails there on a bare reshape: the published PT yaml's
+AUG.MASK_WINDOW_SIZE [8, 7, 7] against a patch grid of 8 x 56 x 56).
+
+The backbone recomputes its blocks in the backward as ``MViT.remats``
+says (MODEL.ACT_CHECKPOINT, TPU.REMAT_MIN_SEQ), as the JAX package's does;
+the decoder's blocks do not, as the JAX package builds them plain.
 
 HOG's orientation bins are a decision, like a ReLU: a pixel whose angle
 lies within a rounding of a bin edge takes either bin. ``hog_bins`` gives
@@ -206,6 +211,12 @@ class MaskMViT(nn.Module):
         the decoder's blocks drop no path."""
         return self.backbone.sample_drop_path_masks(batch, generator, device)
 
+    def sample_dropout_masks(self, shape, generator, device=None):
+        """The backbone's MVIT.DROPOUT_RATE keep masks for an input of
+        ``shape`` (``MViT.sample_dropout_masks``; None at rate 0); the
+        decoder's blocks drop nothing."""
+        return self.backbone.sample_dropout_masks(shape, generator, device)
+
     def targets(self, x, hog_bins=None):
         """The regression targets of ``x`` [B, T, H, W, C], float32 [B, n_tok,
         D]: HOG on the patch grid (cell = the spatial patch stride, averaged
@@ -227,7 +238,7 @@ class MaskMViT(nn.Module):
             patches = (patches - mean) / torch.sqrt(var + 1e-6)
         return patches
 
-    def forward(self, x, mask, drop_path_masks=None, hog_bins=None):
+    def forward(self, x, mask, drop_path_masks=None, hog_bins=None, dropout_masks=None):
         b = x.shape[0]
         t_tok, h_tok, w_tok = self.token_grid(x.shape)
         n_tok = t_tok * h_tok * w_tok
@@ -248,7 +259,8 @@ class MaskMViT(nn.Module):
                       .repeat_interleave(pw, 3))[:, :x.shape[1], :x.shape[2], :x.shape[3]]
         x = torch.where(pixel_mask[..., None], self.mask_token[0, 0].to(x.dtype), x)
 
-        feats, thw = self.backbone(x, return_features=True, drop_path_masks=drop_path_masks)
+        feats, thw = self.backbone(x, return_features=True, drop_path_masks=drop_path_masks,
+                                   dropout_masks=dropout_masks)
         if self.cls_on:
             feats = feats[:, 1:]
         lay = mesh.active()

@@ -14,11 +14,18 @@ input is a rank's frames of the clip, and every activation its token
 planes: the cls token is replicated on every rank of the model group, the
 fixed and absolute position embeddings are sliced at the rank's T offset,
 and the mean pooling sums over the model group.
+
+In a train-mode forward with grad enabled, a block recomputes its
+activations in the backward (``torch.utils.checkpoint``, non-reentrant),
+as the JAX package remats it: every block under MODEL.ACT_CHECKPOINT, and
+under TPU.REMAT_MIN_SEQ those whose input grid holds at least that many
+tokens (``MViT.remats``).
 """
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from pmv_tpu_torch.models.attention import MultiScaleBlock, resize_axis
 from pmv_tpu_torch.models.build import MODEL_REGISTRY
@@ -172,6 +179,8 @@ class MViT(nn.Module):
         super().__init__()
         self.compute_dtype = dtype
         self.cls_on = cfg.MVIT.CLS_EMBED_ON
+        self.act_checkpoint = cfg.MODEL.ACT_CHECKPOINT
+        self.remat_min_seq = cfg.TPU.REMAT_MIN_SEQ
         self.use_mean_pooling = cfg.MVIT.USE_MEAN_POOLING
         input_dims = geometry(cfg)
         patch_stride = list(cfg.MVIT.PATCH_STRIDE)
@@ -318,6 +327,17 @@ class MViT(nn.Module):
             masks.append(block_masks)
         return masks
 
+    def remats(self, thw):
+        """Whether a block whose input is on the token grid ``thw`` (a rank's
+        inside ``mesh.sequence_parallel``) recomputes its activations in a
+        train step's backward: under MODEL.ACT_CHECKPOINT, or where the
+        clip's tokens, T x H x W without the cls token, reach
+        TPU.REMAT_MIN_SEQ (> 0). The count is the clip's, not the rank's,
+        as the JAX package decides on the global grid."""
+        if self.act_checkpoint:
+            return True
+        return 0 < self.remat_min_seq <= int(np.prod(mesh.clip_grid(thw)))
+
     def forward(self, x, return_features=False, drop_path_masks=None,
                 head_dropout_mask=None, hw_switch=False, dropout_masks=None):
         """In train mode, ``drop_path_masks`` (one entry per block, from
@@ -340,16 +360,28 @@ class MViT(nn.Module):
                 cls_tokens = cls_tokens + self.pos_fixed[:, :s].to(x.dtype)
             x = torch.cat([cls_tokens, x], dim=1)
         if self.use_abs_pos:
-            clip = thw if lay is None else (thw[0] * lay.model_size, *thw[1:])
-            x = x + mesh.local_planes(self._abs_pos_embed(clip), 1, plane, s).to(x.dtype)
+            x = x + mesh.local_planes(self._abs_pos_embed(mesh.clip_grid(thw)), 1, plane,
+                                      s).to(x.dtype)
         pos_mask, *dropouts = dropout_masks or [None] * (len(self.blocks) + 1)
         x = self.pos_drop(x, mesh.local_planes(pos_mask, 1, plane, s))
         if self.norm_stem is not None:
             x = self.norm_stem(x)
 
         masks = drop_path_masks or [None] * len(self.blocks)
+        recompute = self.training and torch.is_grad_enabled()
         for block, block_masks, block_dropouts in zip(self.blocks, masks, dropouts):
-            x, thw = block(x, thw, block_masks, hw_switch, block_dropouts)
+            args = (x, thw, block_masks, hw_switch, block_dropouts)
+            if recompute and self.remats(thw):
+                # The recompute draws nothing (the DropPath and dropout keep
+                # masks come in as arguments), so it needs no RNG state; it
+                # runs K1's forward again, and the block's T collectives
+                # under dp_sp, in the same order on every rank of a model
+                # group. It runs in the backward, outside the step's
+                # mesh.sequence_parallel: _block_in re-enters the layout.
+                x, thw = checkpoint(_block_in, lay, block, *args, use_reentrant=False,
+                                    preserve_rng_state=False)
+            else:
+                x, thw = block(*args)
         x = self.features(x)
         if return_features:
             return x, thw
@@ -363,6 +395,13 @@ class MViT(nn.Module):
         else:
             x = mesh.t_mean(self.norm(x), (1,))
         return self.head(x, head_dropout_mask)
+
+
+def _block_in(lay, block, *args):
+    """``block(*args)`` inside the sequence parallelism of ``lay`` (None:
+    outside it)."""
+    with mesh.sequence_parallel(lay):
+        return block(*args)
 
 
 @MODEL_REGISTRY.register(name="MViT")

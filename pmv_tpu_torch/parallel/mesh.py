@@ -222,9 +222,9 @@ def group(lay, kind):
 @contextlib.contextmanager
 def sequence_parallel(lay):
     """Run the forwards within on this rank's T slice of ``lay`` (nothing
-    changes for a layout without a model axis)."""
+    changes for None, or a layout without a model axis)."""
     global _active
-    if not lay.sequence_parallel:
+    if lay is None or not lay.sequence_parallel:
         yield
         return
     previous, _active = _active, lay
@@ -259,6 +259,15 @@ def whole_rows(lay):
 def rows():
     """The layout of the ``whole_rows`` forward under way, or None."""
     return _rows
+
+
+def clip_grid(thw):
+    """The clip's (T, H, W) of a token grid ``thw``: inside
+    ``sequence_parallel`` a rank's T times the model size (every rank holds
+    as many planes), else ``thw`` itself."""
+    if _active is None:
+        return tuple(thw)
+    return (thw[0] * _active.model_size, *thw[1:])
 
 
 def local_planes(t, dim, per_plane=1, lead=0):

@@ -25,7 +25,11 @@
   the port's one-process step on the global batch; the same steps under
   fsdp with TPU.MESH_SHAPE [2, 2] (the parameters sharded over the data
   group) equal to it and to dp_sp's; a checkpoint of each strategy loaded
-  under the other; MoCo's momentum buffers under fsdp over the data group.
+  under the other; MoCo's momentum buffers under fsdp over the data group;
+  MViT's step under TPU.REMAT_MIN_SEQ, between a rank's token count and
+  the clip's, under dp_sp and under fsdp with the model axis: each rank
+  recomputes the blocks JAX's rule picks on the clip's grid, and the step
+  equals one process's.
   A model axis under fsdp and dp lays the grid of ``create_mesh``.
 - ``run_net`` with NUM_GPUS 2 and TPU.SHARD_STRATEGY dp_sp on the tiny
   yaml at 4 frames (2 token planes, one a rank): train, the gathered eval,
@@ -344,6 +348,18 @@ def _moco_case():
     return {"cfg": cfg, "state_dict": model.state_dict()}
 
 
+# MViT's blocks see the clip's 4 x 4 x 4 = 64 tokens, a rank's 2 planes of
+# them 32: TPU.REMAT_MIN_SEQ 48 lies between, so the rank's count alone would
+# recompute no block, and JAX's rule on the global grid recomputes both.
+GRID_REMAT_MIN_SEQ = 48
+
+
+def _remat_cfg(cfg):
+    cfg = cfg.clone()
+    cfg.TPU.REMAT_MIN_SEQ = GRID_REMAT_MIN_SEQ
+    return cfg
+
+
 @pytest.fixture(scope="module")
 def grid_ranks(tmp_path_factory):
     """MViT's and UniFormer's dp_sp and fsdp steps on 4 ranks, a grid of
@@ -355,6 +371,9 @@ def grid_ranks(tmp_path_factory):
     for name, cfg, seed in (("mvit", _grid_cfg(), 4), ("uniformer", _grid_uniformer_cfg(), 6)):
         models[name], cases[name] = _grid_case(cfg, seed)
         cases[f"{name}_fsdp"] = dict(cases[name], cfg=_fsdp_cfg(cfg))
+    remat = _remat_cfg(cases["mvit"]["cfg"])
+    cases["mvit_remat"] = dict(cases["mvit"], cfg=remat)
+    cases["mvit_remat_fsdp"] = dict(cases["mvit"], cfg=_fsdp_cfg(remat))
     cases["moco"] = _moco_case()
     torch.save(cases, case_dir / "grid_case.pt")
     procs = start_ranks(rank_grid_case, str(case_dir), world=4,
@@ -428,6 +447,29 @@ def test_a_2x2_grid_fsdp_step_equals_one_process_and_dp_sp(grid_ranks, name):
         np.testing.assert_allclose(fsdp["metrics"][key], dp_sp["metrics"][key], rtol=1e-5)
     diff = sum(float((fsdp["grads"][k] - g).square().sum()) for k, g in dp_sp["grads"].items())
     assert (diff / sum(float(g.square().sum()) for g in dp_sp["grads"].values())) ** 0.5 < 1e-5
+
+
+@pytest.mark.parametrize("name", ["mvit_remat", "mvit_remat_fsdp"])
+def test_a_2x2_grid_recompute_takes_jaxs_blocks_and_equals_one_process(grid_ranks, name):
+    """TPU.REMAT_MIN_SEQ under dp_sp, and under fsdp with a model axis
+    (FSDP2's pre-forward hook runs again in the recompute): every rank
+    recomputes the blocks that the JAX package's rule picks on the clip's
+    grid, each rank runs its T collectives again in the backward, and the
+    step is one process's step without recompute."""
+    from test_torch_port_remat import jax_rematted
+
+    got, refs = grid_ranks
+    cfg = _remat_cfg(_grid_cfg())
+    want = jax_rematted(cfg)
+    assert want == {0, 1}
+    for rank_calls in got["block_calls"][name]:
+        assert {i for i, n in enumerate(rank_calls) if n == 2} == want
+        assert all(n in (1, 2) for n in rank_calls)
+    _assert_grid_step(got["steps"][name], refs["mvit"], skip=("norm_k.bias",))
+    dp_sp = got["steps"]["mvit"]
+    diff = sum(float((got["steps"][name]["grads"][k] - g).square().sum())
+               for k, g in dp_sp["grads"].items())
+    assert (diff / sum(float(g.square().sum()) for g in dp_sp["grads"].values())) ** 0.5 < 1e-6
 
 
 def test_a_grid_checkpoint_resumes_across_dp_sp_and_fsdp(grid_ranks):

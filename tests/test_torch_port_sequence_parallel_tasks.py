@@ -10,7 +10,9 @@ the world instead of the data group would count every row twice:
   rank, one token plane), the PT recipe's AdamW step: with the loader's
   masks of unequal counts against the JAX package's global step (JAX's HOG
   bins held; float32 atol 2e-4 / rtol 1e-4, the gradients to a relative L2
-  of 1e-4), and with the model's own draw against one process; K1 on each
+  of 1e-4), and with the model's own draw against one process, also with
+  MVIT.DROPOUT_RATE 0.1 (the keep masks drawn for the global batch's clips,
+  each rank's forward taking its token planes of them); K1 on each
   rank's 1 + 2 token planes, K and V gathered in the backbone and the
   decoder;
 - MoCo and SimCLR on the tiny Slow (the views whole on every rank, float64
@@ -54,6 +56,7 @@ from pmv_tpu.models import build_model as jax_build_model
 from pmv_tpu.models import optimizer as joptim
 from pmv_tpu_torch.config import get_cfg
 from pmv_tpu_torch.data.loader import short_cycle_factors
+from pmv_tpu_torch.engine import ssl_steps
 from pmv_tpu_torch.entry import mvitv2_s_cfg
 from pmv_tpu_torch.models import build_model
 from pmv_tpu_torch.ops import depthwise as dw
@@ -119,6 +122,9 @@ def _maskfeat_cases():
               "draws": {"hog_bins": torch.tensor(jax_hog_bins(x))}}
     drawn = {"cfg": pcfg, "state_dict": state_dict, "lr": mf_train.LR,
              "batch": {"frames": batch["frames"]}}
+    dropout_cfg = pcfg.clone()
+    dropout_cfg.MVIT.DROPOUT_RATE = 0.1
+    dropout = dict(drawn, cfg=dropout_cfg)
 
     def reference():
         b1 = cfg.SOLVER.BETAS[0]
@@ -129,7 +135,7 @@ def _maskfeat_cases():
         return {"metrics": [{k: float(v) for k, v in jm.items()}], "grads": grads,
                 "state": state_dict_from_jax(numpy_tree(jnew.params))}
 
-    return loader, drawn, reference
+    return loader, drawn, dropout, reference
 
 
 def _contrastive_case(ssl_type):
@@ -227,7 +233,7 @@ def _multigrid_case():
 
 
 JAX_CASES = ("maskfeat_loader", "det_slowfast", "det_slow")
-PORT_CASES = ("maskfeat_draw", "moco", "simclr", "features", "multigrid")
+PORT_CASES = ("maskfeat_draw", "maskfeat_dropout", "moco", "simclr", "features", "multigrid")
 
 
 @pytest.fixture(scope="module")
@@ -239,8 +245,8 @@ def task_ranks(tmp_path_factory):
     root = case_dir / "ava"
     write_ava_dump(str(root), videos=2, frames=90, width=64, height=48, seed=2)
     cases, references = {}, {}
-    cases["maskfeat_loader"], cases["maskfeat_draw"], references["maskfeat_loader"] = \
-        _maskfeat_cases()
+    (cases["maskfeat_loader"], cases["maskfeat_draw"], cases["maskfeat_dropout"],
+     references["maskfeat_loader"]) = _maskfeat_cases()
     for name in ("moco", "simclr"):
         cases[name] = _contrastive_case(name)
     for name in ("slowfast", "slow"):
@@ -294,6 +300,23 @@ def test_maskfeat_dp_sp_step_with_its_own_draw_equals_one_process(task_ranks):
     for got in results["maskfeat_draw"]:
         _assert_equals_one_process(got, refs["maskfeat_draw"], rtol=1e-5, grad_l2=1e-5,
                                    atol=1e-6)
+
+
+def test_maskfeat_dp_sp_dropout_masks_cut_to_a_ranks_planes_equal_one_process(task_ranks):
+    """MVIT.DROPOUT_RATE 0.1 in the backbone: the step draws the keep masks
+    for the global batch's clips, and each rank's forward takes its token
+    planes of them (``mesh.local_planes``)."""
+    results, refs, cases = task_ranks
+    case = cases["maskfeat_dropout"]
+    model = build_model(case["cfg"], device="cpu", dtype=torch.float32)
+    draws = ssl_steps.make_masked_train_step(case["cfg"], device="cpu").sample_draws(
+        model, case["batch"]["frames"].shape)
+    assert draws["dropout_masks"] is not None
+    for got in results["maskfeat_dropout"]:
+        _assert_equals_one_process(got, refs["maskfeat_dropout"], rtol=1e-5, grad_l2=1e-5,
+                                   atol=1e-6)
+    assert refs["maskfeat_dropout"]["metrics"][0]["loss"] != refs["maskfeat_draw"]["metrics"][0][
+        "loss"]
 
 
 def test_maskfeat_dp_sp_runs_k1_on_halo_extended_token_planes(task_ranks):

@@ -632,7 +632,9 @@ def rank_train_step(rank, world, case, strategy):
     rank's rows under ``strategy`` (under dp_sp, which the cfg must name,
     its data group's rows): its metrics, the whole gradients, the state
     after it, every rank's portrait route (the name of
-    ``steps.portrait_route``'s choice), and the TrainState."""
+    ``steps.portrait_route``'s choice), the calls of each MViT block in the
+    step (2 where it recomputed its activations in the backward), and the
+    TrainState."""
     from pmv_tpu_torch.engine.steps import init_state, make_train_step, portrait_route
     from pmv_tpu_torch.models import build_model
     from pmv_tpu_torch.parallel import distributed, mesh
@@ -640,6 +642,9 @@ def rank_train_step(rank, world, case, strategy):
     cfg = case["cfg"]
     model = build_model(cfg, device="cpu", dtype=case.get("dtype", torch.float32))
     model.load_state_dict(case["state_dict"])
+    calls = [0] * len(getattr(model, "blocks", []))
+    for i, block in enumerate(getattr(model, "blocks", [])):
+        block.register_forward_pre_hook(lambda *_, i=i: calls.__setitem__(i, calls[i] + 1))
     lay = mesh.layout(cfg)
     wrapped = distributed.wrap_model(model, strategy, torch.device("cpu"), lay)
     state = init_state(cfg, model, wrapped=wrapped)
@@ -651,7 +656,7 @@ def rank_train_step(rank, world, case, strategy):
     metrics = step(state, batch, case["lr"], case["draws"])
     grads = {k: distributed.full(p.grad).clone() for k, p in model.named_parameters()}
     return {"metrics": {k: float(v) for k, v in metrics.items()}, "grads": grads,
-            "state": whole_state(model), "routes": list(routes)}, state
+            "state": whole_state(model), "routes": list(routes), "block_calls": calls}, state
 
 
 def rank_av_steps(rank, world, case, strategy=None):
@@ -820,6 +825,10 @@ def rank_grid_case(rank, world, case_dir):
     for name, case in cases.items():
         strategy = case["cfg"].TPU.SHARD_STRATEGY
         out["steps"][name], states[name] = rank_train_step(rank, world, case, strategy)
+    calls = [None] * world  # every rank's MViT block calls of each step
+    torch.distributed.all_gather_object(
+        calls, {name: step["block_calls"] for name, step in out["steps"].items()})
+    out["block_calls"] = {name: [c[name] for c in calls] for name in out["steps"]}
     # A checkpoint of one strategy on the grid, loaded under the other.
     for name, other in (("mvit_fsdp", "dp_sp"), ("mvit", "fsdp")):
         cfg = cases[name]["cfg"].clone()
